@@ -13,17 +13,35 @@ toolkit.  Phases, each printing one JSON line:
              tokens, D 128): against its plain version in float32 and in
              bfloat16, times (CUDA events, median of 30 after warm-up) and
              the card's bound for the same work.
-4. main    - writes a run directory (opt.json: synthetic data at the
+4. kernels (training) - each forward kernel with dropout 0.1 (the vid
+             attention site in raw mode "target") and each backward kernel
+             at the headline training shapes, against the plain version
+             (forward) and autograd through it (backward) with the same
+             Philox mask, in float32 and bfloat16, and each backward twice
+             for the same bits; times and bounds as in 3.
+5. main    - writes a run directory (opt.json: synthetic data at the
              headline config, 32 examples, batch 16; best_valid.pth from a
              seeded init), runs the port's inference entry point on the card,
              checks the predictions and that every kernel launched; then one
              headline batch (50 frames) on the card against the same forward
              on the CPU in float32.
-5. serving - the eval step (forward, span search, grounding compaction) at
+6. serving - the eval step (forward, span search, grounding compaction) at
              batch 16 x 50 frames on a batch already on the card: host
              clock over 50 back-to-back steps ended by a synchronise (the
              metric: ms per batch, QA pairs per second), and the median
              CUDA-event time of one step.
+7. train main - ``python -m tvqaplus_tpu_torch.main`` on the card at the
+             headline training config (--use_sup_att --add_local, batch 16,
+             dropout 0.1, bf16) with --debug: checks that the losses are
+             finite and that all six forward/backward kernels launched, then
+             runs the inference entry point on the run directory it wrote.
+8. train vs cpu - one train step (50 frames, batch 4, dropout 0, float32)
+             on the card against the same step on the CPU.
+9. training - the headline train step (batch 16, 50 frames, bf16, dropout
+             0.1) on a batch already on the card: host clock over 20 steps
+             ended by a synchronise (ms per step, QA pairs trained per
+             second), the median CUDA-event time of one step, and the
+             device's busy time and idle share from ``torch.profiler``.
 
 Then the ``kernels`` summary line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line.
@@ -52,12 +70,26 @@ REPLACES = {
     "qa_ctx_attention": "tvqaplus_tpu/ops/pallas_attention.py:564",
     "tri_bridge": "tvqaplus_tpu/ops/pallas_tri_bridge.py:276",
     "encoder": "tvqaplus_tpu/ops/pallas_encoder.py:570",
+    "qa_ctx_attention_bwd": "tvqaplus_tpu/ops/pallas_attention.py:479",
+    "tri_bridge_bwd": "tvqaplus_tpu/ops/pallas_tri_bridge.py:223",
+    "encoder_bwd": "tvqaplus_tpu/ops/pallas_encoder.py:493",
 }
+BWD_SOURCES = {"qa_ctx_attention": "csrc/qa_ctx_attention_bwd.cu",
+               "tri_bridge": "csrc/tri_bridge_bwd.cu",
+               "encoder": "csrc/encoder_bwd.cu"}
+P_DROP, DROP_SEED = 0.1, 20181016
 # whole-model tolerances on answer_scores against the CPU float32 forward:
 # float32 on the card differs only in summation order (TF32 off); bf16
 # activations carry ~3 significant digits through ~10 layers
 FWD_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (1e-1, 5e-2)}
 SERVING_STEPS = 50
+TRAIN_STEPS, PROFILE_STEPS, CPU_STEP_BATCH = 20, 10, 4
+# one train step on the card (float32, TF32 off) against the CPU: the loss
+# is one float32 reduction of the same values; a gradient may differ where
+# a ReLU input or a max tie lies within float32 rounding of its decision
+# (ops/checks.py), so it is held relative to its parameter's largest
+# gradient (see phase_train_vs_cpu)
+STEP_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "grad_rel": 1e-2}
 
 
 def emit(obj):
@@ -94,7 +126,7 @@ def nbytes(*tensors):
 
 
 def max_err(got, want):
-    return max(float((g.float() - w.float()).abs().max())
+    return max(float((g.detach().float() - w.detach().float()).abs().max())
                for g, w in zip(got, want))
 
 
@@ -290,8 +322,7 @@ def phase_main(dev, kernel_mods, workdir):
     sd = model.state_dict()
     torch.save(sd, os.path.join(workdir, "best_valid.pth"))
 
-    for m in kernel_mods:
-        m.KERNEL.launches = 0
+    reset_counters(kernel_mods)
     t0 = time.perf_counter()
     pred_path = main_inference(["--model_dir", workdir, "--device", "cuda"])
     torch.cuda.synchronize()
@@ -375,6 +406,362 @@ def phase_serving(dev, cfg, sd):
           "qa_pairs_per_s": B / (out["step_ms"] / 1e3), **out})
 
 
+# ---------------------------------------------------------------- training
+def train_kernel_cases(dev):
+    """The training variants of ``kernel_cases``: dropout 0.1 in every
+    kernel, the vid attention site in raw mode "target".  Each case adds the
+    differentiable inputs (positions in args; the encoder's parameter dict
+    is differentiated as a whole), the plain version's flip rows
+    (ops/checks.py) and the backward's operations."""
+    from tvqaplus_tpu_torch.ops import checks
+    targets = torch.randint(0, A, (B,), generator=torch.Generator(
+        device=dev).manual_seed(SEED + 1), device=dev)
+    drop = dict(dropout_rate=P_DROP, seed=DROP_SEED)
+    cases = []
+    for (name, key, mod, kernel, plain, args, flops, src) in kernel_cases(dev):
+        if key == "qa_ctx_attention":
+            lr = args(torch.float32)[0][2].shape[2]
+            site = name[name.index("[") + 1:name.index(",")]
+            raw_mode = "target" if site == "vid" else "none"
+            kw = dict(raw_mode=raw_mode, targets=targets, **drop)
+
+            def flip(a):
+                return checks.attention_flip_rows(
+                    *a, dropout_rate=P_DROP, seed=DROP_SEED)[..., None]
+            diff = (0, 1, 2, 3, 6, 7, 8, 9)
+            m_rows = A * LQA
+            # recompute S and att, g_p, gqe, gcn, gqn; g_yd and gW
+            bflops = 2 * B * LI * m_rows * (6 * lr * D + 6 * D * D)
+            name = f"qa_ctx_attention[{site}, raw {raw_mode}, dropout]"
+        elif key == "tri_bridge":
+            kw = dict(drop)
+
+            def flip(a):
+                return checks.tri_bridge_flip_rows(*a[:6], P_DROP,
+                                                   DROP_SEED)[..., None]
+            diff = tuple(range(8))
+            bflops = 3 * flops             # recompute, g_yd, gW
+            name = "tri_bridge[dropout]"
+        else:
+            kw = dict(drop)
+
+            def flip(a):
+                return checks.encoder_flip_groups(*a, P_DROP,
+                                                  DROP_SEED)[..., None]
+            diff = (0, 2)
+            # three D x D products forward (layer 0 twice), g_c and gpw per
+            # layer
+            bflops = 7 * flops // 2
+            name = "encoder_reduce[dropout]"
+        cases.append((name, key, mod, kernel, plain, args, kw, flip, diff,
+                      flops, bflops, src))
+    return cases
+
+
+def _leaves(a, diff):
+    """Fresh leaves of ``a`` (a tuple of args) that require grad at the
+    positions in ``diff`` (a dict of tensors: every value)."""
+    out, grads = [], []
+    for i, t in enumerate(a):
+        if i in diff and isinstance(t, dict):
+            t = {k: v.detach().clone().requires_grad_(True)
+                 for k, v in t.items()}
+            grads += list(t.values())
+        elif i in diff:
+            t = t.detach().clone().requires_grad_(True)
+            grads.append(t)
+        out.append(t)
+    return out, grads
+
+
+def _outputs(o):
+    return o if isinstance(o, tuple) else (o,)
+
+
+def _cotangents(outs, flip, gen):
+    """Random cotangents of the outputs, zero on the flip rows (and on the
+    raw scores of masked positions, which sit at -1e10)."""
+    cots = []
+    for j, o in enumerate(outs):
+        c = torch.randn(o.shape, generator=gen, device=o.device)
+        if j == 0:
+            c = c * ~flip
+        else:
+            c = c * (o > -1e9)
+        cots.append(c.to(o.dtype))
+    return cots
+
+
+def phase_train_kernels(dev):
+    """Forward kernels with dropout and the backward kernels against the
+    plain version and autograd through it (same Philox mask)."""
+    from tvqaplus_tpu_torch.ops import checks
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    for (name, key, mod, kernel, plain, args, kw, flip, diff, flops, bflops,
+         src) in train_kernel_cases(dev):
+        errs, gerrs = {}, {}
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            a, base_kw = args(dt)
+            kwa = {**base_kw, **kw}
+            fl = flip(a)
+            results = []
+            for fn in (kernel, plain):
+                ins, leaves = _leaves(a, diff)
+                outs = _outputs(fn(*ins, **kwa))
+                if not results:
+                    cots = _cotangents(outs, fl, gen)
+                torch.autograd.backward(outs, cots)
+                results.append((outs, [t.grad for t in leaves]))
+            torch.cuda.synchronize()
+            (got, g_got), (want, g_want) = results
+            tol = mod.TOL[dt]
+            if isinstance(tol, dict):
+                for out, g_, w_ in zip(("mixed", "raw"), got, want):
+                    assert_close(f"{name} {dname} {out}", [g_], [w_],
+                                 tol[out])
+            else:
+                assert_close(f"{name} {dname}", got, want, tol)
+            errs[dname] = max_err(got, want)
+            gerrs[dname] = max(
+                checks.grad_close(f"{name} {dname} grad {i}", g, w,
+                                  mod.GRAD_TOL[dt])
+                for i, (g, w) in enumerate(zip(g_got, g_want)))
+        a, base_kw = args(torch.bfloat16)
+        kwa = {**base_kw, **kw}
+        fl = flip(a)
+        graphs = {}
+        for tag, fn in (("kernel", kernel), ("plain", plain)):
+            ins, leaves = _leaves(a, diff)
+            outs = _outputs(fn(*ins, **kwa))
+            graphs[tag] = (outs, leaves, _cotangents(outs, fl, gen))
+        outs, leaves, cots = graphs["kernel"]
+        tensors = [t for t in a if torch.is_tensor(t)]
+        if key == "encoder":
+            tensors += list(a[2].values())
+        moved = nbytes(*tensors, *outs)
+        b_ms, b_by = bound(moved, flops)
+        row = {"name": name, "route": "cuda",
+               "source": f"tvqaplus_tpu_torch/{src}",
+               "replaces": REPLACES[key], "max_abs_err": errs["bfloat16"],
+               "max_abs_err_f32": errs["float32"],
+               "ms": time_ms(lambda: kernel(*a, **kwa)),
+               "plain_ms": time_ms(lambda: plain(*a, **kwa)),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               "bytes": moved, "flops": flops, "_key": key}
+        emit({"phase": "kernel_train", "ok": True,
+              **{k: v for k, v in row.items() if k != "_key"}})
+        rows.append(row)
+
+        def backward(tag):
+            o, lv, c = graphs[tag]
+            return torch.autograd.grad(o, lv, c, retain_graph=True)
+        grads = backward("kernel")
+        # the cross-block sums run in a fixed order: the same bits again
+        if not all(torch.equal(g, h) for g, h in zip(grads,
+                                                      backward("kernel"))):
+            raise AssertionError(f"{name}: backward differs between runs")
+        saved = [o for o in outs[:1]] if key == "qa_ctx_attention" else []
+        bmoved = nbytes(*tensors, *saved, *cots, *grads)
+        b_ms, b_by = bound(bmoved, bflops)
+        row = {"name": name.replace("[", " backward["), "route": "cuda",
+               "source": f"tvqaplus_tpu_torch/{BWD_SOURCES[key]}",
+               "replaces": REPLACES[key + "_bwd"],
+               "max_abs_err": gerrs["bfloat16"],
+               "max_abs_err_f32": gerrs["float32"],
+               "ms": time_ms(lambda: backward("kernel")),
+               "plain_ms": time_ms(lambda: backward("plain")),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               "bytes": bmoved, "flops": bflops, "deterministic": True,
+               "_key": key + "_bwd"}
+        emit({"phase": "kernel_train", "ok": True,
+              **{k: v for k, v in row.items() if k != "_key"}})
+        rows.append(row)
+        del graphs, grads
+    return rows
+
+
+def reset_counters(kernel_mods):
+    for m in kernel_mods:
+        m.KERNEL.launches = 0
+        m.BWD_KERNEL.launches = 0
+
+
+def read_counters(kernel_mods):
+    out = {}
+    for m in kernel_mods:
+        name = m.__name__.rsplit(".", 1)[1]
+        out[name] = m.KERNEL.launches
+        out[name + "_bwd"] = m.BWD_KERNEL.launches
+    return out
+
+
+def phase_train_main(dev, kernel_mods, workdir):
+    """The training entry point on the card at the headline training
+    config, then the inference entry point on the run it wrote."""
+    import math
+    from tvqaplus_tpu_torch.inference import main_inference
+    from tvqaplus_tpu_torch.main import main as train_main
+    argv = ["--synthetic_data", "--debug", "--add_local", "--use_sup_att",
+            "--bsz", str(B), "--test_bsz", str(B), "--log_freq", "2",
+            "--synthetic_n_valid", "32", "--seed", str(SEED),
+            "--results_dir_base", os.path.join(workdir, "train", "results"),
+            "--device", "cuda"]
+    reset_counters(kernel_mods)
+    t0 = time.perf_counter()
+    run_dir, trainer = train_main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counters(kernel_mods)
+    with open(os.path.join(run_dir, "opt.json")) as f:
+        opt = json.load(f)
+    if not (opt["use_sup_att"] and opt["add_local"]
+            and opt["compute_dtype"] == "bfloat16" and opt["dropout"] > 0):
+        raise AssertionError(f"not the headline training config: {opt}")
+    scalars = {}
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            scalars.setdefault(rec["tag"], []).append(rec["value"])
+    losses = [v for tag in ("Train/Loss", "Train/Loss_att", "Train/Loss_cls",
+                            "Train/Loss_ts", "Valid/Loss")
+              for v in scalars.get(tag, [])]
+    if not scalars.get("Train/Loss") or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"training losses: {scalars}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel did not launch: {launches}")
+    if not os.path.exists(os.path.join(run_dir, "best_valid.pth")):
+        raise AssertionError("the run wrote no best_valid.pth")
+    pred_path = main_inference(["--model_dir", run_dir, "--device", "cuda"])
+    with open(pred_path) as f:
+        pred = json.load(f)
+    if len(pred["ts_answer"]) != opt["synthetic_n_valid"]:
+        raise AssertionError(f"{len(pred['ts_answer'])} predictions")
+    emit({"phase": "train_main", "ok": True, "launches": launches,
+          "steps": trainer.step, "wall_s": wall_s,
+          "train_loss": scalars["Train/Loss"],
+          "valid_acc": scalars.get("Valid/Acc"),
+          "inference_answers": len(pred["ts_answer"])})
+    return launches
+
+
+def train_batch(cfg, dev, n):
+    from tvqaplus_tpu_torch.data.batching import (
+        StaticShapeSpec,
+        collate_static,
+    )
+    from tvqaplus_tpu_torch.data.synthetic import SyntheticTVQADataset
+    ds = SyntheticTVQADataset(cfg, n, mode="train")
+    spec = StaticShapeSpec.from_config(cfg, batch=n, train=True
+                                       ).with_max_img(LI)
+    arrays, _ = collate_static([ds[i] for i in range(n)], spec)
+    return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+
+
+def train_config(workdir, **kw):
+    from tvqaplus_tpu_torch.config import Config
+    return Config(synthetic_data=True, add_local=True, use_sup_att=True,
+                  seed=SEED, results_dir=workdir, **kw)
+
+
+def phase_train_vs_cpu(dev, workdir):
+    """One train step on the card against the same step on the CPU."""
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    n = CPU_STEP_BATCH
+    cfg = train_config(workdir, bsz=n, dropout=0.0, compute_dtype="float32")
+    cfg.finalize("cpu")
+    model = STAGE(ModelConfig.from_config(cfg)).reset_parameters(
+        torch.Generator().manual_seed(SEED))
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    steps = {}
+    for where in ("cuda", "cpu"):
+        m = STAGE(ModelConfig.from_config(cfg))
+        m.load_state_dict(sd)
+        trainer = Trainer(cfg, where, model=m)
+        metrics = trainer.train_step(train_batch(cfg, where, n),
+                                     use_hard_negatives=True)
+        steps[where] = (metrics, {k: p.grad.detach().float().cpu()
+                                  for k, p in m.named_parameters()})
+    (mg, gg), (mc, gc) = steps["cuda"], steps["cpu"]
+    loss_err = abs(float(mg["loss"]) - float(mc["loss"]))
+    norm_err = abs(float(mg["grad_norm"]) - float(mc["grad_norm"]))
+    # relative to the parameter's largest gradient, floored at 1e-4 of the
+    # largest of all: a gradient that sums to ~0 (a bias right before the
+    # answer softmax) compares its rounding otherwise
+    floor = 1e-4 * max(float(g.abs().max()) for g in gc.values())
+    rel = {k: float((gg[k] - gc[k]).abs().max())
+           / max(float(gc[k].abs().max()), floor) for k in gc}
+    worst = max(rel, key=rel.get)
+    checks = {"loss": loss_err / abs(float(mc["loss"])),
+              "grad_norm": norm_err / float(mc["grad_norm"]),
+              "grad_rel": rel[worst]}
+    failed = {k: v for k, v in checks.items() if not v <= STEP_TOL[k]}
+    if failed:
+        raise AssertionError(f"train step on the card vs the CPU: {failed} "
+                             f"(bars {STEP_TOL}; worst grad {worst})")
+    emit({"phase": "train_vs_cpu", "ok": True, "batch": n, "frames": LI,
+          "loss_cuda": float(mg["loss"]), "loss_cpu": float(mc["loss"]),
+          "grad_norm_cuda": float(mg["grad_norm"]),
+          "grad_norm_cpu": float(mc["grad_norm"]), "rel_err": checks,
+          "worst_grad": worst, "tol": STEP_TOL})
+
+
+def phase_training(dev, workdir):
+    """The headline train step on a batch already on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    cfg = train_config(workdir, bsz=B).finalize(dev)
+    trainer = Trainer(cfg, dev)
+    batch = train_batch(cfg, dev, B)
+
+    def step():
+        return trainer.train_step(batch)
+    out = {"event_ms": time_ms(step, reps=10)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        metrics = step()
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    loss = float(metrics["loss"])
+    if not torch.isfinite(torch.tensor(loss)):
+        raise AssertionError(f"training loss {loss}")
+    # device busy time: the kernels' own times (one stream, no overlap;
+    # the profiler's annotation ranges such as the optimizer's are not
+    # kernels); the idle share is taken against the unprofiled host clock,
+    # as tracing slows the host
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_STEPS):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("Optimizer.")]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 \
+        / PROFILE_STEPS
+    by_name = {}
+    for e in kernels:
+        c, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
+    top = [{"kernel": k[:80], "calls_per_step": c / PROFILE_STEPS,
+            "ms_per_step": t / 1e3 / PROFILE_STEPS}
+           for k, (c, t) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][1])[:12]]
+    emit({"phase": "training", "ok": True, "batch": B, "frames": LI,
+          "compute_dtype": cfg.compute_dtype, "dropout": cfg.dropout,
+          "steps": TRAIN_STEPS, "loss": loss,
+          "qa_pairs_per_s": B / (out["step_ms"] / 1e3), **out,
+          "device_busy_ms": busy_ms if kernels else None,
+          "device_idle_share": (1 - busy_ms / out["step_ms"]) if kernels
+          else None,
+          "launches_per_step": len(kernels) / PROFILE_STEPS,
+          "top_kernels": top})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -396,14 +783,20 @@ def main():
     phase_device()
     phase_build()
     rows = phase_kernels(dev)
+    train_rows = phase_train_kernels(dev)
     from tvqaplus_tpu_torch.ops import _build
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
         cfg, sd, launches = phase_main(dev, kernel_mods, workdir)
-    phase_serving(dev, cfg, sd)
+        phase_serving(dev, cfg, sd)
+        train_launches = phase_train_main(dev, kernel_mods, workdir)
+        phase_train_vs_cpu(dev, workdir)
+        phase_training(dev, workdir)
     for row in rows:
         row["launches"] = launches[row.pop("_key")]
-    emit({"kernels": rows})
+    for row in train_rows:
+        row["launches"] = train_launches[row.pop("_key")]
+    emit({"kernels": rows + train_rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

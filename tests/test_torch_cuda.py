@@ -1,4 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions on a card.
+"""The port's CUDA kernels against their plain PyTorch versions on a card:
+the forwards (with and without dropout) against the plain versions, the
+backwards against autograd through them with the same Philox mask, and the
+inputs each kernel refuses.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips where
 ``torch.cuda.is_available()`` is false.  The file imports neither JAX nor
@@ -10,7 +13,12 @@ import pytest
 import torch
 
 from tvqaplus_tpu_torch.models.attention import l2_normalize
-from tvqaplus_tpu_torch.ops import encoder, qa_ctx_attention, tri_bridge
+from tvqaplus_tpu_torch.ops import (
+    checks,
+    encoder,
+    qa_ctx_attention,
+    tri_bridge,
+)
 
 D = 128
 
@@ -76,7 +84,9 @@ def test_qa_ctx_attention_kernel_rejects_what_it_does_not_take(cuda):
         qa_ctx_attention.qa_ctx_attention(*args)
     args = attn_args(cuda, torch.float32)
     with pytest.raises(NotImplementedError):
-        qa_ctx_attention.qa_ctx_attention(*args, dropout_rate=0.1)
+        qa_ctx_attention.qa_ctx_attention(*args, raw_mode="partial")
+    with pytest.raises(ValueError):      # "target" needs the targets
+        qa_ctx_attention.qa_ctx_attention(*args, raw_mode="target")
     args[4] = args[4].cpu()          # a mask left on the host
     with pytest.raises(ValueError):
         qa_ctx_attention.qa_ctx_attention(*args)
@@ -128,3 +138,171 @@ def test_encoder_kernel_matches_plain(cuda, dtype, l, k):
     torch.cuda.synchronize()
     close(got, want, encoder.TOL[dt])
     assert (got[0, 1].float() == want[0, 1].float()).all()
+
+
+# ------------------------------------------------------------------ training
+# Dropout rate and Philox seed of the training-path checks.
+P_DROP, SEED = 0.1, 12345
+
+
+def leaves(tensors):
+    return [t.detach().clone().requires_grad_(t.is_floating_point())
+            for t in tensors]
+
+
+def grads_of(fn, inputs, cotangents):
+    """Gradients of sum(out * cotangent) over the outputs of fn(*inputs)."""
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward([o for o in outs],
+                            [c.to(o.dtype) for o, c in zip(outs, cotangents)])
+    return outs, [t.grad for t in inputs if t.requires_grad]
+
+
+ATT_GRAD_INPUTS = (0, 1, 2, 3, 6, 7, 8, 9)     # cn ce qn qe gamma beta w b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("raw_mode", ["none", "target"])
+def test_qa_ctx_attention_training_kernels_match_plain(cuda, dtype,
+                                                       raw_mode):
+    """Forward with in-kernel dropout and the backward kernel against the
+    plain version (autograd, the same Philox mask) on the same inputs and
+    cotangents."""
+    dt = getattr(torch, dtype)
+    args = attn_args(cuda, dt, lr=25)
+    targets = torch.tensor([3, 0], device=cuda)
+    kw = dict(raw_mode=raw_mode, targets=targets, dropout_rate=P_DROP,
+              seed=SEED)
+    gen = torch.Generator().manual_seed(4)
+    # no cotangent on a row whose ReLU sign rounding could flip
+    # (ops/checks.py), nor on a masked raw score
+    flip = checks.attention_flip_rows(*args, dropout_rate=P_DROP, seed=SEED)
+    gm = randn(gen, 2, 5, 4, 40, D).to(cuda) * (~flip)[..., None]
+    c_t = args[4][torch.arange(2, device=cuda), targets]        # (B, Lqa)
+    live = c_t[:, None, :, None] * args[5][:, :, None, :]
+    cot = [gm] + ([randn(gen, 2, 4, 40, 25).to(cuda) * live]
+                  if raw_mode == "target" else [])
+    fwd0, bwd0 = (qa_ctx_attention.KERNEL.launches,
+                  qa_ctx_attention.BWD_KERNEL.launches)
+
+    def kernel(*a):
+        return qa_ctx_attention.qa_ctx_attention(*a, **kw)
+
+    def plain(*a):
+        return qa_ctx_attention.qa_ctx_attention_plain(*a, **kw)
+    ins_k = leaves(args)
+    ins_k[4].requires_grad_(False)
+    ins_k[5].requires_grad_(False)
+    ins_p = leaves(args)
+    ins_p[4].requires_grad_(False)
+    ins_p[5].requires_grad_(False)
+    out_k, g_k = grads_of(kernel, ins_k, cot)
+    out_p, g_p = grads_of(plain, ins_p, cot)
+    torch.cuda.synchronize()
+    assert qa_ctx_attention.KERNEL.launches == fwd0 + 1
+    assert qa_ctx_attention.BWD_KERNEL.launches == bwd0 + 1
+    tol = qa_ctx_attention.TOL[dt]
+    close(out_k[0], out_p[0], tol["mixed"])
+    if raw_mode == "target":
+        close(out_k[1], out_p[1], tol["raw"])
+    for i, gk, gp in zip(ATT_GRAD_INPUTS, g_k, g_p):
+        assert gk.dtype == ins_k[i].dtype
+        checks.grad_close(f"grad {i}", gk, gp, qa_ctx_attention.GRAD_TOL[dt])
+    # the fully masked frame (1, 2) gets no qn gradient
+    assert (g_k[2][1, 2] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tri_bridge_training_kernels_match_plain(cuda, dtype):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(5)
+    rows = (2, 5, 3, 40)
+    s = randn(gen, *rows, D).to(cuda, dt)
+    v = randn(gen, *rows, D).to(cuda, dt)
+    params = [1 + randn(gen, 3 * D, scale=0.1), randn(gen, 3 * D, scale=0.1),
+              randn(gen, 3 * D, D, scale=(3 * D) ** -0.5),
+              randn(gen, D, scale=0.1), 1 + randn(gen, D, scale=0.1),
+              randn(gen, D, scale=0.1)]
+    args = [s, v] + [p.to(cuda) for p in params]
+    flip = checks.tri_bridge_flip_rows(*args[:6], P_DROP, SEED)
+    cot = [randn(gen, *rows, D).to(cuda) * (~flip)[..., None]]
+    bwd0 = tri_bridge.BWD_KERNEL.launches
+    out_k, g_k = grads_of(
+        lambda *a: tri_bridge.tri_bridge(*a, P_DROP, SEED), leaves(args), cot)
+    out_p, g_p = grads_of(
+        lambda *a: tri_bridge.tri_bridge_plain(*a, P_DROP, SEED),
+        leaves(args), cot)
+    torch.cuda.synchronize()
+    assert tri_bridge.BWD_KERNEL.launches == bwd0 + 1
+    close(out_k[0], out_p[0], tri_bridge.TOL[dt])
+    for i, (gk, gp) in enumerate(zip(g_k, g_p)):
+        checks.grad_close(f"grad {i}", gk, gp, tri_bridge.GRAD_TOL[dt])
+
+
+def encoder_args(cuda, dt, gen, b=2, g=10, l=40, k=5):
+    x = randn(gen, b, g, l, D).to(cuda, dt)
+    pe = randn(gen, l, D, scale=0.1).to(cuda)
+    p = {}
+    for i in (0, 1):
+        p.update({f"ln{i}_s": 1 + randn(gen, D, scale=0.1),
+                  f"ln{i}_b": randn(gen, D, scale=0.1),
+                  f"dw{i}": randn(gen, k, D, scale=0.3),
+                  f"dwb{i}": randn(gen, D, scale=0.1),
+                  f"pw{i}": randn(gen, D, D, scale=D ** -0.5),
+                  f"pwb{i}": randn(gen, D, scale=0.1)})
+    p["lnf_s"] = 1 + randn(gen, D, scale=0.1)
+    p["lnf_b"] = randn(gen, D, scale=0.1)
+    mask = (torch.rand(b, g, l, generator=gen) > 0.3).float()
+    mask[0, 1] = 0                   # all-zero group: no gradient
+    return x, pe, {key: t.to(cuda) for key, t in p.items()}, mask.to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("l,k", [(40, 5), (9, 3)])
+def test_encoder_training_kernels_match_plain(cuda, dtype, l, k):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(6)
+    x, pe, p, mask = encoder_args(cuda, dt, gen, l=l, k=k)
+    flip = checks.encoder_flip_groups(x, pe, p, k, mask, P_DROP, SEED)
+    cot = [randn(gen, 2, 10, D).to(cuda) * (~flip)[..., None]]
+    keys = encoder.PARAM_KEYS
+
+    def run(fn):
+        xs = x.detach().clone().requires_grad_(True)
+        ps = {key: t.detach().clone().requires_grad_(True)
+              for key, t in p.items()}
+        out, _ = grads_of(lambda a: fn(a, pe, ps, k, mask, P_DROP, SEED),
+                          [xs], cot)
+        return out[0], [xs.grad] + [ps[key].grad for key in keys]
+    bwd0 = encoder.BWD_KERNEL.launches
+    out_k, g_k = run(encoder.encoder_reduce)
+    out_p, g_p = run(encoder.encoder_reduce_plain)
+    torch.cuda.synchronize()
+    assert encoder.BWD_KERNEL.launches == bwd0 + 1
+    close(out_k, out_p, encoder.TOL[dt])
+    for name, gk, gp in zip(("x",) + keys, g_k, g_p):
+        checks.grad_close(name, gk, gp, encoder.GRAD_TOL[dt])
+    assert (g_k[0][0, 1] == 0).all()
+
+
+@pytest.mark.cuda
+def test_backward_kernels_refuse_what_they_do_not_take(cuda):
+    gen = torch.Generator().manual_seed(7)
+    args = attn_args(cuda, torch.float32)
+    mixed = qa_ctx_attention.qa_ctx_attention(*args, raw_mode="none")
+    with pytest.raises(ValueError):          # cotangent of another shape
+        qa_ctx_attention.qa_ctx_attention_backward(
+            *args, mixed[:, :2], None, mixed, raw_mode="none")
+    s = randn(gen, 3, D).to(cuda)
+    params = [torch.ones(3 * D), torch.zeros(3 * D), torch.zeros(3 * D, D),
+              torch.zeros(D), torch.ones(D), torch.zeros(D)]
+    with pytest.raises(ValueError):          # parameters left on the host
+        tri_bridge.tri_bridge_backward(s, s, *params, s)
+    x, pe, p, mask = encoder_args(cuda, torch.float32, gen, l=60)
+    with pytest.raises(ValueError):          # L > MAX_LEN
+        encoder.encoder_reduce_backward(
+            x, pe, encoder.pack_params(p), mask, x[:, :, 0], 5)

@@ -95,6 +95,8 @@ def test_qa_ctx_attention_cpu_wrapper_is_plain(raw_mode):
                     want if raw_mode == "full" else (want,)):
         assert torch.equal(g, w)
     with pytest.raises(NotImplementedError):
+        qa_ctx_attention.qa_ctx_attention(*args, raw_mode="partial")
+    with pytest.raises(ValueError, match="targets"):
         qa_ctx_attention.qa_ctx_attention(*args, raw_mode="target")
 
 

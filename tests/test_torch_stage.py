@@ -15,6 +15,7 @@ from tests.test_stage_model import tiny_batch, tiny_cfg
 from tvqaplus_tpu.models.stage import STAGE as JaxSTAGE
 from tvqaplus_tpu.models.stage import ModelConfig as JaxModelConfig
 from tvqaplus_tpu_torch.interop.weights import params_from_flax
+from tvqaplus_tpu_torch.models.layers import Dropout
 from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
 
 torch.set_num_threads(1)
@@ -96,8 +97,46 @@ def test_eval_forward_matches_jax_at_reference_widths(dedup):
                                     "vid_raw_s"))
 
 
+def test_train_forward_matches_jax_pallas_tiny(max_num_proposal=2):
+    """The training forward at dropout 0 (JAX: its Pallas kernels in
+    interpret mode, raw mode "target"): (B, P, A) scores over the
+    GT-anchored proposals, their weights, the span logits and the target
+    answer's raw scores."""
+    batch = tiny_batch()
+    # a frame with no regions, outside the span mask (inside it, both
+    # packages push the encoder's -1e10 row through LayerNorms and get
+    # float32 cancellation: -4.8e7 logits in JAX, 0 here)
+    batch["vid_mask"][1, 3, :] = 0.0
+    batch["ts_mask"][1, 3] = 0.0
+    jcfg = tiny_cfg(use_pallas=True, add_local=True, dropout=0.0,
+                    max_num_proposal=max_num_proposal)
+    params = JaxSTAGE(dataclasses.replace(jcfg, use_pallas=False)).init(
+        {"params": jax.random.PRNGKey(0)}, batch, train=False)["params"]
+    fwd = dict(need_sub_raw=False, need_vid_raw="target")
+    ref = JaxSTAGE(jcfg).apply({"params": params}, batch, train=True, **fwd)
+    names = {f.name for f in dataclasses.fields(ModelConfig)}
+    model = STAGE(ModelConfig(**{n: getattr(jcfg, n) for n in names}))
+    model.load_state_dict(params_from_flax(
+        jax.tree_util.tree_map(np.asarray, params), jcfg), strict=True)
+    drop = Dropout(0.0, torch.Generator(), torch.Generator())
+    with torch.no_grad():
+        got = model({k: torch.from_numpy(np.asarray(v))
+                     for k, v in batch.items()}, train=True, drop=drop, **fwd)
+    assert got["answer_scores"].shape == (2, 1 + max_num_proposal, 5)
+    for k in ("answer_scores", "proposal_weights", "t_scores",
+              "vid_raw_target_s"):
+        g, r = got[k].float().numpy(), np.asarray(ref[k])
+        assert g.shape == r.shape, k
+        np.testing.assert_allclose(g, r, err_msg=k, rtol=2e-4, atol=2e-3)
+
+
 def test_train_mode_is_not_ported_yet():
+    """Training forwards take a Dropout (rate 0 for none); the parts of the
+    training path still to port (noun-mask attention) raise."""
     model = STAGE(ModelConfig(hsz=16, bridge_hsz=12, embedding_size=32,
                               vfeat_size=16))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="drop"):
         model({}, train=True)
+    drop = Dropout(0.0, torch.Generator(), torch.Generator())
+    with pytest.raises(NotImplementedError):
+        model({"qa_noun_masks": torch.ones(1)}, train=True, drop=drop)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional
@@ -161,8 +162,10 @@ class Config:
         if self.t_layer_type not in ("linear", "conv"):
             raise ValueError(f"t_layer_type {self.t_layer_type!r}")
         if self.debug:
-            self.results_dir_base = \
-                self.results_dir_base.split("/")[0] + "/debug_results"
+            # results/results -> results/debug_results (reference
+            # config.py), keeping the base's directory
+            self.results_dir_base = os.path.join(
+                os.path.dirname(self.results_dir_base), "debug_results")
             self.no_core_driver = True
             self.num_workers = 0
         if not self.results_dir:

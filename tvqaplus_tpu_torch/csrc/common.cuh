@@ -1,4 +1,4 @@
-// Shared device helpers for the port's forward kernels.
+// Shared device helpers for the port's kernels.
 //
 // Every kernel is built for a hidden width of D = 128 (the headline hsz):
 // a warp of 32 lanes covers one 128-wide row at 4 values a lane, and the
@@ -81,26 +81,39 @@ __device__ __forceinline__ void gemm_chunk(float (&acc)[RPT][4],
   }
 }
 
-// acc = Y (rows r0.., K wide, smem) x W (K x D row-major, device memory),
-// with W staged through the block's KC x D shared buffer Ws one chunk at a
-// time.  Every thread of the block must call it (it synchronises).
+// acc = Y (rows r0.., K wide, smem) x B[:, 0:D], where B is K x ldb
+// row-major in device memory (columns past D unread), staged through the
+// block's KC x D shared buffer Ws one chunk at a time.  Every thread of the
+// block must call it (it synchronises).
 template <int RPT>
-__device__ __forceinline__ void gemm_staged(float (&acc)[RPT][4],
-                                            const float* Y, int ys, int K,
-                                            const float* __restrict__ W,
-                                            float* Ws, int r0, int c0) {
+__device__ __forceinline__ void gemm_staged_ld(float (&acc)[RPT][4],
+                                               const float* Y, int ys, int K,
+                                               const float* __restrict__ B,
+                                               int ldb, float* Ws, int r0,
+                                               int c0) {
 #pragma unroll
   for (int j = 0; j < RPT; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   for (int k0 = 0; k0 < K; k0 += KC) {
     __syncthreads();                   // previous chunk fully consumed
-    const float4* src = reinterpret_cast<const float4*>(W + k0 * D);
     float4* dst = reinterpret_cast<float4*>(Ws);
-    for (int i = threadIdx.x; i < KC * D / 4; i += NTHREADS)
-      dst[i] = __ldg(src + i);
+    for (int i = threadIdx.x; i < KC * D / 4; i += NTHREADS) {
+      const int r = i / (D / 4), c = i % (D / 4);
+      dst[i] = __ldg(reinterpret_cast<const float4*>(
+                         B + static_cast<size_t>(k0 + r) * ldb) + c);
+    }
     __syncthreads();
     gemm_chunk<RPT>(acc, Y, ys, k0, Ws, KC, r0, c0);
   }
+}
+
+// acc = Y (rows r0.., K wide, smem) x W (K x D row-major, device memory).
+template <int RPT>
+__device__ __forceinline__ void gemm_staged(float (&acc)[RPT][4],
+                                            const float* Y, int ys, int K,
+                                            const float* __restrict__ W,
+                                            float* Ws, int r0, int c0) {
+  gemm_staged_ld<RPT>(acc, Y, ys, K, W, D, Ws, r0, c0);
 }
 
 template <typename T>

@@ -1,12 +1,14 @@
-// Fused QANet encoder block with the masked word-max folded in, forward
-// (eval: no dropout).
+// Fused QANet encoder block with the masked word-max folded in, forward,
+// with conv 0's dropout.
 //
 // Replaces the TPU kernel tvqaplus_tpu/ops/pallas_encoder.py
 // (fused_encoder_block -> _forward / _fwd_kernel, reduce_mask mode), STAGE's
 // cls_encoder.  For each of the N = B*G sequences x (L x D):
 //   h = x + pe
-//   2 x [ t = LN_i(h);  c = dwb_i + depthwise_k(t) zero-padded inside the
-//         sequence;  h = h + ReLU(c pw_i + pwb_i) ]
+//   2 x [ t = LN_i(h) (training, i = 0: times the Philox dropout mask of
+//         philox.cuh, keyed by the flat index of the (B*G*L, D) LN output);
+//         c = dwb_i + depthwise_k(t) zero-padded inside the sequence;
+//         h = h + ReLU(c pw_i + pwb_i) ]
 //   o = LN_f(h)                 (every LN: fast variance clipped at 0)
 //   out[d] = max_l (o[l, d] * m[l] + (m[l] - 1) * 1e10)
 // so a sequence whose mask is all zero gives -1e10 in every channel.  out is
@@ -24,61 +26,16 @@
 // the LN output t and the conv output c (3 x L x D float32) sit beside them,
 // so nothing but x in and the D-wide maximum out touches device memory.  The
 // depthwise taps read only rows 0..L-1 of t (zero padding at both ends).
-#include "common.cuh"
+#include "encoder.cuh"
 
 namespace {
 
 using namespace tvqa;
 
-// offsets into the packed float32 parameter buffer (see encoder.py)
-struct Params {
-  const float *ln_s[2], *ln_b[2], *dw[2], *dwb[2], *pw[2], *pwb[2];
-  const float *lnf_s, *lnf_b;
-  __device__ Params(const float* p, int k) {
-    for (int i = 0; i < 2; ++i) {
-      ln_s[i] = p; p += D;
-      ln_b[i] = p; p += D;
-      dw[i] = p;   p += k * D;
-      dwb[i] = p;  p += D;
-      pw[i] = p;   p += D * D;
-      pwb[i] = p;  p += D;
-    }
-    lnf_s = p; p += D;
-    lnf_b = p;
-  }
-};
-
 __host__ __device__ inline int rows_padded(int rpt) { return rpt * NWARPS; }
 
 __host__ __device__ inline int smem_floats(int L, int k, int rpt) {
   return 2 * D * D + 3 * rows_padded(rpt) * D + 2 * k * D + round4(L);
-}
-
-// LayerNorm of rows [0, L) of src into dst (warp per row, float32 stats,
-// fast variance clipped at 0).
-__device__ __forceinline__ void ln_rows(const float* src, float* dst, int L,
-                                        const float* __restrict__ g,
-                                        const float* __restrict__ bta,
-                                        int warp, int lane) {
-  for (int r = warp; r < L; r += NWARPS) {
-    float x[4], s = 0.f, ss = 0.f;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      x[q] = src[r * D + lane + 32 * q];
-      s += x[q];
-      ss = fmaf(x[q], x[q], ss);
-    }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    const float mean = s * (1.f / D);
-    const float istd =
-        rsqrtf(fmaxf(ss * (1.f / D) - mean * mean, 0.f) + LN_EPS);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int d = lane + 32 * q;
-      dst[r * D + d] = (x[q] - mean) * istd * g[d] + bta[d];
-    }
-  }
 }
 
 template <typename T, int RPT>
@@ -87,7 +44,7 @@ encoder_reduce_fwd_kernel(const T* __restrict__ x,
                           const float* __restrict__ pe,
                           const float* __restrict__ packed,
                           const float* __restrict__ mask, T* __restrict__ out,
-                          int N, int L, int k) {
+                          int N, int L, int k, Dropout drop) {
   extern __shared__ float4 smem4[];
   float* pw_s = reinterpret_cast<float*>(smem4);     // 2 x D x D
   const int LP = rows_padded(RPT);
@@ -96,9 +53,8 @@ encoder_reduce_fwd_kernel(const T* __restrict__ x,
   float* c_s = t_s + LP * D;
   float* dw_s = c_s + LP * D;                         // 2 x k x D
   float* m_s = dw_s + 2 * k * D;                      // L
-  const Params P(packed, k);
+  const EncParams P(packed, k);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int pad = k / 2;
 
   for (int i = 0; i < 2; ++i) {
     const float4* src = reinterpret_cast<const float4*>(P.pw[i]);
@@ -121,17 +77,11 @@ encoder_reduce_fwd_kernel(const T* __restrict__ x,
     for (int i = 0; i < 2; ++i) {
       ln_rows(h_s, t_s, L, P.ln_s[i], P.ln_b[i], warp, lane);
       __syncthreads();
-      const float* dw = dw_s + i * k * D;
-      for (int idx = tid; idx < L * D; idx += NTHREADS) {
-        const int r = idx / D, d = idx % D;
-        float acc = P.dwb[i][d];
-        for (int j = 0; j < k; ++j) {
-          const int rr = r + j - pad;
-          if (rr >= 0 && rr < L)
-            acc = fmaf(dw[j * D + d], t_s[rr * D + d], acc);
-        }
-        c_s[idx] = acc;
+      if (i == 0 && drop.on()) {
+        dropout_rows(t_s, L, n, drop);
+        __syncthreads();
       }
+      dwconv_rows(t_s, c_s, L, k, dw_s + i * k * D, P.dwb[i]);
       __syncthreads();
       float acc[RPT][4];
 #pragma unroll
@@ -168,7 +118,7 @@ encoder_reduce_fwd_kernel(const T* __restrict__ x,
 template <typename T, int RPT>
 int launch_rpt(const void* x, const float* pe, const float* packed,
                const float* mask, void* out, int N, int L, int k,
-               cudaStream_t stream) {
+               Dropout drop, cudaStream_t stream) {
   const size_t bytes = sizeof(float) * smem_floats(L, k, RPT);
   auto kern = encoder_reduce_fwd_kernel<T, RPT>;
   cudaError_t err = allow_smem(kern, bytes);
@@ -179,22 +129,29 @@ int launch_rpt(const void* x, const float* pe, const float* packed,
   const int blocks = N < sms ? N : sms;
   kern<<<blocks, NTHREADS, bytes, stream>>>(static_cast<const T*>(x), pe,
                                             packed, mask, static_cast<T*>(out),
-                                            N, L, k);
+                                            N, L, k, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* x, const float* pe, const float* packed,
-           const float* mask, void* out, int N, int L, int k,
+           const float* mask, void* out, int N, int L, int k, Dropout drop,
            cudaStream_t stream) {
   switch ((L + NWARPS - 1) / NWARPS) {   // rows per warp in the GEMM
-    case 1: return launch_rpt<T, 1>(x, pe, packed, mask, out, N, L, k, stream);
-    case 2: return launch_rpt<T, 2>(x, pe, packed, mask, out, N, L, k, stream);
-    case 3: return launch_rpt<T, 3>(x, pe, packed, mask, out, N, L, k, stream);
-    case 4: return launch_rpt<T, 4>(x, pe, packed, mask, out, N, L, k, stream);
-    case 5: return launch_rpt<T, 5>(x, pe, packed, mask, out, N, L, k, stream);
-    case 6: return launch_rpt<T, 6>(x, pe, packed, mask, out, N, L, k, stream);
-    case 7: return launch_rpt<T, 7>(x, pe, packed, mask, out, N, L, k, stream);
+    case 1: return launch_rpt<T, 1>(x, pe, packed, mask, out, N, L, k, drop,
+                                          stream);
+    case 2: return launch_rpt<T, 2>(x, pe, packed, mask, out, N, L, k, drop,
+                                          stream);
+    case 3: return launch_rpt<T, 3>(x, pe, packed, mask, out, N, L, k, drop,
+                                          stream);
+    case 4: return launch_rpt<T, 4>(x, pe, packed, mask, out, N, L, k, drop,
+                                          stream);
+    case 5: return launch_rpt<T, 5>(x, pe, packed, mask, out, N, L, k, drop,
+                                          stream);
+    case 6: return launch_rpt<T, 6>(x, pe, packed, mask, out, N, L, k, drop,
+                                          stream);
+    case 7: return launch_rpt<T, 7>(x, pe, packed, mask, out, N, L, k, drop,
+                                          stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -203,15 +160,18 @@ int launch(const void* x, const float* pe, const float* packed,
 
 // x: N = B*G sequences of L x D (bf16 when is_bf16, else float32); pe (L, D),
 // packed parameters and mask (N, L) float32; out (N, D) in x's type.
-// L <= 56, k odd.
+// L <= 56, k odd.  Conv 0's dropout when drop_threshold > 0 (philox.cuh).
 extern "C" int encoder_reduce_fwd(const void* x, const void* pe,
                                   const void* packed, const void* mask,
-                                  void* out, int N, int L, int k, int is_bf16,
-                                  void* stream) {
+                                  void* out, int N, int L, int k,
+                                  unsigned long long drop_seed,
+                                  unsigned drop_threshold, float drop_scale,
+                                  int is_bf16, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto st = static_cast<cudaStream_t>(stream);
+  const Dropout drop{drop_seed, drop_threshold, drop_scale};
   if (is_bf16)
     return launch<__nv_bfloat16>(x, f(pe), f(packed), f(mask), out, N, L, k,
-                                 st);
-  return launch<float>(x, f(pe), f(packed), f(mask), out, N, L, k, st);
+                                 drop, st);
+  return launch<float>(x, f(pe), f(packed), f(mask), out, N, L, k, drop, st);
 }

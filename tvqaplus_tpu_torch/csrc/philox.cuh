@@ -1,0 +1,70 @@
+// Philox4x32-10 counter-based random bits for in-kernel dropout.
+//
+// Replaces the TPU PRNG stream of tvqaplus_tpu/ops/pallas_attention.py
+// (_keep_mask: pltpu.prng_seed per grid cell + prng_random_bits).  There
+// the backward replays the mask only because it walks the forward's grid
+// cells in the same order.  Here the mask is a pure function of (seed,
+// flat element index e) of the tensor the dropout acts on, so a backward
+// with another blocking, and the plain PyTorch version (ops/philox.py),
+// draw the same bits:
+//   words = Philox4x32-10(counter = (e >> 2, 0, 0) as 4 x 32 bits,
+//                         key = (seed lo, seed hi))
+//   bits  = words[e & 3]
+//   keep  = (bits >> 8) >= threshold,   threshold = ceil(p * 2^24)
+// The keep decision is an integer compare, so the kernel and the plain
+// version cannot disagree by a rounding.  A kept value is scaled by
+// 1 / (1 - p) (a float32 the wrapper passes), a dropped one is 0.
+#pragma once
+
+#include <cstdint>
+
+namespace tvqa {
+
+struct Philox4 {
+  uint32_t x, y, z, w;
+};
+
+__device__ __forceinline__ Philox4 philox4x32_10(uint64_t ctr,
+                                                 uint64_t seed) {
+  uint32_t c0 = static_cast<uint32_t>(ctr), c1 = static_cast<uint32_t>(
+                                                 ctr >> 32);
+  uint32_t c2 = 0u, c3 = 0u;
+  uint32_t k0 = static_cast<uint32_t>(seed),
+           k1 = static_cast<uint32_t>(seed >> 32);
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
+    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
+    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+    c0 = n0;
+    c1 = lo1;
+    c2 = n2;
+    c3 = lo0;
+    k0 += 0x9E3779B9u;
+    k1 += 0xBB67AE85u;
+  }
+  return {c0, c1, c2, c3};
+}
+
+// Dropout multipliers (0 or scale) of the four elements e0 .. e0+3 (e0 a
+// multiple of 4): one Philox call gives all four words.
+__device__ __forceinline__ void keep4(uint64_t seed, uint64_t e0,
+                                      uint32_t threshold, float scale,
+                                      float (&m)[4]) {
+  const Philox4 r = philox4x32_10(e0 >> 2, seed);
+  m[0] = (r.x >> 8) >= threshold ? scale : 0.f;
+  m[1] = (r.y >> 8) >= threshold ? scale : 0.f;
+  m[2] = (r.z >> 8) >= threshold ? scale : 0.f;
+  m[3] = (r.w >> 8) >= threshold ? scale : 0.f;
+}
+
+// Dropout parameters as the C entries receive them: no dropout when
+// threshold == 0.
+struct Dropout {
+  unsigned long long seed;
+  unsigned threshold;
+  float scale;
+  __device__ __forceinline__ bool on() const { return threshold != 0u; }
+};
+
+}  // namespace tvqa

@@ -1,10 +1,12 @@
-// Fused tri-concat MLP bridge, forward (eval: no dropout).
+// Fused tri-concat MLP bridge, forward, with its dropout.
 //
 // Replaces the TPU kernel tvqaplus_tpu/ops/pallas_tri_bridge.py
 // (fused_tri_bridge -> _forward / _fwd_kernel), STAGE's concat_fc.  For
 // every row of the (B, A, Li, Lqa, D) attended statements s and v:
 //   x    = [s; v; s * v]                         (3D wide, never stored)
 //   y    = LN_in(x)        fast variance clipped at 0, float32 stats
+//          (training: times the Philox dropout mask of philox.cuh, keyed
+//          by the flat index of the (rows, 3D) LN output)
 //   out  = LN_out(ReLU(y W + bias))              W: (3D, D)
 // out has the activation type of s and v.
 //
@@ -20,6 +22,7 @@
 // A warp's 32 lanes hold a row's 128 outputs (4 each), so LN_out is a warp
 // reduction in registers, and the output is written once.
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -38,7 +41,7 @@ tri_bridge_fwd_kernel(const T* __restrict__ s, const T* __restrict__ v,
                       const float* __restrict__ bias,
                       const float* __restrict__ gout,
                       const float* __restrict__ bout, T* __restrict__ out,
-                      long long R) {
+                      long long R, Dropout drop) {
   extern __shared__ float4 smem4[];
   float* y_s = reinterpret_cast<float*>(smem4);
   float* w_s = y_s + RT * 3 * D;
@@ -78,6 +81,18 @@ tri_bridge_fwd_kernel(const T* __restrict__ s, const T* __restrict__ v,
         const int k = g * D + lane + 32 * q;
         yr[k] = (x[g][q] - mean) * istd * gin[k] + bin[k];
       }
+    if (drop.on() && live) {
+      __syncwarp();
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        float km[4];
+        const int k0 = g * D + lane * 4;
+        keep4(drop.seed, static_cast<unsigned long long>(row) * (3 * D) + k0,
+              drop.threshold, drop.scale, km);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) yr[k0 + t] *= km[t];
+      }
+    }
   }
 
   float acc[RPT][4];
@@ -110,31 +125,36 @@ tri_bridge_fwd_kernel(const T* __restrict__ s, const T* __restrict__ v,
 template <typename T>
 int launch(const void* s, const void* v, const float* gin, const float* bin,
            const float* W, const float* bias, const float* gout,
-           const float* bout, void* out, long long R, cudaStream_t stream) {
+           const float* bout, void* out, long long R, Dropout drop,
+           cudaStream_t stream) {
   const size_t bytes = sizeof(float) * SMEM_FLOATS;
   cudaError_t err = allow_smem(tri_bridge_fwd_kernel<T>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>((R + RT - 1) / RT);
   tri_bridge_fwd_kernel<T><<<blocks, NTHREADS, bytes, stream>>>(
       static_cast<const T*>(s), static_cast<const T*>(v), gin, bin, W, bias,
-      gout, bout, static_cast<T*>(out), R);
+      gout, bout, static_cast<T*>(out), R, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // s, v, out: R rows of D, all bf16 (is_bf16) or all float32; gin/bin (3D),
-// W (3D, D), bias/gout/bout (D) float32.
+// W (3D, D), bias/gout/bout (D) float32.  Dropout on the LN_in output when
+// drop_threshold > 0 (philox.cuh).
 extern "C" int tri_bridge_fwd(const void* s, const void* v, const void* gin,
                               const void* bin, const void* W,
                               const void* bias, const void* gout,
                               const void* bout, void* out, long long R,
+                              unsigned long long drop_seed,
+                              unsigned drop_threshold, float drop_scale,
                               int is_bf16, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto st = static_cast<cudaStream_t>(stream);
+  const Dropout drop{drop_seed, drop_threshold, drop_scale};
   if (is_bf16)
     return launch<__nv_bfloat16>(s, v, f(gin), f(bin), f(W), f(bias),
-                                 f(gout), f(bout), out, R, st);
+                                 f(gout), f(bout), out, R, drop, st);
   return launch<float>(s, v, f(gin), f(bin), f(W), f(bias), f(gout), f(bout),
-                       out, R, st);
+                       out, R, drop, st);
 }

@@ -1,4 +1,4 @@
-"""Static-shape batch assembly (the port's copy of the inference subset of
+"""Static-shape batch assembly (the port's copy of
 ``tvqaplus_tpu/data/batching.py``, numpy paths only).
 
 Every batch pads to a ``StaticShapeSpec`` picked from a few frame-count
@@ -9,8 +9,9 @@ buckets.  Batch contract (numpy; B = batch, A = 5 answers):
   sub_bert (B, Li, Ls, De),
   sub_mask (B, Li, Ls), vid (B, Li, Lr, Dv), vid_mask (B, Li, Lr),
   target / ts_st / ts_ed / anno_st (B,) int32, ts_mask (B, Li),
-  ex_mask (B,) f32.
-The training-only attention-entry arrays come with the training slice.
+  ex_mask (B,) f32,
+and for training (``att_entry_cap`` > 0) the supervised-attention entry
+arrays ``ATT_KEYS`` (data/labels.py ``att_entries_from_dense``).
 Host metadata (qid, vid_name, image_indices, boxes, ...) rides beside.
 """
 from __future__ import annotations
@@ -20,6 +21,12 @@ from dataclasses import dataclass
 from typing import List
 
 import numpy as np
+
+from tvqaplus_tpu_torch.data.labels import att_entries_from_dense
+
+# supervised-attention batch keys (training batches only)
+ATT_KEYS = ("att_entry_idx", "att_entry_valid", "att_neg_rows",
+            "att_entry_rank", "att_group_npos", "att_n_pos")
 
 
 @dataclass(frozen=True)
@@ -33,15 +40,17 @@ class StaticShapeSpec:
     bert_dim: int = 768
     vfeat_dim: int = 300
     max_sub_tokens: int = 0   # > 0: dedup contract (sub_tokens+sub_win_idx)
+    att_entry_cap: int = 0    # > 0: training batch with ATT_KEYS (E slots)
 
     @classmethod
-    def from_config(cls, cfg, batch=None):
+    def from_config(cls, cfg, batch=None, train=False):
         dedup = getattr(cfg, "sub_dedup", False) and cfg.sub_flag
         return cls(batch=batch or cfg.bsz, num_a=5, max_qa_l=cfg.max_qa_l,
                    max_img=cfg.max_num_img,
                    max_sub_l=cfg.max_sub_l, num_region=cfg.num_region,
                    bert_dim=cfg.embedding_size, vfeat_dim=cfg.vfeat_size,
-                   max_sub_tokens=cfg.max_sub_tokens if dedup else 0)
+                   max_sub_tokens=cfg.max_sub_tokens if dedup else 0,
+                   att_entry_cap=cfg.att_entry_cap if train else 0)
 
     def with_max_img(self, max_img):
         return dataclasses.replace(self, max_img=max_img)
@@ -68,6 +77,16 @@ def zeros_batch(spec: StaticShapeSpec):
     else:
         sub_keys = {"sub_bert": np.zeros(
             (s.batch, s.max_img, s.max_sub_l, s.bert_dim), f32)}
+    att_keys = {}
+    if s.att_entry_cap:
+        e = s.att_entry_cap
+        att_keys = {
+            "att_entry_idx": np.zeros((s.batch, e), np.int32),
+            "att_entry_valid": np.zeros((s.batch, e), f32),
+            "att_neg_rows": np.zeros((s.batch, e, s.num_region), f32),
+            "att_entry_rank": np.zeros((s.batch, e), np.int32),
+            "att_group_npos": np.zeros((s.batch, e), f32),
+            "att_n_pos": np.zeros((s.batch,), f32)}
     return {
         "qas": np.zeros((s.batch, s.num_a, s.max_qa_l), np.int32),
         "qas_mask": np.zeros((s.batch, s.num_a, s.max_qa_l), f32),
@@ -81,6 +100,7 @@ def zeros_batch(spec: StaticShapeSpec):
         "ts_st": np.zeros((s.batch,), np.int32),
         "ts_ed": np.zeros((s.batch,), np.int32),
         "ts_mask": np.zeros((s.batch, s.max_img), f32),
+        **att_keys,
         "anno_st": np.zeros((s.batch,), np.int32),
         "ex_mask": np.zeros((s.batch,), f32),
     }
@@ -104,8 +124,8 @@ def collate_static(examples: List[dict], spec: StaticShapeSpec):
         raise ValueError(f"{len(examples)} examples > batch {s.batch}")
     out = zeros_batch(s)
     meta = {"qid": [], "vid_name": [], "image_indices": [], "boxes": [],
-            "ts": [], "sub_tok_overflow": [], "target": [], "anno_st": [],
-            "qas_words": []}
+            "ts": [], "att_n_pos": [], "sub_tok_overflow": [], "target": [],
+            "anno_st": [], "qas_words": []}
     scratch = np.zeros((s.num_a, s.max_qa_l), np.float32)
     for b, ex in enumerate(examples):
         out["ex_mask"][b] = 1.0
@@ -132,6 +152,11 @@ def collate_static(examples: List[dict], spec: StaticShapeSpec):
         out["ts_ed"][b] = min(ts[1], n_img - 1) if n_img else 0
         out["ts_mask"][b, :n_img] = 1.0
         out["anno_st"][b] = ex.get("anno_st_idx", 0)
+        att = ex.get("att_labels_dense") if s.att_entry_cap else None
+        n_pos = 0
+        if att is not None:
+            n_pos = _collate_att(att, s, out, b)
+        meta["att_n_pos"].append(n_pos)
         meta["qid"].append(ex.get("qid", b))
         meta["vid_name"].append(ex.get("vid_name", ""))
         meta["image_indices"].append(ex.get("image_indices", []))
@@ -142,6 +167,24 @@ def collate_static(examples: List[dict], spec: StaticShapeSpec):
         meta["anno_st"].append(int(out["anno_st"][b]))
         meta["qas_words"].append(out["qas"][b].copy())
     return out, meta
+
+
+def _collate_att(att, s, out, b):
+    """The att-loss entry arrays of example ``b`` from its dense labels
+    (clipped to the spec); returns its positives before the cap."""
+    labels, defined = att
+    shape = (s.max_img, s.max_qa_l, s.num_region)
+    dl = np.zeros(shape, np.float32)
+    dd = np.zeros(shape, np.float32)
+    li, lw, lr = (min(a, c) for a, c in zip(labels.shape, shape))
+    dl[:li, :lw, :lr] = labels[:li, :lw, :lr]
+    dd[:li, :lw, :lr] = defined[:li, :lw, :lr]
+    (out["att_entry_idx"][b], out["att_entry_valid"][b],
+     out["att_neg_rows"][b], out["att_entry_rank"][b],
+     out["att_group_npos"][b], n_pos) = att_entries_from_dense(
+        dl, dd, s.att_entry_cap)
+    out["att_n_pos"][b] = n_pos
+    return n_pos
 
 
 def _collate_sub_dedup(ex, s, out, b):

@@ -1,16 +1,19 @@
-"""Host-side input pipeline (port of ``tvqaplus_tpu/data/pipeline.py``,
-the shuffle-off iteration that inference uses).
+"""Host-side input pipeline (port of ``tvqaplus_tpu/data/pipeline.py``).
 
-A producer thread collates static-shape batches in dataset order and, for
-a CUDA device, pins them in page-locked host memory; the consumer copies
-each batch to the device with ``non_blocking`` copies, so the upload of
-batch i+1 overlaps the device work of batch i.
+A producer thread collates static-shape batches and, for a CUDA device,
+pins them in page-locked host memory; the consumer copies each batch to the
+device with ``non_blocking`` copies, so the upload of batch i+1 overlaps
+the device work of batch i.  Shuffle-off iteration keeps dataset order
+(inference, validation).  Shuffled iteration (training) permutes the
+examples from a numpy generator seeded with (seed, epoch) and batches each
+example with others of its own Li bucket, as the JAX pipeline does.
 """
 from __future__ import annotations
 
 import queue
 import threading
 
+import numpy as np
 import torch
 
 from tvqaplus_tpu_torch.data.batching import (
@@ -21,34 +24,67 @@ from tvqaplus_tpu_torch.data.batching import (
 
 
 class DataPipeline:
-    """Iterable over (device batch dict, meta, Li bucket) tuples."""
+    """Iterable over (device batch dict, meta, Li bucket) tuples.
+    ``train``: shuffled bucket batching with the att-entry keys."""
 
-    def __init__(self, dataset, cfg, device, batch_size=16, prefetch_depth=2):
+    def __init__(self, dataset, cfg, device, batch_size=16, prefetch_depth=2,
+                 train=False, seed=0):
         self.dataset = dataset
         self.cfg = cfg
         self.device = torch.device(device)
         self.batch_size = batch_size
         self.prefetch_depth = max(1, prefetch_depth)
-        self.base_spec = StaticShapeSpec.from_config(cfg, batch=batch_size)
+        self.train = train
+        self.seed = seed
+        self.base_spec = StaticShapeSpec.from_config(cfg, batch=batch_size,
+                                                     train=train)
         self.buckets = sorted(set(min(b, cfg.max_num_img)
                                   for b in cfg.img_buckets))
+        self._epoch = 0
 
     def __len__(self):
-        return -(-len(self.dataset) // self.batch_size)
+        """Upper bound on batches per epoch: shuffled bucket batching can
+        end an epoch with one partial batch per bucket."""
+        base = -(-len(self.dataset) // self.batch_size)
+        if self.train:
+            base += max(0, len(self.buckets) - 1)
+        return base
+
+    def _bucket(self, examples):
+        n_img = max((len(ex.get("image_indices", [])) or 1)
+                    for ex in examples)
+        return pick_bucket(n_img, self.buckets, self.cfg.max_num_img)
 
     def _batches(self):
         n = len(self.dataset)
-        for i in range(0, n, self.batch_size):
-            examples = [self.dataset[j]
-                        for j in range(i, min(n, i + self.batch_size))]
-            n_img = max((len(ex.get("image_indices", [])) or 1)
-                        for ex in examples)
-            bucket = pick_bucket(n_img, self.buckets, self.cfg.max_num_img)
-            yield self._collate(examples, bucket)
+        if not self.train:
+            for i in range(0, n, self.batch_size):
+                examples = [self.dataset[j]
+                            for j in range(i, min(n, i + self.batch_size))]
+                yield self._collate(examples, self._bucket(examples))
+            return
+        order = np.arange(n)
+        np.random.default_rng((self.seed, self._epoch)).shuffle(order)
+        buffers = {}
+        for j in order:
+            ex = self.dataset[int(j)]
+            b = self._bucket([ex])
+            buffers.setdefault(b, []).append(ex)
+            if len(buffers[b]) == self.batch_size:
+                yield self._collate(buffers.pop(b), b)
+        for b in sorted(buffers):
+            yield self._collate(buffers[b], b)
 
     def _collate(self, examples, bucket):
         arrays, meta = collate_static(examples,
                                       self.base_spec.with_max_img(bucket))
+        n_pos = max(meta["att_n_pos"], default=0)
+        if self.train and n_pos > self.cfg.att_entry_cap:
+            # the att loss would silently drop the positives past the cap
+            raise ValueError(
+                f"an example carries {n_pos} positive attention cells > "
+                f"att_entry_cap={self.cfg.att_entry_cap}; raise "
+                f"--att_entry_cap")
         n_over = max(meta["sub_tok_overflow"], default=0)
         if n_over:
             # dropped tokens would silently diverge from the reference's
@@ -63,6 +99,7 @@ class DataPipeline:
         return tensors, meta, bucket
 
     def __iter__(self):
+        self._epoch += 1
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch_depth)
         sentinel = object()
         err = []

@@ -1,0 +1,62 @@
+"""Training entry point: ``python -m tvqaplus_tpu_torch.main <flags>``.
+
+Mirrors the JAX package's ``main.py`` (reference main.py:186-251): parse
+the config, seed, build the datasets, model, optimizer and plateau
+scheduler, and run epochs with validation at every ``log_freq`` crossing,
+best-model saving and early stop.  Writes ``opt.json`` and, at each new
+best validation accuracy, ``best_valid.pth`` (a reference-format
+state_dict) into the run directory, so ``python -m
+tvqaplus_tpu_torch.inference --model_dir <run>`` reads it unchanged.
+
+Runs on ``cuda`` unless ``--device cpu`` is given.
+``--synthetic_data --debug`` is the end-to-end smoke run (the reference's
+``run_main.sh debug``): 64 train / 32 valid examples, one epoch, a break
+after batch 5.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from tvqaplus_tpu_torch import resolve_device
+from tvqaplus_tpu_torch.config import parse_args
+from tvqaplus_tpu_torch.data.synthetic import SyntheticTVQADataset
+from tvqaplus_tpu_torch.train.loop import Trainer
+
+EXTRA_FLAGS = (
+    ("--device", dict(type=str, default="cuda", choices=("cuda", "cpu"))),
+)
+
+
+def build_datasets(cfg):
+    if not (cfg.synthetic_data or not cfg.train_path):
+        raise NotImplementedError(
+            "the real-data TVQA+ loader comes with a later slice; use "
+            "--synthetic_data")
+    n_train = 64 if cfg.debug else cfg.synthetic_n_train
+    n_valid = 32 if cfg.debug else cfg.synthetic_n_valid
+    return (SyntheticTVQADataset(cfg, n_train, mode="train"),
+            SyntheticTVQADataset(cfg, n_valid, mode="valid"))
+
+
+def main(argv=None):
+    cfg, extras = parse_args(argv, extra_fields=EXTRA_FLAGS)
+    device = resolve_device(extras.device)
+    os.makedirs(cfg.results_dir, exist_ok=True)
+    cfg.save(os.path.join(cfg.results_dir, "opt.json"))
+    np.random.seed(cfg.seed)
+    torch.manual_seed(cfg.seed)
+
+    train_ds, valid_ds = build_datasets(cfg)
+    trainer = Trainer(cfg, device)
+    print(f"Parameter count: {trainer.n_params:,d}")
+    best_acc = trainer.fit(train_ds, valid_ds)
+    print(f"Best val acc: {best_acc:.4f}")
+    print(f"Results dir: {cfg.results_dir}")
+    return cfg.results_dir, trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-"""Core layers (port of ``tvqaplus_tpu/models/layers.py``, eval forward).
+"""Core layers (port of ``tvqaplus_tpu/models/layers.py``).
 
 Modules are named and nested so that ``state_dict()`` keys are the
 reference PyTorch STAGE's (``nn.Sequential`` indices included: a Dropout or
@@ -10,8 +10,13 @@ Numerics follow the JAX modules, not ``torch.nn.LayerNorm``: LayerNorm is
 the flax formula (float32 stats, fast variance clipped at 0, result cast to
 the compute dtype), ``DownProjection`` uses the exact variance, and every
 dense layer casts its input and parameters to the compute dtype.  Parameters
-stay float32.  Dropout slots exist for the key layout only: this slice is
-the eval forward.
+stay float32.
+
+Dropout: every ``forward`` takes ``drop``, a ``Dropout`` for a training
+forward or None for eval.  The ``nn.Dropout`` slots keep the key layout
+only.  The plain layers draw their masks from a generator on the batch's
+device; the fused kernels take a Philox seed drawn from a CPU generator
+(ops/philox.py), so a training step never waits on the device for either.
 """
 from __future__ import annotations
 
@@ -21,9 +26,44 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tvqaplus_tpu_torch.ops import philox
 from tvqaplus_tpu_torch.ops.encoder import encoder_reduce
 from tvqaplus_tpu_torch.ops.plain import LN_EPS, depthwise_conv, layer_norm
 from tvqaplus_tpu_torch.ops.tri_bridge import tri_bridge
+
+
+class Dropout:
+    """The dropout of one training forward (reference rate ``rate``):
+    ``drop(x)`` for a plain layer, with its mask from ``generator`` (on the
+    batch's device); ``kernel_args()`` gives a fused kernel its
+    (rate, Philox seed), the seed drawn from the CPU ``seed_generator``."""
+
+    def __init__(self, rate, generator, seed_generator):
+        self.rate = float(rate)
+        self.generator = generator
+        self.seed_generator = seed_generator
+
+    def __call__(self, x):
+        if self.rate == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate), torch.zeros_like(x))
+
+    def kernel_args(self):
+        if self.rate == 0.0:
+            return 0.0, 0
+        return self.rate, philox.draw_seed(self.seed_generator)
+
+
+def apply_dropout(drop, x):
+    """``drop(x)`` in a training forward, ``x`` in eval (drop is None)."""
+    return x if drop is None else drop(x)
+
+
+def kernel_dropout(drop):
+    """(rate, seed) for a fused kernel: (0, 0) in eval."""
+    return (0.0, 0) if drop is None else drop.kernel_args()
 
 
 def dense(x, lin, dtype):
@@ -55,8 +95,9 @@ class MLPBridge(nn.Sequential):
                          LayerNorm(out_hsz, dtype))
         self.dtype = dtype
 
-    def forward(self, x):
-        return self[4](torch.relu(dense(self[0](x), self[2], self.dtype)))
+    def forward(self, x, drop=None):
+        x = apply_dropout(drop, self[0](x))
+        return self[4](torch.relu(dense(x, self[2], self.dtype)))
 
 
 class TriMLPBridge(MLPBridge):
@@ -67,10 +108,11 @@ class TriMLPBridge(MLPBridge):
     def __init__(self, hsz, dropout=0.1, dtype=torch.float32):
         super().__init__(3 * hsz, hsz, dropout, dtype)
 
-    def forward(self, s, v):
+    def forward(self, s, v, drop=None):
         ln_in, fc, ln_out = self[0], self[2], self[4]
         return tri_bridge(s, v, ln_in.weight, ln_in.bias, fc.weight.t(),
-                          fc.bias, ln_out.weight, ln_out.bias)
+                          fc.bias, ln_out.weight, ln_out.bias,
+                          *kernel_dropout(drop))
 
 
 class InputEmbedding(nn.Sequential):
@@ -82,7 +124,8 @@ class InputEmbedding(nn.Sequential):
                          nn.ReLU(), LayerNorm(out_hsz, dtype))
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, drop=None):
+        x = apply_dropout(drop, x)
         return self[3](torch.relu(dense(x, self[1], self.dtype)))
 
 
@@ -148,8 +191,9 @@ class LinearWrapper(nn.Module):
         self.relu = relu
         self.dtype = dtype
 
-    def forward(self, x):
-        x = dense(self.conv[0](x), self.conv[2], self.dtype)
+    def forward(self, x, drop=None):
+        x = dense(apply_dropout(drop, self.conv[0](x)), self.conv[2],
+                  self.dtype)
         return torch.relu(x) if self.relu else x
 
 
@@ -164,8 +208,8 @@ class ConvLinear(nn.Module):
             LayerNorm(in_hsz, dtype), nn.Dropout(dropout),
             DepthwiseSeparableConv(in_hsz, out_hsz, kernel_size, dtype))
 
-    def forward(self, x):
-        return self.conv[2](self.conv[0](x))
+    def forward(self, x, drop=None):
+        return self.conv[2](apply_dropout(drop, self.conv[0](x)))
 
 
 def sinusoid_table(max_len, d):
@@ -233,17 +277,21 @@ class EncoderBlock(nn.Module):
                       f"pwb{i}": conv.pointwise_conv.bias})
         return p
 
-    def forward(self, x, reduce_mask=None):
+    def forward(self, x, reduce_mask=None, drop=None):
         if reduce_mask is not None:
             lead, (l, d) = x.shape[:-2], x.shape[-2:]
             out = encoder_reduce(
-                x.reshape(lead[0], -1, l, d), sinusoid_table(l, d).to(x.device),
-                self.kernel_params(), self.kernel_size,
-                reduce_mask.reshape(lead[0], -1, l))
+                x.reshape(lead[0], -1, l, d).contiguous(),
+                sinusoid_table(l, d).to(x.device), self.kernel_params(),
+                self.kernel_size, reduce_mask.reshape(lead[0], -1, l),
+                *kernel_dropout(drop))
             return out.reshape(lead + (d,))
         out = self.position_encoding(x)
-        for ln, conv in zip(self.layer_norm, self.conv):
-            out = conv(ln(out)) + out
+        for i, (ln, conv) in enumerate(zip(self.layer_norm, self.conv)):
+            t = ln(out)
+            if i % 2 == 0:     # dropout on even conv layers (encoder.py:41)
+                t = apply_dropout(drop, t)
+            out = conv(t) + out
         return self.final_layer_norm(out)
 
 
@@ -258,8 +306,8 @@ class StackedEncoder(nn.Module):
             EncoderBlock(hsz, n_conv, kernel_size, num_heads, dropout, dtype)
             for _ in range(n_blocks))
 
-    def forward(self, x, reduce_mask=None):
+    def forward(self, x, reduce_mask=None, drop=None):
         last = len(self.stacked_encoderBlocks) - 1
         for i, block in enumerate(self.stacked_encoderBlocks):
-            x = block(x, reduce_mask if i == last else None)
+            x = block(x, reduce_mask if i == last else None, drop)
         return x

@@ -1,15 +1,18 @@
 """STAGE: Spatio-Temporal Answerer with Grounded Evidence (port of
-``tvqaplus_tpu/models/stage.py``), eval forward.
+``tvqaplus_tpu/models/stage.py``): the eval and the training forward.
 
 The five answers and the Li frames are batch axes throughout.  Three fused
 kernels carry the forward (ops/): ``qa_ctx_attention`` at both attention
 sites, ``tri_bridge`` at ``concat_fc`` and the encoder kernel with the
 masked word-max at ``cls_encoder``.  The MLP bridges and the k=7 input
-encoder are plain PyTorch, as the JAX package leaves them to XLA.
+encoder are plain PyTorch, as the JAX package leaves them to XLA.  The
+kernels are differentiable through their backward kernels (on CUDA) or
+through the plain versions (on the CPU), so ``forward(train=True)`` is the
+training forward: dropout at every reference site (``drop``, a
+``layers.Dropout``) and the GT-anchored proposals.
 
-Training (losses, backward kernels, dropout), the merged input encoder,
-void vectors and the noun mask come with later slices and raise
-``NotImplementedError`` here.
+The merged input encoder, void vectors and the noun mask come with later
+slices and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -30,6 +33,8 @@ from tvqaplus_tpu_torch.models.layers import (
     MLPBridge,
     StackedEncoder,
     TriMLPBridge,
+    apply_dropout,
+    kernel_dropout,
 )
 from tvqaplus_tpu_torch.ops.masking import mask_logits
 from tvqaplus_tpu_torch.ops.qa_ctx_attention import qa_ctx_attention
@@ -134,10 +139,11 @@ class STAGE(nn.Module):
         return self
 
     # ------------------------------------------------------------------
-    def base_encoder(self, data, init_encoder):
+    def base_encoder(self, data, init_encoder, drop=None):
         """init bridge -> downsize -> stacked conv encoder
         (reference stage.py:350-363)."""
-        return self.input_encoder(self.input_embedding(init_encoder(data)))
+        x = self.input_embedding(init_encoder(data, drop), drop)
+        return self.input_encoder(x, drop=drop)
 
     @staticmethod
     def _gather_sub_windows(tok, idx):
@@ -150,111 +156,146 @@ class STAGE(nn.Module):
         return torch.gather(tok, 1, flat).reshape(bsz, li, ls, tok.shape[-1])
 
     def qa_ctx_attention(self, qa_embed, ctx_embed, qa_mask, ctx_mask,
-                         need_raw):
+                         need_raw, drop=None, targets=None):
         """Structured attention + [qa; att; qa*att] down-projection, fused
         (reference stage.py:365-387; JAX kernel path stage.py:250-279).
         qa_embed (B, A, Lqa, D), ctx_embed (B, Li, Lc, D); masks
-        (B, A, Lqa) / (B, Li, Lc).  Returns mixed (B, A, Li, Lqa, D), its
-        mask (B, A, Li, Lqa) and the raw scores (or None)."""
+        (B, A, Lqa) / (B, Li, Lc).  ``need_raw``: True (every answer),
+        "target" (the ``targets`` answer only) or False.  In training the
+        similarity dropout acts on the normalised inputs here and the
+        projection dropout inside the kernel.  Returns mixed
+        (B, A, Li, Lqa, D), its mask (B, A, Li, Lqa) and the raw scores (or
+        None)."""
         dp = self.c2q_down_projection
+        raw_mode = {True: "full", False: "none", "target": "target"}[need_raw]
+        cn = apply_dropout(drop, l2_normalize(qa_embed))
+        qn = apply_dropout(drop, l2_normalize(ctx_embed))
+        rate, seed = kernel_dropout(drop)
         out = qa_ctx_attention(
-            l2_normalize(qa_embed), qa_embed, l2_normalize(ctx_embed),
-            ctx_embed, qa_mask, ctx_mask, dp[0].weight, dp[0].bias,
-            dp[2].weight.t(), dp[2].bias, self.cfg.scale,
-            "full" if need_raw else "none")
-        mixed, raw = out if need_raw else (out, None)
+            cn, qa_embed, qn, ctx_embed, qa_mask, ctx_mask, dp[0].weight,
+            dp[0].bias, dp[2].weight.t(), dp[2].bias, self.cfg.scale,
+            raw_mode, targets, rate, seed)
+        mixed, raw = out if raw_mode != "none" else (out, None)
         any_region = (ctx_mask.sum(-1) > 0).float()              # (B, Li)
         mixed_mask = qa_mask[:, :, None, :] * any_region[:, None, :, None]
         return mixed, mixed_mask, raw
 
     def forward(self, batch, train=False, need_sub_raw=True,
-                need_vid_raw=True):
-        """Eval forward over a static-shape batch dict of tensors
-        (data/batching.py).  Returns answer_scores (B, A), proposal_weights
-        (B, 1), t_scores (B, A, Li, 2) and, as asked, sub_raw_s / vid_raw_s
+                need_vid_raw=True, drop=None):
+        """Forward over a static-shape batch dict of tensors
+        (data/batching.py).  ``train`` needs ``drop`` (a
+        ``layers.Dropout``; rate 0 for none) and the batch's target and
+        span labels.  ``need_vid_raw="target"`` emits ``vid_raw_target_s``
+        (B, Li, Lqa, Lr) at the target answer, all the att loss reads.
+        Returns answer_scores ((B, P, A) in training with add_local, else
+        (B, A)), proposal_weights ((B, P) / (B, 1)), t_scores
+        (B, A, Li, 2) and, as asked, sub_raw_s / vid_raw_s
         (B, A, Li, Lqa, Lc)."""
-        if train:
-            raise NotImplementedError("training comes with a later slice")
+        if train and drop is None:
+            raise ValueError("a training forward needs drop (layers.Dropout)")
+        if not train:
+            drop = None
         if batch.get("qa_noun_masks") is not None:
             raise NotImplementedError("noun-mask attention")
         c = self.cfg
         out = {}
         a_embed = self.base_encoder(batch["qas_bert"],
-                                    self.bert_word_encoding_fc)
+                                    self.bert_word_encoding_fc, drop)
         a_mask = batch["qas_mask"]
         attended = []
         if c.sub_flag:
             if "sub_tokens" in batch:
                 tok = self.input_embedding(
-                    self.bert_word_encoding_fc(batch["sub_tokens"]))
+                    self.bert_word_encoding_fc(batch["sub_tokens"], drop),
+                    drop)
                 sub_embed = self.input_encoder(
-                    self._gather_sub_windows(tok, batch["sub_win_idx"]))
+                    self._gather_sub_windows(tok, batch["sub_win_idx"]),
+                    drop=drop)
             else:
                 sub_embed = self.base_encoder(batch["sub_bert"],
-                                              self.bert_word_encoding_fc)
+                                              self.bert_word_encoding_fc,
+                                              drop)
             mixed, mask, raw = self.qa_ctx_attention(
-                a_embed, sub_embed, a_mask, batch["sub_mask"], need_sub_raw)
+                a_embed, sub_embed, a_mask, batch["sub_mask"], need_sub_raw,
+                drop)
             attended.append((mixed, mask))
             if need_sub_raw:
                 out["sub_raw_s"] = raw
         if c.vfeat_flag:
             vid_embed = self.base_encoder(l2_normalize(batch["vid"]),
-                                          self.vid_fc)      # (stage.py:256)
+                                          self.vid_fc, drop)  # stage.py:256
             mixed, mask, raw = self.qa_ctx_attention(
-                a_embed, vid_embed, a_mask, batch["vid_mask"], need_vid_raw)
+                a_embed, vid_embed, a_mask, batch["vid_mask"], need_vid_raw,
+                drop, batch.get("target"))
             attended.append((mixed, mask))
-            if need_vid_raw:
+            if need_vid_raw == "target":
+                out["vid_raw_target_s"] = raw
+            elif need_vid_raw:
                 out["vid_raw_s"] = raw
         if len(attended) == 2:
-            statement = self.concat_fc(attended[0][0], attended[1][0])
+            statement = self.concat_fc(attended[0][0], attended[1][0], drop)
             statement_mask = attended[1][1]
         else:
             statement, statement_mask = attended[0]
         scores, weights, t_scores = self.classifier_head_multi_proposal(
-            statement, statement_mask, batch)
+            statement, statement_mask, batch, train, drop)
         out["answer_scores"] = scores
         out["proposal_weights"] = weights
         out["t_scores"] = t_scores
         return out
 
     # ------------------------------------------------------------------
-    def residual_temporal_predictor(self, layer_idx, x):
+    def residual_temporal_predictor(self, layer_idx, x, drop=None):
         """x += proj(x); score st/ed heads (reference stage.py:469-482)."""
-        x = x + self.cls_projection_layers[layer_idx](x)
-        st = self.temporal_scoring_st_layers[layer_idx](x)
-        ed = self.temporal_scoring_ed_layers[layer_idx](x)
+        x = x + self.cls_projection_layers[layer_idx](x, drop)
+        st = self.temporal_scoring_st_layers[layer_idx](x, drop)
+        ed = self.temporal_scoring_ed_layers[layer_idx](x, drop)
         return x, torch.cat([st, ed], dim=-1)
 
     def classifier_head_multi_proposal(self, statement, statement_mask,
-                                       batch):
+                                       batch, train=False, drop=None):
         """Answer scoring over (local span + global) pooled statements
         (reference stage.py:484-537).  statement (B, A, Li, Lqa, D);
         statement_mask (B, A, Li, Lqa)."""
         c = self.cfg
         bsz, _, num_img, _ = statement_mask.shape
         # encoder + masked word-max in one kernel (stage.py:500-505)
-        x = self.cls_encoder(statement, reduce_mask=statement_mask)
+        x = self.cls_encoder(statement, reduce_mask=statement_mask, drop=drop)
         max_statement_mask = (statement_mask.sum(-1) != 0).float()[..., None]
         # the reference's ensemble quirk (stage.py:515-516) makes the span
         # scores ALWAYS layer 0's; layers i > 0 only extend the chain
         t0 = stacked = None
         for i in range(c.t_iter + 1):
-            x, t = self.residual_temporal_predictor(i, x)
+            x, t = self.residual_temporal_predictor(i, x, drop)
             if i == 0:
                 t0, stacked = t, x
         t_scores = mask_logits(t0, batch["ts_mask"].reshape(bsz, 1, num_img,
                                                             1))
         global_pool = mask_logits(stacked, max_statement_mask).amax(dim=2)
-        if c.add_local:
+        weights = torch.ones((bsz, 1), dtype=torch.float32,
+                             device=t_scores.device)
+        if not c.add_local:
+            pooled = global_pool
+        elif train:
+            # GT-anchored proposals from the correct answer's span scores,
+            # detached as in the reference (stage.py:408-418, 511-527)
+            t_ca = t_scores[torch.arange(bsz, device=t_scores.device),
+                            batch["target"].long()].detach()
+            st, ed_excl, weights = spans.training_proposals(
+                t_ca, batch["ts_st"], batch["ts_ed"],
+                max_num_proposal=c.max_num_proposal)
+            wmask = spans.expand_window_mask(st, ed_excl, num_img,
+                                             extra=c.extra_span_length)
+            wmask = wmask[:, :, None, :] * max_statement_mask[:, None, ..., 0]
+            local = mask_logits(stacked[:, None], wmask[..., None]).amax(dim=3)
+            pooled = torch.cat([local, global_pool[:, None].expand_as(local)],
+                               dim=-1)                         # (B, P, A, 2D)
+        else:
             st, ed_excl = spans.eval_proposals(t_scores)
             wmask = spans.expand_window_mask(
                 st, ed_excl, num_img, extra=c.extra_span_length) \
                 * max_statement_mask[..., 0]
             local = mask_logits(stacked, wmask[..., None]).amax(dim=2)
             pooled = torch.cat([local, global_pool], dim=-1)
-        else:
-            pooled = global_pool
-        scores = self.classifier(pooled)[..., 0]
-        weights = torch.ones((bsz, 1), dtype=torch.float32,
-                             device=scores.device)
+        scores = self.classifier(pooled, drop)[..., 0]
         return scores, weights, t_scores

@@ -26,8 +26,11 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tvqaplus_tpu_torch")
-SOURCES = ("qa_ctx_attention_fwd.cu", "tri_bridge_fwd.cu", "encoder_fwd.cu")
-_HEADERS = ("common.cuh",)
+SOURCES = ("qa_ctx_attention_fwd.cu", "qa_ctx_attention_bwd.cu",
+           "tri_bridge_fwd.cu", "tri_bridge_bwd.cu", "encoder_fwd.cu",
+           "encoder_bwd.cu")
+_HEADERS = ("common.cuh", "philox.cuh", "grad_reduce.cuh",
+            "qa_ctx_attention.cuh", "encoder.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -128,6 +131,13 @@ class CudaKernel:
 
 def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def wgrad_chunks(rows, k, target_blocks=528):
+    """Row chunks (scratch slots) of the weight-gradient pass of
+    ``csrc/grad_reduce.cuh`` for ``rows`` rows and a K-wide left operand:
+    about four blocks per SM of an H100, at least 32 rows a chunk."""
+    return max(1, min(-(-rows // 32), target_blocks // max(1, k // 64)))
 
 
 def check_device(device, **tensors):

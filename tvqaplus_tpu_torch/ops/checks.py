@@ -1,0 +1,93 @@
+"""Holding a backward kernel against autograd through its plain version.
+
+Both sides take the same discrete decisions from float32 values that they
+compute in a different order: the sign of every ReLU input and, in the
+encoder, which positions tie for a channel's masked maximum.  Where such a
+value lies within float32 rounding of its threshold the two sides may
+decide differently, and the whole row's gradient then differs by O(1)
+(about one ReLU input in 10^6 at the headline shapes).  The checks zero the
+cotangent of every row (attention, tri bridge) or sequence (encoder) whose
+decision margin is below ``eps``, well above the rounding level, so that
+no compared gradient depends on a decision that rounding can flip; every
+other element is held to the bar of ``grad_close``.
+"""
+from __future__ import annotations
+
+import torch
+
+from tvqaplus_tpu_torch.ops import philox
+from tvqaplus_tpu_torch.ops.plain import depthwise_conv, layer_norm
+from tvqaplus_tpu_torch.ops.qa_ctx_attention import qa_ctx_attention_plain
+
+# Decision margins: float32 products of 384 (attention, tri bridge) or 128
+# (encoder) terms of O(1) round at ~1e-6, so a margin of 1e-4 / 1e-5 leaves
+# a factor of 10-100.  About 1% of the rows and 10% of the encoder's
+# sequences fall inside it at the headline shapes.
+ROW_EPS = 1e-4
+SEQ_EPS = 1e-5
+
+
+def grad_error(got, want, tol):
+    """(max abs error, elements outside the bar) of ``got`` against
+    ``want``; the bar is |err| <= tol[0] * max|want| + tol[1] * |want|."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    scale = float(want.abs().max()) or 1.0
+    bad = int((err > tol[0] * scale + tol[1] * want.abs()).sum())
+    return float(err.max()), bad + int((~torch.isfinite(got)).sum())
+
+
+def grad_close(name, got, want, tol):
+    """Raise unless every element of ``got`` meets ``grad_error``'s bar."""
+    err, bad = grad_error(got, want, tol)
+    if bad:
+        raise AssertionError(f"{name}: {bad} of {want.numel()} elements "
+                             f"outside {tol}; max abs err {err}")
+    return err
+
+
+def attention_flip_rows(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b,
+                        scale=10.0, dropout_rate=0.0, seed=0, eps=ROW_EPS):
+    """(B, A, Li, Lqa) bool: rows of ``mixed`` with a ReLU input within
+    ``eps`` of 0 (relu(x) - relu(-x) = x, both from the plain version)."""
+    f = [t.float() for t in (cn, ce, qn, qe)]
+    kw = dict(scale=scale, raw_mode="none", dropout_rate=dropout_rate,
+              seed=seed)
+    pre = (qa_ctx_attention_plain(*f, c_mask, q_mask, gamma, beta, w, b,
+                                  **kw)
+           - qa_ctx_attention_plain(*f, c_mask, q_mask, gamma, beta, -w, -b,
+                                    **kw))
+    return (pre.abs() < eps).any(-1)
+
+
+def tri_bridge_flip_rows(s, v, gamma_in, beta_in, w, b, dropout_rate=0.0,
+                         seed=0, eps=ROW_EPS):
+    """s's leading shape, bool: rows with a ReLU input within ``eps`` of 0."""
+    s32, v32 = s.float(), v.float()
+    y = layer_norm(torch.cat([s32, v32, s32 * v32], dim=-1), gamma_in,
+                   beta_in)
+    if dropout_rate > 0.0:
+        y = y * philox.multiplier(y.shape, seed, dropout_rate, y.device)
+    return ((y @ w.float() + b.float()).abs() < eps).any(-1)
+
+
+def encoder_flip_groups(x, pe, params, k, reduce_mask, dropout_rate=0.0,
+                        seed=0, eps=SEQ_EPS):
+    """(B, G) bool: sequences with a ReLU input within ``eps`` of 0, or a
+    live channel whose two largest masked values lie within ``eps``."""
+    h = x.float() + pe.float()
+    near = torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
+    for i in (0, 1):
+        t = layer_norm(h, params[f"ln{i}_s"], params[f"ln{i}_b"])
+        if i == 0 and dropout_rate > 0.0:
+            t = t * philox.multiplier(t.shape, seed, dropout_rate, t.device)
+        c = depthwise_conv(t, params[f"dw{i}"].float(),
+                           params[f"dwb{i}"].float())
+        y = c @ params[f"pw{i}"].float() + params[f"pwb{i}"].float()
+        near |= (y.abs() < eps).flatten(-2).any(-1)
+        h = h + torch.relu(y)
+    out = layer_norm(h, params["lnf_s"], params["lnf_b"])
+    m = reduce_mask.float()[..., None]
+    top2 = (out * m + (m - 1.0) * 1e10).topk(2, dim=-2).values
+    live = reduce_mask.sum(-1) > 0
+    return near | (live & ((top2[..., 0, :] - top2[..., 1, :]) < eps).any(-1))

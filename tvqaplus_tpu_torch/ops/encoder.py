@@ -1,14 +1,19 @@
 """Fused QANet encoder block with the masked word-max folded in, forward
-(port of ``tvqaplus_tpu/ops/pallas_encoder.py`` ``fused_encoder_block``,
-``reduce_mask`` mode).
+and backward (port of ``tvqaplus_tpu/ops/pallas_encoder.py``
+``fused_encoder_block``, ``reduce_mask`` mode).
 
-x + PE, then 2 x [LN -> depthwise conv k -> pointwise D x D -> ReLU ->
-residual], final LN, then ``max over L of mask_logits(out, m)`` (reference
-encoder.py:9-52 + stage.py:500-505): STAGE's ``cls_encoder``.  The CUDA
-kernel is ``csrc/encoder_fwd.cu``; ``encoder_reduce_plain`` is the same
-function in plain PyTorch.  ``params`` uses the JAX kernel's keys:
-ln{0,1}_s/_b (D,), dw{0,1} (k, D), dwb{0,1} (D,), pw{0,1} (D, D) as
-(in, out), pwb{0,1} (D,), lnf_s/lnf_b (D,).
+x + PE, then 2 x [LN -> (dropout, conv 0 only) -> depthwise conv k ->
+pointwise D x D -> ReLU -> residual], final LN, then ``max over L of
+mask_logits(out, m)`` (reference encoder.py:9-52 + stage.py:500-505):
+STAGE's ``cls_encoder``.  The CUDA kernels are ``csrc/encoder_fwd.cu`` and
+``csrc/encoder_bwd.cu`` behind one ``torch.autograd.Function`` that takes
+the packed parameter vector, so ``torch.cat``'s autograd routes the
+gradient pieces back to the parameters; ``encoder_reduce_plain`` is the same
+function in plain PyTorch (autograd through it is the plain backward).
+``params`` uses the JAX kernel's keys: ln{0,1}_s/_b (D,), dw{0,1} (k, D),
+dwb{0,1} (D,), pw{0,1} (D, D) as (in, out), pwb{0,1} (D,), lnf_s/lnf_b
+(D,).  Conv 0's dropout acts on its (B*G*L, D) LN output, keyed by (seed,
+flat index) through Philox (ops/philox.py).
 """
 from __future__ import annotations
 
@@ -16,12 +21,21 @@ import ctypes
 
 import torch
 
-from tvqaplus_tpu_torch.ops._build import CudaKernel, check_device, ptr
+from tvqaplus_tpu_torch.ops import philox
+from tvqaplus_tpu_torch.ops._build import (
+    CudaKernel,
+    check_device,
+    ptr,
+    wgrad_chunks,
+)
 from tvqaplus_tpu_torch.ops.plain import as_f32, depthwise_conv, layer_norm
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U64, _U32 = ctypes.c_ulonglong, ctypes.c_uint
 KERNEL = CudaKernel("encoder_fwd.cu", "encoder_reduce_fwd",
-                    [_P] * 5 + [_I] * 4 + [_P])
+                    [_P] * 5 + [_I] * 3 + [_U64, _U32, _F, _I, _P])
+BWD_KERNEL = CudaKernel("encoder_bwd.cu", "encoder_reduce_bwd",
+                        [_P] * 15 + [_I] * 4 + [_U64, _U32, _F, _I, _P])
 
 PARAM_KEYS = ("ln0_s", "ln0_b", "dw0", "dwb0", "pw0", "pwb0",
               "ln1_s", "ln1_b", "dw1", "dwb1", "pw1", "pwb1",
@@ -29,15 +43,22 @@ PARAM_KEYS = ("ln0_s", "ln0_b", "dw0", "dwb0", "pw0", "pwb0",
 # Kernel vs plain version on the same inputs: float32 differs only in the
 # order of float32 sums; bf16 output is rounded once (LN outputs, O(1)).
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 1e-2)}
+# Backward kernel vs autograd through the plain version: float32 sums over
+# all rows in another order (the parameter grads sum 6.4e5 rows at the
+# headline shapes); bf16 rounds gx once and takes the cotangent in bf16.
+GRAD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
 MAX_LEN = 56
 
 
-def encoder_reduce_plain(x, pe, params, k, reduce_mask):
+def encoder_reduce_plain(x, pe, params, k, reduce_mask, dropout_rate=0.0,
+                         seed=0):
     """Plain PyTorch version.  x (B, G, L, D); pe (L, D); reduce_mask
     (B, G, L).  Returns (B, G, D) in x's dtype."""
     h = x.float() + pe.float()
     for i in (0, 1):
         t = layer_norm(h, params[f"ln{i}_s"], params[f"ln{i}_b"])
+        if i == 0 and dropout_rate > 0.0:
+            t = t * philox.multiplier(t.shape, seed, dropout_rate, t.device)
         c = depthwise_conv(t, params[f"dw{i}"].float(),
                            params[f"dwb{i}"].float())
         h = h + torch.relu(c @ params[f"pw{i}"].float()
@@ -47,13 +68,13 @@ def encoder_reduce_plain(x, pe, params, k, reduce_mask):
     return (out * m + (m - 1.0) * 1e10).amax(dim=-2).to(x.dtype)
 
 
-def encoder_reduce(x, pe, params, k, reduce_mask, dropout_rate=0.0):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
-    if dropout_rate != 0.0:
-        raise NotImplementedError(
-            "encoder dropout runs in-kernel with the training backward")
-    if not x.is_cuda:
-        return encoder_reduce_plain(x, pe, params, k, reduce_mask)
+def pack_params(params):
+    """The 14 parameters as one float32 vector in PARAM_KEYS order
+    (differentiable: ``torch.cat`` routes its gradient back)."""
+    return torch.cat([params[key].float().reshape(-1) for key in PARAM_KEYS])
+
+
+def _check(x, pe, packed, k, reduce_mask):
     bsz, g, l, d = x.shape
     if d != 128 or l > MAX_LEN or k % 2 == 0 or k > 9:
         raise ValueError(f"kernel takes D == 128, L <= {MAX_LEN} and odd "
@@ -64,15 +85,96 @@ def encoder_reduce(x, pe, params, k, reduce_mask, dropout_rate=0.0):
                          f"{x.dtype}")
     if reduce_mask.shape != (bsz, g, l) or pe.shape != (l, d):
         raise ValueError("mask or position table does not match x")
+    if packed.shape != ((2 * (4 + k) + 2) * d + 2 * d * d,):
+        raise ValueError(f"packed parameters: {tuple(packed.shape)}")
+    packed32, pe32, m32 = as_f32(packed), as_f32(pe), as_f32(reduce_mask)
+    check_device(x.device, pe=pe32, reduce_mask=m32, params=packed32)
+    return packed32, pe32, m32
+
+
+def _offsets(k, d=128):
+    """Start of each PARAM_KEYS piece in the packed vector."""
+    sizes = {"dw0": k * d, "dw1": k * d, "pw0": d * d, "pw1": d * d}
+    out, pos = {}, 0
+    for key in PARAM_KEYS:
+        out[key] = pos
+        pos += sizes.get(key, d)
+    return out
+
+
+class _EncoderReduce(torch.autograd.Function):
+    """The forward and backward CUDA kernels as one differentiable op over
+    (x, packed parameters)."""
+
+    @staticmethod
+    def forward(ctx, x, pe, packed, reduce_mask, k, dropout_rate, seed):
+        packed32, pe32, m32 = _check(x, pe, packed, k, reduce_mask)
+        bsz, g, l, d = x.shape
+        out = torch.empty((bsz, g, d), dtype=x.dtype, device=x.device)
+        KERNEL.launch(x.device, ptr(x), ptr(pe32), ptr(packed32), ptr(m32),
+                      ptr(out), bsz * g, l, k,
+                      *philox.kernel_args(dropout_rate, seed),
+                      int(x.dtype == torch.bfloat16))
+        ctx.save_for_backward(x, pe, packed, reduce_mask)
+        ctx.cfg = (k, dropout_rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, pe, packed, reduce_mask = ctx.saved_tensors
+        gx, gpacked = encoder_reduce_backward(x, pe, packed, reduce_mask, g,
+                                              *ctx.cfg)
+        return gx, None, gpacked, None, None, None, None
+
+
+def encoder_reduce_backward(x, pe, packed, reduce_mask, g, k,
+                            dropout_rate=0.0, seed=0):
+    """Launch the backward kernel (CUDA tensors only).  Returns gx in x's
+    dtype and the float32 gradient of the packed parameter vector."""
+    packed32, pe32, m32 = _check(x, pe, packed, k, reduce_mask)
+    bsz, grp, l, d = x.shape
+    n = bsz * grp
+    g = g.to(x.dtype).contiguous()
+    if g.shape != (bsz, grp, d):
+        raise ValueError("cotangent does not match the reduced output")
+    off = _offsets(k, d)
+    pw_t = torch.stack([packed32[off[key]:off[key] + d * d].view(d, d).t()
+                        for key in ("pw0", "pw1")]).contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    nv = (2 * (4 + k) + 2) * d
+    blocks = min(n, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    chunks = wgrad_chunks(n * l, d)
+    gx = torch.empty_like(x)
+    gvec = torch.empty(nv, **f32)
+    gpw = torch.empty(2, d, d, **f32)
+    scratch = [torch.empty(n * l, d, **f32) for _ in range(4)] + [
+        torch.empty(blocks, nv, **f32), torch.empty(chunks, d, d, **f32)]
+    BWD_KERNEL.launch(x.device, ptr(x), ptr(pe32), ptr(packed32), ptr(pw_t),
+                      ptr(m32), ptr(g), ptr(gx), ptr(gvec), ptr(gpw),
+                      *(ptr(t) for t in scratch), n, l, k, chunks,
+                      *philox.kernel_args(dropout_rate, seed),
+                      int(x.dtype == torch.bfloat16))
+    # gvec per layer: ln_s, ln_b, dw (k), dwb, pwb; then lnf_s, lnf_b
+    pieces = []
+    for i in (0, 1):
+        v = gvec[i * (4 + k) * d:(i + 1) * (4 + k) * d]
+        pieces += [v[:2 * d], v[2 * d:(2 + k) * d], v[(2 + k) * d:(3 + k) * d],
+                   gpw[i].reshape(-1), v[(3 + k) * d:]]
+    pieces.append(gvec[2 * (4 + k) * d:])
+    return gx, torch.cat(pieces)
+
+
+def encoder_reduce(x, pe, params, k, reduce_mask, dropout_rate=0.0, seed=0):
+    """Kernels on CUDA tensors (differentiable through the backward kernel,
+    parameters included), plain version on CPU tensors."""
+    if not x.is_cuda:
+        return encoder_reduce_plain(x, pe, params, k, reduce_mask,
+                                    dropout_rate, seed)
+    d = x.shape[-1]
     shapes = {"dw0": (k, d), "dw1": (k, d), "pw0": (d, d), "pw1": (d, d)}
     for key in PARAM_KEYS:
         if tuple(params[key].shape) != shapes.get(key, (d,)):
             raise ValueError(f"param {key}: {tuple(params[key].shape)}")
-    packed = as_f32(torch.cat([params[key].detach().float().reshape(-1)
-                               for key in PARAM_KEYS]))
-    pe32, m32 = as_f32(pe), as_f32(reduce_mask)
-    check_device(x.device, pe=pe32, reduce_mask=m32, params=packed)
-    out = torch.empty((bsz, g, d), dtype=x.dtype, device=x.device)
-    KERNEL.launch(x.device, ptr(x), ptr(pe32), ptr(packed), ptr(m32),
-                  ptr(out), bsz * g, l, k, int(x.dtype == torch.bfloat16))
-    return out
+    return _EncoderReduce.apply(x, pe, pack_params(params), reduce_mask, k,
+                                dropout_rate, seed)

@@ -22,3 +22,8 @@ def mask_logits(target, mask):
 def safe_softmax(x, dim=-1):
     """softmax that stays finite on fully masked (-1e10) rows."""
     return torch.softmax(torch.clamp(x, min=SAFE_FLOOR), dim=dim)
+
+
+def safe_log_softmax(x, dim=-1):
+    """log_softmax that stays finite on fully masked (-1e10) rows."""
+    return torch.log_softmax(torch.clamp(x, min=SAFE_FLOOR), dim=dim)

@@ -1,0 +1,95 @@
+"""Dropout masks from Philox4x32-10, in plain PyTorch (the plain version
+of ``csrc/philox.cuh``; see there for the contract).
+
+Element ``e`` of the tensor a dropout acts on (its flat index) keeps its
+value iff ``(bits(seed, e) >> 8) >= ceil(p * 2**24)``, where ``bits`` is
+word ``e & 3`` of Philox4x32-10 at counter ``e >> 2`` under the key
+``seed``.  The kernels and this module draw the same bits, so a kernel's
+output with dropout on is held against its plain version exactly.
+
+The 32 x 32 -> 64-bit products of Philox would overflow int64 tensors, so
+each multiplier is split into 16-bit halves.
+"""
+from __future__ import annotations
+
+import torch
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_MASK32 = 0xFFFFFFFF
+SEED_BITS = 62
+
+
+def _mulhilo(m, c):
+    """(hi, lo) 32-bit words of the 64-bit product of the constant ``m``
+    and the uint32 values ``c`` (int64 tensor), without overflow."""
+    a = c * (m & 0xFFFF)                  # < 2**48
+    b = c * (m >> 16)                     # < 2**48
+    mid = a + ((b & 0xFFFF) << 16)        # < 2**49
+    return (b >> 16) + (mid >> 32), mid & _MASK32
+
+
+def philox_rounds(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on counter words (c0, c1, c2, c3) (uint32 values in
+    int64 tensors) under the key words (k0, k1) (Python ints)."""
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _W0) & _MASK32, (k1 + _W1) & _MASK32
+    return c0, c1, c2, c3
+
+
+def philox4x32_10(counter, seed):
+    """The four uint32 words (int64 tensors) of Philox4x32-10 at the
+    counters (counter lo, counter hi, 0, 0) for the int64 tensor
+    ``counter``, under the key (seed lo, seed hi) of the int ``seed``."""
+    zero = torch.zeros_like(counter)
+    return philox_rounds(counter & _MASK32, (counter >> 32) & _MASK32,
+                         zero, zero, seed & _MASK32, (seed >> 32) & _MASK32)
+
+
+def threshold(p):
+    """Integer keep threshold on the top 24 bits: ceil(p * 2**24)."""
+    if not 0.0 <= p < 1.0:
+        raise ValueError(f"dropout rate {p} outside [0, 1)")
+    t = p * (1 << 24)
+    return int(t) + (t != int(t))
+
+
+def scale(p):
+    """The float32 multiplier of a kept value, 1 / (1 - p)."""
+    return float(torch.tensor(1.0 / (1.0 - p), dtype=torch.float32))
+
+
+def kernel_args(p, seed):
+    """(seed, threshold, scale) as a kernel's C entry takes them; threshold
+    0 means no dropout."""
+    if p == 0.0:
+        return 0, 0, 1.0
+    return seed, threshold(p), scale(p)
+
+
+def keep_mask(numel, seed, p, device="cpu", offset=0):
+    """Boolean keep mask of the elements ``offset .. offset + numel - 1``."""
+    first, last = offset >> 2, (offset + numel - 1) >> 2
+    ctr = torch.arange(first, last + 1, dtype=torch.int64, device=device)
+    words = torch.stack(philox4x32_10(ctr, seed), dim=-1).reshape(-1)
+    start = offset - 4 * first
+    return (words[start:start + numel] >> 8) >= threshold(p)
+
+
+def multiplier(shape, seed, p, device="cpu"):
+    """float32 tensor of ``shape``: 1 / (1 - p) where element (flat index)
+    is kept, else 0."""
+    numel = 1
+    for n in shape:
+        numel *= n
+    keep = keep_mask(numel, seed, p, device).reshape(shape)
+    return keep.to(torch.float32) * scale(p)
+
+
+def draw_seed(generator):
+    """A kernel seed from a CPU ``torch.Generator``: no device sync."""
+    return int(torch.randint(0, 1 << SEED_BITS, (), generator=generator,
+                             dtype=torch.int64))

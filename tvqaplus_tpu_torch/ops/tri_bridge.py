@@ -1,10 +1,13 @@
-"""Fused tri-concat MLP bridge, forward (port of
+"""Fused tri-concat MLP bridge, forward and backward (port of
 ``tvqaplus_tpu/ops/pallas_tri_bridge.py`` ``fused_tri_bridge``).
 
-STAGE's ``concat_fc``: LN([s; v; s*v]) -> dense 3D->D -> ReLU -> LN, row by
-row over the attended statements (reference stage.py:107-113, 300-302).
-The CUDA kernel is ``csrc/tri_bridge_fwd.cu``; ``tri_bridge_plain`` is the
-same function in plain PyTorch.
+STAGE's ``concat_fc``: LN([s; v; s*v]) -> dropout -> dense 3D->D -> ReLU ->
+LN, row by row over the attended statements (reference stage.py:107-113,
+300-302).  The CUDA kernels are ``csrc/tri_bridge_fwd.cu`` and
+``csrc/tri_bridge_bwd.cu`` behind one ``torch.autograd.Function``;
+``tri_bridge_plain`` is the same function in plain PyTorch (autograd through
+it is the plain backward).  The dropout acts on the (rows, 3D) LN output,
+keyed by (seed, flat index) through Philox (ops/philox.py).
 """
 from __future__ import annotations
 
@@ -12,38 +15,47 @@ import ctypes
 
 import torch
 
-from tvqaplus_tpu_torch.ops._build import CudaKernel, check_device, ptr
+from tvqaplus_tpu_torch.ops import philox
+from tvqaplus_tpu_torch.ops._build import (
+    CudaKernel,
+    check_device,
+    ptr,
+    wgrad_chunks,
+)
 from tvqaplus_tpu_torch.ops.plain import as_f32, layer_norm
 
-_P = ctypes.c_void_p
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U64, _U32, _L = ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_longlong
 KERNEL = CudaKernel("tri_bridge_fwd.cu", "tri_bridge_fwd",
-                    [_P] * 9 + [ctypes.c_longlong, ctypes.c_int, _P])
+                    [_P] * 9 + [_L, _U64, _U32, _F, _I, _P])
+BWD_KERNEL = CudaKernel("tri_bridge_bwd.cu", "tri_bridge_bwd",
+                        [_P] * 17 + [_L, _I, _U64, _U32, _F, _I, _P])
 
 # Kernel vs plain version on the same inputs: float32 differs only in the
 # order of float32 sums; bf16 output is rounded once (step 2**-8 relative;
 # LN outputs are O(1), up to a few units).
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 1e-2)}
+# Backward kernel vs autograd through the plain version: float32 sums over
+# all rows in another order (parameter grads sum 10^5 rows at the headline
+# shapes); bf16 rounds gs/gv once and takes the cotangent in bf16.
+GRAD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
+_NAMES = ("gamma_in", "beta_in", "w", "b", "gamma_out", "beta_out")
 
 
-def tri_bridge_plain(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out):
+def tri_bridge_plain(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
+                     dropout_rate=0.0, seed=0):
     """Plain PyTorch version.  s, v (..., D); w (3D, D).  Returns (..., D)
     in s's dtype."""
     s32, v32 = s.float(), v.float()
     y = layer_norm(torch.cat([s32, v32, s32 * v32], dim=-1), gamma_in,
                    beta_in)
+    if dropout_rate > 0.0:
+        y = y * philox.multiplier(y.shape, seed, dropout_rate, y.device)
     h = torch.relu(y @ w.float() + b.float())
     return layer_norm(h, gamma_out, beta_out).to(s.dtype)
 
 
-def tri_bridge(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
-               dropout_rate=0.0):
-    """Kernel on CUDA tensors, plain version on CPU tensors."""
-    if dropout_rate != 0.0:
-        raise NotImplementedError(
-            "bridge dropout runs in-kernel with the training backward")
-    if not s.is_cuda:
-        return tri_bridge_plain(s, v, gamma_in, beta_in, w, b, gamma_out,
-                                beta_out)
+def _check(s, v, params):
     d = s.shape[-1]
     if v.shape != s.shape or v.dtype != s.dtype:
         raise ValueError(f"v {tuple(v.shape)} {v.dtype} does not match s "
@@ -53,15 +65,74 @@ def tri_bridge(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
                          f"{tuple(s.shape)} {s.dtype}")
     if not (s.is_contiguous() and v.is_contiguous()):
         raise ValueError("s and v must be contiguous")
-    params = [as_f32(t) for t in (gamma_in, beta_in, w, b, gamma_out,
-                                  beta_out)]
-    check_device(s.device, v=v, **dict(zip(
-        ("gamma_in", "beta_in", "w", "b", "gamma_out", "beta_out"), params)))
+    params = [as_f32(t) for t in params]
+    check_device(s.device, v=v, **dict(zip(_NAMES, params)))
     shapes = [(3 * d,), (3 * d,), (3 * d, d), (d,), (d,), (d,)]
     if [tuple(p.shape) for p in params] != shapes:
         raise ValueError("bridge parameters do not match D")
-    out = torch.empty_like(s)
+    return params
+
+
+class _TriBridge(torch.autograd.Function):
+    """The forward and backward CUDA kernels as one differentiable op."""
+
+    @staticmethod
+    def forward(ctx, s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
+                dropout_rate, seed):
+        params = _check(s, v, (gamma_in, beta_in, w, b, gamma_out, beta_out))
+        out = torch.empty_like(s)
+        rows = s.numel() // s.shape[-1]
+        KERNEL.launch(s.device, ptr(s), ptr(v), *(ptr(p) for p in params),
+                      ptr(out), rows, *philox.kernel_args(dropout_rate, seed),
+                      int(s.dtype == torch.bfloat16))
+        ctx.save_for_backward(s, v, gamma_in, beta_in, w, b, gamma_out,
+                              beta_out)
+        ctx.cfg = (dropout_rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        s, v, *params = ctx.saved_tensors
+        grads = tri_bridge_backward(s, v, *params, g, *ctx.cfg)
+        return grads + (None, None)
+
+
+def tri_bridge_backward(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
+                        g, dropout_rate=0.0, seed=0):
+    """Launch the backward kernel (CUDA tensors only).  Returns the
+    gradients of (s, v) in their dtype and of the six parameters in
+    float32."""
+    gin, bin_, w32, b32, gout, _ = _check(
+        s, v, (gamma_in, beta_in, w, b, gamma_out, beta_out))
+    d = s.shape[-1]
     rows = s.numel() // d
-    KERNEL.launch(s.device, ptr(s), ptr(v), *(ptr(p) for p in params),
-                  ptr(out), rows, int(s.dtype == torch.bfloat16))
-    return out
+    g = g.to(s.dtype).contiguous()
+    if g.shape != s.shape:
+        raise ValueError("cotangent does not match s")
+    f32 = dict(dtype=torch.float32, device=s.device)
+    chunks = wgrad_chunks(rows, 3 * d)
+    gs, gv = torch.empty_like(s), torch.empty_like(v)
+    gvec = torch.empty(9 * d, **f32)
+    gw = torch.empty(3 * d, d, **f32)
+    scratch = [torch.empty(rows, 3 * d, **f32), torch.empty(rows, d, **f32),
+               torch.empty(-(-rows // 32), 9 * d, **f32),
+               torch.empty(chunks, 3 * d, d, **f32)]
+    BWD_KERNEL.launch(s.device, ptr(s), ptr(v), ptr(gin), ptr(bin_),
+                      ptr(w32), ptr(as_f32(w32.t())), ptr(b32), ptr(gout),
+                      ptr(g), ptr(gs), ptr(gv), ptr(gvec), ptr(gw),
+                      *(ptr(t) for t in scratch), rows, chunks,
+                      *philox.kernel_args(dropout_rate, seed),
+                      int(s.dtype == torch.bfloat16))
+    return (gs, gv, gvec[:3 * d], gvec[3 * d:6 * d], gw, gvec[6 * d:7 * d],
+            gvec[7 * d:8 * d], gvec[8 * d:])
+
+
+def tri_bridge(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
+               dropout_rate=0.0, seed=0):
+    """Kernels on CUDA tensors (differentiable through the backward
+    kernel), plain version on CPU tensors."""
+    if not s.is_cuda:
+        return tri_bridge_plain(s, v, gamma_in, beta_in, w, b, gamma_out,
+                                beta_out, dropout_rate, seed)
+    return _TriBridge.apply(s, v, gamma_in, beta_in, w, b, gamma_out,
+                            beta_out, dropout_rate, seed)

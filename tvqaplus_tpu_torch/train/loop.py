@@ -1,0 +1,299 @@
+"""Training and validation loop (port of ``tvqaplus_tpu/train/loop.py``).
+
+Mirrors the reference control flow (main.py:18-251): a per-epoch train loop
+with validation at every ``log_freq`` crossing, best-model saving, plateau
+LR on the validation accuracy, early stop after ``max_es_cnt`` flat epochs,
+hard negatives after ``hard_negative_start`` epochs, the debug break after
+batch 5 with a timing dump, and a halt on a non-finite loss that saves the
+diverged state to ``crash_state.ckpt``.
+
+One train step is forward(train) -> ``total_loss`` -> backward -> clip ->
+Adam.  On ``cuda`` the three fused kernels and their backward kernels carry
+it; the step never waits on the device: the kernels' dropout seeds come
+from a CPU generator, the plain layers' masks and the att loss's Gumbel
+noise from a generator on the device, and the losses stay on the device
+until a log point.
+"""
+from __future__ import annotations
+
+import math
+import os
+import time
+
+import torch
+
+from tvqaplus_tpu_torch import resolve_device
+from tvqaplus_tpu_torch.data.pipeline import DataPipeline
+from tvqaplus_tpu_torch.models.layers import Dropout
+from tvqaplus_tpu_torch.models.losses import gumbel_noise, total_loss
+from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+from tvqaplus_tpu_torch.train.metrics import MetricsLogger
+from tvqaplus_tpu_torch.train.state import (
+    PlateauScheduler,
+    clip_grad_norm,
+    load_checkpoint,
+    make_optimizer,
+    save_checkpoint,
+    set_lr,
+)
+from tvqaplus_tpu_torch.utils.misc import AverageMeter, count_parameters
+
+_WINDOW_KEYS = ("loss", "loss_att", "loss_ts", "loss_cls")
+
+
+def log_crossing(prev_steps, new_steps, log_freq):
+    """(triggered, batch index of the log point) for the optimizer steps
+    [prev_steps, new_steps): the reference logs when
+    ``batch_idx % log_freq == 0`` (main.py:81)."""
+    if new_steps - prev_steps > log_freq:
+        raise ValueError("an interval longer than log_freq would skip a "
+                         "log point")
+    if prev_steps == 0:
+        return True, 0
+    if (prev_steps - 1) // log_freq != (new_steps - 1) // log_freq:
+        return True, ((prev_steps + log_freq - 1) // log_freq) * log_freq
+    return False, 0
+
+
+def _empty_window():
+    return {"loss": [], "loss_att": [], "loss_ts": [], "loss_cls": [],
+            "att_dropped": [], "n_correct": [], "n": []}
+
+
+class Trainer:
+    """Model, optimizer, schedule and the train/eval steps on ``device``
+    (``cuda`` unless the caller asks for ``cpu``).  The model starts from
+    seeded random weights (``cfg.seed``) unless ``cfg.resume`` names a
+    checkpoint."""
+
+    def __init__(self, cfg, device=None, logger=None, model=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model_cfg = ModelConfig.from_config(cfg)
+        if model is None:
+            model = STAGE(self.model_cfg).reset_parameters(
+                torch.Generator().manual_seed(cfg.seed))
+        self.model = model.to(self.device)
+        self.params = list(self.model.parameters())
+        self.optimizer = make_optimizer(self.params, cfg.lr, cfg.wd)
+        self.scheduler = PlateauScheduler(cfg.lr, factor=0.5, patience=10)
+        self.logger = logger or MetricsLogger(cfg.results_dir)
+        self.n_params = count_parameters(self.model)
+        # kernel dropout seeds: CPU generator (no device sync); plain
+        # dropout masks and Gumbel noise: a generator on the device
+        self.seed_generator = torch.Generator().manual_seed(cfg.seed)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            cfg.seed)
+        self.step = 0
+        self.best_acc = 0.0
+        self.start_epoch = 0
+        if cfg.resume:
+            self.step, extra = load_checkpoint(cfg.resume, self.model,
+                                               self.optimizer)
+            self.best_acc = extra.get("best_acc", 0.0)
+            self.start_epoch = extra.get("epoch", 0)
+            self.scheduler.lr = extra.get("lr", cfg.lr)
+            set_lr(self.optimizer, self.scheduler.lr)
+        self.loss_kwargs = dict(
+            att_weight=cfg.att_weight, ts_weight=cfg.ts_weight,
+            use_sup_att=cfg.use_sup_att, num_negatives=cfg.num_negatives,
+            att_loss_type=cfg.att_loss_type, margin=cfg.margin,
+            alpha=cfg.alpha, drop_topk=cfg.drop_topk,
+            negative_pool_size=cfg.negative_pool_size,
+            num_hard=cfg.num_hard, entry_cap=cfg.att_entry_cap,
+            vfeat_flag=cfg.vfeat_flag)
+        # training reads only the vid raw scores, only at the target answer
+        self.need_vid_raw = "target" if (cfg.use_sup_att
+                                         and cfg.vfeat_flag) else False
+
+    # ------------------------------------------------------------------
+    def _gumbel(self, batch, use_hard_negatives):
+        cfg = self.cfg
+        if not (cfg.use_sup_att and cfg.vfeat_flag):
+            return None
+        if use_hard_negatives and cfg.negative_pool_size <= cfg.num_negatives:
+            return None            # direct hard negatives: no sampling
+        bsz, li, lr = batch["vid_mask"].shape
+        e = min(cfg.att_entry_cap, li * batch["qas_mask"].shape[-1] * lr)
+        return gumbel_noise((bsz, e, cfg.num_negatives, lr), self.generator,
+                            self.device)
+
+    def train_step(self, batch, use_hard_negatives=False):
+        """One optimizer step on a batch already on the device.  Returns
+        the step's metrics as device tensors (``grad_norm`` is the norm
+        before clipping)."""
+        self.model.train()
+        drop = Dropout(self.cfg.dropout, self.generator, self.seed_generator)
+        out = self.model(batch, train=True, need_sub_raw=False,
+                         need_vid_raw=self.need_vid_raw, drop=drop)
+        loss, metrics = total_loss(
+            out, batch, self._gumbel(batch, use_hard_negatives), train=True,
+            use_hard_negatives=use_hard_negatives, **self.loss_kwargs)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        metrics["grad_norm"] = clip_grad_norm(self.params, self.cfg.clip)
+        self.optimizer.step()
+        self.step += 1
+        return {k: v.detach() for k, v in metrics.items()}
+
+    @torch.no_grad()
+    def eval_step(self, batch):
+        """Eval forward + losses (no att loss, as model.eval() gates it in
+        the reference, stage.py:317); returns (metrics, answer ids)."""
+        self.model.eval()
+        out = self.model(batch, need_sub_raw=False, need_vid_raw=False)
+        _, metrics = total_loss(out, batch, None, train=False,
+                                **self.loss_kwargs)
+        return metrics, out["answer_scores"].argmax(-1)
+
+    def _pipeline(self, dataset, train, batch_size):
+        return DataPipeline(dataset, self.cfg, self.device,
+                            batch_size=batch_size,
+                            prefetch_depth=self.cfg.prefetch_depth,
+                            train=train, seed=self.cfg.seed)
+
+    # ------------------------------------------------------------------
+    def validate(self, dataset, max_batches=None):
+        """A pass over the valid split: (acc, loss per example,
+        qid_corrects) (reference main.py:151-183)."""
+        dataset.set_mode("valid")
+        pipeline = self._pipeline(dataset, False, self.cfg.test_bsz)
+        n_correct = loss = n = 0.0
+        qid_corrects = []
+        for i, (batch, meta, _) in enumerate(pipeline):
+            metrics, preds = self.eval_step(batch)
+            preds = preds.cpu().tolist()
+            n_correct += float(metrics["n_correct"])
+            loss += float(metrics["loss"])
+            n += len(meta["qid"])
+            for j in range(len(meta["qid"])):
+                qid_corrects.append("%d\t%d" % (
+                    meta["qid"][j], int(preds[j] == meta["target"][j])))
+            if max_batches is not None and i + 1 >= max_batches:
+                break
+            if self.cfg.debug and i == 20:
+                break
+        return n_correct / max(n, 1), loss / max(n, 1), qid_corrects
+
+    def train_epoch(self, dataset, epoch, use_hard_negatives=False,
+                    valid_dataset=None):
+        """One epoch (reference main.py:18-148); returns the best val
+        acc."""
+        cfg = self.cfg
+        if valid_dataset is dataset:
+            raise ValueError("pass separate train/valid dataset objects")
+        dataset.set_mode("train")
+        pipeline = self._pipeline(dataset, True, cfg.bsz)
+        meters = {k: AverageMeter() for k in ("dataloading",
+                                             "forward_backward")}
+        window = _empty_window()
+        valid_acc_log = ["batch_idx\tacc"]
+        n_steps = len(pipeline)
+        timer = time.time()
+        for batch_idx, (batch, _, _) in enumerate(pipeline):
+            meters["dataloading"].update(time.time() - timer)
+            t0 = time.time()
+            metrics = self.train_step(batch, use_hard_negatives)
+            if cfg.debug:              # per-step timing syncs, debug only
+                float(metrics["loss"])
+            meters["forward_backward"].update(time.time() - t0)
+            for k in _WINDOW_KEYS:
+                window[k].append(metrics[k])
+            if "att_n_pos_dropped" in metrics:
+                window["att_dropped"].append(metrics["att_n_pos_dropped"])
+            window["n_correct"].append(metrics["n_correct"])
+            window["n"].append(metrics["n_eff"])
+
+            triggered, log_point = log_crossing(batch_idx, batch_idx + 1,
+                                                cfg.log_freq)
+            if triggered:
+                niter = epoch * n_steps + log_point
+                if log_point > 0:
+                    host = {k: torch.stack(v).cpu().tolist()
+                            for k, v in window.items() if v}
+                    self._halt_if_nonfinite(
+                        host["loss"], epoch,
+                        f"batches [{max(0, log_point - cfg.log_freq)}, "
+                        f"{log_point})")
+                    n = max(sum(host["n"]), 1)
+                    self.logger.add_scalar("Train/Acc",
+                                           sum(host["n_correct"]) / n, niter)
+                    for k, tag in (("loss", "Loss"), ("loss_att", "Loss_att"),
+                                   ("loss_cls", "Loss_cls"),
+                                   ("loss_ts", "Loss_ts")):
+                        self.logger.add_scalar(f"Train/{tag}",
+                                               sum(host[k]) / n, niter)
+                    if "att_dropped" in host:
+                        self.logger.add_scalar("Train/Att_pos_dropped",
+                                               sum(host["att_dropped"]),
+                                               niter)
+                if valid_dataset is not None:
+                    valid_acc, valid_loss, _ = self.validate(valid_dataset)
+                    self.logger.add_scalar("Valid/Acc", valid_acc, niter)
+                    self.logger.add_scalar("Valid/Loss", valid_loss, niter)
+                    valid_acc_log.append("%02d\t%.4f" % (log_point,
+                                                         valid_acc))
+                    if valid_acc > self.best_acc:
+                        self.best_acc = valid_acc
+                        self.save_best()
+                    dataset.set_mode("train")
+                    window = _empty_window()
+            timer = time.time()
+            if cfg.debug and batch_idx + 1 > 5:   # main.py:131
+                for name, m in meters.items():
+                    print(f"{name}: max {m.max:.4f} min {m.min:.4f} "
+                          f"avg {m.avg:.4f}")
+                break
+        if window["loss"]:
+            # the tail window gets the non-finite check too
+            tail = torch.stack(window["loss"]).cpu().tolist()
+            self._halt_if_nonfinite(tail, epoch, "the epoch's tail window")
+        self.logger.append_log("valid_acc.log", valid_acc_log)
+        return self.best_acc
+
+    def _halt_if_nonfinite(self, losses, epoch, where):
+        """A NaN/inf training loss saves the diverged state and halts."""
+        if not self.cfg.halt_on_nonfinite or math.isfinite(sum(losses)):
+            return
+        crash = os.path.join(self.cfg.results_dir, "crash_state.ckpt")
+        self.save(crash, epoch=epoch)
+        raise FloatingPointError(
+            f"non-finite training loss in {where} of epoch {epoch}; "
+            f"diverged state saved to {crash}")
+
+    def fit(self, train_dataset, valid_dataset):
+        """Training run with plateau LR and early stop (reference
+        main.py:186-251); returns the best val acc."""
+        cfg = self.cfg
+        es_cnt = 0
+        for epoch in range(self.start_epoch, cfg.n_epoch):
+            use_hard = epoch + 1 > cfg.hard_negative_start
+            self.logger.add_scalar("learning_rate", self.scheduler.lr, epoch)
+            prev_best = self.best_acc
+            cur_acc = self.train_epoch(train_dataset, epoch,
+                                       use_hard_negatives=use_hard,
+                                       valid_dataset=valid_dataset)
+            set_lr(self.optimizer, self.scheduler.step(cur_acc))
+            if cur_acc > prev_best:
+                es_cnt = 0
+            else:
+                es_cnt += 1
+                if es_cnt >= cfg.max_es_cnt:
+                    print("=> early stop with valid acc %.4f" % self.best_acc)
+                    self.logger.export_scalars()
+                    break
+            self.save(os.path.join(cfg.results_dir, "last.ckpt"), epoch=epoch)
+            if cfg.debug:
+                break
+        return self.best_acc
+
+    def save(self, path, epoch=0):
+        save_checkpoint(path, self.model, self.optimizer, self.step,
+                        extra={"best_acc": self.best_acc, "epoch": epoch,
+                               "lr": self.scheduler.lr})
+
+    def save_best(self):
+        """``best_valid.pth``: the model's state_dict in the reference
+        format, which the port's inference CLI reads."""
+        sd = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
+        torch.save(sd, os.path.join(self.cfg.results_dir, "best_valid.pth"))

@@ -1,0 +1,94 @@
+"""Optimizer, gradient clipping, LR schedule and checkpoints (port of
+``tvqaplus_tpu/train/state.py``).
+
+* The optimizer is the reference recipe (main.py:209-219) as the JAX
+  package's optax chain has it: clip by global norm (10), then Adam
+  (0.9, 0.999, 1e-8) at lr 1e-3 with coupled L2 weight decay 3e-7 (added to
+  the gradient before the moments), which is ``torch.optim.Adam``'s
+  ``weight_decay``.
+* ``clip_grad_norm`` is optax's ``clip_by_global_norm``: grads are scaled
+  to ``g / norm * clip`` only when ``norm >= clip`` (torch's own
+  ``clip_grad_norm_`` scales by ``clip / (norm + 1e-6)`` always), and it
+  decides on the device, so a step never waits for the norm.
+* ``PlateauScheduler`` is ReduceLROnPlateau(max, factor 0.5, patience 10,
+  rel threshold 1e-4), stepped on the validation accuracy per epoch.
+* Checkpoints hold the model, the optimizer, the step and an ``extra``
+  dict (``torch.save``).
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+
+
+def make_optimizer(params, lr, weight_decay=3e-7):
+    """Adam with coupled L2 decay (clip first with ``clip_grad_norm``)."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=weight_decay)
+
+
+@torch.no_grad()
+def clip_grad_norm(params, clip):
+    """optax ``clip_by_global_norm`` in place; returns the pre-clip global
+    norm (a device tensor)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    keep = norm < clip
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * clip))
+    return norm
+
+
+def set_lr(optimizer, lr):
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+
+
+class PlateauScheduler:
+    """ReduceLROnPlateau(max, factor, patience, rel threshold 1e-4)
+    semantics (reference main.py:213-219, stepped on val accuracy per
+    epoch)."""
+
+    THRESHOLD = 1e-4
+
+    def __init__(self, init_lr, factor=0.5, patience=10):
+        self.lr = init_lr
+        self.factor = factor
+        self.patience = patience
+        self.best = -float("inf")
+        self.num_bad_epochs = 0
+
+    def _is_better(self, metric):
+        rel = 1.0 + self.THRESHOLD if self.best >= 0 else \
+            1.0 - self.THRESHOLD
+        return metric > self.best * rel
+
+    def step(self, metric):
+        """Returns the (possibly reduced) learning rate."""
+        if self._is_better(metric):
+            self.best = metric
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.num_bad_epochs > self.patience:
+            self.lr *= self.factor
+            self.num_bad_epochs = 0
+        return self.lr
+
+
+def save_checkpoint(path, model, optimizer, step, extra=None):
+    """Model, optimizer, step and ``extra`` in one file (atomic rename)."""
+    tmp = path + ".tmp"
+    torch.save({"model": model.state_dict(),
+                "optimizer": optimizer.state_dict(), "step": int(step),
+                "extra": extra or {}}, tmp)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path, model, optimizer):
+    """Restore a ``save_checkpoint`` file; returns (step, extra)."""
+    payload = torch.load(path, map_location="cpu", weights_only=False)
+    model.load_state_dict(payload["model"])
+    optimizer.load_state_dict(payload["optimizer"])
+    return payload["step"], payload.get("extra", {})
