@@ -12,7 +12,14 @@ toolkit.  Phases, each printing one JSON line:
              answers, 50 frames, 40 QA tokens, 25 regions / 50 subtitle
              tokens, D 128): against its plain version in float32 and in
              bfloat16, times (CUDA events, median of 30 after warm-up) and
-             the card's bound for the same work.
+             the card's bound for the same work.  The encoder's full-output
+             mode runs at the merged input encoder's (16, 105, 50, 128),
+             k = 7, with the headline length mask (5 x 40, 50 x 50, 50 x 25)
+             and with no mask, compared on the valid positions; the MLP
+             bridge at (16, 5, 40, 768), (16, 50, 25, 300) and
+             (16, 50, 50, 768) -> 300.  Beside these two, the time of what
+             the separate-stream main path runs instead: the three plain
+             ``EncoderBlock`` calls, the plain ``MLPBridge`` chain.
 4. kernels (training) - each forward kernel with dropout 0.1 (the vid
              attention site in raw mode "target") and each backward kernel
              at the headline training shapes, against the plain version
@@ -38,10 +45,32 @@ toolkit.  Phases, each printing one JSON line:
 8. train vs cpu - one train step (50 frames, batch 4, dropout 0, float32)
              on the card against the same step on the CPU.
 9. training - the headline train step (batch 16, 50 frames, bf16, dropout
-             0.1) on a batch already on the card: host clock over 20 steps
+             0.1) on a batch already on the card: host clock over 12 steps
              ended by a synchronise (ms per step, QA pairs trained per
              second), the median CUDA-event time of one step, and the
              device's busy time and idle share from ``torch.profiler``.
+
+The merged input-encoder path (``merge_input_streams``) and the bridge
+kernel, each in the phase of its counterpart:
+5m. merged main - the inference entry point on run directories whose
+             opt.json sets ``merge_input_streams`` (same best_valid.pth):
+             in float32 the answers and spans equal the separate run's and
+             the grounding scores agree at 1e-4; in bf16 the headline batch
+             is held against the CPU float32 forward at phase 5's bar.  The
+             full-output encoder kernel launched and no plain k=7 encoder
+             call ran.
+6m. merged serving - phase 6 with the flag, in turns with the separate
+             path, each with launches per step, device busy ms and idle
+             share from ``torch.profiler``.
+7m. merged train main - phase 7 with ``--merge_input_streams``: all eight
+             encoder/attention/tri-bridge counters above zero.
+7b. bridge module - ``MLPBridge`` built with its kernel switch on, loaded
+             with STAGE's ``bert_word_encoding_fc`` / ``vid_fc`` weights,
+             forward + backward in train mode (dropout 0.1) on the headline
+             ``qas_bert`` and ``vid`` tensors against the same module with
+             the switch off and the same Philox mask, float32 and bf16.
+9m. merged training - phase 9 with the flag, in turns with the separate
+             path.
 
 Then the ``kernels`` summary line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line.
@@ -62,7 +91,9 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 2018
+DEVICE = "cuda"      # where the entry points run
 B, A, LQA, LI, LR_VID, LR_SUB, D, K_CLS = 16, 5, 40, 50, 25, 50, 128, 5
+K_IN, D_BERT, D_VFEAT, D_BRIDGE = 7, 768, 300, 300
 # H100 SXM data sheet: HBM3 rate and dense bf16 tensor-core rate
 PEAK_BYTES_S = 3.35e12
 PEAK_BF16_FLOP_S = 989e12
@@ -73,17 +104,33 @@ REPLACES = {
     "qa_ctx_attention_bwd": "tvqaplus_tpu/ops/pallas_attention.py:479",
     "tri_bridge_bwd": "tvqaplus_tpu/ops/pallas_tri_bridge.py:223",
     "encoder_bwd": "tvqaplus_tpu/ops/pallas_encoder.py:493",
+    "encoder_block": "tvqaplus_tpu/ops/pallas_encoder.py:570",
+    "encoder_block_bwd": "tvqaplus_tpu/ops/pallas_encoder.py:493",
+    "mlp_bridge": "tvqaplus_tpu/ops/pallas_bridge.py:204",
+    "mlp_bridge_bwd": "tvqaplus_tpu/ops/pallas_bridge.py:159",
 }
 BWD_SOURCES = {"qa_ctx_attention": "csrc/qa_ctx_attention_bwd.cu",
                "tri_bridge": "csrc/tri_bridge_bwd.cu",
-               "encoder": "csrc/encoder_bwd.cu"}
+               "encoder": "csrc/encoder_bwd.cu",
+               "encoder_block": "csrc/encoder_bwd.cu",
+               "mlp_bridge": "csrc/mlp_bridge_bwd.cu"}
+# the kernels each main path must launch (counter keys, see counters())
+SEPARATE_FWD = ("qa_ctx_attention", "tri_bridge", "encoder")
+SEPARATE_TRAIN = SEPARATE_FWD + tuple(k + "_bwd" for k in SEPARATE_FWD)
+MERGED_FWD = SEPARATE_FWD + ("encoder_block",)
+MERGED_TRAIN = SEPARATE_TRAIN + ("encoder_block", "encoder_block_bwd")
 P_DROP, DROP_SEED = 0.1, 20181016
 # whole-model tolerances on answer_scores against the CPU float32 forward:
 # float32 on the card differs only in summation order (TF32 off); bf16
 # activations carry ~3 significant digits through ~10 layers
 FWD_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (1e-1, 5e-2)}
-SERVING_STEPS = 50
-TRAIN_STEPS, PROFILE_STEPS, CPU_STEP_BATCH = 20, 10, 4
+SERVING_STEPS = 30
+TRAIN_STEPS, PROFILE_STEPS, CPU_STEP_BATCH = 12, 6, 4
+# MLPBridge with the kernel switch on against the switch off, bf16: the
+# plain chain rounds the LN output and the dense product to bf16 (the kernel
+# keeps float32 inside), so ~0.2% of the ReLU signs differ and each flips
+# one element of the gradient: relative L2 error of each output / gradient
+BRIDGE_BF16_REL_L2 = 0.1
 # one train step on the card (float32, TF32 off) against the CPU: the loss
 # is one float32 reduction of the same values; a gradient may differ where
 # a ReLU input or a max tie lies within float32 rounding of its decision
@@ -184,14 +231,101 @@ def randn(gen, dev, *shape, scale=1.0):
     return torch.randn(*shape, generator=gen, device=dev) * scale
 
 
+@dataclasses.dataclass
+class Case:
+    """One kernel at the shapes the main path gives it."""
+    name: str
+    key: str               # counter key of the forward (see counters())
+    mod: object            # the wrapper's module (TOL, GRAD_TOL)
+    kernel: object         # the wrapper
+    plain: object          # its plain PyTorch version
+    args: object           # dtype -> (args, kwargs)
+    flops: int
+    src: str
+    valid: object = None   # outputs count where this is 1 (else everywhere)
+    today: object = None   # (dtype, train) -> (step, parameters): what the
+    #                        separate-stream main path runs instead
+    # training variant (train_kernel_cases)
+    kw: dict = None        # dropout and raw-mode arguments
+    flip: object = None    # args -> rows whose cotangent is zeroed
+    diff: tuple = ()       # positions of the differentiable args
+    bflops: int = 0
+
+
+def encoder_params(gen, dev, k):
+    p = {}
+    for i in (0, 1):
+        p.update({f"ln{i}_s": 1.0 + randn(gen, dev, D, scale=0.1),
+                  f"ln{i}_b": randn(gen, dev, D, scale=0.1),
+                  f"dw{i}": randn(gen, dev, k, D, scale=0.3),
+                  f"dwb{i}": randn(gen, dev, D, scale=0.1),
+                  f"pw{i}": randn(gen, dev, D, D, scale=D ** -0.5),
+                  f"pwb{i}": randn(gen, dev, D, scale=0.1)})
+    p["lnf_s"] = 1.0 + randn(gen, dev, D, scale=0.1)
+    p["lnf_b"] = randn(gen, dev, D, scale=0.1)
+    return p
+
+
+def plain_encoder_calls(p, k, streams, dev):
+    """The three separate plain ``EncoderBlock`` calls of today's main path
+    on the merged tensor's streams: (dtype, train) -> (step, parameters);
+    ``step()`` returns the three outputs."""
+    from tvqaplus_tpu_torch.models.layers import Dropout, EncoderBlock
+
+    def build(dt, train):
+        block = EncoderBlock(D, 2, k, dtype=dt).to(dev)
+        sd = {"final_layer_norm.weight": p["lnf_s"],
+              "final_layer_norm.bias": p["lnf_b"]}
+        for i in (0, 1):
+            sd.update({
+                f"layer_norm.{i}.weight": p[f"ln{i}_s"],
+                f"layer_norm.{i}.bias": p[f"ln{i}_b"],
+                f"conv.{i}.depthwise_conv.weight": p[f"dw{i}"].t()[:, None],
+                f"conv.{i}.depthwise_conv.bias": p[f"dwb{i}"],
+                f"conv.{i}.pointwise_conv.weight": p[f"pw{i}"].t()[..., None],
+                f"conv.{i}.pointwise_conv.bias": p[f"pwb{i}"]})
+        block.load_state_dict(sd)
+        xs = [x.to(dt).requires_grad_(train) for x in streams]
+        drop = Dropout(P_DROP, torch.Generator(device=dev).manual_seed(SEED),
+                       torch.Generator().manual_seed(SEED)) if train else None
+        return (lambda: [block(x, drop=drop) for x in xs],
+                xs + list(block.parameters()))
+    return build
+
+
+def plain_bridge_chain(x, params, dev):
+    """The plain ``MLPBridge`` chain of today's main path, as
+    ``plain_encoder_calls``."""
+    from tvqaplus_tpu_torch.models.layers import Dropout, MLPBridge
+
+    def build(dt, train):
+        gin, bin_, w, b, gout, bout = params
+        mod = MLPBridge(w.shape[0], w.shape[1], P_DROP, dt).to(dev)
+        mod.load_state_dict({"0.weight": gin, "0.bias": bin_,
+                             "2.weight": w.t(), "2.bias": b,
+                             "4.weight": gout, "4.bias": bout})
+        xt = x.to(dt).requires_grad_(train)
+        drop = Dropout(P_DROP, torch.Generator(device=dev).manual_seed(SEED),
+                       torch.Generator().manual_seed(SEED)) if train else None
+        return lambda: [mod(xt, drop)], [xt] + list(mod.parameters())
+    return build
+
+
+def merged_length_mask(dev):
+    """The (G, L) zero mask of ``_merged_input_encode`` at the headline
+    shapes: 5 answers of 40, 50 subtitle windows of 50, 50 frames of 25."""
+    lens = torch.tensor([LQA] * A + [LR_SUB] * LI + [LR_VID] * LI, device=dev)
+    lmax = max(LQA, LR_SUB, LR_VID)
+    return (torch.arange(lmax, device=dev)[None, :] < lens[:, None]).float()
+
+
 def kernel_cases(dev):
-    """Every kernel at the headline shapes: (name, counter key, module,
-    wrapper, plain version, args(dtype) -> (args, kwargs), flops,
-    source)."""
+    """Every kernel at the headline shapes."""
     from tvqaplus_tpu_torch.models.attention import l2_normalize
     from tvqaplus_tpu_torch.models.layers import sinusoid_table
     from tvqaplus_tpu_torch.ops import (
         encoder,
+        mlp_bridge,
         qa_ctx_attention,
         tri_bridge,
     )
@@ -214,11 +348,11 @@ def kernel_cases(dev):
                      c_mask, q_mask, *proj),
                     dict(scale=10.0, raw_mode=raw_mode))
         flops = 2 * B * LI * m_rows * (2 * lr * D + 3 * D * D)
-        cases.append((f"qa_ctx_attention[{site}, raw {raw_mode}]",
-                      "qa_ctx_attention", qa_ctx_attention,
-                      qa_ctx_attention.qa_ctx_attention,
-                      qa_ctx_attention.qa_ctx_attention_plain, args, flops,
-                      "csrc/qa_ctx_attention_fwd.cu"))
+        cases.append(Case(f"qa_ctx_attention[{site}, raw {raw_mode}]",
+                          "qa_ctx_attention", qa_ctx_attention,
+                          qa_ctx_attention.qa_ctx_attention,
+                          qa_ctx_attention.qa_ctx_attention_plain, args,
+                          flops, "csrc/qa_ctx_attention_fwd.cu"))
     s, v = randn(gen, dev, B, A, LI, LQA, D), randn(gen, dev, B, A, LI, LQA, D)
     bridge = [1.0 + randn(gen, dev, 3 * D, scale=0.1),
               randn(gen, dev, 3 * D, scale=0.1),
@@ -226,71 +360,141 @@ def kernel_cases(dev):
               randn(gen, dev, D, scale=0.1),
               1.0 + randn(gen, dev, D, scale=0.1), randn(gen, dev, D,
                                                          scale=0.1)]
-    cases.append(("tri_bridge", "tri_bridge", tri_bridge,
-                  tri_bridge.tri_bridge, tri_bridge.tri_bridge_plain,
-                  lambda dt: ((s.to(dt), v.to(dt), *bridge), {}),
-                  2 * B * A * LI * LQA * 3 * D * D,
-                  "csrc/tri_bridge_fwd.cu"))
+    cases.append(Case("tri_bridge", "tri_bridge", tri_bridge,
+                      tri_bridge.tri_bridge, tri_bridge.tri_bridge_plain,
+                      lambda dt: ((s.to(dt), v.to(dt), *bridge), {}),
+                      2 * B * A * LI * LQA * 3 * D * D,
+                      "csrc/tri_bridge_fwd.cu"))
     g = A * LI
     x = randn(gen, dev, B, g, LQA, D)
     rmask = (c_mask[:, :, None, :] * vmask.amax(-1)[:, None, :, None]
              ).reshape(B, g, LQA).contiguous()
-    p = {}
-    for i in (0, 1):
-        p.update({f"ln{i}_s": 1.0 + randn(gen, dev, D, scale=0.1),
-                  f"ln{i}_b": randn(gen, dev, D, scale=0.1),
-                  f"dw{i}": randn(gen, dev, K_CLS, D, scale=0.3),
-                  f"dwb{i}": randn(gen, dev, D, scale=0.1),
-                  f"pw{i}": randn(gen, dev, D, D, scale=D ** -0.5),
-                  f"pwb{i}": randn(gen, dev, D, scale=0.1)})
-    p["lnf_s"] = 1.0 + randn(gen, dev, D, scale=0.1)
-    p["lnf_b"] = randn(gen, dev, D, scale=0.1)
+    p = encoder_params(gen, dev, K_CLS)
     pe = sinusoid_table(LQA, D).to(dev)
-    cases.append(("encoder_reduce", "encoder", encoder,
-                  encoder.encoder_reduce, encoder.encoder_reduce_plain,
-                  lambda dt: ((x.to(dt), pe, p, K_CLS, rmask), {}),
-                  2 * 2 * B * g * LQA * D * D, "csrc/encoder_fwd.cu"))
+    cases.append(Case("encoder_reduce", "encoder", encoder,
+                      encoder.encoder_reduce, encoder.encoder_reduce_plain,
+                      lambda dt: ((x.to(dt), pe, p, K_CLS, rmask), {}),
+                      2 * 2 * B * g * LQA * D * D, "csrc/encoder_fwd.cu"))
+
+    # the merged input encoder: rows past a stream's length are zero going in
+    # (the merge pads with zeros) and are not compared coming out
+    zm = merged_length_mask(dev)
+    gm, lm = zm.shape
+    xm = randn(gen, dev, B, gm, lm, D) * zm[..., None]
+    pm = encoder_params(gen, dev, K_IN)
+    pem = sinusoid_table(lm, D).to(dev)
+    streams = [xm[:, :A, :LQA].contiguous(),
+               xm[:, A:A + LI, :LR_SUB].contiguous(),
+               xm[:, A + LI:, :LR_VID].contiguous()]
+    today = plain_encoder_calls(pm, K_IN, streams, dev)
+    # the products of the valid rows only (what the data needs)
+    flops_m = 2 * 2 * B * int(zm.sum()) * D * D
+    for tag, mask in (("zero mask", zm), ("no mask", None)):
+        cases.append(Case(
+            f"encoder_block[{tag}]", "encoder_block", encoder,
+            encoder.encoder_block, encoder.encoder_block_plain,
+            lambda dt, mask=mask: ((xm.to(dt), pem, pm, K_IN, mask), {}),
+            flops_m if mask is not None else 2 * 2 * B * gm * lm * D * D,
+            "csrc/encoder_fwd.cu",
+            valid=zm[..., None] if mask is not None else None,
+            today=today if mask is not None else None))
+
+    # the MLP bridge at its three sites' shapes
+    for site, shape, d_in in (("qas_bert", (B, A, LQA), D_BERT),
+                              ("vid", (B, LI, LR_VID), D_VFEAT),
+                              ("sub_bert", (B, LI, LR_SUB), D_BERT)):
+        xb = randn(gen, dev, *shape, d_in)
+        pb = [1.0 + randn(gen, dev, d_in, scale=0.1),
+              randn(gen, dev, d_in, scale=0.1),
+              randn(gen, dev, d_in, D_BRIDGE, scale=d_in ** -0.5),
+              randn(gen, dev, D_BRIDGE, scale=0.1),
+              1.0 + randn(gen, dev, D_BRIDGE, scale=0.1),
+              randn(gen, dev, D_BRIDGE, scale=0.1)]
+        rows = xb.numel() // d_in
+        cases.append(Case(
+            f"mlp_bridge[{site} {d_in}->{D_BRIDGE}]", "mlp_bridge",
+            mlp_bridge, mlp_bridge.mlp_bridge, mlp_bridge.mlp_bridge_plain,
+            lambda dt, xb=xb, pb=pb: ((xb.to(dt), *pb), {}),
+            2 * rows * d_in * D_BRIDGE, "csrc/mlp_bridge_fwd.cu",
+            today=plain_bridge_chain(xb, pb, dev)))
     return cases
+
+
+def on_valid(case, outs):
+    """The outputs where the case's valid mask is 1 (float32)."""
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    if case.valid is None:
+        return outs
+    return tuple(o.float() * case.valid for o in outs)
+
+
+def moved_bytes(a, *more):
+    """Bytes of the tensors among the args (a parameter dict included) and
+    of ``more``."""
+    tensors = [t for t in a if torch.is_tensor(t)]
+    for t in a:
+        if isinstance(t, dict):
+            tensors += list(t.values())
+    return nbytes(*tensors, *more), tensors
+
+
+def check_forward(case, name, dname, got, want):
+    """Hold a kernel's outputs against the plain version's; returns the
+    largest absolute error."""
+    got, want = on_valid(case, got), on_valid(case, want)
+    tol = case.mod.TOL[getattr(torch, dname)]
+    if isinstance(tol, dict):      # per-output tolerances
+        for (out, g_, w_) in zip(("mixed", "raw"), got, want):
+            assert_close(f"{name} {dname} {out}", [g_], [w_], tol[out])
+    else:
+        assert_close(f"{name} {dname}", got, want, tol)
+    return max_err(got, want)
+
+
+def time_today(case, dt, train):
+    """Times of what the separate-stream main path runs instead of the
+    kernel: its forward, and (training) forward + backward as one."""
+    if case.today is None:
+        return {}
+    step, params = case.today(dt, train)
+    with torch.set_grad_enabled(train):
+        out = {"today_ms": time_ms(step)}
+        if train:
+            cots = [torch.ones_like(o) for o in step()]
+
+            def fwd_bwd():
+                return torch.autograd.grad(step(), params, cots)
+            out["today_fwd_bwd_ms"] = time_ms(fwd_bwd)
+    return out
 
 
 def phase_kernels(dev):
     rows = []
-    for (name, key, mod, kernel, plain, args, flops, src) in kernel_cases(dev):
+    for case in kernel_cases(dev):
         errs = {}
         for dname in ("float32", "bfloat16"):
-            dt = getattr(torch, dname)
-            a, kw = args(dt)
-            got = kernel(*a, **kw)
+            a, kw = case.args(getattr(torch, dname))
+            got = case.kernel(*a, **kw)
             # the plain version computes in float32 on the same values and
             # rounds its output to the kernel's output type
-            want = plain(*a, **kw)
+            want = case.plain(*a, **kw)
             torch.cuda.synchronize()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            tol = mod.TOL[dt]
-            if isinstance(tol, dict):      # per-output tolerances
-                for (out, g_, w_) in zip(("mixed", "raw"), got, want):
-                    assert_close(f"{name} {dname} {out}", [g_], [w_],
-                                 tol[out])
-            else:
-                assert_close(f"{name} {dname}", got, want, tol)
-            errs[dname] = max_err(got, want)
-        a, kw = args(torch.bfloat16)
-        outs = kernel(*a, **kw)
+            errs[dname] = check_forward(case, case.name, dname, got, want)
+        a, kw = case.args(torch.bfloat16)
+        outs = case.kernel(*a, **kw)
         outs = outs if isinstance(outs, tuple) else (outs,)
-        moved = nbytes(*(t for t in a if torch.is_tensor(t)), *outs)
-        if key == "encoder":
-            moved += nbytes(*a[2].values())
-        b_ms, b_by = bound(moved, flops)
-        row = {"name": name, "route": "cuda",
-               "source": f"tvqaplus_tpu_torch/{src}",
-               "replaces": REPLACES[key],
+        moved, _ = moved_bytes(a, *outs)
+        b_ms, b_by = bound(moved, case.flops)
+        row = {"name": case.name, "route": "cuda",
+               "source": f"tvqaplus_tpu_torch/{case.src}",
+               "replaces": REPLACES[case.key],
                "max_abs_err": errs["bfloat16"],
                "max_abs_err_f32": errs["float32"],
-               "ms": time_ms(lambda: kernel(*a, **kw)),
-               "plain_ms": time_ms(lambda: plain(*a, **kw)),
+               "ms": time_ms(lambda: case.kernel(*a, **kw)),
+               "plain_ms": time_ms(lambda: case.plain(*a, **kw)),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-               "bytes": moved, "flops": flops, "_key": key}
+               "bytes": moved, "flops": case.flops,
+               **time_today(case, torch.bfloat16, False), "_key": case.key}
         emit({"phase": "kernel", "ok": True,
               **{k: v for k, v in row.items() if k != "_key"}})
         rows.append(row)
@@ -309,40 +513,57 @@ def headline_batch(cfg, dev):
     return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
 
 
-def phase_main(dev, kernel_mods, workdir):
-    from tvqaplus_tpu_torch.config import Config
-    from tvqaplus_tpu_torch.inference import main_inference
-    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
-    cfg = Config(synthetic_data=True, add_local=True, bsz=B, test_bsz=B,
-                 synthetic_n_valid=32, seed=SEED)
-    cfg.save(os.path.join(workdir, "opt.json"))    # compute_dtype "auto"
-    cfg.finalize("cpu")
-    model = STAGE(ModelConfig.from_config(cfg)).reset_parameters(
-        torch.Generator().manual_seed(SEED))
-    sd = model.state_dict()
-    torch.save(sd, os.path.join(workdir, "best_valid.pth"))
+class PlainEncoderCalls:
+    """Counts the plain k=7 encoder calls: only the plain chain of
+    ``EncoderBlock`` adds the position table through its module."""
 
-    reset_counters(kernel_mods)
+    def __enter__(self):
+        from tvqaplus_tpu_torch.models.layers import PositionEncoding
+        self.cls, self.real, self.n = (PositionEncoding,
+                                       PositionEncoding.forward, 0)
+
+        def counted(mod, x):
+            self.n += 1
+            return self.real(mod, x)
+        PositionEncoding.forward = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward = self.real
+
+
+def run_inference(cfg, sd, run_dir, must_launch, **opt):
+    """Write ``run_dir`` (opt.json from ``cfg`` with ``opt`` set, the
+    weights), run the inference entry point on the card and check its
+    predictions.  Returns (predictions, launches, plain k=7 encoder calls,
+    wall seconds)."""
+    from tvqaplus_tpu_torch.inference import main_inference
+    os.makedirs(run_dir)
+    dataclasses.replace(cfg, **opt).save(os.path.join(run_dir, "opt.json"))
+    torch.save(sd, os.path.join(run_dir, "best_valid.pth"))
+    reset_counters()
     t0 = time.perf_counter()
-    pred_path = main_inference(["--model_dir", workdir, "--device", "cuda"])
+    with PlainEncoderCalls() as plain_calls:
+        pred_path = main_inference(["--model_dir", run_dir, "--device",
+                                    DEVICE])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {m.__name__.rsplit(".", 1)[1]: m.KERNEL.launches
-                for m in kernel_mods}
+    launches = read_counters(must_launch)
     with open(pred_path) as f:
         pred = json.load(f)
     missing = [q for q in range(32) if str(q) not in pred["ts_answer"]]
     n_records = sum(len(recs) for ex in pred["raw_bbox"]
                     for recs in ex.values())
-    n_boxes = sum(len(r["bbox"]) for ex in pred["raw_bbox"]
-                  for recs in ex.values() for r in recs)
     if missing or n_records == 0:
         raise AssertionError(f"predictions: missing qids {missing}, "
                              f"{n_records} grounding records")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel did not launch: {launches}")
+    return pred, launches, plain_calls.n, wall_s
 
-    # one headline batch on the card against the CPU float32 forward
+
+def headline_vs_cpu(cfg, sd, dev, merged):
+    """One headline batch on the card against the CPU float32 forward (the
+    separate-stream path: merging is exact in float32)."""
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
     cpu_cfg = ModelConfig.from_config(cfg)
     ref_model = STAGE(cpu_cfg).eval()
     ref_model.load_state_dict(sd)
@@ -351,8 +572,8 @@ def phase_main(dev, kernel_mods, workdir):
         ref = ref_model(cpu_batch, need_sub_raw=False)["answer_scores"]
     checks = {}
     for dname in ("float32", "bfloat16"):
-        gpu_model = STAGE(dataclasses.replace(cpu_cfg,
-                                              compute_dtype=dname)).eval()
+        gpu_model = STAGE(dataclasses.replace(
+            cpu_cfg, compute_dtype=dname, merge_input_streams=merged)).eval()
         gpu_model.load_state_dict(sd)
         gpu_model.to(dev)
         with torch.inference_mode():
@@ -373,37 +594,171 @@ def phase_main(dev, kernel_mods, workdir):
                                  f"float32 forward: {agree.tolist()}")
         checks[dname] = {"max_abs_err": err, "tol": [atol, rtol],
                          "argmax_agree": int(agree.sum()), "rows": B}
+    return checks
+
+
+def n_boxes(pred):
+    return sum(len(r["bbox"]) for ex in pred["raw_bbox"]
+               for recs in ex.values() for r in recs)
+
+
+def phase_main(dev, workdir):
+    from tvqaplus_tpu_torch.config import Config
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    cfg = Config(synthetic_data=True, add_local=True, bsz=B, test_bsz=B,
+                 synthetic_n_valid=32, seed=SEED)    # compute_dtype "auto"
+    model = STAGE(ModelConfig.from_config(
+        dataclasses.replace(cfg).finalize("cpu"))).reset_parameters(
+        torch.Generator().manual_seed(SEED))
+    sd = model.state_dict()
+    pred, launches, plain_calls, wall_s = run_inference(
+        cfg, sd, os.path.join(workdir, "main"), SEPARATE_FWD)
+    if launches["encoder_block"] or plain_calls <= 0:
+        raise AssertionError(f"the separate path ran merged: {launches}, "
+                             f"{plain_calls} plain encoder calls")
+    cfg.finalize("cpu")
     emit({"phase": "main", "ok": True, "launches": launches,
+          "plain_encoder_calls": plain_calls,
           "examples": 32, "batches": -(-32 // B), "wall_s": wall_s,
           "ts_answer": len(pred["ts_answer"]),
-          "raw_bbox_records": n_records, "raw_bbox_boxes": n_boxes,
-          "headline_vs_cpu_f32": checks})
-    return cfg, sd, launches
+          "raw_bbox_records": sum(len(recs) for ex in pred["raw_bbox"]
+                                  for recs in ex.values()),
+          "raw_bbox_boxes": n_boxes(pred),
+          "headline_vs_cpu_f32": headline_vs_cpu(cfg, sd, dev, False)})
+    return cfg, sd, launches, pred
+
+
+def phase_merged_main(dev, workdir, cfg, sd, pred_sep):
+    """The inference entry point with ``merge_input_streams`` in opt.json:
+    bf16 as phase 5, and float32 against the separate path in float32."""
+    raw = dataclasses.replace(cfg, compute_dtype="auto", use_kernels=None)
+    pred, launches, plain_calls, wall_s = run_inference(
+        raw, sd, os.path.join(workdir, "merged"), MERGED_FWD,
+        merge_input_streams=True)
+    if plain_calls:
+        raise AssertionError(f"{plain_calls} plain k=7 encoder calls ran on "
+                             f"the merged path")
+    same_bf16 = sum(pred["ts_answer"][q] == pred_sep["ts_answer"][q]
+                    for q in pred["ts_answer"])
+    f32 = {}
+    for name, merged in (("separate", False), ("merged", True)):
+        f32[name] = run_inference(
+            raw, sd, os.path.join(workdir, f"f32_{name}"),
+            MERGED_FWD if merged else SEPARATE_FWD, compute_dtype="float32",
+            merge_input_streams=merged)[0]
+    # merging is exact in float32 up to the order of the kernel's sums:
+    # identical answers and spans, grounding scores at 1e-4
+    if f32["merged"]["ts_answer"] != f32["separate"]["ts_answer"]:
+        raise AssertionError("float32: merged answers/spans differ from the "
+                             "separate path's")
+    from tvqaplus_tpu_torch.infer.predict import SCORE_THD
+    worst, n_rec = 0.0, 0
+    for ex_m, ex_s in zip(f32["merged"]["raw_bbox"],
+                          f32["separate"]["raw_bbox"]):
+        for ans in ex_s:
+            if len(ex_m[ans]) != len(ex_s[ans]):
+                raise AssertionError("float32: grounding records differ")
+            for rm, rs in zip(ex_m[ans], ex_s[ans]):
+                if any(rm[k] != rs[k] for k in ("word", "qid", "vid_name",
+                                                "img_idx")):
+                    raise AssertionError(f"float32: record {rm} vs {rs}")
+                n_rec += 1
+                dm, ds = ({tuple(b): v for b, v in zip(r["bbox"], r["pred"])}
+                          for r in (rm, rs))
+                for box in dm.keys() | ds.keys():
+                    # a box accepted on one side only sits at the threshold
+                    worst = max(worst, abs(dm.get(box, SCORE_THD)
+                                           - ds.get(box, SCORE_THD)))
+    if worst > 1e-4 or n_rec == 0:
+        raise AssertionError(f"float32: grounding scores differ by {worst} "
+                             f"over {n_rec} records")
+    emit({"phase": "merged_main", "ok": True, "launches": launches,
+          "plain_encoder_calls": plain_calls, "examples": 32,
+          "wall_s": wall_s, "ts_answer": len(pred["ts_answer"]),
+          "raw_bbox_boxes": n_boxes(pred),
+          "bf16_answers_and_spans_equal_to_separate": same_bf16,
+          "f32_answers_and_spans_equal": True, "f32_records": n_rec,
+          "f32_grounding_max_abs_diff": worst, "f32_grounding_tol": 1e-4,
+          "headline_vs_cpu_f32": headline_vs_cpu(cfg, sd, dev, True)})
+    return launches
+
+
+def profile_steps(step, n):
+    """Device busy time per step (the kernels' own times: one stream, no
+    overlap; the profiler's annotation ranges such as the optimizer's are
+    not kernels), launches per step and the kernels by device time, over
+    ``n`` profiled steps."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.name.startswith("Optimizer.")]
+    if not kernels:
+        return None, None, []
+    by_name = {}
+    for e in kernels:
+        c, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
+    top = [{"kernel": k[:80], "calls_per_step": c / n,
+            "ms_per_step": t / 1e3 / n}
+           for k, (c, t) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][1])[:12]]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
+    return busy_ms, len(kernels) / n, top
+
+
+def timed_steps(steps, n):
+    """Host-clock ms per step of each named step over ``n`` back-to-back
+    steps ended by a synchronise, the paths in turns (a, b, b, a): the
+    median of its two turns, and both."""
+    names = list(steps)
+    turns = {name: [] for name in names}
+    for name in names + names[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            steps[name]()
+        torch.cuda.synchronize()
+        turns[name].append((time.perf_counter() - t0) / n * 1e3)
+    return {name: (statistics.median(t), t) for name, t in turns.items()}
 
 
 def phase_serving(dev, cfg, sd):
+    """The eval step of the separate and the merged path on the same batch,
+    in turns."""
     from tvqaplus_tpu_torch.infer.predict import InferenceRunner
     from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
-    model = STAGE(dataclasses.replace(ModelConfig.from_config(cfg),
-                                      compute_dtype="bfloat16"))
-    model.load_state_dict(sd)
-    runner = InferenceRunner(cfg, model.to(dev), dev)
     batch = headline_batch(cfg, dev)
-    out = {}
-    for name, grounding in (("", True), ("_no_grounding", False)):
-        def step(grounding=grounding):
-            return runner.step(batch, grounding, LI)
-        out["event_ms" + name] = time_ms(step)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(SERVING_STEPS):
-            step()
-        torch.cuda.synchronize()
-        out["step_ms" + name] = (time.perf_counter() - t0) / SERVING_STEPS \
-            * 1e3
-    emit({"phase": "serving", "ok": True, "batch": B, "frames": LI,
-          "compute_dtype": "bfloat16", "steps": SERVING_STEPS,
-          "qa_pairs_per_s": B / (out["step_ms"] / 1e3), **out})
+    steps, out = {}, {}
+    for name, merged in (("serving", False), ("merged_serving", True)):
+        model = STAGE(dataclasses.replace(
+            ModelConfig.from_config(cfg), compute_dtype="bfloat16",
+            merge_input_streams=merged))
+        model.load_state_dict(sd)
+        runner = InferenceRunner(cfg, model.to(dev), dev)
+        steps[name] = lambda runner=runner: runner.step(batch, True, LI)
+        steps[name + "_no_grounding"] = \
+            lambda runner=runner: runner.step(batch, False, LI)
+        out[name] = {"event_ms": time_ms(steps[name]),
+                     "event_ms_no_grounding": time_ms(
+                         steps[name + "_no_grounding"])}
+    clock = timed_steps(steps, SERVING_STEPS)
+    for name in ("serving", "merged_serving"):
+        step_ms, turns = clock[name]
+        busy_ms, launches, top = profile_steps(steps[name], PROFILE_STEPS)
+        emit({"phase": name, "ok": True, "batch": B, "frames": LI,
+              "compute_dtype": "bfloat16", "steps": SERVING_STEPS,
+              "qa_pairs_per_s": B / (step_ms / 1e3), "step_ms": step_ms,
+              "step_ms_turns": turns,
+              "step_ms_no_grounding": clock[name + "_no_grounding"][0],
+              **out[name], "device_busy_ms": busy_ms,
+              "device_idle_share": None if busy_ms is None
+              else 1 - busy_ms / step_ms,
+              "launches_per_step": launches, "top_kernels": top})
 
 
 # ---------------------------------------------------------------- training
@@ -418,9 +773,10 @@ def train_kernel_cases(dev):
         device=dev).manual_seed(SEED + 1), device=dev)
     drop = dict(dropout_rate=P_DROP, seed=DROP_SEED)
     cases = []
-    for (name, key, mod, kernel, plain, args, flops, src) in kernel_cases(dev):
-        if key == "qa_ctx_attention":
-            lr = args(torch.float32)[0][2].shape[2]
+    for case in kernel_cases(dev):
+        name, flops = case.name, case.flops
+        if case.key == "qa_ctx_attention":
+            lr = case.args(torch.float32)[0][2].shape[2]
             site = name[name.index("[") + 1:name.index(",")]
             raw_mode = "target" if site == "vid" else "none"
             kw = dict(raw_mode=raw_mode, targets=targets, **drop)
@@ -433,7 +789,7 @@ def train_kernel_cases(dev):
             # recompute S and att, g_p, gqe, gcn, gqn; g_yd and gW
             bflops = 2 * B * LI * m_rows * (6 * lr * D + 6 * D * D)
             name = f"qa_ctx_attention[{site}, raw {raw_mode}, dropout]"
-        elif key == "tri_bridge":
+        elif case.key == "tri_bridge":
             kw = dict(drop)
 
             def flip(a):
@@ -441,8 +797,15 @@ def train_kernel_cases(dev):
                                                    DROP_SEED)[..., None]
             diff = tuple(range(8))
             bflops = 3 * flops             # recompute, g_yd, gW
-            name = "tri_bridge[dropout]"
-        else:
+        elif case.key == "mlp_bridge":
+            kw = dict(drop)
+
+            def flip(a):
+                return checks.mlp_bridge_flip_rows(*a[:5], P_DROP,
+                                                   DROP_SEED)[..., None]
+            diff = tuple(range(7))
+            bflops = 3 * flops             # recompute, g_yd, gW
+        elif case.key == "encoder":
             kw = dict(drop)
 
             def flip(a):
@@ -452,9 +815,19 @@ def train_kernel_cases(dev):
             # three D x D products forward (layer 0 twice), g_c and gpw per
             # layer
             bflops = 7 * flops // 2
-            name = "encoder_reduce[dropout]"
-        cases.append((name, key, mod, kernel, plain, args, kw, flip, diff,
-                      flops, bflops, src))
+        else:
+            kw = dict(drop)
+
+            def flip(a):
+                return checks.encoder_block_flip_groups(
+                    *a, P_DROP, DROP_SEED)[..., None, None]
+            diff = (0, 2)
+            bflops = 7 * flops // 2        # as the reduce mode
+        if "dropout" not in name:
+            name = name[:-1] + ", dropout]" if name.endswith("]") \
+                else name + "[dropout]"
+        cases.append(dataclasses.replace(case, name=name, kw=kw, flip=flip,
+                                         diff=diff, bflops=bflops))
     return cases
 
 
@@ -478,14 +851,17 @@ def _outputs(o):
     return o if isinstance(o, tuple) else (o,)
 
 
-def _cotangents(outs, flip, gen):
-    """Random cotangents of the outputs, zero on the flip rows (and on the
-    raw scores of masked positions, which sit at -1e10)."""
+def _cotangents(outs, flip, gen, valid=None):
+    """Random cotangents of the outputs, zero on the flip rows, outside the
+    valid positions (and on the raw scores of masked positions, which sit
+    at -1e10)."""
     cots = []
     for j, o in enumerate(outs):
         c = torch.randn(o.shape, generator=gen, device=o.device)
         if j == 0:
             c = c * ~flip
+            if valid is not None:
+                c = c * valid
         else:
             c = c * (o > -1e9)
         cots.append(c.to(o.dtype))
@@ -498,58 +874,53 @@ def phase_train_kernels(dev):
     from tvqaplus_tpu_torch.ops import checks
     rows = []
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    for (name, key, mod, kernel, plain, args, kw, flip, diff, flops, bflops,
-         src) in train_kernel_cases(dev):
+    for case in train_kernel_cases(dev):
+        name, key, kernel, plain = (case.name, case.key, case.kernel,
+                                    case.plain)
         errs, gerrs = {}, {}
         for dname in ("float32", "bfloat16"):
             dt = getattr(torch, dname)
-            a, base_kw = args(dt)
-            kwa = {**base_kw, **kw}
-            fl = flip(a)
+            a, base_kw = case.args(dt)
+            kwa = {**base_kw, **case.kw}
+            fl = case.flip(a)
             results = []
             for fn in (kernel, plain):
-                ins, leaves = _leaves(a, diff)
+                ins, leaves = _leaves(a, case.diff)
                 outs = _outputs(fn(*ins, **kwa))
                 if not results:
-                    cots = _cotangents(outs, fl, gen)
+                    cots = _cotangents(outs, fl, gen, case.valid)
                 torch.autograd.backward(outs, cots)
                 results.append((outs, [t.grad for t in leaves]))
             torch.cuda.synchronize()
             (got, g_got), (want, g_want) = results
-            tol = mod.TOL[dt]
-            if isinstance(tol, dict):
-                for out, g_, w_ in zip(("mixed", "raw"), got, want):
-                    assert_close(f"{name} {dname} {out}", [g_], [w_],
-                                 tol[out])
-            else:
-                assert_close(f"{name} {dname}", got, want, tol)
-            errs[dname] = max_err(got, want)
+            errs[dname] = check_forward(case, name, dname, got, want)
             gerrs[dname] = max(
                 checks.grad_close(f"{name} {dname} grad {i}", g, w,
-                                  mod.GRAD_TOL[dt])
+                                  case.mod.GRAD_TOL[dt])
                 for i, (g, w) in enumerate(zip(g_got, g_want)))
-        a, base_kw = args(torch.bfloat16)
-        kwa = {**base_kw, **kw}
-        fl = flip(a)
+        a, base_kw = case.args(torch.bfloat16)
+        kwa = {**base_kw, **case.kw}
+        fl = case.flip(a)
         graphs = {}
         for tag, fn in (("kernel", kernel), ("plain", plain)):
-            ins, leaves = _leaves(a, diff)
+            ins, leaves = _leaves(a, case.diff)
             outs = _outputs(fn(*ins, **kwa))
-            graphs[tag] = (outs, leaves, _cotangents(outs, fl, gen))
+            graphs[tag] = (outs, leaves, _cotangents(outs, fl, gen,
+                                                     case.valid))
         outs, leaves, cots = graphs["kernel"]
-        tensors = [t for t in a if torch.is_tensor(t)]
-        if key == "encoder":
-            tensors += list(a[2].values())
-        moved = nbytes(*tensors, *outs)
-        b_ms, b_by = bound(moved, flops)
+        moved, tensors = moved_bytes(a, *outs)
+        b_ms, b_by = bound(moved, case.flops)
+        today = time_today(case, torch.bfloat16, True)
         row = {"name": name, "route": "cuda",
-               "source": f"tvqaplus_tpu_torch/{src}",
+               "source": f"tvqaplus_tpu_torch/{case.src}",
                "replaces": REPLACES[key], "max_abs_err": errs["bfloat16"],
                "max_abs_err_f32": errs["float32"],
                "ms": time_ms(lambda: kernel(*a, **kwa)),
                "plain_ms": time_ms(lambda: plain(*a, **kwa)),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-               "bytes": moved, "flops": flops, "_key": key}
+               "bytes": moved, "flops": case.flops,
+               **{k: v for k, v in today.items() if k == "today_ms"},
+               "_key": key}
         emit({"phase": "kernel_train", "ok": True,
               **{k: v for k, v in row.items() if k != "_key"}})
         rows.append(row)
@@ -564,8 +935,8 @@ def phase_train_kernels(dev):
             raise AssertionError(f"{name}: backward differs between runs")
         saved = [o for o in outs[:1]] if key == "qa_ctx_attention" else []
         bmoved = nbytes(*tensors, *saved, *cots, *grads)
-        b_ms, b_by = bound(bmoved, bflops)
-        row = {"name": name.replace("[", " backward["), "route": "cuda",
+        b_ms, b_by = bound(bmoved, case.bflops)
+        row = {"name": name.replace("[", " backward[", 1), "route": "cuda",
                "source": f"tvqaplus_tpu_torch/{BWD_SOURCES[key]}",
                "replaces": REPLACES[key + "_bwd"],
                "max_abs_err": gerrs["bfloat16"],
@@ -573,8 +944,16 @@ def phase_train_kernels(dev):
                "ms": time_ms(lambda: backward("kernel")),
                "plain_ms": time_ms(lambda: backward("plain")),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-               "bytes": bmoved, "flops": bflops, "deterministic": True,
+               "bytes": bmoved, "flops": case.bflops, "deterministic": True,
                "_key": key + "_bwd"}
+        if "today_fwd_bwd_ms" in today:
+            # beside today's forward + backward: the kernels' as one call
+            def fwd_bwd():
+                ins, lv = _leaves(a, case.diff)
+                return torch.autograd.grad(_outputs(kernel(*ins, **kwa)), lv,
+                                           cots)
+            row.update(today_fwd_bwd_ms=today["today_fwd_bwd_ms"],
+                       fwd_bwd_ms=time_ms(fwd_bwd))
         emit({"phase": "kernel_train", "ok": True,
               **{k: v for k, v in row.items() if k != "_key"}})
         rows.append(row)
@@ -582,67 +961,179 @@ def phase_train_kernels(dev):
     return rows
 
 
-def reset_counters(kernel_mods):
-    for m in kernel_mods:
-        m.KERNEL.launches = 0
-        m.BWD_KERNEL.launches = 0
+def counters():
+    """Every kernel's launch counter by key."""
+    from tvqaplus_tpu_torch.ops import (
+        encoder,
+        mlp_bridge,
+        qa_ctx_attention,
+        tri_bridge,
+    )
+    return {"qa_ctx_attention": qa_ctx_attention.KERNEL,
+            "qa_ctx_attention_bwd": qa_ctx_attention.BWD_KERNEL,
+            "tri_bridge": tri_bridge.KERNEL,
+            "tri_bridge_bwd": tri_bridge.BWD_KERNEL,
+            "encoder": encoder.KERNEL, "encoder_bwd": encoder.BWD_KERNEL,
+            "encoder_block": encoder.BLOCK_KERNEL,
+            "encoder_block_bwd": encoder.BLOCK_BWD_KERNEL,
+            "mlp_bridge": mlp_bridge.KERNEL,
+            "mlp_bridge_bwd": mlp_bridge.BWD_KERNEL}
 
 
-def read_counters(kernel_mods):
-    out = {}
-    for m in kernel_mods:
-        name = m.__name__.rsplit(".", 1)[1]
-        out[name] = m.KERNEL.launches
-        out[name + "_bwd"] = m.BWD_KERNEL.launches
+def reset_counters():
+    for kernel in counters().values():
+        kernel.launches = 0
+
+
+def read_counters(must_launch):
+    """The counts since the last reset; raises unless every kernel in
+    ``must_launch`` launched."""
+    out = {key: kernel.launches for key, kernel in counters().items()}
+    idle = [key for key in must_launch if out[key] <= 0]
+    if idle:
+        raise AssertionError(f"kernels that did not launch: {idle} ({out})")
     return out
 
 
-def phase_train_main(dev, kernel_mods, workdir):
+def phase_train_main(dev, workdir, merged=False):
     """The training entry point on the card at the headline training
-    config, then the inference entry point on the run it wrote."""
+    config (``merged``: plus ``--merge_input_streams``), then the inference
+    entry point on the run it wrote."""
     import math
     from tvqaplus_tpu_torch.inference import main_inference
     from tvqaplus_tpu_torch.main import main as train_main
+    tag = "merged_train" if merged else "train"
     argv = ["--synthetic_data", "--debug", "--add_local", "--use_sup_att",
             "--bsz", str(B), "--test_bsz", str(B), "--log_freq", "2",
             "--synthetic_n_valid", "32", "--seed", str(SEED),
-            "--results_dir_base", os.path.join(workdir, "train", "results"),
-            "--device", "cuda"]
-    reset_counters(kernel_mods)
+            "--results_dir_base", os.path.join(workdir, tag, "results"),
+            "--device", DEVICE] + ["--merge_input_streams"] * merged
+    reset_counters()
     t0 = time.perf_counter()
-    run_dir, trainer = train_main(argv)
+    with PlainEncoderCalls() as plain_calls:
+        run_dir, trainer = train_main(argv)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = read_counters(kernel_mods)
+    launches = read_counters(MERGED_TRAIN if merged else SEPARATE_TRAIN)
     with open(os.path.join(run_dir, "opt.json")) as f:
         opt = json.load(f)
     if not (opt["use_sup_att"] and opt["add_local"]
-            and opt["compute_dtype"] == "bfloat16" and opt["dropout"] > 0):
+            and opt["compute_dtype"] == "bfloat16" and opt["dropout"] > 0
+            and opt["merge_input_streams"] == merged):
         raise AssertionError(f"not the headline training config: {opt}")
+    if bool(plain_calls.n) == merged or \
+            bool(launches["encoder_block"]) != merged:
+        raise AssertionError(f"merged={merged}: {plain_calls.n} plain k=7 "
+                             f"encoder calls, {launches}")
     scalars = {}
     with open(os.path.join(run_dir, "scalars.jsonl")) as f:
         for line in f:
             rec = json.loads(line)
             scalars.setdefault(rec["tag"], []).append(rec["value"])
-    losses = [v for tag in ("Train/Loss", "Train/Loss_att", "Train/Loss_cls",
-                            "Train/Loss_ts", "Valid/Loss")
-              for v in scalars.get(tag, [])]
+    losses = [v for tag_ in ("Train/Loss", "Train/Loss_att",
+                             "Train/Loss_cls", "Train/Loss_ts", "Valid/Loss")
+              for v in scalars.get(tag_, [])]
     if not scalars.get("Train/Loss") or not all(map(math.isfinite, losses)):
         raise AssertionError(f"training losses: {scalars}")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel did not launch: {launches}")
     if not os.path.exists(os.path.join(run_dir, "best_valid.pth")):
         raise AssertionError("the run wrote no best_valid.pth")
-    pred_path = main_inference(["--model_dir", run_dir, "--device", "cuda"])
+    pred_path = main_inference(["--model_dir", run_dir, "--device", DEVICE])
     with open(pred_path) as f:
         pred = json.load(f)
     if len(pred["ts_answer"]) != opt["synthetic_n_valid"]:
         raise AssertionError(f"{len(pred['ts_answer'])} predictions")
-    emit({"phase": "train_main", "ok": True, "launches": launches,
+    emit({"phase": tag + "_main", "ok": True, "launches": launches,
+          "plain_encoder_calls": plain_calls.n,
           "steps": trainer.step, "wall_s": wall_s,
           "train_loss": scalars["Train/Loss"],
           "valid_acc": scalars.get("Valid/Acc"),
           "inference_answers": len(pred["ts_answer"])})
+    return launches
+
+
+class PhiloxDrop:
+    """A ``layers.Dropout`` whose plain masks are the Philox masks of the
+    fused kernels (one fixed seed), so a module's plain chain and its kernel
+    route drop the same elements."""
+
+    def __init__(self, rate, seed):
+        self.rate, self.seed = rate, seed
+
+    def __call__(self, x):
+        from tvqaplus_tpu_torch.ops import philox
+        return x * philox.multiplier(x.shape, self.seed, self.rate,
+                                     x.device).to(x.dtype)
+
+    def kernel_args(self):
+        return self.rate, self.seed
+
+
+def phase_bridge_module(dev, cfg, sd):
+    """``MLPBridge`` with its kernel switch on (STAGE leaves it off, as the
+    JAX package does) against the switch off, forward + backward in train
+    mode with the same Philox mask, on the headline batch's ``qas_bert`` and
+    ``vid`` with STAGE's own bridge weights.  float32: the bars of
+    ops/mlp_bridge.py, the cotangent zero on rows whose ReLU input lies
+    within rounding of 0 (ops/checks.py); bf16: relative L2 error of the
+    output and of every gradient (see BRIDGE_BF16_REL_L2)."""
+    from tvqaplus_tpu_torch.models.attention import l2_normalize
+    from tvqaplus_tpu_torch.models.layers import MLPBridge
+    from tvqaplus_tpu_torch.ops import checks, mlp_bridge
+    batch = headline_batch(cfg, dev)
+    drop = PhiloxDrop(P_DROP, DROP_SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    reset_counters()
+    report = {}
+    for name, x in (("bert_word_encoding_fc", batch["qas_bert"]),
+                    ("vid_fc", l2_normalize(batch["vid"].float()))):
+        weights = {k[len(name) + 1:]: v for k, v in sd.items()
+                   if k.startswith(name + ".")}
+        d_out, d_in = weights["2.weight"].shape
+        for dname in ("float32", "bfloat16"):
+            dt = getattr(torch, dname)
+            xs = x.to(dt)
+            outs = {}
+            for use_kernel in (True, False):
+                mod = MLPBridge(d_in, d_out, P_DROP, dt,
+                                use_kernel=use_kernel).to(dev).train()
+                mod.load_state_dict(weights)
+                leaf = xs.clone().requires_grad_(True)
+                out = mod(leaf, drop)
+                if use_kernel:
+                    flip = checks.mlp_bridge_flip_rows(
+                        xs, mod[0].weight, mod[0].bias, mod[2].weight.t(),
+                        mod[2].bias, P_DROP, DROP_SEED)[..., None]
+                    cot = (torch.randn(out.shape, generator=gen, device=dev)
+                           * ~flip).to(dt)
+                out.backward(cot)
+                outs[use_kernel] = [out.detach(), leaf.grad] + [
+                    p.grad for p in mod.parameters()]
+            torch.cuda.synchronize()
+            names = ["out", "gx"] + [k for k, _ in mod.named_parameters()]
+            if dt == torch.float32:
+                assert_close(f"{name} out", outs[True][:1], outs[False][:1],
+                             mlp_bridge.TOL[dt])
+                errs = {n_: checks.grad_close(f"{name} {n_}", g, w,
+                                              mlp_bridge.GRAD_TOL[dt])
+                        for n_, g, w in zip(names[1:], outs[True][1:],
+                                            outs[False][1:])}
+                errs["out"] = max_err(outs[True][:1], outs[False][:1])
+            else:
+                errs = {n_: float((g.float() - w.float()).norm()
+                                  / w.float().norm())
+                        for n_, g, w in zip(names, outs[True], outs[False])}
+                bad = {k: v for k, v in errs.items()
+                       if not v <= BRIDGE_BF16_REL_L2}
+                if bad:
+                    raise AssertionError(f"{name} bf16, kernel vs plain "
+                                         f"chain, relative L2: {bad}")
+            report[f"{name} {dname}"] = errs
+    launches = read_counters(("mlp_bridge", "mlp_bridge_bwd"))
+    emit({"phase": "bridge_module", "ok": True, "launches": launches,
+          "dropout": P_DROP, "f32_tol": {"out": mlp_bridge.TOL[torch.float32],
+                                         "grad": mlp_bridge.GRAD_TOL[
+                                             torch.float32]},
+          "bf16_rel_l2_tol": BRIDGE_BF16_REL_L2, "errors": report})
     return launches
 
 
@@ -709,57 +1200,37 @@ def phase_train_vs_cpu(dev, workdir):
 
 
 def phase_training(dev, workdir):
-    """The headline train step on a batch already on the card."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """The headline train step of the separate and the merged path on a
+    batch already on the card, in turns."""
     from tvqaplus_tpu_torch.train.loop import Trainer
-    cfg = train_config(workdir, bsz=B).finalize(dev)
-    trainer = Trainer(cfg, dev)
-    batch = train_batch(cfg, dev, B)
-
-    def step():
-        return trainer.train_step(batch)
-    out = {"event_ms": time_ms(step, reps=10)}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
-        metrics = step()
-    torch.cuda.synchronize()
-    out["step_ms"] = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
-    loss = float(metrics["loss"])
-    if not torch.isfinite(torch.tensor(loss)):
-        raise AssertionError(f"training loss {loss}")
-    # device busy time: the kernels' own times (one stream, no overlap;
-    # the profiler's annotation ranges such as the optimizer's are not
-    # kernels); the idle share is taken against the unprofiled host clock,
-    # as tracing slows the host
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_STEPS):
-            step()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and not e.name.startswith("Optimizer.")]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 \
-        / PROFILE_STEPS
-    by_name = {}
-    for e in kernels:
-        c, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
-    top = [{"kernel": k[:80], "calls_per_step": c / PROFILE_STEPS,
-            "ms_per_step": t / 1e3 / PROFILE_STEPS}
-           for k, (c, t) in sorted(by_name.items(),
-                                   key=lambda kv: -kv[1][1])[:12]]
-    emit({"phase": "training", "ok": True, "batch": B, "frames": LI,
-          "compute_dtype": cfg.compute_dtype, "dropout": cfg.dropout,
-          "steps": TRAIN_STEPS, "loss": loss,
-          "qa_pairs_per_s": B / (out["step_ms"] / 1e3), **out,
-          "device_busy_ms": busy_ms if kernels else None,
-          "device_idle_share": (1 - busy_ms / out["step_ms"]) if kernels
-          else None,
-          "launches_per_step": len(kernels) / PROFILE_STEPS,
-          "top_kernels": top})
+    steps, out, cfgs = {}, {}, {}
+    for name, merged in (("training", False), ("merged_training", True)):
+        cfg = train_config(workdir, bsz=B,
+                           merge_input_streams=merged).finalize(dev)
+        trainer = Trainer(cfg, dev)
+        batch = train_batch(cfg, dev, B)
+        steps[name] = lambda t=trainer, b=batch: t.train_step(b)
+        out[name] = {"event_ms": time_ms(steps[name], reps=8)}
+        cfgs[name] = cfg
+    clock = timed_steps(steps, TRAIN_STEPS)
+    for name, step in steps.items():
+        step_ms, turns = clock[name]
+        loss = float(step()["loss"])
+        if not torch.isfinite(torch.tensor(loss)):
+            raise AssertionError(f"training loss {loss}")
+        # the idle share is taken against the unprofiled host clock, as
+        # tracing slows the host
+        busy_ms, launches, top = profile_steps(step, PROFILE_STEPS)
+        cfg = cfgs[name]
+        emit({"phase": name, "ok": True, "batch": B, "frames": LI,
+              "compute_dtype": cfg.compute_dtype, "dropout": cfg.dropout,
+              "steps": TRAIN_STEPS, "loss": loss,
+              "qa_pairs_per_s": B / (step_ms / 1e3), "step_ms": step_ms,
+              "step_ms_turns": turns, **out[name],
+              "device_busy_ms": busy_ms,
+              "device_idle_share": None if busy_ms is None
+              else 1 - busy_ms / step_ms,
+              "launches_per_step": launches, "top_kernels": top})
 
 
 def main():
@@ -769,29 +1240,35 @@ def main():
         return 1
     sys.path.insert(0, HERE)
     try:
-        from tvqaplus_tpu_torch.ops import (
-            encoder,
-            qa_ctx_attention,
-            tri_bridge,
-        )
+        from tvqaplus_tpu_torch.ops import _build
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    kernel_mods = (qa_ctx_attention, tri_bridge, encoder)
     phase_device()
     phase_build()
     rows = phase_kernels(dev)
     train_rows = phase_train_kernels(dev)
-    from tvqaplus_tpu_torch.ops import _build
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
-        cfg, sd, launches = phase_main(dev, kernel_mods, workdir)
+        cfg, sd, launches, pred = phase_main(dev, workdir)
+        merged = phase_merged_main(dev, workdir, cfg, sd, pred)
         phase_serving(dev, cfg, sd)
-        train_launches = phase_train_main(dev, kernel_mods, workdir)
+        train_launches = phase_train_main(dev, workdir)
+        merged_train = phase_train_main(dev, workdir, merged=True)
+        bridge = phase_bridge_module(dev, cfg, sd)
         phase_train_vs_cpu(dev, workdir)
         phase_training(dev, workdir)
+    # each row's launches: the count of the main path that runs its kernel
+    # (separate, merged, or the bridge module), read right after that path
+    launches = {**launches, "encoder_block": merged["encoder_block"],
+                "mlp_bridge": bridge["mlp_bridge"]}
+    train_launches = {
+        **train_launches, "mlp_bridge": bridge["mlp_bridge"],
+        "mlp_bridge_bwd": bridge["mlp_bridge_bwd"],
+        "encoder_block": merged_train["encoder_block"],
+        "encoder_block_bwd": merged_train["encoder_block_bwd"]}
     for row in rows:
         row["launches"] = launches[row.pop("_key")]
     for row in train_rows:

@@ -1,6 +1,6 @@
 """Where the port's serving step spends its time on the card.
 
-    python scripts/profile_torch_step.py [--steps 10]
+    python scripts/profile_torch_step.py [--steps 10] [--merge_input_streams]
 
 Builds the headline serving configuration (batch 16, 50 frames x 25
 regions, 40 QA tokens, hsz 128, BERT-768 inputs, bf16, seeded random
@@ -39,6 +39,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--merge_input_streams", action="store_true",
+                    help="the merged input-encoder path")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -47,7 +49,8 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     cfg = Config(synthetic_data=True, add_local=True, bsz=B, test_bsz=B,
-                 seed=SEED).finalize(dev)
+                 seed=SEED,
+                 merge_input_streams=args.merge_input_streams).finalize(dev)
     model = STAGE(ModelConfig.from_config(cfg)).reset_parameters(
         torch.Generator().manual_seed(SEED)).to(dev)
     runner = InferenceRunner(cfg, model, dev)
@@ -86,6 +89,7 @@ def main(argv=None):
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "steps": args.steps,
+        "merge_input_streams": args.merge_input_streams,
         "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms if kernels else None,
         "device_idle_share": 1 - busy_ms / wall_ms if kernels else None,

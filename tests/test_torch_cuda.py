@@ -16,6 +16,7 @@ from tvqaplus_tpu_torch.models.attention import l2_normalize
 from tvqaplus_tpu_torch.ops import (
     checks,
     encoder,
+    mlp_bridge,
     qa_ctx_attention,
     tri_bridge,
 )
@@ -306,3 +307,162 @@ def test_backward_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):          # L > MAX_LEN
         encoder.encoder_reduce_backward(
             x, pe, encoder.pack_params(p), mask, x[:, :, 0], 5)
+
+
+# ------------------------------------------- encoder, full output / zero mask
+def stream_mask(g, l):
+    """(G, L) length mask of three merged streams of different lengths."""
+    lens = torch.tensor([l] * (g - 2 * (g // 3)) + [max(1, l - 3)] * (g // 3)
+                        + [max(1, l // 2)] * (g // 3))
+    return (torch.arange(l)[None, :] < lens[:, None]).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("l,k,masked", [(50, 7, True), (50, 7, False),
+                                        (40, 5, True), (9, 3, True)])
+def test_encoder_block_kernel_matches_plain(cuda, dtype, l, k, masked):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(8)
+    x, pe, p, _ = encoder_args(cuda, dt, gen, l=l, k=k)
+    zm = stream_mask(x.shape[1], l).to(cuda) if masked else None
+    fwd0 = encoder.BLOCK_KERNEL.launches
+    got = encoder.encoder_block(x, pe, p, k, zm)
+    want = encoder.encoder_block_plain(x, pe, p, k, zm)
+    torch.cuda.synchronize()
+    assert encoder.BLOCK_KERNEL.launches == fwd0 + 1
+    assert got.shape == x.shape and got.dtype == dt
+    assert torch.isfinite(got.float()).all()     # the masked rows too
+    valid = 1.0 if zm is None else zm[..., None]
+    close(got.float() * valid, want.float() * valid, encoder.TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("l,k,masked", [(50, 7, True), (50, 7, False),
+                                        (9, 3, True)])
+def test_encoder_block_training_kernels_match_plain(cuda, dtype, l, k,
+                                                    masked):
+    """Forward with in-kernel dropout and the backward kernel against the
+    plain version (autograd, the same Philox mask on the merged tensor);
+    the backward twice for the same bits."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(9)
+    x, pe, p, _ = encoder_args(cuda, dt, gen, l=l, k=k)
+    zm = stream_mask(x.shape[1], l).to(cuda) if masked else None
+    valid = torch.ones(x.shape[:3], device=cuda) if zm is None \
+        else zm.expand(x.shape[:3])
+    flip = checks.encoder_block_flip_groups(x, pe, p, k, zm, P_DROP, SEED)
+    cot = [randn(gen, *x.shape).to(cuda)
+           * (valid * ~flip[..., None])[..., None]]
+    keys = encoder.PARAM_KEYS
+
+    def run(fn):
+        xs = x.detach().clone().requires_grad_(True)
+        ps = {key: t.detach().clone().requires_grad_(True)
+              for key, t in p.items()}
+        out, _ = grads_of(lambda a: fn(a, pe, ps, k, zm, P_DROP, SEED),
+                          [xs], cot)
+        return out[0], [xs.grad] + [ps[key].grad for key in keys]
+    bwd0 = encoder.BLOCK_BWD_KERNEL.launches
+    out_k, g_k = run(encoder.encoder_block)
+    _, g_again = run(encoder.encoder_block)
+    out_p, g_p = run(encoder.encoder_block_plain)
+    torch.cuda.synchronize()
+    assert encoder.BLOCK_BWD_KERNEL.launches == bwd0 + 2
+    close(out_k.float() * valid[..., None], out_p.float() * valid[..., None],
+          encoder.TOL[dt])
+    for name, gk, ga, gp in zip(("x",) + keys, g_k, g_again, g_p):
+        assert torch.equal(gk, ga), name
+        checks.grad_close(name, gk, gp, encoder.GRAD_TOL[dt])
+    assert g_k[0].dtype == dt
+    assert (g_k[0][valid == 0] == 0).all()
+
+
+# --------------------------------------------------------------- MLP bridge
+def mlp_bridge_args(cuda, dt, gen, rows, d_in, d_out):
+    x = randn(gen, *rows, d_in).to(cuda, dt)
+    params = [1 + randn(gen, d_in, scale=0.1), randn(gen, d_in, scale=0.1),
+              randn(gen, d_in, d_out, scale=d_in ** -0.5),
+              randn(gen, d_out, scale=0.1), 1 + randn(gen, d_out, scale=0.1),
+              randn(gen, d_out, scale=0.1)]
+    return [x] + [t.to(cuda) for t in params]
+
+
+BRIDGE_SHAPES = [((2, 5, 40), 768, 300), ((2, 3, 25), 300, 300),
+                 ((1, 1, 7), 24, 20), ((3, 33), 132, 260)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d_in,d_out", BRIDGE_SHAPES)
+def test_mlp_bridge_kernel_matches_plain(cuda, dtype, rows, d_in, d_out):
+    dt = getattr(torch, dtype)
+    args = mlp_bridge_args(cuda, dt, torch.Generator().manual_seed(10), rows,
+                           d_in, d_out)
+    fwd0 = mlp_bridge.KERNEL.launches
+    got = mlp_bridge.mlp_bridge(*args)
+    want = mlp_bridge.mlp_bridge_plain(*args)
+    torch.cuda.synchronize()
+    assert mlp_bridge.KERNEL.launches == fwd0 + 1
+    assert got.shape == rows + (d_out,) and got.dtype == dt
+    close(got, want, mlp_bridge.TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d_in,d_out", BRIDGE_SHAPES)
+def test_mlp_bridge_training_kernels_match_plain(cuda, dtype, rows, d_in,
+                                                 d_out):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(11)
+    args = mlp_bridge_args(cuda, dt, gen, rows, d_in, d_out)
+    flip = checks.mlp_bridge_flip_rows(*args[:5], P_DROP, SEED)
+    cot = [randn(gen, *rows, d_out).to(cuda) * (~flip)[..., None]]
+    bwd0 = mlp_bridge.BWD_KERNEL.launches
+
+    def kernel(*a):
+        return mlp_bridge.mlp_bridge(*a, P_DROP, SEED)
+    out_k, g_k = grads_of(kernel, leaves(args), cot)
+    _, g_again = grads_of(kernel, leaves(args), cot)
+    out_p, g_p = grads_of(
+        lambda *a: mlp_bridge.mlp_bridge_plain(*a, P_DROP, SEED),
+        leaves(args), cot)
+    torch.cuda.synchronize()
+    assert mlp_bridge.BWD_KERNEL.launches == bwd0 + 2
+    close(out_k[0], out_p[0], mlp_bridge.TOL[dt])
+    assert g_k[0].dtype == dt
+    for i, (gk, ga, gp) in enumerate(zip(g_k, g_again, g_p)):
+        assert torch.equal(gk, ga), i
+        checks.grad_close(f"grad {i}", gk, gp, mlp_bridge.GRAD_TOL[dt])
+
+
+@pytest.mark.cuda
+def test_new_kernels_refuse_what_they_do_not_take(cuda):
+    gen = torch.Generator().manual_seed(12)
+    x, pe, p, _ = encoder_args(cuda, torch.float32, gen, l=50, k=7)
+    zm = stream_mask(x.shape[1], 50).to(cuda)
+    with pytest.raises(ValueError):          # D != 128
+        encoder.encoder_block(x[..., :64].contiguous(), pe[:, :64], p, 7, zm)
+    with pytest.raises(ValueError):          # a mask left on the host
+        encoder.encoder_block(x, pe, p, 7, zm.cpu())
+    with pytest.raises(ValueError):          # a (B, G, L) zero mask
+        encoder.encoder_block(x, pe, p, 7, zm.expand(x.shape[:3]))
+    long, pe_l, p_l, _ = encoder_args(cuda, torch.float32, gen, l=60, k=7)
+    with pytest.raises(ValueError):          # L > MAX_LEN
+        encoder.encoder_block(long, pe_l, p_l, 7)
+    with pytest.raises(ValueError):          # cotangent of another shape
+        encoder.encoder_block_backward(x, pe, encoder.pack_params(p), zm,
+                                       x[:, :, 0], 7)
+    args = mlp_bridge_args(cuda, torch.float32, gen, (2, 3, 5), 24, 20)
+    for d_in, d_out in ((22, 20), (24, 18)):         # not multiples of 4
+        bad = mlp_bridge_args(cuda, torch.float32, gen, (2, 3, 5), d_in,
+                              d_out)
+        with pytest.raises(ValueError):
+            mlp_bridge.mlp_bridge(*bad)
+    with pytest.raises(ValueError):          # parameters left on the host
+        mlp_bridge.mlp_bridge(args[0], *[t.cpu() for t in args[1:]])
+    with pytest.raises(ValueError):          # not contiguous
+        mlp_bridge.mlp_bridge(args[0].transpose(0, 1), *args[1:])
+    with pytest.raises(ValueError):          # cotangent of another shape
+        mlp_bridge.mlp_bridge_backward(*args, args[0])

@@ -130,6 +130,47 @@ def test_train_forward_matches_jax_pallas_tiny(max_num_proposal=2):
         np.testing.assert_allclose(g, r, err_msg=k, rtol=2e-4, atol=2e-3)
 
 
+def test_region_less_frame_inside_the_span_mask_is_pinned():
+    """A frame with no regions (``vid_mask`` all 0) that ``ts_mask`` still
+    counts.  Both packages give the frame's pooled statement -1e10 in every
+    channel (the encoder's masked max) and push that constant row through
+    the LayerNorms of the temporal heads, whose formula is the same on
+    paper (JAX layers.py:414-423, ops/plain.py layer_norm).  They part at
+    the first of those LayerNorms, in the mean of D equal float32 values:
+    XLA's CPU reduction adds them one after the other and rounds (at D = 16
+    the mean is off by 1024, one float32 step at 1e10), torch adds them
+    pairwise and is exact.  ``x - mean`` is then -1024 against 0, the
+    variance clips to 0 either way, and 1/sqrt(eps) = 316 blows the
+    residue up: JAX's span logits for the frame come out at about -4.8e7,
+    the port's at 0.  The JAX value follows from an evaluation order that
+    its source does not fix, so the port does not chase it; this test pins
+    what each package gives, and that nothing else differs."""
+    import jax.numpy as jnp
+
+    from tvqaplus_tpu.models.layers import _LNParams
+    from tvqaplus_tpu_torch.models.layers import LayerNorm
+
+    row = np.full((1, 16), -1e10, np.float32)
+    ln = _LNParams(16)
+    jax_ln = np.asarray(ln.apply(
+        ln.init(jax.random.PRNGKey(0), row, jnp.float32), row, jnp.float32))
+    with torch.no_grad():
+        port_ln = LayerNorm(16)(torch.from_numpy(row)).numpy()
+    assert (np.abs(jax_ln) > 1e5).all()       # 1024 * 316 = 3.2e5
+    assert (port_ln == 0).all()               # x - mean == 0 exactly
+
+    batch = tiny_batch()
+    batch["vid_mask"][1, 3, :] = 0.0          # ts_mask[1, 3] stays 1
+    got, ref = run_both(tiny_cfg(use_pallas=True, add_local=True), batch)
+    t_got, t_ref = got["t_scores"].numpy().copy(), np.array(ref["t_scores"])
+    assert (t_ref[1, :, 3] < -1e6).all()      # masked in effect
+    assert (t_got[1, :, 3] == 0).all()        # LN(const) = bias = 0
+    t_got[1, :, 3] = t_ref[1, :, 3] = 0.0
+    np.testing.assert_allclose(t_got, t_ref, **BARS["t_scores"])
+    assert_outputs_match(got, ref, ("answer_scores", "vid_raw_s",
+                                    "sub_raw_s"))
+
+
 def test_train_mode_is_not_ported_yet():
     """Training forwards take a Dropout (rate 0 for none); the parts of the
     training path still to port (noun-mask attention) raise."""

@@ -50,7 +50,7 @@ def port_config(jcfg, **kw):
     return cfg.resolve_device_policy("cpu")
 
 
-def test_one_train_step_matches_the_jax_trainer(tmp_path):
+def check_train_step_against_jax(tmp_path, **cfg_kw):
     """The JAX Trainer's step body (loop.py:149-172: value_and_grad of
     total_loss through model.apply(train=True), then its optax chain), with
     hard negatives (no sampling noise), dropout 0, float32.  Loss and
@@ -58,7 +58,7 @@ def test_one_train_step_matches_the_jax_trainer(tmp_path):
     ~10 layers in another order), grad_norm at 1e-4.  Adam's first step
     moves a parameter by about lr * sign(g), so the updated parameters are
     compared where |g| > 1e-3, far above the gradient tolerance, at 2e-6."""
-    jcfg = small_cfg(tmp_path, **STEP_CFG)
+    jcfg = small_cfg(tmp_path, **STEP_CFG, **cfg_kw)
     model_cfg = JaxModelConfig.from_config(jcfg)
     jmodel = JaxSTAGE(model_cfg)
     batch = next(iter(JaxPipeline(JaxSynthetic(jcfg, 4, mode="train"), jcfg,
@@ -116,6 +116,11 @@ def test_one_train_step_matches_the_jax_trainer(tmp_path):
         np.testing.assert_allclose(p.detach().numpy()[big],
                                    p_ref[name].numpy()[big], rtol=0,
                                    atol=2e-6, err_msg=name)
+    return model
+
+
+def test_one_train_step_matches_the_jax_trainer(tmp_path):
+    check_train_step_against_jax(tmp_path)
 
 
 def test_clip_and_adam_match_the_optax_chain():

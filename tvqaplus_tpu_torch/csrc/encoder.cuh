@@ -103,21 +103,36 @@ __device__ __forceinline__ void ln_bwd_rows(const float* src,
 }
 
 // Same-padded depthwise conv along L of rows [0, L): the taps read only
-// rows inside the sequence (zero padding at both ends).
+// rows inside the sequence (zero padding at both ends), each times its
+// validity factor v[row] (the sequence's zero-mask row in shared memory,
+// all ones without a zero mask): a tap that reads past a merged stream's
+// true length sees the zero that per-stream padding would give it.
 __device__ __forceinline__ void dwconv_rows(const float* src, float* dst,
                                             int L, int k,
                                             const float* dw,
-                                            const float* __restrict__ dwb) {
+                                            const float* __restrict__ dwb,
+                                            const float* v) {
   const int pad = k / 2;
   for (int idx = threadIdx.x; idx < L * D; idx += NTHREADS) {
     const int r = idx / D, d = idx % D;
     float acc = dwb[d];
     for (int j = 0; j < k; ++j) {
       const int rr = r + j - pad;
-      if (rr >= 0 && rr < L) acc = fmaf(dw[j * D + d], src[rr * D + d], acc);
+      if (rr >= 0 && rr < L)
+        acc = fmaf(dw[j * D + d], src[rr * D + d] * v[rr], acc);
     }
     dst[idx] = acc;
   }
+}
+
+// The zero-mask row of sequence n into v (L floats of shared memory): row
+// n % G of the (G, L) mask, which is constant over the batch; all ones when
+// there is no zero mask.
+__device__ __forceinline__ void load_zmask_row(float* v,
+                                               const float* __restrict__ zmask,
+                                               int n, int G, int L) {
+  for (int l = threadIdx.x; l < L; l += NTHREADS)
+    v[l] = zmask != nullptr ? zmask[static_cast<size_t>(n % G) * L + l] : 1.f;
 }
 
 // Conv 0's dropout on rows [0, L) of buf (in place): element (l, d) of

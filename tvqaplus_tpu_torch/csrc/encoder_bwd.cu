@@ -1,30 +1,36 @@
-// Fused QANet encoder block with the masked word-max folded in, backward
-// (reduce_mask mode).
+// Fused QANet encoder block, backward, in the forward's two modes: with the
+// masked word-max folded in (reduce_mask), and with the full block output
+// and an optional zero mask (the merged input encoder).
 //
 // Replaces the TPU kernel tvqaplus_tpu/ops/pallas_encoder.py (_backward /
-// _bwd_kernel, reduce_mask mode).  Per sequence, two passes as there, so
-// only one conv layer's saved values are live at once:
+// _bwd_kernel).  Per sequence, two passes as there, so only one conv
+// layer's saved values are live at once:
 //   pass A: h0 = x + pe; layer 0 forward (LN, replayed Philox dropout,
 //           depthwise, pointwise, ReLU, residual) for its output h1 only;
-//           layer 1 forward keeping t1, c1 and the ReLU sign; final LN;
-//           masked-max backward (the gradient of each channel's max is
-//           split equally among its ties in L, pallas_encoder.py:367-375,
-//           then times the mask: an all-masked group, every L tied at
-//           -1e10, gets 0); final-LN backward; layer 1 backward.
+//           layer 1 forward keeping t1, c1 and the ReLU sign; reduce mode:
+//           final LN and masked-max backward (the gradient of each
+//           channel's max is split equally among its ties in L,
+//           pallas_encoder.py:367-375, then times the mask: an all-masked
+//           group, every L tied at -1e10, gets 0); full mode: the (L x D)
+//           cotangent is read as it is; final-LN backward; layer 1 backward.
 //   pass B: recompute layer 0 with the dropout replayed; layer 0 backward.
 // A conv layer's backward: g_y = g_h (y > 0); gpwb = sum g_y;
-// gpw = c^T g_y; g_c = g_y pw^T; gdw[j] = sum_l t[l + j - pad] g_c[l];
-// gdwb = sum g_c; g_t[l] = sum_j dw[j] g_c[l - j + pad] (inside the
-// sequence only); times the dropout mask on layer 0; LN backward; plus the
-// residual.  gx (B, G, L, D) comes out in the activation type; the forward
-// never wrote the (B, G, L, D) block output and the backward never reads it.
+// gpw = c^T g_y; g_c = g_y pw^T; with v the sequence's zero-mask row (all
+// ones without one): gdw[j] = sum_l v[l + j - pad] t[l + j - pad] g_c[l];
+// gdwb = sum g_c; g_t[l] = v[l] sum_j dw[j] g_c[l - j + pad] (inside the
+// sequence only: the in-sequence bounds move with the gradient, the
+// zero-mask factor belongs to the position it zeroed); times the dropout
+// mask on layer 0; LN backward; plus the residual.  gx (B, G, L, D) comes
+// out in the activation type; in reduce mode the forward never wrote the
+// (B, G, L, D) block output and the backward never reads it.
 //
-// What bounds it on the H100: at the headline train shapes (16,000
+// What bounds it on the H100: at the headline train shapes (4,000
 // sequences of 40) it reads x (~41 MB bf16) and writes gx (~41 MB) and does
 // ~37 GFLOP (three D x D products per layer: the two recomputes, g_c and
 // gpw), so at the card's peaks the operations bound it (~37 us).  On the
 // float32 CUDA cores it uses, the products bound it; the c and g_y rows
-// written for the gpw pass add ~330 MB of traffic.
+// written for the gpw pass add ~330 MB of traffic.  The merged input
+// encoder (1,680 sequences of 50, k = 7) is about half of that work.
 // Design: one resident block per SM walks the sequences (grid-stride), as
 // in the forward.  Seven L x D float32 buffers (h0, h1, t, c, two gradient
 // buffers, the ReLU sign / g_y) hold a sequence in shared memory; the
@@ -45,7 +51,7 @@ constexpr int MAX_K = 9;
 __host__ __device__ inline int rows_padded(int rpt) { return rpt * NWARPS; }
 
 __host__ __device__ inline int smem_floats(int L, int k, int rpt) {
-  return 7 * rows_padded(rpt) * D + KC * D + 2 * k * D + round4(L);
+  return 7 * rows_padded(rpt) * D + KC * D + 2 * k * D + 2 * round4(L);
 }
 
 // parameter-vector layout of one scratch slot: per layer i at i * (4 + k) D:
@@ -61,13 +67,13 @@ struct Bufs {
 
 template <typename T, int RPT>
 __global__ void __launch_bounds__(NTHREADS)
-encoder_reduce_bwd_kernel(const T* __restrict__ x,
-                          const float* __restrict__ pe,
-                          const float* __restrict__ packed,
-                          const float* __restrict__ pwT,
-                          const float* __restrict__ mask,
-                          const T* __restrict__ gout, T* __restrict__ gx,
-                          Bufs bufs, int N, int L, int k, Dropout drop) {
+encoder_bwd_kernel(const T* __restrict__ x, const float* __restrict__ pe,
+                   const float* __restrict__ packed,
+                   const float* __restrict__ pwT,
+                   const float* __restrict__ mask,
+                   const float* __restrict__ zmask,
+                   const T* __restrict__ gout, T* __restrict__ gx, Bufs bufs,
+                   int N, int G, int L, int k, Dropout drop) {
   extern __shared__ float4 smem4[];
   const int LP = rows_padded(RPT);
   float* h0_s = reinterpret_cast<float*>(smem4);
@@ -79,7 +85,9 @@ encoder_reduce_bwd_kernel(const T* __restrict__ x,
   float* sg_s = gb_s + LP * D;         // ReLU sign, then g_y
   float* w_s = sg_s + LP * D;          // KC x D
   float* dw_s = w_s + KC * D;          // 2 x k x D
-  float* m_s = dw_s + 2 * k * D;       // L
+  float* m_s = dw_s + 2 * k * D;       // L (reduce mode)
+  float* v_s = m_s + round4(L);        // L
+  const bool reduce = mask != nullptr;
   const EncParams P(packed, k);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int c0 = lane * 4, pad = k / 2;
@@ -115,7 +123,7 @@ encoder_reduce_bwd_kernel(const T* __restrict__ x,
       dropout_rows(t_s, L, n, drop);
       __syncthreads();
     }
-    dwconv_rows(t_s, c_s, L, k, dw_s + i * k * D, P.dwb[i]);
+    dwconv_rows(t_s, c_s, L, k, dw_s + i * k * D, P.dwb[i], v_s);
     __syncthreads();
     if (save_c)
       for (int idx = tid; idx < L * D; idx += NTHREADS)
@@ -150,7 +158,7 @@ encoder_reduce_bwd_kernel(const T* __restrict__ x,
       for (int j = 0; j < MAX_K; ++j) {
         const int rr = l + j - pad;
         if (j < k && rr >= 0 && rr < L)
-          gdw[i][j] = fmaf(t_s[rr * D + cd], gc, gdw[i][j]);
+          gdw[i][j] = fmaf(t_s[rr * D + cd] * v_s[rr], gc, gdw[i][j]);
       }
     }
     for (int i4 = tid; i4 < L * D / 4; i4 += NTHREADS) {
@@ -164,7 +172,7 @@ encoder_reduce_bwd_kernel(const T* __restrict__ x,
           if (r >= 0 && r < L)
             acc_t = fmaf(dw[j * D + d0 + t], gb_s[r * D + d0 + t], acc_t);
         }
-        v[t] = acc_t;
+        v[t] = acc_t * v_s[l];
       }
       if (i == 0 && drop.on()) {
         float km[4];
@@ -183,7 +191,9 @@ encoder_reduce_bwd_kernel(const T* __restrict__ x,
     const unsigned long long nn = static_cast<unsigned long long>(n);
     for (int idx = tid; idx < L * D; idx += NTHREADS)
       h0_s[idx] = to_f(x[nn * L * D + idx]) + pe[idx];
-    for (int l = tid; l < L; l += NTHREADS) m_s[l] = mask[nn * L + l];
+    if (reduce)
+      for (int l = tid; l < L; l += NTHREADS) m_s[l] = mask[nn * L + l];
+    load_zmask_row(v_s, zmask, n, G, L);
     __syncthreads();
     // ---- pass A: layer 0 for h1, layer 1 with its stash ----------------
     float acc[RPT][4];
@@ -219,10 +229,16 @@ encoder_reduce_bwd_kernel(const T* __restrict__ x,
       }
     }
     __syncthreads();
-    // ---- final LN, masked-max backward, final-LN backward --------------
-    ln_rows(gb_s, ga_s, L, P.lnf_s, P.lnf_b, warp, lane);
-    __syncthreads();
-    if (tid < D) {
+    // ---- the output's cotangent (reduce mode: final LN and masked-max
+    // backward), final-LN backward -------------------------------------
+    if (!reduce) {
+      for (int idx = tid; idx < L * D; idx += NTHREADS)
+        ga_s[idx] = to_f(gout[nn * L * D + idx]);
+    } else {
+      ln_rows(gb_s, ga_s, L, P.lnf_s, P.lnf_b, warp, lane);
+      __syncthreads();
+    }
+    if (reduce && tid < D) {
       const int d = tid;
       float mx = -CUDART_INF_F;
       for (int l = 0; l < L; ++l) {
@@ -314,12 +330,12 @@ encoder_reduce_bwd_kernel(const T* __restrict__ x,
 
 template <typename T, int RPT>
 int launch_rpt(const void* x, const float* pe, const float* packed,
-               const float* pwT, const float* mask, const void* g, void* gx,
-               Bufs bufs, float* gvec, float* wg_part, float* gpw, int N,
-               int L, int k, int wg_chunks, Dropout drop,
-               cudaStream_t stream) {
+               const float* pwT, const float* mask, const float* zmask,
+               const void* g, void* gx, Bufs bufs, float* gvec,
+               float* wg_part, float* gpw, int N, int G, int L, int k,
+               int wg_chunks, Dropout drop, cudaStream_t stream) {
   const size_t bytes = sizeof(float) * smem_floats(L, k, RPT);
-  auto kern = encoder_reduce_bwd_kernel<T, RPT>;
+  auto kern = encoder_bwd_kernel<T, RPT>;
   cudaError_t err = allow_smem(kern, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0;
@@ -327,8 +343,8 @@ int launch_rpt(const void* x, const float* pe, const float* packed,
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int blocks = N < sms ? N : sms;
   kern<<<blocks, NTHREADS, bytes, stream>>>(
-      static_cast<const T*>(x), pe, packed, pwT, mask,
-      static_cast<const T*>(g), static_cast<T*>(gx), bufs, N, L, k, drop);
+      static_cast<const T*>(x), pe, packed, pwT, mask, zmask,
+      static_cast<const T*>(g), static_cast<T*>(gx), bufs, N, G, L, k, drop);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(N) * L;
   for (int i = 0; i < 2; ++i)
@@ -341,14 +357,16 @@ int launch_rpt(const void* x, const float* pe, const float* packed,
 
 template <typename T>
 int launch(const void* x, const float* pe, const float* packed,
-           const float* pwT, const float* mask, const void* g, void* gx,
-           Bufs bufs, float* gvec, float* wg_part, float* gpw, int N, int L,
-           int k, int wg_chunks, Dropout drop, cudaStream_t stream) {
+           const float* pwT, const float* mask, const float* zmask,
+           const void* g, void* gx, Bufs bufs, float* gvec, float* wg_part,
+           float* gpw, int N, int G, int L, int k, int wg_chunks,
+           Dropout drop, cudaStream_t stream) {
   if (k % 2 == 0 || k > MAX_K) return static_cast<int>(cudaErrorInvalidValue);
 #define TVQA_ENC_BWD(R)                                                    \
   case R:                                                                  \
-    return launch_rpt<T, R>(x, pe, packed, pwT, mask, g, gx, bufs, gvec,   \
-                            wg_part, gpw, N, L, k, wg_chunks, drop, stream);
+    return launch_rpt<T, R>(x, pe, packed, pwT, mask, zmask, g, gx, bufs,  \
+                            gvec, wg_part, gpw, N, G, L, k, wg_chunks, drop,  \
+                            stream);
   switch ((L + NWARPS - 1) / NWARPS) {   // rows per warp in the GEMMs
     TVQA_ENC_BWD(1)
     TVQA_ENC_BWD(2)
@@ -360,6 +378,28 @@ int launch(const void* x, const float* pe, const float* packed,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef TVQA_ENC_BWD
+}
+
+int launch_any(const void* x, const void* pe, const void* packed,
+               const void* pwT, const void* mask, const void* zmask,
+               const void* g, void* gx, void* gvec, void* gpw, void* c0,
+               void* c1, void* gy0, void* gy1, void* vec_part, void* wg_part,
+               int N, int G, int L, int k, int wg_chunks,
+               unsigned long long drop_seed, unsigned drop_threshold,
+               float drop_scale, int is_bf16, void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto fm = [](void* p) { return static_cast<float*>(p); };
+  auto st = static_cast<cudaStream_t>(stream);
+  const Dropout drop{drop_seed, drop_threshold, drop_scale};
+  const Bufs bufs{{fm(c0), fm(c1)}, {fm(gy0), fm(gy1)}, fm(vec_part)};
+  if (is_bf16)
+    return launch<__nv_bfloat16>(x, f(pe), f(packed), f(pwT), f(mask),
+                                 f(zmask), g, gx, bufs, fm(gvec),
+                                 fm(wg_part), fm(gpw), N, G, L, k, wg_chunks,
+                                 drop, st);
+  return launch<float>(x, f(pe), f(packed), f(pwT), f(mask), f(zmask), g, gx,
+                       bufs, fm(gvec), fm(wg_part), fm(gpw), N, G, L, k,
+                       wg_chunks, drop, st);
 }
 
 }  // namespace
@@ -378,16 +418,23 @@ extern "C" int encoder_reduce_bwd(
     void* c0, void* c1, void* gy0, void* gy1, void* vec_part, void* wg_part,
     int N, int L, int k, int wg_chunks, unsigned long long drop_seed,
     unsigned drop_threshold, float drop_scale, int is_bf16, void* stream) {
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto fm = [](void* p) { return static_cast<float*>(p); };
-  auto st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{drop_seed, drop_threshold, drop_scale};
-  const Bufs bufs{{fm(c0), fm(c1)}, {fm(gy0), fm(gy1)}, fm(vec_part)};
-  if (is_bf16)
-    return launch<__nv_bfloat16>(x, f(pe), f(packed), f(pwT), f(mask), g, gx,
-                                 bufs, fm(gvec), fm(wg_part), fm(gpw), N, L,
-                                 k, wg_chunks, drop, st);
-  return launch<float>(x, f(pe), f(packed), f(pwT), f(mask), g, gx, bufs,
-                       fm(gvec), fm(wg_part), fm(gpw), N, L, k, wg_chunks,
-                       drop, st);
+  if (mask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_any(x, pe, packed, pwT, mask, nullptr, g, gx, gvec, gpw, c0,
+                    c1, gy0, gy1, vec_part, wg_part, N, 1, L, k, wg_chunks,
+                    drop_seed, drop_threshold, drop_scale, is_bf16, stream);
+}
+
+// Full-output mode: g (N, L, D) is the cotangent of the block output;
+// zmask (G, L) float32 or NULL, sequence n uses its row n % G.  Everything
+// else as encoder_reduce_bwd.
+extern "C" int encoder_block_bwd(
+    const void* x, const void* pe, const void* packed, const void* pwT,
+    const void* zmask, const void* g, void* gx, void* gvec, void* gpw,
+    void* c0, void* c1, void* gy0, void* gy1, void* vec_part, void* wg_part,
+    int N, int G, int L, int k, int wg_chunks, unsigned long long drop_seed,
+    unsigned drop_threshold, float drop_scale, int is_bf16, void* stream) {
+  if (G < 1 || N % G != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_any(x, pe, packed, pwT, nullptr, zmask, g, gx, gvec, gpw, c0,
+                    c1, gy0, gy1, vec_part, wg_part, N, G, L, k, wg_chunks,
+                    drop_seed, drop_threshold, drop_scale, is_bf16, stream);
 }

@@ -27,7 +27,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tvqaplus_tpu_torch.ops import philox
-from tvqaplus_tpu_torch.ops.encoder import encoder_reduce
+from tvqaplus_tpu_torch.ops.encoder import encoder_block, encoder_reduce
+from tvqaplus_tpu_torch.ops.mlp_bridge import mlp_bridge
 from tvqaplus_tpu_torch.ops.plain import LN_EPS, depthwise_conv, layer_norm
 from tvqaplus_tpu_torch.ops.tri_bridge import tri_bridge
 
@@ -87,15 +88,25 @@ class LayerNorm(nn.Module):
 
 class MLPBridge(nn.Sequential):
     """LN -> Dropout -> Linear -> ReLU -> LN: ``bert_word_encoding_fc`` /
-    ``vid_fc`` (reference stage.py:85-113)."""
+    ``vid_fc`` (reference stage.py:85-113).  Built with ``use_kernel`` (the
+    JAX module's ``use_pallas`` field, off by default and left off by
+    STAGE) a 4-D input goes through the fused bridge kernel
+    (ops/mlp_bridge.py), dropout included."""
 
-    def __init__(self, in_hsz, out_hsz, dropout=0.1, dtype=torch.float32):
+    def __init__(self, in_hsz, out_hsz, dropout=0.1, dtype=torch.float32,
+                 use_kernel=False):
         super().__init__(LayerNorm(in_hsz, dtype), nn.Dropout(dropout),
                          nn.Linear(in_hsz, out_hsz), nn.ReLU(),
                          LayerNorm(out_hsz, dtype))
         self.dtype = dtype
+        self.use_kernel = use_kernel
 
     def forward(self, x, drop=None):
+        if self.use_kernel and x.dim() == 4:
+            ln_in, fc, ln_out = self[0], self[2], self[4]
+            return mlp_bridge(x.contiguous(), ln_in.weight, ln_in.bias,
+                              fc.weight.t(), fc.bias, ln_out.weight,
+                              ln_out.bias, *kernel_dropout(drop))
         x = apply_dropout(drop, self[0](x))
         return self[4](torch.relu(dense(x, self[2], self.dtype)))
 
@@ -243,12 +254,21 @@ class EncoderBlock(nn.Module):
     attention heads: PE, 2 x [LN -> dsconv -> residual], final LN.
 
     With ``reduce_mask`` it returns ``max over L of mask_logits(out, m)``
-    through the fused encoder kernel (ops/encoder.py); without, the block
-    output in plain PyTorch (the k=7 input-encoder sites, which the JAX
-    package also leaves unfused)."""
+    through the fused encoder kernel (ops/encoder.py).  Without, the block
+    output: through the kernel's full-output mode when the block was built
+    with ``use_kernel`` (the merged input encoder), else in plain PyTorch
+    (the separate k=7 input-encoder sites, which the JAX package also
+    leaves unfused).
+
+    ``zero_mask`` (broadcastable to x.shape[:-1]) re-zeroes each conv's
+    input where it is 0, so a tap that reads past a sequence's true length
+    sees the zeros that per-stream padding would give (the merged-stream
+    contract, JAX layers.py:247-254); positions where it is 0 come out as
+    garbage for the caller to slice away.  The kernel takes a (G, L) mask
+    on a 4-D input, or none."""
 
     def __init__(self, hsz, n_conv=2, kernel_size=7, num_heads=0,
-                 dropout=0.1, dtype=torch.float32):
+                 dropout=0.1, dtype=torch.float32, use_kernel=False):
         super().__init__()
         if n_conv != 2 or num_heads:
             raise NotImplementedError(
@@ -262,6 +282,7 @@ class EncoderBlock(nn.Module):
         self.final_layer_norm = LayerNorm(hsz, dtype)
         self.kernel_size = kernel_size
         self.dtype = dtype
+        self.use_kernel = use_kernel
 
     def kernel_params(self):
         """The 14 parameters in the fused kernel's layout and keys."""
@@ -277,37 +298,53 @@ class EncoderBlock(nn.Module):
                       f"pwb{i}": conv.pointwise_conv.bias})
         return p
 
-    def forward(self, x, reduce_mask=None, drop=None):
+    def forward(self, x, reduce_mask=None, drop=None, zero_mask=None):
+        lead, (l, d) = x.shape[:-2], x.shape[-2:]
         if reduce_mask is not None:
-            lead, (l, d) = x.shape[:-2], x.shape[-2:]
+            if zero_mask is not None:
+                raise NotImplementedError("reduce_mask with a zero_mask")
             out = encoder_reduce(
                 x.reshape(lead[0], -1, l, d).contiguous(),
                 sinusoid_table(l, d).to(x.device), self.kernel_params(),
                 self.kernel_size, reduce_mask.reshape(lead[0], -1, l),
                 *kernel_dropout(drop))
             return out.reshape(lead + (d,))
+        zm_fusable = zero_mask is None or (
+            zero_mask.dim() == 2 and x.dim() == 4
+            and zero_mask.shape == x.shape[1:3])
+        if self.use_kernel and x.dim() >= 3 and zm_fusable:
+            out = encoder_block(
+                x.reshape(lead[0], -1, l, d).contiguous(),
+                sinusoid_table(l, d).to(x.device), self.kernel_params(),
+                self.kernel_size, zero_mask, *kernel_dropout(drop))
+            return out.reshape(x.shape)
         out = self.position_encoding(x)
         for i, (ln, conv) in enumerate(zip(self.layer_norm, self.conv)):
             t = ln(out)
             if i % 2 == 0:     # dropout on even conv layers (encoder.py:41)
                 t = apply_dropout(drop, t)
+            if zero_mask is not None:
+                t = t * zero_mask[..., None].to(t.dtype)
             out = conv(t) + out
         return self.final_layer_norm(out)
 
 
 class StackedEncoder(nn.Module):
     """n_blocks stacked EncoderBlocks (reference encoder.py:55-74); the
-    ``reduce_mask`` of the last block folds in the masked word-max."""
+    ``reduce_mask`` of the last block folds in the masked word-max, every
+    block takes the ``zero_mask``."""
 
     def __init__(self, n_blocks=1, n_conv=2, kernel_size=7, num_heads=0,
-                 hsz=128, dropout=0.1, dtype=torch.float32):
+                 hsz=128, dropout=0.1, dtype=torch.float32,
+                 use_kernel=False):
         super().__init__()
         self.stacked_encoderBlocks = nn.ModuleList(
-            EncoderBlock(hsz, n_conv, kernel_size, num_heads, dropout, dtype)
+            EncoderBlock(hsz, n_conv, kernel_size, num_heads, dropout, dtype,
+                         use_kernel)
             for _ in range(n_blocks))
 
-    def forward(self, x, reduce_mask=None, drop=None):
+    def forward(self, x, reduce_mask=None, drop=None, zero_mask=None):
         last = len(self.stacked_encoderBlocks) - 1
         for i, block in enumerate(self.stacked_encoderBlocks):
-            x = block(x, reduce_mask if i == last else None, drop)
+            x = block(x, reduce_mask if i == last else None, drop, zero_mask)
         return x

@@ -4,15 +4,18 @@
 The five answers and the Li frames are batch axes throughout.  Three fused
 kernels carry the forward (ops/): ``qa_ctx_attention`` at both attention
 sites, ``tri_bridge`` at ``concat_fc`` and the encoder kernel with the
-masked word-max at ``cls_encoder``.  The MLP bridges and the k=7 input
-encoder are plain PyTorch, as the JAX package leaves them to XLA.  The
+masked word-max at ``cls_encoder``.  The MLP bridges are plain PyTorch, as
+the JAX package leaves them to XLA, and so is the k=7 input encoder unless
+``merge_input_streams`` is set: then the three streams share one call of
+the encoder kernel's full-output mode with a zero mask
+(``_merged_input_encode``).  The
 kernels are differentiable through their backward kernels (on CUDA) or
 through the plain versions (on the CPU), so ``forward(train=True)`` is the
 training forward: dropout at every reference site (``drop``, a
 ``layers.Dropout``) and the GT-anchored proposals.
 
-The merged input encoder, void vectors and the noun mask come with later
-slices and raise ``NotImplementedError`` here.
+Void vectors and the noun mask are not ported yet and raise
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -68,6 +71,7 @@ class ModelConfig:
     cls_encoder_kernel_size: int = 5
     cls_encoder_n_heads: int = 0
     compute_dtype: str = "float32"
+    merge_input_streams: bool = False
 
     @classmethod
     def from_config(cls, cfg):
@@ -100,10 +104,13 @@ class STAGE(nn.Module):
             self.concat_fc = TriMLPBridge(c.hsz, c.dropout, dt)
         self.input_embedding = InputEmbedding(c.bridge_hsz, c.hsz, c.dropout,
                                               dt)
+        # the input encoder goes through the encoder kernel iff the streams
+        # are merged (JAX stage.py:139-143); the separate k=7 sites stay
+        # plain PyTorch
         self.input_encoder = StackedEncoder(
             c.input_encoder_n_blocks, c.input_encoder_n_conv,
             c.input_encoder_kernel_size, c.input_encoder_n_heads, c.hsz,
-            c.dropout, dt)
+            c.dropout, dt, use_kernel=c.merge_input_streams)
         self.c2q_down_projection = DownProjection(3 * c.hsz, c.hsz,
                                                   c.dropout, dt)
         self.cls_encoder = StackedEncoder(
@@ -145,6 +152,18 @@ class STAGE(nn.Module):
         x = self.input_embedding(init_encoder(data, drop), drop)
         return self.input_encoder(x, drop=drop)
 
+    def _sub_encode(self, batch, drop=None):
+        """The subtitle stream's own encoder call: from the per-unique-token
+        stream of a sub_dedup batch (bridge and ``input_embedding`` once
+        per token, then the window gather), else from ``sub_bert``."""
+        if "sub_tokens" not in batch:
+            return self.base_encoder(batch["sub_bert"],
+                                     self.bert_word_encoding_fc, drop)
+        tok = self.input_embedding(
+            self.bert_word_encoding_fc(batch["sub_tokens"], drop), drop)
+        return self.input_encoder(
+            self._gather_sub_windows(tok, batch["sub_win_idx"]), drop=drop)
+
     @staticmethod
     def _gather_sub_windows(tok, idx):
         """Frame-aligned subtitle windows from the per-unique-token stream
@@ -154,6 +173,31 @@ class STAGE(nn.Module):
         flat = idx.reshape(bsz, li * ls, 1).long().expand(-1, -1,
                                                           tok.shape[-1])
         return torch.gather(tok, 1, flat).reshape(bsz, li, ls, tok.shape[-1])
+
+    def _merged_input_encode(self, qa_pre, sub_pre, vid_pre, drop=None):
+        """One ``input_encoder`` call over the qa/sub/vid streams (JAX
+        stage.py:198-229).  The three post-bridge embeddings are zero-padded
+        on L to the longest stream and concatenated on the group axis:
+        (B, A, Lqa, h) + (B, Li, Ls, h) + (B, Li, Lr, h) ->
+        (B, A + 2 Li, Lmax, h).  A static (G, L) zero mask re-zeroes each
+        conv's input past a stream's true length, so every tap reads what
+        per-stream padding would give and the three slices equal the
+        separate calls.  The slices are made contiguous here, once (the
+        attention kernel takes contiguous inputs)."""
+        streams = (qa_pre, sub_pre, vid_pre)
+        lmax = max(x.shape[2] for x in streams)
+        merged = torch.cat([nn.functional.pad(x, (0, 0, 0, lmax - x.shape[2]))
+                            for x in streams], dim=1)
+        lens = torch.cat([torch.full((x.shape[1],), x.shape[2])
+                          for x in streams])
+        zm = (torch.arange(lmax)[None, :] < lens[:, None]).float().to(
+            merged.device)
+        enc = self.input_encoder(merged, drop=drop, zero_mask=zm)
+        outs, g0 = [], 0
+        for x in streams:
+            outs.append(enc[:, g0:g0 + x.shape[1], :x.shape[2]].contiguous())
+            g0 += x.shape[1]
+        return outs
 
     def qa_ctx_attention(self, qa_embed, ctx_embed, qa_mask, ctx_mask,
                          need_raw, drop=None, targets=None):
@@ -199,22 +243,30 @@ class STAGE(nn.Module):
             raise NotImplementedError("noun-mask attention")
         c = self.cfg
         out = {}
-        a_embed = self.base_encoder(batch["qas_bert"],
-                                    self.bert_word_encoding_fc, drop)
+        # all three streams through one input_encoder call (JAX
+        # stage.py:342-367); without sub_dedup batches the flag keeps the
+        # separate calls below, through the kernel with no zero mask
+        merged = (c.merge_input_streams and c.sub_flag and c.vfeat_flag
+                  and c.input_encoder_n_heads == 0 and "sub_tokens" in batch)
+        sub_embed = vid_embed = None
+        if merged:
+            qa_pre = self.input_embedding(
+                self.bert_word_encoding_fc(batch["qas_bert"], drop), drop)
+            tok = self.input_embedding(
+                self.bert_word_encoding_fc(batch["sub_tokens"], drop), drop)
+            vid_pre = self.input_embedding(
+                self.vid_fc(l2_normalize(batch["vid"]), drop), drop)
+            a_embed, sub_embed, vid_embed = self._merged_input_encode(
+                qa_pre, self._gather_sub_windows(tok, batch["sub_win_idx"]),
+                vid_pre, drop)
+        else:
+            a_embed = self.base_encoder(batch["qas_bert"],
+                                        self.bert_word_encoding_fc, drop)
         a_mask = batch["qas_mask"]
         attended = []
         if c.sub_flag:
-            if "sub_tokens" in batch:
-                tok = self.input_embedding(
-                    self.bert_word_encoding_fc(batch["sub_tokens"], drop),
-                    drop)
-                sub_embed = self.input_encoder(
-                    self._gather_sub_windows(tok, batch["sub_win_idx"]),
-                    drop=drop)
-            else:
-                sub_embed = self.base_encoder(batch["sub_bert"],
-                                              self.bert_word_encoding_fc,
-                                              drop)
+            if not merged:
+                sub_embed = self._sub_encode(batch, drop)
             mixed, mask, raw = self.qa_ctx_attention(
                 a_embed, sub_embed, a_mask, batch["sub_mask"], need_sub_raw,
                 drop)
@@ -222,8 +274,9 @@ class STAGE(nn.Module):
             if need_sub_raw:
                 out["sub_raw_s"] = raw
         if c.vfeat_flag:
-            vid_embed = self.base_encoder(l2_normalize(batch["vid"]),
-                                          self.vid_fc, drop)  # stage.py:256
+            if not merged:
+                vid_embed = self.base_encoder(l2_normalize(batch["vid"]),
+                                              self.vid_fc, drop)  # :256
             mixed, mask, raw = self.qa_ctx_attention(
                 a_embed, vid_embed, a_mask, batch["vid_mask"], need_vid_raw,
                 drop, batch.get("target"))

@@ -16,7 +16,8 @@ from __future__ import annotations
 import torch
 
 from tvqaplus_tpu_torch.ops import philox
-from tvqaplus_tpu_torch.ops.plain import depthwise_conv, layer_norm
+from tvqaplus_tpu_torch.ops.encoder import block_layers
+from tvqaplus_tpu_torch.ops.plain import layer_norm
 from tvqaplus_tpu_torch.ops.qa_ctx_attention import qa_ctx_attention_plain
 
 # Decision margins: float32 products of 384 (attention, tri bridge) or 128
@@ -75,19 +76,30 @@ def encoder_flip_groups(x, pe, params, k, reduce_mask, dropout_rate=0.0,
                         seed=0, eps=SEQ_EPS):
     """(B, G) bool: sequences with a ReLU input within ``eps`` of 0, or a
     live channel whose two largest masked values lie within ``eps``."""
-    h = x.float() + pe.float()
-    near = torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
-    for i in (0, 1):
-        t = layer_norm(h, params[f"ln{i}_s"], params[f"ln{i}_b"])
-        if i == 0 and dropout_rate > 0.0:
-            t = t * philox.multiplier(t.shape, seed, dropout_rate, t.device)
-        c = depthwise_conv(t, params[f"dw{i}"].float(),
-                           params[f"dwb{i}"].float())
-        y = c @ params[f"pw{i}"].float() + params[f"pwb{i}"].float()
-        near |= (y.abs() < eps).flatten(-2).any(-1)
-        h = h + torch.relu(y)
-    out = layer_norm(h, params["lnf_s"], params["lnf_b"])
+    out, pre = block_layers(x, pe, params, k, None, dropout_rate, seed)
+    near = sum((y.abs() < eps).flatten(-2).any(-1) for y in pre) > 0
     m = reduce_mask.float()[..., None]
     top2 = (out * m + (m - 1.0) * 1e10).topk(2, dim=-2).values
     live = reduce_mask.sum(-1) > 0
     return near | (live & ((top2[..., 0, :] - top2[..., 1, :]) < eps).any(-1))
+
+
+def encoder_block_flip_groups(x, pe, params, k, zero_mask=None,
+                              dropout_rate=0.0, seed=0, eps=SEQ_EPS):
+    """(B, G) bool, for the full-output mode: sequences with a ReLU input
+    within ``eps`` of 0 at a position the zero mask keeps (a masked
+    position carries no gradient when its cotangent is 0)."""
+    _, pre = block_layers(x, pe, params, k, zero_mask, dropout_rate, seed)
+    near = sum((y.abs() < eps).any(-1) for y in pre) > 0         # (B, G, L)
+    if zero_mask is not None:
+        near = near & (zero_mask > 0)
+    return near.any(-1)
+
+
+def mlp_bridge_flip_rows(x, gamma_in, beta_in, w, b, dropout_rate=0.0,
+                         seed=0, eps=ROW_EPS):
+    """x's leading shape, bool: rows with a ReLU input within ``eps`` of 0."""
+    y = layer_norm(x, gamma_in, beta_in)
+    if dropout_rate > 0.0:
+        y = y * philox.multiplier(y.shape, seed, dropout_rate, y.device)
+    return ((y @ w.float() + b.float()).abs() < eps).any(-1)

@@ -1,15 +1,26 @@
-"""Fused QANet encoder block with the masked word-max folded in, forward
-and backward (port of ``tvqaplus_tpu/ops/pallas_encoder.py``
-``fused_encoder_block``, ``reduce_mask`` mode).
+"""Fused QANet encoder block, forward and backward (port of
+``tvqaplus_tpu/ops/pallas_encoder.py`` ``fused_encoder_block``), in its two
+modes.
 
 x + PE, then 2 x [LN -> (dropout, conv 0 only) -> depthwise conv k ->
-pointwise D x D -> ReLU -> residual], final LN, then ``max over L of
-mask_logits(out, m)`` (reference encoder.py:9-52 + stage.py:500-505):
-STAGE's ``cls_encoder``.  The CUDA kernels are ``csrc/encoder_fwd.cu`` and
-``csrc/encoder_bwd.cu`` behind one ``torch.autograd.Function`` that takes
-the packed parameter vector, so ``torch.cat``'s autograd routes the
-gradient pieces back to the parameters; ``encoder_reduce_plain`` is the same
-function in plain PyTorch (autograd through it is the plain backward).
+pointwise D x D -> ReLU -> residual], final LN (reference encoder.py:9-52).
+
+* ``encoder_reduce`` (``reduce_mask`` mode) then takes ``max over L of
+  mask_logits(out, m)`` (stage.py:500-505) and returns (B, G, D): STAGE's
+  ``cls_encoder``.
+* ``encoder_block`` returns the (B, G, L, D) block output, with an optional
+  (G, L) ``zero_mask`` that re-zeroes each conv's input where it is 0 (the
+  merged-stream contract of models/layers.py ``EncoderBlock``): STAGE's
+  ``input_encoder`` over the merged qa/sub/vid streams.  Only positions
+  where the mask is 1 are contractual; the rest are finite and the caller
+  slices them away.
+
+The CUDA kernels are ``csrc/encoder_fwd.cu`` and ``csrc/encoder_bwd.cu``,
+one entry per mode, each mode behind one ``torch.autograd.Function`` that
+takes the packed parameter vector, so ``torch.cat``'s autograd routes the
+gradient pieces back to the parameters; ``encoder_reduce_plain`` and
+``encoder_block_plain`` are the same functions in plain PyTorch (autograd
+through them is the plain backward).
 ``params`` uses the JAX kernel's keys: ln{0,1}_s/_b (D,), dw{0,1} (k, D),
 dwb{0,1} (D,), pw{0,1} (D, D) as (in, out), pwb{0,1} (D,), lnf_s/lnf_b
 (D,).  Conv 0's dropout acts on its (B*G*L, D) LN output, keyed by (seed,
@@ -36,6 +47,11 @@ KERNEL = CudaKernel("encoder_fwd.cu", "encoder_reduce_fwd",
                     [_P] * 5 + [_I] * 3 + [_U64, _U32, _F, _I, _P])
 BWD_KERNEL = CudaKernel("encoder_bwd.cu", "encoder_reduce_bwd",
                         [_P] * 15 + [_I] * 4 + [_U64, _U32, _F, _I, _P])
+BLOCK_KERNEL = CudaKernel("encoder_fwd.cu", "encoder_block_fwd",
+                          [_P] * 5 + [_I] * 4 + [_U64, _U32, _F, _I, _P])
+BLOCK_BWD_KERNEL = CudaKernel("encoder_bwd.cu", "encoder_block_bwd",
+                              [_P] * 15 + [_I] * 5
+                              + [_U64, _U32, _F, _I, _P])
 
 PARAM_KEYS = ("ln0_s", "ln0_b", "dw0", "dwb0", "pw0", "pwb0",
               "ln1_s", "ln1_b", "dw1", "dwb1", "pw1", "pwb1",
@@ -50,22 +66,42 @@ GRAD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
 MAX_LEN = 56
 
 
-def encoder_reduce_plain(x, pe, params, k, reduce_mask, dropout_rate=0.0,
-                         seed=0):
-    """Plain PyTorch version.  x (B, G, L, D); pe (L, D); reduce_mask
-    (B, G, L).  Returns (B, G, D) in x's dtype."""
+def block_layers(x, pe, params, k, zero_mask=None, dropout_rate=0.0, seed=0):
+    """The block in plain float32 PyTorch.  Returns the final LN's output
+    (B, G, L, D) and the two layers' ReLU inputs (ops/checks.py reads
+    them)."""
     h = x.float() + pe.float()
+    v = None if zero_mask is None else zero_mask.float()[..., None]
+    pre = []
     for i in (0, 1):
         t = layer_norm(h, params[f"ln{i}_s"], params[f"ln{i}_b"])
         if i == 0 and dropout_rate > 0.0:
             t = t * philox.multiplier(t.shape, seed, dropout_rate, t.device)
+        if v is not None:
+            t = t * v
         c = depthwise_conv(t, params[f"dw{i}"].float(),
                            params[f"dwb{i}"].float())
-        h = h + torch.relu(c @ params[f"pw{i}"].float()
-                           + params[f"pwb{i}"].float())
-    out = layer_norm(h, params["lnf_s"], params["lnf_b"])
+        pre.append(c @ params[f"pw{i}"].float() + params[f"pwb{i}"].float())
+        h = h + torch.relu(pre[-1])
+    return layer_norm(h, params["lnf_s"], params["lnf_b"]), pre
+
+
+def encoder_reduce_plain(x, pe, params, k, reduce_mask, dropout_rate=0.0,
+                         seed=0):
+    """Plain PyTorch version.  x (B, G, L, D); pe (L, D); reduce_mask
+    (B, G, L).  Returns (B, G, D) in x's dtype."""
+    out, _ = block_layers(x, pe, params, k, None, dropout_rate, seed)
     m = reduce_mask.float()[..., None]
     return (out * m + (m - 1.0) * 1e10).amax(dim=-2).to(x.dtype)
+
+
+def encoder_block_plain(x, pe, params, k, zero_mask=None, dropout_rate=0.0,
+                        seed=0):
+    """Plain PyTorch version of the full-output mode.  x (B, G, L, D); pe
+    (L, D); zero_mask (G, L) or None; the dropout mask is drawn on the whole
+    (B*G*L, D) LN output.  Returns (B, G, L, D) in x's dtype."""
+    return block_layers(x, pe, params, k, zero_mask, dropout_rate,
+                        seed)[0].to(x.dtype)
 
 
 def pack_params(params):
@@ -74,7 +110,12 @@ def pack_params(params):
     return torch.cat([params[key].float().reshape(-1) for key in PARAM_KEYS])
 
 
-def _check(x, pe, packed, k, reduce_mask):
+def _check(x, pe, packed, k, reduce_mask=None, zero_mask=None):
+    """Raise on what the kernels do not take; returns the float32 packed
+    parameters, position table and mask (the reduce mask, else the zero
+    mask, else None)."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, G, L, D), got {tuple(x.shape)}")
     bsz, g, l, d = x.shape
     if d != 128 or l > MAX_LEN or k % 2 == 0 or k > 9:
         raise ValueError(f"kernel takes D == 128, L <= {MAX_LEN} and odd "
@@ -83,12 +124,16 @@ def _check(x, pe, packed, k, reduce_mask):
             or not x.is_contiguous():
         raise ValueError(f"x must be contiguous float32/bfloat16, got "
                          f"{x.dtype}")
-    if reduce_mask.shape != (bsz, g, l) or pe.shape != (l, d):
+    mask = reduce_mask if reduce_mask is not None else zero_mask
+    want = (bsz, g, l) if reduce_mask is not None else (g, l)
+    if (mask is not None and mask.shape != want) or pe.shape != (l, d):
         raise ValueError("mask or position table does not match x")
     if packed.shape != ((2 * (4 + k) + 2) * d + 2 * d * d,):
         raise ValueError(f"packed parameters: {tuple(packed.shape)}")
-    packed32, pe32, m32 = as_f32(packed), as_f32(pe), as_f32(reduce_mask)
-    check_device(x.device, pe=pe32, reduce_mask=m32, params=packed32)
+    packed32, pe32 = as_f32(packed), as_f32(pe)
+    m32 = None if mask is None else as_f32(mask)
+    check_device(x.device, pe=pe32, params=packed32,
+                 **({} if m32 is None else {"mask": m32}))
     return packed32, pe32, m32
 
 
@@ -129,14 +174,29 @@ class _EncoderReduce(torch.autograd.Function):
 
 def encoder_reduce_backward(x, pe, packed, reduce_mask, g, k,
                             dropout_rate=0.0, seed=0):
-    """Launch the backward kernel (CUDA tensors only).  Returns gx in x's
-    dtype and the float32 gradient of the packed parameter vector."""
-    packed32, pe32, m32 = _check(x, pe, packed, k, reduce_mask)
+    """Launch the reduce mode's backward kernel (CUDA tensors only).
+    Returns gx in x's dtype and the float32 gradient of the packed
+    parameter vector."""
+    return _backward(x, pe, packed, reduce_mask, None, g, k, dropout_rate,
+                     seed)
+
+
+def encoder_block_backward(x, pe, packed, zero_mask, g, k, dropout_rate=0.0,
+                           seed=0):
+    """The same for the full-output mode: ``g`` is the (B, G, L, D)
+    cotangent, ``zero_mask`` (G, L) or None."""
+    return _backward(x, pe, packed, None, zero_mask, g, k, dropout_rate, seed,
+                     full=True)
+
+
+def _backward(x, pe, packed, reduce_mask, zero_mask, g, k, dropout_rate,
+              seed, full=False):
+    packed32, pe32, m32 = _check(x, pe, packed, k, reduce_mask, zero_mask)
     bsz, grp, l, d = x.shape
     n = bsz * grp
     g = g.to(x.dtype).contiguous()
-    if g.shape != (bsz, grp, d):
-        raise ValueError("cotangent does not match the reduced output")
+    if g.shape != ((bsz, grp, l, d) if full else (bsz, grp, d)):
+        raise ValueError("cotangent does not match the output")
     off = _offsets(k, d)
     pw_t = torch.stack([packed32[off[key]:off[key] + d * d].view(d, d).t()
                         for key in ("pw0", "pw1")]).contiguous()
@@ -150,11 +210,13 @@ def encoder_reduce_backward(x, pe, packed, reduce_mask, g, k,
     gpw = torch.empty(2, d, d, **f32)
     scratch = [torch.empty(n * l, d, **f32) for _ in range(4)] + [
         torch.empty(blocks, nv, **f32), torch.empty(chunks, d, d, **f32)]
-    BWD_KERNEL.launch(x.device, ptr(x), ptr(pe32), ptr(packed32), ptr(pw_t),
-                      ptr(m32), ptr(g), ptr(gx), ptr(gvec), ptr(gpw),
-                      *(ptr(t) for t in scratch), n, l, k, chunks,
-                      *philox.kernel_args(dropout_rate, seed),
-                      int(x.dtype == torch.bfloat16))
+    kernel, dims = (BLOCK_BWD_KERNEL, (n, grp, l, k)) if full \
+        else (BWD_KERNEL, (n, l, k))
+    kernel.launch(x.device, ptr(x), ptr(pe32), ptr(packed32), ptr(pw_t),
+                  None if m32 is None else ptr(m32), ptr(g), ptr(gx),
+                  ptr(gvec), ptr(gpw), *(ptr(t) for t in scratch), *dims,
+                  chunks, *philox.kernel_args(dropout_rate, seed),
+                  int(x.dtype == torch.bfloat16))
     # gvec per layer: ln_s, ln_b, dw (k), dwb, pwb; then lnf_s, lnf_b
     pieces = []
     for i in (0, 1):
@@ -165,16 +227,55 @@ def encoder_reduce_backward(x, pe, packed, reduce_mask, g, k,
     return gx, torch.cat(pieces)
 
 
+class _EncoderBlock(torch.autograd.Function):
+    """The full-output mode's forward and backward CUDA kernels as one
+    differentiable op over (x, packed parameters)."""
+
+    @staticmethod
+    def forward(ctx, x, pe, packed, zero_mask, k, dropout_rate, seed):
+        packed32, pe32, m32 = _check(x, pe, packed, k, zero_mask=zero_mask)
+        bsz, g, l, d = x.shape
+        out = torch.empty_like(x)
+        BLOCK_KERNEL.launch(x.device, ptr(x), ptr(pe32), ptr(packed32),
+                            None if m32 is None else ptr(m32), ptr(out),
+                            bsz * g, g, l, k,
+                            *philox.kernel_args(dropout_rate, seed),
+                            int(x.dtype == torch.bfloat16))
+        ctx.save_for_backward(x, pe, packed, zero_mask)
+        ctx.cfg = (k, dropout_rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, pe, packed, zero_mask = ctx.saved_tensors
+        gx, gpacked = encoder_block_backward(x, pe, packed, zero_mask, g,
+                                             *ctx.cfg)
+        return gx, None, gpacked, None, None, None, None
+
+
+def _packed(params, k, d):
+    shapes = {"dw0": (k, d), "dw1": (k, d), "pw0": (d, d), "pw1": (d, d)}
+    for key in PARAM_KEYS:
+        if tuple(params[key].shape) != shapes.get(key, (d,)):
+            raise ValueError(f"param {key}: {tuple(params[key].shape)}")
+    return pack_params(params)
+
+
 def encoder_reduce(x, pe, params, k, reduce_mask, dropout_rate=0.0, seed=0):
     """Kernels on CUDA tensors (differentiable through the backward kernel,
     parameters included), plain version on CPU tensors."""
     if not x.is_cuda:
         return encoder_reduce_plain(x, pe, params, k, reduce_mask,
                                     dropout_rate, seed)
-    d = x.shape[-1]
-    shapes = {"dw0": (k, d), "dw1": (k, d), "pw0": (d, d), "pw1": (d, d)}
-    for key in PARAM_KEYS:
-        if tuple(params[key].shape) != shapes.get(key, (d,)):
-            raise ValueError(f"param {key}: {tuple(params[key].shape)}")
-    return _EncoderReduce.apply(x, pe, pack_params(params), reduce_mask, k,
-                                dropout_rate, seed)
+    return _EncoderReduce.apply(x, pe, _packed(params, k, x.shape[-1]),
+                                reduce_mask, k, dropout_rate, seed)
+
+
+def encoder_block(x, pe, params, k, zero_mask=None, dropout_rate=0.0, seed=0):
+    """The full-output mode: kernels on CUDA tensors (differentiable, as
+    ``encoder_reduce``), plain version on CPU tensors."""
+    if not x.is_cuda:
+        return encoder_block_plain(x, pe, params, k, zero_mask, dropout_rate,
+                                   seed)
+    return _EncoderBlock.apply(x, pe, _packed(params, k, x.shape[-1]),
+                               zero_mask, k, dropout_rate, seed)

@@ -1,0 +1,152 @@
+"""Fused MLP bridge, forward and backward (port of
+``tvqaplus_tpu/ops/pallas_bridge.py`` ``fused_mlp_bridge``).
+
+The ``MLPBridge`` recipe of STAGE's ``bert_word_encoding_fc`` (768 -> 300)
+and ``vid_fc`` (300 -> 300): LN -> dropout -> dense Din -> Dout -> ReLU ->
+LN, row by row (reference stage.py:85-113).  The CUDA kernels are
+``csrc/mlp_bridge_fwd.cu`` and ``csrc/mlp_bridge_bwd.cu`` behind one
+``torch.autograd.Function``; ``mlp_bridge_plain`` is the same function in
+plain PyTorch (autograd through it is the plain backward).  Din and Dout are
+run-time widths, multiples of 4.  The dropout acts on the (rows, Din) LN
+output, keyed by (seed, flat index) through Philox (ops/philox.py).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tvqaplus_tpu_torch.ops import philox
+from tvqaplus_tpu_torch.ops._build import (
+    CudaKernel,
+    check_device,
+    ptr,
+    wgrad_chunks,
+)
+from tvqaplus_tpu_torch.ops.plain import as_f32, layer_norm
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U64, _U32, _L = ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_longlong
+KERNEL = CudaKernel("mlp_bridge_fwd.cu", "mlp_bridge_fwd",
+                    [_P] * 8 + [_L, _I, _I, _U64, _U32, _F, _I, _P])
+BWD_KERNEL = CudaKernel("mlp_bridge_bwd.cu", "mlp_bridge_bwd",
+                        [_P] * 15 + [_L, _I, _I, _I, _U64, _U32, _F, _I, _P])
+
+# Kernel vs plain version on the same inputs: float32 differs only in the
+# order of float32 sums (768 terms a product); bf16 output is rounded once
+# (LN outputs are O(1), up to a few units).
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 1e-2)}
+# Backward kernel vs autograd through the plain version: float32 sums over
+# all rows in another order (the parameter grads sum 4e4 rows at the
+# subtitle stream's shape); bf16 rounds gx once and takes the cotangent in
+# bf16.
+GRAD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
+_NAMES = ("gamma_in", "beta_in", "w", "b", "gamma_out", "beta_out")
+# a block keeps 32 rows of round32(Din) + round32(Dout) float32 in shared
+# memory beside a 16 KB weight tile: 227 KB allow 1664 columns
+MAX_WIDTHS = 1664
+
+
+def mlp_bridge_plain(x, gamma_in, beta_in, w, b, gamma_out, beta_out,
+                     dropout_rate=0.0, seed=0):
+    """Plain PyTorch version.  x (..., Din); w (Din, Dout).  Returns
+    (..., Dout) in x's dtype."""
+    y = layer_norm(x, gamma_in, beta_in)
+    if dropout_rate > 0.0:
+        y = y * philox.multiplier(y.shape, seed, dropout_rate, y.device)
+    h = torch.relu(y @ w.float() + b.float())
+    return layer_norm(h, gamma_out, beta_out).to(x.dtype)
+
+
+def _round32(n):
+    return -(-n // 32) * 32
+
+
+def _check(x, params):
+    d_in = x.shape[-1]
+    if x.dtype not in (torch.float32, torch.bfloat16) \
+            or not x.is_contiguous() or x.numel() == 0:
+        raise ValueError(f"x must be non-empty contiguous float32/bfloat16, "
+                         f"got {tuple(x.shape)} {x.dtype}")
+    params = [as_f32(t) for t in params]
+    if params[2].dim() != 2:
+        raise ValueError(f"w must be (Din, Dout), got {tuple(params[2].shape)}")
+    d_out = params[2].shape[1]
+    if d_in % 4 or d_out % 4 or d_in < 4 or d_out < 4 \
+            or _round32(d_in) + _round32(d_out) > MAX_WIDTHS:
+        raise ValueError(f"kernel takes Din and Dout in multiples of 4 with "
+                         f"round32(Din) + round32(Dout) <= {MAX_WIDTHS}; got "
+                         f"{d_in} -> {d_out}")
+    check_device(x.device, **dict(zip(_NAMES, params)))
+    shapes = [(d_in,), (d_in,), (d_in, d_out), (d_out,), (d_out,), (d_out,)]
+    if [tuple(p.shape) for p in params] != shapes:
+        raise ValueError("bridge parameters do not match x and each other")
+    return params, d_in, d_out
+
+
+class _MLPBridge(torch.autograd.Function):
+    """The forward and backward CUDA kernels as one differentiable op."""
+
+    @staticmethod
+    def forward(ctx, x, gamma_in, beta_in, w, b, gamma_out, beta_out,
+                dropout_rate, seed):
+        params, d_in, d_out = _check(
+            x, (gamma_in, beta_in, w, b, gamma_out, beta_out))
+        out = torch.empty(x.shape[:-1] + (d_out,), dtype=x.dtype,
+                          device=x.device)
+        KERNEL.launch(x.device, ptr(x), *(ptr(p) for p in params), ptr(out),
+                      x.numel() // d_in, d_in, d_out,
+                      *philox.kernel_args(dropout_rate, seed),
+                      int(x.dtype == torch.bfloat16))
+        ctx.save_for_backward(x, gamma_in, beta_in, w, b, gamma_out, beta_out)
+        ctx.cfg = (dropout_rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        return mlp_bridge_backward(x, *params, g, *ctx.cfg) + (None, None)
+
+
+def mlp_bridge_backward(x, gamma_in, beta_in, w, b, gamma_out, beta_out, g,
+                        dropout_rate=0.0, seed=0):
+    """Launch the backward kernel (CUDA tensors only).  Returns the gradient
+    of x in its dtype and of the six parameters in float32."""
+    (gin, bin_, w32, b32, gout, _), d_in, d_out = _check(
+        x, (gamma_in, beta_in, w, b, gamma_out, beta_out))
+    rows = x.numel() // d_in
+    g = g.to(x.dtype).contiguous()
+    if g.shape != x.shape[:-1] + (d_out,):
+        raise ValueError("cotangent does not match the output")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    nv = 2 * d_in + 3 * d_out
+    # one block of the weight-gradient pass per 64 x 128 tile of (Din, Dout)
+    # and row chunk
+    chunks = wgrad_chunks(rows, 64 * -(-d_in // 64) * -(-d_out // 128))
+    gx = torch.empty_like(x)
+    gvec = torch.empty(nv, **f32)
+    gw = torch.empty(d_in, d_out, **f32)
+    scratch = [torch.empty(rows, d_in, **f32), torch.empty(rows, d_out, **f32),
+               torch.empty(-(-rows // 32), nv, **f32),
+               torch.empty(chunks, d_in, d_out, **f32)]
+    BWD_KERNEL.launch(x.device, ptr(x), ptr(gin), ptr(bin_), ptr(w32),
+                      ptr(as_f32(w32.t())), ptr(b32), ptr(gout), ptr(g),
+                      ptr(gx), ptr(gvec), ptr(gw),
+                      *(ptr(t) for t in scratch), rows, d_in, d_out, chunks,
+                      *philox.kernel_args(dropout_rate, seed),
+                      int(x.dtype == torch.bfloat16))
+    return (gx, gvec[:d_in], gvec[d_in:2 * d_in], gw,
+            gvec[2 * d_in:2 * d_in + d_out],
+            gvec[2 * d_in + d_out:2 * d_in + 2 * d_out],
+            gvec[2 * d_in + 2 * d_out:])
+
+
+def mlp_bridge(x, gamma_in, beta_in, w, b, gamma_out, beta_out,
+               dropout_rate=0.0, seed=0):
+    """Kernels on CUDA tensors (differentiable through the backward
+    kernel), plain version on CPU tensors."""
+    if not x.is_cuda:
+        return mlp_bridge_plain(x, gamma_in, beta_in, w, b, gamma_out,
+                                beta_out, dropout_rate, seed)
+    return _MLPBridge.apply(x, gamma_in, beta_in, w, b, gamma_out, beta_out,
+                            dropout_rate, seed)
