@@ -255,13 +255,13 @@ def test_grad_error_bar():
 
 
 def test_flip_rows_mark_relu_inputs_near_zero():
-    """ops/checks.py marks a row iff one of its ReLU inputs (from the plain
-    version) lies within eps of 0; a bias that zeroes one input of row 0
-    marks row 0."""
+    """ops/checks.py marks an attention output iff its ReLU input (from the
+    plain version) lies within eps of 0, and a tri-bridge row iff one of its
+    ReLU inputs does; a bias that zeroes one input of row 0 marks row 0."""
     args = [torch.from_numpy(np.array(a)) for a in attn_inputs(seed=6)]
-    shape = args[0].shape[:2] + (args[2].shape[1], args[0].shape[2])
-    assert checks.attention_flip_rows(*args, eps=1e9).all()
-    none = checks.attention_flip_rows(*args, eps=0.0)
+    shape = args[0].shape[:2] + (args[2].shape[1],) + args[0].shape[2:]
+    assert checks.attention_flip_elements(*args, eps=1e9).all()
+    none = checks.attention_flip_elements(*args, eps=0.0)
     assert none.shape == shape and not none.any()
     s, v, gin, bin_, w, b, _, _ = (torch.from_numpy(np.array(a))
                                    for a in bridge_inputs(seed=5))

@@ -42,6 +42,10 @@ def close(got, want, tol):
                                atol=tol[0], rtol=tol[1])
 
 
+# Dropout rate and Philox seed of the training-path checks.
+P_DROP, SEED = 0.1, 12345
+
+
 def attn_args(dev, dt, b=2, a=5, li=4, lqa=40, lr=25):
     gen = torch.Generator().manual_seed(0)
     ce = randn(gen, b, a, lqa, D).to(dev, dt)
@@ -57,23 +61,36 @@ def attn_args(dev, dt, b=2, a=5, li=4, lqa=40, lr=25):
         t.to(dev) for t in [c_mask, q_mask] + params]
 
 
+# (raw_mode, Lr, A, Lqa): Lr below, at and above the 32-wide tile and at the
+# 64 limit; M = A * Lqa = 200 (three 64-row tiles and 8 rows) and 39 (not a
+# multiple of 16)
+ATT_CASES = [("full", 25, 5, 40), ("none", 50, 5, 40), ("full", 64, 5, 40),
+             ("target", 7, 3, 13), ("none", 25, 3, 13), ("target", 50, 5, 40)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("raw_mode,lr", [("full", 25), ("none", 50),
-                                         ("full", 64)])
-def test_qa_ctx_attention_kernel_matches_plain(cuda, dtype, raw_mode, lr):
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+@pytest.mark.parametrize("raw_mode,lr,a,lqa", ATT_CASES)
+def test_qa_ctx_attention_kernel_matches_plain(cuda, dtype, dropout,
+                                               raw_mode, lr, a, lqa):
     dt = getattr(torch, dtype)
-    args = attn_args(cuda, dt, lr=lr)
-    got = qa_ctx_attention.qa_ctx_attention(*args, raw_mode=raw_mode)
-    want = qa_ctx_attention.qa_ctx_attention_plain(*args, raw_mode=raw_mode)
+    args = attn_args(cuda, dt, a=a, lqa=lqa, lr=lr)
+    kw = dict(raw_mode=raw_mode, dropout_rate=dropout, seed=SEED,
+              targets=torch.tensor([2, 0], device=cuda))
+    launches = qa_ctx_attention.KERNEL.launches
+    got = qa_ctx_attention.qa_ctx_attention(*args, **kw)
+    want = qa_ctx_attention.qa_ctx_attention_plain(*args, **kw)
     torch.cuda.synchronize()
     tol = qa_ctx_attention.TOL[dt]
-    assert qa_ctx_attention.KERNEL.launches > 0
+    assert qa_ctx_attention.KERNEL.launches == launches + 1
     if raw_mode == "none":
         assert got.dtype == dt
+        assert torch.isfinite(got.float()).all()
         close(got, want, tol["mixed"])
     else:
         assert got[0].dtype == dt and got[1].dtype == torch.float32
+        assert torch.isfinite(got[0].float()).all()
         close(got[0], want[0], tol["mixed"])
         close(got[1], want[1], tol["raw"])
 
@@ -91,6 +108,17 @@ def test_qa_ctx_attention_kernel_rejects_what_it_does_not_take(cuda):
     args[4] = args[4].cpu()          # a mask left on the host
     with pytest.raises(ValueError):
         qa_ctx_attention.qa_ctx_attention(*args)
+    for dt in (torch.float32, torch.bfloat16):
+        args = attn_args(cuda, dt)
+        args[0] = args[0].transpose(1, 2)    # not contiguous
+        with pytest.raises(ValueError):
+            qa_ctx_attention.qa_ctx_attention(*args)
+        args = attn_args(cuda, dt)
+        wide = [torch.cat([t, t], -1) for t in args[:4]]     # D = 256
+        with pytest.raises(ValueError):
+            qa_ctx_attention.qa_ctx_attention(*wide, *args[4:])
+        with pytest.raises(ValueError):      # Lr > 64
+            qa_ctx_attention.qa_ctx_attention(*attn_args(cuda, dt, lr=65))
 
 
 @pytest.mark.cuda
@@ -142,8 +170,6 @@ def test_encoder_kernel_matches_plain(cuda, dtype, l, k):
 
 
 # ------------------------------------------------------------------ training
-# Dropout rate and Philox seed of the training-path checks.
-P_DROP, SEED = 0.1, 12345
 
 
 def leaves(tensors):
@@ -165,51 +191,60 @@ ATT_GRAD_INPUTS = (0, 1, 2, 3, 6, 7, 8, 9)     # cn ce qn qe gamma beta w b
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("raw_mode", ["none", "target"])
-def test_qa_ctx_attention_training_kernels_match_plain(cuda, dtype,
-                                                       raw_mode):
-    """Forward with in-kernel dropout and the backward kernel against the
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("raw_mode,lr,a,lqa", ATT_CASES)
+def test_qa_ctx_attention_training_kernels_match_plain(cuda, dtype, dropout,
+                                                       raw_mode, lr, a, lqa):
+    """Forward (with in-kernel dropout) and the backward kernel against the
     plain version (autograd, the same Philox mask) on the same inputs and
-    cotangents."""
+    cotangents, and the backward again for the same bits."""
     dt = getattr(torch, dtype)
-    args = attn_args(cuda, dt, lr=25)
-    targets = torch.tensor([3, 0], device=cuda)
-    kw = dict(raw_mode=raw_mode, targets=targets, dropout_rate=P_DROP,
+    li = 4
+    args = attn_args(cuda, dt, a=a, li=li, lqa=lqa, lr=lr)
+    targets = torch.tensor([2, 0], device=cuda)
+    kw = dict(raw_mode=raw_mode, targets=targets, dropout_rate=dropout,
               seed=SEED)
     gen = torch.Generator().manual_seed(4)
-    # no cotangent on a row whose ReLU sign rounding could flip
+    # no cotangent on an output whose ReLU sign rounding could flip
     # (ops/checks.py), nor on a masked raw score
-    flip = checks.attention_flip_rows(*args, dropout_rate=P_DROP, seed=SEED)
-    gm = randn(gen, 2, 5, 4, 40, D).to(cuda) * (~flip)[..., None]
-    c_t = args[4][torch.arange(2, device=cuda), targets]        # (B, Lqa)
-    live = c_t[:, None, :, None] * args[5][:, :, None, :]
-    cot = [gm] + ([randn(gen, 2, 4, 40, 25).to(cuda) * live]
-                  if raw_mode == "target" else [])
+    flip = checks.attention_flip_elements(*args, dropout_rate=dropout,
+                                          seed=SEED)
+    gm = randn(gen, 2, a, li, lqa, D).to(cuda) * ~flip
+    cot = [gm]
+    if raw_mode == "target":
+        c_t = args[4][torch.arange(2, device=cuda), targets]    # (B, Lqa)
+        live = c_t[:, None, :, None] * args[5][:, :, None, :]
+        cot.append(randn(gen, 2, li, lqa, lr).to(cuda) * live)
+    elif raw_mode == "full":
+        live = args[4][:, :, None, :, None] * args[5][:, None, :, None, :]
+        cot.append(randn(gen, 2, a, li, lqa, lr).to(cuda) * live)
     fwd0, bwd0 = (qa_ctx_attention.KERNEL.launches,
                   qa_ctx_attention.BWD_KERNEL.launches)
 
-    def kernel(*a):
-        return qa_ctx_attention.qa_ctx_attention(*a, **kw)
+    def kernel(*a_):
+        return qa_ctx_attention.qa_ctx_attention(*a_, **kw)
 
-    def plain(*a):
-        return qa_ctx_attention.qa_ctx_attention_plain(*a, **kw)
-    ins_k = leaves(args)
-    ins_k[4].requires_grad_(False)
-    ins_k[5].requires_grad_(False)
-    ins_p = leaves(args)
-    ins_p[4].requires_grad_(False)
-    ins_p[5].requires_grad_(False)
-    out_k, g_k = grads_of(kernel, ins_k, cot)
-    out_p, g_p = grads_of(plain, ins_p, cot)
+    def plain(*a_):
+        return qa_ctx_attention.qa_ctx_attention_plain(*a_, **kw)
+
+    def run(fn):
+        ins = leaves(args)
+        ins[4].requires_grad_(False)
+        ins[5].requires_grad_(False)
+        return (ins,) + grads_of(fn, ins, cot)
+    ins_k, out_k, g_k = run(kernel)
+    _, _, g_again = run(kernel)
+    _, out_p, g_p = run(plain)
     torch.cuda.synchronize()
-    assert qa_ctx_attention.KERNEL.launches == fwd0 + 1
-    assert qa_ctx_attention.BWD_KERNEL.launches == bwd0 + 1
+    assert qa_ctx_attention.KERNEL.launches == fwd0 + 2
+    assert qa_ctx_attention.BWD_KERNEL.launches == bwd0 + 2
     tol = qa_ctx_attention.TOL[dt]
     close(out_k[0], out_p[0], tol["mixed"])
-    if raw_mode == "target":
+    if raw_mode != "none":
         close(out_k[1], out_p[1], tol["raw"])
-    for i, gk, gp in zip(ATT_GRAD_INPUTS, g_k, g_p):
+    for i, gk, ga, gp in zip(ATT_GRAD_INPUTS, g_k, g_again, g_p):
         assert gk.dtype == ins_k[i].dtype
+        assert torch.equal(gk, ga), f"grad {i} differs between two runs"
         checks.grad_close(f"grad {i}", gk, gp, qa_ctx_attention.GRAD_TOL[dt])
     # the fully masked frame (1, 2) gets no qn gradient
     assert (g_k[2][1, 2] == 0).all()

@@ -24,6 +24,22 @@ struct Philox4 {
   uint32_t x, y, z, w;
 };
 
+constexpr uint32_t PHILOX_W0 = 0x9E3779B9u, PHILOX_W1 = 0xBB67AE85u;
+
+// One round on the counter words (c0..c3) with the round's key (k0, k1);
+// the caller bumps the key by (PHILOX_W0, PHILOX_W1) between rounds.
+__device__ __forceinline__ void philox_round(uint32_t& c0, uint32_t& c1,
+                                             uint32_t& c2, uint32_t& c3,
+                                             uint32_t k0, uint32_t k1) {
+  const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
+  const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
+  const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
+  c0 = n0;
+  c1 = lo1;
+  c2 = n2;
+  c3 = lo0;
+}
+
 __device__ __forceinline__ Philox4 philox4x32_10(uint64_t ctr,
                                                  uint64_t seed) {
   uint32_t c0 = static_cast<uint32_t>(ctr), c1 = static_cast<uint32_t>(
@@ -33,15 +49,9 @@ __device__ __forceinline__ Philox4 philox4x32_10(uint64_t ctr,
            k1 = static_cast<uint32_t>(seed >> 32);
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
-    const uint32_t lo0 = 0xD2511F53u * c0, hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo1 = 0xCD9E8D57u * c2, hi1 = __umulhi(0xCD9E8D57u, c2);
-    const uint32_t n0 = hi1 ^ c1 ^ k0, n2 = hi0 ^ c3 ^ k1;
-    c0 = n0;
-    c1 = lo1;
-    c2 = n2;
-    c3 = lo0;
-    k0 += 0x9E3779B9u;
-    k1 += 0xBB67AE85u;
+    philox_round(c0, c1, c2, c3, k0, k1);
+    k0 += PHILOX_W0;
+    k1 += PHILOX_W1;
   }
   return {c0, c1, c2, c3};
 }

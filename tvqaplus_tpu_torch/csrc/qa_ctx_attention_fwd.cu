@@ -20,18 +20,32 @@
 // What bounds it on the H100: at the headline eval the call moves ~69 MB
 // (vid, raw full) or ~63 MB (sub) and does ~18-20 GFLOP, 80% of it the
 // projection (2 * M * 3D * D per frame); at the card's peaks (3.35 TB/s,
-// 989 TF/s bf16) that is ~20 us either way.  Done on the float32 CUDA
-// cores, as here, the operations bound it by far.
-// Design: one block per (b, i).  The frame's qn and qe tiles (stride D+1, so
-// lanes that index regions hit distinct banks) stay in shared memory as
-// float32 while the block walks the M rows in tiles of 32: each warp owns 4
-// rows through scores, softmax, att and the LayerNorm, then the whole block
-// multiplies the tile's 32 x 3D LN output by W.  W (3D x D float32,
-// 196 KB) does not fit beside the tiles, so it is read through L2 and
-// staged 32 rows (16 KB) at a time into shared memory, where every warp
-// reads it conflict-free; float32 keeps the exactness check tight.  The
-// CUDA cores do the products (no tensor cores yet): the first version is
-// simple and right, and wgmma is the next step.
+// 989 TF/s bf16) that is ~20 us either way.  The tensor-core kernel below is
+// bound by neither: the softmax, LayerNorm and Philox passes between the
+// products run on 8 warps an SM (255 registers a thread), at a fraction of
+// the scheduler rate.
+//
+// Two instantiations, one block per (b, i) each, the frame's qn / qe tiles
+// resident in shared memory.
+// * bfloat16 (qa_ctx_fwd_tc_kernel, what the main paths run): every product
+//   is a wgmma on bf16 operands with float32 sums (wgmma.cuh), rounding
+//   where the TPU kernel's bf16 compute mode rounds: p before p qe, the
+//   dropped LN output and W before the projection.  W (bf16, 96 KB) is
+//   loaded into shared memory ONCE per block and read N-contiguous as it
+//   lies.  Each of the two warpgroups walks every second 64-row tile of the
+//   frame's M rows on its own (named barriers, no block-wide sync in the
+//   loop), so one's tensor-core phases overlap the other's register phases:
+//   scores (A = the cn tile, B = qn) land in registers in the accumulator
+//   layout, where softmax and masks run; p goes back into the tensor cores
+//   FROM REGISTERS (p qe); the LayerNorm, the Philox dropout (two lanes
+//   share each 4-wide draw through one shuffle) and the bf16 rounding run on
+//   the att accumulator; the 64 x 3D tile is stored swizzled (48 KB, over
+//   the cn tile) for the projection.  Shared memory: 231,168 bytes.  M = 200
+//   pads to four tiles (22% of the products idle; rows of several frames do
+//   not share a tile because the scores are per frame).
+// * float32 (qa_ctx_fwd_kernel): the exactness check (1e-4 bars).  CUDA
+//   cores, 32-row tiles, each warp 4 rows, W (196 KB in float32) staged
+//   from L2 32 rows at a time for every tile.
 #include "philox.cuh"
 #include "qa_ctx_attention.cuh"
 
@@ -196,11 +210,199 @@ int launch(const void* cn, const void* ce, const void* qn, const void* qe,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- the bfloat16 instantiation: tensor cores ------------------------------
+
+constexpr int YD_BYTES = 6 * TILE_PANEL;             // 64 x 3D bf16
+constexpr int TC_SMEM = W_BYTES + 2 * TILE_BYTES + 2 * YD_BYTES
+                        + (TM + D) * 4 + tc::ATOM_BYTES;
+
+// One block per (b, frame i), two warpgroups; each warpgroup walks every
+// second 64-row tile of the frame's M rows on its own.
+template <int LRP>
+__global__ void __launch_bounds__(NTHREADS, 1)
+qa_ctx_fwd_tc_kernel(const __nv_bfloat16* __restrict__ cn,
+                     const __nv_bfloat16* __restrict__ ce,
+                     const __nv_bfloat16* __restrict__ qn,
+                     const __nv_bfloat16* __restrict__ qe,
+                     const float* __restrict__ cmask,
+                     const float* __restrict__ qmask,
+                     const float* __restrict__ gamma,
+                     const float* __restrict__ beta,
+                     const __nv_bfloat16* __restrict__ W,
+                     const float* __restrict__ bias,
+                     const int* __restrict__ targets,
+                     __nv_bfloat16* __restrict__ mixed,
+                     float* __restrict__ raw, int A, int Lqa, int Li, int Lr,
+                     float scale, Dropout drop) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* w_s = align_smem(smem_raw);
+  uint8_t* qn_s = w_s + W_BYTES;
+  uint8_t* qe_s = qn_s + TILE_BYTES;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31;
+  // the warpgroup's LN-output tile; its first two panels hold cn before
+  uint8_t* yd_s = qe_s + TILE_BYTES + wg * YD_BYTES;
+  float* qm_s = reinterpret_cast<float*>(qe_s + TILE_BYTES + 2 * YD_BYTES);
+  float* bias_s = qm_s + TM;
+
+  const int i = blockIdx.x, b = blockIdx.y;
+  const int M = A * Lqa;
+  const int target = targets != nullptr ? targets[b] : -1;
+  const size_t fbase = (static_cast<size_t>(b) * Li + i) * Lr;
+  if (tid < D) bias_s[tid] = bias[tid];
+  tc_load_frame(w_s, qn_s, qe_s, qm_s, W, qn, qe, qmask, fbase, Lr);
+
+  const int rl = 16 * warp + (lane >> 2);             // first of two rows
+  for (int m0 = wg * TM; m0 < M; m0 += 2 * TM) {
+    // ---- the tile's cn rows, then scores and softmax in registers -------
+    tc::bar_sync(1 + wg, 128);         // the previous tile's reads are done
+    tc_load_rows(yd_s, TM, cn + (static_cast<size_t>(b) * M + m0) * D, D,
+                 min(TM, M - m0), t, 128);
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+    tc::fence_async_smem();
+    tc::bar_sync(1 + wg, 128);
+    float s[LRP / 2], p0[LRP / 2];
+    tc_scores<LRP>(s, tc::smem_u32(yd_s), tc::smem_u32(qn_s));
+    int m[2];
+    bool live[2];
+    float cm[2];
+    size_t mrow[2];                    // flat row of mixed / the LN output
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = m0 + rl + 8 * h;
+      live[h] = m[h] < M;
+      cm[h] = live[h] ? cmask[static_cast<size_t>(b) * M + m[h]] : 0.f;
+      mrow[h] = mixed_row(b, live[h] ? m[h] : 0, i, A, Lqa, Li);
+    }
+    tc_softmax<LRP>(s, p0, cm, qm_s, Lr, scale, lane);
+    if (raw != nullptr) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int a = m[h] / Lqa, w = m[h] % Lqa;
+        if (!live[h] || (targets != nullptr && a != target)) continue;
+        float* rr = targets == nullptr
+            ? raw + mrow[h] * Lr
+            : raw + ((static_cast<size_t>(b) * Li + i) * Lqa + w) * Lr;
+#pragma unroll
+        for (int k = h * 2; k < LRP / 2; k += 4)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = acc_col(k + e, lane);
+            if (j < Lr) rr[j] = s[k + e];
+          }
+      }
+    }
+    float att[64];
+    tc_att<LRP, 2>(att, p0, cm, qm_s, tc::smem_u32(qe_s), lane);
+
+    // ---- LayerNorm over [ce; att; ce * att], dropout, bf16 tile ---------
+    // value pair pr = 2 q + h: row half h, columns 8 q + 2 (lane % 4) + {0, 1}
+    uint32_t cev[32];
+    float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
+#pragma unroll
+    for (int pr = 0; pr < 32; ++pr) {
+      const int h = pr & 1, c = 8 * (pr >> 1) + 2 * (lane & 3);
+      cev[pr] = live[h]
+          ? __ldg(reinterpret_cast<const unsigned int*>(
+                ce + (static_cast<size_t>(b) * M + m[h]) * D + c))
+          : 0u;
+      const float2 c2 = tc::unpack_bf16(cev[pr]);
+      const float a0 = att[2 * pr], a1 = att[2 * pr + 1];
+      const float x0 = c2.x * a0, x1 = c2.y * a1;
+      sum[h] += (c2.x + c2.y) + (a0 + a1) + (x0 + x1);
+      sq[h] += fmaf(c2.x, c2.x, c2.y * c2.y) + fmaf(a0, a0, a1 * a1)
+               + fmaf(x0, x0, x1 * x1);
+    }
+    float mean[2], istd[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mean[h] = quad_sum(sum[h]) * (1.f / (3 * D));
+      istd[h] = rsqrtf(quad_sum(sq[h]) * (1.f / (3 * D)) - mean[h] * mean[h]
+                       + LN_EPS);
+    }
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      uint32_t kw[2][2] = {{~0u, ~0u}, {~0u, ~0u}};
+      if (drop.on())
+        tc_keep_bits<16, false>(
+            drop, ((lane & 1) ? mrow[1] : mrow[0]) * (3 * D) + g * D, lane,
+            kw);
+#pragma unroll
+      for (int pr = 0; pr < 32; ++pr) {
+        const int h = pr & 1, q = pr >> 1, c = 8 * q + 2 * (lane & 3);
+        const float2 c2 = tc::unpack_bf16(cev[pr]);
+        const float a0 = att[2 * pr], a1 = att[2 * pr + 1];
+        const float x0 = g == 0 ? c2.x : (g == 1 ? a0 : c2.x * a0);
+        const float x1 = g == 0 ? c2.y : (g == 1 ? a1 : c2.y * a1);
+        const float2 ga = __ldg(reinterpret_cast<const float2*>(
+            gamma + g * D + c));
+        const float2 be = __ldg(reinterpret_cast<const float2*>(
+            beta + g * D + c));
+        float y0 = (x0 - mean[h]) * istd[h] * ga.x + be.x;
+        float y1 = (x1 - mean[h]) * istd[h] * ga.y + be.y;
+        if (drop.on()) {
+          const uint32_t bits = kw[h][q >> 3] >> (4 * (q & 7));
+          y0 *= (bits & 1u) ? drop.scale : 0.f;
+          y1 *= (bits & 2u) ? drop.scale : 0.f;
+        }
+        *reinterpret_cast<uint32_t*>(
+            yd_s + (2 * g + (c >> 6)) * TILE_PANEL
+            + tc::swz(rl + 8 * h, c & 63)) = tc::pack_bf16(y0, y1);
+      }
+    }
+    tc::fence_async_smem();
+    tc::bar_sync(1 + wg, 128);
+    // ---- the projection: (64 x 3D) . W (3D x D), W read N-contiguous ------
+    float acc[64];
+    tc::fence();
+#pragma unroll
+    for (int ks = 0; ks < 3 * D / 16; ++ks)
+      tc::mma_ss<128, 0, 1>(
+          acc,
+          tc::make_desc(tc::smem_u32(yd_s) + (ks / 4) * TILE_PANEL
+                            + (ks % 4) * 32, 16),
+          tc::make_desc(tc::smem_u32(w_s) + ks * 2 * tc::ATOM_BYTES,
+                        W_PANEL),
+          ks > 0);
+    tc::commit();
+    tc::wait_all();
+#pragma unroll
+    for (int pr = 0; pr < 32; ++pr) {
+      const int h = pr & 1, c = 8 * (pr >> 1) + 2 * (lane & 3);
+      if (!live[h]) continue;
+      const float2 bv = *reinterpret_cast<const float2*>(bias_s + c);
+      *reinterpret_cast<uint32_t*>(mixed + mrow[h] * D + c) =
+          tc::pack_bf16(fmaxf(acc[2 * pr] + bv.x, 0.f),
+                        fmaxf(acc[2 * pr + 1] + bv.y, 0.f));
+    }
+  }
+}
+
+template <int LRP>
+int launch_tc(const void* cn, const void* ce, const void* qn, const void* qe,
+              const float* cmask, const float* qmask, const float* gamma,
+              const float* beta, const void* W, const float* bias,
+              const int* targets, void* mixed, float* raw, int B, int A,
+              int Lqa, int Li, int Lr, float scale, Dropout drop,
+              cudaStream_t stream) {
+  auto h = [](const void* p) { return static_cast<const __nv_bfloat16*>(p); };
+  cudaError_t err = allow_smem(qa_ctx_fwd_tc_kernel<LRP>, TC_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  qa_ctx_fwd_tc_kernel<LRP><<<dim3(Li, B), NTHREADS, TC_SMEM, stream>>>(
+      h(cn), h(ce), h(qn), h(qe), cmask, qmask, gamma, beta, h(W), bias,
+      targets, static_cast<__nv_bfloat16*>(mixed), raw, A, Lqa, Li, Lr, scale,
+      drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // cn, ce: (B, A, Lqa, D); qn, qe: (B, Li, Lr, D), all of one type (bf16
-// when is_bf16, else float32); masks, gamma/beta (3D), W (3D, D), bias (D)
-// float32; mixed (B, A, Li, Lqa, D) in the activation type; raw float32:
+// when is_bf16, else float32); masks, gamma/beta (3D), bias (D) float32;
+// W (3D, D) float32, or bfloat16 when is_bf16; mixed (B, A, Li, Lqa, D) in
+// the activation type; raw float32:
 // (B, A, Li, Lqa, Lr) when targets is NULL, else (B, Li, Lqa, Lr) at
 // targets[b] (int32, B); raw NULL writes none.  Lr <= 64.  Dropout on the
 // LN output when drop_threshold > 0 (philox.cuh).
@@ -215,11 +417,17 @@ extern "C" int qa_ctx_attention_fwd(
   auto s = static_cast<cudaStream_t>(stream);
   const Dropout drop{drop_seed, drop_threshold, drop_scale};
   const int* tg = static_cast<const int*>(targets);
+  if (Lr > TM) return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16 && Lr <= 32)
+    return launch_tc<32>(cn, ce, qn, qe, f(cmask), f(qmask), f(gamma),
+                         f(beta), W, f(bias), tg, mixed,
+                         static_cast<float*>(raw), B, A, Lqa, Li, Lr, scale,
+                         drop, s);
   if (is_bf16)
-    return launch<__nv_bfloat16>(cn, ce, qn, qe, f(cmask), f(qmask),
-                                 f(gamma), f(beta), f(W), f(bias), tg, mixed,
-                                 static_cast<float*>(raw), B, A, Lqa, Li, Lr,
-                                 scale, drop, s);
+    return launch_tc<64>(cn, ce, qn, qe, f(cmask), f(qmask), f(gamma),
+                         f(beta), W, f(bias), tg, mixed,
+                         static_cast<float*>(raw), B, A, Lqa, Li, Lr, scale,
+                         drop, s);
   return launch<float>(cn, ce, qn, qe, f(cmask), f(qmask), f(gamma), f(beta),
                        f(W), f(bias), tg, mixed, static_cast<float*>(raw), B,
                        A, Lqa, Li, Lr, scale, drop, s);

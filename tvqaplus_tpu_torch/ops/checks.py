@@ -6,10 +6,12 @@ encoder, which positions tie for a channel's masked maximum.  Where such a
 value lies within float32 rounding of its threshold the two sides may
 decide differently, and the whole row's gradient then differs by O(1)
 (about one ReLU input in 10^6 at the headline shapes).  The checks zero the
-cotangent of every row (attention, tri bridge) or sequence (encoder) whose
-decision margin is below ``eps``, well above the rounding level, so that
-no compared gradient depends on a decision that rounding can flip; every
-other element is held to the bar of ``grad_close``.
+cotangent wherever a decision margin is below ``eps``, well above the
+rounding level, so that no compared gradient depends on a decision that
+rounding can flip; every other element is held to the bar of ``grad_close``.
+Where the ReLU is the op's last step (attention) only that output's
+cotangent goes; where more follows it (tri bridge: a LayerNorm over the row;
+encoder: the next layer and the max) the whole row or sequence goes.
 """
 from __future__ import annotations
 
@@ -26,6 +28,13 @@ from tvqaplus_tpu_torch.ops.qa_ctx_attention import qa_ctx_attention_plain
 # sequences fall inside it at the headline shapes.
 ROW_EPS = 1e-4
 SEQ_EPS = 1e-5
+# The bf16 attention kernels and their plain version round the softmax and
+# the LN output to bfloat16 before a product.  A float32 difference in the
+# last place moves such a rounding by a bf16 step (2**-8 relative) in about
+# one value in 10^4; a moved softmax weight shifts the row's att by up to
+# ~4e-3 and its ReLU inputs by ~3e-3 (measured up to 4.9e-3): the margin
+# follows.  About 0.4% of the outputs fall inside it.
+BF16_EPS = 5e-3
 
 
 def grad_error(got, want, tol):
@@ -47,18 +56,23 @@ def grad_close(name, got, want, tol):
     return err
 
 
-def attention_flip_rows(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b,
-                        scale=10.0, dropout_rate=0.0, seed=0, eps=ROW_EPS):
-    """(B, A, Li, Lqa) bool: rows of ``mixed`` with a ReLU input within
-    ``eps`` of 0 (relu(x) - relu(-x) = x, both from the plain version)."""
-    f = [t.float() for t in (cn, ce, qn, qe)]
+def attention_flip_elements(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w,
+                            b, scale=10.0, dropout_rate=0.0, seed=0,
+                            eps=None):
+    """(B, A, Li, Lqa, D) bool: outputs of ``mixed`` whose ReLU input lies
+    within ``eps`` of 0 (relu(x) - relu(-x) = x, both from the plain
+    version).  bfloat16 activations go through the plain version's bf16
+    rounding sites and take ``BF16_EPS``; float32 ones take ``ROW_EPS``."""
+    f = [cn, ce, qn, qe]
+    if eps is None:
+        eps = BF16_EPS if cn.dtype == torch.bfloat16 else ROW_EPS
     kw = dict(scale=scale, raw_mode="none", dropout_rate=dropout_rate,
               seed=seed)
     pre = (qa_ctx_attention_plain(*f, c_mask, q_mask, gamma, beta, w, b,
                                   **kw)
            - qa_ctx_attention_plain(*f, c_mask, q_mask, gamma, beta, -w, -b,
                                     **kw))
-    return (pre.abs() < eps).any(-1)
+    return pre.float().abs() < eps
 
 
 def tri_bridge_flip_rows(s, v, gamma_in, beta_in, w, b, dropout_rate=0.0,

@@ -13,6 +13,13 @@ backward.
 The projection dropout acts on the (B*A*Li*Lqa, 3D) LN output, keyed by
 (seed, flat index) through Philox (ops/philox.py), so the kernels and the
 plain version draw the same mask.
+
+Two compute modes, chosen by the activations' type.  float32: exact, the
+CUDA-core kernels.  bfloat16 (what the entry points run on the card): every
+product takes bf16 operands with float32 sums, as the TPU kernel's bf16
+compute mode does (pallas_attention.py:107-162, :323-379): the kernels run
+them on the tensor cores, and the plain version rounds at the same sites
+(``_plain_bf16``), so the two differ by the order of float32 sums only.
 """
 from __future__ import annotations
 
@@ -35,23 +42,92 @@ _U64, _U32 = ctypes.c_ulonglong, ctypes.c_uint
 KERNEL = CudaKernel("qa_ctx_attention_fwd.cu", "qa_ctx_attention_fwd",
                     [_P] * 13 + [_I] * 5 + [_F, _U64, _U32, _F, _I, _P])
 BWD_KERNEL = CudaKernel("qa_ctx_attention_bwd.cu", "qa_ctx_attention_bwd",
-                        [_P] * 25 + [_I] * 5 + [_F, _U64, _U32, _F, _I, _I,
+                        [_P] * 28 + [_I] * 5 + [_F, _U64, _U32, _F, _I, _I,
                                                 _P])
+# row chunks (scratch slots) of the bf16 weight-gradient kernel: 3 blocks a
+# chunk, two blocks an SM on the H100's 132
+TC_WGRAD_CHUNKS = 88
 
 # Kernel vs plain version on the same inputs.  float32: only the order of
-# the float32 sums differs.  bfloat16 activations (compared against the
-# plain version on the same bf16 values in float32): ``mixed`` is rounded
-# to bf16 once on output (relative step 2**-8); ``raw`` stays float32.
+# the float32 sums differs.  bfloat16: the kernels (tensor cores) and the
+# plain version round the same operands to bf16 and sum in float32, so
+# ``mixed`` differs by the order of those sums (~1e-6), by an operand that
+# such a difference moves across a bf16 rounding boundary (a moved softmax
+# weight shifts a ReLU input by up to 4.9e-3 in 40M measured outputs: the
+# absolute term allows twice that) and then by the output's own rounding,
+# one bf16 step (2**-8 of the value, measured 0.0156-0.031 at the headline
+# shapes: the relative term allows two); ``raw`` stays float32 and its
+# bf16 x bf16 products are exact (measured 1.5e-7).
 TOL = {torch.float32: dict(mixed=(1e-4, 1e-4), raw=(1e-4, 1e-4)),
-       torch.bfloat16: dict(mixed=(2e-2, 1e-2), raw=(1e-4, 1e-4))}
+       torch.bfloat16: dict(mixed=(1e-2, 2.0 ** -7), raw=(1e-4, 1e-4))}
 # Backward kernel vs autograd through the plain version, same inputs and
 # cotangents.  float32: sums over up to A*Lqa rows and Li frames in another
-# order, relative to the largest gradient.  bfloat16: the activation
-# gradients are rounded to bf16 once (relative step 2**-8) and the
-# cotangent g_mixed enters as bf16 on both sides.
-GRAD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
+# order, relative to the largest gradient.  bfloat16: both sides round the
+# same operands (cotangents included, ``_Bf16Dot``); a gradient differs by
+# moved roundings inside sums of up to 160,000 rows and by its own output
+# rounding, measured up to 1.2e-2 of the largest entry (two bf16 steps of an
+# activation gradient near its maximum): 1e-2 of the largest entry plus four
+# bf16 steps of the entry itself.
+GRAD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (1e-2, 2.0 ** -6)}
 RAW_MODES = ("full", "none", "target")
 MAX_REGIONS = 64
+
+
+class _Bf16Dot(torch.autograd.Function):
+    """``a @ b`` (broadcast over leading dims) as the bf16 tensor-core
+    kernels and the TPU kernel's bf16 compute mode take a product: both
+    operands rounded to bfloat16, float32 sums; the backward's two products
+    round their operands (cotangent included) the same way
+    (pallas_attention.py:323-379).  The rounding has gradient 1."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ar, br = _round_bf16(a), _round_bf16(b)
+        ctx.save_for_backward(ar, br)
+        ctx.shapes = (a.shape, b.shape)
+        return ar @ br
+
+    @staticmethod
+    def backward(ctx, g):
+        ar, br = ctx.saved_tensors
+        gr = _round_bf16(g)
+        ga = (gr @ br.transpose(-1, -2)).sum_to_size(ctx.shapes[0])
+        gb = (ar.transpose(-1, -2) @ gr).sum_to_size(ctx.shapes[1])
+        return ga, gb
+
+
+def _round_bf16(x):
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _plain_bf16(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b, scale,
+                dropout_rate, seed):
+    """The function with the rounding sites of the bf16 compute mode: every
+    product takes bf16 operands (``_Bf16Dot``); softmax, masks, LayerNorm,
+    dropout and the raw scores stay float32.  Returns float32 mixed before
+    the output cast and the masked scores, both in the (B, A, Li, Lqa, .)
+    order."""
+    bsz, num_a, lqa, d = cn.shape
+    _, li, lr, _ = qn.shape
+    m = num_a * lqa
+    s = _Bf16Dot.apply(cn.float().reshape(bsz, 1, m, d),
+                       qn.float().transpose(-1, -2))      # (B, Li, M, Lr)
+    s_mask = (c_mask.float().reshape(bsz, 1, m, 1)
+              * q_mask.float()[:, :, None, :])
+    masked = s - 1e10 * (1.0 - s_mask)
+    p = torch.softmax(torch.clamp(masked * scale, min=SAFE_FLOOR), dim=-1)
+    att = _Bf16Dot.apply(p * s_mask, qe.float())          # (B, Li, M, D)
+    ce_b = ce.float().reshape(bsz, 1, m, d).expand_as(att)
+    x = torch.cat([ce_b, att, ce_b * att], dim=-1)
+    y = layer_norm(x, gamma, beta, clip=False)
+    # the dropout's flat index runs over rows in mixed's (B, A, Li, Lqa) order
+    y = y.reshape(bsz, li, num_a, lqa, 3 * d).permute(0, 2, 1, 3, 4)
+    if dropout_rate > 0.0:
+        y = y * philox.multiplier(y.shape, seed, dropout_rate, y.device)
+    out = _Bf16Dot.apply(y.reshape(-1, 3 * d), w.float())
+    mixed = torch.relu(out.reshape(bsz, num_a, li, lqa, d) + b.float())
+    masked = masked.reshape(bsz, li, num_a, lqa, lr).permute(0, 2, 1, 3, 4)
+    return mixed, masked.contiguous()
 
 
 def qa_ctx_attention_plain(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b,
@@ -62,7 +138,13 @@ def qa_ctx_attention_plain(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b,
     (3D,); w (3D, D); b (D,); targets (B,) int for ``raw_mode="target"``.
     Returns mixed (B, A, Li, Lqa, D) in cn's dtype and the raw scores in
     float32: (B, A, Li, Lqa, Lr) for "full", (B, Li, Lqa, Lr) at each
-    target answer for "target", none for "none"."""
+    target answer for "target", none for "none".  bfloat16 activations take
+    the rounding sites of the bf16 kernels (``_plain_bf16``), float32 ones
+    none."""
+    if cn.dtype == torch.bfloat16:
+        mixed, masked = _plain_bf16(cn, ce, qn, qe, c_mask, q_mask, gamma,
+                                    beta, w, b, scale, dropout_rate, seed)
+        return _with_raw(mixed.to(cn.dtype), masked, raw_mode, targets)
     s = torch.einsum("bawd,bird->baiwr", cn.float(), qn.float())
     s_mask = (c_mask.float()[:, :, None, :, None]
               * q_mask.float()[:, None, :, None, :])
@@ -75,6 +157,10 @@ def qa_ctx_attention_plain(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b,
     if dropout_rate > 0.0:
         y = y * philox.multiplier(y.shape, seed, dropout_rate, y.device)
     mixed = torch.relu(y @ w.float() + b.float()).to(cn.dtype)
+    return _with_raw(mixed, masked, raw_mode, targets)
+
+
+def _with_raw(mixed, masked, raw_mode, targets):
     if raw_mode == "full":
         return mixed, masked
     if raw_mode == "target":
@@ -102,6 +188,10 @@ def _check(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b, raw_mode,
         raise ValueError(f"activations must be float32 or bfloat16, not {dt}")
     if not all(t.is_contiguous() for t in (cn, ce, qn, qe)):
         raise ValueError("cn/ce/qn/qe must be contiguous")
+    if dt == torch.bfloat16 and any(t.data_ptr() % 16
+                                    for t in (cn, ce, qn, qe)):
+        raise ValueError("bfloat16 cn/ce/qn/qe must start on a 16-byte "
+                         "boundary (the kernels copy 16-byte chunks)")
     if c_mask.shape != (bsz, num_a, lqa) or q_mask.shape != (bsz, li, lr):
         raise ValueError("mask shapes do not match the activations")
     cm, qm = as_f32(c_mask), as_f32(q_mask)
@@ -141,6 +231,8 @@ class _QaCtxAttention(torch.autograd.Function):
         elif raw_mode == "target":
             raw = torch.empty((bsz, li, lqa, lr), dtype=torch.float32,
                               device=dev)
+        if cn.dtype == torch.bfloat16:   # the tensor-core kernels' operand
+            w32 = w32.to(torch.bfloat16)
         KERNEL.launch(dev, ptr(cn), ptr(ce), ptr(qn), ptr(qe), ptr(cm),
                       ptr(qm), ptr(g32), ptr(b32), ptr(w32), ptr(bias32),
                       ptr(tg) if tg is not None else None, ptr(mixed),
@@ -185,28 +277,57 @@ def qa_ctx_attention_backward(cn, ce, qn, qe, c_mask, q_mask, gamma, beta,
         graw = g_raw.to(torch.float32).contiguous()
     rows = bsz * li * num_a * lqa
     f32 = dict(dtype=torch.float32, device=dev)
-    chunks = wgrad_chunks(rows, 3 * d)
-    gcn, gce = torch.empty_like(cn), torch.empty_like(ce)
+    tc = dt == torch.bfloat16          # the tensor-core kernels
+    if tc and (g_mixed.data_ptr() % 16 or mixed.data_ptr() % 16):
+        raise ValueError("g_mixed/mixed must start on a 16-byte boundary")
+    chunks = min(TC_WGRAD_CHUNKS, -(-rows // 64)) if tc \
+        else wgrad_chunks(rows, 3 * d)
     gqn, gqe = torch.empty_like(qn), torch.empty_like(qe)
-    gvec = torch.empty(7 * d, **f32)
-    gw = torch.empty(3 * d, d, **f32)
-    scratch = [torch.empty(bsz, li, num_a * lqa, d, **f32),
-               torch.empty(bsz, li, num_a * lqa, d, **f32),
-               torch.empty(rows, 3 * d, **f32), torch.empty(rows, d, **f32),
-               torch.empty(bsz * li, 7 * d, **f32),
-               torch.empty(chunks, 3 * d, d, **f32)]
-    wt = as_f32(w32.t())
+    m = num_a * lqa
+    if tc:
+        # gcn and gce, their per-frame slots, and [gw; gb] each lie back to
+        # back, so one fixed-order sum launch serves each pair
+        gc = torch.empty((2,) + cn.shape, dtype=dt, device=dev)
+        gcn, gce = gc[0], gc[1]
+        gc_part = torch.empty(2, bsz, li, m, d, **f32)
+        gwb = torch.empty(3 * d + 1, d, **f32)
+        gvec = torch.empty(6 * d, **f32)
+        # the dropped LN output yd and g_out rows for the weight gradient
+        # are bf16: the kernels round both before that product anyway
+        scratch = [gc_part[0], gc_part[1],
+                   torch.empty(rows, 3 * d, dtype=dt, device=dev),
+                   torch.empty(rows, d, dtype=dt, device=dev),
+                   torch.empty(bsz * li, 6 * d, **f32),
+                   torch.empty(chunks, 3 * d + 1, d, **f32)]
+        # g_s, p and g_att rows for the gqn / gqe kernel
+        lrp = 32 if lr <= 32 else 64
+        scratch += [torch.empty(rows, lrp, dtype=dt, device=dev),
+                    torch.empty(rows, lrp, dtype=dt, device=dev),
+                    torch.empty(rows, d, dtype=dt, device=dev)]
+        gw, gb = gwb[:3 * d], gwb[3 * d]
+    else:
+        gcn, gce = torch.empty_like(cn), torch.empty_like(ce)
+        gvec = torch.empty(7 * d, **f32)
+        gw = torch.empty(3 * d, d, **f32)
+        gb = gvec[6 * d:]
+        scratch = [torch.empty(bsz, li, m, d, **f32),
+                   torch.empty(bsz, li, m, d, **f32),
+                   torch.empty(rows, 3 * d, **f32),
+                   torch.empty(rows, d, **f32),
+                   torch.empty(bsz * li, 7 * d, **f32),
+                   torch.empty(chunks, 3 * d, d, **f32), None, None, None]
+    # the kernel's weight operand: W in bf16 as it lies (tc), else W^T
+    wk = w32.to(dt) if tc else as_f32(w32.t())
     BWD_KERNEL.launch(
         dev, ptr(cn), ptr(ce), ptr(qn), ptr(qe), ptr(cm), ptr(qm), ptr(g32),
-        ptr(b32), ptr(wt), ptr(g_mixed), ptr(mixed),
+        ptr(b32), ptr(wk), ptr(g_mixed), ptr(mixed),
         ptr(graw) if graw is not None else None,
         ptr(tg) if (tg is not None and graw is not None) else None,
         ptr(gcn), ptr(gce), ptr(gqn), ptr(gqe), ptr(gvec), ptr(gw),
-        *(ptr(t) for t in scratch), bsz, num_a, lqa, li, lr, float(scale),
-        *philox.kernel_args(dropout_rate, seed), chunks,
-        int(dt == torch.bfloat16))
-    return (gcn, gce, gqn, gqe, gvec[:3 * d], gvec[3 * d:6 * d], gw,
-            gvec[6 * d:])
+        *(ptr(t) if t is not None else None for t in scratch), bsz, num_a,
+        lqa, li, lr, float(scale),
+        *philox.kernel_args(dropout_rate, seed), chunks, int(tc))
+    return gcn, gce, gqn, gqe, gvec[:3 * d], gvec[3 * d:6 * d], gw, gb
 
 
 def qa_ctx_attention(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b,
