@@ -14,9 +14,8 @@ toolkit.  Phases, each printing one JSON line:
              bfloat16, times (CUDA events, median of 30 after warm-up) and
              the card's bound for the same work.  The attention, tri-bridge
              and encoder rows also carry ``f32_ms``, the float32 CUDA-core
-             instantiation timed in the same call (bf16: the attention pair
-             and the tri-bridge and encoder backwards run on the tensor
-             cores).  The encoder's
+             instantiation timed in the same call (bf16: every kernel but
+             the MLP bridge's runs on the tensor cores).  The encoder's
              full-output mode runs at the merged input's (16, 105, 50, 128),
              k = 7, with the headline length mask (5 x 40, 50 x 50, 50 x 25)
              and with no mask, compared on the valid positions; the MLP
@@ -39,9 +38,11 @@ toolkit.  Phases, each printing one JSON line:
              compute type (see FWD_TOL).
 6. serving - the eval step (forward, span search, grounding compaction) at
              batch 16 x 50 frames on a batch already on the card: host
-             clock over 50 back-to-back steps ended by a synchronise (the
+             clock over 30 back-to-back steps ended by a synchronise (the
              metric: ms per batch, QA pairs per second), and the median
-             CUDA-event time of one step.
+             CUDA-event time of one step; its ``torch.profiler`` trace must
+             show the tensor-core forwards of the encoder and the tri
+             bridge and no CUDA-core forward of either.
 7. train main - ``python -m tvqaplus_tpu_torch.main`` on the card at the
              headline training config (--use_sup_att --add_local, batch 16,
              dropout 0.1, bf16) with --debug: checks that the losses are
@@ -53,7 +54,8 @@ toolkit.  Phases, each printing one JSON line:
              0.1) on a batch already on the card: host clock over 12 steps
              ended by a synchronise (ms per step, QA pairs trained per
              second), the median CUDA-event time of one step, and the
-             device's busy time and idle share from ``torch.profiler``.
+             device's busy time and idle share from ``torch.profiler``,
+             whose trace is held as in phase 6.
 
 The merged input-encoder path (``merge_input_streams``) and the bridge
 kernel, each in the phase of its counterpart:
@@ -779,7 +781,7 @@ def profile_steps(step, n):
                and not getattr(e, "is_user_annotation", False)
                and not e.name.startswith("Optimizer.")]
     if not kernels:
-        return None, None, []
+        return None, None, [], set()
     by_name = {}
     for e in kernels:
         c, t = by_name.get(e.name, (0, 0.0))
@@ -789,7 +791,27 @@ def profile_steps(step, n):
            for k, (c, t) in sorted(by_name.items(),
                                    key=lambda kv: -kv[1][1])[:12]]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
-    return busy_ms, len(kernels) / n, top
+    return busy_ms, len(kernels) / n, top, set(by_name)
+
+
+def check_tc_forwards(step, names, merged):
+    """The bf16 step's trace shows the tensor-core forwards (the encoder's
+    cls_encoder at k 5, on the merged path the input encoder at k 7 too, and
+    the tri bridge) and no CUDA-core forward of the encoder or the tri
+    bridge; returns the tensor-core forwards' names."""
+    tc = sorted(nm for nm in names
+                if "encoder_fwd_tc_kernel" in nm
+                or "tri_bridge_fwd_tc_kernel" in nm)
+    old = sorted(nm for nm in names if "encoder_fwd_kernel" in nm
+                 or "tri_bridge_fwd_kernel" in nm)
+    want = ["encoder_fwd_tc_kernel<5", "tri_bridge_fwd_tc_kernel"] + \
+        ["encoder_fwd_tc_kernel<7"] * merged
+    missing = [w for w in want if not any(w in nm for nm in tc)]
+    if missing or old:
+        raise AssertionError(f"{step}: tensor-core forwards missing "
+                             f"{missing}, CUDA-core forwards launched {old}")
+    return [nm.replace("(anonymous namespace)::", "").replace("void ", "")
+            .split("(")[0] for nm in tc]
 
 
 def timed_steps(steps, n):
@@ -830,7 +852,9 @@ def phase_serving(dev, cfg, sd):
     clock = timed_steps(steps, SERVING_STEPS)
     for name in ("serving", "merged_serving"):
         step_ms, turns = clock[name]
-        busy_ms, launches, top = profile_steps(steps[name], PROFILE_STEPS)
+        busy_ms, launches, top, names = profile_steps(steps[name],
+                                                      PROFILE_STEPS)
+        tc_fwd = check_tc_forwards(name, names, name == "merged_serving")
         emit({"phase": name, "ok": True, "batch": B, "frames": LI,
               "compute_dtype": "bfloat16", "steps": SERVING_STEPS,
               "qa_pairs_per_s": B / (step_ms / 1e3), "step_ms": step_ms,
@@ -839,7 +863,8 @@ def phase_serving(dev, cfg, sd):
               **out[name], "device_busy_ms": busy_ms,
               "device_idle_share": None if busy_ms is None
               else 1 - busy_ms / step_ms,
-              "launches_per_step": launches, "top_kernels": top})
+              "launches_per_step": launches, "tc_forwards": tc_fwd,
+              "top_kernels": top})
 
 
 # ---------------------------------------------------------------- training
@@ -1321,7 +1346,8 @@ def phase_training(dev, workdir):
             raise AssertionError(f"training loss {loss}")
         # the idle share is taken against the unprofiled host clock, as
         # tracing slows the host
-        busy_ms, launches, top = profile_steps(step, PROFILE_STEPS)
+        busy_ms, launches, top, names = profile_steps(step, PROFILE_STEPS)
+        tc_fwd = check_tc_forwards(name, names, name == "merged_training")
         cfg = cfgs[name]
         emit({"phase": name, "ok": True, "batch": B, "frames": LI,
               "compute_dtype": cfg.compute_dtype, "dropout": cfg.dropout,
@@ -1331,7 +1357,8 @@ def phase_training(dev, workdir):
               "device_busy_ms": busy_ms,
               "device_idle_share": None if busy_ms is None
               else 1 - busy_ms / step_ms,
-              "launches_per_step": launches, "top_kernels": top})
+              "launches_per_step": launches, "tc_forwards": tc_fwd,
+              "top_kernels": top})
 
 
 def main():

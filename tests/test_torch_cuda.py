@@ -556,3 +556,200 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
         mlp_bridge.mlp_bridge(args[0].transpose(0, 1), *args[1:])
     with pytest.raises(ValueError):          # cotangent of another shape
         mlp_bridge.mlp_bridge_backward(*args, args[0])
+
+
+# -------------------------------- the bf16 forwards on the tensor cores
+# (L, k) sweep of the tensor-core encoder forward: L 1 .. 56 (128 down to 2
+# sequences a 128-row tile), every odd k <= 9.  N = 23 sequences leaves a
+# ragged last tile at every L.
+TC_LENGTHS = (1, 9, 40, 50, 56)
+TC_KS = (1, 3, 5, 7, 9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("k", TC_KS)
+@pytest.mark.parametrize("l", TC_LENGTHS)
+def test_encoder_tc_forward_matches_plain(cuda, l, k, dropout):
+    """Both modes of the bf16 forward against the plain version (one or two
+    bf16 steps): reduce mode with a sequence whose mask is all zero (-1e10
+    in every channel), full mode with zero-mask rows (computed, finite)."""
+    gen = torch.Generator().manual_seed(13)
+    x, pe, p, mask = encoder_args(cuda, torch.bfloat16, gen, b=1, g=23, l=l,
+                                  k=k)               # mask[0, 1] all zero
+    mask[0, 2, 0] = 1                # L = 1: a live sequence beside it
+    kw = dict(dropout_rate=dropout, seed=SEED)
+    fwd0 = encoder.KERNEL.launches
+    got = encoder.encoder_reduce(x, pe, p, k, mask, **kw)
+    want = encoder.encoder_reduce_plain(x, pe, p, k, mask, **kw)
+    torch.cuda.synchronize()
+    assert encoder.KERNEL.launches == fwd0 + 1
+    assert got.dtype == torch.bfloat16
+    close(got, want, encoder.TOL[torch.bfloat16])
+    neg = torch.tensor(-1e10, dtype=torch.bfloat16, device=cuda)
+    assert (got[0, 1] == neg).all()
+    live = mask.amax(-1) > 0
+    assert (got[live].float() > -1e9).all() and live.sum() > 10
+    zm = stream_mask(x.shape[1], l).to(cuda)
+    zm[5, l // 2] = 0                # a zero inside a stream too
+    got = encoder.encoder_block(x, pe, p, k, zm, **kw)
+    want = encoder.encoder_block_plain(x, pe, p, k, zm, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    valid = zm[..., None]
+    close(got.float() * valid, want.float() * valid,
+          encoder.TOL[torch.bfloat16])
+
+
+TC_TRI_ROWS = [(1, 1, 1, 39), (1, 1, 2, 32), (2, 5, 2, 20), (3, 7, 50, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("rows", TC_TRI_ROWS)
+def test_tri_bridge_tc_forward_matches_plain(cuda, rows, dropout):
+    """The bf16 forward at R < 64, R = 64, R = 400 (not a multiple of 64)
+    and 42,000 rows (more tiles than blocks: the double-buffered loads)."""
+    gen = torch.Generator().manual_seed(14)
+    s = randn(gen, *rows, D).to(cuda, torch.bfloat16)
+    v = randn(gen, *rows, D).to(cuda, torch.bfloat16)
+    params = [1 + randn(gen, 3 * D, scale=0.1), randn(gen, 3 * D, scale=0.1),
+              randn(gen, 3 * D, D, scale=(3 * D) ** -0.5),
+              randn(gen, D, scale=0.1), 1 + randn(gen, D, scale=0.1),
+              randn(gen, D, scale=0.1)]
+    params = [t.to(cuda) for t in params]
+    fwd0 = tri_bridge.KERNEL.launches
+    got = tri_bridge.tri_bridge(s, v, *params, dropout, SEED)
+    want = tri_bridge.tri_bridge_plain(s, v, *params, dropout, SEED)
+    torch.cuda.synchronize()
+    assert tri_bridge.KERNEL.launches == fwd0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == s.shape
+    close(got, want, tri_bridge.TOL[torch.bfloat16])
+
+
+def keep_mask(shape, cuda):
+    """The plain Philox keep mask (ops/philox.py) of a tensor of ``shape``
+    at the tests' seed."""
+    from tvqaplus_tpu_torch.ops import philox
+    return philox.multiplier(shape, SEED, P_DROP, cuda) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [0, 1, 2])
+def test_tri_bridge_tc_forward_drops_the_plain_philox_positions(cuda, group):
+    """Parameters that make the output show the dropout mask: LN_in gives 1
+    everywhere (scale 0, bias 1), W copies group ``group`` of the dropped
+    LN output to the 128 outputs, and LN_out centres each row, so an output
+    is above 0 exactly where its input was kept."""
+    gen = torch.Generator().manual_seed(15)
+    shape = (2, 3, 7, 40)
+    s = randn(gen, *shape, D).to(cuda, torch.bfloat16)
+    v = randn(gen, *shape, D).to(cuda, torch.bfloat16)
+    w = torch.zeros(3 * D, D)
+    w[group * D:(group + 1) * D] = torch.eye(D)
+    params = [torch.zeros(3 * D), torch.ones(3 * D), w, torch.zeros(D),
+              torch.ones(D), torch.zeros(D)]
+    params = [t.to(cuda) for t in params]
+    got = tri_bridge.tri_bridge(s, v, *params, P_DROP, SEED)
+    want = tri_bridge.tri_bridge_plain(s, v, *params, P_DROP, SEED)
+    torch.cuda.synchronize()
+    assert torch.equal(got > 0, want > 0)
+    keep = keep_mask(shape + (3 * D,), cuda)[..., group * D:(group + 1) * D]
+    both = keep.any(-1) & ~keep.all(-1)       # rows with a dropped element
+    assert both.float().mean() > 0.99
+    assert torch.equal((got > 0)[both], keep[both])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,k", [(40, 5), (50, 7), (9, 1), (56, 9)])
+def test_encoder_tc_forward_drops_the_plain_philox_positions(cuda, l, k):
+    """Parameters that make the block output show conv 0's dropout mask:
+    x + pe = 0 and LN_0 gives 1 everywhere, the centre tap and pw0 copy the
+    dropped LN output into h, layer 1 adds 0, and the final LN centres each
+    row, so an output is above 0 exactly where its LN_0 output was kept."""
+    shape = (2, 6, l, D)
+    x = torch.zeros(shape, dtype=torch.bfloat16, device=cuda)
+    pe = torch.zeros(l, D, device=cuda)
+    p = {}
+    for i in (0, 1):
+        dw = torch.zeros(k, D)
+        dw[k // 2] = 1.0 - i
+        p.update({f"ln{i}_s": torch.zeros(D),
+                  f"ln{i}_b": torch.full((D,), 1.0 - i), f"dw{i}": dw,
+                  f"dwb{i}": torch.zeros(D), f"pw{i}": torch.eye(D),
+                  f"pwb{i}": torch.zeros(D)})
+    p.update(lnf_s=torch.ones(D), lnf_b=torch.zeros(D))
+    p = {key: t.to(cuda) for key, t in p.items()}
+    got = encoder.encoder_block(x, pe, p, k, None, P_DROP, SEED)
+    want = encoder.encoder_block_plain(x, pe, p, k, None, P_DROP, SEED)
+    torch.cuda.synchronize()
+    assert torch.equal(got > 0, want > 0)
+    keep = keep_mask(shape, cuda)
+    both = keep.any(-1) & ~keep.all(-1)
+    assert both.float().mean() > 0.99
+    assert torch.equal((got > 0)[both], keep[both])
+
+
+def step_kernel_names(cuda, train, merged, results_dir):
+    """Names of the CUDA kernels that one bf16 step of STAGE launches (a
+    small batch, 12 frames): the train step, or the eval step with
+    grounding."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tvqaplus_tpu_torch.config import Config
+    from tvqaplus_tpu_torch.data.batching import (
+        StaticShapeSpec,
+        collate_static,
+    )
+    from tvqaplus_tpu_torch.data.synthetic import SyntheticTVQADataset
+    from tvqaplus_tpu_torch.infer.predict import InferenceRunner
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    n, frames = 2, 12
+    cfg = Config(synthetic_data=True, add_local=True, use_sup_att=train,
+                 bsz=n, test_bsz=n, seed=3, merge_input_streams=merged,
+                 results_dir=str(results_dir)).finalize(cuda)
+    assert cfg.compute_dtype == "bfloat16"
+    ds = SyntheticTVQADataset(cfg, n, mode="train" if train else "valid")
+    spec = StaticShapeSpec.from_config(cfg, batch=n, train=train
+                                       ).with_max_img(frames)
+    arrays, _ = collate_static([ds[i] for i in range(n)], spec)
+    batch = {key: torch.from_numpy(a).to(cuda) for key, a in arrays.items()}
+    if train:
+        trainer = Trainer(cfg, cuda)
+
+        def step():
+            return trainer.train_step(batch)
+    else:
+        model = STAGE(ModelConfig.from_config(cfg)).reset_parameters(
+            torch.Generator().manual_seed(3)).to(cuda)
+        runner = InferenceRunner(cfg, model, cuda)
+
+        def step():
+            return runner.step(batch, True, frames)
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merged", [False, True])
+@pytest.mark.parametrize("train", [False, True])
+def test_bf16_steps_run_the_tensor_core_forwards(cuda, tmp_path, train,
+                                                 merged):
+    """A bf16 serve and train step, separate and merged, launch the
+    tensor-core forwards of the encoder (cls_encoder k 5; merged: the input
+    encoder k 7 too) and of the tri bridge, and no CUDA-core forward of
+    either."""
+    names = step_kernel_names(cuda, train, merged, tmp_path)
+    tc = [nm for nm in names if "encoder_fwd_tc_kernel" in nm]
+    assert any("encoder_fwd_tc_kernel<5" in nm for nm in tc), names
+    assert any("encoder_fwd_tc_kernel<7" in nm for nm in tc) == merged, tc
+    assert any("tri_bridge_fwd_tc_kernel" in nm for nm in names), names
+    old = [nm for nm in names
+           if "encoder_fwd_kernel" in nm or "tri_bridge_fwd_kernel" in nm]
+    assert not old, old

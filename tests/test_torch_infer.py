@@ -190,3 +190,92 @@ def test_debug_run_stops_after_one_batch_and_its_loader():
             break
         threading.Event().wait(0.05)
     assert threading.active_count() <= before
+
+
+# ------------------------------------------------ which checkpoint is served
+def write_run(run_dir, best_seed=0, last_seed=1):
+    """A run directory as the trainer leaves it: opt.json, best_valid.pth
+    (weights from ``best_seed``, none when it is None) and last.ckpt (model
+    and optimizer, weights from ``last_seed``).  Returns the config and the
+    two models."""
+    from tvqaplus_tpu_torch.train.state import make_optimizer, save_checkpoint
+    os.makedirs(run_dir, exist_ok=True)
+    cfg = Config(**TINY, synthetic_n_valid=6)
+    cfg.save(os.path.join(run_dir, "opt.json"))
+    cfg.finalize("cpu")
+    models = {}
+    for name, seed in (("best", best_seed), ("last", last_seed)):
+        models[name] = None if seed is None else STAGE(
+            ModelConfig.from_config(cfg)).reset_parameters(
+            torch.Generator().manual_seed(seed))
+    if models["best"] is not None:
+        torch.save(models["best"].state_dict(),
+                   os.path.join(run_dir, "best_valid.pth"))
+    last = models["last"]
+    save_checkpoint(os.path.join(run_dir, "last.ckpt"), last,
+                    make_optimizer(last.parameters(), 1e-3), 7,
+                    extra={"best_acc": 0.0, "epoch": 0, "lr": 1e-3})
+    return cfg, models
+
+
+def served(cfg, model):
+    """The prediction JSON the CLI writes for ``model``, as it reads back."""
+    pred = InferenceRunner(cfg, model, "cpu").run(
+        SyntheticTVQADataset(cfg, 6, mode="valid"), mode="valid",
+        object_word_ids=list(range(3, 1000)))
+    return json.loads(json.dumps(pred))
+
+
+def cli(*argv):
+    from tvqaplus_tpu_torch.inference import main_inference
+    with open(main_inference([*argv, "--device", "cpu"])) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("name,which", [("last.ckpt", "last"),
+                                        ("best_valid.pth", "best")])
+def test_inference_cli_serves_the_checkpoint_it_names(tmp_path, name, which):
+    cfg, models = write_run(str(tmp_path))
+    got = cli("--model_dir", str(tmp_path), "--checkpoint", name)
+    assert got == served(cfg, models[which])
+    assert got != served(cfg, models["best" if which == "last" else "last"])
+
+
+def test_inference_cli_takes_an_absolute_checkpoint_path(tmp_path):
+    cfg, models = write_run(str(tmp_path / "run"))
+    got = cli("--model_dir", str(tmp_path / "run"), "--checkpoint",
+              str(tmp_path / "run" / "last.ckpt"))
+    assert got == served(cfg, models["last"])
+
+
+def test_inference_cli_falls_back_to_last_ckpt_and_warns(tmp_path):
+    """A run whose validation never improved wrote no best_valid.pth: the
+    CLI, run as a user runs it, serves the end-of-training state."""
+    cfg, models = write_run(str(tmp_path), best_seed=None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "tvqaplus_tpu_torch.inference",
+         "--model_dir", str(tmp_path), "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert f"warning: {tmp_path / 'best_valid.pth'} missing, using " \
+           f"{tmp_path / 'last.ckpt'}" in proc.stdout
+    with open(tmp_path / "valid_inference_predictions.json") as f:
+        assert json.load(f) == served(cfg, models["last"])
+
+
+def test_inference_cli_resolves_a_run_name_under_results(tmp_path,
+                                                         monkeypatch):
+    cfg, models = write_run(str(tmp_path / "results" / "my_run"))
+    monkeypatch.chdir(tmp_path)
+    got = cli("--model_dir", "my_run")
+    assert got == served(cfg, models["best"])
+    assert os.path.exists(tmp_path / "results" / "my_run"
+                          / "valid_inference_predictions.json")
+
+
+def test_last_ckpt_serves_what_best_valid_pth_of_the_same_weights_does(
+        tmp_path):
+    cfg, models = write_run(str(tmp_path), best_seed=3, last_seed=3)
+    from_best = cli("--model_dir", str(tmp_path))
+    from_last = cli("--model_dir", str(tmp_path), "--checkpoint", "last.ckpt")
+    assert from_last == from_best == served(cfg, models["last"])

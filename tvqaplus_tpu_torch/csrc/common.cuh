@@ -4,16 +4,13 @@
 // a warp of 32 lanes covers one 128-wide row at 4 values a lane, and the
 // row-tile GEMM below gives each thread 4 adjacent output columns.
 // Activations arrive as float or bfloat16 (template T); all arithmetic and
-// every intermediate is float32.  With bfloat16 activations the products
-// round their operands to bf16, where the TPU kernels' bf16 compute mode
-// does (round_bf16, gemm_staged's RB).
+// every intermediate is float32.  The row-tile GEMMs here serve the float32
+// CUDA-core kernels; the bf16 kernels' products are wgmma (wgmma.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
-
-#include <type_traits>
 
 namespace tvqa {
 
@@ -36,14 +33,6 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-template <typename T>
-constexpr bool is_bf16 = std::is_same<T, __nv_bfloat16>::value;
-
-// x rounded to the nearest bfloat16 value, as float32.
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16(x));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -95,9 +84,9 @@ __device__ __forceinline__ void gemm_chunk(float (&acc)[RPT][4],
 
 // acc = Y (rows r0.., K wide, smem) x B[:, 0:D], where B is K x ldb
 // row-major in device memory (columns past D unread), staged through the
-// block's KC x D shared buffer Ws one chunk at a time (rounded to bf16 when
-// RB).  Every thread of the block must call it (it synchronises).
-template <int RPT, bool RB = false>
+// block's KC x D shared buffer Ws one chunk at a time.  Every thread of the
+// block must call it (it synchronises).
+template <int RPT>
 __device__ __forceinline__ void gemm_staged_ld(float (&acc)[RPT][4],
                                                const float* Y, int ys, int K,
                                                const float* __restrict__ B,
@@ -111,12 +100,8 @@ __device__ __forceinline__ void gemm_staged_ld(float (&acc)[RPT][4],
     float4* dst = reinterpret_cast<float4*>(Ws);
     for (int i = threadIdx.x; i < KC * D / 4; i += NTHREADS) {
       const int r = i / (D / 4), c = i % (D / 4);
-      float4 w = __ldg(reinterpret_cast<const float4*>(
-                           B + static_cast<size_t>(k0 + r) * ldb) + c);
-      if (RB)
-        w = make_float4(round_bf16(w.x), round_bf16(w.y), round_bf16(w.z),
-                        round_bf16(w.w));
-      dst[i] = w;
+      dst[i] = __ldg(reinterpret_cast<const float4*>(
+                         B + static_cast<size_t>(k0 + r) * ldb) + c);
     }
     __syncthreads();
     gemm_chunk<RPT>(acc, Y, ys, k0, Ws, KC, r0, c0);
@@ -124,12 +109,12 @@ __device__ __forceinline__ void gemm_staged_ld(float (&acc)[RPT][4],
 }
 
 // acc = Y (rows r0.., K wide, smem) x W (K x D row-major, device memory).
-template <int RPT, bool RB = false>
+template <int RPT>
 __device__ __forceinline__ void gemm_staged(float (&acc)[RPT][4],
                                             const float* Y, int ys, int K,
                                             const float* __restrict__ W,
                                             float* Ws, int r0, int c0) {
-  gemm_staged_ld<RPT, RB>(acc, Y, ys, K, W, D, Ws, r0, c0);
+  gemm_staged_ld<RPT>(acc, Y, ys, K, W, D, Ws, r0, c0);
 }
 
 template <typename T>

@@ -1,8 +1,9 @@
-// Device functions shared by the fused encoder block's forward
-// (encoder_fwd.cu) and the backward's recompute (encoder_bwd.cu), so the
-// two cannot drift.  A sequence's rows (L x D float32) sit in shared
-// memory; row-wise work gives each warp rows r = warp, warp + 8, ... with
-// lane owning channels lane + 32 q.
+// Device functions shared by the fused encoder block's float32 CUDA-core
+// forward (encoder_fwd.cu) and the backward's recompute (encoder_bwd.cu),
+// so the two cannot drift (the tensor-core pair shares encoder_tc.cuh).
+// A sequence's rows (L x D float32) sit in shared memory; row-wise work
+// gives each warp rows r = warp, warp + 8, ... with lane owning channels
+// lane + 32 q.
 #pragma once
 
 #include "common.cuh"
@@ -106,14 +107,12 @@ __device__ __forceinline__ void ln_bwd_rows(const float* src,
 // rows inside the sequence (zero padding at both ends), each times its
 // validity factor v[row] (the sequence's zero-mask row in shared memory,
 // all ones without a zero mask): a tap that reads past a merged stream's
-// true length sees the zero that per-stream padding would give it.  With
-// rb the outputs are rounded to bf16 (the pointwise product's operand in
-// the bf16 compute mode).
+// true length sees the zero that per-stream padding would give it.
 __device__ __forceinline__ void dwconv_rows(const float* src, float* dst,
                                             int L, int k,
                                             const float* dw,
                                             const float* __restrict__ dwb,
-                                            const float* v, bool rb) {
+                                            const float* v) {
   const int pad = k / 2;
   for (int idx = threadIdx.x; idx < L * D; idx += NTHREADS) {
     const int r = idx / D, d = idx % D;
@@ -123,7 +122,7 @@ __device__ __forceinline__ void dwconv_rows(const float* src, float* dst,
       if (rr >= 0 && rr < L)
         acc = fmaf(dw[j * D + d], src[rr * D + d] * v[rr], acc);
     }
-    dst[idx] = rb ? round_bf16(acc) : acc;
+    dst[idx] = acc;
   }
 }
 

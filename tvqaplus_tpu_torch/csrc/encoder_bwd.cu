@@ -51,7 +51,13 @@
 //     float32 (the weight and input gradients); h1 and h0 wait in a
 //     private stash per thread in L2.  165,888 bytes of shared memory.
 //     The c and g_y rows go out in bf16 (4 x 41 MB at the headline
-//     shapes).
+//     shapes).  Its recompute of the forward (load_h0, stats, ln_to_r1,
+//     conv) computes what encoder_tc.cuh's functions compute for the
+//     forward kernel, as lambdas: moved onto those functions, the kernel
+//     spilled 1,068 bytes instead of 980 at k 5 and ran 0.7% (dropout 0)
+//     and 1.2% (0.1) slower, beyond the parent's own turn-to-turn spread
+//     (PERF.md PR 6), so it keeps them; card tests hold both kernels
+//     against the same plain version.
 //   - wgrad_tc_kernel (wgrad_tc.cuh): gpw and gpwb of each layer from those
 //     rows.
 //   The LN and depthwise parameter gradients run as sums in the block's
@@ -68,7 +74,7 @@
 //   and go to one scratch slot per block; gpw is grad_reduce.cuh's GEMM
 //   over the float32 c and g_y rows.
 // Both sum across blocks in a fixed order: the same bits from run to run.
-#include "encoder.cuh"
+#include "encoder_tc.cuh"
 #include "grad_reduce.cuh"
 #include "wgrad_tc.cuh"
 
@@ -76,7 +82,7 @@ namespace {
 
 using namespace tvqa;
 
-constexpr int MAX_K = 9;
+constexpr int MAX_K = ENC_MAX_K;
 
 __host__ __device__ inline int rows_padded(int rpt) { return rpt * NWARPS; }
 
@@ -153,7 +159,7 @@ encoder_bwd_kernel(const T* __restrict__ x, const float* __restrict__ pe,
       dropout_rows(t_s, L, n, drop);
       __syncthreads();
     }
-    dwconv_rows(t_s, c_s, L, k, dw_s + i * k * D, P.dwb[i], v_s, false);
+    dwconv_rows(t_s, c_s, L, k, dw_s + i * k * D, P.dwb[i], v_s);
     __syncthreads();
     if (save_c)
       for (int idx = tid; idx < L * D; idx += NTHREADS)
@@ -442,17 +448,6 @@ struct TcBufs {
                      // H_FLOATS) h stashes
 };
 
-// Element (r, c) of the float32 tile R1: the column's 8-groups are swizzled
-// by the row, so that the accumulator layout's float2 accesses (8 rows x 4
-// lanes) and the column passes (32 columns of a row) spread over the banks.
-__device__ __forceinline__ int r1_at(int r, int c) {
-  return r * D + (c ^ ((r & 3) << 3));
-}
-
-__device__ __forceinline__ float2 ldg2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-
 // The sum of t[0 .. 8) over the eight lanes that hold the same columns'
 // other rows; entry j of lane l is column pair 8 (4 qb + j / 2) + 2 (l % 4)
 // + j % 2 of a block qb, and the lane keeps j = b2 + 2 b3 + 4 b4 (bN = bit
@@ -541,25 +536,6 @@ __device__ __forceinline__ void ln_bwd_tile(F fetch, float (&g)[64],
     }
   }
 }
-
-// The packed parameters (ops/encoder.py PARAM_KEYS order) at offsets known
-// at compile time: EncParams' fourteen pointers held 28 registers.
-template <int K>
-struct TcParams {
-  static constexpr int LAYER = (4 + K) * D + D * D;
-  const float* p;
-  __device__ const float* ln_s(int i) const { return p + i * LAYER; }
-  __device__ const float* ln_b(int i) const { return p + i * LAYER + D; }
-  __device__ const float* dw(int i) const { return p + i * LAYER + 2 * D; }
-  __device__ const float* dwb(int i) const {
-    return p + i * LAYER + (2 + K) * D;
-  }
-  __device__ const float* pwb(int i) const {
-    return p + i * LAYER + (3 + K) * D + D * D;
-  }
-  __device__ const float* lnf_s() const { return p + 2 * LAYER; }
-  __device__ const float* lnf_b() const { return p + 2 * LAYER + D; }
-};
 
 // One block per SM walks tiles of TR rows holding nseq whole sequences;
 // warpgroup w owns rows [64 w, 64 w + 64) of a tile and all D columns.

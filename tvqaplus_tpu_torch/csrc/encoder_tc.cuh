@@ -1,0 +1,171 @@
+// Device code of the fused encoder block's tensor-core kernels.  The
+// parameter offsets and the R1 layout serve the forward (encoder_fwd.cu,
+// encoder_fwd_tc_kernel) and the backward (encoder_bwd.cu,
+// encoder_bwd_tc_kernel); the row passes below are the forward's.  The
+// backward's recompute computes the same with lambdas of its own: moved
+// onto these functions it spilled more and ran ~1% slower (PERF.md PR 6),
+// and the card tests hold both kernels against one plain version.
+// A warpgroup owns 64 rows of a tile and all D columns; a thread
+// holds rows row[0] and row[1] = row[0] + 8 in the accumulator layout of
+// wgmma.cuh, value pair pr (values 2 pr, 2 pr + 1) at row half h = pr % 2,
+// columns c = 8 (pr / 2) + cl and c + 1 with cl = 2 (lane % 4).  The LN
+// output t of a tile sits in shared memory as the float32 tile R1 (the
+// depthwise taps cross rows, warps and warpgroups); row statistics are
+// sums over the thread's values and its quad.
+#pragma once
+
+#include "encoder.cuh"
+#include "wgmma.cuh"
+
+namespace tvqa {
+
+constexpr int ENC_MAX_K = 9;
+
+// The packed parameters (ops/encoder.py PARAM_KEYS order) at offsets known
+// at compile time: EncParams' fourteen pointers held 28 registers.
+template <int K>
+struct TcParams {
+  static constexpr int LAYER = (4 + K) * D + D * D;
+  const float* p;
+  __device__ const float* ln_s(int i) const { return p + i * LAYER; }
+  __device__ const float* ln_b(int i) const { return p + i * LAYER + D; }
+  __device__ const float* dw(int i) const { return p + i * LAYER + 2 * D; }
+  __device__ const float* dwb(int i) const {
+    return p + i * LAYER + (2 + K) * D;
+  }
+  __device__ const float* pw(int i) const {
+    return p + i * LAYER + (3 + K) * D;
+  }
+  __device__ const float* pwb(int i) const {
+    return p + i * LAYER + (3 + K) * D + D * D;
+  }
+  __device__ const float* lnf_s() const { return p + 2 * LAYER; }
+  __device__ const float* lnf_b() const { return p + 2 * LAYER + D; }
+};
+
+// Element (r, c) of the float32 tile R1: the column's 8-groups are swizzled
+// by the row, so that the accumulator layout's float2 accesses (8 rows x 4
+// lanes) and the column passes (32 columns of a row) spread over the banks.
+__device__ __forceinline__ int r1_at(int r, int c) {
+  return r * D + (c ^ ((r & 3) << 3));
+}
+
+__device__ __forceinline__ float2 ldg2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
+// Conv 0's dropout multiplier of value (h, q, e) from the keep bits of
+// tc_keep_bits<16> (wgmma.cuh).
+__device__ __forceinline__ float enc_keep(const uint32_t (&kw)[2][2],
+                                          const Dropout& drop, int h, int q,
+                                          int e) {
+  return !drop.on() ? 1.f
+      : ((kw[h][q >> 3] >> (4 * (q & 7) + e)) & 1u ? drop.scale : 0.f);
+}
+
+// h0 = x + pe of the thread's values; xpair(h, c) gives x's pair at (row
+// half h, columns c, c + 1) of a valid row as float2.  Rows past the
+// tile's sequences are 0.
+template <typename X>
+__device__ __forceinline__ void enc_load_h0(float (&hv)[64], X xpair,
+                                            const float* __restrict__ pe,
+                                            const bool (&valid)[2],
+                                            const int (&lrow)[2], int cl) {
+#pragma unroll
+  for (int pr = 0; pr < 32; ++pr) {
+    const int h = pr & 1, c = 8 * (pr >> 1) + cl;
+    float2 a = make_float2(0.f, 0.f);
+    if (valid[h]) {
+      a = xpair(h, c);
+      const float2 p = ldg2(pe + lrow[h] * D + c);
+      a.x += p.x;
+      a.y += p.y;
+    }
+    hv[2 * pr] = a.x;
+    hv[2 * pr + 1] = a.y;
+  }
+}
+
+// Row statistics of the thread's two rows (fast variance, clipped at 0).
+__device__ __forceinline__ void enc_stats(const float (&hv)[64],
+                                          float (&mean)[2],
+                                          float (&istd)[2]) {
+  mean[0] = mean[1] = istd[0] = istd[1] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 64; ++j) {
+    mean[(j >> 1) & 1] += hv[j];
+    istd[(j >> 1) & 1] = fmaf(hv[j], hv[j], istd[(j >> 1) & 1]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mean[h] = quad_sum(mean[h]) * (1.f / D);
+    istd[h] = rsqrtf(fmaxf(quad_sum(istd[h]) * (1.f / D) - mean[h] * mean[h],
+                           0.f) + LN_EPS);
+  }
+}
+
+// LN(hv) with scale sc and bias bi, times conv 0's dropout when drop0, as
+// value pairs: emit(pr, y) for each pair pr.
+template <typename E>
+__device__ __forceinline__ void enc_ln(const float (&hv)[64],
+                                       const float* __restrict__ sc,
+                                       const float* __restrict__ bi,
+                                       bool drop0, const uint32_t (&kw)[2][2],
+                                       const Dropout& drop, int cl, E emit) {
+  float mean[2], istd[2];
+  enc_stats(hv, mean, istd);
+#pragma unroll
+  for (int pr = 0; pr < 32; ++pr) {
+    const int h = pr & 1, q = pr >> 1, c = 8 * q + cl;
+    const float2 s2 = ldg2(sc + c), b2 = ldg2(bi + c);
+    float y0 = (hv[2 * pr] - mean[h]) * istd[h] * s2.x + b2.x;
+    float y1 = (hv[2 * pr + 1] - mean[h]) * istd[h] * s2.y + b2.y;
+    if (drop0) {
+      y0 *= enc_keep(kw, drop, h, q, 0);
+      y1 *= enc_keep(kw, drop, h, q, 1);
+    }
+    emit(pr, make_float2(y0, y1));
+  }
+}
+
+// LN(hv) (times conv 0's dropout when drop0) into the thread's values of
+// R1.
+__device__ __forceinline__ void enc_ln_to_r1(
+    const float (&hv)[64], const float* __restrict__ sc,
+    const float* __restrict__ bi, bool drop0, const uint32_t (&kw)[2][2],
+    const Dropout& drop, float* r1, const int (&row)[2], int cl) {
+  enc_ln(hv, sc, bi, drop0, kw, drop, cl, [&](int pr, float2 y) {
+    *reinterpret_cast<float2*>(r1 + r1_at(row[pr & 1],
+                                          8 * (pr >> 1) + cl)) = y;
+  });
+}
+
+// The depthwise conv's output pair at (row half h, columns c, c + 1):
+// dwb + sum over the K taps inside the sequence of dw times t v, with t
+// from R1 and v the rows' zero-mask factors (v_s, by tile row).  A row past
+// the tile's sequences gets dwb.
+template <int K>
+__device__ __forceinline__ float2 enc_conv_pair(
+    const float* r1, const float* v_s, const float* __restrict__ dw,
+    const float* __restrict__ dwb, const int (&row)[2],
+    const int (&lrow)[2], const bool (&valid)[2], int L, int h, int c) {
+  constexpr int pad = K / 2;
+  float2 a = ldg2(dwb + c);
+  if (valid[h]) {
+    const int base = row[h] - lrow[h];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int rr = lrow[h] + j - pad;
+      if (rr < 0 || rr >= L) continue;
+      const float vv = v_s[base + rr];
+      const float2 tt = *reinterpret_cast<const float2*>(
+          r1 + r1_at(base + rr, c));
+      const float2 w = ldg2(dw + j * D + c);
+      a.x = fmaf(w.x, tt.x * vv, a.x);
+      a.y = fmaf(w.y, tt.y * vv, a.y);
+    }
+  }
+  return a;
+}
+
+}  // namespace tvqa

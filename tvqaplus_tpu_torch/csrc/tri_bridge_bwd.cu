@@ -32,6 +32,9 @@
 //     through shared memory; the parameter-vector sums fold over the lanes
 //     that hold a column's other rows and go to one slot per block.  The
 //     yd and g_y1 rows go out in bf16 (123 + 41 MB at the headline shapes).
+//     The recompute (LN_in statistics, yd, y1 = yd W, LN_out statistics)
+//     is tri_bridge_tc.cuh's, shared with the forward's
+//     tri_bridge_fwd_tc_kernel.
 //   - wgrad_tc_kernel (wgrad_tc.cuh): gW and gb from those rows.
 //   Rows past R (a ragged last tile) are zero and masked.
 // * float32: the exactness check, CUDA cores: one block per 32-row tile,
@@ -42,6 +45,7 @@
 // (grad_reduce.cuh) in both: the same bits from run to run, no atomics.
 #include "grad_reduce.cuh"
 #include "philox.cuh"
+#include "tri_bridge_tc.cuh"
 #include "wgrad_tc.cuh"
 
 namespace {
@@ -300,29 +304,6 @@ constexpr int O_EX = O_G1 + TILE_BYTES;             // [4][wg][row][2] sums
 constexpr int O_PV = O_EX + 4 * 2 * TM * 2 * 4;     // gin, bin, bias, gout
 constexpr int TC_SMEM = O_PV + 8 * D * 4 + tc::ATOM_BYTES;
 
-// Per row half h: the sums of both warpgroups of exchange round `ex` (each
-// warpgroup first stores its quad sums of the row's own columns).
-__device__ __forceinline__ void row_pair_sums(float* ex, float (&a)[2],
-                                              float (&b)[2], int wg, int rl,
-                                              int lane) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    a[h] = quad_sum(a[h]);
-    b[h] = quad_sum(b[h]);
-    if ((lane & 3) == 0) {
-      ex[(wg * TM + rl + 8 * h) * 2] = a[h];
-      ex[(wg * TM + rl + 8 * h) * 2 + 1] = b[h];
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = rl + 8 * h;
-    a[h] = ex[r * 2] + ex[(TM + r) * 2];
-    b[h] = ex[r * 2 + 1] + ex[(TM + r) * 2 + 1];
-  }
-}
-
 // Sums over the thread's two rows and the eight lanes that hold the
 // column's other rows of v[i] (column pair i / 2, element i % 2); after it
 // v[0], v[1] hold columns 8 (b2 + 2 b3 + 4 b4) + 2 (lane % 4) + {0, 1}
@@ -379,11 +360,6 @@ tri_bridge_bwd_tc_kernel(const __nv_bfloat16* __restrict__ s,
   }
   tc_load_rows(w_s, W_ROWS, W, D, W_ROWS, tid, NTHREADS);
   tc::cp_async_commit();
-  // the pair of (row half h, column c) of a staged s or v tile
-  auto pair = [&](const uint8_t* tile, int h, int c) {
-    return tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(
-        tile + (c >> 6) * TILE_PANEL + tc::swz(rl + 8 * h, c & 63)));
-  };
   float vgi[3][2], vbi[3][2], vgo[2] = {0.f, 0.f}, vbo[2] = {0.f, 0.f};
 #pragma unroll
   for (int g = 0; g < 3; ++g)
@@ -405,89 +381,24 @@ tri_bridge_bwd_tc_kernel(const __nv_bfloat16* __restrict__ s,
       live[h] = rl + 8 * h < rows;
       row[h] = r0 + (live[h] ? rl + 8 * h : 0);
     }
-    // the dropout's keep bits of the three groups, drawn while few
-    // registers are live
+    // the dropout's keep bits of the three groups
     uint32_t kw[3][2][1];
-#pragma unroll
-    for (int g = 0; g < 3; ++g) {
-      kw[g][0][0] = kw[g][1][0] = ~0u;
-      if (drop.on())
-        tc_keep_bits<8, true>(drop, ((lane & 1) ? row[1] : row[0]) * (3 * D)
-                                  + g * D + half, lane, kw[g]);
-    }
+    tri_keep_bits(drop, row, lane, half, kw);
     tc::cp_async_wait<0>();
     tc::fence_async_smem();            // W (first tile) is read by wgmma
     __syncthreads();
     // ---- LN_in statistics over [s; v; s * v] (fast variance, clipped) ---
-    float mean[2] = {0.f, 0.f}, istd[2] = {0.f, 0.f};
-#pragma unroll
-    for (int pr = 0; pr < 16; ++pr) {
-      const int h = pr & 1, c = half + 8 * (pr >> 1) + cl;
-      const float2 a = pair(s_s, h, c), b = pair(v_s, h, c);
-      const float x0 = a.x * b.x, x1 = a.y * b.y;
-      mean[h] += (a.x + a.y) + (b.x + b.y) + (x0 + x1);
-      istd[h] += fmaf(a.x, a.x, a.y * a.y) + fmaf(b.x, b.x, b.y * b.y)
-                 + fmaf(x0, x0, x1 * x1);
-    }
-    row_pair_sums(ex_s, mean, istd, wg, rl, lane);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mean[h] *= 1.f / (3 * D);
-      istd[h] = rsqrtf(fmaxf(istd[h] * (1.f / (3 * D)) - mean[h] * mean[h],
-                             0.f) + LN_EPS);
-    }
+    float mean[2], istd[2];
+    tri_ln_in_stats(s_s, v_s, ex_s, mean, istd, wg, rl, lane);
     // ---- yd = dropout(LN_in(x)) into the bf16 tile and out as rows ------
-#pragma unroll
-    for (int g = 0; g < 3; ++g)
-#pragma unroll
-      for (int pr = 0; pr < 16; ++pr) {
-        const int h = pr & 1, q = pr >> 1, c = half + 8 * q + cl;
-        const float2 a = pair(s_s, h, c), b = pair(v_s, h, c);
-        const float x0 = g == 0 ? a.x : (g == 1 ? b.x : a.x * b.x);
-        const float x1 = g == 0 ? a.y : (g == 1 ? b.y : a.y * b.y);
-        const uint32_t bits = kw[g][h][0] >> (4 * q);
-        const float k0 = !drop.on() ? 1.f : (bits & 1u ? drop.scale : 0.f);
-        const float k1 = !drop.on() ? 1.f : (bits & 2u ? drop.scale : 0.f);
-        const int k = g * D + c;
-        const uint32_t y = tc::pack_bf16(
-            ((x0 - mean[h]) * istd[h] * gin_s[k] + bin_s[k]) * k0,
-            ((x1 - mean[h]) * istd[h] * gin_s[k + 1] + bin_s[k + 1]) * k1);
-        *reinterpret_cast<uint32_t*>(yd_s + (2 * g + wg) * TILE_PANEL
-                                     + tc::swz(rl + 8 * h, c & 63)) = y;
-        if (live[h])
-          *reinterpret_cast<uint32_t*>(yd_rows + row[h] * (3 * D) + k) = y;
-      }
+    tri_yd_tile<true>(s_s, v_s, yd_s, kw, drop, mean, istd, gin_s, bin_s,
+                      yd_rows, live, row, wg, rl, lane);
     tc::fence_async_smem();
     __syncthreads();                   // the yd tile is whole
     // ---- y1 = yd W (own columns); LN_out and ReLU backward ---------------
-    float acc[32];
-    tc::fence();
-#pragma unroll
-    for (int ks = 0; ks < 3 * D / 16; ++ks)
-      tc::mma_ss<64, 0, 1>(
-          acc,
-          tc::make_desc(tc::smem_u32(yd_s) + (ks / 4) * TILE_PANEL
-                            + (ks % 4) * 32, 16),
-          tc::make_desc(tc::smem_u32(w_s) + wg * W_PANEL
-                            + ks * 2 * tc::ATOM_BYTES, W_PANEL),
-          ks > 0);
-    tc::commit();
-    tc::wait_all();
-    float m2[2] = {0.f, 0.f}, i2[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int h = (i >> 1) & 1, c = half + acc_col(i, lane);
-      acc[i] += bias_s[c];                                   // y1
-      const float y2 = fmaxf(acc[i], 0.f);
-      m2[h] += y2;
-      i2[h] = fmaf(y2, y2, i2[h]);
-    }
-    row_pair_sums(ex_s + 2 * TM * 2, m2, i2, wg, rl, lane);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      m2[h] *= 1.f / D;
-      i2[h] = rsqrtf(fmaxf(i2[h] * (1.f / D) - m2[h] * m2[h], 0.f) + LN_EPS);
-    }
+    float acc[32], m2[2], i2[2];
+    tri_y1_mma(acc, yd_s, w_s, wg);
+    tri_ln_out_stats(acc, bias_s, ex_s + 2 * TM * 2, m2, i2, wg, rl, lane);
     float gg[32], s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
     {
       float tg[16], tb[16];
@@ -515,7 +426,7 @@ tri_bridge_bwd_tc_kernel(const __nv_bfloat16* __restrict__ s,
       fold_cols(tg, vgo, lane);
       fold_cols(tb, vbo, lane);
     }
-    row_pair_sums(ex_s + 2 * 2 * TM * 2, s1, s2, wg, rl, lane);
+    tri_row_pair_sums(ex_s + 2 * 2 * TM * 2, s1, s2, wg, rl, lane);
 #pragma unroll
     for (int pr = 0; pr < 16; ++pr) {
       const int h = pr & 1, c = half + 8 * (pr >> 1) + cl;
@@ -561,7 +472,8 @@ tri_bridge_bwd_tc_kernel(const __nv_bfloat16* __restrict__ s,
 #pragma unroll
       for (int pr = 0; pr < 16; ++pr) {
         const int h = pr & 1, q = pr >> 1, c = half + 8 * q + cl;
-        const float2 a = pair(s_s, h, c), b = pair(v_s, h, c);
+        const float2 a = tri_pair(s_s, rl, h, c),
+                   b = tri_pair(v_s, rl, h, c);
         const uint32_t bits = kw[g][h][0] >> (4 * q);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
@@ -588,11 +500,12 @@ tri_bridge_bwd_tc_kernel(const __nv_bfloat16* __restrict__ s,
       fold_cols(tg, vgi[g], lane);
       fold_cols(tb, vbi[g], lane);
     }
-    row_pair_sums(ex_s + 3 * 2 * TM * 2, t1, t2, wg, rl, lane);
+    tri_row_pair_sums(ex_s + 3 * 2 * TM * 2, t1, t2, wg, rl, lane);
 #pragma unroll
     for (int pr = 0; pr < 16; ++pr) {
       const int h = pr & 1, c = half + 8 * (pr >> 1) + cl;
-      const float2 a = pair(s_s, h, c), b = pair(v_s, h, c);
+      const float2 a = tri_pair(s_s, rl, h, c),
+                   b = tri_pair(v_s, rl, h, c);
       float os[2], ov[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {

@@ -1,30 +1,45 @@
 // Fused tri-concat MLP bridge, forward, with its dropout.
 //
 // Replaces the TPU kernel tvqaplus_tpu/ops/pallas_tri_bridge.py
-// (fused_tri_bridge -> _forward / _fwd_kernel), STAGE's concat_fc.  For
-// every row of the (B, A, Li, Lqa, D) attended statements s and v:
+// (fused_tri_bridge -> _forward / _fwd_kernel :92, _bridge_fwd :56-89),
+// STAGE's concat_fc.  For every row of the (B, A, Li, Lqa, D) attended
+// statements s and v:
 //   x    = [s; v; s * v]                         (3D wide, never stored)
 //   y    = LN_in(x)        fast variance clipped at 0, float32 stats
 //          (training: times the Philox dropout mask of philox.cuh, keyed
 //          by the flat index of the (rows, 3D) LN output)
 //   out  = LN_out(ReLU(y W + bias))              W: (3D, D)
-// out has the activation type of s and v.  With bf16 activations the product
-// rounds y and W to bf16 and sums in float32, as the TPU kernel's bf16
-// compute mode does (pallas_tri_bridge.py:77-79).
+// out has the activation type of s and v.
 //
 // What bounds it on the H100: per row it reads 2 x D values, writes D and
-// does 2 * 3D * D FLOPs (160,000 rows at the headline eval: ~123 MB, ~16
-// GFLOP), so at the card's peaks it is bound by bytes (~37 us); on the
-// float32 CUDA cores it uses, the 3D x D product bounds it.
-// Design: one block per tile of 32 rows; each warp owns 4 rows.  The LN_in
-// statistics over the virtual concat are three partial sums per lane, so
-// the 3D-wide input exists only as the tile's normalised 32 x 3D buffer in
-// shared memory.  The block multiplies it by W, which is staged 32 rows at
-// a time through shared memory from L2 (every block reads the same 196 KB).
-// A warp's 32 lanes hold a row's 128 outputs (4 each), so LN_out is a warp
-// reduction in registers, and the output is written once.
+// does 2 * 3D * D FLOPs (160,000 rows at the headline eval: ~123 MB in
+// bf16, ~16 GFLOP), so at the card's peaks it is bound by bytes (~37 us).
+//
+// Two instantiations.
+// * bfloat16 (what the main paths run): tri_bridge_fwd_tc_kernel, the
+//   backward's recompute (tri_bridge_bwd.cu) without the backward, on the
+//   same device functions (tri_bridge_tc.cuh).  The product is a wgmma on
+//   bf16 operands with float32 sums, rounded where the TPU kernel's bf16
+//   compute mode rounds (yd and W, pallas_tri_bridge.py:77-79).  One
+//   persistent block an SM walks 64-row tiles with W resident (rounded to
+//   bf16 as each block loads it, 96 KB, read MN-major), so W is read once a
+//   block, not once a tile; s and v
+//   arrive by cp.async into swizzled panels, double-buffered so that the
+//   next tile's rows load while this one computes.  The two warpgroups
+//   share a tile and split its columns: the LN_in statistics over the
+//   virtual concat and LN_out's row sums cross them through shared memory.
+//   yd goes into a bf16 tile (the product's A), never to device memory;
+//   y1 = yd W stays in registers through bias, ReLU and LN_out, and the
+//   output is stored once in bf16.  Rows past R (a ragged last tile) are
+//   zero and masked.  150 registers a thread, 0 bytes of spill; 215.5 KB
+//   of shared memory.
+// * float32: the exactness check, CUDA cores: one block per tile of 32 rows,
+//   each warp 4 rows; the tile's normalised 32 x 3D input in shared memory
+//   is multiplied by W, staged 32 rows at a time from L2; a warp's lanes
+//   hold a row's 128 outputs, so LN_out is a warp reduction in registers.
 #include "common.cuh"
 #include "philox.cuh"
+#include "tri_bridge_tc.cuh"
 
 namespace {
 
@@ -34,15 +49,14 @@ constexpr int RPT = 4;
 constexpr int RT = RPT * NWARPS;        // 32 rows per block
 constexpr int SMEM_FLOATS = RT * 3 * D + KC * D;
 
-template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-tri_bridge_fwd_kernel(const T* __restrict__ s, const T* __restrict__ v,
+tri_bridge_fwd_kernel(const float* __restrict__ s, const float* __restrict__ v,
                       const float* __restrict__ gin,
                       const float* __restrict__ bin,
                       const float* __restrict__ W,
                       const float* __restrict__ bias,
                       const float* __restrict__ gout,
-                      const float* __restrict__ bout, T* __restrict__ out,
+                      const float* __restrict__ bout, float* __restrict__ out,
                       long long R, Dropout drop) {
   extern __shared__ float4 smem4[];
   float* y_s = reinterpret_cast<float*>(smem4);
@@ -59,8 +73,8 @@ tri_bridge_fwd_kernel(const T* __restrict__ s, const T* __restrict__ v,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int d = lane + 32 * q;
-      const float a = live ? to_f(s[row * D + d]) : 0.f;
-      const float c = live ? to_f(v[row * D + d]) : 0.f;
+      const float a = live ? s[row * D + d] : 0.f;
+      const float c = live ? v[row * D + d] : 0.f;
       x[0][q] = a;
       x[1][q] = c;
       x[2][q] = a * c;
@@ -95,15 +109,10 @@ tri_bridge_fwd_kernel(const T* __restrict__ s, const T* __restrict__ v,
         for (int t = 0; t < 4; ++t) yr[k0 + t] *= km[t];
       }
     }
-    if (is_bf16<T>) {            // the product's operand rounding
-      __syncwarp();
-      for (int k = lane; k < 3 * D; k += 32) yr[k] = round_bf16(yr[k]);
-    }
   }
 
   float acc[RPT][4];
-  gemm_staged<RPT, is_bf16<T>>(acc, y_s, 3 * D, 3 * D, W, w_s, warp * RPT,
-                               lane * 4);
+  gemm_staged<RPT>(acc, y_s, 3 * D, 3 * D, W, w_s, warp * RPT, lane * 4);
 
   const int c0 = lane * 4;
   const float4 bv = *reinterpret_cast<const float4*>(bias + c0);
@@ -122,33 +131,158 @@ tri_bridge_fwd_kernel(const T* __restrict__ s, const T* __restrict__ v,
     const float var = fmaxf(ss * (1.f / D) - mean * mean, 0.f);
     const float istd = rsqrtf(var + LN_EPS);
     if (row < R)
-      store4<T>(out + row * D + c0, (h0 - mean) * istd * gv.x + ov.x,
-                (h1 - mean) * istd * gv.y + ov.y,
-                (h2 - mean) * istd * gv.z + ov.z,
-                (h3 - mean) * istd * gv.w + ov.w);
+      store4<float>(out + row * D + c0, (h0 - mean) * istd * gv.x + ov.x,
+                    (h1 - mean) * istd * gv.y + ov.y,
+                    (h2 - mean) * istd * gv.z + ov.z,
+                    (h3 - mean) * istd * gv.w + ov.w);
   }
 }
 
-template <typename T>
-int launch(const void* s, const void* v, const float* gin, const float* bin,
-           const float* W, const float* bias, const float* gout,
-           const float* bout, void* out, long long R, Dropout drop,
-           cudaStream_t stream) {
+int launch_f32(const float* s, const float* v, const float* gin,
+               const float* bin, const float* W, const float* bias,
+               const float* gout, const float* bout, float* out, long long R,
+               Dropout drop, cudaStream_t stream) {
   const size_t bytes = sizeof(float) * SMEM_FLOATS;
-  cudaError_t err = allow_smem(tri_bridge_fwd_kernel<T>, bytes);
+  cudaError_t err = allow_smem(tri_bridge_fwd_kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>((R + RT - 1) / RT);
-  tri_bridge_fwd_kernel<T><<<blocks, NTHREADS, bytes, stream>>>(
-      static_cast<const T*>(s), static_cast<const T*>(v), gin, bin, W, bias,
-      gout, bout, static_cast<T*>(out), R, drop);
+  tri_bridge_fwd_kernel<<<blocks, NTHREADS, bytes, stream>>>(
+      s, v, gin, bin, W, bias, gout, bout, out, R, drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the bfloat16 instantiation: tensor cores ------------------------------
+
+constexpr int O_SV = W_BYTES;                       // [2 buffers][s, v]
+constexpr int O_YD = O_SV + 2 * 2 * TILE_BYTES;     // yd (64 x 3D)
+constexpr int O_EX = O_YD + 6 * TILE_PANEL;         // [2][wg][row][2] sums
+constexpr int O_PV = O_EX + 2 * 2 * TM * 2 * 4;     // gin, bin, bias, gout,
+constexpr int TC_SMEM = O_PV + 9 * D * 4 + tc::ATOM_BYTES;  // bout
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+tri_bridge_fwd_tc_kernel(const __nv_bfloat16* __restrict__ s,
+                         const __nv_bfloat16* __restrict__ v,
+                         const float* __restrict__ gin,
+                         const float* __restrict__ bin,
+                         const float* __restrict__ W,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ gout,
+                         const float* __restrict__ bout,
+                         __nv_bfloat16* __restrict__ out, long long R,
+                         Dropout drop) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_smem(smem_raw);
+  uint8_t* w_s = sm;
+  uint8_t* yd_s = sm + O_YD;
+  float* ex_s = reinterpret_cast<float*>(sm + O_EX);
+  float* gin_s = reinterpret_cast<float*>(sm + O_PV);
+  float* bin_s = gin_s + 3 * D;
+  float* bias_s = bin_s + 3 * D;
+  float* gout_s = bias_s + D;
+  float* bout_s = gout_s + D;
+
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31;
+  const int rl = 16 * warp + (lane >> 2);
+  const int cl = 2 * (lane & 3);
+  const int half = 64 * wg;
+  for (int k = tid; k < 3 * D; k += NTHREADS) {
+    gin_s[k] = gin[k];
+    bin_s[k] = bin[k];
+  }
+  if (tid < D) {
+    bias_s[tid] = bias[tid];
+    gout_s[tid] = gout[tid];
+    bout_s[tid] = bout[tid];
+  }
+  tc_store_rows_f32(w_s, W_ROWS, W, D, tid, NTHREADS);
+  const long long tiles = (R + TM - 1) / TM;
+  // cp.async of the s and v rows of `tile` into buffer `buf` (rows past R
+  // zeroed)
+  auto load_sv = [&](long long tile, int buf) {
+    const long long r0 = tile * TM;
+    const int rows = static_cast<int>(min(static_cast<long long>(TM),
+                                          R - r0));
+    uint8_t* dst = sm + O_SV + buf * 2 * TILE_BYTES;
+    tc_load_rows(dst, TM, s + r0 * D, D, rows, tid, NTHREADS);
+    tc_load_rows(dst + TILE_BYTES, TM, v + r0 * D, D, rows, tid, NTHREADS);
+  };
+  if (blockIdx.x < tiles) load_sv(blockIdx.x, 0);
+  tc::cp_async_commit();
+
+  int buf = 0;
+  for (long long tile = blockIdx.x; tile < tiles;
+       tile += gridDim.x, buf ^= 1) {
+    const long long r0 = tile * TM;
+    const int rows = static_cast<int>(min(static_cast<long long>(TM),
+                                          R - r0));
+    // the other buffer was read by the previous tile, which every thread
+    // has finished (its LN_out exchange is a block barrier)
+    if (tile + gridDim.x < tiles) load_sv(tile + gridDim.x, buf ^ 1);
+    tc::cp_async_commit();
+    bool live[2];
+    long long row[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      live[h] = rl + 8 * h < rows;
+      row[h] = r0 + (live[h] ? rl + 8 * h : 0);
+    }
+    uint32_t kw[3][2][1];
+    tri_keep_bits(drop, row, lane, half, kw);
+    tc::cp_async_wait<1>();            // this tile's s and v
+    tc::fence_async_smem();            // W (first tile) is read by wgmma
+    __syncthreads();
+    const uint8_t* s_s = sm + O_SV + buf * 2 * TILE_BYTES;
+    const uint8_t* v_s = s_s + TILE_BYTES;
+    float mean[2], istd[2];
+    tri_ln_in_stats(s_s, v_s, ex_s, mean, istd, wg, rl, lane);
+    tri_yd_tile<false>(s_s, v_s, yd_s, kw, drop, mean, istd, gin_s, bin_s,
+                       nullptr, live, row, wg, rl, lane);
+    tc::fence_async_smem();
+    __syncthreads();                   // the yd tile is whole
+    float acc[32], m2[2], i2[2];
+    tri_y1_mma(acc, yd_s, w_s, wg);
+    tri_ln_out_stats(acc, bias_s, ex_s + 2 * TM * 2, m2, i2, wg, rl, lane);
+#pragma unroll
+    for (int pr = 0; pr < 16; ++pr) {
+      const int h = pr & 1, c = half + 8 * (pr >> 1) + cl;
+      float o[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        o[e] = (fmaxf(acc[2 * pr + e], 0.f) - m2[h]) * i2[h] * gout_s[c + e]
+               + bout_s[c + e];
+      if (live[h])
+        *reinterpret_cast<uint32_t*>(out + row[h] * D + c) =
+            tc::pack_bf16(o[0], o[1]);
+    }
+  }
+}
+
+int launch_tc(const void* s, const void* v, const float* gin,
+              const float* bin, const float* W, const float* bias,
+              const float* gout, const float* bout, void* out, long long R,
+              Dropout drop, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  auto h = [](const void* p) { return static_cast<const bf16*>(p); };
+  cudaError_t err = allow_smem(tri_bridge_fwd_tc_kernel, TC_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long tiles = (R + TM - 1) / TM;
+  const int blocks = static_cast<int>(tiles < sms ? tiles : sms);
+  tri_bridge_fwd_tc_kernel<<<blocks, NTHREADS, TC_SMEM, stream>>>(
+      h(s), h(v), gin, bin, W, bias, gout, bout, static_cast<bf16*>(out), R,
+      drop);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // s, v, out: R rows of D, all bf16 (is_bf16) or all float32; gin/bin (3D),
-// W (3D, D), bias/gout/bout (D) float32.  Dropout on the LN_in output when
-// drop_threshold > 0 (philox.cuh).
+// W (3D, D), bias/gout/bout (D) float32, 16-byte aligned; bf16 s and v are
+// 16-byte aligned.  Dropout on the LN_in output when drop_threshold > 0
+// (philox.cuh).
 extern "C" int tri_bridge_fwd(const void* s, const void* v, const void* gin,
                               const void* bin, const void* W,
                               const void* bias, const void* gout,
@@ -159,9 +293,10 @@ extern "C" int tri_bridge_fwd(const void* s, const void* v, const void* gin,
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto st = static_cast<cudaStream_t>(stream);
   const Dropout drop{drop_seed, drop_threshold, drop_scale};
+  if (R < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16)
-    return launch<__nv_bfloat16>(s, v, f(gin), f(bin), f(W), f(bias),
-                                 f(gout), f(bout), out, R, drop, st);
-  return launch<float>(s, v, f(gin), f(bin), f(W), f(bias), f(gout), f(bout),
-                       out, R, drop, st);
+    return launch_tc(s, v, f(gin), f(bin), f(W), f(bias), f(gout), f(bout),
+                     out, R, drop, st);
+  return launch_f32(f(s), f(v), f(gin), f(bin), f(W), f(bias), f(gout),
+                    f(bout), static_cast<float*>(out), R, drop, st);
 }

@@ -227,6 +227,25 @@ __device__ __forceinline__ void tc_load_rows(uint8_t* dst, int R,
   }
 }
 
+// R rows of D float32 values (row stride ld, 16-byte aligned) rounded to
+// bf16 into the two panels of an R-row matrix at dst, the layout of
+// tc_load_rows; thread t of n.  Generic-proxy stores: fence_async_smem
+// before a wgmma reads them.
+__device__ __forceinline__ void tc_store_rows_f32(uint8_t* dst, int R,
+                                                  const float* src, int ld,
+                                                  int t, int n) {
+  for (int c = t; c < R * 16; c += n) {
+    const int r = c >> 4, ch = c & 15;
+    const float4* p = reinterpret_cast<const float4*>(
+        src + static_cast<size_t>(r) * ld + ch * 8);
+    const float4 a = __ldg(p), b = __ldg(p + 1);
+    *reinterpret_cast<uint4*>(dst + (ch >> 3) * (R * tc::ROW_BYTES)
+                              + tc::swz_chunk(r, ch & 7)) =
+        make_uint4(tc::pack_bf16(a.x, a.y), tc::pack_bf16(a.z, a.w),
+                   tc::pack_bf16(b.x, b.y), tc::pack_bf16(b.z, b.w));
+  }
+}
+
 // Sum over the four lanes that share a row of the accumulator layout.
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);

@@ -2,10 +2,18 @@
 ``python -m tvqaplus_tpu_torch.inference --model_dir <run> --mode valid``.
 
 Reloads the run's ``opt.json`` (every field overrides the CLI's, except
-``debug``; reference TestOptions), loads the run's ``best_valid.pth`` (a
-reference-format state_dict), runs inference and writes
-``{mode}_inference_predictions.json`` beside them.  Runs on ``cuda`` unless
-``--device cpu`` is given.
+``debug``; reference TestOptions), loads a checkpoint of the run, runs
+inference and writes ``{mode}_inference_predictions.json`` beside them.
+
+* ``--model_dir``: the run directory, or a name under ``results/``.
+* ``--checkpoint NAME``: the file to serve, relative to the run directory
+  or absolute: a reference-format state_dict (``best_valid.pth``) or the
+  trainer's own ``last.ckpt`` (model and optimizer; only the model is
+  read).  Without it: ``best_valid.pth``, or ``last.ckpt`` with a warning
+  when the run never wrote the best one (it is written only when the
+  validation accuracy improves).
+
+Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -17,27 +25,62 @@ from tvqaplus_tpu_torch.data.synthetic import SyntheticTVQADataset
 from tvqaplus_tpu_torch.infer.predict import InferenceRunner
 from tvqaplus_tpu_torch.interop.weights import load_reference_checkpoint
 from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+from tvqaplus_tpu_torch.train.state import load_model_state
 from tvqaplus_tpu_torch.utils.io import save_json
 
 EXTRA_FLAGS = (
     ("--model_dir", dict(type=str, required=True,
-                         help="run directory holding opt.json and "
-                              "best_valid.pth")),
+                         help="run directory holding opt.json and the "
+                              "checkpoints, or its name under results/")),
     ("--mode", dict(type=str, default="valid", help="valid/test")),
+    ("--checkpoint", dict(type=str, default="",
+                          help="serve this checkpoint (relative to the run "
+                               "directory, e.g. last.ckpt) instead of "
+                               "best_valid.pth")),
     ("--device", dict(type=str, default="cuda", choices=("cuda", "cpu"))),
 )
+
+
+def run_directory(model_dir):
+    """``model_dir`` itself when it is a directory, else ``results/<name>``
+    (JAX inference.py:45-46)."""
+    return model_dir if os.path.isdir(model_dir) \
+        else os.path.join("results", model_dir)
+
+
+def checkpoint_path(run_dir, name=""):
+    """The checkpoint to serve: ``name`` (relative to ``run_dir`` or
+    absolute), else ``best_valid.pth``, else ``last.ckpt`` with a warning."""
+    if name:
+        return name if os.path.isabs(name) else os.path.join(run_dir, name)
+    best = os.path.join(run_dir, "best_valid.pth")
+    last = os.path.join(run_dir, "last.ckpt")
+    if not os.path.exists(best) and os.path.exists(last):
+        print(f"warning: {best} missing, using {last}")
+        return last
+    return best
+
+
+def load_weights(path):
+    """The model's state_dict from a ``.ckpt`` of the trainer
+    (``train/state.py`` ``save_checkpoint``) or a reference-format state
+    dict."""
+    if path.endswith(".ckpt"):
+        return load_model_state(path)
+    return load_reference_checkpoint(path)
 
 
 def main_inference(argv=None):
     cfg, extras = parse_args(argv, extra_fields=EXTRA_FLAGS)
     device = resolve_device(extras.device)
-    run_dir = extras.model_dir
+    run_dir = run_directory(extras.model_dir)
     cfg.override_from(os.path.join(run_dir, "opt.json"))
     cfg.resolve_device_policy(device)
 
     model = STAGE(ModelConfig.from_config(cfg))
-    model.load_state_dict(load_reference_checkpoint(
-        os.path.join(run_dir, "best_valid.pth")), strict=True)
+    model.load_state_dict(
+        load_weights(checkpoint_path(run_dir, extras.checkpoint)),
+        strict=True)
 
     if not (cfg.synthetic_data or not cfg.train_path):
         raise NotImplementedError(

@@ -29,9 +29,9 @@ flat index) through Philox (ops/philox.py).
 Two compute modes, chosen by the activations' type.  float32: exact, the
 CUDA-core kernels.  bfloat16 (what the entry points run on the card): the
 pointwise products take bf16 operands with float32 sums, as the TPU
-kernel's bf16 compute mode does: the forward kernel rounds at those sites on
-the CUDA cores, the backward runs its products on the tensor cores, and the
-plain version rounds at the same sites (``block_layers``).
+kernel's bf16 compute mode does: the forward and backward kernels run
+their products on the tensor cores, and the plain version rounds at the
+same sites (``block_layers``).
 """
 from __future__ import annotations
 
@@ -42,6 +42,7 @@ import torch
 from tvqaplus_tpu_torch.ops import philox
 from tvqaplus_tpu_torch.ops._build import (
     CudaKernel,
+    check_aligned,
     check_device,
     ptr,
     sm_count,
@@ -192,6 +193,8 @@ def _check(x, pe, packed, k, reduce_mask=None, zero_mask=None):
     m32 = None if mask is None else as_f32(mask)
     check_device(x.device, pe=pe32, params=packed32,
                  **({} if m32 is None else {"mask": m32}))
+    if x.dtype == torch.bfloat16:      # the forward copies 16-byte chunks
+        check_aligned(x=x)
     return packed32, pe32, m32
 
 

@@ -12,9 +12,9 @@ keyed by (seed, flat index) through Philox (ops/philox.py).
 Two compute modes, chosen by the activations' type.  float32: exact, the
 CUDA-core kernels.  bfloat16 (what the entry points run on the card): the
 product takes bf16 operands with float32 sums, as the TPU kernel's bf16
-compute mode does: the forward kernel rounds at those sites on the CUDA
-cores, the backward runs its products on the tensor cores, and the plain
-version rounds at the same sites (``tri_bridge_pre``).
+compute mode does: the forward and backward kernels run their products on
+the tensor cores, and the plain version rounds at the same sites
+(``tri_bridge_pre``).
 """
 from __future__ import annotations
 
@@ -91,6 +91,8 @@ def _check(s, v, params):
         raise ValueError("s and v must be contiguous")
     params = [as_f32(t) for t in params]
     check_device(s.device, v=v, **dict(zip(_NAMES, params)))
+    if s.dtype == torch.bfloat16:      # the kernels copy 16-byte chunks
+        check_aligned(s=s, v=v)
     shapes = [(3 * d,), (3 * d,), (3 * d, d), (d,), (d,), (d,)]
     if [tuple(p.shape) for p in params] != shapes:
         raise ValueError("bridge parameters do not match D")
@@ -136,7 +138,7 @@ def tri_bridge_backward(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
     f32 = dict(dtype=torch.float32, device=s.device)
     gs, gv = torch.empty_like(s), torch.empty_like(v)
     if s.dtype == torch.bfloat16:      # the tensor-core kernel
-        check_aligned(s=s, v=v, g=g)
+        check_aligned(g=g)
         bf16 = dict(dtype=torch.bfloat16, device=s.device)
         chunks = tc_wgrad_chunks(rows, 3 * d)
         blocks = min(-(-rows // 64), sm_count(s.device))

@@ -92,3 +92,9 @@ def load_checkpoint(path, model, optimizer):
     model.load_state_dict(payload["model"])
     optimizer.load_state_dict(payload["optimizer"])
     return payload["step"], payload.get("extra", {})
+
+
+def load_model_state(path):
+    """The model's state_dict alone from a ``save_checkpoint`` file, on
+    the CPU (what the inference CLI serves)."""
+    return torch.load(path, map_location="cpu", weights_only=True)["model"]
