@@ -7,6 +7,14 @@ toolkit.  Phases, each printing one JSON line:
 
 1. device  - the card (``nvidia-smi`` name and power limit), torch/CUDA
              versions; TF32 off for matmuls and convolutions.
+1e. evaluator - the port's TVQA+ evaluator on the in-repo val set
+             (``eval_data/tvqa_plus_val.json``, 3,017 QA pairs) with the
+             ground truth as the prediction (``gt_as_prediction``, reference
+             eval/readme.txt:13-17): QA accuracy, mIoU and ASA must be the
+             self-check's (EVAL_SELF_CHECK), the grounding mAP inside
+             EVAL_MAP_RANGE.  The TVQA+ artifact loader (``data/tvqa.py``,
+             needs h5py) is held by the CPU tests
+             (``tests/test_torch_fixture_e2e.py``), not here.
 2. build   - builds every kernel from ``tvqaplus_tpu_torch/csrc``.
 3. kernels - each kernel at the headline serving shapes (batch 16, 5
              answers, 50 frames, 40 QA tokens, 25 regions / 50 subtitle
@@ -154,6 +162,19 @@ BRIDGE_BF16_REL_L2 = 0.1
 # (ops/checks.py), so it is held relative to its parameter's largest
 # gradient (see phase_train_vs_cpu)
 STEP_TOL = {"loss": 1e-4, "grad_norm": 1e-3, "grad_rel": 1e-2}
+# The GT self-check on eval_data/tvqa_plus_val.json, as the JAX package's
+# evaluator gives it (tests/test_torch_evaluation.py): QA 1.0; two of the
+# 3,017 GT spans have zero length (IoU 0 by definition), so mIoU and ASA are
+# 3015/3017.  11 GT boxes repeat a box of their frame and label, and a
+# repeated prediction meets the first one already matched (a false
+# positive), so the mAP stays below 1.  Its last digits follow the order in
+# which numpy's argsort leaves tied scores (all are 1.0 here):
+# 0.9978110088507862 with one numpy build, 0.9978110050914022 (a stable
+# sort's order) with another; it is held to the reference's ~0.999
+# (eval/readme.txt:13-17) as the JAX package's test holds it (> 0.99).
+EVAL_SELF_CHECK = {"qa_acc": 1.0, "miou": 3015 / 3017,
+                   "ans_span_joint_acc@.5": 3015 / 3017}
+EVAL_MAP_RANGE = (0.99, 1.0)    # exclusive
 
 
 def emit(obj):
@@ -214,6 +235,30 @@ def phase_device():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda})
     return smi
+
+
+def phase_evaluator(workdir):
+    """The port's evaluator self-check on the in-repo TVQA+ val set."""
+    from tvqaplus_tpu_torch.data.fixtures import gt_as_prediction
+    from tvqaplus_tpu_torch.evaluation.tvqa_metrics import evaluate_tvqa_plus
+    gt_path = os.path.join(HERE, "eval_data", "tvqa_plus_val.json")
+    w2i_path = os.path.join(HERE, "eval_data", "word2idx.json")
+    t0 = time.perf_counter()
+    pred = gt_as_prediction(gt_path, os.path.join(workdir, "gt_as_pred.json"))
+    metrics = evaluate_tvqa_plus(pred, gt_path, w2i_path,
+                                 no_preproc_pred=True)
+    wall_s = time.perf_counter() - t0
+    got = {k: metrics[k] for k in (*EVAL_SELF_CHECK, "overall_map")}
+    off = {k: v for k, v in EVAL_SELF_CHECK.items()
+           if not abs(got[k] - v) <= 1e-12}
+    lo, hi = EVAL_MAP_RANGE
+    if off or not lo < got["overall_map"] < hi \
+            or len(metrics["metrics_per_class"]) == 0:
+        raise AssertionError(f"evaluator self-check: {got}, expected "
+                             f"{EVAL_SELF_CHECK}, mAP in {EVAL_MAP_RANGE}")
+    emit({"phase": "evaluator", "ok": True, "qa_pairs": 3017,
+          "metrics": got, "classes": len(metrics["metrics_per_class"]),
+          "wall_s": wall_s})
 
 
 def phase_build():
@@ -1380,6 +1425,7 @@ def main():
     train_rows = phase_train_kernels(dev)
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
+        phase_evaluator(workdir)
         cfg, sd, launches, pred, cpu = phase_main(dev, workdir)
         merged = phase_merged_main(dev, workdir, cfg, sd, pred, cpu)
         phase_serving(dev, cfg, sd)

@@ -55,6 +55,31 @@ def test_source_imports_nothing_of_jax(path):
         assert not set(roots) & set(FORBIDDEN), (path, node.lineno, roots)
 
 
+def test_h5py_is_imported_only_where_artifacts_are_read():
+    """h5py (absent on some machines) is imported inside the functions that
+    read or write the TVQA+ HDF5 artifacts, never at a module's top."""
+    where = []
+    for path in port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        top = set(map(id, tree.body))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import) and any(
+                    a.name.split(".")[0] == "h5py" for a in node.names):
+                assert id(node) not in top, (path, node.lineno)
+                where.append(os.path.relpath(path, REPO))
+    assert sorted(where) == ["tvqaplus_tpu_torch/data/fixtures.py",
+                             "tvqaplus_tpu_torch/data/tvqa.py"]
+    code = ("import importlib, pkgutil, sys\n"
+            "import tvqaplus_tpu_torch as p\n"
+            "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "assert 'h5py' not in sys.modules\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_entry_points_refuse_cpu_fallback(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: the default device is usable")

@@ -10,6 +10,9 @@ buckets.  Batch contract (numpy; B = batch, A = 5 answers):
   sub_mask (B, Li, Ls), vid (B, Li, Lr, Dv), vid_mask (B, Li, Lr),
   target / ts_st / ts_ed / anno_st (B,) int32, ts_mask (B, Li),
   ex_mask (B,) f32,
+with ``qa_noun_masks`` (B, A, Lqa) f32 when an example carries noun masks
+and ``vcpt`` / ``vcpt_mask`` (B, Li, Lr) when the vcpt stream is asked for
+(both shipped as the JAX collate ships them; STAGE reads neither yet),
 and for training (``att_entry_cap`` > 0) the supervised-attention entry
 arrays ``ATT_KEYS`` (data/labels.py ``att_entries_from_dense``).
 Host metadata (qid, vid_name, image_indices, boxes, ...) rides beside.
@@ -41,6 +44,7 @@ class StaticShapeSpec:
     vfeat_dim: int = 300
     max_sub_tokens: int = 0   # > 0: dedup contract (sub_tokens+sub_win_idx)
     att_entry_cap: int = 0    # > 0: training batch with ATT_KEYS (E slots)
+    vcpt: bool = False        # ship the vcpt word-id batch keys
 
     @classmethod
     def from_config(cls, cfg, batch=None, train=False):
@@ -50,7 +54,8 @@ class StaticShapeSpec:
                    max_sub_l=cfg.max_sub_l, num_region=cfg.num_region,
                    bert_dim=cfg.embedding_size, vfeat_dim=cfg.vfeat_size,
                    max_sub_tokens=cfg.max_sub_tokens if dedup else 0,
-                   att_entry_cap=cfg.att_entry_cap if train else 0)
+                   att_entry_cap=cfg.att_entry_cap if train else 0,
+                   vcpt=cfg.vcpt_flag)
 
     def with_max_img(self, max_img):
         return dataclasses.replace(self, max_img=max_img)
@@ -103,6 +108,9 @@ def zeros_batch(spec: StaticShapeSpec):
         **att_keys,
         "anno_st": np.zeros((s.batch,), np.int32),
         "ex_mask": np.zeros((s.batch,), f32),
+        **({"vcpt": np.zeros((s.batch, s.max_img, s.num_region), np.int32),
+            "vcpt_mask": np.zeros((s.batch, s.max_img, s.num_region), f32)}
+           if s.vcpt else {}),
     }
 
 
@@ -135,6 +143,19 @@ def collate_static(examples: List[dict], spec: StaticShapeSpec):
             out["qas_mask"][b, a, : len(ids)] = 1.0
         pad_into(ex["qas_bert"], s.max_qa_l, out["qas_bert"][b], scratch)
         out["q_l"][b] = ex.get("q_l", 0)
+        if ex.get("qa_noun_masks") is not None:
+            if "qa_noun_masks" not in out:
+                out["qa_noun_masks"] = np.zeros(
+                    (s.batch, s.num_a, s.max_qa_l), np.float32)
+            for a in range(s.num_a):
+                m = np.asarray(ex["qa_noun_masks"][a],
+                               np.float32)[: s.max_qa_l]
+                out["qa_noun_masks"][b, a, : len(m)] = m
+        if s.vcpt and ex.get("vcpt") is not None:
+            for i, frame_ids in enumerate(ex["vcpt"][: s.max_img]):
+                ids = np.asarray(frame_ids, np.int32)[: s.num_region]
+                out["vcpt"][b, i, : len(ids)] = ids
+                out["vcpt_mask"][b, i, : len(ids)] = 1.0
         if s.max_sub_tokens:
             n_sub, n_over = _collate_sub_dedup(ex, s, out, b)
         else:

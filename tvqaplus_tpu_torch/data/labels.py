@@ -1,9 +1,91 @@
-"""Attention labels (the port's copy of the part of
-``tvqaplus_tpu/data/labels.py`` that the synthetic dataset and the
-training collate need): densification and the att-loss entry arrays."""
+"""Attention labels and the vocabulary (the port's copy of
+``tvqaplus_tpu/data/labels.py``).
+
+The supervised-attention targets couple GT boxes to detected regions through
+string-matched labels and box IoU (reference tvqa_dataset.py:331-408).  They
+are emitted dense: a (num_img, num_words, num_region) float array per
+example plus a validity mask, from which the collate extracts the att loss's
+static entry arrays on the host.
+"""
 from __future__ import annotations
 
 import numpy as np
+
+from tvqaplus_tpu_torch.utils.io import load_glove, load_json, save_json
+from tvqaplus_tpu_torch.utils.misc import compute_iou_xyxy, \
+    match_stanford_tokenizer
+
+PAD, UNK, EOS = "<pad>", "<unk>", "<eos>"
+PAD_ID, UNK_ID, EOS_ID = 0, 1, 2
+
+
+def iou_single_gt_box(single_box, detected_boxes):
+    """IoUs of one GT box (top/left/width/height dict) against detected
+    xyxy boxes, rounded to 4 decimals (reference tvqa_dataset.py:331-338)."""
+    gt = [single_box["left"], single_box["top"],
+          single_box["left"] + single_box["width"],
+          single_box["top"] + single_box["height"]]
+    return [float("{:.4f}".format(compute_iou_xyxy(gt, d)))
+            for d in detected_boxes]
+
+
+def build_iou_data(gt_box_data, detected_boxes_per_frame, frm_cnt):
+    """Per annotated image id: list of {iou, label, img_id} records
+    (reference tvqa_dataset.py:340-359).  ``img_id`` keys are 1-indexed
+    strings; ids beyond the frame count are dropped."""
+    limit = frm_cnt + 1
+    iou_data = {}
+    img_ids = sorted(gt_box_data.keys(), key=int)
+    for img_id in img_ids:
+        if int(img_id) >= limit:
+            continue
+        detected = detected_boxes_per_frame[int(img_id) - 1]
+        iou_data[img_id] = [
+            {"iou": iou_single_gt_box(box, detected),
+             "label": box["label"],
+             "img_id": img_id}
+            for box in gt_box_data[img_id]
+        ]
+    return iou_data
+
+
+def make_att_label(iou_data, q_ca_sentence, region_cnts, ca_len,
+                   iou_thd=0.5, single_box=False):
+    """Soft attention targets, one (n_words, n_regions) array per annotated
+    image (reference tvqa_dataset.py:361-408).
+
+    For every QA word position, GT boxes whose label string equals the word
+    mark detected regions with IoU >= ``iou_thd``; marks are accumulated over
+    GT boxes and normalized to sum to 1 (attention paid evenly to overlapped
+    boxes).  ``single_box`` keeps only the argmax-IoU region per GT box.
+
+    Returns list of np.float32 arrays, length = len(region_cnts)
+    (= number of annotated images).
+    """
+    img_ids = sorted(iou_data.keys(), key=int)
+    q_ca_words = q_ca_sentence.split()
+    att_label = [np.zeros((ca_len, cnt), dtype=np.float32) for cnt in region_cnts]
+    for idx, img_id in enumerate(img_ids):
+        records = iou_data[img_id]
+        labels = [r["label"] for r in records]
+        for word_idx in range(ca_len - 1):  # never the trailing <eos> slot
+            word = q_ca_words[word_idx]
+            box_indices = [bi for bi, lab in enumerate(labels)
+                           if lab.lower() == word.lower()]
+            mask = None
+            for bi in box_indices:
+                ious = np.asarray(records[bi]["iou"][:region_cnts[idx]])
+                if single_box:
+                    if mask is None:
+                        mask = np.zeros(len(ious))
+                    if ious.size and ious.max() >= iou_thd:
+                        mask[int(ious.argmax())] = 1
+                else:
+                    hit = (ious >= iou_thd).astype(np.float64)
+                    mask = hit if mask is None else mask + hit
+            if mask is not None and mask.sum() != 0:
+                att_label[idx][word_idx] = (mask / mask.sum()).astype(np.float32)
+    return att_label
 
 
 def densify_att_labels(att_label_list, anno_st_idx, num_img, num_words,
@@ -66,3 +148,105 @@ def att_entries_from_dense(labels, defined, entry_cap):
         rank[:n] = cums[np.arange(n), r] - 1
         group_npos[:n] = pos2[iw].sum(axis=1)
     return entry_idx, entry_valid, neg_rows, rank, group_npos, len(flat_all)
+
+
+def make_noun_mask(noun_indices_q, noun_indices_a, q_l, a_l, vocab,
+                   eos=True):
+    """Noun-position mask over the q+ca word axis (reference
+    tvqa_dataset.py:310-328 ``mk_noun_mask``).
+
+    ``noun_indices_q`` / ``noun_indices_a``: lists of [1-indexed position,
+    word]; entries whose word is not in the vocabulary are dropped, answer
+    positions are offset by ``q_l``, and the mask gets one trailing slot
+    for <eos> when ``eos``.
+    """
+    iq = [e[0] for e in noun_indices_q if str(e[1]).lower() in vocab]
+    ia = [e[0] + q_l for e in noun_indices_a if str(e[1]).lower() in vocab]
+    indices = np.array(iq + ia) - 1
+    mask = np.zeros(q_l + a_l + 1 if eos else q_l + a_l, np.float32)
+    if len(indices) != 0:  # seems only 1 instance has no indices (ref)
+        mask[indices.astype(np.int64)] = 1
+    return mask
+
+
+def line_to_words(line, eos=True, downcase=True):
+    words = line.lower().split() if downcase else line.split()
+    return words + [EOS] if eos else words
+
+
+class Vocabulary:
+    """word <-> id mapping with <pad>=0 <unk>=1 <eos>=2, built from the
+    train split at threshold 2 with GloVe init, or loaded from a cache
+    (reference tvqa_dataset.py:70-88, 444-490)."""
+
+    def __init__(self, word2idx=None):
+        self.word2idx = dict(word2idx) if word2idx else {PAD: 0, UNK: 1, EOS: 2}
+        self.idx2word = {i: w for w, i in self.word2idx.items()}
+        self.embedding = None
+
+    def __len__(self):
+        return len(self.word2idx)
+
+    def __contains__(self, w):
+        return w in self.word2idx
+
+    def get(self, w):
+        return self.word2idx.get(w, UNK_ID)
+
+    @classmethod
+    def load(cls, word2idx_path):
+        return cls(load_json(word2idx_path))
+
+    def save(self, word2idx_path):
+        save_json(self.word2idx, word2idx_path)
+
+    @classmethod
+    def build(cls, sentences, word_count_threshold=2, glove_path=None,
+              embedding_dim=300, rng=None):
+        """Build from raw sentences; OOV GloVe rows are N(0, 0.4) random
+        (reference tvqa_dataset.py:474-479)."""
+        vocab = cls()
+        counts = {}
+        for s in sentences:
+            for w in line_to_words(s, eos=False):
+                counts[w] = counts.get(w, 0) + 1
+        for w in counts:
+            if counts[w] >= word_count_threshold and w not in vocab.word2idx:
+                idx = len(vocab.word2idx)
+                vocab.word2idx[w] = idx
+                vocab.idx2word[idx] = w
+        if glove_path:
+            rng = rng or np.random.default_rng(0)
+            glove = load_glove(glove_path)
+            mat = np.zeros((len(vocab.word2idx), embedding_dim))
+            for i in range(len(vocab.idx2word)):
+                w = vocab.idx2word[i]
+                mat[i] = glove[w] if w in glove else rng.standard_normal(
+                    embedding_dim) * 0.4
+            vocab.embedding = mat
+        return vocab
+
+    def numericalize(self, sentence, eos=True, match=False):
+        """Words -> ids; ``match`` first normalizes to Stanford-tokenizer
+        form (reference tvqa_dataset.py:410-416)."""
+        if match:
+            sentence = match_stanford_tokenizer(sentence)
+        return [self.get(w) for w in line_to_words(sentence, eos=eos)]
+
+    def numericalize_hier_vcpt(self, vcpt_words_list):
+        """Per-frame object label lists -> ids, keeping only the last word of
+        multi-word labels like 'tennis court'
+        (reference tvqa_dataset.py:418-426)."""
+        return [[self.get(e.split()[-1]) for e in frame_words]
+                for frame_words in vcpt_words_list]
+
+    def numericalize_vcpt(self, vcpt_sentence):
+        """Comma-separated attr-object pairs -> deduped word ids + <eos>
+        (reference tvqa_dataset.py:428-442)."""
+        pairs = [e.strip() for e in vcpt_sentence.lower().split(",")]
+        unique_pairs = []
+        for p in pairs:
+            if p not in unique_pairs:
+                unique_pairs.append(p)
+        words = [w for p in unique_pairs for w in p.split()] + [EOS]
+        return [self.get(w) for w in words]

@@ -13,6 +13,11 @@ inference and writes ``{mode}_inference_predictions.json`` beside them.
   when the run never wrote the best one (it is written only when the
   validation accuracy improves).
 
+The split comes from the run's data: the TVQA+ artifacts its opt.json
+names (``data/tvqa.py``; grounding records for the words of
+``eval_object_vocab_path``), or synthetic data.  Score the predictions with
+``python -m tvqaplus_tpu_torch.evaluation.tvqa_metrics``.
+
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 from __future__ import annotations
@@ -22,6 +27,7 @@ import os
 from tvqaplus_tpu_torch import resolve_device
 from tvqaplus_tpu_torch.config import parse_args
 from tvqaplus_tpu_torch.data.synthetic import SyntheticTVQADataset
+from tvqaplus_tpu_torch.data.tvqa import TVQAPlusDataset
 from tvqaplus_tpu_torch.infer.predict import InferenceRunner
 from tvqaplus_tpu_torch.interop.weights import load_reference_checkpoint
 from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
@@ -82,14 +88,15 @@ def main_inference(argv=None):
         load_weights(checkpoint_path(run_dir, extras.checkpoint)),
         strict=True)
 
-    if not (cfg.synthetic_data or not cfg.train_path):
-        raise NotImplementedError(
-            "the real-data TVQA+ loader comes with a later slice; use "
-            "--synthetic_data")
-    n = 32 if cfg.debug else cfg.synthetic_n_valid
-    dataset = SyntheticTVQADataset(cfg, n, mode=extras.mode)
+    if cfg.synthetic_data or not cfg.train_path:
+        n = 32 if cfg.debug else cfg.synthetic_n_valid
+        dataset = SyntheticTVQADataset(cfg, n, mode=extras.mode)
+        object_word_ids = list(range(3, 1000))
+    else:
+        dataset = TVQAPlusDataset(cfg, mode=extras.mode)
+        object_word_ids = dataset.eval_object_word_ids
     predictions = InferenceRunner(cfg, model, device).run(
-        dataset, mode=extras.mode, object_word_ids=list(range(3, 1000)),
+        dataset, mode=extras.mode, object_word_ids=object_word_ids,
         debug=cfg.debug)
     pred_path = os.path.join(run_dir,
                              f"{extras.mode}_inference_predictions.json")

@@ -8,10 +8,13 @@ best validation accuracy, ``best_valid.pth`` (a reference-format
 state_dict) into the run directory, so ``python -m
 tvqaplus_tpu_torch.inference --model_dir <run>`` reads it unchanged.
 
-Runs on ``cuda`` unless ``--device cpu`` is given.
-``--synthetic_data --debug`` is the end-to-end smoke run (the reference's
-``run_main.sh debug``): 64 train / 32 valid examples, one epoch, a break
-after batch 5.
+Runs on ``cuda`` unless ``--device cpu`` is given.  Data: the TVQA+
+artifacts named by the path flags (``--train_path``, ``--valid_path``,
+``--qa_bert_path``, ... as ``data/fixtures.py`` ``write_artifacts``
+returns them), read by ``data/tvqa.py``; or ``--synthetic_data``.
+``--debug`` is the end-to-end smoke run (the reference's ``run_main.sh
+debug``): one epoch, a break after batch 5 (on synthetic data 64 train /
+32 valid examples).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 from tvqaplus_tpu_torch import resolve_device
 from tvqaplus_tpu_torch.config import parse_args
 from tvqaplus_tpu_torch.data.synthetic import SyntheticTVQADataset
+from tvqaplus_tpu_torch.data.tvqa import TVQAPlusDataset
 from tvqaplus_tpu_torch.train.loop import Trainer
 
 EXTRA_FLAGS = (
@@ -31,14 +35,13 @@ EXTRA_FLAGS = (
 
 
 def build_datasets(cfg):
-    if not (cfg.synthetic_data or not cfg.train_path):
-        raise NotImplementedError(
-            "the real-data TVQA+ loader comes with a later slice; use "
-            "--synthetic_data")
-    n_train = 64 if cfg.debug else cfg.synthetic_n_train
-    n_valid = 32 if cfg.debug else cfg.synthetic_n_valid
-    return (SyntheticTVQADataset(cfg, n_train, mode="train"),
-            SyntheticTVQADataset(cfg, n_valid, mode="valid"))
+    if cfg.synthetic_data or not cfg.train_path:
+        n_train = 64 if cfg.debug else cfg.synthetic_n_train
+        n_valid = 32 if cfg.debug else cfg.synthetic_n_valid
+        return (SyntheticTVQADataset(cfg, n_train, mode="train"),
+                SyntheticTVQADataset(cfg, n_valid, mode="valid"))
+    train = TVQAPlusDataset(cfg, mode="train")
+    return train, train.view("valid")  # the view shares the loaded artifacts
 
 
 def main(argv=None):
