@@ -50,20 +50,31 @@ toolkit.  Phases, each printing one JSON line:
              metric: ms per batch, QA pairs per second), and the median
              CUDA-event time of one step; its ``torch.profiler`` trace must
              show the tensor-core forwards of the encoder and the tri
-             bridge and no CUDA-core forward of either.
+             bridge and no CUDA-core forward of either.  ``serving_graph``:
+             the same step as a CUDA-graph replay (``dispatch_infer``, one
+             step a dispatch), timed in turns with the eager step, its
+             outputs the eager step's bits.
 7. train main - ``python -m tvqaplus_tpu_torch.main`` on the card at the
              headline training config (--use_sup_att --add_local, batch 16,
              dropout 0.1, bf16) with --debug: checks that the losses are
-             finite and that all six forward/backward kernels launched, then
-             runs the inference entry point on the run directory it wrote.
+             finite and that all six forward/backward kernels launched
+             (counted at each graph replay), then runs the inference entry
+             point on the run directory it wrote.
 8. train vs cpu - one train step (50 frames, batch 4, dropout 0, float32)
              on the card against the same step on the CPU.
+8d. dispatch - replayed train dispatches against eager steps at the
+             headline training config: K = 1 and K = 4 replays give the
+             loss, grad_norm and parameters of as many eager steps (see
+             DISPATCH_TOL), and two replays from the same state draw other
+             dropout masks.
 9. training - the headline train step (batch 16, 50 frames, bf16, dropout
              0.1) on a batch already on the card: host clock over 12 steps
              ended by a synchronise (ms per step, QA pairs trained per
              second), the median CUDA-event time of one step, and the
              device's busy time and idle share from ``torch.profiler``,
-             whose trace is held as in phase 6.
+             whose trace is held as in phase 6; eager (``train_step``) and
+             as CUDA-graph replays of one step (``training_graph``) and of
+             four (``training_graph_k4``, times per step), in turns.
 
 The merged input-encoder path (``merge_input_streams``) and the bridge
 kernel, each in the phase of its counterpart:
@@ -71,14 +82,16 @@ kernel, each in the phase of its counterpart:
              opt.json sets ``merge_input_streams`` (same best_valid.pth):
              in float32 the answers and spans equal the separate run's and
              the grounding scores agree at 1e-4; in bf16 the headline batch
-             is held against the CPU forward at phase 5's bar.  The
-             full-output encoder kernel launched and no plain k=7 encoder
-             call ran.
+             is held against the CPU forward at phase 5's bar (that run
+             dispatches two batches at once: ``eval_steps_per_dispatch``
+             2).  The full-output encoder kernel launched and no plain k=7
+             encoder call ran.
 6m. merged serving - phase 6 with the flag, in turns with the separate
              path, each with launches per step, device busy ms and idle
              share from ``torch.profiler``.
-7m. merged train main - phase 7 with ``--merge_input_streams``: all eight
-             encoder/attention/tri-bridge counters above zero.
+7m. merged train main - phase 7 with ``--merge_input_streams`` and
+             ``--steps_per_dispatch 2``: all eight encoder/attention/
+             tri-bridge counters above zero.
 7b. bridge module - ``MLPBridge`` built with its kernel switch on, loaded
              with STAGE's ``bert_word_encoding_fc`` / ``vid_fc`` weights,
              forward + backward in train mode (dropout 0.1) on the headline
@@ -151,11 +164,18 @@ P_DROP, DROP_SEED = 0.1, 20181016
 FWD_TOL = {"float32": (1e-3, 1e-3), "bfloat16": (1e-1, 5e-2)}
 SERVING_STEPS = 30
 TRAIN_STEPS, PROFILE_STEPS, CPU_STEP_BATCH = 12, 6, 4
-# MLPBridge with the kernel switch on against the switch off, bf16: the
-# plain chain rounds the LN output and the dense product to bf16 (the kernel
-# keeps float32 inside), so ~0.2% of the ReLU signs differ and each flips
-# one element of the gradient: relative L2 error of each output / gradient
-BRIDGE_BF16_REL_L2 = 0.1
+DISPATCH_K = 4       # the stacked dispatch of the graph phases
+# a replayed train dispatch against as many eager steps, deterministic
+# algorithms on: the same kernels in the same order give the same bits
+DISPATCH_TOL = 0.0
+# MLPBridge with the kernel switch on against the switch off, bf16: both
+# round the LN output and W to bf16 before the product, but the plain chain
+# (a bf16 dense layer) also rounds the product y1 to bf16, which the kernel
+# keeps in float32 as the TPU kernel's bf16 mode does, so some ReLU signs
+# differ and each flips one element of the gradient: relative L2 error of
+# each output / gradient, measured up to 0.0165 (vid_fc's gradients; 0.0106
+# bert_word_encoding_fc's) on an H100, held at three times that
+BRIDGE_BF16_REL_L2 = 0.05
 # one train step on the card (float32, TF32 off) against the CPU: the loss
 # is one float32 reduction of the same values; a gradient may differ where
 # a ReLU input or a max tie lies within float32 rounding of its decision
@@ -540,8 +560,9 @@ def phase_kernels(dev):
         for dname in ("float32", "bfloat16"):
             a, kw = case.args(getattr(torch, dname))
             got = case.kernel(*a, **kw)
-            # the plain version computes in float32 on the same values and
-            # rounds its output to the kernel's output type
+            # the plain version computes on the same values, in bf16 with
+            # the kernel's rounding sites, and rounds its output to the
+            # kernel's output type
             want = case.plain(*a, **kw)
             torch.cuda.synchronize()
             errs[dname] = check_forward(case, case.name, dname, got, want)
@@ -762,7 +783,7 @@ def phase_merged_main(dev, workdir, cfg, sd, pred_sep, cpu):
     raw = dataclasses.replace(cfg, compute_dtype="auto", use_kernels=None)
     pred, launches, plain_calls, wall_s = run_inference(
         raw, sd, os.path.join(workdir, "merged"), MERGED_FWD,
-        merge_input_streams=True)
+        merge_input_streams=True, eval_steps_per_dispatch=2)
     if plain_calls:
         raise AssertionError(f"{plain_calls} plain k=7 encoder calls ran on "
                              f"the merged path")
@@ -875,9 +896,23 @@ def timed_steps(steps, n):
     return {name: (statistics.median(t), t) for name, t in turns.items()}
 
 
+def replay_equals_eager(runner, batch):
+    """One replayed serve dispatch (K = 1) against the eager step on the
+    same batch: the keys whose every bit agrees, and the others."""
+    want = runner.step(batch, True, LI)
+    got = runner.dispatch_infer(batch, True, LI)
+    torch.cuda.synchronize()
+    same = {k: bool(torch.equal(got[k][0], v)) for k, v in want.items()}
+    if not all(same.values()):
+        raise AssertionError(f"replayed serve step differs from the eager "
+                             f"step: {same}")
+    return sorted(same)
+
+
 def phase_serving(dev, cfg, sd):
     """The eval step of the separate and the merged path on the same batch,
-    in turns."""
+    eager and as a CUDA-graph replay (``InferenceRunner.dispatch_infer``,
+    one step a dispatch), in turns."""
     from tvqaplus_tpu_torch.infer.predict import InferenceRunner
     from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
     batch = headline_batch(cfg, dev)
@@ -891,21 +926,35 @@ def phase_serving(dev, cfg, sd):
         steps[name] = lambda runner=runner: runner.step(batch, True, LI)
         steps[name + "_no_grounding"] = \
             lambda runner=runner: runner.step(batch, False, LI)
+        steps[name + "_graph"] = \
+            lambda runner=runner: runner.dispatch_infer(batch, True, LI)
+        t0 = time.perf_counter()
+        steps[name + "_graph"]()           # warm-up and capture
+        torch.cuda.synchronize()
+        out[name + "_graph"] = {"capture_s": time.perf_counter() - t0,
+                                "equal_to_eager": replay_equals_eager(
+                                    runner, batch)}
         out[name] = {"event_ms": time_ms(steps[name]),
                      "event_ms_no_grounding": time_ms(
                          steps[name + "_no_grounding"])}
+        out[name + "_graph"]["event_ms"] = time_ms(steps[name + "_graph"])
     clock = timed_steps(steps, SERVING_STEPS)
-    for name in ("serving", "merged_serving"):
+    for name in ("serving", "merged_serving", "serving_graph",
+                 "merged_serving_graph"):
         step_ms, turns = clock[name]
         busy_ms, launches, top, names = profile_steps(steps[name],
                                                       PROFILE_STEPS)
-        tc_fwd = check_tc_forwards(name, names, name == "merged_serving")
+        merged = name.startswith("merged")
+        tc_fwd = check_tc_forwards(name, names, merged)
+        extra = out[name] if not name.endswith("_graph") else {
+            **out[name], "eager_step_ms": clock[name[:-6]][0]}
+        if not name.endswith("_graph"):
+            extra["step_ms_no_grounding"] = \
+                clock[name + "_no_grounding"][0]
         emit({"phase": name, "ok": True, "batch": B, "frames": LI,
               "compute_dtype": "bfloat16", "steps": SERVING_STEPS,
               "qa_pairs_per_s": B / (step_ms / 1e3), "step_ms": step_ms,
-              "step_ms_turns": turns,
-              "step_ms_no_grounding": clock[name + "_no_grounding"][0],
-              **out[name], "device_busy_ms": busy_ms,
+              "step_ms_turns": turns, **extra, "device_busy_ms": busy_ms,
               "device_idle_share": None if busy_ms is None
               else 1 - busy_ms / step_ms,
               "launches_per_step": launches, "tc_forwards": tc_fwd,
@@ -1166,9 +1215,10 @@ def read_counters(must_launch):
     return out
 
 
-def phase_train_main(dev, workdir, merged=False):
+def phase_train_main(dev, workdir, merged=False, steps_per_dispatch=1):
     """The training entry point on the card at the headline training
-    config (``merged``: plus ``--merge_input_streams``), then the inference
+    config (``merged``: plus ``--merge_input_streams``), dispatching
+    ``steps_per_dispatch`` steps a CUDA-graph replay, then the inference
     entry point on the run it wrote."""
     import math
     from tvqaplus_tpu_torch.inference import main_inference
@@ -1178,6 +1228,7 @@ def phase_train_main(dev, workdir, merged=False):
             "--bsz", str(B), "--test_bsz", str(B), "--log_freq", "2",
             "--synthetic_n_valid", "32", "--seed", str(SEED),
             "--results_dir_base", os.path.join(workdir, tag, "results"),
+            "--steps_per_dispatch", str(steps_per_dispatch),
             "--device", DEVICE] + ["--merge_input_streams"] * merged
     reset_counters()
     t0 = time.perf_counter()
@@ -1213,9 +1264,14 @@ def phase_train_main(dev, workdir, merged=False):
         pred = json.load(f)
     if len(pred["ts_answer"]) != opt["synthetic_n_valid"]:
         raise AssertionError(f"{len(pred['ts_answer'])} predictions")
+    if trainer.steps_per_dispatch != steps_per_dispatch \
+            or not trainer.graphs.graphs:
+        raise AssertionError(f"{tag}: {trainer.steps_per_dispatch} steps a "
+                             f"dispatch, {len(trainer.graphs.graphs)} graphs")
     emit({"phase": tag + "_main", "ok": True, "launches": launches,
           "plain_encoder_calls": plain_calls.n,
-          "steps": trainer.step, "wall_s": wall_s,
+          "steps": trainer.step, "steps_per_dispatch": steps_per_dispatch,
+          "graphs": len(trainer.graphs.graphs), "wall_s": wall_s,
           "train_loss": scalars["Train/Loss"],
           "valid_acc": scalars.get("Valid/Acc"),
           "inference_answers": len(pred["ts_answer"])})
@@ -1370,35 +1426,129 @@ def phase_train_vs_cpu(dev, workdir):
           "worst_grad": worst, "tol": STEP_TOL})
 
 
+def stacked(batch, k):
+    """``k`` copies of a batch stacked as the pipeline stacks a dispatch."""
+    return {key: torch.stack([v] * k) for key, v in batch.items()}
+
+
+def state_tensors(trainer):
+    """The tensors a train step updates in place: parameters and Adam's
+    moments and step counts."""
+    out = [p.detach() for p in trainer.params]
+    for st in trainer.optimizer.state.values():
+        out += [v for v in st.values() if torch.is_tensor(v)]
+    return out
+
+
+def phase_dispatch(dev, workdir):
+    """Replayed train dispatches against eager steps at the headline
+    training config (batch 16, 50 frames, bf16, dropout 0.1, separate
+    path), deterministic algorithms on (``DISPATCH_TOL``): an eager and a
+    graph Trainer from the same seed take the same batches, a K = 1 and a
+    K = 4 dispatch (warm-up and capture), then a K = 1 and a K = 4 replay
+    against one and four eager steps: loss, grad_norm and every parameter.
+    Then two replays from the same state (parameters and Adam's state
+    copied back): other dropout masks, so other losses."""
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    cfg = train_config(workdir, bsz=B).finalize(dev)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager, graph = Trainer(cfg, dev), Trainer(cfg, dev)
+        batch = train_batch(cfg, dev, B)
+        four = stacked(batch, DISPATCH_K)
+        checks, t0 = {}, time.perf_counter()
+        for tag, k in (("capture_k1", 1), ("capture_k4", DISPATCH_K),
+                       ("replay_k1", 1), ("replay_k4", DISPATCH_K)):
+            # the eager metrics summed as a dispatch sums them
+            ms = eager._packed("train", [eager.train_step(batch)
+                                         for _ in range(k)])
+            mg = graph.dispatch_train(four if k > 1 else batch)
+            torch.cuda.synchronize()
+            got = {key: float(mg[key]) for key in ("loss", "grad_norm")}
+            want = {key: float(ms[graph._names["train"].index(key)])
+                    for key in ("loss", "grad_norm")}
+            param_err = max(float((p.detach() - q.detach()).abs().max())
+                            for p, q in zip(eager.params, graph.params))
+            checks[tag] = {"graph": got, "eager": want,
+                           "param_max_abs_err": param_err}
+            bad = {key: (got[key], want[key]) for key in got
+                   if abs(got[key] - want[key])
+                   > DISPATCH_TOL * abs(want[key])}
+            if bad or param_err > DISPATCH_TOL:
+                raise AssertionError(f"{tag}: graph vs eager {bad}, "
+                                     f"parameters {param_err} (bar "
+                                     f"{DISPATCH_TOL})")
+        if len(graph.graphs.graphs) != 2 or graph.step != eager.step:
+            raise AssertionError(f"{len(graph.graphs.graphs)} graphs, steps "
+                                 f"{graph.step} / {eager.step}")
+        saved = [t.clone() for t in state_tensors(graph)]
+        losses, seeds = [], []
+        for _ in range(2):
+            for t, v in zip(state_tensors(graph), saved):
+                t.copy_(v)
+            losses.append(float(graph.dispatch_train(batch)["loss"]))
+            seeds.append(graph.seeds.seeds[:4].tolist())
+        if losses[0] == losses[1] or seeds[0] == seeds[1]:
+            raise AssertionError(f"two replays from one state drew the same "
+                                 f"masks: losses {losses}, seeds {seeds}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    emit({"phase": "dispatch", "ok": True, "batch": B, "frames": LI,
+          "dropout": cfg.dropout, "deterministic_algorithms": True,
+          "tol": DISPATCH_TOL, "checks": checks,
+          "same_state_replay_losses": losses, "kernel_seeds": seeds,
+          "wall_s": time.perf_counter() - t0})
+
+
 def phase_training(dev, workdir):
     """The headline train step of the separate and the merged path on a
-    batch already on the card, in turns."""
+    batch already on the card, in turns: eager (``train_step``), one step a
+    CUDA-graph replay (``dispatch_train``, K = 1) and four (K = 4, times per
+    step)."""
     from tvqaplus_tpu_torch.train.loop import Trainer
-    steps, out, cfgs = {}, {}, {}
+    steps, out, cfgs, per_call = {}, {}, {}, {}
     for name, merged in (("training", False), ("merged_training", True)):
         cfg = train_config(workdir, bsz=B,
                            merge_input_streams=merged).finalize(dev)
         trainer = Trainer(cfg, dev)
         batch = train_batch(cfg, dev, B)
+        four = stacked(batch, DISPATCH_K)
         steps[name] = lambda t=trainer, b=batch: t.train_step(b)
-        out[name] = {"event_ms": time_ms(steps[name], reps=8)}
-        cfgs[name] = cfg
+        steps[name + "_graph"] = \
+            lambda t=trainer, b=batch: t.dispatch_train(b)
+        steps[name + "_graph_k4"] = \
+            lambda t=trainer, b=four: t.dispatch_train(b)
+        per_call.update({name: 1, name + "_graph": 1,
+                         name + "_graph_k4": DISPATCH_K})
+        for key in (name, name + "_graph", name + "_graph_k4"):
+            t0 = time.perf_counter()
+            steps[key]()                    # graphs: warm-up and capture
+            torch.cuda.synchronize()
+            out[key] = {"first_call_s": time.perf_counter() - t0,
+                        "event_ms": time_ms(steps[key], reps=8)
+                        / per_call[key]}
+            cfgs[key] = cfg
     clock = timed_steps(steps, TRAIN_STEPS)
     for name, step in steps.items():
-        step_ms, turns = clock[name]
-        loss = float(step()["loss"])
+        k = per_call[name]
+        step_ms, turns = clock[name][0] / k, [t / k for t in clock[name][1]]
+        loss = float(step()["loss"]) / k
         if not torch.isfinite(torch.tensor(loss)):
             raise AssertionError(f"training loss {loss}")
         # the idle share is taken against the unprofiled host clock, as
         # tracing slows the host
         busy_ms, launches, top, names = profile_steps(step, PROFILE_STEPS)
-        tc_fwd = check_tc_forwards(name, names, name == "merged_training")
+        if busy_ms is not None:
+            busy_ms, launches = busy_ms / k, launches / k
+        tc_fwd = check_tc_forwards(name, names,
+                                   name.startswith("merged_training"))
         cfg = cfgs[name]
         emit({"phase": name, "ok": True, "batch": B, "frames": LI,
               "compute_dtype": cfg.compute_dtype, "dropout": cfg.dropout,
-              "steps": TRAIN_STEPS, "loss": loss,
-              "qa_pairs_per_s": B / (step_ms / 1e3), "step_ms": step_ms,
-              "step_ms_turns": turns, **out[name],
+              "steps": TRAIN_STEPS * k, "steps_per_dispatch": k,
+              "loss": loss, "qa_pairs_per_s": B / (step_ms / 1e3),
+              "step_ms": step_ms, "step_ms_turns": turns, **out[name],
               "device_busy_ms": busy_ms,
               "device_idle_share": None if busy_ms is None
               else 1 - busy_ms / step_ms,
@@ -1430,9 +1580,11 @@ def main():
         merged = phase_merged_main(dev, workdir, cfg, sd, pred, cpu)
         phase_serving(dev, cfg, sd)
         train_launches = phase_train_main(dev, workdir)
-        merged_train = phase_train_main(dev, workdir, merged=True)
+        merged_train = phase_train_main(dev, workdir, merged=True,
+                                        steps_per_dispatch=2)
         bridge = phase_bridge_module(dev, cfg, sd)
         phase_train_vs_cpu(dev, workdir)
+        phase_dispatch(dev, workdir)
         phase_training(dev, workdir)
     # each row's launches: the count of the main path that runs its kernel
     # (separate, merged, or the bridge module), read right after that path

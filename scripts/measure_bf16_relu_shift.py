@@ -1,7 +1,8 @@
 """How far a moved bf16 rounding shifts the ReLU inputs and the gradients of
-the encoder block and the tri bridge in their bfloat16 compute mode: the
-source of the bf16 bars of tvqaplus_tpu_torch/ops/checks.py
-(``TRI_BF16_EPS``) and ops/encoder.py (``GRAD_TOL[bfloat16]``).
+the encoder block, the tri bridge and the MLP bridge in their bfloat16
+compute mode: the source of the bf16 bars of
+tvqaplus_tpu_torch/ops/checks.py (``TRI_BF16_EPS``, ``BRIDGE_BF16_EPS``)
+and ops/encoder.py (``GRAD_TOL[bfloat16]``).
 
     python3 scripts/measure_bf16_relu_shift.py
 
@@ -23,7 +24,12 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from tvqaplus_tpu_torch.ops import checks, encoder, tri_bridge  # noqa: E402
+from tvqaplus_tpu_torch.ops import (  # noqa: E402
+    checks,
+    encoder,
+    mlp_bridge,
+    tri_bridge,
+)
 
 D = 128
 
@@ -126,12 +132,36 @@ def tri_bridge_shift(gen):
               f"{float((ya.abs() < eps).any(-1).float().mean())}")
 
 
+def mlp_bridge_shift(gen):
+    """The MLP bridge at STAGE's widths (768 -> 300, 300 -> 300), bf16
+    compute on float32 x (the module's kernel route), with the Din channels
+    permuted (the LN_in sums and the product's 768 terms in other orders)."""
+    rows = 20000
+    for d_in, d_out in ((768, 300), (300, 300)):
+        x = torch.randn(rows, d_in, generator=gen)
+        gin = 1 + 0.1 * torch.randn(d_in, generator=gen)
+        bin_ = 0.1 * torch.randn(d_in, generator=gen)
+        w = torch.randn(d_in, d_out, generator=gen) * d_in ** -0.5
+        b = 0.1 * torch.randn(d_out, generator=gen)
+        perm = torch.randperm(d_in, generator=gen)
+        kw = dict(compute_dtype=torch.bfloat16)
+        ya = mlp_bridge.mlp_bridge_pre(x, gin, bin_, w, b, **kw)
+        yb = mlp_bridge.mlp_bridge_pre(x[:, perm].contiguous(), gin[perm],
+                                       bin_[perm], w[perm], b, **kw)
+        print(f"mlp bridge {d_in} -> {d_out}: ReLU inputs {ya.numel()}, "
+              f"largest shift {float((ya - yb).abs().max())}")
+        for eps in (2e-3, 4e-3, 8e-3):
+            print(f"  rows with one within {eps} of 0: "
+                  f"{float((ya.abs() < eps).any(-1).float().mean())}")
+
+
 def main():
     torch.set_num_threads(min(8, os.cpu_count() or 1))
     gen = torch.Generator().manual_seed(1)
     encoder_shift(gen)
     encoder_grads(gen)
     tri_bridge_shift(gen)
+    mlp_bridge_shift(gen)
     return 0
 
 

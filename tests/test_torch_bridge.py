@@ -164,19 +164,18 @@ def test_module_takes_the_kernel_route_only_for_4d_input(monkeypatch):
 
 def test_module_kernel_route_draws_its_dropout_from_the_kernel_seed():
     """In training the kernel route takes (rate, seed) from
-    ``Dropout.kernel_args``: the Philox mask, not the plain layers'
-    generator."""
+    ``Dropout.kernel_args``: the Philox mask under the step's first seed
+    slot, not the plain layers' generator."""
     x = torch.from_numpy(rand((B, G, L, DIN), seed=7))
     on = tl.MLPBridge(DIN, DOUT, use_kernel=True)
-    drop = Dropout(0.1, torch.Generator().manual_seed(1),
-                   torch.Generator().manual_seed(2))
-    seed = philox.draw_seed(torch.Generator().manual_seed(2))
+    seeds = philox.StepSeeds(2, "cpu").next()
+    drop = Dropout(0.1, torch.Generator().manual_seed(1), seeds)
     with torch.no_grad():
         got = on(x, drop)
         want = mlp_bridge.mlp_bridge_plain(
             x, on[0].weight, on[0].bias, on[2].weight.t(), on[2].bias,
-            on[4].weight, on[4].bias, 0.1, seed)
-    assert torch.equal(got, want)
+            on[4].weight, on[4].bias, 0.1, int(seeds[0]))
+    assert torch.equal(got, want) and drop.site == 1
 
 
 # ----------------------------------------------------------------- refusals

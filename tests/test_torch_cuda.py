@@ -9,6 +9,8 @@ the JAX package, so it runs on a machine without them:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -528,6 +530,33 @@ def test_mlp_bridge_training_kernels_match_plain(cuda, dtype, rows, d_in,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("rows,d_in,d_out", BRIDGE_SHAPES)
+def test_mlp_bridge_bf16_mode_on_float32_x_matches_plain(cuda, dropout, rows,
+                                                         d_in, d_out):
+    """The bf16 compute mode on float32 x (``MLPBridge(use_kernel=True,
+    dtype=bf16)`` on STAGE's float32 inputs), forward and backward, against
+    the plain version in the same mode at ``TOL`` / ``GRAD_TOL[bf16]``:
+    bf16 out, float32 gx."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(16)
+    args = mlp_bridge_args(cuda, torch.float32, gen, rows, d_in, d_out)
+    flip = checks.mlp_bridge_flip_rows(*args[:5], dropout, SEED,
+                                       compute_dtype=bf16)
+    cot = [randn(gen, *rows, d_out).to(cuda) * (~flip)[..., None]]
+    kw = dict(dropout_rate=dropout, seed=SEED, compute_dtype=bf16)
+    out_k, g_k = grads_of(lambda *a: mlp_bridge.mlp_bridge(*a, **kw),
+                          leaves(args), cot)
+    out_p, g_p = grads_of(lambda *a: mlp_bridge.mlp_bridge_plain(*a, **kw),
+                          leaves(args), cot)
+    torch.cuda.synchronize()
+    assert out_k[0].dtype == bf16 and g_k[0].dtype == torch.float32
+    close(out_k[0], out_p[0], mlp_bridge.TOL[bf16])
+    for i, (gk, gp) in enumerate(zip(g_k, g_p)):
+        checks.grad_close(f"grad {i}", gk, gp, mlp_bridge.GRAD_TOL[bf16])
+
+
+@pytest.mark.cuda
 def test_new_kernels_refuse_what_they_do_not_take(cuda):
     gen = torch.Generator().manual_seed(12)
     x, pe, p, _ = encoder_args(cuda, torch.float32, gen, l=50, k=7)
@@ -753,3 +782,179 @@ def test_bf16_steps_run_the_tensor_core_forwards(cuda, tmp_path, train,
     old = [nm for nm in names
            if "encoder_fwd_kernel" in nm or "tri_bridge_fwd_kernel" in nm]
     assert not old, old
+
+
+# ------------------------------------------------------------ dispatch
+def step_batch(cfg, n, frames, train, device):
+    """A synthetic batch of ``n`` examples at ``frames`` frames."""
+    from tvqaplus_tpu_torch.data.batching import (
+        StaticShapeSpec,
+        collate_static,
+    )
+    from tvqaplus_tpu_torch.data.synthetic import SyntheticTVQADataset
+    ds = SyntheticTVQADataset(cfg, n, mode="train" if train else "valid")
+    spec = StaticShapeSpec.from_config(cfg, batch=n, train=train
+                                       ).with_max_img(frames)
+    arrays, _ = collate_static([ds[i] for i in range(n)], spec)
+    return {k: torch.from_numpy(a).to(device) for k, a in arrays.items()}
+
+
+@pytest.mark.cuda
+def test_graph_replays_draw_from_the_registered_generator(cuda):
+    """A step that draws from a device generator, captured by
+    ``StepGraphs``: the warm-up and each replay draw what eager draws from
+    the same generator state one after the other."""
+    from tvqaplus_tpu_torch.dispatch import StepGraphs
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    graphs = StepGraphs(cuda, gen)
+    x = {"x": torch.zeros(4096, device=cuda)}
+
+    def fn(b):
+        return torch.rand(b["x"].shape, generator=gen, device=cuda) + b["x"]
+    got = [graphs("rand", fn, x).clone() for _ in range(4)]
+    ref = torch.Generator(device=cuda).manual_seed(0)
+    want = [torch.rand(4096, generator=ref, device=cuda) for _ in range(4)]
+    assert len(graphs.graphs) == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not torch.equal(got[1], got[2])
+
+
+@pytest.mark.cuda
+def test_replays_count_the_launches_they_hold(cuda):
+    """A kernel launched inside a captured step counts once for each replay
+    (the warm-up once), none for the capture."""
+    from tvqaplus_tpu_torch.dispatch import StepGraphs
+    gen = torch.Generator().manual_seed(17)
+    args = mlp_bridge_args(cuda, torch.bfloat16, gen, (2, 3, 5), 24, 20)
+    graphs = StepGraphs(cuda)
+    before = mlp_bridge.KERNEL.launches
+
+    def fn(b):
+        return mlp_bridge.mlp_bridge(b["x"], *args[1:])
+    outs = [graphs("bridge", fn, {"x": args[0]}).clone() for _ in range(3)]
+    torch.cuda.synchronize()
+    assert mlp_bridge.KERNEL.launches == before + 3
+    assert all(torch.equal(o, outs[0]) for o in outs)
+
+
+@pytest.mark.cuda
+def test_capturable_adam_reads_its_device_rate(cuda):
+    """On cuda Adam is capturable with its rate in a device tensor: three
+    steps match torch's default Adam at 1e-6 relative (the capturable
+    formula divides in another order), and ``set_lr`` reaches a captured
+    optimizer step."""
+    from tvqaplus_tpu_torch.train.state import make_optimizer, set_lr
+    gen = torch.Generator().manual_seed(18)
+    w0 = randn(gen, 64, 32).to(cuda)
+    grads = [randn(gen, 64, 32).to(cuda) for _ in range(3)]
+    p, q = (torch.nn.Parameter(w0.clone()) for _ in range(2))
+    ours = make_optimizer([p], 1e-3, 3e-7, cuda)
+    ref = torch.optim.Adam([q], lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                           weight_decay=3e-7)
+    group = ours.param_groups[0]
+    assert group["capturable"] and group["lr"].device.type == "cuda"
+    for g in grads:
+        p.grad, q.grad = g.clone(), g.clone()
+        ours.step()
+        ref.step()
+    close(p.detach(), q.detach(), (1e-7, 1e-6))
+    graph = torch.cuda.CUDAGraph()
+    p.grad = grads[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ours.step()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        ours.step()
+    before = p.detach().clone()
+    set_lr(ours, 0.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(p.detach(), before)
+    set_lr(ours, 1e-2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert float((p.detach() - before).abs().max()) > 5e-3
+
+
+@pytest.mark.cuda
+def test_a_parent_format_checkpoint_resumes_on_cuda(cuda, tmp_path):
+    """A checkpoint saved by the CPU Trainer (torch's default Adam: float
+    rate, step counts on the CPU; the format before graphs) resumes on the
+    card in the capturable mode, its counter at the saved step, and
+    dispatches through a graph."""
+    from tvqaplus_tpu_torch.config import Config
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    n = 2
+    cfg = Config(synthetic_data=True, add_local=True, use_sup_att=True,
+                 bsz=n, test_bsz=n, seed=3, compute_dtype="float32",
+                 results_dir=str(tmp_path)).finalize("cpu")
+    cpu = Trainer(cfg, "cpu")
+    cpu.train_step(step_batch(cfg, n, 12, True, "cpu"), True)
+    cpu.save(str(tmp_path / "old.ckpt"))
+    resumed = Trainer(dataclasses.replace(
+        cfg, resume=str(tmp_path / "old.ckpt")).finalize(cuda), cuda)
+    group = resumed.optimizer.param_groups[0]
+    assert group["capturable"] and group["lr"].device.type == "cuda"
+    assert all(s["step"].device.type == "cuda"
+               for s in resumed.optimizer.state.values())
+    assert resumed.step == 1 and int(resumed.seeds.step) == 1
+    batch = step_batch(cfg, n, 12, True, cuda)
+    for _ in range(2):
+        loss = float(resumed.dispatch_train(batch, True)["loss"])
+    assert resumed.step == 3 and len(resumed.graphs.graphs) == 1
+    assert loss == loss
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("merged", [False, True])
+def test_replayed_dispatches_equal_eager_steps(cuda, tmp_path, merged,
+                                               monkeypatch):
+    """A small bf16 batch (2 examples, 12 frames, dropout 0.1): replayed
+    serve dispatches (one batch, and two stacked) give the eager steps'
+    bits; with deterministic algorithms a replayed train dispatch of two
+    steps gives the loss, grad_norm and parameters of two eager steps, bit
+    for bit."""
+    from tvqaplus_tpu_torch.config import Config
+    from tvqaplus_tpu_torch.infer.predict import InferenceRunner
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    n, frames = 2, 12
+    cfg = Config(synthetic_data=True, add_local=True, use_sup_att=True,
+                 bsz=n, test_bsz=n, seed=3, merge_input_streams=merged,
+                 results_dir=str(tmp_path)).finalize(cuda)
+    model = STAGE(ModelConfig.from_config(cfg)).reset_parameters(
+        torch.Generator().manual_seed(3))
+    runner = InferenceRunner(cfg, model, cuda)
+    vb = step_batch(cfg, n, frames, False, cuda)
+    two = {k: torch.stack([v, v.flip(0)]) for k, v in vb.items()}
+    want = [runner.step(b, True, frames) for b in (vb, {
+        k: v.flip(0) for k, v in vb.items()})]
+    for _ in range(3):                      # warm-up and capture, replays
+        one = runner.dispatch_infer(vb, True, frames)
+        both = runner.dispatch_infer(two, True, frames)
+        for k in want[0]:
+            assert torch.equal(one[k][0], want[0][k]), k
+            assert torch.equal(both[k][0], want[0][k]), k
+            assert torch.equal(both[k][1], want[1][k]), k
+    assert len(runner.graphs.graphs) == 2
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager, graph = Trainer(cfg, cuda), Trainer(cfg, cuda)
+        tb = step_batch(cfg, n, frames, True, cuda)
+        stack = {k: torch.stack([v, v]) for k, v in tb.items()}
+        for _ in range(3):
+            ms = eager._packed("train", [eager.train_step(tb)
+                                         for _ in range(2)])
+            mg = graph.dispatch_train(stack)
+            for i, key in enumerate(graph._names["train"]):
+                assert float(mg[key]) == float(ms[i]), key
+            for p, q in zip(eager.params, graph.params):
+                assert torch.equal(p, q)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert graph.step == eager.step == 6

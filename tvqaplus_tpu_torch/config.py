@@ -139,8 +139,8 @@ class Config:
     synthetic_n_train: int = 256
     synthetic_n_valid: int = 128
     prefetch_depth: int = 2
-    steps_per_dispatch: int = 1         # JAX-only
-    eval_steps_per_dispatch: int = 4    # JAX-only
+    steps_per_dispatch: int = 1         # 0: auto (dispatch.py)
+    eval_steps_per_dispatch: int = 4
     halt_on_nonfinite: bool = True
     profile_dir: str = ""
     compilation_cache_dir: str = "~/.cache/tvqaplus_tpu_xla"  # JAX-only

@@ -110,6 +110,7 @@ encoder_bwd_kernel(const T* __restrict__ x, const float* __restrict__ pe,
                    const float* __restrict__ zmask,
                    const T* __restrict__ gout, T* __restrict__ gx, Bufs bufs,
                    int N, int G, int L, int k, Dropout drop) {
+  drop.load_seed();
   extern __shared__ float4 smem4[];
   const int LP = rows_padded(RPT);
   float* h0_s = reinterpret_cast<float*>(smem4);
@@ -551,6 +552,7 @@ encoder_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
                       const __nv_bfloat16* __restrict__ gout,
                       __nv_bfloat16* __restrict__ gx, TcBufs bufs, int N,
                       int G, int L, int k, int nseq, Dropout drop) {
+  drop.load_seed();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_smem(smem_raw);
   float* r1 = reinterpret_cast<float*>(sm + O_R1);
@@ -1010,12 +1012,12 @@ int launch_any(const void* x, const void* pe, const void* packed,
                const void* g, void* gx, void* gvec, void* gpw, void* c0,
                void* c1, void* gy0, void* gy1, void* vec_part, void* wg_part,
                int N, int G, int L, int k, int wg_chunks,
-               unsigned long long drop_seed, unsigned drop_threshold,
+               const unsigned long long* drop_seed, unsigned drop_threshold,
                float drop_scale, int is_bf16, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto fm = [](void* p) { return static_cast<float*>(p); };
   auto st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{drop_seed, drop_threshold, drop_scale};
+  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
   if (k % 2 == 0 || k > MAX_K || L < 1 || L > TR)
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16) {
@@ -1050,7 +1052,7 @@ extern "C" int encoder_reduce_bwd(
     const void* x, const void* pe, const void* packed, const void* pwT,
     const void* mask, const void* g, void* gx, void* gvec, void* gpw,
     void* c0, void* c1, void* gy0, void* gy1, void* vec_part, void* wg_part,
-    int N, int L, int k, int wg_chunks, unsigned long long drop_seed,
+    int N, int L, int k, int wg_chunks, const unsigned long long* drop_seed,
     unsigned drop_threshold, float drop_scale, int is_bf16, void* stream) {
   if (mask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch_any(x, pe, packed, pwT, mask, nullptr, g, gx, gvec, gpw, c0,
@@ -1065,8 +1067,9 @@ extern "C" int encoder_block_bwd(
     const void* x, const void* pe, const void* packed, const void* pwT,
     const void* zmask, const void* g, void* gx, void* gvec, void* gpw,
     void* c0, void* c1, void* gy0, void* gy1, void* vec_part, void* wg_part,
-    int N, int G, int L, int k, int wg_chunks, unsigned long long drop_seed,
-    unsigned drop_threshold, float drop_scale, int is_bf16, void* stream) {
+    int N, int G, int L, int k, int wg_chunks,
+    const unsigned long long* drop_seed, unsigned drop_threshold,
+    float drop_scale, int is_bf16, void* stream) {
   if (G < 1 || N % G != 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch_any(x, pe, packed, pwT, nullptr, zmask, g, gx, gvec, gpw, c0,
                     c1, gy0, gy1, vec_part, wg_part, N, G, L, k, wg_chunks,

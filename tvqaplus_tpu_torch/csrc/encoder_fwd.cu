@@ -78,6 +78,7 @@ encoder_fwd_kernel(const float* __restrict__ x, const float* __restrict__ pe,
                    const float* __restrict__ mask,
                    const float* __restrict__ zmask, float* __restrict__ out,
                    int N, int G, int L, int k, Dropout drop) {
+  drop.load_seed();
   extern __shared__ float4 smem4[];
   float* pw_s = reinterpret_cast<float*>(smem4);     // 2 x D x D
   const int LP = rows_padded(RPT);
@@ -222,6 +223,7 @@ encoder_fwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
                       const float* __restrict__ zmask,
                       __nv_bfloat16* __restrict__ out, int N, int G, int L,
                       int nseq, Dropout drop) {
+  drop.load_seed();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_smem(smem_raw);
   float* r1 = reinterpret_cast<float*>(sm + O_R1);
@@ -389,11 +391,11 @@ int launch_tc(const void* x, const float* pe, const float* packed,
 
 int launch_any(const void* x, const void* pe, const void* packed,
                const void* mask, const void* zmask, void* out, int N, int G, int L, int k,
-               unsigned long long drop_seed, unsigned drop_threshold,
+               const unsigned long long* drop_seed, unsigned drop_threshold,
                float drop_scale, int is_bf16, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{drop_seed, drop_threshold, drop_scale};
+  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
   if (k % 2 == 0 || k > ENC_MAX_K || L < 1 || L > TR)
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16)
@@ -413,7 +415,7 @@ int launch_any(const void* x, const void* pe, const void* packed,
 extern "C" int encoder_reduce_fwd(const void* x, const void* pe,
                                   const void* packed, const void* mask,
                                   void* out, int N, int L, int k,
-                                  unsigned long long drop_seed,
+                                  const unsigned long long* drop_seed,
                                   unsigned drop_threshold, float drop_scale,
                                   int is_bf16, void* stream) {
   if (mask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
@@ -427,7 +429,7 @@ extern "C" int encoder_reduce_fwd(const void* x, const void* pe,
 extern "C" int encoder_block_fwd(const void* x, const void* pe,
                                  const void* packed, const void* zmask,
                                  void* out, int N, int G, int L, int k,
-                                 unsigned long long drop_seed,
+                                 const unsigned long long* drop_seed,
                                  unsigned drop_threshold, float drop_scale,
                                  int is_bf16, void* stream) {
   if (G < 1 || N % G != 0) return static_cast<int>(cudaErrorInvalidValue);

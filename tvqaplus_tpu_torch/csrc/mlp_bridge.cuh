@@ -21,13 +21,23 @@ __host__ __device__ constexpr int round_kc(int n) {
   return (n + KC - 1) / KC * KC;
 }
 
+// A product's operand in the bf16 compute mode (RND): rounded to the
+// nearest bfloat16 value, as the TPU kernel's bf16 mode casts ln_d, W and
+// g_y1 before each dot (pallas_bridge.py:52-54, :106-111); sums stay
+// float32.  The float32 mode (RND false) keeps it.
+template <bool RND>
+__device__ __forceinline__ float op_round(float v) {
+  return RND ? __bfloat162float(__float2bfloat16(v)) : v;
+}
+
 // y = dropout(LN_in(x)) of the block's rows r0 .. r0 + BR_RT - 1 into y_s
 // (BR_RT x ys floats, ys = round_kc(Din)); columns [Din, ys) and rows past R
 // are zero.  LN: float32 stats, fast variance clipped at 0.  The dropout
-// mask is keyed by the flat index of the (R, Din) LN output.  Optionally
-// keeps each row's (mean, 1/std) in st_s and writes the rows to yd_buf
-// (R x Din, device memory) for the weight-gradient pass.
-template <typename T>
+// mask is keyed by the flat index of the (R, Din) LN output.  RND: y is
+// rounded to bf16 (op_round).  Optionally keeps each row's (mean, 1/std) in
+// st_s and writes the rows to yd_buf (R x Din, device memory) for the
+// weight-gradient pass.
+template <typename T, bool RND>
 __device__ __forceinline__ void bridge_ln_in(
     const T* __restrict__ x, float* y_s, float* st_s,
     float* __restrict__ yd_buf, const float* __restrict__ gin,
@@ -67,8 +77,9 @@ __device__ __forceinline__ void bridge_ln_in(
                 drop.threshold, drop.scale, km);
 #pragma unroll
         for (int t = 0; t < 4; ++t)
-          y[t] = ((yr[c4 + t] - mean) * istd * gin[c4 + t] + bin[c4 + t])
-                 * km[t];
+          y[t] = op_round<RND>(
+              ((yr[c4 + t] - mean) * istd * gin[c4 + t] + bin[c4 + t])
+              * km[t]);
         if (yd_buf != nullptr)
           *reinterpret_cast<float4*>(yd_buf + row * Din + c4) =
               make_float4(y[0], y[1], y[2], y[3]);
@@ -82,9 +93,9 @@ __device__ __forceinline__ void bridge_ln_in(
 // round_kc(K)) x B[:, col0 : col0 + D], where B is K x ldb row-major in
 // device memory (ldb % 4 == 0, 16-byte aligned); rows past K and columns
 // past ncols read as zero.  B is staged from L2 through the block's KC x D
-// shared buffer Ws one chunk at a time.  Every thread of the block must call
-// it (it synchronises).
-template <int RPT>
+// shared buffer Ws one chunk at a time, rounded to bf16 when RND.  Every
+// thread of the block must call it (it synchronises).
+template <int RPT, bool RND>
 __device__ __forceinline__ void bridge_gemm(float (&acc)[RPT][4],
                                             const float* Y, int ys, int K,
                                             const float* __restrict__ B,
@@ -98,10 +109,12 @@ __device__ __forceinline__ void bridge_gemm(float (&acc)[RPT][4],
     float4* dst = reinterpret_cast<float4*>(Ws);
     for (int i = threadIdx.x; i < KC * D / 4; i += NTHREADS) {
       const int r = i / (D / 4), col = col0 + 4 * (i % (D / 4));
-      dst[i] = (k0 + r < K && col < ncols)
-                   ? __ldg(reinterpret_cast<const float4*>(
-                         B + static_cast<size_t>(k0 + r) * ldb + col))
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k0 + r < K && col < ncols)
+        b = __ldg(reinterpret_cast<const float4*>(
+            B + static_cast<size_t>(k0 + r) * ldb + col));
+      dst[i] = make_float4(op_round<RND>(b.x), op_round<RND>(b.y),
+                           op_round<RND>(b.z), op_round<RND>(b.w));
     }
     __syncthreads();
     gemm_chunk<RPT>(acc, Y, ys, k0, Ws, KC, r0, c0);

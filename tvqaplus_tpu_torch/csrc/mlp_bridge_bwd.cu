@@ -7,7 +7,11 @@
 //   g_y2 = LN_out backward,  ggout = sum g xhat2,  gbout = sum g
 //   g_y1 = g_y2 (y1 > 0),    gb = sum g_y1,  gW = yd^T g_y1
 //   g_yd = (g_y1 W^T) keep,  ggin = sum g_yd xhat,  gbin = sum g_yd
-//   gx   = LN_in backward                     (in the activation type)
+//   gx   = LN_in backward                     (in the type of x)
+// The bf16 compute mode (g in bf16) rounds the products' operands to bf16
+// where the TPU kernel's bf16 mode does (pallas_bridge.py:106-111): yd and
+// W for the y1 recompute, yd and g_y1 for gW, g_y1 and W for g_yd; gb and
+// every LN term stay float32.
 //
 // What bounds it on the H100: at the subtitle stream's 40,000 rows of 768 it
 // reads x and g and writes gx (~147 MB in bf16) and does ~55 GFLOP (the y1
@@ -25,6 +29,8 @@
 // that the main kernel writes to scratch, through row-chunk slots: at
 // (16, 50, 50, 768) -> 300 those rows are ~170 MB of float32 (yd 123 MB,
 // g_y1 48 MB).  Gradients are the same bits from run to run.
+#include <type_traits>
+
 #include "grad_reduce.cuh"
 #include "mlp_bridge.cuh"
 
@@ -41,18 +47,20 @@ __host__ __device__ inline int vec_floats(int Din, int Dout) {
   return 2 * Din + 3 * Dout;
 }
 
-template <typename T>
+template <typename TX, typename TO>
 __global__ void __launch_bounds__(NTHREADS)
-mlp_bridge_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gin,
+mlp_bridge_bwd_kernel(const TX* __restrict__ x, const float* __restrict__ gin,
                       const float* __restrict__ bin,
                       const float* __restrict__ W,
                       const float* __restrict__ Wt,
                       const float* __restrict__ bias,
                       const float* __restrict__ gout,
-                      const T* __restrict__ gy, T* __restrict__ gx,
+                      const TO* __restrict__ gy, TX* __restrict__ gx,
                       float* __restrict__ yd_buf, float* __restrict__ g1_buf,
                       float* __restrict__ vec_part, long long R, int Din,
                       int Dout, Dropout drop) {
+  drop.load_seed();
+  constexpr bool RND = std::is_same<TO, __nv_bfloat16>::value;
   extern __shared__ float4 smem4[];
   const int ys = round_kc(Din), os = round_kc(Dout);
   float* y_s = reinterpret_cast<float*>(smem4);       // BR_RT x ys: yd, g_yd
@@ -67,15 +75,15 @@ mlp_bridge_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gin,
                                * vec_floats(Din, Dout);
 
   // ---- recompute yd = dropout(LN_in(x)); y1 = yd W + b ------------------
-  bridge_ln_in<T>(x, y_s, st_s, yd_buf, gin, bin, r0, R, Din, ys, drop, warp,
-                  lane);
+  bridge_ln_in<TX, RND>(x, y_s, st_s, yd_buf, gin, bin, r0, R, Din, ys, drop,
+                        warp, lane);
   // columns [Dout, os) of o_s stay zero: they are K padding of g_y1 W^T
   for (int i = tid; i < BR_RT * (os - Dout); i += NTHREADS)
     o_s[(i / (os - Dout)) * os + Dout + i % (os - Dout)] = 0.f;
   for (int col0 = 0; col0 < Dout; col0 += D) {
     float acc[BR_RPT][4];
-    bridge_gemm<BR_RPT>(acc, y_s, ys, Din, W, Dout, Dout, col0, w_s,
-                        warp * BR_RPT, c0);
+    bridge_gemm<BR_RPT, RND>(acc, y_s, ys, Din, W, Dout, Dout, col0, w_s,
+                             warp * BR_RPT, c0);
     const int col = col0 + c0;
     if (col < Dout) {
       const float4 bv = *reinterpret_cast<const float4*>(bias + col);
@@ -121,7 +129,8 @@ mlp_bridge_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gin,
   }
   __syncthreads();
 
-  // ---- column pass: g_y1 in place of y1, and the Dout-wide sums ----------
+  // ---- column pass: g_y1 in place of y1 (rounded when RND: it is only a
+  // product's operand from here), and the Dout-wide sums ------------------
   for (int c = tid; c < Dout; c += NTHREADS) {
     const float go = gout[c];
     float ggo = 0.f, gbo = 0.f, gb = 0.f;
@@ -138,6 +147,7 @@ mlp_bridge_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gin,
                          * (g * go - st2_s[4 * r + 2] - xh * st2_s[4 * r + 3]);
         g1 = y1 > 0.f ? g2 : 0.f;
         gb += g1;
+        g1 = op_round<RND>(g1);
         g1_buf[row * Dout + c] = g1;
       }
       o_s[r * os + c] = g1;
@@ -150,8 +160,8 @@ mlp_bridge_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gin,
   // ---- g_yd = (g_y1 W^T) keep, over yd's buffer --------------------------
   for (int col0 = 0; col0 < Din; col0 += D) {
     float acc[BR_RPT][4];
-    bridge_gemm<BR_RPT>(acc, o_s, os, Dout, Wt, Din, Din, col0, w_s,
-                        warp * BR_RPT, c0);
+    bridge_gemm<BR_RPT, RND>(acc, o_s, os, Dout, Wt, Din, Din, col0, w_s,
+                             warp * BR_RPT, c0);
     const int col = col0 + c0;
     if (col < Din) {
 #pragma unroll
@@ -177,7 +187,7 @@ mlp_bridge_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gin,
     if (row >= R) continue;
     const float mean = st_s[2 * r], istd = st_s[2 * r + 1];
     const float* gr = y_s + r * ys;
-    const T* xr = x + row * Din;
+    const TX* xr = x + row * Din;
     float s1 = 0.f, s2 = 0.f;
     for (int c = lane; c < Din; c += 32) {
       const float gxh = gr[c] * gin[c];
@@ -188,7 +198,7 @@ mlp_bridge_bwd_kernel(const T* __restrict__ x, const float* __restrict__ gin,
     const float m2 = warp_sum(s2) / Din;
     for (int c = lane; c < Din; c += 32) {
       const float xh = (to_f(xr[c]) - mean) * istd;
-      gx[row * Din + c] = from_f<T>(istd * (gr[c] * gin[c] - m1 - xh * m2));
+      gx[row * Din + c] = from_f<TX>(istd * (gr[c] * gin[c] - m1 - xh * m2));
     }
   }
   __syncthreads();
@@ -272,7 +282,7 @@ bridge_wgrad_kernel(const float* __restrict__ X, const float* __restrict__ G,
   }
 }
 
-template <typename T>
+template <typename TX, typename TO>
 int launch(const void* x, const float* gin, const float* bin, const float* W,
            const float* Wt, const float* bias, const float* gout,
            const void* g, void* gx, float* gvec, float* gw, float* yd_buf,
@@ -280,12 +290,12 @@ int launch(const void* x, const float* gin, const float* bin, const float* W,
            int Din, int Dout, int wg_chunks, Dropout drop,
            cudaStream_t stream) {
   const size_t bytes = sizeof(float) * smem_floats(Din, Dout);
-  cudaError_t err = allow_smem(mlp_bridge_bwd_kernel<T>, bytes);
+  cudaError_t err = allow_smem(mlp_bridge_bwd_kernel<TX, TO>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = static_cast<int>((R + BR_RT - 1) / BR_RT);
-  mlp_bridge_bwd_kernel<T><<<blocks, NTHREADS, bytes, stream>>>(
-      static_cast<const T*>(x), gin, bin, W, Wt, bias, gout,
-      static_cast<const T*>(g), static_cast<T*>(gx), yd_buf, g1_buf,
+  mlp_bridge_bwd_kernel<TX, TO><<<blocks, NTHREADS, bytes, stream>>>(
+      static_cast<const TX*>(x), gin, bin, W, Wt, bias, gout,
+      static_cast<const TO*>(g), static_cast<TX*>(gx), yd_buf, g1_buf,
       vec_part, R, Din, Dout, drop);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const long long per = (R + wg_chunks - 1) / wg_chunks;
@@ -303,8 +313,9 @@ int launch(const void* x, const float* gin, const float* bin, const float* W,
 
 }  // namespace
 
-// x, gx (R, Din) and g, the output's cotangent (R, Dout): all bf16 (is_bf16)
-// or all float32; gin/bin (Din), W (Din, Dout), Wt = W^T (Dout, Din),
+// x, gx (R, Din): bf16 (x_bf16) or float32; g, the output's cotangent
+// (R, Dout): bf16 in the bf16 compute mode (is_bf16, which x_bf16 needs),
+// else float32; gin/bin (Din), W (Din, Dout), Wt = W^T (Dout, Din),
 // bias/gout (Dout) float32, 16-byte aligned.  Outputs gvec = [ggin (Din);
 // gbin (Din); gb; ggout; gbout (Dout each)] and gw (Din, Dout) float32.
 // Scratch (float32, the wrapper's): yd (R, Din), g1 (R, Dout), vec_part
@@ -316,22 +327,29 @@ extern "C" int mlp_bridge_bwd(const void* x, const void* gin, const void* bin,
                               void* gvec, void* gw, void* yd, void* g1,
                               void* vec_part, void* wg_part, long long R,
                               int Din, int Dout, int wg_chunks,
-                              unsigned long long drop_seed,
+                              const unsigned long long* drop_seed,
                               unsigned drop_threshold, float drop_scale,
-                              int is_bf16, void* stream) {
+                              int x_bf16, int is_bf16, void* stream) {
   if (R < 1 || Din < 4 || Dout < 4 || Din % 4 != 0 || Dout % 4 != 0
-      || wg_chunks < 1 || wg_chunks > 65535)
+      || wg_chunks < 1 || wg_chunks > 65535 || (x_bf16 && !is_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto fm = [](void* p) { return static_cast<float*>(p); };
   auto st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{drop_seed, drop_threshold, drop_scale};
+  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
+  using bf16 = __nv_bfloat16;
+  if (x_bf16)
+    return launch<bf16, bf16>(x, f(gin), f(bin), f(W), f(Wt), f(bias),
+                              f(gout), g, gx, fm(gvec), fm(gw), fm(yd),
+                              fm(g1), fm(vec_part), fm(wg_part), R, Din,
+                              Dout, wg_chunks, drop, st);
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, f(gin), f(bin), f(W), f(Wt), f(bias),
-                                 f(gout), g, gx, fm(gvec), fm(gw), fm(yd),
-                                 fm(g1), fm(vec_part), fm(wg_part), R, Din,
-                                 Dout, wg_chunks, drop, st);
-  return launch<float>(x, f(gin), f(bin), f(W), f(Wt), f(bias), f(gout), g,
-                       gx, fm(gvec), fm(gw), fm(yd), fm(g1), fm(vec_part),
-                       fm(wg_part), R, Din, Dout, wg_chunks, drop, st);
+    return launch<float, bf16>(x, f(gin), f(bin), f(W), f(Wt), f(bias),
+                               f(gout), g, gx, fm(gvec), fm(gw), fm(yd),
+                               fm(g1), fm(vec_part), fm(wg_part), R, Din,
+                               Dout, wg_chunks, drop, st);
+  return launch<float, float>(x, f(gin), f(bin), f(W), f(Wt), f(bias),
+                              f(gout), g, gx, fm(gvec), fm(gw), fm(yd),
+                              fm(g1), fm(vec_part), fm(wg_part), R, Din,
+                              Dout, wg_chunks, drop, st);
 }

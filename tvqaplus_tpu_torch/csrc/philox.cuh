@@ -69,12 +69,20 @@ __device__ __forceinline__ void keep4(uint64_t seed, uint64_t e0,
 }
 
 // Dropout parameters as the C entries receive them: no dropout when
-// threshold == 0.
+// threshold == 0.  The seed lies in device memory (seed_ptr: a slot of the
+// training step's seed tensor, which the step itself fills on the device,
+// so a replayed CUDA graph draws a new mask each step); every kernel reads
+// it once, first thing (load_seed), and the backward reads its forward's
+// slot.  seed_ptr is not read when threshold == 0.
 struct Dropout {
-  unsigned long long seed;
+  const unsigned long long* seed_ptr;
   unsigned threshold;
   float scale;
+  unsigned long long seed;
   __device__ __forceinline__ bool on() const { return threshold != 0u; }
+  __device__ __forceinline__ void load_seed() {
+    seed = on() ? *seed_ptr : 0ull;
+  }
 };
 
 }  // namespace tvqa

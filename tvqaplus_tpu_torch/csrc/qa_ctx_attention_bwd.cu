@@ -122,6 +122,7 @@ qa_ctx_bwd_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
                   const float* __restrict__ graw,
                   const int* __restrict__ targets, Grads out, int A, int Lqa,
                   int Li, int Lr, float scale, Dropout drop) {
+  drop.load_seed();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const Layout lay(Lr);
@@ -472,6 +473,7 @@ qa_ctx_bwd_tc_kernel(const __nv_bfloat16* __restrict__ cn,
                      const float* __restrict__ graw,
                      const int* __restrict__ targets, TcGrads out, int A,
                      int Lqa, int Li, int Lr, float scale, Dropout drop) {
+  drop.load_seed();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_smem(smem_raw);
   uint8_t* w_s = sm;
@@ -1021,14 +1023,14 @@ extern "C" int qa_ctx_attention_bwd(
     void* gqe, void* gvec, void* gw, void* gcn_part, void* gce_part,
     void* yd, void* gout, void* vec_part, void* wg_part, void* gs_rows,
     void* p_rows, void* ga_rows, int B, int A, int Lqa, int Li, int Lr,
-    float scale, unsigned long long drop_seed,
+    float scale, const unsigned long long* drop_seed,
     unsigned drop_threshold, float drop_scale, int wg_chunks, int is_bf16,
     void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto fm = [](void* p) { return static_cast<float*>(p); };
   auto s = static_cast<cudaStream_t>(stream);
   if (Lr > MAX_LR) return static_cast<int>(cudaErrorInvalidValue);
-  const Dropout drop{drop_seed, drop_threshold, drop_scale};
+  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
   const int* tg = static_cast<const int*>(targets);
   if (is_bf16) {
     using bf16 = __nv_bfloat16;

@@ -82,6 +82,7 @@ qa_ctx_fwd_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
                   const int* __restrict__ targets, T* __restrict__ mixed,
                   float* __restrict__ raw, int A, int Lqa, int Li, int Lr,
                   float scale, Dropout drop) {
+  drop.load_seed();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const Layout lay(Lr);
@@ -235,6 +236,7 @@ qa_ctx_fwd_tc_kernel(const __nv_bfloat16* __restrict__ cn,
                      __nv_bfloat16* __restrict__ mixed,
                      float* __restrict__ raw, int A, int Lqa, int Li, int Lr,
                      float scale, Dropout drop) {
+  drop.load_seed();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* w_s = align_smem(smem_raw);
   uint8_t* qn_s = w_s + W_BYTES;
@@ -411,11 +413,11 @@ extern "C" int qa_ctx_attention_fwd(
     const void* cmask, const void* qmask, const void* gamma,
     const void* beta, const void* W, const void* bias, const void* targets,
     void* mixed, void* raw, int B, int A, int Lqa, int Li, int Lr,
-    float scale, unsigned long long drop_seed, unsigned drop_threshold,
+    float scale, const unsigned long long* drop_seed, unsigned drop_threshold,
     float drop_scale, int is_bf16, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto s = static_cast<cudaStream_t>(stream);
-  const Dropout drop{drop_seed, drop_threshold, drop_scale};
+  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
   const int* tg = static_cast<const int*>(targets);
   if (Lr > TM) return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16 && Lr <= 32)

@@ -77,6 +77,7 @@ tri_bridge_bwd_kernel(const T* __restrict__ s, const T* __restrict__ v,
                       float* __restrict__ gy1_buf,
                       float* __restrict__ vec_part, long long R,
                       Dropout drop) {
+  drop.load_seed();
   extern __shared__ float4 smem4[];
   float* y_s = reinterpret_cast<float*>(smem4);       // RT x 3D
   float* g1_s = y_s + RT * 3 * D;                      // RT x D
@@ -332,6 +333,7 @@ tri_bridge_bwd_tc_kernel(const __nv_bfloat16* __restrict__ s,
                          __nv_bfloat16* __restrict__ gy1_rows,
                          float* __restrict__ vec_part, long long R,
                          Dropout drop) {
+  drop.load_seed();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_smem(smem_raw);
   uint8_t* w_s = sm;
@@ -601,13 +603,13 @@ extern "C" int tri_bridge_bwd(const void* s, const void* v, const void* gin,
                               const void* g, void* gs, void* gv, void* gvec,
                               void* gw, void* yd, void* gy1, void* vec_part,
                               void* wg_part, long long R, int wg_chunks,
-                              unsigned long long drop_seed,
+                              const unsigned long long* drop_seed,
                               unsigned drop_threshold, float drop_scale,
                               int is_bf16, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto fm = [](void* p) { return static_cast<float*>(p); };
   auto st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{drop_seed, drop_threshold, drop_scale};
+  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
   if (is_bf16)
     return launch_tc(s, v, f(gin), f(bin), W, f(bias), f(gout), g, gs, gv,
                      fm(gvec), fm(gw), yd, gy1, fm(vec_part), fm(wg_part), R,

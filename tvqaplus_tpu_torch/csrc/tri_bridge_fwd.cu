@@ -58,6 +58,7 @@ tri_bridge_fwd_kernel(const float* __restrict__ s, const float* __restrict__ v,
                       const float* __restrict__ gout,
                       const float* __restrict__ bout, float* __restrict__ out,
                       long long R, Dropout drop) {
+  drop.load_seed();
   extern __shared__ float4 smem4[];
   float* y_s = reinterpret_cast<float*>(smem4);
   float* w_s = y_s + RT * 3 * D;
@@ -170,6 +171,7 @@ tri_bridge_fwd_tc_kernel(const __nv_bfloat16* __restrict__ s,
                          const float* __restrict__ bout,
                          __nv_bfloat16* __restrict__ out, long long R,
                          Dropout drop) {
+  drop.load_seed();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_smem(smem_raw);
   uint8_t* w_s = sm;
@@ -287,12 +289,12 @@ extern "C" int tri_bridge_fwd(const void* s, const void* v, const void* gin,
                               const void* bin, const void* W,
                               const void* bias, const void* gout,
                               const void* bout, void* out, long long R,
-                              unsigned long long drop_seed,
+                              const unsigned long long* drop_seed,
                               unsigned drop_threshold, float drop_scale,
                               int is_bf16, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{drop_seed, drop_threshold, drop_scale};
+  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
   if (R < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16)
     return launch_tc(s, v, f(gin), f(bin), f(W), f(bias), f(gout), f(bout),

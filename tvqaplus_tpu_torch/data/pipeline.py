@@ -7,6 +7,13 @@ the device work of batch i.  Shuffle-off iteration keeps dataset order
 (inference, validation).  Shuffled iteration (training) permutes the
 examples from a numpy generator seeded with (seed, epoch) and batches each
 example with others of its own Li bucket, as the JAX pipeline does.
+
+``group`` > 1 stacks that many same-shape batches on a new leading axis
+K, one multi-step dispatch each (the trainer's ``steps_per_dispatch``, the
+evaluators' ``eval_steps_per_dispatch``): batches wait in one buffer per
+bucket, so full stacks form however the buckets interleave, and what is
+left at the end of an epoch comes out as single batches, in bucket order
+(JAX pipeline.py:241-270).
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ class DataPipeline:
     ``train``: shuffled bucket batching with the att-entry keys."""
 
     def __init__(self, dataset, cfg, device, batch_size=16, prefetch_depth=2,
-                 train=False, seed=0):
+                 train=False, seed=0, group=1):
         self.dataset = dataset
         self.cfg = cfg
         self.device = torch.device(device)
@@ -36,6 +43,7 @@ class DataPipeline:
         self.prefetch_depth = max(1, prefetch_depth)
         self.train = train
         self.seed = seed
+        self.group = max(1, group)
         self.base_spec = StaticShapeSpec.from_config(cfg, batch=batch_size,
                                                      train=train)
         self.buckets = sorted(set(min(b, cfg.max_num_img)
@@ -43,8 +51,9 @@ class DataPipeline:
         self._epoch = 0
 
     def __len__(self):
-        """Upper bound on batches per epoch: shuffled bucket batching can
-        end an epoch with one partial batch per bucket."""
+        """Upper bound on batches (optimizer steps, not dispatches) per
+        epoch: shuffled bucket batching can end an epoch with one partial
+        batch per bucket."""
         base = -(-len(self.dataset) // self.batch_size)
         if self.train:
             base += max(0, len(self.buckets) - 1)
@@ -93,10 +102,33 @@ class DataPipeline:
                 f"an example's subtitle windows need {n_over} more unique "
                 f"tokens than max_sub_tokens={self.cfg.max_sub_tokens}; "
                 f"raise --max_sub_tokens (or disable --sub_dedup)")
+        return arrays, meta, bucket
+
+    def _grouped_batches(self):
+        """``group`` same-shape batches stacked on a leading axis K (the
+        key: the Li bucket and the first two sizes of the per-batch token
+        stream, as JAX's); the leftovers of each buffer come out single,
+        buffers in key order."""
+        bufs = {}
+        for arrays, meta, bucket in self._batches():
+            key = (bucket,) + tuple(arrays[k].shape[:2] for k in
+                                    ("sub_tokens",) if k in arrays)
+            bats, metas = bufs.setdefault(key, ([], []))
+            bats.append(arrays)
+            metas.append(meta)
+            if len(bats) == self.group:
+                yield ({k: np.stack([b[k] for b in bats]) for k in bats[0]},
+                       {k: sum((m[k] for m in metas), []) for k in metas[0]},
+                       bucket)
+                bufs.pop(key)
+        for key in sorted(bufs):
+            for arrays, meta in zip(*bufs[key]):
+                yield arrays, meta, key[0]
+
+    def _host(self, arrays):
         pin = self.device.type == "cuda"
-        tensors = {k: (torch.from_numpy(v).pin_memory() if pin
-                       else torch.from_numpy(v)) for k, v in arrays.items()}
-        return tensors, meta, bucket
+        return {k: (torch.from_numpy(v).pin_memory() if pin
+                    else torch.from_numpy(v)) for k, v in arrays.items()}
 
     def __iter__(self):
         self._epoch += 1
@@ -105,9 +137,13 @@ class DataPipeline:
         err = []
         stop = threading.Event()
 
+        source = (self._grouped_batches() if self.group > 1
+                  else self._batches())
+
         def producer():
             try:
-                for item in self._batches():
+                for arrays, meta, bucket in source:
+                    item = (self._host(arrays), meta, bucket)
                     while not stop.is_set():
                         try:
                             q.put(item, timeout=0.1)

@@ -4,13 +4,15 @@ evaluator's format (port of ``tvqaplus_tpu/infer/predict.py``).
 Answer choice, the greedy best-span scan over all five answers and the
 grounding compaction (threshold, ascending stable sort, per-row counts) run
 on the device; the host turns the compacted rows into records with two
-slices each (``assemble_att_predictions``).
+slices each (``assemble_att_predictions``).  ``eval_steps_per_dispatch``
+same-bucket batches go to the device at once (dispatch.py): one CUDA-graph
+replay on ``cuda``.
 """
 from __future__ import annotations
 
 import torch
 
-from tvqaplus_tpu_torch import resolve_device
+from tvqaplus_tpu_torch import dispatch, resolve_device
 from tvqaplus_tpu_torch.data.pipeline import DataPipeline
 from tvqaplus_tpu_torch.models import spans
 from tvqaplus_tpu_torch.ops.masking import safe_softmax
@@ -109,10 +111,10 @@ def grounding_compaction(raw, vid_mask, anno_st, f_max):
 
 class InferenceRunner:
     """Runs the eval-mode model over a dataset split and assembles the
-    predictions dict (reference inference.py:38-75).  One batch stays in
-    flight: batch i's device->host copy and record assembly run while batch
-    i+1 executes on the device.  ``device`` defaults to ``cuda``; the model
-    is moved there."""
+    predictions dict (reference inference.py:38-75).  One dispatch stays in
+    flight: dispatch i's device->host copy and record assembly run while
+    dispatch i+1 executes on the device.  ``device`` defaults to ``cuda``;
+    the model is moved there."""
 
     def __init__(self, cfg, model, device=None):
         if getattr(cfg, "video_dedup", False):
@@ -120,6 +122,8 @@ class InferenceRunner:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        self.graphs = (dispatch.StepGraphs(self.device)
+                       if self.device.type == "cuda" else None)
 
     @torch.inference_mode()
     def step(self, batch, with_grounding, f_max):
@@ -137,6 +141,19 @@ class InferenceRunner:
                 f_max))
         return result
 
+    @torch.inference_mode()
+    def dispatch_infer(self, batch, with_grounding, f_max):
+        """``step`` over the K batches of a (stacked) batch in one dispatch:
+        each output stacked on a leading K axis.  On cuda the outputs are
+        a graph's: read (``_to_host``) before the next dispatch."""
+        def steps(b):
+            outs = [self.step(bi, with_grounding, f_max)
+                    for bi in dispatch.unstack(b)]
+            return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        if self.graphs is None:
+            return steps(batch)
+        return self.graphs((with_grounding, f_max), steps, batch)
+
     def _to_host(self, result):
         """Start the device->host copies; returns (host tensors, event)."""
         if self.device.type != "cuda":
@@ -151,17 +168,27 @@ class InferenceRunner:
 
     def run(self, dataset, mode="valid", object_word_ids=(), debug=False):
         dataset.set_mode(mode)
-        pipeline = DataPipeline(dataset, self.cfg, self.device,
-                                batch_size=self.cfg.test_bsz,
-                                prefetch_depth=self.cfg.prefetch_depth)
+        pipeline = DataPipeline(
+            dataset, self.cfg, self.device, batch_size=self.cfg.test_bsz,
+            prefetch_depth=self.cfg.prefetch_depth,
+            group=max(1, self.cfg.eval_steps_per_dispatch))
         predictions = {"ts_answer": {}, "raw_bbox": []}
         with_grounding = bool(object_word_ids) and self.cfg.vfeat_flag
         f_max = max(1, int(dataset.max_annotated_frames()))
 
         def collate_host(host, event, meta, li):
+            """One dispatch's K batches, batch i with the meta entries
+            [i B, (i + 1) B) (only a stack's last batch can be partial)."""
             if event is not None:
                 event.synchronize()
-            out = {k: v.numpy() for k, v in host.items()}
+            stack = {k: v.numpy() for k, v in host.items()}
+            b = stack["pred_ids"].shape[1]
+            for i in range(stack["pred_ids"].shape[0]):
+                collate_one({k: v[i] for k, v in stack.items()},
+                            {k: v[i * b:(i + 1) * b]
+                             for k, v in meta.items()}, li)
+
+        def collate_one(out, meta, li):
             n = len(meta["qid"])
             if "grd_scores" in out and any(
                     bx is not None for bx in meta["boxes"]):
@@ -184,8 +211,8 @@ class InferenceRunner:
         pending = None
         for batch, meta, _ in pipeline:
             li = batch["ts_mask"].shape[-1]
-            host, event = self._to_host(self.step(batch, with_grounding,
-                                                  min(li, f_max)))
+            host, event = self._to_host(self.dispatch_infer(
+                batch, with_grounding, min(li, f_max)))
             if pending is not None:
                 collate_host(*pending)
             pending = (host, event, meta, li)

@@ -15,8 +15,9 @@ stay float32.
 Dropout: every ``forward`` takes ``drop``, a ``Dropout`` for a training
 forward or None for eval.  The ``nn.Dropout`` slots keep the key layout
 only.  The plain layers draw their masks from a generator on the batch's
-device; the fused kernels take a Philox seed drawn from a CPU generator
-(ops/philox.py), so a training step never waits on the device for either.
+device; the fused kernels read their Philox seeds from device memory, the
+slots that the training step fills (ops/philox.py ``StepSeeds``), so a
+step never waits on the device and a replayed CUDA graph draws new masks.
 """
 from __future__ import annotations
 
@@ -26,7 +27,6 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tvqaplus_tpu_torch.ops import philox
 from tvqaplus_tpu_torch.ops.encoder import encoder_block, encoder_reduce
 from tvqaplus_tpu_torch.ops.mlp_bridge import mlp_bridge
 from tvqaplus_tpu_torch.ops.plain import LN_EPS, depthwise_conv, layer_norm
@@ -36,13 +36,16 @@ from tvqaplus_tpu_torch.ops.tri_bridge import tri_bridge
 class Dropout:
     """The dropout of one training forward (reference rate ``rate``):
     ``drop(x)`` for a plain layer, with its mask from ``generator`` (on the
-    batch's device); ``kernel_args()`` gives a fused kernel its
-    (rate, Philox seed), the seed drawn from the CPU ``seed_generator``."""
+    batch's device); ``kernel_args()`` gives the fused kernels, one call
+    site after the other, their (rate, Philox seed): the next slot of
+    ``seeds``, the step's int64 seed tensor on the batch's device
+    (``StepSeeds.next()``)."""
 
-    def __init__(self, rate, generator, seed_generator):
+    def __init__(self, rate, generator, seeds):
         self.rate = float(rate)
         self.generator = generator
-        self.seed_generator = seed_generator
+        self.seeds = seeds
+        self.site = 0
 
     def __call__(self, x):
         if self.rate == 0.0:
@@ -54,7 +57,11 @@ class Dropout:
     def kernel_args(self):
         if self.rate == 0.0:
             return 0.0, 0
-        return self.rate, philox.draw_seed(self.seed_generator)
+        if self.site >= len(self.seeds):
+            raise RuntimeError(f"more than {len(self.seeds)} kernel dropout "
+                               f"sites in one forward")
+        self.site += 1
+        return self.rate, self.seeds[self.site - 1]
 
 
 def apply_dropout(drop, x):
@@ -91,7 +98,8 @@ class MLPBridge(nn.Sequential):
     ``vid_fc`` (reference stage.py:85-113).  Built with ``use_kernel`` (the
     JAX module's ``use_pallas`` field, off by default and left off by
     STAGE) a 4-D input goes through the fused bridge kernel
-    (ops/mlp_bridge.py), dropout included."""
+    (ops/mlp_bridge.py), dropout included, in the module's dtype as the
+    kernel's compute mode and output type (JAX layers.py:345-348)."""
 
     def __init__(self, in_hsz, out_hsz, dropout=0.1, dtype=torch.float32,
                  use_kernel=False):
@@ -106,7 +114,8 @@ class MLPBridge(nn.Sequential):
             ln_in, fc, ln_out = self[0], self[2], self[4]
             return mlp_bridge(x.contiguous(), ln_in.weight, ln_in.bias,
                               fc.weight.t(), fc.bias, ln_out.weight,
-                              ln_out.bias, *kernel_dropout(drop))
+                              ln_out.bias, *kernel_dropout(drop),
+                              compute_dtype=self.dtype)
         x = apply_dropout(drop, self[0](x))
         return self[4](torch.relu(dense(x, self[2], self.dtype)))
 
@@ -225,7 +234,7 @@ class ConvLinear(nn.Module):
 
 def sinusoid_table(max_len, d):
     """Fixed sin/cos positional table (reference position_encoding.py:24-31),
-    float32 (max_len, d)."""
+    float32 (max_len, d), built on the CPU; see ``PositionEncoding.table``."""
     position = torch.arange(max_len, dtype=torch.float32)[:, None]
     div_term = torch.exp(torch.arange(0, d, 2, dtype=torch.float32)
                          * -(math.log(10000.0) / d))
@@ -236,17 +245,29 @@ def sinusoid_table(max_len, d):
 
 
 class PositionEncoding(nn.Module):
-    """Add the sinusoid table to any (..., L, D) input.  Holds no state:
-    the reference's fixed ``position_encoding.pe`` buffer is recomputed, so
-    it is neither saved nor loaded."""
+    """Add the sinusoid table to any (..., L, D) input.  Holds no
+    parameter or buffer: the reference's fixed ``position_encoding.pe`` is
+    recomputed (``table``), so it is neither saved nor loaded."""
 
     def __init__(self, dtype=torch.float32):
         super().__init__()
         self.dtype = dtype
+        self._tables = {}
+
+    def table(self, max_len, d, device, dtype):
+        """``sinusoid_table(max_len, d)`` in ``dtype`` on ``device``, built
+        once per (shape, device, dtype) and kept, so a step copies nothing
+        from the host (a copy from pageable memory cannot be captured in a
+        CUDA graph)."""
+        key = (max_len, d, torch.device(device), dtype)
+        if key not in self._tables:
+            with torch.inference_mode(False):   # serves training steps too
+                self._tables[key] = sinusoid_table(max_len, d).to(device,
+                                                                  dtype)
+        return self._tables[key]
 
     def forward(self, x):
-        pe = sinusoid_table(x.shape[-2], x.shape[-1]).to(x.device, self.dtype)
-        return x + pe
+        return x + self.table(x.shape[-2], x.shape[-1], x.device, self.dtype)
 
 
 class EncoderBlock(nn.Module):
@@ -305,8 +326,9 @@ class EncoderBlock(nn.Module):
                 raise NotImplementedError("reduce_mask with a zero_mask")
             out = encoder_reduce(
                 x.reshape(lead[0], -1, l, d).contiguous(),
-                sinusoid_table(l, d).to(x.device), self.kernel_params(),
-                self.kernel_size, reduce_mask.reshape(lead[0], -1, l),
+                self.position_encoding.table(l, d, x.device, torch.float32),
+                self.kernel_params(), self.kernel_size,
+                reduce_mask.reshape(lead[0], -1, l),
                 *kernel_dropout(drop))
             return out.reshape(lead + (d,))
         zm_fusable = zero_mask is None or (
@@ -315,8 +337,9 @@ class EncoderBlock(nn.Module):
         if self.use_kernel and x.dim() >= 3 and zm_fusable:
             out = encoder_block(
                 x.reshape(lead[0], -1, l, d).contiguous(),
-                sinusoid_table(l, d).to(x.device), self.kernel_params(),
-                self.kernel_size, zero_mask, *kernel_dropout(drop))
+                self.position_encoding.table(l, d, x.device, torch.float32),
+                self.kernel_params(), self.kernel_size, zero_mask,
+                *kernel_dropout(drop))
             return out.reshape(x.shape)
         out = self.position_encoding(x)
         for i, (ln, conv) in enumerate(zip(self.layer_norm, self.conv)):

@@ -95,7 +95,8 @@ def att_loss(scores, entries, targets, ex_mask, gumbel=None,
     n_neg = neg_rows.sum(-1)
     has_neg = (n_neg > 0).float()
     k = num_negatives
-    ninf = torch.tensor(-float("inf"), device=scores.device)
+    # filled on the device: a host->device copy would break a CUDA graph
+    ninf = torch.full((), -float("inf"), device=scores.device)
     zero = torch.zeros((), device=scores.device)
     if not use_hard_negatives:
         logits = torch.where(neg_rows[:, :, None, :] > 0, zero, ninf)

@@ -129,6 +129,7 @@ class STAGE(nn.Module):
             for _ in range(c.t_iter + 1))
         self.classifier = LinearWrapper(
             2 * c.hsz if c.add_local else c.hsz, 1, False, c.dropout, dt)
+        self._zero_masks = {}
 
     @torch.no_grad()
     def reset_parameters(self, generator):
@@ -188,16 +189,30 @@ class STAGE(nn.Module):
         lmax = max(x.shape[2] for x in streams)
         merged = torch.cat([nn.functional.pad(x, (0, 0, 0, lmax - x.shape[2]))
                             for x in streams], dim=1)
-        lens = torch.cat([torch.full((x.shape[1],), x.shape[2])
-                          for x in streams])
-        zm = (torch.arange(lmax)[None, :] < lens[:, None]).float().to(
-            merged.device)
+        zm = self.merged_zero_mask(tuple(x.shape[1:3] for x in streams),
+                                   merged.device)
         enc = self.input_encoder(merged, drop=drop, zero_mask=zm)
         outs, g0 = [], 0
         for x in streams:
             outs.append(enc[:, g0:g0 + x.shape[1], :x.shape[2]].contiguous())
             g0 += x.shape[1]
         return outs
+
+    def merged_zero_mask(self, streams, device):
+        """The (G, Lmax) float32 zero mask of the merged input encoder for
+        streams of (groups, length) ``streams``: 1 where a position lies
+        inside its stream's length.  Built once per shape and device and
+        kept, so a step copies nothing from the host (a copy from pageable
+        memory cannot be captured in a CUDA graph)."""
+        key = (streams, torch.device(device))
+        if key not in self._zero_masks:
+            lmax = max(length for _, length in streams)
+            lens = torch.cat([torch.full((groups,), length)
+                              for groups, length in streams])
+            with torch.inference_mode(False):   # serves training steps too
+                self._zero_masks[key] = (torch.arange(lmax)[None, :]
+                                         < lens[:, None]).float().to(device)
+        return self._zero_masks[key]
 
     def qa_ctx_attention(self, qa_embed, ctx_embed, qa_mask, ctx_mask,
                          need_raw, drop=None, targets=None):

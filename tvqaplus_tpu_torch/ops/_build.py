@@ -95,7 +95,9 @@ def build_all(sources=SOURCES):
 
 class CudaKernel:
     """One C entry of one kernel library, loaded at first launch, with a
-    count of its launches (``launches``) that callers may reset."""
+    count of its launches (``launches``) that callers may reset.  A launch
+    captured into a CUDA graph counts once for each replay of the graph
+    (``launch_counts``, ``add_launches``: dispatch.py), not at capture."""
 
     def __init__(self, source, symbol, argtypes):
         self.source = source
@@ -103,6 +105,7 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
+        KERNELS.append(self)
 
     def _load(self):
         if self._fn is None:
@@ -129,6 +132,20 @@ class CudaKernel:
                 f"{self.symbol}: CUDA error {err} at launch "
                 f"(see cudaError_t)")
         self.launches += 1
+
+
+KERNELS = []      # every CudaKernel, in the order the modules made them
+
+
+def launch_counts():
+    """Every kernel's ``launches``, in ``KERNELS`` order."""
+    return [k.launches for k in KERNELS]
+
+
+def add_launches(counts):
+    """Add ``counts`` (``launch_counts`` order) to the kernels' counters."""
+    for kernel, n in zip(KERNELS, counts):
+        kernel.launches += n
 
 
 def ptr(t):

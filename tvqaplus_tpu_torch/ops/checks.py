@@ -17,9 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from tvqaplus_tpu_torch.ops import philox
 from tvqaplus_tpu_torch.ops.encoder import GRAD_TOL, block_layers
-from tvqaplus_tpu_torch.ops.plain import layer_norm
+from tvqaplus_tpu_torch.ops.mlp_bridge import mlp_bridge_pre
 from tvqaplus_tpu_torch.ops.qa_ctx_attention import qa_ctx_attention_plain
 from tvqaplus_tpu_torch.ops.tri_bridge import tri_bridge_pre
 
@@ -45,6 +44,11 @@ BF16_EPS = 5e-3
 # scripts/measure_bf16_relu_shift.py), so its margin is 4e-3 (about a
 # third of the rows of 128 inputs hold one).
 TRI_BF16_EPS = 4e-3
+# The MLP bridge's bf16 compute mode rounds the same way (LN output and W,
+# 768 or 300 terms a product): a ReLU input moved by up to 2.4e-3 (6M
+# inputs at 300 -> 300, 1.6e-3 at 768 -> 300), so it takes the tri
+# bridge's margin; about 60% of the rows of 300 inputs hold one.
+BRIDGE_BF16_EPS = 4e-3
 # The encoder's moved by up to 3.7e-3: every sequence holds such an input,
 # so its bf16 backward is held by a relative L2 bar (ops/encoder.py
 # GRAD_TOL, hold_grad).  Its final LN outputs moved by up to 3.3e-3, and a
@@ -163,9 +167,12 @@ def encoder_block_flip_groups(x, pe, params, k, zero_mask=None,
 
 
 def mlp_bridge_flip_rows(x, gamma_in, beta_in, w, b, dropout_rate=0.0,
-                         seed=0, eps=ROW_EPS):
-    """x's leading shape, bool: rows with a ReLU input within ``eps`` of 0."""
-    y = layer_norm(x, gamma_in, beta_in)
-    if dropout_rate > 0.0:
-        y = y * philox.multiplier(y.shape, seed, dropout_rate, y.device)
-    return ((y @ w.float() + b.float()).abs() < eps).any(-1)
+                         seed=0, compute_dtype=None, eps=None):
+    """x's leading shape, bool: rows with a ReLU input within ``eps`` of 0
+    (from the plain version, bf16 rounding sites included in the bf16
+    compute mode, which takes ``BRIDGE_BF16_EPS``; float32 ``ROW_EPS``)."""
+    bf16 = (compute_dtype or x.dtype) == torch.bfloat16
+    if eps is None:
+        eps = BRIDGE_BF16_EPS if bf16 else ROW_EPS
+    return (mlp_bridge_pre(x, gamma_in, beta_in, w, b, dropout_rate, seed,
+                           compute_dtype).abs() < eps).any(-1)

@@ -58,16 +58,16 @@ from tvqaplus_tpu_torch.ops.plain import (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_U64, _U32 = ctypes.c_ulonglong, ctypes.c_uint
+_U32 = ctypes.c_uint
 KERNEL = CudaKernel("encoder_fwd.cu", "encoder_reduce_fwd",
-                    [_P] * 5 + [_I] * 3 + [_U64, _U32, _F, _I, _P])
+                    [_P] * 5 + [_I] * 3 + [_P, _U32, _F, _I, _P])
 BWD_KERNEL = CudaKernel("encoder_bwd.cu", "encoder_reduce_bwd",
-                        [_P] * 15 + [_I] * 4 + [_U64, _U32, _F, _I, _P])
+                        [_P] * 15 + [_I] * 4 + [_P, _U32, _F, _I, _P])
 BLOCK_KERNEL = CudaKernel("encoder_fwd.cu", "encoder_block_fwd",
-                          [_P] * 5 + [_I] * 4 + [_U64, _U32, _F, _I, _P])
+                          [_P] * 5 + [_I] * 4 + [_P, _U32, _F, _I, _P])
 BLOCK_BWD_KERNEL = CudaKernel("encoder_bwd.cu", "encoder_block_bwd",
                               [_P] * 15 + [_I] * 5
-                              + [_U64, _U32, _F, _I, _P])
+                              + [_P, _U32, _F, _I, _P])
 
 PARAM_KEYS = ("ln0_s", "ln0_b", "dw0", "dwb0", "pw0", "pwb0",
               "ln1_s", "ln1_b", "dw1", "dwb1", "pw1", "pwb1",
@@ -253,6 +253,7 @@ def encoder_block_backward(x, pe, packed, zero_mask, g, k, dropout_rate=0.0,
 def _backward(x, pe, packed, reduce_mask, zero_mask, g, k, dropout_rate,
               seed, full=False):
     packed32, pe32, m32 = _check(x, pe, packed, k, reduce_mask, zero_mask)
+    seed = philox.kernel_seed(dropout_rate, seed, x.device)
     bsz, grp, l, d = x.shape
     n = bsz * grp
     g = g.to(x.dtype).contiguous()
@@ -343,7 +344,9 @@ def encoder_reduce(x, pe, params, k, reduce_mask, dropout_rate=0.0, seed=0):
         return encoder_reduce_plain(x, pe, params, k, reduce_mask,
                                     dropout_rate, seed)
     return _EncoderReduce.apply(x, pe, _packed(params, k, x.shape[-1]),
-                                reduce_mask, k, dropout_rate, seed)
+                                reduce_mask, k, dropout_rate,
+                                philox.kernel_seed(dropout_rate, seed,
+                                                   x.device))
 
 
 def encoder_block(x, pe, params, k, zero_mask=None, dropout_rate=0.0, seed=0):
@@ -353,4 +356,6 @@ def encoder_block(x, pe, params, k, zero_mask=None, dropout_rate=0.0, seed=0):
         return encoder_block_plain(x, pe, params, k, zero_mask, dropout_rate,
                                    seed)
     return _EncoderBlock.apply(x, pe, _packed(params, k, x.shape[-1]),
-                               zero_mask, k, dropout_rate, seed)
+                               zero_mask, k, dropout_rate,
+                               philox.kernel_seed(dropout_rate, seed,
+                                                  x.device))

@@ -9,6 +9,12 @@ LN, row by row (reference stage.py:85-113).  The CUDA kernels are
 plain PyTorch (autograd through it is the plain backward).  Din and Dout are
 run-time widths, multiples of 4.  The dropout acts on the (rows, Din) LN
 output, keyed by (seed, flat index) through Philox (ops/philox.py).
+
+Two compute modes, as the TPU kernel's ``compute_dtype``: float32 (exact),
+and bfloat16, which reads float32 or bfloat16 x, rounds the dense
+product's operands (the dropped LN output and W; in the backward g_y1 with
+each) to bf16 with float32 sums (pallas_bridge.py:52-54, :106-111) and
+returns bf16.  The mode defaults to x's type.  Both run on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -23,23 +29,27 @@ from tvqaplus_tpu_torch.ops._build import (
     ptr,
     wgrad_chunks,
 )
-from tvqaplus_tpu_torch.ops.plain import as_f32, layer_norm
+from tvqaplus_tpu_torch.ops.plain import as_f32, dot, layer_norm
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_U64, _U32, _L = ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_longlong
+_U32, _L = ctypes.c_uint, ctypes.c_longlong
 KERNEL = CudaKernel("mlp_bridge_fwd.cu", "mlp_bridge_fwd",
-                    [_P] * 8 + [_L, _I, _I, _U64, _U32, _F, _I, _P])
+                    [_P] * 8 + [_L, _I, _I, _P, _U32, _F, _I, _I, _P])
 BWD_KERNEL = CudaKernel("mlp_bridge_bwd.cu", "mlp_bridge_bwd",
-                        [_P] * 15 + [_L, _I, _I, _I, _U64, _U32, _F, _I, _P])
+                        [_P] * 15 + [_L, _I, _I, _I, _P, _U32, _F, _I, _I,
+                                     _P])
 
 # Kernel vs plain version on the same inputs: float32 differs only in the
-# order of float32 sums (768 terms a product); bf16 output is rounded once
-# (LN outputs are O(1), up to a few units).
+# order of float32 sums (768 terms a product); bf16 rounds the product's
+# operands at the same sites on both sides and the output once (LN outputs
+# are O(1), up to a few units), so a float32 difference may move one
+# rounding by a bf16 step.
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 1e-2)}
 # Backward kernel vs autograd through the plain version: float32 sums over
 # all rows in another order (the parameter grads sum 4e4 rows at the
 # subtitle stream's shape); bf16 rounds gx once and takes the cotangent in
-# bf16.
+# bf16 (rows whose ReLU input a moved rounding could flip take no
+# cotangent, ops/checks.py).
 GRAD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
 _NAMES = ("gamma_in", "beta_in", "w", "b", "gamma_out", "beta_out")
 # a block keeps 32 rows of round32(Din) + round32(Dout) float32 in shared
@@ -47,27 +57,43 @@ _NAMES = ("gamma_in", "beta_in", "w", "b", "gamma_out", "beta_out")
 MAX_WIDTHS = 1664
 
 
-def mlp_bridge_plain(x, gamma_in, beta_in, w, b, gamma_out, beta_out,
-                     dropout_rate=0.0, seed=0):
-    """Plain PyTorch version.  x (..., Din); w (Din, Dout).  Returns
-    (..., Dout) in x's dtype."""
+def mlp_bridge_pre(x, gamma_in, beta_in, w, b, dropout_rate=0.0, seed=0,
+                   compute_dtype=None):
+    """The bridge up to its ReLU input y1 = dropout(LN_in(x)) W + b
+    (float32; ops/checks.py reads it), with the bf16 compute mode's rounding
+    sites (``dot``, pallas_bridge.py:52-54, :106-111) when ``compute_dtype``
+    (default: x's) is bfloat16."""
+    bf16 = (compute_dtype or x.dtype) == torch.bfloat16
     y = layer_norm(x, gamma_in, beta_in)
     if dropout_rate > 0.0:
         y = y * philox.multiplier(y.shape, seed, dropout_rate, y.device)
-    h = torch.relu(y @ w.float() + b.float())
-    return layer_norm(h, gamma_out, beta_out).to(x.dtype)
+    return dot(y, w.float(), bf16) + b.float()
+
+
+def mlp_bridge_plain(x, gamma_in, beta_in, w, b, gamma_out, beta_out,
+                     dropout_rate=0.0, seed=0, compute_dtype=None):
+    """Plain PyTorch version.  x (..., Din); w (Din, Dout).  Returns
+    (..., Dout) in the compute type (default: x's)."""
+    h = torch.relu(mlp_bridge_pre(x, gamma_in, beta_in, w, b, dropout_rate,
+                                  seed, compute_dtype))
+    return layer_norm(h, gamma_out, beta_out).to(compute_dtype or x.dtype)
 
 
 def _round32(n):
     return -(-n // 32) * 32
 
 
-def _check(x, params):
+def _check(x, params, compute_dtype=None):
     d_in = x.shape[-1]
+    compute_dtype = compute_dtype or x.dtype
     if x.dtype not in (torch.float32, torch.bfloat16) \
             or not x.is_contiguous() or x.numel() == 0:
         raise ValueError(f"x must be non-empty contiguous float32/bfloat16, "
                          f"got {tuple(x.shape)} {x.dtype}")
+    if compute_dtype not in (torch.float32, torch.bfloat16) or (
+            x.dtype == torch.bfloat16 and compute_dtype == torch.float32):
+        raise ValueError(f"the kernels compute in float32 (float32 x) or "
+                         f"bfloat16; got {compute_dtype} on {x.dtype} x")
     params = [as_f32(t) for t in params]
     if params[2].dim() != 2:
         raise ValueError(f"w must be (Din, Dout), got {tuple(params[2].shape)}")
@@ -89,33 +115,36 @@ class _MLPBridge(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma_in, beta_in, w, b, gamma_out, beta_out,
-                dropout_rate, seed):
+                dropout_rate, seed, compute_dtype):
         params, d_in, d_out = _check(
-            x, (gamma_in, beta_in, w, b, gamma_out, beta_out))
-        out = torch.empty(x.shape[:-1] + (d_out,), dtype=x.dtype,
+            x, (gamma_in, beta_in, w, b, gamma_out, beta_out), compute_dtype)
+        out = torch.empty(x.shape[:-1] + (d_out,), dtype=compute_dtype,
                           device=x.device)
         KERNEL.launch(x.device, ptr(x), *(ptr(p) for p in params), ptr(out),
                       x.numel() // d_in, d_in, d_out,
                       *philox.kernel_args(dropout_rate, seed),
-                      int(x.dtype == torch.bfloat16))
+                      int(x.dtype == torch.bfloat16),
+                      int(compute_dtype == torch.bfloat16))
         ctx.save_for_backward(x, gamma_in, beta_in, w, b, gamma_out, beta_out)
-        ctx.cfg = (dropout_rate, seed)
+        ctx.cfg = (dropout_rate, seed, compute_dtype)
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, *params = ctx.saved_tensors
-        return mlp_bridge_backward(x, *params, g, *ctx.cfg) + (None, None)
+        return mlp_bridge_backward(x, *params, g, *ctx.cfg) + (None,) * 3
 
 
 def mlp_bridge_backward(x, gamma_in, beta_in, w, b, gamma_out, beta_out, g,
-                        dropout_rate=0.0, seed=0):
+                        dropout_rate=0.0, seed=0, compute_dtype=None):
     """Launch the backward kernel (CUDA tensors only).  Returns the gradient
     of x in its dtype and of the six parameters in float32."""
+    compute_dtype = compute_dtype or x.dtype
     (gin, bin_, w32, b32, gout, _), d_in, d_out = _check(
-        x, (gamma_in, beta_in, w, b, gamma_out, beta_out))
+        x, (gamma_in, beta_in, w, b, gamma_out, beta_out), compute_dtype)
+    seed = philox.kernel_seed(dropout_rate, seed, x.device)
     rows = x.numel() // d_in
-    g = g.to(x.dtype).contiguous()
+    g = g.to(compute_dtype).contiguous()
     if g.shape != x.shape[:-1] + (d_out,):
         raise ValueError("cotangent does not match the output")
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -134,7 +163,8 @@ def mlp_bridge_backward(x, gamma_in, beta_in, w, b, gamma_out, beta_out, g,
                       ptr(gx), ptr(gvec), ptr(gw),
                       *(ptr(t) for t in scratch), rows, d_in, d_out, chunks,
                       *philox.kernel_args(dropout_rate, seed),
-                      int(x.dtype == torch.bfloat16))
+                      int(x.dtype == torch.bfloat16),
+                      int(compute_dtype == torch.bfloat16))
     return (gx, gvec[:d_in], gvec[d_in:2 * d_in], gw,
             gvec[2 * d_in:2 * d_in + d_out],
             gvec[2 * d_in + d_out:2 * d_in + 2 * d_out],
@@ -142,11 +172,14 @@ def mlp_bridge_backward(x, gamma_in, beta_in, w, b, gamma_out, beta_out, g,
 
 
 def mlp_bridge(x, gamma_in, beta_in, w, b, gamma_out, beta_out,
-               dropout_rate=0.0, seed=0):
+               dropout_rate=0.0, seed=0, compute_dtype=None):
     """Kernels on CUDA tensors (differentiable through the backward
-    kernel), plain version on CPU tensors."""
+    kernel), plain version on CPU tensors.  ``compute_dtype`` (default:
+    x's) is the compute mode and the output's type."""
     if not x.is_cuda:
         return mlp_bridge_plain(x, gamma_in, beta_in, w, b, gamma_out,
-                                beta_out, dropout_rate, seed)
+                                beta_out, dropout_rate, seed, compute_dtype)
     return _MLPBridge.apply(x, gamma_in, beta_in, w, b, gamma_out, beta_out,
-                            dropout_rate, seed)
+                            dropout_rate,
+                            philox.kernel_seed(dropout_rate, seed, x.device),
+                            compute_dtype or x.dtype)

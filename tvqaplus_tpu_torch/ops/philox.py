@@ -8,9 +8,13 @@ word ``e & 3`` of Philox4x32-10 at counter ``e >> 2`` under the key
 output with dropout on is held against its plain version exactly.
 
 The 32 x 32 -> 64-bit products of Philox would overflow int64 tensors, so
-each multiplier is split into 16-bit halves.
+each multiplier is split into 16-bit halves.  A seed is an int or a 0-d
+int64 tensor (a training step's seed slot, ``StepSeeds``), which the plain
+versions read on its device and the kernels through a pointer.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -62,12 +66,32 @@ def scale(p):
     return float(torch.tensor(1.0 / (1.0 - p), dtype=torch.float32))
 
 
-def kernel_args(p, seed):
-    """(seed, threshold, scale) as a kernel's C entry takes them; threshold
-    0 means no dropout."""
+def kernel_seed(p, seed, device):
+    """What a wrapper hands its kernels (and keeps for the backward) as the
+    seed of a dropout at rate ``p``: None when it is off, else a 0-d int64
+    tensor on ``device`` that the kernels read through a pointer
+    (csrc/philox.cuh): a tensor as it comes (a slot of
+    ``StepSeeds.seeds``), an int copied there (a synchronous copy: for tests
+    and checks, not for a captured step)."""
     if p == 0.0:
-        return 0, 0, 1.0
-    return seed, threshold(p), scale(p)
+        return None
+    if isinstance(seed, torch.Tensor):
+        if seed.dtype != torch.int64 or seed.numel() != 1 \
+                or seed.device != torch.device(device):
+            raise ValueError(f"a seed tensor must be one int64 on {device}; "
+                             f"got {seed.dtype} {tuple(seed.shape)} on "
+                             f"{seed.device}")
+        return seed
+    return torch.tensor(int(seed), dtype=torch.int64, device=device)
+
+
+def kernel_args(p, seed):
+    """(seed pointer, threshold, scale) as a kernel's C entry takes them,
+    ``seed`` from ``kernel_seed``; threshold 0 means no dropout (and the
+    pointer is not read)."""
+    if p == 0.0:
+        return None, 0, 1.0
+    return ctypes.c_void_p(seed.data_ptr()), threshold(p), scale(p)
 
 
 def keep_mask(numel, seed, p, device="cpu", offset=0):
@@ -93,3 +117,32 @@ def draw_seed(generator):
     """A kernel seed from a CPU ``torch.Generator``: no device sync."""
     return int(torch.randint(0, 1 << SEED_BITS, (), generator=generator,
                              dtype=torch.int64))
+
+
+# kernel dropout sites one training forward may hold (STAGE holds five:
+# two attention sites, the tri bridge, the cls encoder, the merged input
+# encoder)
+SITES = 16
+
+
+class StepSeeds:
+    """The kernels' dropout seeds of every training step, made on the
+    device: the port's counterpart of JAX's ``fold_in(rng, state.step)``
+    (tvqaplus_tpu/train/loop.py:148-150).  ``step`` is an int64 counter on
+    ``device`` that ``next()`` advances; site i of step s draws under the
+    Philox key ``base + s * SITES + i``, ``base`` drawn once from ``seed``,
+    so no two (step, site) pairs share a key and a CUDA graph that replays
+    the step draws new masks each time, the same as the eager step."""
+
+    def __init__(self, seed, device):
+        base = draw_seed(torch.Generator().manual_seed(seed))
+        self.sites = (base + torch.arange(SITES)).to(device)
+        self.step = torch.zeros((), dtype=torch.int64, device=device)
+        self.seeds = torch.empty(SITES, dtype=torch.int64, device=device)
+
+    def next(self):
+        """Fill ``seeds`` with the current step's keys and advance the
+        counter: two device ops, no host sync.  Returns ``seeds``."""
+        torch.add(self.sites, self.step, alpha=SITES, out=self.seeds)
+        self.step.add_(1)
+        return self.seeds

@@ -39,11 +39,11 @@ from tvqaplus_tpu_torch.ops.masking import SAFE_FLOOR
 from tvqaplus_tpu_torch.ops.plain import Bf16Dot, as_f32, layer_norm
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_U64, _U32 = ctypes.c_ulonglong, ctypes.c_uint
+_U32 = ctypes.c_uint
 KERNEL = CudaKernel("qa_ctx_attention_fwd.cu", "qa_ctx_attention_fwd",
-                    [_P] * 13 + [_I] * 5 + [_F, _U64, _U32, _F, _I, _P])
+                    [_P] * 13 + [_I] * 5 + [_F, _P, _U32, _F, _I, _P])
 BWD_KERNEL = CudaKernel("qa_ctx_attention_bwd.cu", "qa_ctx_attention_bwd",
-                        [_P] * 28 + [_I] * 5 + [_F, _U64, _U32, _F, _I, _I,
+                        [_P] * 28 + [_I] * 5 + [_F, _P, _U32, _F, _I, _I,
                                                 _P])
 
 # Kernel vs plain version on the same inputs.  float32: only the order of
@@ -237,6 +237,7 @@ def qa_ctx_attention_backward(cn, ce, qn, qe, c_mask, q_mask, gamma, beta,
     ``g_raw`` may be None (no raw cotangent)."""
     cm, qm, g32, b32, w32, bias32, tg = _check(
         cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b, raw_mode, targets)
+    seed = philox.kernel_seed(dropout_rate, seed, cn.device)
     bsz, num_a, lqa, d = cn.shape
     _, li, lr, _ = qn.shape
     dev, dt = cn.device, cn.dtype
@@ -318,4 +319,6 @@ def qa_ctx_attention(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b,
                                       dropout_rate, seed)
     return _QaCtxAttention.apply(cn, ce, qn, qe, c_mask, q_mask, gamma, beta,
                                  w, b, targets, scale, raw_mode,
-                                 dropout_rate, seed)
+                                 dropout_rate,
+                                 philox.kernel_seed(dropout_rate, seed,
+                                                    cn.device))

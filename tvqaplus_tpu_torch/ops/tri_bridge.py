@@ -35,11 +35,11 @@ from tvqaplus_tpu_torch.ops._build import (
 from tvqaplus_tpu_torch.ops.plain import as_f32, dot, layer_norm
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_U64, _U32, _L = ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_longlong
+_U32, _L = ctypes.c_uint, ctypes.c_longlong
 KERNEL = CudaKernel("tri_bridge_fwd.cu", "tri_bridge_fwd",
-                    [_P] * 9 + [_L, _U64, _U32, _F, _I, _P])
+                    [_P] * 9 + [_L, _P, _U32, _F, _I, _P])
 BWD_KERNEL = CudaKernel("tri_bridge_bwd.cu", "tri_bridge_bwd",
-                        [_P] * 17 + [_L, _I, _U64, _U32, _F, _I, _P])
+                        [_P] * 17 + [_L, _I, _P, _U32, _F, _I, _P])
 
 # Kernel vs plain version on the same inputs: float32 differs only in the
 # order of float32 sums; bf16 output is rounded once (step 2**-8 relative;
@@ -130,6 +130,7 @@ def tri_bridge_backward(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
     float32."""
     gin, bin_, w32, b32, gout, _ = _check(
         s, v, (gamma_in, beta_in, w, b, gamma_out, beta_out))
+    seed = philox.kernel_seed(dropout_rate, seed, s.device)
     d = s.shape[-1]
     rows = s.numel() // d
     g = g.to(s.dtype).contiguous()
@@ -181,4 +182,5 @@ def tri_bridge(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
         return tri_bridge_plain(s, v, gamma_in, beta_in, w, b, gamma_out,
                                 beta_out, dropout_rate, seed)
     return _TriBridge.apply(s, v, gamma_in, beta_in, w, b, gamma_out,
-                            beta_out, dropout_rate, seed)
+                            beta_out, dropout_rate,
+                            philox.kernel_seed(dropout_rate, seed, s.device))

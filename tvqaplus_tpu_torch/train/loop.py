@@ -10,9 +10,17 @@ diverged state to ``crash_state.ckpt``.
 One train step is forward(train) -> ``total_loss`` -> backward -> clip ->
 Adam.  On ``cuda`` the three fused kernels and their backward kernels carry
 it; the step never waits on the device: the kernels' dropout seeds come
-from a CPU generator, the plain layers' masks and the att loss's Gumbel
-noise from a generator on the device, and the losses stay on the device
-until a log point.
+from the step counter on the device (ops/philox.py ``StepSeeds``, which the
+step advances), the plain layers' masks and the att loss's Gumbel noise
+from a generator on the device, and the losses stay on the device until a
+log point.
+
+Steps are dispatched K at a time, as the JAX Trainer dispatches them
+(dispatch.py): ``steps_per_dispatch`` same-bucket training batches and
+``eval_steps_per_dispatch`` validation batches (one at a time under
+``debug`` or a batch budget) per dispatch, one CUDA-graph replay each on
+``cuda``.  A dispatch's metrics are summed over its K steps, and log points
+fall on the reference's batch indices (``log_crossing``).
 """
 from __future__ import annotations
 
@@ -22,11 +30,12 @@ import time
 
 import torch
 
-from tvqaplus_tpu_torch import resolve_device
+from tvqaplus_tpu_torch import dispatch, resolve_device
 from tvqaplus_tpu_torch.data.pipeline import DataPipeline
 from tvqaplus_tpu_torch.models.layers import Dropout
 from tvqaplus_tpu_torch.models.losses import gumbel_noise, total_loss
 from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+from tvqaplus_tpu_torch.ops.philox import StepSeeds
 from tvqaplus_tpu_torch.train.metrics import MetricsLogger
 from tvqaplus_tpu_torch.train.state import (
     PlateauScheduler,
@@ -75,15 +84,22 @@ class Trainer:
                 torch.Generator().manual_seed(cfg.seed))
         self.model = model.to(self.device)
         self.params = list(self.model.parameters())
-        self.optimizer = make_optimizer(self.params, cfg.lr, cfg.wd)
+        self.optimizer = make_optimizer(self.params, cfg.lr, cfg.wd,
+                                        self.device)
         self.scheduler = PlateauScheduler(cfg.lr, factor=0.5, patience=10)
         self.logger = logger or MetricsLogger(cfg.results_dir)
         self.n_params = count_parameters(self.model)
-        # kernel dropout seeds: CPU generator (no device sync); plain
+        self.steps_per_dispatch = cfg.steps_per_dispatch
+        if self.steps_per_dispatch == 0:
+            self.steps_per_dispatch = dispatch.auto_steps_per_dispatch(cfg)
+        # kernel dropout seeds: from the step counter on the device; plain
         # dropout masks and Gumbel noise: a generator on the device
-        self.seed_generator = torch.Generator().manual_seed(cfg.seed)
+        self.seeds = StepSeeds(cfg.seed, self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed)
+        self.graphs = (dispatch.StepGraphs(self.device, self.generator)
+                       if self.device.type == "cuda" else None)
+        self._names = {}           # metric names of a packed dispatch
         self.step = 0
         self.best_acc = 0.0
         self.start_epoch = 0
@@ -94,6 +110,7 @@ class Trainer:
             self.start_epoch = extra.get("epoch", 0)
             self.scheduler.lr = extra.get("lr", cfg.lr)
             set_lr(self.optimizer, self.scheduler.lr)
+            self.seeds.step.fill_(self.step)
         self.loss_kwargs = dict(
             att_weight=cfg.att_weight, ts_weight=cfg.ts_weight,
             use_sup_att=cfg.use_sup_att, num_negatives=cfg.num_negatives,
@@ -119,11 +136,13 @@ class Trainer:
                             self.device)
 
     def train_step(self, batch, use_hard_negatives=False):
-        """One optimizer step on a batch already on the device.  Returns
-        the step's metrics as device tensors (``grad_norm`` is the norm
-        before clipping)."""
+        """One eager optimizer step on a batch already on the device: the
+        step's seeds from the counter, which it advances, then forward,
+        losses, backward, clip and Adam in place (what a dispatch's graph
+        captures).  Returns the step's metrics as device tensors
+        (``grad_norm`` is the norm before clipping)."""
         self.model.train()
-        drop = Dropout(self.cfg.dropout, self.generator, self.seed_generator)
+        drop = Dropout(self.cfg.dropout, self.generator, self.seeds.next())
         out = self.model(batch, train=True, need_sub_raw=False,
                          need_vid_raw=self.need_vid_raw, drop=drop)
         loss, metrics = total_loss(
@@ -146,22 +165,67 @@ class Trainer:
                                 **self.loss_kwargs)
         return metrics, out["answer_scores"].argmax(-1)
 
-    def _pipeline(self, dataset, train, batch_size):
+    def _packed(self, tag, metrics):
+        """Per-step metric dicts -> their sums over the steps, one vector
+        (names kept under ``tag``)."""
+        names = self._names.setdefault(tag, list(metrics[0]))
+        return torch.stack([torch.stack([m[n].float() for n in names])
+                            for m in metrics]).sum(0)
+
+    def _train_steps(self, batch, use_hard_negatives):
+        return self._packed("train", [
+            self.train_step(b, use_hard_negatives)
+            for b in dispatch.unstack(batch)])
+
+    def _eval_steps(self, batch):
+        outs = [self.eval_step(b) for b in dispatch.unstack(batch)]
+        return (self._packed("eval", [m for m, _ in outs]),
+                torch.stack([p for _, p in outs]).reshape(-1))
+
+    def _run(self, key, fn, batch):
+        """``fn(batch)`` eagerly (CPU) or through a CUDA graph (cuda)."""
+        return fn(batch) if self.graphs is None \
+            else self.graphs(key, fn, batch)
+
+    def dispatch_train(self, batch, use_hard_negatives=False):
+        """The K optimizer steps of a (stacked) batch in one dispatch;
+        returns their summed metrics as device tensors (JAX
+        ``_dispatch_train``)."""
+        step = self.step + dispatch.steps_in(batch)
+        vec = self._run(("train", use_hard_negatives),
+                        lambda b: self._train_steps(b, use_hard_negatives),
+                        batch).clone()
+        self.step = step       # a capture runs train_step's host part too
+        return dict(zip(self._names["train"], vec.unbind()))
+
+    def dispatch_eval(self, batch):
+        """The K eval steps of a (stacked) batch in one dispatch: (summed
+        metrics, the K*B answer ids in stack order), read before the next
+        dispatch (a replay rewrites them)."""
+        vec, preds = self._run(("eval",), self._eval_steps, batch)
+        return dict(zip(self._names["eval"], vec.unbind())), preds
+
+    def _pipeline(self, dataset, train, batch_size, group=1):
         return DataPipeline(dataset, self.cfg, self.device,
                             batch_size=batch_size,
                             prefetch_depth=self.cfg.prefetch_depth,
-                            train=train, seed=self.cfg.seed)
+                            train=train, seed=self.cfg.seed, group=group)
 
     # ------------------------------------------------------------------
     def validate(self, dataset, max_batches=None):
         """A pass over the valid split: (acc, loss per example,
-        qid_corrects) (reference main.py:151-183)."""
+        qid_corrects) (reference main.py:151-183), ``eval_steps_per_dispatch``
+        same-bucket batches a dispatch unless a batch budget (``debug``,
+        ``max_batches``) caps the pass."""
         dataset.set_mode("valid")
-        pipeline = self._pipeline(dataset, False, self.cfg.test_bsz)
+        group = max(1, self.cfg.eval_steps_per_dispatch)
+        if max_batches is not None or self.cfg.debug:
+            group = 1
+        pipeline = self._pipeline(dataset, False, self.cfg.test_bsz, group)
         n_correct = loss = n = 0.0
         qid_corrects = []
         for i, (batch, meta, _) in enumerate(pipeline):
-            metrics, preds = self.eval_step(batch)
+            metrics, preds = self.dispatch_eval(batch)
             preds = preds.cpu().tolist()
             n_correct += float(metrics["n_correct"])
             loss += float(metrics["loss"])
@@ -183,17 +247,21 @@ class Trainer:
         if valid_dataset is dataset:
             raise ValueError("pass separate train/valid dataset objects")
         dataset.set_mode("train")
-        pipeline = self._pipeline(dataset, True, cfg.bsz)
+        pipeline = self._pipeline(dataset, True, cfg.bsz,
+                                  self.steps_per_dispatch)
         meters = {k: AverageMeter() for k in ("dataloading",
                                              "forward_backward")}
         window = _empty_window()
         valid_acc_log = ["batch_idx\tacc"]
-        n_steps = len(pipeline)
+        n_steps = len(pipeline)    # optimizer steps, not dispatches
+        steps_done = 0
         timer = time.time()
-        for batch_idx, (batch, _, _) in enumerate(pipeline):
+        for batch, _, _ in pipeline:
             meters["dataloading"].update(time.time() - timer)
             t0 = time.time()
-            metrics = self.train_step(batch, use_hard_negatives)
+            prev_steps = steps_done
+            steps_done += dispatch.steps_in(batch)
+            metrics = self.dispatch_train(batch, use_hard_negatives)
             if cfg.debug:              # per-step timing syncs, debug only
                 float(metrics["loss"])
             meters["forward_backward"].update(time.time() - t0)
@@ -204,7 +272,7 @@ class Trainer:
             window["n_correct"].append(metrics["n_correct"])
             window["n"].append(metrics["n_eff"])
 
-            triggered, log_point = log_crossing(batch_idx, batch_idx + 1,
+            triggered, log_point = log_crossing(prev_steps, steps_done,
                                                 cfg.log_freq)
             if triggered:
                 niter = epoch * n_steps + log_point
@@ -239,7 +307,8 @@ class Trainer:
                     dataset.set_mode("train")
                     window = _empty_window()
             timer = time.time()
-            if cfg.debug and batch_idx + 1 > 5:   # main.py:131
+            # main.py:131, counted in batches, not dispatches
+            if cfg.debug and steps_done > 5:
                 for name, m in meters.items():
                     print(f"{name}: max {m.max:.4f} min {m.min:.4f} "
                           f"avg {m.avg:.4f}")

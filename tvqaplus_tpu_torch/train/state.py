@@ -12,6 +12,12 @@
   decides on the device, so a step never waits for the norm.
 * ``PlateauScheduler`` is ReduceLROnPlateau(max, factor 0.5, patience 10,
   rel threshold 1e-4), stepped on the validation accuracy per epoch.
+* On ``cuda`` Adam is ``capturable``, with its learning rate in a device
+  tensor that ``set_lr`` fills, so a step captured in a CUDA graph
+  (dispatch.py) reads the scheduler's rate at every replay; on the CPU it
+  is torch's default Adam with a float rate.  ``dispatch_mode`` puts an
+  optimizer in its device's mode, also after a checkpoint of the other
+  mode was loaded.
 * Checkpoints hold the model, the optimizer, the step and an ``extra``
   dict (``torch.save``).
 """
@@ -22,10 +28,30 @@ import os
 import torch
 
 
-def make_optimizer(params, lr, weight_decay=3e-7):
-    """Adam with coupled L2 decay (clip first with ``clip_grad_norm``)."""
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
+def make_optimizer(params, lr, weight_decay=3e-7, device="cpu"):
+    """Adam with coupled L2 decay (clip first with ``clip_grad_norm``), in
+    ``device``'s dispatch mode."""
+    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                           weight_decay=weight_decay)
+    return dispatch_mode(opt, device)
+
+
+def dispatch_mode(optimizer, device):
+    """On ``cuda``: ``capturable``, the rate a float32 tensor on the card
+    and the step counts there (Adam's capturable layout); on the CPU:
+    float rate, step counts on the CPU.  Keeps the rate's value."""
+    cuda = torch.device(device).type == "cuda"
+    for group in optimizer.param_groups:
+        lr = float(group["lr"])
+        group["capturable"] = cuda
+        group["lr"] = (torch.tensor(lr, dtype=torch.float32, device=device)
+                       if cuda else lr)
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if "step" in st:
+                st["step"] = st["step"].to(
+                    device=p.device if cuda else "cpu", dtype=torch.float32)
+    return optimizer
 
 
 @torch.no_grad()
@@ -41,8 +67,13 @@ def clip_grad_norm(params, clip):
 
 
 def set_lr(optimizer, lr):
+    """Set the rate in place (a device rate is filled, so a captured step
+    reads it)."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 class PlateauScheduler:
@@ -87,10 +118,13 @@ def save_checkpoint(path, model, optimizer, step, extra=None):
 
 
 def load_checkpoint(path, model, optimizer):
-    """Restore a ``save_checkpoint`` file; returns (step, extra)."""
+    """Restore a ``save_checkpoint`` file (saved in either device's mode)
+    into the optimizer's mode; returns (step, extra)."""
     payload = torch.load(path, map_location="cpu", weights_only=False)
     model.load_state_dict(payload["model"])
+    device = next(iter(model.parameters())).device
     optimizer.load_state_dict(payload["optimizer"])
+    dispatch_mode(optimizer, device)
     return payload["step"], payload.get("extra", {})
 
 
