@@ -20,17 +20,17 @@ toolkit.  Phases, each printing one JSON line:
              answers, 50 frames, 40 QA tokens, 25 regions / 50 subtitle
              tokens, D 128): against its plain version in float32 and in
              bfloat16, times (CUDA events, median of 30 after warm-up) and
-             the card's bound for the same work.  The attention, tri-bridge
-             and encoder rows also carry ``f32_ms``, the float32 CUDA-core
-             instantiation timed in the same call (bf16: every kernel but
-             the MLP bridge's runs on the tensor cores).  The encoder's
-             full-output mode runs at the merged input's (16, 105, 50, 128),
-             k = 7, with the headline length mask (5 x 40, 50 x 50, 50 x 25)
-             and with no mask, compared on the valid positions; the MLP
-             bridge at (16, 5, 40, 768), (16, 50, 25, 300) and
-             (16, 50, 50, 768) -> 300.  Beside these two, the time of what
-             the separate-stream main path runs instead: the three plain
-             ``EncoderBlock`` calls, the plain ``MLPBridge`` chain.
+             the card's bound for the same work.  Every row also carries
+             ``f32_ms``, the float32 CUDA-core instantiation timed in the
+             same call (bf16: every kernel runs on the tensor cores).  The
+             encoder's full-output mode runs at the merged input's (16, 105,
+             50, 128), k = 7, with the headline length mask (5 x 40, 50 x
+             50, 50 x 25) and with no mask, compared on the valid
+             positions; the MLP bridge at (16, 5, 40, 768), (16, 50, 25,
+             300) and (16, 50, 50, 768) -> 300.  Beside these two, the
+             time of what the separate-stream main path runs instead: the
+             three plain ``EncoderBlock`` calls, the plain ``MLPBridge``
+             chain.
 4. kernels (training) - each forward kernel with dropout 0.1 (the vid
              attention site in raw mode "target") and each backward kernel
              at the headline training shapes, against the plain version
@@ -96,7 +96,10 @@ kernel, each in the phase of its counterpart:
              with STAGE's ``bert_word_encoding_fc`` / ``vid_fc`` weights,
              forward + backward in train mode (dropout 0.1) on the headline
              ``qas_bert`` and ``vid`` tensors against the same module with
-             the switch off and the same Philox mask, float32 and bf16.
+             the switch off and the same Philox mask, float32 and bf16; the
+             ``torch.profiler`` trace of a bf16 step must show the
+             tensor-core forward, backward and weight-gradient kernels and
+             no CUDA-core kernel of the bridge.
 9m. merged training - phase 9 with the flag, in turns with the separate
              path.
 
@@ -142,8 +145,6 @@ BWD_SOURCES = {"qa_ctx_attention": "csrc/qa_ctx_attention_bwd.cu",
                "encoder": "csrc/encoder_bwd.cu",
                "encoder_block": "csrc/encoder_bwd.cu",
                "mlp_bridge": "csrc/mlp_bridge_bwd.cu"}
-# the kernels whose rows also time the float32 instantiation (f32_ms)
-F32_KEYS = ("qa_ctx_attention", "tri_bridge", "encoder", "encoder_block")
 # the kernels each main path must launch (counter keys, see counters())
 SEPARATE_FWD = ("qa_ctx_attention", "tri_bridge", "encoder")
 SEPARATE_TRAIN = SEPARATE_FWD + tuple(k + "_bwd" for k in SEPARATE_FWD)
@@ -581,9 +582,8 @@ def phase_kernels(dev):
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                "bytes": moved, "flops": case.flops,
                **time_today(case, torch.bfloat16, False), "_key": case.key}
-        if case.key in F32_KEYS:       # the float32 instantiation's time
-            af, kwf = case.args(torch.float32)
-            row["f32_ms"] = time_ms(lambda: case.kernel(*af, **kwf))
+        af, kwf = case.args(torch.float32)   # the float32 instantiation
+        row["f32_ms"] = time_ms(lambda: case.kernel(*af, **kwf))
         emit({"phase": "kernel", "ok": True,
               **{k: v for k, v in row.items() if k != "_key"}})
         rows.append(row)
@@ -1129,9 +1129,8 @@ def phase_train_kernels(dev):
                "bytes": moved, "flops": case.flops,
                **{k: v for k, v in today.items() if k == "today_ms"},
                "_key": key}
-        if key in F32_KEYS:
-            af, _ = case.args(torch.float32)
-            row["f32_ms"] = time_ms(lambda: kernel(*af, **kwa))
+        af, _ = case.args(torch.float32)
+        row["f32_ms"] = time_ms(lambda: kernel(*af, **kwa))
         emit({"phase": "kernel_train", "ok": True,
               **{k: v for k, v in row.items() if k != "_key"}})
         rows.append(row)
@@ -1159,13 +1158,12 @@ def phase_train_kernels(dev):
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                "bytes": bmoved, "flops": case.bflops, "deterministic": True,
                "_key": key + "_bwd"}
-        if key in F32_KEYS:
-            ins, lv = _leaves(case.args(torch.float32)[0], case.diff)
-            o32 = _outputs(kernel(*ins, **kwa))
-            c32 = [c.to(o.dtype) for c, o in zip(cots, o32)]
-            row["f32_ms"] = time_ms(
-                lambda: torch.autograd.grad(o32, lv, c32, retain_graph=True))
-            del o32, lv, ins
+        ins, lv = _leaves(case.args(torch.float32)[0], case.diff)
+        o32 = _outputs(kernel(*ins, **kwa))
+        c32 = [c.to(o.dtype) for c, o in zip(cots, o32)]
+        row["f32_ms"] = time_ms(
+            lambda: torch.autograd.grad(o32, lv, c32, retain_graph=True))
+        del o32, lv, ins
         if "today_fwd_bwd_ms" in today:
             # beside today's forward + backward: the kernels' as one call
             def fwd_bwd():
@@ -1295,6 +1293,41 @@ class PhiloxDrop:
         return self.rate, self.seed
 
 
+def check_bridge_tc(dev, x, sd, drop):
+    """The trace of a bf16 ``MLPBridge(use_kernel=True)`` train step
+    (``bert_word_encoding_fc`` on ``qas_bert``) shows the tensor-core
+    forward, backward and weight-gradient kernels and no CUDA-core kernel
+    of the bridge; returns the tensor-core kernels' names."""
+    from tvqaplus_tpu_torch.models.layers import MLPBridge
+    name = "bert_word_encoding_fc"
+    weights = {k[len(name) + 1:]: v for k, v in sd.items()
+               if k.startswith(name + ".")}
+    d_out, d_in = weights["2.weight"].shape
+    mod = MLPBridge(d_in, d_out, P_DROP, torch.bfloat16,
+                    use_kernel=True).to(dev).train()
+    mod.load_state_dict(weights)
+    leaf = x.to(torch.bfloat16).requires_grad_(True)
+
+    def step():
+        out = mod(leaf, drop)
+        return torch.autograd.grad(out, [leaf] + list(mod.parameters()),
+                                   torch.ones_like(out))
+    step()
+    *_, names = profile_steps(step, 1)
+    want = ("mlp_bridge_fwd_tc_kernel", "mlp_bridge_bwd_tc_kernel",
+            "mlp_bridge_wgrad_tc_kernel")
+    missing = [w for w in want if not any(w in nm for nm in names)]
+    old = sorted(nm for nm in names if "mlp_bridge_fwd_kernel" in nm
+                 or "mlp_bridge_bwd_kernel" in nm
+                 or "bridge_wgrad_kernel" in nm)
+    if missing or old:
+        raise AssertionError(f"bridge module bf16: tensor-core kernels "
+                             f"missing {missing}, CUDA-core kernels {old}")
+    return sorted(nm.replace("(anonymous namespace)::", "")
+                  .replace("void ", "").split("(")[0] for nm in names
+                  if any(w in nm for w in want))
+
+
 def phase_bridge_module(dev, cfg, sd):
     """``MLPBridge`` with its kernel switch on (STAGE leaves it off, as the
     JAX package does) against the switch off, forward + backward in train
@@ -1355,8 +1388,10 @@ def phase_bridge_module(dev, cfg, sd):
                     raise AssertionError(f"{name} bf16, kernel vs plain "
                                          f"chain, relative L2: {bad}")
             report[f"{name} {dname}"] = errs
+    tc_kernels = check_bridge_tc(dev, batch["qas_bert"], sd, drop)
     launches = read_counters(("mlp_bridge", "mlp_bridge_bwd"))
     emit({"phase": "bridge_module", "ok": True, "launches": launches,
+          "tc_kernels": tc_kernels,
           "dropout": P_DROP, "f32_tol": {"out": mlp_bridge.TOL[torch.float32],
                                          "grad": mlp_bridge.GRAD_TOL[
                                              torch.float32]},

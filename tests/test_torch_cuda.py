@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on a card:
 the forwards (with and without dropout) against the plain versions, the
 backwards against autograd through them with the same Philox mask, and the
-inputs each kernel refuses.
+inputs each kernel refuses; the bf16 steps' traces (tensor-core kernels,
+no CUDA-core ones) and their CUDA-graph replays.
 
 Every test here needs an NVIDIA GPU (marker ``cuda``) and skips where
 ``torch.cuda.is_available()`` is false.  The file imports neither JAX nor
@@ -585,6 +586,152 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
         mlp_bridge.mlp_bridge(args[0].transpose(0, 1), *args[1:])
     with pytest.raises(ValueError):          # cotangent of another shape
         mlp_bridge.mlp_bridge_backward(*args, args[0])
+
+
+# ------------------------------ the MLP bridge (B5) on the tensor cores
+# rows at and around the 64-row tile (1, 63, 64, 65, 129), STAGE's three
+# sites (3,200 qas_bert, 20,000 vid, 40,000 sub_bert rows), every width the
+# kernels are tested at (Kp / Np = 768 / 320, 320 / 320, 64 / 64,
+# 192 / 320, 128 / 64)
+TC_BRIDGE_ROWS = (1, 63, 64, 65, 129, 3200, 20000, 40000)
+TC_BRIDGE_WIDTHS = [(768, 300), (300, 300), (24, 20), (132, 260), (100, 60)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("d_in,d_out", TC_BRIDGE_WIDTHS)
+@pytest.mark.parametrize("rows", TC_BRIDGE_ROWS)
+def test_mlp_bridge_tc_kernels_match_plain(cuda, rows, d_in, d_out, dropout,
+                                           x_dtype):
+    """The bf16 tensor-core forward and backward on bf16 or float32 x
+    against the plain version in the bf16 mode and autograd through it,
+    with the same Philox mask, at ``TOL`` / ``GRAD_TOL[bf16]`` (rows whose
+    ReLU input lies within ``BRIDGE_BF16_EPS`` of 0 take no cotangent);
+    the backward twice for the same bits."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(rows + d_in)
+    args = mlp_bridge_args(cuda, getattr(torch, x_dtype), gen, (rows,), d_in,
+                           d_out)
+    kw = dict(dropout_rate=dropout, seed=SEED, compute_dtype=bf16)
+    flip = checks.mlp_bridge_flip_rows(*args[:5], dropout, SEED,
+                                       compute_dtype=bf16)
+    cot = [randn(gen, rows, d_out).to(cuda) * (~flip)[..., None]]
+    fwd0, bwd0 = mlp_bridge.KERNEL.launches, mlp_bridge.BWD_KERNEL.launches
+    out_k, g_k = grads_of(lambda *a: mlp_bridge.mlp_bridge(*a, **kw),
+                          leaves(args), cot)
+    _, g_again = grads_of(lambda *a: mlp_bridge.mlp_bridge(*a, **kw),
+                          leaves(args), cot)
+    out_p, g_p = grads_of(lambda *a: mlp_bridge.mlp_bridge_plain(*a, **kw),
+                          leaves(args), cot)
+    torch.cuda.synchronize()
+    assert mlp_bridge.KERNEL.launches == fwd0 + 2
+    assert mlp_bridge.BWD_KERNEL.launches == bwd0 + 2
+    assert out_k[0].dtype == bf16 and out_k[0].shape == (rows, d_out)
+    assert g_k[0].dtype == args[0].dtype
+    close(out_k[0], out_p[0], mlp_bridge.TOL[bf16])
+    for i, (gk, ga, gp) in enumerate(zip(g_k, g_again, g_p)):
+        assert torch.equal(gk, ga), i
+        checks.grad_close(f"grad {i}", gk, gp, mlp_bridge.GRAD_TOL[bf16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_in,offset", [(300, 0), (768, 0), (768, 300),
+                                         (768, 468), (100, 40)])
+def test_mlp_bridge_tc_forward_drops_the_plain_philox_positions(cuda, d_in,
+                                                                offset):
+    """Parameters that make the output show the dropout mask: LN_in gives 1
+    everywhere (scale 0, bias 1), W copies the dropped LN output's columns
+    offset .. offset + Dout - 1 to the outputs, and LN_out centres each
+    row, so an output is above 0 exactly where its input was kept (the
+    three 768-wide cases see every column)."""
+    d_out = 300 if d_in > 100 else 60
+    gen = torch.Generator().manual_seed(20)
+    shape = (3, 7, 40)
+    x = randn(gen, *shape, d_in).to(cuda, torch.bfloat16)
+    w = torch.zeros(d_in, d_out)
+    w[offset:offset + d_out] = torch.eye(d_out)
+    params = [torch.zeros(d_in), torch.ones(d_in), w, torch.zeros(d_out),
+              torch.ones(d_out), torch.zeros(d_out)]
+    params = [t.to(cuda) for t in params]
+    got = mlp_bridge.mlp_bridge(x, *params, P_DROP, SEED)
+    want = mlp_bridge.mlp_bridge_plain(x, *params, P_DROP, SEED)
+    torch.cuda.synchronize()
+    assert torch.equal(got > 0, want > 0)
+    keep = keep_mask(shape + (d_in,), cuda)[..., offset:offset + d_out]
+    both = keep.any(-1) & ~keep.all(-1)       # rows with a dropped element
+    assert both.float().mean() > 0.99
+    assert torch.equal((got > 0)[both], keep[both])
+
+
+def bridge_module_step(cuda, seeds, gen=None):
+    """A bf16 ``MLPBridge(use_kernel=True)`` (768 -> 300, dropout 0.1) and
+    its train step on a (2, 5, 40, 768) batch: the output and the gradients
+    of the parameters under the cotangent, the kernels' seed the next slot
+    of ``seeds`` (``StepSeeds``)."""
+    from tvqaplus_tpu_torch.models.layers import Dropout, MLPBridge
+    gen = gen or torch.Generator().manual_seed(19)
+    mod = MLPBridge(768, 300, P_DROP, torch.bfloat16, use_kernel=True)
+    with torch.no_grad():              # every parameter from the generator
+        for name, prm in mod.named_parameters():
+            ln_scale = name in ("0.weight", "4.weight")
+            prm.copy_(float(ln_scale) + randn(
+                gen, *prm.shape, scale=768 ** -0.5 if prm.dim() == 2 else 0.1))
+    mod = mod.to(cuda).train()
+    params = list(mod.parameters())
+    batch = {"x": randn(gen, 2, 5, 40, 768).to(cuda, torch.bfloat16),
+             "cot": randn(gen, 2, 5, 40, 300).to(cuda, torch.bfloat16)}
+
+    def step(b):
+        out = mod(b["x"], Dropout(P_DROP, None, seeds.next()))
+        return (out,) + torch.autograd.grad(out, params, b["cot"])
+    return step, batch
+
+
+@pytest.mark.cuda
+def test_bf16_bridge_module_step_runs_the_tensor_core_kernels(cuda):
+    """A bf16 ``MLPBridge(use_kernel=True)`` train step launches the
+    tensor-core forward, backward and weight-gradient kernels and no
+    CUDA-core kernel of the bridge (chip_smoke.py's bridge_module phase
+    holds the same)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tvqaplus_tpu_torch.ops import philox
+    step, batch = bridge_module_step(cuda, philox.StepSeeds(SEED, cuda))
+    step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(batch)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    for want in ("mlp_bridge_fwd_tc_kernel", "mlp_bridge_bwd_tc_kernel",
+                 "mlp_bridge_wgrad_tc_kernel"):
+        assert any(want in nm for nm in names), (want, names)
+    old = [nm for nm in names if "mlp_bridge_fwd_kernel" in nm
+           or "mlp_bridge_bwd_kernel" in nm or "bridge_wgrad_kernel" in nm]
+    assert not old, old
+
+
+@pytest.mark.cuda
+def test_bridge_module_train_step_replays_give_eager_bits(cuda):
+    """The module's train step captured by ``StepGraphs``: the warm-up and
+    each replay give the output and parameter gradients of the eager step
+    with the same seed counter, bit for bit, and replays draw new masks."""
+    from tvqaplus_tpu_torch.dispatch import StepGraphs
+    from tvqaplus_tpu_torch.ops import philox
+    eager, batch = bridge_module_step(cuda, philox.StepSeeds(SEED, cuda))
+    replayed, _ = bridge_module_step(cuda, philox.StepSeeds(SEED, cuda))
+    graphs = StepGraphs(cuda)
+    outs = []
+    for _ in range(3):
+        want = eager(batch)
+        got = graphs("bridge_step", replayed, batch)
+        for w, g in zip(want, got):
+            assert torch.equal(w, g)
+        outs.append(got[0].clone())
+    assert len(graphs.graphs) == 1
+    assert not torch.equal(outs[1], outs[2])
 
 
 # -------------------------------- the bf16 forwards on the tensor cores

@@ -1,10 +1,12 @@
-// Device functions shared by the fused MLP bridge's forward
-// (mlp_bridge_fwd.cu) and the backward's recompute (mlp_bridge_bwd.cu), so
-// the two cannot drift.  The bridge's widths are run-time values (Din, Dout,
-// multiples of 4; 768 -> 300 and 300 -> 300 in STAGE), unlike every other
-// kernel of the port, so a row's columns are walked in strides of the warp
-// and the output columns are tiled by D = 128 with a guarded tail.  A block
-// owns BR_RT rows; each warp owns BR_RPT of them.
+// Device functions shared by the fused MLP bridge's float32 CUDA-core
+// kernels, the exactness check: the forward (mlp_bridge_fwd.cu) and the
+// backward's recompute (mlp_bridge_bwd.cu), so the two cannot drift (the
+// bf16 tensor-core kernels share mlp_bridge_tc.cuh).  The bridge's widths
+// are run-time values (Din, Dout, multiples of 4; 768 -> 300 and 300 -> 300
+// in STAGE), unlike every other kernel of the port, so a row's columns are
+// walked in strides of the warp and the output columns are tiled by D = 128
+// with a guarded tail.  A block owns BR_RT rows; each warp owns BR_RPT of
+// them.
 #pragma once
 
 #include "common.cuh"
@@ -21,25 +23,14 @@ __host__ __device__ constexpr int round_kc(int n) {
   return (n + KC - 1) / KC * KC;
 }
 
-// A product's operand in the bf16 compute mode (RND): rounded to the
-// nearest bfloat16 value, as the TPU kernel's bf16 mode casts ln_d, W and
-// g_y1 before each dot (pallas_bridge.py:52-54, :106-111); sums stay
-// float32.  The float32 mode (RND false) keeps it.
-template <bool RND>
-__device__ __forceinline__ float op_round(float v) {
-  return RND ? __bfloat162float(__float2bfloat16(v)) : v;
-}
-
 // y = dropout(LN_in(x)) of the block's rows r0 .. r0 + BR_RT - 1 into y_s
 // (BR_RT x ys floats, ys = round_kc(Din)); columns [Din, ys) and rows past R
 // are zero.  LN: float32 stats, fast variance clipped at 0.  The dropout
-// mask is keyed by the flat index of the (R, Din) LN output.  RND: y is
-// rounded to bf16 (op_round).  Optionally keeps each row's (mean, 1/std) in
-// st_s and writes the rows to yd_buf (R x Din, device memory) for the
-// weight-gradient pass.
-template <typename T, bool RND>
+// mask is keyed by the flat index of the (R, Din) LN output.  Optionally
+// keeps each row's (mean, 1/std) in st_s and writes the rows to yd_buf
+// (R x Din, device memory) for the weight-gradient pass.
 __device__ __forceinline__ void bridge_ln_in(
-    const T* __restrict__ x, float* y_s, float* st_s,
+    const float* __restrict__ x, float* y_s, float* st_s,
     float* __restrict__ yd_buf, const float* __restrict__ gin,
     const float* __restrict__ bin, long long r0, long long R, int Din, int ys,
     const Dropout& drop, int warp, int lane) {
@@ -51,10 +42,10 @@ __device__ __forceinline__ void bridge_ln_in(
       for (int c = lane; c < ys; c += 32) yr[c] = 0.f;
       continue;
     }
-    const T* xr = x + row * Din;
+    const float* xr = x + row * Din;
     float s = 0.f, ss = 0.f;
     for (int c = lane; c < Din; c += 32) {
-      const float v = to_f(xr[c]);
+      const float v = xr[c];
       yr[c] = v;
       s += v;
       ss = fmaf(v, v, ss);
@@ -77,9 +68,8 @@ __device__ __forceinline__ void bridge_ln_in(
                 drop.threshold, drop.scale, km);
 #pragma unroll
         for (int t = 0; t < 4; ++t)
-          y[t] = op_round<RND>(
-              ((yr[c4 + t] - mean) * istd * gin[c4 + t] + bin[c4 + t])
-              * km[t]);
+          y[t] = ((yr[c4 + t] - mean) * istd * gin[c4 + t] + bin[c4 + t])
+                 * km[t];
         if (yd_buf != nullptr)
           *reinterpret_cast<float4*>(yd_buf + row * Din + c4) =
               make_float4(y[0], y[1], y[2], y[3]);
@@ -90,12 +80,14 @@ __device__ __forceinline__ void bridge_ln_in(
 }
 
 // acc = Y (rows r0.., smem, stride ys, K columns then zeros up to
-// round_kc(K)) x B[:, col0 : col0 + D], where B is K x ldb row-major in
-// device memory (ldb % 4 == 0, 16-byte aligned); rows past K and columns
-// past ncols read as zero.  B is staged from L2 through the block's KC x D
-// shared buffer Ws one chunk at a time, rounded to bf16 when RND.  Every
-// thread of the block must call it (it synchronises).
-template <int RPT, bool RND>
+// round_kc(K)) x B[:, col0 : col0 + D], where B (K x ncols) is B itself
+// (TRANS false: K x ldb row-major in device memory, ldb % 4 == 0) or the
+// transpose of the ncols x K row-major matrix at B (TRANS true, K % 4 ==
+// 0: W^T read from W, with no transposed copy); 16-byte aligned.  Rows
+// past K and columns past ncols read as zero.  B is staged from L2 through
+// the block's KC x D shared buffer Ws one chunk at a time.  Every thread of
+// the block must call it (it synchronises).
+template <int RPT, bool TRANS>
 __device__ __forceinline__ void bridge_gemm(float (&acc)[RPT][4],
                                             const float* Y, int ys, int K,
                                             const float* __restrict__ B,
@@ -106,15 +98,29 @@ __device__ __forceinline__ void bridge_gemm(float (&acc)[RPT][4],
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   for (int k0 = 0; k0 < K; k0 += KC) {
     __syncthreads();                   // previous chunk fully consumed
-    float4* dst = reinterpret_cast<float4*>(Ws);
-    for (int i = threadIdx.x; i < KC * D / 4; i += NTHREADS) {
-      const int r = i / (D / 4), col = col0 + 4 * (i % (D / 4));
-      float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + r < K && col < ncols)
-        b = __ldg(reinterpret_cast<const float4*>(
-            B + static_cast<size_t>(k0 + r) * ldb + col));
-      dst[i] = make_float4(op_round<RND>(b.x), op_round<RND>(b.y),
-                           op_round<RND>(b.z), op_round<RND>(b.w));
+    if (TRANS) {
+      // thread i reads 4 consecutive k of output column i % D
+      for (int i = threadIdx.x; i < KC * D / 4; i += NTHREADS) {
+        const int c = i % D, k = 4 * (i / D), col = col0 + c;
+        float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k0 + k < K && col < ncols)
+          b = __ldg(reinterpret_cast<const float4*>(
+              B + static_cast<size_t>(col) * K + k0 + k));
+        Ws[k * D + c] = b.x;
+        Ws[(k + 1) * D + c] = b.y;
+        Ws[(k + 2) * D + c] = b.z;
+        Ws[(k + 3) * D + c] = b.w;
+      }
+    } else {
+      float4* dst = reinterpret_cast<float4*>(Ws);
+      for (int i = threadIdx.x; i < KC * D / 4; i += NTHREADS) {
+        const int r = i / (D / 4), col = col0 + 4 * (i % (D / 4));
+        float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k0 + r < K && col < ncols)
+          b = __ldg(reinterpret_cast<const float4*>(
+              B + static_cast<size_t>(k0 + r) * ldb + col));
+        dst[i] = b;
+      }
     }
     __syncthreads();
     gemm_chunk<RPT>(acc, Y, ys, k0, Ws, KC, r0, c0);

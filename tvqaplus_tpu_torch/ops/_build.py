@@ -31,8 +31,8 @@ SOURCES = ("qa_ctx_attention_fwd.cu", "qa_ctx_attention_bwd.cu",
            "encoder_bwd.cu", "mlp_bridge_fwd.cu", "mlp_bridge_bwd.cu")
 _HEADERS = ("common.cuh", "philox.cuh", "grad_reduce.cuh",
             "qa_ctx_attention.cuh", "encoder.cuh", "encoder_tc.cuh",
-            "tri_bridge_tc.cuh", "mlp_bridge.cuh", "wgmma.cuh",
-            "wgrad_tc.cuh")
+            "tri_bridge_tc.cuh", "mlp_bridge.cuh", "mlp_bridge_tc.cuh",
+            "wgmma.cuh", "wgrad_tc.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

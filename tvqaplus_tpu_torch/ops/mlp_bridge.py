@@ -7,14 +7,19 @@ LN, row by row (reference stage.py:85-113).  The CUDA kernels are
 ``csrc/mlp_bridge_fwd.cu`` and ``csrc/mlp_bridge_bwd.cu`` behind one
 ``torch.autograd.Function``; ``mlp_bridge_plain`` is the same function in
 plain PyTorch (autograd through it is the plain backward).  Din and Dout are
-run-time widths, multiples of 4.  The dropout acts on the (rows, Din) LN
-output, keyed by (seed, flat index) through Philox (ops/philox.py).
+run-time widths: multiples of 4 with 4 <= Din <= MAX_DIN (768) and
+4 <= Dout <= MAX_DOUT (320), which take STAGE's 768 -> 300 and 300 -> 300;
+the wrapper refuses every other width.  The dropout acts on the (rows, Din)
+LN output, keyed by (seed, flat index) through Philox (ops/philox.py).
 
-Two compute modes, as the TPU kernel's ``compute_dtype``: float32 (exact),
-and bfloat16, which reads float32 or bfloat16 x, rounds the dense
-product's operands (the dropped LN output and W; in the backward g_y1 with
-each) to bf16 with float32 sums (pallas_bridge.py:52-54, :106-111) and
-returns bf16.  The mode defaults to x's type.  Both run on the CUDA cores.
+Two compute modes, as the TPU kernel's ``compute_dtype``: float32 (exact,
+the CUDA-core kernels: the exactness check), and bfloat16, which reads
+float32 or bfloat16 x, rounds the dense product's operands (the dropped LN
+output and W; in the backward g_y1 with each) to bf16 with float32 sums
+(pallas_bridge.py:52-54, :106-111) and returns bf16: the tensor-core
+kernels, which take W packed once a call (``pack_weight``: bf16,
+zero-padded to the kernels' K and N widths, ``padded_widths``).  The mode
+defaults to x's type.
 """
 from __future__ import annotations
 
@@ -25,8 +30,10 @@ import torch
 from tvqaplus_tpu_torch.ops import philox
 from tvqaplus_tpu_torch.ops._build import (
     CudaKernel,
+    check_aligned,
     check_device,
     ptr,
+    sm_count,
     wgrad_chunks,
 )
 from tvqaplus_tpu_torch.ops.plain import as_f32, dot, layer_norm
@@ -52,9 +59,12 @@ TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 1e-2)}
 # cotangent, ops/checks.py).
 GRAD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
 _NAMES = ("gamma_in", "beta_in", "w", "b", "gamma_out", "beta_out")
-# a block keeps 32 rows of round32(Din) + round32(Dout) float32 in shared
-# memory beside a 16 KB weight tile: 227 KB allow 1664 columns
-MAX_WIDTHS = 1664
+# the widths the kernels take (csrc/mlp_bridge_tc.cuh BT_MAX_DIN /
+# BT_MAX_DOUT): a lane of the tensor-core kernels' LN_in pass holds six
+# quads of a row (Din <= 768, a 96 KB bf16 A tile of 64 rows), and y1's
+# accumulators hold five 64-column panels over the two warpgroups
+# (Dout <= 320)
+MAX_DIN, MAX_DOUT = 768, 320
 
 
 def mlp_bridge_pre(x, gamma_in, beta_in, w, b, dropout_rate=0.0, seed=0,
@@ -79,8 +89,34 @@ def mlp_bridge_plain(x, gamma_in, beta_in, w, b, gamma_out, beta_out,
     return layer_norm(h, gamma_out, beta_out).to(compute_dtype or x.dtype)
 
 
-def _round32(n):
-    return -(-n // 32) * 32
+def padded_widths(d_in, d_out):
+    """(Kp, Np): Din and Dout rounded up to whole 64-column panels, the K
+    and N widths of the tensor-core kernels (csrc/mlp_bridge_tc.cuh)."""
+    return -(-d_in // 64) * 64, -(-d_out // 64) * 64
+
+
+def pack_weight(w):
+    """W (Din, Dout) as the bf16 kernels take it: rounded to bfloat16 once
+    (to nearest even, as JAX's ``astype``) and zero-padded to (Kp, Np)."""
+    d_in, d_out = w.shape
+    out = torch.zeros(padded_widths(d_in, d_out), dtype=torch.bfloat16,
+                      device=w.device)
+    out[:d_in, :d_out] = w.detach().to(torch.bfloat16)
+    return out
+
+
+def tc_backward_scratch(rows, d_in, d_out, sms):
+    """Shapes of the bf16 backward's scratch on a card of ``sms`` SMs, by
+    the C entry's names: the yd and g_y1 rows (bf16, padded to Kp and Np
+    columns), the column-sum slot of each persistent block and the
+    weight-gradient chunk slots (float32; ``mlp_bridge_wgrad_tc_kernel``
+    runs one block a SM, Kp / 128 blocks a row chunk of at least 64
+    rows)."""
+    kp, np_ = padded_widths(d_in, d_out)
+    chunks = max(1, min(-(-rows // 64), sms // -(-kp // 128)))
+    return {"yd": (rows, kp), "g1": (rows, np_),
+            "vec_part": (min(-(-rows // 64), sms), 2 * (d_in + d_out)),
+            "wg_part": (chunks, kp + 1, np_)}
 
 
 def _check(x, params, compute_dtype=None):
@@ -98,12 +134,14 @@ def _check(x, params, compute_dtype=None):
     if params[2].dim() != 2:
         raise ValueError(f"w must be (Din, Dout), got {tuple(params[2].shape)}")
     d_out = params[2].shape[1]
-    if d_in % 4 or d_out % 4 or d_in < 4 or d_out < 4 \
-            or _round32(d_in) + _round32(d_out) > MAX_WIDTHS:
-        raise ValueError(f"kernel takes Din and Dout in multiples of 4 with "
-                         f"round32(Din) + round32(Dout) <= {MAX_WIDTHS}; got "
-                         f"{d_in} -> {d_out}")
+    if d_in % 4 or d_out % 4 or not (4 <= d_in <= MAX_DIN) \
+            or not (4 <= d_out <= MAX_DOUT):
+        raise ValueError(f"kernels take Din and Dout in multiples of 4 with "
+                         f"4 <= Din <= {MAX_DIN} and 4 <= Dout <= "
+                         f"{MAX_DOUT}; got {d_in} -> {d_out}")
     check_device(x.device, **dict(zip(_NAMES, params)))
+    if compute_dtype == torch.bfloat16 and x.is_cuda:
+        check_aligned(x=x)            # 8- and 16-byte loads of x
     shapes = [(d_in,), (d_in,), (d_in, d_out), (d_out,), (d_out,), (d_out,)]
     if [tuple(p.shape) for p in params] != shapes:
         raise ValueError("bridge parameters do not match x and each other")
@@ -120,6 +158,8 @@ class _MLPBridge(torch.autograd.Function):
             x, (gamma_in, beta_in, w, b, gamma_out, beta_out), compute_dtype)
         out = torch.empty(x.shape[:-1] + (d_out,), dtype=compute_dtype,
                           device=x.device)
+        if compute_dtype == torch.bfloat16:
+            params[2] = pack_weight(params[2])
         KERNEL.launch(x.device, ptr(x), *(ptr(p) for p in params), ptr(out),
                       x.numel() // d_in, d_in, d_out,
                       *philox.kernel_args(dropout_rate, seed),
@@ -148,25 +188,44 @@ def mlp_bridge_backward(x, gamma_in, beta_in, w, b, gamma_out, beta_out, g,
     if g.shape != x.shape[:-1] + (d_out,):
         raise ValueError("cotangent does not match the output")
     f32 = dict(dtype=torch.float32, device=x.device)
-    nv = 2 * d_in + 3 * d_out
-    # one block of the weight-gradient pass per 64 x 128 tile of (Din, Dout)
-    # and row chunk
-    chunks = wgrad_chunks(rows, 64 * -(-d_in // 64) * -(-d_out // 128))
     gx = torch.empty_like(x)
-    gvec = torch.empty(nv, **f32)
     gw = torch.empty(d_in, d_out, **f32)
-    scratch = [torch.empty(rows, d_in, **f32), torch.empty(rows, d_out, **f32),
-               torch.empty(-(-rows // 32), nv, **f32),
-               torch.empty(chunks, d_in, d_out, **f32)]
-    BWD_KERNEL.launch(x.device, ptr(x), ptr(gin), ptr(bin_), ptr(w32),
-                      ptr(as_f32(w32.t())), ptr(b32), ptr(gout), ptr(g),
-                      ptr(gx), ptr(gvec), ptr(gw),
+    if compute_dtype == torch.bfloat16:       # the tensor-core kernels
+        check_aligned(g=g)
+        shapes = tc_backward_scratch(rows, d_in, d_out, sm_count(x.device))
+        gvec = torch.empty(2 * (d_in + d_out), **f32)
+        gb = torch.empty(d_out, **f32)
+        # the dropped LN output yd and g_y1 rows for the weight gradient are
+        # bf16: the kernel rounds both before that product anyway
+        scratch = [torch.empty(shapes[k], dtype=dt, device=x.device)
+                   for k, dt in (("yd", torch.bfloat16),
+                                 ("g1", torch.bfloat16),
+                                 ("vec_part", torch.float32),
+                                 ("wg_part", torch.float32))]
+        wk, chunks = pack_weight(w32), shapes["wg_part"][0]
+    else:
+        # one block of the weight-gradient pass per 64 x 128 tile of
+        # (Din, Dout) and row chunk
+        chunks = wgrad_chunks(rows, 64 * -(-d_in // 64) * -(-d_out // 128))
+        gvec = torch.empty(2 * d_in + 3 * d_out, **f32)
+        gb = None
+        scratch = [torch.empty(rows, d_in, **f32),
+                   torch.empty(rows, d_out, **f32),
+                   torch.empty(-(-rows // 32), 2 * d_in + 3 * d_out, **f32),
+                   torch.empty(chunks, d_in, d_out, **f32)]
+        wk = w32
+    BWD_KERNEL.launch(x.device, ptr(x), ptr(gin), ptr(bin_), ptr(wk),
+                      ptr(b32), ptr(gout), ptr(g), ptr(gx), ptr(gvec),
+                      ptr(gw), None if gb is None else ptr(gb),
                       *(ptr(t) for t in scratch), rows, d_in, d_out, chunks,
                       *philox.kernel_args(dropout_rate, seed),
                       int(x.dtype == torch.bfloat16),
                       int(compute_dtype == torch.bfloat16))
-    return (gx, gvec[:d_in], gvec[d_in:2 * d_in], gw,
-            gvec[2 * d_in:2 * d_in + d_out],
+    ggin, gbin = gvec[:d_in], gvec[d_in:2 * d_in]
+    if gb is not None:
+        return (gx, ggin, gbin, gw, gb, gvec[2 * d_in:2 * d_in + d_out],
+                gvec[2 * d_in + d_out:])
+    return (gx, ggin, gbin, gw, gvec[2 * d_in:2 * d_in + d_out],
             gvec[2 * d_in + d_out:2 * d_in + 2 * d_out],
             gvec[2 * d_in + 2 * d_out:])
 
