@@ -110,6 +110,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -657,13 +658,16 @@ def forward_outputs(model, batch):
             for k in ("answer_scores", "t_scores", "vid_raw_s")}
 
 
-def cpu_forwards(cfg, sd):
-    """The headline batch and its outputs from the CPU forward in each
-    compute type (the separate-stream path: merging is exact in float32).
-    On the CPU every op runs its plain version."""
+def cpu_forwards(cfg, sd, model_cfg=None, edit=None):
+    """The headline batch (``edit``ed) and its outputs from the CPU forward
+    in each compute type (the separate-stream path: merging is exact in
+    float32; ``model_cfg`` when not ``cfg``'s).  On the CPU every op runs
+    its plain version."""
     from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
-    cpu_cfg = ModelConfig.from_config(cfg)
+    cpu_cfg = model_cfg or ModelConfig.from_config(cfg)
     cpu_batch = headline_batch(cfg, "cpu")
+    if edit is not None:
+        cpu_batch = edit(cpu_batch)
     refs = {}
     for dname in FWD_TOL:
         model = STAGE(dataclasses.replace(cpu_cfg,
@@ -777,6 +781,65 @@ def phase_main(dev, workdir):
     return cfg, sd, launches, pred, cpu
 
 
+def grounding_by_qid(pred):
+    """A prediction JSON's grounding entries by question, and the number of
+    entries without records.  The entries' order follows the dispatch
+    order, which the St and U buckets change (the pipeline stacks batches
+    of one shape)."""
+    out, empty = {}, 0
+    for ex in pred["raw_bbox"]:
+        qids = {r["qid"] for recs in ex.values() for r in recs}
+        if len(qids) > 1:
+            raise AssertionError(f"one grounding entry holds qids {qids}")
+        if qids:
+            out[qids.pop()] = ex
+        else:
+            empty += 1
+    return out, empty
+
+
+def grounding_diff(got, want):
+    """The largest difference of two prediction JSONs' grounding scores and
+    the records compared; raises unless the records match one to one
+    (question, answer, word, clip, frame)."""
+    from tvqaplus_tpu_torch.infer.predict import SCORE_THD
+    (by_g, empty_g), (by_w, empty_w) = map(grounding_by_qid, (got, want))
+    if by_g.keys() != by_w.keys() or empty_g != empty_w:
+        raise AssertionError("grounding entries differ")
+    worst, n_rec = 0.0, 0
+    for qid, ex_w in by_w.items():
+        ex_g = by_g[qid]
+        for ans in ex_w:
+            if len(ex_g[ans]) != len(ex_w[ans]):
+                raise AssertionError("grounding records differ")
+            for rg, rw in zip(ex_g[ans], ex_w[ans]):
+                if any(rg[k] != rw[k] for k in ("word", "qid", "vid_name",
+                                                "img_idx")):
+                    raise AssertionError(f"record {rg} vs {rw}")
+                n_rec += 1
+                dg, dw = ({tuple(b): v for b, v in zip(r["bbox"], r["pred"])}
+                          for r in (rg, rw))
+                for box in dg.keys() | dw.keys():
+                    # a box accepted on one side only sits at the threshold
+                    worst = max(worst, abs(dg.get(box, SCORE_THD)
+                                           - dw.get(box, SCORE_THD)))
+    return worst, n_rec
+
+
+def same_predictions(got, want, what, tol=1e-4):
+    """Two prediction JSONs of one split hold the same answers and spans
+    and grounding scores within ``tol`` (JAX tests/test_video_dedup.py
+    ``test_predictions_identical``); returns (largest grounding
+    difference, records)."""
+    if got["ts_answer"] != want["ts_answer"]:
+        raise AssertionError(f"{what}: answers/spans differ")
+    worst, n_rec = grounding_diff(got, want)
+    if worst > tol or n_rec == 0:
+        raise AssertionError(f"{what}: grounding scores differ by {worst} "
+                             f"over {n_rec} records")
+    return worst, n_rec
+
+
 def phase_merged_main(dev, workdir, cfg, sd, pred_sep, cpu):
     """The inference entry point with ``merge_input_streams`` in opt.json:
     bf16 as phase 5, and float32 against the separate path in float32."""
@@ -797,30 +860,8 @@ def phase_merged_main(dev, workdir, cfg, sd, pred_sep, cpu):
             merge_input_streams=merged)[0]
     # merging is exact in float32 up to the order of the kernel's sums:
     # identical answers and spans, grounding scores at 1e-4
-    if f32["merged"]["ts_answer"] != f32["separate"]["ts_answer"]:
-        raise AssertionError("float32: merged answers/spans differ from the "
-                             "separate path's")
-    from tvqaplus_tpu_torch.infer.predict import SCORE_THD
-    worst, n_rec = 0.0, 0
-    for ex_m, ex_s in zip(f32["merged"]["raw_bbox"],
-                          f32["separate"]["raw_bbox"]):
-        for ans in ex_s:
-            if len(ex_m[ans]) != len(ex_s[ans]):
-                raise AssertionError("float32: grounding records differ")
-            for rm, rs in zip(ex_m[ans], ex_s[ans]):
-                if any(rm[k] != rs[k] for k in ("word", "qid", "vid_name",
-                                                "img_idx")):
-                    raise AssertionError(f"float32: record {rm} vs {rs}")
-                n_rec += 1
-                dm, ds = ({tuple(b): v for b, v in zip(r["bbox"], r["pred"])}
-                          for r in (rm, rs))
-                for box in dm.keys() | ds.keys():
-                    # a box accepted on one side only sits at the threshold
-                    worst = max(worst, abs(dm.get(box, SCORE_THD)
-                                           - ds.get(box, SCORE_THD)))
-    if worst > 1e-4 or n_rec == 0:
-        raise AssertionError(f"float32: grounding scores differ by {worst} "
-                             f"over {n_rec} records")
+    worst, n_rec = same_predictions(f32["merged"], f32["separate"],
+                                    "float32: merged vs separate")
     emit({"phase": "merged_main", "ok": True, "launches": launches,
           "plain_encoder_calls": plain_calls, "examples": 32,
           "wall_s": wall_s, "ts_answer": len(pred["ts_answer"]),
@@ -835,8 +876,8 @@ def phase_merged_main(dev, workdir, cfg, sd, pred_sep, cpu):
 def profile_steps(step, n):
     """Device busy time per step (the kernels' own times: one stream, no
     overlap; the profiler's annotation ranges such as the optimizer's are
-    not kernels), launches per step and the kernels by device time, over
-    ``n`` profiled steps."""
+    not kernels), launches per step, the kernels by device time and every
+    kernel's launches (by name), over ``n`` profiled steps."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -847,7 +888,7 @@ def profile_steps(step, n):
                and not getattr(e, "is_user_annotation", False)
                and not e.name.startswith("Optimizer.")]
     if not kernels:
-        return None, None, [], set()
+        return None, None, [], {}
     by_name = {}
     for e in kernels:
         c, t = by_name.get(e.name, (0, 0.0))
@@ -857,7 +898,8 @@ def profile_steps(step, n):
            for k, (c, t) in sorted(by_name.items(),
                                    key=lambda kv: -kv[1][1])[:12]]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n
-    return busy_ms, len(kernels) / n, top, set(by_name)
+    return busy_ms, len(kernels) / n, top, {k: c for k, (c, _) in
+                                            by_name.items()}
 
 
 def check_tc_forwards(step, names, merged):
@@ -1591,6 +1633,288 @@ def phase_training(dev, workdir):
               "top_kernels": top})
 
 
+# ------------------------------------------- noun masks, void vectors
+NOUN_VOID = {"noun_masks": {}, "void": {"non_visual": 2,
+                                        "add_non_visual": True}}
+ATTENTION_FWD, ATTENTION_BWD = "qa_ctx_fwd", "qa_ctx_bwd"
+
+
+def add_noun_masks(batch):
+    """``batch`` with noun masks drawn from a seed: each valid word kept
+    with probability 0.6, every fifth example's third answer all zero."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    keep = (torch.rand(batch["qas_mask"].shape, generator=gen) < 0.6)
+    masks = batch["qas_mask"] * keep.to(batch["qas_mask"].device)
+    masks[::5, 2] = 0.0
+    return dict(batch, qa_noun_masks=masks)
+
+
+def noun_void_batch(case, batch):
+    return add_noun_masks(batch) if case == "noun_masks" else batch
+
+
+def attention_launches(names):
+    """Launches of the attention forward and backward kernels by name in a
+    trace's ``{kernel name: launches}``."""
+    return {k: sum(c for nm, c in names.items() if k in nm)
+            for k in (ATTENTION_FWD, ATTENTION_BWD)}
+
+
+def phase_noun_void(dev, workdir, cfg):
+    """The separate path with noun masks in every batch, and with two void
+    vectors: its serve step against the CPU forward (both compute types, as
+    ``headline_vs_cpu``), a replayed serve dispatch against the eager step,
+    a replayed train dispatch against the eager step (deterministic
+    algorithms), and which attention sites launch the fused kernel: those
+    ``STAGE.fused_attention`` names, nowhere else; each step's device busy
+    time and launches (the replays, ``torch.profiler``)."""
+    from tvqaplus_tpu_torch.infer.predict import InferenceRunner
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    for case, extra in NOUN_VOID.items():
+        t0 = time.perf_counter()
+        model_cfg = dataclasses.replace(ModelConfig.from_config(cfg),
+                                        **extra)
+        model = STAGE(model_cfg).reset_parameters(
+            torch.Generator().manual_seed(SEED))
+        sd = model.state_dict()
+        edit = lambda b, case=case: noun_void_batch(case, b)  # noqa: E731
+        vs_cpu = headline_vs_cpu(cpu_forwards(cfg, sd, model_cfg, edit), sd,
+                                 dev, False)
+        batch = edit(headline_batch(cfg, dev))
+        fused = [site for site in ("sub", "vid")
+                 if model.fused_attention(site, batch)]
+        want_fused = [] if case == "noun_masks" else ["sub"]
+        if fused != want_fused:
+            raise AssertionError(f"{case}: fused sites {fused}")
+        must = tuple(k for k in SEPARATE_FWD
+                     if k != "qa_ctx_attention" or fused)
+        bf16 = STAGE(dataclasses.replace(model_cfg,
+                                         compute_dtype="bfloat16"))
+        bf16.load_state_dict(sd)
+        runner = InferenceRunner(cfg, bf16, dev)
+        reset_counters()
+        runner.step(batch, True, LI)
+        torch.cuda.synchronize()
+        serve_launches = read_counters(must)
+        runner.dispatch_infer(batch, True, LI)        # warm-up and capture
+        equal = replay_equals_eager(runner, batch)
+        busy_ms, per_step, _, names = profile_steps(
+            lambda: runner.dispatch_infer(batch, True, LI), PROFILE_STEPS)
+        names = {k: c / PROFILE_STEPS for k, c in names.items()}
+        tc_fwd = check_tc_forwards(f"{case} serving", names, False)
+        serve_att = attention_launches(names)
+        if serve_launches["qa_ctx_attention"] != len(fused) or \
+                serve_att[ATTENTION_FWD] != len(fused):
+            raise AssertionError(f"{case}: attention launches "
+                                 f"{serve_launches}, trace {serve_att}, "
+                                 f"fused sites {fused}")
+        train = phase_noun_void_train(dev, workdir, case, extra, fused)
+        emit({"phase": "noun_void", "case": case, "ok": True, "batch": B,
+              "frames": LI, "fused_attention_sites": fused,
+              "serve_launches": serve_launches,
+              "serve_trace_attention": serve_att, "tc_forwards": tc_fwd,
+              "serve_busy_ms": busy_ms, "serve_launches_per_step": per_step,
+              "replay_equal_to_eager": equal, "headline_vs_cpu": vs_cpu,
+              **train, "wall_s": time.perf_counter() - t0})
+
+
+def phase_noun_void_train(dev, workdir, case, extra, fused):
+    """One bf16 train step (batch 16, dropout 0.1) of ``case`` eager and
+    as a replayed dispatch from the same seed, deterministic algorithms
+    on: the same loss, grad_norm and parameters (``DISPATCH_TOL``), a
+    finite loss, a nonzero void-vector gradient, the fused attention's
+    forward and backward at the fused sites only."""
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    cfg = train_config(workdir, bsz=B, **extra).finalize(dev)
+    batch = noun_void_batch(case, train_batch(cfg, dev, B))
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager, graph = Trainer(cfg, dev), Trainer(cfg, dev)
+        must = tuple(k for k in SEPARATE_TRAIN
+                     if not k.startswith("qa_ctx_attention") or fused)
+        reset_counters()
+        ms = eager._packed("train", [eager.train_step(batch)])
+        torch.cuda.synchronize()
+        launches = read_counters(must)
+        checks = {}
+        for tag in ("capture", "replay"):
+            if tag == "replay":
+                ms = eager._packed("train", [eager.train_step(batch)])
+            mg = graph.dispatch_train(batch)
+            torch.cuda.synchronize()
+            got = {k: float(mg[k]) for k in ("loss", "grad_norm")}
+            want = {k: float(ms[graph._names["train"].index(k)])
+                    for k in ("loss", "grad_norm")}
+            param_err = max(float((p.detach() - q.detach()).abs().max())
+                            for p, q in zip(eager.params, graph.params))
+            checks[tag] = {"graph": got, "eager": want,
+                           "param_max_abs_err": param_err}
+            if got != want or param_err > DISPATCH_TOL or \
+                    not all(map(math.isfinite, got.values())):
+                raise AssertionError(f"{case} train {tag}: {checks[tag]}")
+        void_grad = None
+        if case == "void":
+            void_grad = float(eager.model.non_visual_vectors.grad.abs().max())
+            if not void_grad > 0:
+                raise AssertionError("the void vectors got no gradient")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    busy_ms, per_step, _, names = profile_steps(
+        lambda: graph.dispatch_train(batch), PROFILE_STEPS)
+    att = attention_launches({k: c / PROFILE_STEPS for k, c in names.items()})
+    if launches["qa_ctx_attention"] != len(fused) or \
+            launches["qa_ctx_attention_bwd"] != len(fused) or \
+            att[ATTENTION_FWD] != len(fused):
+        raise AssertionError(f"{case} train: attention launches {launches}, "
+                             f"trace {att}, fused sites {fused}")
+    return {"train_launches": launches, "train_trace_attention": att,
+            "train_busy_ms": busy_ms, "train_launches_per_step": per_step,
+            "train_replay_vs_eager": checks,
+            "void_vectors_grad_max_abs": void_grad}
+
+
+# ------------------------------------------------------------- pipeline
+PIPELINE_QAS = 1120        # 70 batches of 16, 7 QAs a clip
+# (name, video_dedup, host cast, St buckets): the four layouts with the St
+# buckets, and the fixed St cap that the bucketed run must reproduce
+PIPELINE_RUNS = [("fixed_st", False, False, False),
+                 ("dedup_off_cast_off", False, False, True),
+                 ("dedup_on_cast_off", True, False, True),
+                 ("dedup_off_cast_on", False, True, True),
+                 ("dedup_on_cast_on", True, True, True)]
+# grounding records for one synthetic word id in four: the share of object
+# words among TVQA+ val's QA words (22.4 of ~93 words a QA, 24%, by
+# eval_data/eval_object_vocab.json).  The inference CLI takes every
+# synthetic id as an object word, and its record assembly on the host then
+# takes most of a run (~2,200 records a QA, PERF.md).
+PIPELINE_OBJECT_WORDS = list(range(3, 1000, 4))
+
+
+class HostCast:
+    """Turns the pipeline's bf16 host cast on or off for the serving runs
+    of one layout (it is on whenever the compute type is bfloat16)."""
+
+    def __init__(self, on):
+        self.on = on
+
+    def __enter__(self):
+        from tvqaplus_tpu_torch.data.pipeline import DataPipeline
+        self.cls, self.real = DataPipeline, DataPipeline.__init__
+        on = self.on
+
+        def init(pipe, *a, **k):
+            self.real(pipe, *a, **k)
+            pipe.cast_bf16 = on
+        DataPipeline.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__init__ = self.real
+
+
+def timed_run(runner, dataset, words):
+    """``InferenceRunner.run`` over ``dataset``: (predictions, wall s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = runner.run(dataset, "valid", object_word_ids=words)
+    torch.cuda.synchronize()
+    return pred, time.perf_counter() - t0
+
+
+def phase_pipeline(dev, workdir):
+    """The serving CLI's path (``InferenceRunner.run``: the producer
+    thread's collate, cast, pin and upload, replayed dispatches of
+    ``eval_steps_per_dispatch`` batches, answers and spans) over a split of
+    1,120 QAs that share clips 7 to 1, at the headline widths in bf16, for
+    each layout of ``PIPELINE_RUNS``: wall s and QA/s of a first run (graph
+    captures included) and a second (replays only), the device's busy time
+    over a profiled third and its idle share against the second, graphs
+    captured and the peak of allocated device memory, each stage's host ms
+    per batch and the bytes a batch uploads
+    (``scripts/profile_torch_pipeline.py``); then a run with grounding
+    records (``PIPELINE_OBJECT_WORDS``).  Fails unless dedup gives the
+    predictions of the same layout without it, and the St buckets those of
+    the fixed St cap (answers and spans identical, grounding at 1e-4)."""
+    from scripts.profile_torch_pipeline import (
+        host_stages,
+        layout_pipeline,
+        serving_config,
+        shared_split,
+    )
+    from tvqaplus_tpu_torch.infer.predict import InferenceRunner
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    cfg = serving_config(seed=SEED)
+    model = STAGE(ModelConfig.from_config(cfg)).reset_parameters(
+        torch.Generator().manual_seed(SEED))
+    t0 = time.perf_counter()
+    dataset = shared_split(cfg, PIPELINE_QAS)
+    make_s = time.perf_counter() - t0
+    preds = {}
+    for name, dedup, cast, st in PIPELINE_RUNS:
+        run_cfg = dataclasses.replace(
+            cfg, video_dedup=dedup,
+            sub_token_buckets=cfg.sub_token_buckets if st else [])
+        runner = InferenceRunner(run_cfg, model, dev)
+        with HostCast(cast):
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counters()
+            _, wall_first = timed_run(runner, dataset, ())
+            launches = read_counters(SEPARATE_FWD)
+            peak = torch.cuda.max_memory_allocated(dev)
+            graphs = len(runner.graphs.graphs)
+            _, wall = timed_run(runner, dataset, ())
+            busy_ms, n_kernels, top, _ = profile_steps(
+                lambda: runner.run(dataset, "valid"), 1)
+            preds[name], wall_grounding = timed_run(
+                runner, dataset, PIPELINE_OBJECT_WORDS)
+            stages = host_stages(layout_pipeline(run_cfg, "cuda", dedup,
+                                                 cast),
+                                 dataset, 20, "cuda")
+        if len(preds[name]["ts_answer"]) != PIPELINE_QAS:
+            raise AssertionError(f"{name}: {len(preds[name]['ts_answer'])} "
+                                 f"answers")
+        emit({"phase": "pipeline", "ok": True, "run": name,
+              "video_dedup": dedup, "host_cast": cast,
+              "st_buckets": run_cfg.sub_token_buckets, "qas": PIPELINE_QAS,
+              "batch": B,
+              "eval_steps_per_dispatch": cfg.eval_steps_per_dispatch,
+              "wall_s_first": wall_first, "wall_s": wall,
+              "qa_pairs_per_s_first": PIPELINE_QAS / wall_first,
+              "qa_pairs_per_s": PIPELINE_QAS / wall,
+              "device_busy_ms": busy_ms,
+              "device_idle_share": None if busy_ms is None
+              else 1 - busy_ms / 1e3 / wall,
+              "kernels_per_run": n_kernels, "top_kernels": top[:6],
+              "graphs": graphs, "peak_allocated_bytes": peak,
+              "launches": launches,
+              "wall_s_with_grounding": wall_grounding,
+              "qa_pairs_per_s_with_grounding": PIPELINE_QAS / wall_grounding,
+              "graphs_with_grounding": len(runner.graphs.graphs),
+              **stages})
+    checks = {}
+    for got, want in (("dedup_off_cast_off", "fixed_st"),
+                      ("dedup_on_cast_off", "dedup_off_cast_off"),
+                      ("dedup_on_cast_on", "dedup_off_cast_on")):
+        checks[f"{got} vs {want}"] = same_predictions(
+            preds[got], preds[want], f"pipeline {got} vs {want}")
+    # the host cast rounds vid before l2_normalize and the bridges' inputs
+    # before their LayerNorm: reported, not held
+    on, off = preds["dedup_on_cast_on"], preds["dedup_on_cast_off"]
+    cast_diff = {
+        "answers_equal": sum(on["ts_answer"][q][1] == off["ts_answer"][q][1]
+                             for q in on["ts_answer"]),
+        "answers_and_spans_equal": sum(on["ts_answer"][q] ==
+                                       off["ts_answer"][q]
+                                       for q in on["ts_answer"]),
+        "grounding_max_abs_diff": grounding_diff(on, off)[0]}
+    emit({"phase": "pipeline_checks", "ok": True, "make_dataset_s": make_s,
+          "equal_within_1e-4": {k: {"grounding_max_abs_diff": w,
+                                    "records": n}
+                                for k, (w, n) in checks.items()},
+          "host_cast_vs_float32_uploads": cast_diff})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
@@ -1621,6 +1945,8 @@ def main():
         phase_train_vs_cpu(dev, workdir)
         phase_dispatch(dev, workdir)
         phase_training(dev, workdir)
+        phase_noun_void(dev, workdir, cfg)
+        phase_pipeline(dev, workdir)
     # each row's launches: the count of the main path that runs its kernel
     # (separate, merged, or the bridge module), read right after that path
     launches = {**launches, "encoder_block": merged["encoder_block"],

@@ -1105,3 +1105,98 @@ def test_replayed_dispatches_equal_eager_steps(cuda, tmp_path, merged,
     finally:
         torch.use_deterministic_algorithms(False)
     assert graph.step == eager.step == 6
+
+
+# ------------------------------------- noun masks, void vectors, dedup
+def with_noun_masks(batch):
+    """``batch`` with noun masks: every third word off, one answer's row
+    all zero."""
+    masks = batch["qas_mask"].clone()
+    masks[..., ::3] = 0.0
+    masks[0, 2] = 0.0
+    return dict(batch, qa_noun_masks=masks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["noun_masks", "void"])
+def test_unfused_attention_train_step_replays_give_eager_bits(
+        cuda, tmp_path, case, monkeypatch):
+    """A bf16 train step (2 examples, 12 frames, dropout 0.1) whose
+    attention sites run unfused (noun masks: both; two void vectors: vid):
+    a replayed dispatch gives the eager step's loss, grad_norm and
+    parameters bit for bit (deterministic algorithms), the fused attention
+    kernel launches at the other sites only, and the void vectors get a
+    gradient."""
+    from tvqaplus_tpu_torch.config import Config
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    n, frames = 2, 12
+    void = dict(non_visual=2, add_non_visual=True) if case == "void" else {}
+    cfg = Config(synthetic_data=True, add_local=True, use_sup_att=True,
+                 bsz=n, test_bsz=n, seed=3, results_dir=str(tmp_path),
+                 **void).finalize(cuda)
+    tb = step_batch(cfg, n, frames, True, cuda)
+    if case == "noun_masks":
+        tb = with_noun_masks(tb)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager, graph = Trainer(cfg, cuda), Trainer(cfg, cuda)
+        fused = [s for s in ("sub", "vid")
+                 if graph.model.fused_attention(s, tb)]
+        assert fused == ([] if case == "noun_masks" else ["sub"])
+        for _ in range(3):
+            qa_ctx_attention.KERNEL.launches = 0
+            ms = eager._packed("train", [eager.train_step(tb)])
+            assert qa_ctx_attention.KERNEL.launches == len(fused)
+            mg = graph.dispatch_train(tb)
+            for i, key in enumerate(graph._names["train"]):
+                assert float(mg[key]) == float(ms[i]), key
+            for p, q in zip(eager.params, graph.params):
+                assert torch.equal(p, q)
+            assert torch.isfinite(ms[graph._names["train"].index("loss")])
+        if case == "void":
+            g = eager.model.non_visual_vectors.grad
+            assert g is not None and float(g.abs().max()) > 0
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+@pytest.mark.cuda
+def test_dedup_serve_dispatch_equals_the_plain_one(cuda):
+    """The serving pipeline on the card with ``video_dedup`` and St buckets
+    (bf16 host cast on): each replayed serve dispatch (the int32 ``ex_vid``
+    gather inside the graph) gives the bits of the dispatch of the same
+    batch without dedup."""
+    from tvqaplus_tpu_torch.config import Config
+    from tvqaplus_tpu_torch.data.pipeline import DataPipeline
+    from tvqaplus_tpu_torch.data.synthetic import (
+        CachedDataset,
+        SharedVideoDataset,
+        SyntheticTVQADataset,
+    )
+    from tvqaplus_tpu_torch.infer.predict import InferenceRunner
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    n, frames = 8, 12
+    cfg = Config(synthetic_data=True, add_local=True, bsz=n, test_bsz=n,
+                 seed=3, max_num_img=frames, img_buckets=[frames],
+                 sub_token_buckets=[64, 96], video_buckets=[2, 4]
+                 ).finalize(cuda)
+    assert cfg.compute_dtype == "bfloat16"
+    ds = CachedDataset(SharedVideoDataset(
+        SyntheticTVQADataset(cfg, 3 * n, mode="valid"), 3))
+    model = STAGE(ModelConfig.from_config(cfg)).reset_parameters(
+        torch.Generator().manual_seed(3))
+    runner = InferenceRunner(cfg, model, cuda)
+    batches = {dedup: [b for b, _, _ in DataPipeline(
+        ds, cfg, cuda, batch_size=n, video_dedup=dedup)]
+        for dedup in (False, True)}
+    assert all("ex_vid" in b and b["vid_u"].dtype == torch.bfloat16
+               for b in batches[True])
+    for _ in range(2):                    # warm-up and capture, replays
+        for plain, dedup in zip(batches[False], batches[True]):
+            want = {k: v.clone() for k, v in runner.dispatch_infer(
+                plain, True, frames).items()}
+            got = runner.dispatch_infer(dedup, True, frames)
+            for k in want:
+                assert torch.equal(got[k], want[k]), k
+    assert len(runner.graphs.graphs) >= 2

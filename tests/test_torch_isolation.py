@@ -21,6 +21,8 @@ def port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    # the port's scripts that run on the card
+    yield os.path.join(REPO, "scripts", "profile_torch_pipeline.py")
 
 
 def test_importing_every_port_module_loads_no_jax():

@@ -172,12 +172,10 @@ def test_region_less_frame_inside_the_span_mask_is_pinned():
 
 
 def test_train_mode_is_not_ported_yet():
-    """Training forwards take a Dropout (rate 0 for none); the parts of the
-    training path still to port (noun-mask attention) raise."""
+    """Training forwards take a Dropout (rate 0 for none).  (Noun-mask
+    attention, once refused here, is ported: tests/test_torch_noun_void.py
+    holds it against the JAX package.)"""
     model = STAGE(ModelConfig(hsz=16, bridge_hsz=12, embedding_size=32,
                               vfeat_size=16))
     with pytest.raises(ValueError, match="drop"):
         model({}, train=True)
-    drop = Dropout(0.0, torch.Generator(), torch.Generator())
-    with pytest.raises(NotImplementedError):
-        model({"qa_noun_masks": torch.ones(1)}, train=True, drop=drop)

@@ -50,19 +50,23 @@ def port_config(jcfg, **kw):
     return cfg.resolve_device_policy("cpu")
 
 
-def check_train_step_against_jax(tmp_path, **cfg_kw):
+def check_train_step_against_jax(tmp_path, edit_batch=None, **cfg_kw):
     """The JAX Trainer's step body (loop.py:149-172: value_and_grad of
     total_loss through model.apply(train=True), then its optax chain), with
     hard negatives (no sampling noise), dropout 0, float32.  Loss and
     metrics at 1e-4 relative, grads at rtol 1e-3 / atol 1e-5 (f32 sums over
     ~10 layers in another order), grad_norm at 1e-4.  Adam's first step
     moves a parameter by about lr * sign(g), so the updated parameters are
-    compared where |g| > 1e-3, far above the gradient tolerance, at 2e-6."""
-    jcfg = small_cfg(tmp_path, **STEP_CFG, **cfg_kw)
+    compared where |g| > 1e-3, far above the gradient tolerance, at 2e-6.
+    ``edit_batch`` changes the collated batch (a dict of arrays) before
+    both steps take it."""
+    jcfg = small_cfg(tmp_path, **dict(STEP_CFG, **cfg_kw))
     model_cfg = JaxModelConfig.from_config(jcfg)
     jmodel = JaxSTAGE(model_cfg)
     batch = next(iter(JaxPipeline(JaxSynthetic(jcfg, 4, mode="train"), jcfg,
                                   batch_size=4)))[0]
+    if edit_batch is not None:
+        batch = edit_batch(batch)
     params = JaxSTAGE(dataclasses.replace(model_cfg, use_pallas=False)).init(
         {"params": jax.random.PRNGKey(jcfg.seed)}, batch,
         train=False)["params"]
@@ -77,7 +81,8 @@ def check_train_step_against_jax(tmp_path, **cfg_kw):
 
     def loss_fn(p):
         out = jmodel.apply({"params": p}, batch, train=True,
-                           need_sub_raw=False, need_vid_raw="target")
+                           need_sub_raw=False, need_vid_raw="target",
+                           rngs={"dropout": jax.random.PRNGKey(1)})
         return jlosses.total_loss(out, batch, jax.random.PRNGKey(0),
                                   train=True, use_hard_negatives=True,
                                   **loss_kwargs)

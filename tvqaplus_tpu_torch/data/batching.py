@@ -1,5 +1,6 @@
 """Static-shape batch assembly (the port's copy of
-``tvqaplus_tpu/data/batching.py``, numpy paths only).
+``tvqaplus_tpu/data/batching.py``; its per-example copy loops run in
+native/fastops.c, as the JAX package's do).
 
 Every batch pads to a ``StaticShapeSpec`` picked from a few frame-count
 buckets.  Batch contract (numpy; B = batch, A = 5 answers):
@@ -25,7 +26,7 @@ from typing import List
 
 import numpy as np
 
-from tvqaplus_tpu_torch.data.labels import att_entries_from_dense
+from tvqaplus_tpu_torch import native
 
 # supervised-attention batch keys (training batches only)
 ATT_KEYS = ("att_entry_idx", "att_entry_valid", "att_neg_rows",
@@ -114,13 +115,13 @@ def zeros_batch(spec: StaticShapeSpec):
     }
 
 
-def pad_into(arrays, max_len, out, mask):
-    """Copy ragged (len_i, dim) arrays into the pre-zeroed (n, max_len, dim)
-    ``out`` and mark ``mask`` (n, max_len), clipping at max_len."""
-    for i, a in enumerate(arrays):
-        k = min(len(a), max_len)
-        out[i, :k] = a[:k]
-        mask[i, :k] = 1.0
+def pad_into(arrays, max_len, out, mask=None):
+    """Copy ragged (len_i, dim) arrays into the first rows of the pre-zeroed
+    (>= n, max_len, dim) ``out`` and mark ``mask`` (>= n, max_len), clipping
+    at max_len (native/fastops.c ``pad_batch_f32``)."""
+    n = len(arrays)
+    native.pad_batch(arrays, max_len, out[:n],
+                     None if mask is None else mask[:n])
 
 
 def collate_static(examples: List[dict], spec: StaticShapeSpec):
@@ -134,14 +135,13 @@ def collate_static(examples: List[dict], spec: StaticShapeSpec):
     meta = {"qid": [], "vid_name": [], "image_indices": [], "boxes": [],
             "ts": [], "att_n_pos": [], "sub_tok_overflow": [], "target": [],
             "anno_st": [], "qas_words": []}
-    scratch = np.zeros((s.num_a, s.max_qa_l), np.float32)
     for b, ex in enumerate(examples):
         out["ex_mask"][b] = 1.0
         for a in range(s.num_a):
             ids = np.asarray(ex["qas"][a], np.int32)[: s.max_qa_l]
             out["qas"][b, a, : len(ids)] = ids
             out["qas_mask"][b, a, : len(ids)] = 1.0
-        pad_into(ex["qas_bert"], s.max_qa_l, out["qas_bert"][b], scratch)
+        pad_into(ex["qas_bert"], s.max_qa_l, out["qas_bert"][b])
         out["q_l"][b] = ex.get("q_l", 0)
         if ex.get("qa_noun_masks") is not None:
             if "qa_noun_masks" not in out:
@@ -192,18 +192,15 @@ def collate_static(examples: List[dict], spec: StaticShapeSpec):
 
 def _collate_att(att, s, out, b):
     """The att-loss entry arrays of example ``b`` from its dense labels
-    (clipped to the spec); returns its positives before the cap."""
+    clipped to the spec (``labels.att_entries_from_dense`` in one pass,
+    native/fastops.c ``att_entries_f32``); returns its positives before the
+    cap."""
     labels, defined = att
-    shape = (s.max_img, s.max_qa_l, s.num_region)
-    dl = np.zeros(shape, np.float32)
-    dd = np.zeros(shape, np.float32)
-    li, lw, lr = (min(a, c) for a, c in zip(labels.shape, shape))
-    dl[:li, :lw, :lr] = labels[:li, :lw, :lr]
-    dd[:li, :lw, :lr] = defined[:li, :lw, :lr]
-    (out["att_entry_idx"][b], out["att_entry_valid"][b],
-     out["att_neg_rows"][b], out["att_entry_rank"][b],
-     out["att_group_npos"][b], n_pos) = att_entries_from_dense(
-        dl, dd, s.att_entry_cap)
+    n_pos = native.att_entries(
+        labels, defined, (s.max_img, s.max_qa_l, s.num_region),
+        s.att_entry_cap, out["att_entry_idx"][b], out["att_entry_valid"][b],
+        out["att_neg_rows"][b], out["att_entry_rank"][b],
+        out["att_group_npos"][b])
     out["att_n_pos"][b] = n_pos
     return n_pos
 
@@ -231,12 +228,7 @@ def _collate_sub_dedup(ex, s, out, b):
     if not win_spans:
         return 0, 0
     n = len(win_spans)
-    sp = np.asarray(win_spans, np.int64)       # (n, 2) [start, len]
-    ln = np.minimum(sp[:, 1], s.max_sub_l)
-    pos = np.arange(s.max_sub_l)
-    valid = pos < ln[:, None]
-    idx = sp[:, :1] + pos
-    ok = valid & (idx < n_tok)
-    out["sub_win_idx"][b, :n] = np.where(ok, idx + 1, 0)
-    out["sub_mask"][b, :n] = ok.astype(np.float32)
-    return n, int(valid.sum() - ok.sum())
+    n_over = native.fill_sub_windows(win_spans, s.max_sub_l, n_tok,
+                                     out["sub_win_idx"][b, :n],
+                                     out["sub_mask"][b, :n])
+    return n, n_over

@@ -11,9 +11,9 @@ from __future__ import annotations
 
 import numpy as np
 
+from tvqaplus_tpu_torch import native
 from tvqaplus_tpu_torch.utils.io import load_glove, load_json, save_json
-from tvqaplus_tpu_torch.utils.misc import compute_iou_xyxy, \
-    match_stanford_tokenizer
+from tvqaplus_tpu_torch.utils.misc import match_stanford_tokenizer
 
 PAD, UNK, EOS = "<pad>", "<unk>", "<eos>"
 PAD_ID, UNK_ID, EOS_ID = 0, 1, 2
@@ -21,12 +21,16 @@ PAD_ID, UNK_ID, EOS_ID = 0, 1, 2
 
 def iou_single_gt_box(single_box, detected_boxes):
     """IoUs of one GT box (top/left/width/height dict) against detected
-    xyxy boxes, rounded to 4 decimals (reference tvqa_dataset.py:331-338)."""
+    xyxy boxes, rounded to 4 decimals (reference tvqa_dataset.py:331-338);
+    ``utils.misc.compute_iou_xyxy`` box by box, in one native call
+    (native/fastops.c ``iou_xyxy_plus1``, as the JAX package)."""
+    if not detected_boxes:
+        return []
     gt = [single_box["left"], single_box["top"],
           single_box["left"] + single_box["width"],
           single_box["top"] + single_box["height"]]
-    return [float("{:.4f}".format(compute_iou_xyxy(gt, d)))
-            for d in detected_boxes]
+    return [float("{:.4f}".format(v))
+            for v in native.iou_one_vs_many(gt, detected_boxes)]
 
 
 def build_iou_data(gt_box_data, detected_boxes_per_frame, frm_cnt):

@@ -11,12 +11,30 @@ example with others of its own Li bucket, as the JAX pipeline does.
 ``group`` > 1 stacks that many same-shape batches on a new leading axis
 K, one multi-step dispatch each (the trainer's ``steps_per_dispatch``, the
 evaluators' ``eval_steps_per_dispatch``): batches wait in one buffer per
-bucket, so full stacks form however the buckets interleave, and what is
-left at the end of an epoch comes out as single batches, in bucket order
+shape, so full stacks form however the buckets interleave, and what is
+left at the end of an epoch comes out as single batches, in key order
 (JAX pipeline.py:241-270).
+
+Three batch layouts cut the bytes each batch moves to the card (JAX
+pipeline.py:62-91):
+
+* ``sub_token_buckets``: a batch's subtitle token stream takes the
+  smallest St bucket covering its examples' unique tokens instead of the
+  ``max_sub_tokens`` cap (the sub_dedup contract only; the values are the
+  fixed-cap batch's first St slots);
+* the host cast: under ``compute_dtype == "bfloat16"`` the large feature
+  arrays (``BF16_KEYS``) are cast to bfloat16 on the producer thread before
+  they are pinned (torch's cast rounds to nearest even: bit for bit JAX's
+  ``ml_dtypes`` cast on every value but NaN, whose payload differs);
+* ``video_dedup`` (serving only): each unique clip's ``vid`` /
+  ``sub_tokens`` / ``sub_bert`` ships once a batch (``*_u``, U rows, the
+  smallest ``video_buckets`` entry covering the batch) with ``ex_vid``,
+  each example's row; the serve step gathers them back on the card
+  (infer/predict.py ``expand_video_dedup``).
 """
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 
@@ -29,13 +47,19 @@ from tvqaplus_tpu_torch.data.batching import (
     pick_bucket,
 )
 
+# the large float inputs that go to the card in bfloat16 under the bf16
+# compute policy (JAX pipeline.py:34-35)
+BF16_KEYS = ("qas_bert", "sub_bert", "sub_tokens", "vid", "sub_tokens_u",
+             "vid_u", "sub_bert_u")
+
 
 class DataPipeline:
     """Iterable over (device batch dict, meta, Li bucket) tuples.
-    ``train``: shuffled bucket batching with the att-entry keys."""
+    ``train``: shuffled bucket batching with the att-entry keys.
+    ``video_dedup``: the per-unique-clip layout (serving)."""
 
     def __init__(self, dataset, cfg, device, batch_size=16, prefetch_depth=2,
-                 train=False, seed=0, group=1):
+                 train=False, seed=0, group=1, video_dedup=False):
         self.dataset = dataset
         self.cfg = cfg
         self.device = torch.device(device)
@@ -48,6 +72,14 @@ class DataPipeline:
                                                      train=train)
         self.buckets = sorted(set(min(b, cfg.max_num_img)
                                   for b in cfg.img_buckets))
+        cap = self.base_spec.max_sub_tokens
+        self.st_buckets = sorted(set(min(b, cap) for b in
+                                     cfg.sub_token_buckets)) if cap else []
+        self.cast_bf16 = cfg.compute_dtype == "bfloat16"
+        self.video_dedup = video_dedup
+        self.video_buckets = sorted(set(
+            min(b, batch_size) for b in cfg.video_buckets if b > 0)) \
+            or [batch_size]
         self._epoch = 0
 
     def __len__(self):
@@ -84,9 +116,30 @@ class DataPipeline:
         for b in sorted(buffers):
             yield self._collate(buffers[b], b)
 
+    def _st_bucket(self, examples):
+        """The smallest St bucket covering the batch's unique-token need:
+        per example the fixed cap's n_tok + 1 (slot 0 is the zero token,
+        batching._collate_sub_dedup), so a bucketed batch equals the
+        fixed-cap batch on its first St slots (JAX pipeline.py:143-160)."""
+        cap = self.base_spec.max_sub_tokens
+        need = 1
+        for ex in examples:
+            stream = ex.get("sub_tokens")
+            if stream is not None:
+                n = len(stream)
+            else:
+                n = sum(min(len(w), self.base_spec.max_sub_l)
+                        for w in (ex.get("sub_bert") or [])[
+                            : self.base_spec.max_img])
+            need = max(need, min(n, cap - 1) + 1)
+        return next((b for b in self.st_buckets if b >= need), cap)
+
     def _collate(self, examples, bucket):
-        arrays, meta = collate_static(examples,
-                                      self.base_spec.with_max_img(bucket))
+        spec = self.base_spec.with_max_img(bucket)
+        if self.st_buckets:
+            spec = dataclasses.replace(
+                spec, max_sub_tokens=self._st_bucket(examples))
+        arrays, meta = collate_static(examples, spec)
         n_pos = max(meta["att_n_pos"], default=0)
         if self.train and n_pos > self.cfg.att_entry_cap:
             # the att loss would silently drop the positives past the cap
@@ -102,17 +155,61 @@ class DataPipeline:
                 f"an example's subtitle windows need {n_over} more unique "
                 f"tokens than max_sub_tokens={self.cfg.max_sub_tokens}; "
                 f"raise --max_sub_tokens (or disable --sub_dedup)")
+        if self.video_dedup:
+            arrays = self._dedup_videos(arrays, meta)
         return arrays, meta, bucket
 
+    def _dedup_videos(self, arrays, meta):
+        """``vid`` / ``sub_tokens`` / ``sub_bert`` -> one row per unique
+        clip (``*_u``, (U, ...)) and ``ex_vid`` (B,) int32, each example's
+        row (JAX pipeline.py:201-238).  A clip is (vid_name,
+        image_indices): the feature files key rows by vid_name, so such
+        examples carry the same arrays; unnamed examples never merge.  U is
+        the smallest video bucket covering the batch (the batch size at
+        most); the batch's padding rows point at a zero row past the
+        clips when one is free, else at row 0 (their outputs are masked
+        either way)."""
+        n = len(meta["vid_name"])
+        bsz = arrays["ex_mask"].shape[0]
+        uniq, first_rows, ex_vid = {}, [], np.zeros(bsz, np.int32)
+        for i in range(n):
+            name = meta["vid_name"][i]
+            key = ((name, tuple(meta["image_indices"][i])) if name
+                   else ("", i))
+            if key not in uniq:
+                uniq[key] = len(first_rows)
+                first_rows.append(i)
+            ex_vid[i] = uniq[key]
+        need = len(first_rows) + (1 if n < bsz else 0)
+        u = next((b for b in self.video_buckets if b >= need),
+                 max(bsz, need))
+        if n < bsz:
+            ex_vid[n:] = len(first_rows)
+        out = dict(arrays)
+        swapped = False
+        for k in ("vid", "sub_tokens", "sub_bert"):
+            if k not in out:
+                continue
+            v = out.pop(k)
+            vu = np.zeros((u,) + v.shape[1:], v.dtype)
+            vu[: len(first_rows)] = v[first_rows]
+            out[k + "_u"] = vu
+            swapped = True
+        if swapped:
+            out["ex_vid"] = ex_vid
+        return out
+
     def _grouped_batches(self):
-        """``group`` same-shape batches stacked on a leading axis K (the
-        key: the Li bucket and the first two sizes of the per-batch token
-        stream, as JAX's); the leftovers of each buffer come out single,
-        buffers in key order."""
+        """``group`` same-shape batches stacked on a leading axis K, keyed
+        on every bucketed axis (Li; St under ``sub_token_buckets``; U
+        under ``video_dedup``) as JAX's (pipeline.py:251-256); the
+        leftovers of each buffer come out single, buffers in key order."""
         bufs = {}
         for arrays, meta, bucket in self._batches():
-            key = (bucket,) + tuple(arrays[k].shape[:2] for k in
-                                    ("sub_tokens",) if k in arrays)
+            key = (bucket,) + tuple(
+                arrays[k].shape[:2] for k in
+                ("sub_tokens", "sub_tokens_u", "vid_u", "sub_bert_u")
+                if k in arrays)
             bats, metas = bufs.setdefault(key, ([], []))
             bats.append(arrays)
             metas.append(meta)
@@ -125,10 +222,26 @@ class DataPipeline:
             for arrays, meta in zip(*bufs[key]):
                 yield arrays, meta, key[0]
 
+    def _cast(self, arrays):
+        """Host tensors of a collated batch: ``BF16_KEYS`` cast to bfloat16
+        under the bf16 compute policy."""
+        return {k: (torch.from_numpy(v).to(torch.bfloat16)
+                    if self.cast_bf16 and k in BF16_KEYS
+                    else torch.from_numpy(v))
+                for k, v in arrays.items()}
+
+    def _pin(self, tensors):
+        """Page-locked copies for a CUDA device (non_blocking uploads)."""
+        if self.device.type != "cuda":
+            return tensors
+        return {k: v.pin_memory() for k, v in tensors.items()}
+
     def _host(self, arrays):
-        pin = self.device.type == "cuda"
-        return {k: (torch.from_numpy(v).pin_memory() if pin
-                    else torch.from_numpy(v)) for k, v in arrays.items()}
+        return self._pin(self._cast(arrays))
+
+    def _upload(self, tensors):
+        return {k: v.to(self.device, non_blocking=True)
+                for k, v in tensors.items()}
 
     def __iter__(self):
         self._epoch += 1
@@ -167,8 +280,7 @@ class DataPipeline:
                         raise err[0]
                     return
                 tensors, meta, bucket = item
-                yield ({k: v.to(self.device, non_blocking=True)
-                        for k, v in tensors.items()}, meta, bucket)
+                yield self._upload(tensors), meta, bucket
         finally:
             stop.set()
             while t.is_alive():        # drain so the producer can finish

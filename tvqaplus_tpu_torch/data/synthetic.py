@@ -1,6 +1,7 @@
 """Synthetic TVQA+-shaped data (the port's copy of
-``tvqaplus_tpu/data/synthetic.py`` ``SyntheticTVQADataset``): the same
-examples from the same seed, index for index.
+``tvqaplus_tpu/data/synthetic.py``): ``SyntheticTVQADataset`` gives the
+same examples from the same seed, index for index; ``CachedDataset`` and
+``SharedVideoDataset`` are the serving measurement's adapters.
 
 For tests, debug runs and benchmarks.
 
@@ -20,6 +21,76 @@ from __future__ import annotations
 import numpy as np
 
 from tvqaplus_tpu_torch.data.labels import densify_att_labels
+
+
+class CachedDataset:
+    """A dataset's examples made once, up front, so a measurement times the
+    system (collate, upload, device, prediction assembly) and not the
+    generator; production serving reads precomputed features, which this
+    models more honestly than per-item synthesis."""
+
+    def __init__(self, ds):
+        self._ds = ds
+        self.examples = [ds[i] for i in range(len(ds))]
+
+    def __len__(self):
+        return len(self.examples)
+
+    def __getitem__(self, i):
+        return self.examples[i]
+
+    def set_mode(self, mode):
+        # the mode changes the examples: make them again if it changes
+        if mode != getattr(self._ds, "mode", mode):
+            self._ds.set_mode(mode)
+            self.examples = [self._ds[i] for i in range(len(self._ds))]
+
+    def __getattr__(self, name):
+        # everything else (mode, max_annotated_frames, ...) is the wrapped
+        # dataset's
+        return getattr(self._ds, name)
+
+
+class SharedVideoDataset:
+    """QA examples that share clips as the real dataset's do: TVQA+ has
+    about 7 QAs per clip and its splits iterate in clip order, which
+    batch-level video dedup (``Config.video_dedup``) exploits.  Example
+    ``i`` takes every video-level field from its group leader
+    ``(i // qas_per_video) * qas_per_video`` and keeps its own QA fields,
+    with its span label and boxes clamped to the leader clip's frames.  The
+    QA annotations lose their planted alignment with the clip: for
+    throughput and format runs, not training-quality tests."""
+
+    _VIDEO_FIELDS = ("vid_name", "sub_bert", "sub_tokens", "sub_win_spans",
+                     "vfeat", "image_indices")
+
+    def __init__(self, ds, qas_per_video=7):
+        self._ds = ds
+        self.g = max(1, qas_per_video)
+
+    def __len__(self):
+        return len(self._ds)
+
+    def set_mode(self, mode):
+        self._ds.set_mode(mode)
+
+    def __getattr__(self, name):
+        return getattr(self._ds, name)
+
+    def __getitem__(self, i):
+        ex = dict(self._ds[i])
+        lead_i = (i // self.g) * self.g
+        if lead_i != i:
+            lead = self._ds[lead_i]
+            for k in self._VIDEO_FIELDS:
+                if k in lead:
+                    ex[k] = lead[k]
+            n_img = len(lead["image_indices"])
+            st, ed = ex["ts_label"]
+            ed = min(ed, n_img - 1)
+            ex["ts_label"] = [min(st, ed), ed]
+            ex["boxes"] = ex["boxes"][:n_img]
+        return ex
 
 
 class SyntheticTVQADataset:

@@ -109,6 +109,21 @@ def grounding_compaction(raw, vid_mask, anno_st, f_max):
     }
 
 
+def expand_video_dedup(batch):
+    """Per-unique-clip uploads -> per-example arrays, one device gather
+    each (JAX infer/predict.py:201-218): ``vid_u`` (U, Li, Lr, Dv),
+    ``sub_tokens_u`` (U, St, De) / ``sub_bert_u`` taken at ``ex_vid`` (B,)
+    int32.  A batch without ``ex_vid`` comes back as it is."""
+    if "ex_vid" not in batch:
+        return batch
+    batch = dict(batch)
+    rows = batch.pop("ex_vid")
+    for k in ("vid", "sub_tokens", "sub_bert"):
+        if k + "_u" in batch:
+            batch[k] = torch.index_select(batch.pop(k + "_u"), 0, rows)
+    return batch
+
+
 class InferenceRunner:
     """Runs the eval-mode model over a dataset split and assembles the
     predictions dict (reference inference.py:38-75).  One dispatch stays in
@@ -117,8 +132,6 @@ class InferenceRunner:
     the model is moved there."""
 
     def __init__(self, cfg, model, device=None):
-        if getattr(cfg, "video_dedup", False):
-            raise NotImplementedError("video_dedup batches")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
@@ -127,8 +140,10 @@ class InferenceRunner:
 
     @torch.inference_mode()
     def step(self, batch, with_grounding, f_max):
-        """The device part of one batch: forward, answer argmax, span search
-        and (``with_grounding``) the grounding compaction."""
+        """The device part of one batch: the dedup expansion, forward,
+        answer argmax, span search and (``with_grounding``) the grounding
+        compaction."""
+        batch = expand_video_dedup(batch)
         out = self.model(batch, need_sub_raw=False,
                          need_vid_raw=with_grounding)
         t_probs = safe_softmax(out["t_scores"].float(), dim=2)
@@ -171,7 +186,8 @@ class InferenceRunner:
         pipeline = DataPipeline(
             dataset, self.cfg, self.device, batch_size=self.cfg.test_bsz,
             prefetch_depth=self.cfg.prefetch_depth,
-            group=max(1, self.cfg.eval_steps_per_dispatch))
+            group=max(1, self.cfg.eval_steps_per_dispatch),
+            video_dedup=self.cfg.video_dedup)
         predictions = {"ts_answer": {}, "raw_bbox": []}
         with_grounding = bool(object_word_ids) and self.cfg.vfeat_flag
         f_max = max(1, int(dataset.max_annotated_frames()))

@@ -12,6 +12,10 @@ inference and writes ``{mode}_inference_predictions.json`` beside them.
   read).  Without it: ``best_valid.pth``, or ``last.ckpt`` with a warning
   when the run never wrote the best one (it is written only when the
   validation accuracy improves).
+* ``--video_dedup``, ``--video_buckets``, ``--sub_token_buckets``: the
+  serving batch layouts (data/pipeline.py).  They change what each batch
+  ships to the card, not the predictions, so when the command line sets
+  one it holds over the run's opt.json.
 
 The split comes from the run's data: the TVQA+ artifacts its opt.json
 names (``data/tvqa.py``; grounding records for the words of
@@ -25,7 +29,7 @@ from __future__ import annotations
 import os
 
 from tvqaplus_tpu_torch import resolve_device
-from tvqaplus_tpu_torch.config import parse_args
+from tvqaplus_tpu_torch.config import build_parser, parse_args
 from tvqaplus_tpu_torch.data.synthetic import SyntheticTVQADataset
 from tvqaplus_tpu_torch.data.tvqa import TVQAPlusDataset
 from tvqaplus_tpu_torch.infer.predict import InferenceRunner
@@ -34,6 +38,8 @@ from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
 from tvqaplus_tpu_torch.train.state import load_model_state
 from tvqaplus_tpu_torch.utils.io import save_json
 
+# the batch-layout fields a command line may set over the run's opt.json
+SERVING_LAYOUT = ("video_dedup", "video_buckets", "sub_token_buckets")
 EXTRA_FLAGS = (
     ("--model_dir", dict(type=str, required=True,
                          help="run directory holding opt.json and the "
@@ -80,7 +86,12 @@ def main_inference(argv=None):
     cfg, extras = parse_args(argv, extra_fields=EXTRA_FLAGS)
     device = resolve_device(extras.device)
     run_dir = run_directory(extras.model_dir)
+    given = vars(build_parser(EXTRA_FLAGS).parse_args(argv))
+    layout = {k: getattr(cfg, k) for k in SERVING_LAYOUT
+              if given[k] is not None}
     cfg.override_from(os.path.join(run_dir, "opt.json"))
+    for k, v in layout.items():
+        setattr(cfg, k, v)
     cfg.resolve_device_policy(device)
 
     model = STAGE(ModelConfig.from_config(cfg))

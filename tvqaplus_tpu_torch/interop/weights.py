@@ -6,6 +6,7 @@ Layouts differ only by transposes:
   flax Dense kernel (in, out)     <-> torch Linear weight (out, in)
   flax depthwise (k, D)           <-> torch grouped Conv1d (D, 1, k)
   flax pointwise kernel (in, out) <-> torch Conv1d (out, in, 1)
+and the void vectors (non_visual, hsz) keep theirs.
 
 ``cfg`` is anything with the Config/ModelConfig attributes vfeat_flag,
 sub_flag, t_iter and the encoder block/conv counts.
@@ -120,6 +121,8 @@ def params_from_flax(params, cfg):
             _dsconv_to_sd(sd, f"{prefix}.conv.2", p["conv"])
         else:
             _dense_to_sd(sd, f"{prefix}.conv.2", p["fc"])
+    if "non_visual_vectors" in params:          # non_visual > 0
+        sd["non_visual_vectors"] = _np(params["non_visual_vectors"])
     return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
             for k, v in sd.items()}
 
@@ -159,6 +162,8 @@ def flax_from_params(state_dict, cfg):
         else:
             p["fc"] = _dense_from_sd(sd, f"{prefix}.conv.2")
         params[fname] = p
+    if "non_visual_vectors" in sd:
+        params["non_visual_vectors"] = sd["non_visual_vectors"]
     return params
 
 

@@ -153,20 +153,21 @@ class DownProjection(nn.Sequential):
     """LN -> Dropout -> Linear -> ReLU: ``c2q_down_projection``
     (reference stage.py:133-138), with the exact variance of
     layers.py:394-401.  STAGE hands its parameters to the fused attention
-    kernel; ``forward`` is the unfused layer."""
+    kernel; ``forward`` is the unfused layer (STAGE's plain attention
+    route)."""
 
     def __init__(self, in_hsz, out_hsz, dropout=0.1, dtype=torch.float32):
         super().__init__(LayerNorm(in_hsz, dtype), nn.Dropout(dropout),
                          nn.Linear(in_hsz, out_hsz), nn.ReLU())
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, drop=None):
         x = x.float()
         mean = x.mean(-1, keepdim=True)
         var = x.var(-1, unbiased=False, keepdim=True)
         ln = self[0]
         x = (x - mean) * torch.rsqrt(var + LN_EPS) * ln.weight + ln.bias
-        return torch.relu(dense(x, self[2], self.dtype))
+        return torch.relu(dense(apply_dropout(drop, x), self[2], self.dtype))
 
 
 class DepthwiseSeparableConv(nn.Module):

@@ -14,8 +14,11 @@ through the plain versions (on the CPU), so ``forward(train=True)`` is the
 training forward: dropout at every reference site (``drop``, a
 ``layers.Dropout``) and the GT-anchored proposals.
 
-Void vectors and the noun mask are not ported yet and raise
-``NotImplementedError`` here.
+Noun masks (the batch's ``qa_noun_masks``) and void vectors
+(``non_visual > 0``, the vid site) are not inputs of the fused attention
+kernel, in this package as in the JAX one: an attention site that gets
+either runs the unfused ``structured_attention`` and ``c2q_down_projection``
+instead (``fused_attention`` says which sites do).
 """
 from __future__ import annotations
 
@@ -26,7 +29,10 @@ import torch
 import torch.nn as nn
 
 from tvqaplus_tpu_torch.models import spans
-from tvqaplus_tpu_torch.models.attention import l2_normalize
+from tvqaplus_tpu_torch.models.attention import (
+    l2_normalize,
+    structured_attention,
+)
 from tvqaplus_tpu_torch.models.layers import (
     ConvLinear,
     DownProjection,
@@ -90,8 +96,6 @@ class STAGE(nn.Module):
         super().__init__()
         c = cfg
         dt = c.dtype
-        if c.non_visual > 0:
-            raise NotImplementedError("void vectors (non_visual > 0)")
         if not (c.sub_flag or c.vfeat_flag):
             raise NotImplementedError("need at least one of sub/vfeat streams")
         self.cfg = cfg
@@ -129,12 +133,20 @@ class STAGE(nn.Module):
             for _ in range(c.t_iter + 1))
         self.classifier = LinearWrapper(
             2 * c.hsz if c.add_local else c.hsz, 1, False, c.dropout, dt)
+        if c.non_visual > 0:
+            # learned "no visual evidence" slots appended to the regions
+            # (reference context_query_attention.py:51-79), float32
+            self.non_visual_vectors = nn.Parameter(
+                torch.empty(c.non_visual, c.hsz))
+        else:
+            self.non_visual_vectors = None
         self._zero_masks = {}
 
     @torch.no_grad()
     def reset_parameters(self, generator):
         """Weights drawn from ``generator``: LeCun-normal for every linear
-        and conv weight (flax's default), zero biases, unit LayerNorms."""
+        and conv weight (flax's default), zero biases, unit LayerNorms, and
+        normal(0.02) void vectors (JAX stage.py:162-167)."""
         for mod in self.modules():
             if isinstance(mod, (nn.Linear, nn.Conv1d)):
                 w = mod.weight
@@ -144,6 +156,8 @@ class STAGE(nn.Module):
             elif isinstance(mod, LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
+        if self.non_visual_vectors is not None:
+            self.non_visual_vectors.normal_(0.0, 0.02, generator=generator)
         return self
 
     # ------------------------------------------------------------------
@@ -214,17 +228,34 @@ class STAGE(nn.Module):
                                          < lens[:, None]).float().to(device)
         return self._zero_masks[key]
 
+    def fused_attention(self, site, batch):
+        """Whether the attention site ``site`` ("sub" or "vid") runs the
+        fused kernel on ``batch`` (the port's form of JAX's ``kernel_ok``,
+        stage.py:248-251): not when the batch carries ``qa_noun_masks``
+        (both sites), nor at the vid site with void vectors.  Those inputs
+        take the unfused route, the JAX package's own (stage.py:281-303)."""
+        return batch.get("qa_noun_masks") is None and not (
+            site == "vid" and self.non_visual_vectors is not None)
+
     def qa_ctx_attention(self, qa_embed, ctx_embed, qa_mask, ctx_mask,
-                         need_raw, drop=None, targets=None):
-        """Structured attention + [qa; att; qa*att] down-projection, fused
-        (reference stage.py:365-387; JAX kernel path stage.py:250-279).
-        qa_embed (B, A, Lqa, D), ctx_embed (B, Li, Lc, D); masks
-        (B, A, Lqa) / (B, Li, Lc).  ``need_raw``: True (every answer),
-        "target" (the ``targets`` answer only) or False.  In training the
-        similarity dropout acts on the normalised inputs here and the
-        projection dropout inside the kernel.  Returns mixed
-        (B, A, Li, Lqa, D), its mask (B, A, Li, Lqa) and the raw scores (or
-        None)."""
+                         need_raw, drop=None, targets=None, fused=True,
+                         void=None, noun_mask=None):
+        """Structured attention + [qa; att; qa*att] down-projection
+        (reference stage.py:365-387): fused (JAX kernel path
+        stage.py:250-279) when ``fused``, else through
+        ``structured_attention`` with the ``void`` vectors and the
+        ``noun_mask`` (JAX stage.py:281-303).  qa_embed (B, A, Lqa, D),
+        ctx_embed (B, Li, Lc, D); masks (B, A, Lqa) / (B, Li, Lc).
+        ``need_raw``: True (every answer), "target" (the ``targets`` answer
+        only) or False.  In training the similarity dropout acts on the
+        normalised inputs here and the projection dropout inside the kernel
+        (or in ``c2q_down_projection``).  Returns mixed (B, A, Li, Lqa, D),
+        its mask (B, A, Li, Lqa), the raw scores (or None) and the
+        normalised scores (the unfused route only, else None)."""
+        if not fused:
+            return self._unfused_attention(qa_embed, ctx_embed, qa_mask,
+                                           ctx_mask, need_raw, drop, targets,
+                                           void, noun_mask)
         dp = self.c2q_down_projection
         raw_mode = {True: "full", False: "none", "target": "target"}[need_raw]
         cn = apply_dropout(drop, l2_normalize(qa_embed))
@@ -237,7 +268,29 @@ class STAGE(nn.Module):
         mixed, raw = out if raw_mode != "none" else (out, None)
         any_region = (ctx_mask.sum(-1) > 0).float()              # (B, Li)
         mixed_mask = qa_mask[:, :, None, :] * any_region[:, None, :, None]
-        return mixed, mixed_mask, raw
+        return mixed, mixed_mask, raw, None
+
+    def _unfused_attention(self, qa_embed, ctx_embed, qa_mask, ctx_mask,
+                           need_raw, drop, targets, void, noun_mask):
+        """The JAX package's unfused branch (stage.py:281-303).  In bf16
+        the concat promotes to float32 as ``jnp.concatenate`` does (the
+        attended sum is float32); ``c2q_down_projection`` casts back."""
+        u_a, raw, s_mask, s_norm = structured_attention(
+            qa_embed[:, :, None], ctx_embed[:, None], qa_mask[:, :, None],
+            ctx_mask[:, None], self.cfg.scale, drop, noun_mask, void,
+            self.cfg.add_non_visual)
+        qa_b = qa_embed[:, :, None].expand(-1, -1, ctx_embed.shape[1], -1, -1)
+        dt = torch.promote_types(qa_b.dtype, u_a.dtype)
+        qa_b, u_a = qa_b.to(dt), u_a.to(dt)
+        mixed = self.c2q_down_projection(
+            torch.cat([qa_b, u_a, qa_b * u_a], dim=-1), drop)
+        mixed_mask = (s_mask.sum(-1) != 0).float()
+        if need_raw == "target":
+            raw = raw[torch.arange(raw.shape[0], device=raw.device),
+                      targets.long()]
+        elif not need_raw:
+            raw = None
+        return mixed, mixed_mask, raw, s_norm
 
     def forward(self, batch, train=False, need_sub_raw=True,
                 need_vid_raw=True, drop=None):
@@ -249,14 +302,14 @@ class STAGE(nn.Module):
         Returns answer_scores ((B, P, A) in training with add_local, else
         (B, A)), proposal_weights ((B, P) / (B, 1)), t_scores
         (B, A, Li, 2) and, as asked, sub_raw_s / vid_raw_s
-        (B, A, Li, Lqa, Lc)."""
+        (B, A, Li, Lqa, Lc), with sub_normalized_s / vid_normalized_s
+        beside them from a site that ran unfused (``fused_attention``)."""
         if train and drop is None:
             raise ValueError("a training forward needs drop (layers.Dropout)")
         if not train:
             drop = None
-        if batch.get("qa_noun_masks") is not None:
-            raise NotImplementedError("noun-mask attention")
         c = self.cfg
+        noun_mask = batch.get("qa_noun_masks")
         out = {}
         # all three streams through one input_encoder call (JAX
         # stage.py:342-367); without sub_dedup batches the flag keeps the
@@ -282,24 +335,31 @@ class STAGE(nn.Module):
         if c.sub_flag:
             if not merged:
                 sub_embed = self._sub_encode(batch, drop)
-            mixed, mask, raw = self.qa_ctx_attention(
+            mixed, mask, raw, norm = self.qa_ctx_attention(
                 a_embed, sub_embed, a_mask, batch["sub_mask"], need_sub_raw,
-                drop)
+                drop, fused=self.fused_attention("sub", batch),
+                noun_mask=noun_mask)
             attended.append((mixed, mask))
             if need_sub_raw:
                 out["sub_raw_s"] = raw
+                if norm is not None:
+                    out["sub_normalized_s"] = norm
         if c.vfeat_flag:
             if not merged:
                 vid_embed = self.base_encoder(l2_normalize(batch["vid"]),
                                               self.vid_fc, drop)  # :256
-            mixed, mask, raw = self.qa_ctx_attention(
+            mixed, mask, raw, norm = self.qa_ctx_attention(
                 a_embed, vid_embed, a_mask, batch["vid_mask"], need_vid_raw,
-                drop, batch.get("target"))
+                drop, batch.get("target"),
+                fused=self.fused_attention("vid", batch),
+                void=self.non_visual_vectors, noun_mask=noun_mask)
             attended.append((mixed, mask))
             if need_vid_raw == "target":
                 out["vid_raw_target_s"] = raw
             elif need_vid_raw:
                 out["vid_raw_s"] = raw
+                if norm is not None:
+                    out["vid_normalized_s"] = norm
         if len(attended) == 2:
             statement = self.concat_fc(attended[0][0], attended[1][0], drop)
             statement_mask = attended[1][1]
