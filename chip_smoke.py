@@ -103,6 +103,26 @@ kernel, each in the phase of its counterpart:
 9m. merged training - phase 9 with the flag, in turns with the separate
              path.
 
+The JAX package's checkpoints, attention heads and run bookkeeping:
+9j. jax_checkpoint - the headline weights after two train steps of the
+             port's trainer, written in the JAX trainer's flax layout
+             (``flax_checkpoint_tree``, ``flax_msgpack.dumps``): served as a
+             run directory's ``best_valid.ckpt``, the predictions of the
+             same weights served from ``best_valid.pth`` bit for bit;
+             resumed as ``last.ckpt`` for two steps, the losses and
+             parameters of the torch checkpoint's resume (deterministic
+             algorithms on); a file of neither format refused by name.
+9h. heads  - the separate and merged headline configs with 8 attention
+             heads in both encoders beside the same configs with none:
+             the encoder kernels bypassed (JAX's predicate), the attention
+             and tri-bridge kernels launched, the serve step within
+             FWD_TOL of the CPU, replays equal to eager steps; each
+             config's replayed serve and train busy ms, idle share and
+             launches per step.
+9b. bookkeeping - the training entry point with ``--profile_dir``: the
+             trace names the hand-written kernels; ``code.zip`` holds the
+             package.
+
 Then the ``kernels`` summary line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line.
 """
@@ -603,6 +623,14 @@ def headline_batch(cfg, dev):
     return {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
 
 
+def headline_config(**kw):
+    """The headline serving config (synthetic data, 32 examples, batch 16;
+    compute_dtype "auto": bf16 on the card) with ``kw`` set."""
+    from tvqaplus_tpu_torch.config import Config
+    return Config(synthetic_data=True, add_local=True, bsz=B, test_bsz=B,
+                  synthetic_n_valid=32, seed=SEED, **kw)
+
+
 class PlainEncoderCalls:
     """Counts the plain k=7 encoder calls: only the plain chain of
     ``EncoderBlock`` adds the position table through its module."""
@@ -622,15 +650,20 @@ class PlainEncoderCalls:
         self.cls.forward = self.real
 
 
-def run_inference(cfg, sd, run_dir, must_launch, **opt):
+def run_inference(cfg, sd, run_dir, must_launch, name="best_valid.pth",
+                  **opt):
     """Write ``run_dir`` (opt.json from ``cfg`` with ``opt`` set, the
-    weights), run the inference entry point on the card and check its
-    predictions.  Returns (predictions, launches, plain k=7 encoder calls,
-    wall seconds)."""
+    weights ``sd`` as ``name``: a state_dict, or a file's bytes), run the
+    inference entry point on the card and check its predictions.  Returns
+    (predictions, launches, plain k=7 encoder calls, wall seconds)."""
     from tvqaplus_tpu_torch.inference import main_inference
     os.makedirs(run_dir)
     dataclasses.replace(cfg, **opt).save(os.path.join(run_dir, "opt.json"))
-    torch.save(sd, os.path.join(run_dir, "best_valid.pth"))
+    if isinstance(sd, bytes):
+        with open(os.path.join(run_dir, name), "wb") as f:
+            f.write(sd)
+    else:
+        torch.save(sd, os.path.join(run_dir, name))
     reset_counters()
     t0 = time.perf_counter()
     with PlainEncoderCalls() as plain_calls:
@@ -756,10 +789,8 @@ def n_boxes(pred):
 
 
 def phase_main(dev, workdir):
-    from tvqaplus_tpu_torch.config import Config
     from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
-    cfg = Config(synthetic_data=True, add_local=True, bsz=B, test_bsz=B,
-                 synthetic_n_valid=32, seed=SEED)    # compute_dtype "auto"
+    cfg = headline_config()                    # compute_dtype "auto"
     model = STAGE(ModelConfig.from_config(
         dataclasses.replace(cfg).finalize("cpu"))).reset_parameters(
         torch.Generator().manual_seed(SEED))
@@ -1633,6 +1664,283 @@ def phase_training(dev, workdir):
               "top_kernels": top})
 
 
+# ------------------------------------- JAX checkpoints, heads, bookkeeping
+HEADS = 8            # attention heads of the heads phase: divides hsz 128
+
+
+def resumed_steps(cfg, path, batch, n):
+    """A Trainer resumed from ``path`` on the card and ``n`` eager steps on
+    ``batch``: (losses, its parameters, step, launches)."""
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    trainer = Trainer(dataclasses.replace(cfg, resume=path), DEVICE)
+    reset_counters()
+    losses = [float(trainer.train_step(batch)["loss"]) for _ in range(n)]
+    launches = read_counters(SEPARATE_TRAIN)
+    return losses, [p.detach() for p in trainer.params], trainer.step, \
+        launches
+
+
+def phase_jax_checkpoint(dev, workdir):
+    """The JAX package's checkpoint format on the card.  The seeded
+    headline weights take two train steps of the port's trainer (bf16,
+    dropout 0.1); that state, moments included, goes through
+    ``flax_checkpoint_tree`` into the JAX ``save_checkpoint`` layout and
+    ``flax_msgpack.dumps`` writes it.  Served as a run directory's
+    ``best_valid.ckpt`` (no .pth; the CLI picks it by content), the
+    predictions must equal, bit for bit, those of the same weights served
+    from ``best_valid.pth``.  Resumed as ``last.ckpt`` for two steps, the
+    losses and parameters must equal those of a trainer resumed from the
+    torch checkpoint of the same state (deterministic algorithms on).  The
+    attention, tri-bridge and encoder kernels must launch in both, and a
+    file of neither format must raise an error that names the formats."""
+    from tvqaplus_tpu_torch.inference import load_weights
+    from tvqaplus_tpu_torch.interop import flax_msgpack
+    from tvqaplus_tpu_torch.interop.weights import flax_checkpoint_tree
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    t0 = time.perf_counter()
+    root = os.path.join(workdir, "jax_checkpoint")
+    cfg = train_config(root, bsz=B).finalize(dev)
+    trainer = Trainer(cfg, dev)
+    batch = train_batch(cfg, dev, B)
+    for _ in range(2):
+        trainer.train_step(batch)
+    extra = {"best_acc": 0.5, "epoch": 0, "lr": trainer.scheduler.lr}
+    data = flax_msgpack.dumps(flax_checkpoint_tree(
+        trainer.model, trainer.optimizer, trainer.step, extra, cfg))
+    trainer.best_acc = extra["best_acc"]
+    torch_ckpt = os.path.join(root, "torch_last.ckpt")
+    trainer.save(torch_ckpt)
+    sd = {k: v.detach().cpu() for k, v in trainer.model.state_dict().items()}
+    del trainer
+    flax_pred, serve_launches, _, _ = run_inference(
+        headline_config(), data, os.path.join(root, "flax_run"),
+        SEPARATE_FWD, name="best_valid.ckpt")
+    pth_pred = run_inference(headline_config(), sd,
+                             os.path.join(root, "pth_run"), SEPARATE_FWD)[0]
+    if flax_pred != pth_pred:
+        raise AssertionError("predictions served from best_valid.ckpt "
+                             "differ from those of best_valid.pth")
+    flax_ckpt = os.path.join(root, "flax_run", "last.ckpt")
+    with open(flax_ckpt, "wb") as f:
+        f.write(data)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        got = resumed_steps(cfg, flax_ckpt, batch, 2)
+        want = resumed_steps(cfg, torch_ckpt, batch, 2)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    param_err = max(float((p - q).abs().max())
+                    for p, q in zip(got[1], want[1]))
+    if got[0] != want[0] or param_err != 0.0 or (got[2], want[2]) != (4, 4):
+        raise AssertionError(f"resumed from the flax file: losses {got[0]}, "
+                             f"step {got[2]}; from the torch checkpoint: "
+                             f"{want[0]}, step {want[2]}; parameters differ "
+                             f"by {param_err}")
+    junk = os.path.join(root, "notes.txt")
+    with open(junk, "w") as f:
+        f.write("not a checkpoint\n")
+    try:
+        load_weights(junk, cfg)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("a text file was read as a checkpoint")
+    if "flax msgpack checkpoint" not in refused:
+        raise AssertionError(f"the error names no format: {refused}")
+    emit({"phase": "jax_checkpoint", "ok": True, "batch": B, "frames": LI,
+          "checkpoint_bytes": len(data), "predictions_equal": True,
+          "questions": len(flax_pred["ts_answer"]),
+          "grounding_records": sum(len(r) for ex in flax_pred["raw_bbox"]
+                                   for r in ex.values()),
+          "serve_launches": serve_launches, "resume_launches": got[3],
+          "resumed_losses": got[0], "torch_resumed_losses": want[0],
+          "resumed_step": got[2], "param_max_abs_err": param_err,
+          "unknown_format_error": refused[:160],
+          "wall_s": time.perf_counter() - t0})
+
+
+HEAD_CASES = (("heads0", False, 0), ("heads0_merged", True, 0),
+              ("heads", False, HEADS), ("heads_merged", True, HEADS))
+
+
+def replay_vs_eager_train(cfg, dev, batch):
+    """A train step eager and as a replayed dispatch from the same seed,
+    deterministic algorithms on: the same loss, grad_norm and parameters
+    (capture, then replay); returns the graph Trainer and the checks."""
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager, graph = Trainer(cfg, dev), Trainer(cfg, dev)
+        checks = {}
+        for tag in ("capture", "replay"):
+            ms = eager._packed("train", [eager.train_step(batch)])
+            mg = graph.dispatch_train(batch)
+            torch.cuda.synchronize()
+            got = {k: float(mg[k]) for k in ("loss", "grad_norm")}
+            want = {k: float(ms[graph._names["train"].index(k)])
+                    for k in ("loss", "grad_norm")}
+            err = max(float((p.detach() - q.detach()).abs().max())
+                      for p, q in zip(eager.params, graph.params))
+            checks[tag] = {"graph": got, "eager": want,
+                           "param_max_abs_err": err}
+            if got != want or err > DISPATCH_TOL or \
+                    not all(map(math.isfinite, got.values())):
+                raise AssertionError(f"train {tag}: {checks[tag]}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return graph, checks
+
+
+def phase_heads(dev, workdir):
+    """The separate and the merged headline configs with ``HEADS``
+    attention heads in the input and the cls encoder, beside the same
+    configs with none, in one call.  JAX's predicate routes every encoder
+    with heads to the plain chain, and heads in the input encoder keep the
+    merged config's streams separate: the encoder kernels (reduce and full
+    output) must not launch, the attention and tri-bridge kernels must.
+    With heads: the serve step against the CPU forward (``FWD_TOL``), a
+    replayed serve dispatch equal to the eager step, a replayed train
+    dispatch equal to the eager step.  For all four: the replayed serve
+    and train steps' host ms (in turns), device busy ms, idle share and
+    launches per step."""
+    from tvqaplus_tpu_torch.infer.predict import InferenceRunner
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    t0 = time.perf_counter()
+    out, serve, train, cpu = {}, {}, {}, None
+    for name, merged, heads in HEAD_CASES:
+        extra = dict(merge_input_streams=merged, cls_encoder_n_heads=heads,
+                     input_encoder_n_heads=heads)
+        cfg = headline_config(**extra).finalize(dev)
+        model_cfg = ModelConfig.from_config(cfg)
+        model = STAGE(model_cfg).reset_parameters(
+            torch.Generator().manual_seed(SEED))
+        sd = model.state_dict()
+        rec = {"compute_dtype": cfg.compute_dtype}
+        if heads:
+            if cpu is None:      # one CPU reference: merging falls back
+                cpu = cpu_forwards(headline_config().finalize("cpu"), sd,
+                                   dataclasses.replace(
+                                       model_cfg, merge_input_streams=False))
+            rec["headline_vs_cpu"] = headline_vs_cpu(cpu, sd, dev, merged)
+        batch = headline_batch(cfg, dev)
+        runner = InferenceRunner(cfg, model.to(dev), dev)
+        must = SEPARATE_FWD + ("encoder_block",) * (merged and not heads)
+        if heads:
+            must = ("qa_ctx_attention", "tri_bridge")
+        reset_counters()
+        runner.step(batch, True, LI)
+        torch.cuda.synchronize()
+        rec["serve_launches"] = read_counters(must)
+        runner.dispatch_infer(batch, True, LI)        # warm-up and capture
+        if heads:
+            rec["serve_replay_equal_to_eager"] = replay_equals_eager(runner,
+                                                                     batch)
+        tcfg = train_config(workdir, bsz=B, **extra).finalize(dev)
+        tbatch = train_batch(tcfg, dev, B)
+        if heads:
+            reset_counters()
+            trainer, rec["train_replay_vs_eager"] = replay_vs_eager_train(
+                tcfg, dev, tbatch)
+            rec["train_launches"] = read_counters(
+                ("qa_ctx_attention", "qa_ctx_attention_bwd", "tri_bridge",
+                 "tri_bridge_bwd"))
+            used = {k: v for k, v in {**rec["serve_launches"],
+                                      **rec["train_launches"]}.items()
+                    if k.startswith("encoder") and v}
+            if used:
+                raise AssertionError(f"{name}: the encoder kernel launched "
+                                     f"at a site with heads: {used}")
+        else:
+            from tvqaplus_tpu_torch.train.loop import Trainer
+            trainer = Trainer(tcfg, dev)
+            trainer.dispatch_train(tbatch)            # warm-up and capture
+        serve[name] = lambda r=runner, b=batch: r.dispatch_infer(b, True, LI)
+        train[name] = lambda t=trainer, b=tbatch: t.dispatch_train(b)
+        out[name] = rec
+    heads_of = {name: heads for name, _, heads in HEAD_CASES}
+    for kind, steps, n in (("serve", serve, SERVING_STEPS),
+                           ("train", train, TRAIN_STEPS)):
+        clock = timed_steps(steps, n)
+        for name, step in steps.items():
+            busy_ms, launches, top, names = profile_steps(step,
+                                                          PROFILE_STEPS)
+            enc = sorted({nm.replace("(anonymous namespace)::", "")
+                          .replace("void ", "").split("(")[0]
+                          for nm in names
+                          if "encoder_fwd" in nm or "encoder_bwd" in nm})
+            if heads_of[name] and enc:
+                raise AssertionError(f"{name} {kind}: encoder kernels in "
+                                     f"the trace: {enc}")
+            if not any("tri_bridge_fwd_tc_kernel" in nm for nm in names):
+                raise AssertionError(f"{name} {kind}: no tri-bridge "
+                                     f"forward in the trace")
+            step_ms, turns = clock[name]
+            out[name].update({
+                f"{kind}_step_ms": step_ms, f"{kind}_step_ms_turns": turns,
+                f"{kind}_busy_ms": busy_ms,
+                f"{kind}_idle_share": None if busy_ms is None
+                else 1 - busy_ms / step_ms,
+                f"{kind}_launches_per_step": launches,
+                f"{kind}_encoder_kernels": enc,
+                f"{kind}_top_kernels": top[:6]})
+    for name, merged, heads in HEAD_CASES:
+        emit({"phase": "heads", "case": name, "ok": True, "batch": B,
+              "frames": LI, "merge_input_streams": merged,
+              "cls_encoder_n_heads": heads, "input_encoder_n_heads": heads,
+              **out[name]})
+    emit({"phase": "heads_done", "ok": True,
+          "wall_s": time.perf_counter() - t0})
+
+
+def phase_bookkeeping(dev, workdir):
+    """The training entry point on the card with ``--profile_dir`` over 13
+    or more headline batches (208 examples in their frame buckets; one
+    epoch, validation at batch 0): the trace of
+    dispatches 8 to 12 must exist and name the hand-written kernels of the
+    train step, and the run directory must hold opt.json and ``code.zip``
+    with the package's sources."""
+    import zipfile
+
+    from tvqaplus_tpu_torch.main import main as train_main
+    t0 = time.perf_counter()
+    prof_dir = os.path.join(workdir, "bookkeeping", "profile")
+    argv = ["--synthetic_data", "--add_local", "--use_sup_att",
+            "--bsz", str(B), "--test_bsz", str(B),
+            "--synthetic_n_train", str(13 * B), "--synthetic_n_valid",
+            str(B), "--n_epoch", "1", "--log_freq", "100000",
+            "--seed", str(SEED), "--profile_dir", prof_dir,
+            "--results_dir_base",
+            os.path.join(workdir, "bookkeeping", "results"),
+            "--device", DEVICE]
+    run_dir, trainer = train_main(argv)
+    torch.cuda.synchronize()
+    if trainer.step < 13 or not trainer.trace_path:
+        raise AssertionError(f"{trainer.step} steps, trace "
+                             f"{trainer.trace_path}")
+    with open(trainer.trace_path) as f:
+        trace = f.read()
+    want = ("encoder_bwd_tc_kernel", "encoder_fwd_tc_kernel",
+            "tri_bridge_fwd_tc_kernel", "qa_ctx")
+    missing = [k for k in want if k not in trace]
+    if missing:
+        raise AssertionError(f"the profile_dir trace names no {missing}")
+    with zipfile.ZipFile(os.path.join(run_dir, "code.zip")) as z:
+        names = z.namelist()
+    if "code/models/stage.py" not in names or \
+            not os.path.exists(os.path.join(run_dir, "opt.json")):
+        raise AssertionError(f"run directory: {os.listdir(run_dir)}, "
+                             f"code.zip {len(names)} files")
+    emit({"phase": "bookkeeping", "ok": True, "batch": B, "frames": LI,
+          "steps": trainer.step, "trace": os.path.basename(
+              trainer.trace_path), "trace_mb": len(trace) / 1e6,
+          "kernels_in_trace": list(want),
+          "code_zip_files": len(names),
+          "tensorboard_mirror": trainer.logger.tb is not None,
+          "wall_s": time.perf_counter() - t0})
+
+
 # ------------------------------------------- noun masks, void vectors
 NOUN_VOID = {"noun_masks": {}, "void": {"non_visual": 2,
                                         "add_non_visual": True}}
@@ -1945,6 +2253,9 @@ def main():
         phase_train_vs_cpu(dev, workdir)
         phase_dispatch(dev, workdir)
         phase_training(dev, workdir)
+        phase_jax_checkpoint(dev, workdir)
+        phase_heads(dev, workdir)
+        phase_bookkeeping(dev, workdir)
         phase_noun_void(dev, workdir, cfg)
         phase_pipeline(dev, workdir)
     # each row's launches: the count of the main path that runs its kernel

@@ -1200,3 +1200,101 @@ def test_dedup_serve_dispatch_equals_the_plain_one(cuda):
             for k in want:
                 assert torch.equal(got[k], want[k]), k
     assert len(runner.graphs.graphs) >= 2
+
+
+# ------------------------------------------- JAX checkpoints and heads
+def small_train_config(cuda, results_dir, **kw):
+    from tvqaplus_tpu_torch.config import Config
+    return Config(synthetic_data=True, add_local=True, use_sup_att=True,
+                  bsz=2, test_bsz=2, seed=3, results_dir=str(results_dir),
+                  **kw).finalize(cuda)
+
+
+def launch_counts():
+    return {"qa_ctx_attention": qa_ctx_attention.KERNEL.launches,
+            "qa_ctx_attention_bwd": qa_ctx_attention.BWD_KERNEL.launches,
+            "tri_bridge": tri_bridge.KERNEL.launches,
+            "tri_bridge_bwd": tri_bridge.BWD_KERNEL.launches,
+            "encoder": encoder.KERNEL.launches,
+            "encoder_bwd": encoder.BWD_KERNEL.launches,
+            "encoder_block": encoder.BLOCK_KERNEL.launches}
+
+
+@pytest.mark.cuda
+def test_a_jax_format_checkpoint_serves_and_resumes_as_the_torch_one(
+        cuda, tmp_path, monkeypatch):
+    """A trainer's state after a step (bf16, dropout 0.1), written in the
+    JAX trainer's flax layout: its weights serve the eval step's bits of
+    the torch weights, and two steps resumed from it give the losses and
+    parameters of two steps resumed from the torch checkpoint of the same
+    state (deterministic algorithms on)."""
+    from tvqaplus_tpu_torch.infer.predict import InferenceRunner
+    from tvqaplus_tpu_torch.inference import load_weights
+    from tvqaplus_tpu_torch.interop import flax_msgpack
+    from tvqaplus_tpu_torch.interop.weights import flax_checkpoint_tree
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    cfg = small_train_config(cuda, tmp_path)
+    trainer = Trainer(cfg, cuda)
+    batch = step_batch(cfg, 2, 12, True, cuda)
+    trainer.train_step(batch)
+    extra = {"best_acc": 0.0, "epoch": 0, "lr": trainer.scheduler.lr}
+    flax_path, torch_path = str(tmp_path / "last.ckpt"), \
+        str(tmp_path / "torch.ckpt")
+    with open(flax_path, "wb") as f:
+        f.write(flax_msgpack.dumps(flax_checkpoint_tree(
+            trainer.model, trainer.optimizer, trainer.step, extra, cfg)))
+    trainer.save(torch_path)
+    assert flax_msgpack.sniff(flax_path) == "flax"
+    eval_batch = step_batch(cfg, 2, 12, False, cuda)
+    outs = []
+    for sd in (load_weights(flax_path, cfg), trainer.model.state_dict()):
+        model = STAGE(ModelConfig.from_config(cfg))
+        model.load_state_dict(sd)
+        outs.append(InferenceRunner(cfg, model.to(cuda), cuda).step(
+            eval_batch, True, 12))
+    for k in outs[1]:
+        assert torch.equal(outs[0][k], outs[1][k]), k
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = []
+        for path in (flax_path, torch_path):
+            resumed = Trainer(dataclasses.replace(cfg, resume=path), cuda)
+            losses = [float(resumed.train_step(batch)["loss"])
+                      for _ in range(2)]
+            runs.append((losses, [p.detach() for p in resumed.params],
+                         resumed.step))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (la, pa, sa), (lb, pb, sb) = runs
+    assert la == lb and sa == sb == 3
+    assert all(torch.equal(p, q) for p, q in zip(pa, pb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [0, 8])
+def test_encoders_with_heads_bypass_the_encoder_kernels(cuda, tmp_path,
+                                                        heads):
+    """JAX's predicate on the card: with attention heads in both encoders
+    the serve and the train step launch no encoder kernel (plain chain),
+    the attention and tri-bridge kernels still launch; without heads the
+    cls encoder's kernel does."""
+    from tvqaplus_tpu_torch.infer.predict import InferenceRunner
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    cfg = small_train_config(cuda, tmp_path, cls_encoder_n_heads=heads,
+                             input_encoder_n_heads=heads)
+    trainer = Trainer(cfg, cuda)
+    before = launch_counts()
+    InferenceRunner(cfg, trainer.model, cuda).step(
+        step_batch(cfg, 2, 12, False, cuda), True, 12)
+    loss = float(trainer.train_step(step_batch(cfg, 2, 12, True, cuda))[
+        "loss"])
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in launch_counts().items()}
+    assert loss == loss
+    assert ran["qa_ctx_attention"] == 4 and ran["tri_bridge"] == 2
+    assert ran["qa_ctx_attention_bwd"] == 2 and ran["tri_bridge_bwd"] == 1
+    cls = 0 if heads else 1          # the cls encoder's reduce kernel
+    assert (ran["encoder"], ran["encoder_bwd"]) == (2 * cls, cls)
+    assert ran["encoder_block"] == 0

@@ -10,7 +10,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "tvqaplus_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "tvqaplus_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "tvqaplus_tpu")
 
 torch.set_num_threads(1)
 

@@ -11,7 +11,9 @@ What differs is the device policy: ``finalize(device)`` resolves
   CUDA kernel), False on ``cpu`` (the plain PyTorch versions);
 * ``compute_dtype`` ``"auto"``: bfloat16 on ``cuda``, float32 on ``cpu``.
 
-It never asks a JAX backend, and it writes nothing to disk.
+It never asks a JAX backend.  ``save_run`` writes a run's opt.json and
+the ``code.zip`` snapshot of this package into its results directory (JAX
+config.py:265-281); nothing else here writes to disk.
 """
 from __future__ import annotations
 
@@ -24,7 +26,11 @@ from typing import List, Optional
 
 import torch
 
-from tvqaplus_tpu_torch.utils.io import load_json, save_json_pretty
+from tvqaplus_tpu_torch.utils.io import (
+    load_json,
+    make_zipfile,
+    save_json_pretty,
+)
 
 # Fields that the CLI does not set: derived at finalize(), ``use_pallas``
 # (read from a JAX run's opt.json, never used here) and ``device`` (a
@@ -191,6 +197,18 @@ class Config:
 
     def save(self, path):
         save_json_pretty(dataclasses.asdict(self), path)
+
+    def save_run(self):
+        """opt.json and ``code.zip`` (this package's sources under
+        ``code/``, without results, caches, .pyc and .ipynb files) in
+        ``results_dir``, which it creates."""
+        os.makedirs(self.results_dir, exist_ok=True)
+        self.save(os.path.join(self.results_dir, "opt.json"))
+        code_dir = os.path.dirname(os.path.realpath(__file__))
+        make_zipfile(code_dir, os.path.join(self.results_dir, "code.zip"),
+                     enclosing_dir="code",
+                     exclude_paths=["results", "__pycache__"],
+                     exclude_extensions=[".pyc", ".ipynb"])
 
     def override_from(self, saved_opt_path, keep=("debug",)):
         """TestConfig semantics: every field of the saved run's opt.json

@@ -232,3 +232,15 @@ def _collate_sub_dedup(ex, s, out, b):
                                      out["sub_win_idx"][b, :n],
                                      out["sub_mask"][b, :n])
     return n, n_over
+
+
+def expand_sub_windows(arrays):
+    """The expanded (B, Li, Ls, De) ``sub_bert`` rebuilt on the host from a
+    sub_dedup batch's ``sub_tokens`` and ``sub_win_idx`` (JAX
+    batching.py:316), for consumers of the reference layout.  Exact: padded
+    slots index the zero token."""
+    tok = np.asarray(arrays["sub_tokens"])
+    idx = np.asarray(arrays["sub_win_idx"])
+    b, li, ls = idx.shape
+    flat = tok[np.arange(b)[:, None], idx.reshape(b, -1)]
+    return flat.reshape(b, li, ls, tok.shape[-1])

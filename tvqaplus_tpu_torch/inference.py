@@ -5,13 +5,26 @@ Reloads the run's ``opt.json`` (every field overrides the CLI's, except
 ``debug``; reference TestOptions), loads a checkpoint of the run, runs
 inference and writes ``{mode}_inference_predictions.json`` beside them.
 
-* ``--model_dir``: the run directory, or a name under ``results/``.
+* ``--model_dir``: the run directory, or a name under ``results/``: this
+  package's runs or the JAX package's (its opt.json names the same
+  fields).
 * ``--checkpoint NAME``: the file to serve, relative to the run directory
-  or absolute: a reference-format state_dict (``best_valid.pth``) or the
-  trainer's own ``last.ckpt`` (model and optimizer; only the model is
-  read).  Without it: ``best_valid.pth``, or ``last.ckpt`` with a warning
-  when the run never wrote the best one (it is written only when the
+  or absolute.  Without it: ``best_valid.pth`` (this package's best), else
+  ``best_valid.ckpt`` (the JAX package's), else ``last.ckpt`` with a
+  warning when the run never wrote a best one (it is written only when the
   validation accuracy improves).
+* Any of these files is read by its content, never by its name
+  (``interop/flax_msgpack.py`` ``sniff``): a torch file is a
+  reference-format state_dict or this package's trainer checkpoint (model
+  and optimizer; only the model is read), a flax msgpack file is the JAX
+  package's ``save_checkpoint`` or ``save_params`` (the parameters go
+  through ``interop/weights.py``).  Anything else raises an error that
+  names the formats read.
+* ``--torch_checkpoint PATH``: the JAX CLI's flag for serving a
+  reference-format ``best_valid.pth``; here it serves the file at PATH
+  (relative to the working directory, as in JAX) through the same reader.
+  ``--no_strict`` is accepted, as the JAX CLI declares it, and changes
+  nothing: loading is always strict.
 * ``--video_dedup``, ``--video_buckets``, ``--sub_token_buckets``: the
   serving batch layouts (data/pipeline.py).  They change what each batch
   ships to the card, not the predictions, so when the command line sets
@@ -28,14 +41,19 @@ from __future__ import annotations
 
 import os
 
+import torch
+
 from tvqaplus_tpu_torch import resolve_device
 from tvqaplus_tpu_torch.config import build_parser, parse_args
 from tvqaplus_tpu_torch.data.synthetic import SyntheticTVQADataset
 from tvqaplus_tpu_torch.data.tvqa import TVQAPlusDataset
 from tvqaplus_tpu_torch.infer.predict import InferenceRunner
-from tvqaplus_tpu_torch.interop.weights import load_reference_checkpoint
+from tvqaplus_tpu_torch.interop import flax_msgpack
+from tvqaplus_tpu_torch.interop.weights import (
+    reference_state_dict,
+    state_dict_from_flax_checkpoint,
+)
 from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
-from tvqaplus_tpu_torch.train.state import load_model_state
 from tvqaplus_tpu_torch.utils.io import save_json
 
 # the batch-layout fields a command line may set over the run's opt.json
@@ -49,6 +67,14 @@ EXTRA_FLAGS = (
                           help="serve this checkpoint (relative to the run "
                                "directory, e.g. last.ckpt) instead of "
                                "best_valid.pth")),
+    ("--torch_checkpoint", dict(type=str, default="",
+                                help="serve this file (e.g. a reference "
+                                     "best_valid.pth; relative to the "
+                                     "working directory) instead of the "
+                                     "run's checkpoint")),
+    ("--no_strict", dict(action="store_true",
+                         help="accepted for the JAX CLI's sake; changes "
+                              "nothing (loading is always strict)")),
     ("--device", dict(type=str, default="cuda", choices=("cuda", "cpu"))),
 )
 
@@ -62,24 +88,34 @@ def run_directory(model_dir):
 
 def checkpoint_path(run_dir, name=""):
     """The checkpoint to serve: ``name`` (relative to ``run_dir`` or
-    absolute), else ``best_valid.pth``, else ``last.ckpt`` with a warning."""
+    absolute), else ``best_valid.pth``, else ``best_valid.ckpt`` (a JAX
+    run's best, JAX inference.py:64), else ``last.ckpt`` with a warning (JAX
+    inference.py:65-72)."""
     if name:
         return name if os.path.isabs(name) else os.path.join(run_dir, name)
-    best = os.path.join(run_dir, "best_valid.pth")
-    last = os.path.join(run_dir, "last.ckpt")
-    if not os.path.exists(best) and os.path.exists(last):
-        print(f"warning: {best} missing, using {last}")
-        return last
-    return best
+    best, jax_best, last = (os.path.join(run_dir, f) for f in (
+        "best_valid.pth", "best_valid.ckpt", "last.ckpt"))
+    if os.path.exists(best) or not (os.path.exists(jax_best)
+                                    or os.path.exists(last)):
+        return best
+    if os.path.exists(jax_best):
+        return jax_best
+    print(f"warning: {best} missing, using {last} (no {jax_best} either)")
+    return last
 
 
-def load_weights(path):
-    """The model's state_dict from a ``.ckpt`` of the trainer
-    (``train/state.py`` ``save_checkpoint``) or a reference-format state
-    dict."""
-    if path.endswith(".ckpt"):
-        return load_model_state(path)
-    return load_reference_checkpoint(path)
+def load_weights(path, cfg):
+    """The model's state_dict (on the CPU) from a checkpoint file of any
+    format this package reads, picked by the file's first bytes: a torch
+    file holds this package's trainer checkpoint (``train/state.py``
+    ``save_checkpoint``) or a reference-format state_dict, a flax file the
+    JAX package's ``save_checkpoint`` or ``save_params``."""
+    if flax_msgpack.sniff(path) == "flax":
+        return state_dict_from_flax_checkpoint(path, cfg)
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(payload, dict) and {"model", "optimizer"} <= set(payload):
+        return payload["model"]
+    return reference_state_dict(payload)
 
 
 def main_inference(argv=None):
@@ -95,9 +131,9 @@ def main_inference(argv=None):
     cfg.resolve_device_policy(device)
 
     model = STAGE(ModelConfig.from_config(cfg))
-    model.load_state_dict(
-        load_weights(checkpoint_path(run_dir, extras.checkpoint)),
-        strict=True)
+    path = extras.torch_checkpoint or checkpoint_path(run_dir,
+                                                      extras.checkpoint)
+    model.load_state_dict(load_weights(path, cfg), strict=True)
 
     if cfg.synthetic_data or not cfg.train_path:
         n = 32 if cfg.debug else cfg.synthetic_n_valid

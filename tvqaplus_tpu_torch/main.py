@@ -3,8 +3,9 @@
 Mirrors the JAX package's ``main.py`` (reference main.py:186-251): parse
 the config, seed, build the datasets, model, optimizer and plateau
 scheduler, and run epochs with validation at every ``log_freq`` crossing,
-best-model saving and early stop.  Writes ``opt.json`` and, at each new
-best validation accuracy, ``best_valid.pth`` (a reference-format
+best-model saving and early stop.  Writes ``opt.json``, the ``code.zip``
+snapshot of the package and, at each new best validation accuracy,
+``best_valid.pth`` (a reference-format
 state_dict) into the run directory, so ``python -m
 tvqaplus_tpu_torch.inference --model_dir <run>`` reads it unchanged.
 
@@ -17,8 +18,6 @@ debug``): one epoch, a break after batch 5 (on synthetic data 64 train /
 32 valid examples).
 """
 from __future__ import annotations
-
-import os
 
 import numpy as np
 import torch
@@ -47,8 +46,7 @@ def build_datasets(cfg):
 def main(argv=None):
     cfg, extras = parse_args(argv, extra_fields=EXTRA_FLAGS)
     device = resolve_device(extras.device)
-    os.makedirs(cfg.results_dir, exist_ok=True)
-    cfg.save(os.path.join(cfg.results_dir, "opt.json"))
+    cfg.save_run()
     np.random.seed(cfg.seed)
     torch.manual_seed(cfg.seed)
 

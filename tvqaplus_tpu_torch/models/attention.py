@@ -8,8 +8,11 @@ over the region axis with temperature ``scale``.  STAGE runs it fused with
 the down-projection (ops/qa_ctx_attention.py) unless an attention site
 takes void vectors or the batch carries noun masks, which the fused kernel
 does not take (as in the JAX package); then this unfused form runs.
+``context_query_attention`` is kept for the JAX package's surface only.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -79,3 +82,18 @@ def structured_attention(C, Q, c_mask, q_mask, scale=10.0, drop=None,
         return (att, masked[..., :-num_void], s_mask[..., :-num_void],
                 p[..., :-num_void])
     return promoted_matmul(p, Q), masked, s_mask, p
+
+
+def context_query_attention(C, Q, c_mask, q_mask, drop=None):
+    """Scaled dot-product context-query attention (JAX attention.py:
+    117-130, reference context_query_attention.py:104-142), kept for
+    surface parity: STAGE does not call it.  C (..., Lc, D) attends over
+    Q (..., Lq, D); the masked scores take -1e10 and ``safe_softmax``;
+    ``drop`` acts on C and Q before the scores, the weighted sum reads the
+    undropped Q."""
+    s_mask = c_mask[..., :, None] * q_mask[..., None, :]
+    scores = torch.matmul(apply_dropout(drop, C),
+                          apply_dropout(drop, Q).transpose(-2, -1)) \
+        / math.sqrt(C.shape[-1])
+    return torch.matmul(safe_softmax(scores - 1e10 * (1.0 - s_mask), dim=-1),
+                        Q)

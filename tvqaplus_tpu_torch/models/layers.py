@@ -28,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tvqaplus_tpu_torch.ops.encoder import encoder_block, encoder_reduce
+from tvqaplus_tpu_torch.ops.masking import mask_logits
 from tvqaplus_tpu_torch.ops.mlp_bridge import mlp_bridge
 from tvqaplus_tpu_torch.ops.plain import LN_EPS, depthwise_conv, layer_norm
 from tvqaplus_tpu_torch.ops.tri_bridge import tri_bridge
@@ -271,16 +272,71 @@ class PositionEncoding(nn.Module):
         return x + self.table(x.shape[-2], x.shape[-1], x.device, self.dtype)
 
 
-class EncoderBlock(nn.Module):
-    """QANet-style conv block (reference encoder.py:9-52) at n_conv=2 and no
-    attention heads: PE, 2 x [LN -> dsconv -> residual], final LN.
+class MultiHeadedAttention(nn.Module):
+    """Annotated-Transformer multi-head self-attention (JAX layers.py:
+    142-177, reference self_attention.py:19-71): ``linears`` 0-3 are the
+    q, k, v and output projections, scores scaled by ``1/sqrt(dk)``.  It
+    keeps the reference's quirk of masking *query* rows: ``mask`` (x's
+    leading dims + (L,)) is laid out (N, 1, L, 1), so a padded position's
+    own row gets -1e9 everywhere (uniform weights) and the valid rows are
+    left as they are.  Leading dims are flattened; ``drop`` acts on the
+    attention weights."""
 
-    With ``reduce_mask`` it returns ``max over L of mask_logits(out, m)``
-    through the fused encoder kernel (ops/encoder.py).  Without, the block
-    output: through the kernel's full-output mode when the block was built
-    with ``use_kernel`` (the merged input encoder), else in plain PyTorch
-    (the separate k=7 input-encoder sites, which the JAX package also
-    leaves unfused).
+    def __init__(self, hsz, num_heads, dtype=torch.float32):
+        super().__init__()
+        if hsz % num_heads:
+            raise ValueError(f"{num_heads} heads do not divide {hsz}")
+        self.linears = nn.ModuleList(nn.Linear(hsz, hsz) for _ in range(4))
+        self.num_heads = num_heads
+        self.dtype = dtype
+
+    def forward(self, x, mask=None, drop=None):
+        lead, (l, d) = x.shape[:-2], x.shape[-2:]
+        x = x.reshape(-1, l, d)
+        n, nh = x.shape[0], self.num_heads
+        dk = d // nh
+        q, k, v = (dense(x, lin, self.dtype).reshape(n, l, nh, dk)
+                   .transpose(1, 2) for lin in self.linears[:3])
+        scores = q @ k.transpose(-2, -1) / math.sqrt(dk)
+        if mask is not None:
+            m = mask.reshape(n, 1, l, 1)
+            scores = scores.masked_fill(m == 0, -1e9)
+        attn = apply_dropout(drop, torch.softmax(scores, dim=-1))
+        out = (attn @ v).transpose(1, 2).reshape(n, l, d)
+        return dense(out, self.linears[3], self.dtype).reshape(lead + (l, d))
+
+
+class NormalizeScale(nn.Module):
+    """L2-normalise over axis 1, then scale by a learned per-dim weight
+    (JAX layers.py:513-526, reference model_utils.py:23-34; STAGE does not
+    use it)."""
+
+    def __init__(self, dim, init_norm=20.0):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((dim,), float(init_norm)))
+
+    def forward(self, x):
+        norm = torch.linalg.vector_norm(x, dim=1, keepdim=True)
+        return x / torch.clamp(norm, min=1e-12) * self.weight
+
+
+class EncoderBlock(nn.Module):
+    """QANet-style block (reference encoder.py:9-52): PE, n_conv x [LN ->
+    (dropout on even convs) -> dsconv -> residual], with ``num_heads`` the
+    attention branch [LN -> ``MultiHeadedAttention(mask)`` -> residual],
+    then the final LN.
+
+    The encoder kernel (ops/encoder.py) runs the block where the JAX
+    package's predicate runs its Pallas kernel (layers.py:259-263): only
+    at n_conv = 2 without heads, on an input of 3 dims or more (``fused``).
+    There, with ``reduce_mask`` it returns ``max over L of mask_logits(out,
+    m)``, and without it the block output through the kernel's full-output
+    mode when the block was built with ``use_kernel`` (the merged input
+    encoder).  Every other call runs the plain chain below, the JAX
+    package's unfused route: the separate k=7 input-encoder sites, which
+    the JAX package leaves unfused too, and any block with heads or another
+    conv depth, where ``reduce_mask`` is applied after it as
+    ``max(mask_logits(out, m), -2)``.
 
     ``zero_mask`` (broadcastable to x.shape[:-1]) re-zeroes each conv's
     input where it is 0, so a tap that reads past a sequence's true length
@@ -292,19 +348,33 @@ class EncoderBlock(nn.Module):
     def __init__(self, hsz, n_conv=2, kernel_size=7, num_heads=0,
                  dropout=0.1, dtype=torch.float32, use_kernel=False):
         super().__init__()
-        if n_conv != 2 or num_heads:
-            raise NotImplementedError(
-                "the port's encoder block takes n_conv=2 and no heads")
         self.position_encoding = PositionEncoding(dtype)
         self.layer_norm = nn.ModuleList(LayerNorm(hsz, dtype)
                                         for _ in range(n_conv))
         self.conv = nn.ModuleList(
             DepthwiseSeparableConv(hsz, hsz, kernel_size, dtype)
             for _ in range(n_conv))
+        if num_heads:
+            self.attn_layer_norm = LayerNorm(hsz, dtype)
+            self.attn = MultiHeadedAttention(hsz, num_heads, dtype)
         self.final_layer_norm = LayerNorm(hsz, dtype)
+        self.n_conv = n_conv
+        self.num_heads = num_heads
         self.kernel_size = kernel_size
         self.dtype = dtype
         self.use_kernel = use_kernel
+
+    def fused(self, x, reduce_mask=None, zero_mask=None):
+        """Whether this call runs the encoder kernel (see the class
+        docstring): decided by the block's shape and the call's inputs,
+        never by a failed build or launch."""
+        if self.n_conv != 2 or self.num_heads or x.dim() < 3:
+            return False
+        if reduce_mask is not None:
+            return True
+        return self.use_kernel and (zero_mask is None or (
+            zero_mask.dim() == 2 and x.dim() == 4
+            and zero_mask.shape == x.shape[1:3]))
 
     def kernel_params(self):
         """The 14 parameters in the fused kernel's layout and keys."""
@@ -320,28 +390,25 @@ class EncoderBlock(nn.Module):
                       f"pwb{i}": conv.pointwise_conv.bias})
         return p
 
-    def forward(self, x, reduce_mask=None, drop=None, zero_mask=None):
+    def forward(self, x, reduce_mask=None, drop=None, zero_mask=None,
+                mask=None):
+        """``mask`` (x's leading dims + (L,)): the attention branch's mask
+        (blocks with heads only)."""
         lead, (l, d) = x.shape[:-2], x.shape[-2:]
-        if reduce_mask is not None:
+        if self.fused(x, reduce_mask, zero_mask):
+            pe = self.position_encoding.table(l, d, x.device, torch.float32)
+            xg = x.reshape(lead[0], -1, l, d).contiguous()
+            if reduce_mask is None:
+                return encoder_block(xg, pe, self.kernel_params(),
+                                     self.kernel_size, zero_mask,
+                                     *kernel_dropout(drop)).reshape(x.shape)
             if zero_mask is not None:
                 raise NotImplementedError("reduce_mask with a zero_mask")
-            out = encoder_reduce(
-                x.reshape(lead[0], -1, l, d).contiguous(),
-                self.position_encoding.table(l, d, x.device, torch.float32),
-                self.kernel_params(), self.kernel_size,
-                reduce_mask.reshape(lead[0], -1, l),
-                *kernel_dropout(drop))
+            out = encoder_reduce(xg, pe, self.kernel_params(),
+                                 self.kernel_size,
+                                 reduce_mask.reshape(lead[0], -1, l),
+                                 *kernel_dropout(drop))
             return out.reshape(lead + (d,))
-        zm_fusable = zero_mask is None or (
-            zero_mask.dim() == 2 and x.dim() == 4
-            and zero_mask.shape == x.shape[1:3])
-        if self.use_kernel and x.dim() >= 3 and zm_fusable:
-            out = encoder_block(
-                x.reshape(lead[0], -1, l, d).contiguous(),
-                self.position_encoding.table(l, d, x.device, torch.float32),
-                self.kernel_params(), self.kernel_size, zero_mask,
-                *kernel_dropout(drop))
-            return out.reshape(x.shape)
         out = self.position_encoding(x)
         for i, (ln, conv) in enumerate(zip(self.layer_norm, self.conv)):
             t = ln(out)
@@ -350,13 +417,18 @@ class EncoderBlock(nn.Module):
             if zero_mask is not None:
                 t = t * zero_mask[..., None].to(t.dtype)
             out = conv(t) + out
-        return self.final_layer_norm(out)
+        if self.num_heads:
+            out = self.attn(self.attn_layer_norm(out), mask, drop) + out
+        out = self.final_layer_norm(out)
+        if reduce_mask is not None:
+            return mask_logits(out, reduce_mask[..., None]).amax(dim=-2)
+        return out
 
 
 class StackedEncoder(nn.Module):
     """n_blocks stacked EncoderBlocks (reference encoder.py:55-74); the
     ``reduce_mask`` of the last block folds in the masked word-max, every
-    block takes the ``zero_mask``."""
+    block takes the ``zero_mask`` and the attention ``mask``."""
 
     def __init__(self, n_blocks=1, n_conv=2, kernel_size=7, num_heads=0,
                  hsz=128, dropout=0.1, dtype=torch.float32,
@@ -367,8 +439,10 @@ class StackedEncoder(nn.Module):
                          use_kernel)
             for _ in range(n_blocks))
 
-    def forward(self, x, reduce_mask=None, drop=None, zero_mask=None):
+    def forward(self, x, reduce_mask=None, drop=None, zero_mask=None,
+                mask=None):
         last = len(self.stacked_encoderBlocks) - 1
         for i, block in enumerate(self.stacked_encoderBlocks):
-            x = block(x, reduce_mask if i == last else None, drop, zero_mask)
+            x = block(x, reduce_mask if i == last else None, drop, zero_mask,
+                      mask)
         return x

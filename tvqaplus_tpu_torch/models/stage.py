@@ -19,6 +19,11 @@ Noun masks (the batch's ``qa_noun_masks``) and void vectors
 kernel, in this package as in the JAX one: an attention site that gets
 either runs the unfused ``structured_attention`` and ``c2q_down_projection``
 instead (``fused_attention`` says which sites do).
+
+Encoders with attention heads (``*_encoder_n_heads > 0``) or another conv
+depth than 2 run the plain encoder chain (models/layers.py
+``EncoderBlock.fused``), as the JAX package's predicate routes them, and
+heads in the input encoder keep its three streams separate.
 """
 from __future__ import annotations
 
@@ -161,23 +166,25 @@ class STAGE(nn.Module):
         return self
 
     # ------------------------------------------------------------------
-    def base_encoder(self, data, init_encoder, drop=None):
+    def base_encoder(self, data, mask, init_encoder, drop=None):
         """init bridge -> downsize -> stacked conv encoder
-        (reference stage.py:350-363)."""
+        (reference stage.py:350-363); ``mask`` is the stream's, which only
+        an encoder with attention heads reads."""
         x = self.input_embedding(init_encoder(data, drop), drop)
-        return self.input_encoder(x, drop=drop)
+        return self.input_encoder(x, drop=drop, mask=mask)
 
     def _sub_encode(self, batch, drop=None):
         """The subtitle stream's own encoder call: from the per-unique-token
         stream of a sub_dedup batch (bridge and ``input_embedding`` once
         per token, then the window gather), else from ``sub_bert``."""
         if "sub_tokens" not in batch:
-            return self.base_encoder(batch["sub_bert"],
+            return self.base_encoder(batch["sub_bert"], batch["sub_mask"],
                                      self.bert_word_encoding_fc, drop)
         tok = self.input_embedding(
             self.bert_word_encoding_fc(batch["sub_tokens"], drop), drop)
         return self.input_encoder(
-            self._gather_sub_windows(tok, batch["sub_win_idx"]), drop=drop)
+            self._gather_sub_windows(tok, batch["sub_win_idx"]), drop=drop,
+            mask=batch["sub_mask"])
 
     @staticmethod
     def _gather_sub_windows(tok, idx):
@@ -313,7 +320,9 @@ class STAGE(nn.Module):
         out = {}
         # all three streams through one input_encoder call (JAX
         # stage.py:342-367); without sub_dedup batches the flag keeps the
-        # separate calls below, through the kernel with no zero mask
+        # separate calls below, through the kernel with no zero mask; so
+        # do attention heads in the input encoder, whose mask the merged
+        # view would lose (JAX stage.py:336-339)
         merged = (c.merge_input_streams and c.sub_flag and c.vfeat_flag
                   and c.input_encoder_n_heads == 0 and "sub_tokens" in batch)
         sub_embed = vid_embed = None
@@ -328,7 +337,7 @@ class STAGE(nn.Module):
                 qa_pre, self._gather_sub_windows(tok, batch["sub_win_idx"]),
                 vid_pre, drop)
         else:
-            a_embed = self.base_encoder(batch["qas_bert"],
+            a_embed = self.base_encoder(batch["qas_bert"], batch["qas_mask"],
                                         self.bert_word_encoding_fc, drop)
         a_mask = batch["qas_mask"]
         attended = []
@@ -347,7 +356,8 @@ class STAGE(nn.Module):
         if c.vfeat_flag:
             if not merged:
                 vid_embed = self.base_encoder(l2_normalize(batch["vid"]),
-                                              self.vid_fc, drop)  # :256
+                                              batch["vid_mask"], self.vid_fc,
+                                              drop)               # :256
             mixed, mask, raw, norm = self.qa_ctx_attention(
                 a_embed, vid_embed, a_mask, batch["vid_mask"], need_vid_raw,
                 drop, batch.get("target"),
@@ -387,8 +397,11 @@ class STAGE(nn.Module):
         statement_mask (B, A, Li, Lqa)."""
         c = self.cfg
         bsz, _, num_img, _ = statement_mask.shape
-        # encoder + masked word-max in one kernel (stage.py:500-505)
-        x = self.cls_encoder(statement, reduce_mask=statement_mask, drop=drop)
+        # encoder + masked word-max in one kernel (stage.py:500-505); with
+        # heads the plain chain, the statement mask as the attention mask
+        # (JAX stage.py:466-468)
+        x = self.cls_encoder(statement, reduce_mask=statement_mask, drop=drop,
+                             mask=statement_mask)
         max_statement_mask = (statement_mask.sum(-1) != 0).float()[..., None]
         # the reference's ensemble quirk (stage.py:515-516) makes the span
         # scores ALWAYS layer 0's; layers i > 0 only extend the chain

@@ -71,6 +71,12 @@ def get_lib():
                 ctypes.POINTER(_P), ctypes.POINTER(_I32), _I32, _I32, _I32,
                 _P, _P]
             lib.pad_batch_f32.restype = None
+            lib.pad_batch_2d_f32.argtypes = [
+                ctypes.POINTER(_P), ctypes.POINTER(_I32),
+                ctypes.POINTER(_I32)] + [_I32] * 4 + [_P, _P]
+            lib.pad_batch_2d_f32.restype = None
+            lib.pairwise_iou_plus1.argtypes = [_P, _I32, _P, _I32, _P]
+            lib.pairwise_iou_plus1.restype = None
             lib.iou_xyxy_plus1.argtypes = [_P, _P, _I32, _P]
             lib.iou_xyxy_plus1.restype = None
             lib.att_entries_f32.argtypes = [_P, _P] + [_I32] * 7 + [_P] * 5
@@ -108,6 +114,41 @@ def pad_batch(arrays, max_len, out, mask=None):
     get_lib().pad_batch_f32(ptrs, lens.ctypes.data_as(ctypes.POINTER(_I32)),
                             n, max_len, dim, out.ctypes.data,
                             None if mask is None else mask.ctypes.data)
+
+
+def pad_batch_2d(items, max_outer, max_inner, out, mask):
+    """Copy a doubly ragged batch (``items[i]`` a list of (len_ij, dim)
+    float32 arrays) into the pre-zeroed (n, max_outer, max_inner, dim)
+    ``out`` and set ``mask`` (n, max_outer, max_inner) to 1 on their rows,
+    clipping items past ``max_outer`` and rows past ``max_inner``."""
+    n, dim = len(items), out.shape[-1]
+    _out(out, np.float32, (n, max_outer, max_inner, dim), "out")
+    _out(mask, np.float32, (n, max_outer, max_inner), "mask")
+    srcs = [np.ascontiguousarray(a, np.float32) for ex in items for a in ex]
+    for a in srcs:
+        if a.ndim != 2 or a.shape[1] != dim:
+            raise ValueError(f"an item of shape {a.shape}; the batch takes "
+                             f"(len, {dim})")
+    if not srcs:
+        return
+    ptrs = (_P * len(srcs))(*[a.ctypes.data for a in srcs])
+    outer = np.asarray([len(ex) for ex in items], np.int32)
+    inner = np.asarray([len(a) for a in srcs], np.int32)
+    as_i32 = ctypes.POINTER(_I32)
+    get_lib().pad_batch_2d_f32(
+        ptrs, outer.ctypes.data_as(as_i32), inner.ctypes.data_as(as_i32), n,
+        max_outer, max_inner, dim, out.ctypes.data, mask.ctypes.data)
+
+
+def pairwise_iou(a, b):
+    """(n, m) IoUs of xyxy boxes with the +1-pixel convention on areas and
+    intersection (the detection evaluator's, evaluation/boxes.py), float64."""
+    a = np.ascontiguousarray(a, np.float64).reshape(-1, 4)
+    b = np.ascontiguousarray(b, np.float64).reshape(-1, 4)
+    out = np.empty((len(a), len(b)), np.float64)
+    get_lib().pairwise_iou_plus1(a.ctypes.data, len(a), b.ctypes.data,
+                                 len(b), out.ctypes.data)
+    return out
 
 
 def iou_one_vs_many(gt_box, det_boxes):

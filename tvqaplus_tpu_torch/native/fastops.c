@@ -26,6 +26,32 @@ void pad_batch_f32(const float **srcs, const int32_t *lens, int32_t n,
     }
 }
 
+/* The same for a doubly ragged batch: example i holds outer_lens[i] items
+ * of (inner_lens[flat], dim) float32 rows, their pointers one after the
+ * other in srcs (flat = the running item index), copied into the
+ * zero-initialised (n, max_outer, max_inner, dim) batch with 1.0 in the
+ * (n, max_outer, max_inner) mask; items past max_outer and rows past
+ * max_inner are clipped. */
+void pad_batch_2d_f32(const float **srcs, const int32_t *outer_lens,
+                      const int32_t *inner_lens, int32_t n,
+                      int32_t max_outer, int32_t max_inner, int32_t dim,
+                      float *out, float *mask) {
+    int32_t flat = 0;
+    for (int32_t i = 0; i < n; ++i) {
+        int32_t n_inner = outer_lens[i];
+        for (int32_t j = 0; j < n_inner; ++j, ++flat) {
+            if (j >= max_outer) continue;
+            int32_t len = inner_lens[flat];
+            if (len > max_inner) len = max_inner;
+            size_t base = (size_t)i * max_outer + j;
+            memcpy(out + base * max_inner * dim, srcs[flat],
+                   (size_t)len * dim * sizeof(float));
+            float *m = mask + base * max_inner;
+            for (int32_t k = 0; k < len; ++k) m[k] = 1.0f;
+        }
+    }
+}
+
 /* Box IoU with the reference's +1-pixel intersection convention
  * (intersection +1 per side, areas raw): one GT xyxy box against n
  * detected xyxy boxes, in double precision as the python floats are. */
@@ -42,6 +68,28 @@ void iou_xyxy_plus1(const double *gt, const double *dets, int32_t n,
         if (x1 < x2 && y1 < y2) inter = (x2 - x1 + 1.0) * (y2 - y1 + 1.0);
         double d_area = (d[2] - d[0]) * (d[3] - d[1]);
         out[i] = inter / (g_area + d_area - inter);
+    }
+}
+
+/* Pairwise IoU (n, m) of xyxy boxes for the detection evaluator, with the
+ * +1-pixel convention on areas and intersection (boxlist_ops.py:10-48). */
+void pairwise_iou_plus1(const double *a, int32_t n, const double *b,
+                        int32_t m, double *out) {
+    for (int32_t i = 0; i < n; ++i) {
+        const double *ba = a + (size_t)i * 4;
+        double area_a = (ba[2] - ba[0] + 1.0) * (ba[3] - ba[1] + 1.0);
+        for (int32_t j = 0; j < m; ++j) {
+            const double *bb = b + (size_t)j * 4;
+            double x1 = ba[0] > bb[0] ? ba[0] : bb[0];
+            double y1 = ba[1] > bb[1] ? ba[1] : bb[1];
+            double x2 = ba[2] < bb[2] ? ba[2] : bb[2];
+            double y2 = ba[3] < bb[3] ? ba[3] : bb[3];
+            double w = x2 - x1 + 1.0;
+            double h = y2 - y1 + 1.0;
+            double inter = (w > 0 && h > 0) ? w * h : 0.0;
+            double area_b = (bb[2] - bb[0] + 1.0) * (bb[3] - bb[1] + 1.0);
+            out[(size_t)i * m + j] = inter / (area_a + area_b - inter);
+        }
     }
 }
 

@@ -15,6 +15,15 @@ step advances), the plain layers' masks and the att loss's Gumbel noise
 from a generator on the device, and the losses stay on the device until a
 log point.
 
+``cfg.resume`` names a checkpoint of this package's trainer or of the JAX
+package's (its flax ``last.ckpt``), read by its content
+(``train/state.py`` ``load_checkpoint``): the weights, Adam's state, the
+step (which also keys the kernels' dropout seeds) and the best accuracy,
+epoch and learning rate of its ``extra``, as the JAX Trainer resumes
+(JAX loop.py:121-127).  With ``cfg.profile_dir`` a ``torch.profiler``
+trace of epoch 0's dispatches 8 to 12 is written there (JAX
+loop.py:300-301, 370-373).
+
 Steps are dispatched K at a time, as the JAX Trainer dispatches them
 (dispatch.py): ``steps_per_dispatch`` same-bucket training batches and
 ``eval_steps_per_dispatch`` validation batches (one at a time under
@@ -26,6 +35,7 @@ from __future__ import annotations
 
 import math
 import os
+import tempfile
 import time
 
 import torch
@@ -64,6 +74,33 @@ def log_crossing(prev_steps, new_steps, log_freq):
     return False, 0
 
 
+def start_trace(device):
+    """A running ``torch.profiler`` trace of the host and, on ``cuda``, the
+    card."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def stop_trace(prof, device, profile_dir):
+    """Stop ``prof`` once the device is done and write its Chrome trace
+    into ``profile_dir``; returns the file's path."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    fd, path = tempfile.mkstemp(suffix=".json", dir=profile_dir,
+                                prefix=time.strftime("torch_trace_%Y_%m_%d_"
+                                                     "%H_%M_%S_"))
+    os.close(fd)             # a unique name: runs sharing the directory
+    prof.export_chrome_trace(path)
+    return path
+
+
 def _empty_window():
     return {"loss": [], "loss_att": [], "loss_ts": [], "loss_cls": [],
             "att_dropped": [], "n_correct": [], "n": []}
@@ -100,6 +137,7 @@ class Trainer:
         self.graphs = (dispatch.StepGraphs(self.device, self.generator)
                        if self.device.type == "cuda" else None)
         self._names = {}           # metric names of a packed dispatch
+        self.trace_path = None     # the profile_dir trace, once written
         self.step = 0
         self.best_acc = 0.0
         self.start_epoch = 0
@@ -255,8 +293,11 @@ class Trainer:
         valid_acc_log = ["batch_idx\tacc"]
         n_steps = len(pipeline)    # optimizer steps, not dispatches
         steps_done = 0
+        profiler = None
         timer = time.time()
-        for batch, _, _ in pipeline:
+        for batch_idx, (batch, _, _) in enumerate(pipeline):
+            if cfg.profile_dir and epoch == 0 and batch_idx == 8:
+                profiler = start_trace(self.device)
             meters["dataloading"].update(time.time() - timer)
             t0 = time.time()
             prev_steps = steps_done
@@ -306,6 +347,10 @@ class Trainer:
                         self.save_best()
                     dataset.set_mode("train")
                     window = _empty_window()
+            if profiler is not None and batch_idx >= 12:
+                self.trace_path = stop_trace(profiler, self.device,
+                                             cfg.profile_dir)
+                profiler = None
             timer = time.time()
             # main.py:131, counted in batches, not dispatches
             if cfg.debug and steps_done > 5:
@@ -313,6 +358,9 @@ class Trainer:
                     print(f"{name}: max {m.max:.4f} min {m.min:.4f} "
                           f"avg {m.avg:.4f}")
                 break
+        if profiler is not None:
+            self.trace_path = stop_trace(profiler, self.device,
+                                         cfg.profile_dir)
         if window["loss"]:
             # the tail window gets the non-finite check too
             tail = torch.stack(window["loss"]).cpu().tolist()

@@ -1,11 +1,13 @@
 """Scalar logging with the reference's metric set (port of
-``tvqaplus_tpu/train/metrics.py`` without the TensorBoard mirror).
+``tvqaplus_tpu/train/metrics.py``).
 
 Train/{Acc,Loss,Loss_att,Loss_cls,Loss_ts}, Valid/{Acc,Loss} and
 learning_rate (reference main.py:95-104, 145-146, 229) go to a JSONL stream
-``scalars.jsonl``; ``append_log`` writes the ``valid_acc.log`` lines and
-``export_scalars`` the ``all_scalars.json`` dump of an early stop
-(main.py:244).
+``scalars.jsonl`` and, when ``tensorboardX`` or else
+``torch.utils.tensorboard`` imports, to a TensorBoard event file in the same
+directory (JAX metrics.py:21-31); ``append_log`` writes the
+``valid_acc.log`` lines and ``export_scalars`` the ``all_scalars.json``
+dump of an early stop (main.py:244).
 """
 from __future__ import annotations
 
@@ -17,12 +19,26 @@ from collections import defaultdict
 from tvqaplus_tpu_torch.utils.io import save_json_pretty
 
 
+def tb_writer(log_dir):
+    """A TensorBoard ``SummaryWriter`` on ``log_dir`` from tensorboardX,
+    else torch.utils.tensorboard, else None."""
+    try:
+        from tensorboardX import SummaryWriter
+    except ImportError:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            return None
+    return SummaryWriter(log_dir)
+
+
 class MetricsLogger:
     def __init__(self, results_dir):
         self.results_dir = results_dir
         os.makedirs(results_dir, exist_ok=True)
         self.scalar_path = os.path.join(results_dir, "scalars.jsonl")
         self._f = open(self.scalar_path, "a")
+        self.tb = tb_writer(results_dir)
         self.history = defaultdict(list)
 
     def add_scalar(self, tag, value, step):
@@ -32,6 +48,8 @@ class MetricsLogger:
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
         self.history[tag].append((int(step), value))
+        if self.tb is not None:
+            self.tb.add_scalar(tag, value, step)
 
     def append_log(self, filename, lines):
         with open(os.path.join(self.results_dir, filename), "a") as f:
@@ -43,3 +61,5 @@ class MetricsLogger:
 
     def close(self):
         self._f.close()
+        if self.tb is not None:
+            self.tb.close()

@@ -19,13 +19,23 @@
   optimizer in its device's mode, also after a checkpoint of the other
   mode was loaded.
 * Checkpoints hold the model, the optimizer, the step and an ``extra``
-  dict (``torch.save``).
+  dict (``torch.save``).  ``load_checkpoint`` also restores the JAX
+  trainer's flax ``save_checkpoint`` files (its ``last.ckpt``), picking the
+  reader from the file's first bytes (``interop/flax_msgpack.py``): the
+  parameters and Adam's moments through the weight bridge, Adam's count as
+  torch's step, the injected learning rate.
 """
 from __future__ import annotations
 
 import os
 
 import torch
+
+from tvqaplus_tpu_torch.interop import flax_msgpack
+from tvqaplus_tpu_torch.interop.weights import (
+    adam_state_from_flax,
+    state_dict_from_flax_tree,
+)
 
 
 def make_optimizer(params, lr, weight_decay=3e-7, device="cpu"):
@@ -118,17 +128,37 @@ def save_checkpoint(path, model, optimizer, step, extra=None):
 
 
 def load_checkpoint(path, model, optimizer):
-    """Restore a ``save_checkpoint`` file (saved in either device's mode)
-    into the optimizer's mode; returns (step, extra)."""
-    payload = torch.load(path, map_location="cpu", weights_only=False)
-    model.load_state_dict(payload["model"])
+    """Restore a ``save_checkpoint`` file of this package (saved in either
+    device's mode) or of the JAX package (flax) into ``model`` (a STAGE)
+    and ``optimizer`` (``make_optimizer``'s Adam), the optimizer in its
+    device's mode; returns (step, extra)."""
     device = next(iter(model.parameters())).device
-    optimizer.load_state_dict(payload["optimizer"])
+    if flax_msgpack.sniff(path) == "flax":
+        step, extra = _load_flax_checkpoint(path, model, optimizer)
+    else:
+        payload = torch.load(path, map_location="cpu", weights_only=False)
+        model.load_state_dict(payload["model"])
+        optimizer.load_state_dict(payload["optimizer"])
+        step, extra = payload["step"], payload.get("extra", {})
     dispatch_mode(optimizer, device)
-    return payload["step"], payload.get("extra", {})
+    return step, extra
 
 
-def load_model_state(path):
-    """The model's state_dict alone from a ``save_checkpoint`` file, on
-    the CPU (what the inference CLI serves)."""
-    return torch.load(path, map_location="cpu", weights_only=True)["model"]
+def _load_flax_checkpoint(path, model, optimizer):
+    tree = flax_msgpack.load(path)
+    if "state" not in tree:
+        raise ValueError(f"{path}: flax parameters alone (save_params); "
+                         f"resuming needs a save_checkpoint file, such as "
+                         f"the JAX trainer's last.ckpt")
+    state = tree["state"]
+    model.load_state_dict(state_dict_from_flax_tree(tree, model.cfg))
+    moments, lr = adam_state_from_flax(state["opt_state"], model.cfg, model)
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {k: v.to(p.device) if k != "step" else v
+                              for k, v in moments[name].items()}
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    extra = {k: v.item() if hasattr(v, "item") else v
+             for k, v in tree.get("extra", {}).items()}
+    return int(state["step"]), extra
+

@@ -1,9 +1,12 @@
 """File I/O helpers (the port's copy of the JAX package's ``utils/io.py``
-subset that config, the data loader, inference and the evaluator need)."""
+subset that config, the data loader, inference, the evaluator and the run
+bookkeeping need)."""
 from __future__ import annotations
 
 import json
+import os
 import pickle
+import zipfile
 
 import numpy as np
 
@@ -52,6 +55,42 @@ def load_pickle(file_path):
         except UnicodeDecodeError:
             f.seek(0)
             return pickle.load(f, encoding="latin1")
+
+
+def save_pickle(data, file_path):
+    with open(file_path, "wb") as f:
+        pickle.dump(data, f, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def mkdirp(path):
+    os.makedirs(path, exist_ok=True)
+
+
+def files_exist(filepath_list):
+    return all(os.path.exists(p) for p in filepath_list)
+
+
+def make_zipfile(src_dir, save_path, enclosing_dir="", exclude_paths=None,
+                 exclude_extensions=None):
+    """Snapshot a source tree into a zip under ``enclosing_dir`` (JAX
+    utils/io.py:91; reference config.py:177-181 keeps a copy of the code
+    with every run), skipping the directories named in ``exclude_paths``,
+    hidden directories and files with an extension in
+    ``exclude_extensions``."""
+    exclude_paths = exclude_paths or []
+    exclude_extensions = exclude_extensions or []
+    abs_src = os.path.abspath(src_dir)
+    with zipfile.ZipFile(save_path, "w") as zf:
+        for dirname, subdirs, files in os.walk(abs_src):
+            subdirs[:] = [d for d in subdirs
+                          if d not in exclude_paths and not d.startswith(".")]
+            arc_dir = os.path.join(enclosing_dir,
+                                   os.path.relpath(dirname, abs_src))
+            for filename in files:
+                if os.path.splitext(filename)[1] in exclude_extensions:
+                    continue
+                zf.write(os.path.join(dirname, filename),
+                         os.path.join(arc_dir, filename))
 
 
 def load_glove(filename):

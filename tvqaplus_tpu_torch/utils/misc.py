@@ -1,10 +1,11 @@
-"""Small helpers (the port's copy of the part of
-``tvqaplus_tpu/utils/misc.py`` that the trainer, the data loader and the
-evaluator need): list and dict helpers, the sentence splitter, box IoU,
-tokenizer matching, meters."""
+"""Small helpers (the port's copy of ``tvqaplus_tpu/utils/misc.py``, less
+its JAX parameter count): list and dict helpers, the sentence splitter, box
+IoU, tokenizer matching, meters and a stopwatch, the show of a clip and the
+accuracy by question type (reference utils.py:442-478)."""
 from __future__ import annotations
 
 import re
+import time
 
 import numpy as np
 
@@ -97,6 +98,16 @@ def match_stanford_tokenizer(line):
     return line
 
 
+_SHOW_LIST = ["friends", "met", "castle", "house", "grey"]
+
+
+def get_show_name(vid_name):
+    """The TV show of a clip name; "bbt" unless the name's prefix is one of
+    the five others."""
+    prefix = vid_name.split("_")[0]
+    return prefix if prefix in _SHOW_LIST else "bbt"
+
+
 class AverageMeter:
     """Running average / max / min tracker (reference utils.py:399-424)."""
 
@@ -120,6 +131,49 @@ class AverageMeter:
         self.avg = self.sum / self.count
 
 
+class Timer:
+    """Context-manager stopwatch feeding an AverageMeter."""
+
+    def __init__(self, meter=None):
+        self.meter = meter if meter is not None else AverageMeter()
+
+    def __enter__(self):
+        self._start = time.time()
+        return self
+
+    def __exit__(self, *exc):
+        self.meter.update(time.time() - self._start)
+        return False
+
+
 def count_parameters(model):
     """Number of parameter values of a ``torch.nn.Module``."""
     return sum(p.numel() for p in model.parameters())
+
+
+_Q_TYPES = ["what", "who", "where", "how", "why", "other"]
+
+
+def get_q_type(questions, word2idx):
+    """Each question's type from its first token id (reference
+    utils.py:442-451): one of ``_Q_TYPES``, "other" when none matches."""
+    indexed = [word2idx.get(t, -1) for t in _Q_TYPES]
+    out = []
+    for q in questions:
+        q_type = "other"
+        for j in range(len(_Q_TYPES) - 1):
+            if q[0] == indexed[j]:
+                q_type = _Q_TYPES[j]
+                break
+        out.append(q_type)
+    return out
+
+
+def compute_acc_by_type(q_types, corrects):
+    """Accuracy and question count per question type (reference
+    utils.py:454-478)."""
+    bucket = {t: [] for t in _Q_TYPES}
+    for t, c in zip(q_types, corrects):
+        bucket[t].append(c)
+    return {t: {"acc": (sum(v) / len(v)) if v else 0.0, "num_qa": len(v)}
+            for t, v in bucket.items()}
