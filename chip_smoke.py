@@ -123,6 +123,22 @@ The JAX package's checkpoints, attention heads and run bookkeeping:
              trace names the hand-written kernels; ``code.zip`` holds the
              package.
 
+Data parallelism (``tvqaplus_tpu_torch/parallel/mesh.py``):
+9p. data_parallel - an in-process NCCL process group of world size 1 on
+             the card: the headline separate-path trainer (batch 16, 50
+             frames, bf16, dropout 0.1) for 12 K = 4 graph-replayed
+             dispatches, one serve pass (``InferenceRunner.run``) and a
+             validation pass with the group and without it, deterministic
+             algorithms on: losses, grad norms, parameters, Adam's state,
+             the predictions and the validation bit for bit; the training
+             entry point in the group, as ``torchrun`` starts it.  Then,
+             in the default mode, fresh trainers with and without the
+             group: step ms in turns, device busy ms and idle share, and
+             the replay's ``torch.profiler`` trace, which must hold the
+             NCCL all-reduce kernels of every step (the cls counts and the
+             2.21 MB gradient sum) with their device us.  Placed before
+             ``noun_void`` and ``pipeline``.
+
 Then the ``kernels`` summary line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line.
 """
@@ -1941,6 +1957,217 @@ def phase_bookkeeping(dev, workdir):
           "wall_s": time.perf_counter() - t0})
 
 
+# ------------------------------------------------- data parallelism
+DP_DISPATCHES = 12   # K = DISPATCH_K replays of each trainer, then in turns
+DP_TIMED = 3         # dispatches a turn of the timing
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def train_stack(cfg, dev, k):
+    """``k`` distinct headline training batches (50 frames) stacked as a
+    K-step dispatch."""
+    from tvqaplus_tpu_torch.data.batching import (
+        StaticShapeSpec,
+        collate_static,
+    )
+    from tvqaplus_tpu_torch.data.synthetic import SyntheticTVQADataset
+    ds = SyntheticTVQADataset(cfg, k * B, mode="train")
+    spec = StaticShapeSpec.from_config(cfg, batch=B, train=True
+                                       ).with_max_img(LI)
+    out = [collate_static([ds[i] for i in range(j * B, (j + 1) * B)],
+                          spec)[0] for j in range(k)]
+    return {key: torch.stack([torch.from_numpy(o[key]) for o in out]
+                             ).to(dev) for key in out[0]}
+
+
+def nccl_trace(step, n):
+    """The NCCL kernels in ``torch.profiler``'s trace of ``n`` calls of
+    ``step`` (an all-reduce over one rank launches NCCL's
+    ``oneRankReduce``): (launches a call, their device us a call, the
+    longest launch's us, their names)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    us = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and ("nccl" in e.name.lower() or "onerank" in e.name.lower())]
+    return (len(us) / n, sum(t for _, t in us) / n,
+            max((t for _, t in us), default=0.0),
+            sorted({nm[:80] for nm, _ in us}))
+
+
+def dp_timing(trainers, four):
+    """Each trainer's K-step dispatch of ``four``: host ms a step in turns
+    (``timed_steps``), device busy ms, idle share and launches a step."""
+    steps = {name: (lambda t=t: t.dispatch_train(four))
+             for name, t in trainers.items()}
+    clock = timed_steps(steps, DP_TIMED)
+    out = {}
+    for name, step in steps.items():
+        busy, launches, _, _ = profile_steps(step, 2)
+        step_ms = clock[name][0] / DISPATCH_K
+        busy = None if busy is None else busy / DISPATCH_K
+        out[name] = {
+            "step_ms": step_ms,
+            "step_ms_turns": [t / DISPATCH_K for t in clock[name][1]],
+            "device_busy_ms": busy,
+            "device_idle_share": None if busy is None else 1 - busy / step_ms,
+            "launches_per_step": None if launches is None
+            else launches / DISPATCH_K}
+    return out
+
+
+def dp_train_main(workdir):
+    """The training entry point as ``torchrun --nproc_per_node 1`` starts
+    it (its environment), in the group already up: a ``--debug`` run at
+    the headline training config; opt.json holds the global batch sizes.
+    Returns the run directory."""
+    from tvqaplus_tpu_torch.main import main as train_main
+    env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        run_dir, trainer = train_main([
+            "--synthetic_data", "--add_local", "--use_sup_att", "--debug",
+            "--bsz", str(B), "--test_bsz", str(B), "--seed", str(SEED),
+            "--steps_per_dispatch", str(DISPATCH_K), "--results_dir_base",
+            os.path.join(workdir, "data_parallel", "results"),
+            "--device", DEVICE])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    with open(os.path.join(run_dir, "opt.json")) as f:
+        opt = json.load(f)
+    if trainer.mesh is None or trainer.mesh.group is None \
+            or (opt["bsz"], opt["test_bsz"]) != (B, B) \
+            or not os.path.exists(os.path.join(run_dir, "last.ckpt")):
+        raise AssertionError(f"train entry point in the group: "
+                             f"{os.listdir(run_dir)}, {trainer.mesh}")
+    return run_dir
+
+
+def phase_data_parallel(dev, workdir, smi):
+    """The headline trainer and one serve pass in a world-1 NCCL group
+    against the same without a group: equal bits (deterministic algorithms
+    on), the collectives inside the K-step replay, and what they cost (in
+    that mode, and in the default mode with fresh trainers)."""
+    from tvqaplus_tpu_torch.data.synthetic import SyntheticTVQADataset
+    from tvqaplus_tpu_torch.infer.predict import InferenceRunner
+    from tvqaplus_tpu_torch.parallel import mesh as dp
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    t0 = time.perf_counter()
+    dp.init_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                        local_device_ids=[dev.index or 0], device=dev.type)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        mesh = dp.make_mesh()
+        backend = torch.distributed.get_backend()
+        cfg = train_config(workdir, bsz=B, test_bsz=B).finalize(dev)
+        trainers = {"group": Trainer(cfg, dev, mesh=mesh),
+                    "no_group": Trainer(cfg, dev)}
+        four = train_stack(cfg, dev, DISPATCH_K)
+        losses = {name: [] for name in trainers}
+        launches = None
+        for name, trainer in trainers.items():
+            reset_counters()
+            for _ in range(DP_DISPATCHES):
+                m = trainer.dispatch_train(four)
+                losses[name].append((float(m["loss"]),
+                                     float(m["grad_norm"])))
+            torch.cuda.synchronize()
+            if name == "group":
+                launches = read_counters(SEPARATE_TRAIN)
+        tg, tn = trainers["group"], trainers["no_group"]
+        if len(tg.graphs.graphs) != 1:
+            raise AssertionError(f"{len(tg.graphs.graphs)} graphs")
+
+        def same_state():
+            return all(torch.equal(a, b) for a, b in
+                       zip(state_tensors(tg), state_tensors(tn)))
+        if losses["group"] != losses["no_group"] or not same_state():
+            raise AssertionError(f"world-1 group vs no group: losses "
+                                 f"{losses}, state equal {same_state()}")
+        timing_det = dp_timing(trainers, four)
+        if not same_state():
+            raise AssertionError("the timed dispatches parted the states")
+
+        # one serve pass of the trained weights, with and without the group
+        ds = SyntheticTVQADataset(cfg, 4 * B, mode="valid")
+        words = list(range(3, 1000, 4))
+        preds = {name: InferenceRunner(cfg, t.model, dev,
+                                       mesh if name == "group" else None
+                                       ).run(ds, object_word_ids=words)
+                 for name, t in trainers.items()}
+        if preds["group"] != preds["no_group"] \
+                or len(preds["group"]["ts_answer"]) != 4 * B:
+            raise AssertionError("world-1 group vs no group: the serve "
+                                 "pass's predictions differ")
+        valid = {name: t.validate(ds) for name, t in trainers.items()}
+        if valid["group"] != valid["no_group"]:
+            raise AssertionError(f"validation: {valid}")
+        run_dir = dp_train_main(workdir)
+
+        # the default mode (what a run uses): fresh trainers, in turns
+        torch.use_deterministic_algorithms(False)
+        trainers = {"group": Trainer(cfg, dev, mesh=mesh),
+                    "no_group": Trainer(cfg, dev)}
+        for trainer in trainers.values():
+            trainer.dispatch_train(four)            # warm-up and capture
+        timing = dp_timing(trainers, four)
+        n_nccl, nccl_us, longest_us, nccl_names = nccl_trace(
+            lambda: trainers["group"].dispatch_train(four), 2)
+        if n_nccl / DISPATCH_K < 1:
+            raise AssertionError("no NCCL kernel in the replay")
+        if nccl_trace(lambda: trainers["no_group"].dispatch_train(four),
+                      1)[0]:
+            raise AssertionError("NCCL kernels without a group")
+        flat = torch.cat([p.detach().reshape(-1)
+                          for p in trainers["group"].params])
+        eager_ms = time_ms(lambda: dp.all_reduce_sum(mesh, flat.clone()))
+        clone_ms = time_ms(lambda: flat.clone())
+        # why the port pre-multiplies: NCCL's in-place SUM over one rank
+        plain_sum = nccl_trace(lambda: torch.distributed.all_reduce(
+            flat, op=torch.distributed.ReduceOp.SUM), 3)[0]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dp.close()
+    emit({"phase": "data_parallel", "ok": True, "nvidia_smi": smi,
+          "world": 1, "backend": backend,
+          "nccl": ".".join(map(str, torch.cuda.nccl.version())),
+          "batch": B, "frames": LI, "dropout": cfg.dropout,
+          "compute_dtype": cfg.compute_dtype,
+          "dispatches": DP_DISPATCHES, "steps_per_dispatch": DISPATCH_K,
+          "bitwise_equal": True, "losses": losses["group"][:3],
+          "launches": launches, "timing": timing,
+          "timing_deterministic": timing_det,
+          "allreduce": {
+              "params": flat.numel(), "bytes": flat.numel() * 4,
+              "nccl_kernels_per_step": n_nccl / DISPATCH_K,
+              "nccl_device_us_per_step": nccl_us / DISPATCH_K,
+              "longest_nccl_kernel_us": longest_us, "kernels": nccl_names,
+              "eager_call_event_ms": eager_ms,
+              "clone_event_ms": clone_ms,
+              "inplace_sum_kernels_per_call": plain_sum},
+          "serve_qas": len(preds["group"]["ts_answer"]),
+          "serve_records": len(preds["group"]["raw_bbox"]),
+          "valid_acc": valid["group"][0],
+          "train_main_run": os.listdir(run_dir),
+          "wall_s": time.perf_counter() - t0})
+
+
 # ------------------------------------------- noun masks, void vectors
 NOUN_VOID = {"noun_masks": {}, "void": {"non_visual": 2,
                                         "add_non_visual": True}}
@@ -2236,7 +2463,7 @@ def main():
               file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    phase_device()
+    smi = phase_device()
     phase_build()
     rows = phase_kernels(dev)
     train_rows = phase_train_kernels(dev)
@@ -2256,6 +2483,7 @@ def main():
         phase_jax_checkpoint(dev, workdir)
         phase_heads(dev, workdir)
         phase_bookkeeping(dev, workdir)
+        phase_data_parallel(dev, workdir, smi)
         phase_noun_void(dev, workdir, cfg)
         phase_pipeline(dev, workdir)
     # each row's launches: the count of the main path that runs its kernel

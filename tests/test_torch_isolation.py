@@ -35,6 +35,7 @@ def test_importing_every_port_module_loads_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert len(names) > 15, names\n"
+        "assert 'tvqaplus_tpu_torch.parallel.mesh' in names, names\n"
         "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

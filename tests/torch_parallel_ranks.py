@@ -1,0 +1,133 @@
+"""The rank programs of tests/test_torch_parallel.py and
+tests/test_torch_parallel_cli.py.
+
+``run_ranks(fn, world, path)`` starts ``world`` processes (spawn), joins
+them in a gloo process group over ``tcp://127.0.0.1`` on a free port
+(``init_distributed``, as an entry point under ``torchrun`` does) and runs
+``fn(rank, path)`` in each: ``path`` names a ``torch.save`` file with the
+job, and each rank writes what it saw beside it (``<path>.rank<r>``).
+This module imports the port and torch only, so a rank starts without
+JAX."""
+import dataclasses
+import os
+import socket
+
+import torch
+import torch.multiprocessing as mp
+
+from tvqaplus_tpu_torch.parallel import mesh as dp
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(fn, world, path):
+    """``fn(rank, path)`` on ``world`` gloo ranks; returns each rank's
+    result file, loaded."""
+    mp.start_processes(_entry, args=(fn, world, free_port(), path),
+                       nprocs=world, join=True, start_method="spawn")
+    return [torch.load(f"{path}.rank{r}", weights_only=False)
+            for r in range(world)]
+
+
+def _entry(rank, fn, world, port, path):
+    torch.set_num_threads(1)
+    dp.init_distributed(f"127.0.0.1:{port}", world, rank, device="cpu")
+    try:
+        torch.save(fn(rank, path), f"{path}.rank{rank}")
+    finally:
+        dp.close()
+
+
+def _job(path):
+    return torch.load(path, weights_only=False)
+
+
+def train_job(cfg, state_dict, batches, use_hard_negatives, rows="shard"):
+    """A training job: ``batches`` (global batches, each a dict of CPU
+    tensors, stacked when K > 1) dispatched in order from ``state_dict``.
+    ``rows``: "shard" gives each rank its rows, "same" every rank the whole
+    batch."""
+    return {"cfg": cfg, "sd": state_dict, "batches": batches,
+            "use_hard": use_hard_negatives, "rows": rows}
+
+
+def train(job, mesh):
+    """Run a ``train_job`` on this process (``mesh`` None: no group);
+    returns the metrics of each dispatch (floats: this rank's sums and the
+    global grad_norm), the gradients and parameters after the last one, and
+    the rank's Gumbel draw of the first batch."""
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    cfg = job["cfg"]
+    model = STAGE(ModelConfig.from_config(cfg))
+    model.load_state_dict(job["sd"], strict=True)
+    trainer = Trainer(cfg, "cpu", model=model, mesh=mesh)
+    metrics = []
+    for batch in job["batches"]:
+        stacked = batch["ex_mask"].dim() == 2
+        if job["rows"] == "shard":
+            batch = dp.shard_batch(mesh, batch, stacked=stacked)
+        m = trainer.dispatch_train(batch, job["use_hard"])
+        metrics.append({k: float(v) for k, v in m.items()})
+    named = dict(model.named_parameters())
+    return {"metrics": metrics,
+            "grads": {k: p.grad.detach().clone() for k, p in named.items()},
+            "params": {k: p.detach().clone() for k, p in named.items()},
+            "step": trainer.step}
+
+
+def train_rank(rank, path):
+    return train(_job(path), dp.make_mesh())
+
+
+def fit_rank(rank, path):
+    """``Trainer.fit`` on synthetic data; each rank's ``results_dir`` is
+    the job's with the rank appended, so a rank other than 0 that wrote a
+    file would make a directory of its own."""
+    from tvqaplus_tpu_torch.data.synthetic import SyntheticTVQADataset
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    job = _job(path)
+    cfg = job["cfg"]
+    last = os.path.join(cfg.results_dir, "last.ckpt")
+    if rank:
+        cfg.results_dir = f"{cfg.results_dir}.rank{rank}"
+    model = STAGE(ModelConfig.from_config(cfg))
+    model.load_state_dict(job["sd"], strict=True)
+    mesh = dp.make_mesh()
+    trainer = Trainer(cfg, "cpu", model=model, mesh=mesh)
+    valid = SyntheticTVQADataset(cfg, job["n_valid"], mode="valid")
+    best = trainer.fit(SyntheticTVQADataset(cfg, job["n_train"],
+                                            mode="train"), valid)
+    acc, loss, qid_corrects = trainer.validate(valid)
+    resumed = Trainer(dataclasses.replace(cfg, resume=last), "cpu",
+                      mesh=mesh)
+    trainer.logger.close()
+    resumed.logger.close()
+    return {"best": best, "acc": acc, "loss": loss,
+            "qid_corrects": qid_corrects,
+            "history": dict(trainer.logger.history),
+            "params": {k: p.detach().clone()
+                       for k, p in model.named_parameters()},
+            "resumed": all(torch.equal(p, q) for p, q in
+                           zip(model.parameters(),
+                               resumed.model.parameters())),
+            "resumed_step": resumed.step}
+
+
+def infer_rank(rank, path):
+    """``InferenceRunner.run`` over a synthetic split."""
+    from tvqaplus_tpu_torch.data.synthetic import SyntheticTVQADataset
+    from tvqaplus_tpu_torch.infer.predict import InferenceRunner
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    job = _job(path)
+    cfg = job["cfg"]
+    model = STAGE(ModelConfig.from_config(cfg))
+    model.load_state_dict(job["sd"], strict=True)
+    runner = InferenceRunner(cfg, model, "cpu", dp.make_mesh())
+    return runner.run(SyntheticTVQADataset(cfg, job["n"], mode="valid"),
+                      object_word_ids=job["words"])

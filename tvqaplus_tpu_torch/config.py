@@ -2,8 +2,9 @@
 
 Every field keeps the JAX name and default, so the port reads a JAX run's
 ``opt.json`` unchanged (``override_from``, reference TestOptions
-semantics).  Fields that only the JAX runtime reads (mesh, PRNG, XLA cache,
-``use_pallas``) are kept for that reason and ignored here.
+semantics).  Fields that only the JAX runtime reads (PRNG, XLA cache,
+``use_pallas``) are kept for that reason and ignored here; ``mesh_shape``
+is read by the data-parallel entry points (parallel/mesh.py).
 
 What differs is the device policy: ``finalize(device)`` resolves
 
@@ -138,7 +139,9 @@ class Config:
     max_num_proposal: int = 1
     att_entry_cap: int = 128
     compute_dtype: str = "auto"         # {"auto", "float32", "bfloat16"}
-    mesh_shape: List[int] = field(default_factory=lambda: [-1, 1])  # JAX-only
+    # (data, ctx[, model]); the port runs the data axis over processes
+    # (parallel/mesh.py), ctx and model must be 1
+    mesh_shape: List[int] = field(default_factory=lambda: [-1, 1])
     use_pallas: Optional[bool] = None   # JAX-only; see use_kernels
     py2_offset_div: bool = False
     synthetic_data: bool = False

@@ -31,6 +31,15 @@ pipeline.py:62-91):
   smallest ``video_buckets`` entry covering the batch) with ``ex_vid``,
   each example's row; the serve step gathers them back on the card
   (infer/predict.py ``expand_video_dedup``).
+
+Under data parallelism (``mesh``, parallel/mesh.py) ``batch_size`` is the
+global batch of N ranks.  Every rank makes every shape decision on the
+global batch, the same on each: the shuffle order, the Li bucket, the St
+bucket and the K-grouping, so all ranks run one sequence of dispatch
+shapes (a rank that ran another shape would wait forever in a collective).
+Then each rank collates only its own rows ``[r b, (r + 1) b)`` of it, at
+batch ``b``; its ``meta`` holds those rows.  ``video_dedup`` is
+single-process (as in JAX pipeline.py:83-88).
 """
 from __future__ import annotations
 
@@ -46,6 +55,7 @@ from tvqaplus_tpu_torch.data.batching import (
     collate_static,
     pick_bucket,
 )
+from tvqaplus_tpu_torch.parallel.mesh import rank_rows
 
 # the large float inputs that go to the card in bfloat16 under the bf16
 # compute policy (JAX pipeline.py:34-35)
@@ -56,20 +66,27 @@ BF16_KEYS = ("qas_bert", "sub_bert", "sub_tokens", "vid", "sub_tokens_u",
 class DataPipeline:
     """Iterable over (device batch dict, meta, Li bucket) tuples.
     ``train``: shuffled bucket batching with the att-entry keys.
-    ``video_dedup``: the per-unique-clip layout (serving)."""
+    ``video_dedup``: the per-unique-clip layout (serving).  ``mesh``: this
+    rank's rows of each global batch of ``batch_size``."""
 
     def __init__(self, dataset, cfg, device, batch_size=16, prefetch_depth=2,
-                 train=False, seed=0, group=1, video_dedup=False):
+                 train=False, seed=0, group=1, video_dedup=False, mesh=None):
+        if video_dedup and mesh is not None and mesh.data > 1:
+            raise ValueError(
+                "video_dedup is single-process only (each batch's table of "
+                "unique clips would differ from rank to rank); disable "
+                "--video_dedup for data-parallel runs")
         self.dataset = dataset
         self.cfg = cfg
         self.device = torch.device(device)
         self.batch_size = batch_size
+        self.rows = rank_rows(mesh, batch_size)
         self.prefetch_depth = max(1, prefetch_depth)
         self.train = train
         self.seed = seed
         self.group = max(1, group)
-        self.base_spec = StaticShapeSpec.from_config(cfg, batch=batch_size,
-                                                     train=train)
+        self.base_spec = StaticShapeSpec.from_config(
+            cfg, batch=self.rows[1] - self.rows[0], train=train)
         self.buckets = sorted(set(min(b, cfg.max_num_img)
                                   for b in cfg.img_buckets))
         cap = self.base_spec.max_sub_tokens
@@ -135,11 +152,18 @@ class DataPipeline:
         return next((b for b in self.st_buckets if b >= need), cap)
 
     def _collate(self, examples, bucket):
+        """This rank's rows of the global batch ``examples``, at the
+        shapes the global batch decides."""
         spec = self.base_spec.with_max_img(bucket)
         if self.st_buckets:
             spec = dataclasses.replace(
                 spec, max_sub_tokens=self._st_bucket(examples))
-        arrays, meta = collate_static(examples, spec)
+        arrays, meta = collate_static(examples[slice(*self.rows)], spec)
+        if "qa_noun_masks" not in arrays and any(
+                ex.get("qa_noun_masks") is not None for ex in examples):
+            # the global batch's keys: another rank's rows carry the masks
+            arrays["qa_noun_masks"] = np.zeros(
+                (spec.batch, spec.num_a, spec.max_qa_l), np.float32)
         n_pos = max(meta["att_n_pos"], default=0)
         if self.train and n_pos > self.cfg.att_entry_cap:
             # the att loss would silently drop the positives past the cap

@@ -15,10 +15,18 @@ its result is the dispatch's result), then the function is captured over
 static input slots.  A later dispatch copies its batch into the slots (on
 the current stream) and replays the graph.  What a step keeps across steps
 (parameters, optimizer state, the step counter and the dropout seeds of
-ops/philox.py ``StepSeeds``, the device generator) lives outside the graph
+ops/philox.py ``StepSeeds``, the device generators) lives outside the graph
 and is read and written in place, so a replayed step computes what the same
 eager step computes.  A capture that fails raises: nothing falls back to
 eager dispatch.  On the CPU the function runs eagerly.
+
+Under data parallelism (parallel/mesh.py) a train step's collectives (the
+cls loss's two counts and the gradient sum) are NCCL all-reduces, captured
+in the dispatch's graph with the rest of the K steps: the communicator
+exists before the first capture (``init_distributed`` makes it, the
+trainer's ``broadcast_state`` uses it), the eager warm-up dispatch runs the
+same collectives, and NCCL enqueues a captured collective's work into the
+graph, so every replay runs it again.
 """
 from __future__ import annotations
 
@@ -73,9 +81,9 @@ class StepGraphs:
     overwrites its outputs: the caller reads or copies them before the next
     dispatch of the same shape."""
 
-    def __init__(self, device, generator=None):
+    def __init__(self, device, *generators):
         self.device = torch.device(device)
-        self.generator = generator     # drawn from inside a step
+        self.generators = generators   # drawn from inside a step
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(self.device)
         self.graphs = {}
@@ -104,8 +112,8 @@ class StepGraphs:
     def _capture(self, fn, inputs):
         slots = {k: v.clone() for k, v in inputs.items()}
         graph = torch.cuda.CUDAGraph()
-        if self.generator is not None:
-            graph.register_generator_state(self.generator)
+        for generator in self.generators:
+            graph.register_generator_state(generator)
         before = _build.launch_counts()
         # thread-local: the pipeline's producer thread pins host memory
         # while the step is captured

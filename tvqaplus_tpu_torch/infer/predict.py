@@ -7,6 +7,13 @@ on the device; the host turns the compacted rows into records with two
 slices each (``assemble_att_predictions``).  ``eval_steps_per_dispatch``
 same-bucket batches go to the device at once (dispatch.py): one CUDA-graph
 replay on ``cuda``.
+
+Data-parallel (``mesh``, parallel/mesh.py): each rank serves its rows of
+every global ``test_bsz`` batch and assembles their records; the ranks'
+records are gathered and merged in global row order, so every rank holds
+the single-process predictions (rank 0 writes them, inference.py).  The
+global batch decides the Li bucket, so ``li_total`` is the same on every
+rank.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ from tvqaplus_tpu_torch import dispatch, resolve_device
 from tvqaplus_tpu_torch.data.pipeline import DataPipeline
 from tvqaplus_tpu_torch.models import spans
 from tvqaplus_tpu_torch.ops.masking import safe_softmax
+from tvqaplus_tpu_torch.parallel import mesh as dp
 
 # grounding-record acceptance threshold (reference stage.py:787-804)
 SCORE_THD = 0.2
@@ -129,11 +137,13 @@ class InferenceRunner:
     predictions dict (reference inference.py:38-75).  One dispatch stays in
     flight: dispatch i's device->host copy and record assembly run while
     dispatch i+1 executes on the device.  ``device`` defaults to ``cuda``;
-    the model is moved there."""
+    the model is moved there.  ``mesh``: this rank of a data-parallel
+    run."""
 
-    def __init__(self, cfg, model, device=None):
+    def __init__(self, cfg, model, device=None, mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.model = model.to(self.device).eval()
         self.graphs = (dispatch.StepGraphs(self.device)
                        if self.device.type == "cuda" else None)
@@ -187,10 +197,10 @@ class InferenceRunner:
             dataset, self.cfg, self.device, batch_size=self.cfg.test_bsz,
             prefetch_depth=self.cfg.prefetch_depth,
             group=max(1, self.cfg.eval_steps_per_dispatch),
-            video_dedup=self.cfg.video_dedup)
-        predictions = {"ts_answer": {}, "raw_bbox": []}
+            video_dedup=self.cfg.video_dedup, mesh=self.mesh)
         with_grounding = bool(object_word_ids) and self.cfg.vfeat_flag
         f_max = max(1, int(dataset.max_annotated_frames()))
+        chunks = []     # per dispatch, per batch: (ts items, bbox records)
 
         def collate_host(host, event, meta, li):
             """One dispatch's K batches, batch i with the meta entries
@@ -199,30 +209,34 @@ class InferenceRunner:
                 event.synchronize()
             stack = {k: v.numpy() for k, v in host.items()}
             b = stack["pred_ids"].shape[1]
-            for i in range(stack["pred_ids"].shape[0]):
+            chunks.append([
                 collate_one({k: v[i] for k, v in stack.items()},
                             {k: v[i * b:(i + 1) * b]
                              for k, v in meta.items()}, li)
+                for i in range(stack["pred_ids"].shape[0])])
 
         def collate_one(out, meta, li):
             n = len(meta["qid"])
+            bbox = []
             if "grd_scores" in out and any(
                     bx is not None for bx in meta["boxes"]):
-                predictions["raw_bbox"].extend(assemble_att_predictions(
+                bbox = assemble_att_predictions(
                     out["grd_scores"][:n], out["grd_idx"][:n],
                     out["grd_nacc"][:n], out["grd_nvalid"][:n],
                     meta["qas_words"], object_word_ids, meta["qid"],
                     meta["vid_name"], meta["image_indices"], meta["boxes"],
-                    meta["anno_st"], li_total=li))
+                    meta["anno_st"], li_total=li)
+            ts = []
             for j in range(n):
                 a = int(out["pred_ids"][j])
                 img_ids = meta["image_indices"][j]
-                predictions["ts_answer"][str(meta["qid"][j])] = [
+                ts.append((str(meta["qid"][j]), [
                     spans_to_seconds(int(out["span_st"][j, a]),
                                      int(out["span_ed"][j, a]),
                                      img_ids[0] if img_ids else 1,
                                      self.cfg.py2_offset_div,
-                                     self.cfg.frame_interval), a]
+                                     self.cfg.frame_interval), a]))
+            return ts, bbox
 
         pending = None
         for batch, meta, _ in pipeline:
@@ -236,4 +250,14 @@ class InferenceRunner:
                 break
         if pending is not None:
             collate_host(*pending)
+        # global row order: each dispatch's batches, each batch's rows rank
+        # after rank
+        predictions = {"ts_answer": {}, "raw_bbox": []}
+        ranks = dp.gather_objects(self.mesh, chunks)
+        for d, batches in enumerate(chunks):
+            for i in range(len(batches)):
+                for rank_chunks in ranks:
+                    ts, bbox = rank_chunks[d][i]
+                    predictions["raw_bbox"].extend(bbox)
+                    predictions["ts_answer"].update(ts)
         return predictions

@@ -35,7 +35,11 @@ names (``data/tvqa.py``; grounding records for the words of
 ``eval_object_vocab_path``), or synthetic data.  Score the predictions with
 ``python -m tvqaplus_tpu_torch.evaluation.tvqa_metrics``.
 
-Runs on ``cuda`` unless ``--device cpu`` is given.
+Runs on ``cuda`` unless ``--device cpu`` is given.  Under ``torchrun
+--nproc_per_node N`` each rank serves its rows of every global
+``test_bsz`` batch (the run's opt.json holds the global size, which N must
+divide) and rank 0 writes the predictions of the whole split, in the
+single-process order.
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ from tvqaplus_tpu_torch.interop.weights import (
     state_dict_from_flax_checkpoint,
 )
 from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+from tvqaplus_tpu_torch.parallel import mesh as dp
 from tvqaplus_tpu_torch.utils.io import save_json
 
 # the batch-layout fields a command line may set over the run's opt.json
@@ -120,7 +125,7 @@ def load_weights(path, cfg):
 
 def main_inference(argv=None):
     cfg, extras = parse_args(argv, extra_fields=EXTRA_FLAGS)
-    device = resolve_device(extras.device)
+    device = resolve_device(dp.init_from_env(extras.device))
     run_dir = run_directory(extras.model_dir)
     given = vars(build_parser(EXTRA_FLAGS).parse_args(argv))
     layout = {k: getattr(cfg, k) for k in SERVING_LAYOUT
@@ -129,6 +134,7 @@ def main_inference(argv=None):
     for k, v in layout.items():
         setattr(cfg, k, v)
     cfg.resolve_device_policy(device)
+    mesh = dp.make_mesh(cfg.mesh_shape)
 
     model = STAGE(ModelConfig.from_config(cfg))
     path = extras.torch_checkpoint or checkpoint_path(run_dir,
@@ -142,15 +148,18 @@ def main_inference(argv=None):
     else:
         dataset = TVQAPlusDataset(cfg, mode=extras.mode)
         object_word_ids = dataset.eval_object_word_ids
-    predictions = InferenceRunner(cfg, model, device).run(
+    predictions = InferenceRunner(cfg, model, device, mesh).run(
         dataset, mode=extras.mode, object_word_ids=object_word_ids,
         debug=cfg.debug)
     pred_path = os.path.join(run_dir,
                              f"{extras.mode}_inference_predictions.json")
-    save_json(predictions, pred_path)
-    print(f"predictions saved to {pred_path}")
+    if mesh.is_main:
+        save_json(predictions, pred_path)
+        print(f"predictions saved to {pred_path}")
+    dp.barrier(mesh)
     return pred_path
 
 
 if __name__ == "__main__":
     main_inference()
+    dp.close()

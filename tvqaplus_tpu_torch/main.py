@@ -16,6 +16,13 @@ returns them), read by ``data/tvqa.py``; or ``--synthetic_data``.
 ``--debug`` is the end-to-end smoke run (the reference's ``run_main.sh
 debug``): one epoch, a break after batch 5 (on synthetic data 64 train /
 32 valid examples).
+
+Data-parallel: ``torchrun --nproc_per_node N -m tvqaplus_tpu_torch.main``
+runs N ranks, one card each (``--device cpu``: gloo on the CPU); the mesh
+is ``--mesh_shape`` (default ``-1 1``: every rank on the data axis).  As in
+the JAX package (main.py:47-52), ``--bsz`` and ``--test_bsz`` are each
+rank's batch: the global batch is N times that, and opt.json records the
+global sizes.  Rank 0 writes the run directory.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from tvqaplus_tpu_torch import resolve_device
 from tvqaplus_tpu_torch.config import parse_args
 from tvqaplus_tpu_torch.data.synthetic import SyntheticTVQADataset
 from tvqaplus_tpu_torch.data.tvqa import TVQAPlusDataset
+from tvqaplus_tpu_torch.parallel import mesh as dp
 from tvqaplus_tpu_torch.train.loop import Trainer
 
 EXTRA_FLAGS = (
@@ -45,19 +53,30 @@ def build_datasets(cfg):
 
 def main(argv=None):
     cfg, extras = parse_args(argv, extra_fields=EXTRA_FLAGS)
-    device = resolve_device(extras.device)
-    cfg.save_run()
+    device = resolve_device(dp.init_from_env(extras.device))
+    mesh = dp.make_mesh(cfg.mesh_shape)
+    # the reference scales the global batch by the device count
+    # (config.py:187-188), the JAX package by the data axis
+    cfg.bsz *= dp.data_parallel_size(mesh)
+    cfg.test_bsz *= dp.data_parallel_size(mesh)
+    # rank 0's run directory (its name holds the time)
+    cfg.results_dir = dp.broadcast_object(mesh, cfg.results_dir)
+    if mesh.is_main:
+        cfg.save_run()
     np.random.seed(cfg.seed)
     torch.manual_seed(cfg.seed)
 
     train_ds, valid_ds = build_datasets(cfg)
-    trainer = Trainer(cfg, device)
-    print(f"Parameter count: {trainer.n_params:,d}")
+    trainer = Trainer(cfg, device, mesh=mesh)
+    if mesh.is_main:
+        print(f"Parameter count: {trainer.n_params:,d}")
     best_acc = trainer.fit(train_ds, valid_ds)
-    print(f"Best val acc: {best_acc:.4f}")
-    print(f"Results dir: {cfg.results_dir}")
+    if mesh.is_main:
+        print(f"Best val acc: {best_acc:.4f}")
+        print(f"Results dir: {cfg.results_dir}")
     return cfg.results_dir, trainer
 
 
 if __name__ == "__main__":
     main()
+    dp.close()

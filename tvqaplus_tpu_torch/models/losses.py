@@ -27,17 +27,25 @@ def _ce_sum(logits, targets, weights):
     return -(picked * weights).sum()
 
 
-def cls_loss(answer_scores, proposal_weights, targets, ex_mask):
+def cls_loss(answer_scores, proposal_weights, targets, ex_mask,
+             count_sum=None):
     """Answer classification loss: (loss, n_correct, n_total).  Train
     shape answer_scores (B, P, A) with proposal_weights (B, P); eval shape
-    (B, A)."""
+    (B, A).  The train loss rescales by the batch's (real examples,
+    weighted proposals); under data parallelism ``count_sum`` sums the
+    (2,) count vector over the ranks in place, so each rank rescales by the
+    global batch's counts (JAX losses.py:56-66 sums them over the global
+    batch) and the ranks' losses sum to the global loss."""
     if answer_scores.dim() == 3:
         b, p, _ = answer_scores.shape
         w = proposal_weights * ex_mask[:, None]
         tgt = targets[:, None].expand(b, p)
         raw = _ce_sum(answer_scores, tgt, w)
         n_eff = w.sum()
-        loss = raw * ex_mask.sum() / torch.clamp(n_eff, min=1.0)
+        counts = torch.stack([ex_mask.sum(), n_eff]).detach()
+        if count_sum is not None:
+            count_sum(counts)
+        loss = raw * counts[0] / torch.clamp(counts[1], min=1.0)
         pred = answer_scores.argmax(-1)
         return loss, ((pred == tgt).float() * w).sum(), n_eff
     raw = _ce_sum(answer_scores, targets, ex_mask)
@@ -145,12 +153,13 @@ def total_loss(outputs, batch, gumbel=None, *, att_weight=0.1,
                ts_weight=0.5, use_sup_att=False, use_hard_negatives=False,
                num_negatives=2, att_loss_type="lse", margin=0.1, alpha=20.0,
                drop_topk=0, negative_pool_size=0, num_hard=2, entry_cap=128,
-               vfeat_flag=True, train=True):
+               vfeat_flag=True, train=True, count_sum=None):
     """loss = cls + ts_weight ts + att_weight att (main.py:55-60).  Returns
-    (loss, metrics)."""
+    (loss, metrics); every metric is a sum over this batch's rows
+    (``count_sum``: see ``cls_loss``)."""
     c_loss, n_correct, n_eff = cls_loss(
         outputs["answer_scores"], outputs["proposal_weights"],
-        batch["target"], batch["ex_mask"])
+        batch["target"], batch["ex_mask"], count_sum)
     t_loss = ts_loss(outputs["t_scores"], batch["ts_st"], batch["ts_ed"],
                      batch["target"], batch["ex_mask"])
     metrics = {"loss_cls": c_loss, "loss_ts": ts_weight * t_loss,

@@ -123,6 +123,29 @@ def draw_seed(generator):
 # two attention sites, the tri bridge, the cls encoder, the merged input
 # encoder)
 SITES = 16
+# the Philox keys of data-parallel rank r start at base + r * RANK_STRIDE:
+# 2**36 steps of SITES keys each before two ranks' keys could meet
+RANK_STRIDE = 1 << 40
+# torch.Generator seeds of the ranks: rank r's is seed + r * GOLDEN
+# (mod 2**64), the 64-bit golden-ratio increment of splitmix64; the att
+# loss's Gumbel-noise generator's is seed + NOISE_SALT on every rank
+GOLDEN = 0x9E3779B97F4A7C15
+NOISE_SALT = 0xBB67AE8584CAA73B
+
+
+def noise_seed(seed):
+    """The seed of the generator that draws the att loss's Gumbel noise,
+    the same on every data-parallel rank (each takes its rows of one global
+    draw) and apart from every rank's dropout seed (``rank_seed``)."""
+    return (seed + NOISE_SALT) % (1 << 64)
+
+
+def rank_seed(seed, rank):
+    """The ``torch.Generator`` seed of data-parallel rank ``rank`` for a
+    run seeded ``seed``: ``seed`` itself on rank 0, so a single process
+    keeps its draws, and another seed on every other rank, so the ranks do
+    not draw the same dropout masks."""
+    return (seed + rank * GOLDEN) % (1 << 64)
 
 
 class StepSeeds:
@@ -130,12 +153,14 @@ class StepSeeds:
     device: the port's counterpart of JAX's ``fold_in(rng, state.step)``
     (tvqaplus_tpu/train/loop.py:148-150).  ``step`` is an int64 counter on
     ``device`` that ``next()`` advances; site i of step s draws under the
-    Philox key ``base + s * SITES + i``, ``base`` drawn once from ``seed``,
-    so no two (step, site) pairs share a key and a CUDA graph that replays
-    the step draws new masks each time, the same as the eager step."""
+    Philox key ``base + rank * RANK_STRIDE + s * SITES + i``, ``base`` drawn
+    once from ``seed``, so no two (rank, step, site) triples share a key,
+    rank 0 keeps a single process's keys, and a CUDA graph that replays the
+    step draws new masks each time, the same as the eager step."""
 
-    def __init__(self, seed, device):
-        base = draw_seed(torch.Generator().manual_seed(seed))
+    def __init__(self, seed, device, rank=0):
+        base = draw_seed(torch.Generator().manual_seed(seed)) \
+            + rank * RANK_STRIDE
         self.sites = (base + torch.arange(SITES)).to(device)
         self.step = torch.zeros((), dtype=torch.int64, device=device)
         self.seeds = torch.empty(SITES, dtype=torch.int64, device=device)

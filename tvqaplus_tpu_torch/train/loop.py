@@ -30,9 +30,23 @@ Steps are dispatched K at a time, as the JAX Trainer dispatches them
 ``debug`` or a batch budget) per dispatch, one CUDA-graph replay each on
 ``cuda``.  A dispatch's metrics are summed over its K steps, and log points
 fall on the reference's batch indices (``log_crossing``).
+
+``mesh`` (parallel/mesh.py) runs the trainer data-parallel: each of N
+ranks takes its rows of every global batch (``DataPipeline(mesh=...)``),
+and a step is the single-process step on the global batch, as JAX's SPMD
+step is (loop.py:89-124, 198-213): the cls loss rescales by the global
+counts, the gradients are summed over the ranks between the backward and
+the clip, the att loss's Gumbel noise is this rank's rows of one global
+draw, and each rank drops other units (its own dropout seeds,
+ops/philox.py ``rank_seed``).  The log windows and the validation totals
+are summed over the ranks and the validation answers gathered in global
+row order, so every control decision (log points, best model, plateau LR,
+early stop, the non-finite halt) reads the same values on every rank.
+Rank 0 alone writes the run's files; the others wait at a barrier.
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 import tempfile
@@ -45,7 +59,8 @@ from tvqaplus_tpu_torch.data.pipeline import DataPipeline
 from tvqaplus_tpu_torch.models.layers import Dropout
 from tvqaplus_tpu_torch.models.losses import gumbel_noise, total_loss
 from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
-from tvqaplus_tpu_torch.ops.philox import StepSeeds
+from tvqaplus_tpu_torch.ops.philox import StepSeeds, noise_seed, rank_seed
+from tvqaplus_tpu_torch.parallel import mesh as dp
 from tvqaplus_tpu_torch.train.metrics import MetricsLogger
 from tvqaplus_tpu_torch.train.state import (
     PlateauScheduler,
@@ -110,11 +125,14 @@ class Trainer:
     """Model, optimizer, schedule and the train/eval steps on ``device``
     (``cuda`` unless the caller asks for ``cpu``).  The model starts from
     seeded random weights (``cfg.seed``) unless ``cfg.resume`` names a
-    checkpoint."""
+    checkpoint.  ``mesh``: this rank of a data-parallel run, whose global
+    batch sizes are ``cfg.bsz`` and ``cfg.test_bsz``."""
 
-    def __init__(self, cfg, device=None, logger=None, model=None):
+    def __init__(self, cfg, device=None, logger=None, model=None, mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.is_main
         self.model_cfg = ModelConfig.from_config(cfg)
         if model is None:
             model = STAGE(self.model_cfg).reset_parameters(
@@ -124,26 +142,36 @@ class Trainer:
         self.optimizer = make_optimizer(self.params, cfg.lr, cfg.wd,
                                         self.device)
         self.scheduler = PlateauScheduler(cfg.lr, factor=0.5, patience=10)
-        self.logger = logger or MetricsLogger(cfg.results_dir)
+        self.logger = logger or MetricsLogger(
+            cfg.results_dir if self.is_main else None)
         self.n_params = count_parameters(self.model)
         self.steps_per_dispatch = cfg.steps_per_dispatch
         if self.steps_per_dispatch == 0:
             self.steps_per_dispatch = dispatch.auto_steps_per_dispatch(cfg)
         # kernel dropout seeds: from the step counter on the device; plain
-        # dropout masks and Gumbel noise: a generator on the device
-        self.seeds = StepSeeds(cfg.seed, self.device)
+        # dropout masks: a generator on the device (both the rank's own);
+        # the att loss's Gumbel noise: one generator alike on every rank
+        rank = 0 if mesh is None else mesh.rank
+        self.seeds = StepSeeds(cfg.seed, self.device, rank)
         self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.seed)
-        self.graphs = (dispatch.StepGraphs(self.device, self.generator)
+            rank_seed(cfg.seed, rank))
+        self.noise_generator = torch.Generator(
+            device=self.device).manual_seed(noise_seed(cfg.seed))
+        self.graphs = (dispatch.StepGraphs(self.device, self.generator,
+                                           self.noise_generator)
                        if self.device.type == "cuda" else None)
         self._names = {}           # metric names of a packed dispatch
         self.trace_path = None     # the profile_dir trace, once written
         self.step = 0
         self.best_acc = 0.0
         self.start_epoch = 0
-        if cfg.resume:
+        extra = {}
+        if cfg.resume:             # every rank reads it; rank 0's holds
             self.step, extra = load_checkpoint(cfg.resume, self.model,
                                                self.optimizer)
+        self.step, extra = dp.broadcast_state(
+            mesh, self.model, self.optimizer, (self.step, extra))
+        if cfg.resume:
             self.best_acc = extra.get("best_acc", 0.0)
             self.start_epoch = extra.get("epoch", 0)
             self.scheduler.lr = extra.get("lr", cfg.lr)
@@ -156,7 +184,9 @@ class Trainer:
             alpha=cfg.alpha, drop_topk=cfg.drop_topk,
             negative_pool_size=cfg.negative_pool_size,
             num_hard=cfg.num_hard, entry_cap=cfg.att_entry_cap,
-            vfeat_flag=cfg.vfeat_flag)
+            vfeat_flag=cfg.vfeat_flag,
+            count_sum=None if mesh is None
+            else functools.partial(dp.all_reduce_sum, mesh))
         # training reads only the vid raw scores, only at the target answer
         self.need_vid_raw = "target" if (cfg.use_sup_att
                                          and cfg.vfeat_flag) else False
@@ -170,15 +200,19 @@ class Trainer:
             return None            # direct hard negatives: no sampling
         bsz, li, lr = batch["vid_mask"].shape
         e = min(cfg.att_entry_cap, li * batch["qas_mask"].shape[-1] * lr)
-        return gumbel_noise((bsz, e, cfg.num_negatives, lr), self.generator,
-                            self.device)
+        # this rank's rows of the global batch's draw
+        n = bsz * (1 if self.mesh is None else self.mesh.data)
+        lo, hi = dp.rank_rows(self.mesh, n)
+        return gumbel_noise((n, e, cfg.num_negatives, lr),
+                            self.noise_generator, self.device)[lo:hi]
 
     def train_step(self, batch, use_hard_negatives=False):
         """One eager optimizer step on a batch already on the device: the
         step's seeds from the counter, which it advances, then forward,
-        losses, backward, clip and Adam in place (what a dispatch's graph
-        captures).  Returns the step's metrics as device tensors
-        (``grad_norm`` is the norm before clipping)."""
+        losses, backward, the gradients' sum over the ranks, clip and Adam
+        in place (what a dispatch's graph captures).  Returns the step's
+        metrics as device tensors: sums over this rank's rows, and
+        ``grad_norm``, the global norm before clipping."""
         self.model.train()
         drop = Dropout(self.cfg.dropout, self.generator, self.seeds.next())
         out = self.model(batch, train=True, need_sub_raw=False,
@@ -188,6 +222,7 @@ class Trainer:
             use_hard_negatives=use_hard_negatives, **self.loss_kwargs)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        dp.all_reduce_grads(self.mesh, self.params)
         metrics["grad_norm"] = clip_grad_norm(self.params, self.cfg.clip)
         self.optimizer.step()
         self.step += 1
@@ -247,34 +282,65 @@ class Trainer:
         return DataPipeline(dataset, self.cfg, self.device,
                             batch_size=batch_size,
                             prefetch_depth=self.cfg.prefetch_depth,
-                            train=train, seed=self.cfg.seed, group=group)
+                            train=train, seed=self.cfg.seed, group=group,
+                            mesh=self.mesh)
+
+    def _summed(self, window):
+        """The log window's per-dispatch values summed over the ranks, as
+        host lists (one all-reduce)."""
+        keys = [k for k, v in window.items() if v]
+        flat = dp.all_reduce_sum(self.mesh, torch.cat(
+            [torch.stack(window[k]).float() for k in keys]))
+        sizes = [len(window[k]) for k in keys]
+        return {k: v.cpu().tolist()
+                for k, v in zip(keys, flat.split(sizes))}
+
+    def _barrier_after(self, write):
+        """``write()`` on rank 0, then every rank waits for it."""
+        if self.is_main:
+            write()
+        dp.barrier(self.mesh)
 
     # ------------------------------------------------------------------
     def validate(self, dataset, max_batches=None):
         """A pass over the valid split: (acc, loss per example,
         qid_corrects) (reference main.py:151-183), ``eval_steps_per_dispatch``
         same-bucket batches a dispatch unless a batch budget (``debug``,
-        ``max_batches``) caps the pass."""
+        ``max_batches``) caps the pass.  Data-parallel: the totals summed
+        over the ranks, ``qid_corrects`` in the global batches' row order,
+        the same on every rank."""
         dataset.set_mode("valid")
         group = max(1, self.cfg.eval_steps_per_dispatch)
         if max_batches is not None or self.cfg.debug:
             group = 1
         pipeline = self._pipeline(dataset, False, self.cfg.test_bsz, group)
         n_correct = loss = n = 0.0
-        qid_corrects = []
+        lines = []          # per dispatch, per batch: this rank's rows
         for i, (batch, meta, _) in enumerate(pipeline):
             metrics, preds = self.dispatch_eval(batch)
             preds = preds.cpu().tolist()
             n_correct += float(metrics["n_correct"])
             loss += float(metrics["loss"])
             n += len(meta["qid"])
-            for j in range(len(meta["qid"])):
-                qid_corrects.append("%d\t%d" % (
-                    meta["qid"][j], int(preds[j] == meta["target"][j])))
+            rows = ["%d\t%d" % (meta["qid"][j],
+                                 int(preds[j] == meta["target"][j]))
+                    for j in range(len(meta["qid"]))]
+            # batch k of the dispatch: rows [k b, (k + 1) b) (only a
+            # stack's last batch can be partial)
+            b = batch["ex_mask"].shape[-1]
+            lines.append([rows[k * b:(k + 1) * b]
+                          for k in range(dispatch.steps_in(batch))])
             if max_batches is not None and i + 1 >= max_batches:
                 break
             if self.cfg.debug and i == 20:
                 break
+        totals = dp.all_reduce_sum(self.mesh, torch.tensor(
+            [n_correct, loss, n], dtype=torch.float64, device=self.device))
+        n_correct, loss, n = totals.tolist()
+        ranks = dp.gather_objects(self.mesh, lines)
+        qid_corrects = [row for d, per_batch in enumerate(lines)
+                        for k in range(len(per_batch))
+                        for rank_lines in ranks for row in rank_lines[d][k]]
         return n_correct / max(n, 1), loss / max(n, 1), qid_corrects
 
     def train_epoch(self, dataset, epoch, use_hard_negatives=False,
@@ -296,7 +362,8 @@ class Trainer:
         profiler = None
         timer = time.time()
         for batch_idx, (batch, _, _) in enumerate(pipeline):
-            if cfg.profile_dir and epoch == 0 and batch_idx == 8:
+            if cfg.profile_dir and epoch == 0 and batch_idx == 8 \
+                    and self.is_main:
                 profiler = start_trace(self.device)
             meters["dataloading"].update(time.time() - timer)
             t0 = time.time()
@@ -318,8 +385,7 @@ class Trainer:
             if triggered:
                 niter = epoch * n_steps + log_point
                 if log_point > 0:
-                    host = {k: torch.stack(v).cpu().tolist()
-                            for k, v in window.items() if v}
+                    host = self._summed(window)
                     self._halt_if_nonfinite(
                         host["loss"], epoch,
                         f"batches [{max(0, log_point - cfg.log_freq)}, "
@@ -355,15 +421,16 @@ class Trainer:
             # main.py:131, counted in batches, not dispatches
             if cfg.debug and steps_done > 5:
                 for name, m in meters.items():
-                    print(f"{name}: max {m.max:.4f} min {m.min:.4f} "
-                          f"avg {m.avg:.4f}")
+                    if self.is_main:
+                        print(f"{name}: max {m.max:.4f} min {m.min:.4f} "
+                              f"avg {m.avg:.4f}")
                 break
         if profiler is not None:
             self.trace_path = stop_trace(profiler, self.device,
                                          cfg.profile_dir)
         if window["loss"]:
             # the tail window gets the non-finite check too
-            tail = torch.stack(window["loss"]).cpu().tolist()
+            tail = self._summed({"loss": window["loss"]})["loss"]
             self._halt_if_nonfinite(tail, epoch, "the epoch's tail window")
         self.logger.append_log("valid_acc.log", valid_acc_log)
         return self.best_acc
@@ -396,7 +463,9 @@ class Trainer:
             else:
                 es_cnt += 1
                 if es_cnt >= cfg.max_es_cnt:
-                    print("=> early stop with valid acc %.4f" % self.best_acc)
+                    if self.is_main:
+                        print("=> early stop with valid acc %.4f"
+                              % self.best_acc)
                     self.logger.export_scalars()
                     break
             self.save(os.path.join(cfg.results_dir, "last.ckpt"), epoch=epoch)
@@ -405,12 +474,19 @@ class Trainer:
         return self.best_acc
 
     def save(self, path, epoch=0):
-        save_checkpoint(path, self.model, self.optimizer, self.step,
-                        extra={"best_acc": self.best_acc, "epoch": epoch,
-                               "lr": self.scheduler.lr})
+        """The trainer's checkpoint, written by rank 0; every rank waits
+        for it."""
+        self._barrier_after(lambda: save_checkpoint(
+            path, self.model, self.optimizer, self.step,
+            extra={"best_acc": self.best_acc, "epoch": epoch,
+                   "lr": self.scheduler.lr}))
 
     def save_best(self):
         """``best_valid.pth``: the model's state_dict in the reference
-        format, which the port's inference CLI reads."""
-        sd = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
-        torch.save(sd, os.path.join(self.cfg.results_dir, "best_valid.pth"))
+        format, which the port's inference CLI reads (rank 0 writes it)."""
+        def write():
+            sd = {k: v.detach().cpu()
+                  for k, v in self.model.state_dict().items()}
+            torch.save(sd, os.path.join(self.cfg.results_dir,
+                                        "best_valid.pth"))
+        self._barrier_after(write)

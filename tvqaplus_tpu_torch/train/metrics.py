@@ -33,33 +33,47 @@ def tb_writer(log_dir):
 
 
 class MetricsLogger:
+    """The scalars of a run, written into ``results_dir``; with
+    ``results_dir`` None (a data-parallel rank other than 0) kept in
+    ``history`` only, and no file is written."""
+
     def __init__(self, results_dir):
         self.results_dir = results_dir
+        self.history = defaultdict(list)
+        self._f = self.tb = None
+        if results_dir is None:
+            return
         os.makedirs(results_dir, exist_ok=True)
         self.scalar_path = os.path.join(results_dir, "scalars.jsonl")
         self._f = open(self.scalar_path, "a")
         self.tb = tb_writer(results_dir)
-        self.history = defaultdict(list)
 
     def add_scalar(self, tag, value, step):
         value = float(value)
+        self.history[tag].append((int(step), value))
+        if self._f is None:
+            return
         rec = {"tag": tag, "value": value, "step": int(step),
                "ts": time.time()}
         self._f.write(json.dumps(rec) + "\n")
         self._f.flush()
-        self.history[tag].append((int(step), value))
         if self.tb is not None:
             self.tb.add_scalar(tag, value, step)
 
     def append_log(self, filename, lines):
+        if self.results_dir is None:
+            return
         with open(os.path.join(self.results_dir, filename), "a") as f:
             f.write("\n".join(lines) + "\n")
 
     def export_scalars(self, filename="all_scalars.json"):
+        if self.results_dir is None:
+            return
         save_json_pretty(dict(self.history),
                          os.path.join(self.results_dir, filename))
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
         if self.tb is not None:
             self.tb.close()
