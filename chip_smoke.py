@@ -138,6 +138,28 @@ Data parallelism (``tvqaplus_tpu_torch/parallel/mesh.py``):
              NCCL all-reduce kernels of every step (the cls counts and the
              2.21 MB gradient sum) with their device us.  Placed before
              ``noun_void`` and ``pipeline``.
+9q. mesh_axes - the ctx and model axes.  (a) Mesh (1, 1, 1) in a world-1
+             NCCL group: the headline separate-path trainer for 12 K = 4
+             replays and a serve pass, deterministic algorithms on, bit for
+             bit the same without a group, with data_parallel's wrapper
+             launches over the 12 dispatches and the nodes a step of the
+             captured graph of a trainer on data_parallel's mesh (-1, 1)
+             beside it, so the axes cost nothing when they are off.  (b) Two
+             processes on the one card (NCCL refuses two ranks on one
+             card), joined by a gloo group over CUDA tensors that this
+             harness makes (a collective gloo refuses on CUDA tensors,
+             found by a probe, is staged through host copies here, never
+             in the package), eager (gloo collectives cannot be captured):
+             meshes (1, 2) (each rank runs the kernels at Li 25) and (1,
+             1, 2) (the BERT and vid bridges split by columns) at the
+             headline shapes, float32, dropout 0, deterministic algorithms
+             on, against the single process: three train steps' losses
+             and grad norms (the first at 1e-5, the CPU tests' bar; later
+             ones drift, MESH_STEP_RTOL), the two replicas' equal bit
+             for bit, the serve step's answers and spans identical and its
+             grounding at 1e-4; one bf16 forward at FWD_TOL; each rank's
+             eager step ms and the bytes its all-gathers received beside
+             the single process's.
 
 Then the ``kernels`` summary line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line.
@@ -2062,7 +2084,10 @@ def phase_data_parallel(dev, workdir, smi):
     """The headline trainer and one serve pass in a world-1 NCCL group
     against the same without a group: equal bits (deterministic algorithms
     on), the collectives inside the K-step replay, and what they cost (in
-    that mode, and in the default mode with fresh trainers)."""
+    that mode, and in the default mode with fresh trainers).  Returns the
+    group trainer's wrapper launches over its 12 dispatches and its
+    profiled launches a step in the deterministic mode, which phase
+    mesh_axes holds its (1, 1, 1) trainer to."""
     from tvqaplus_tpu_torch.data.synthetic import SyntheticTVQADataset
     from tvqaplus_tpu_torch.infer.predict import InferenceRunner
     from tvqaplus_tpu_torch.parallel import mesh as dp
@@ -2165,6 +2190,346 @@ def phase_data_parallel(dev, workdir, smi):
           "serve_records": len(preds["group"]["raw_bbox"]),
           "valid_acc": valid["group"][0],
           "train_main_run": os.listdir(run_dir),
+          "wall_s": time.perf_counter() - t0})
+    return launches, timing_det["group"]["launches_per_step"]
+
+
+# ------------------------------------------------- the ctx and model axes
+MESH_SHAPES = [(1, 2), (1, 1, 2)]   # two processes on the one card
+MESH_TRAIN_STEPS = 3                 # checked eager steps a mesh
+# (loss, grad norm) relative bars of the two-process steps against the
+# single process, deterministic algorithms on.  The first step: 1e-5, the
+# CPU tests' bar (tests/test_torch_mesh_axes.py): the same weights, the
+# per-frame kernels on half the frames or the bridges on half the
+# columns, float32 sums in another order.  After an Adam update the two
+# trajectories part by more than that rounding, as JAX's own
+# tensor-parallel test says of its step 2 (tests/test_train.py:322-352,
+# held at 5e-3): Adam's first update moves every parameter by about lr,
+# one whose gradient is rounding noise with a random sign, and a column
+# block's product rounds otherwise on the card (cuBLAS) where the CPU's
+# rounds alike.  Measured on an NVIDIA H100 80GB HBM3 (700 W): the losses
+# after an update 1.2e-5 to 2.6e-3 apart, the grad norms up to 1.6% (on
+# the CPU at batch 2 x 4 frames: 2.6e-5).  Later steps: the loss at JAX's
+# 5e-3, the grad norm at 5e-2.
+MESH_STEP_RTOL = ((1e-5, 1e-5), (5e-3, 5e-2))
+MESH_GROUNDING_TOL = 1e-4
+
+
+def _staged(name, real):
+    """``real`` (a torch.distributed collective) over host copies of its
+    CUDA tensors: for a collective that gloo refuses on them."""
+    def all_reduce(t, *args, **kw):
+        h = t.cpu()
+        work = real(h, *args, **kw)
+        t.copy_(h)
+        return work
+
+    def broadcast(t, *args, **kw):
+        h = t.cpu()
+        work = real(h, *args, **kw)
+        t.copy_(h)
+        return work
+
+    def all_gather(outs, t, *args, **kw):
+        hs = [torch.empty(o.shape, dtype=o.dtype) for o in outs]
+        work = real(hs, t.cpu(), *args, **kw)
+        for o, h in zip(outs, hs):
+            o.copy_(h)
+        return work
+    return {"all_reduce": all_reduce, "broadcast": broadcast,
+            "all_gather": all_gather}[name]
+
+
+def gloo_on_cuda(dev):
+    """Probe the collectives the package calls with CUDA tensors over the
+    gloo group; stage each that gloo refuses through host copies (this
+    harness only).  Then count the bytes every all-gather receives.
+    Returns (the staged names, the byte counter)."""
+    import torch.distributed as dist
+    x = torch.arange(4.0, device=dev)
+    probes = {
+        "all_reduce": lambda f: f(x.clone()),
+        "broadcast": lambda f: f(x.clone(), src=0),
+        "all_gather": lambda f: f([torch.empty_like(x) for _ in range(2)],
+                                  x)}
+    staged = []
+    for name, probe in probes.items():
+        try:
+            probe(getattr(dist, name))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+        except RuntimeError:
+            if dev.type != "cuda":
+                raise
+            setattr(dist, name, _staged(name, getattr(dist, name)))
+            staged.append(name)
+    counter = {"bytes": 0}
+    gather = dist.all_gather
+
+    def counted(outs, t, *args, **kw):
+        counter["bytes"] += sum(o.numel() * o.element_size()
+                                for o in outs) - t.numel() * t.element_size()
+        return gather(outs, t, *args, **kw)
+    dist.all_gather = counted
+    return staged, counter
+
+
+def mesh_steps(job, mesh, dev, counter=None):
+    """What phase mesh_axes compares, on ``mesh`` (None: the single
+    process): three eager train steps' losses and grad norms, the eager
+    train step's ms (and the bytes its all-gathers received), the serve
+    step's outputs and ms (float32, dropout 0), and the bf16 forward's
+    outputs."""
+    from tvqaplus_tpu_torch.infer.predict import InferenceRunner
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    from tvqaplus_tpu_torch.parallel import mesh as dp
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    cfg = job["cfg"]
+
+    def model_of(c):
+        m = STAGE(ModelConfig.from_config(c))
+        m.load_state_dict(job["sd"])
+        return m
+    train = dp.shard_batch(mesh, {k: v.to(dev) for k, v in
+                                  job["train"].items()})
+    serve = dp.shard_batch(mesh, {k: v.to(dev) for k, v in
+                                  job["serve"].items()})
+    trainer = Trainer(cfg, dev, model=model_of(cfg), mesh=mesh)
+    trainer.graphs = None                  # eager: gloo is not captured
+    out = {"train": []}
+    for _ in range(MESH_TRAIN_STEPS):
+        m = trainer.train_step(train, True)
+        out["train"].append((float(m["loss"]), float(m["grad_norm"])))
+    if counter is not None:
+        counter["bytes"] = 0
+        trainer.train_step(train, True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["train_gathered_bytes"] = counter["bytes"]
+    timed = dev.type == "cuda"       # a CPU rehearsal times nothing
+    out["train_ms"] = time_ms(lambda: trainer.train_step(train, True),
+                              reps=5, warmup=1) if timed else None
+    runner = InferenceRunner(cfg, model_of(cfg), dev, mesh)
+    runner.graphs = None
+    if counter is not None:
+        counter["bytes"] = 0
+    res = runner.step(serve, True, job["frames"])
+    if timed:
+        torch.cuda.synchronize()
+    if counter is not None:
+        out["serve_gathered_bytes"] = counter["bytes"]
+    out["serve"] = {k: v.cpu() for k, v in res.items()}
+    out["serve_ms"] = time_ms(lambda: runner.step(serve, True, job["frames"]),
+                              reps=5, warmup=1) if timed else None
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    out["bf16"] = forward_outputs(
+        dp.place_model(mesh, model_of(bf16).to(dev)), serve)
+    return out
+
+
+def mesh_rank(rank, port, path):
+    """One of phase mesh_axes's two processes: the card, a gloo group of
+    two over ``tcp://127.0.0.1:port``, ``mesh_steps`` on each mesh of the
+    job; what it saw goes to ``<path>.rank<rank>``."""
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    from tvqaplus_tpu_torch.parallel import mesh as dp
+    job = torch.load(path, weights_only=False)
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)   # both ranks: LOCAL_RANK 1 names no card
+        dev = torch.device("cuda", 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    try:
+        staged, counter = gloo_on_cuda(dev)
+        out = {"staged": staged}
+        for shape in MESH_SHAPES:
+            mesh = dp.make_mesh(shape)
+            res = mesh_steps(job, mesh, dev, counter)
+            res["coords"], res["sharded"] = mesh.coords, sorted(
+                dp.sharded_parameters(
+                    _stage(job["cfg"]), mesh.model_size))
+            out[str(shape)] = res
+        torch.save(out, f"{path}.rank{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def _stage(cfg):
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    return STAGE(ModelConfig.from_config(cfg))
+
+
+def graph_nodes(graphs):
+    """The nodes of the one CUDA graph a ``StepGraphs`` holds
+    (``cudaGraphGetNodes`` through the CUDA runtime torch loaded, else the
+    toolkit's)."""
+    import ctypes
+    (graph,) = graphs.graphs.values()
+    with open("/proc/self/maps") as f:
+        lib = next((line.split()[-1] for line in f if "libcudart" in line),
+                   os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                                "lib64", "libcudart.so"))
+    cudart = ctypes.CDLL(lib)
+    cudart.cudaGraphGetNodes.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)]
+    cudart.cudaGraphGetNodes.restype = ctypes.c_int
+    n = ctypes.c_size_t(0)
+    err = cudart.cudaGraphGetNodes(
+        ctypes.c_void_p(graph.graph.raw_cuda_graph()), None, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cudaGraphGetNodes: error {err}")
+    return n.value
+
+
+def mesh_off(dev, workdir, dp_launches, dp_per_step):
+    """Part (a) of phase mesh_axes: mesh (1, 1, 1) in a world-1 NCCL
+    group against no group, deterministic algorithms on."""
+    from tvqaplus_tpu_torch.data.synthetic import SyntheticTVQADataset
+    from tvqaplus_tpu_torch.infer.predict import InferenceRunner
+    from tvqaplus_tpu_torch.parallel import mesh as dp
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    dp.init_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                        local_device_ids=[dev.index or 0], device=dev.type)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    graph_cls = torch.cuda.CUDAGraph
+    # the trainers' graphs keep their cudaGraph_t, whose nodes are counted
+    torch.cuda.CUDAGraph = lambda: graph_cls(keep_graph=True)
+    try:
+        mesh = dp.make_mesh((1, 1, 1))
+        if mesh.ctx_group is not None or mesh.model_group is not None:
+            raise AssertionError("groups for axes of size 1")
+        cfg = train_config(workdir, bsz=B, test_bsz=B).finalize(dev)
+        trainers = {"mesh_111": Trainer(cfg, dev, mesh=mesh),
+                    "no_group": Trainer(cfg, dev)}
+        four = train_stack(cfg, dev, DISPATCH_K)
+        losses, launches = {name: [] for name in trainers}, None
+        for name, trainer in trainers.items():
+            reset_counters()
+            for _ in range(DP_DISPATCHES):
+                m = trainer.dispatch_train(four)
+                losses[name].append((float(m["loss"]),
+                                     float(m["grad_norm"])))
+            torch.cuda.synchronize()
+            if name == "mesh_111":
+                launches = read_counters(SEPARATE_TRAIN)
+        tm, tn = trainers["mesh_111"], trainers["no_group"]
+        same = all(torch.equal(a, b) for a, b in
+                   zip(state_tensors(tm), state_tensors(tn)))
+        if losses["mesh_111"] != losses["no_group"] or not same:
+            raise AssertionError(f"(1, 1, 1) vs no group: {losses}, state "
+                                 f"equal {same}")
+        # launches a step: the nodes of each trainer's captured K-step
+        # graph (exact, where a profiler trace can drop events), beside a
+        # fresh trainer on data_parallel's mesh, (-1, 1) in the same group
+        trainers["mesh_data"] = Trainer(cfg, dev, mesh=dp.make_mesh())
+        trainers["mesh_data"].dispatch_train(four)   # warm-up and capture
+        per_step = {name: graph_nodes(t.graphs) / DISPATCH_K
+                    for name, t in trainers.items()}
+        if launches != dp_launches \
+                or per_step["mesh_111"] != per_step["mesh_data"]:
+            raise AssertionError(
+                f"(1, 1, 1) launches {launches}, graph nodes a step "
+                f"{per_step}; data_parallel's {dp_launches}")
+        ds = SyntheticTVQADataset(cfg, 2 * B, mode="valid")
+        words = list(range(3, 1000, 4))
+        preds = {name: InferenceRunner(cfg, trainers[name].model, dev,
+                                       mesh if name == "mesh_111" else None
+                                       ).run(ds, object_word_ids=words)
+                 for name in ("mesh_111", "no_group")}
+        if preds["mesh_111"] != preds["no_group"]:
+            raise AssertionError("(1, 1, 1) vs no group: the serve pass's "
+                                 "predictions differ")
+    finally:
+        torch.cuda.CUDAGraph = graph_cls
+        torch.use_deterministic_algorithms(False)
+        dp.close()
+    return {"bitwise_equal": True, "launches": launches,
+            "graph_nodes_per_step": per_step,
+            "data_parallel_profiled_launches_per_step": dp_per_step,
+            "losses": losses["mesh_111"][:3],
+            "serve_qas": len(preds["mesh_111"]["ts_answer"])}
+
+
+def phase_mesh_axes(dev, workdir, smi, dp_launches, dp_per_step):
+    """The ctx and model axes on the card: (a) ``mesh_off``; (b) two
+    processes at (1, 2) and (1, 1, 2) against the single process."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    off = mesh_off(dev, workdir, dp_launches, dp_per_step)
+    cfg = train_config(workdir, bsz=B, test_bsz=B, dropout=0.0,
+                       compute_dtype="float32").finalize(dev)
+    sd = _stage(cfg).reset_parameters(
+        torch.Generator().manual_seed(SEED)).state_dict()
+    job = {"cfg": cfg, "sd": sd, "train": train_batch(cfg, "cpu", B),
+           "serve": headline_batch(cfg, "cpu"), "device": DEVICE,
+           "frames": LI}
+    path = os.path.join(workdir, "mesh_axes_job")
+    torch.save(job, path)
+    t_spawn = time.perf_counter()
+    mp.start_processes(mesh_rank, args=(free_port(), path), nprocs=2,
+                       join=True, start_method="spawn")
+    ranks = [torch.load(f"{path}.rank{r}", weights_only=False)
+             for r in range(2)]
+    spawn_s = time.perf_counter() - t_spawn
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        single = mesh_steps(job, None, dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    report, failed = {}, []
+    for shape in MESH_SHAPES:
+        rows = []
+        for r, rank in enumerate(ranks):
+            got = rank[str(shape)]
+            for i, ((lg, ng), (lw, nw)) in enumerate(zip(got["train"],
+                                                         single["train"])):
+                bar_l, bar_n = MESH_STEP_RTOL[min(i, 1)]
+                if abs(lg - lw) > bar_l * abs(lw) \
+                        or abs(ng - nw) > bar_n * abs(nw):
+                    failed.append(f"{shape} rank {r} step {i}: loss {lg} vs "
+                                  f"{lw}, grad_norm {ng} vs {nw}")
+            g, w = got["serve"], single["serve"]
+            for k in ("pred_ids", "span_st", "span_ed", "grd_nacc",
+                      "grd_nvalid"):
+                if not torch.equal(g[k], w[k]):
+                    failed.append(f"{shape} rank {r}: serve {k} differs")
+            diff = (g["grd_scores"] - w["grd_scores"]).abs()
+            diff[g["grd_scores"] == w["grd_scores"]] = 0.0   # +inf tails
+            grd = float(diff.max())
+            if not grd <= MESH_GROUNDING_TOL:
+                failed.append(f"{shape} rank {r}: grounding {grd}")
+            bf16, bad = forward_errors(got["bf16"], single["bf16"],
+                                       FWD_TOL["bfloat16"])
+            failed += [f"{shape} rank {r} bf16: {bad}"] if bad else []
+            if got["train"] != ranks[0][str(shape)]["train"]:
+                failed.append(f"{shape} rank {r}: the replicas' losses part")
+            rows.append({
+                "rank": r, "coords": got["coords"],
+                "sharded": got["sharded"],
+                "losses": got["train"], "grounding_max_abs_err": grd,
+                "bf16_vs_single": bf16,
+                "train_step_ms": got["train_ms"],
+                "serve_step_ms": got["serve_ms"],
+                "train_gathered_bytes": got["train_gathered_bytes"],
+                "serve_gathered_bytes": got["serve_gathered_bytes"]})
+        report[str(shape)] = rows
+    if failed:
+        raise AssertionError(f"mesh_axes: {failed}")
+    emit({"phase": "mesh_axes", "ok": True, "nvidia_smi": smi,
+          "mesh_off": off, "gloo_staged": ranks[0]["staged"],
+          "batch": B, "frames": LI, "compute_dtype": "float32",
+          "single": {"losses": single["train"],
+                     "train_step_ms": single["train_ms"],
+                     "serve_step_ms": single["serve_ms"]},
+          "meshes": report, "two_process_s": spawn_s,
           "wall_s": time.perf_counter() - t0})
 
 
@@ -2483,7 +2848,8 @@ def main():
         phase_jax_checkpoint(dev, workdir)
         phase_heads(dev, workdir)
         phase_bookkeeping(dev, workdir)
-        phase_data_parallel(dev, workdir, smi)
+        dp_launches, dp_per_step = phase_data_parallel(dev, workdir, smi)
+        phase_mesh_axes(dev, workdir, smi, dp_launches, dp_per_step)
         phase_noun_void(dev, workdir, cfg)
         phase_pipeline(dev, workdir)
     # each row's launches: the count of the main path that runs its kernel

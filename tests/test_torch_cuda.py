@@ -1107,6 +1107,58 @@ def test_replayed_dispatches_equal_eager_steps(cuda, tmp_path, merged,
     assert graph.step == eager.step == 6
 
 
+@pytest.mark.cuda
+def test_a_mesh_of_one_in_a_world_one_nccl_group_equals_no_group(
+        cuda, tmp_path, monkeypatch):
+    """Mesh (1, 1, 1) in a world-1 NCCL group: the ctx and model axes of
+    size 1 make no call, so a replayed train dispatch of two steps
+    (deterministic algorithms, dropout 0.1, bf16) and a replayed serve
+    dispatch give the bits of the same trainer and runner without a group,
+    with the group's collectives (the cls counts and the gradient sum)
+    captured in the replay."""
+    import socket
+
+    from tvqaplus_tpu_torch.config import Config
+    from tvqaplus_tpu_torch.infer.predict import InferenceRunner
+    from tvqaplus_tpu_torch.parallel import mesh as dp
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    n, frames = 2, 12
+    cfg = Config(synthetic_data=True, add_local=True, use_sup_att=True,
+                 bsz=n, test_bsz=n, seed=3, results_dir=str(tmp_path)
+                 ).finalize(cuda)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dp.init_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        mesh = dp.make_mesh((1, 1, 1))
+        assert mesh.ctx_group is None and mesh.model_group is None
+        assert mesh.data_group is mesh.grad_group is mesh.group
+        grouped, alone = Trainer(cfg, cuda, mesh=mesh), Trainer(cfg, cuda)
+        tb = step_batch(cfg, n, frames, True, cuda)
+        stack = {k: torch.stack([v, v.flip(0)]) for k, v in tb.items()}
+        for _ in range(3):                  # warm-up and capture, replays
+            mg = grouped.dispatch_train(stack)
+            ma = alone.dispatch_train(stack)
+            for key in mg:
+                assert float(mg[key]) == float(ma[key]), key
+            for p, q in zip(grouped.params, alone.params):
+                assert torch.equal(p, q)
+        assert len(grouped.graphs.graphs) == 1
+        vb = step_batch(cfg, n, frames, False, cuda)
+        runners = [InferenceRunner(cfg, t.model, cuda, m) for t, m in
+                   ((grouped, mesh), (alone, None))]
+        for _ in range(3):
+            a, b = (r.dispatch_infer(vb, True, frames) for r in runners)
+            for k in a:
+                assert torch.equal(a[k], b[k]), k
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dp.close()
+
+
 # ------------------------------------- noun masks, void vectors, dedup
 def with_noun_masks(batch):
     """``batch`` with noun masks: every third word off, one answer's row

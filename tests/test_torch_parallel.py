@@ -49,8 +49,8 @@ METRICS = ("loss", "loss_cls", "loss_ts", "loss_att", "n_correct", "n_eff",
     ((-1, 1), 4, 4), ((4, 1), 4, 4), ((-1, 1, 1), 4, 4), ((4, -1), 4, 4),
     ((-1, 1), 1, 1), ((1, 1), 1, 1)])
 def test_make_mesh_absorbs_the_world(monkeypatch, shape, world, data):
-    """The port's cases of tests/test_parallel.py:16-24: -1 takes the
-    world size; ctx and model stay 1."""
+    """The port's cases of tests/test_parallel.py:16-24 on the data axis:
+    -1 takes the world size."""
     monkeypatch.setattr(dp, "_world", lambda: (world, world - 1, "group"))
     mesh = dp.make_mesh(shape)
     assert dp.data_parallel_size(mesh) == data == mesh.data
@@ -61,28 +61,49 @@ def test_make_mesh_absorbs_the_world(monkeypatch, shape, world, data):
 
 
 @pytest.mark.parametrize("shape, world, match", [
-    ((-1, 2), 4, r"ctx = 2; context parallelism .*A9b"),
-    ((2, 2), 4, r"ctx = 2"),
-    ((-1, 1, 2), 4, r"model = 2; the model axis.*A9c"),
-    ((2, 1), 4, r"data = 2, but 4 process"),
-    ((8, 1), 4, r"data = 8, but 4 process"),
+    ((2, 1), 4, r"data x ctx x model = 2, but 4 process"),
+    ((8, 1), 4, r"= 8, but 4 process"),
     ((4, 1), 1, r"torchrun --nproc_per_node 4"),
+    ((2, 2), 8, r"= 4, but 8 process"),
+    ((1, 4, 2), 4, r"torchrun --nproc_per_node 8"),
     ((-1, -1), 4, r"one -1"),
     ((-1, 3), 4, r"does not divide"),
     ((-1,), 1, r"2 or 3 entries")])
 def test_make_mesh_refuses_what_is_not_ported(monkeypatch, shape, world,
                                               match):
-    """ctx > 1, model > 1 and a data size other than the world size raise,
-    naming what is missing; nothing runs them at 1."""
+    """A mesh whose sizes do not multiply to the world size raises, naming
+    the launch it needs; so do a second -1 and a shape of 1 or 4 entries.
+    (Every shape JAX's ``make_mesh`` takes over the whole world is ported:
+    ``test_make_mesh_takes_the_ctx_and_model_axes``.)"""
     monkeypatch.setattr(dp, "_world", lambda: (world, 0, "group"))
     with pytest.raises(ValueError, match=match):
         dp.make_mesh(shape)
 
 
-def test_multihost_mesh_takes_ctx_one_only(monkeypatch):
+@pytest.mark.parametrize("shape, world, sizes", [
+    ((-1, 2), 4, (2, 2, None)), ((2, 2), 4, (2, 2, None)),
+    ((-1, 1, 2), 4, (2, 1, 2))])
+def test_make_mesh_takes_the_ctx_and_model_axes(monkeypatch, shape, world,
+                                                sizes):
+    """The shapes that raised before the ctx and model axes were ported:
+    their sizes, and the last rank's place (d, c, m) in the row-major
+    grid."""
+    monkeypatch.setattr(dp, "_world", lambda: (world, world - 1, "group"))
+    monkeypatch.setattr(dp.dist, "new_group", lambda ranks: tuple(ranks))
+    mesh = dp.make_mesh(shape)
+    assert (mesh.data, mesh.ctx, mesh.model) == sizes
+    assert mesh.coords == (sizes[0] - 1, sizes[1] - 1,
+                           (sizes[2] or 1) - 1)
+
+
+def test_multihost_mesh_takes_ctx(monkeypatch):
+    """ctx 2 over a node of 4 processes: two data rows of two ctx ranks."""
     monkeypatch.setattr(dp, "_world", lambda: (4, 0, "group"))
-    with pytest.raises(ValueError, match="A9b"):
-        dp.make_multihost_mesh(ctx=2)
+    monkeypatch.setattr(dp.dist, "new_group", lambda ranks: tuple(ranks))
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    mesh = dp.make_multihost_mesh(ctx=2)
+    assert mesh.shape == {"data": 2, "ctx": 2}
+    assert (mesh.data_group, mesh.ctx_group) == ((0, 2), (0, 1))
 
 
 def test_without_a_group_the_mesh_is_one_rank_and_talks_to_no_one():

@@ -1,5 +1,5 @@
-"""The rank programs of tests/test_torch_parallel.py and
-tests/test_torch_parallel_cli.py.
+"""The rank programs of tests/test_torch_parallel.py,
+tests/test_torch_parallel_cli.py and tests/test_torch_mesh_axes.py.
 
 ``run_ranks(fn, world, path)`` starts ``world`` processes (spawn), joins
 them in a gloo process group over ``tcp://127.0.0.1`` on a free port
@@ -46,26 +46,63 @@ def _job(path):
     return torch.load(path, weights_only=False)
 
 
-def train_job(cfg, state_dict, batches, use_hard_negatives, rows="shard"):
+def train_job(cfg, state_dict, batches, use_hard_negatives, rows="shard",
+              mesh_shape=(-1, 1), probe=False, save=None, resume=None):
     """A training job: ``batches`` (global batches, each a dict of CPU
-    tensors, stacked when K > 1) dispatched in order from ``state_dict``.
-    ``rows``: "shard" gives each rank its rows, "same" every rank the whole
-    batch."""
+    tensors, stacked when K > 1) dispatched in order from ``state_dict``
+    on a mesh of ``mesh_shape``.  ``rows``: "shard" gives each rank its
+    part (``shard_batch``), "same" every rank the whole batch.  ``probe``:
+    record the QA stream and the classifier's input of each step.
+    ``save``: write the trainer's checkpoint there after the last
+    dispatch; ``resume``: start from that checkpoint."""
     return {"cfg": cfg, "sd": state_dict, "batches": batches,
-            "use_hard": use_hard_negatives, "rows": rows}
+            "use_hard": use_hard_negatives, "rows": rows,
+            "mesh_shape": mesh_shape, "probe": probe, "save": save,
+            "resume": resume}
+
+
+def _probe(model):
+    """Hooks that record, per forward, the input encoder's first output
+    (the QA stream on the separate path) and the classifier's input (the
+    pooled statement)."""
+    seen = {"qa": [], "pooled": []}
+
+    def encoder(mod, args, out):
+        if len(seen["qa"]) < len(seen["pooled"]) + 1:
+            seen["qa"].append(out.detach().clone())
+
+    def classifier(mod, args):
+        seen["pooled"].append(args[0].detach().clone())
+    model.input_encoder.register_forward_hook(encoder)
+    model.classifier.register_forward_pre_hook(classifier)
+    return seen
+
+
+def _whole(mesh, model, name, t):
+    """``t`` of the parameter ``name``, all-gathered whole when the model
+    axis splits it."""
+    if name not in model.shards:
+        return t.detach().clone()
+    return dp._gather_full(mesh, t.detach())
 
 
 def train(job, mesh):
     """Run a ``train_job`` on this process (``mesh`` None: no group);
-    returns the metrics of each dispatch (floats: this rank's sums and the
-    global grad_norm), the gradients and parameters after the last one, and
-    the rank's Gumbel draw of the first batch."""
+    returns the metrics of each dispatch (floats: this data row's sums and
+    the global grad_norm), the whole gradients and parameters after the
+    last one, the names of the parameters the model axis split, and what
+    ``probe`` recorded."""
+    import dataclasses as dc
+
     from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
     from tvqaplus_tpu_torch.train.loop import Trainer
     cfg = job["cfg"]
+    if job.get("resume"):
+        cfg = dc.replace(cfg, resume=job["resume"])
     model = STAGE(ModelConfig.from_config(cfg))
     model.load_state_dict(job["sd"], strict=True)
     trainer = Trainer(cfg, "cpu", model=model, mesh=mesh)
+    seen = _probe(model) if job.get("probe") else None
     metrics = []
     for batch in job["batches"]:
         stacked = batch["ex_mask"].dim() == 2
@@ -74,14 +111,20 @@ def train(job, mesh):
         m = trainer.dispatch_train(batch, job["use_hard"])
         metrics.append({k: float(v) for k, v in m.items()})
     named = dict(model.named_parameters())
-    return {"metrics": metrics,
-            "grads": {k: p.grad.detach().clone() for k, p in named.items()},
-            "params": {k: p.detach().clone() for k, p in named.items()},
-            "step": trainer.step}
+    grads = {k: _whole(mesh, model, k, p.grad) for k, p in named.items()}
+    with dp.full_state(mesh, model):
+        params = {k: p.detach().clone() for k, p in named.items()}
+    if job.get("save"):
+        trainer.save(job["save"])
+    return {"metrics": metrics, "grads": grads, "params": params,
+            "step": trainer.step,
+            "sharded": sorted(model.shards), "seen": seen,
+            "coords": None if mesh is None else mesh.coords}
 
 
 def train_rank(rank, path):
-    return train(_job(path), dp.make_mesh())
+    job = _job(path)
+    return train(job, dp.make_mesh(job.get("mesh_shape", (-1, 1))))
 
 
 def fit_rank(rank, path):
@@ -128,6 +171,7 @@ def infer_rank(rank, path):
     cfg = job["cfg"]
     model = STAGE(ModelConfig.from_config(cfg))
     model.load_state_dict(job["sd"], strict=True)
-    runner = InferenceRunner(cfg, model, "cpu", dp.make_mesh())
+    runner = InferenceRunner(cfg, model, "cpu",
+                             dp.make_mesh(job.get("mesh_shape", (-1, 1))))
     return runner.run(SyntheticTVQADataset(cfg, job["n"], mode="valid"),
                       object_word_ids=job["words"])

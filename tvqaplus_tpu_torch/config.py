@@ -4,7 +4,7 @@ Every field keeps the JAX name and default, so the port reads a JAX run's
 ``opt.json`` unchanged (``override_from``, reference TestOptions
 semantics).  Fields that only the JAX runtime reads (PRNG, XLA cache,
 ``use_pallas``) are kept for that reason and ignored here; ``mesh_shape``
-is read by the data-parallel entry points (parallel/mesh.py).
+is read by the entry points under ``torchrun`` (parallel/mesh.py).
 
 What differs is the device policy: ``finalize(device)`` resolves
 
@@ -139,8 +139,8 @@ class Config:
     max_num_proposal: int = 1
     att_entry_cap: int = 128
     compute_dtype: str = "auto"         # {"auto", "float32", "bfloat16"}
-    # (data, ctx[, model]); the port runs the data axis over processes
-    # (parallel/mesh.py), ctx and model must be 1
+    # (data, ctx[, model]) over the processes of a torchrun launch
+    # (parallel/mesh.py): data x ctx x model = their number, one -1 entry
     mesh_shape: List[int] = field(default_factory=lambda: [-1, 1])
     use_pallas: Optional[bool] = None   # JAX-only; see use_kernels
     py2_offset_div: bool = False

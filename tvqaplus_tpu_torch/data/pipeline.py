@@ -32,14 +32,16 @@ pipeline.py:62-91):
   each example's row; the serve step gathers them back on the card
   (infer/predict.py ``expand_video_dedup``).
 
-Under data parallelism (``mesh``, parallel/mesh.py) ``batch_size`` is the
-global batch of N ranks.  Every rank makes every shape decision on the
-global batch, the same on each: the shuffle order, the Li bucket, the St
-bucket and the K-grouping, so all ranks run one sequence of dispatch
-shapes (a rank that ran another shape would wait forever in a collective).
-Then each rank collates only its own rows ``[r b, (r + 1) b)`` of it, at
-batch ``b``; its ``meta`` holds those rows.  ``video_dedup`` is
-single-process (as in JAX pipeline.py:83-88).
+On a mesh (``mesh``, parallel/mesh.py) ``batch_size`` is the global batch
+of the data axis.  Every rank makes every shape decision on the global
+batch, the same on each: the shuffle order, the Li bucket, the St bucket
+and the K-grouping, so all ranks run one sequence of dispatch shapes (a
+rank that ran another shape would wait forever in a collective).  Then
+each rank collates only its data row's rows ``[d b, (d + 1) b)`` of it, at
+batch ``b``, and keeps its ctx rank's frames ``[c l, (c + 1) l)`` of the
+Li-sharded keys (``LI_KEYS``, the layout of ``shard_batch``); its ``meta``
+holds those rows.  An Li bucket that ctx does not divide raises.
+``video_dedup`` is single-process (as in JAX pipeline.py:83-88).
 """
 from __future__ import annotations
 
@@ -55,7 +57,7 @@ from tvqaplus_tpu_torch.data.batching import (
     collate_static,
     pick_bucket,
 )
-from tvqaplus_tpu_torch.parallel.mesh import rank_rows
+from tvqaplus_tpu_torch.parallel.mesh import LI_KEYS, li_slice, rank_rows
 
 # the large float inputs that go to the card in bfloat16 under the bf16
 # compute policy (JAX pipeline.py:34-35)
@@ -67,15 +69,17 @@ class DataPipeline:
     """Iterable over (device batch dict, meta, Li bucket) tuples.
     ``train``: shuffled bucket batching with the att-entry keys.
     ``video_dedup``: the per-unique-clip layout (serving).  ``mesh``: this
-    rank's rows of each global batch of ``batch_size``."""
+    rank's part of each global batch of ``batch_size``."""
 
     def __init__(self, dataset, cfg, device, batch_size=16, prefetch_depth=2,
                  train=False, seed=0, group=1, video_dedup=False, mesh=None):
-        if video_dedup and mesh is not None and mesh.data > 1:
+        if video_dedup and mesh is not None \
+                and mesh.data * mesh.ctx * mesh.model_size > 1:
             raise ValueError(
                 "video_dedup is single-process only (each batch's table of "
                 "unique clips would differ from rank to rank); disable "
-                "--video_dedup for data-parallel runs")
+                "--video_dedup for runs of more than one process")
+        self.mesh = mesh
         self.dataset = dataset
         self.cfg = cfg
         self.device = torch.device(device)
@@ -159,6 +163,10 @@ class DataPipeline:
             spec = dataclasses.replace(
                 spec, max_sub_tokens=self._st_bucket(examples))
         arrays, meta = collate_static(examples[slice(*self.rows)], spec)
+        if self.mesh is not None and self.mesh.ctx > 1:
+            f0, f1 = li_slice(self.mesh, bucket)
+            arrays.update({k: np.ascontiguousarray(arrays[k][:, f0:f1])
+                           for k in LI_KEYS if k in arrays})
         if "qa_noun_masks" not in arrays and any(
                 ex.get("qa_noun_masks") is not None for ex in examples):
             # the global batch's keys: another rank's rows carry the masks

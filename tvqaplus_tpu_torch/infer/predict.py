@@ -8,12 +8,17 @@ slices each (``assemble_att_predictions``).  ``eval_steps_per_dispatch``
 same-bucket batches go to the device at once (dispatch.py): one CUDA-graph
 replay on ``cuda``.
 
-Data-parallel (``mesh``, parallel/mesh.py): each rank serves its rows of
-every global ``test_bsz`` batch and assembles their records; the ranks'
-records are gathered and merged in global row order, so every rank holds
-the single-process predictions (rank 0 writes them, inference.py).  The
-global batch decides the Li bucket, so ``li_total`` is the same on every
-rank.
+On a mesh (``mesh``, parallel/mesh.py) each data row serves its rows of
+every global ``test_bsz`` batch and assembles their records; the rows'
+records are gathered over the data group and merged in global row order,
+so every rank holds the single-process predictions (rank 0 writes them,
+inference.py).  The global batch decides the Li bucket, so ``li_total`` is
+the same on every rank.  Under a ctx axis each rank runs the step on its
+frames and the model gathers the whole Li before its head
+(models/stage.py), with the raw vid scores the grounding reads; the span
+search and the grounding compaction then run on every ctx rank alike.  On
+a model axis the runner places the model (``place_model``: its large
+dense weights split by columns).
 """
 from __future__ import annotations
 
@@ -144,7 +149,7 @@ class InferenceRunner:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mesh = mesh
-        self.model = model.to(self.device).eval()
+        self.model = dp.place_model(mesh, model.to(self.device).eval())
         self.graphs = (dispatch.StepGraphs(self.device)
                        if self.device.type == "cuda" else None)
 
@@ -162,8 +167,9 @@ class InferenceRunner:
                   "span_st": st, "span_ed": ed}
         if with_grounding:
             result.update(grounding_compaction(
-                out["vid_raw_s"], batch["vid_mask"], batch["anno_st"],
-                f_max))
+                out["vid_raw_s"], dp.gather_ctx(self.mesh, batch["vid_mask"],
+                                                1),
+                batch["anno_st"], f_max))
         return result
 
     @torch.inference_mode()
@@ -240,7 +246,9 @@ class InferenceRunner:
 
         pending = None
         for batch, meta, _ in pipeline:
-            li = batch["ts_mask"].shape[-1]
+            # the whole Li (a ctx rank's batch holds its frames)
+            li = batch["ts_mask"].shape[-1] * (1 if self.mesh is None
+                                               else self.mesh.ctx)
             host, event = self._to_host(self.dispatch_infer(
                 batch, with_grounding, min(li, f_max)))
             if pending is not None:

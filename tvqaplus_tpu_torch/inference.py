@@ -26,9 +26,10 @@ inference and writes ``{mode}_inference_predictions.json`` beside them.
   ``--no_strict`` is accepted, as the JAX CLI declares it, and changes
   nothing: loading is always strict.
 * ``--video_dedup``, ``--video_buckets``, ``--sub_token_buckets``: the
-  serving batch layouts (data/pipeline.py).  They change what each batch
-  ships to the card, not the predictions, so when the command line sets
-  one it holds over the run's opt.json.
+  serving batch layouts (data/pipeline.py), and ``--mesh_shape``, the
+  layout of the work over the ranks.  They change what each batch ships
+  to the card and where, not the predictions, so when the command line
+  sets one it holds over the run's opt.json.
 
 The split comes from the run's data: the TVQA+ artifacts its opt.json
 names (``data/tvqa.py``; grounding records for the words of
@@ -36,10 +37,11 @@ names (``data/tvqa.py``; grounding records for the words of
 ``python -m tvqaplus_tpu_torch.evaluation.tvqa_metrics``.
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  Under ``torchrun
---nproc_per_node N`` each rank serves its rows of every global
-``test_bsz`` batch (the run's opt.json holds the global size, which N must
-divide) and rank 0 writes the predictions of the whole split, in the
-single-process order.
+--nproc_per_node N`` the ranks form the run's ``mesh_shape`` (opt.json, or
+the flag): each data row serves its rows of every global ``test_bsz``
+batch (the run's opt.json holds the global size, which the data size must
+divide), ctx ranks split Li and model ranks the large weights, and rank 0
+writes the predictions of the whole split, in the single-process order.
 """
 from __future__ import annotations
 
@@ -61,8 +63,9 @@ from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
 from tvqaplus_tpu_torch.parallel import mesh as dp
 from tvqaplus_tpu_torch.utils.io import save_json
 
-# the batch-layout fields a command line may set over the run's opt.json
-SERVING_LAYOUT = ("video_dedup", "video_buckets", "sub_token_buckets")
+# the layout fields a command line may set over the run's opt.json
+SERVING_LAYOUT = ("video_dedup", "video_buckets", "sub_token_buckets",
+                  "mesh_shape")
 EXTRA_FLAGS = (
     ("--model_dir", dict(type=str, required=True,
                          help="run directory holding opt.json and the "

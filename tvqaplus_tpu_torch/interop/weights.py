@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from tvqaplus_tpu_torch.interop import flax_msgpack
+from tvqaplus_tpu_torch.parallel.mesh import check_whole
 
 # fixed sinusoid buffers of the reference's encoders: the port recomputes
 # them (models/layers.py PositionEncoding), so a reference checkpoint's copy
@@ -262,7 +263,9 @@ def flax_checkpoint_tree(model, optimizer, step, extra, cfg):
     and its Adam (``flax_msgpack.dumps`` turns it into the file): the
     inverse of ``adam_state_from_flax`` and ``params_from_flax``, with
     optax's layout of the clip and injected-Adam states and Adam's step as
-    both counts."""
+    both counts.  A model split over a mesh's model axis is written inside
+    ``parallel.mesh.full_state``, which makes its weights whole."""
+    check_whole(model)
     named = dict(model.named_parameters())
     moments = {k: {name: optimizer.state[p][k] for name, p in named.items()}
                for k in ("exp_avg", "exp_avg_sq")}

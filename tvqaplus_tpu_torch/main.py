@@ -17,12 +17,15 @@ returns them), read by ``data/tvqa.py``; or ``--synthetic_data``.
 debug``): one epoch, a break after batch 5 (on synthetic data 64 train /
 32 valid examples).
 
-Data-parallel: ``torchrun --nproc_per_node N -m tvqaplus_tpu_torch.main``
+On a mesh: ``torchrun --nproc_per_node N -m tvqaplus_tpu_torch.main``
 runs N ranks, one card each (``--device cpu``: gloo on the CPU); the mesh
-is ``--mesh_shape`` (default ``-1 1``: every rank on the data axis).  As in
-the JAX package (main.py:47-52), ``--bsz`` and ``--test_bsz`` are each
-rank's batch: the global batch is N times that, and opt.json records the
-global sizes.  Rank 0 writes the run directory.
+is ``--mesh_shape`` (data, ctx[, model]), whose sizes multiply to N
+(default ``-1 1``: every rank on the data axis; ``2 2``: two data rows of
+two ctx ranks, each holding half of Li; ``1 1 2``: the large dense weights
+split over two model ranks).  As in the JAX package (main.py:47-52),
+``--bsz`` and ``--test_bsz`` are each data row's batch: the global batch
+is the data size times that, and opt.json records the global sizes.  Rank
+0 writes the run directory.
 """
 from __future__ import annotations
 

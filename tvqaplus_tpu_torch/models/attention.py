@@ -16,7 +16,7 @@ import math
 
 import torch
 
-from tvqaplus_tpu_torch.models.layers import apply_dropout
+from tvqaplus_tpu_torch.models.layers import apply_dropout, frame_dropout
 from tvqaplus_tpu_torch.ops.masking import safe_softmax
 
 
@@ -42,7 +42,8 @@ def structured_attention(C, Q, c_mask, q_mask, scale=10.0, drop=None,
     C (N, 5, 1|Li, Lqa, D) QA-word embeddings; Q (N, 1, Li, Lr, D) context
     embeddings; c_mask (N, 5, 1|Li, Lqa); q_mask (N, 1, Li, Lr).  ``drop``
     (a ``layers.Dropout``, None in eval) acts on the normalised inputs
-    (reference context_query_attention.py:95-96).  ``noun_mask``
+    (reference context_query_attention.py:95-96), Q's through its
+    ``frames`` (Q carries Li, which context parallelism shards).  ``noun_mask``
     (N, 5, Lqa) or (N, 5, Li, Lqa) gates the rows of the softmax.
     ``void_vector`` (m, D): learned non-visual vectors appended to the
     region axis with mask 1, so they take part in the softmax; ``add_void``
@@ -63,7 +64,7 @@ def structured_attention(C, Q, c_mask, q_mask, scale=10.0, drop=None,
         q_mask = torch.cat([q_mask, q_mask.new_ones(
             (bsz, 1, num_img, num_void))], dim=-1)
     cn = apply_dropout(drop, l2_normalize(C))
-    qn = apply_dropout(drop, l2_normalize(Q))
+    qn = apply_dropout(frame_dropout(drop), l2_normalize(Q))
     s_mask = c_mask[..., :, None] * q_mask[..., None, :]
     masked = promoted_matmul(cn, qn.transpose(-2, -1)) - 1e10 * (1.0
                                                                  - s_mask)

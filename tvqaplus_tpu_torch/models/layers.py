@@ -32,6 +32,7 @@ from tvqaplus_tpu_torch.ops.masking import mask_logits
 from tvqaplus_tpu_torch.ops.mlp_bridge import mlp_bridge
 from tvqaplus_tpu_torch.ops.plain import LN_EPS, depthwise_conv, layer_norm
 from tvqaplus_tpu_torch.ops.tri_bridge import tri_bridge
+from tvqaplus_tpu_torch.parallel import mesh as dp
 
 
 class Dropout:
@@ -40,13 +41,19 @@ class Dropout:
     batch's device); ``kernel_args()`` gives the fused kernels, one call
     site after the other, their (rate, Philox seed): the next slot of
     ``seeds``, the step's int64 seed tensor on the batch's device
-    (``StepSeeds.next()``)."""
+    (``StepSeeds.next()``).
 
-    def __init__(self, rate, generator, seeds):
+    ``frames``: the dropout of the sites on Li-sharded tensors under
+    context parallelism (parallel/mesh.py), another ``Dropout`` whose
+    generator and seeds fold in the ctx rank; without it (no ctx axis)
+    this one, so the draws keep their order."""
+
+    def __init__(self, rate, generator, seeds, frames=None):
         self.rate = float(rate)
         self.generator = generator
         self.seeds = seeds
         self.site = 0
+        self.frames = self if frames is None else frames
 
     def __call__(self, x):
         if self.rate == 0.0:
@@ -75,9 +82,26 @@ def kernel_dropout(drop):
     return (0.0, 0) if drop is None else drop.kernel_args()
 
 
+def frame_dropout(drop):
+    """The dropout of the Li-sharded sites (``Dropout.frames``); None in
+    eval."""
+    return None if drop is None else drop.frames
+
+
 def dense(x, lin, dtype):
-    """``lin`` (an ``nn.Linear``) applied in ``dtype``, like flax Dense."""
-    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+    """``lin`` (an ``nn.Linear``) applied in ``dtype``, like flax Dense.
+    A layer split over the model axis (``lin.shard``, parallel/mesh.py
+    ``place_model``) holds its block of output columns: the product of
+    that block, all-gathered over the model group, then the whole bias,
+    so the bias's gradient is whole on every model rank as every
+    replicated leaf's is."""
+    shard = getattr(lin, "shard", None)
+    if shard is None:
+        return F.linear(x.to(dtype), lin.weight.to(dtype),
+                        lin.bias.to(dtype))
+    h = F.linear(dp.copy_to_model(shard, x.to(dtype)),
+                 lin.weight.to(dtype))
+    return dp.gather_columns(shard, h) + lin.bias.to(dtype)
 
 
 class LayerNorm(nn.Module):
@@ -113,6 +137,10 @@ class MLPBridge(nn.Sequential):
     def forward(self, x, drop=None):
         if self.use_kernel and x.dim() == 4:
             ln_in, fc, ln_out = self[0], self[2], self[4]
+            if getattr(fc, "shard", None) is not None:
+                raise NotImplementedError(
+                    "the MLP-bridge kernel takes whole weights: B5 at "
+                    "model > 1 is not ported (ROADMAP.md, B5 at model > 1)")
             return mlp_bridge(x.contiguous(), ln_in.weight, ln_in.bias,
                               fc.weight.t(), fc.bias, ln_out.weight,
                               ln_out.bias, *kernel_dropout(drop),

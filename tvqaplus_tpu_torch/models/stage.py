@@ -14,6 +14,16 @@ through the plain versions (on the CPU), so ``forward(train=True)`` is the
 training forward: dropout at every reference site (``drop``, a
 ``layers.Dropout``) and the GT-anchored proposals.
 
+Under a mesh (parallel/mesh.py ``place_model`` sets ``mesh``) with a ctx
+axis the batch holds this rank's frames of Li: the per-frame chain runs on
+them, and one all-gather over the ctx group after the cls encoder
+(``gather_ctx``) hands the head, the losses and the span search the whole
+Li, replicated on every ctx rank; the raw scores a caller asks for are
+gathered too.  Dropout on Li-sharded tensors draws through
+``drop.frames``, which folds the ctx rank in; the replicated work (the QA
+stream, the per-token subtitle stream, the head) through ``drop``, alike
+on every ctx rank of a data row.
+
 Noun masks (the batch's ``qa_noun_masks``) and void vectors
 (``non_visual > 0``, the vid site) are not inputs of the fused attention
 kernel, in this package as in the JAX one: an attention site that gets
@@ -48,10 +58,12 @@ from tvqaplus_tpu_torch.models.layers import (
     StackedEncoder,
     TriMLPBridge,
     apply_dropout,
+    frame_dropout,
     kernel_dropout,
 )
 from tvqaplus_tpu_torch.ops.masking import mask_logits
 from tvqaplus_tpu_torch.ops.qa_ctx_attention import qa_ctx_attention
+from tvqaplus_tpu_torch.parallel.mesh import gather_ctx
 
 
 @dataclass(frozen=True)
@@ -146,6 +158,16 @@ class STAGE(nn.Module):
         else:
             self.non_visual_vectors = None
         self._zero_masks = {}
+        self.mesh = None       # parallel/mesh.py place_model
+        self.shards = {}
+
+    def head_parameters(self):
+        """The parameters after the ctx gather (the temporal heads and the
+        classifier): their gradient is whole on every ctx rank."""
+        return [p for mod in (self.cls_projection_layers,
+                              self.temporal_scoring_st_layers,
+                              self.temporal_scoring_ed_layers,
+                              self.classifier) for p in mod.parameters()]
 
     @torch.no_grad()
     def reset_parameters(self, generator):
@@ -179,12 +201,13 @@ class STAGE(nn.Module):
         per token, then the window gather), else from ``sub_bert``."""
         if "sub_tokens" not in batch:
             return self.base_encoder(batch["sub_bert"], batch["sub_mask"],
-                                     self.bert_word_encoding_fc, drop)
+                                     self.bert_word_encoding_fc,
+                                     frame_dropout(drop))
         tok = self.input_embedding(
             self.bert_word_encoding_fc(batch["sub_tokens"], drop), drop)
         return self.input_encoder(
-            self._gather_sub_windows(tok, batch["sub_win_idx"]), drop=drop,
-            mask=batch["sub_mask"])
+            self._gather_sub_windows(tok, batch["sub_win_idx"]),
+            drop=frame_dropout(drop), mask=batch["sub_mask"])
 
     @staticmethod
     def _gather_sub_windows(tok, idx):
@@ -205,7 +228,12 @@ class STAGE(nn.Module):
         conv's input past a stream's true length, so every tap reads what
         per-stream padding would give and the three slices equal the
         separate calls.  The slices are made contiguous here, once (the
-        attention kernel takes contiguous inputs)."""
+        attention kernel takes contiguous inputs).  Under context
+        parallelism the frame groups are this rank's, and the call draws
+        through ``drop``, alike on every ctx rank: the QA rows must (they
+        are replicated work), and the kernel keys a mask by the element's
+        place in its input, so each ctx rank's frame rows take the same
+        masks as the other ranks' rows at the same local frame."""
         streams = (qa_pre, sub_pre, vid_pre)
         lmax = max(x.shape[2] for x in streams)
         merged = torch.cat([nn.functional.pad(x, (0, 0, 0, lmax - x.shape[2]))
@@ -266,8 +294,8 @@ class STAGE(nn.Module):
         dp = self.c2q_down_projection
         raw_mode = {True: "full", False: "none", "target": "target"}[need_raw]
         cn = apply_dropout(drop, l2_normalize(qa_embed))
-        qn = apply_dropout(drop, l2_normalize(ctx_embed))
-        rate, seed = kernel_dropout(drop)
+        qn = apply_dropout(frame_dropout(drop), l2_normalize(ctx_embed))
+        rate, seed = kernel_dropout(frame_dropout(drop))
         out = qa_ctx_attention(
             cn, qa_embed, qn, ctx_embed, qa_mask, ctx_mask, dp[0].weight,
             dp[0].bias, dp[2].weight.t(), dp[2].bias, self.cfg.scale,
@@ -290,7 +318,7 @@ class STAGE(nn.Module):
         dt = torch.promote_types(qa_b.dtype, u_a.dtype)
         qa_b, u_a = qa_b.to(dt), u_a.to(dt)
         mixed = self.c2q_down_projection(
-            torch.cat([qa_b, u_a, qa_b * u_a], dim=-1), drop)
+            torch.cat([qa_b, u_a, qa_b * u_a], dim=-1), frame_dropout(drop))
         mixed_mask = (s_mask.sum(-1) != 0).float()
         if need_raw == "target":
             raw = raw[torch.arange(raw.shape[0], device=raw.device),
@@ -331,8 +359,9 @@ class STAGE(nn.Module):
                 self.bert_word_encoding_fc(batch["qas_bert"], drop), drop)
             tok = self.input_embedding(
                 self.bert_word_encoding_fc(batch["sub_tokens"], drop), drop)
+            fdrop = frame_dropout(drop)
             vid_pre = self.input_embedding(
-                self.vid_fc(l2_normalize(batch["vid"]), drop), drop)
+                self.vid_fc(l2_normalize(batch["vid"]), fdrop), fdrop)
             a_embed, sub_embed, vid_embed = self._merged_input_encode(
                 qa_pre, self._gather_sub_windows(tok, batch["sub_win_idx"]),
                 vid_pre, drop)
@@ -350,14 +379,14 @@ class STAGE(nn.Module):
                 noun_mask=noun_mask)
             attended.append((mixed, mask))
             if need_sub_raw:
-                out["sub_raw_s"] = raw
+                out["sub_raw_s"] = gather_ctx(self.mesh, raw, 2)
                 if norm is not None:
-                    out["sub_normalized_s"] = norm
+                    out["sub_normalized_s"] = gather_ctx(self.mesh, norm, 2)
         if c.vfeat_flag:
             if not merged:
                 vid_embed = self.base_encoder(l2_normalize(batch["vid"]),
                                               batch["vid_mask"], self.vid_fc,
-                                              drop)               # :256
+                                              frame_dropout(drop))  # :256
             mixed, mask, raw, norm = self.qa_ctx_attention(
                 a_embed, vid_embed, a_mask, batch["vid_mask"], need_vid_raw,
                 drop, batch.get("target"),
@@ -365,13 +394,14 @@ class STAGE(nn.Module):
                 void=self.non_visual_vectors, noun_mask=noun_mask)
             attended.append((mixed, mask))
             if need_vid_raw == "target":
-                out["vid_raw_target_s"] = raw
+                out["vid_raw_target_s"] = gather_ctx(self.mesh, raw, 1)
             elif need_vid_raw:
-                out["vid_raw_s"] = raw
+                out["vid_raw_s"] = gather_ctx(self.mesh, raw, 2)
                 if norm is not None:
-                    out["vid_normalized_s"] = norm
+                    out["vid_normalized_s"] = gather_ctx(self.mesh, norm, 2)
         if len(attended) == 2:
-            statement = self.concat_fc(attended[0][0], attended[1][0], drop)
+            statement = self.concat_fc(attended[0][0], attended[1][0],
+                                       frame_dropout(drop))
             statement_mask = attended[1][1]
         else:
             statement, statement_mask = attended[0]
@@ -394,15 +424,27 @@ class STAGE(nn.Module):
                                        batch, train=False, drop=None):
         """Answer scoring over (local span + global) pooled statements
         (reference stage.py:484-537).  statement (B, A, Li, Lqa, D);
-        statement_mask (B, A, Li, Lqa)."""
+        statement_mask (B, A, Li, Lqa): this rank's frames under context
+        parallelism, gathered into the whole Li after the cls encoder."""
         c = self.cfg
-        bsz, _, num_img, _ = statement_mask.shape
         # encoder + masked word-max in one kernel (stage.py:500-505); with
         # heads the plain chain, the statement mask as the attention mask
         # (JAX stage.py:466-468)
-        x = self.cls_encoder(statement, reduce_mask=statement_mask, drop=drop,
-                             mask=statement_mask)
+        x = self.cls_encoder(statement, reduce_mask=statement_mask,
+                             drop=frame_dropout(drop), mask=statement_mask)
         max_statement_mask = (statement_mask.sum(-1) != 0).float()[..., None]
+        ts_mask = batch["ts_mask"]
+        if self.mesh is not None and self.mesh.ctx > 1:
+            # the whole Li for what reduces over it: the pools, the span
+            # scores' softmax and proposals, the losses (one gather of the
+            # statement, one of the two masks)
+            x = gather_ctx(self.mesh, x, 2)
+            masks = gather_ctx(self.mesh, torch.cat(
+                [max_statement_mask[..., 0], ts_mask[:, None].float()],
+                dim=1), 2)
+            max_statement_mask = masks[:, :-1, :, None]
+            ts_mask = masks[:, -1]
+        bsz, _, num_img, _ = max_statement_mask.shape
         # the reference's ensemble quirk (stage.py:515-516) makes the span
         # scores ALWAYS layer 0's; layers i > 0 only extend the chain
         t0 = stacked = None
@@ -410,8 +452,7 @@ class STAGE(nn.Module):
             x, t = self.residual_temporal_predictor(i, x, drop)
             if i == 0:
                 t0, stacked = t, x
-        t_scores = mask_logits(t0, batch["ts_mask"].reshape(bsz, 1, num_img,
-                                                            1))
+        t_scores = mask_logits(t0, ts_mask.reshape(bsz, 1, num_img, 1))
         global_pool = mask_logits(stacked, max_statement_mask).amax(dim=2)
         weights = torch.ones((bsz, 1), dtype=torch.float32,
                              device=t_scores.device)

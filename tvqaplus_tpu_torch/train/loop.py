@@ -31,18 +31,25 @@ Steps are dispatched K at a time, as the JAX Trainer dispatches them
 ``cuda``.  A dispatch's metrics are summed over its K steps, and log points
 fall on the reference's batch indices (``log_crossing``).
 
-``mesh`` (parallel/mesh.py) runs the trainer data-parallel: each of N
-ranks takes its rows of every global batch (``DataPipeline(mesh=...)``),
-and a step is the single-process step on the global batch, as JAX's SPMD
-step is (loop.py:89-124, 198-213): the cls loss rescales by the global
-counts, the gradients are summed over the ranks between the backward and
-the clip, the att loss's Gumbel noise is this rank's rows of one global
-draw, and each rank drops other units (its own dropout seeds,
-ops/philox.py ``rank_seed``).  The log windows and the validation totals
-are summed over the ranks and the validation answers gathered in global
-row order, so every control decision (log points, best model, plateau LR,
-early stop, the non-finite halt) reads the same values on every rank.
-Rank 0 alone writes the run's files; the others wait at a barrier.
+``mesh`` (parallel/mesh.py) runs the trainer on a (data, ctx, model)
+mesh, and a step is the single-process step on the global batch, as JAX's
+SPMD step is (loop.py:89-124, 198-213).  Each data row ``d`` takes its rows
+of every global batch (``DataPipeline(mesh=...)``): the cls loss rescales
+by the global counts, the gradients are summed between the backward and
+the clip, the att loss's Gumbel noise is the row's part of one global
+draw, and each row drops other units (its own dropout seeds,
+ops/philox.py ``rank_seed``).  Each ctx rank of a row takes its frames of
+Li and gathers the whole Li before the head (models/stage.py): its
+Li-sharded dropout sites draw under seeds that fold in (d, c) as well,
+everything replicated under the row's.  On a model axis the large dense
+weights and their Adam moments are split by columns (``place_model``);
+the clip norm counts their squares over the model group, and checkpoints
+gather them whole (``full_state``).  The log windows and the validation
+totals are summed over the data rows and the validation answers gathered
+in global row order, so every control decision (log points, best model,
+plateau LR, early stop, the non-finite halt) reads the same values on
+every rank.  Rank 0 alone writes the run's files; the others wait at a
+barrier.
 """
 from __future__ import annotations
 
@@ -149,16 +156,26 @@ class Trainer:
         if self.steps_per_dispatch == 0:
             self.steps_per_dispatch = dispatch.auto_steps_per_dispatch(cfg)
         # kernel dropout seeds: from the step counter on the device; plain
-        # dropout masks: a generator on the device (both the rank's own);
-        # the att loss's Gumbel noise: one generator alike on every rank
-        rank = 0 if mesh is None else mesh.rank
-        self.seeds = StepSeeds(cfg.seed, self.device, rank)
+        # dropout masks: a generator on the device (both the data row's
+        # own; under a ctx axis a second pair, the row's and ctx rank's,
+        # for the Li-sharded sites); the att loss's Gumbel noise: one
+        # generator alike on every rank
+        row = 0 if mesh is None else mesh.d
+        self.seeds = StepSeeds(cfg.seed, self.device, row)
         self.generator = torch.Generator(device=self.device).manual_seed(
-            rank_seed(cfg.seed, rank))
+            rank_seed(cfg.seed, row))
         self.noise_generator = torch.Generator(
             device=self.device).manual_seed(noise_seed(cfg.seed))
-        self.graphs = (dispatch.StepGraphs(self.device, self.generator,
-                                           self.noise_generator)
+        generators = [self.generator, self.noise_generator]
+        self.frame_seeds = self.frame_generator = None
+        if mesh is not None and mesh.ctx > 1:
+            # keys apart from every data row's: index data + d ctx + c
+            frame = mesh.data + mesh.d * mesh.ctx + mesh.c
+            self.frame_seeds = StepSeeds(cfg.seed, self.device, frame)
+            self.frame_generator = torch.Generator(
+                device=self.device).manual_seed(rank_seed(cfg.seed, frame))
+            generators.append(self.frame_generator)
+        self.graphs = (dispatch.StepGraphs(self.device, *generators)
                        if self.device.type == "cuda" else None)
         self._names = {}           # metric names of a packed dispatch
         self.trace_path = None     # the profile_dir trace, once written
@@ -171,6 +188,8 @@ class Trainer:
                                                self.optimizer)
         self.step, extra = dp.broadcast_state(
             mesh, self.model, self.optimizer, (self.step, extra))
+        dp.place_model(mesh, self.model, self.optimizer)
+        self.head = self.model.head_parameters()
         if cfg.resume:
             self.best_acc = extra.get("best_acc", 0.0)
             self.start_epoch = extra.get("epoch", 0)
@@ -199,8 +218,9 @@ class Trainer:
         if use_hard_negatives and cfg.negative_pool_size <= cfg.num_negatives:
             return None            # direct hard negatives: no sampling
         bsz, li, lr = batch["vid_mask"].shape
+        li *= 1 if self.mesh is None else self.mesh.ctx    # the whole Li
         e = min(cfg.att_entry_cap, li * batch["qas_mask"].shape[-1] * lr)
-        # this rank's rows of the global batch's draw
+        # this data row's rows of the global batch's draw
         n = bsz * (1 if self.mesh is None else self.mesh.data)
         lo, hi = dp.rank_rows(self.mesh, n)
         return gumbel_noise((n, e, cfg.num_negatives, lr),
@@ -214,7 +234,10 @@ class Trainer:
         metrics as device tensors: sums over this rank's rows, and
         ``grad_norm``, the global norm before clipping."""
         self.model.train()
-        drop = Dropout(self.cfg.dropout, self.generator, self.seeds.next())
+        frames = None if self.frame_seeds is None else Dropout(
+            self.cfg.dropout, self.frame_generator, self.frame_seeds.next())
+        drop = Dropout(self.cfg.dropout, self.generator, self.seeds.next(),
+                       frames)
         out = self.model(batch, train=True, need_sub_raw=False,
                          need_vid_raw=self.need_vid_raw, drop=drop)
         loss, metrics = total_loss(
@@ -222,8 +245,12 @@ class Trainer:
             use_hard_negatives=use_hard_negatives, **self.loss_kwargs)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        dp.all_reduce_grads(self.mesh, self.params)
-        metrics["grad_norm"] = clip_grad_norm(self.params, self.cfg.clip)
+        dp.all_reduce_grads(self.mesh, self.params, self.head,
+                            self.model.shards.values())
+        metrics["grad_norm"] = clip_grad_norm(
+            self.params, self.cfg.clip,
+            None if not self.model.shards else functools.partial(
+                dp.grad_sq_sum, self.mesh, self.model))
         self.optimizer.step()
         self.step += 1
         return {k: v.detach() for k, v in metrics.items()}
@@ -474,12 +501,13 @@ class Trainer:
         return self.best_acc
 
     def save(self, path, epoch=0):
-        """The trainer's checkpoint, written by rank 0; every rank waits
-        for it."""
-        self._barrier_after(lambda: save_checkpoint(
-            path, self.model, self.optimizer, self.step,
-            extra={"best_acc": self.best_acc, "epoch": epoch,
-                   "lr": self.scheduler.lr}))
+        """The trainer's checkpoint (whole weights), written by rank 0;
+        every rank waits for it."""
+        with dp.full_state(self.mesh, self.model, self.optimizer):
+            self._barrier_after(lambda: save_checkpoint(
+                path, self.model, self.optimizer, self.step,
+                extra={"best_acc": self.best_acc, "epoch": epoch,
+                       "lr": self.scheduler.lr}))
 
     def save_best(self):
         """``best_valid.pth``: the model's state_dict in the reference
@@ -489,4 +517,5 @@ class Trainer:
                   for k, v in self.model.state_dict().items()}
             torch.save(sd, os.path.join(self.cfg.results_dir,
                                         "best_valid.pth"))
-        self._barrier_after(write)
+        with dp.full_state(self.mesh, self.model):
+            self._barrier_after(write)

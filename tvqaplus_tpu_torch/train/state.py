@@ -36,6 +36,7 @@ from tvqaplus_tpu_torch.interop.weights import (
     adam_state_from_flax,
     state_dict_from_flax_tree,
 )
+from tvqaplus_tpu_torch.parallel.mesh import check_whole
 
 
 def make_optimizer(params, lr, weight_decay=3e-7, device="cpu"):
@@ -65,11 +66,14 @@ def dispatch_mode(optimizer, device):
 
 
 @torch.no_grad()
-def clip_grad_norm(params, clip):
+def clip_grad_norm(params, clip, sq_sum=None):
     """optax ``clip_by_global_norm`` in place; returns the pre-clip global
-    norm (a device tensor)."""
+    norm (a device tensor).  ``sq_sum(params)``: the squared global norm,
+    where the gradients are split over processes (parallel/mesh.py
+    ``grad_sq_sum``)."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads)
+                      if sq_sum is None else sq_sum(params))
     keep = norm < clip
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * clip))
@@ -119,7 +123,9 @@ class PlateauScheduler:
 
 
 def save_checkpoint(path, model, optimizer, step, extra=None):
-    """Model, optimizer, step and ``extra`` in one file (atomic rename)."""
+    """Model, optimizer, step and ``extra`` in one file (atomic rename);
+    the model's weights must be whole (``parallel.mesh.full_state``)."""
+    check_whole(model)
     tmp = path + ".tmp"
     torch.save({"model": model.state_dict(),
                 "optimizer": optimizer.state_dict(), "step": int(step),
