@@ -1,0 +1,36 @@
+"""The forward kernels at their other hidden widths, alone: ``chip_smoke.py``'s
+phases ``device``, ``build`` (every source, with each kernel's registers
+and spills) and ``kernel_width`` (the attention, tri bridge and encoder
+forwards at D = 64 and 256 against their plain versions in float32 and
+bfloat16, dropout 0 and 0.1, and their times), and with ``--all`` also
+``kernels`` (every kernel at D = 128).  Needs one NVIDIA GPU.
+
+    python3 scripts/check_kernel_widths.py [--all]
+
+One JSON line a phase and a row, as ``chip_smoke.py`` prints them; exits
+non-zero at the first kernel that does not hold.  A quicker card run than
+``chip_smoke.py`` after a change to the forward kernels.
+"""
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main(argv):
+    dev = torch.device("cuda")
+    cs.phase_device()
+    cs.phase_build()
+    if "--all" in argv:
+        cs.phase_kernels(dev)
+    cs.phase_width_kernels(dev)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

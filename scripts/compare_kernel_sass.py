@@ -6,10 +6,13 @@ refactor of shared device code changed what a kernel runs.
 
 Needs the CUDA toolkit's ``cuobjdump`` (``$CUDA_HOME/bin`` or on PATH).
 ``NAME`` is a substring of the demangled-looking kernel symbol, e.g.
-``encoder_bwd_tc_kernelILi5E``.  For each NAME it prints whether the
-instruction sequences are identical once addresses, encodings and the
-per-file anonymous-namespace tag are dropped, and the instruction counts.
-Exits 1 when a NAME is missing from either library.
+``encoder_bwd_tc_kernelILi5E``; ``OLD=NEW`` names a kernel whose symbol
+changed (a template parameter added: ``encoder_fwd_tc_kernelILi5E=
+encoder_fwd_tc_kernelILi128ELi5E``); ``--all`` compares every kernel whose
+symbol both libraries hold.  For each it prints whether the instruction
+sequences are identical once addresses, encodings and the per-file
+anonymous-namespace tag are dropped, and the instruction counts.  Exits 1
+when a NAME is missing from either library.
 """
 import os
 import re
@@ -46,10 +49,14 @@ def main():
         print(__doc__, file=sys.stderr)
         return 2
     old, new = functions(sys.argv[1]), functions(sys.argv[2])
+    wants = sys.argv[3:]
+    if wants == ["--all"]:
+        wants = sorted(set(old) & set(new))
     code = 0
-    for want in sys.argv[3:]:
-        a = [k for k in old if want in k]
-        b = [k for k in new if want in k]
+    for want in wants:
+        want_old, _, want_new = want.partition("=")
+        a = [k for k in old if want_old in k]
+        b = [k for k in new if (want_new or want_old) in k]
         if len(a) != 1 or len(b) != 1:
             print(f"{want}: {len(a)} match(es) in the old build, {len(b)} "
                   f"in the new")

@@ -49,17 +49,17 @@ def close(got, want, tol):
 P_DROP, SEED = 0.1, 12345
 
 
-def attn_args(dev, dt, b=2, a=5, li=4, lqa=40, lr=25):
+def attn_args(dev, dt, b=2, a=5, li=4, lqa=40, lr=25, d=D):
     gen = torch.Generator().manual_seed(0)
-    ce = randn(gen, b, a, lqa, D).to(dev, dt)
-    qe = randn(gen, b, li, lr, D).to(dev, dt)
+    ce = randn(gen, b, a, lqa, d).to(dev, dt)
+    qe = randn(gen, b, li, lr, d).to(dev, dt)
     c_mask = (torch.rand(b, a, lqa, generator=gen) > 0.25).float()
     c_mask[0, 1] = 0                 # a fully masked answer
     q_mask = (torch.rand(b, li, lr, generator=gen) > 0.25).float()
     q_mask[1, 2] = 0                 # a frame with no regions
-    params = [1 + randn(gen, 3 * D, scale=0.1), randn(gen, 3 * D, scale=0.1),
-              randn(gen, 3 * D, D, scale=(3 * D) ** -0.5),
-              randn(gen, D, scale=0.1)]
+    params = [1 + randn(gen, 3 * d, scale=0.1), randn(gen, 3 * d, scale=0.1),
+              randn(gen, 3 * d, d, scale=(3 * d) ** -0.5),
+              randn(gen, d, scale=0.1)]
     return [l2_normalize(ce), ce, l2_normalize(qe), qe] + [
         t.to(dev) for t in [c_mask, q_mask] + params]
 
@@ -117,9 +117,9 @@ def test_qa_ctx_attention_kernel_rejects_what_it_does_not_take(cuda):
         with pytest.raises(ValueError):
             qa_ctx_attention.qa_ctx_attention(*args)
         args = attn_args(cuda, dt)
-        wide = [torch.cat([t, t], -1) for t in args[:4]]     # D = 256
-        with pytest.raises(ValueError):
-            qa_ctx_attention.qa_ctx_attention(*wide, *args[4:])
+        odd = [t[..., :96].contiguous() for t in args[:4]]   # D = 96
+        with pytest.raises(ValueError, match="64, 128 and 256"):
+            qa_ctx_attention.qa_ctx_attention(*odd, *args[4:])
         with pytest.raises(ValueError):      # Lr > 64
             qa_ctx_attention.qa_ctx_attention(*attn_args(cuda, dt, lr=65))
 
@@ -295,19 +295,19 @@ def test_tri_bridge_training_kernels_match_plain(cuda, dtype, dropout, rows):
     assert g_k[0].dtype == g_k[1].dtype == dt
 
 
-def encoder_args(cuda, dt, gen, b=2, g=10, l=40, k=5):
-    x = randn(gen, b, g, l, D).to(cuda, dt)
-    pe = randn(gen, l, D, scale=0.1).to(cuda)
+def encoder_args(cuda, dt, gen, b=2, g=10, l=40, k=5, d=D):
+    x = randn(gen, b, g, l, d).to(cuda, dt)
+    pe = randn(gen, l, d, scale=0.1).to(cuda)
     p = {}
     for i in (0, 1):
-        p.update({f"ln{i}_s": 1 + randn(gen, D, scale=0.1),
-                  f"ln{i}_b": randn(gen, D, scale=0.1),
-                  f"dw{i}": randn(gen, k, D, scale=0.3),
-                  f"dwb{i}": randn(gen, D, scale=0.1),
-                  f"pw{i}": randn(gen, D, D, scale=D ** -0.5),
-                  f"pwb{i}": randn(gen, D, scale=0.1)})
-    p["lnf_s"] = 1 + randn(gen, D, scale=0.1)
-    p["lnf_b"] = randn(gen, D, scale=0.1)
+        p.update({f"ln{i}_s": 1 + randn(gen, d, scale=0.1),
+                  f"ln{i}_b": randn(gen, d, scale=0.1),
+                  f"dw{i}": randn(gen, k, d, scale=0.3),
+                  f"dwb{i}": randn(gen, d, scale=0.1),
+                  f"pw{i}": randn(gen, d, d, scale=d ** -0.5),
+                  f"pwb{i}": randn(gen, d, scale=0.1)})
+    p["lnf_s"] = 1 + randn(gen, d, scale=0.1)
+    p["lnf_b"] = randn(gen, d, scale=0.1)
     mask = (torch.rand(b, g, l, generator=gen) > 0.3).float()
     mask[0, 1] = 0                   # all-zero group: no gradient
     return x, pe, {key: t.to(cuda) for key, t in p.items()}, mask.to(cuda)
@@ -395,6 +395,139 @@ def test_backward_kernels_refuse_what_they_do_not_take(cuda):
     params = [t.to(cuda) for t in params]
     with pytest.raises(ValueError):
         tri_bridge.tri_bridge_backward(sb, sb, *params, sb)
+
+
+# ---------------------------------- the forward kernels at D = 64 and 256
+# The three forward families are built for hidden widths 64, 128 and 256
+# (ops/widths.py): at 64 the resident design at half width, at 256 the
+# weight streams (csrc/wgmma.cuh mma_streamed_w).  Each width counts its
+# own launches.
+WIDTHS = (64, 256)
+# (raw_mode, Lr, A, Lqa): both score tiles (32 and 64 wide), M = 200 (the
+# headline's, with a ragged last tile) and 39
+WIDTH_ATT_CASES = [("full", 25, 5, 40), ("none", 50, 5, 40),
+                   ("target", 64, 3, 13)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("raw_mode,lr,a,lqa", WIDTH_ATT_CASES)
+def test_qa_ctx_attention_kernel_matches_plain_at_other_widths(
+        cuda, d, dtype, dropout, raw_mode, lr, a, lqa):
+    dt = getattr(torch, dtype)
+    args = attn_args(cuda, dt, a=a, lqa=lqa, lr=lr, d=d)
+    kw = dict(raw_mode=raw_mode, dropout_rate=dropout, seed=SEED,
+              targets=torch.tensor([2, 0], device=cuda))
+    counter = qa_ctx_attention.FWD_BY_WIDTH[d]
+    launches = counter.launches
+    got = qa_ctx_attention.qa_ctx_attention(*args, **kw)
+    want = qa_ctx_attention.qa_ctx_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    tol = qa_ctx_attention.TOL[dt]
+    assert counter.launches == launches + 1
+    got = got if raw_mode != "none" else (got,)
+    want = want if raw_mode != "none" else (want,)
+    assert got[0].dtype == dt and got[0].shape[-1] == d
+    assert torch.isfinite(got[0].float()).all()
+    close(got[0], want[0], tol["mixed"])
+    if raw_mode != "none":
+        close(got[1], want[1], tol["raw"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("rows", [(2, 5, 3, 40), (1, 1, 1, 7)])
+def test_tri_bridge_kernel_matches_plain_at_other_widths(cuda, d, dtype,
+                                                         dropout, rows):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(1)
+    s = randn(gen, *rows, d).to(cuda, dt)
+    v = randn(gen, *rows, d).to(cuda, dt)
+    params = [1 + randn(gen, 3 * d, scale=0.1), randn(gen, 3 * d, scale=0.1),
+              randn(gen, 3 * d, d, scale=(3 * d) ** -0.5),
+              randn(gen, d, scale=0.1), 1 + randn(gen, d, scale=0.1),
+              randn(gen, d, scale=0.1)]
+    params = [p.to(cuda) for p in params]
+    kw = dict(dropout_rate=dropout, seed=SEED)
+    launches = tri_bridge.FWD_BY_WIDTH[d].launches
+    got = tri_bridge.tri_bridge(s, v, *params, **kw)
+    want = tri_bridge.tri_bridge_plain(s, v, *params, **kw)
+    torch.cuda.synchronize()
+    assert tri_bridge.FWD_BY_WIDTH[d].launches == launches + 1
+    close(got, want, tri_bridge.TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("l,k", [(40, 5), (50, 7), (9, 3), (56, 9)])
+def test_encoder_kernel_matches_plain_at_other_widths(cuda, d, dtype,
+                                                      dropout, l, k):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(2)
+    x, pe, p, mask = encoder_args(cuda, dt, gen, l=l, k=k, d=d)
+    kw = dict(dropout_rate=dropout, seed=SEED)
+    launches = encoder.FWD_BY_WIDTH[d].launches
+    got = encoder.encoder_reduce(x, pe, p, k, mask, **kw)
+    want = encoder.encoder_reduce_plain(x, pe, p, k, mask, **kw)
+    torch.cuda.synchronize()
+    assert encoder.FWD_BY_WIDTH[d].launches == launches + 1
+    close(got, want, encoder.TOL[dt])
+    assert (got[0, 1].float() == want[0, 1].float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("l,k,masked", [(50, 7, True), (50, 7, False),
+                                        (9, 3, True)])
+def test_encoder_block_kernel_matches_plain_at_other_widths(
+        cuda, d, dtype, dropout, l, k, masked):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(8)
+    x, pe, p, _ = encoder_args(cuda, dt, gen, l=l, k=k, d=d)
+    zm = stream_mask(x.shape[1], l).to(cuda) if masked else None
+    kw = dict(dropout_rate=dropout, seed=SEED)
+    launches = encoder.BLOCK_BY_WIDTH[d].launches
+    got = encoder.encoder_block(x, pe, p, k, zm, **kw)
+    want = encoder.encoder_block_plain(x, pe, p, k, zm, **kw)
+    torch.cuda.synchronize()
+    assert encoder.BLOCK_BY_WIDTH[d].launches == launches + 1
+    assert torch.isfinite(got.float()).all()
+    valid = 1.0 if zm is None else zm[..., None]
+    close(got.float() * valid, want.float() * valid, encoder.TOL[dt])
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_other_widths_and_train_only_at_128(cuda):
+    """D = 96 is refused by every forward wrapper, naming the widths; the
+    backward kernels refuse D = 256 (ROADMAP A10b)."""
+    gen = torch.Generator().manual_seed(9)
+    args = attn_args(cuda, torch.bfloat16, d=96)
+    with pytest.raises(ValueError, match="64, 128 and 256"):
+        qa_ctx_attention.qa_ctx_attention(*args)
+    s = randn(gen, 3, 96).to(cuda, torch.bfloat16)
+    params = [t.to(cuda) for t in (
+        torch.ones(288), torch.zeros(288), torch.zeros(288, 96),
+        torch.zeros(96), torch.ones(96), torch.zeros(96))]
+    with pytest.raises(ValueError, match="64, 128 and 256"):
+        tri_bridge.tri_bridge(s, s, *params)
+    x, pe, p, mask = encoder_args(cuda, torch.bfloat16, gen, d=96)
+    with pytest.raises(ValueError, match="64, 128 and 256"):
+        encoder.encoder_reduce(x, pe, p, 5, mask)
+    with pytest.raises(ValueError, match="64, 128 and 256"):
+        encoder.encoder_block(x, pe, p, 5)
+    x, pe, p, mask = encoder_args(cuda, torch.bfloat16, gen, d=256)
+    x.requires_grad_(True)
+    out = encoder.encoder_reduce(x, pe, p, 5, mask)
+    with pytest.raises(ValueError, match="A10b"):
+        out.float().sum().backward()
 
 
 # ------------------------------------------- encoder, full output / zero mask
@@ -922,9 +1055,12 @@ def test_bf16_steps_run_the_tensor_core_forwards(cuda, tmp_path, train,
     encoder k 7 too) and of the tri bridge, and no CUDA-core forward of
     either."""
     names = step_kernel_names(cuda, train, merged, tmp_path)
-    tc = [nm for nm in names if "encoder_fwd_tc_kernel" in nm]
-    assert any("encoder_fwd_tc_kernel<5" in nm for nm in tc), names
-    assert any("encoder_fwd_tc_kernel<7" in nm for nm in tc) == merged, tc
+    # the D = 128 instantiations, <D, k>
+    tc = [nm.replace(" ", "") for nm in names
+          if "encoder_fwd_tc_kernel" in nm]
+    assert any("encoder_fwd_tc_kernel<128,5>" in nm for nm in tc), names
+    assert any("encoder_fwd_tc_kernel<128,7>" in nm for nm in tc) \
+        == merged, tc
     assert any("tri_bridge_fwd_tc_kernel" in nm for nm in names), names
     old = [nm for nm in names
            if "encoder_fwd_kernel" in nm or "tri_bridge_fwd_kernel" in nm]

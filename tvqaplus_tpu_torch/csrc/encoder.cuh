@@ -3,7 +3,7 @@
 // so the two cannot drift (the tensor-core pair shares encoder_tc.cuh).
 // A sequence's rows (L x D float32) sit in shared memory; row-wise work
 // gives each warp rows r = warp, warp + 8, ... with lane owning channels
-// lane + 32 q.
+// lane + 32 q, q < D / 32.  D defaults to the backward's BWD_D.
 #pragma once
 
 #include "common.cuh"
@@ -12,6 +12,7 @@
 namespace tvqa {
 
 // offsets into the packed float32 parameter buffer (see ops/encoder.py)
+template <int D = BWD_D>
 struct EncParams {
   const float *ln_s[2], *ln_b[2], *dw[2], *dwb[2], *pw[2], *pwb[2];
   const float *lnf_s, *lnf_b;
@@ -31,14 +32,16 @@ struct EncParams {
 
 // LayerNorm of rows [0, L) of src into dst (warp per row, float32 stats,
 // fast variance clipped at 0).
+template <int D = BWD_D>
 __device__ __forceinline__ void ln_rows(const float* src, float* dst, int L,
                                         const float* __restrict__ g,
                                         const float* __restrict__ bta,
                                         int warp, int lane) {
+  constexpr int VPL = D / 32;
   for (int r = warp; r < L; r += NWARPS) {
-    float x[4], s = 0.f, ss = 0.f;
+    float x[VPL], s = 0.f, ss = 0.f;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < VPL; ++q) {
       x[q] = src[r * D + lane + 32 * q];
       s += x[q];
       ss = fmaf(x[q], x[q], ss);
@@ -49,7 +52,7 @@ __device__ __forceinline__ void ln_rows(const float* src, float* dst, int L,
     const float istd =
         rsqrtf(fmaxf(ss * (1.f / D) - mean * mean, 0.f) + LN_EPS);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < VPL; ++q) {
       const int d = lane + 32 * q;
       dst[r * D + d] = (x[q] - mean) * istd * g[d] + bta[d];
     }
@@ -60,6 +63,7 @@ __device__ __forceinline__ void ln_rows(const float* src, float* dst, int L,
 // gradient; out = residual + d LN / d src (residual may be NULL and may
 // alias out; gup may alias out).  Accumulates the scale and bias gradients
 // of the thread's channels lane + 32 q into gs / gb.
+template <int D = BWD_D>
 __device__ __forceinline__ void ln_bwd_rows(const float* src,
                                             const float* gup,
                                             const float* residual,
@@ -108,6 +112,7 @@ __device__ __forceinline__ void ln_bwd_rows(const float* src,
 // validity factor v[row] (the sequence's zero-mask row in shared memory,
 // all ones without a zero mask): a tap that reads past a merged stream's
 // true length sees the zero that per-stream padding would give it.
+template <int D = BWD_D>
 __device__ __forceinline__ void dwconv_rows(const float* src, float* dst,
                                             int L, int k,
                                             const float* dw,
@@ -138,6 +143,7 @@ __device__ __forceinline__ void load_zmask_row(float* v,
 
 // Conv 0's dropout on rows [0, L) of buf (in place): element (l, d) of
 // sequence n is flat index (n L + l) D + d of the (B*G*L, D) LN output.
+template <int D = BWD_D>
 __device__ __forceinline__ void dropout_rows(float* buf, int L,
                                              unsigned long long n,
                                              const Dropout& drop) {

@@ -21,21 +21,28 @@
 // written.  In full mode out is (B, G, L, D); rows where v is 0 are computed
 // (finite) and are the caller's to slice away.  out has the activation type.
 //
+// D, the hidden width, is 64, 128 or 256 (a template parameter; the C
+// entries take it and refuse any other width).
+//
 // What bounds it on the H100: per sequence it reads L x D inputs (2 bytes
 // each in bf16) and does the two pointwise D x D products, 4 * L * D * D
-// FLOPs (~43 MB and ~10 GFLOP at the headline eval, 4,000 sequences of 40),
-// so at the card's peaks it is bound by bytes (~13 us); the full mode also
-// writes L x D per sequence (1,680 sequences of 50 at the merged headline
-// shapes: ~43 MB, ~5.5 GFLOP, bound by bytes too, ~13 us).
+// FLOPs.  At the headline eval (4,000 sequences of 40) that is ~43 MB and
+// ~10 GFLOP at D = 128, bound by bytes (~13 us); ~22 MB and ~2.6 GFLOP at
+// D = 64, bytes (~7 us); ~83 MB and ~42 GFLOP at D = 256, operations
+// (~42 us).  The full mode also writes L x D per sequence (1,680 sequences
+// of 50 at the merged headline shapes: bound by bytes at every D, ~13 us at
+// D = 128, ~6 us at 64, ~26 us at 256).  chip_smoke.py's kernel rows give
+// the exact bounds beside the times.
 //
 // Two instantiations.
-// * bfloat16 (what the main paths run): encoder_fwd_tc_kernel, the
-//   backward's pass A (encoder_bwd.cu) without the backward, on the same
-//   device functions (encoder_tc.cuh).  Both products are wgmma on bf16
+// * bfloat16 (what the main paths run), D = 64 and 128:
+//   encoder_fwd_tc_kernel<D, k>, the backward's pass A (encoder_bwd.cu)
+//   without the backward, on the same device functions (encoder_tc.cuh).
+//   Both products are wgmma on bf16
 //   operands with float32 sums, rounded where the TPU kernel's bf16 compute
 //   mode rounds (c and pw, pallas_encoder.py:199-201); h and every LN
 //   statistic stay float32.  A persistent block walks tiles of whole
-//   sequences; each warpgroup owns 64 rows and all 128 columns, so a row's
+//   sequences; each warpgroup owns 64 rows and all D columns, so a row's
 //   LayerNorm is a sum over the thread's values and its quad, on the
 //   accumulator registers, and the residual h never leaves them.  pw0 and
 //   pw1 stay resident in shared memory (rounded to bf16 as each block loads
@@ -50,14 +57,29 @@
 //   by cp.async while this one computes.  64-row tiles on one warpgroup at
 //   two blocks an SM (x read straight from L2) took 0.41 ms at L 40, k 5
 //   and 0.20 ms at L 50, k 7 against 0.26 and 0.18 ms here (PERF.md PR 6).
-//   254-255 registers a thread, 0 bytes of spill (every k); 163 KB of
-//   shared memory.
+//   At D = 128: 254-255 registers a thread, 0 bytes of spill (k 3..9);
+//   163 KB of shared memory.  At D = 64 the same design at half width:
+//   ~200 registers, 67 KB.
+// * bfloat16, D = 256: encoder_fwd_tc_wide_kernel<k>.  The D = 128 design
+//   does not fit: a warpgroup's 64 x 256 accumulator and residual would
+//   take 256 registers a thread, and pw0 + pw1 (256 KB in bf16) with a
+//   128-row float32 R1 (128 KB) are over the 227 KB a block may hold.  So a
+//   tile is 64 rows (64 / L whole sequences) on both warpgroups, which
+//   split its columns (128 each: 64 accumulator and 64 residual registers a
+//   thread); a row's LayerNorm statistics are summed over both halves
+//   through shared memory; c goes to a bf16 tile (the product's A, all 256
+//   columns) and each pw streams from L2 through two stages of 64 rows,
+//   one loading while the tensor cores multiply the other (mma_streamed_w,
+//   wgmma.cuh).  195 KB of shared memory; 255 registers, a few bytes of
+//   spill.  pw is read from L2 once a tile, not once a block: the kernel
+//   is slower than its bound (PERF.md), which is a later PR's work.
 // * float32: the exactness check, CUDA cores: one resident block per SM
-//   walks the sequences (grid-stride).  Both pointwise matrices (2 x 64 KB)
+//   walks the sequences (grid-stride).  At D <= 128 both pointwise matrices
 //   and the sequence's h, t and c (3 x L x D) sit in shared memory, so
-//   nothing but x in and the output touches device memory; the products are
-//   float32 FMAs out of shared memory (gemm_chunk), the taps read only rows
-//   0..L-1 of t.
+//   nothing but x in and the output touches device memory; at D = 256 the
+//   matrices (2 x 256 KB) do not fit and each product stages its pw from L2
+//   32 rows at a time (gemm_staged).  The products are float32 FMAs out of
+//   shared memory (gemm_chunk), the taps read only rows 0..L-1 of t.
 #include "encoder.cuh"
 #include "encoder_tc.cuh"
 
@@ -67,35 +89,48 @@ using namespace tvqa;
 
 __host__ __device__ inline int rows_padded(int rpt) { return rpt * NWARPS; }
 
+// float32: pw0 and pw1 stay resident in shared memory at D <= 128; at
+// D = 256 (2 x 256 KB) each product stages its pw from L2, KC rows at a
+// time.
+template <int D>
+constexpr bool F32_RESIDENT = D <= 128;
+
+template <int D>
 __host__ __device__ inline int smem_floats(int L, int k, int rpt) {
-  return 2 * D * D + 3 * rows_padded(rpt) * D + 2 * k * D + 2 * round4(L);
+  return (F32_RESIDENT<D> ? 2 * D * D : KC * D) + 3 * rows_padded(rpt) * D
+         + 2 * k * D + 2 * round4(L);
 }
 
-template <int RPT>
+template <int D, int RPT>
 __global__ void __launch_bounds__(NTHREADS)
 encoder_fwd_kernel(const float* __restrict__ x, const float* __restrict__ pe,
                    const float* __restrict__ packed,
                    const float* __restrict__ mask,
                    const float* __restrict__ zmask, float* __restrict__ out,
                    int N, int G, int L, int k, Dropout drop) {
+  constexpr bool RES = F32_RESIDENT<D>;
+  constexpr int CPL = D / 32;            // GEMM output columns a lane
   drop.load_seed();
   extern __shared__ float4 smem4[];
-  float* pw_s = reinterpret_cast<float*>(smem4);     // 2 x D x D
+  float* w_s = reinterpret_cast<float*>(smem4);  // 2 x D x D, or KC x D
   const int LP = rows_padded(RPT);
-  float* h_s = pw_s + 2 * D * D;                      // LP x D
+  float* h_s = w_s + (RES ? 2 * D * D : KC * D);  // LP x D
   float* t_s = h_s + LP * D;
   float* c_s = t_s + LP * D;
   float* dw_s = c_s + LP * D;                         // 2 x k x D
   float* m_s = dw_s + 2 * k * D;                      // L (reduce mode)
   float* v_s = m_s + round4(L);                       // L
   const bool reduce = mask != nullptr;
-  const EncParams P(packed, k);
+  const EncParams<D> P(packed, k);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   for (int i = 0; i < 2; ++i) {
-    const float4* src = reinterpret_cast<const float4*>(P.pw[i]);
-    float4* dst = reinterpret_cast<float4*>(pw_s + i * D * D);
-    for (int idx = tid; idx < D * D / 4; idx += NTHREADS) dst[idx] = src[idx];
+    if (RES) {
+      const float4* src = reinterpret_cast<const float4*>(P.pw[i]);
+      float4* dst = reinterpret_cast<float4*>(w_s + i * D * D);
+      for (int idx = tid; idx < D * D / 4; idx += NTHREADS)
+        dst[idx] = src[idx];
+    }
     for (int idx = tid; idx < k * D; idx += NTHREADS)
       dw_s[i * k * D + idx] = P.dw[i][idx];
   }
@@ -113,33 +148,39 @@ encoder_fwd_kernel(const float* __restrict__ x, const float* __restrict__ pe,
     __syncthreads();
 #pragma unroll 1
     for (int i = 0; i < 2; ++i) {
-      ln_rows(h_s, t_s, L, P.ln_s[i], P.ln_b[i], warp, lane);
+      ln_rows<D>(h_s, t_s, L, P.ln_s[i], P.ln_b[i], warp, lane);
       __syncthreads();
       if (i == 0 && drop.on()) {
-        dropout_rows(t_s, L, n, drop);
+        dropout_rows<D>(t_s, L, n, drop);
         __syncthreads();
       }
-      dwconv_rows(t_s, c_s, L, k, dw_s + i * k * D, P.dwb[i], v_s);
+      dwconv_rows<D>(t_s, c_s, L, k, dw_s + i * k * D, P.dwb[i], v_s);
       __syncthreads();
-      float acc[RPT][4];
+      float acc[RPT][CPL];
+      if constexpr (RES) {
 #pragma unroll
-      for (int j = 0; j < RPT; ++j)
-        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-      gemm_chunk<RPT>(acc, c_s, D, 0, pw_s + i * D * D, D, warp * RPT,
-                      lane * 4);
-      const float4 bv = *reinterpret_cast<const float4*>(P.pwb[i] + lane * 4);
-      const float bb[4] = {bv.x, bv.y, bv.z, bv.w};
+        for (int j = 0; j < RPT; ++j)
+#pragma unroll
+          for (int t = 0; t < CPL; ++t) acc[j][t] = 0.f;
+        gemm_chunk<RPT, D>(acc, c_s, D, 0, w_s + i * D * D, D, warp * RPT,
+                           lane * CPL);
+      } else {
+        gemm_staged<RPT, D>(acc, c_s, D, D, P.pw[i], w_s, warp * RPT,
+                            lane * CPL);
+      }
+      float bb[CPL];
+      ld_cols<CPL>(bb, P.pwb[i] + lane * CPL);
 #pragma unroll
       for (int j = 0; j < RPT; ++j) {
         const int r = warp * RPT + j;
         if (r >= L) continue;
 #pragma unroll
-        for (int t = 0; t < 4; ++t)
-          h_s[r * D + lane * 4 + t] += fmaxf(acc[j][t] + bb[t], 0.f);
+        for (int t = 0; t < CPL; ++t)
+          h_s[r * D + lane * CPL + t] += fmaxf(acc[j][t] + bb[t], 0.f);
       }
       __syncthreads();
     }
-    ln_rows(h_s, t_s, L, P.lnf_s, P.lnf_b, warp, lane);
+    ln_rows<D>(h_s, t_s, L, P.lnf_s, P.lnf_b, warp, lane);
     __syncthreads();
     if (reduce) {
       for (int d = tid; d < D; d += NTHREADS) {
@@ -158,12 +199,12 @@ encoder_fwd_kernel(const float* __restrict__ x, const float* __restrict__ pe,
   }
 }
 
-template <int RPT>
+template <int D, int RPT>
 int launch_rpt(const float* x, const float* pe, const float* packed,
                const float* mask, const float* zmask, float* out, int N,
                int G, int L, int k, Dropout drop, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * smem_floats(L, k, RPT);
-  auto kern = encoder_fwd_kernel<RPT>;
+  const size_t bytes = sizeof(float) * smem_floats<D>(L, k, RPT);
+  auto kern = encoder_fwd_kernel<D, RPT>;
   cudaError_t err = allow_smem(kern, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   int dev = 0, sms = 0;
@@ -175,13 +216,14 @@ int launch_rpt(const float* x, const float* pe, const float* packed,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
 int launch_f32(const float* x, const float* pe, const float* packed,
                const float* mask, const float* zmask, float* out, int N,
                int G, int L, int k, Dropout drop, cudaStream_t stream) {
 #define TVQA_ENC_FWD(R)                                                      \
   case R:                                                                    \
-    return launch_rpt<R>(x, pe, packed, mask, zmask, out, N, G, L, k, drop,  \
-                         stream);
+    return launch_rpt<D, R>(x, pe, packed, mask, zmask, out, N, G, L, k,     \
+                            drop, stream);
   switch ((L + NWARPS - 1) / NWARPS) {   // rows per warp in the GEMM
     TVQA_ENC_FWD(1)
     TVQA_ENC_FWD(2)
@@ -195,26 +237,29 @@ int launch_f32(const float* x, const float* pe, const float* packed,
 #undef TVQA_ENC_FWD
 }
 
-// ---- the bfloat16 instantiation: tensor cores ------------------------------
-
-constexpr int PW_PANEL = D * tc::ROW_BYTES;         // panel of pw (D rows)
-constexpr int PW_BYTES = 2 * PW_PANEL;              // D x D bf16
+// ---- the bfloat16 instantiation: tensor cores, D = 64 and 128 --------------
 
 constexpr int TR = 2 * TM;                          // rows of a tile
 constexpr int X_PANEL = TR * tc::ROW_BYTES;
+
 // Shared-memory layout: pw0, pw1 (bf16 panels); R1 (TR x D float32); the x
 // tile being prefetched (bf16 panels); v and m of each row, twice (the
 // tile's parity), so that a tile's rows are filled while the previous
 // tile's column pass still reads its own.
-constexpr int O_R1 = 2 * PW_BYTES;
-constexpr int O_X = O_R1 + TR * D * 4;
-constexpr int O_RV = O_X + 2 * X_PANEL;
-constexpr int TC_SMEM = O_RV + 2 * 2 * TR * 4 + tc::ATOM_BYTES;
+template <int D>
+struct EncTc {
+  static constexpr int PW_PANEL = D * tc::ROW_BYTES;  // panel of pw (D rows)
+  static constexpr int PW_BYTES = (D / 64) * PW_PANEL;  // D x D bf16
+  static constexpr int O_R1 = 2 * PW_BYTES;
+  static constexpr int O_X = O_R1 + TR * D * 4;
+  static constexpr int O_RV = O_X + (D / 64) * X_PANEL;
+  static constexpr int SMEM = O_RV + 2 * 2 * TR * 4 + tc::ATOM_BYTES;
+};
 
 // A persistent block walks tiles of TR rows holding nseq whole sequences;
 // warpgroup w owns rows [64 w, 64 w + 64) and all D columns.  K = k, the
 // depthwise width, so that the taps unroll.
-template <int K>
+template <int D, int K>
 __global__ void __launch_bounds__(NTHREADS, 1)
 encoder_fwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
                       const float* __restrict__ pe,
@@ -223,13 +268,14 @@ encoder_fwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
                       const float* __restrict__ zmask,
                       __nv_bfloat16* __restrict__ out, int N, int G, int L,
                       int nseq, Dropout drop) {
+  using S = EncTc<D>;
   drop.load_seed();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_smem(smem_raw);
-  float* r1 = reinterpret_cast<float*>(sm + O_R1);
-  uint8_t* xs = sm + O_X;
+  float* r1 = reinterpret_cast<float*>(sm + S::O_R1);
+  uint8_t* xs = sm + S::O_X;
   const bool reduce = mask != nullptr;
-  const TcParams<K> P{packed};
+  const TcParams<K, D> P{packed};
   const int tid = threadIdx.x, wg = tid >> 7;
   const int warp = (tid & 127) >> 5, lane = tid & 31;
   const int cl = 2 * (lane & 3);
@@ -238,14 +284,15 @@ encoder_fwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
   for (int h = 0; h < 2; ++h)
     row[h] = TM * wg + 16 * warp + (lane >> 2) + 8 * h;
   for (int i = 0; i < 2; ++i)
-    tc_store_rows_f32(sm + i * PW_BYTES, D, P.pw(i), D, tid, NTHREADS);
+    tc_store_rows_f32<D>(sm + i * S::PW_BYTES, D, P.pw(i), D, tid,
+                         NTHREADS);
   const int tiles = (N + nseq - 1) / nseq;
   // cp.async of the x rows of `tile` into the x tile (rows past its
   // sequences zeroed)
   auto load_x = [&](int tile) {
     const int n0 = tile * nseq;
-    tc_load_rows(xs, TR, x + static_cast<size_t>(n0) * L * D, D,
-                 min(nseq, N - n0) * L, tid, NTHREADS);
+    tc_load_rows<D>(xs, TR, x + static_cast<size_t>(n0) * L * D, D,
+                    min(nseq, N - n0) * L, tid, NTHREADS);
   };
   if (static_cast<int>(blockIdx.x) < tiles) load_x(blockIdx.x);
   tc::cp_async_commit();
@@ -263,7 +310,7 @@ encoder_fwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
       lrow[h] = row[h] % L;
       grow[h] = R0 + (valid[h] ? row[h] : 0);
     }
-    float* v_s = reinterpret_cast<float*>(sm + O_RV) + parity * 2 * TR;
+    float* v_s = reinterpret_cast<float*>(sm + S::O_RV) + parity * 2 * TR;
     float* m_s = v_s + TR;
     parity ^= 1;
     if (tid < TR) {
@@ -274,110 +321,303 @@ encoder_fwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
                               : 1.f);
       m_s[tid] = ok && reduce ? mask[static_cast<size_t>(n) * L + l] : 0.f;
     }
-    // conv 0's dropout: keep bits of the thread's 64 values, drawn once
-    uint32_t kw[2][2] = {{~0u, ~0u}, {~0u, ~0u}};
+    // conv 0's dropout: keep bits of the thread's D / 2 values, drawn once
+    uint32_t kw[2][D / 64];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int w = 0; w < D / 64; ++w) kw[h][w] = ~0u;
     if (drop.on())
-      tc_keep_bits<16, true>(drop, ((lane & 1) ? grow[1] : grow[0]) * D,
-                             lane, kw);
+      tc_keep_bits<D / 8, true>(drop, ((lane & 1) ? grow[1] : grow[0]) * D,
+                                lane, kw);
     tc::cp_async_wait<0>();            // this tile's x
     tc::fence_async_smem();            // pw (first tile) is read by wgmma
     __syncthreads();                   // ... and v, m of every row
 
-    float hv[64];
-    enc_load_h0(hv, [&](int h, int c) {
+    float hv[D / 2];
+    enc_load_h0<D>(hv, [&](int h, int c) {
       return tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(
           xs + (c >> 6) * X_PANEL + tc::swz(row[h], c & 63)));
     }, pe, valid, lrow, cl);
-    enc_ln_to_r1(hv, P.ln_s(0), P.ln_b(0), true, kw, drop, r1, row, cl);
+    enc_ln_to_r1<D>(hv, P.ln_s(0), P.ln_b(0), true, kw, drop, r1, row, cl);
     __syncthreads();                   // R1 whole; the x tile read
     if (tile + static_cast<int>(gridDim.x) < tiles) load_x(tile + gridDim.x);
     tc::cp_async_commit();
 #pragma unroll 1
     for (int i = 0; i < 2; ++i) {
       if (i == 1) {
-        enc_ln_to_r1(hv, P.ln_s(1), P.ln_b(1), false, kw, drop, r1, row, cl);
+        enc_ln_to_r1<D>(hv, P.ln_s(1), P.ln_b(1), false, kw, drop, r1, row,
+                        cl);
         __syncthreads();               // R1 whole
       }
       // c = depthwise_i(t v) rounded to bf16, packed as wgmma's register A
       // fragments (depth step ks holds pairs 4 ks .. 4 ks + 3)
-      uint32_t cf[32];
+      uint32_t cf[D / 4];
 #pragma unroll
-      for (int pr = 0; pr < 32; ++pr) {
-        const float2 a = enc_conv_pair<K>(r1, v_s, P.dw(i), P.dwb(i), row,
-                                          lrow, valid, L, pr & 1,
-                                          8 * (pr >> 1) + cl);
+      for (int pr = 0; pr < D / 4; ++pr) {
+        const float2 a = enc_conv_pair<K, D>(r1, v_s, P.dw(i), P.dwb(i), row,
+                                             lrow, valid, L, pr & 1,
+                                             8 * (pr >> 1) + cl);
         cf[pr] = tc::pack_bf16(a.x, a.y);
       }
-      float acc[64];
+      float acc[D / 2];
       tc::fence();
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks) {
         const uint32_t a4[4] = {cf[4 * ks], cf[4 * ks + 1], cf[4 * ks + 2],
                                 cf[4 * ks + 3]};
-        tc::mma_rs<128, 1>(
+        tc::mma_rs<D, 1>(
             acc, a4,
-            tc::make_desc(tc::smem_u32(sm) + i * PW_BYTES
-                              + ks * 2 * tc::ATOM_BYTES, PW_PANEL),
+            tc::make_desc(tc::smem_u32(sm) + i * S::PW_BYTES
+                              + ks * 2 * tc::ATOM_BYTES, S::PW_PANEL),
             ks > 0);
       }
       tc::commit();
       __syncthreads();                 // every tap of R1 is read
       tc::wait_all();
 #pragma unroll
-      for (int j = 0; j < 64; ++j)
+      for (int j = 0; j < D / 2; ++j)
         hv[j] += fmaxf(acc[j] + __ldg(P.pwb(i) + acc_col(j, lane)), 0.f);
     }
     // ---- the final LN, then the masked max or the bf16 rows ---------------
     if (reduce) {
-      enc_ln_to_r1(hv, P.lnf_s(), P.lnf_b(), false, kw, drop, r1, row, cl);
+      enc_ln_to_r1<D>(hv, P.lnf_s(), P.lnf_b(), false, kw, drop, r1, row,
+                      cl);
       __syncthreads();
       for (int idx = tid; idx < rows / L * D; idx += NTHREADS) {
         const int s = idx / D, d = idx % D, base = s * L;
         float mx = -CUDART_INF_F;
         for (int l = 0; l < L; ++l) {
           const float m = m_s[base + l];
-          mx = fmaxf(mx, r1[r1_at(base + l, d)] * m + (m - 1.f) * 1e10f);
+          mx = fmaxf(mx, r1[r1_at<D>(base + l, d)] * m + (m - 1.f) * 1e10f);
         }
         out[static_cast<size_t>(n0 + s) * D + d] = __float2bfloat16(mx);
       }
     } else {
-      enc_ln(hv, P.lnf_s(), P.lnf_b(), false, kw, drop, cl,
-             [&](int pr, float2 o) {
-               const int h = pr & 1;
-               if (valid[h])
-                 *reinterpret_cast<uint32_t*>(out + grow[h] * D + 8 * (pr >> 1)
-                                              + cl) = tc::pack_bf16(o.x, o.y);
-             });
+      enc_ln<D>(hv, P.lnf_s(), P.lnf_b(), false, kw, drop, cl,
+                [&](int pr, float2 o) {
+                  const int h = pr & 1;
+                  if (valid[h])
+                    *reinterpret_cast<uint32_t*>(out + grow[h] * D
+                                                 + 8 * (pr >> 1) + cl) =
+                        tc::pack_bf16(o.x, o.y);
+                });
     }
   }
 }
 
+// ---- the bfloat16 instantiation at D = 256: pw streamed --------------------
+//
+// A warpgroup's 64 x 256 float32 accumulator would take 128 registers a
+// thread beside the residual's 128, and pw0 + pw1 (256 KB in bf16) do not
+// fit in shared memory.  So a tile is 64 rows (nseq = 64 / L sequences) on
+// both warpgroups, which split its columns: warpgroup wg owns columns
+// [128 wg, 128 wg + 128), the residual h (64 values a thread) stays in its
+// registers, and a row's LayerNorm sums both halves through shared memory
+// (tri_row_pair_sums).  c goes to a bf16 tile (the product's A, all 256
+// columns) and pw streams through two stages of 64 rows (mma_streamed_w,
+// wgmma.cuh), rounded to bf16 from the float32 parameters as each stage is
+// stored.
+
+constexpr int WD = 256;
+struct EncWide {
+  static constexpr int KP = 64;                       // pw rows a stage
+  static constexpr int O_R1 = 0;                      // 64 x 256 float32
+  static constexpr int O_X = O_R1 + TM * WD * 4;      // x tile (4 panels)
+  static constexpr int O_C = O_X + (WD / 64) * TILE_PANEL;   // c tile
+  static constexpr int O_ST = O_C + (WD / 64) * TILE_PANEL;  // pw stages
+  static constexpr int O_EX = O_ST + 2 * stream_stage_bytes<WD, KP>();
+  static constexpr int O_RV = O_EX + 2 * TM * 2 * 4;  // [wg][row][2] sums
+  static constexpr int SMEM = O_RV + 2 * 2 * TM * 4 + tc::ATOM_BYTES;
+};
+
 template <int K>
+__global__ void __launch_bounds__(NTHREADS, 1)
+encoder_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
+                           const float* __restrict__ pe,
+                           const float* __restrict__ packed,
+                           const float* __restrict__ mask,
+                           const float* __restrict__ zmask,
+                           __nv_bfloat16* __restrict__ out, int N, int G,
+                           int L, int nseq, Dropout drop) {
+  constexpr int D = WD;
+  using S = EncWide;
+  drop.load_seed();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_smem(smem_raw);
+  float* r1 = reinterpret_cast<float*>(sm + S::O_R1);
+  uint8_t* xs = sm + S::O_X;
+  uint8_t* cs = sm + S::O_C;
+  float* ex = reinterpret_cast<float*>(sm + S::O_EX);
+  const bool reduce = mask != nullptr;
+  const TcParams<K, D> P{packed};
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid & 127) >> 5, lane = tid & 31;
+  const int rl = 16 * warp + (lane >> 2);
+  const int cl = 128 * wg + 2 * (lane & 3);         // the thread's columns
+  const int row[2] = {rl, rl + 8};
+  const int tiles = (N + nseq - 1) / nseq;
+  auto load_x = [&](int tile) {
+    const int n0 = tile * nseq;
+    tc_load_rows<D>(xs, TM, x + static_cast<size_t>(n0) * L * D, D,
+                    min(nseq, N - n0) * L, tid, NTHREADS);
+  };
+  // mean and 1 / std of the thread's rows over both warpgroups' columns
+  // (one exchange: a block barrier)
+  auto stats = [&](const float (&hv)[64], float (&mean)[2],
+                   float (&istd)[2]) {
+    mean[0] = mean[1] = istd[0] = istd[1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 64; ++j) {
+      mean[(j >> 1) & 1] += hv[j];
+      istd[(j >> 1) & 1] = fmaf(hv[j], hv[j], istd[(j >> 1) & 1]);
+    }
+    tri_row_pair_sums(ex, mean, istd, wg, rl, lane);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mean[h] *= 1.f / D;
+      istd[h] = rsqrtf(fmaxf(istd[h] * (1.f / D) - mean[h] * mean[h], 0.f)
+                       + LN_EPS);
+    }
+  };
+  auto to_r1 = [&](int pr, float2 y) {
+    *reinterpret_cast<float2*>(r1 + r1_at<D>(row[pr & 1],
+                                             8 * (pr >> 1) + cl)) = y;
+  };
+  if (static_cast<int>(blockIdx.x) < tiles) load_x(blockIdx.x);
+  tc::cp_async_commit();
+
+  int parity = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int n0 = tile * nseq, rows = min(nseq, N - n0) * L;
+    const long long R0 = static_cast<long long>(n0) * L;
+    bool valid[2];
+    int lrow[2];
+    long long grow[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      valid[h] = row[h] < rows;
+      lrow[h] = row[h] % L;
+      grow[h] = R0 + (valid[h] ? row[h] : 0);
+    }
+    float* v_s = reinterpret_cast<float*>(sm + S::O_RV) + parity * 2 * TM;
+    float* m_s = v_s + TM;
+    parity ^= 1;
+    if (tid < TM) {
+      const bool ok = tid < rows;
+      const int n = n0 + tid / L, l = tid % L;
+      v_s[tid] = !ok ? 0.f
+          : (zmask != nullptr ? zmask[static_cast<size_t>(n % G) * L + l]
+                              : 1.f);
+      m_s[tid] = ok && reduce ? mask[static_cast<size_t>(n) * L + l] : 0.f;
+    }
+    uint32_t kw[2][2] = {{~0u, ~0u}, {~0u, ~0u}};
+    if (drop.on())
+      tc_keep_bits<16, true>(
+          drop, ((lane & 1) ? grow[1] : grow[0]) * D + 128 * wg, lane, kw);
+    tc::cp_async_wait<0>();            // this tile's x
+    __syncthreads();                   // ... and v, m of every row
+
+    float hv[64], mean[2], istd[2];
+    enc_load_h0<D>(hv, [&](int h, int c) {
+      return tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(
+          xs + (c >> 6) * TILE_PANEL + tc::swz(row[h], c & 63)));
+    }, pe, valid, lrow, cl);
+    stats(hv, mean, istd);
+    enc_ln_apply(hv, mean, istd, P.ln_s(0), P.ln_b(0), true, kw, drop, cl,
+                 to_r1);
+    __syncthreads();                   // R1 whole; the x tile read
+    if (tile + static_cast<int>(gridDim.x) < tiles) load_x(tile + gridDim.x);
+    tc::cp_async_commit();
+#pragma unroll 1
+    for (int i = 0; i < 2; ++i) {
+      if (i == 1) {
+        stats(hv, mean, istd);
+        enc_ln_apply(hv, mean, istd, P.ln_s(1), P.ln_b(1), false, kw, drop,
+                     cl, to_r1);
+        __syncthreads();               // R1 whole
+      }
+      // c = depthwise_i(t v) rounded to bf16 into the c tile
+#pragma unroll
+      for (int pr = 0; pr < 32; ++pr) {
+        const int h = pr & 1, c = 8 * (pr >> 1) + cl;
+        const float2 a = enc_conv_pair<K, D>(r1, v_s, P.dw(i), P.dwb(i), row,
+                                             lrow, valid, L, h, c);
+        *reinterpret_cast<uint32_t*>(cs + (c >> 6) * TILE_PANEL
+                                     + tc::swz(row[h], c & 63)) =
+            tc::pack_bf16(a.x, a.y);
+      }
+      tc::fence_async_smem();
+      __syncthreads();                 // the c tile whole; R1's taps read
+      float acc[64];
+      mma_streamed_w<D, D, S::KP>(acc, tc::smem_u32(cs), P.pw(i),
+                                  sm + S::O_ST, wg);
+#pragma unroll
+      for (int j = 0; j < 64; ++j)
+        hv[j] += fmaxf(acc[j] + __ldg(P.pwb(i) + 128 * wg
+                                      + acc_col(j, lane)), 0.f);
+    }
+    // ---- the final LN, then the masked max or the bf16 rows ---------------
+    stats(hv, mean, istd);
+    if (reduce) {
+      enc_ln_apply(hv, mean, istd, P.lnf_s(), P.lnf_b(), false, kw, drop, cl,
+                   to_r1);
+      __syncthreads();
+      for (int idx = tid; idx < rows / L * D; idx += NTHREADS) {
+        const int s = idx / D, d = idx % D, base = s * L;
+        float mx = -CUDART_INF_F;
+        for (int l = 0; l < L; ++l) {
+          const float m = m_s[base + l];
+          mx = fmaxf(mx, r1[r1_at<D>(base + l, d)] * m + (m - 1.f) * 1e10f);
+        }
+        out[static_cast<size_t>(n0 + s) * D + d] = __float2bfloat16(mx);
+      }
+    } else {
+      enc_ln_apply(hv, mean, istd, P.lnf_s(), P.lnf_b(), false, kw, drop, cl,
+                   [&](int pr, float2 o) {
+                     const int h = pr & 1;
+                     if (valid[h])
+                       *reinterpret_cast<uint32_t*>(out + grow[h] * D
+                                                    + 8 * (pr >> 1) + cl) =
+                           tc::pack_bf16(o.x, o.y);
+                   });
+    }
+  }
+}
+
+template <int D, int K>
 int launch_tc_k(const void* x, const float* pe, const float* packed,
                 const float* mask, const float* zmask, void* out, int N,
                 int G, int L, Dropout drop, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  auto kern = encoder_fwd_tc_kernel<K>;
-  cudaError_t err = allow_smem(kern, TC_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int nseq = TR / L, tiles = (N + nseq - 1) / nseq;
-  const int blocks = tiles < sms ? tiles : sms;
-  kern<<<blocks, NTHREADS, TC_SMEM, stream>>>(
-      static_cast<const bf16*>(x), pe, packed, mask, zmask,
-      static_cast<bf16*>(out), N, G, L, nseq, drop);
-  return static_cast<int>(cudaGetLastError());
+  // one persistent block an SM over tiles of tile_rows rows
+  auto go = [&](auto kern, int smem, int tile_rows) {
+    cudaError_t err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int nseq = tile_rows / L, tiles = (N + nseq - 1) / nseq;
+    const int blocks = tiles < sms ? tiles : sms;
+    kern<<<blocks, NTHREADS, smem, stream>>>(
+        static_cast<const bf16*>(x), pe, packed, mask, zmask,
+        static_cast<bf16*>(out), N, G, L, nseq, drop);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if constexpr (D == WD)
+    return go(encoder_fwd_tc_wide_kernel<K>, EncWide::SMEM, TM);
+  else
+    return go(encoder_fwd_tc_kernel<D, K>, EncTc<D>::SMEM, TR);
 }
 
+template <int D>
 int launch_tc(const void* x, const float* pe, const float* packed,
               const float* mask, const float* zmask, void* out, int N, int G,
               int L, int k, Dropout drop, cudaStream_t stream) {
 #define TVQA_ENC_FWD_TC(KK)                                                  \
   case KK:                                                                   \
-    return launch_tc_k<KK>(x, pe, packed, mask, zmask, out, N, G, L, drop,   \
-                           stream);
+    return launch_tc_k<D, KK>(x, pe, packed, mask, zmask, out, N, G, L,      \
+                              drop, stream);
   switch (k) {
     TVQA_ENC_FWD_TC(1)
     TVQA_ENC_FWD_TC(3)
@@ -389,37 +629,59 @@ int launch_tc(const void* x, const float* pe, const float* packed,
 #undef TVQA_ENC_FWD_TC
 }
 
+template <int D>
+int launch_width(const void* x, const float* pe, const float* packed,
+                 const float* mask, const float* zmask, void* out, int N,
+                 int G, int L, int k, Dropout drop, int is_bf16,
+                 cudaStream_t st) {
+  // the bf16 tile holds whole sequences: TR rows, TM at D = 256
+  if (L > (D == WD ? TM : TR)) return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16)
+    return launch_tc<D>(x, pe, packed, mask, zmask, out, N, G, L, k, drop,
+                        st);
+  return launch_f32<D>(static_cast<const float*>(x), pe, packed, mask, zmask,
+                       static_cast<float*>(out), N, G, L, k, drop, st);
+}
+
 int launch_any(const void* x, const void* pe, const void* packed,
-               const void* mask, const void* zmask, void* out, int N, int G, int L, int k,
-               const unsigned long long* drop_seed, unsigned drop_threshold,
-               float drop_scale, int is_bf16, void* stream) {
+               const void* mask, const void* zmask, void* out, int N, int G,
+               int L, int k, int D, const unsigned long long* drop_seed,
+               unsigned drop_threshold, float drop_scale, int is_bf16,
+               void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto st = static_cast<cudaStream_t>(stream);
   const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
-  if (k % 2 == 0 || k > ENC_MAX_K || L < 1 || L > TR)
+  if (k % 2 == 0 || k > ENC_MAX_K || L < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (is_bf16)
-    return launch_tc(x, f(pe), f(packed), f(mask), f(zmask), out, N, G, L, k,
-                     drop, st);
-  return launch_f32(f(x), f(pe), f(packed), f(mask), f(zmask),
-                    static_cast<float*>(out), N, G, L, k, drop, st);
+  switch (D) {
+    case 64:
+      return launch_width<64>(x, f(pe), f(packed), f(mask), f(zmask), out, N,
+                              G, L, k, drop, is_bf16, st);
+    case 128:
+      return launch_width<128>(x, f(pe), f(packed), f(mask), f(zmask), out,
+                               N, G, L, k, drop, is_bf16, st);
+    case 256:
+      return launch_width<256>(x, f(pe), f(packed), f(mask), f(zmask), out,
+                               N, G, L, k, drop, is_bf16, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// x: N = B*G sequences of L x D (bf16 when is_bf16, else float32); pe (L, D),
-// packed parameters (ops/encoder.py PARAM_KEYS order) and mask (N, L)
-// float32 (16-byte aligned); out (N, D) in x's type.  L <= 56, odd k <= 9.
-// Conv 0's dropout when drop_threshold > 0 (philox.cuh).  bf16 x is 16-byte
-// aligned.
+// x: N = B*G sequences of L x D (bf16 when is_bf16, else float32), D one of
+// 64, 128, 256; pe (L, D), packed parameters (ops/encoder.py PARAM_KEYS
+// order) and mask (N, L) float32 (16-byte aligned); out (N, D) in x's type.
+// L <= 56, odd k <= 9.  Conv 0's dropout when drop_threshold > 0
+// (philox.cuh).  bf16 x is 16-byte aligned.
 extern "C" int encoder_reduce_fwd(const void* x, const void* pe,
                                   const void* packed, const void* mask,
-                                  void* out, int N, int L, int k,
+                                  void* out, int N, int L, int k, int D,
                                   const unsigned long long* drop_seed,
                                   unsigned drop_threshold, float drop_scale,
                                   int is_bf16, void* stream) {
   if (mask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_any(x, pe, packed, mask, nullptr, out, N, 1, L, k,
+  return launch_any(x, pe, packed, mask, nullptr, out, N, 1, L, k, D,
                     drop_seed, drop_threshold, drop_scale, is_bf16, stream);
 }
 
@@ -428,11 +690,11 @@ extern "C" int encoder_reduce_fwd(const void* x, const void* pe,
 // else as encoder_reduce_fwd.
 extern "C" int encoder_block_fwd(const void* x, const void* pe,
                                  const void* packed, const void* zmask,
-                                 void* out, int N, int G, int L, int k,
+                                 void* out, int N, int G, int L, int k, int D,
                                  const unsigned long long* drop_seed,
                                  unsigned drop_threshold, float drop_scale,
                                  int is_bf16, void* stream) {
   if (G < 1 || N % G != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_any(x, pe, packed, nullptr, zmask, out, N, G, L, k,
+  return launch_any(x, pe, packed, nullptr, zmask, out, N, G, L, k, D,
                     drop_seed, drop_threshold, drop_scale, is_bf16, stream);
 }

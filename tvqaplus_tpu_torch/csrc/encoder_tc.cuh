@@ -1,4 +1,5 @@
-// Device code of the fused encoder block's tensor-core kernels.  The
+// Device code of the fused encoder block's tensor-core kernels, at hidden
+// width D (the backward's BWD_D unless given).  The
 // parameter offsets and the R1 layout serve the forward (encoder_fwd.cu,
 // encoder_fwd_tc_kernel) and the backward (encoder_bwd.cu,
 // encoder_bwd_tc_kernel); the row passes below are the forward's.  The
@@ -23,7 +24,7 @@ constexpr int ENC_MAX_K = 9;
 
 // The packed parameters (ops/encoder.py PARAM_KEYS order) at offsets known
 // at compile time: EncParams' fourteen pointers held 28 registers.
-template <int K>
+template <int K, int D = BWD_D>
 struct TcParams {
   static constexpr int LAYER = (4 + K) * D + D * D;
   const float* p;
@@ -46,6 +47,7 @@ struct TcParams {
 // Element (r, c) of the float32 tile R1: the column's 8-groups are swizzled
 // by the row, so that the accumulator layout's float2 accesses (8 rows x 4
 // lanes) and the column passes (32 columns of a row) spread over the banks.
+template <int D = BWD_D>
 __device__ __forceinline__ int r1_at(int r, int c) {
   return r * D + (c ^ ((r & 3) << 3));
 }
@@ -55,24 +57,31 @@ __device__ __forceinline__ float2 ldg2(const float* p) {
 }
 
 // Conv 0's dropout multiplier of value (h, q, e) from the keep bits of
-// tc_keep_bits<16> (wgmma.cuh).
-__device__ __forceinline__ float enc_keep(const uint32_t (&kw)[2][2],
+// tc_keep_bits (wgmma.cuh).
+template <int W>
+__device__ __forceinline__ float enc_keep(const uint32_t (&kw)[2][W],
                                           const Dropout& drop, int h, int q,
                                           int e) {
   return !drop.on() ? 1.f
       : ((kw[h][q >> 3] >> (4 * (q & 7) + e)) & 1u ? drop.scale : 0.f);
 }
 
+// The thread's NV values in its two rows (NV / 2 columns each, from column
+// cl of its quad: pair pr at row half pr % 2, columns 8 (pr / 2) + cl and
+// the next).  NV = D at D <= 128 (a warpgroup owns all D columns); at
+// D = 256 a warpgroup owns 128 and the caller passes cl = 128 wg + 2
+// (lane % 4).
+
 // h0 = x + pe of the thread's values; xpair(h, c) gives x's pair at (row
 // half h, columns c, c + 1) of a valid row as float2.  Rows past the
 // tile's sequences are 0.
-template <typename X>
-__device__ __forceinline__ void enc_load_h0(float (&hv)[64], X xpair,
+template <int D, int NV, typename X>
+__device__ __forceinline__ void enc_load_h0(float (&hv)[NV], X xpair,
                                             const float* __restrict__ pe,
                                             const bool (&valid)[2],
                                             const int (&lrow)[2], int cl) {
 #pragma unroll
-  for (int pr = 0; pr < 32; ++pr) {
+  for (int pr = 0; pr < NV / 2; ++pr) {
     const int h = pr & 1, c = 8 * (pr >> 1) + cl;
     float2 a = make_float2(0.f, 0.f);
     if (valid[h]) {
@@ -86,13 +95,15 @@ __device__ __forceinline__ void enc_load_h0(float (&hv)[64], X xpair,
   }
 }
 
-// Row statistics of the thread's two rows (fast variance, clipped at 0).
-__device__ __forceinline__ void enc_stats(const float (&hv)[64],
+// Row statistics of the thread's two rows when its values cover them (fast
+// variance, clipped at 0).
+template <int D>
+__device__ __forceinline__ void enc_stats(const float (&hv)[D / 2],
                                           float (&mean)[2],
                                           float (&istd)[2]) {
   mean[0] = mean[1] = istd[0] = istd[1] = 0.f;
 #pragma unroll
-  for (int j = 0; j < 64; ++j) {
+  for (int j = 0; j < D / 2; ++j) {
     mean[(j >> 1) & 1] += hv[j];
     istd[(j >> 1) & 1] = fmaf(hv[j], hv[j], istd[(j >> 1) & 1]);
   }
@@ -104,18 +115,15 @@ __device__ __forceinline__ void enc_stats(const float (&hv)[64],
   }
 }
 
-// LN(hv) with scale sc and bias bi, times conv 0's dropout when drop0, as
-// value pairs: emit(pr, y) for each pair pr.
-template <typename E>
-__device__ __forceinline__ void enc_ln(const float (&hv)[64],
-                                       const float* __restrict__ sc,
-                                       const float* __restrict__ bi,
-                                       bool drop0, const uint32_t (&kw)[2][2],
-                                       const Dropout& drop, int cl, E emit) {
-  float mean[2], istd[2];
-  enc_stats(hv, mean, istd);
+// LN(hv) with the rows' mean / istd, scale sc and bias bi, times conv 0's
+// dropout when drop0, as value pairs: emit(pr, y) for each pair pr.
+template <int NV, int W, typename E>
+__device__ __forceinline__ void enc_ln_apply(
+    const float (&hv)[NV], const float (&mean)[2], const float (&istd)[2],
+    const float* __restrict__ sc, const float* __restrict__ bi, bool drop0,
+    const uint32_t (&kw)[2][W], const Dropout& drop, int cl, E emit) {
 #pragma unroll
-  for (int pr = 0; pr < 32; ++pr) {
+  for (int pr = 0; pr < NV / 2; ++pr) {
     const int h = pr & 1, q = pr >> 1, c = 8 * q + cl;
     const float2 s2 = ldg2(sc + c), b2 = ldg2(bi + c);
     float y0 = (hv[2 * pr] - mean[h]) * istd[h] * s2.x + b2.x;
@@ -128,15 +136,29 @@ __device__ __forceinline__ void enc_ln(const float (&hv)[64],
   }
 }
 
+// LN(hv) (its statistics over the thread's values, which cover the rows)
+// as enc_ln_apply.
+template <int D, int W, typename E>
+__device__ __forceinline__ void enc_ln(const float (&hv)[D / 2],
+                                       const float* __restrict__ sc,
+                                       const float* __restrict__ bi,
+                                       bool drop0, const uint32_t (&kw)[2][W],
+                                       const Dropout& drop, int cl, E emit) {
+  float mean[2], istd[2];
+  enc_stats<D>(hv, mean, istd);
+  enc_ln_apply(hv, mean, istd, sc, bi, drop0, kw, drop, cl, emit);
+}
+
 // LN(hv) (times conv 0's dropout when drop0) into the thread's values of
 // R1.
+template <int D, int W>
 __device__ __forceinline__ void enc_ln_to_r1(
-    const float (&hv)[64], const float* __restrict__ sc,
-    const float* __restrict__ bi, bool drop0, const uint32_t (&kw)[2][2],
+    const float (&hv)[D / 2], const float* __restrict__ sc,
+    const float* __restrict__ bi, bool drop0, const uint32_t (&kw)[2][W],
     const Dropout& drop, float* r1, const int (&row)[2], int cl) {
-  enc_ln(hv, sc, bi, drop0, kw, drop, cl, [&](int pr, float2 y) {
-    *reinterpret_cast<float2*>(r1 + r1_at(row[pr & 1],
-                                          8 * (pr >> 1) + cl)) = y;
+  enc_ln<D>(hv, sc, bi, drop0, kw, drop, cl, [&](int pr, float2 y) {
+    *reinterpret_cast<float2*>(r1 + r1_at<D>(row[pr & 1],
+                                             8 * (pr >> 1) + cl)) = y;
   });
 }
 
@@ -144,7 +166,7 @@ __device__ __forceinline__ void enc_ln_to_r1(
 // dwb + sum over the K taps inside the sequence of dw times t v, with t
 // from R1 and v the rows' zero-mask factors (v_s, by tile row).  A row past
 // the tile's sequences gets dwb.
-template <int K>
+template <int K, int D = BWD_D>
 __device__ __forceinline__ float2 enc_conv_pair(
     const float* r1, const float* v_s, const float* __restrict__ dw,
     const float* __restrict__ dwb, const int (&row)[2],
@@ -159,7 +181,7 @@ __device__ __forceinline__ float2 enc_conv_pair(
       if (rr < 0 || rr >= L) continue;
       const float vv = v_s[base + rr];
       const float2 tt = *reinterpret_cast<const float2*>(
-          r1 + r1_at(base + rr, c));
+          r1 + r1_at<D>(base + rr, c));
       const float2 w = ldg2(dw + j * D + c);
       a.x = fmaf(w.x, tt.x * vv, a.x);
       a.y = fmaf(w.y, tt.y * vv, a.y);

@@ -21,6 +21,8 @@
 
 namespace tvqa {
 
+using bwd::D;
+
 template <typename TO>
 __global__ void __launch_bounds__(NTHREADS)
 sum_slots_kernel(const float* __restrict__ part, TO* __restrict__ out, int S,

@@ -14,6 +14,8 @@
 
 namespace tvqa {
 
+using bwd::D;
+
 constexpr int BR_RPT = 4;
 constexpr int BR_RT = BR_RPT * NWARPS;  // 32 rows per block
 

@@ -7,8 +7,9 @@
 //
 // float32: one warp owns one answer-word row m of a frame: lanes j = lane and
 // lane + 32 hold the row's scores against regions j (Lr <= 64).  The
-// frame's qn and qe tiles sit in shared memory with row stride QS = D + 1,
-// so lanes that index regions hit distinct banks.
+// frame's qn and qe tiles sit in shared memory with row stride D + 1 (QS at
+// the backward's width), so lanes that index regions hit distinct banks.
+// D defaults to the backward's BWD_D.
 #pragma once
 
 #include "common.cuh"
@@ -17,7 +18,7 @@
 
 namespace tvqa {
 
-constexpr int QS = D + 1;              // padded qn / qe row stride
+constexpr int QS = BWD_D + 1;          // padded qn / qe row stride
 
 struct AttnRow {
   float mk[2];                         // masked scores (the raw output)
@@ -30,6 +31,7 @@ struct AttnRow {
 // regions: masked = S - 1e10 (1 - mask), then softmax of
 // max(scale * masked, -3e4).  A fully masked row gets a uniform p0, which
 // the mask then zeroes, so att = 0, never NaN.
+template <int D = BWD_D>
 __device__ __forceinline__ AttnRow attn_scores(const float* cr,
                                                const float* qn_s,
                                                const float* qm_s, float cm,
@@ -37,8 +39,8 @@ __device__ __forceinline__ AttnRow attn_scores(const float* cr,
                                                int lane) {
   const int j0 = lane, j1 = lane + 32;
   const bool v0 = j0 < Lr, v1 = j1 < Lr;
-  const float* q0 = qn_s + min(j0, Lr - 1) * QS;
-  const float* q1 = qn_s + min(j1, Lr - 1) * QS;
+  const float* q0 = qn_s + min(j0, Lr - 1) * (D + 1);
+  const float* q1 = qn_s + min(j1, Lr - 1) * (D + 1);
   float s0 = 0.f, s1 = 0.f;
 #pragma unroll 8
   for (int d = 0; d < D; ++d) {
@@ -66,28 +68,31 @@ __device__ __forceinline__ AttnRow attn_scores(const float* cr,
 }
 
 // att[lane + 32 q] = sum_j p[j] qe[j, lane + 32 q], p in smem (Lr floats).
+template <int D = BWD_D>
 __device__ __forceinline__ void attn_apply(const float* pr,
                                            const float* qe_s, int Lr,
-                                           int lane, float (&at)[4]) {
-  at[0] = at[1] = at[2] = at[3] = 0.f;
+                                           int lane, float (&at)[D / 32]) {
+#pragma unroll
+  for (int q = 0; q < D / 32; ++q) at[q] = 0.f;
   for (int j = 0; j < Lr; ++j) {
     const float pj = pr[j];
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      at[q] = fmaf(pj, qe_s[j * QS + lane + 32 * q], at[q]);
+    for (int q = 0; q < D / 32; ++q)
+      at[q] = fmaf(pj, qe_s[j * (D + 1) + lane + 32 * q], at[q]);
   }
 }
 
 // Mean and 1/std over the virtual [ce; att; ce * att] concat of one row
-// (3D values, 12 a lane): fast variance, NOT clipped at 0 (the Pallas
-// kernel's LN, pallas_attention.py:143-151).
-__device__ __forceinline__ void ln3_stats(const float (&x)[3][4],
+// (3D values, 3 D / 32 a lane): fast variance, NOT clipped at 0 (the
+// Pallas kernel's LN, pallas_attention.py:143-151).
+template <int D = BWD_D>
+__device__ __forceinline__ void ln3_stats(const float (&x)[3][D / 32],
                                           float& mean, float& istd) {
   float s = 0.f, ss = 0.f;
 #pragma unroll
   for (int g = 0; g < 3; ++g)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < D / 32; ++q) {
       s += x[g][q];
       ss = fmaf(x[g][q], x[g][q], ss);
     }
@@ -116,16 +121,19 @@ __device__ __forceinline__ unsigned long long mixed_row(int b, int m, int i,
 // registers between the products.
 
 // The frame's qn and qe tiles (64 rows, rows past Lr zero), its q mask
-// (zero past Lr) and W (3D x D bf16) into shared memory; every thread of
-// the block calls it and the data is ready for wgmma on return.
+// (zero past Lr) and, unless it streams (D = 256), W (3D x D bf16) into
+// shared memory; every thread of the block calls it and the data is ready
+// for wgmma on return.
+template <int D = BWD_D>
 __device__ __forceinline__ void tc_load_frame(
     uint8_t* w_s, uint8_t* qn_s, uint8_t* qe_s, float* qm_s,
     const __nv_bfloat16* W, const __nv_bfloat16* qn, const __nv_bfloat16* qe,
     const float* qmask, size_t fbase, int Lr) {
   const int tid = threadIdx.x;
-  tc_load_rows(qn_s, TM, qn + fbase * D, D, Lr, tid, NTHREADS);
-  tc_load_rows(qe_s, TM, qe + fbase * D, D, Lr, tid, NTHREADS);
-  tc_load_rows(w_s, W_ROWS, W, D, W_ROWS, tid, NTHREADS);
+  tc_load_rows<D>(qn_s, TM, qn + fbase * D, D, Lr, tid, NTHREADS);
+  tc_load_rows<D>(qe_s, TM, qe + fbase * D, D, Lr, tid, NTHREADS);
+  if constexpr (D <= 128)
+    tc_load_rows<D>(w_s, 3 * D, W, D, 3 * D, tid, NTHREADS);
   if (tid < TM) qm_s[tid] = tid < Lr ? qmask[fbase + tid] : 0.f;
   tc::cp_async_commit();
   tc::cp_async_wait<0>();
@@ -133,8 +141,9 @@ __device__ __forceinline__ void tc_load_frame(
   __syncthreads();
 }
 
-// s (64 x LRP) = cn tile . qn^T, both K-major two-panel matrices of 64 rows.
-template <int LRP>
+// s (64 x LRP) = cn tile . qn^T, both K-major matrices of 64 rows and
+// D / 64 panels.
+template <int LRP, int D = BWD_D>
 __device__ __forceinline__ void tc_scores(float (&s)[LRP / 2], uint32_t cn_a,
                                           uint32_t qn_a) {
   tc::fence();

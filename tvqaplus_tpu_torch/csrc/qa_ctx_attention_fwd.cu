@@ -17,35 +17,51 @@
 // A row whose regions are all masked gets P = 0 (the floor keeps the
 // softmax finite), so att = 0, never NaN.
 //
+// D, the hidden width, is 64, 128 or 256 (a template parameter; the C
+// entry takes it and refuses any other width).
+//
 // What bounds it on the H100: at the headline eval the call moves ~69 MB
-// (vid, raw full) or ~63 MB (sub) and does ~18-20 GFLOP, 80% of it the
-// projection (2 * M * 3D * D per frame); at the card's peaks (3.35 TB/s,
-// 989 TF/s bf16) that is ~20 us either way.  The tensor-core kernel below is
-// bound by neither: the softmax, LayerNorm and Philox passes between the
-// products run on 8 warps an SM (255 registers a thread), at a fraction of
-// the scheduler rate.
+// (vid, raw full) or ~63 MB (sub) and does ~18-20 GFLOP at D = 128, 80% of
+// it the projection (2 * M * 3D * D per frame); at the card's peaks
+// (3.35 TB/s, 989 TF/s bf16) that is ~20 us either way.  At D = 64 bytes
+// bind (~50 MB, ~5 GFLOP: ~15 us); at D = 256 operations do (~67 GFLOP
+// against ~140 MB: ~68 us).  The tensor-core kernels below are bound by
+// neither: the softmax, LayerNorm and Philox passes between the products
+// run on 8 warps an SM (255 registers a thread), at a fraction of the
+// scheduler rate.
 //
 // Two instantiations, one block per (b, i) each, the frame's qn / qe tiles
 // resident in shared memory.
-// * bfloat16 (qa_ctx_fwd_tc_kernel, what the main paths run): every product
+// * bfloat16 (what the main paths run), D = 64 and 128
+//   (qa_ctx_fwd_tc_kernel<D, LRP>): every product
 //   is a wgmma on bf16 operands with float32 sums (wgmma.cuh), rounding
 //   where the TPU kernel's bf16 compute mode rounds: p before p qe, the
-//   dropped LN output and W before the projection.  W (bf16, 96 KB) is
-//   loaded into shared memory ONCE per block and read N-contiguous as it
-//   lies.  Each of the two warpgroups walks every second 64-row tile of the
-//   frame's M rows on its own (named barriers, no block-wide sync in the
-//   loop), so one's tensor-core phases overlap the other's register phases:
-//   scores (A = the cn tile, B = qn) land in registers in the accumulator
-//   layout, where softmax and masks run; p goes back into the tensor cores
-//   FROM REGISTERS (p qe); the LayerNorm, the Philox dropout (two lanes
-//   share each 4-wide draw through one shuffle) and the bf16 rounding run on
-//   the att accumulator; the 64 x 3D tile is stored swizzled (48 KB, over
-//   the cn tile) for the projection.  Shared memory: 231,168 bytes.  M = 200
-//   pads to four tiles (22% of the products idle; rows of several frames do
-//   not share a tile because the scores are per frame).
-// * float32 (qa_ctx_fwd_kernel): the exactness check (1e-4 bars).  CUDA
-//   cores, 32-row tiles, each warp 4 rows, W (196 KB in float32) staged
-//   from L2 32 rows at a time for every tile.
+//   dropped LN output and W before the projection.  W (bf16, 96 KB at
+//   D = 128) is loaded into shared memory ONCE per block and read
+//   N-contiguous as it lies.  Each of the two warpgroups walks every second
+//   64-row tile of the frame's M rows on its own (named barriers, no
+//   block-wide sync in the loop), so one's tensor-core phases overlap the
+//   other's register phases: scores (A = the cn tile, B = qn) land in
+//   registers in the accumulator layout, where softmax and masks run; p
+//   goes back into the tensor cores FROM REGISTERS (p qe); the LayerNorm,
+//   the Philox dropout (two lanes share each 4-wide draw through one
+//   shuffle) and the bf16 rounding run on the att accumulator; the 64 x 3D
+//   tile is stored swizzled (48 KB, over the cn tile) for the projection.
+//   Shared memory: 231,168 bytes at D = 128, 91,648 at 64.  M = 200 pads to
+//   four tiles (22% of the products idle; rows of several frames do not
+//   share a tile because the scores are per frame).
+// * bfloat16, D = 256 (qa_ctx_fwd_tc_wide_kernel<LRP>): W is 384 KB and a
+//   warpgroup's 64 x 256 att and projection accumulators would take 128
+//   registers a thread each, so the two warpgroups work on one tile and
+//   split its columns (128 each), the LayerNorm's row sums cross them
+//   through shared memory, and W streams from L2 through two stages of 32
+//   rows (mma_streamed_w, wgmma.cuh), once a tile.  Both warpgroups compute
+//   the tile's scores (K = 256, small beside the projection).  195 KB of
+//   shared memory; 255 registers with 536 bytes of spill.
+// * float32 (qa_ctx_fwd_kernel<float, D>): the exactness check (1e-4
+//   bars).  CUDA cores, 32-row tiles (16 at D = 256, where the frame's qn
+//   and qe take 128 KB), each warp 4 (2) rows, W (196 KB in float32 at
+//   D = 128) staged from L2 32 rows at a time for every tile.
 #include "philox.cuh"
 #include "qa_ctx_attention.cuh"
 
@@ -53,16 +69,20 @@ namespace {
 
 using namespace tvqa;
 
-constexpr int RPT = 4;                  // rows per warp per tile
-constexpr int RT = RPT * NWARPS;        // 32 rows per tile
+// float32 rows per warp per tile: 4 (32-row tiles), 2 at D = 256, where the
+// frame's qn / qe tiles take 128 KB of shared memory
+template <int D>
+constexpr int RPT = D == 256 ? 2 : 4;
 
+template <int D>
 struct Layout {
+  static constexpr int RT = RPT<D> * NWARPS;      // rows per tile
   int qn, qe, qm, p, y, w, total;       // float offsets / total floats
   __host__ __device__ explicit Layout(int lr) {
     const int lrp = round4(lr);
     qn = 0;
-    qe = qn + lr * QS;
-    qm = round4(qe + lr * QS);
+    qe = qn + lr * (D + 1);
+    qm = round4(qe + lr * (D + 1));
     p = qm + lrp;
     y = p + RT * lrp;
     w = y + RT * 3 * D;
@@ -70,7 +90,7 @@ struct Layout {
   }
 };
 
-template <typename T>
+template <typename T, int D>
 __global__ void __launch_bounds__(NTHREADS)
 qa_ctx_fwd_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
                   const T* __restrict__ qn, const T* __restrict__ qe,
@@ -82,10 +102,12 @@ qa_ctx_fwd_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
                   const int* __restrict__ targets, T* __restrict__ mixed,
                   float* __restrict__ raw, int A, int Lqa, int Li, int Lr,
                   float scale, Dropout drop) {
+  constexpr int R_W = RPT<D>, RT_ = Layout<D>::RT;
+  constexpr int VPL = D / 32;            // values of a row a lane
   drop.load_seed();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const Layout lay(Lr);
+  const Layout<D> lay(Lr);
   float* qn_s = smem + lay.qn;
   float* qe_s = smem + lay.qe;
   float* qm_s = smem + lay.qm;
@@ -97,38 +119,38 @@ qa_ctx_fwd_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
   const int i = blockIdx.x, b = blockIdx.y;
   const int M = A * Lqa;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int c0 = lane * 4;
+  const int c0 = lane * VPL;
   const int target = targets != nullptr ? targets[b] : -1;
 
   // the frame's context tiles, once per block
   const size_t fbase = (static_cast<size_t>(b) * Li + i) * Lr;
   for (int idx = tid; idx < Lr * D; idx += NTHREADS) {
     const int j = idx / D, d = idx % D;
-    qn_s[j * QS + d] = to_f(qn[fbase * D + idx]);
-    qe_s[j * QS + d] = to_f(qe[fbase * D + idx]);
+    qn_s[j * (D + 1) + d] = to_f(qn[fbase * D + idx]);
+    qe_s[j * (D + 1) + d] = to_f(qe[fbase * D + idx]);
   }
   for (int j = tid; j < Lr; j += NTHREADS) qm_s[j] = qmask[fbase + j];
   __syncthreads();
 
-  for (int m0 = 0; m0 < M; m0 += RT) {
+  for (int m0 = 0; m0 < M; m0 += RT_) {
     // ---- per-warp rows: scores, softmax, att, LayerNorm, dropout -------
 #pragma unroll 1
-    for (int jj = 0; jj < RPT; ++jj) {
-      const int r = warp * RPT + jj, m = m0 + r;
+    for (int jj = 0; jj < R_W; ++jj) {
+      const int r = warp * R_W + jj, m = m0 + r;
       float* yr = y_s + r * 3 * D;
       const bool live = m < M;
       const size_t row = static_cast<size_t>(b) * M + m;
       // stage ce in segment 0 and cn in segment 2 (overwritten below)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
+      for (int q = 0; q < VPL; ++q) {
         const int d = lane + 32 * q;
         yr[d] = live ? to_f(ce[row * D + d]) : 0.f;
         yr[2 * D + d] = live ? to_f(cn[row * D + d]) : 0.f;
       }
       __syncwarp();
-      const AttnRow sc = attn_scores(yr + 2 * D, qn_s, qm_s,
-                                     live ? cmask[row] : 0.f, Lr, scale,
-                                     lane);
+      const AttnRow sc = attn_scores<D>(yr + 2 * D, qn_s, qm_s,
+                                        live ? cmask[row] : 0.f, Lr, scale,
+                                        lane);
       const int a = m / Lqa, w = m % Lqa;
       if (raw != nullptr && live && (targets == nullptr || a == target)) {
         float* rr = targets == nullptr
@@ -141,22 +163,22 @@ qa_ctx_fwd_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
       if (lane < Lr) p_s[r * lrp + lane] = sc.p0[0] * sc.sm[0];
       if (lane + 32 < Lr) p_s[r * lrp + lane + 32] = sc.p0[1] * sc.sm[1];
       __syncwarp();
-      float at[4];
-      attn_apply(p_s + r * lrp, qe_s, Lr, lane, at);
-      float x[3][4];
+      float at[VPL];
+      attn_apply<D>(p_s + r * lrp, qe_s, Lr, lane, at);
+      float x[3][VPL];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
+      for (int q = 0; q < VPL; ++q) {
         const float c = yr[lane + 32 * q];
         x[0][q] = c;
         x[1][q] = at[q];
         x[2][q] = c * at[q];
       }
       float mean, istd;
-      ln3_stats(x, mean, istd);
+      ln3_stats<D>(x, mean, istd);
 #pragma unroll
       for (int g = 0; g < 3; ++g)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
+        for (int q = 0; q < VPL; ++q) {
           const int k = g * D + lane + 32 * q;
           yr[k] = (x[g][q] - mean) * istd * gamma[k] + beta[k];
         }
@@ -165,45 +187,48 @@ qa_ctx_fwd_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
         const unsigned long long e_row =
             mixed_row(b, m, i, A, Lqa, Li) * (3 * D);
 #pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          float km[4];
-          keep4(drop.seed, e_row + g * D + c0, drop.threshold, drop.scale,
-                km);
+        for (int g = 0; g < 3; ++g)
+          for (int i4 = lane; i4 < D / 4; i4 += 32) {
+            float km[4];
+            const int k0 = g * D + 4 * i4;
+            keep4(drop.seed, e_row + k0, drop.threshold, drop.scale, km);
 #pragma unroll
-          for (int t = 0; t < 4; ++t) yr[g * D + c0 + t] *= km[t];
-        }
+            for (int t = 0; t < 4; ++t) yr[k0 + t] *= km[t];
+          }
       }
     }
     // ---- the tile's projection: (RT x 3D) . (3D x D) ---------------------
-    float acc[RPT][4];
-    gemm_staged<RPT>(acc, y_s, 3 * D, 3 * D, W, w_s, warp * RPT, c0);
-    const float4 bv = *reinterpret_cast<const float4*>(bias + c0);
+    float acc[R_W][VPL];
+    gemm_staged<R_W, D>(acc, y_s, 3 * D, 3 * D, W, w_s, warp * R_W, c0);
+    float bv[VPL];
+    ld_cols<VPL>(bv, bias + c0);
 #pragma unroll
-    for (int jj = 0; jj < RPT; ++jj) {
-      const int m = m0 + warp * RPT + jj;
+    for (int jj = 0; jj < R_W; ++jj) {
+      const int m = m0 + warp * R_W + jj;
       if (m >= M) continue;
       const int a = m / Lqa, w = m % Lqa;
       T* dst = mixed + ((((static_cast<size_t>(b) * A + a) * Li + i) * Lqa
                          + w) * D + c0);
-      store4<T>(dst, fmaxf(acc[jj][0] + bv.x, 0.f),
-                fmaxf(acc[jj][1] + bv.y, 0.f), fmaxf(acc[jj][2] + bv.z, 0.f),
-                fmaxf(acc[jj][3] + bv.w, 0.f));
+      float o[VPL];
+#pragma unroll
+      for (int t = 0; t < VPL; ++t) o[t] = fmaxf(acc[jj][t] + bv[t], 0.f);
+      store_n<T, VPL>(dst, o);
     }
     __syncthreads();                   // y_s is rewritten by the next tile
   }
 }
 
-template <typename T>
+template <typename T, int D>
 int launch(const void* cn, const void* ce, const void* qn, const void* qe,
            const float* cmask, const float* qmask, const float* gamma,
            const float* beta, const float* W, const float* bias,
            const int* targets, void* mixed, float* raw, int B, int A,
            int Lqa, int Li, int Lr, float scale, Dropout drop,
            cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * Layout(Lr).total;
-  cudaError_t err = allow_smem(qa_ctx_fwd_kernel<T>, bytes);
+  const size_t bytes = sizeof(float) * Layout<D>(Lr).total;
+  cudaError_t err = allow_smem(qa_ctx_fwd_kernel<T, D>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  qa_ctx_fwd_kernel<T><<<dim3(Li, B), NTHREADS, bytes, stream>>>(
+  qa_ctx_fwd_kernel<T, D><<<dim3(Li, B), NTHREADS, bytes, stream>>>(
       static_cast<const T*>(cn), static_cast<const T*>(ce),
       static_cast<const T*>(qn), static_cast<const T*>(qe), cmask, qmask,
       gamma, beta, W, bias, targets, static_cast<T*>(mixed), raw, A, Lqa, Li,
@@ -212,15 +237,18 @@ int launch(const void* cn, const void* ce, const void* qn, const void* qe,
 }
 
 
-// ---- the bfloat16 instantiation: tensor cores ------------------------------
+// ---- the bfloat16 instantiation: tensor cores, D = 64 and 128 --------------
 
-constexpr int YD_BYTES = 6 * TILE_PANEL;             // 64 x 3D bf16
-constexpr int TC_SMEM = W_BYTES + 2 * TILE_BYTES + 2 * YD_BYTES
-                        + (TM + D) * 4 + tc::ATOM_BYTES;
+template <int D>
+struct AttnTc {
+  static constexpr int YD_BYTES = 3 * (D / 64) * TILE_PANEL;  // 64 x 3D bf16
+  static constexpr int SMEM = Shapes<D>::W_BYTES + 2 * Shapes<D>::TILE_BYTES
+                              + 2 * YD_BYTES + (TM + D) * 4 + tc::ATOM_BYTES;
+};
 
 // One block per (b, frame i), two warpgroups; each warpgroup walks every
 // second 64-row tile of the frame's M rows on its own.
-template <int LRP>
+template <int D, int LRP>
 __global__ void __launch_bounds__(NTHREADS, 1)
 qa_ctx_fwd_tc_kernel(const __nv_bfloat16* __restrict__ cn,
                      const __nv_bfloat16* __restrict__ ce,
@@ -236,14 +264,16 @@ qa_ctx_fwd_tc_kernel(const __nv_bfloat16* __restrict__ cn,
                      __nv_bfloat16* __restrict__ mixed,
                      float* __restrict__ raw, int A, int Lqa, int Li, int Lr,
                      float scale, Dropout drop) {
+  constexpr int YD_BYTES = AttnTc<D>::YD_BYTES;
+  constexpr int TILE_BYTES = Shapes<D>::TILE_BYTES;
   drop.load_seed();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* w_s = align_smem(smem_raw);
-  uint8_t* qn_s = w_s + W_BYTES;
+  uint8_t* qn_s = w_s + Shapes<D>::W_BYTES;
   uint8_t* qe_s = qn_s + TILE_BYTES;
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
   const int warp = t >> 5, lane = tid & 31;
-  // the warpgroup's LN-output tile; its first two panels hold cn before
+  // the warpgroup's LN-output tile; its first D / 64 panels hold cn before
   uint8_t* yd_s = qe_s + TILE_BYTES + wg * YD_BYTES;
   float* qm_s = reinterpret_cast<float*>(qe_s + TILE_BYTES + 2 * YD_BYTES);
   float* bias_s = qm_s + TM;
@@ -253,20 +283,20 @@ qa_ctx_fwd_tc_kernel(const __nv_bfloat16* __restrict__ cn,
   const int target = targets != nullptr ? targets[b] : -1;
   const size_t fbase = (static_cast<size_t>(b) * Li + i) * Lr;
   if (tid < D) bias_s[tid] = bias[tid];
-  tc_load_frame(w_s, qn_s, qe_s, qm_s, W, qn, qe, qmask, fbase, Lr);
+  tc_load_frame<D>(w_s, qn_s, qe_s, qm_s, W, qn, qe, qmask, fbase, Lr);
 
   const int rl = 16 * warp + (lane >> 2);             // first of two rows
   for (int m0 = wg * TM; m0 < M; m0 += 2 * TM) {
     // ---- the tile's cn rows, then scores and softmax in registers -------
     tc::bar_sync(1 + wg, 128);         // the previous tile's reads are done
-    tc_load_rows(yd_s, TM, cn + (static_cast<size_t>(b) * M + m0) * D, D,
-                 min(TM, M - m0), t, 128);
+    tc_load_rows<D>(yd_s, TM, cn + (static_cast<size_t>(b) * M + m0) * D, D,
+                    min(TM, M - m0), t, 128);
     tc::cp_async_commit();
     tc::cp_async_wait<0>();
     tc::fence_async_smem();
     tc::bar_sync(1 + wg, 128);
     float s[LRP / 2], p0[LRP / 2];
-    tc_scores<LRP>(s, tc::smem_u32(yd_s), tc::smem_u32(qn_s));
+    tc_scores<LRP, D>(s, tc::smem_u32(yd_s), tc::smem_u32(qn_s));
     int m[2];
     bool live[2];
     float cm[2];
@@ -296,15 +326,15 @@ qa_ctx_fwd_tc_kernel(const __nv_bfloat16* __restrict__ cn,
           }
       }
     }
-    float att[64];
-    tc_att<LRP, 2>(att, p0, cm, qm_s, tc::smem_u32(qe_s), lane);
+    float att[D / 2];
+    tc_att<LRP, D / 64>(att, p0, cm, qm_s, tc::smem_u32(qe_s), lane);
 
     // ---- LayerNorm over [ce; att; ce * att], dropout, bf16 tile ---------
     // value pair pr = 2 q + h: row half h, columns 8 q + 2 (lane % 4) + {0, 1}
-    uint32_t cev[32];
+    uint32_t cev[D / 4];
     float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
 #pragma unroll
-    for (int pr = 0; pr < 32; ++pr) {
+    for (int pr = 0; pr < D / 4; ++pr) {
       const int h = pr & 1, c = 8 * (pr >> 1) + 2 * (lane & 3);
       cev[pr] = live[h]
           ? __ldg(reinterpret_cast<const unsigned int*>(
@@ -326,13 +356,17 @@ qa_ctx_fwd_tc_kernel(const __nv_bfloat16* __restrict__ cn,
     }
 #pragma unroll
     for (int g = 0; g < 3; ++g) {
-      uint32_t kw[2][2] = {{~0u, ~0u}, {~0u, ~0u}};
+      uint32_t kw[2][D / 64];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int w = 0; w < D / 64; ++w) kw[h][w] = ~0u;
       if (drop.on())
-        tc_keep_bits<16, false>(
+        tc_keep_bits<D / 8, false>(
             drop, ((lane & 1) ? mrow[1] : mrow[0]) * (3 * D) + g * D, lane,
             kw);
 #pragma unroll
-      for (int pr = 0; pr < 32; ++pr) {
+      for (int pr = 0; pr < D / 4; ++pr) {
         const int h = pr & 1, q = pr >> 1, c = 8 * q + 2 * (lane & 3);
         const float2 c2 = tc::unpack_bf16(cev[pr]);
         const float a0 = att[2 * pr], a1 = att[2 * pr + 1];
@@ -350,28 +384,28 @@ qa_ctx_fwd_tc_kernel(const __nv_bfloat16* __restrict__ cn,
           y1 *= (bits & 2u) ? drop.scale : 0.f;
         }
         *reinterpret_cast<uint32_t*>(
-            yd_s + (2 * g + (c >> 6)) * TILE_PANEL
+            yd_s + (g * (D / 64) + (c >> 6)) * TILE_PANEL
             + tc::swz(rl + 8 * h, c & 63)) = tc::pack_bf16(y0, y1);
       }
     }
     tc::fence_async_smem();
     tc::bar_sync(1 + wg, 128);
     // ---- the projection: (64 x 3D) . W (3D x D), W read N-contiguous ------
-    float acc[64];
+    float acc[D / 2];
     tc::fence();
 #pragma unroll
     for (int ks = 0; ks < 3 * D / 16; ++ks)
-      tc::mma_ss<128, 0, 1>(
+      tc::mma_ss<D, 0, 1>(
           acc,
           tc::make_desc(tc::smem_u32(yd_s) + (ks / 4) * TILE_PANEL
                             + (ks % 4) * 32, 16),
           tc::make_desc(tc::smem_u32(w_s) + ks * 2 * tc::ATOM_BYTES,
-                        W_PANEL),
+                        Shapes<D>::W_PANEL),
           ks > 0);
     tc::commit();
     tc::wait_all();
 #pragma unroll
-    for (int pr = 0; pr < 32; ++pr) {
+    for (int pr = 0; pr < D / 4; ++pr) {
       const int h = pr & 1, c = 8 * (pr >> 1) + 2 * (lane & 3);
       if (!live[h]) continue;
       const float2 bv = *reinterpret_cast<const float2*>(bias_s + c);
@@ -382,7 +416,189 @@ qa_ctx_fwd_tc_kernel(const __nv_bfloat16* __restrict__ cn,
   }
 }
 
+// ---- the bfloat16 instantiation at D = 256: W streamed ---------------------
+//
+// W (3D x D) is 384 KB in bf16, and a warpgroup's 64 x 256 att and
+// projection accumulators would take 128 registers a thread each.  So both
+// warpgroups work on one 64-row tile at a time and split its columns:
+// warpgroup wg owns columns [128 wg, 128 wg + 128) of att, of each LN group
+// and of the projection.  Both compute the tile's (small, K = 256) scores
+// and softmax; the LayerNorm's row sums cross the warpgroups through shared
+// memory (tri_row_pair_sums); the 64 x 3D LN output goes to one bf16 tile
+// (over the cn tile, which the scores have read), and W streams through two
+// stages of 32 rows (mma_streamed_w, wgmma.cuh).
+
+constexpr int WD = 256;
+struct AttnWide {
+  static constexpr int KP = 32;                       // W rows a stage
+  static constexpr int O_QN = 0;                      // 64 x 256 bf16
+  static constexpr int O_QE = O_QN + Shapes<WD>::TILE_BYTES;
+  static constexpr int O_YD = O_QE + Shapes<WD>::TILE_BYTES;  // 64 x 3D
+  static constexpr int O_ST = O_YD + 3 * (WD / 64) * TILE_PANEL;
+  static constexpr int O_QM = O_ST + 2 * stream_stage_bytes<WD, KP>();
+  static constexpr int O_BIAS = O_QM + TM * 4;
+  static constexpr int O_EX = O_BIAS + WD * 4;        // [wg][row][2] sums
+  static constexpr int SMEM = O_EX + 2 * TM * 2 * 4 + tc::ATOM_BYTES;
+};
+
 template <int LRP>
+__global__ void __launch_bounds__(NTHREADS, 1)
+qa_ctx_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ cn,
+                          const __nv_bfloat16* __restrict__ ce,
+                          const __nv_bfloat16* __restrict__ qn,
+                          const __nv_bfloat16* __restrict__ qe,
+                          const float* __restrict__ cmask,
+                          const float* __restrict__ qmask,
+                          const float* __restrict__ gamma,
+                          const float* __restrict__ beta,
+                          const __nv_bfloat16* __restrict__ W,
+                          const float* __restrict__ bias,
+                          const int* __restrict__ targets,
+                          __nv_bfloat16* __restrict__ mixed,
+                          float* __restrict__ raw, int A, int Lqa, int Li,
+                          int Lr, float scale, Dropout drop) {
+  constexpr int D = WD;
+  using S = AttnWide;
+  drop.load_seed();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_smem(smem_raw);
+  uint8_t* qn_s = sm + S::O_QN;
+  uint8_t* qe_s = sm + S::O_QE;
+  uint8_t* yd_s = sm + S::O_YD;        // holds the tile's cn rows first
+  float* qm_s = reinterpret_cast<float*>(sm + S::O_QM);
+  float* bias_s = reinterpret_cast<float*>(sm + S::O_BIAS);
+  float* ex_s = reinterpret_cast<float*>(sm + S::O_EX);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int warp = (tid & 127) >> 5, lane = tid & 31;
+  const int rl = 16 * warp + (lane >> 2);             // first of two rows
+  const int half = 128 * wg, cl = 2 * (lane & 3);
+
+  const int i = blockIdx.x, b = blockIdx.y;
+  const int M = A * Lqa;
+  const int target = targets != nullptr ? targets[b] : -1;
+  const size_t fbase = (static_cast<size_t>(b) * Li + i) * Lr;
+  for (int k = tid; k < D; k += NTHREADS) bias_s[k] = bias[k];
+  tc_load_frame<D>(nullptr, qn_s, qe_s, qm_s, W, qn, qe, qmask, fbase, Lr);
+
+  for (int m0 = 0; m0 < M; m0 += TM) {
+    // ---- the tile's cn rows, then scores and softmax in registers -------
+    __syncthreads();                   // the previous tile's reads are done
+    tc_load_rows<D>(yd_s, TM, cn + (static_cast<size_t>(b) * M + m0) * D, D,
+                    min(TM, M - m0), tid, NTHREADS);
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+    tc::fence_async_smem();
+    __syncthreads();
+    float s[LRP / 2], p0[LRP / 2];
+    tc_scores<LRP, D>(s, tc::smem_u32(yd_s), tc::smem_u32(qn_s));
+    int m[2];
+    bool live[2];
+    float cm[2];
+    size_t mrow[2];                    // flat row of mixed / the LN output
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = m0 + rl + 8 * h;
+      live[h] = m[h] < M;
+      cm[h] = live[h] ? cmask[static_cast<size_t>(b) * M + m[h]] : 0.f;
+      mrow[h] = mixed_row(b, live[h] ? m[h] : 0, i, A, Lqa, Li);
+    }
+    tc_softmax<LRP>(s, p0, cm, qm_s, Lr, scale, lane);
+    if (raw != nullptr && wg == 0) {   // both warpgroups hold the scores
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int a = m[h] / Lqa, w = m[h] % Lqa;
+        if (!live[h] || (targets != nullptr && a != target)) continue;
+        float* rr = targets == nullptr
+            ? raw + mrow[h] * Lr
+            : raw + ((static_cast<size_t>(b) * Li + i) * Lqa + w) * Lr;
+#pragma unroll
+        for (int k = h * 2; k < LRP / 2; k += 4)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = acc_col(k + e, lane);
+            if (j < Lr) rr[j] = s[k + e];
+          }
+      }
+    }
+    float att[64];                     // the warpgroup's 128 columns
+    tc_att<LRP, 2>(att, p0, cm, qm_s,
+                   tc::smem_u32(qe_s) + 2 * wg * TILE_PANEL, lane);
+
+    // ---- LayerNorm over [ce; att; ce * att], dropout, bf16 tile ---------
+    uint32_t cev[32];
+    float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
+#pragma unroll
+    for (int pr = 0; pr < 32; ++pr) {
+      const int h = pr & 1, c = half + 8 * (pr >> 1) + cl;
+      cev[pr] = live[h]
+          ? __ldg(reinterpret_cast<const unsigned int*>(
+                ce + (static_cast<size_t>(b) * M + m[h]) * D + c))
+          : 0u;
+      const float2 c2 = tc::unpack_bf16(cev[pr]);
+      const float a0 = att[2 * pr], a1 = att[2 * pr + 1];
+      const float x0 = c2.x * a0, x1 = c2.y * a1;
+      sum[h] += (c2.x + c2.y) + (a0 + a1) + (x0 + x1);
+      sq[h] += fmaf(c2.x, c2.x, c2.y * c2.y) + fmaf(a0, a0, a1 * a1)
+               + fmaf(x0, x0, x1 * x1);
+    }
+    // both warpgroups' sums; its barrier also orders every warpgroup's
+    // score products (which read cn) before the yd stores below
+    tri_row_pair_sums(ex_s, sum, sq, wg, rl, lane);
+    float mean[2], istd[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mean[h] = sum[h] * (1.f / (3 * D));
+      istd[h] = rsqrtf(sq[h] * (1.f / (3 * D)) - mean[h] * mean[h] + LN_EPS);
+    }
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      uint32_t kw[2][2] = {{~0u, ~0u}, {~0u, ~0u}};
+      if (drop.on())
+        tc_keep_bits<16, false>(
+            drop, ((lane & 1) ? mrow[1] : mrow[0]) * (3 * D) + g * D + half,
+            lane, kw);
+#pragma unroll
+      for (int pr = 0; pr < 32; ++pr) {
+        const int h = pr & 1, q = pr >> 1, c = half + 8 * q + cl;
+        const float2 c2 = tc::unpack_bf16(cev[pr]);
+        const float a0 = att[2 * pr], a1 = att[2 * pr + 1];
+        const float x0 = g == 0 ? c2.x : (g == 1 ? a0 : c2.x * a0);
+        const float x1 = g == 0 ? c2.y : (g == 1 ? a1 : c2.y * a1);
+        const float2 ga = __ldg(reinterpret_cast<const float2*>(
+            gamma + g * D + c));
+        const float2 be = __ldg(reinterpret_cast<const float2*>(
+            beta + g * D + c));
+        float y0 = (x0 - mean[h]) * istd[h] * ga.x + be.x;
+        float y1 = (x1 - mean[h]) * istd[h] * ga.y + be.y;
+        if (drop.on()) {
+          const uint32_t bits = kw[h][q >> 3] >> (4 * (q & 7));
+          y0 *= (bits & 1u) ? drop.scale : 0.f;
+          y1 *= (bits & 2u) ? drop.scale : 0.f;
+        }
+        *reinterpret_cast<uint32_t*>(
+            yd_s + (g * (D / 64) + (c >> 6)) * TILE_PANEL
+            + tc::swz(rl + 8 * h, c & 63)) = tc::pack_bf16(y0, y1);
+      }
+    }
+    tc::fence_async_smem();
+    __syncthreads();                   // the yd tile is whole
+    // ---- the projection: (64 x 3D) . W (3D x D), W streamed ---------------
+    float acc[64];
+    mma_streamed_w<D, 3 * D, S::KP>(acc, tc::smem_u32(yd_s), W, sm + S::O_ST,
+                                    wg);
+#pragma unroll
+    for (int pr = 0; pr < 32; ++pr) {
+      const int h = pr & 1, c = half + 8 * (pr >> 1) + cl;
+      if (!live[h]) continue;
+      const float2 bv = *reinterpret_cast<const float2*>(bias_s + c);
+      *reinterpret_cast<uint32_t*>(mixed + mrow[h] * D + c) =
+          tc::pack_bf16(fmaxf(acc[2 * pr] + bv.x, 0.f),
+                        fmaxf(acc[2 * pr + 1] + bv.y, 0.f));
+    }
+  }
+}
+
+template <int D, int LRP>
 int launch_tc(const void* cn, const void* ce, const void* qn, const void* qe,
               const float* cmask, const float* qmask, const float* gamma,
               const float* beta, const void* W, const float* bias,
@@ -390,21 +606,47 @@ int launch_tc(const void* cn, const void* ce, const void* qn, const void* qe,
               int Lqa, int Li, int Lr, float scale, Dropout drop,
               cudaStream_t stream) {
   auto h = [](const void* p) { return static_cast<const __nv_bfloat16*>(p); };
-  cudaError_t err = allow_smem(qa_ctx_fwd_tc_kernel<LRP>, TC_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  qa_ctx_fwd_tc_kernel<LRP><<<dim3(Li, B), NTHREADS, TC_SMEM, stream>>>(
-      h(cn), h(ce), h(qn), h(qe), cmask, qmask, gamma, beta, h(W), bias,
-      targets, static_cast<__nv_bfloat16*>(mixed), raw, A, Lqa, Li, Lr, scale,
-      drop);
-  return static_cast<int>(cudaGetLastError());
+  auto go = [&](auto kern, int smem) {
+    cudaError_t err = allow_smem(kern, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<dim3(Li, B), NTHREADS, smem, stream>>>(
+        h(cn), h(ce), h(qn), h(qe), cmask, qmask, gamma, beta, h(W), bias,
+        targets, static_cast<__nv_bfloat16*>(mixed), raw, A, Lqa, Li, Lr,
+        scale, drop);
+    return static_cast<int>(cudaGetLastError());
+  };
+  if constexpr (D == WD)
+    return go(qa_ctx_fwd_tc_wide_kernel<LRP>, AttnWide::SMEM);
+  else
+    return go(qa_ctx_fwd_tc_kernel<D, LRP>, AttnTc<D>::SMEM);
+}
+
+template <int D>
+int launch_width(const void* cn, const void* ce, const void* qn,
+                 const void* qe, const float* cmask, const float* qmask,
+                 const float* gamma, const float* beta, const void* W,
+                 const float* bias, const int* targets, void* mixed,
+                 float* raw, int B, int A, int Lqa, int Li, int Lr,
+                 float scale, Dropout drop, int is_bf16, cudaStream_t s) {
+  if (is_bf16 && Lr <= 32)
+    return launch_tc<D, 32>(cn, ce, qn, qe, cmask, qmask, gamma, beta, W,
+                            bias, targets, mixed, raw, B, A, Lqa, Li, Lr,
+                            scale, drop, s);
+  if (is_bf16)
+    return launch_tc<D, 64>(cn, ce, qn, qe, cmask, qmask, gamma, beta, W,
+                            bias, targets, mixed, raw, B, A, Lqa, Li, Lr,
+                            scale, drop, s);
+  return launch<float, D>(cn, ce, qn, qe, cmask, qmask, gamma, beta,
+                          static_cast<const float*>(W), bias, targets, mixed,
+                          raw, B, A, Lqa, Li, Lr, scale, drop, s);
 }
 
 }  // namespace
 
 // cn, ce: (B, A, Lqa, D); qn, qe: (B, Li, Lr, D), all of one type (bf16
-// when is_bf16, else float32); masks, gamma/beta (3D), bias (D) float32;
-// W (3D, D) float32, or bfloat16 when is_bf16; mixed (B, A, Li, Lqa, D) in
-// the activation type; raw float32:
+// when is_bf16, else float32), D one of 64, 128, 256; masks, gamma/beta
+// (3D), bias (D) float32; W (3D, D) float32, or bfloat16 when is_bf16;
+// mixed (B, A, Li, Lqa, D) in the activation type; raw float32:
 // (B, A, Li, Lqa, Lr) when targets is NULL, else (B, Li, Lqa, Lr) at
 // targets[b] (int32, B); raw NULL writes none.  Lr <= 64.  Dropout on the
 // LN output when drop_threshold > 0 (philox.cuh).
@@ -412,7 +654,7 @@ extern "C" int qa_ctx_attention_fwd(
     const void* cn, const void* ce, const void* qn, const void* qe,
     const void* cmask, const void* qmask, const void* gamma,
     const void* beta, const void* W, const void* bias, const void* targets,
-    void* mixed, void* raw, int B, int A, int Lqa, int Li, int Lr,
+    void* mixed, void* raw, int B, int A, int Lqa, int Li, int Lr, int D,
     float scale, const unsigned long long* drop_seed, unsigned drop_threshold,
     float drop_scale, int is_bf16, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
@@ -420,17 +662,17 @@ extern "C" int qa_ctx_attention_fwd(
   const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
   const int* tg = static_cast<const int*>(targets);
   if (Lr > TM) return static_cast<int>(cudaErrorInvalidValue);
-  if (is_bf16 && Lr <= 32)
-    return launch_tc<32>(cn, ce, qn, qe, f(cmask), f(qmask), f(gamma),
-                         f(beta), W, f(bias), tg, mixed,
-                         static_cast<float*>(raw), B, A, Lqa, Li, Lr, scale,
-                         drop, s);
-  if (is_bf16)
-    return launch_tc<64>(cn, ce, qn, qe, f(cmask), f(qmask), f(gamma),
-                         f(beta), W, f(bias), tg, mixed,
-                         static_cast<float*>(raw), B, A, Lqa, Li, Lr, scale,
-                         drop, s);
-  return launch<float>(cn, ce, qn, qe, f(cmask), f(qmask), f(gamma), f(beta),
-                       f(W), f(bias), tg, mixed, static_cast<float*>(raw), B,
-                       A, Lqa, Li, Lr, scale, drop, s);
+#define TVQA_ATTN_FWD(DD)                                                    \
+  case DD:                                                                   \
+    return launch_width<DD>(cn, ce, qn, qe, f(cmask), f(qmask), f(gamma),    \
+                            f(beta), W, f(bias), tg, mixed,                  \
+                            static_cast<float*>(raw), B, A, Lqa, Li, Lr,     \
+                            scale, drop, is_bf16, s);
+  switch (D) {
+    TVQA_ATTN_FWD(64)
+    TVQA_ATTN_FWD(128)
+    TVQA_ATTN_FWD(256)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef TVQA_ATTN_FWD
 }

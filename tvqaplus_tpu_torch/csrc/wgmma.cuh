@@ -75,6 +75,18 @@ __device__ __forceinline__ void commit() {
 __device__ __forceinline__ void wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Wait until at most N committed groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accesses of d across this point (an
+// accumulator that an asynchronous wgmma may still be writing).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 // Make generic-proxy shared-memory writes visible to wgmma (async proxy).
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -200,24 +212,41 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
 
 constexpr int TM = 64;                  // rows of a tile (the wgmma M)
 constexpr int TILE_PANEL = TM * tc::ROW_BYTES;       // panel of a 64-row tile
-constexpr int W_ROWS = 3 * D;
-constexpr int W_PANEL = W_ROWS * tc::ROW_BYTES;      // panel of W (3D rows)
-constexpr int W_BYTES = 2 * W_PANEL;
-constexpr int TILE_BYTES = 2 * TILE_PANEL;           // 64 x 128 bf16
+
+// Sizes at hidden width D (a multiple of 64): W (3D x D bf16) as D / 64
+// panels of 3D rows, and a 64-row tile of D columns.
+template <int D>
+struct Shapes {
+  static constexpr int PANELS = D / 64;
+  static constexpr int W_ROWS = 3 * D;
+  static constexpr int W_PANEL = W_ROWS * tc::ROW_BYTES;
+  static constexpr int W_BYTES = PANELS * W_PANEL;
+  static constexpr int TILE_BYTES = PANELS * TILE_PANEL;
+};
+// ... at the backward kernels' width
+constexpr int W_ROWS = Shapes<BWD_D>::W_ROWS;
+constexpr int W_PANEL = Shapes<BWD_D>::W_PANEL;      // panel of W (3D rows)
+constexpr int W_BYTES = Shapes<BWD_D>::W_BYTES;
+constexpr int TILE_BYTES = Shapes<BWD_D>::TILE_BYTES;  // 64 x 128 bf16
 
 __device__ __forceinline__ uint8_t* align_smem(uint8_t* p) {
   return p + ((tc::ATOM_BYTES - (tc::smem_u32(p) & (tc::ATOM_BYTES - 1)))
               & (tc::ATOM_BYTES - 1));
 }
 
-// cp.async `rows` rows of D bf16 (row stride ld values) into the two panels
-// of an R-row matrix at dst; rows past `rows` are zeroed.  Thread t of n.
+// cp.async `rows` rows of D bf16 (row stride ld values) into the D / 64
+// panels of an R-row matrix at dst; rows past `rows` are zeroed.  Thread t
+// of n.
+template <int D = BWD_D>
 __device__ __forceinline__ void tc_load_rows(uint8_t* dst, int R,
                                              const __nv_bfloat16* src,
                                              int ld, int rows, int t,
                                              int n) {
-  for (int c = t; c < R * 16; c += n) {
-    const int r = c >> 4, ch = c & 15;
+  constexpr int CH = D / 8;             // 16-byte chunks of a row
+  constexpr int SH = CH == 8 ? 3 : (CH == 16 ? 4 : 5);
+  static_assert(CH == 1 << SH, "D is 64, 128 or 256");
+  for (int c = t; c < R * CH; c += n) {
+    const int r = c >> SH, ch = c & (CH - 1);
     uint8_t* d = dst + (ch >> 3) * (R * tc::ROW_BYTES)
                  + tc::swz_chunk(r, ch & 7);
     if (r < rows)
@@ -228,14 +257,18 @@ __device__ __forceinline__ void tc_load_rows(uint8_t* dst, int R,
 }
 
 // R rows of D float32 values (row stride ld, 16-byte aligned) rounded to
-// bf16 into the two panels of an R-row matrix at dst, the layout of
+// bf16 into the D / 64 panels of an R-row matrix at dst, the layout of
 // tc_load_rows; thread t of n.  Generic-proxy stores: fence_async_smem
 // before a wgmma reads them.
+template <int D = BWD_D>
 __device__ __forceinline__ void tc_store_rows_f32(uint8_t* dst, int R,
                                                   const float* src, int ld,
                                                   int t, int n) {
-  for (int c = t; c < R * 16; c += n) {
-    const int r = c >> 4, ch = c & 15;
+  constexpr int CH = D / 8;
+  constexpr int SH = CH == 8 ? 3 : (CH == 16 ? 4 : 5);
+  static_assert(CH == 1 << SH, "D is 64, 128 or 256");
+  for (int c = t; c < R * CH; c += n) {
+    const int r = c >> SH, ch = c & (CH - 1);
     const float4* p = reinterpret_cast<const float4*>(
         src + static_cast<size_t>(r) * ld + ch * 8);
     const float4 a = __ldg(p), b = __ldg(p + 1);
@@ -255,6 +288,31 @@ __device__ __forceinline__ float quad_sum(float v) {
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// Per row half h: the sums of both warpgroups of exchange round `ex` (each
+// warpgroup first stores its quad sums of the row's own columns), where the
+// two warpgroups split the columns of one 64-row tile (the tri bridge, the
+// MLP bridge, the D = 256 forwards).  A block barrier.
+__device__ __forceinline__ void tri_row_pair_sums(float* ex, float (&a)[2],
+                                                  float (&b)[2], int wg,
+                                                  int rl, int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    a[h] = quad_sum(a[h]);
+    b[h] = quad_sum(b[h]);
+    if ((lane & 3) == 0) {
+      ex[(wg * TM + rl + 8 * h) * 2] = a[h];
+      ex[(wg * TM + rl + 8 * h) * 2 + 1] = b[h];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = rl + 8 * h;
+    a[h] = ex[r * 2] + ex[(TM + r) * 2];
+    b[h] = ex[r * 2 + 1] + ex[(TM + r) * 2 + 1];
+  }
 }
 
 // Column of accumulator value i (row half (i / 2) % 2) for this lane.
@@ -327,14 +385,15 @@ __device__ __noinline__ uint32_t keep_word_call(uint64_t seed, uint64_t blk0,
 // for row rl + 8, and one shuffle per eight calls trades the bits.
 // e_mine = the flat index of column 0 of this group in the row this lane
 // draws for.  Value (half h, chunk q, t) is kept when
-// bit 4 (q % 8) + t of kw[h][q / 8] is set.
+// bit 4 (q % 8) + t of kw[h][q / 8] is set.  NQ = 4 (32 columns) draws a
+// whole word and uses its lower half.
 template <int NQ, bool CALL>
 __device__ __forceinline__ void tc_keep_bits(const Dropout& drop,
                                              uint64_t e_mine, int lane,
-                                             uint32_t (&kw)[2][NQ / 8]) {
+                                             uint32_t (&kw)[2][(NQ + 7) / 8]) {
   const bool odd = lane & 1;
 #pragma unroll
-  for (int wd = 0; wd < NQ / 8; ++wd) {
+  for (int wd = 0; wd < (NQ + 7) / 8; ++wd) {
     // chunk q = 8 wd + qq draws block (e_mine + 8 q + 4 (lane % 4 / 2)) / 4
     const uint64_t blk0 = (e_mine + 64 * wd + 4 * ((lane & 3) >> 1)) >> 2;
     const uint32_t mine = CALL
@@ -344,6 +403,78 @@ __device__ __forceinline__ void tc_keep_bits(const Dropout& drop,
     kw[0][wd] = (odd ? other : mine) >> (2 * (lane & 1));
     kw[1][wd] = (odd ? mine : other) >> (2 * (lane & 1));
   }
+}
+
+// ---- W streamed through shared memory (the D = 256 forwards) --------------
+//
+// At D = 256 no forward keeps its weight resident (W is 3D x D = 384 KB in
+// bf16, the encoder's two pointwise matrices 256 KB), so the product reads
+// it through a ring of two stages of KP rows, one stage loading while the
+// tensor cores multiply the other.  A stage is KP rows x D bf16 as D / 64
+// panels of KP rows (128-byte swizzle), read MN-major.
+
+template <int D, int KP>
+__host__ __device__ constexpr int stream_stage_bytes() { return KP * D * 2; }
+
+// Stage p of W (K x D row-major in device memory; float32 rounded to bf16
+// as it is stored, or bf16 copied by cp.async and waited for) into st;
+// every thread of the block.
+template <int D, int KP>
+__device__ __forceinline__ void stream_put(uint8_t* st, const float* W,
+                                           int p) {
+  tc_store_rows_f32<D>(st, KP, W + static_cast<size_t>(p) * KP * D, D,
+                       threadIdx.x, NTHREADS);
+}
+template <int D, int KP>
+__device__ __forceinline__ void stream_put(uint8_t* st,
+                                           const __nv_bfloat16* W, int p) {
+  tc_load_rows<D>(st, KP, W + static_cast<size_t>(p) * KP * D, D, KP,
+                  threadIdx.x, NTHREADS);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+}
+
+// acc (64 x 128, the warpgroup's columns [128 wg, 128 wg + 128)) = A W,
+// with A the 64 x K bf16 tile at shared address a_addr (K-major, K / 64
+// panels of TILE_PANEL) and W (K x D) streamed through the two stages at
+// `stages` (1024-byte aligned).  Every thread of the block calls it: it
+// synchronises the block.  The loop over the K / KP stages unrolls, so that
+// the products are not serialised behind a run-time loop.
+template <int D, int K, int KP, typename TW>
+__device__ __forceinline__ void mma_streamed_w(float (&acc)[64],
+                                               uint32_t a_addr, const TW* W,
+                                               uint8_t* stages, int wg) {
+  constexpr int STAGE = stream_stage_bytes<D, KP>();
+  constexpr int PANEL = KP * tc::ROW_BYTES;
+  constexpr int NS = K / KP;
+  static_assert(K % KP == 0 && KP % 16 == 0 && D == 256, "stream shape");
+  stream_put<D, KP>(stages, W, 0);
+  tc::fence_async_smem();
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < NS; ++p) {
+    const uint32_t st = tc::smem_u32(stages + (p & 1) * STAGE);
+    tc::fence();
+#pragma unroll
+    for (int s = 0; s < KP / 16; ++s) {
+      const int ks = p * (KP / 16) + s;
+      tc::mma_ss<128, 0, 1>(
+          acc, tc::make_desc(a_addr + (ks / 4) * TILE_PANEL + (ks % 4) * 32,
+                             16),
+          tc::make_desc(st + 2 * wg * PANEL + s * 2 * tc::ATOM_BYTES, PANEL),
+          p > 0 || s > 0);
+    }
+    tc::commit();
+    if (p + 1 < NS) {
+      tc::wait<1>();                   // the other stage's products are done
+      __syncthreads();                 // ... in both warpgroups
+      stream_put<D, KP>(stages + ((p + 1) & 1) * STAGE, W, p + 1);
+      tc::fence_async_smem();
+      __syncthreads();
+    }
+  }
+  tc::wait_all();
+  tc::fence_regs(acc);
 }
 
 }  // namespace tvqa

@@ -36,6 +36,7 @@ from tvqaplus_tpu_torch import resolve_device
 from tvqaplus_tpu_torch.config import parse_args
 from tvqaplus_tpu_torch.data.synthetic import SyntheticTVQADataset
 from tvqaplus_tpu_torch.data.tvqa import TVQAPlusDataset
+from tvqaplus_tpu_torch.ops import widths
 from tvqaplus_tpu_torch.parallel import mesh as dp
 from tvqaplus_tpu_torch.train.loop import Trainer
 
@@ -57,6 +58,7 @@ def build_datasets(cfg):
 def main(argv=None):
     cfg, extras = parse_args(argv, extra_fields=EXTRA_FLAGS)
     device = resolve_device(dp.init_from_env(extras.device))
+    widths.check_trainable(cfg.hsz, device)   # before a run dir is written
     mesh = dp.make_mesh(cfg.mesh_shape)
     # the reference scales the global batch by the device count
     # (config.py:187-188), the JAX package by the data axis

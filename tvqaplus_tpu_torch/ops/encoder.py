@@ -39,7 +39,7 @@ import ctypes
 
 import torch
 
-from tvqaplus_tpu_torch.ops import philox
+from tvqaplus_tpu_torch.ops import philox, widths
 from tvqaplus_tpu_torch.ops._build import (
     CudaKernel,
     check_aligned,
@@ -59,12 +59,18 @@ from tvqaplus_tpu_torch.ops.plain import (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U32 = ctypes.c_uint
-KERNEL = CudaKernel("encoder_fwd.cu", "encoder_reduce_fwd",
-                    [_P] * 5 + [_I] * 3 + [_P, _U32, _F, _I, _P])
+# The forward entries take the width D; each width has its own launch count
+# (KERNEL and BLOCK_KERNEL count D = 128, the headline hsz).
+_REDUCE_ARGS = [_P] * 5 + [_I] * 4 + [_P, _U32, _F, _I, _P]
+_BLOCK_ARGS = [_P] * 5 + [_I] * 5 + [_P, _U32, _F, _I, _P]
+FWD_BY_WIDTH = {d: CudaKernel("encoder_fwd.cu", "encoder_reduce_fwd",
+                              _REDUCE_ARGS) for d in widths.FORWARD_WIDTHS}
+BLOCK_BY_WIDTH = {d: CudaKernel("encoder_fwd.cu", "encoder_block_fwd",
+                                _BLOCK_ARGS) for d in widths.FORWARD_WIDTHS}
+KERNEL = FWD_BY_WIDTH[128]
+BLOCK_KERNEL = BLOCK_BY_WIDTH[128]
 BWD_KERNEL = CudaKernel("encoder_bwd.cu", "encoder_reduce_bwd",
                         [_P] * 15 + [_I] * 4 + [_P, _U32, _F, _I, _P])
-BLOCK_KERNEL = CudaKernel("encoder_fwd.cu", "encoder_block_fwd",
-                          [_P] * 5 + [_I] * 4 + [_P, _U32, _F, _I, _P])
 BLOCK_BWD_KERNEL = CudaKernel("encoder_bwd.cu", "encoder_block_bwd",
                               [_P] * 15 + [_I] * 5
                               + [_P, _U32, _F, _I, _P])
@@ -169,16 +175,22 @@ def pack_params(params):
     return torch.cat([params[key].float().reshape(-1) for key in PARAM_KEYS])
 
 
-def _check(x, pe, packed, k, reduce_mask=None, zero_mask=None):
-    """Raise on what the kernels do not take; returns the float32 packed
-    parameters, position table and mask (the reduce mask, else the zero
-    mask, else None)."""
+def _check(x, pe, packed, k, reduce_mask=None, zero_mask=None,
+           backward=False):
+    """Raise on what the kernels do not take (the forward: D in
+    ``widths.FORWARD_WIDTHS``; the backward: D = 128); returns the float32
+    packed parameters, position table and mask (the reduce mask, else the
+    zero mask, else None)."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, G, L, D), got {tuple(x.shape)}")
     bsz, g, l, d = x.shape
-    if d != 128 or l > MAX_LEN or k % 2 == 0 or k > 9:
-        raise ValueError(f"kernel takes D == 128, L <= {MAX_LEN} and odd "
-                         f"k <= 9; got x {tuple(x.shape)}, k {k}")
+    if backward:
+        widths.check_backward_width("encoder", d)
+    else:
+        widths.check_forward_width("encoder", d)
+    if l > MAX_LEN or k % 2 == 0 or k > 9:
+        raise ValueError(f"kernel takes L <= {MAX_LEN} and odd k <= 9; got "
+                         f"x {tuple(x.shape)}, k {k}")
     if x.dtype not in (torch.float32, torch.bfloat16) \
             or not x.is_contiguous():
         raise ValueError(f"x must be contiguous float32/bfloat16, got "
@@ -217,10 +229,10 @@ class _EncoderReduce(torch.autograd.Function):
         packed32, pe32, m32 = _check(x, pe, packed, k, reduce_mask)
         bsz, g, l, d = x.shape
         out = torch.empty((bsz, g, d), dtype=x.dtype, device=x.device)
-        KERNEL.launch(x.device, ptr(x), ptr(pe32), ptr(packed32), ptr(m32),
-                      ptr(out), bsz * g, l, k,
-                      *philox.kernel_args(dropout_rate, seed),
-                      int(x.dtype == torch.bfloat16))
+        FWD_BY_WIDTH[d].launch(x.device, ptr(x), ptr(pe32), ptr(packed32),
+                               ptr(m32), ptr(out), bsz * g, l, k, d,
+                               *philox.kernel_args(dropout_rate, seed),
+                               int(x.dtype == torch.bfloat16))
         ctx.save_for_backward(x, pe, packed, reduce_mask)
         ctx.cfg = (k, dropout_rate, seed)
         return out
@@ -252,7 +264,8 @@ def encoder_block_backward(x, pe, packed, zero_mask, g, k, dropout_rate=0.0,
 
 def _backward(x, pe, packed, reduce_mask, zero_mask, g, k, dropout_rate,
               seed, full=False):
-    packed32, pe32, m32 = _check(x, pe, packed, k, reduce_mask, zero_mask)
+    packed32, pe32, m32 = _check(x, pe, packed, k, reduce_mask, zero_mask,
+                                 backward=True)
     seed = philox.kernel_seed(dropout_rate, seed, x.device)
     bsz, grp, l, d = x.shape
     n = bsz * grp
@@ -312,11 +325,11 @@ class _EncoderBlock(torch.autograd.Function):
         packed32, pe32, m32 = _check(x, pe, packed, k, zero_mask=zero_mask)
         bsz, g, l, d = x.shape
         out = torch.empty_like(x)
-        BLOCK_KERNEL.launch(x.device, ptr(x), ptr(pe32), ptr(packed32),
-                            None if m32 is None else ptr(m32), ptr(out),
-                            bsz * g, g, l, k,
-                            *philox.kernel_args(dropout_rate, seed),
-                            int(x.dtype == torch.bfloat16))
+        BLOCK_BY_WIDTH[d].launch(x.device, ptr(x), ptr(pe32), ptr(packed32),
+                                 None if m32 is None else ptr(m32), ptr(out),
+                                 bsz * g, g, l, k, d,
+                                 *philox.kernel_args(dropout_rate, seed),
+                                 int(x.dtype == torch.bfloat16))
         ctx.save_for_backward(x, pe, packed, zero_mask)
         ctx.cfg = (k, dropout_rate, seed)
         return out

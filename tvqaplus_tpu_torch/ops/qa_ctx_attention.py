@@ -27,7 +27,7 @@ import ctypes
 
 import torch
 
-from tvqaplus_tpu_torch.ops import philox
+from tvqaplus_tpu_torch.ops import philox, widths
 from tvqaplus_tpu_torch.ops._build import (
     CudaKernel,
     check_device,
@@ -40,8 +40,14 @@ from tvqaplus_tpu_torch.ops.plain import Bf16Dot, as_f32, layer_norm
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U32 = ctypes.c_uint
-KERNEL = CudaKernel("qa_ctx_attention_fwd.cu", "qa_ctx_attention_fwd",
-                    [_P] * 13 + [_I] * 5 + [_F, _P, _U32, _F, _I, _P])
+# The forward entry takes the width D; each width has its own launch count
+# (KERNEL counts D = 128, the headline hsz).
+FWD_BY_WIDTH = {d: CudaKernel("qa_ctx_attention_fwd.cu",
+                              "qa_ctx_attention_fwd",
+                              [_P] * 13 + [_I] * 6
+                              + [_F, _P, _U32, _F, _I, _P])
+                for d in widths.FORWARD_WIDTHS}
+KERNEL = FWD_BY_WIDTH[128]
 BWD_KERNEL = CudaKernel("qa_ctx_attention_bwd.cu", "qa_ctx_attention_bwd",
                         [_P] * 28 + [_I] * 5 + [_F, _P, _U32, _F, _I, _I,
                                                 _P])
@@ -142,7 +148,10 @@ def _with_raw(mixed, masked, raw_mode, targets):
 
 
 def _check(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b, raw_mode,
-           targets):
+           targets, backward=False):
+    """Raise on what the kernels do not take (the forward: D in
+    ``widths.FORWARD_WIDTHS``; the backward: D = 128); returns the float32
+    masks and parameters and the int32 targets."""
     bsz, num_a, lqa, d = cn.shape
     _, li, lr, _ = qn.shape
     dt = cn.dtype
@@ -152,9 +161,13 @@ def _check(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b, raw_mode,
         if t.shape != shape or t.dtype != dt:
             raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype}, expected "
                              f"{tuple(shape)} {dt}")
-    if qn.shape[0] != bsz or d != 128 or lr > MAX_REGIONS:
-        raise ValueError(f"kernel takes D == 128 and Lr <= {MAX_REGIONS}; "
-                         f"got cn {tuple(cn.shape)}, qn {tuple(qn.shape)}")
+    if backward:
+        widths.check_backward_width("qa_ctx_attention", d)
+    else:
+        widths.check_forward_width("qa_ctx_attention", d)
+    if qn.shape[0] != bsz or lr > MAX_REGIONS:
+        raise ValueError(f"kernel takes Lr <= {MAX_REGIONS}; got cn "
+                         f"{tuple(cn.shape)}, qn {tuple(qn.shape)}")
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"activations must be float32 or bfloat16, not {dt}")
     if not all(t.is_contiguous() for t in (cn, ce, qn, qe)):
@@ -204,13 +217,14 @@ class _QaCtxAttention(torch.autograd.Function):
                               device=dev)
         if cn.dtype == torch.bfloat16:   # the tensor-core kernels' operand
             w32 = w32.to(torch.bfloat16)
-        KERNEL.launch(dev, ptr(cn), ptr(ce), ptr(qn), ptr(qe), ptr(cm),
-                      ptr(qm), ptr(g32), ptr(b32), ptr(w32), ptr(bias32),
-                      ptr(tg) if tg is not None else None, ptr(mixed),
-                      ptr(raw) if raw is not None else None,
-                      bsz, num_a, lqa, li, lr, float(scale),
-                      *philox.kernel_args(dropout_rate, seed),
-                      int(cn.dtype == torch.bfloat16))
+        FWD_BY_WIDTH[d].launch(
+            dev, ptr(cn), ptr(ce), ptr(qn), ptr(qe), ptr(cm), ptr(qm),
+            ptr(g32), ptr(b32), ptr(w32), ptr(bias32),
+            ptr(tg) if tg is not None else None, ptr(mixed),
+            ptr(raw) if raw is not None else None,
+            bsz, num_a, lqa, li, lr, d, float(scale),
+            *philox.kernel_args(dropout_rate, seed),
+            int(cn.dtype == torch.bfloat16))
         ctx.save_for_backward(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w,
                               b, targets, mixed)
         ctx.cfg = (scale, raw_mode, dropout_rate, seed)
@@ -236,7 +250,8 @@ def qa_ctx_attention_backward(cn, ce, qn, qe, c_mask, q_mask, gamma, beta,
     in float32.  ``mixed`` is the saved forward output (the ReLU sign);
     ``g_raw`` may be None (no raw cotangent)."""
     cm, qm, g32, b32, w32, bias32, tg = _check(
-        cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b, raw_mode, targets)
+        cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b, raw_mode, targets,
+        backward=True)
     seed = philox.kernel_seed(dropout_rate, seed, cn.device)
     bsz, num_a, lqa, d = cn.shape
     _, li, lr, _ = qn.shape

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from tvqaplus_tpu_torch.ops import philox
+from tvqaplus_tpu_torch.ops import philox, widths
 from tvqaplus_tpu_torch.ops._build import (
     CudaKernel,
     check_aligned,
@@ -36,8 +36,12 @@ from tvqaplus_tpu_torch.ops.plain import as_f32, dot, layer_norm
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U32, _L = ctypes.c_uint, ctypes.c_longlong
-KERNEL = CudaKernel("tri_bridge_fwd.cu", "tri_bridge_fwd",
-                    [_P] * 9 + [_L, _P, _U32, _F, _I, _P])
+# The forward entry takes the width D; each width has its own launch count
+# (KERNEL counts D = 128, the headline hsz).
+FWD_BY_WIDTH = {d: CudaKernel("tri_bridge_fwd.cu", "tri_bridge_fwd",
+                              [_P] * 9 + [_L, _I, _P, _U32, _F, _I, _P])
+                for d in widths.FORWARD_WIDTHS}
+KERNEL = FWD_BY_WIDTH[128]
 BWD_KERNEL = CudaKernel("tri_bridge_bwd.cu", "tri_bridge_bwd",
                         [_P] * 17 + [_L, _I, _P, _U32, _F, _I, _P])
 
@@ -79,13 +83,20 @@ def tri_bridge_plain(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
     return layer_norm(h, gamma_out, beta_out).to(s.dtype)
 
 
-def _check(s, v, params):
+def _check(s, v, params, backward=False):
+    """Raise on what the kernels do not take (the forward: D in
+    ``widths.FORWARD_WIDTHS``; the backward: D = 128); returns the float32
+    parameters."""
     d = s.shape[-1]
     if v.shape != s.shape or v.dtype != s.dtype:
         raise ValueError(f"v {tuple(v.shape)} {v.dtype} does not match s "
                          f"{tuple(s.shape)} {s.dtype}")
-    if d != 128 or s.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"kernel takes D == 128 in float32/bfloat16; got "
+    if backward:
+        widths.check_backward_width("tri_bridge", d)
+    else:
+        widths.check_forward_width("tri_bridge", d)
+    if s.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"kernel takes float32/bfloat16; got "
                          f"{tuple(s.shape)} {s.dtype}")
     if not (s.is_contiguous() and v.is_contiguous()):
         raise ValueError("s and v must be contiguous")
@@ -107,10 +118,12 @@ class _TriBridge(torch.autograd.Function):
                 dropout_rate, seed):
         params = _check(s, v, (gamma_in, beta_in, w, b, gamma_out, beta_out))
         out = torch.empty_like(s)
-        rows = s.numel() // s.shape[-1]
-        KERNEL.launch(s.device, ptr(s), ptr(v), *(ptr(p) for p in params),
-                      ptr(out), rows, *philox.kernel_args(dropout_rate, seed),
-                      int(s.dtype == torch.bfloat16))
+        d = s.shape[-1]
+        FWD_BY_WIDTH[d].launch(s.device, ptr(s), ptr(v),
+                               *(ptr(p) for p in params), ptr(out),
+                               s.numel() // d, d,
+                               *philox.kernel_args(dropout_rate, seed),
+                               int(s.dtype == torch.bfloat16))
         ctx.save_for_backward(s, v, gamma_in, beta_in, w, b, gamma_out,
                               beta_out)
         ctx.cfg = (dropout_rate, seed)
@@ -129,7 +142,7 @@ def tri_bridge_backward(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
     gradients of (s, v) in their dtype and of the six parameters in
     float32."""
     gin, bin_, w32, b32, gout, _ = _check(
-        s, v, (gamma_in, beta_in, w, b, gamma_out, beta_out))
+        s, v, (gamma_in, beta_in, w, b, gamma_out, beta_out), backward=True)
     seed = philox.kernel_seed(dropout_rate, seed, s.device)
     d = s.shape[-1]
     rows = s.numel() // d

@@ -66,6 +66,7 @@ from tvqaplus_tpu_torch.data.pipeline import DataPipeline
 from tvqaplus_tpu_torch.models.layers import Dropout
 from tvqaplus_tpu_torch.models.losses import gumbel_noise, total_loss
 from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+from tvqaplus_tpu_torch.ops import widths
 from tvqaplus_tpu_torch.ops.philox import StepSeeds, noise_seed, rank_seed
 from tvqaplus_tpu_torch.parallel import mesh as dp
 from tvqaplus_tpu_torch.train.metrics import MetricsLogger
@@ -138,6 +139,8 @@ class Trainer:
     def __init__(self, cfg, device=None, logger=None, model=None, mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # on cuda every step runs the backward kernels (D = 128 only)
+        widths.check_trainable(cfg.hsz, self.device)
         self.mesh = mesh
         self.is_main = mesh is None or mesh.is_main
         self.model_cfg = ModelConfig.from_config(cfg)
