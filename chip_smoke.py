@@ -166,17 +166,33 @@ Data parallelism (``tvqaplus_tpu_torch/parallel/mesh.py``):
              eager step ms and the bytes its all-gathers received beside
              the single process's.
 
-The forward kernels' other hidden widths (ops/widths.py):
+The kernels' other hidden widths (ops/widths.py):
+4w. kernel_train_width - the backward kernels of the attention (vid raw
+             "target", sub raw "none"), the tri bridge and the encoder
+             (reduce k 5; full output k 7 with the zero mask and without) at
+             D = 64 and 256 (csrc/*_bwd_wide.cu), dropout 0.1, against
+             autograd through their plain versions in float32 and bfloat16
+             at the D = 128 rows' GRAD_TOL, twice for the same bits, and
+             timed as in 4; their launches are phase 9t's.  After phase 4.
 9w. wide_serving - STAGE served at hsz 256 and 64: the inference entry
              point on the separate and the merged path, every forward kernel
              launched at that width (its own counter) and none at D = 128;
              the hsz-256 headline batch on the card against the CPU forward
              (phase 5's bars); the replayed serve steps of hsz 128 and 256,
              both paths, equal to their eager steps, timed in turns with
-             busy ms, idle share and launches; the train CLI and ``Trainer``
-             at hsz 256 on the card refused before any step (the backward
-             kernels take D = 128 only, ROADMAP A10b).  Placed after
+             busy ms, idle share and launches.  Placed after
              ``mesh_axes``, before ``noun_void``.
+9t. wide_training - STAGE trained at hsz 256 and 64: the train CLI on
+             synthetic data, separate and merged (four steps, validation, a
+             checkpoint), every kernel of the path launched at that width
+             (its own counter) and none at D = 128; a float32 train step at
+             hsz 256 on the card against the CPU (phase train_vs_cpu's
+             bars); K = 4 replays at hsz 256 equal to as many eager steps
+             bit for bit (deterministic algorithms on), both paths; the
+             replayed train steps (K = 4) of hsz 128 and 256, both paths,
+             timed in turns with busy ms, idle share, launches a step and
+             QA/s, the hsz-256 traces holding the D = 256 forwards and
+             backwards and no kernel of D = 128.  After ``wide_serving``.
 
 Then the ``kernels`` summary line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line.
@@ -184,6 +200,7 @@ Any failure exits non-zero without that line.
 from __future__ import annotations
 
 import dataclasses
+import faulthandler
 import json
 import math
 import os
@@ -221,6 +238,17 @@ BWD_SOURCES = {"qa_ctx_attention": "csrc/qa_ctx_attention_bwd.cu",
                "encoder": "csrc/encoder_bwd.cu",
                "encoder_block": "csrc/encoder_bwd.cu",
                "mlp_bridge": "csrc/mlp_bridge_bwd.cu"}
+
+
+def bwd_source(key, d):
+    """The source of ``key``'s bf16 backward at width ``d``."""
+    if d == D:
+        return BWD_SOURCES[key]
+    if key.startswith("encoder"):
+        return "csrc/encoder_bwd_tc_wide.cu"
+    return BWD_SOURCES[key].replace(".cu", "_wide.cu")
+
+
 # the kernels each main path must launch (counter keys, see counters())
 SEPARATE_FWD = ("qa_ctx_attention", "tri_bridge", "encoder")
 SEPARATE_TRAIN = SEPARATE_FWD + tuple(k + "_bwd" for k in SEPARATE_FWD)
@@ -702,6 +730,13 @@ def phase_width_kernels(dev):
             for row in phase_kernels(dev, d, (0.0, P_DROP))]
 
 
+def phase_width_train_kernels(dev):
+    """The three backward kernels at D = 64 and 256 (ops/widths.py), dropout
+    P_DROP, against autograd through their plain versions."""
+    return [row for d in OTHER_WIDTHS
+            for row in phase_train_kernels(dev, d)]
+
+
 def headline_batch(cfg, dev):
     from tvqaplus_tpu_torch.data.batching import (
         StaticShapeSpec,
@@ -1128,32 +1163,16 @@ def phase_serving(dev, cfg, sd):
               "top_kernels": top})
 
 
-def expect_refusal(what, call, *words):
-    """``call()`` must raise ValueError naming every one of ``words``;
-    returns its message (any other outcome fails the run)."""
-    try:
-        call()
-    except ValueError as e:
-        if all(w in str(e) for w in words):
-            return str(e)
-        raise
-    raise AssertionError(f"{what} did not raise")
-
-
 def phase_wide_serving(dev, workdir, cfg, sd):
     """STAGE served at hsz 256 (and 64) on the card: the inference entry
     point on the separate and the merged path, every forward kernel launched
     at that width and none at D = 128; the hsz-256 headline batch on the
     card against the CPU forward (phase 5's bars); the replayed serve steps
     of hsz 128 (``cfg``, ``sd``: phase 5's) and 256, both paths, equal to
-    their eager steps and timed in turns, with the device's busy time; and
-    training at hsz 256 on the card refused before any step (the backward
-    kernels take D = 128 only, ROADMAP A10b).  Returns the launches of each
-    width's runs by counter key."""
-    from tvqaplus_tpu_torch import main as train_cli
+    their eager steps and timed in turns, with the device's busy time.
+    Returns the launches of each width's runs by counter key."""
     from tvqaplus_tpu_torch.infer.predict import InferenceRunner
     from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
-    from tvqaplus_tpu_torch.train.loop import Trainer
     t_phase = time.perf_counter()
     runs, launches, models = {}, {}, {D: (cfg, sd)}
     for hsz in (WIDE_HSZ, 64):
@@ -1214,40 +1233,247 @@ def phase_wide_serving(dev, workdir, cfg, sd):
             "tc_forwards": check_tc_forwards(name, names, "merged" in name,
                                              hsz),
             "top_kernels": top[:6]}
-    refused = {
-        "train_cli": expect_refusal(
-            "the train CLI at hsz 256 on cuda", lambda: train_cli.main(
-                ["--synthetic_data", "--debug", "--add_local", "--hsz",
-                 str(WIDE_HSZ), "--results_dir_base",
-                 os.path.join(workdir, "wide_train")]),
-            "backward kernels", "A10b"),
-        "trainer": expect_refusal(
-            "Trainer at hsz 256 on cuda",
-            lambda: Trainer(headline_config(hsz=WIDE_HSZ), dev),
-            "backward kernels", "A10b")}
-    if os.path.exists(os.path.join(workdir, "wide_train")):
-        raise AssertionError("the refused train CLI wrote a run directory")
     emit({"phase": "wide_serving", "ok": True, "batch": B, "frames": LI,
           "compute_dtype": "bfloat16", "steps": SERVING_STEPS, "runs": runs,
           "headline_vs_cpu": vs_cpu, "replay_equals_eager": replay,
-          "serve_steps": serve, "train_refused": refused,
-          "wall_s": time.perf_counter() - t_phase})
+          "serve_steps": serve, "wall_s": time.perf_counter() - t_phase})
     return launches
 
 
+
+# the kernels a train step at a width other than 128 must show in its trace
+# (bf16): the backwards of csrc/*_bwd_wide.cu and encoder_bwd_tc_wide.cu
+# (all on the tensor cores but the attention's at D = 64) and their
+# tensor-core weight gradient (wgrad_tc.cuh, shared by every width: its
+# width is an argument, its column tile 64 at D = 64 and 128 above); and
+# the D = 128 kernels it must not show (forwards and backwards, both
+# instantiations)
+def wide_bwd_trace(d):
+    tc = d == 256
+    rows = "__nv_bfloat16" if tc else "float"
+    return ("qa_ctx_bwd_tc_wide_kernel<" if tc
+            else f"qa_ctx_bwd_wide_kernel<__nv_bfloat16,{d},",
+            f"qa_ctx_gq_wide_kernel<__nv_bfloat16,{rows},{d}>",
+            f"tri_bridge_bwd_tc_wide_kernel<{d}>",
+            f"encoder_bwd_tc_wide_kernel<5,{d}>",
+            f"wgrad_tc_kernel<{64 if d == 64 else 128}>")
+
+
+D128_TRACE = ("qa_ctx_fwd_tc_kernel<128,", "tri_bridge_fwd_tc_kernel<128>",
+              "encoder_fwd_tc_kernel<128,", "qa_ctx_fwd_kernel<",
+              "qa_ctx_bwd_tc_kernel", "qa_ctx_gq_tc_kernel",
+              "tri_bridge_bwd_tc_kernel", "encoder_bwd_tc_kernel",
+              "qa_ctx_bwd_kernel<", "tri_bridge_bwd_kernel<",
+              "encoder_bwd_kernel<")
+WIDE_TRAIN_HSZ = (WIDE_HSZ, 64)
+
+
+def check_wide_train_trace(step, names, merged, d):
+    """A bf16 train step at width ``d`` != 128: its trace holds the
+    tensor-core forwards at ``d`` (``check_tc_forwards``) and the wide
+    backwards, and no kernel of D = 128; returns the backwards' names."""
+    check_tc_forwards(step, names, merged, d)
+    flat = [nm.replace(" ", "") for nm in names]
+    want = wide_bwd_trace(d)
+    missing = [w for w in want if not any(w in nm for nm in flat)]
+    at128 = sorted({nm for nm in flat for w in D128_TRACE if w in nm})
+    if missing:
+        raise AssertionError(f"{step}: wide backwards missing {missing}")
+    if at128:
+        raise AssertionError(f"{step}: D = 128 kernels launched {at128}")
+    return sorted({nm.replace("(anonymousnamespace)::", "")
+                   .replace("void", "").split("(")[0]
+                   for nm in flat if "_wide_kernel" in nm
+                   or "wgrad_tc_kernel<" in nm})
+
+
+def wide_train_cli(dev, workdir, hsz, merged, steps_per_dispatch):
+    """The train CLI at width ``hsz`` on synthetic data (the headline
+    training config otherwise: one debug epoch of four steps, validation, a
+    checkpoint): finite losses, best_valid.pth written, every kernel of the
+    path launched at ``hsz`` and none at D = 128.  Returns the launches."""
+    from tvqaplus_tpu_torch.main import main as train_main
+    tag = f"wide_train_hsz{hsz}{'_merged' if merged else ''}"
+    argv = ["--synthetic_data", "--debug", "--add_local", "--use_sup_att",
+            "--hsz", str(hsz), "--bsz", str(B), "--test_bsz", str(B),
+            "--log_freq", "2", "--seed", str(SEED),
+            "--results_dir_base", os.path.join(workdir, tag, "results"),
+            "--steps_per_dispatch", str(steps_per_dispatch),
+            "--device", DEVICE] + ["--merge_input_streams"] * merged
+    keys = MERGED_TRAIN if merged else SEPARATE_TRAIN
+    reset_counters()
+    t0 = time.perf_counter()
+    run_dir, trainer = train_main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    got = read_counters(tuple(f"{k}@{hsz}" for k in keys))
+    at128 = {k: got[k] for k in keys if got[k]}
+    if at128:
+        raise AssertionError(f"{tag}: kernels launched at D = 128: {at128}")
+    with open(os.path.join(run_dir, "opt.json")) as f:
+        opt = json.load(f)
+    if opt["hsz"] != hsz or opt["merge_input_streams"] != merged \
+            or opt["compute_dtype"] != "bfloat16" or not opt["dropout"] > 0:
+        raise AssertionError(f"{tag}: not the config asked for: {opt}")
+    scalars = {}
+    with open(os.path.join(run_dir, "scalars.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            scalars.setdefault(rec["tag"], []).append(rec["value"])
+    losses = [v for t in ("Train/Loss", "Valid/Loss")
+              for v in scalars.get(t, [])]
+    if not scalars.get("Train/Loss") or not scalars.get("Valid/Acc") \
+            or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{tag}: losses and validation {scalars}")
+    if not os.path.exists(os.path.join(run_dir, "best_valid.pth")):
+        raise AssertionError(f"{tag}: the run wrote no best_valid.pth")
+    return {"launches": {k: got[f"{k}@{hsz}"] for k in keys},
+            "steps": trainer.step, "steps_per_dispatch": steps_per_dispatch,
+            "wall_s": wall_s, "train_loss": scalars["Train/Loss"],
+            "valid_loss": scalars.get("Valid/Loss"),
+            "valid_acc": scalars["Valid/Acc"]}
+
+
+def replays_equal_eager_train(cfg, dev, k):
+    """A K-step replayed train dispatch (capture, then a replay) against as
+    many eager steps from the same seed and batch, deterministic algorithms
+    on: loss, grad_norm and every parameter bit for bit."""
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager, graph = Trainer(cfg, dev), Trainer(cfg, dev)
+        batch = train_batch(cfg, dev, B)
+        stack = stacked(batch, k)
+        out = {}
+        for tag in ("capture", "replay"):
+            ms = eager._packed("train", [eager.train_step(batch)
+                                         for _ in range(k)])
+            mg = graph.dispatch_train(stack)
+            torch.cuda.synchronize()
+            names = graph._names["train"]
+            same = {key: float(mg[key]) == float(ms[names.index(key)])
+                    for key in ("loss", "grad_norm")}
+            same["parameters"] = all(torch.equal(p, q) for p, q in
+                                     zip(eager.params, graph.params))
+            if not all(same.values()):
+                raise AssertionError(f"hsz {cfg.hsz} {tag}: replay vs eager "
+                                     f"{same}")
+            out[tag] = float(mg["loss"])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def phase_wide_training(workdir):
+    """Runs ``wide_training`` in a process of its own (``python3
+    chip_smoke.py --wide-training WORKDIR``), its lines on this process's
+    output: late in the whole run's process, after some thirty profiled
+    sessions, the profiler's tracing of a replayed train dispatch faulted in
+    native code (a segmentation fault inside the graph's replay), while the
+    same phase in a fresh process traced cleanly.  Returns the launches of
+    each width's CLI runs by counter key."""
+    path = os.path.join(workdir, "wide_training.json")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--wide-training", workdir], timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase wide_training exited {proc.returncode}")
+    with open(path) as f:
+        return json.load(f)
+
+
+def wide_training_process(workdir):
+    """The child of ``phase_wide_training``: the card set up as
+    ``phase_device`` sets it, the phase, its launches to a file."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches = wide_training(torch.device("cuda"), workdir)
+    with open(os.path.join(workdir, "wide_training.json"), "w") as f:
+        json.dump(launches, f)
+    return 0
+
+
+def wide_training(dev, workdir):
+    """STAGE trained at hsz 256 (and 64) on the card: the train CLI on the
+    separate and the merged path (every kernel at that width, none at D =
+    128; validation and a checkpoint); a float32 train step at hsz 256
+    against the CPU (``phase_train_vs_cpu``'s bars); K = 4 replays equal to
+    eager steps at hsz 256, both paths; and the replayed train steps (K =
+    4) of hsz 128 and 256, both paths, timed in turns, each step's trace
+    holding the width's kernels only.  Returns the launches of each width's
+    CLI runs by counter key."""
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    t_phase = time.perf_counter()
+    runs, launches = {}, {}
+    for hsz in WIDE_TRAIN_HSZ:
+        for merged in (False, True):
+            run = wide_train_cli(dev, workdir, hsz, merged, 2 if merged else 1)
+            runs[f"hsz{hsz}_{'merged' if merged else 'separate'}"] = run
+            launches.update({f"{k}@{hsz}": n
+                             for k, n in run["launches"].items()
+                             if merged == k.startswith("encoder_block")})
+    vs_cpu = phase_train_vs_cpu(dev, workdir, hsz=WIDE_HSZ)
+    replay = {}
+    steps, names_of = {}, {}
+    for hsz in (D, WIDE_HSZ):
+        for merged in (False, True):
+            cfg = train_config(workdir, bsz=B, hsz=hsz,
+                               merge_input_streams=merged).finalize(dev)
+            name = f"hsz{hsz}_{'merged' if merged else 'separate'}_graph_k4"
+            if hsz != D:
+                replay[name] = replays_equal_eager_train(cfg, dev,
+                                                         DISPATCH_K)
+            trainer = Trainer(cfg, dev)
+            four = stacked(train_batch(cfg, dev, B), DISPATCH_K)
+            steps[name] = lambda t=trainer, b=four: t.dispatch_train(b)
+            steps[name]()                  # warm-up and capture
+            torch.cuda.synchronize()
+    clock = timed_steps(steps, TRAIN_STEPS // DISPATCH_K)
+    train = {}
+    for name, step in steps.items():
+        hsz = int(name[3:name.index("_")])
+        merged = "merged" in name
+        k = DISPATCH_K
+        step_ms, turns = clock[name][0] / k, [t / k for t in clock[name][1]]
+        loss = float(step()["loss"]) / k
+        if not math.isfinite(loss):
+            raise AssertionError(f"{name}: training loss {loss}")
+        busy_ms, per_step, top, names = profile_steps(step, 2)
+        if busy_ms is not None:
+            busy_ms, per_step = busy_ms / k, per_step / k
+        row = {"hsz": hsz, "steps_per_dispatch": k, "loss": loss,
+               "step_ms": step_ms, "step_ms_turns": turns,
+               "qa_pairs_per_s": B / (step_ms / 1e3),
+               "device_busy_ms": busy_ms,
+               "device_idle_share": None if busy_ms is None
+               else 1 - busy_ms / step_ms,
+               "launches_per_step": per_step, "top_kernels": top[:8]}
+        # an empty trace fails here as in every phase
+        if hsz != D:
+            row["wide_kernels"] = check_wide_train_trace(name, names,
+                                                         merged, hsz)
+        else:
+            row["tc_forwards"] = check_tc_forwards(name, names, merged)
+        train[name] = row
+    emit({"phase": "wide_training", "ok": True, "batch": B, "frames": LI,
+          "compute_dtype": "bfloat16", "dropout": 0.1, "cli_runs": runs,
+          "train_vs_cpu": vs_cpu, "replay_equals_eager": replay,
+          "train_steps": train, "wall_s": time.perf_counter() - t_phase})
+    return launches
+
 # ---------------------------------------------------------------- training
-def train_kernel_cases(dev):
-    """The training variants of ``kernel_cases``: dropout 0.1 in every
-    kernel, the vid attention site in raw mode "target".  Each case adds the
-    differentiable inputs (positions in args; the encoder's parameter dict
-    is differentiated as a whole), the plain version's flip rows
-    (ops/checks.py) and the backward's operations."""
+def train_kernel_cases(dev, d=D):
+    """The training variants of ``kernel_cases`` at width ``d``: dropout 0.1
+    in every kernel, the vid attention site in raw mode "target".  Each case
+    adds the differentiable inputs (positions in args; the encoder's
+    parameter dict is differentiated as a whole), the plain version's flip
+    rows (ops/checks.py) and the backward's operations."""
     from tvqaplus_tpu_torch.ops import checks
     targets = torch.randint(0, A, (B,), generator=torch.Generator(
         device=dev).manual_seed(SEED + 1), device=dev)
     drop = dict(dropout_rate=P_DROP, seed=DROP_SEED)
     cases = []
-    for case in kernel_cases(dev):
+    for case in kernel_cases(dev, d):
         name, flops = case.name, case.flops
         if case.key == "qa_ctx_attention":
             lr = case.args(torch.float32)[0][2].shape[2]
@@ -1261,8 +1487,9 @@ def train_kernel_cases(dev):
             diff = (0, 1, 2, 3, 6, 7, 8, 9)
             m_rows = A * LQA
             # recompute S and att, g_p, gqe, gcn, gqn; g_yd and gW
-            bflops = 2 * B * LI * m_rows * (6 * lr * D + 6 * D * D)
-            name = f"qa_ctx_attention[{site}, raw {raw_mode}, dropout]"
+            bflops = 2 * B * LI * m_rows * (6 * lr * d + 6 * d * d)
+            name = (f"qa_ctx_attention[{site}, raw {raw_mode}, dropout"
+                    + (f", D {d}]" if d != D else "]"))
         elif case.key == "tri_bridge":
             kw = dict(drop)
 
@@ -1348,13 +1575,17 @@ def _cotangents(outs, flip, gen, valid=None):
     return cots
 
 
-def phase_train_kernels(dev):
+def phase_train_kernels(dev, d=D):
     """Forward kernels with dropout and the backward kernels against the
-    plain version and autograd through it (same Philox mask)."""
+    plain version and autograd through it (same Philox mask), at width
+    ``d``; the rows of the other widths (phase ``kernel_train_width``: the
+    backwards only, the forwards are phase kernel_width's) take their
+    launches from phase wide_training."""
     from tvqaplus_tpu_torch.ops import checks
     rows = []
+    wide = d != D
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    for case in train_kernel_cases(dev):
+    for case in train_kernel_cases(dev, d):
         name, key, kernel, plain = (case.name, case.key, case.kernel,
                                     case.plain)
         errs, gerrs, rel = {}, {}, {}
@@ -1391,23 +1622,25 @@ def phase_train_kernels(dev):
                                                      case.valid))
         outs, leaves, cots = graphs["kernel"]
         moved, tensors = moved_bytes(a, *outs)
-        b_ms, b_by = bound(moved, case.flops)
-        today = time_today(case, torch.bfloat16, True)
-        row = {"name": name, "route": "cuda",
-               "source": f"tvqaplus_tpu_torch/{case.src}",
-               "replaces": REPLACES[key], "max_abs_err": errs["bfloat16"],
-               "max_abs_err_f32": errs["float32"],
-               "ms": time_ms(lambda: kernel(*a, **kwa)),
-               "plain_ms": time_ms(lambda: plain(*a, **kwa)),
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-               "bytes": moved, "flops": case.flops,
-               **{k: v for k, v in today.items() if k == "today_ms"},
-               "_key": key}
-        af, _ = case.args(torch.float32)
-        row["f32_ms"] = time_ms(lambda: kernel(*af, **kwa))
-        emit({"phase": "kernel_train", "ok": True,
-              **{k: v for k, v in row.items() if k != "_key"}})
-        rows.append(row)
+        today = {} if wide else time_today(case, torch.bfloat16, True)
+        if not wide:
+            b_ms, b_by = bound(moved, case.flops)
+            row = {"name": name, "route": "cuda",
+                   "source": f"tvqaplus_tpu_torch/{case.src}",
+                   "replaces": REPLACES[key],
+                   "max_abs_err": errs["bfloat16"],
+                   "max_abs_err_f32": errs["float32"],
+                   "ms": time_ms(lambda: kernel(*a, **kwa)),
+                   "plain_ms": time_ms(lambda: plain(*a, **kwa)),
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                   "bytes": moved, "flops": case.flops,
+                   **{k: v for k, v in today.items() if k == "today_ms"},
+                   "_key": key}
+            af, _ = case.args(torch.float32)
+            row["f32_ms"] = time_ms(lambda: kernel(*af, **kwa))
+            emit({"phase": "kernel_train", "ok": True,
+                  **{k: v for k, v in row.items() if k != "_key"}})
+            rows.append(row)
 
         def backward(tag):
             o, lv, c = graphs[tag]
@@ -1421,7 +1654,7 @@ def phase_train_kernels(dev):
         bmoved = nbytes(*tensors, *saved, *cots, *grads)
         b_ms, b_by = bound(bmoved, case.bflops)
         row = {"name": name.replace("[", " backward[", 1), "route": "cuda",
-               "source": f"tvqaplus_tpu_torch/{BWD_SOURCES[key]}",
+               "source": "tvqaplus_tpu_torch/" + bwd_source(key, d),
                "replaces": REPLACES[key + "_bwd"],
                "max_abs_err": gerrs["bfloat16"],
                "max_abs_err_f32": gerrs["float32"],
@@ -1431,7 +1664,9 @@ def phase_train_kernels(dev):
                "plain_ms": time_ms(lambda: backward("plain")),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                "bytes": bmoved, "flops": case.bflops, "deterministic": True,
-               "_key": key + "_bwd"}
+               "_key": key + "_bwd" + (f"@{d}" if wide else "")}
+        if wide:
+            row["width"] = d
         ins, lv = _leaves(case.args(torch.float32)[0], case.diff)
         o32 = _outputs(kernel(*ins, **kwa))
         c32 = [c.to(o.dtype) for c, o in zip(cots, o32)]
@@ -1446,8 +1681,8 @@ def phase_train_kernels(dev):
                                            cots)
             row.update(today_fwd_bwd_ms=today["today_fwd_bwd_ms"],
                        fwd_bwd_ms=time_ms(fwd_bwd))
-        emit({"phase": "kernel_train", "ok": True,
-              **{k: v for k, v in row.items() if k != "_key"}})
+        emit({"phase": "kernel_train_width" if wide else "kernel_train",
+              "ok": True, **{k: v for k, v in row.items() if k != "_key"}})
         rows.append(row)
         del graphs, grads
     return rows
@@ -1470,11 +1705,16 @@ def counters():
            "encoder_block_bwd": encoder.BLOCK_BWD_KERNEL,
            "mlp_bridge": mlp_bridge.KERNEL,
            "mlp_bridge_bwd": mlp_bridge.BWD_KERNEL}
-    for d in OTHER_WIDTHS:         # the forward entries' other widths
+    for d in OTHER_WIDTHS:         # the entries' other widths
         out.update({f"qa_ctx_attention@{d}": qa_ctx_attention.FWD_BY_WIDTH[d],
                     f"tri_bridge@{d}": tri_bridge.FWD_BY_WIDTH[d],
                     f"encoder@{d}": encoder.FWD_BY_WIDTH[d],
-                    f"encoder_block@{d}": encoder.BLOCK_BY_WIDTH[d]})
+                    f"encoder_block@{d}": encoder.BLOCK_BY_WIDTH[d],
+                    f"qa_ctx_attention_bwd@{d}":
+                        qa_ctx_attention.BWD_BY_WIDTH[d],
+                    f"tri_bridge_bwd@{d}": tri_bridge.BWD_BY_WIDTH[d],
+                    f"encoder_bwd@{d}": encoder.BWD_BY_WIDTH[d],
+                    f"encoder_block_bwd@{d}": encoder.BLOCK_BWD_BY_WIDTH[d]})
     return out
 
 
@@ -1698,12 +1938,14 @@ def train_config(workdir, **kw):
                   seed=SEED, results_dir=workdir, **kw)
 
 
-def phase_train_vs_cpu(dev, workdir):
-    """One train step on the card against the same step on the CPU."""
+def phase_train_vs_cpu(dev, workdir, hsz=D):
+    """One train step on the card against the same step on the CPU, at
+    width ``hsz``; returns the line it emits."""
     from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
     from tvqaplus_tpu_torch.train.loop import Trainer
     n = CPU_STEP_BATCH
-    cfg = train_config(workdir, bsz=n, dropout=0.0, compute_dtype="float32")
+    cfg = train_config(workdir, bsz=n, dropout=0.0, compute_dtype="float32",
+                       hsz=hsz)
     cfg.finalize("cpu")
     model = STAGE(ModelConfig.from_config(cfg)).reset_parameters(
         torch.Generator().manual_seed(SEED))
@@ -1734,11 +1976,14 @@ def phase_train_vs_cpu(dev, workdir):
     if failed:
         raise AssertionError(f"train step on the card vs the CPU: {failed} "
                              f"(bars {STEP_TOL}; worst grad {worst})")
-    emit({"phase": "train_vs_cpu", "ok": True, "batch": n, "frames": LI,
-          "loss_cuda": float(mg["loss"]), "loss_cpu": float(mc["loss"]),
-          "grad_norm_cuda": float(mg["grad_norm"]),
-          "grad_norm_cpu": float(mc["grad_norm"]), "rel_err": checks,
-          "worst_grad": worst, "tol": STEP_TOL})
+    row = {"phase": "train_vs_cpu", "ok": True, "hsz": hsz, "batch": n,
+           "frames": LI, "loss_cuda": float(mg["loss"]),
+           "loss_cpu": float(mc["loss"]),
+           "grad_norm_cuda": float(mg["grad_norm"]),
+           "grad_norm_cpu": float(mc["grad_norm"]), "rel_err": checks,
+           "worst_grad": worst, "tol": STEP_TOL}
+    emit(row)
+    return row
 
 
 def stacked(batch, k):
@@ -2985,6 +3230,9 @@ def phase_pipeline(dev, workdir):
 
 
 def main():
+    # a fault in native code (a driver, the profiler, a collective) prints
+    # every thread's Python stack before the process dies
+    faulthandler.enable(all_threads=True)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -3002,6 +3250,7 @@ def main():
     rows = phase_kernels(dev)
     width_rows = phase_width_kernels(dev)
     train_rows = phase_train_kernels(dev)
+    width_train_rows = phase_width_train_kernels(dev)
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as workdir:
         phase_evaluator(workdir)
@@ -3025,6 +3274,7 @@ def main():
         # module's bf16 trace without its forward kernel), before noun_void
         # and pipeline
         wide_launches = phase_wide_serving(dev, workdir, cfg, sd)
+        wide_train_launches = phase_wide_training(workdir)
         phase_noun_void(dev, workdir, cfg)
         phase_pipeline(dev, workdir)
     # each row's launches: the count of the main path that runs its kernel
@@ -3042,7 +3292,9 @@ def main():
         row["launches"] = train_launches[row.pop("_key")]
     for row in width_rows:       # the runs of phase wide_serving
         row["launches"] = wide_launches[row.pop("_key")]
-    emit({"kernels": rows + width_rows + train_rows})
+    for row in width_train_rows:     # the CLI runs of phase wide_training
+        row["launches"] = wide_train_launches[row.pop("_key")]
+    emit({"kernels": rows + width_rows + train_rows + width_train_rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -3051,7 +3303,12 @@ def main():
 
 if __name__ == "__main__":
     try:
-        code = main()
+        if sys.argv[1:2] == ["--wide-training"]:     # phase_wide_training's
+            faulthandler.enable(all_threads=True)
+            sys.path.insert(0, HERE)
+            code = wide_training_process(sys.argv[2])
+        else:
+            code = main()
     except Exception:  # noqa: BLE001 - report and fail the run
         traceback.print_exc()
         code = 1

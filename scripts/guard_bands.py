@@ -1,0 +1,142 @@
+"""Out-of-bounds writes of the kernels, looked for with guard bands: every
+CUDA tensor that a kernel wrapper allocates (outputs, gradients, scratch
+slots) is placed between two 1 MiB bands filled with the byte 0xA5, and
+after each forward + backward the bands must still hold that byte.  The
+same call is made once without bands first: the banded call must give the
+same bits (a wrapper that relied on what ``torch.empty`` returns would
+differ), and the inputs must be unchanged.  Needs one NVIDIA GPU.
+
+    python3 scripts/guard_bands.py [--widths 64,128,256]
+                                   [--dtypes float32,bfloat16] [--only NAME]
+
+It runs ``chip_smoke.py``'s ``train_kernel_cases`` at each width (the
+headline shapes, dropout 0.1), prints one JSON line a case and dtype, and
+exits 1 if any band, output or input is wrong.  A kernel's addressing
+depends only on its shapes and pointers, so a call captured in a CUDA graph
+writes where the eager call writes.
+"""
+import argparse
+import json
+import os
+import sys
+
+import torch
+
+BAND = 1 << 20
+CANARY = 0xA5
+
+
+class Bands:
+    """While active, ``torch.empty`` and ``torch.empty_like`` place each
+    CUDA tensor between two canary bands."""
+
+    def __init__(self):
+        self.bufs, self.active = [], False
+        self._empty, self._like = torch.empty, torch.empty_like
+
+    def _banded(self, shape, dtype, device):
+        es = self._empty((), dtype=dtype).element_size()
+        n = 1
+        for s in shape:
+            n *= s
+        base = self._empty(2 * BAND // es + n, dtype=dtype, device=device)
+        base.view(torch.uint8).fill_(CANARY)
+        self.bufs.append((base, n * es))
+        return base[BAND // es:BAND // es + n].view(shape)
+
+    def empty(self, *args, **kw):
+        t = self._empty(*args, **kw)
+        if not self.active or t.device.type != "cuda":
+            return t
+        return self._banded(tuple(t.shape), t.dtype, t.device)
+
+    def empty_like(self, x, **kw):
+        t = self._like(x, **kw)
+        if not self.active or t.device.type != "cuda":
+            return t
+        return self._banded(tuple(t.shape), t.dtype, t.device)
+
+    def __enter__(self):
+        self.bufs, self.active = [], True
+        torch.empty, torch.empty_like = self.empty, self.empty_like
+        return self
+
+    def __exit__(self, *exc):
+        self.active = False
+        torch.empty, torch.empty_like = self._empty, self._like
+
+    def broken(self):
+        """(buffers checked, buffers whose bands changed)."""
+        bad = 0
+        for base, nbytes in self.bufs:
+            b = base.view(torch.uint8)
+            if not (bool((b[:BAND] == CANARY).all())
+                    and bool((b[BAND + nbytes:] == CANARY).all())):
+                bad += 1
+        return len(self.bufs), bad
+
+
+def run(cs, case, dt, gen_seed):
+    """Forward + backward of the kernel wrapper: the inputs it was given
+    (as they are after the call), their copies from before it, and the
+    outputs and gradients."""
+    a, base_kw = case.args(dt)
+    kwa = {**base_kw, **case.kw}
+    ins, leaves = cs._leaves(a, case.diff)
+    before = [t.clone() for t in flat(ins)]
+    outs = cs._outputs(case.kernel(*ins, **kwa))
+    gen = torch.Generator(device=outs[0].device).manual_seed(gen_seed)
+    cots = cs._cotangents(outs, case.flip(a), gen, case.valid)
+    torch.autograd.backward(outs, cots)
+    torch.cuda.synchronize()
+    return (list(flat(ins)), before,
+            [o.detach() for o in outs] + [t.grad for t in leaves])
+
+
+def flat(a):
+    for t in a:
+        if isinstance(t, dict):
+            yield from t.values()
+        elif isinstance(t, torch.Tensor):
+            yield t
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("--widths", default="64,128,256")
+    p.add_argument("--dtypes", default="float32,bfloat16")
+    p.add_argument("--only", default="")
+    opt = p.parse_args()
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+    from tvqaplus_tpu_torch.ops import _build
+    _build.build_all()
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    failed = 0
+    for d in (int(w) for w in opt.widths.split(",")):
+        for case in cs.train_kernel_cases(dev, d):
+            if opt.only and opt.only not in case.name:
+                continue
+            for dname in opt.dtypes.split(","):
+                dt = getattr(torch, dname)
+                _, _, want = run(cs, case, dt, cs.SEED + 3)
+                with Bands() as bands:
+                    ins, before, got = run(cs, case, dt, cs.SEED + 3)
+                n_bufs, bad = bands.broken()
+                same_in = all(torch.equal(x, y) for x, y in zip(ins, before))
+                same_out = all(torch.equal(x, y) for x, y in zip(got, want))
+                ok = bad == 0 and same_in and same_out
+                failed += not ok
+                print(json.dumps({"case": case.name, "width": d,
+                                  "dtype": dname, "banded_buffers": n_bufs,
+                                  "bands_broken": bad,
+                                  "same_bits_as_unbanded": same_out,
+                                  "inputs_unchanged": same_in, "ok": ok}),
+                      flush=True)
+    print(json.dumps({"guard_bands_ok": failed == 0, "failed": failed}))
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -329,7 +329,8 @@ def encoder_cotangent(x, pe, p, k, mask, dt, gen, dropout):
     else:
         keep = ~checks.encoder_flip_groups(x, pe, p, k, mask, dropout,
                                            SEED)[..., None]
-    return randn(gen, x.shape[0], x.shape[1], D).to(x.device) * keep
+    return randn(gen, x.shape[0], x.shape[1], x.shape[-1]).to(x.device) \
+        * keep
 
 
 @pytest.mark.cuda
@@ -507,7 +508,9 @@ def test_encoder_block_kernel_matches_plain_at_other_widths(
 @pytest.mark.cuda
 def test_kernels_refuse_other_widths_and_train_only_at_128(cuda):
     """D = 96 is refused by every forward wrapper, naming the widths; the
-    backward kernels refuse D = 256 (ROADMAP A10b)."""
+    backward kernels take D = 256 (csrc/encoder_bwd_wide.cu, its own
+    launch count) as they take 128.  (The name is from when the backward
+    kernels were built at D = 128 only.)"""
     gen = torch.Generator().manual_seed(9)
     args = attn_args(cuda, torch.bfloat16, d=96)
     with pytest.raises(ValueError, match="64, 128 and 256"):
@@ -526,8 +529,125 @@ def test_kernels_refuse_other_widths_and_train_only_at_128(cuda):
     x, pe, p, mask = encoder_args(cuda, torch.bfloat16, gen, d=256)
     x.requires_grad_(True)
     out = encoder.encoder_reduce(x, pe, p, 5, mask)
-    with pytest.raises(ValueError, match="A10b"):
-        out.float().sum().backward()
+    bwd0 = encoder.BWD_BY_WIDTH[256].launches
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert encoder.BWD_BY_WIDTH[256].launches == bwd0 + 1
+    assert torch.isfinite(x.grad.float()).all()
+
+
+# the backwards at the other widths: every mode the D = 128 rows of
+# chip_smoke.py cover, at shapes with ragged tiles
+WIDE_BWD_CASES = [("attention", "target", 25), ("attention", "none", 50),
+                  ("attention", "full", 64), ("tri", None, 39),
+                  ("encoder", None, 40), ("encoder", None, 9),
+                  ("block", True, 50), ("block", False, 50),
+                  ("block", True, 56)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("family,mode,n", WIDE_BWD_CASES)
+def test_backward_kernels_match_plain_at_other_widths(cuda, d, dtype, family,
+                                                      mode, n):
+    """csrc/*_bwd_wide.cu at D = 64 and 256, dropout 0.1: the kernels'
+    gradients against autograd through the plain versions (the same
+    Philox mask), at the D = 128 tests' bars, and twice for the same bits;
+    each launch counted on its width's counter."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(10)
+    drop = dict(dropout_rate=P_DROP, seed=SEED)
+    if family == "attention":
+        args = attn_args(cuda, dt, a=5, li=3, lqa=8, lr=n, d=d)
+        targets = torch.tensor([2, 0], device=cuda)
+        kw = dict(raw_mode=mode, targets=targets, **drop)
+        flip = checks.attention_flip_elements(*args, **drop)
+        cot = [randn(gen, 2, 5, 3, 8, d).to(cuda) * ~flip]
+        if mode == "target":
+            c_t = args[4][torch.arange(2, device=cuda), targets]
+            cot.append(randn(gen, 2, 3, 8, n).to(cuda)
+                       * c_t[:, None, :, None] * args[5][:, :, None, :])
+        elif mode == "full":
+            cot.append(randn(gen, 2, 5, 3, 8, n).to(cuda)
+                       * args[4][:, :, None, :, None]
+                       * args[5][:, None, :, None, :])
+        counter, tol = (qa_ctx_attention.BWD_BY_WIDTH[d],
+                        qa_ctx_attention.GRAD_TOL[dt])
+
+        def kernel(*a_):
+            return qa_ctx_attention.qa_ctx_attention(*a_, **kw)
+
+        def plain(*a_):
+            return qa_ctx_attention.qa_ctx_attention_plain(*a_, **kw)
+        fixed = (4, 5)
+    elif family == "tri":
+        rows = (1, 1, 1, n)
+        params = [1 + randn(gen, 3 * d, scale=0.1),
+                  randn(gen, 3 * d, scale=0.1),
+                  randn(gen, 3 * d, d, scale=(3 * d) ** -0.5),
+                  randn(gen, d, scale=0.1), 1 + randn(gen, d, scale=0.1),
+                  randn(gen, d, scale=0.1)]
+        args = [randn(gen, *rows, d).to(cuda, dt),
+                randn(gen, *rows, d).to(cuda, dt)] + [
+            t.to(cuda) for t in params]
+        flip = checks.tri_bridge_flip_rows(*args[:6], P_DROP, SEED)
+        cot = [randn(gen, *rows, d).to(cuda) * (~flip)[..., None]]
+        counter, tol = tri_bridge.BWD_BY_WIDTH[d], tri_bridge.GRAD_TOL[dt]
+
+        def kernel(*a_):
+            return tri_bridge.tri_bridge(*a_, P_DROP, SEED)
+
+        def plain(*a_):
+            return tri_bridge.tri_bridge_plain(*a_, P_DROP, SEED)
+        fixed = ()
+    else:
+        k = {40: 5, 9: 3, 50: 7, 56: 9}[n]
+        # float32 counts apart from the bf16 (tensor-core) entry
+        f32 = dt == torch.float32
+        x, pe, p, mask = encoder_args(cuda, dt, gen, g=6, l=n, k=k, d=d)
+        keys = encoder.PARAM_KEYS
+        if family == "encoder":
+            cot = [encoder_cotangent(x, pe, p, k, mask, dt, gen, P_DROP)]
+            counter, fn_k, fn_p, m = (
+                (encoder.F32_BWD_BY_WIDTH if f32 else encoder.BWD_BY_WIDTH)[d],
+                encoder.encoder_reduce, encoder.encoder_reduce_plain, mask)
+        else:
+            zm = stream_mask(x.shape[1], n).to(cuda) if mode else None
+            valid = torch.ones(x.shape[:3], device=cuda) if zm is None \
+                else zm.expand(x.shape[:3])
+            flip = checks.encoder_block_flip_groups(
+                x, pe, p, k, zm, P_DROP, SEED) if dt == torch.float32 \
+                else torch.zeros(x.shape[:2], dtype=torch.bool, device=cuda)
+            cot = [randn(gen, *x.shape).to(cuda)
+                   * (valid * ~flip[..., None])[..., None]]
+            counter, fn_k, fn_p, m = (
+                (encoder.F32_BLOCK_BWD_BY_WIDTH if f32
+                 else encoder.BLOCK_BWD_BY_WIDTH)[d],
+                encoder.encoder_block, encoder.encoder_block_plain, zm)
+        tol = encoder.GRAD_TOL[dt]
+        args = [x] + [p[key] for key in keys]
+
+        def kernel(xa, *ps):
+            return fn_k(xa, pe, dict(zip(keys, ps)), k, m, P_DROP, SEED)
+
+        def plain(xa, *ps):
+            return fn_p(xa, pe, dict(zip(keys, ps)), k, m, P_DROP, SEED)
+        fixed = ()
+
+    def run(fn):
+        ins = leaves(args)
+        for i in fixed:
+            ins[i].requires_grad_(False)
+        return grads_of(fn, ins, cot)[1]
+    n0 = counter.launches
+    g_k, g_again, g_p = run(kernel), run(kernel), run(plain)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 2
+    assert g_k[0].dtype == dt
+    for i, (gk, ga, gp) in enumerate(zip(g_k, g_again, g_p)):
+        assert torch.equal(gk, ga), f"grad {i} differs between two runs"
+        checks.hold_grad(f"D {d} {family} grad {i}", gk, gp, tol)
 
 
 # ------------------------------------------- encoder, full output / zero mask

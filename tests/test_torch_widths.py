@@ -12,8 +12,9 @@ kernels run as they do at 128 (none of their predicates tests the width).
   InferenceRunner's from the same weights.
 * The Python side of the kernels' launch at these widths: which
   instantiation each width takes, the shared memory of each against the
-  H100's limit, D = 96 refused, training at hsz 256 on a (faked) cuda
-  device refused at construction.  The kernels themselves run on a card:
+  H100's limit, D = 96 refused (forward and backward), training at hsz 256
+  on a (faked) cuda device accepted and at hsz 96 refused at construction.
+  The kernels themselves run on a card:
   tests/test_torch_cuda.py (``other_widths``) and chip_smoke.py.
 """
 import json
@@ -214,43 +215,71 @@ def test_width_96_is_refused_with_the_widths_and_roadmap_item():
 
 @pytest.mark.parametrize("d", WIDTHS)
 def test_forward_checks_pass_and_backward_checks_refuse_at_width(d):
-    """The forward wrappers take D = 64 and 256; the backward kernels take
-    D = 128 only and say so (ROADMAP A10b)."""
-    xs, pes, ps, masks = encoder_inputs(d=d)
-    packed = encoder.pack_params({k: t(v) for k, v in ps.items()})
-    encoder._check(t(xs), t(pes), packed, 5, reduce_mask=t(masks))
-    with pytest.raises(ValueError, match="A10b"):
-        encoder._check(t(xs), t(pes), packed, 5, reduce_mask=t(masks),
-                       backward=True)
-    s, v, *params = (t(a) for a in bridge_inputs(d=d))
-    tri_bridge._check(s, v, params)
-    with pytest.raises(ValueError, match="A10b"):
-        tri_bridge._check(s, v, params, backward=True)
-    args = [t(a) for a in attn_inputs(d=d)]
-    qa_ctx_attention._check(*args, "full", None)
-    with pytest.raises(ValueError, match="A10b"):
-        qa_ctx_attention._check(*args, "full", None, backward=True)
+    """The forward and the backward wrappers take D = 64 and 256 (the
+    backward kernels of csrc/*_bwd_wide.cu); the backward checks refuse a
+    width no kernel is built for (D = 96 here) and name ROADMAP A10d."""
+    for width, ok in ((d, True), (96, False)):
+        xs, pes, ps, masks = encoder_inputs(d=width)
+        packed = encoder.pack_params({k: t(v) for k, v in ps.items()})
+        s, v, *params = (t(a) for a in bridge_inputs(d=width))
+        args = [t(a) for a in attn_inputs(d=width)]
+        calls = (lambda: encoder._check(t(xs), t(pes), packed, 5,
+                                        reduce_mask=t(masks), backward=True),
+                 lambda: tri_bridge._check(s, v, params, backward=True),
+                 lambda: qa_ctx_attention._check(*args, "full", None,
+                                                 backward=True))
+        if ok:
+            encoder._check(t(xs), t(pes), packed, 5, reduce_mask=t(masks))
+            tri_bridge._check(s, v, params)
+            qa_ctx_attention._check(*args, "full", None)
+            for call in calls:
+                call()
+            continue
+        for call in calls:
+            with pytest.raises(ValueError, match="backward kernels.*A10d"):
+                call()
 
 
-def test_training_at_hsz_256_on_cuda_is_refused_at_construction(monkeypatch):
-    """The Trainer and the train CLI on a (faked) cuda device at hsz 256
-    raise before any step, naming the backward kernels and A10b; on the CPU
-    the same config trains."""
+def test_training_at_hsz_256_on_cuda_is_refused_at_construction(
+        monkeypatch, tmp_path):
+    """The Trainer and the train CLI on a (faked) cuda device take hsz 256
+    (and 64): the backward kernels are built for it.  hsz 96 is refused
+    before any step and before a run directory is written, naming the
+    backward kernels and A10d; on the CPU every width trains.  (The name is
+    from when the card trained at hsz 128 only.)"""
     cuda = torch.device("cuda")
-    with pytest.raises(ValueError, match="A10b"):
-        widths.check_trainable(256, cuda)
-    widths.check_trainable(128, cuda)
-    widths.check_trainable(256, torch.device("cpu"))
-    widths.check_trainable(64, "cpu")
-    _, cfg = configs(hsz=256)
+    for hsz in (64, 128, 256):
+        widths.check_trainable(hsz, cuda)
+    with pytest.raises(ValueError, match="A10d"):
+        widths.check_trainable(96, cuda)
+    widths.check_trainable(96, torch.device("cpu"))
+    widths.check_trainable(256, "cpu")
+    class PastTheCheck(Exception):
+        """Raised by the first step after the width check (this host has
+        no card to build the model on)."""
+
+    def past(*a, **k):
+        raise PastTheCheck
+
     monkeypatch.setattr(loop, "resolve_device", lambda device=None: cuda)
-    with pytest.raises(ValueError, match="backward kernels.*A10b"):
-        loop.Trainer(cfg, "cuda")
+    monkeypatch.setattr(loop, "STAGE", past)
+    for hsz in (96, 256, 64):
+        _, cfg = configs(hsz=hsz)
+        with pytest.raises(PastTheCheck if hsz != 96 else ValueError,
+                           match=None if hsz != 96
+                           else "backward kernels.*A10d"):
+            loop.Trainer(cfg, "cuda")
     monkeypatch.setattr(port_main, "resolve_device",
                         lambda device=None: cuda)
-    with pytest.raises(ValueError, match="A10b"):
-        port_main.main(["--synthetic_data", "--debug", "--hsz", "256",
-                        "--device", "cpu"])
+    monkeypatch.setattr(port_main.dp, "make_mesh", past)
+    base = tmp_path / "runs"
+    for hsz in (96, 256):
+        with pytest.raises(PastTheCheck if hsz != 96 else ValueError,
+                           match=None if hsz != 96 else "A10d"):
+            port_main.main(["--synthetic_data", "--debug", "--hsz", str(hsz),
+                            "--device", "cpu", "--results_dir_base",
+                            str(base)])
+        assert not base.exists()
 
 
 def test_cpu_trainer_steps_at_hsz_64(tmp_path):

@@ -1,11 +1,12 @@
 // Shared device helpers for the port's kernels.
 //
 // The forward kernels take the hidden width D as a template parameter and
-// are built for D = 64, 128 and 256; the backward kernels are built for
-// BWD_D = 128 alone (ROADMAP A10b), and every helper shared with them
-// defaults its D to that.  In the float32 CUDA-core kernels a warp of 32
-// lanes covers one D-wide row at D / 32 values a lane (channels lane + 32 q,
-// q < D / 32), and the row-tile GEMM below gives each lane D / 32 adjacent
+// are built for D = 64, 128 and 256.  The backward kernels of *_bwd.cu are
+// D = 128's (BWD_D), and every helper shared with them defaults its D to
+// that; those of *_bwd_wide.cu take D = 64 and 256 as a template parameter
+// (bwd_wide.cuh).  In the float32 CUDA-core kernels a warp of 32 lanes
+// covers one D-wide row at D / 32 values a lane (channels lane + 32 q, q <
+// D / 32), and the row-tile GEMM below gives each lane D / 32 adjacent
 // output columns (4 at D = 128).  Activations arrive as float or bfloat16
 // (template T); all arithmetic and every intermediate is float32.  The
 // row-tile GEMMs here serve the float32 CUDA-core kernels; the bf16
@@ -18,9 +19,10 @@
 
 namespace tvqa {
 
-constexpr int BWD_D = 128;             // the backward kernels' width
+constexpr int BWD_D = 128;             // the width of *_bwd.cu
 // The name D at namespace scope, for the sources built for BWD_D alone (the
-// backward kernels and the MLP bridge, whose output-column tile it is):
+// D = 128 backward kernels and the MLP bridge, whose output-column tile it
+// is):
 // their headers (grad_reduce.cuh, mlp_bridge.cuh) bring it into scope, so a
 // forward kernel, which never includes them, cannot use it by mistake.
 namespace bwd {

@@ -69,12 +69,14 @@ __device__ __forceinline__ void ln_bwd_rows(const float* src,
                                             const float* residual,
                                             float* out, int L,
                                             const float* __restrict__ scale,
-                                            float (&gs)[4], float (&gb)[4],
-                                            int warp, int lane) {
+                                            float (&gs)[D / 32],
+                                            float (&gb)[D / 32], int warp,
+                                            int lane) {
+  constexpr int VPL = D / 32;
   for (int r = warp; r < L; r += NWARPS) {
-    float x[4], s = 0.f, ss = 0.f;
+    float x[VPL], s = 0.f, ss = 0.f;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < VPL; ++q) {
       x[q] = src[r * D + lane + 32 * q];
       s += x[q];
       ss = fmaf(x[q], x[q], ss);
@@ -84,9 +86,9 @@ __device__ __forceinline__ void ln_bwd_rows(const float* src,
     const float mean = s * (1.f / D);
     const float istd =
         rsqrtf(fmaxf(ss * (1.f / D) - mean * mean, 0.f) + LN_EPS);
-    float xh[4], gxh[4], s1 = 0.f, s2 = 0.f;
+    float xh[VPL], gxh[VPL], s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < VPL; ++q) {
       const int d = lane + 32 * q;
       const float g = gup[r * D + d];
       xh[q] = (x[q] - mean) * istd;
@@ -99,7 +101,7 @@ __device__ __forceinline__ void ln_bwd_rows(const float* src,
     const float m1 = warp_sum(s1) * (1.f / D);
     const float m2 = warp_sum(s2) * (1.f / D);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < VPL; ++q) {
       const int d = lane + 32 * q;
       const float gx = istd * (gxh[q] - m1 - xh[q] * m2);
       out[r * D + d] = residual != nullptr ? residual[r * D + d] + gx : gx;

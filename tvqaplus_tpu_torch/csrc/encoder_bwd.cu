@@ -1,4 +1,5 @@
-// Fused QANet encoder block, backward, in the forward's two modes: with the
+// Fused QANet encoder block, backward, at the hidden width D = 128 (D = 64
+// and 256: encoder_bwd_wide.cu), in the forward's two modes: with the
 // masked word-max folded in (reduce_mask), and with the full block output
 // and an optional zero mask (the merged input encoder).
 //
@@ -386,7 +387,7 @@ int launch_rpt(const void* x, const float* pe, const float* packed,
   const long long rows = static_cast<long long>(N) * L;
   for (int i = 0; i < 2; ++i)
     if ((err = wgrad(bufs.c[i], bufs.gy[i], wg_part, gpw + i * D * D, rows,
-                     D, wg_chunks, stream)) != cudaSuccess)
+                     D, D, wg_chunks, stream)) != cudaSuccess)
       return static_cast<int>(err);
   return static_cast<int>(sum_slots<float>(bufs.vec_part, gvec, 1, blocks,
                                            vec_floats(k), stream));
@@ -448,22 +449,6 @@ struct TcBufs {
                      // ACC_FLOATS) running sums, then (gridDim.x,
                      // H_FLOATS) h stashes
 };
-
-// The sum of t[0 .. 8) over the eight lanes that hold the same columns'
-// other rows; entry j of lane l is column pair 8 (4 qb + j / 2) + 2 (l % 4)
-// + j % 2 of a block qb, and the lane keeps j = b2 + 2 b3 + 4 b4 (bN = bit
-// N of the lane): column fold8_col(qb, lane).
-__device__ __forceinline__ float fold8(float (&t)[8], int lane) {
-  fold<8>(t, 16, lane);
-  fold<4>(t, 8, lane);
-  fold<2>(t, 4, lane);
-  return t[0];
-}
-
-__device__ __forceinline__ int fold8_col(int qb, int lane) {
-  return 8 * (4 * qb + ((lane >> 3) & 1) + 2 * ((lane >> 4) & 1))
-         + 2 * (lane & 3) + ((lane >> 2) & 1);
-}
 
 // LayerNorm backward of the thread's two rows in the accumulator layout (64
 // values, pair pr = values 2 pr, 2 pr + 1 at row half pr % 2, columns
@@ -1000,7 +985,8 @@ int launch_tc(const void* x, const float* pe, const float* packed,
   const long long rows = static_cast<long long>(N) * L;
   for (int i = 0; i < 2; ++i)
     if ((err = wgrad_tc(bufs.c[i], bufs.gy[i], wg_part,
-                        gpw + i * (D + 1) * D, rows, D, wg_chunks, stream))
+                        gpw + i * (D + 1) * D, rows, D, D, wg_chunks,
+                        stream))
         != cudaSuccess)
       return static_cast<int>(err);
   return static_cast<int>(sum_slots<float>(bufs.vec_part, gvec, 1, blocks,

@@ -1,8 +1,10 @@
 // Device code of the fused encoder block's tensor-core kernels, at hidden
 // width D (the backward's BWD_D unless given).  The
 // parameter offsets and the R1 layout serve the forward (encoder_fwd.cu,
-// encoder_fwd_tc_kernel) and the backward (encoder_bwd.cu,
-// encoder_bwd_tc_kernel); the row passes below are the forward's.  The
+// encoder_fwd_tc_kernel) and the backwards (encoder_bwd.cu,
+// encoder_bwd_tc_kernel; encoder_bwd_tc_wide.cu at D = 64 and 256, with the
+// column folds of the parameter sums, fold8); the row passes below are the
+// forward's.  The
 // backward's recompute computes the same with lambdas of its own: moved
 // onto these functions it spilled more and ran ~1% slower (PERF.md PR 6),
 // and the card tests hold both kernels against one plain version.
@@ -188,6 +190,22 @@ __device__ __forceinline__ float2 enc_conv_pair(
     }
   }
   return a;
+}
+
+// The sum of t[0 .. 8) over the eight lanes that hold the same columns'
+// other rows; entry j of lane l is column pair 8 (4 qb + j / 2) + 2 (l % 4)
+// + j % 2 of a block qb, and the lane keeps j = b2 + 2 b3 + 4 b4 (bN = bit
+// N of the lane): column fold8_col(qb, lane).
+__device__ __forceinline__ float fold8(float (&t)[8], int lane) {
+  fold<8>(t, 16, lane);
+  fold<4>(t, 8, lane);
+  fold<2>(t, 4, lane);
+  return t[0];
+}
+
+__device__ __forceinline__ int fold8_col(int qb, int lane) {
+  return 8 * (4 * qb + ((lane >> 3) & 1) + 2 * ((lane >> 4) & 1))
+         + 2 * (lane & 3) + ((lane >> 2) & 1);
 }
 
 }  // namespace tvqa

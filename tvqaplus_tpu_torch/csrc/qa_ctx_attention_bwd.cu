@@ -1,4 +1,5 @@
-// Fused QA-context attention, backward.
+// Fused QA-context attention, backward, at the hidden width D = 128 (D =
+// 64 and 256: qa_ctx_attention_bwd_wide.cu).
 //
 // Replaces the TPU kernel tvqaplus_tpu/ops/pallas_attention.py
 // (_pallas_backward / _bwd_kernel).  Per (b, frame i) it recomputes the
@@ -410,7 +411,7 @@ int launch(const void* cn, const void* ce, const void* qn, const void* qe,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int M = A * Lqa;
   const long long rows = static_cast<long long>(B) * Li * M;
-  if ((err = wgrad(g.yd, g.gout, wg_part, gw, rows, 3 * D, wg_chunks,
+  if ((err = wgrad(g.yd, g.gout, wg_part, gw, rows, 3 * D, D, wg_chunks,
                    stream)) != cudaSuccess)
     return static_cast<int>(err);
   if ((err = sum_slots<float>(g.vec_part, gvec, 1, B * Li, NV, stream))
@@ -987,7 +988,7 @@ int launch_tc(const void* cn, const void* ce, const void* qn, const void* qe,
       Li, Lr, Lr <= 32 ? 32 : 64);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   // [gw; gb] (the wrapper lays gb behind gw)
-  if ((err = wgrad_tc(g.yd, g.gout, wg_part, gw, rows, 3 * D, wg_chunks,
+  if ((err = wgrad_tc(g.yd, g.gout, wg_part, gw, rows, 3 * D, D, wg_chunks,
                       stream)) != cudaSuccess)
     return static_cast<int>(err);
   if ((err = sum_slots<float>(g.vec_part, gvec, 1, B * Li, NVT, stream))

@@ -1,0 +1,1068 @@
+// Fused QA-context attention, backward, at the hidden widths D = 64 and 256
+// (qa_ctx_attention_bwd.cu is the same function at D = 128).
+//
+// Replaces the TPU kernel tvqaplus_tpu/ops/pallas_attention.py
+// (_pallas_backward / _bwd_kernel :479), which reads D from its operands
+// (:488) and so runs at any width.  Per (b, frame i), as
+// qa_ctx_attention_bwd.cu's header sets out: recompute the scores, the
+// softmax, att, the LayerNorm statistics and the replayed Philox dropout
+// mask (keyed by the flat index of the (B*A*Li*Lqa, 3D) LN output, as the
+// forward drew it); the ReLU sign from the saved `mixed`.  Then gW, gb,
+// g_yd = g_out W^T, the LN backward over the virtual 3D concat, gce, g_att,
+// the softmax backward (plus the raw cotangent where the forward wrote raw
+// scores: every answer for "full", the target answer for "target"), gcn;
+// gqn = g_s^T cn and gqe = p^T g_att in a second kernel.
+//
+// What bounds it on the H100: at the headline train shapes (vid site,
+// 160,000 rows) it reads ~55 MB at D = 64 and ~220 MB at D = 256 and does
+// ~13 and ~170 GFLOP (the score and att recompute, g_yd, gW, g_p, gqe, gcn,
+// gqn), so the operations bind at D = 256 (~0.17 ms) and the bytes at D =
+// 64 (~16 us).
+//
+// Two designs.
+// * bfloat16 at D = 256 (the hsz-256 main paths): qa_ctx_bwd_tc_wide_kernel,
+//   the D = 128 tensor-core design at this width (W streamed, a
+//   warpgroup's 128 columns in two quarters of 64; the note at the kernel),
+//   then the gqn / gqe kernel and the weight gradient over the bf16 rows it
+//   writes.
+// * float32 at D = 64 and 256, and bfloat16 at D = 64: CUDA cores for all
+//   but the bf16 weight gradient:
+//   - qa_ctx_bwd_wide_kernel: one block per (b, i), tiles of RT = 8 RPT
+//     answer-word rows, a warp owning RPT rows; the frame's qn and qe in
+//     shared memory for the block's life (row stride D + 1: lanes that
+//     index regions hit distinct banks), the scores and softmax on the
+//     lanes j = lane, lane + 32 (qa_ctx_attention.cuh, the forward's own
+//     recompute), g_yd = g_out W^T staged from L2 32 rows at a time.  At D
+//     = 256 a tile is 16 rows, or 8 when the frame's Lr leaves too little
+//     shared memory for 16 (Lr > 50).  It writes g_s, p and g_att rows
+//     (float32) for the second kernel.  The bf16 instantiation rounds where
+//     the TPU kernel's bf16 compute mode rounds (pallas_attention.py:107-162,
+//     :323-379): cn, qn, qe, g_out (bf16 already), p before att and gqe, W
+//     (the wrapper hands W^T rounded), yd, g_att and g_s before their
+//     products.
+// Both then run qa_ctx_gq_wide_kernel (gqn and gqe of a (b, i) from those
+// rows, staged through shared memory 16 rows at a time; a thread owns one
+// column and up to 32 regions) and the weight gradient over the yd and
+// g_out rows (wgrad_tc.cuh and grad_reduce.cuh, shared with D = 128): on
+// the tensor cores from bf16 rows (its bias row is gb), on CUDA cores from
+// float32 ones.  Sums across blocks go through scratch slots and a
+// fixed-order second pass: the same bits from run to run, no atomics.
+#include "bwd_wide.cuh"
+#include "qa_ctx_attention.cuh"
+
+namespace {
+
+using namespace tvqa;
+
+constexpr int MAX_LR = 64;
+
+template <int D, int RPT>
+struct Layout {
+  static constexpr int RT = RPT * NWARPS;
+  int qn, qe, qm, p, gt, gs, cn, ce, a, ga, go, st, w, total;
+  __host__ __device__ explicit Layout(int lr) {
+    const int lrp = round4(lr);
+    qn = 0;
+    qe = qn + lr * (D + 1);
+    qm = round4(qe + lr * (D + 1));
+    p = qm + lrp;
+    gt = p + RT * lrp;
+    gs = gt + RT * lrp;
+    cn = gs + RT * lrp;
+    ce = cn + RT * D;
+    a = ce + RT * D;
+    ga = a + RT * D;
+    go = ga + RT * D;
+    st = go + RT * D;
+    w = st + 2 * RT;
+    total = w + KC * D;
+  }
+};
+
+// The outputs and scratch of a call; R is the type of the g_s, p and g_att
+// rows the main kernel hands to the gq kernel (float32 from the CUDA-core
+// kernel, ld = round4(Lr) wide; bf16 from the tensor-core one, ld = LRP).
+template <typename T, typename R>
+struct WideGrads {
+  T* gqn;
+  T* gqe;
+  float* gcn_part;                     // (B, Li, M, D)
+  float* gce_part;
+  T* yd;                               // (B*Li*M, 3D)
+  T* gout;                             // (B*Li*M, D)
+  float* vec_part;                     // (B*Li, 7D), 6D when bf16
+  R* gs;                               // (B*Li*M, ld): g_s
+  R* p;                                // (B*Li*M, ld): p
+  R* ga;                               // (B*Li*M, D): g_att
+  int ld;
+};
+
+template <typename T, int D, int RPT>
+__global__ void __launch_bounds__(NTHREADS)
+qa_ctx_bwd_wide_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
+                       const T* __restrict__ qn, const T* __restrict__ qe,
+                       const float* __restrict__ cmask,
+                       const float* __restrict__ qmask,
+                       const float* __restrict__ gamma,
+                       const float* __restrict__ beta,
+                       const float* __restrict__ Wt,
+                       const T* __restrict__ gmixed,
+                       const T* __restrict__ mixed,
+                       const float* __restrict__ graw,
+                       const int* __restrict__ targets,
+                       WideGrads<T, float> out,
+                       int A, int Lqa, int Li, int Lr, float scale,
+                       Dropout drop) {
+  constexpr int CPL = D / 32, VPL = D / 32, QS = D + 1;
+  constexpr int RT = RPT * NWARPS;
+  constexpr bool BF = sizeof(T) == 2;
+  constexpr int NV = (BF ? 6 : 7) * D;
+  drop.load_seed();
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Layout<D, RPT> lay(Lr);
+  float* qn_s = smem + lay.qn;
+  float* qe_s = smem + lay.qe;
+  float* qm_s = smem + lay.qm;
+  float* p_s = smem + lay.p;           // p0
+  float* gt_s = smem + lay.gt;         // softmax-floor gate
+  float* gs_s = smem + lay.gs;         // p = p0 * mask, then g_s
+  float* cn_s = smem + lay.cn;
+  float* ce_s = smem + lay.ce;
+  float* a_s = smem + lay.a;
+  float* ga_s = smem + lay.ga;
+  float* go_s = smem + lay.go;
+  float* st_s = smem + lay.st;
+  float* w_s = smem + lay.w;
+  const int lrp = round4(Lr);
+
+  const int i = blockIdx.x, b = blockIdx.y;
+  const int M = A * Lqa;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c0 = lane * CPL;
+  const int target = targets != nullptr ? targets[b] : -1;
+  const size_t blk = static_cast<size_t>(b) * Li + i;
+
+  const size_t fbase = blk * Lr;
+  for (int idx = tid; idx < Lr * D; idx += NTHREADS) {
+    const int j = idx / D, d = idx % D;
+    qn_s[j * QS + d] = to_f(qn[fbase * D + idx]);
+    qe_s[j * QS + d] = to_f(qe[fbase * D + idx]);
+  }
+  for (int j = tid; j < Lr; j += NTHREADS) qm_s[j] = qmask[fbase + j];
+
+  float vg[3][CPL], vb[3][CPL], vgb[CPL];
+#pragma unroll
+  for (int t = 0; t < CPL; ++t) {
+    vgb[t] = 0.f;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) vg[g][t] = vb[g][t] = 0.f;
+  }
+
+  for (int m0 = 0; m0 < M; m0 += RT) {
+    const int rows = min(RT, M - m0);
+    // ---- stage the tile's rows and g_out = g_mixed * (mixed > 0) --------
+    __syncthreads();                   // previous tile fully consumed
+    for (int idx = tid; idx < RT * D; idx += NTHREADS) {
+      const int r = idx / D, d = idx % D, m = m0 + r;
+      float c = 0.f, e = 0.f, go = 0.f;
+      if (r < rows) {
+        const size_t row = static_cast<size_t>(b) * M + m;
+        c = to_f(cn[row * D + d]);
+        e = to_f(ce[row * D + d]);
+        const size_t mrow = mixed_row(b, m, i, A, Lqa, Li);
+        go = to_f(mixed[mrow * D + d]) > 0.f ? to_f(gmixed[mrow * D + d])
+                                             : 0.f;
+        out.gout[(blk * M + m) * D + d] = from_f<T>(go);
+      }
+      cn_s[idx] = c;
+      ce_s[idx] = e;
+      go_s[idx] = go;
+    }
+    __syncthreads();
+    // ---- recompute: scores, softmax, att, LN statistics ----------------
+#pragma unroll 1
+    for (int jj = 0; jj < RPT; ++jj) {
+      const int r = warp * RPT + jj, m = m0 + r;
+      if (r >= rows) break;
+      const float cm = cmask[static_cast<size_t>(b) * M + m];
+      const AttnRow sc = attn_scores<D>(cn_s + r * D, qn_s, qm_s, cm, Lr,
+                                        scale, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = lane + 32 * h;
+        if (j < Lr) {
+          p_s[r * lrp + j] = sc.p0[h];
+          gt_s[r * lrp + j] = sc.gate[h];
+          gs_s[r * lrp + j] = rb<BF>(sc.p0[h] * sc.sm[h]);
+        }
+      }
+      __syncwarp();
+      float at[VPL];
+      attn_apply<D>(gs_s + r * lrp, qe_s, Lr, lane, at);
+      float x[3][VPL];
+#pragma unroll
+      for (int q = 0; q < VPL; ++q) {
+        const float c = ce_s[r * D + lane + 32 * q];
+        a_s[r * D + lane + 32 * q] = at[q];
+        x[0][q] = c;
+        x[1][q] = at[q];
+        x[2][q] = c * at[q];
+      }
+      float mean, istd;
+      ln3_stats<D>(x, mean, istd);
+      if (lane == 0) {
+        st_s[2 * r] = mean;
+        st_s[2 * r + 1] = istd;
+      }
+    }
+    // ---- g_yd = g_out W^T, three D-column groups -----------------------
+    float acc3[3][RPT][CPL];
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+      gemm_staged_ld<RPT, D>(acc3[g], go_s, D, D, Wt + g * D, 3 * D, w_s,
+                             warp * RPT, c0);
+    // ---- per row: dropout replay, LN backward, softmax backward --------
+#pragma unroll
+    for (int jj = 0; jj < RPT; ++jj) {
+      const int r = warp * RPT + jj, m = m0 + r;
+      if (r >= rows) break;
+      const float mean = st_s[2 * r], istd = st_s[2 * r + 1];
+      float cev[CPL], av[CPL];
+#pragma unroll
+      for (int t = 0; t < CPL; ++t) {
+        cev[t] = ce_s[r * D + c0 + t];
+        av[t] = a_s[r * D + c0 + t];
+        vgb[t] += go_s[r * D + c0 + t];
+      }
+      const unsigned long long e_row =
+          mixed_row(b, m, i, A, Lqa, Li) * (3 * D);
+      const size_t yrow = (blk * M + m) * (3 * D);
+      float xh[3][CPL], gxh[3][CPL], s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        float km[CPL];
+        keep_or_one<CPL>(drop, e_row + g * D + c0, km);
+#pragma unroll
+        for (int t = 0; t < CPL; ++t) {
+          const int k = g * D + c0 + t;
+          const float x = g == 0 ? cev[t] : (g == 1 ? av[t] : cev[t] * av[t]);
+          xh[g][t] = (x - mean) * istd;
+          out.yd[yrow + k] = from_f<T>((xh[g][t] * gamma[k] + beta[k])
+                                       * km[t]);
+          const float gy = acc3[g][jj][t] * km[t];
+          vg[g][t] = fmaf(gy, xh[g][t], vg[g][t]);
+          vb[g][t] += gy;
+          gxh[g][t] = gy * gamma[k];
+          s1 += gxh[g][t];
+          s2 = fmaf(gxh[g][t], xh[g][t], s2);
+        }
+      }
+      const float m1 = warp_sum(s1) * (1.f / (3 * D));
+      const float m2 = warp_sum(s2) * (1.f / (3 * D));
+#pragma unroll
+      for (int t = 0; t < CPL; ++t) {
+        float gx[3];
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          gx[g] = istd * (gxh[g][t] - m1 - xh[g][t] * m2);
+        out.gce_part[(blk * M + m) * D + c0 + t] = gx[0] + gx[2] * av[t];
+        const float gat = rb<BF>(gx[1] + gx[2] * cev[t]);
+        ga_s[r * D + c0 + t] = gat;
+        out.ga[(blk * M + m) * D + c0 + t] = gat;
+      }
+      __syncwarp();
+      // softmax backward on lanes j = lane, lane + 32
+      const float cm = cmask[static_cast<size_t>(b) * M + m];
+      const int a = m / Lqa, w = m % Lqa;
+      const bool has_raw = graw != nullptr
+                           && (targets == nullptr || a == target);
+      const float* graw_row = graw == nullptr ? nullptr
+          : (targets == nullptr
+                 ? graw + ((((static_cast<size_t>(b) * A + a) * Li + i)
+                            * Lqa + w) * Lr)
+                 : graw + ((blk * Lqa + w) * Lr));
+      float gp[2] = {0.f, 0.f}, p0[2] = {0.f, 0.f}, sm[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = lane + 32 * h;
+        if (j < Lr) {
+          const float* qr = qe_s + j * QS;
+          const float* gr = ga_s + r * D;
+          float acc = 0.f;
+#pragma unroll 8
+          for (int d = 0; d < D; ++d) acc = fmaf(gr[d], qr[d], acc);
+          sm[h] = cm * qm_s[j];
+          p0[h] = p_s[r * lrp + j];
+          gp[h] = acc * sm[h];
+        }
+      }
+      const float tot = warp_sum(gp[0] * p0[0] + gp[1] * p0[1]);
+      const size_t srow = (blk * M + m) * lrp;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = lane + 32 * h;
+        if (j < Lr) {
+          float gsv = p0[h] * (gp[h] - tot) * scale * gt_s[r * lrp + j];
+          if (has_raw) gsv += graw_row[j];
+          gsv = rb<BF>(gsv);
+          gs_s[r * lrp + j] = gsv;
+          out.gs[srow + j] = gsv;
+          out.p[srow + j] = rb<BF>(p0[h] * sm[h]);
+        }
+      }
+      __syncwarp();
+      // gcn row: g_s qn
+      float gc[VPL];
+#pragma unroll
+      for (int q = 0; q < VPL; ++q) gc[q] = 0.f;
+      for (int j = 0; j < Lr; ++j) {
+        const float gsv = gs_s[r * lrp + j];
+#pragma unroll
+        for (int q = 0; q < VPL; ++q)
+          gc[q] = fmaf(gsv, qn_s[j * QS + lane + 32 * q], gc[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < VPL; ++q)
+        out.gcn_part[(blk * M + m) * D + lane + 32 * q] = gc[q];
+    }
+  }
+  // the block's parameter-vector partials, summed over warps in order
+  // (NWARPS x NV floats over cn_s .. w_s: 5 RT D + 2 RT + KC D >= 8 x 7 D)
+  __syncthreads();
+  float* red = cn_s;
+#pragma unroll
+  for (int t = 0; t < CPL; ++t) {
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      red[warp * NV + g * D + c0 + t] = vg[g][t];
+      red[warp * NV + 3 * D + g * D + c0 + t] = vb[g][t];
+    }
+    if (!BF) red[warp * NV + 6 * D + c0 + t] = vgb[t];
+  }
+  __syncthreads();
+  for (int k = tid; k < NV; k += NTHREADS) {
+    float s = 0.f;
+    for (int wp = 0; wp < NWARPS; ++wp) s += red[wp * NV + k];
+    out.vec_part[blk * NV + k] = s;
+  }
+}
+
+// gqn[j] = sum_m g_s[m, j] cn[m], gqe[j] = sum_m p[m, j] g_att[m] for the
+// frame (b, i) = (blockIdx.y, blockIdx.x).  The frame's rows come through
+// shared memory GR at a time; thread t owns column t % D and JT regions j
+// of a sweep (the NTHREADS / D threads of a column split a sweep's 64
+// regions at D = 64; at 256 a sweep takes 32), so its sums stay in
+// registers while the rows stream by.
+template <typename T, typename R, int D>
+__global__ void __launch_bounds__(NTHREADS)
+qa_ctx_gq_wide_kernel(const R* __restrict__ gs, const R* __restrict__ p,
+                      const R* __restrict__ ga, const T* __restrict__ cn,
+                      T* __restrict__ gqn, T* __restrict__ gqe, int M,
+                      int Li, int Lr, int ld) {
+  constexpr int NG = NTHREADS / D, JT = NG == 1 ? 32 : MAX_LR / NG;
+  constexpr int GR = 16;
+  __shared__ __align__(16) float gs_s[GR][MAX_LR], p_s[GR][MAX_LR];
+  __shared__ __align__(16) float cn_s[GR][D], ga_s[GR][D];
+  const int i = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int d = tid % D, jg = tid / D;
+  const size_t blk = static_cast<size_t>(b) * Li + i;
+  const int sweeps = (Lr + JT * NG - 1) / (JT * NG);   // the same for all
+  for (int sw = 0; sw < sweeps; ++sw) {
+    const int j0 = JT * (jg + NG * sw);
+    float an[JT], ae[JT];
+#pragma unroll
+    for (int jj = 0; jj < JT; ++jj) an[jj] = ae[jj] = 0.f;
+    for (int m0 = 0; m0 < M; m0 += GR) {
+      const int rows = min(GR, M - m0);
+      __syncthreads();                 // the previous rows are consumed
+      for (int idx = tid; idx < GR * ld; idx += NTHREADS) {
+        const int r = idx / ld, j = idx % ld;
+        const size_t o = (blk * M + m0 + r) * ld + j;
+        gs_s[r][j] = r < rows ? to_f(gs[o]) : 0.f;
+        p_s[r][j] = r < rows ? to_f(p[o]) : 0.f;
+      }
+      for (int idx = tid; idx < GR * D; idx += NTHREADS) {
+        const int r = idx / D, dd = idx % D;
+        cn_s[r][dd] = r < rows
+            ? to_f(cn[(static_cast<size_t>(b) * M + m0 + r) * D + dd]) : 0.f;
+        ga_s[r][dd] = r < rows ? to_f(ga[(blk * M + m0 + r) * D + dd]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int r = 0; r < GR; ++r) {
+        const float c = cn_s[r][d], g = ga_s[r][d];
+#pragma unroll
+        for (int jj = 0; jj < JT; ++jj) {
+          an[jj] = fmaf(gs_s[r][j0 + jj], c, an[jj]);
+          ae[jj] = fmaf(p_s[r][j0 + jj], g, ae[jj]);
+        }
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < JT; ++jj) {
+      if (j0 + jj < Lr) {
+        const size_t o = (blk * Lr + j0 + jj) * D + d;
+        gqn[o] = from_f<T>(an[jj]);
+        gqe[o] = from_f<T>(ae[jj]);
+      }
+    }
+  }
+}
+
+template <typename T, int D, int RPT>
+cudaError_t launch_main(const void* cn, const void* ce, const void* qn,
+                        const void* qe, const float* cmask,
+                        const float* qmask, const float* gamma,
+                        const float* beta, const float* Wt,
+                        const void* gmixed, const void* mixed,
+                        const float* graw, const int* targets,
+                        WideGrads<T, float> g, int B, int A, int Lqa,
+                        int Li, int Lr, float scale, Dropout drop,
+                        cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * Layout<D, RPT>(Lr).total;
+  auto kern = qa_ctx_bwd_wide_kernel<T, D, RPT>;
+  cudaError_t err = allow_smem(kern, bytes);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(Li, B), NTHREADS, bytes, stream>>>(
+      static_cast<const T*>(cn), static_cast<const T*>(ce),
+      static_cast<const T*>(qn), static_cast<const T*>(qe), cmask, qmask,
+      gamma, beta, Wt, static_cast<const T*>(gmixed),
+      static_cast<const T*>(mixed), graw, targets, g, A, Lqa, Li, Lr, scale,
+      drop);
+  return cudaGetLastError();
+}
+
+// The main kernel's shared memory at D = 256 with 16-row tiles fits the
+// H100's 232,448 bytes up to Lr = 50; past that the tiles take 8 rows.
+constexpr size_t SMEM_LIMIT = 232448;
+
+// After the main kernel: gqn and gqe, the weight gradient over the yd and
+// g_out rows (tensor cores from bf16 rows, CUDA cores from float32 ones),
+// and the fixed-order slot sums.
+template <typename T, typename R, int D>
+int launch_tail(const void* cn, WideGrads<T, R> g, void* gcn, void* gce,
+                float* gvec, float* wg_part, float* gw, int B, int A,
+                int Lqa, int Li, int Lr, int wg_chunks,
+                cudaStream_t stream) {
+  constexpr bool BF = sizeof(T) == 2;
+  const int M = A * Lqa;
+  qa_ctx_gq_wide_kernel<T, R, D><<<dim3(Li, B), NTHREADS, 0, stream>>>(
+      g.gs, g.p, g.ga, static_cast<const T*>(cn), g.gqn, g.gqe, M, Li, Lr,
+      g.ld);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rows = static_cast<long long>(B) * Li * M;
+  if constexpr (BF)       // [gw; gb] (the wrapper lays gb behind gw)
+    err = wgrad_tc(g.yd, g.gout, wg_part, gw, rows, 3 * D, D, wg_chunks,
+                   stream);
+  else
+    err = wgrad(g.yd, g.gout, wg_part, gw, rows, 3 * D, D, wg_chunks,
+                stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((err = sum_slots<float>(g.vec_part, gvec, 1, B * Li, (BF ? 6 : 7) * D,
+                              stream)) != cudaSuccess)
+    return static_cast<int>(err);
+  if ((err = sum_slots<T>(g.gcn_part, static_cast<T*>(gcn), B, Li,
+                          static_cast<long long>(M) * D, stream))
+      != cudaSuccess)
+    return static_cast<int>(err);
+  return static_cast<int>(sum_slots<T>(g.gce_part, static_cast<T*>(gce), B,
+                                       Li, static_cast<long long>(M) * D,
+                                       stream));
+}
+
+// The CUDA-core backward (float32 at D = 64 and 256, bf16 at D = 64).
+template <typename T, int D>
+int launch(const void* cn, const void* ce, const void* qn, const void* qe,
+           const float* cmask, const float* qmask, const float* gamma,
+           const float* beta, const float* Wt, const void* gmixed,
+           const void* mixed, const float* graw, const int* targets,
+           WideGrads<T, float> g, void* gcn, void* gce, float* gvec,
+           float* wg_part, float* gw, int B, int A, int Lqa, int Li, int Lr,
+           float scale, Dropout drop, int wg_chunks, cudaStream_t stream) {
+  cudaError_t err;
+  if constexpr (D == 256) {
+    err = sizeof(float) * Layout<D, 2>(Lr).total <= SMEM_LIMIT
+        ? launch_main<T, D, 2>(cn, ce, qn, qe, cmask, qmask, gamma, beta, Wt,
+                               gmixed, mixed, graw, targets, g, B, A, Lqa,
+                               Li, Lr, scale, drop, stream)
+        : launch_main<T, D, 1>(cn, ce, qn, qe, cmask, qmask, gamma, beta, Wt,
+                               gmixed, mixed, graw, targets, g, B, A, Lqa,
+                               Li, Lr, scale, drop, stream);
+  } else {
+    err = launch_main<T, D, 4>(cn, ce, qn, qe, cmask, qmask, gamma, beta, Wt,
+                               gmixed, mixed, graw, targets, g, B, A, Lqa,
+                               Li, Lr, scale, drop, stream);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_tail<T, float, D>(cn, g, gcn, gce, gvec, wg_part, gw, B, A,
+                                  Lqa, Li, Lr, wg_chunks, stream);
+}
+
+// ---- the bfloat16 instantiation at D = 256: tensor cores -------------------
+//
+// qa_ctx_bwd_tc_kernel's design (qa_ctx_attention_bwd.cu: one block per
+// (b, i), 64-row tiles, the two warpgroups split the columns, every product
+// a wgmma on bf16 operands with float32 sums, p0 waiting in shared memory)
+// at D = 256.  A warpgroup owns 128 columns and takes them as two quarters
+// of 64, one after the other, so that its registers hold what the D = 128
+// kernel's hold: att of a quarter (recomputed, K = LRP), g_yd of one group
+// and quarter, and gx2 of the quarter.  W (384 KB) streams through one slab
+// of the two warpgroups' 64 rows x 64 columns, 16 KB; g_yd of a (group,
+// quarter) runs twice, once for the LN backward's row sums and once for gx.
+// g_att goes where cn was (the scores are done with it), since g_out is
+// read again by the second pass.  Shared memory: 217 KB at LRP 64.
+template <int LRP>
+struct AttTcWide {
+  static constexpr int D = 256;
+  static constexpr int TILE = Shapes<D>::TILE_BYTES;     // 64 x 256 bf16
+  static constexpr int O_QN = 0;
+  static constexpr int O_QE = O_QN + TILE;
+  static constexpr int O_CN = O_QE + TILE;                // cn, then g_att
+  static constexpr int O_GO = O_CN + TILE;                // g_out
+  static constexpr int O_CE = O_GO + TILE;
+  static constexpr int O_SLAB = O_CE + TILE;              // 2 x 64 rows of W
+  static constexpr int O_P0 = O_SLAB + 2 * TILE_PANEL;    // p0, a thread's own
+  static constexpr int O_EX = O_P0 + LRP / 2 * NTHREADS * 4;
+  static constexpr int O_QM = O_EX + 2 * 2 * TM * 2 * 4;
+  static constexpr int O_GB = O_QM + TM * 4;              // gamma, beta
+  static constexpr int SMEM = O_GB + 6 * D * 4 + tc::ATOM_BYTES;
+};
+
+using bf16 = __nv_bfloat16;
+
+template <int LRP>
+__global__ void __launch_bounds__(NTHREADS, 1)
+qa_ctx_bwd_tc_wide_kernel(const bf16* __restrict__ cn,
+                          const bf16* __restrict__ ce,
+                          const bf16* __restrict__ qn,
+                          const bf16* __restrict__ qe,
+                          const float* __restrict__ cmask,
+                          const float* __restrict__ qmask,
+                          const float* __restrict__ gamma,
+                          const float* __restrict__ beta,
+                          const bf16* __restrict__ W,
+                          const bf16* __restrict__ gmixed,
+                          const bf16* __restrict__ mixed,
+                          const float* __restrict__ graw,
+                          const int* __restrict__ targets,
+                          WideGrads<bf16, bf16> out, int A, int Lqa, int Li,
+                          int Lr, float scale, Dropout drop) {
+  using S = AttTcWide<LRP>;
+  constexpr int D = S::D;
+  constexpr int NVT = 6 * D;           // ggamma (3D), gbeta (3D)
+  drop.load_seed();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_smem(smem_raw);
+  uint8_t* qn_s = sm + S::O_QN;
+  uint8_t* qe_s = sm + S::O_QE;
+  uint8_t* cn_s = sm + S::O_CN;
+  uint8_t* ga_s = cn_s;                // g_att, once the scores are done
+  uint8_t* go_s = sm + S::O_GO;
+  uint8_t* ce_s = sm + S::O_CE;
+  uint8_t* slab_s = sm + S::O_SLAB;
+  float* p0_s = reinterpret_cast<float*>(sm + S::O_P0);
+  float* ex_s = reinterpret_cast<float*>(sm + S::O_EX);  // [2][wg][row][2]
+  float* qm_s = reinterpret_cast<float*>(sm + S::O_QM);
+  float* gamma_s = reinterpret_cast<float*>(sm + S::O_GB);
+  float* beta_s = gamma_s + 3 * D;
+
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31;
+  const int i = blockIdx.x, b = blockIdx.y;
+  const int M = A * Lqa;
+  const int target = targets != nullptr ? targets[b] : -1;
+  const size_t blk = static_cast<size_t>(b) * Li + i;
+  const size_t fbase = blk * Lr;
+  for (int k = tid; k < 3 * D; k += NTHREADS) {
+    gamma_s[k] = gamma[k];
+    beta_s[k] = beta[k];
+  }
+  tc_load_frame<D>(nullptr, qn_s, qe_s, qm_s, W, qn, qe, qmask, fbase, Lr);
+
+  const int rl = 16 * warp + (lane >> 2);
+  const int cl = 2 * (lane & 3);
+  auto ce_pair = [&](int h, int c) {
+    return tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(
+        ce_s + (c >> 6) * TILE_PANEL + tc::swz(rl + 8 * h, c & 63)));
+  };
+  // g_yd of group g on quarter u of the warpgroup's columns: acc = g_out
+  // W[g D + 128 wg + 64 u + n, :]^T, W's columns in four slabs of 64 (both
+  // warpgroups' rows); every thread calls it
+  auto gyd = [&](float (&acc)[32], int g, int u) {
+#pragma unroll 1
+    for (int kc = 0; kc < D / 64; ++kc) {
+      __syncthreads();                 // the slab's last readers are done
+#pragma unroll
+      for (int w2 = 0; w2 < 2; ++w2)
+        tc_load_rows<64>(slab_s + w2 * TILE_PANEL, TM,
+                         W + static_cast<size_t>(g * D + 128 * w2 + 64 * u)
+                                 * D + 64 * kc, D, TM, tid, NTHREADS);
+      tc::cp_async_commit();
+      tc::cp_async_wait<0>();
+      tc::fence_async_smem();
+      __syncthreads();
+      const uint32_t go = tc::smem_u32(go_s) + kc * TILE_PANEL;
+      const uint32_t st = tc::smem_u32(slab_s) + wg * TILE_PANEL;
+      tc::fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        tc::mma_ss<64, 0, 0>(acc, tc::make_desc(go + s * 32, 16),
+                             tc::make_desc(st + s * 32, 16), kc > 0 || s > 0);
+      tc::commit();
+      tc::wait_all();
+    }
+    tc::fence_regs(acc);
+  };
+  // att of quarter u (64 columns) from p0 in shared memory
+  auto att_of = [&](float (&att)[32], const float (&cm)[2], int u) {
+    float p0[LRP / 2];
+#pragma unroll
+    for (int k = 0; k < LRP / 2; ++k) p0[k] = p0_s[k * NTHREADS + tid];
+    tc_att<LRP, 1>(att, p0, cm, qm_s,
+                   tc::smem_u32(qe_s) + (2 * wg + u) * TILE_PANEL, lane);
+  };
+  float vg[3][2][2], vb[3][2][2];      // [group][quarter][column half]
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      vg[g][u][0] = vg[g][u][1] = vb[g][u][0] = vb[g][u][1] = 0.f;
+
+  for (int m0 = 0; m0 < M; m0 += TM) {
+    // ---- stage the tile: cn and ce rows, g_out = g_mixed * (mixed > 0) ---
+    __syncthreads();                   // the previous tile is consumed
+    const size_t rbase = static_cast<size_t>(b) * M + m0;
+    tc_load_rows<D>(cn_s, TM, cn + rbase * D, D, min(TM, M - m0), tid,
+                    NTHREADS);
+    tc_load_rows<D>(ce_s, TM, ce + rbase * D, D, min(TM, M - m0), tid,
+                    NTHREADS);
+    tc::cp_async_commit();
+    for (int c = tid; c < TM * (D / 8); c += NTHREADS) {
+      const int r = c / (D / 8), ch = c % (D / 8), m = m0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (m < M) {
+        const size_t o = mixed_row(b, m, i, A, Lqa, Li) * D + ch * 8;
+        const uint4 mx = __ldg(reinterpret_cast<const uint4*>(mixed + o));
+        v = __ldg(reinterpret_cast<const uint4*>(gmixed + o));
+        const uint32_t mw[4] = {mx.x, mx.y, mx.z, mx.w};
+        uint32_t gw[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 mv = tc::unpack_bf16(mw[k]);
+          gw[k] &= (mv.x > 0.f ? 0x0000FFFFu : 0u)
+                   | (mv.y > 0.f ? 0xFFFF0000u : 0u);
+        }
+        v = make_uint4(gw[0], gw[1], gw[2], gw[3]);
+        *reinterpret_cast<uint4*>(out.gout + (blk * M + m) * D + ch * 8) = v;
+      }
+      *reinterpret_cast<uint4*>(go_s + (ch >> 3) * TILE_PANEL
+                                + tc::swz_chunk(r, ch & 7)) = v;
+    }
+    tc::cp_async_wait<0>();
+    tc::fence_async_smem();
+    __syncthreads();
+
+    int m[2];
+    bool live[2];
+    float cm[2];
+    size_t mrow[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = m0 + rl + 8 * h;
+      live[h] = m[h] < M;
+      cm[h] = live[h] ? cmask[static_cast<size_t>(b) * M + m[h]] : 0.f;
+      mrow[h] = mixed_row(b, live[h] ? m[h] : 0, i, A, Lqa, Li);
+    }
+    // the dropout's keep bits of the (group, quarter)s, drawn first
+    uint32_t kw[3][2][2][1];
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        kw[g][u][0][0] = kw[g][u][1][0] = ~0u;
+        if (drop.on())
+          tc_keep_bits<8, true>(drop, ((lane & 1) ? mrow[1] : mrow[0])
+                                    * (3 * D) + g * D + 128 * wg + 64 * u,
+                                lane, kw[g][u]);
+      }
+    // ---- recompute: scores and softmax (full rows, both warpgroups) ------
+    uint32_t gate;
+    {
+      float sc[LRP / 2], p0[LRP / 2];
+      tc_scores<LRP, D>(sc, tc::smem_u32(cn_s), tc::smem_u32(qn_s));
+      gate = tc_softmax<LRP>(sc, p0, cm, qm_s, Lr, scale, lane);
+#pragma unroll
+      for (int k = 0; k < LRP / 2; ++k) p0_s[k * NTHREADS + tid] = p0[k];
+      if (wg == 1) {                   // p rows out, for gqe = p^T g_att
+#pragma unroll
+        for (int k = 0; k < LRP / 2; k += 2) {
+          const int h = (k / 2) % 2, j = acc_col(k, lane);
+          const float c = cm[h];
+          if (live[h])
+            *reinterpret_cast<uint32_t*>(out.p + (blk * M + m[h]) * LRP + j) =
+                tc::pack_bf16(p0[k] * (c * qm_s[j]),
+                              p0[k + 1] * (c * qm_s[j + 1]));
+        }
+      }
+    }
+    // ---- LN statistics over [ce; att; ce * att] (not clipped) -----------
+    float mean[2], istd[2];
+    {
+      float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float att[32];
+        att_of(att, cm, u);
+#pragma unroll
+        for (int pr = 0; pr < 16; ++pr) {
+          const int h = pr & 1, c = 128 * wg + 64 * u + 8 * (pr >> 1) + cl;
+          const float2 c2 = ce_pair(h, c);
+          const float a0 = att[2 * pr], a1 = att[2 * pr + 1];
+          const float x0 = c2.x * a0, x1 = c2.y * a1;
+          sum[h] += (c2.x + c2.y) + (a0 + a1) + (x0 + x1);
+          sq[h] += fmaf(c2.x, c2.x, c2.y * c2.y) + fmaf(a0, a0, a1 * a1)
+                   + fmaf(x0, x0, x1 * x1);
+        }
+      }
+      tri_row_pair_sums(ex_s, sum, sq, wg, rl, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mean[h] = sum[h] * (1.f / (3 * D));
+        istd[h] = rsqrtf(sq[h] * (1.f / (3 * D)) - mean[h] * mean[h]
+                         + LN_EPS);
+      }
+    }
+    // ---- pass A: g_yd, the dropout replay, yd rows out, ggamma / gbeta,
+    // the LN backward's row sums ------------------------------------------
+    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float att[32];
+      att_of(att, cm, u);
+      const int base = 128 * wg + 64 * u;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        float acc[32];
+        gyd(acc, g, u);
+#pragma unroll
+        for (int qh = 0; qh < 2; ++qh) {
+          float tg[8], tb[8];
+#pragma unroll
+          for (int qq = 0; qq < 4; ++qq) {
+            const int q = 4 * qh + qq, c = base + 8 * q + cl;
+            const float2 ga = *reinterpret_cast<const float2*>(
+                gamma_s + g * D + c);
+            const float2 be = *reinterpret_cast<const float2*>(
+                beta_s + g * D + c);
+            tg[2 * qq] = tg[2 * qq + 1] = tb[2 * qq] = tb[2 * qq + 1] = 0.f;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float2 c2 = ce_pair(h, c);
+              const uint32_t bits = kw[g][u][h][0] >> (4 * q);
+              float y[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int k = 4 * q + 2 * h + e;
+                const float cv = e ? c2.y : c2.x, a = att[k];
+                const float x = g == 0 ? cv : (g == 1 ? a : cv * a);
+                const float gam = e ? ga.y : ga.x, bet = e ? be.y : be.x;
+                const float xh = (x - mean[h]) * istd[h];
+                const float km = !drop.on() ? 1.f
+                    : ((bits >> e) & 1u ? drop.scale : 0.f);
+                y[e] = (xh * gam + bet) * km;
+                const float gy = acc[k] * km;
+                tg[2 * qq + e] = fmaf(gy, xh, tg[2 * qq + e]);
+                tb[2 * qq + e] += gy;
+                const float gxh = gy * gam;
+                s1[h] += gxh;
+                s2[h] = fmaf(gxh, xh, s2[h]);
+              }
+              if (live[h])
+                *reinterpret_cast<uint32_t*>(
+                    out.yd + (blk * M + m[h]) * (3 * D) + g * D + c) =
+                    tc::pack_bf16(y[0], y[1]);
+            }
+          }
+          // sums over the eight lanes that hold these columns' other rows
+          fold<8>(tg, 16, lane);
+          fold<4>(tg, 8, lane);
+          fold<2>(tg, 4, lane);
+          fold<8>(tb, 16, lane);
+          fold<4>(tb, 8, lane);
+          fold<2>(tb, 4, lane);
+          vg[g][u][qh] += tg[0];
+          vb[g][u][qh] += tb[0];
+        }
+      }
+    }
+    tri_row_pair_sums(ex_s + 2 * TM * 2, s1, s2, wg, rl, lane);
+    // ---- pass B: g_yd again, the LN backward, gce rows out, g_att tile ---
+    const float m1[2] = {s1[0] * (1.f / (3 * D)), s1[1] * (1.f / (3 * D))};
+    const float m2[2] = {s2[0] * (1.f / (3 * D)), s2[1] * (1.f / (3 * D))};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float att[32], gx2[32];
+      att_of(att, cm, u);
+      const int base = 128 * wg + 64 * u;
+#pragma unroll
+      for (int n = 0; n < 3; ++n) {
+        const int g = (n + 2) % 3;     // groups 2, 0, 1
+        float acc[32];
+        gyd(acc, g, u);
+#pragma unroll
+        for (int pr = 0; pr < 16; ++pr) {
+          const int h = pr & 1, q = pr >> 1, c = base + 8 * q + cl;
+          const float2 c2 = ce_pair(h, c);
+          const float2 ga = *reinterpret_cast<const float2*>(
+              gamma_s + g * D + c);
+          const uint32_t bits = kw[g][u][h][0] >> (4 * q);
+          float o[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = 2 * pr + e;
+            const float cv = e ? c2.y : c2.x, a = att[k];
+            const float x = g == 0 ? cv : (g == 1 ? a : cv * a);
+            const float xh = (x - mean[h]) * istd[h];
+            const float km = !drop.on() ? 1.f
+                : ((bits >> e) & 1u ? drop.scale : 0.f);
+            const float gxh = acc[k] * km * (e ? ga.y : ga.x);
+            const float gx = istd[h] * (gxh - m1[h] - xh * m2[h]);
+            if (g == 2)
+              gx2[k] = gx;
+            else
+              o[e] = fmaf(gx2[k], g == 0 ? a : cv, gx);
+          }
+          if (g == 0 && live[h])
+            *reinterpret_cast<float2*>(out.gce_part + (blk * M + m[h]) * D
+                                       + c) = make_float2(o[0], o[1]);
+          if (g == 1)
+            *reinterpret_cast<uint32_t*>(ga_s + (c >> 6) * TILE_PANEL
+                                         + tc::swz(rl + 8 * h, c & 63)) =
+                tc::pack_bf16(o[0], o[1]);
+        }
+      }
+    }
+    tc::fence_async_smem();
+    __syncthreads();                   // the g_att tile is whole
+    for (int c = tid; c < TM * (D / 8); c += NTHREADS) {  // its rows out
+      const int r = c / (D / 8), ch = c % (D / 8);
+      if (m0 + r < M)
+        *reinterpret_cast<uint4*>(out.ga + (blk * M + m0 + r) * D + ch * 8) =
+            *reinterpret_cast<const uint4*>(ga_s + (ch >> 3) * TILE_PANEL
+                                            + tc::swz_chunk(r, ch & 7));
+    }
+    // ---- g_p = g_att qe^T, softmax backward, g_s, gcn rows out ----------
+    {
+      float gs[LRP / 2];
+      tc::fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const int off = (ks / 4) * TILE_PANEL + (ks % 4) * 32;
+        tc::mma_ss<LRP, 0, 0>(gs, tc::make_desc(tc::smem_u32(ga_s) + off, 16),
+                              tc::make_desc(tc::smem_u32(qe_s) + off, 16),
+                              ks > 0);
+      }
+      tc::commit();
+      tc::wait_all();
+      float p0[LRP / 2], tot[2] = {0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < LRP / 2; ++k) {
+        const int h = (k / 2) % 2;
+        p0[k] = p0_s[k * NTHREADS + tid];
+        gs[k] *= cm[h] * qm_s[acc_col(k, lane)];
+        tot[h] = fmaf(gs[k], p0[k], tot[h]);
+      }
+      tot[0] = quad_sum(tot[0]);
+      tot[1] = quad_sum(tot[1]);
+      const float* graw_row[2] = {nullptr, nullptr};   // the rows' g_raw
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (graw == nullptr || !live[h]) continue;
+        if (targets == nullptr)
+          graw_row[h] = graw + mrow[h] * Lr;
+        else if (m[h] / Lqa == target)
+          graw_row[h] = graw + (blk * Lqa + m[h] % Lqa) * Lr;
+      }
+#pragma unroll
+      for (int k = 0; k < LRP / 2; ++k) {
+        const int h = (k / 2) % 2, j = acc_col(k, lane);
+        float v = p0[k] * (gs[k] - tot[h]) * scale
+                  * ((gate >> k) & 1u ? 1.f : 0.f);
+        if (graw_row[h] != nullptr && j < Lr) v += graw_row[h][j];
+        gs[k] = v;
+      }
+      if (wg == 0) {                   // g_s rows out, for gqn = g_s^T cn
+#pragma unroll
+        for (int k = 0; k < LRP / 2; k += 2) {
+          const int h = (k / 2) % 2;
+          if (live[h])
+            *reinterpret_cast<uint32_t*>(out.gs + (blk * M + m[h]) * LRP
+                                         + acc_col(k, lane)) =
+                tc::pack_bf16(gs[k], gs[k + 1]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        float gcn[32];
+        tc::fence();
+#pragma unroll
+        for (int ts = 0; ts < LRP / 16; ++ts) {
+          uint32_t a[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            a[r] = tc::pack_bf16(gs[8 * ts + 2 * r], gs[8 * ts + 2 * r + 1]);
+          tc::mma_rs<64, 1>(gcn, a,
+                            tc::make_desc(tc::smem_u32(qn_s)
+                                              + (2 * wg + u) * TILE_PANEL
+                                              + ts * 2 * tc::ATOM_BYTES,
+                                          TILE_PANEL), ts > 0);
+        }
+        tc::commit();
+        tc::wait_all();
+#pragma unroll
+        for (int pr = 0; pr < 16; ++pr) {
+          const int h = pr & 1;
+          const int c = 128 * wg + 64 * u + 8 * (pr >> 1) + cl;
+          if (live[h])
+            *reinterpret_cast<float2*>(out.gcn_part + (blk * M + m[h]) * D
+                                       + c) =
+                make_float2(gcn[2 * pr], gcn[2 * pr + 1]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  // after the folds a lane holds, per group, quarter and column half qh,
+  // the sum over its warp's rows of column 128 wg + 64 u + 8 (4 qh + 2 b4 +
+  // b3) + 2 (lane % 4) + b2
+  float* red = reinterpret_cast<float*>(cn_s);        // [4 warps][NVT]
+  {
+    const int b4 = (lane >> 4) & 1, b3 = (lane >> 3) & 1, b2 = (lane >> 2) & 1;
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int qh = 0; qh < 2; ++qh) {
+          const int c = 128 * wg + 64 * u + 8 * (4 * qh + 2 * b4 + b3) + cl
+                        + b2;
+          red[warp * NVT + g * D + c] = vg[g][u][qh];
+          red[warp * NVT + 3 * D + g * D + c] = vb[g][u][qh];
+        }
+  }
+  __syncthreads();
+  for (int k = tid; k < NVT; k += NTHREADS)
+    out.vec_part[blk * NVT + k] =
+        ((red[k] + red[NVT + k]) + red[2 * NVT + k]) + red[3 * NVT + k];
+}
+
+template <int LRP>
+cudaError_t launch_tc_main(const void* cn, const void* ce, const void* qn,
+                           const void* qe, const float* cmask,
+                           const float* qmask, const float* gamma,
+                           const float* beta, const void* W,
+                           const void* gmixed, const void* mixed,
+                           const float* graw, const int* targets,
+                           WideGrads<bf16, bf16> g, int B, int A, int Lqa,
+                           int Li, int Lr, float scale, Dropout drop,
+                           cudaStream_t stream) {
+  auto h = [](const void* p) { return static_cast<const bf16*>(p); };
+  constexpr int smem = AttTcWide<LRP>::SMEM;
+  cudaError_t err = allow_smem(qa_ctx_bwd_tc_wide_kernel<LRP>, smem);
+  if (err != cudaSuccess) return err;
+  qa_ctx_bwd_tc_wide_kernel<LRP><<<dim3(Li, B), NTHREADS, smem, stream>>>(
+      h(cn), h(ce), h(qn), h(qe), cmask, qmask, gamma, beta, h(W), h(gmixed),
+      h(mixed), graw, targets, g, A, Lqa, Li, Lr, scale, drop);
+  return cudaGetLastError();
+}
+
+// The bf16 backward at D = 256: the tensor-core main kernel, then gqn /
+// gqe, the weight gradient and the sums over the bf16 rows it wrote.
+int launch_tc(const void* cn, const void* ce, const void* qn, const void* qe,
+              const float* cmask, const float* qmask, const float* gamma,
+              const float* beta, const void* W, const void* gmixed,
+              const void* mixed, const float* graw, const int* targets,
+              WideGrads<bf16, bf16> g, void* gcn, void* gce, float* gvec,
+              float* wg_part, float* gw, int B, int A, int Lqa, int Li,
+              int Lr, float scale, Dropout drop, int wg_chunks,
+              cudaStream_t stream) {
+  g.ld = Lr <= 32 ? 32 : 64;
+  const cudaError_t err = Lr <= 32
+      ? launch_tc_main<32>(cn, ce, qn, qe, cmask, qmask, gamma, beta, W,
+                           gmixed, mixed, graw, targets, g, B, A, Lqa, Li, Lr,
+                           scale, drop, stream)
+      : launch_tc_main<64>(cn, ce, qn, qe, cmask, qmask, gamma, beta, W,
+                           gmixed, mixed, graw, targets, g, B, A, Lqa, Li, Lr,
+                           scale, drop, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_tail<bf16, bf16, 256>(cn, g, gcn, gce, gvec, wg_part, gw, B,
+                                      A, Lqa, Li, Lr, wg_chunks, stream);
+}
+
+}  // namespace
+
+// As qa_ctx_attention_bwd (qa_ctx_attention_bwd.cu) at width D = 64 or 256:
+// inputs as qa_ctx_attention_fwd, plus Wt = W^T (D, 3D) float32 (rounded to
+// bf16 values when is_bf16; when is_bf16 at D = 256, W itself, (3D, D)
+// bf16), g_mixed and the saved mixed (B, A, Li, Lqa, D) in the activation
+// type, and g_raw float32 or NULL ((B, A, Li, Lqa, Lr) when targets is
+// NULL, else (B, Li, Lqa, Lr) at targets[b]).  Outputs: gcn, gce (B, A,
+// Lqa, D) and gqn, gqe (B, Li, Lr, D) in the activation type; gvec =
+// [ggamma (3D); gbeta (3D); gb (D)] and gw (3D, D) float32, or when is_bf16
+// gvec without gb and gw with 3D + 1 rows, the last gb.  Scratch (the
+// wrapper's): gcn_part, gce_part (B, Li, A*Lqa, D) float32; yd
+// (B*Li*A*Lqa, 3D) and gout (B*Li*A*Lqa, D) in the activation type;
+// vec_part (B*Li, 7D or 6D) and wg_part (wg_chunks, 3D (+ 1), D) float32;
+// gs_rows, p_rows (B*Li*A*Lqa, round4(Lr)) and ga_rows (B*Li*A*Lqa, D)
+// float32, or when is_bf16 at D = 256 bf16 with gs_rows and p_rows 32
+// wide (Lr <= 32) or 64.  Lr <= 64; any other D is refused.
+extern "C" int qa_ctx_attention_bwd_wide(
+    const void* cn, const void* ce, const void* qn, const void* qe,
+    const void* cmask, const void* qmask, const void* gamma,
+    const void* beta, const void* Wt, const void* gmixed, const void* mixed,
+    const void* graw, const void* targets, void* gcn, void* gce, void* gqn,
+    void* gqe, void* gvec, void* gw, void* gcn_part, void* gce_part,
+    void* yd, void* gout, void* vec_part, void* wg_part, void* gs_rows,
+    void* p_rows, void* ga_rows, int B, int A, int Lqa, int Li, int Lr,
+    int d, float scale, const unsigned long long* drop_seed,
+    unsigned drop_threshold, float drop_scale, int wg_chunks, int is_bf16,
+    void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto fm = [](void* p) { return static_cast<float*>(p); };
+  auto s = static_cast<cudaStream_t>(stream);
+  if (Lr > MAX_LR || Lr < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
+  const int* tg = static_cast<const int*>(targets);
+#define TVQA_ATT_WIDE(T, DD)                                               \
+  {                                                                        \
+    const WideGrads<T, float> g{                                           \
+        static_cast<T*>(gqn), static_cast<T*>(gqe), fm(gcn_part),          \
+        fm(gce_part), static_cast<T*>(yd), static_cast<T*>(gout),          \
+        fm(vec_part), fm(gs_rows), fm(p_rows), fm(ga_rows), round4(Lr)};   \
+    return launch<T, DD>(cn, ce, qn, qe, f(cmask), f(qmask), f(gamma),     \
+                         f(beta), f(Wt), gmixed, mixed, f(graw), tg, g,    \
+                         gcn, gce, fm(gvec), fm(wg_part), fm(gw), B, A,    \
+                         Lqa, Li, Lr, scale, drop, wg_chunks, s);          \
+  }
+  if (d == 64) {
+    if (is_bf16) TVQA_ATT_WIDE(bf16, 64)
+    TVQA_ATT_WIDE(float, 64)
+  }
+  if (d == 256) {
+    if (is_bf16) {
+      auto hm = [](void* p) { return static_cast<bf16*>(p); };
+      const WideGrads<bf16, bf16> g{
+          hm(gqn), hm(gqe), fm(gcn_part), fm(gce_part), hm(yd), hm(gout),
+          fm(vec_part), hm(gs_rows), hm(p_rows), hm(ga_rows), 0};
+      return launch_tc(cn, ce, qn, qe, f(cmask), f(qmask), f(gamma),
+                       f(beta), Wt, gmixed, mixed, f(graw), tg, g, gcn, gce,
+                       fm(gvec), fm(wg_part), fm(gw), B, A, Lqa, Li, Lr,
+                       scale, drop, wg_chunks, s);
+    }
+    TVQA_ATT_WIDE(float, 256)
+  }
+#undef TVQA_ATT_WIDE
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,4 +1,5 @@
-// Fused tri-concat MLP bridge, backward.
+// Fused tri-concat MLP bridge, backward, at the hidden width D = 128 (D =
+// 64 and 256: tri_bridge_bwd_wide.cu).
 //
 // Replaces the TPU kernel tvqaplus_tpu/ops/pallas_tri_bridge.py
 // (_backward / _bwd_kernel).  Row-local: for every row it recomputes
@@ -286,7 +287,7 @@ int launch(const void* s, const void* v, const float* gin, const float* bin,
       bias, gout, static_cast<const T*>(g), static_cast<T*>(gs),
       static_cast<T*>(gv), yd_buf, gy1_buf, vec_part, R, drop);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-  if ((err = wgrad(yd_buf, gy1_buf, wg_part, gw, R, 3 * D, wg_chunks,
+  if ((err = wgrad(yd_buf, gy1_buf, wg_part, gw, R, 3 * D, D, wg_chunks,
                    stream)) != cudaSuccess)
     return static_cast<int>(err);
   return static_cast<int>(sum_slots<float>(vec_part, gvec, 1, blocks, NV,
@@ -578,7 +579,7 @@ int launch_tc(const void* s, const void* v, const float* gin,
       hm(gy1), vec_part, R, drop);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   // [gw; gb] (the wrapper lays gb behind gw)
-  if ((err = wgrad_tc(h(yd), h(gy1), wg_part, gw, R, 3 * D, wg_chunks,
+  if ((err = wgrad_tc(h(yd), h(gy1), wg_part, gw, R, 3 * D, D, wg_chunks,
                       stream)) != cudaSuccess)
     return static_cast<int>(err);
   return static_cast<int>(sum_slots<float>(vec_part, gvec, 1, blocks, NVT,

@@ -1,0 +1,747 @@
+// Fused tri-concat MLP bridge, backward, at the hidden widths D = 64 and
+// 256 (tri_bridge_bwd.cu is the same function at D = 128).
+//
+// Replaces the TPU kernel tvqaplus_tpu/ops/pallas_tri_bridge.py
+// (_backward / _bwd_kernel :223), which reads D from its operands and so
+// runs at any width.  Row-local, as tri_bridge_bwd.cu's header sets out:
+// recompute x = [s; v; s*v], yd = dropout(LN_in(x)) (the Philox mask
+// keyed by the flat index of the (R, 3D) LN output, as the forward drew
+// it), y1 = yd W + b and LN_out's statistics; then LN_out and ReLU
+// backward, g_yd = g_y1 W^T, the dropout replay and the LN_in backward over
+// the virtual 3D concat; gs = gx0 + gx2 v, gv = gx1 + gx2 s.
+//
+// What bounds it on the H100: per row it reads s, v and g and writes gs and
+// gv (5 D values) and does ~4 x 3D x D operations (the y1 recompute, g_yd,
+// gW): at 160,000 rows ~102 MB and ~16 GFLOP at D = 64 (bytes, ~31 us), ~410
+// MB and ~252 GFLOP at D = 256 (operations, ~255 us).
+//
+// Two instantiations.
+// * bfloat16 (what the main paths run): tri_bridge_bwd_tc_wide_kernel<D>,
+//   the D = 128 tensor-core design (tri_bridge_bwd.cu) at these widths: one
+//   resident block an SM walks 64-row tiles, the two warpgroups split the
+//   columns, every product a wgmma on bf16 operands with float32 sums,
+//   rounded where the TPU kernel's bf16 compute mode rounds (yd, W, g_y1;
+//   pallas_tri_bridge.py:77-79, :157-162), the recompute on
+//   tri_bridge_tc.cuh.  D = 64: W and W^T resident (24 KB each, both read
+//   K-major: a warpgroup's 32 columns start inside a swizzled row, where an
+//   MN-major operand cannot start).  D = 256: W (384 KB) streams, through
+//   two stages of 32 rows for y1 = yd W (mma_streamed_w) and two slabs of
+//   its group's 256 rows x 64 columns for g_yd, which sit where yd was
+//   (yd is dead once y1 is in registers): 205 KB of shared memory.  g_yd
+//   of the three groups at once would take 3 D / 4 accumulators a thread
+//   (192 at D = 256), so each group's product runs twice, once for the
+//   LN_in backward's row sums and once for gx.  The yd and g_y1 rows go
+//   out in bf16 for the tensor-core weight gradient (wgrad_tc.cuh
+//   wgrad_tc, whose bias row is gb).
+// * float32: the exactness check, CUDA cores: one block per 32-row tile
+//   (16 at D = 256), each warp RPT rows, a lane D / 32 adjacent columns, so
+//   LN_out is a warp reduction in registers; both products stage their
+//   weight from L2 32 rows at a time (common.cuh gemm_staged); yd and g_y1
+//   rows in float32 for the CUDA-core weight gradient.
+// Sums across blocks go through scratch slots and a fixed-order second
+// pass: the same bits from run to run, no atomics.
+#include "bwd_wide.cuh"
+#include "tri_bridge_tc.cuh"
+
+namespace {
+
+using namespace tvqa;
+
+template <int D>
+struct Tri {
+  static constexpr int CPL = D / 32;
+  static constexpr int RPT = D == 256 ? 2 : 4;
+  static constexpr int RT = RPT * NWARPS;
+  static constexpr int SMEM = 4 * (RT * 3 * D + RT * D + KC * D + 2 * RT);
+};
+
+template <int N>
+__device__ __forceinline__ void load_n(const float* p, float (&v)[N]) {
+#pragma unroll
+  for (int t = 0; t < N; ++t) v[t] = p[t];
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+tri_bridge_bwd_wide_kernel(const float* __restrict__ s,
+                           const float* __restrict__ v,
+                           const float* __restrict__ gin,
+                           const float* __restrict__ bin,
+                           const float* __restrict__ W,
+                           const float* __restrict__ Wt,
+                           const float* __restrict__ bias,
+                           const float* __restrict__ gout,
+                           const float* __restrict__ gy,
+                           float* __restrict__ gs, float* __restrict__ gv,
+                           float* __restrict__ yd_buf,
+                           float* __restrict__ gy1_buf,
+                           float* __restrict__ vec_part, long long R,
+                           Dropout drop) {
+  using S = Tri<D>;
+  constexpr int CPL = S::CPL, RPT = S::RPT, RT = S::RT;
+  constexpr int NV = 9 * D;  // ggin (3D), gbin (3D), gb, ggout, gbout (D)
+  drop.load_seed();
+  extern __shared__ float4 smem4[];
+  float* y_s = reinterpret_cast<float*>(smem4);       // RT x 3D
+  float* g1_s = y_s + RT * 3 * D;                      // RT x D
+  float* w_s = g1_s + RT * D;                          // KC x D
+  float* st_s = w_s + KC * D;                          // RT x 2
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c0 = lane * CPL;
+  const long long r0 = static_cast<long long>(blockIdx.x) * RT;
+
+  float vgi[3][CPL], vbi[3][CPL], vgb[CPL], vgo[CPL], vbo[CPL];
+#pragma unroll
+  for (int t = 0; t < CPL; ++t) {
+    vgb[t] = vgo[t] = vbo[t] = 0.f;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) vgi[g][t] = vbi[g][t] = 0.f;
+  }
+
+  // ---- recompute yd = dropout(LN_in([s; v; s*v])) ----------------------
+#pragma unroll 1
+  for (int jj = 0; jj < RPT; ++jj) {
+    const int r = warp * RPT + jj;
+    const long long row = r0 + r;
+    float* yr = y_s + r * 3 * D;
+    if (row >= R) {
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int t = 0; t < CPL; ++t) yr[g * D + c0 + t] = 0.f;
+      continue;
+    }
+    float sv[CPL], vv[CPL], x[3][CPL], sum = 0.f, ss = 0.f;
+    load_n(s + row * D + c0, sv);
+    load_n(v + row * D + c0, vv);
+#pragma unroll
+    for (int t = 0; t < CPL; ++t) {
+      x[0][t] = sv[t];
+      x[1][t] = vv[t];
+      x[2][t] = sv[t] * vv[t];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        sum += x[g][t];
+        ss = fmaf(x[g][t], x[g][t], ss);
+      }
+    }
+    sum = warp_sum(sum);
+    ss = warp_sum(ss);
+    const float mean = sum * (1.f / (3 * D));
+    const float istd =
+        rsqrtf(fmaxf(ss * (1.f / (3 * D)) - mean * mean, 0.f) + LN_EPS);
+    if (lane == 0) {
+      st_s[2 * r] = mean;
+      st_s[2 * r + 1] = istd;
+    }
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      const int k0 = g * D + c0;
+      float km[CPL];
+      keep_or_one<CPL>(drop, static_cast<unsigned long long>(row) * (3 * D)
+                                 + k0, km);
+#pragma unroll
+      for (int t = 0; t < CPL; ++t) {
+        const float y =
+            ((x[g][t] - mean) * istd * gin[k0 + t] + bin[k0 + t]) * km[t];
+        yr[k0 + t] = y;
+        yd_buf[row * (3 * D) + k0 + t] = y;
+      }
+    }
+  }
+
+  // ---- y1 = yd W + b; LN_out and ReLU backward --------------------------
+  float acc[RPT][CPL];
+  gemm_staged<RPT, D>(acc, y_s, 3 * D, 3 * D, W, w_s, warp * RPT, c0);
+#pragma unroll
+  for (int jj = 0; jj < RPT; ++jj) {
+    const int r = warp * RPT + jj;
+    const long long row = r0 + r;
+    float g1[CPL];
+#pragma unroll
+    for (int t = 0; t < CPL; ++t) g1[t] = 0.f;
+    if (row < R) {
+      float y1[CPL], y2[CPL], sum = 0.f, ss = 0.f;
+#pragma unroll
+      for (int t = 0; t < CPL; ++t) {
+        y1[t] = acc[jj][t] + bias[c0 + t];
+        y2[t] = fmaxf(y1[t], 0.f);
+        sum += y2[t];
+        ss = fmaf(y2[t], y2[t], ss);
+      }
+      sum = warp_sum(sum);
+      ss = warp_sum(ss);
+      const float mean = sum * (1.f / D);
+      const float istd =
+          rsqrtf(fmaxf(ss * (1.f / D) - mean * mean, 0.f) + LN_EPS);
+      float gg[CPL], xh[CPL], gxh[CPL], s1 = 0.f, s2 = 0.f;
+      load_n(gy + row * D + c0, gg);
+#pragma unroll
+      for (int t = 0; t < CPL; ++t) {
+        xh[t] = (y2[t] - mean) * istd;
+        gxh[t] = gg[t] * gout[c0 + t];
+        s1 += gxh[t];
+        s2 = fmaf(gxh[t], xh[t], s2);
+        vgo[t] = fmaf(gg[t], xh[t], vgo[t]);
+        vbo[t] += gg[t];
+      }
+      const float m1 = warp_sum(s1) * (1.f / D);
+      const float m2 = warp_sum(s2) * (1.f / D);
+#pragma unroll
+      for (int t = 0; t < CPL; ++t) {
+        const float g2 = istd * (gxh[t] - m1 - xh[t] * m2);
+        g1[t] = y1[t] > 0.f ? g2 : 0.f;
+        vgb[t] += g1[t];
+        gy1_buf[row * D + c0 + t] = g1[t];
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < CPL; ++t) g1_s[r * D + c0 + t] = g1[t];
+  }
+
+  // ---- g_yd = g_y1 W^T, dropout replay, LN_in backward, one group at a
+  // time for the sums, then the three again for gs and gv ----------------
+  float ti1[RPT], ti2[RPT];
+#pragma unroll
+  for (int jj = 0; jj < RPT; ++jj) ti1[jj] = ti2[jj] = 0.f;
+  // pass 1: the parameter sums and the row sums of the LN_in backward
+#pragma unroll 1
+  for (int g = 0; g < 3; ++g) {
+    float acc3[RPT][CPL];
+    gemm_staged_ld<RPT, D>(acc3, g1_s, D, D, Wt + g * D, 3 * D, w_s,
+                           warp * RPT, c0);
+#pragma unroll
+    for (int jj = 0; jj < RPT; ++jj) {
+      const int r = warp * RPT + jj;
+      const long long row = r0 + r;
+      if (row >= R) continue;
+      const float mean = st_s[2 * r], istd = st_s[2 * r + 1];
+      float sv[CPL], vv[CPL], km[CPL];
+      load_n(s + row * D + c0, sv);
+      load_n(v + row * D + c0, vv);
+      const int k0 = g * D + c0;
+      keep_or_one<CPL>(drop, static_cast<unsigned long long>(row) * (3 * D)
+                                 + k0, km);
+#pragma unroll
+      for (int t = 0; t < CPL; ++t) {
+        const float x = g == 0 ? sv[t] : (g == 1 ? vv[t] : sv[t] * vv[t]);
+        const float xh = (x - mean) * istd;
+        const float gyv = acc3[jj][t] * km[t];
+        vgi[g][t] = fmaf(gyv, xh, vgi[g][t]);
+        vbi[g][t] += gyv;
+        const float gxh = gyv * gin[k0 + t];
+        ti1[jj] += gxh;
+        ti2[jj] = fmaf(gxh, xh, ti2[jj]);
+      }
+    }
+  }
+#pragma unroll
+  for (int jj = 0; jj < RPT; ++jj) {
+    ti1[jj] = warp_sum(ti1[jj]) * (1.f / (3 * D));
+    ti2[jj] = warp_sum(ti2[jj]) * (1.f / (3 * D));
+  }
+  // pass 2: gx of each group; gs = gx0 + gx2 v, gv = gx1 + gx2 s
+  float os[RPT][CPL], ov[RPT][CPL];
+#pragma unroll 1
+  for (int g = 0; g < 3; ++g) {
+    float acc3[RPT][CPL];
+    gemm_staged_ld<RPT, D>(acc3, g1_s, D, D, Wt + g * D, 3 * D, w_s,
+                           warp * RPT, c0);
+#pragma unroll
+    for (int jj = 0; jj < RPT; ++jj) {
+      const int r = warp * RPT + jj;
+      const long long row = r0 + r;
+      if (row >= R) continue;
+      const float mean = st_s[2 * r], istd = st_s[2 * r + 1];
+      float sv[CPL], vv[CPL], km[CPL];
+      load_n(s + row * D + c0, sv);
+      load_n(v + row * D + c0, vv);
+      const int k0 = g * D + c0;
+      keep_or_one<CPL>(drop, static_cast<unsigned long long>(row) * (3 * D)
+                                 + k0, km);
+#pragma unroll
+      for (int t = 0; t < CPL; ++t) {
+        const float x = g == 0 ? sv[t] : (g == 1 ? vv[t] : sv[t] * vv[t]);
+        const float xh = (x - mean) * istd;
+        const float gxh = acc3[jj][t] * km[t] * gin[k0 + t];
+        const float gx = istd * (gxh - ti1[jj] - xh * ti2[jj]);
+        if (g == 0) {
+          os[jj][t] = gx;
+        } else if (g == 1) {
+          ov[jj][t] = gx;
+        } else {
+          os[jj][t] = fmaf(gx, vv[t], os[jj][t]);
+          ov[jj][t] = fmaf(gx, sv[t], ov[jj][t]);
+        }
+      }
+      if (g == 2) {
+        store_n<float, CPL>(gs + row * D + c0, os[jj]);
+        store_n<float, CPL>(gv + row * D + c0, ov[jj]);
+      }
+    }
+  }
+
+  // ---- the block's parameter-vector partials, warps summed in order ----
+  __syncthreads();
+  // NWARPS x NV floats over y_s, g1_s and w_s (RT x 5D + KC x D >= 9 x 8 D)
+  float* red = y_s;
+#pragma unroll
+  for (int t = 0; t < CPL; ++t) {
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      red[warp * NV + g * D + c0 + t] = vgi[g][t];
+      red[warp * NV + 3 * D + g * D + c0 + t] = vbi[g][t];
+    }
+    red[warp * NV + 6 * D + c0 + t] = vgb[t];
+    red[warp * NV + 7 * D + c0 + t] = vgo[t];
+    red[warp * NV + 8 * D + c0 + t] = vbo[t];
+  }
+  __syncthreads();
+  for (int k = tid; k < NV; k += NTHREADS) {
+    float acc_k = 0.f;
+    for (int wp = 0; wp < NWARPS; ++wp) acc_k += red[wp * NV + k];
+    vec_part[static_cast<size_t>(blockIdx.x) * NV + k] = acc_k;
+  }
+}
+
+template <int D>
+int launch(const float* s, const float* v, const float* gin,
+           const float* bin, const float* W, const float* Wt,
+           const float* bias, const float* gout, const float* g, float* gs,
+           float* gv, float* gvec, float* gw, float* yd, float* gy1,
+           float* vec_part, float* wg_part, long long R, int wg_chunks,
+           Dropout drop, cudaStream_t stream) {
+  using S = Tri<D>;
+  auto kern = tri_bridge_bwd_wide_kernel<D>;
+  cudaError_t err = allow_smem(kern, S::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = static_cast<int>((R + S::RT - 1) / S::RT);
+  kern<<<blocks, NTHREADS, S::SMEM, stream>>>(s, v, gin, bin, W, Wt, bias,
+                                              gout, g, gs, gv, yd, gy1,
+                                              vec_part, R, drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if ((err = wgrad(yd, gy1, wg_part, gw, R, 3 * D, D, wg_chunks,
+                   stream)) != cudaSuccess)
+    return static_cast<int>(err);
+  return static_cast<int>(sum_slots<float>(vec_part, gvec, 1, blocks, 9 * D,
+                                           stream));
+}
+
+// ---- the bfloat16 instantiation: tensor cores ------------------------------
+
+// Shared-memory layout at width D (bytes from the 1024-aligned base).  D =
+// 64: W^T (3 panels of D rows: the K-major B of y1 = yd W) and W (one
+// panel of 3D rows: the K-major B of g_yd = g_y1 W^T), both resident.  D =
+// 256: two stages of KP rows of W for y1 (mma_streamed_w).  Then the s and
+// v tiles; yd (64 x 3D); g_y1 (64 x D), behind yd at D = 64 and over yd's
+// first third at D = 256, where yd is dead once y1 is in registers and the
+// two slabs of W that g_yd streams (D rows x 64 columns each) take the rest
+// of it; the exchange rounds [4][wg][row][2]; gin, bin, bias, gout.
+template <int D>
+struct TriBwdTc {
+  static constexpr bool WIDE = D == 256;
+  static constexpr int KP = 32;                     // W rows a y1 stage
+  static constexpr int TILE = Shapes<D>::TILE_BYTES;
+  static constexpr int SLAB = D * tc::ROW_BYTES;    // D rows of 64 bf16
+  static constexpr int O_S = WIDE ? 2 * stream_stage_bytes<D, KP>()
+                                  : 2 * Shapes<D>::W_BYTES;
+  static constexpr int O_V = O_S + TILE;
+  static constexpr int O_YD = O_V + TILE;
+  static constexpr int O_G1 = WIDE ? O_YD : O_YD + 3 * TILE;
+  static constexpr int O_SLAB = O_YD + TILE;        // D = 256
+  static constexpr int O_EX = O_YD + 3 * TILE + (WIDE ? 0 : TILE);
+  static constexpr int O_PV = O_EX + 4 * 2 * TM * 2 * 4;
+  static constexpr int SMEM = O_PV + 8 * D * 4 + tc::ATOM_BYTES;
+};
+
+// Sums over the thread's two rows and the eight lanes that hold the
+// column's other rows of v[i] (column pair i / 2 of the thread's 8-column
+// blocks, element i % 2), added into acc: entry j of acc is v's entry
+// j + N / 8 (4 b4 + 2 b3 + b2) before the folds (bN = bit N of the lane).
+template <int N>
+__device__ __forceinline__ void fold_cols(float (&v)[N],
+                                          float (&acc)[N / 8], int lane) {
+  fold<N>(v, 16, lane);
+  fold<N / 2>(v, 8, lane);
+  fold<N / 4>(v, 4, lane);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) acc[j] += v[j];
+}
+
+// Column of fold_cols' entry j for this lane (warpgroup columns from half).
+template <int N>
+__device__ __forceinline__ int fold_col(int j, int half, int lane) {
+  const int i = j + N / 8 * (4 * ((lane >> 4) & 1) + 2 * ((lane >> 3) & 1)
+                             + ((lane >> 2) & 1));
+  return half + 8 * (i >> 1) + 2 * (lane & 3) + (i & 1);
+}
+
+// acc = g_y1 W[g D + n, :]^T on the warpgroup's D / 2 columns n of group g
+// (the g_y1 tile K-major).  D = 64: W resident, K-major; D = 256: W's
+// columns stream in four slabs of 64 (the group's D rows), two buffers,
+// one loading while the tensor cores take the other.  Every thread of the
+// block calls it.
+template <int D>
+__device__ __forceinline__ void tri_gyd_mma(float (&acc)[D / 4],
+                                            uint8_t* sm, const float* W,
+                                            int g, int wg) {
+  using S = TriBwdTc<D>;
+  const uint32_t g1 = tc::smem_u32(sm + S::O_G1);
+  if constexpr (!S::WIDE) {
+    const uint32_t w = tc::smem_u32(sm + Shapes<D>::W_BYTES);
+    tc::fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      tc::mma_ss<D / 2, 0, 0>(
+          acc, tc::make_desc(g1 + ks * 32, 16),
+          tc::make_desc(w + (g * D + D / 2 * wg) * tc::ROW_BYTES + ks * 32,
+                        16),
+          ks > 0);
+    tc::commit();
+    tc::wait_all();
+  } else {
+    uint8_t* slabs = sm + S::O_SLAB;
+    const float* wg_rows = W + static_cast<size_t>(g) * D * D;
+    __syncthreads();                   // the slabs' last readers are done
+    tc_store_rows_f32<64>(slabs, D, wg_rows, D, threadIdx.x, NTHREADS);
+    tc::fence_async_smem();
+    __syncthreads();
+#pragma unroll
+    for (int kc = 0; kc < D / 64; ++kc) {
+      const uint32_t st = tc::smem_u32(slabs + (kc & 1) * S::SLAB);
+      tc::fence();
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        tc::mma_ss<D / 2, 0, 0>(
+            acc, tc::make_desc(g1 + kc * TILE_PANEL + s * 32, 16),
+            tc::make_desc(st + D / 2 * wg * tc::ROW_BYTES + s * 32, 16),
+            kc > 0 || s > 0);
+      tc::commit();
+      if (kc + 1 < D / 64) {
+        tc::wait<1>();                 // the other slab's products are done
+        __syncthreads();               // ... in both warpgroups
+        tc_store_rows_f32<64>(slabs + ((kc + 1) & 1) * S::SLAB, D,
+                              wg_rows + (kc + 1) * 64, D, threadIdx.x,
+                              NTHREADS);
+        tc::fence_async_smem();
+        __syncthreads();
+      }
+    }
+    tc::wait_all();
+  }
+  tc::fence_regs(acc);
+}
+
+// The bf16 backward at D = 64 and 256: tri_bridge_bwd.cu's
+// tri_bridge_bwd_tc_kernel (one resident block an SM walks 64-row tiles,
+// the two warpgroups split the columns, the recompute on tri_bridge_tc.cuh)
+// with W resident at 64 and streamed at 256.  g_yd of the three groups
+// would take 3 D / 4 accumulators a thread (192 at D = 256), so it is taken
+// one group at a time, twice: first for the LN_in backward's row sums and
+// the parameter sums, then again for gx (group 2 first: gs = gx0 + gx2 v
+// and gv = gx1 + gx2 s are stored as groups 0 and 1 come).
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+tri_bridge_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ s,
+                              const __nv_bfloat16* __restrict__ v,
+                              const float* __restrict__ gin,
+                              const float* __restrict__ bin,
+                              const float* __restrict__ W,
+                              const float* __restrict__ bias,
+                              const float* __restrict__ gout,
+                              const __nv_bfloat16* __restrict__ gy,
+                              __nv_bfloat16* __restrict__ gs,
+                              __nv_bfloat16* __restrict__ gv,
+                              __nv_bfloat16* __restrict__ yd_rows,
+                              __nv_bfloat16* __restrict__ gy1_rows,
+                              float* __restrict__ vec_part, long long R,
+                              Dropout drop) {
+  using S = TriBwdTc<D>;
+  constexpr int NF = D / 8;            // fold entries: column pairs x 2
+  constexpr int NC = NF / 8;           // a lane's columns after the folds
+  constexpr int KW = (D / 16 + 7) / 8; // keep words of a group and row
+  constexpr int NVT = 8 * D;   // ggin (3D), gbin (3D), ggout, gbout (D)
+  drop.load_seed();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_smem(smem_raw);
+  uint8_t* s_s = sm + S::O_S;
+  uint8_t* v_s = sm + S::O_V;
+  uint8_t* yd_s = sm + S::O_YD;
+  uint8_t* g1_s = sm + S::O_G1;
+  float* ex_s = reinterpret_cast<float*>(sm + S::O_EX);
+  float* gin_s = reinterpret_cast<float*>(sm + S::O_PV);
+  float* bin_s = gin_s + 3 * D;
+  float* bias_s = bin_s + 3 * D;
+  float* gout_s = bias_s + D;
+
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31;
+  const int rl = 16 * warp + (lane >> 2);
+  const int cl = 2 * (lane & 3);
+  const int half = D / 2 * wg;
+  for (int k = tid; k < 3 * D; k += NTHREADS) {
+    gin_s[k] = gin[k];
+    bin_s[k] = bin[k];
+  }
+  if (tid < D) {                       // D <= NTHREADS
+    bias_s[tid] = bias[tid];
+    gout_s[tid] = gout[tid];
+  }
+  if constexpr (!S::WIDE) {            // W^T and W, rounded to bf16
+    tri_store_wt<D>(sm, W, tid);
+    tc_store_rows_f32<D>(sm + Shapes<D>::W_BYTES, 3 * D, W, D, tid,
+                         NTHREADS);
+  }
+  float vgi[3][NC], vbi[3][NC], vgo[NC], vbo[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    vgo[j] = vbo[j] = 0.f;
+#pragma unroll
+    for (int g = 0; g < 3; ++g) vgi[g][j] = vbi[g][j] = 0.f;
+  }
+
+  const long long tiles = (R + TM - 1) / TM;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long r0 = tile * TM;
+    const int rows = static_cast<int>(min(static_cast<long long>(TM),
+                                          R - r0));
+    __syncthreads();                   // the previous tile is consumed
+    tc_load_rows<D>(s_s, TM, s + r0 * D, D, rows, tid, NTHREADS);
+    tc_load_rows<D>(v_s, TM, v + r0 * D, D, rows, tid, NTHREADS);
+    tc::cp_async_commit();
+    bool live[2];
+    long long row[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      live[h] = rl + 8 * h < rows;
+      row[h] = r0 + (live[h] ? rl + 8 * h : 0);
+    }
+    uint32_t kw[3][2][KW];
+    tri_keep_bits<D>(drop, row, lane, half, kw);
+    tc::cp_async_wait<0>();
+    tc::fence_async_smem();            // W (first tile) is read by wgmma
+    __syncthreads();
+    // ---- the recompute: LN_in statistics, yd (out as rows), y1 ---------
+    float mean[2], istd[2];
+    tri_ln_in_stats<D>(s_s, v_s, ex_s, mean, istd, wg, rl, lane);
+    tri_yd_tile<true, D>(s_s, v_s, yd_s, kw, drop, mean, istd, gin_s, bin_s,
+                         yd_rows, live, row, wg, rl, lane);
+    tc::fence_async_smem();
+    __syncthreads();                   // the yd tile is whole
+    float acc[D / 4], m2[2], i2[2];
+    if constexpr (S::WIDE)
+      mma_streamed_w<D, 3 * D, S::KP>(acc, tc::smem_u32(yd_s), W, sm, wg);
+    else
+      tri_y1_mma<D>(acc, yd_s, sm, wg);
+    // (a block barrier: past it, yd's readers are done in both warpgroups)
+    tri_ln_out_stats<D>(acc, bias_s, ex_s + 2 * TM * 2, m2, i2, wg, rl,
+                        lane);
+    // ---- LN_out and ReLU backward; g_y1 into its tile and out as rows ----
+    float gg[D / 4], s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+    {
+      float tg[NF], tb[NF];
+#pragma unroll
+      for (int k = 0; k < NF; ++k) tg[k] = tb[k] = 0.f;
+#pragma unroll
+      for (int pr = 0; pr < D / 8; ++pr) {
+        const int h = pr & 1, q = pr >> 1, c = half + 8 * q + cl;
+        const float2 g2 = live[h]
+            ? tc::unpack_bf16(__ldg(reinterpret_cast<const unsigned int*>(
+                  gy + row[h] * D + c)))
+            : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 2 * pr + e;
+          const float g = e ? g2.y : g2.x;
+          const float xh = (fmaxf(acc[i], 0.f) - m2[h]) * i2[h];
+          tg[2 * q + e] = fmaf(g, xh, tg[2 * q + e]);
+          tb[2 * q + e] += g;
+          gg[i] = g * gout_s[c + e];                         // gxh2
+          s1[h] += gg[i];
+          s2[h] = fmaf(gg[i], xh, s2[h]);
+        }
+      }
+      fold_cols<NF>(tg, vgo, lane);
+      fold_cols<NF>(tb, vbo, lane);
+    }
+    tri_row_pair_sums(ex_s + 2 * 2 * TM * 2, s1, s2, wg, rl, lane);
+#pragma unroll
+    for (int pr = 0; pr < D / 8; ++pr) {
+      const int h = pr & 1, c = half + 8 * (pr >> 1) + cl;
+      float g1[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * pr + e;
+        const float xh = (fmaxf(acc[i], 0.f) - m2[h]) * i2[h];
+        const float g2 = i2[h] * (gg[i] - s1[h] * (1.f / D)
+                                  - xh * s2[h] * (1.f / D));
+        g1[e] = acc[i] > 0.f ? g2 : 0.f;
+      }
+      const uint32_t p = tc::pack_bf16(g1[0], g1[1]);
+      *reinterpret_cast<uint32_t*>(g1_s + (c >> 6) * TILE_PANEL
+                                   + tc::swz(rl + 8 * h, c & 63)) = p;
+      if (live[h])
+        *reinterpret_cast<uint32_t*>(gy1_rows + row[h] * D + c) = p;
+    }
+    tc::fence_async_smem();
+    __syncthreads();                   // the g_y1 tile is whole
+    // ---- pass 1: g_yd a group at a time, the dropout replay, ggin / gbin,
+    // the LN_in backward's row sums ----------------------------------------
+    float t1[2] = {0.f, 0.f}, t2[2] = {0.f, 0.f};
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      tri_gyd_mma<D>(acc, sm, W, g, wg);
+      float tg[NF], tb[NF];
+#pragma unroll
+      for (int k = 0; k < NF; ++k) tg[k] = tb[k] = 0.f;
+#pragma unroll
+      for (int pr = 0; pr < D / 8; ++pr) {
+        const int h = pr & 1, q = pr >> 1, c = half + 8 * q + cl;
+        const float2 a = tri_pair(s_s, rl, h, c),
+                     b = tri_pair(v_s, rl, h, c);
+        const uint32_t bits = KW == 1 ? kw[g][h][0] >> (4 * q)
+                                      : kw[g][h][q >> 3] >> (4 * (q & 7));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 2 * pr + e;
+          const float sv = e ? a.y : a.x, vv = e ? b.y : b.x;
+          const float x = g == 0 ? sv : (g == 1 ? vv : sv * vv);
+          const float xh = (x - mean[h]) * istd[h];
+          const float km = !drop.on() ? 1.f
+              : ((bits >> e) & 1u ? drop.scale : 0.f);
+          const float gyv = acc[i] * km;
+          tg[2 * q + e] = fmaf(gyv, xh, tg[2 * q + e]);
+          tb[2 * q + e] += gyv;
+          const float gxh = gyv * gin_s[g * D + c + e];
+          t1[h] += gxh;
+          t2[h] = fmaf(gxh, xh, t2[h]);
+        }
+      }
+      fold_cols<NF>(tg, vgi[g], lane);
+      fold_cols<NF>(tb, vbi[g], lane);
+    }
+    tri_row_pair_sums(ex_s + 3 * 2 * TM * 2, t1, t2, wg, rl, lane);
+    // ---- pass 2: gx of each group again; gs and gv out -------------------
+    float gx2[D / 4];
+#pragma unroll
+    for (int n = 0; n < 3; ++n) {
+      const int g = (n + 2) % 3;       // groups 2, 0, 1
+      tri_gyd_mma<D>(acc, sm, W, g, wg);
+#pragma unroll
+      for (int pr = 0; pr < D / 8; ++pr) {
+        const int h = pr & 1, q = pr >> 1, c = half + 8 * q + cl;
+        const float2 a = tri_pair(s_s, rl, h, c),
+                     b = tri_pair(v_s, rl, h, c);
+        const uint32_t bits = KW == 1 ? kw[g][h][0] >> (4 * q)
+                                      : kw[g][h][q >> 3] >> (4 * (q & 7));
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 2 * pr + e;
+          const float sv = e ? a.y : a.x, vv = e ? b.y : b.x;
+          const float x = g == 0 ? sv : (g == 1 ? vv : sv * vv);
+          const float xh = (x - mean[h]) * istd[h];
+          const float km = !drop.on() ? 1.f
+              : ((bits >> e) & 1u ? drop.scale : 0.f);
+          const float gxh = acc[i] * km * gin_s[g * D + c + e];
+          const float gx = istd[h] * (gxh - t1[h] * (1.f / (3 * D))
+                                      - xh * t2[h] * (1.f / (3 * D)));
+          if (g == 2)
+            gx2[i] = gx;
+          else
+            o[e] = fmaf(gx2[i], g == 0 ? vv : sv, gx);
+        }
+        if (g != 2 && live[h])
+          *reinterpret_cast<uint32_t*>((g == 0 ? gs : gv) + row[h] * D + c) =
+              tc::pack_bf16(o[0], o[1]);
+      }
+    }
+  }
+  // ---- the block's parameter-vector partials, warps summed in order -----
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(yd_s);        // [4 warps][NVT]
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int c = fold_col<NF>(j, half, lane);
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      red[warp * NVT + g * D + c] = vgi[g][j];
+      red[warp * NVT + 3 * D + g * D + c] = vbi[g][j];
+    }
+    red[warp * NVT + 6 * D + c] = vgo[j];
+    red[warp * NVT + 7 * D + c] = vbo[j];
+  }
+  __syncthreads();
+  for (int k = tid; k < NVT; k += NTHREADS)
+    vec_part[static_cast<size_t>(blockIdx.x) * NVT + k] =
+        ((red[k] + red[NVT + k]) + red[2 * NVT + k]) + red[3 * NVT + k];
+}
+
+// The bf16 backward: the main kernel, the weight gradient over the bf16
+// rows it wrote and the fixed-order slot sums.
+template <int D>
+int launch_tc(const void* s, const void* v, const float* gin,
+              const float* bin, const float* W, const float* bias,
+              const float* gout, const void* g, void* gs, void* gv,
+              float* gvec, float* gw, void* yd, void* gy1, float* vec_part,
+              float* wg_part, long long R, int wg_chunks, Dropout drop,
+              cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  auto h = [](const void* p) { return static_cast<const bf16*>(p); };
+  auto hm = [](void* p) { return static_cast<bf16*>(p); };
+  constexpr int smem = TriBwdTc<D>::SMEM;
+  cudaError_t err = allow_smem(tri_bridge_bwd_tc_wide_kernel<D>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = (R + TM - 1) / TM;
+  const int sms = sm_count();
+  const int blocks = static_cast<int>(tiles < sms ? tiles : sms);
+  tri_bridge_bwd_tc_wide_kernel<D><<<blocks, NTHREADS, smem, stream>>>(
+      h(s), h(v), gin, bin, W, bias, gout, h(g), hm(gs), hm(gv), hm(yd),
+      hm(gy1), vec_part, R, drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  // [gw; gb] (the wrapper lays gb behind gw)
+  if ((err = wgrad_tc(h(yd), h(gy1), wg_part, gw, R, 3 * D, D,
+                      wg_chunks, stream)) != cudaSuccess)
+    return static_cast<int>(err);
+  return static_cast<int>(sum_slots<float>(vec_part, gvec, 1, blocks, 8 * D,
+                                           stream));
+}
+
+}  // namespace
+
+// As tri_bridge_bwd (tri_bridge_bwd.cu) at width D = 64 or 256: s, v, g,
+// gs, gv R rows of D, all bf16 (is_bf16) or all float32; gin/bin (3D), W
+// (3D, D), Wt = W^T (D, 3D), bias, gout (D) float32; when is_bf16 the
+// kernel rounds W to bf16 itself and Wt is unused (may be NULL).  Outputs,
+// float32: gvec = [ggin (3D); gbin (3D); gb (D); ggout (D); gbout (D)] and
+// gw (3D, D); when is_bf16 gvec has no gb and gw has 3D + 1 rows, the last
+// is gb.  Scratch (the wrapper's): yd (R, 3D) and gy1 (R, D) in the
+// activation type; float32 vec_part (ceil(R / RT), 9D) with RT = 16 at D =
+// 256, else 32, and wg_part (wg_chunks, 3D, D), or when is_bf16 vec_part
+// (min(ceil(R / 64), SMs), 8D) and wg_part (wg_chunks, 3D + 1, D).  Any
+// other D is refused.
+extern "C" int tri_bridge_bwd_wide(
+    const void* s, const void* v, const void* gin, const void* bin,
+    const void* W, const void* Wt, const void* bias, const void* gout,
+    const void* g, void* gs, void* gv, void* gvec, void* gw, void* yd,
+    void* gy1, void* vec_part, void* wg_part, long long R, int wg_chunks,
+    int d, const unsigned long long* drop_seed, unsigned drop_threshold,
+    float drop_scale, int is_bf16, void* stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto fm = [](void* p) { return static_cast<float*>(p); };
+  auto st = static_cast<cudaStream_t>(stream);
+  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
+#define TVQA_TRI_WIDE(DD)                                                  \
+  return is_bf16                                                           \
+      ? launch_tc<DD>(s, v, f(gin), f(bin), f(W), f(bias), f(gout), g, gs, \
+                      gv, fm(gvec), fm(gw), yd, gy1, fm(vec_part),         \
+                      fm(wg_part), R, wg_chunks, drop, st)                 \
+      : launch<DD>(f(s), f(v), f(gin), f(bin), f(W), f(Wt), f(bias),       \
+                   f(gout), f(g), fm(gs), fm(gv), fm(gvec), fm(gw), fm(yd), \
+                   fm(gy1), fm(vec_part), fm(wg_part), R, wg_chunks, drop,  \
+                   st)
+  if (d == 64) TVQA_TRI_WIDE(64);
+  if (d == 256) TVQA_TRI_WIDE(256);
+#undef TVQA_TRI_WIDE
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -203,25 +203,6 @@ struct TriTc {
   static constexpr int SMEM = O_PV + 9 * D * 4 + tc::ATOM_BYTES;
 };
 
-// W^T (D rows n x 3D columns k) rounded to bf16 into 3D / 64 panels of D
-// rows, the K-major B operand of tri_y1_mma at D = 64; every thread.
-template <int D>
-__device__ __forceinline__ void tri_store_wt(uint8_t* w_s, const float* W,
-                                             int tid) {
-  constexpr int CH = 3 * D / 8;                     // 16-byte chunks a row
-  for (int c = tid; c < D * CH; c += NTHREADS) {
-    const int n = c / CH, ch = c % CH;
-    float e[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      e[j] = __ldg(W + static_cast<size_t>(8 * ch + j) * D + n);
-    *reinterpret_cast<uint4*>(w_s + (ch >> 3) * (D * tc::ROW_BYTES)
-                              + tc::swz_chunk(n, ch & 7)) =
-        make_uint4(tc::pack_bf16(e[0], e[1]), tc::pack_bf16(e[2], e[3]),
-                   tc::pack_bf16(e[4], e[5]), tc::pack_bf16(e[6], e[7]));
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 tri_bridge_fwd_tc_kernel(const __nv_bfloat16* __restrict__ s,

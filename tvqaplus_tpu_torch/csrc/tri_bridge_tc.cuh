@@ -116,6 +116,26 @@ __device__ __forceinline__ void tri_yd_tile(
     }
 }
 
+// W^T (D rows n x 3D columns k) rounded to bf16 into 3D / 64 panels of D
+// rows, the K-major B operand of tri_y1_mma at D = 64 (the forward and the
+// backward); every thread.
+template <int D>
+__device__ __forceinline__ void tri_store_wt(uint8_t* w_s, const float* W,
+                                             int tid) {
+  constexpr int CH = 3 * D / 8;                     // 16-byte chunks a row
+  for (int c = tid; c < D * CH; c += NTHREADS) {
+    const int n = c / CH, ch = c % CH;
+    float e[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      e[j] = __ldg(W + static_cast<size_t>(8 * ch + j) * D + n);
+    *reinterpret_cast<uint4*>(w_s + (ch >> 3) * (D * tc::ROW_BYTES)
+                              + tc::swz_chunk(n, ch & 7)) =
+        make_uint4(tc::pack_bf16(e[0], e[1]), tc::pack_bf16(e[2], e[3]),
+                   tc::pack_bf16(e[4], e[5]), tc::pack_bf16(e[6], e[7]));
+  }
+}
+
 // acc = yd W on the warpgroup's D / 2 columns (yd K-major from its tile;
 // W resident: MN-major at D = 128, transposed and K-major at D = 64).
 template <int D = BWD_D>

@@ -27,12 +27,14 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tvqaplus_tpu_torch")
 SOURCES = ("qa_ctx_attention_fwd.cu", "qa_ctx_attention_bwd.cu",
-           "tri_bridge_fwd.cu", "tri_bridge_bwd.cu", "encoder_fwd.cu",
-           "encoder_bwd.cu", "mlp_bridge_fwd.cu", "mlp_bridge_bwd.cu")
+           "qa_ctx_attention_bwd_wide.cu", "tri_bridge_fwd.cu",
+           "tri_bridge_bwd.cu", "tri_bridge_bwd_wide.cu", "encoder_fwd.cu",
+           "encoder_bwd.cu", "encoder_bwd_wide.cu", "encoder_bwd_tc_wide.cu",
+           "mlp_bridge_fwd.cu", "mlp_bridge_bwd.cu")
 _HEADERS = ("common.cuh", "philox.cuh", "grad_reduce.cuh",
             "qa_ctx_attention.cuh", "encoder.cuh", "encoder_tc.cuh",
             "tri_bridge_tc.cuh", "mlp_bridge.cuh", "mlp_bridge_tc.cuh",
-            "wgmma.cuh", "wgrad_tc.cuh")
+            "wgmma.cuh", "wgrad_tc.cuh", "bwd_wide.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -152,19 +154,22 @@ def ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def wgrad_chunks(rows, k, target_blocks=528):
+def wgrad_chunks(rows, k, target_blocks=528, d=128):
     """Row chunks (scratch slots) of the weight-gradient pass of
-    ``csrc/grad_reduce.cuh`` for ``rows`` rows and a K-wide left operand:
-    about four blocks per SM of an H100, at least 32 rows a chunk."""
-    return max(1, min(-(-rows // 32), target_blocks // max(1, k // 64)))
+    ``csrc/grad_reduce.cuh`` for ``rows`` rows, a K-wide left operand and a
+    D-wide right one: about four blocks per SM of an H100, at least 32 rows
+    a chunk."""
+    tiles = max(1, k // 64) * max(1, d // 128)
+    return max(1, min(-(-rows // 32), target_blocks // tiles))
 
 
-def tc_wgrad_chunks(rows, k):
+def tc_wgrad_chunks(rows, k, d=128):
     """Row chunks (scratch slots) of the tensor-core weight-gradient pass of
-    ``csrc/wgrad_tc.cuh`` for ``rows`` rows and a K-wide left operand (K a
-    multiple of 128): two blocks on each of an H100's 132 SMs, at least 64
-    rows a chunk."""
-    return max(1, min(264 // (k // 128), -(-rows // 64)))
+    ``csrc/wgrad_tc.cuh`` for ``rows`` rows, a K-wide left operand (K a
+    multiple of 64) and a D-wide right one: two blocks on each of an H100's
+    132 SMs, at least 64 rows a chunk."""
+    tiles = -(-k // 128) * max(1, d // 128)
+    return max(1, min(264 // tiles, -(-rows // 64)))
 
 
 def sm_count(device):

@@ -74,6 +74,29 @@ BWD_KERNEL = CudaKernel("encoder_bwd.cu", "encoder_reduce_bwd",
 BLOCK_BWD_KERNEL = CudaKernel("encoder_bwd.cu", "encoder_block_bwd",
                               [_P] * 15 + [_I] * 5
                               + [_P, _U32, _F, _I, _P])
+# The backwards at the other widths take D, with the same arguments:
+# csrc/encoder_bwd_tc_wide.cu (bf16, tensor cores; BWD_BY_WIDTH[d] and
+# BLOCK_BWD_BY_WIDTH[d], the main path's, counting at each width) and
+# csrc/encoder_bwd_wide.cu (float32, CUDA cores; F32_*_BY_WIDTH[d]).
+_WIDE_BWD_ARGS = [_P] * 16 + [_I] * 5 + [_P, _U32, _F, _I, _P]
+_WIDE_BLOCK_BWD_ARGS = [_P] * 16 + [_I] * 6 + [_P, _U32, _F, _I, _P]
+
+
+def _wide_bwd(tc, block):
+    source = "encoder_bwd_tc_wide.cu" if tc else "encoder_bwd_wide.cu"
+    symbol = ("encoder_block_bwd" if block else "encoder_reduce_bwd") \
+        + ("_tc_wide" if tc else "_wide")
+    return CudaKernel(source, symbol,
+                      _WIDE_BLOCK_BWD_ARGS if block else _WIDE_BWD_ARGS)
+
+
+_OTHER = [d for d in widths.BACKWARD_WIDTHS if d != 128]
+BWD_BY_WIDTH = {128: BWD_KERNEL, **{d: _wide_bwd(True, False)
+                                    for d in _OTHER}}
+BLOCK_BWD_BY_WIDTH = {128: BLOCK_BWD_KERNEL, **{d: _wide_bwd(True, True)
+                                                for d in _OTHER}}
+F32_BWD_BY_WIDTH = {d: _wide_bwd(False, False) for d in _OTHER}
+F32_BLOCK_BWD_BY_WIDTH = {d: _wide_bwd(False, True) for d in _OTHER}
 
 PARAM_KEYS = ("ln0_s", "ln0_b", "dw0", "dwb0", "pw0", "pwb0",
               "ln1_s", "ln1_b", "dw1", "dwb1", "pw1", "pwb1",
@@ -100,6 +123,15 @@ MAX_LEN = 56
 # sums (8 warps x 6 LN vectors and 2 halves x 2 layers x (9 taps + dwb),
 # each D wide) and the h stash (64 floats for each of 256 threads)
 TC_SUMS = (8 * 6 + 2 * 2 * 10) * 128 + 64 * 256
+
+
+
+def wide_tc_sums(d):
+    """The same for the tensor-core backward at D = 64 or 256
+    (csrc/encoder_bwd_tc_wide.cu ``EncTcW<D>::ACC + H``): the LN sums of 8
+    warps, the taps' sums of each of 256 / D column-pass parts, and the h
+    stash of D / 4 floats a thread."""
+    return (8 * 6 + 256 // d * 2 * 10) * d + d // 4 * 256
 
 
 class _StashConv(torch.autograd.Function):
@@ -177,10 +209,10 @@ def pack_params(params):
 
 def _check(x, pe, packed, k, reduce_mask=None, zero_mask=None,
            backward=False):
-    """Raise on what the kernels do not take (the forward: D in
-    ``widths.FORWARD_WIDTHS``; the backward: D = 128); returns the float32
-    packed parameters, position table and mask (the reduce mask, else the
-    zero mask, else None)."""
+    """Raise on what the kernels do not take (D in
+    ``widths.FORWARD_WIDTHS``, the backward ``widths.BACKWARD_WIDTHS``);
+    returns the float32 packed parameters, position table and mask (the
+    reduce mask, else the zero mask, else None)."""
     if x.dim() != 4:
         raise ValueError(f"x must be (B, G, L, D), got {tuple(x.shape)}")
     bsz, g, l, d = x.shape
@@ -281,7 +313,35 @@ def _backward(x, pe, packed, reduce_mask, zero_mask, g, k, dropout_rate,
     gx = torch.empty_like(x)
     gvec = torch.empty(nv, **f32)
     tc = x.dtype == torch.bfloat16     # the tensor-core kernel
-    if tc:
+    if d != 128:
+        # the c and g_y rows of the weight gradient in x's type
+        chunks = tc_wgrad_chunks(n * l, d, d) if tc \
+            else wgrad_chunks(n * l, d, d=d)
+        gpw = torch.empty(2, d + tc, d, **f32)      # [gpw; gpwb] in bf16
+        rows_out = [torch.empty(n * l, d, dtype=x.dtype, device=x.device)
+                    for _ in range(4)]
+        if tc:
+            # csrc/encoder_bwd_tc_wide.cu: [pw0; pw1] in bf16 as they lie;
+            # the blocks' running sums and h stashes behind their slots
+            pw = torch.stack(pws).to(torch.bfloat16)
+            blocks = min(-(-n // (64 // l)), sm_count(x.device))
+            scratch = rows_out + [
+                torch.empty(blocks, nv + wide_tc_sums(d), **f32), None,
+                torch.empty(chunks, d + 1, d, **f32)]
+            kernel = (BLOCK_BWD_BY_WIDTH if full else BWD_BY_WIDTH)[d]
+        else:
+            # csrc/encoder_bwd_wide.cu: [pw0^T; pw1^T], and at D = 256 the
+            # per-block scratch of a sequence's seven L x D buffers
+            pw = torch.stack([t.t() for t in pws]).contiguous()
+            work = widths.encoder_bwd_work_floats(d, l)
+            scratch = rows_out + [
+                torch.empty(blocks, nv, **f32),
+                torch.empty(blocks, work, **f32) if work else None,
+                torch.empty(chunks, d, d, **f32)]
+            kernel = (F32_BLOCK_BWD_BY_WIDTH if full
+                      else F32_BWD_BY_WIDTH)[d]
+        dims = (n, grp, l, k, d) if full else (n, l, k, d)
+    elif tc:
         # [pw0; pw1] as they lie, and the c and g_y rows of the weight
         # gradient in bf16: the kernel rounds them before that product anyway
         pw = torch.stack(pws).to(torch.bfloat16)
@@ -298,11 +358,13 @@ def _backward(x, pe, packed, reduce_mask, zero_mask, g, k, dropout_rate,
         gpw = torch.empty(2, d, d, **f32)
         scratch = [torch.empty(n * l, d, **f32) for _ in range(4)] + [
             torch.empty(blocks, nv, **f32), torch.empty(chunks, d, d, **f32)]
-    kernel, dims = (BLOCK_BWD_KERNEL, (n, grp, l, k)) if full \
-        else (BWD_KERNEL, (n, l, k))
+    if d == 128:
+        kernel, dims = (BLOCK_BWD_KERNEL, (n, grp, l, k)) if full \
+            else (BWD_KERNEL, (n, l, k))
     kernel.launch(x.device, ptr(x), ptr(pe32), ptr(packed32), ptr(pw),
                   None if m32 is None else ptr(m32), ptr(g), ptr(gx),
-                  ptr(gvec), ptr(gpw), *(ptr(t) for t in scratch), *dims,
+                  ptr(gvec), ptr(gpw),
+                  *(None if t is None else ptr(t) for t in scratch), *dims,
                   chunks, *philox.kernel_args(dropout_rate, seed), int(tc))
     # gvec per layer: ln_s, ln_b, dw (k), dwb, pwb; then lnf_s, lnf_b (the
     # tensor-core kernel's gpwb is the last row of its gpw)

@@ -36,7 +36,12 @@ from tvqaplus_tpu_torch.ops._build import (
     wgrad_chunks,
 )
 from tvqaplus_tpu_torch.ops.masking import SAFE_FLOOR
-from tvqaplus_tpu_torch.ops.plain import Bf16Dot, as_f32, layer_norm
+from tvqaplus_tpu_torch.ops.plain import (
+    Bf16Dot,
+    as_f32,
+    layer_norm,
+    round_bf16,
+)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U32 = ctypes.c_uint
@@ -51,6 +56,13 @@ KERNEL = FWD_BY_WIDTH[128]
 BWD_KERNEL = CudaKernel("qa_ctx_attention_bwd.cu", "qa_ctx_attention_bwd",
                         [_P] * 28 + [_I] * 5 + [_F, _P, _U32, _F, _I, _I,
                                                 _P])
+# The backward at each width: D = 128 the tensor-core design above, 64 and
+# 256 csrc/qa_ctx_attention_bwd_wide.cu's entry, which takes D (one count
+# each)
+BWD_BY_WIDTH = {d: BWD_KERNEL if d == 128 else CudaKernel(
+    "qa_ctx_attention_bwd_wide.cu", "qa_ctx_attention_bwd_wide",
+    [_P] * 28 + [_I] * 6 + [_F, _P, _U32, _F, _I, _I, _P])
+    for d in widths.BACKWARD_WIDTHS}
 
 # Kernel vs plain version on the same inputs.  float32: only the order of
 # the float32 sums differs.  bfloat16: the kernels (tensor cores) and the
@@ -149,9 +161,9 @@ def _with_raw(mixed, masked, raw_mode, targets):
 
 def _check(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b, raw_mode,
            targets, backward=False):
-    """Raise on what the kernels do not take (the forward: D in
-    ``widths.FORWARD_WIDTHS``; the backward: D = 128); returns the float32
-    masks and parameters and the int32 targets."""
+    """Raise on what the kernels do not take (D in
+    ``widths.FORWARD_WIDTHS``, the backward ``widths.BACKWARD_WIDTHS``);
+    returns the float32 masks and parameters and the int32 targets."""
     bsz, num_a, lqa, d = cn.shape
     _, li, lr, _ = qn.shape
     dt = cn.dtype
@@ -264,6 +276,10 @@ def qa_ctx_attention_backward(cn, ce, qn, qe, c_mask, q_mask, gamma, beta,
         graw = g_raw.to(torch.float32).contiguous()
     rows = bsz * li * num_a * lqa
     f32 = dict(dtype=torch.float32, device=dev)
+    if d != 128:
+        return _backward_wide(cn, ce, qn, qe, cm, qm, g32, b32, w32,
+                              g_mixed, graw, tg, mixed, scale, dropout_rate,
+                              seed)
     tc = dt == torch.bfloat16          # the tensor-core kernels
     if tc and (g_mixed.data_ptr() % 16 or mixed.data_ptr() % 16):
         raise ValueError("g_mixed/mixed must start on a 16-byte boundary")
@@ -315,6 +331,56 @@ def qa_ctx_attention_backward(cn, ce, qn, qe, c_mask, q_mask, gamma, beta,
         lqa, li, lr, float(scale),
         *philox.kernel_args(dropout_rate, seed), chunks, int(tc))
     return gcn, gce, gqn, gqe, gvec[:3 * d], gvec[3 * d:6 * d], gw, gb
+
+
+def _backward_wide(cn, ce, qn, qe, cm, qm, g32, b32, w32, g_mixed, graw, tg,
+                   mixed, scale, dropout_rate, seed):
+    """The backward at D = 64 or 256 (``csrc/qa_ctx_attention_bwd_wide.cu``):
+    the same outputs as at D = 128.  bf16 at D = 256: the tensor-core
+    kernel, which takes W in bf16 and hands its g_s, p and g_att rows on in
+    bf16; otherwise the CUDA-core kernel, which takes W^T (rounded to bf16,
+    the compute mode's operand, in bf16) and hands them on in float32.  The
+    yd and g_out rows of the weight gradient are in the activation type:
+    bf16 feeds the tensor-core pass."""
+    bsz, num_a, lqa, d = cn.shape
+    _, li, lr, _ = qn.shape
+    dev, dt = cn.device, cn.dtype
+    bf16 = dt == torch.bfloat16
+    tc = bf16 and d == 256
+    if bf16 and (g_mixed.data_ptr() % 16 or mixed.data_ptr() % 16):
+        raise ValueError("g_mixed/mixed must start on a 16-byte boundary")
+    rows, m = bsz * li * num_a * lqa, num_a * lqa
+    f32 = dict(dtype=torch.float32, device=dev)
+    act = dict(dtype=dt, device=dev)
+    chunks = tc_wgrad_chunks(rows, 3 * d, d) if bf16 \
+        else wgrad_chunks(rows, 3 * d, d=d)
+    nv = (6 if bf16 else 7) * d
+    gcn, gce = torch.empty_like(cn), torch.empty_like(ce)
+    gqn, gqe = torch.empty_like(qn), torch.empty_like(qe)
+    gvec = torch.empty(nv, **f32)
+    gw = torch.empty(3 * d + bf16, d, **f32)     # [gw; gb] in bf16
+    # the g_s, p and g_att rows for the gqn / gqe kernel
+    ld, rdt = ((32 if lr <= 32 else 64), act) if tc else ((lr + 3) & ~3, f32)
+    scratch = [torch.empty(bsz, li, m, d, **f32),
+               torch.empty(bsz, li, m, d, **f32),
+               torch.empty(rows, 3 * d, **act), torch.empty(rows, d, **act),
+               torch.empty(bsz * li, nv, **f32),
+               torch.empty(chunks, 3 * d + bf16, d, **f32),
+               torch.empty(rows, ld, **rdt), torch.empty(rows, ld, **rdt),
+               torch.empty(rows, d, **rdt)]
+    wk = w32.to(dt) if tc \
+        else as_f32((round_bf16(w32) if bf16 else w32).t())
+    BWD_BY_WIDTH[d].launch(
+        dev, ptr(cn), ptr(ce), ptr(qn), ptr(qe), ptr(cm), ptr(qm), ptr(g32),
+        ptr(b32), ptr(wk), ptr(g_mixed), ptr(mixed),
+        ptr(graw) if graw is not None else None,
+        ptr(tg) if (tg is not None and graw is not None) else None,
+        ptr(gcn), ptr(gce), ptr(gqn), ptr(gqe), ptr(gvec), ptr(gw),
+        *(ptr(t) for t in scratch), bsz, num_a, lqa, li, lr, d, float(scale),
+        *philox.kernel_args(dropout_rate, seed), chunks, int(bf16))
+    gb = gw[3 * d] if bf16 else gvec[6 * d:]
+    return (gcn, gce, gqn, gqe, gvec[:3 * d], gvec[3 * d:6 * d], gw[:3 * d],
+            gb)
 
 
 def qa_ctx_attention(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b,

@@ -44,6 +44,12 @@ FWD_BY_WIDTH = {d: CudaKernel("tri_bridge_fwd.cu", "tri_bridge_fwd",
 KERNEL = FWD_BY_WIDTH[128]
 BWD_KERNEL = CudaKernel("tri_bridge_bwd.cu", "tri_bridge_bwd",
                         [_P] * 17 + [_L, _I, _P, _U32, _F, _I, _P])
+# The backward at each width: D = 128 the tensor-core design above, 64 and
+# 256 csrc/tri_bridge_bwd_wide.cu's entry, which takes D (one count each)
+BWD_BY_WIDTH = {d: BWD_KERNEL if d == 128 else CudaKernel(
+    "tri_bridge_bwd_wide.cu", "tri_bridge_bwd_wide",
+    [_P] * 17 + [_L, _I, _I, _P, _U32, _F, _I, _P])
+    for d in widths.BACKWARD_WIDTHS}
 
 # Kernel vs plain version on the same inputs: float32 differs only in the
 # order of float32 sums; bf16 output is rounded once (step 2**-8 relative;
@@ -84,9 +90,9 @@ def tri_bridge_plain(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
 
 
 def _check(s, v, params, backward=False):
-    """Raise on what the kernels do not take (the forward: D in
-    ``widths.FORWARD_WIDTHS``; the backward: D = 128); returns the float32
-    parameters."""
+    """Raise on what the kernels do not take (D in
+    ``widths.FORWARD_WIDTHS``, the backward ``widths.BACKWARD_WIDTHS``);
+    returns the float32 parameters."""
     d = s.shape[-1]
     if v.shape != s.shape or v.dtype != s.dtype:
         raise ValueError(f"v {tuple(v.shape)} {v.dtype} does not match s "
@@ -151,6 +157,9 @@ def tri_bridge_backward(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
         raise ValueError("cotangent does not match s")
     f32 = dict(dtype=torch.float32, device=s.device)
     gs, gv = torch.empty_like(s), torch.empty_like(v)
+    if d != 128:
+        return _backward_wide(s, v, gin, bin_, w32, b32, gout, g, gs, gv,
+                              dropout_rate, seed)
     if s.dtype == torch.bfloat16:      # the tensor-core kernel
         check_aligned(g=g)
         bf16 = dict(dtype=torch.bfloat16, device=s.device)
@@ -183,6 +192,46 @@ def tri_bridge_backward(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
     if s.dtype == torch.bfloat16:
         return (gs, gv, gvec[:3 * d], gvec[3 * d:6 * d], gwb[:3 * d],
                 gwb[3 * d], gvec[6 * d:7 * d], gvec[7 * d:])
+    return (gs, gv, gvec[:3 * d], gvec[3 * d:6 * d], gw, gvec[6 * d:7 * d],
+            gvec[7 * d:8 * d], gvec[8 * d:])
+
+
+def _backward_wide(s, v, gin, bin_, w32, b32, gout, g, gs, gv,
+                   dropout_rate, seed):
+    """The backward at D = 64 or 256 (``csrc/tri_bridge_bwd_wide.cu``): the
+    same outputs as at D = 128.  bf16: the tensor-core kernel, which rounds
+    W to bf16 as it loads it; float32: the CUDA-core kernel, which also
+    takes W^T."""
+    d = s.shape[-1]
+    rows = s.numel() // d
+    bf16 = s.dtype == torch.bfloat16
+    f32 = dict(dtype=torch.float32, device=s.device)
+    act = dict(dtype=s.dtype, device=s.device)
+    if bf16:
+        check_aligned(g=g)
+        chunks = tc_wgrad_chunks(rows, 3 * d, d)
+        blocks = min(-(-rows // 64), sm_count(s.device))
+        wt = None
+    else:
+        chunks = wgrad_chunks(rows, 3 * d, d=d)
+        blocks = -(-rows // (16 if d == 256 else 32))
+        wt = as_f32(w32.t())
+    nv = (8 if bf16 else 9) * d
+    gvec = torch.empty(nv, **f32)
+    gw = torch.empty(3 * d + bf16, d, **f32)     # [gw; gb] in bf16
+    scratch = [torch.empty(rows, 3 * d, **act), torch.empty(rows, d, **act),
+               torch.empty(blocks, nv, **f32),
+               torch.empty(chunks, 3 * d + bf16, d, **f32)]
+    BWD_BY_WIDTH[d].launch(s.device, ptr(s), ptr(v), ptr(gin), ptr(bin_),
+                           ptr(w32), None if wt is None else ptr(wt),
+                           ptr(b32), ptr(gout), ptr(g), ptr(gs), ptr(gv),
+                           ptr(gvec), ptr(gw), *(ptr(t) for t in scratch),
+                           rows, chunks, d,
+                           *philox.kernel_args(dropout_rate, seed),
+                           int(bf16))
+    if bf16:
+        return (gs, gv, gvec[:3 * d], gvec[3 * d:6 * d], gw[:3 * d],
+                gw[3 * d], gvec[6 * d:7 * d], gvec[7 * d:])
     return (gs, gv, gvec[:3 * d], gvec[3 * d:6 * d], gw, gvec[6 * d:7 * d],
             gvec[7 * d:8 * d], gvec[8 * d:])
 

@@ -1,5 +1,5 @@
 """The hidden widths D the port's CUDA kernels are built for, and what each
-width's forward instantiation holds in shared memory.
+width's instantiations hold in shared memory.
 
 The three forward families (``csrc/qa_ctx_attention_fwd.cu``,
 ``csrc/tri_bridge_fwd.cu``, ``csrc/encoder_fwd.cu``) take D as a template
@@ -7,9 +7,20 @@ parameter and are built for 64, 128 and 256; one C entry per family takes D
 and refuses any other width.  At D = 64 and 128 each bf16 (tensor-core)
 kernel keeps its weight resident in shared memory ("resident"); at D = 256
 it does not fit, so the weight streams through two stages ("streamed",
-``csrc/wgmma.cuh`` ``mma_streamed_w``).  The backward kernels and the
-weight-gradient pass (``csrc/wgrad_tc.cuh``) are built for D = 128 alone
-(ROADMAP A10b), so training on the card takes hsz 128 only.
+``csrc/wgmma.cuh`` ``mma_streamed_w``).
+
+The three backward families are built for the same widths: at D = 128 the
+tensor-core designs of ``csrc/*_bwd.cu`` (bf16) beside their CUDA-core
+float32 kernels, and at D = 64 and 256 ``csrc/*_bwd_wide.cu`` and
+``csrc/encoder_bwd_tc_wide.cu``.  In bf16 the tri bridge and the encoder
+run on the tensor cores at both widths (the weights resident at 64,
+streamed at 256; the encoder's 64-row tiles with the columns split) and
+the attention at 256 (its warpgroup columns in two quarters); the
+attention's bf16 kernel at 64 runs its row passes and products on CUDA
+cores, rounding where the tensor-core kernels round.  Every bf16 weight
+gradient is the tensor-core pass of ``csrc/wgrad_tc.cuh``, whose width is
+an argument (the same kernel at 64, 128 and 256).  So the card trains at
+hsz 64, 128 and 256; other widths are refused by name (ROADMAP A10d).
 
 The byte counts below repeat the layouts of the sources (their ``SMEM``
 constants and ``Layout`` / ``smem_floats`` functions); the tests hold every
@@ -18,7 +29,7 @@ one at or below an H100 block's opt-in limit.
 from __future__ import annotations
 
 FORWARD_WIDTHS = (64, 128, 256)
-BACKWARD_WIDTH = 128
+BACKWARD_WIDTHS = (64, 128, 256)
 SMEM_LIMIT = 232_448      # bytes of shared memory an H100 block may opt into
 
 FAMILIES = ("qa_ctx_attention", "tri_bridge", "encoder")
@@ -39,20 +50,19 @@ def check_forward_width(name, d):
 
 def check_backward_width(name, d):
     """Raise unless the backward kernels are built for width ``d``."""
-    if d != BACKWARD_WIDTH:
+    if d not in BACKWARD_WIDTHS:
         raise ValueError(
             f"{name}: the backward kernels (attention, tri bridge, encoder) "
-            f"and csrc/wgrad_tc.cuh are built for D = {BACKWARD_WIDTH} only, "
-            f"not D = {d}: training at this width on the card is "
-            f"ROADMAP A10b")
+            f"and their weight-gradient passes are built for hidden widths "
+            f"64, 128 and 256, not D = {d}: training at this width on the "
+            f"card is ROADMAP A10d")
 
 
 def check_trainable(hsz, device):
     """Raise when a model of width ``hsz`` cannot train on ``device``: on
-    ``cuda`` every train step runs the backward kernels, which take
-    D = 128 only.  The CPU trains at any width."""
-    if getattr(device, "type", device) == "cuda" \
-            and hsz != BACKWARD_WIDTH:
+    ``cuda`` every train step runs the backward kernels, which are built
+    for ``BACKWARD_WIDTHS`` only.  The CPU trains at any width."""
+    if getattr(device, "type", device) == "cuda":
         check_backward_width(f"training at hsz {hsz} on cuda", hsz)
 
 
@@ -113,3 +123,80 @@ def f32_smem_bytes(family, d):
         return 4 * (w + 3 * rows * d + 2 * _MAX_K * d
                     + 2 * round4(_MAX_LEN))
     raise ValueError(f"unknown kernel family {family!r}")
+
+
+def bwd_smem_bytes(family, d, dtype="bfloat16", lr=_MAX_LR, length=_MAX_LEN,
+                   k=_MAX_K):
+    """Dynamic shared memory of ``family``'s backward main kernel at width
+    ``d`` in ``dtype`` ("bfloat16" or "float32"), at its largest Lr (the
+    attention), L and k (the encoder) unless given."""
+    check_backward_width(family, d)
+
+    def round4(n):
+        return (n + 3) & ~3
+    panels, tile_panel = d // 64, _TM * _ROW
+    tile = panels * tile_panel
+    w_bytes = panels * 3 * d * _ROW
+    if dtype == "bfloat16" and family == "tri_bridge":
+        if d == 128:                         # tri_bridge_bwd_tc_kernel
+            return (w_bytes + 2 * tile + 6 * tile_panel + tile
+                    + 4 * 2 * _TM * 2 * 4 + 8 * d * 4 + _ATOM)
+        # TriBwdTc<D>: W and W^T, or two stages; s, v, yd (g_y1 behind it,
+        # or over it with the slabs at 256)
+        head = 2 * _stage(d, 32) if d == 256 else 2 * w_bytes
+        return (head + (5 if d == 256 else 6) * tile
+                + 4 * 2 * _TM * 2 * 4 + 8 * d * 4 + _ATOM)
+    if dtype == "bfloat16" and family == "qa_ctx_attention" and d == 256:
+        # AttTcWide<LRP>: qn, qe, cn, g_out, ce; a slab of W's rows; p0;
+        # two exchange rounds; the q mask; gamma and beta
+        lrp = 32 if lr <= 32 else 64
+        return (5 * tile + 2 * tile_panel + lrp // 2 * 256 * 4
+                + 2 * 2 * _TM * 2 * 4 + _TM * 4 + 6 * d * 4 + _ATOM)
+    if dtype == "bfloat16" and family == "encoder" and d != 128:
+        # EncTcW<D>: R1 (64 x D float32), the c / t and g_y tiles, pw's 32
+        # KB (stages or a slab at 256, resident at 64), v and m, two
+        # exchange rounds
+        return (_TM * d * 4 + 2 * tile + 32768 + 2 * _TM * 4
+                + 2 * 2 * _TM * 2 * 4 + _ATOM)
+    if d == 128 and dtype == "bfloat16":     # the tensor-core designs
+        if family == "qa_ctx_attention":     # qa_ctx_bwd_tc_kernel
+            return (w_bytes + 5 * tile + 32 * 256 * 4 + 2 * 2 * _TM * 2 * 4
+                    + _TM * 4 + 6 * d * 4 + _ATOM)
+        if family == "encoder":              # encoder_bwd_tc_kernel
+            return (2 * 2 * d * _ROW + _TR * d * 4 + _TR * d * 2
+                    + 2 * _TR * 4 + _ATOM)
+    elif family == "qa_ctx_attention":       # Layout(lr), Layout<D, RPT>
+        rpt = 4
+        if d == 256:                         # 16-row tiles where they fit
+            rpt = 2 if 4 * _attn_floats(lr, d, 2) <= SMEM_LIMIT else 1
+        return 4 * _attn_floats(lr, d, rpt)
+    elif family == "tri_bridge":             # SMEM_FLOATS, Tri<D>::SMEM
+        rt = (2 if d == 256 else 4) * _NWARPS
+        return 4 * (rt * 3 * d + rt * d + _KC * d + 2 * rt)
+    elif family == "encoder":                # smem_floats(<D>)(L, k, rpt)
+        lp = (-(-length // _NWARPS) if d == 128 else _encoder_rpt(length)) \
+            * _NWARPS
+        bufs = 0 if d == 256 else 7 * lp * d
+        return 4 * (bufs + _KC * d + 2 * k * d + 2 * round4(length))
+    raise ValueError(f"unknown kernel family {family!r}")
+
+
+def _attn_floats(lr, d, rpt):
+    """Floats of the attention backward's CUDA-core layout: qn and qe at
+    row stride D + 1, the mask, three (RT, Lr) and five (RT, D) tiles, the
+    row statistics and the staged weight rows."""
+    rt, lrp = rpt * _NWARPS, (lr + 3) & ~3
+    qm = (2 * lr * (d + 1) + 3) & ~3
+    return qm + lrp + 3 * rt * lrp + 5 * rt * d + 2 * rt + _KC * d
+
+
+def encoder_bwd_work_floats(d, length):
+    """Floats of the per-block scratch that holds a sequence's seven L x D
+    buffers of ``csrc/encoder_bwd_wide.cu`` at width ``d`` (0 where they
+    sit in shared memory)."""
+    return 7 * _encoder_rpt(length) * _NWARPS * d if d == 256 else 0
+
+
+def _encoder_rpt(length):
+    """Rows per warp of ``csrc/encoder_bwd_wide.cu`` (``rpt_for``)."""
+    return 2 if length <= 16 else (5 if length <= 40 else 7)
