@@ -241,7 +241,9 @@ BWD_SOURCES = {"qa_ctx_attention": "csrc/qa_ctx_attention_bwd.cu",
 
 
 def bwd_source(key, d):
-    """The source of ``key``'s bf16 backward at width ``d``."""
+    """The source of ``key``'s bf16 backward at width ``d`` (a width
+    between the instantiations: its instantiation's)."""
+    d = padded_width(d)
     if d == D:
         return BWD_SOURCES[key]
     if key.startswith("encoder"):
@@ -260,6 +262,18 @@ P_DROP, DROP_SEED = 0.1, 20181016
 # wide_serving); counter keys "<key>@<width>"
 OTHER_WIDTHS = (64, 256)
 WIDE_HSZ = 256
+# the widths between the instantiations (ops/widths.py padded_width: 96 in
+# the 128 instantiation, 200 in the 256): their bf16 kernel rows, and the
+# replayed serve and train steps at those hsz (phases wide_serving,
+# wide_training); counter keys "<key>@<width>" count their launches apart
+PADDED_WIDTHS = (96, 200)
+
+
+def padded_width(d):
+    """The instantiation a width runs in (imported here, not at the top:
+    without the port beside it this script must fail cleanly)."""
+    from tvqaplus_tpu_torch.ops.widths import padded_width as instantiation
+    return instantiation(d)
 # whole-model tolerances: the eval forward on the card against the same
 # forward on the CPU in the same compute type.  The CPU forward runs every
 # kernel's plain version, none of the CUDA kernels, and (bf16) rounds where
@@ -671,16 +685,16 @@ def time_today(case, dt, train):
     return out
 
 
-def phase_kernels(dev, d=D, rates=(0.0,)):
+def phase_kernels(dev, d=D, rates=(0.0,), dnames=("float32", "bfloat16")):
     """Every kernel at width ``d`` (the forward kernels of the attention, the
     tri bridge and the encoder at the other widths), held against its plain
-    version in float32 and bfloat16 at each dropout rate of ``rates``, and
-    timed (dropout off).  The rows of the other widths take their launches
-    from phase wide_serving."""
+    version in each compute type of ``dnames`` at each dropout rate of
+    ``rates``, and timed (dropout off).  The rows of the other widths take
+    their launches from phase wide_serving."""
     rows = []
     for case in kernel_cases(dev, d):
         errs = {}
-        for dname in ("float32", "bfloat16"):
+        for dname in dnames:
             for rate in rates:
                 a, kw = case.args(getattr(torch, dname))
                 if rate:
@@ -703,7 +717,6 @@ def phase_kernels(dev, d=D, rates=(0.0,)):
                "source": f"tvqaplus_tpu_torch/{case.src}",
                "replaces": REPLACES[case.key],
                "max_abs_err": errs["bfloat16", 0.0],
-               "max_abs_err_f32": errs["float32", 0.0],
                "ms": time_ms(lambda: case.kernel(*a, **kw)),
                "plain_ms": time_ms(lambda: case.plain(*a, **kw)),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -712,11 +725,15 @@ def phase_kernels(dev, d=D, rates=(0.0,)):
                "_key": case.key if d == D else f"{case.key}@{d}"}
         if d != D:
             row["width"] = d
+            row["instantiation"] = padded_width(d)
         for rate in rates[1:]:
             row["max_abs_err_dropout"] = errs["bfloat16", rate]
-            row["max_abs_err_f32_dropout"] = errs["float32", rate]
-        af, kwf = case.args(torch.float32)   # the float32 instantiation
-        row["f32_ms"] = time_ms(lambda: case.kernel(*af, **kwf))
+        if "float32" in dnames:
+            row["max_abs_err_f32"] = errs["float32", 0.0]
+            for rate in rates[1:]:
+                row["max_abs_err_f32_dropout"] = errs["float32", rate]
+            af, kwf = case.args(torch.float32)   # the float32 instantiation
+            row["f32_ms"] = time_ms(lambda: case.kernel(*af, **kwf))
         emit({"phase": "kernel" if d == D else "kernel_width", "ok": True,
               **{k: v for k, v in row.items() if k != "_key"}})
         rows.append(row)
@@ -725,16 +742,22 @@ def phase_kernels(dev, d=D, rates=(0.0,)):
 
 def phase_width_kernels(dev):
     """The three forward kernels at D = 64 and 256 (ops/widths.py), with
-    dropout 0 and P_DROP."""
+    dropout 0 and P_DROP; in bf16 also at the widths padded to them,
+    ``PADDED_WIDTHS``, against the unpadded plain version."""
     return [row for d in OTHER_WIDTHS
-            for row in phase_kernels(dev, d, (0.0, P_DROP))]
+            for row in phase_kernels(dev, d, (0.0, P_DROP))] + [
+        row for d in PADDED_WIDTHS
+        for row in phase_kernels(dev, d, (0.0, P_DROP), ("bfloat16",))]
 
 
 def phase_width_train_kernels(dev):
     """The three backward kernels at D = 64 and 256 (ops/widths.py), dropout
-    P_DROP, against autograd through their plain versions."""
+    P_DROP, against autograd through their plain versions; in bf16 also at
+    ``PADDED_WIDTHS``."""
     return [row for d in OTHER_WIDTHS
-            for row in phase_train_kernels(dev, d)]
+            for row in phase_train_kernels(dev, d)] + [
+        row for d in PADDED_WIDTHS
+        for row in phase_train_kernels(dev, d, ("bfloat16",))]
 
 
 def headline_batch(cfg, dev):
@@ -1168,9 +1191,12 @@ def phase_wide_serving(dev, workdir, cfg, sd):
     point on the separate and the merged path, every forward kernel launched
     at that width and none at D = 128; the hsz-256 headline batch on the
     card against the CPU forward (phase 5's bars); the replayed serve steps
-    of hsz 128 (``cfg``, ``sd``: phase 5's) and 256, both paths, equal to
-    their eager steps and timed in turns, with the device's busy time.
-    Returns the launches of each width's runs by counter key."""
+    of hsz 128 (``cfg``, ``sd``: phase 5's), 256 and the padded widths
+    ``PADDED_WIDTHS``, both paths, equal to their eager steps and timed in
+    turns, with the device's busy time; a padded width's trace holds its
+    instantiation's kernels, counted under its own width (one replay's
+    launches).  Returns the launches of each width's runs by counter
+    key."""
     from tvqaplus_tpu_torch.infer.predict import InferenceRunner
     from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
     t_phase = time.perf_counter()
@@ -1197,12 +1223,17 @@ def phase_wide_serving(dev, workdir, cfg, sd):
                          "wall_s": wall_s, "ts_answer": len(pred["ts_answer"]),
                          "raw_bbox_boxes": n_boxes(pred)}
             launches.update({f"{k}@{hsz}": got[f"{k}@{hsz}"] for k in keys})
+    for hsz in PADDED_WIDTHS:
+        pcfg = dataclasses.replace(headline_config(hsz=hsz)).finalize("cpu")
+        models[hsz] = (pcfg, STAGE(ModelConfig.from_config(
+            pcfg)).reset_parameters(torch.Generator().manual_seed(
+                SEED)).state_dict())
     wcfg, wsd = models[WIDE_HSZ]
     cpu = cpu_forwards(wcfg, wsd)
     vs_cpu = {name: headline_vs_cpu(cpu, wsd, dev, merged)
               for name, merged in (("separate", False), ("merged", True))}
-    steps, replay = {}, {}
-    for hsz in (D, WIDE_HSZ):
+    steps, replay, padded = {}, {}, {}
+    for hsz in (D, WIDE_HSZ) + PADDED_WIDTHS:
         hcfg, hsd = models[hsz]
         batch = headline_batch(hcfg, dev)
         for merged in (False, True):
@@ -1217,6 +1248,16 @@ def phase_wide_serving(dev, workdir, cfg, sd):
             steps[name]()                  # warm-up and capture
             torch.cuda.synchronize()
             replay[name] = replay_equals_eager(runner, batch)
+            if hsz in PADDED_WIDTHS:       # one replay's launches
+                keys = MERGED_FWD if merged else SEPARATE_FWD
+                reset_counters()
+                steps[name]()
+                torch.cuda.synchronize()
+                got = read_counters(tuple(f"{k}@{hsz}" for k in keys))
+                padded[name] = {k: got[f"{k}@{hsz}"] for k in keys}
+                launches.update({f"{k}@{hsz}": got[f"{k}@{hsz}"]
+                                 for k in keys
+                                 if merged == k.startswith("encoder_block")})
     clock = timed_steps(steps, SERVING_STEPS)
     serve = {}
     for name, step in steps.items():
@@ -1231,8 +1272,10 @@ def phase_wide_serving(dev, workdir, cfg, sd):
             else 1 - busy_ms / step_ms,
             "launches_per_step": per_step,
             "tc_forwards": check_tc_forwards(name, names, "merged" in name,
-                                             hsz),
+                                             padded_width(hsz)),
             "top_kernels": top[:6]}
+        if name in padded:
+            serve[name]["launches_at_true_width"] = padded[name]
     emit({"phase": "wide_serving", "ok": True, "batch": B, "frames": LI,
           "compute_dtype": "bfloat16", "steps": SERVING_STEPS, "runs": runs,
           "headline_vs_cpu": vs_cpu, "replay_equals_eager": replay,
@@ -1399,9 +1442,11 @@ def wide_training(dev, workdir):
     128; validation and a checkpoint); a float32 train step at hsz 256
     against the CPU (``phase_train_vs_cpu``'s bars); K = 4 replays equal to
     eager steps at hsz 256, both paths; and the replayed train steps (K =
-    4) of hsz 128 and 256, both paths, timed in turns, each step's trace
-    holding the width's kernels only.  Returns the launches of each width's
-    CLI runs by counter key."""
+    4) of hsz 128, 256 and the padded widths ``PADDED_WIDTHS``, both paths,
+    timed in turns, each step's trace holding its instantiation's kernels
+    only (a padded width's counted under its own width: one replay's
+    launches).  Returns the launches of each width's CLI runs (a padded
+    width's replay) by counter key."""
     from tvqaplus_tpu_torch.train.loop import Trainer
     t_phase = time.perf_counter()
     runs, launches = {}, {}
@@ -1413,14 +1458,14 @@ def wide_training(dev, workdir):
                              for k, n in run["launches"].items()
                              if merged == k.startswith("encoder_block")})
     vs_cpu = phase_train_vs_cpu(dev, workdir, hsz=WIDE_HSZ)
-    replay = {}
+    replay, padded = {}, {}
     steps, names_of = {}, {}
-    for hsz in (D, WIDE_HSZ):
+    for hsz in (D, WIDE_HSZ) + PADDED_WIDTHS:
         for merged in (False, True):
             cfg = train_config(workdir, bsz=B, hsz=hsz,
                                merge_input_streams=merged).finalize(dev)
             name = f"hsz{hsz}_{'merged' if merged else 'separate'}_graph_k4"
-            if hsz != D:
+            if hsz == WIDE_HSZ:
                 replay[name] = replays_equal_eager_train(cfg, dev,
                                                          DISPATCH_K)
             trainer = Trainer(cfg, dev)
@@ -1428,6 +1473,16 @@ def wide_training(dev, workdir):
             steps[name] = lambda t=trainer, b=four: t.dispatch_train(b)
             steps[name]()                  # warm-up and capture
             torch.cuda.synchronize()
+            if hsz in PADDED_WIDTHS:       # one replay's launches
+                keys = MERGED_TRAIN if merged else SEPARATE_TRAIN
+                reset_counters()
+                steps[name]()
+                torch.cuda.synchronize()
+                got = read_counters(tuple(f"{k}@{hsz}" for k in keys))
+                padded[name] = {k: got[f"{k}@{hsz}"] for k in keys}
+                launches.update({f"{k}@{hsz}": got[f"{k}@{hsz}"]
+                                 for k in keys
+                                 if merged == k.startswith("encoder_block")})
     clock = timed_steps(steps, TRAIN_STEPS // DISPATCH_K)
     train = {}
     for name, step in steps.items():
@@ -1449,11 +1504,13 @@ def wide_training(dev, workdir):
                else 1 - busy_ms / step_ms,
                "launches_per_step": per_step, "top_kernels": top[:8]}
         # an empty trace fails here as in every phase
-        if hsz != D:
-            row["wide_kernels"] = check_wide_train_trace(name, names,
-                                                         merged, hsz)
+        if padded_width(hsz) != D:
+            row["wide_kernels"] = check_wide_train_trace(
+                name, names, merged, padded_width(hsz))
         else:
             row["tc_forwards"] = check_tc_forwards(name, names, merged)
+        if name in padded:
+            row["launches_at_true_width"] = padded[name]
         train[name] = row
     emit({"phase": "wide_training", "ok": True, "batch": B, "frames": LI,
           "compute_dtype": "bfloat16", "dropout": 0.1, "cli_runs": runs,
@@ -1575,7 +1632,7 @@ def _cotangents(outs, flip, gen, valid=None):
     return cots
 
 
-def phase_train_kernels(dev, d=D):
+def phase_train_kernels(dev, d=D, dnames=("float32", "bfloat16")):
     """Forward kernels with dropout and the backward kernels against the
     plain version and autograd through it (same Philox mask), at width
     ``d``; the rows of the other widths (phase ``kernel_train_width``: the
@@ -1589,7 +1646,7 @@ def phase_train_kernels(dev, d=D):
         name, key, kernel, plain = (case.name, case.key, case.kernel,
                                     case.plain)
         errs, gerrs, rel = {}, {}, {}
-        for dname in ("float32", "bfloat16"):
+        for dname in dnames:
             dt = getattr(torch, dname)
             a, base_kw = case.args(dt)
             kwa = {**base_kw, **case.kw}
@@ -1657,9 +1714,7 @@ def phase_train_kernels(dev, d=D):
                "source": "tvqaplus_tpu_torch/" + bwd_source(key, d),
                "replaces": REPLACES[key + "_bwd"],
                "max_abs_err": gerrs["bfloat16"],
-               "max_abs_err_f32": gerrs["float32"],
                "grad_rel_l2": rel["bfloat16"],
-               "grad_rel_l2_f32": rel["float32"],
                "ms": time_ms(lambda: backward("kernel")),
                "plain_ms": time_ms(lambda: backward("plain")),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -1667,12 +1722,16 @@ def phase_train_kernels(dev, d=D):
                "_key": key + "_bwd" + (f"@{d}" if wide else "")}
         if wide:
             row["width"] = d
-        ins, lv = _leaves(case.args(torch.float32)[0], case.diff)
-        o32 = _outputs(kernel(*ins, **kwa))
-        c32 = [c.to(o.dtype) for c, o in zip(cots, o32)]
-        row["f32_ms"] = time_ms(
-            lambda: torch.autograd.grad(o32, lv, c32, retain_graph=True))
-        del o32, lv, ins
+            row["instantiation"] = padded_width(d)
+        if "float32" in dnames:
+            row["max_abs_err_f32"] = gerrs["float32"]
+            row["grad_rel_l2_f32"] = rel["float32"]
+            ins, lv = _leaves(case.args(torch.float32)[0], case.diff)
+            o32 = _outputs(kernel(*ins, **kwa))
+            c32 = [c.to(o.dtype) for c, o in zip(cots, o32)]
+            row["f32_ms"] = time_ms(
+                lambda: torch.autograd.grad(o32, lv, c32, retain_graph=True))
+            del o32, lv, ins
         if "today_fwd_bwd_ms" in today:
             # beside today's forward + backward: the kernels' as one call
             def fwd_bwd():
@@ -1705,16 +1764,20 @@ def counters():
            "encoder_block_bwd": encoder.BLOCK_BWD_KERNEL,
            "mlp_bridge": mlp_bridge.KERNEL,
            "mlp_bridge_bwd": mlp_bridge.BWD_KERNEL}
-    for d in OTHER_WIDTHS:         # the entries' other widths
-        out.update({f"qa_ctx_attention@{d}": qa_ctx_attention.FWD_BY_WIDTH[d],
-                    f"tri_bridge@{d}": tri_bridge.FWD_BY_WIDTH[d],
-                    f"encoder@{d}": encoder.FWD_BY_WIDTH[d],
-                    f"encoder_block@{d}": encoder.BLOCK_BY_WIDTH[d],
-                    f"qa_ctx_attention_bwd@{d}":
-                        qa_ctx_attention.BWD_BY_WIDTH[d],
-                    f"tri_bridge_bwd@{d}": tri_bridge.BWD_BY_WIDTH[d],
-                    f"encoder_bwd@{d}": encoder.BWD_BY_WIDTH[d],
-                    f"encoder_block_bwd@{d}": encoder.BLOCK_BWD_BY_WIDTH[d]})
+    from tvqaplus_tpu_torch.ops._build import width_counter
+    # the entries' other widths, and the widths padded to an instantiation
+    # (the launches at that true width: ``by_width``)
+    for d in OTHER_WIDTHS + PADDED_WIDTHS:
+        tables = {"qa_ctx_attention": qa_ctx_attention.FWD_BY_WIDTH,
+                  "tri_bridge": tri_bridge.FWD_BY_WIDTH,
+                  "encoder": encoder.FWD_BY_WIDTH,
+                  "encoder_block": encoder.BLOCK_BY_WIDTH,
+                  "qa_ctx_attention_bwd": qa_ctx_attention.BWD_BY_WIDTH,
+                  "tri_bridge_bwd": tri_bridge.BWD_BY_WIDTH,
+                  "encoder_bwd": encoder.BWD_BY_WIDTH,
+                  "encoder_block_bwd": encoder.BLOCK_BWD_BY_WIDTH}
+        out.update({f"{k}@{d}": width_counter(t, d)
+                    for k, t in tables.items()})
     return out
 
 
@@ -2627,6 +2690,16 @@ MESH_TRAIN_STEPS = 3                 # checked eager steps a mesh
 # 5e-3, the grad norm at 5e-2.
 MESH_STEP_RTOL = ((1e-5, 1e-5), (5e-3, 5e-2))
 MESH_GROUNDING_TOL = 1e-4
+# the model axis over the kernels' weights (hsz >= 256, parallel/mesh.py
+# gather_weight): the (1, 1, 2) train steps at this width, and the bar of
+# each split weight's first gradient (whole) against one process's,
+# relative L2.  Measured on an NVIDIA H100 80GB HBM3 (700 W): 3.1e-5 (the
+# cls encoder's pointwise convs) to 2.3e-3 (the attention's projection),
+# growing from the head toward the inputs as a float32 rounding that moves
+# a ReLU sign or a word-max choice does (on the CPU: 5.9e-7); a gather whose
+# backward summed over the two model ranks would give 1.0
+MESH_WIDE_HSZ = 256
+MESH_WIDE_GRAD_REL_L2 = 1e-2
 
 
 def _staged(name, real):
@@ -2688,12 +2761,12 @@ def gloo_on_cuda(dev):
     return staged, counter
 
 
-def mesh_steps(job, mesh, dev, counter=None):
+def mesh_steps(job, mesh, dev, counter=None, serve=True):
     """What phase mesh_axes compares, on ``mesh`` (None: the single
     process): three eager train steps' losses and grad norms, the eager
-    train step's ms (and the bytes its all-gathers received), the serve
-    step's outputs and ms (float32, dropout 0), and the bf16 forward's
-    outputs."""
+    train step's ms (and the bytes its all-gathers received, and of them
+    the whole-weight gathers'), the serve step's outputs and ms (float32,
+    dropout 0), and the bf16 forward's outputs (``serve``: those two)."""
     from tvqaplus_tpu_torch.infer.predict import InferenceRunner
     from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
     from tvqaplus_tpu_torch.parallel import mesh as dp
@@ -2706,23 +2779,52 @@ def mesh_steps(job, mesh, dev, counter=None):
         return m
     train = dp.shard_batch(mesh, {k: v.to(dev) for k, v in
                                   job["train"].items()})
-    serve = dp.shard_batch(mesh, {k: v.to(dev) for k, v in
-                                  job["serve"].items()})
     trainer = Trainer(cfg, dev, model=model_of(cfg), mesh=mesh)
     trainer.graphs = None                  # eager: gloo is not captured
     out = {"train": []}
-    for _ in range(MESH_TRAIN_STEPS):
+    for i in range(MESH_TRAIN_STEPS):
         m = trainer.train_step(train, True)
         out["train"].append((float(m["loss"]), float(m["grad_norm"])))
+        if i == 0 and not serve:
+            # the first step's gradients of the weights the model axis
+            # splits, whole (after the clip), to hold against one process
+            shards = trainer.model.shards
+            split = dp.sharded_parameters(model_of(cfg), 2)
+            out["grads"] = {
+                name: (dp._gather_full(mesh, p.grad) if name in shards
+                       else p.grad).cpu()
+                for name, p in trainer.model.named_parameters()
+                if name in split}
     if counter is not None:
+        weights = {"bytes": 0}
+        gather = dp.gather_weight
+
+        def counted(layer):
+            before = counter["bytes"]
+            w = gather(layer)
+            weights["bytes"] += counter["bytes"] - before
+            return w
         counter["bytes"] = 0
-        trainer.train_step(train, True)
+        dp.gather_weight = counted
+        try:
+            trainer.train_step(train, True)
+        finally:
+            dp.gather_weight = gather
         if dev.type == "cuda":
             torch.cuda.synchronize()
         out["train_gathered_bytes"] = counter["bytes"]
+        out["train_weight_gathered_bytes"] = weights["bytes"]
+        # the prediction: each whole-weight layer's other blocks, once
+        out["train_weight_bytes_predicted"] = sum(
+            m.weight.numel() * m.weight.element_size()
+            * (m.shard.size - 1) for m in trainer.model.whole_layers)
     timed = dev.type == "cuda"       # a CPU rehearsal times nothing
     out["train_ms"] = time_ms(lambda: trainer.train_step(train, True),
                               reps=5, warmup=1) if timed else None
+    if not serve:
+        return out
+    serve = dp.shard_batch(mesh, {k: v.to(dev) for k, v in
+                                  job["serve"].items()})
     runner = InferenceRunner(cfg, model_of(cfg), dev, mesh)
     runner.graphs = None
     if counter is not None:
@@ -2741,10 +2843,77 @@ def mesh_steps(job, mesh, dev, counter=None):
     return out
 
 
+def merged_encoder_call(jm, mesh, dev):
+    """One bf16 train step of the merged path with dropout (``jm``: its
+    config, weights and global batch) on ``mesh`` (None: one process):
+    the merged input encoder's call, its input, output, zero mask, rate
+    and the seeds of its kernel sites (the merged dropout probe of phase
+    mesh_axes, ROADMAP C5)."""
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    from tvqaplus_tpu_torch.parallel import mesh as dp
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    model = STAGE(ModelConfig.from_config(jm["cfg"]))
+    model.load_state_dict(jm["sd"])
+    trainer = Trainer(jm["cfg"], dev, model=model, mesh=mesh)
+    trainer.graphs = None
+    seen = []
+
+    def hook(mod, args, kwargs, out):
+        if kwargs.get("zero_mask") is not None and not seen:
+            drop = kwargs["drop"]
+            n = len(mod.stacked_encoderBlocks)
+            seen.append({"x": args[0].detach().cpu(),
+                         "out": out.detach().cpu(),
+                         "zero_mask": kwargs["zero_mask"].cpu(),
+                         "rate": drop.rate,
+                         "seeds": drop.seeds[drop.site - n:].cpu()})
+    model.input_encoder.register_forward_hook(hook, with_kwargs=True)
+    trainer.train_step(dp.shard_batch(mesh, {k: v.to(dev) for k, v in
+                                             jm["train"].items()}), True)
+    return seen[0]
+
+
+def merged_frames_vs_single(jm, calls, dev):
+    """The single process's merged input encoder (kernel) on the ctx
+    ranks' calls put together (QA groups, then each stream's frames in rank
+    order), under their seeds: whether each rank's QA and frame rows equal
+    its rows at the same global groups bit for bit."""
+    from tvqaplus_tpu_torch.models.layers import Dropout
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    num_a = jm["train"]["qas_bert"].shape[1]
+    li = (calls[0]["x"].shape[1] - num_a) // 2
+
+    def cat(key):
+        dim = 0 if key == "zero_mask" else 1
+        t = [c[key] for c in calls]
+        return torch.cat([t[0].narrow(dim, 0, num_a)]
+                         + [u.narrow(dim, num_a, li) for u in t]
+                         + [u.narrow(dim, num_a + li, li) for u in t], dim)
+    model = STAGE(ModelConfig.from_config(jm["cfg"]))
+    model.load_state_dict(jm["sd"])
+    model.to(dev).train()
+    drop = Dropout(calls[0]["rate"], torch.Generator(device=dev),
+                   calls[0]["seeds"].to(dev))
+    with torch.no_grad():
+        ref = model.input_encoder(cat("x").to(dev), drop=drop,
+                                  zero_mask=cat("zero_mask").to(dev)).cpu()
+    whole, same = li * len(calls), {}
+    for c, call in enumerate(calls):
+        got, sub, vid = call["out"], num_a + c * li, num_a + whole + c * li
+        same[c] = {"qa": torch.equal(got[:, :num_a], ref[:, :num_a]),
+                   "sub": torch.equal(got[:, num_a:num_a + li],
+                                      ref[:, sub:sub + li]),
+                   "vid": torch.equal(got[:, num_a + li:],
+                                      ref[:, vid:vid + li])}
+    return same
+
+
 def mesh_rank(rank, port, path):
     """One of phase mesh_axes's two processes: the card, a gloo group of
     two over ``tcp://127.0.0.1:port``, ``mesh_steps`` on each mesh of the
-    job; what it saw goes to ``<path>.rank<rank>``."""
+    job, the merged path's encoder call at (1, 2) with dropout and the
+    train steps at hsz ``MESH_WIDE_HSZ`` on (1, 1, 2); what it saw goes to
+    ``<path>.rank<rank>``."""
     import torch.distributed as dist
     sys.path.insert(0, HERE)
     from tvqaplus_tpu_torch.parallel import mesh as dp
@@ -2769,6 +2938,10 @@ def mesh_rank(rank, port, path):
                 dp.sharded_parameters(
                     _stage(job["cfg"]), mesh.model_size))
             out[str(shape)] = res
+        out["merged_call"] = merged_encoder_call(
+            job["merged"], dp.make_mesh((1, 2)), dev)
+        out["wide"] = mesh_steps(job["wide"], dp.make_mesh((1, 1, 2)), dev,
+                                 counter, serve=False)
         torch.save(out, f"{path}.rank{rank}")
     finally:
         dist.destroy_process_group()
@@ -2884,6 +3057,17 @@ def phase_mesh_axes(dev, workdir, smi, dp_launches, dp_per_step):
     job = {"cfg": cfg, "sd": sd, "train": train_batch(cfg, "cpu", B),
            "serve": headline_batch(cfg, "cpu"), "device": DEVICE,
            "frames": LI}
+    # the merged path's input encoder with dropout (the main path's bf16),
+    # and the model axis at hsz MESH_WIDE_HSZ (float32, dropout 0)
+    mcfg = train_config(workdir, bsz=B, test_bsz=B,
+                        merge_input_streams=True).finalize(dev)
+    job["merged"] = {"cfg": mcfg, "sd": sd, "train": job["train"]}
+    wcfg = train_config(workdir, bsz=B, test_bsz=B, dropout=0.0,
+                        compute_dtype="float32",
+                        hsz=MESH_WIDE_HSZ).finalize(dev)
+    job["wide"] = {"cfg": wcfg, "sd": _stage(wcfg).reset_parameters(
+        torch.Generator().manual_seed(SEED)).state_dict(),
+        "train": train_batch(wcfg, "cpu", B)}
     path = os.path.join(workdir, "mesh_axes_job")
     torch.save(job, path)
     t_spawn = time.perf_counter()
@@ -2896,9 +3080,58 @@ def phase_mesh_axes(dev, workdir, smi, dp_launches, dp_per_step):
     torch.use_deterministic_algorithms(True)
     try:
         single = mesh_steps(job, None, dev)
+        single_wide = mesh_steps(job["wide"], None, dev, serve=False)
+        merged = merged_frames_vs_single(
+            job["merged"], [r["merged_call"] for r in ranks], dev)
     finally:
         torch.use_deterministic_algorithms(False)
     report, failed = {}, []
+    # the model axis at hsz MESH_WIDE_HSZ: losses at MESH_STEP_RTOL's bars;
+    # grad norms at its after-update bar from the first step on, since the
+    # first step's norm parts by 3.1e-5 on an H100 80GB HBM3 (700 W),
+    # where the CPU's parts by 6.6e-8: at this width the input embedding
+    # and the linear wrappers split by columns too, and cuBLAS rounds a
+    # column block's float32 product otherwise than the whole one's; each
+    # split weight's first gradient whole against one process's by
+    # relative L2 (a gather whose backward summed over the model ranks
+    # would give 1.0: twice the gradient)
+    if not all(all(v.values()) for v in merged.values()):
+        failed.append(f"(1, 2) merged, dropout {P_DROP}: rows not the "
+                      f"single process's at the global groups: {merged}")
+    wide = []
+    for r, rank in enumerate(ranks):
+        got = rank["wide"]
+        for i, ((lg, ng), (lw, nw)) in enumerate(zip(got["train"],
+                                                     single_wide["train"])):
+            bar_l, bar_n = MESH_STEP_RTOL[min(i, 1)][0], MESH_STEP_RTOL[1][1]
+            if abs(lg - lw) > bar_l * abs(lw) \
+                    or abs(ng - nw) > bar_n * abs(nw):
+                failed.append(f"(1, 1, 2) hsz {MESH_WIDE_HSZ} rank {r} step "
+                              f"{i}: loss {lg} vs {lw}, grad_norm {ng} vs "
+                              f"{nw}")
+        if got["train_weight_gathered_bytes"] \
+                != got["train_weight_bytes_predicted"] \
+                or not got["train_weight_gathered_bytes"]:
+            failed.append(f"(1, 1, 2) hsz {MESH_WIDE_HSZ} rank {r}: weight "
+                          f"gathers received "
+                          f"{got['train_weight_gathered_bytes']} bytes, "
+                          f"predicted {got['train_weight_bytes_predicted']}")
+        rel = {name: float((g - single_wide["grads"][name]).norm()
+                           / single_wide["grads"][name].norm())
+               for name, g in got["grads"].items()}
+        worst = max(rel.values())
+        if not worst <= MESH_WIDE_GRAD_REL_L2:
+            failed.append(f"(1, 1, 2) hsz {MESH_WIDE_HSZ} rank {r}: split "
+                          f"weights' gradients vs one process {rel}")
+        wide.append({"rank": r, "losses": got["train"],
+                     "split_grads_rel_l2_max": worst,
+                     "split_grads": len(rel),
+                     "train_step_ms": got["train_ms"],
+                     "train_gathered_bytes": got["train_gathered_bytes"],
+                     "train_weight_gathered_bytes":
+                         got["train_weight_gathered_bytes"],
+                     "train_weight_bytes_predicted":
+                         got["train_weight_bytes_predicted"]})
     for shape in MESH_SHAPES:
         rows = []
         for r, rank in enumerate(ranks):
@@ -2943,8 +3176,12 @@ def phase_mesh_axes(dev, workdir, smi, dp_launches, dp_per_step):
           "single": {"losses": single["train"],
                      "train_step_ms": single["train_ms"],
                      "serve_step_ms": single["serve_ms"]},
-          "meshes": report, "two_process_s": spawn_s,
-          "wall_s": time.perf_counter() - t0})
+          "meshes": report, "merged_dropout_rows_equal": merged,
+          "model_axis_wide": {"hsz": MESH_WIDE_HSZ, "mesh": [1, 1, 2],
+                              "single_losses": single_wide["train"],
+                              "single_train_step_ms": single_wide["train_ms"],
+                              "ranks": wide},
+          "two_process_s": spawn_s, "wall_s": time.perf_counter() - t0})
 
 
 # ------------------------------------------- noun masks, void vectors

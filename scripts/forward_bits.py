@@ -4,15 +4,16 @@ comparison of two trees (a change and its parent): run ``save`` (or
 NVIDIA GPU for ``save`` and ``save_backward``.
 
     python3 scripts/forward_bits.py save OUT.pt [WIDTH]
-    python3 scripts/forward_bits.py save_backward OUT.pt
+    python3 scripts/forward_bits.py save_backward OUT.pt [WIDTH]
     python3 scripts/forward_bits.py compare A.pt B.pt
 
 ``save`` runs every forward kernel of ``chip_smoke.py``'s ``kernel_cases``
 at width WIDTH (default 128) in float32 and bfloat16, dropout 0 and 0.1,
 stores the outputs and prints each bf16 kernel's time (CUDA events, median
 of 30) as one JSON line.  ``save_backward`` does the same for every
-backward kernel of ``train_kernel_cases`` at the headline width 128 (the
-attention, tri bridge, encoder and MLP bridge backwards): the gradients of
+backward kernel of ``train_kernel_cases`` at width WIDTH (default 128: the
+attention, tri bridge, encoder and MLP bridge backwards; another width, the
+first three): the gradients of
 its case's differentiable inputs under seeded cotangents, in float32 and
 bfloat16, dropout 0 and 0.1, and each bf16 backward's time.  ``compare``
 prints, for each case, whether the two files hold the same bits, and exits
@@ -53,14 +54,15 @@ def save(path, d):
     return 0
 
 
-def save_backward(path):
+def save_backward(path, d):
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
     from tvqaplus_tpu_torch.ops import _build
     _build.build_all()
     dev = torch.device("cuda")
     outs, times = {}, {}
-    for case in cs.train_kernel_cases(dev):
+    for case in (cs.train_kernel_cases(dev, d) if d != 128
+                 else cs.train_kernel_cases(dev)):
         for dname in ("float32", "bfloat16"):
             for rate in (0.0, cs.P_DROP):
                 a, base_kw = case.args(getattr(torch, dname))
@@ -81,7 +83,8 @@ def save_backward(path):
         times[case.name] = cs.time_ms(lambda: torch.autograd.grad(
             got, leaves, cots, retain_graph=True))
     torch.save(outs, path)
-    print(json.dumps({"tree": os.getcwd(), "bf16_backward_ms": times}),
+    print(json.dumps({"tree": os.getcwd(), "width": d,
+                      "bf16_backward_ms": times}),
           flush=True)
     return 0
 
@@ -109,7 +112,8 @@ if __name__ == "__main__":
         sys.exit(save(sys.argv[2], int(sys.argv[3]) if len(sys.argv) > 3
                       else 128))
     if sys.argv[1:2] == ["save_backward"]:
-        sys.exit(save_backward(sys.argv[2]))
+        sys.exit(save_backward(sys.argv[2], int(sys.argv[3])
+                               if len(sys.argv) > 3 else 128))
     if sys.argv[1:2] == ["compare"]:
         sys.exit(compare(sys.argv[2], sys.argv[3]))
     print(__doc__, file=sys.stderr)

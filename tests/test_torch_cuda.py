@@ -23,6 +23,7 @@ from tvqaplus_tpu_torch.ops import (
     qa_ctx_attention,
     tri_bridge,
 )
+from tvqaplus_tpu_torch.ops._build import width_counter
 
 D = 128
 
@@ -117,9 +118,9 @@ def test_qa_ctx_attention_kernel_rejects_what_it_does_not_take(cuda):
         with pytest.raises(ValueError):
             qa_ctx_attention.qa_ctx_attention(*args)
         args = attn_args(cuda, dt)
-        odd = [t[..., :96].contiguous() for t in args[:4]]   # D = 96
-        with pytest.raises(ValueError, match="64, 128 and 256"):
-            qa_ctx_attention.qa_ctx_attention(*odd, *args[4:])
+        wide = [torch.cat([t] * 3, -1) for t in args[:4]]   # D = 384
+        with pytest.raises(ValueError, match="up to 256.*A10d"):
+            qa_ctx_attention.qa_ctx_attention(*wide, *args[4:])
         with pytest.raises(ValueError):      # Lr > 64
             qa_ctx_attention.qa_ctx_attention(*attn_args(cuda, dt, lr=65))
 
@@ -404,6 +405,9 @@ def test_backward_kernels_refuse_what_they_do_not_take(cuda):
 # weight streams (csrc/wgmma.cuh mma_streamed_w).  Each width counts its
 # own launches.
 WIDTHS = (64, 256)
+# the widths between them: run padded to the next instantiation (96 in 128,
+# 200 in 256), counted under their own width (ops/_build.py width_counter)
+PADDED_WIDTHS = (96, 200)
 # (raw_mode, Lr, A, Lqa): both score tiles (32 and 64 wide), M = 200 (the
 # headline's, with a ragged last tile) and 39
 WIDTH_ATT_CASES = [("full", 25, 5, 40), ("none", 50, 5, 40),
@@ -411,7 +415,7 @@ WIDTH_ATT_CASES = [("full", 25, 5, 40), ("none", 50, 5, 40),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("d", WIDTHS + PADDED_WIDTHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dropout", [0.0, P_DROP])
 @pytest.mark.parametrize("raw_mode,lr,a,lqa", WIDTH_ATT_CASES)
@@ -421,7 +425,7 @@ def test_qa_ctx_attention_kernel_matches_plain_at_other_widths(
     args = attn_args(cuda, dt, a=a, lqa=lqa, lr=lr, d=d)
     kw = dict(raw_mode=raw_mode, dropout_rate=dropout, seed=SEED,
               targets=torch.tensor([2, 0], device=cuda))
-    counter = qa_ctx_attention.FWD_BY_WIDTH[d]
+    counter = width_counter(qa_ctx_attention.FWD_BY_WIDTH, d)
     launches = counter.launches
     got = qa_ctx_attention.qa_ctx_attention(*args, **kw)
     want = qa_ctx_attention.qa_ctx_attention_plain(*args, **kw)
@@ -438,7 +442,7 @@ def test_qa_ctx_attention_kernel_matches_plain_at_other_widths(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("d", WIDTHS + PADDED_WIDTHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dropout", [0.0, P_DROP])
 @pytest.mark.parametrize("rows", [(2, 5, 3, 40), (1, 1, 1, 7)])
@@ -454,16 +458,18 @@ def test_tri_bridge_kernel_matches_plain_at_other_widths(cuda, d, dtype,
               randn(gen, d, scale=0.1)]
     params = [p.to(cuda) for p in params]
     kw = dict(dropout_rate=dropout, seed=SEED)
-    launches = tri_bridge.FWD_BY_WIDTH[d].launches
+    counter = width_counter(tri_bridge.FWD_BY_WIDTH, d)
+    launches = counter.launches
     got = tri_bridge.tri_bridge(s, v, *params, **kw)
     want = tri_bridge.tri_bridge_plain(s, v, *params, **kw)
     torch.cuda.synchronize()
-    assert tri_bridge.FWD_BY_WIDTH[d].launches == launches + 1
+    assert counter.launches == launches + 1
+    assert got.shape == s.shape
     close(got, want, tri_bridge.TOL[dt])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("d", WIDTHS + PADDED_WIDTHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dropout", [0.0, P_DROP])
 @pytest.mark.parametrize("l,k", [(40, 5), (50, 7), (9, 3), (56, 9)])
@@ -473,17 +479,18 @@ def test_encoder_kernel_matches_plain_at_other_widths(cuda, d, dtype,
     gen = torch.Generator().manual_seed(2)
     x, pe, p, mask = encoder_args(cuda, dt, gen, l=l, k=k, d=d)
     kw = dict(dropout_rate=dropout, seed=SEED)
-    launches = encoder.FWD_BY_WIDTH[d].launches
+    counter = width_counter(encoder.FWD_BY_WIDTH, d)
+    launches = counter.launches
     got = encoder.encoder_reduce(x, pe, p, k, mask, **kw)
     want = encoder.encoder_reduce_plain(x, pe, p, k, mask, **kw)
     torch.cuda.synchronize()
-    assert encoder.FWD_BY_WIDTH[d].launches == launches + 1
+    assert counter.launches == launches + 1
     close(got, want, encoder.TOL[dt])
     assert (got[0, 1].float() == want[0, 1].float()).all()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("d", WIDTHS + PADDED_WIDTHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("dropout", [0.0, P_DROP])
 @pytest.mark.parametrize("l,k,masked", [(50, 7, True), (50, 7, False),
@@ -495,36 +502,38 @@ def test_encoder_block_kernel_matches_plain_at_other_widths(
     x, pe, p, _ = encoder_args(cuda, dt, gen, l=l, k=k, d=d)
     zm = stream_mask(x.shape[1], l).to(cuda) if masked else None
     kw = dict(dropout_rate=dropout, seed=SEED)
-    launches = encoder.BLOCK_BY_WIDTH[d].launches
+    counter = width_counter(encoder.BLOCK_BY_WIDTH, d)
+    launches = counter.launches
     got = encoder.encoder_block(x, pe, p, k, zm, **kw)
     want = encoder.encoder_block_plain(x, pe, p, k, zm, **kw)
     torch.cuda.synchronize()
-    assert encoder.BLOCK_BY_WIDTH[d].launches == launches + 1
+    assert counter.launches == launches + 1
+    assert got.shape == x.shape
     assert torch.isfinite(got.float()).all()
     valid = 1.0 if zm is None else zm[..., None]
     close(got.float() * valid, want.float() * valid, encoder.TOL[dt])
 
 
 @pytest.mark.cuda
-def test_kernels_refuse_other_widths_and_train_only_at_128(cuda):
-    """D = 96 is refused by every forward wrapper, naming the widths; the
-    backward kernels take D = 256 (csrc/encoder_bwd_wide.cu, its own
-    launch count) as they take 128.  (The name is from when the backward
-    kernels were built at D = 128 only.)"""
+def test_kernels_refuse_widths_past_256_and_train_at_256(cuda):
+    """D = 384 is refused by every forward wrapper, naming the widths and
+    ROADMAP A10d; the backward kernels take D = 256
+    (csrc/encoder_bwd_tc_wide.cu, its own launch count) as they take
+    128."""
     gen = torch.Generator().manual_seed(9)
-    args = attn_args(cuda, torch.bfloat16, d=96)
-    with pytest.raises(ValueError, match="64, 128 and 256"):
+    args = attn_args(cuda, torch.bfloat16, d=384)
+    with pytest.raises(ValueError, match="up to 256.*A10d"):
         qa_ctx_attention.qa_ctx_attention(*args)
-    s = randn(gen, 3, 96).to(cuda, torch.bfloat16)
+    s = randn(gen, 3, 384).to(cuda, torch.bfloat16)
     params = [t.to(cuda) for t in (
-        torch.ones(288), torch.zeros(288), torch.zeros(288, 96),
-        torch.zeros(96), torch.ones(96), torch.zeros(96))]
-    with pytest.raises(ValueError, match="64, 128 and 256"):
+        torch.ones(1152), torch.zeros(1152), torch.zeros(1152, 384),
+        torch.zeros(384), torch.ones(384), torch.zeros(384))]
+    with pytest.raises(ValueError, match="up to 256.*A10d"):
         tri_bridge.tri_bridge(s, s, *params)
-    x, pe, p, mask = encoder_args(cuda, torch.bfloat16, gen, d=96)
-    with pytest.raises(ValueError, match="64, 128 and 256"):
+    x, pe, p, mask = encoder_args(cuda, torch.bfloat16, gen, d=384)
+    with pytest.raises(ValueError, match="up to 256.*A10d"):
         encoder.encoder_reduce(x, pe, p, 5, mask)
-    with pytest.raises(ValueError, match="64, 128 and 256"):
+    with pytest.raises(ValueError, match="up to 256.*A10d"):
         encoder.encoder_block(x, pe, p, 5)
     x, pe, p, mask = encoder_args(cuda, torch.bfloat16, gen, d=256)
     x.requires_grad_(True)
@@ -534,6 +543,12 @@ def test_kernels_refuse_other_widths_and_train_only_at_128(cuda):
     torch.cuda.synchronize()
     assert encoder.BWD_BY_WIDTH[256].launches == bwd0 + 1
     assert torch.isfinite(x.grad.float()).all()
+
+
+def f32_table(wide, at_128):
+    """The encoder's float32 backward by instantiation: ``wide`` (64, 256)
+    and the D = 128 entry, which serves both compute modes."""
+    return {**wide, 128: at_128}
 
 
 # the backwards at the other widths: every mode the D = 128 rows of
@@ -546,7 +561,7 @@ WIDE_BWD_CASES = [("attention", "target", 25), ("attention", "none", 50),
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("d", WIDTHS + PADDED_WIDTHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("family,mode,n", WIDE_BWD_CASES)
 def test_backward_kernels_match_plain_at_other_widths(cuda, d, dtype, family,
@@ -572,7 +587,7 @@ def test_backward_kernels_match_plain_at_other_widths(cuda, d, dtype, family,
             cot.append(randn(gen, 2, 5, 3, 8, n).to(cuda)
                        * args[4][:, :, None, :, None]
                        * args[5][:, None, :, None, :])
-        counter, tol = (qa_ctx_attention.BWD_BY_WIDTH[d],
+        counter, tol = (width_counter(qa_ctx_attention.BWD_BY_WIDTH, d),
                         qa_ctx_attention.GRAD_TOL[dt])
 
         def kernel(*a_):
@@ -593,7 +608,8 @@ def test_backward_kernels_match_plain_at_other_widths(cuda, d, dtype, family,
             t.to(cuda) for t in params]
         flip = checks.tri_bridge_flip_rows(*args[:6], P_DROP, SEED)
         cot = [randn(gen, *rows, d).to(cuda) * (~flip)[..., None]]
-        counter, tol = tri_bridge.BWD_BY_WIDTH[d], tri_bridge.GRAD_TOL[dt]
+        counter, tol = (width_counter(tri_bridge.BWD_BY_WIDTH, d),
+                        tri_bridge.GRAD_TOL[dt])
 
         def kernel(*a_):
             return tri_bridge.tri_bridge(*a_, P_DROP, SEED)
@@ -610,7 +626,9 @@ def test_backward_kernels_match_plain_at_other_widths(cuda, d, dtype, family,
         if family == "encoder":
             cot = [encoder_cotangent(x, pe, p, k, mask, dt, gen, P_DROP)]
             counter, fn_k, fn_p, m = (
-                (encoder.F32_BWD_BY_WIDTH if f32 else encoder.BWD_BY_WIDTH)[d],
+                width_counter(f32_table(encoder.F32_BWD_BY_WIDTH,
+                                        encoder.BWD_KERNEL)
+                              if f32 else encoder.BWD_BY_WIDTH, d),
                 encoder.encoder_reduce, encoder.encoder_reduce_plain, mask)
         else:
             zm = stream_mask(x.shape[1], n).to(cuda) if mode else None
@@ -622,8 +640,9 @@ def test_backward_kernels_match_plain_at_other_widths(cuda, d, dtype, family,
             cot = [randn(gen, *x.shape).to(cuda)
                    * (valid * ~flip[..., None])[..., None]]
             counter, fn_k, fn_p, m = (
-                (encoder.F32_BLOCK_BWD_BY_WIDTH if f32
-                 else encoder.BLOCK_BWD_BY_WIDTH)[d],
+                width_counter(f32_table(encoder.F32_BLOCK_BWD_BY_WIDTH,
+                                        encoder.BLOCK_BWD_KERNEL)
+                              if f32 else encoder.BLOCK_BWD_BY_WIDTH, d),
                 encoder.encoder_block, encoder.encoder_block_plain, zm)
         tol = encoder.GRAD_TOL[dt]
         args = [x] + [p[key] for key in keys]
@@ -648,6 +667,44 @@ def test_backward_kernels_match_plain_at_other_widths(cuda, d, dtype, family,
     for i, (gk, ga, gp) in enumerate(zip(g_k, g_again, g_p)):
         assert torch.equal(gk, ga), f"grad {i} differs between two runs"
         checks.hold_grad(f"D {d} {family} grad {i}", gk, gp, tol)
+
+
+# ------------------------------------- the merged encoder's group map (C5)
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (128, 96))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encoder_block_group_map_keys_frames_as_the_whole(cuda, d, dtype):
+    """The full-output kernel with dropout on one ctx rank's groups (the
+    QA groups, then its frames of two streams) under the group map equals,
+    bit for bit, the kernel on the whole group axis at those groups, and
+    the plain version under the same map at the kernel's tolerance; its
+    backward matches autograd through the plain version."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(12)
+    num_a, whole, ctx, l, k = 3, 8, 2, 50, 7
+    g = num_a + 2 * whole
+    x, pe, p, _ = encoder_args(cuda, dt, gen, g=g, l=l, k=k, d=d)
+    kw = dict(dropout_rate=P_DROP, seed=SEED)
+    ref = encoder.encoder_block(x, pe, p, k, None, **kw)
+    li = whole // ctx
+    for c in range(ctx):
+        rows = torch.cat([torch.arange(num_a),
+                          num_a + c * li + torch.arange(li),
+                          num_a + whole + c * li + torch.arange(li)])
+        groups = (rows.to(cuda, torch.int32), g)
+        xr = x[:, rows.to(cuda)].contiguous().requires_grad_(True)
+        got = encoder.encoder_block(xr, pe, p, k, None, groups=groups, **kw)
+        xp = xr.detach().requires_grad_(True)
+        want = encoder.encoder_block_plain(xp, pe, p, k, None,
+                                           groups=groups, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref[:, rows.to(cuda)]), c
+        close(got, want, encoder.TOL[dt])
+        cot = torch.ones_like(got, dtype=torch.float32) / got.numel()
+        gk, = torch.autograd.grad(got, xr, cot.to(dt))
+        gp, = torch.autograd.grad(want, xp, cot.to(dt))
+        checks.hold_grad(f"group map D {d} gx", gk, gp,
+                         encoder.GRAD_TOL[torch.bfloat16])
 
 
 # ------------------------------------------- encoder, full output / zero mask

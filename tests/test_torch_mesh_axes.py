@@ -30,7 +30,7 @@ from tvqaplus_tpu_torch.interop.weights import (
     flax_from_params,
     params_from_flax,
 )
-from tvqaplus_tpu_torch.models.layers import MLPBridge
+from tvqaplus_tpu_torch.models.layers import Dropout, MLPBridge
 from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
 from tvqaplus_tpu_torch.parallel import mesh as dp
 from tvqaplus_tpu_torch.train.loop import Trainer
@@ -216,17 +216,20 @@ def ctx_jobs(tmp_path, shape, **kw):
     return cfg, sd, job
 
 
-def held_params(single, got, n_ranks):
-    """Parameters at 1e-5 where the last step's gradient |g| > 1e-4 (the
+def held_params(single, got, n_ranks, step="last"):
+    """Parameters at 1e-5 where the step's gradient |g| > 1e-4 (the
     data-parallel tests' bar, tests/test_torch_parallel.py: Adam moves a
     parameter whose gradient is rounding noise by about lr, of random
-    sign); returns the share of elements held."""
+    sign), after the ``step`` ("first" or "last") dispatch; returns the
+    share of elements held."""
+    params, grads = (("params", "grads") if step == "last"
+                     else ("first_params", "first_grads"))
     held = total = 0
-    for name, p in single["params"].items():
-        big = single["grads"][name].abs().numpy() > 1e-4
+    for name, p in single[params].items():
+        big = single[grads][name].abs().numpy() > 1e-4
         held += big.sum()
         total += p.numel()
-        np.testing.assert_allclose(got["params"][name].numpy()[big],
+        np.testing.assert_allclose(got[params][name].numpy()[big],
                                    p.numpy()[big], rtol=1e-5, atol=1e-5,
                                    err_msg=name)
     return held / total
@@ -332,6 +335,117 @@ def test_ctx_ranks_drop_alike_where_the_work_is_replicated(tmp_path):
     assert not torch.equal(out[0]["params"][name], sd[name])
 
 
+# ------------------------------- ctx: the merged input encoder's masks
+def merged_encoder_calls(tmp_path, blind):
+    """Two gloo ranks at (1, 2), merged input path, dropout 0.1, one K = 2
+    dispatch: each rank's merged input-encoder calls (``probe_merged``),
+    with the group map or rank-blind."""
+    cfg, sd, job = ctx_jobs(tmp_path, (1, 2), dropout=0.1,
+                            merge_input_streams=True)
+    job.update(batches=job["batches"][:1], probe_merged=True,
+               blind_map=blind)
+    path = str(tmp_path / "job")
+    torch.save(job, path)
+    num_a = job["batches"][0]["qas_bert"].shape[2]
+    return cfg, sd, num_a, ranks.run_ranks(ranks.train_rank, 2, path)
+
+
+def whole_call(cfg, sd, num_a, calls):
+    """The single process's merged encoder call on the ranks' first calls
+    put together (the QA groups, then each stream's frames in rank order),
+    with their seeds: its output, and each rank's (QA, sub, vid) group
+    ranges in it."""
+    parts = [c["seen"][0] for c in calls]
+    li = (parts[0]["x"].shape[1] - num_a) // 2
+
+    def cat(key):
+        dim = 0 if key == "zero_mask" else 1
+        t = [p[key] for p in parts]
+        return torch.cat([t[0].narrow(dim, 0, num_a)]
+                         + [u.narrow(dim, num_a, li) for u in t]
+                         + [u.narrow(dim, num_a + li, li) for u in t], dim)
+    model = STAGE(ModelConfig.from_config(cfg))
+    model.load_state_dict(sd)
+    drop = Dropout(parts[0]["rate"], torch.Generator(), parts[0]["seeds"])
+    with torch.no_grad():
+        out = model.input_encoder(cat("x"), drop=drop,
+                                  zero_mask=cat("zero_mask"))
+    whole = li * len(parts)
+    spans = [(num_a + c * li, num_a + whole + c * li)
+             for c in range(len(parts))]
+    return out, li, spans
+
+
+def test_ctx_ranks_key_the_merged_encoder_at_their_global_frames(tmp_path):
+    """C5: at (1, 2) on the merged path with dropout 0.1, each ctx rank's
+    frame rows of the merged input encoder's output equal bit for bit the
+    single process's rows at the same global frames, fed the same rows
+    and seeds (the kernel's group map keys each frame where one process
+    keys it); the QA rows are equal on both ranks and to the single
+    process's."""
+    cfg, sd, num_a, out = merged_encoder_calls(tmp_path, blind=False)
+    ref, li, spans = whole_call(cfg, sd, num_a, out)
+    for o, (sub, vid) in zip(out, spans):
+        got = o["seen"][0]["out"]
+        assert o["seen"][0]["rate"] == 0.1
+        assert torch.equal(got[:, :num_a], ref[:, :num_a])
+        assert torch.equal(got[:, num_a:num_a + li], ref[:, sub:sub + li])
+        assert torch.equal(got[:, num_a + li:], ref[:, vid:vid + li])
+    assert torch.equal(out[0]["seen"][0]["out"][:, :num_a],
+                       out[1]["seen"][0]["out"][:, :num_a])
+
+
+def test_a_rank_blind_map_repeats_the_frame_masks(tmp_path):
+    """The mutation the check above must catch: without the group map each
+    ctx rank keys its groups by their local place, so the second rank's
+    frame rows are not the single process's at its global frames (and the
+    QA rows past the first batch row move too, the row stride being the
+    local group count), though the ranks' QA rows still agree."""
+    cfg, sd, num_a, out = merged_encoder_calls(tmp_path, blind=True)
+    ref, li, (_, (sub, vid)) = whole_call(cfg, sd, num_a, out)
+    got = out[1]["seen"][0]["out"]
+    assert torch.equal(got[:, :num_a], out[0]["seen"][0]["out"][:, :num_a])
+    assert not torch.equal(got[:, num_a:num_a + li], ref[:, sub:sub + li])
+    assert not torch.equal(got[:, num_a + li:], ref[:, vid:vid + li])
+
+
+@pytest.mark.parametrize("ctx", [2, 4])
+def test_the_plain_encoder_keys_a_rank_s_frames_as_the_whole(ctx):
+    """The plain full-output encoder with dropout 0.1 (float32) on one
+    rank's groups under its group map equals, bit for bit, the call on the
+    whole group axis at those groups."""
+    from tvqaplus_tpu_torch.ops.encoder import encoder_block_plain
+    rng = np.random.default_rng(ctx)
+    bsz, num_a, whole, length, d, k = 2, 3, 8, 6, 16, 7
+    g = num_a + 2 * whole
+    x = torch.from_numpy(rng.standard_normal((bsz, g, length, d),
+                                             np.float32))
+    params = {key: torch.from_numpy(
+        rng.standard_normal(shape, np.float32) * 0.3)
+        for key, shape in [("ln0_s", (d,)), ("ln0_b", (d,)),
+                           ("dw0", (k, d)), ("dwb0", (d,)),
+                           ("pw0", (d, d)), ("pwb0", (d,)),
+                           ("ln1_s", (d,)), ("ln1_b", (d,)),
+                           ("dw1", (k, d)), ("dwb1", (d,)),
+                           ("pw1", (d, d)), ("pwb1", (d,)),
+                           ("lnf_s", (d,)), ("lnf_b", (d,))]}
+    pe = torch.zeros(length, d)
+    ref = encoder_block_plain(x, pe, params, k, None, 0.1, 12345)
+    li = whole // ctx
+    for c in range(ctx):
+        rows = torch.cat([torch.arange(num_a),
+                          num_a + c * li + torch.arange(li),
+                          num_a + whole + c * li + torch.arange(li)])
+        groups = (rows.to(torch.int32), g)
+        got = encoder_block_plain(x[:, rows], pe, params, k, None, 0.1,
+                                  12345, groups=groups)
+        assert torch.equal(got, ref[:, rows]), c
+        if c:
+            blind = encoder_block_plain(x[:, rows], pe, params, k, None,
+                                        0.1, 12345)
+            assert not torch.equal(blind, ref[:, rows])
+
+
 # ---------------------------------------------------- model: training
 def port_setup_tp(tmp_path, **kw):
     """JAX's tensor-parallel test config (tests/test_train.py:322-352):
@@ -341,13 +455,23 @@ def port_setup_tp(tmp_path, **kw):
     return port_config(jcfg, results_dir=str(tmp_path / "port")), jcfg
 
 
-def test_model_two_shards_the_leaves_jax_shards(tmp_path):
+# the leaves the kernels take whole that JAX's rule shards at hsz 256
+KERNEL_LEAVES = {"c2q_down_projection.2.weight", "concat_fc.2.weight"} | {
+    f"{enc}.stacked_encoderBlocks.0.conv.{i}.pointwise_conv.weight"
+    for enc in ("input_encoder", "cls_encoder") for i in (0, 1)}
+
+
+@pytest.mark.parametrize("hsz", [128, 256])
+def test_model_two_shards_the_leaves_jax_shards(tmp_path, hsz):
     """The port's sharded weights at model 2 and 8, named in the JAX tree
     through the weight bridge, are the leaves JAX's ``state_shardings``
-    shards over "model" on the same parameters: both bridges at 2, none at
-    8, where 300 output columns do not split (a rule on torch's own last
-    dim, 256 input columns, would shard the BERT bridge)."""
-    cfg, _ = port_setup_tp(tmp_path, vfeat_size=300)
+    shards over "model" on the same parameters.  At hsz 128: both bridges
+    at 2, none at 8, where 300 output columns do not split (a rule on
+    torch's own last dim, 256 input columns, would shard the BERT bridge).
+    At hsz 256 also the kernels' weights (the attention's and the tri
+    bridge's projections, the encoders' pointwise convs), which the port
+    places (``_split_layer``) to gather whole."""
+    cfg, _ = port_setup_tp(tmp_path, vfeat_size=300, hsz=hsz)
     model = STAGE(ModelConfig.from_config(cfg))
     sd = model.state_dict()
     jparams = jax.tree_util.tree_map(np.asarray, flax_from_params(sd, cfg))
@@ -365,39 +489,92 @@ def test_model_two_shards_the_leaves_jax_shards(tmp_path):
                jax.tree_util.tree_leaves_with_path(flax_from_params(
                    marked, cfg)) if np.all(np.asarray(v) == 1.0)}
         assert got == want, size
-        assert set(ours) == ({"bert_word_encoding_fc.2.weight",
-                              "vid_fc.2.weight"} if size == 2 else set())
+        if hsz == 128:
+            assert set(ours) == ({"bert_word_encoding_fc.2.weight",
+                                  "vid_fc.2.weight"} if size == 2 else set())
+        elif size == 2:
+            assert KERNEL_LEAVES <= set(ours)
+            for name in ours:
+                _, whole = dp._split_layer(model, name)
+                assert whole == (name in KERNEL_LEAVES), name
 
 
-def test_model_two_matches_one_process_and_the_jax_trainer(tmp_path):
-    """(2, 1, 2) on 4 gloo ranks against the JAX Trainer on a (2, 1, 2)
-    mesh, two steps on one batch of 4 (dropout 0, hard negatives, float32,
-    --use_sup_att): step 1's loss at 1e-4 and step 2's at 5e-3 relative,
-    JAX's bars (tests/test_train.py:322-352); against the port's single
-    process, every rank's losses at 1e-5 relative and its whole parameters
-    at the data-parallel tests' bar, the BERT bridge's weight split over the model ranks."""
-    cfg, jcfg = port_setup_tp(tmp_path)
-    ref, batch, sd = jax_trainer_loss(jcfg, (2, 1, 2), steps=2)
-    job = ranks.train_job(cfg, sd, [batch, batch], True,
-                          mesh_shape=(2, 1, 2))
+def model_axis_ranks(tmp_path, shape, hsz, **flags):
+    """The JAX Trainer's two losses on a mesh of ``shape`` at ``hsz``, the
+    port's single process and its gloo ranks on the same mesh, two steps
+    on one batch of 4 (dropout 0, hard negatives, float32, --use_sup_att);
+    ``flags`` go into the ranks' job."""
+    cfg, jcfg = port_setup_tp(tmp_path, hsz=hsz)
+    ref, batch, sd = jax_trainer_loss(jcfg, shape, steps=2)
+    job = ranks.train_job(cfg, sd, [batch, batch], True, mesh_shape=shape)
     single = ranks.train(job, None)
     path = str(tmp_path / "job")
-    torch.save(job, path)
-    out = ranks.run_ranks(ranks.train_rank, 4, path)
+    torch.save(dict(job, **flags), path)
+    out = ranks.run_ranks(ranks.train_rank, int(np.prod(shape)), path)
+    return cfg, ref, single, out
+
+
+@pytest.mark.parametrize("shape,hsz", [((2, 1, 2), 128), ((1, 1, 2), 256),
+                                       ((2, 1, 2), 256)])
+def test_model_two_matches_one_process_and_the_jax_trainer(tmp_path, shape,
+                                                           hsz):
+    """The model axis on gloo ranks against the JAX Trainer on a mesh of
+    the same shape, two steps on one batch of 4 (dropout 0, hard negatives,
+    float32, --use_sup_att): step 1's loss at 1e-4 and step 2's at 5e-3
+    relative, JAX's bars (tests/test_train.py:322-352); against the port's
+    single process, every rank's losses at 1e-5 relative, its grad norms at
+    1e-5 (step 2 at hsz 256: 1e-4) and its whole parameters at the
+    data-parallel tests' bar (at hsz 256 after step 1).  At hsz 128 the BERT
+    bridge's weight is split over the model ranks; at hsz 256 also the kernels'
+    weights, gathered whole in each forward, and the input embedding and the
+    linear wrappers by columns: their sums in another order part the gradients
+    by float32 rounding (step 1's agree to 1.1e-6 of each leaf's largest), and
+    Adam's first update moves each parameter whose gradient is such noise by
+    about lr (1e-3) either way, which moves step 2's gradients: its grad norm
+    by 1.1e-5 at (1, 1, 2), two elements of a pointwise conv by 2e-4 after it,
+    with both steps' gradients over 1e-4 (JAX holds its own step 2 at 5e-3)."""
+    cfg, ref, single, out = model_axis_ranks(tmp_path, shape, hsz)
     rows = [o for o in out if o["coords"][2] == 0]
     for step, (bar, want) in enumerate(zip((1e-4, 5e-3), ref)):
         got = sum(o["metrics"][step]["loss"] for o in rows)
         assert abs(got - want) / abs(want) < bar, step
         np.testing.assert_allclose(got, single["metrics"][step]["loss"],
                                    rtol=1e-5)
+    sharded = sorted(dp.sharded_parameters(
+        STAGE(ModelConfig.from_config(cfg)), 2))
+    assert KERNEL_LEAVES <= set(sharded) if hsz == 256 \
+        else sharded == ["bert_word_encoding_fc.2.weight"]
     for o in out:
-        assert o["sharded"] == ["bert_word_encoding_fc.2.weight"]
-        np.testing.assert_allclose(o["metrics"][1]["grad_norm"],
-                                   single["metrics"][1]["grad_norm"],
-                                   rtol=1e-5)
-        assert held_params(single, o, 4) > 0.95
+        assert o["sharded"] == sharded
+        for step, bar in enumerate((1e-5, 1e-5 if hsz == 128 else 1e-4)):
+            np.testing.assert_allclose(o["metrics"][step]["grad_norm"],
+                                       single["metrics"][step]["grad_norm"],
+                                       rtol=bar)
+        assert held_params(single, o, len(out),
+                           "last" if hsz == 128 else "first") > 0.95
         for name in o["params"]:
             assert torch.equal(o["params"][name], out[0]["params"][name])
+
+
+def test_a_summing_weight_gather_fails_the_model_axis_bar(tmp_path):
+    """The mutation the check above must catch: a gather of the kernels'
+    whole weights whose backward sums the whole gradients over the model
+    group (instead of taking this rank's block) hands each block twice its
+    gradient at (1, 1, 2): step 1's grad norm leaves the single process's
+    far past its bar (Adam's update is nearly blind to the scale, so the
+    losses barely move), and so do those weights' gradients."""
+    cfg, _, single, out = model_axis_ranks(tmp_path, (1, 1, 2), 256,
+                                           summing_gather=True)
+    got = out[0]["metrics"][0]["grad_norm"]
+    want = single["metrics"][0]["grad_norm"]
+    assert abs(got - want) / abs(want) > 1e-2
+    # step 1's gradients (after the clip at 10, which scales each side by
+    # 10 / its own norm): twice the single process's, times the norms' ratio
+    twice = 2.0 * want / got
+    for name in KERNEL_LEAVES:
+        ratio = float(out[0]["first_grads"][name].norm()
+                      / single["first_grads"][name].norm())
+        assert abs(ratio - twice) < 1e-2 * twice, (name, ratio, twice)
 
 
 def test_model_two_checkpoints_round_trip_with_one_process(tmp_path):

@@ -12,8 +12,9 @@ kernels run as they do at 128 (none of their predicates tests the width).
   InferenceRunner's from the same weights.
 * The Python side of the kernels' launch at these widths: which
   instantiation each width takes, the shared memory of each against the
-  H100's limit, D = 96 refused (forward and backward), training at hsz 256
-  on a (faked) cuda device accepted and at hsz 96 refused at construction.
+  H100's limit, D = 96 padded to the 128 instantiation and D = 384 refused
+  (forward and backward), training on a (faked) cuda device at hsz 64 to
+  256 accepted and at hsz 384 refused at construction.
   The kernels themselves run on a card:
   tests/test_torch_cuda.py (``other_widths``) and chip_smoke.py.
 """
@@ -196,8 +197,15 @@ def test_streamed_width_would_not_fit_resident(family):
     assert resident_w > widths.SMEM_LIMIT
 
 
-def test_width_96_is_refused_with_the_widths_and_roadmap_item():
-    d, msg = 96, "64, 128 and 256"
+def test_width_384_is_refused_with_the_widths_and_roadmap_item():
+    """Past 256 no instantiation takes a width: the width rule and each
+    kernel's check refuse D = 384, naming the widths and ROADMAP A10d;
+    D = 96 is taken, in the 128 instantiation."""
+    d, msg = 384, "64, 128 and 256"
+    with pytest.raises(ValueError, match="up to 256.*A10d"):
+        widths.check_width("encoder", d)
+    with pytest.raises(ValueError, match="A10d"):
+        widths.padded_width(d)
     xs, pes, ps, masks = encoder_inputs(d=d)
     packed = encoder.pack_params({k: t(v) for k, v in ps.items()})
     with pytest.raises(ValueError, match=msg) as e:
@@ -211,18 +219,32 @@ def test_width_96_is_refused_with_the_widths_and_roadmap_item():
         qa_ctx_attention._check(*args, "full", None)
     with pytest.raises(ValueError, match=msg):
         widths.instantiation(d)
+    widths.check_width("encoder", 96)
+    assert widths.padded_width(96) == 128
+    assert widths.instantiation(widths.padded_width(96)) == "resident"
 
 
 @pytest.mark.parametrize("d", WIDTHS)
 def test_forward_checks_pass_and_backward_checks_refuse_at_width(d):
     """The forward and the backward wrappers take D = 64 and 256 (the
-    backward kernels of csrc/*_bwd_wide.cu); the backward checks refuse a
-    width no kernel is built for (D = 96 here) and name ROADMAP A10d."""
-    for width, ok in ((d, True), (96, False)):
+    backward kernels of csrc/*_bwd_wide.cu), and D = 96 once padded to its
+    instantiation (the wrappers' ``pad_inputs``); the backward checks
+    refuse a width no kernel is built for (D = 384 here) and name ROADMAP
+    A10d."""
+    for width, ok in ((d, True), (96, True), (384, False)):
         xs, pes, ps, masks = encoder_inputs(d=width)
-        packed = encoder.pack_params({k: t(v) for k, v in ps.items()})
         s, v, *params = (t(a) for a in bridge_inputs(d=width))
         args = [t(a) for a in attn_inputs(d=width)]
+        if width == 96:                  # what the wrappers launch
+            dp = widths.padded_width(width)
+            xs, pes, ps = encoder.pad_inputs(
+                t(xs), t(pes), {k: t(p) for k, p in ps.items()}, dp)
+            s, v, params = tri_bridge.pad_inputs(s, v, params, dp)
+            args = list(qa_ctx_attention.pad_inputs(
+                *args[:4], *args[6:], dp))
+            args = args[:4] + [t(a) for a in attn_inputs(d=width)[4:6]] \
+                + args[4:]
+        packed = encoder.pack_params({k: t(v) for k, v in ps.items()})
         calls = (lambda: encoder._check(t(xs), t(pes), packed, 5,
                                         reduce_mask=t(masks), backward=True),
                  lambda: tri_bridge._check(s, v, params, backward=True),
@@ -240,19 +262,18 @@ def test_forward_checks_pass_and_backward_checks_refuse_at_width(d):
                 call()
 
 
-def test_training_at_hsz_256_on_cuda_is_refused_at_construction(
+def test_cuda_trains_widths_to_256_and_refuses_wider_at_construction(
         monkeypatch, tmp_path):
-    """The Trainer and the train CLI on a (faked) cuda device take hsz 256
-    (and 64): the backward kernels are built for it.  hsz 96 is refused
+    """The Trainer and the train CLI on a (faked) cuda device take hsz 64
+    to 256 (96 and 200 padded to an instantiation).  hsz 384 is refused
     before any step and before a run directory is written, naming the
-    backward kernels and A10d; on the CPU every width trains.  (The name is
-    from when the card trained at hsz 128 only.)"""
+    widths and A10d; on the CPU every width trains."""
     cuda = torch.device("cuda")
-    for hsz in (64, 128, 256):
+    for hsz in (64, 96, 128, 200, 256):
         widths.check_trainable(hsz, cuda)
     with pytest.raises(ValueError, match="A10d"):
-        widths.check_trainable(96, cuda)
-    widths.check_trainable(96, torch.device("cpu"))
+        widths.check_trainable(384, cuda)
+    widths.check_trainable(384, torch.device("cpu"))
     widths.check_trainable(256, "cpu")
     class PastTheCheck(Exception):
         """Raised by the first step after the width check (this host has
@@ -263,19 +284,18 @@ def test_training_at_hsz_256_on_cuda_is_refused_at_construction(
 
     monkeypatch.setattr(loop, "resolve_device", lambda device=None: cuda)
     monkeypatch.setattr(loop, "STAGE", past)
-    for hsz in (96, 256, 64):
+    for hsz in (384, 256, 96, 64):
         _, cfg = configs(hsz=hsz)
-        with pytest.raises(PastTheCheck if hsz != 96 else ValueError,
-                           match=None if hsz != 96
-                           else "backward kernels.*A10d"):
+        with pytest.raises(PastTheCheck if hsz != 384 else ValueError,
+                           match=None if hsz != 384 else "up to 256.*A10d"):
             loop.Trainer(cfg, "cuda")
     monkeypatch.setattr(port_main, "resolve_device",
                         lambda device=None: cuda)
     monkeypatch.setattr(port_main.dp, "make_mesh", past)
     base = tmp_path / "runs"
-    for hsz in (96, 256):
-        with pytest.raises(PastTheCheck if hsz != 96 else ValueError,
-                           match=None if hsz != 96 else "A10d"):
+    for hsz in (384, 256, 96):
+        with pytest.raises(PastTheCheck if hsz != 384 else ValueError,
+                           match=None if hsz != 384 else "A10d"):
             port_main.main(["--synthetic_data", "--debug", "--hsz", str(hsz),
                             "--device", "cpu", "--results_dir_base",
                             str(base)])

@@ -78,6 +78,30 @@ def _probe(model):
     return seen
 
 
+def _probe_merged(model, blind):
+    """A hook that records each merged input-encoder call (the one with a
+    zero mask): its input, output, zero mask, and the dropout rate and the
+    seeds its kernel sites draw from.  ``blind``: run the call without the
+    group map, keyed by the local place of each group (the mutation the
+    map repairs)."""
+    seen = []
+    if blind:
+        model.merged_group_map = lambda *args: None
+
+    def hook(mod, args, kwargs, out):
+        if kwargs.get("zero_mask") is None:
+            return
+        drop = kwargs["drop"]
+        seen.append({"x": args[0].detach().clone(),
+                     "out": out.detach().clone(),
+                     "zero_mask": kwargs["zero_mask"].clone(),
+                     "rate": drop.rate,
+                     "seeds": drop.seeds[drop.site - len(
+                         mod.stacked_encoderBlocks):].clone()})
+    model.input_encoder.register_forward_hook(hook, with_kwargs=True)
+    return seen
+
+
 def _whole(mesh, model, name, t):
     """``t`` of the parameter ``name``, all-gathered whole when the model
     axis splits it."""
@@ -88,9 +112,9 @@ def _whole(mesh, model, name, t):
 
 def train(job, mesh):
     """Run a ``train_job`` on this process (``mesh`` None: no group);
-    returns the metrics of each dispatch (floats: this data row's sums and
-    the global grad_norm), the whole gradients and parameters after the
-    last one, the names of the parameters the model axis split, and what
+    returns the metrics of each dispatch (floats: this data row's sums and the
+    global grad_norm), the whole gradients and parameters after the first and
+    the last one, the names of the parameters the model axis split, and what
     ``probe`` recorded."""
     import dataclasses as dc
 
@@ -103,27 +127,64 @@ def train(job, mesh):
     model.load_state_dict(job["sd"], strict=True)
     trainer = Trainer(cfg, "cpu", model=model, mesh=mesh)
     seen = _probe(model) if job.get("probe") else None
-    metrics = []
+    if job.get("probe_merged"):
+        seen = _probe_merged(model, job.get("blind_map", False))
+    metrics, first = [], None
+    named = dict(model.named_parameters())
     for batch in job["batches"]:
         stacked = batch["ex_mask"].dim() == 2
         if job["rows"] == "shard":
             batch = dp.shard_batch(mesh, batch, stacked=stacked)
         m = trainer.dispatch_train(batch, job["use_hard"])
         metrics.append({k: float(v) for k, v in m.items()})
-    named = dict(model.named_parameters())
+        if first is None:
+            first = {k: _whole(mesh, model, k, p.grad)
+                     for k, p in named.items()}
+            with dp.full_state(mesh, model):
+                first_params = {k: p.detach().clone()
+                                for k, p in named.items()}
     grads = {k: _whole(mesh, model, k, p.grad) for k, p in named.items()}
     with dp.full_state(mesh, model):
         params = {k: p.detach().clone() for k, p in named.items()}
     if job.get("save"):
         trainer.save(job["save"])
-    return {"metrics": metrics, "grads": grads, "params": params,
+    return {"metrics": metrics, "grads": grads, "first_grads": first,
+            "params": params, "first_params": first_params,
             "step": trainer.step,
             "sharded": sorted(model.shards), "seen": seen,
             "coords": None if mesh is None else mesh.coords}
 
 
+class _SummingGather(torch.autograd.Function):
+    """A whole-weight gather whose backward sums the whole gradients over
+    the model group before taking this rank's block (the mutation
+    ``summing_gather`` runs)."""
+
+    @staticmethod
+    def forward(ctx, w, shard):
+        ctx.shard = shard
+        parts = [torch.empty_like(w) for _ in range(shard.size)]
+        torch.distributed.all_gather(parts, w.contiguous(), group=shard.group)
+        return torch.cat(parts, 0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        torch.distributed.all_reduce(grad, group=ctx.shard.group)
+        n = grad.shape[0] // ctx.shard.size
+        return grad.narrow(0, ctx.shard.index * n, n), None
+
+
+def _summing_gather(layer):
+    shard = getattr(layer, "shard", None)
+    return layer.weight if shard is None \
+        else _SummingGather.apply(layer.weight, shard)
+
+
 def train_rank(rank, path):
     job = _job(path)
+    if job.get("summing_gather"):
+        dp.gather_weight = _summing_gather
     return train(job, dp.make_mesh(job.get("mesh_shape", (-1, 1))))
 
 

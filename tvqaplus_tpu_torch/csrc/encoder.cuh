@@ -31,12 +31,13 @@ struct EncParams {
 };
 
 // LayerNorm of rows [0, L) of src into dst (warp per row, float32 stats,
-// fast variance clipped at 0).
+// fast variance clipped at 0; the sums divided by the true width, times
+// inv = 1 / dv, philox.cuh).
 template <int D = BWD_D>
 __device__ __forceinline__ void ln_rows(const float* src, float* dst, int L,
                                         const float* __restrict__ g,
                                         const float* __restrict__ bta,
-                                        int warp, int lane) {
+                                        int warp, int lane, float inv) {
   constexpr int VPL = D / 32;
   for (int r = warp; r < L; r += NWARPS) {
     float x[VPL], s = 0.f, ss = 0.f;
@@ -48,9 +49,9 @@ __device__ __forceinline__ void ln_rows(const float* src, float* dst, int L,
     }
     s = warp_sum(s);
     ss = warp_sum(ss);
-    const float mean = s * (1.f / D);
+    const float mean = s * inv;
     const float istd =
-        rsqrtf(fmaxf(ss * (1.f / D) - mean * mean, 0.f) + LN_EPS);
+        rsqrtf(fmaxf(ss * inv - mean * mean, 0.f) + LN_EPS);
 #pragma unroll
     for (int q = 0; q < VPL; ++q) {
       const int d = lane + 32 * q;
@@ -71,7 +72,7 @@ __device__ __forceinline__ void ln_bwd_rows(const float* src,
                                             const float* __restrict__ scale,
                                             float (&gs)[D / 32],
                                             float (&gb)[D / 32], int warp,
-                                            int lane) {
+                                            int lane, float inv) {
   constexpr int VPL = D / 32;
   for (int r = warp; r < L; r += NWARPS) {
     float x[VPL], s = 0.f, ss = 0.f;
@@ -83,9 +84,9 @@ __device__ __forceinline__ void ln_bwd_rows(const float* src,
     }
     s = warp_sum(s);
     ss = warp_sum(ss);
-    const float mean = s * (1.f / D);
+    const float mean = s * inv;
     const float istd =
-        rsqrtf(fmaxf(ss * (1.f / D) - mean * mean, 0.f) + LN_EPS);
+        rsqrtf(fmaxf(ss * inv - mean * mean, 0.f) + LN_EPS);
     float xh[VPL], gxh[VPL], s1 = 0.f, s2 = 0.f;
 #pragma unroll
     for (int q = 0; q < VPL; ++q) {
@@ -98,8 +99,8 @@ __device__ __forceinline__ void ln_bwd_rows(const float* src,
       s1 += gxh[q];
       s2 = fmaf(gxh[q], xh[q], s2);
     }
-    const float m1 = warp_sum(s1) * (1.f / D);
-    const float m2 = warp_sum(s2) * (1.f / D);
+    const float m1 = warp_sum(s1) * inv;
+    const float m2 = warp_sum(s2) * inv;
 #pragma unroll
     for (int q = 0; q < VPL; ++q) {
       const int d = lane + 32 * q;
@@ -144,15 +145,18 @@ __device__ __forceinline__ void load_zmask_row(float* v,
 }
 
 // Conv 0's dropout on rows [0, L) of buf (in place): element (l, d) of
-// sequence n is flat index (n L + l) D + d of the (B*G*L, D) LN output.
+// sequence n keys drop.row_key(n L + l) + d (philox.cuh; (n L + l) D + d,
+// the flat index of the (B*G*L, D) LN output, at dv = D without a map).
 template <int D = BWD_D>
 __device__ __forceinline__ void dropout_rows(float* buf, int L,
                                              unsigned long long n,
                                              const Dropout& drop) {
-  const unsigned long long base = n * L * D;
   for (int i4 = threadIdx.x; i4 < L * D / 4; i4 += NTHREADS) {
+    const int l = 4 * i4 / D;
     float km[4];
-    keep4(drop.seed, base + 4ull * i4, drop.threshold, drop.scale, km);
+    keep4(drop.seed, drop.row_key(static_cast<long long>(n) * L + l)
+                         + (4 * i4 - l * D),
+          drop.threshold, drop.scale, km);
 #pragma unroll
     for (int t = 0; t < 4; ++t) buf[4 * i4 + t] *= km[t];
   }

@@ -155,7 +155,7 @@ encoder_bwd_kernel(const T* __restrict__ x, const float* __restrict__ pe,
   // acc = c pw_i (the thread's rows); writes c rows to bufs.c[i] if asked
   auto layer_fwd = [&](const float* src, int i, unsigned long long n,
                        bool save_c, float (&acc)[RPT][4]) {
-    ln_rows(src, t_s, L, P.ln_s[i], P.ln_b[i], warp, lane);
+    ln_rows(src, t_s, L, P.ln_s[i], P.ln_b[i], warp, lane, drop.inv1);
     __syncthreads();
     if (i == 0 && drop.on()) {
       dropout_rows(t_s, L, n, drop);
@@ -214,8 +214,10 @@ encoder_bwd_kernel(const T* __restrict__ x, const float* __restrict__ pe,
       }
       if (i == 0 && drop.on()) {
         float km[4];
-        keep4(drop.seed, n * L * D + 4ull * i4, drop.threshold, drop.scale,
-              km);
+        keep4(drop.seed,
+              drop.row_key(static_cast<long long>(n) * L + 4 * i4 / D)
+                  + (4 * i4) % D,
+              drop.threshold, drop.scale, km);
 #pragma unroll
         for (int t = 0; t < 4; ++t) v[t] *= km[t];
       }
@@ -273,7 +275,7 @@ encoder_bwd_kernel(const T* __restrict__ x, const float* __restrict__ pe,
       for (int idx = tid; idx < L * D; idx += NTHREADS)
         ga_s[idx] = to_f(gout[nn * L * D + idx]);
     } else {
-      ln_rows(gb_s, ga_s, L, P.lnf_s, P.lnf_b, warp, lane);
+      ln_rows(gb_s, ga_s, L, P.lnf_s, P.lnf_b, warp, lane, drop.inv1);
       __syncthreads();
     }
     if (reduce && tid < D) {
@@ -297,12 +299,12 @@ encoder_bwd_kernel(const T* __restrict__ x, const float* __restrict__ pe,
     }
     __syncthreads();
     ln_bwd_rows(gb_s, ga_s, nullptr, ga_s, L, P.lnf_s, gls[2], glb[2], warp,
-                lane);
+                lane, drop.inv1);
     __syncthreads();
     // ---- layer 1 backward ------------------------------------------------
     layer_bwd(1, nn);
     ln_bwd_rows(h1_s, c_s, ga_s, ga_s, L, P.ln_s[1], gls[1], glb[1], warp,
-                lane);
+                lane, drop.inv1);
     __syncthreads();
     // ---- pass B: recompute layer 0 (dropout replayed), its backward -----
     layer_fwd(h0_s, 0, nn, true, acc);
@@ -321,7 +323,7 @@ encoder_bwd_kernel(const T* __restrict__ x, const float* __restrict__ pe,
     __syncthreads();
     layer_bwd(0, nn);
     ln_bwd_rows(h0_s, c_s, ga_s, c_s, L, P.ln_s[0], gls[0], glb[0], warp,
-                lane);
+                lane, drop.inv1);
     __syncthreads();
     for (int idx = tid; idx < L * D; idx += NTHREADS)
       gx[nn * L * D + idx] = from_f<T>(c_s[idx]);   // d(x + pe)/dx = 1
@@ -460,7 +462,8 @@ struct TcBufs {
 template <typename F>
 __device__ __forceinline__ void ln_bwd_tile(F fetch, float (&g)[64],
                                             const float* __restrict__ scale,
-                                            float* gacc, int lane) {
+                                            float* gacc, int lane,
+                                            float inv) {
   const int cl = 2 * (lane & 3);
   float mean[2] = {0.f, 0.f}, istd[2] = {0.f, 0.f};
 #pragma unroll
@@ -471,8 +474,8 @@ __device__ __forceinline__ void ln_bwd_tile(F fetch, float (&g)[64],
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    mean[h] = quad_sum(mean[h]) * (1.f / D);
-    istd[h] = rsqrtf(fmaxf(quad_sum(istd[h]) * (1.f / D) - mean[h] * mean[h],
+    mean[h] = quad_sum(mean[h]) * inv;
+    istd[h] = rsqrtf(fmaxf(quad_sum(istd[h]) * inv - mean[h] * mean[h],
                            0.f) + LN_EPS);
   }
   float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
@@ -507,8 +510,8 @@ __device__ __forceinline__ void ln_bwd_tile(F fetch, float (&g)[64],
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    s1[h] = quad_sum(s1[h]) * (1.f / D);
-    s2[h] = quad_sum(s2[h]) * (1.f / D);
+    s1[h] = quad_sum(s1[h]) * inv;
+    s2[h] = quad_sum(s2[h]) * inv;
   }
 #pragma unroll
   for (int pr = 0; pr < 32; ++pr) {
@@ -592,7 +595,7 @@ encoder_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
     // conv 0's dropout: keep bits of the thread's 64 values, drawn once
     uint32_t kw[2][2] = {{~0u, ~0u}, {~0u, ~0u}};
     if (drop.on())
-      tc_keep_bits<16, true>(drop, ((lane & 1) ? grow[1] : grow[0]) * D,
+      tc_keep_bits<16, true>(drop, drop.row_key((lane & 1) ? grow[1] : grow[0]),
                              lane, kw);
     auto keep = [&](int h, int q, int e) {
       return !drop.on() ? 1.f
@@ -630,8 +633,8 @@ encoder_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        mean[h] = quad_sum(mean[h]) * (1.f / D);
-        istd[h] = rsqrtf(fmaxf(quad_sum(istd[h]) * (1.f / D)
+        mean[h] = quad_sum(mean[h]) * drop.inv1;
+        istd[h] = rsqrtf(fmaxf(quad_sum(istd[h]) * drop.inv1
                                - mean[h] * mean[h], 0.f) + LN_EPS);
       }
     };
@@ -898,11 +901,11 @@ encoder_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
     }
     ln_bwd_tile([&](int pr) {
                   return make_float2(hv[2 * pr], hv[2 * pr + 1]);
-                }, ga, P.lnf_s(), ln_sums + 4 * D, lane);
+                }, ga, P.lnf_s(), ln_sums + 4 * D, lane, drop.inv1);
     // ---- layer 1 backward -----------------------------------------------
     bwd_mma(1, ga, sg, bufs.gy[1], acc);
     conv_bwd(1, acc);
-    ln_bwd_tile(from_r3, acc, P.ln_s(1), ln_sums + 2 * D, lane);
+    ln_bwd_tile(from_r3, acc, P.ln_s(1), ln_sums + 2 * D, lane, drop.inv1);
 #pragma unroll
     for (int j = 0; j < 64; ++j) ga[j] += acc[j];                 // g_h1
     __syncthreads();                   // R1 (g_c1) and R2 (t1) are read
@@ -921,7 +924,7 @@ encoder_bwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
     t_to_r2();
     bwd_mma(0, ga, sg, bufs.gy[0], acc);
     conv_bwd(0, acc);
-    ln_bwd_tile(from_r3, acc, P.ln_s(0), ln_sums, lane);
+    ln_bwd_tile(from_r3, acc, P.ln_s(0), ln_sums, lane, drop.inv1);
 #pragma unroll
     for (int pr = 0; pr < 32; ++pr) {  // d(x + pe)/dx = 1
       const int h = pr & 1, c = 8 * (pr >> 1) + cl;
@@ -999,11 +1002,14 @@ int launch_any(const void* x, const void* pe, const void* packed,
                void* c1, void* gy0, void* gy1, void* vec_part, void* wg_part,
                int N, int G, int L, int k, int wg_chunks,
                const unsigned long long* drop_seed, unsigned drop_threshold,
-               float drop_scale, int is_bf16, void* stream) {
+               float drop_scale, int dv, const int* gmap, int g_glob,
+               int is_bf16, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto fm = [](void* p) { return static_cast<float*>(p); };
   auto st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
+  const Dropout drop = entry_dropout(
+      drop_seed, drop_threshold, drop_scale, dv, gmap, G, g_glob, L);
+  if (!width_ok(dv, D)) return static_cast<int>(cudaErrorInvalidValue);
   if (k % 2 == 0 || k > MAX_K || L < 1 || L > TR)
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16) {
@@ -1034,16 +1040,21 @@ int launch_any(const void* x, const void* pe, const void* packed,
 // pwb entries are 0); c0, c1, gy0, gy1 are bfloat16; vec_part is
 // min(N, SMs) x (vec_floats + ACC_FLOATS + H_FLOATS) floats; wg_part is
 // (wg_chunks, D + 1, D).
+// dv: the true width, 4 <= dv <= D with 4 | dv, of inputs zero-padded to D
+// (every LN's statistics and the Philox keys, philox.cuh); gmap / g_glob the
+// group map of the full-output mode (Dropout::row_key; NULL / 1 for none).
 extern "C" int encoder_reduce_bwd(
     const void* x, const void* pe, const void* packed, const void* pwT,
     const void* mask, const void* g, void* gx, void* gvec, void* gpw,
     void* c0, void* c1, void* gy0, void* gy1, void* vec_part, void* wg_part,
     int N, int L, int k, int wg_chunks, const unsigned long long* drop_seed,
-    unsigned drop_threshold, float drop_scale, int is_bf16, void* stream) {
+    unsigned drop_threshold, float drop_scale, int dv, const int* gmap,
+    int g_glob, int is_bf16, void* stream) {
   if (mask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch_any(x, pe, packed, pwT, mask, nullptr, g, gx, gvec, gpw, c0,
                     c1, gy0, gy1, vec_part, wg_part, N, 1, L, k, wg_chunks,
-                    drop_seed, drop_threshold, drop_scale, is_bf16, stream);
+                    drop_seed, drop_threshold, drop_scale, dv, gmap, g_glob,
+                    is_bf16, stream);
 }
 
 // Full-output mode: g (N, L, D) is the cotangent of the block output;
@@ -1055,9 +1066,11 @@ extern "C" int encoder_block_bwd(
     void* c0, void* c1, void* gy0, void* gy1, void* vec_part, void* wg_part,
     int N, int G, int L, int k, int wg_chunks,
     const unsigned long long* drop_seed, unsigned drop_threshold,
-    float drop_scale, int is_bf16, void* stream) {
+    float drop_scale, int dv, const int* gmap, int g_glob, int is_bf16,
+    void* stream) {
   if (G < 1 || N % G != 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch_any(x, pe, packed, pwT, nullptr, zmask, g, gx, gvec, gpw, c0,
                     c1, gy0, gy1, vec_part, wg_part, N, G, L, k, wg_chunks,
-                    drop_seed, drop_threshold, drop_scale, is_bf16, stream);
+                    drop_seed, drop_threshold, drop_scale, dv, gmap, g_glob,
+                    is_bf16, stream);
 }

@@ -244,7 +244,8 @@ encoder_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int w = 0; w < (NQ + 7) / 8; ++w) kw[0][w] = kw[1][w] = ~0u;
     if (drop.on())
-      tc_keep_bits<NQ, true>(drop, ((lane & 1) ? grow[1] : grow[0]) * D + cb,
+      tc_keep_bits<NQ, true>(drop,
+                             drop.row_key((lane & 1) ? grow[1] : grow[0]) + cb,
                              lane, kw);
     auto keep = [&](int h, int q, int e) {
       return !drop.on() ? 1.f
@@ -281,8 +282,8 @@ encoder_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
       row_sums(mean, istd);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        mean[h] *= 1.f / D;
-        istd[h] = rsqrtf(fmaxf(istd[h] * (1.f / D) - mean[h] * mean[h], 0.f)
+        mean[h] *= drop.inv1;
+        istd[h] = rsqrtf(fmaxf(istd[h] * drop.inv1 - mean[h] * mean[h], 0.f)
                          + LN_EPS);
       }
     };
@@ -458,8 +459,8 @@ encoder_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
       row_sums(mean, istd);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        mean[h] *= 1.f / D;
-        istd[h] = rsqrtf(fmaxf(istd[h] * (1.f / D) - mean[h] * mean[h], 0.f)
+        mean[h] *= drop.inv1;
+        istd[h] = rsqrtf(fmaxf(istd[h] * drop.inv1 - mean[h] * mean[h], 0.f)
                          + LN_EPS);
       }
       float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
@@ -495,8 +496,8 @@ encoder_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
       row_sums(s1, s2);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        s1[h] *= 1.f / D;
-        s2[h] *= 1.f / D;
+        s1[h] *= drop.inv1;
+        s2[h] *= drop.inv1;
       }
 #pragma unroll
       for (int pr = 0; pr < NPR; ++pr) {
@@ -681,15 +682,18 @@ int launch_entry(const void* x, const void* pe, const void* packed,
                  void* c1, void* gy0, void* gy1, void* vec_part,
                  void* wg_part, int N, int G, int L, int k, int d,
                  int wg_chunks, const unsigned long long* drop_seed,
-                 unsigned drop_threshold, float drop_scale, int is_bf16,
-                 void* stream, bool shapes_ok) {
+                 unsigned drop_threshold, float drop_scale, int dv,
+                 const int* gmap, int g_glob, int is_bf16, void* stream,
+                 bool shapes_ok) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto fm = [](void* p) { return static_cast<float*>(p); };
   auto h = [](void* p) { return static_cast<__nv_bfloat16*>(p); };
   if (!shapes_ok || (d != 64 && d != 256) || !is_bf16 || k % 2 == 0
       || k > MAX_K || L < 1 || L > TM)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
+  const Dropout drop = entry_dropout(
+      drop_seed, drop_threshold, drop_scale, dv, gmap, G, g_glob, L);
+  if (!width_ok(dv, d)) return static_cast<int>(cudaErrorInvalidValue);
   const TcWideBufs bufs{{h(c0), h(c1)}, {h(gy0), h(gy1)}, fm(vec_part)};
   auto st = static_cast<cudaStream_t>(stream);
   return d == 64
@@ -710,17 +714,22 @@ int launch_entry(const void* x, const void* pe, const void* packed,
 // / (64 / L)), SMs), 2 (4 + k) D + 2 D + EncTcW<D>::ACC + EncTcW<D>::H)
 // float32; wg_part (wg_chunks, D + 1, D); work unused (may be NULL).
 // is_bf16 must be set.
+// dv: the true width, 4 <= dv <= D with 4 | dv, of inputs zero-padded to D
+// (every LN's statistics and the Philox keys, philox.cuh); gmap / g_glob the
+// group map of the full-output mode (Dropout::row_key; NULL / 1 for none).
 extern "C" int encoder_reduce_bwd_tc_wide(
     const void* x, const void* pe, const void* packed, const void* pw,
     const void* mask, const void* g, void* gx, void* gvec, void* gpw,
     void* c0, void* c1, void* gy0, void* gy1, void* vec_part, void* work,
     void* wg_part, int N, int L, int k, int d, int wg_chunks,
     const unsigned long long* drop_seed, unsigned drop_threshold,
-    float drop_scale, int is_bf16, void* stream) {
+    float drop_scale, int dv, const int* gmap, int g_glob, int is_bf16,
+    void* stream) {
   return launch_entry(x, pe, packed, pw, mask, nullptr, g, gx, gvec, gpw, c0,
                       c1, gy0, gy1, vec_part, wg_part, N, 1, L, k, d,
-                      wg_chunks, drop_seed, drop_threshold, drop_scale,
-                      is_bf16, stream, mask != nullptr);
+                      wg_chunks, drop_seed, drop_threshold, drop_scale, dv,
+                          gmap, g_glob,
+                          is_bf16, stream, mask != nullptr);
 }
 
 // Full-output mode: g (N, L, D) is the cotangent of the block output;
@@ -732,9 +741,11 @@ extern "C" int encoder_block_bwd_tc_wide(
     void* c0, void* c1, void* gy0, void* gy1, void* vec_part, void* work,
     void* wg_part, int N, int G, int L, int k, int d, int wg_chunks,
     const unsigned long long* drop_seed, unsigned drop_threshold,
-    float drop_scale, int is_bf16, void* stream) {
+    float drop_scale, int dv, const int* gmap, int g_glob, int is_bf16,
+    void* stream) {
   return launch_entry(x, pe, packed, pw, nullptr, zmask, g, gx, gvec, gpw,
                       c0, c1, gy0, gy1, vec_part, wg_part, N, G, L, k, d,
-                      wg_chunks, drop_seed, drop_threshold, drop_scale,
-                      is_bf16, stream, G >= 1 && N % G == 0);
+                      wg_chunks, drop_seed, drop_threshold, drop_scale, dv,
+                          gmap, g_glob,
+                          is_bf16, stream, G >= 1 && N % G == 0);
 }

@@ -136,7 +136,7 @@ encoder_bwd_wide_kernel(const float* __restrict__ x,
   // acc = c pw_i (the thread's rows); writes c rows to bufs.c[i] if asked
   auto layer_fwd = [&](const float* src, int i, unsigned long long n,
                        bool save_c, float (&acc)[RPT][CPL]) {
-    ln_rows<D>(src, t_s, L, P.ln_s[i], P.ln_b[i], warp, lane);
+    ln_rows<D>(src, t_s, L, P.ln_s[i], P.ln_b[i], warp, lane, drop.inv1);
     __syncthreads();
     if (i == 0 && drop.on()) {
       dropout_rows<D>(t_s, L, n, drop);
@@ -196,8 +196,10 @@ encoder_bwd_wide_kernel(const float* __restrict__ x,
       }
       if (i == 0 && drop.on()) {
         float km[4];
-        keep4(drop.seed, n * L * D + 4ull * i4, drop.threshold, drop.scale,
-              km);
+        keep4(drop.seed,
+              drop.row_key(static_cast<long long>(n) * L + 4 * i4 / D)
+                  + (4 * i4) % D,
+              drop.threshold, drop.scale, km);
 #pragma unroll
         for (int t = 0; t < 4; ++t) v[t] *= km[t];
       }
@@ -247,7 +249,7 @@ encoder_bwd_wide_kernel(const float* __restrict__ x,
       for (int idx = tid; idx < L * D; idx += NTHREADS)
         ga_s[idx] = gout[nn * L * D + idx];
     } else {
-      ln_rows<D>(gb_s, ga_s, L, P.lnf_s, P.lnf_b, warp, lane);
+      ln_rows<D>(gb_s, ga_s, L, P.lnf_s, P.lnf_b, warp, lane, drop.inv1);
       __syncthreads();
     }
     if (reduce && tid < D) {
@@ -271,12 +273,12 @@ encoder_bwd_wide_kernel(const float* __restrict__ x,
     }
     __syncthreads();
     ln_bwd_rows<D>(gb_s, ga_s, nullptr, ga_s, L, P.lnf_s, gls[2], glb[2],
-                     warp, lane);
+                     warp, lane, drop.inv1);
     __syncthreads();
     // ---- layer 1 backward ------------------------------------------------
     layer_bwd(1, nn);
     ln_bwd_rows<D>(h1_s, c_s, ga_s, ga_s, L, P.ln_s[1], gls[1], glb[1],
-                     warp, lane);
+                     warp, lane, drop.inv1);
     __syncthreads();
     // ---- pass B: recompute layer 0 (dropout replayed), its backward -----
     layer_fwd(h0_s, 0, nn, true, acc);
@@ -286,7 +288,7 @@ encoder_bwd_wide_kernel(const float* __restrict__ x,
     __syncthreads();
     layer_bwd(0, nn);
     ln_bwd_rows<D>(h0_s, c_s, ga_s, c_s, L, P.ln_s[0], gls[0], glb[0],
-                     warp, lane);
+                     warp, lane, drop.inv1);
     __syncthreads();
     for (int idx = tid; idx < L * D; idx += NTHREADS)
       gx[nn * L * D + idx] = c_s[idx];   // d(x + pe)/dx = 1
@@ -384,12 +386,14 @@ int launch_any(const void* x, const void* pe, const void* packed,
                void* c1, void* gy0, void* gy1, void* vec_part, void* work,
                void* wg_part, int N, int G, int L, int k, int d,
                int wg_chunks, const unsigned long long* drop_seed,
-               unsigned drop_threshold, float drop_scale, int is_bf16,
-               void* stream) {
+               unsigned drop_threshold, float drop_scale, int dv,
+               const int* gmap, int g_glob, int is_bf16, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto fm = [](void* p) { return static_cast<float*>(p); };
   auto st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
+  const Dropout drop = entry_dropout(
+      drop_seed, drop_threshold, drop_scale, dv, gmap, G, g_glob, L);
+  if (!width_ok(dv, d)) return static_cast<int>(cudaErrorInvalidValue);
   if (k % 2 == 0 || k > MAX_K || L < 1 || L > MAX_LEN)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((d != 64 && d != 256) || is_bf16)   // bf16: encoder_bwd_tc_wide.cu
@@ -417,18 +421,23 @@ int launch_any(const void* x, const void* pe, const void* packed,
 // may be NULL, at 64); wg_part (wg_chunks, D, D).  All float32; L <= 56,
 // odd k <= 9; conv 0's dropout replayed when drop_threshold > 0.  Any other
 // D, and is_bf16, is refused.
+// dv: the true width, 4 <= dv <= D with 4 | dv, of inputs zero-padded to D
+// (every LN's statistics and the Philox keys, philox.cuh); gmap / g_glob the
+// group map of the full-output mode (Dropout::row_key; NULL / 1 for none).
 extern "C" int encoder_reduce_bwd_wide(
     const void* x, const void* pe, const void* packed, const void* pwT,
     const void* mask, const void* g, void* gx, void* gvec, void* gpw,
     void* c0, void* c1, void* gy0, void* gy1, void* vec_part, void* work,
     void* wg_part, int N, int L, int k, int d, int wg_chunks,
     const unsigned long long* drop_seed, unsigned drop_threshold,
-    float drop_scale, int is_bf16, void* stream) {
+    float drop_scale, int dv, const int* gmap, int g_glob, int is_bf16,
+    void* stream) {
   if (mask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch_any(x, pe, packed, pwT, mask, nullptr, g, gx, gvec, gpw, c0,
                     c1, gy0, gy1, vec_part, work, wg_part, N, 1, L, k, d,
-                    wg_chunks, drop_seed, drop_threshold, drop_scale,
-                    is_bf16, stream);
+                    wg_chunks, drop_seed, drop_threshold, drop_scale, dv,
+                        gmap, g_glob,
+                        is_bf16, stream);
 }
 
 // Full-output mode: g (N, L, D) is the cotangent of the block output;
@@ -440,10 +449,12 @@ extern "C" int encoder_block_bwd_wide(
     void* c0, void* c1, void* gy0, void* gy1, void* vec_part, void* work,
     void* wg_part, int N, int G, int L, int k, int d, int wg_chunks,
     const unsigned long long* drop_seed, unsigned drop_threshold,
-    float drop_scale, int is_bf16, void* stream) {
+    float drop_scale, int dv, const int* gmap, int g_glob, int is_bf16,
+    void* stream) {
   if (G < 1 || N % G != 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch_any(x, pe, packed, pwT, nullptr, zmask, g, gx, gvec, gpw, c0,
                     c1, gy0, gy1, vec_part, work, wg_part, N, G, L, k, d,
-                    wg_chunks, drop_seed, drop_threshold, drop_scale,
-                    is_bf16, stream);
+                    wg_chunks, drop_seed, drop_threshold, drop_scale, dv,
+                        gmap, g_glob,
+                        is_bf16, stream);
 }

@@ -10,7 +10,8 @@
 // the (G, L) zero mask (all ones without one):
 //   h = x + pe
 //   2 x [ t = LN_i(h) (training, i = 0: times the Philox dropout mask of
-//         philox.cuh, keyed by the flat index of the (B*G*L, D) LN output);
+//         philox.cuh, keyed by the flat index of the (B*G*L, D) LN output,
+//         over the true width and the group map, Dropout::row_key);
 //         c = dwb_i + depthwise_k(t * v) zero-padded inside the sequence;
 //         h = h + ReLU(c pw_i + pwb_i) ]
 //   o = LN_f(h)                 (every LN: fast variance clipped at 0)
@@ -22,7 +23,9 @@
 // (finite) and are the caller's to slice away.  out has the activation type.
 //
 // D, the hidden width, is 64, 128 or 256 (a template parameter; the C
-// entries take it and refuse any other width).
+// entries take it and refuse any other width); a true width dv < D runs on
+// inputs zero-padded to D (the LN statistics and the dropout keys over dv,
+// philox.cuh).
 //
 // What bounds it on the H100: per sequence it reads L x D inputs (2 bytes
 // each in bf16) and does the two pointwise D x D products, 4 * L * D * D
@@ -148,7 +151,7 @@ encoder_fwd_kernel(const float* __restrict__ x, const float* __restrict__ pe,
     __syncthreads();
 #pragma unroll 1
     for (int i = 0; i < 2; ++i) {
-      ln_rows<D>(h_s, t_s, L, P.ln_s[i], P.ln_b[i], warp, lane);
+      ln_rows<D>(h_s, t_s, L, P.ln_s[i], P.ln_b[i], warp, lane, drop.inv1);
       __syncthreads();
       if (i == 0 && drop.on()) {
         dropout_rows<D>(t_s, L, n, drop);
@@ -180,7 +183,7 @@ encoder_fwd_kernel(const float* __restrict__ x, const float* __restrict__ pe,
       }
       __syncthreads();
     }
-    ln_rows<D>(h_s, t_s, L, P.lnf_s, P.lnf_b, warp, lane);
+    ln_rows<D>(h_s, t_s, L, P.lnf_s, P.lnf_b, warp, lane, drop.inv1);
     __syncthreads();
     if (reduce) {
       for (int d = tid; d < D; d += NTHREADS) {
@@ -328,7 +331,8 @@ encoder_fwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
       for (int w = 0; w < D / 64; ++w) kw[h][w] = ~0u;
     if (drop.on())
-      tc_keep_bits<D / 8, true>(drop, ((lane & 1) ? grow[1] : grow[0]) * D,
+      tc_keep_bits<D / 8, true>(drop,
+                                drop.row_key((lane & 1) ? grow[1] : grow[0]),
                                 lane, kw);
     tc::cp_async_wait<0>();            // this tile's x
     tc::fence_async_smem();            // pw (first tile) is read by wgmma
@@ -475,8 +479,8 @@ encoder_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
     tri_row_pair_sums(ex, mean, istd, wg, rl, lane);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      mean[h] *= 1.f / D;
-      istd[h] = rsqrtf(fmaxf(istd[h] * (1.f / D) - mean[h] * mean[h], 0.f)
+      mean[h] *= drop.inv1;
+      istd[h] = rsqrtf(fmaxf(istd[h] * drop.inv1 - mean[h] * mean[h], 0.f)
                        + LN_EPS);
     }
   };
@@ -514,7 +518,8 @@ encoder_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
     uint32_t kw[2][2] = {{~0u, ~0u}, {~0u, ~0u}};
     if (drop.on())
       tc_keep_bits<16, true>(
-          drop, ((lane & 1) ? grow[1] : grow[0]) * D + 128 * wg, lane, kw);
+          drop, drop.row_key((lane & 1) ? grow[1] : grow[0]) + 128 * wg, lane,
+                             kw);
     tc::cp_async_wait<0>();            // this tile's x
     __syncthreads();                   // ... and v, m of every row
 
@@ -646,11 +651,13 @@ int launch_width(const void* x, const float* pe, const float* packed,
 int launch_any(const void* x, const void* pe, const void* packed,
                const void* mask, const void* zmask, void* out, int N, int G,
                int L, int k, int D, const unsigned long long* drop_seed,
-               unsigned drop_threshold, float drop_scale, int is_bf16,
-               void* stream) {
+               unsigned drop_threshold, float drop_scale, int dv,
+               const int* gmap, int g_glob, int is_bf16, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
+  const Dropout drop = entry_dropout(
+      drop_seed, drop_threshold, drop_scale, dv, gmap, G, g_glob, L);
+  if (!width_ok(dv, D)) return static_cast<int>(cudaErrorInvalidValue);
   if (k % 2 == 0 || k > ENC_MAX_K || L < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
@@ -674,15 +681,20 @@ int launch_any(const void* x, const void* pe, const void* packed,
 // order) and mask (N, L) float32 (16-byte aligned); out (N, D) in x's type.
 // L <= 56, odd k <= 9.  Conv 0's dropout when drop_threshold > 0
 // (philox.cuh).  bf16 x is 16-byte aligned.
+// dv: the true width, 4 <= dv <= D with 4 | dv, of inputs zero-padded to D
+// (every LN's statistics and the Philox keys, philox.cuh); gmap / g_glob the
+// group map of the full-output mode (Dropout::row_key; NULL / 1 for none).
 extern "C" int encoder_reduce_fwd(const void* x, const void* pe,
                                   const void* packed, const void* mask,
                                   void* out, int N, int L, int k, int D,
                                   const unsigned long long* drop_seed,
                                   unsigned drop_threshold, float drop_scale,
+                                  int dv, const int* gmap, int g_glob,
                                   int is_bf16, void* stream) {
   if (mask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch_any(x, pe, packed, mask, nullptr, out, N, 1, L, k, D,
-                    drop_seed, drop_threshold, drop_scale, is_bf16, stream);
+  drop_seed, drop_threshold, drop_scale, dv, gmap, g_glob,
+  is_bf16, stream);
 }
 
 // The full block output: out (N, L, D) in x's type.  zmask (G, L) float32
@@ -693,8 +705,10 @@ extern "C" int encoder_block_fwd(const void* x, const void* pe,
                                  void* out, int N, int G, int L, int k, int D,
                                  const unsigned long long* drop_seed,
                                  unsigned drop_threshold, float drop_scale,
+                                 int dv, const int* gmap, int g_glob,
                                  int is_bf16, void* stream) {
   if (G < 1 || N % G != 0) return static_cast<int>(cudaErrorInvalidValue);
   return launch_any(x, pe, packed, nullptr, zmask, out, N, G, L, k, D,
-                    drop_seed, drop_threshold, drop_scale, is_bf16, stream);
+  drop_seed, drop_threshold, drop_scale, dv, gmap, g_glob,
+  is_bf16, stream);
 }

@@ -102,7 +102,7 @@ __device__ __forceinline__ void enc_load_h0(float (&hv)[NV], X xpair,
 template <int D>
 __device__ __forceinline__ void enc_stats(const float (&hv)[D / 2],
                                           float (&mean)[2],
-                                          float (&istd)[2]) {
+                                          float (&istd)[2], float inv) {
   mean[0] = mean[1] = istd[0] = istd[1] = 0.f;
 #pragma unroll
   for (int j = 0; j < D / 2; ++j) {
@@ -111,8 +111,8 @@ __device__ __forceinline__ void enc_stats(const float (&hv)[D / 2],
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    mean[h] = quad_sum(mean[h]) * (1.f / D);
-    istd[h] = rsqrtf(fmaxf(quad_sum(istd[h]) * (1.f / D) - mean[h] * mean[h],
+    mean[h] = quad_sum(mean[h]) * inv;
+    istd[h] = rsqrtf(fmaxf(quad_sum(istd[h]) * inv - mean[h] * mean[h],
                            0.f) + LN_EPS);
   }
 }
@@ -147,7 +147,7 @@ __device__ __forceinline__ void enc_ln(const float (&hv)[D / 2],
                                        bool drop0, const uint32_t (&kw)[2][W],
                                        const Dropout& drop, int cl, E emit) {
   float mean[2], istd[2];
-  enc_stats<D>(hv, mean, istd);
+  enc_stats<D>(hv, mean, istd, drop.inv1);
   enc_ln_apply(hv, mean, istd, sc, bi, drop0, kw, drop, cl, emit);
 }
 

@@ -74,15 +74,71 @@ __device__ __forceinline__ void keep4(uint64_t seed, uint64_t e0,
 // so a replayed CUDA graph draws a new mask each step); every kernel reads
 // it once, first thing (load_seed), and the backward reads its forward's
 // slot.  seed_ptr is not read when threshold == 0.
+//
+// The struct also says where the kernel's rows lie in the tensor whose flat
+// index keys the mask, and the width its LayerNorms average over.  A width
+// dv <= D runs in the instantiation D on inputs zero-padded to D
+// (ops/widths.py): element (r, c), c < dv, of a (rows, dv) tensor keys
+// r dv + c (row_key), and of a (rows, 3 dv) one keys 3 dv r + g dv + c in
+// third g (key3); every LayerNorm divides its sums by dv (inv1 = 1 / dv)
+// or 3 dv (inv3), quotients made on the host so that dv = D multiplies by
+// the constant the kernels used before.  The pad columns are zero in the
+// LN input, so they add nothing to the sums (every LN here takes the fast
+// variance E[x^2] - E[x]^2), and zero gamma / beta keep them zero.
+// gmap (the merged input encoder under context parallelism): row r =
+// n len + l of the local (N len, D) input, n = b g_loc + g, keys as row
+// (b g_glob + gmap[g]) len + l of the whole group axis, so each frame
+// draws the mask one process draws for it; null for the identity.
 struct Dropout {
   const unsigned long long* seed_ptr;
   unsigned threshold;
   float scale;
   unsigned long long seed;
+  int dv = 0;
+  float inv1 = 0.f, inv3 = 0.f;
+  const int* gmap = nullptr;
+  int g_loc = 1, g_glob = 1, len = 1;
   __device__ __forceinline__ bool on() const { return threshold != 0u; }
   __device__ __forceinline__ void load_seed() {
     seed = on() ? *seed_ptr : 0ull;
   }
+  // the key of column 0 of local row r
+  __device__ __forceinline__ unsigned long long row_key(long long r) const {
+    if (gmap != nullptr) {
+      const long long n = r / len, b = n / g_loc;
+      r = (b * g_glob + gmap[n - b * g_loc]) * len + (r - n * len);
+    }
+    return static_cast<unsigned long long>(r) * static_cast<unsigned>(dv);
+  }
+  // the key of column c of third g (x, y or x*y) of row r of a
+  // [x; y; x*y] tensor
+  __device__ __forceinline__ unsigned long long key3(long long r, int g,
+                                                     int c) const {
+    return static_cast<unsigned long long>(r) * (3u * dv) + g * dv + c;
+  }
 };
+
+// Whether an instantiation of width d runs the true width dv.
+inline bool width_ok(int dv, int d) {
+  return dv >= 4 && dv <= d && dv % 4 == 0;
+}
+
+// The Dropout a C entry hands its kernels at true width dv (1 <= dv <= D,
+// a multiple of 4 so that four adjacent columns of a third share a Philox
+// call) with the group map of Dropout (gmap may be null).
+inline Dropout entry_dropout(const unsigned long long* seed_ptr,
+                             unsigned threshold, float scale, int dv,
+                             const int* gmap = nullptr, int g_loc = 1,
+                             int g_glob = 1, int len = 1) {
+  Dropout d{seed_ptr, threshold, scale, 0ull};
+  d.dv = dv;
+  d.inv1 = 1.f / dv;
+  d.inv3 = 1.f / (3 * dv);
+  d.gmap = gmap;
+  d.g_loc = g_loc;
+  d.g_glob = g_glob;
+  d.len = len;
+  return d;
+}
 
 }  // namespace tvqa

@@ -87,7 +87,8 @@ __device__ __forceinline__ void attn_apply(const float* pr,
 // Pallas kernel's LN, pallas_attention.py:143-151).
 template <int D = BWD_D>
 __device__ __forceinline__ void ln3_stats(const float (&x)[3][D / 32],
-                                          float& mean, float& istd) {
+                                          float& mean, float& istd,
+                                          float inv3) {
   float s = 0.f, ss = 0.f;
 #pragma unroll
   for (int g = 0; g < 3; ++g)
@@ -98,8 +99,8 @@ __device__ __forceinline__ void ln3_stats(const float (&x)[3][D / 32],
     }
   s = warp_sum(s);
   ss = warp_sum(ss);
-  mean = s * (1.f / (3 * D));
-  istd = rsqrtf(ss * (1.f / (3 * D)) - mean * mean + LN_EPS);
+  mean = s * inv3;
+  istd = rsqrtf(ss * inv3 - mean * mean + LN_EPS);
 }
 
 // Flat row of `mixed` (B, A, Li, Lqa): the dropout acts on the

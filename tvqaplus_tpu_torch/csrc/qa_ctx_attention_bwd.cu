@@ -219,7 +219,7 @@ qa_ctx_bwd_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
         x[2][q] = c * at[q];
       }
       float mean, istd;
-      ln3_stats(x, mean, istd);
+      ln3_stats(x, mean, istd, drop.inv3);
       if (lane == 0) {
         st_s[2 * r] = mean;
         st_s[2 * r + 1] = istd;
@@ -246,16 +246,15 @@ qa_ctx_bwd_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
       vgb[1] += go4.y;
       vgb[2] += go4.z;
       vgb[3] += go4.w;
-      const unsigned long long e_row =
-          mixed_row(b, m, i, A, Lqa, Li) * (3 * D);
+      const unsigned long long er = mixed_row(b, m, i, A, Lqa, Li);
       const size_t yrow = (blk * M + m) * (3 * D);
       float xh[3][4], gxh[3][4], s1 = 0.f, s2 = 0.f;
 #pragma unroll
       for (int g = 0; g < 3; ++g) {
         float km[4] = {1.f, 1.f, 1.f, 1.f};
         if (drop.on())
-          keep4(drop.seed, e_row + g * D + c0, drop.threshold, drop.scale,
-                km);
+          keep4(drop.seed, drop.key3(er, g, c0), drop.threshold,
+                drop.scale, km);
         float yd[4];
 #pragma unroll
         for (int t = 0; t < 4; ++t) {
@@ -273,8 +272,8 @@ qa_ctx_bwd_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
         *reinterpret_cast<float4*>(out.yd + yrow + g * D + c0) =
             make_float4(yd[0], yd[1], yd[2], yd[3]);
       }
-      const float m1 = warp_sum(s1) * (1.f / (3 * D));
-      const float m2 = warp_sum(s2) * (1.f / (3 * D));
+      const float m1 = warp_sum(s1) * drop.inv3;
+      const float m2 = warp_sum(s2) * drop.inv3;
       float gce[4], gat[4];
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
@@ -566,8 +565,9 @@ qa_ctx_bwd_tc_kernel(const __nv_bfloat16* __restrict__ cn,
     for (int g = 0; g < 3; ++g) {
       kw[g][0][0] = kw[g][1][0] = ~0u;
       if (drop.on())
-        tc_keep_bits<8, true>(drop, ((lane & 1) ? mrow[1] : mrow[0]) * (3 * D)
-                                  + g * D + half, lane, kw[g]);
+        tc_keep_bits<8, true>(
+            drop, drop.key3((lane & 1) ? mrow[1] : mrow[0], g, half), lane,
+            kw[g]);
     }
     uint32_t gate;
     float att[32];
@@ -634,8 +634,8 @@ qa_ctx_bwd_tc_kernel(const __nv_bfloat16* __restrict__ cn,
       const int r = rl + 8 * h;
       const float s_ = ex_s[r * 2] + ex_s[(TM + r) * 2];
       const float q_ = ex_s[r * 2 + 1] + ex_s[(TM + r) * 2 + 1];
-      mean[h] = s_ * (1.f / (3 * D));
-      istd[h] = rsqrtf(q_ * (1.f / (3 * D)) - mean[h] * mean[h] + LN_EPS);
+      mean[h] = s_ * drop.inv3;
+      istd[h] = rsqrtf(q_ * drop.inv3 - mean[h] * mean[h] + LN_EPS);
     }
     tc::wait_all();
     // ---- pass A: dropout replay, yd rows out, ggamma / gbeta, LN sums ---
@@ -710,8 +710,8 @@ qa_ctx_bwd_tc_kernel(const __nv_bfloat16* __restrict__ cn,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = rl + 8 * h;
-        m1[h] = (ex2[r * 2] + ex2[(TM + r) * 2]) * (1.f / (3 * D));
-        m2[h] = (ex2[r * 2 + 1] + ex2[(TM + r) * 2 + 1]) * (1.f / (3 * D));
+        m1[h] = (ex2[r * 2] + ex2[(TM + r) * 2]) * drop.inv3;
+        m2[h] = (ex2[r * 2 + 1] + ex2[(TM + r) * 2 + 1]) * drop.inv3;
       }
 #pragma unroll
       for (int pr = 0; pr < 16; ++pr) {
@@ -1016,6 +1016,8 @@ int launch_tc(const void* cn, const void* ce, const void* qn, const void* qe,
 // (wg_chunks, 3D + 1, D); gs_rows and p_rows (B*Li*A*Lqa, 32 if Lr <= 32
 // else 64) and ga_rows (B*Li*A*Lqa, D) are bfloat16 scratch (unused, may be
 // NULL, for float32).
+// dv: the true width, 4 <= dv <= D with 4 | dv, of inputs zero-padded to D
+// (every LN's statistics and the Philox keys, philox.cuh).
 extern "C" int qa_ctx_attention_bwd(
     const void* cn, const void* ce, const void* qn, const void* qe,
     const void* cmask, const void* qmask, const void* gamma,
@@ -1025,13 +1027,15 @@ extern "C" int qa_ctx_attention_bwd(
     void* yd, void* gout, void* vec_part, void* wg_part, void* gs_rows,
     void* p_rows, void* ga_rows, int B, int A, int Lqa, int Li, int Lr,
     float scale, const unsigned long long* drop_seed,
-    unsigned drop_threshold, float drop_scale, int wg_chunks, int is_bf16,
-    void* stream) {
+    unsigned drop_threshold, float drop_scale, int wg_chunks, int dv,
+    int is_bf16, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto fm = [](void* p) { return static_cast<float*>(p); };
   auto s = static_cast<cudaStream_t>(stream);
   if (Lr > MAX_LR) return static_cast<int>(cudaErrorInvalidValue);
-  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
+  const Dropout drop =
+      entry_dropout(drop_seed, drop_threshold, drop_scale, dv);
+  if (!width_ok(dv, BWD_D)) return static_cast<int>(cudaErrorInvalidValue);
   const int* tg = static_cast<const int*>(targets);
   if (is_bf16) {
     using bf16 = __nv_bfloat16;

@@ -210,7 +210,7 @@ qa_ctx_bwd_wide_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
         x[2][q] = c * at[q];
       }
       float mean, istd;
-      ln3_stats<D>(x, mean, istd);
+      ln3_stats<D>(x, mean, istd, drop.inv3);
       if (lane == 0) {
         st_s[2 * r] = mean;
         st_s[2 * r + 1] = istd;
@@ -235,14 +235,13 @@ qa_ctx_bwd_wide_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
         av[t] = a_s[r * D + c0 + t];
         vgb[t] += go_s[r * D + c0 + t];
       }
-      const unsigned long long e_row =
-          mixed_row(b, m, i, A, Lqa, Li) * (3 * D);
+      const unsigned long long er = mixed_row(b, m, i, A, Lqa, Li);
       const size_t yrow = (blk * M + m) * (3 * D);
       float xh[3][CPL], gxh[3][CPL], s1 = 0.f, s2 = 0.f;
 #pragma unroll
       for (int g = 0; g < 3; ++g) {
         float km[CPL];
-        keep_or_one<CPL>(drop, e_row + g * D + c0, km);
+        keep_or_one<CPL>(drop, drop.key3(er, g, c0), km);
 #pragma unroll
         for (int t = 0; t < CPL; ++t) {
           const int k = g * D + c0 + t;
@@ -258,8 +257,8 @@ qa_ctx_bwd_wide_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
           s2 = fmaf(gxh[g][t], xh[g][t], s2);
         }
       }
-      const float m1 = warp_sum(s1) * (1.f / (3 * D));
-      const float m2 = warp_sum(s2) * (1.f / (3 * D));
+      const float m1 = warp_sum(s1) * drop.inv3;
+      const float m2 = warp_sum(s2) * drop.inv3;
 #pragma unroll
       for (int t = 0; t < CPL; ++t) {
         float gx[3];
@@ -683,9 +682,10 @@ qa_ctx_bwd_tc_wide_kernel(const bf16* __restrict__ cn,
       for (int u = 0; u < 2; ++u) {
         kw[g][u][0][0] = kw[g][u][1][0] = ~0u;
         if (drop.on())
-          tc_keep_bits<8, true>(drop, ((lane & 1) ? mrow[1] : mrow[0])
-                                    * (3 * D) + g * D + 128 * wg + 64 * u,
-                                lane, kw[g][u]);
+          tc_keep_bits<8, true>(
+              drop, drop.key3((lane & 1) ? mrow[1] : mrow[0], g,
+                              128 * wg + 64 * u),
+              lane, kw[g][u]);
       }
     // ---- recompute: scores and softmax (full rows, both warpgroups) ------
     uint32_t gate;
@@ -729,8 +729,8 @@ qa_ctx_bwd_tc_wide_kernel(const bf16* __restrict__ cn,
       tri_row_pair_sums(ex_s, sum, sq, wg, rl, lane);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        mean[h] = sum[h] * (1.f / (3 * D));
-        istd[h] = rsqrtf(sq[h] * (1.f / (3 * D)) - mean[h] * mean[h]
+        mean[h] = sum[h] * drop.inv3;
+        istd[h] = rsqrtf(sq[h] * drop.inv3 - mean[h] * mean[h]
                          + LN_EPS);
       }
     }
@@ -799,8 +799,8 @@ qa_ctx_bwd_tc_wide_kernel(const bf16* __restrict__ cn,
     }
     tri_row_pair_sums(ex_s + 2 * TM * 2, s1, s2, wg, rl, lane);
     // ---- pass B: g_yd again, the LN backward, gce rows out, g_att tile ---
-    const float m1[2] = {s1[0] * (1.f / (3 * D)), s1[1] * (1.f / (3 * D))};
-    const float m2[2] = {s2[0] * (1.f / (3 * D)), s2[1] * (1.f / (3 * D))};
+    const float m1[2] = {s1[0] * drop.inv3, s1[1] * drop.inv3};
+    const float m2[2] = {s2[0] * drop.inv3, s2[1] * drop.inv3};
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       float att[32], gx2[32];
@@ -1018,6 +1018,8 @@ int launch_tc(const void* cn, const void* ce, const void* qn, const void* qe,
 // gs_rows, p_rows (B*Li*A*Lqa, round4(Lr)) and ga_rows (B*Li*A*Lqa, D)
 // float32, or when is_bf16 at D = 256 bf16 with gs_rows and p_rows 32
 // wide (Lr <= 32) or 64.  Lr <= 64; any other D is refused.
+// dv: the true width, 4 <= dv <= D with 4 | dv, of inputs zero-padded to D
+// (every LN's statistics and the Philox keys, philox.cuh).
 extern "C" int qa_ctx_attention_bwd_wide(
     const void* cn, const void* ce, const void* qn, const void* qe,
     const void* cmask, const void* qmask, const void* gamma,
@@ -1027,13 +1029,15 @@ extern "C" int qa_ctx_attention_bwd_wide(
     void* yd, void* gout, void* vec_part, void* wg_part, void* gs_rows,
     void* p_rows, void* ga_rows, int B, int A, int Lqa, int Li, int Lr,
     int d, float scale, const unsigned long long* drop_seed,
-    unsigned drop_threshold, float drop_scale, int wg_chunks, int is_bf16,
-    void* stream) {
+    unsigned drop_threshold, float drop_scale, int wg_chunks, int dv,
+    int is_bf16, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto fm = [](void* p) { return static_cast<float*>(p); };
   auto s = static_cast<cudaStream_t>(stream);
   if (Lr > MAX_LR || Lr < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
+  const Dropout drop =
+      entry_dropout(drop_seed, drop_threshold, drop_scale, dv);
+  if (!width_ok(dv, d)) return static_cast<int>(cudaErrorInvalidValue);
   const int* tg = static_cast<const int*>(targets);
 #define TVQA_ATT_WIDE(T, DD)                                               \
   {                                                                        \

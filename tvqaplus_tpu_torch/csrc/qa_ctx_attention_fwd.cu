@@ -18,7 +18,9 @@
 // softmax finite), so att = 0, never NaN.
 //
 // D, the hidden width, is 64, 128 or 256 (a template parameter; the C
-// entry takes it and refuses any other width).
+// entry takes it and refuses any other width); a true width dv < D runs on
+// inputs zero-padded to D (the LN statistics and the dropout keys over dv,
+// philox.cuh).
 //
 // What bounds it on the H100: at the headline eval the call moves ~69 MB
 // (vid, raw full) or ~63 MB (sub) and does ~18-20 GFLOP at D = 128, 80% of
@@ -174,7 +176,7 @@ qa_ctx_fwd_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
         x[2][q] = c * at[q];
       }
       float mean, istd;
-      ln3_stats<D>(x, mean, istd);
+      ln3_stats<D>(x, mean, istd, drop.inv3);
 #pragma unroll
       for (int g = 0; g < 3; ++g)
 #pragma unroll
@@ -184,14 +186,14 @@ qa_ctx_fwd_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
         }
       if (drop.on() && live) {
         __syncwarp();
-        const unsigned long long e_row =
-            mixed_row(b, m, i, A, Lqa, Li) * (3 * D);
+        const unsigned long long er = mixed_row(b, m, i, A, Lqa, Li);
 #pragma unroll
         for (int g = 0; g < 3; ++g)
           for (int i4 = lane; i4 < D / 4; i4 += 32) {
             float km[4];
             const int k0 = g * D + 4 * i4;
-            keep4(drop.seed, e_row + k0, drop.threshold, drop.scale, km);
+            keep4(drop.seed, drop.key3(er, g, 4 * i4), drop.threshold,
+                  drop.scale, km);
 #pragma unroll
             for (int t = 0; t < 4; ++t) yr[k0 + t] *= km[t];
           }
@@ -350,8 +352,8 @@ qa_ctx_fwd_tc_kernel(const __nv_bfloat16* __restrict__ cn,
     float mean[2], istd[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      mean[h] = quad_sum(sum[h]) * (1.f / (3 * D));
-      istd[h] = rsqrtf(quad_sum(sq[h]) * (1.f / (3 * D)) - mean[h] * mean[h]
+      mean[h] = quad_sum(sum[h]) * drop.inv3;
+      istd[h] = rsqrtf(quad_sum(sq[h]) * drop.inv3 - mean[h] * mean[h]
                        + LN_EPS);
     }
 #pragma unroll
@@ -363,7 +365,7 @@ qa_ctx_fwd_tc_kernel(const __nv_bfloat16* __restrict__ cn,
         for (int w = 0; w < D / 64; ++w) kw[h][w] = ~0u;
       if (drop.on())
         tc_keep_bits<D / 8, false>(
-            drop, ((lane & 1) ? mrow[1] : mrow[0]) * (3 * D) + g * D, lane,
+            drop, drop.key3((lane & 1) ? mrow[1] : mrow[0], g, 0), lane,
             kw);
 #pragma unroll
       for (int pr = 0; pr < D / 4; ++pr) {
@@ -547,16 +549,16 @@ qa_ctx_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ cn,
     float mean[2], istd[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      mean[h] = sum[h] * (1.f / (3 * D));
-      istd[h] = rsqrtf(sq[h] * (1.f / (3 * D)) - mean[h] * mean[h] + LN_EPS);
+      mean[h] = sum[h] * drop.inv3;
+      istd[h] = rsqrtf(sq[h] * drop.inv3 - mean[h] * mean[h] + LN_EPS);
     }
 #pragma unroll
     for (int g = 0; g < 3; ++g) {
       uint32_t kw[2][2] = {{~0u, ~0u}, {~0u, ~0u}};
       if (drop.on())
         tc_keep_bits<16, false>(
-            drop, ((lane & 1) ? mrow[1] : mrow[0]) * (3 * D) + g * D + half,
-            lane, kw);
+            drop, drop.key3((lane & 1) ? mrow[1] : mrow[0], g, half), lane,
+            kw);
 #pragma unroll
       for (int pr = 0; pr < 32; ++pr) {
         const int h = pr & 1, q = pr >> 1, c = half + 8 * q + cl;
@@ -650,16 +652,20 @@ int launch_width(const void* cn, const void* ce, const void* qn,
 // (B, A, Li, Lqa, Lr) when targets is NULL, else (B, Li, Lqa, Lr) at
 // targets[b] (int32, B); raw NULL writes none.  Lr <= 64.  Dropout on the
 // LN output when drop_threshold > 0 (philox.cuh).
+// dv: the true width, 4 <= dv <= D with 4 | dv, of inputs zero-padded to D
+// (every LN's statistics and the Philox keys, philox.cuh).
 extern "C" int qa_ctx_attention_fwd(
     const void* cn, const void* ce, const void* qn, const void* qe,
     const void* cmask, const void* qmask, const void* gamma,
     const void* beta, const void* W, const void* bias, const void* targets,
     void* mixed, void* raw, int B, int A, int Lqa, int Li, int Lr, int D,
     float scale, const unsigned long long* drop_seed, unsigned drop_threshold,
-    float drop_scale, int is_bf16, void* stream) {
+    float drop_scale, int dv, int is_bf16, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto s = static_cast<cudaStream_t>(stream);
-  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
+  const Dropout drop =
+      entry_dropout(drop_seed, drop_threshold, drop_scale, dv);
+  if (!width_ok(dv, D)) return static_cast<int>(cudaErrorInvalidValue);
   const int* tg = static_cast<const int*>(targets);
   if (Lr > TM) return static_cast<int>(cudaErrorInvalidValue);
 #define TVQA_ATTN_FWD(DD)                                                    \

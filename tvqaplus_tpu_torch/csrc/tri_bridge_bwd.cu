@@ -64,7 +64,7 @@ __device__ __forceinline__ void load4(const T* p, float (&v)[4]) {
   for (int t = 0; t < 4; ++t) v[t] = to_f(p[t]);
 }
 
-template <typename T>
+template <typename T, bool PAD>
 __global__ void __launch_bounds__(NTHREADS)
 tri_bridge_bwd_kernel(const T* __restrict__ s, const T* __restrict__ v,
                       const float* __restrict__ gin,
@@ -79,6 +79,12 @@ tri_bridge_bwd_kernel(const T* __restrict__ s, const T* __restrict__ v,
                       float* __restrict__ vec_part, long long R,
                       Dropout drop) {
   drop.load_seed();
+  // at dv = D (PAD false) the constants and keys of the kernel before the
+  // true width: ptxas contracts multiplies and adds by heuristics that other
+  // code sways, and only the same code kept this float32 exactness check's
+  // bits
+  const float inv1 = PAD ? drop.inv1 : 1.f / D;
+  const float inv3 = PAD ? drop.inv3 : 1.f / (3 * D);
   extern __shared__ float4 smem4[];
   float* y_s = reinterpret_cast<float*>(smem4);       // RT x 3D
   float* g1_s = y_s + RT * 3 * D;                      // RT x D
@@ -125,9 +131,9 @@ tri_bridge_bwd_kernel(const T* __restrict__ s, const T* __restrict__ v,
     }
     sum = warp_sum(sum);
     ss = warp_sum(ss);
-    const float mean = sum * (1.f / (3 * D));
+    const float mean = sum * inv3;
     const float istd =
-        rsqrtf(fmaxf(ss * (1.f / (3 * D)) - mean * mean, 0.f) + LN_EPS);
+        rsqrtf(fmaxf(ss * inv3 - mean * mean, 0.f) + LN_EPS);
     if (lane == 0) {
       st_s[2 * r] = mean;
       st_s[2 * r + 1] = istd;
@@ -137,7 +143,9 @@ tri_bridge_bwd_kernel(const T* __restrict__ s, const T* __restrict__ v,
       float km[4] = {1.f, 1.f, 1.f, 1.f};
       const int k0 = g * D + c0;
       if (drop.on())
-        keep4(drop.seed, static_cast<unsigned long long>(row) * (3 * D) + k0,
+        keep4(drop.seed,
+              PAD ? drop.key3(row, g, c0)
+                  : static_cast<unsigned long long>(row) * (3 * D) + k0,
               drop.threshold, drop.scale, km);
       float y[4];
 #pragma unroll
@@ -170,9 +178,9 @@ tri_bridge_bwd_kernel(const T* __restrict__ s, const T* __restrict__ v,
       }
       sum = warp_sum(sum);
       ss = warp_sum(ss);
-      const float mean = sum * (1.f / D);
+      const float mean = sum * inv1;
       const float istd =
-          rsqrtf(fmaxf(ss * (1.f / D) - mean * mean, 0.f) + LN_EPS);
+          rsqrtf(fmaxf(ss * inv1 - mean * mean, 0.f) + LN_EPS);
       float gg[4], xh[4], gxh[4], s1 = 0.f, s2 = 0.f;
       load4(gy + row * D + c0, gg);
 #pragma unroll
@@ -184,8 +192,8 @@ tri_bridge_bwd_kernel(const T* __restrict__ s, const T* __restrict__ v,
         vgo[t] = fmaf(gg[t], xh[t], vgo[t]);
         vbo[t] += gg[t];
       }
-      const float m1 = warp_sum(s1) * (1.f / D);
-      const float m2 = warp_sum(s2) * (1.f / D);
+      const float m1 = warp_sum(s1) * inv1;
+      const float m2 = warp_sum(s2) * inv1;
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         const float g2 = istd * (gxh[t] - m1 - xh[t] * m2);
@@ -219,7 +227,9 @@ tri_bridge_bwd_kernel(const T* __restrict__ s, const T* __restrict__ v,
       float km[4] = {1.f, 1.f, 1.f, 1.f};
       const int k0 = g * D + c0;
       if (drop.on())
-        keep4(drop.seed, static_cast<unsigned long long>(row) * (3 * D) + k0,
+        keep4(drop.seed,
+              PAD ? drop.key3(row, g, c0)
+                  : static_cast<unsigned long long>(row) * (3 * D) + k0,
               drop.threshold, drop.scale, km);
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
@@ -233,8 +243,8 @@ tri_bridge_bwd_kernel(const T* __restrict__ s, const T* __restrict__ v,
         s2 = fmaf(gxh[g][t], xh[g][t], s2);
       }
     }
-    const float m1 = warp_sum(s1) * (1.f / (3 * D));
-    const float m2 = warp_sum(s2) * (1.f / (3 * D));
+    const float m1 = warp_sum(s1) * inv3;
+    const float m2 = warp_sum(s2) * inv3;
     float os[4], ov[4];
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
@@ -279,10 +289,12 @@ int launch(const void* s, const void* v, const float* gin, const float* bin,
            float* vec_part, float* wg_part, long long R, int wg_chunks,
            Dropout drop, cudaStream_t stream) {
   const size_t bytes = sizeof(float) * SMEM_FLOATS;
-  cudaError_t err = allow_smem(tri_bridge_bwd_kernel<T>, bytes);
+  auto kern = drop.dv == D ? tri_bridge_bwd_kernel<T, false>
+                           : tri_bridge_bwd_kernel<T, true>;
+  cudaError_t err = allow_smem(kern, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = static_cast<int>((R + RT - 1) / RT);
-  tri_bridge_bwd_kernel<T><<<blocks, NTHREADS, bytes, stream>>>(
+  kern<<<blocks, NTHREADS, bytes, stream>>>(
       static_cast<const T*>(s), static_cast<const T*>(v), gin, bin, W, Wt,
       bias, gout, static_cast<const T*>(g), static_cast<T*>(gs),
       static_cast<T*>(gv), yd_buf, gy1_buf, vec_part, R, drop);
@@ -392,7 +404,7 @@ tri_bridge_bwd_tc_kernel(const __nv_bfloat16* __restrict__ s,
     __syncthreads();
     // ---- LN_in statistics over [s; v; s * v] (fast variance, clipped) ---
     float mean[2], istd[2];
-    tri_ln_in_stats(s_s, v_s, ex_s, mean, istd, wg, rl, lane);
+    tri_ln_in_stats(s_s, v_s, ex_s, mean, istd, wg, rl, lane, drop.inv3);
     // ---- yd = dropout(LN_in(x)) into the bf16 tile and out as rows ------
     tri_yd_tile<true>(s_s, v_s, yd_s, kw, drop, mean, istd, gin_s, bin_s,
                       yd_rows, live, row, wg, rl, lane);
@@ -401,7 +413,8 @@ tri_bridge_bwd_tc_kernel(const __nv_bfloat16* __restrict__ s,
     // ---- y1 = yd W (own columns); LN_out and ReLU backward ---------------
     float acc[32], m2[2], i2[2];
     tri_y1_mma(acc, yd_s, w_s, wg);
-    tri_ln_out_stats(acc, bias_s, ex_s + 2 * TM * 2, m2, i2, wg, rl, lane);
+    tri_ln_out_stats(acc, bias_s, ex_s + 2 * TM * 2, m2, i2, wg, rl, lane,
+                     drop.inv1);
     float gg[32], s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
     {
       float tg[16], tb[16];
@@ -438,8 +451,8 @@ tri_bridge_bwd_tc_kernel(const __nv_bfloat16* __restrict__ s,
       for (int e = 0; e < 2; ++e) {
         const int i = 2 * pr + e;
         const float xh = (fmaxf(acc[i], 0.f) - m2[h]) * i2[h];
-        const float g2 = i2[h] * (gg[i] - s1[h] * (1.f / D)
-                                  - xh * s2[h] * (1.f / D));
+        const float g2 = i2[h] * (gg[i] - s1[h] * drop.inv1
+                                  - xh * s2[h] * drop.inv1);
         g1[e] = acc[i] > 0.f ? g2 : 0.f;
       }
       const uint32_t p = tc::pack_bf16(g1[0], g1[1]);
@@ -519,8 +532,8 @@ tri_bridge_bwd_tc_kernel(const __nv_bfloat16* __restrict__ s,
 #pragma unroll
         for (int g = 0; g < 3; ++g) {
           const float xh = (xs[g] - mean[h]) * istd[h];
-          gx[g] = istd[h] * (acc3[g][i] - t1[h] * (1.f / (3 * D))
-                             - xh * t2[h] * (1.f / (3 * D)));
+          gx[g] = istd[h] * (acc3[g][i] - t1[h] * drop.inv3
+                             - xh * t2[h] * drop.inv3);
         }
         os[e] = gx[0] + gx[2] * vv;
         ov[e] = gx[1] + gx[2] * sv;
@@ -598,6 +611,8 @@ int launch_tc(const void* s, const void* v, const float* gin,
 // aligned; gvec = [ggin; gbin; ggout; gbout] (8D); gw has 3D + 1 rows, the
 // last is gb; yd and gy1 are bfloat16; vec_part (min(ceil(R / 64), SMs),
 // 8D) and wg_part (wg_chunks, 3D + 1, D).
+// dv: the true width, 4 <= dv <= D with 4 | dv, of inputs zero-padded to D
+// (every LN's statistics and the Philox keys, philox.cuh).
 extern "C" int tri_bridge_bwd(const void* s, const void* v, const void* gin,
                               const void* bin, const void* W, const void* Wt,
                               const void* bias, const void* gout,
@@ -605,12 +620,14 @@ extern "C" int tri_bridge_bwd(const void* s, const void* v, const void* gin,
                               void* gw, void* yd, void* gy1, void* vec_part,
                               void* wg_part, long long R, int wg_chunks,
                               const unsigned long long* drop_seed,
-                              unsigned drop_threshold, float drop_scale,
+                              unsigned drop_threshold, float drop_scale, int dv,
                               int is_bf16, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto fm = [](void* p) { return static_cast<float*>(p); };
   auto st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
+  const Dropout drop =
+      entry_dropout(drop_seed, drop_threshold, drop_scale, dv);
+  if (!width_ok(dv, BWD_D)) return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16)
     return launch_tc(s, v, f(gin), f(bin), W, f(bias), f(gout), g, gs, gv,
                      fm(gvec), fm(gw), yd, gy1, fm(vec_part), fm(wg_part), R,

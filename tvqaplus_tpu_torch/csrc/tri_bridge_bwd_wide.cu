@@ -61,7 +61,7 @@ __device__ __forceinline__ void load_n(const float* p, float (&v)[N]) {
   for (int t = 0; t < N; ++t) v[t] = p[t];
 }
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(NTHREADS)
 tri_bridge_bwd_wide_kernel(const float* __restrict__ s,
                            const float* __restrict__ v,
@@ -80,6 +80,10 @@ tri_bridge_bwd_wide_kernel(const float* __restrict__ s,
   using S = Tri<D>;
   constexpr int CPL = S::CPL, RPT = S::RPT, RT = S::RT;
   constexpr int NV = 9 * D;  // ggin (3D), gbin (3D), gb, ggout, gbout (D)
+  // at dv = D (PAD false) the constants the kernel multiplied by before the
+  // true width, so that the float32 exactness check keeps its bits
+  const float inv1 = PAD ? drop.inv1 : 1.f / D;
+  const float inv3 = PAD ? drop.inv3 : 1.f / (3 * D);
   drop.load_seed();
   extern __shared__ float4 smem4[];
   float* y_s = reinterpret_cast<float*>(smem4);       // RT x 3D
@@ -127,9 +131,9 @@ tri_bridge_bwd_wide_kernel(const float* __restrict__ s,
     }
     sum = warp_sum(sum);
     ss = warp_sum(ss);
-    const float mean = sum * (1.f / (3 * D));
+    const float mean = sum * inv3;
     const float istd =
-        rsqrtf(fmaxf(ss * (1.f / (3 * D)) - mean * mean, 0.f) + LN_EPS);
+        rsqrtf(fmaxf(ss * inv3 - mean * mean, 0.f) + LN_EPS);
     if (lane == 0) {
       st_s[2 * r] = mean;
       st_s[2 * r + 1] = istd;
@@ -138,8 +142,7 @@ tri_bridge_bwd_wide_kernel(const float* __restrict__ s,
     for (int g = 0; g < 3; ++g) {
       const int k0 = g * D + c0;
       float km[CPL];
-      keep_or_one<CPL>(drop, static_cast<unsigned long long>(row) * (3 * D)
-                                 + k0, km);
+      keep_or_one<CPL>(drop, drop.key3(row, g, c0), km);
 #pragma unroll
       for (int t = 0; t < CPL; ++t) {
         const float y =
@@ -171,9 +174,9 @@ tri_bridge_bwd_wide_kernel(const float* __restrict__ s,
       }
       sum = warp_sum(sum);
       ss = warp_sum(ss);
-      const float mean = sum * (1.f / D);
+      const float mean = sum * inv1;
       const float istd =
-          rsqrtf(fmaxf(ss * (1.f / D) - mean * mean, 0.f) + LN_EPS);
+          rsqrtf(fmaxf(ss * inv1 - mean * mean, 0.f) + LN_EPS);
       float gg[CPL], xh[CPL], gxh[CPL], s1 = 0.f, s2 = 0.f;
       load_n(gy + row * D + c0, gg);
 #pragma unroll
@@ -185,8 +188,8 @@ tri_bridge_bwd_wide_kernel(const float* __restrict__ s,
         vgo[t] = fmaf(gg[t], xh[t], vgo[t]);
         vbo[t] += gg[t];
       }
-      const float m1 = warp_sum(s1) * (1.f / D);
-      const float m2 = warp_sum(s2) * (1.f / D);
+      const float m1 = warp_sum(s1) * inv1;
+      const float m2 = warp_sum(s2) * inv1;
 #pragma unroll
       for (int t = 0; t < CPL; ++t) {
         const float g2 = istd * (gxh[t] - m1 - xh[t] * m2);
@@ -220,8 +223,7 @@ tri_bridge_bwd_wide_kernel(const float* __restrict__ s,
       load_n(s + row * D + c0, sv);
       load_n(v + row * D + c0, vv);
       const int k0 = g * D + c0;
-      keep_or_one<CPL>(drop, static_cast<unsigned long long>(row) * (3 * D)
-                                 + k0, km);
+      keep_or_one<CPL>(drop, drop.key3(row, g, c0), km);
 #pragma unroll
       for (int t = 0; t < CPL; ++t) {
         const float x = g == 0 ? sv[t] : (g == 1 ? vv[t] : sv[t] * vv[t]);
@@ -237,8 +239,8 @@ tri_bridge_bwd_wide_kernel(const float* __restrict__ s,
   }
 #pragma unroll
   for (int jj = 0; jj < RPT; ++jj) {
-    ti1[jj] = warp_sum(ti1[jj]) * (1.f / (3 * D));
-    ti2[jj] = warp_sum(ti2[jj]) * (1.f / (3 * D));
+    ti1[jj] = warp_sum(ti1[jj]) * inv3;
+    ti2[jj] = warp_sum(ti2[jj]) * inv3;
   }
   // pass 2: gx of each group; gs = gx0 + gx2 v, gv = gx1 + gx2 s
   float os[RPT][CPL], ov[RPT][CPL];
@@ -257,8 +259,7 @@ tri_bridge_bwd_wide_kernel(const float* __restrict__ s,
       load_n(s + row * D + c0, sv);
       load_n(v + row * D + c0, vv);
       const int k0 = g * D + c0;
-      keep_or_one<CPL>(drop, static_cast<unsigned long long>(row) * (3 * D)
-                                 + k0, km);
+      keep_or_one<CPL>(drop, drop.key3(row, g, c0), km);
 #pragma unroll
       for (int t = 0; t < CPL; ++t) {
         const float x = g == 0 ? sv[t] : (g == 1 ? vv[t] : sv[t] * vv[t]);
@@ -312,7 +313,8 @@ int launch(const float* s, const float* v, const float* gin,
            float* vec_part, float* wg_part, long long R, int wg_chunks,
            Dropout drop, cudaStream_t stream) {
   using S = Tri<D>;
-  auto kern = tri_bridge_bwd_wide_kernel<D>;
+  auto kern = drop.dv == D ? tri_bridge_bwd_wide_kernel<D, false>
+                           : tri_bridge_bwd_wide_kernel<D, true>;
   cudaError_t err = allow_smem(kern, S::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = static_cast<int>((R + S::RT - 1) / S::RT);
@@ -523,7 +525,7 @@ tri_bridge_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ s,
     __syncthreads();
     // ---- the recompute: LN_in statistics, yd (out as rows), y1 ---------
     float mean[2], istd[2];
-    tri_ln_in_stats<D>(s_s, v_s, ex_s, mean, istd, wg, rl, lane);
+    tri_ln_in_stats<D>(s_s, v_s, ex_s, mean, istd, wg, rl, lane, drop.inv3);
     tri_yd_tile<true, D>(s_s, v_s, yd_s, kw, drop, mean, istd, gin_s, bin_s,
                          yd_rows, live, row, wg, rl, lane);
     tc::fence_async_smem();
@@ -535,7 +537,7 @@ tri_bridge_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ s,
       tri_y1_mma<D>(acc, yd_s, sm, wg);
     // (a block barrier: past it, yd's readers are done in both warpgroups)
     tri_ln_out_stats<D>(acc, bias_s, ex_s + 2 * TM * 2, m2, i2, wg, rl,
-                        lane);
+                        lane, drop.inv1);
     // ---- LN_out and ReLU backward; g_y1 into its tile and out as rows ----
     float gg[D / 4], s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
     {
@@ -573,8 +575,8 @@ tri_bridge_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ s,
       for (int e = 0; e < 2; ++e) {
         const int i = 2 * pr + e;
         const float xh = (fmaxf(acc[i], 0.f) - m2[h]) * i2[h];
-        const float g2 = i2[h] * (gg[i] - s1[h] * (1.f / D)
-                                  - xh * s2[h] * (1.f / D));
+        const float g2 = i2[h] * (gg[i] - s1[h] * drop.inv1
+                                  - xh * s2[h] * drop.inv1);
         g1[e] = acc[i] > 0.f ? g2 : 0.f;
       }
       const uint32_t p = tc::pack_bf16(g1[0], g1[1]);
@@ -644,8 +646,8 @@ tri_bridge_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ s,
           const float km = !drop.on() ? 1.f
               : ((bits >> e) & 1u ? drop.scale : 0.f);
           const float gxh = acc[i] * km * gin_s[g * D + c + e];
-          const float gx = istd[h] * (gxh - t1[h] * (1.f / (3 * D))
-                                      - xh * t2[h] * (1.f / (3 * D)));
+          const float gx = istd[h] * (gxh - t1[h] * drop.inv3
+                                      - xh * t2[h] * drop.inv3);
           if (g == 2)
             gx2[i] = gx;
           else
@@ -720,17 +722,21 @@ int launch_tc(const void* s, const void* v, const float* gin,
 // 256, else 32, and wg_part (wg_chunks, 3D, D), or when is_bf16 vec_part
 // (min(ceil(R / 64), SMs), 8D) and wg_part (wg_chunks, 3D + 1, D).  Any
 // other D is refused.
+// dv: the true width, 4 <= dv <= D with 4 | dv, of inputs zero-padded to D
+// (every LN's statistics and the Philox keys, philox.cuh).
 extern "C" int tri_bridge_bwd_wide(
     const void* s, const void* v, const void* gin, const void* bin,
     const void* W, const void* Wt, const void* bias, const void* gout,
     const void* g, void* gs, void* gv, void* gvec, void* gw, void* yd,
     void* gy1, void* vec_part, void* wg_part, long long R, int wg_chunks,
     int d, const unsigned long long* drop_seed, unsigned drop_threshold,
-    float drop_scale, int is_bf16, void* stream) {
+    float drop_scale, int dv, int is_bf16, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto fm = [](void* p) { return static_cast<float*>(p); };
   auto st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
+  const Dropout drop =
+      entry_dropout(drop_seed, drop_threshold, drop_scale, dv);
+  if (!width_ok(dv, d)) return static_cast<int>(cudaErrorInvalidValue);
 #define TVQA_TRI_WIDE(DD)                                                  \
   return is_bf16                                                           \
       ? launch_tc<DD>(s, v, f(gin), f(bin), f(W), f(bias), f(gout), g, gs, \

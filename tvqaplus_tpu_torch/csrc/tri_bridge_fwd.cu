@@ -12,7 +12,9 @@
 // out has the activation type of s and v.
 //
 // D, the hidden width, is 64, 128 or 256 (a template parameter; the C
-// entry takes it and refuses any other width).
+// entry takes it and refuses any other width); a true width dv < D runs on
+// inputs zero-padded to D (the LN statistics and the dropout keys over dv,
+// philox.cuh).
 //
 // What bounds it on the H100: per row it reads 2 x D values, writes D and
 // does 2 * 3D * D FLOPs (160,000 rows at the headline eval: ~123 MB in
@@ -107,8 +109,8 @@ tri_bridge_fwd_kernel(const float* __restrict__ s, const float* __restrict__ v,
     }
     sum = warp_sum(sum);
     ss = warp_sum(ss);
-    const float mean = sum * (1.f / (3 * D));
-    const float var = fmaxf(ss * (1.f / (3 * D)) - mean * mean, 0.f);
+    const float mean = sum * drop.inv3;
+    const float var = fmaxf(ss * drop.inv3 - mean * mean, 0.f);
     const float istd = rsqrtf(var + LN_EPS);
     float* yr = y_s + r * 3 * D;
 #pragma unroll
@@ -125,8 +127,7 @@ tri_bridge_fwd_kernel(const float* __restrict__ s, const float* __restrict__ v,
         for (int i4 = lane; i4 < D / 4; i4 += 32) {
           float km[4];
           const int k0 = g * D + 4 * i4;
-          keep4(drop.seed, static_cast<unsigned long long>(row) * (3 * D)
-                               + k0,
+          keep4(drop.seed, drop.key3(row, g, 4 * i4),
                 drop.threshold, drop.scale, km);
 #pragma unroll
           for (int t = 0; t < 4; ++t) yr[k0 + t] *= km[t];
@@ -159,8 +160,8 @@ tri_bridge_fwd_kernel(const float* __restrict__ s, const float* __restrict__ v,
     }
     const float sum = warp_sum(hs);
     const float ss = warp_sum(hq);
-    const float mean = sum * (1.f / D);
-    const float var = fmaxf(ss * (1.f / D) - mean * mean, 0.f);
+    const float mean = sum * drop.inv1;
+    const float var = fmaxf(ss * drop.inv1 - mean * mean, 0.f);
     const float istd = rsqrtf(var + LN_EPS);
     float o[CPL];
 #pragma unroll
@@ -292,7 +293,7 @@ tri_bridge_fwd_tc_kernel(const __nv_bfloat16* __restrict__ s,
     const uint8_t* s_s = sm + S::O_SV + buf * 2 * TILE_BYTES;
     const uint8_t* v_s = s_s + TILE_BYTES;
     float mean[2], istd[2];
-    tri_ln_in_stats<D>(s_s, v_s, ex_s, mean, istd, wg, rl, lane);
+    tri_ln_in_stats<D>(s_s, v_s, ex_s, mean, istd, wg, rl, lane, drop.inv3);
     tri_yd_tile<false, D>(s_s, v_s, yd_s, kw, drop, mean, istd, gin_s,
                           bin_s, nullptr, live, row, wg, rl, lane);
     tc::fence_async_smem();
@@ -307,7 +308,7 @@ tri_bridge_fwd_tc_kernel(const __nv_bfloat16* __restrict__ s,
       tri_y1_mma<D>(acc, yd_s, w_s, wg);
     }
     tri_ln_out_stats<D>(acc, bias_s, ex_s + 2 * TM * 2, m2, i2, wg, rl,
-                        lane);
+                        lane, drop.inv1);
 #pragma unroll
     for (int pr = 0; pr < D / 8; ++pr) {
       const int h = pr & 1, c = half + 8 * (pr >> 1) + cl;
@@ -363,16 +364,20 @@ int launch_width(const void* s, const void* v, const float* gin,
 // float32; gin/bin (3D), W (3D, D), bias/gout/bout (D) float32, 16-byte
 // aligned; bf16 s and v are 16-byte aligned.  Dropout on the LN_in output
 // when drop_threshold > 0 (philox.cuh).
+// dv: the true width, 4 <= dv <= D with 4 | dv, of inputs zero-padded to D
+// (every LN's statistics and the Philox keys, philox.cuh).
 extern "C" int tri_bridge_fwd(const void* s, const void* v, const void* gin,
                               const void* bin, const void* W,
                               const void* bias, const void* gout,
                               const void* bout, void* out, long long R, int D,
                               const unsigned long long* drop_seed,
-                              unsigned drop_threshold, float drop_scale,
+                              unsigned drop_threshold, float drop_scale, int dv,
                               int is_bf16, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto st = static_cast<cudaStream_t>(stream);
-  const Dropout drop{drop_seed, drop_threshold, drop_scale, 0ull};
+  const Dropout drop =
+      entry_dropout(drop_seed, drop_threshold, drop_scale, dv);
+  if (!width_ok(dv, D)) return static_cast<int>(cudaErrorInvalidValue);
   if (R < 1) return static_cast<int>(cudaErrorInvalidValue);
 #define TVQA_TRI_FWD(DD)                                                     \
   case DD:                                                                   \

@@ -40,8 +40,9 @@ __device__ __forceinline__ void tri_keep_bits(
 #pragma unroll
     for (int w = 0; w < (D / 16 + 7) / 8; ++w) kw[g][0][w] = kw[g][1][w] = ~0u;
     if (drop.on())
-      tc_keep_bits<D / 16, true>(drop, ((lane & 1) ? row[1] : row[0])
-                                 * (3 * D) + g * D + half, lane, kw[g]);
+      tc_keep_bits<D / 16, true>(
+          drop, drop.key3((lane & 1) ? row[1] : row[0], g, half), lane,
+          kw[g]);
   }
 }
 
@@ -52,7 +53,8 @@ __device__ __forceinline__ void tri_ln_in_stats(const uint8_t* s_s,
                                                 const uint8_t* v_s, float* ex,
                                                 float (&mean)[2],
                                                 float (&istd)[2], int wg,
-                                                int rl, int lane) {
+                                                int rl, int lane,
+                                                float inv3) {
   const int half = D / 2 * wg, cl = 2 * (lane & 3);
   mean[0] = mean[1] = istd[0] = istd[1] = 0.f;
 #pragma unroll
@@ -67,8 +69,8 @@ __device__ __forceinline__ void tri_ln_in_stats(const uint8_t* s_s,
   tri_row_pair_sums(ex, mean, istd, wg, rl, lane);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    mean[h] *= 1.f / (3 * D);
-    istd[h] = rsqrtf(fmaxf(istd[h] * (1.f / (3 * D)) - mean[h] * mean[h],
+    mean[h] *= inv3;
+    istd[h] = rsqrtf(fmaxf(istd[h] * inv3 - mean[h] * mean[h],
                            0.f) + LN_EPS);
   }
 }
@@ -174,7 +176,8 @@ __device__ __forceinline__ void tri_ln_out_stats(float (&acc)[D / 4],
                                                  const float* bias_s,
                                                  float* ex, float (&m2)[2],
                                                  float (&i2)[2], int wg,
-                                                 int rl, int lane) {
+                                                 int rl, int lane,
+                                                 float inv1) {
   const int half = D / 2 * wg;
   m2[0] = m2[1] = i2[0] = i2[1] = 0.f;
 #pragma unroll
@@ -188,8 +191,8 @@ __device__ __forceinline__ void tri_ln_out_stats(float (&acc)[D / 4],
   tri_row_pair_sums(ex, m2, i2, wg, rl, lane);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    m2[h] *= 1.f / D;
-    i2[h] = rsqrtf(fmaxf(i2[h] * (1.f / D) - m2[h] * m2[h], 0.f) + LN_EPS);
+    m2[h] *= inv1;
+    i2[h] = rsqrtf(fmaxf(i2[h] * inv1 - m2[h] * m2[h], 0.f) + LN_EPS);
   }
 }
 

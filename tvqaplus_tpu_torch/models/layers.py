@@ -159,9 +159,9 @@ class TriMLPBridge(MLPBridge):
 
     def forward(self, s, v, drop=None):
         ln_in, fc, ln_out = self[0], self[2], self[4]
-        return tri_bridge(s, v, ln_in.weight, ln_in.bias, fc.weight.t(),
-                          fc.bias, ln_out.weight, ln_out.bias,
-                          *kernel_dropout(drop))
+        return tri_bridge(s, v, ln_in.weight, ln_in.bias,
+                          dp.whole_weight(fc).t(), fc.bias, ln_out.weight,
+                          ln_out.bias, *kernel_dropout(drop))
 
 
 class InputEmbedding(nn.Sequential):
@@ -218,8 +218,10 @@ class DepthwiseSeparableConv(nn.Module):
 
     @property
     def pw(self):
-        """Pointwise weight as (in, out), the JAX layout."""
-        return self.pointwise_conv.weight[:, :, 0].t()
+        """Pointwise weight as (in, out), the JAX layout: whole, gathered
+        over the model axis when that splits it (parallel/mesh.py
+        ``whole_weight``)."""
+        return dp.whole_weight(self.pointwise_conv)[:, :, 0].t()
 
     def forward(self, x):
         dt = self.dtype
@@ -371,7 +373,8 @@ class EncoderBlock(nn.Module):
     sees the zeros that per-stream padding would give (the merged-stream
     contract, JAX layers.py:247-254); positions where it is 0 come out as
     garbage for the caller to slice away.  The kernel takes a (G, L) mask
-    on a 4-D input, or none."""
+    on a 4-D input, or none.  ``groups``: the kernel's group map of the
+    merged input encoder under context parallelism (ops/encoder.py)."""
 
     def __init__(self, hsz, n_conv=2, kernel_size=7, num_heads=0,
                  dropout=0.1, dtype=torch.float32, use_kernel=False):
@@ -419,7 +422,7 @@ class EncoderBlock(nn.Module):
         return p
 
     def forward(self, x, reduce_mask=None, drop=None, zero_mask=None,
-                mask=None):
+                mask=None, groups=None):
         """``mask`` (x's leading dims + (L,)): the attention branch's mask
         (blocks with heads only)."""
         lead, (l, d) = x.shape[:-2], x.shape[-2:]
@@ -429,7 +432,8 @@ class EncoderBlock(nn.Module):
             if reduce_mask is None:
                 return encoder_block(xg, pe, self.kernel_params(),
                                      self.kernel_size, zero_mask,
-                                     *kernel_dropout(drop)).reshape(x.shape)
+                                     *kernel_dropout(drop),
+                                     groups=groups).reshape(x.shape)
             if zero_mask is not None:
                 raise NotImplementedError("reduce_mask with a zero_mask")
             out = encoder_reduce(xg, pe, self.kernel_params(),
@@ -456,7 +460,8 @@ class EncoderBlock(nn.Module):
 class StackedEncoder(nn.Module):
     """n_blocks stacked EncoderBlocks (reference encoder.py:55-74); the
     ``reduce_mask`` of the last block folds in the masked word-max, every
-    block takes the ``zero_mask`` and the attention ``mask``."""
+    block takes the ``zero_mask``, the attention ``mask`` and the kernel's
+    ``groups``."""
 
     def __init__(self, n_blocks=1, n_conv=2, kernel_size=7, num_heads=0,
                  hsz=128, dropout=0.1, dtype=torch.float32,
@@ -468,9 +473,9 @@ class StackedEncoder(nn.Module):
             for _ in range(n_blocks))
 
     def forward(self, x, reduce_mask=None, drop=None, zero_mask=None,
-                mask=None):
+                mask=None, groups=None):
         last = len(self.stacked_encoderBlocks) - 1
         for i, block in enumerate(self.stacked_encoderBlocks):
             x = block(x, reduce_mask if i == last else None, drop, zero_mask,
-                      mask)
+                      mask, groups)
         return x

@@ -14,15 +14,17 @@ through the plain versions (on the CPU), so ``forward(train=True)`` is the
 training forward: dropout at every reference site (``drop``, a
 ``layers.Dropout``) and the GT-anchored proposals.
 
-Under a mesh (parallel/mesh.py ``place_model`` sets ``mesh``) with a ctx
-axis the batch holds this rank's frames of Li: the per-frame chain runs on
-them, and one all-gather over the ctx group after the cls encoder
-(``gather_ctx``) hands the head, the losses and the span search the whole
-Li, replicated on every ctx rank; the raw scores a caller asks for are
-gathered too.  Dropout on Li-sharded tensors draws through
+Under a mesh (parallel/mesh.py ``place_model`` sets ``mesh``) with a ctx axis
+the batch holds this rank's frames of Li: the per-frame chain runs on them, and
+one all-gather over the ctx group after the cls encoder (``gather_ctx``) hands
+the head, the losses and the span search the whole Li, replicated on every ctx
+rank; the raw scores a caller asks for are gathered too.  With a model axis
+that splits the kernels' weights (hsz >= 256), each forward gathers each of
+them whole once, before its first use (``forward``, parallel/mesh.py
+``gather_weight``).  Dropout on Li-sharded tensors draws through
 ``drop.frames``, which folds the ctx rank in; the replicated work (the QA
-stream, the per-token subtitle stream, the head) through ``drop``, alike
-on every ctx rank of a data row.
+stream, the per-token subtitle stream, the head) through ``drop``, alike on
+every ctx rank of a data row.
 
 Noun masks (the batch's ``qa_noun_masks``) and void vectors
 (``non_visual > 0``, the vid site) are not inputs of the fused attention
@@ -63,6 +65,7 @@ from tvqaplus_tpu_torch.models.layers import (
 )
 from tvqaplus_tpu_torch.ops.masking import mask_logits
 from tvqaplus_tpu_torch.ops.qa_ctx_attention import qa_ctx_attention
+from tvqaplus_tpu_torch.parallel import mesh as tp
 from tvqaplus_tpu_torch.parallel.mesh import gather_ctx
 
 
@@ -158,8 +161,10 @@ class STAGE(nn.Module):
         else:
             self.non_visual_vectors = None
         self._zero_masks = {}
+        self._group_maps = {}
         self.mesh = None       # parallel/mesh.py place_model
         self.shards = {}
+        self.whole_layers = []
 
     def head_parameters(self):
         """The parameters after the ctx gather (the temporal heads and the
@@ -231,21 +236,44 @@ class STAGE(nn.Module):
         attention kernel takes contiguous inputs).  Under context
         parallelism the frame groups are this rank's, and the call draws
         through ``drop``, alike on every ctx rank: the QA rows must (they
-        are replicated work), and the kernel keys a mask by the element's
-        place in its input, so each ctx rank's frame rows take the same
-        masks as the other ranks' rows at the same local frame."""
+        are replicated work), and the frame rows key their masks at their
+        global frames through the kernel's group map
+        (``merged_group_map``), so each takes the mask one process draws
+        for it."""
         streams = (qa_pre, sub_pre, vid_pre)
         lmax = max(x.shape[2] for x in streams)
         merged = torch.cat([nn.functional.pad(x, (0, 0, 0, lmax - x.shape[2]))
                             for x in streams], dim=1)
         zm = self.merged_zero_mask(tuple(x.shape[1:3] for x in streams),
                                    merged.device)
-        enc = self.input_encoder(merged, drop=drop, zero_mask=zm)
+        enc = self.input_encoder(
+            merged, drop=drop, zero_mask=zm,
+            groups=self.merged_group_map(qa_pre.shape[1], sub_pre.shape[1],
+                                         merged.device))
         outs, g0 = [], 0
         for x in streams:
             outs.append(enc[:, g0:g0 + x.shape[1], :x.shape[2]].contiguous())
             g0 += x.shape[1]
         return outs
+
+    def merged_group_map(self, num_a, li, device):
+        """The merged input encoder's group map under context parallelism
+        (ops/encoder.py): the A QA groups as they are, then this rank's li
+        sub frames and li vid frames at their global frame indices, over
+        A + 2 ctx li groups; None without a ctx axis.  Built once per shape
+        and device and kept, as ``merged_zero_mask``."""
+        if self.mesh is None or self.mesh.ctx == 1:
+            return None
+        key = (num_a, li, torch.device(device))
+        if key not in self._group_maps:
+            whole = li * self.mesh.ctx
+            f0 = self.mesh.c * li
+            frames = torch.arange(f0, f0 + li)
+            gmap = torch.cat([torch.arange(num_a), num_a + frames,
+                              num_a + whole + frames]).to(torch.int32)
+            with torch.inference_mode(False):
+                self._group_maps[key] = (gmap.to(device), num_a + 2 * whole)
+        return self._group_maps[key]
 
     def merged_zero_mask(self, streams, device):
         """The (G, Lmax) float32 zero mask of the merged input encoder for
@@ -298,7 +326,8 @@ class STAGE(nn.Module):
         rate, seed = kernel_dropout(frame_dropout(drop))
         out = qa_ctx_attention(
             cn, qa_embed, qn, ctx_embed, qa_mask, ctx_mask, dp[0].weight,
-            dp[0].bias, dp[2].weight.t(), dp[2].bias, self.cfg.scale,
+            dp[0].bias, tp.whole_weight(dp[2]).t(), dp[2].bias,
+            self.cfg.scale,
             raw_mode, targets, rate, seed)
         mixed, raw = out if raw_mode != "none" else (out, None)
         any_region = (ctx_mask.sum(-1) > 0).float()              # (B, Li)
@@ -329,6 +358,20 @@ class STAGE(nn.Module):
 
     def forward(self, batch, train=False, need_sub_raw=True,
                 need_vid_raw=True, drop=None):
+        """See ``_forward``.  Under a model axis that splits the kernels'
+        weights, each of them is all-gathered whole once here (both
+        attention sites share the attention's), and dropped after."""
+        for m in self.whole_layers:
+            m.whole = tp.gather_weight(m)
+        try:
+            return self._forward(batch, train, need_sub_raw, need_vid_raw,
+                                 drop)
+        finally:
+            for m in self.whole_layers:
+                m.whole = None
+
+    def _forward(self, batch, train=False, need_sub_raw=True,
+                 need_vid_raw=True, drop=None):
         """Forward over a static-shape batch dict of tensors
         (data/batching.py).  ``train`` needs ``drop`` (a
         ``layers.Dropout``; rate 0 for none) and the batch's target and

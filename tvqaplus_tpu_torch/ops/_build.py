@@ -23,6 +23,8 @@ import subprocess
 import tempfile
 import time
 
+from tvqaplus_tpu_torch.ops.widths import TRUE_WIDTHS, padded_width
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "tvqaplus_tpu_torch")
@@ -97,8 +99,10 @@ def build_all(sources=SOURCES):
 
 class CudaKernel:
     """One C entry of one kernel library, loaded at first launch, with a
-    count of its launches (``launches``) that callers may reset.  A launch
-    captured into a CUDA graph counts once for each replay of the graph
+    count of its launches (``launches``) that callers may reset, and beside
+    it the launches at each true width (``by_width[dv]``: a width padded to
+    this instantiation counts there under its own dv).  A launch captured
+    into a CUDA graph counts once for each replay of the graph
     (``launch_counts``, ``add_launches``: dispatch.py), not at capture."""
 
     def __init__(self, source, symbol, argtypes):
@@ -106,6 +110,7 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.by_width = dict.fromkeys(TRUE_WIDTHS, 0)
         self._fn = None
         KERNELS.append(self)
 
@@ -121,9 +126,10 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, device, *args):
+    def launch(self, device, *args, dv=None):
         """Launch on ``device``'s current stream (passed as the last
-        argument) with ``device`` current; raises on a CUDA error."""
+        argument) with ``device`` current; raises on a CUDA error.  ``dv``:
+        the true width the launch runs (counted in ``by_width``)."""
         import torch
         fn = self._load()
         with torch.cuda.device(device):
@@ -134,20 +140,55 @@ class CudaKernel:
                 f"{self.symbol}: CUDA error {err} at launch "
                 f"(see cudaError_t)")
         self.launches += 1
+        if dv is not None:
+            self.by_width[dv] += 1
 
 
 KERNELS = []      # every CudaKernel, in the order the modules made them
 
 
+class WidthCount:
+    """The launches of ``kernel`` at the true width ``dv`` (its
+    ``by_width`` entry) behind the ``launches`` attribute of a kernel, so a
+    caller reads and resets it as it does a kernel's count."""
+
+    def __init__(self, kernel, dv):
+        self.kernel, self.dv = kernel, dv
+
+    @property
+    def launches(self):
+        return self.kernel.by_width[self.dv]
+
+    @launches.setter
+    def launches(self, n):
+        self.kernel.by_width[self.dv] = n
+
+
+def width_counter(by_width, d):
+    """The launch count of true width ``d`` in a wrapper's table of
+    kernels by instantiation (``FWD_BY_WIDTH`` and the like): the table's
+    own kernel at an instantiation, else the ``WidthCount`` of the
+    instantiation ``d`` is padded to."""
+    if d in by_width:
+        return by_width[d]
+    return WidthCount(by_width[padded_width(d)], d)
+
+
 def launch_counts():
-    """Every kernel's ``launches``, in ``KERNELS`` order."""
-    return [k.launches for k in KERNELS]
+    """Every kernel's ``launches``, in ``KERNELS`` order, then every
+    kernel's ``by_width`` counts."""
+    return [k.launches for k in KERNELS] + [
+        k.by_width[w] for k in KERNELS for w in TRUE_WIDTHS]
 
 
 def add_launches(counts):
     """Add ``counts`` (``launch_counts`` order) to the kernels' counters."""
-    for kernel, n in zip(KERNELS, counts):
-        kernel.launches += n
+    n = len(KERNELS)
+    for kernel, c in zip(KERNELS, counts[:n]):
+        kernel.launches += c
+    for i, c in enumerate(counts[n:]):
+        kernel = KERNELS[i // len(TRUE_WIDTHS)]
+        kernel.by_width[TRUE_WIDTHS[i % len(TRUE_WIDTHS)]] += c
 
 
 def ptr(t):

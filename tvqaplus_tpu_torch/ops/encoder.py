@@ -24,7 +24,16 @@ through them is the plain backward).
 ``params`` uses the JAX kernel's keys: ln{0,1}_s/_b (D,), dw{0,1} (k, D),
 dwb{0,1} (D,), pw{0,1} (D, D) as (in, out), pwb{0,1} (D,), lnf_s/lnf_b
 (D,).  Conv 0's dropout acts on its (B*G*L, D) LN output, keyed by (seed,
-flat index) through Philox (ops/philox.py).
+flat index) through Philox (ops/philox.py).  ``groups`` (the merged input
+encoder under context parallelism, models/stage.py): a (G,) int32 map from
+this rank's groups to the whole group axis and that axis's size, so
+sequence (b, g) keys as (b, gmap[g]) of the whole tensor, the mask one
+process draws there (csrc/philox.cuh ``Dropout::row_key``).
+
+On CUDA any width ``widths.check_width`` takes runs in the instantiation
+``widths.padded_width(D)``: the inputs and parameters zero-padded to it
+(``pad_inputs``; the position table is the caller's, built at D), the
+kernels told the true width, the output sliced back.
 
 Two compute modes, chosen by the activations' type.  float32: exact, the
 CUDA-core kernels.  bfloat16 (what the entry points run on the card): the
@@ -36,6 +45,7 @@ same sites (``block_layers``).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -59,10 +69,13 @@ from tvqaplus_tpu_torch.ops.plain import (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U32 = ctypes.c_uint
+# the dropout, the true width and the group map, the compute mode, the
+# stream
+_TAIL = [_P, _U32, _F, _I, _P, _I, _I, _P]
 # The forward entries take the width D; each width has its own launch count
 # (KERNEL and BLOCK_KERNEL count D = 128, the headline hsz).
-_REDUCE_ARGS = [_P] * 5 + [_I] * 4 + [_P, _U32, _F, _I, _P]
-_BLOCK_ARGS = [_P] * 5 + [_I] * 5 + [_P, _U32, _F, _I, _P]
+_REDUCE_ARGS = [_P] * 5 + [_I] * 4 + _TAIL
+_BLOCK_ARGS = [_P] * 5 + [_I] * 5 + _TAIL
 FWD_BY_WIDTH = {d: CudaKernel("encoder_fwd.cu", "encoder_reduce_fwd",
                               _REDUCE_ARGS) for d in widths.FORWARD_WIDTHS}
 BLOCK_BY_WIDTH = {d: CudaKernel("encoder_fwd.cu", "encoder_block_fwd",
@@ -70,16 +83,15 @@ BLOCK_BY_WIDTH = {d: CudaKernel("encoder_fwd.cu", "encoder_block_fwd",
 KERNEL = FWD_BY_WIDTH[128]
 BLOCK_KERNEL = BLOCK_BY_WIDTH[128]
 BWD_KERNEL = CudaKernel("encoder_bwd.cu", "encoder_reduce_bwd",
-                        [_P] * 15 + [_I] * 4 + [_P, _U32, _F, _I, _P])
+                        [_P] * 15 + [_I] * 4 + _TAIL)
 BLOCK_BWD_KERNEL = CudaKernel("encoder_bwd.cu", "encoder_block_bwd",
-                              [_P] * 15 + [_I] * 5
-                              + [_P, _U32, _F, _I, _P])
+                              [_P] * 15 + [_I] * 5 + _TAIL)
 # The backwards at the other widths take D, with the same arguments:
 # csrc/encoder_bwd_tc_wide.cu (bf16, tensor cores; BWD_BY_WIDTH[d] and
 # BLOCK_BWD_BY_WIDTH[d], the main path's, counting at each width) and
 # csrc/encoder_bwd_wide.cu (float32, CUDA cores; F32_*_BY_WIDTH[d]).
-_WIDE_BWD_ARGS = [_P] * 16 + [_I] * 5 + [_P, _U32, _F, _I, _P]
-_WIDE_BLOCK_BWD_ARGS = [_P] * 16 + [_I] * 6 + [_P, _U32, _F, _I, _P]
+_WIDE_BWD_ARGS = [_P] * 16 + [_I] * 5 + _TAIL
+_WIDE_BLOCK_BWD_ARGS = [_P] * 16 + [_I] * 6 + _TAIL
 
 
 def _wide_bwd(tc, block):
@@ -154,25 +166,29 @@ class _StashConv(torch.autograd.Function):
                                        (tr, dw, dwb), g)
 
 
-def block_layers(x, pe, params, k, zero_mask=None, dropout_rate=0.0, seed=0):
+def block_layers(x, pe, params, k, zero_mask=None, dropout_rate=0.0, seed=0,
+                 dv=None, groups=None):
     """The block in plain PyTorch, float32 arithmetic.  Returns the final
     LN's output (B, G, L, D) and the two layers' ReLU inputs (ops/checks.py
-    reads them).  bfloat16 ``x`` takes the rounding sites of the bf16
-    kernels, which are the TPU kernel's bf16 compute mode: the pointwise
-    products round their operands to bf16 (``Bf16Dot``, cotangents
-    included, pallas_encoder.py:199-201, :221-226), and the depthwise weight
-    gradient reads the LN output (after dropout) rounded to bf16, as the TPU
-    kernel's stash ``ln_d`` is.  Its other bf16 stash, ``xhat``, is left
-    unrounded, as the kernels leave it: the LN backward recomputes it in
-    float32."""
+    reads them).  ``dv``: the true width of inputs zero-padded past it
+    (``pad_inputs``), which every LN averages over and the dropout keys by, as
+    the kernels do; ``groups``: the group map (module docstring).  bfloat16
+    ``x`` takes the rounding sites of the bf16 kernels, which are the TPU
+    kernel's bf16 compute mode: the pointwise products round their operands to
+    bf16 (``Bf16Dot``, cotangents included, pallas_encoder.py:199-201,
+    :221-226), and the depthwise weight gradient reads the LN output (after
+    dropout) rounded to bf16, as the TPU kernel's stash ``ln_d`` is.  Its other
+    bf16 stash, ``xhat``, is left unrounded, as the kernels leave it: the LN
+    backward recomputes it in float32."""
     bf16 = x.dtype == torch.bfloat16
     h = x.float() + pe.float()
     v = None if zero_mask is None else zero_mask.float()[..., None]
     pre = []
     for i in (0, 1):
-        t = layer_norm(h, params[f"ln{i}_s"], params[f"ln{i}_b"])
+        t = layer_norm(h, params[f"ln{i}_s"], params[f"ln{i}_b"], n=dv)
         if i == 0 and dropout_rate > 0.0:
-            t = t * philox.multiplier(t.shape, seed, dropout_rate, t.device)
+            t = t * _dropout_multiplier(t.shape, seed, dropout_rate, dv,
+                                        groups, t.device)
         if v is not None:
             t = t * v
         conv = _StashConv.apply if bf16 else depthwise_conv
@@ -180,25 +196,57 @@ def block_layers(x, pe, params, k, zero_mask=None, dropout_rate=0.0, seed=0):
         pre.append(dot(c, params[f"pw{i}"].float(), bf16)
                    + params[f"pwb{i}"].float())
         h = h + torch.relu(pre[-1])
-    return layer_norm(h, params["lnf_s"], params["lnf_b"]), pre
+    return layer_norm(h, params["lnf_s"], params["lnf_b"], n=dv), pre
+
+
+def _dropout_multiplier(shape, seed, p, dv, groups, device):
+    """Conv 0's dropout multipliers of the (B, G, L, D) LN output, keyed
+    as the kernels key them (module docstring)."""
+    bsz, g, length, d = shape
+    dv = d if dv is None else dv
+    if groups is None:
+        return philox.width_multiplier(shape, seed, p, dv, device=device)
+    gmap, g_glob = groups
+    ar = functools.partial(torch.arange, dtype=torch.int64, device=device)
+    seq = ar(bsz)[:, None] * g_glob + gmap.to(device, torch.int64)[None]
+    keys = ((seq[..., None] * length + ar(length)) * dv)[..., None] + ar(dv)
+    keep = philox.keep_at(keys, seed, p)
+    return torch.nn.functional.pad(keep.float() * philox.scale(p),
+                                   (0, d - dv))
 
 
 def encoder_reduce_plain(x, pe, params, k, reduce_mask, dropout_rate=0.0,
-                         seed=0):
+                         seed=0, dv=None):
     """Plain PyTorch version.  x (B, G, L, D); pe (L, D); reduce_mask
-    (B, G, L).  Returns (B, G, D) in x's dtype."""
-    out, _ = block_layers(x, pe, params, k, None, dropout_rate, seed)
+    (B, G, L).  Returns (B, G, D) in x's dtype.  ``dv`` as
+    ``block_layers``."""
+    out, _ = block_layers(x, pe, params, k, None, dropout_rate, seed, dv)
     m = reduce_mask.float()[..., None]
     return (out * m + (m - 1.0) * 1e10).amax(dim=-2).to(x.dtype)
 
 
 def encoder_block_plain(x, pe, params, k, zero_mask=None, dropout_rate=0.0,
-                        seed=0):
+                        seed=0, dv=None, groups=None):
     """Plain PyTorch version of the full-output mode.  x (B, G, L, D); pe
     (L, D); zero_mask (G, L) or None; the dropout mask is drawn on the whole
-    (B*G*L, D) LN output.  Returns (B, G, L, D) in x's dtype."""
+    (B*G*L, D) LN output (with ``groups``, on this rank's part of it).
+    Returns (B, G, L, D) in x's dtype.  ``dv`` as ``block_layers``."""
     return block_layers(x, pe, params, k, zero_mask, dropout_rate,
-                        seed)[0].to(x.dtype)
+                        seed, dv, groups)[0].to(x.dtype)
+
+
+def pad_inputs(x, pe, params, dp):
+    """x, pe and the parameters zero-padded from their width D to the
+    instantiation ``dp`` (the pointwise weights in both dims); the same
+    objects at dp = D."""
+    d = x.shape[-1]
+    if dp == d:
+        return x, pe, params
+    pad = functools.partial(widths.pad_cols, dp=dp)
+    out = {key: pad(p) for key, p in params.items()}
+    for key in ("pw0", "pw1"):
+        out[key] = widths.pad_weight(params[key], dp)
+    return pad(x).contiguous(), pad(pe), out
 
 
 def pack_params(params):
@@ -208,7 +256,7 @@ def pack_params(params):
 
 
 def _check(x, pe, packed, k, reduce_mask=None, zero_mask=None,
-           backward=False):
+           backward=False, groups=None):
     """Raise on what the kernels do not take (D in
     ``widths.FORWARD_WIDTHS``, the backward ``widths.BACKWARD_WIDTHS``);
     returns the float32 packed parameters, position table and mask (the
@@ -239,6 +287,11 @@ def _check(x, pe, packed, k, reduce_mask=None, zero_mask=None,
                  **({} if m32 is None else {"mask": m32}))
     if x.dtype == torch.bfloat16:      # the forward copies 16-byte chunks
         check_aligned(x=x)
+    if groups is not None:
+        gmap, _ = groups
+        if gmap.shape != (g,) or gmap.dtype != torch.int32:
+            raise ValueError(f"the group map must be ({g},) int32")
+        check_device(x.device, gmap=gmap)
     return packed32, pe32, m32
 
 
@@ -257,16 +310,17 @@ class _EncoderReduce(torch.autograd.Function):
     (x, packed parameters)."""
 
     @staticmethod
-    def forward(ctx, x, pe, packed, reduce_mask, k, dropout_rate, seed):
+    def forward(ctx, x, pe, packed, reduce_mask, k, dropout_rate, seed, dv):
         packed32, pe32, m32 = _check(x, pe, packed, k, reduce_mask)
         bsz, g, l, d = x.shape
         out = torch.empty((bsz, g, d), dtype=x.dtype, device=x.device)
         FWD_BY_WIDTH[d].launch(x.device, ptr(x), ptr(pe32), ptr(packed32),
                                ptr(m32), ptr(out), bsz * g, l, k, d,
                                *philox.kernel_args(dropout_rate, seed),
-                               int(x.dtype == torch.bfloat16))
+                               *_width_args(dv, None),
+                               int(x.dtype == torch.bfloat16), dv=dv)
         ctx.save_for_backward(x, pe, packed, reduce_mask)
-        ctx.cfg = (k, dropout_rate, seed)
+        ctx.cfg = (k, dropout_rate, seed, dv)
         return out
 
     @staticmethod
@@ -274,32 +328,41 @@ class _EncoderReduce(torch.autograd.Function):
         x, pe, packed, reduce_mask = ctx.saved_tensors
         gx, gpacked = encoder_reduce_backward(x, pe, packed, reduce_mask, g,
                                               *ctx.cfg)
-        return gx, None, gpacked, None, None, None, None
+        return gx, None, gpacked, None, None, None, None, None
+
+
+def _width_args(dv, groups):
+    """The C entries' (dv, gmap, g_glob)."""
+    if groups is None:
+        return dv, None, 1
+    gmap, g_glob = groups
+    return dv, ptr(gmap), g_glob
 
 
 def encoder_reduce_backward(x, pe, packed, reduce_mask, g, k,
-                            dropout_rate=0.0, seed=0):
+                            dropout_rate=0.0, seed=0, dv=None):
     """Launch the reduce mode's backward kernel (CUDA tensors only).
     Returns gx in x's dtype and the float32 gradient of the packed
-    parameter vector."""
+    parameter vector.  ``dv``: the true width of a padded x (None: x's)."""
     return _backward(x, pe, packed, reduce_mask, None, g, k, dropout_rate,
-                     seed)
+                     seed, dv)
 
 
 def encoder_block_backward(x, pe, packed, zero_mask, g, k, dropout_rate=0.0,
-                           seed=0):
+                           seed=0, dv=None, groups=None):
     """The same for the full-output mode: ``g`` is the (B, G, L, D)
-    cotangent, ``zero_mask`` (G, L) or None."""
+    cotangent, ``zero_mask`` (G, L) or None; ``groups`` the group map."""
     return _backward(x, pe, packed, None, zero_mask, g, k, dropout_rate, seed,
-                     full=True)
+                     dv, groups, full=True)
 
 
 def _backward(x, pe, packed, reduce_mask, zero_mask, g, k, dropout_rate,
-              seed, full=False):
+              seed, dv=None, groups=None, full=False):
     packed32, pe32, m32 = _check(x, pe, packed, k, reduce_mask, zero_mask,
                                  backward=True)
     seed = philox.kernel_seed(dropout_rate, seed, x.device)
     bsz, grp, l, d = x.shape
+    dv = d if dv is None else dv
     n = bsz * grp
     g = g.to(x.dtype).contiguous()
     if g.shape != ((bsz, grp, l, d) if full else (bsz, grp, d)):
@@ -365,7 +428,8 @@ def _backward(x, pe, packed, reduce_mask, zero_mask, g, k, dropout_rate,
                   None if m32 is None else ptr(m32), ptr(g), ptr(gx),
                   ptr(gvec), ptr(gpw),
                   *(None if t is None else ptr(t) for t in scratch), *dims,
-                  chunks, *philox.kernel_args(dropout_rate, seed), int(tc))
+                  chunks, *philox.kernel_args(dropout_rate, seed),
+                  *_width_args(dv, groups), int(tc), dv=dv)
     # gvec per layer: ln_s, ln_b, dw (k), dwb, pwb; then lnf_s, lnf_b (the
     # tensor-core kernel's gpwb is the last row of its gpw)
     pieces = []
@@ -383,17 +447,20 @@ class _EncoderBlock(torch.autograd.Function):
     differentiable op over (x, packed parameters)."""
 
     @staticmethod
-    def forward(ctx, x, pe, packed, zero_mask, k, dropout_rate, seed):
-        packed32, pe32, m32 = _check(x, pe, packed, k, zero_mask=zero_mask)
+    def forward(ctx, x, pe, packed, zero_mask, k, dropout_rate, seed, dv,
+                groups):
+        packed32, pe32, m32 = _check(x, pe, packed, k, zero_mask=zero_mask,
+                                     groups=groups)
         bsz, g, l, d = x.shape
         out = torch.empty_like(x)
         BLOCK_BY_WIDTH[d].launch(x.device, ptr(x), ptr(pe32), ptr(packed32),
                                  None if m32 is None else ptr(m32), ptr(out),
                                  bsz * g, g, l, k, d,
                                  *philox.kernel_args(dropout_rate, seed),
-                                 int(x.dtype == torch.bfloat16))
+                                 *_width_args(dv, groups),
+                                 int(x.dtype == torch.bfloat16), dv=dv)
         ctx.save_for_backward(x, pe, packed, zero_mask)
-        ctx.cfg = (k, dropout_rate, seed)
+        ctx.cfg = (k, dropout_rate, seed, dv, groups)
         return out
 
     @staticmethod
@@ -401,7 +468,7 @@ class _EncoderBlock(torch.autograd.Function):
         x, pe, packed, zero_mask = ctx.saved_tensors
         gx, gpacked = encoder_block_backward(x, pe, packed, zero_mask, g,
                                              *ctx.cfg)
-        return gx, None, gpacked, None, None, None, None
+        return gx, None, gpacked, None, None, None, None, None, None
 
 
 def _packed(params, k, d):
@@ -414,23 +481,35 @@ def _packed(params, k, d):
 
 def encoder_reduce(x, pe, params, k, reduce_mask, dropout_rate=0.0, seed=0):
     """Kernels on CUDA tensors (differentiable through the backward kernel,
-    parameters included), plain version on CPU tensors."""
+    parameters included; a width between the instantiations padded, module
+    docstring), plain version on CPU tensors."""
     if not x.is_cuda:
         return encoder_reduce_plain(x, pe, params, k, reduce_mask,
                                     dropout_rate, seed)
-    return _EncoderReduce.apply(x, pe, _packed(params, k, x.shape[-1]),
-                                reduce_mask, k, dropout_rate,
-                                philox.kernel_seed(dropout_rate, seed,
-                                                   x.device))
+    d = x.shape[-1]
+    dp = widths.padded_width(d)
+    x, pe, params = pad_inputs(x, pe, params, dp)
+    out = _EncoderReduce.apply(x, pe, _packed(params, k, dp), reduce_mask,
+                               k, dropout_rate,
+                               philox.kernel_seed(dropout_rate, seed,
+                                                  x.device), d)
+    return out if dp == d else out[..., :d]
 
 
-def encoder_block(x, pe, params, k, zero_mask=None, dropout_rate=0.0, seed=0):
+def encoder_block(x, pe, params, k, zero_mask=None, dropout_rate=0.0, seed=0,
+                  groups=None):
     """The full-output mode: kernels on CUDA tensors (differentiable, as
-    ``encoder_reduce``), plain version on CPU tensors."""
+    ``encoder_reduce``), plain version on CPU tensors; ``groups`` the group
+    map of the merged input encoder under context parallelism (module
+    docstring)."""
     if not x.is_cuda:
         return encoder_block_plain(x, pe, params, k, zero_mask, dropout_rate,
-                                   seed)
-    return _EncoderBlock.apply(x, pe, _packed(params, k, x.shape[-1]),
-                               zero_mask, k, dropout_rate,
-                               philox.kernel_seed(dropout_rate, seed,
-                                                  x.device))
+                                   seed, groups=groups)
+    d = x.shape[-1]
+    dp = widths.padded_width(d)
+    x, pe, params = pad_inputs(x, pe, params, dp)
+    out = _EncoderBlock.apply(x, pe, _packed(params, k, dp), zero_mask, k,
+                              dropout_rate,
+                              philox.kernel_seed(dropout_rate, seed,
+                                                 x.device), d, groups)
+    return out if dp == d else out[..., :d]

@@ -113,6 +113,28 @@ def multiplier(shape, seed, p, device="cpu"):
     return keep.to(torch.float32) * scale(p)
 
 
+def keep_at(keys, seed, p):
+    """Boolean keep mask of the elements whose flat indices are the int64
+    tensor ``keys`` (any shape)."""
+    words = torch.stack(philox4x32_10(keys >> 2, seed), dim=-1)
+    bits = words.gather(-1, (keys & 3)[..., None])[..., 0]
+    return (bits >> 8) >= threshold(p)
+
+
+def width_multiplier(shape, seed, p, dv, parts=1, device="cpu"):
+    """``multiplier`` of a tensor of ``shape`` whose last dim holds ``parts``
+    blocks of a width dv padded to ``shape[-1] / parts``: element (r, g, c),
+    c < dv, keys r parts dv + g dv + c, the flat index of the unpadded
+    (..., parts dv) tensor (csrc/philox.cuh ``Dropout::row_key`` and
+    ``key3``); the pad columns take 0."""
+    dp = shape[-1] // parts
+    rows = 1
+    for n in shape[:-1]:
+        rows *= n
+    m = multiplier((rows, parts, dv), seed, p, device)
+    return torch.nn.functional.pad(m, (0, dp - dv)).reshape(shape)
+
+
 def draw_seed(generator):
     """A kernel seed from a CPU ``torch.Generator``: no device sync."""
     return int(torch.randint(0, 1 << SEED_BITS, (), generator=generator,

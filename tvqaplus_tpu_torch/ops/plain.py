@@ -8,13 +8,20 @@ import torch.nn.functional as F
 LN_EPS = 1e-5
 
 
-def layer_norm(x, scale, bias, clip=True):
+def layer_norm(x, scale, bias, clip=True, n=None):
     """flax ``LayerNorm`` numerics in float32: fast variance
     E[x^2] - E[x]^2, clipped at 0 unless ``clip=False`` (the fused
-    attention kernel's LN, pallas_attention.py:147-151).  Returns float32."""
+    attention kernel's LN, pallas_attention.py:147-151).  ``n``: the true
+    width of an ``x`` whose last dim is zero-padded past it (the sums are
+    divided by ``n``; the pad columns come out as ``bias``, zero when the
+    caller pads ``scale`` and ``bias`` with zeros).  Returns float32."""
     x = x.float()
-    mean = x.mean(-1, keepdim=True)
-    var = (x * x).mean(-1, keepdim=True) - mean * mean
+    if n is None or n == x.shape[-1]:
+        mean = x.mean(-1, keepdim=True)
+        var = (x * x).mean(-1, keepdim=True) - mean * mean
+    else:
+        mean = x.sum(-1, keepdim=True) / n
+        var = (x * x).sum(-1, keepdim=True) / n - mean * mean
     if clip:
         var = torch.clamp(var, min=0.0)
     return (x - mean) * torch.rsqrt(var + LN_EPS) * scale.float() \

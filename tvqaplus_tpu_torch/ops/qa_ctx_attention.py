@@ -12,7 +12,9 @@ backward.
 
 The projection dropout acts on the (B*A*Li*Lqa, 3D) LN output, keyed by
 (seed, flat index) through Philox (ops/philox.py), so the kernels and the
-plain version draw the same mask.
+plain version draw the same mask.  On CUDA a width between the
+instantiations runs padded (ops/widths.py: gamma, beta and W's rows third
+by third), the kernels told the true width, ``mixed`` sliced back.
 
 Two compute modes, chosen by the activations' type.  float32: exact, the
 CUDA-core kernels.  bfloat16 (what the entry points run on the card): every
@@ -50,18 +52,20 @@ _U32 = ctypes.c_uint
 FWD_BY_WIDTH = {d: CudaKernel("qa_ctx_attention_fwd.cu",
                               "qa_ctx_attention_fwd",
                               [_P] * 13 + [_I] * 6
-                              + [_F, _P, _U32, _F, _I, _P])
+                              + [_F, _P, _U32, _F, _I, _I, _P])
                 for d in widths.FORWARD_WIDTHS}
 KERNEL = FWD_BY_WIDTH[128]
+# ... the scale, the dropout, the weight-gradient chunks, the true width,
+# the compute mode, the stream
+_BWD_TAIL = [_F, _P, _U32, _F, _I, _I, _I, _P]
 BWD_KERNEL = CudaKernel("qa_ctx_attention_bwd.cu", "qa_ctx_attention_bwd",
-                        [_P] * 28 + [_I] * 5 + [_F, _P, _U32, _F, _I, _I,
-                                                _P])
+                        [_P] * 28 + [_I] * 5 + _BWD_TAIL)
 # The backward at each width: D = 128 the tensor-core design above, 64 and
 # 256 csrc/qa_ctx_attention_bwd_wide.cu's entry, which takes D (one count
 # each)
 BWD_BY_WIDTH = {d: BWD_KERNEL if d == 128 else CudaKernel(
     "qa_ctx_attention_bwd_wide.cu", "qa_ctx_attention_bwd_wide",
-    [_P] * 28 + [_I] * 6 + [_F, _P, _U32, _F, _I, _I, _P])
+    [_P] * 28 + [_I] * 6 + _BWD_TAIL)
     for d in widths.BACKWARD_WIDTHS}
 
 # Kernel vs plain version on the same inputs.  float32: only the order of
@@ -90,7 +94,7 @@ MAX_REGIONS = 64
 
 
 def _plain_bf16(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b, scale,
-                dropout_rate, seed):
+                dropout_rate, seed, dv):
     """The function with the rounding sites of the bf16 compute mode: every
     product takes bf16 operands (``Bf16Dot``); softmax, masks, LayerNorm,
     dropout and the raw scores stay float32.  Returns float32 mixed before
@@ -108,11 +112,12 @@ def _plain_bf16(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b, scale,
     att = Bf16Dot.apply(p * s_mask, qe.float())          # (B, Li, M, D)
     ce_b = ce.float().reshape(bsz, 1, m, d).expand_as(att)
     x = torch.cat([ce_b, att, ce_b * att], dim=-1)
-    y = layer_norm(x, gamma, beta, clip=False)
+    y = layer_norm(x, gamma, beta, clip=False, n=3 * dv)
     # the dropout's flat index runs over rows in mixed's (B, A, Li, Lqa) order
     y = y.reshape(bsz, li, num_a, lqa, 3 * d).permute(0, 2, 1, 3, 4)
     if dropout_rate > 0.0:
-        y = y * philox.multiplier(y.shape, seed, dropout_rate, y.device)
+        y = y * philox.width_multiplier(y.shape, seed, dropout_rate, dv, 3,
+                                        y.device)
     out = Bf16Dot.apply(y.reshape(-1, 3 * d), w.float())
     mixed = torch.relu(out.reshape(bsz, num_a, li, lqa, d) + b.float())
     masked = masked.reshape(bsz, li, num_a, lqa, lr).permute(0, 2, 1, 3, 4)
@@ -121,7 +126,7 @@ def _plain_bf16(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b, scale,
 
 def qa_ctx_attention_plain(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b,
                            scale=10.0, raw_mode="full", targets=None,
-                           dropout_rate=0.0, seed=0):
+                           dropout_rate=0.0, seed=0, dv=None):
     """Plain PyTorch version of the kernels.  cn/ce (B, A, Lqa, D); qn/qe
     (B, Li, Lr, D); c_mask (B, A, Lqa); q_mask (B, Li, Lr); gamma/beta
     (3D,); w (3D, D); b (D,); targets (B,) int for ``raw_mode="target"``.
@@ -129,10 +134,13 @@ def qa_ctx_attention_plain(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b,
     float32: (B, A, Li, Lqa, Lr) for "full", (B, Li, Lqa, Lr) at each
     target answer for "target", none for "none".  bfloat16 activations take
     the rounding sites of the bf16 kernels (``_plain_bf16``), float32 ones
-    none."""
+    none.  ``dv``: the true width of inputs padded past it
+    (``pad_inputs``), as the kernels take it."""
+    dv = cn.shape[-1] if dv is None else dv
     if cn.dtype == torch.bfloat16:
         mixed, masked = _plain_bf16(cn, ce, qn, qe, c_mask, q_mask, gamma,
-                                    beta, w, b, scale, dropout_rate, seed)
+                                    beta, w, b, scale, dropout_rate, seed,
+                                    dv)
         return _with_raw(mixed.to(cn.dtype), masked, raw_mode, targets)
     s = torch.einsum("bawd,bird->baiwr", cn.float(), qn.float())
     s_mask = (c_mask.float()[:, :, None, :, None]
@@ -142,11 +150,24 @@ def qa_ctx_attention_plain(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b,
     att = torch.einsum("baiwr,bird->baiwd", p * s_mask, qe.float())
     ce_b = ce.float()[:, :, None].expand_as(att)
     x = torch.cat([ce_b, att, ce_b * att], dim=-1)
-    y = layer_norm(x, gamma, beta, clip=False)
+    y = layer_norm(x, gamma, beta, clip=False, n=3 * dv)
     if dropout_rate > 0.0:
-        y = y * philox.multiplier(y.shape, seed, dropout_rate, y.device)
+        y = y * philox.width_multiplier(y.shape, seed, dropout_rate, dv, 3,
+                                        y.device)
     mixed = torch.relu(y @ w.float() + b.float()).to(cn.dtype)
     return _with_raw(mixed, masked, raw_mode, targets)
+
+
+def pad_inputs(cn, ce, qn, qe, gamma, beta, w, b, dp):
+    """The activations and projection parameters zero-padded from their
+    width D to the instantiation ``dp`` (gamma, beta and W's rows third by
+    third); the same objects at dp = D."""
+    if dp == cn.shape[-1]:
+        return cn, ce, qn, qe, gamma, beta, w, b
+    pad = widths.pad_cols
+    return (*(pad(t, dp).contiguous() for t in (cn, ce, qn, qe)),
+            pad(gamma, dp, 3), pad(beta, dp, 3), widths.pad_weight(w, dp, 3),
+            pad(b, dp))
 
 
 def _with_raw(mixed, masked, raw_mode, targets):
@@ -211,7 +232,7 @@ class _QaCtxAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b,
-                targets, scale, raw_mode, dropout_rate, seed):
+                targets, scale, raw_mode, dropout_rate, seed, dv):
         cm, qm, g32, b32, w32, bias32, tg = _check(
             cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b, raw_mode,
             targets)
@@ -235,32 +256,33 @@ class _QaCtxAttention(torch.autograd.Function):
             ptr(tg) if tg is not None else None, ptr(mixed),
             ptr(raw) if raw is not None else None,
             bsz, num_a, lqa, li, lr, d, float(scale),
-            *philox.kernel_args(dropout_rate, seed),
-            int(cn.dtype == torch.bfloat16))
+            *philox.kernel_args(dropout_rate, seed), dv,
+            int(cn.dtype == torch.bfloat16), dv=dv)
         ctx.save_for_backward(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w,
                               b, targets, mixed)
-        ctx.cfg = (scale, raw_mode, dropout_rate, seed)
+        ctx.cfg = (scale, raw_mode, dropout_rate, seed, dv)
         return (mixed, raw) if raw is not None else mixed
 
     @staticmethod
     def backward(ctx, g_mixed, g_raw=None):
         (cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b, targets,
          mixed) = ctx.saved_tensors
-        scale, raw_mode, dropout_rate, seed = ctx.cfg
+        scale, raw_mode, dropout_rate, seed, dv = ctx.cfg
         grads = qa_ctx_attention_backward(
             cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b, g_mixed,
-            g_raw, mixed, scale, raw_mode, targets, dropout_rate, seed)
-        return grads[:4] + (None, None) + grads[4:] + (None,) * 5
+            g_raw, mixed, scale, raw_mode, targets, dropout_rate, seed, dv)
+        return grads[:4] + (None, None) + grads[4:] + (None,) * 6
 
 
 def qa_ctx_attention_backward(cn, ce, qn, qe, c_mask, q_mask, gamma, beta,
                               w, b, g_mixed, g_raw, mixed, scale=10.0,
                               raw_mode="full", targets=None,
-                              dropout_rate=0.0, seed=0):
+                              dropout_rate=0.0, seed=0, dv=None):
     """Launch the backward kernel (CUDA tensors only).  Returns the
     gradients of (cn, ce, qn, qe) in their dtype and of (gamma, beta, w, b)
     in float32.  ``mixed`` is the saved forward output (the ReLU sign);
-    ``g_raw`` may be None (no raw cotangent)."""
+    ``g_raw`` may be None (no raw cotangent); ``dv`` the true width of
+    padded inputs (None: theirs)."""
     cm, qm, g32, b32, w32, bias32, tg = _check(
         cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b, raw_mode, targets,
         backward=True)
@@ -268,6 +290,7 @@ def qa_ctx_attention_backward(cn, ce, qn, qe, c_mask, q_mask, gamma, beta,
     bsz, num_a, lqa, d = cn.shape
     _, li, lr, _ = qn.shape
     dev, dt = cn.device, cn.dtype
+    dv = d if dv is None else dv
     g_mixed = g_mixed.to(dt).contiguous()
     if g_mixed.shape != mixed.shape:
         raise ValueError("g_mixed does not match mixed")
@@ -279,7 +302,7 @@ def qa_ctx_attention_backward(cn, ce, qn, qe, c_mask, q_mask, gamma, beta,
     if d != 128:
         return _backward_wide(cn, ce, qn, qe, cm, qm, g32, b32, w32,
                               g_mixed, graw, tg, mixed, scale, dropout_rate,
-                              seed)
+                              seed, dv)
     tc = dt == torch.bfloat16          # the tensor-core kernels
     if tc and (g_mixed.data_ptr() % 16 or mixed.data_ptr() % 16):
         raise ValueError("g_mixed/mixed must start on a 16-byte boundary")
@@ -329,12 +352,12 @@ def qa_ctx_attention_backward(cn, ce, qn, qe, c_mask, q_mask, gamma, beta,
         ptr(gcn), ptr(gce), ptr(gqn), ptr(gqe), ptr(gvec), ptr(gw),
         *(ptr(t) if t is not None else None for t in scratch), bsz, num_a,
         lqa, li, lr, float(scale),
-        *philox.kernel_args(dropout_rate, seed), chunks, int(tc))
+        *philox.kernel_args(dropout_rate, seed), chunks, dv, int(tc), dv=dv)
     return gcn, gce, gqn, gqe, gvec[:3 * d], gvec[3 * d:6 * d], gw, gb
 
 
 def _backward_wide(cn, ce, qn, qe, cm, qm, g32, b32, w32, g_mixed, graw, tg,
-                   mixed, scale, dropout_rate, seed):
+                   mixed, scale, dropout_rate, seed, dv):
     """The backward at D = 64 or 256 (``csrc/qa_ctx_attention_bwd_wide.cu``):
     the same outputs as at D = 128.  bf16 at D = 256: the tensor-core
     kernel, which takes W in bf16 and hands its g_s, p and g_att rows on in
@@ -377,7 +400,8 @@ def _backward_wide(cn, ce, qn, qe, cm, qm, g32, b32, w32, g_mixed, graw, tg,
         ptr(tg) if (tg is not None and graw is not None) else None,
         ptr(gcn), ptr(gce), ptr(gqn), ptr(gqe), ptr(gvec), ptr(gw),
         *(ptr(t) for t in scratch), bsz, num_a, lqa, li, lr, d, float(scale),
-        *philox.kernel_args(dropout_rate, seed), chunks, int(bf16))
+        *philox.kernel_args(dropout_rate, seed), chunks, dv, int(bf16),
+        dv=dv)
     gb = gw[3 * d] if bf16 else gvec[6 * d:]
     return (gcn, gce, gqn, gqe, gvec[:3 * d], gvec[3 * d:6 * d], gw[:3 * d],
             gb)
@@ -389,7 +413,8 @@ def qa_ctx_attention(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b,
     """Kernels on CUDA tensors (differentiable through the backward
     kernel), plain version on CPU tensors (autograd through it).  Same
     signature and outputs as ``qa_ctx_attention_plain``; ``seed`` keys the
-    dropout (ops/philox.py)."""
+    dropout (ops/philox.py); a width between the instantiations runs
+    padded (module docstring)."""
     if raw_mode not in RAW_MODES:
         raise NotImplementedError(f"raw_mode {raw_mode!r}")
     if raw_mode == "target" and targets is None:
@@ -398,8 +423,16 @@ def qa_ctx_attention(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b,
         return qa_ctx_attention_plain(cn, ce, qn, qe, c_mask, q_mask, gamma,
                                       beta, w, b, scale, raw_mode, targets,
                                       dropout_rate, seed)
-    return _QaCtxAttention.apply(cn, ce, qn, qe, c_mask, q_mask, gamma, beta,
-                                 w, b, targets, scale, raw_mode,
-                                 dropout_rate,
-                                 philox.kernel_seed(dropout_rate, seed,
-                                                    cn.device))
+    d = cn.shape[-1]
+    dp = widths.padded_width(d)
+    cn, ce, qn, qe, gamma, beta, w, b = pad_inputs(cn, ce, qn, qe, gamma,
+                                                   beta, w, b, dp)
+    out = _QaCtxAttention.apply(cn, ce, qn, qe, c_mask, q_mask, gamma, beta,
+                                w, b, targets, scale, raw_mode, dropout_rate,
+                                philox.kernel_seed(dropout_rate, seed,
+                                                   cn.device), d)
+    if dp == d:
+        return out
+    if raw_mode == "none":
+        return out[..., :d]
+    return out[0][..., :d], out[1]

@@ -7,7 +7,10 @@ LN, row by row over the attended statements (reference stage.py:107-113,
 ``csrc/tri_bridge_bwd.cu`` behind one ``torch.autograd.Function``;
 ``tri_bridge_plain`` is the same function in plain PyTorch (autograd through
 it is the plain backward).  The dropout acts on the (rows, 3D) LN output,
-keyed by (seed, flat index) through Philox (ops/philox.py).
+keyed by (seed, flat index) through Philox (ops/philox.py).  On CUDA a
+width between the instantiations runs padded (ops/widths.py ``pad_cols``,
+``pad_weight``: W's three input blocks apart), the kernels told the true
+width.
 
 Two compute modes, chosen by the activations' type.  float32: exact, the
 CUDA-core kernels.  bfloat16 (what the entry points run on the card): the
@@ -38,17 +41,19 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U32, _L = ctypes.c_uint, ctypes.c_longlong
 # The forward entry takes the width D; each width has its own launch count
 # (KERNEL counts D = 128, the headline hsz).
+# the dropout, the true width, the compute mode and the stream
+_TAIL = [_P, _U32, _F, _I, _I, _P]
 FWD_BY_WIDTH = {d: CudaKernel("tri_bridge_fwd.cu", "tri_bridge_fwd",
-                              [_P] * 9 + [_L, _I, _P, _U32, _F, _I, _P])
+                              [_P] * 9 + [_L, _I] + _TAIL)
                 for d in widths.FORWARD_WIDTHS}
 KERNEL = FWD_BY_WIDTH[128]
 BWD_KERNEL = CudaKernel("tri_bridge_bwd.cu", "tri_bridge_bwd",
-                        [_P] * 17 + [_L, _I, _P, _U32, _F, _I, _P])
+                        [_P] * 17 + [_L, _I] + _TAIL)
 # The backward at each width: D = 128 the tensor-core design above, 64 and
 # 256 csrc/tri_bridge_bwd_wide.cu's entry, which takes D (one count each)
 BWD_BY_WIDTH = {d: BWD_KERNEL if d == 128 else CudaKernel(
     "tri_bridge_bwd_wide.cu", "tri_bridge_bwd_wide",
-    [_P] * 17 + [_L, _I, _I, _P, _U32, _F, _I, _P])
+    [_P] * 17 + [_L, _I, _I] + _TAIL)
     for d in widths.BACKWARD_WIDTHS}
 
 # Kernel vs plain version on the same inputs: float32 differs only in the
@@ -65,28 +70,45 @@ GRAD_TOL = {torch.float32: (1e-4, 1e-3), torch.bfloat16: (2e-2, 2e-2)}
 _NAMES = ("gamma_in", "beta_in", "w", "b", "gamma_out", "beta_out")
 
 
-def tri_bridge_pre(s, v, gamma_in, beta_in, w, b, dropout_rate=0.0, seed=0):
+def tri_bridge_pre(s, v, gamma_in, beta_in, w, b, dropout_rate=0.0, seed=0,
+                   dv=None):
     """The bridge up to its ReLU input y1 = dropout(LN_in([s; v; s*v])) W + b
     (float32; ops/checks.py reads it).  bfloat16 s and v take the rounding
     sites of the bf16 kernels, which are the TPU kernel's bf16 compute mode:
     the product rounds the LN output and W to bf16 and sums in float32, and
     its backward rounds the cotangent too (``Bf16Dot``,
-    pallas_tri_bridge.py:77-79, :157-162)."""
+    pallas_tri_bridge.py:77-79, :157-162).  ``dv``: the true width of
+    inputs padded past it (``pad_inputs``), as the kernels take it."""
     s32, v32 = s.float(), v.float()
+    dv = s.shape[-1] if dv is None else dv
     y = layer_norm(torch.cat([s32, v32, s32 * v32], dim=-1), gamma_in,
-                   beta_in)
+                   beta_in, n=3 * dv)
     if dropout_rate > 0.0:
-        y = y * philox.multiplier(y.shape, seed, dropout_rate, y.device)
+        y = y * philox.width_multiplier(y.shape, seed, dropout_rate, dv, 3,
+                                        y.device)
     return dot(y, w.float(), s.dtype == torch.bfloat16) + b.float()
 
 
 def tri_bridge_plain(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
-                     dropout_rate=0.0, seed=0):
+                     dropout_rate=0.0, seed=0, dv=None):
     """Plain PyTorch version.  s, v (..., D); w (3D, D).  Returns (..., D)
-    in s's dtype."""
+    in s's dtype.  ``dv`` as ``tri_bridge_pre``."""
     h = torch.relu(tri_bridge_pre(s, v, gamma_in, beta_in, w, b,
-                                  dropout_rate, seed))
-    return layer_norm(h, gamma_out, beta_out).to(s.dtype)
+                                  dropout_rate, seed, dv))
+    return layer_norm(h, gamma_out, beta_out, n=dv).to(s.dtype)
+
+
+def pad_inputs(s, v, params, dp):
+    """s, v and the six parameters (``_NAMES`` order) zero-padded from
+    their width D to the instantiation ``dp``: the 3D-long vectors and W's
+    rows third by third; the same objects at dp = D."""
+    if dp == s.shape[-1]:
+        return s, v, params
+    gin, bin_, w, b, gout, bout = params
+    pad = widths.pad_cols
+    return (pad(s, dp).contiguous(), pad(v, dp).contiguous(),
+            (pad(gin, dp, 3), pad(bin_, dp, 3), widths.pad_weight(w, dp, 3),
+             pad(b, dp), pad(gout, dp), pad(bout, dp)))
 
 
 def _check(s, v, params, backward=False):
@@ -121,36 +143,37 @@ class _TriBridge(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
-                dropout_rate, seed):
+                dropout_rate, seed, dv):
         params = _check(s, v, (gamma_in, beta_in, w, b, gamma_out, beta_out))
         out = torch.empty_like(s)
         d = s.shape[-1]
         FWD_BY_WIDTH[d].launch(s.device, ptr(s), ptr(v),
                                *(ptr(p) for p in params), ptr(out),
                                s.numel() // d, d,
-                               *philox.kernel_args(dropout_rate, seed),
-                               int(s.dtype == torch.bfloat16))
+                               *philox.kernel_args(dropout_rate, seed), dv,
+                               int(s.dtype == torch.bfloat16), dv=dv)
         ctx.save_for_backward(s, v, gamma_in, beta_in, w, b, gamma_out,
                               beta_out)
-        ctx.cfg = (dropout_rate, seed)
+        ctx.cfg = (dropout_rate, seed, dv)
         return out
 
     @staticmethod
     def backward(ctx, g):
         s, v, *params = ctx.saved_tensors
         grads = tri_bridge_backward(s, v, *params, g, *ctx.cfg)
-        return grads + (None, None)
+        return grads + (None, None, None)
 
 
 def tri_bridge_backward(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
-                        g, dropout_rate=0.0, seed=0):
+                        g, dropout_rate=0.0, seed=0, dv=None):
     """Launch the backward kernel (CUDA tensors only).  Returns the
     gradients of (s, v) in their dtype and of the six parameters in
-    float32."""
+    float32.  ``dv``: the true width of padded inputs (None: theirs)."""
     gin, bin_, w32, b32, gout, _ = _check(
         s, v, (gamma_in, beta_in, w, b, gamma_out, beta_out), backward=True)
     seed = philox.kernel_seed(dropout_rate, seed, s.device)
     d = s.shape[-1]
+    dv = d if dv is None else dv
     rows = s.numel() // d
     g = g.to(s.dtype).contiguous()
     if g.shape != s.shape:
@@ -159,7 +182,7 @@ def tri_bridge_backward(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
     gs, gv = torch.empty_like(s), torch.empty_like(v)
     if d != 128:
         return _backward_wide(s, v, gin, bin_, w32, b32, gout, g, gs, gv,
-                              dropout_rate, seed)
+                              dropout_rate, seed, dv)
     if s.dtype == torch.bfloat16:      # the tensor-core kernel
         check_aligned(g=g)
         bf16 = dict(dtype=torch.bfloat16, device=s.device)
@@ -187,8 +210,8 @@ def tri_bridge_backward(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
                       ptr(wk), None if wt is None else ptr(wt), ptr(b32),
                       ptr(gout), ptr(g), ptr(gs), ptr(gv), ptr(gvec),
                       ptr(gw), *(ptr(t) for t in scratch), rows, chunks,
-                      *philox.kernel_args(dropout_rate, seed),
-                      int(s.dtype == torch.bfloat16))
+                      *philox.kernel_args(dropout_rate, seed), dv,
+                      int(s.dtype == torch.bfloat16), dv=dv)
     if s.dtype == torch.bfloat16:
         return (gs, gv, gvec[:3 * d], gvec[3 * d:6 * d], gwb[:3 * d],
                 gwb[3 * d], gvec[6 * d:7 * d], gvec[7 * d:])
@@ -197,7 +220,7 @@ def tri_bridge_backward(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
 
 
 def _backward_wide(s, v, gin, bin_, w32, b32, gout, g, gs, gv,
-                   dropout_rate, seed):
+                   dropout_rate, seed, dv):
     """The backward at D = 64 or 256 (``csrc/tri_bridge_bwd_wide.cu``): the
     same outputs as at D = 128.  bf16: the tensor-core kernel, which rounds
     W to bf16 as it loads it; float32: the CUDA-core kernel, which also
@@ -227,8 +250,8 @@ def _backward_wide(s, v, gin, bin_, w32, b32, gout, g, gs, gv,
                            ptr(b32), ptr(gout), ptr(g), ptr(gs), ptr(gv),
                            ptr(gvec), ptr(gw), *(ptr(t) for t in scratch),
                            rows, chunks, d,
-                           *philox.kernel_args(dropout_rate, seed),
-                           int(bf16))
+                           *philox.kernel_args(dropout_rate, seed), dv,
+                           int(bf16), dv=dv)
     if bf16:
         return (gs, gv, gvec[:3 * d], gvec[3 * d:6 * d], gw[:3 * d],
                 gw[3 * d], gvec[6 * d:7 * d], gvec[7 * d:])
@@ -239,10 +262,16 @@ def _backward_wide(s, v, gin, bin_, w32, b32, gout, g, gs, gv,
 def tri_bridge(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
                dropout_rate=0.0, seed=0):
     """Kernels on CUDA tensors (differentiable through the backward
-    kernel), plain version on CPU tensors."""
+    kernel; a width between the instantiations padded, module docstring),
+    plain version on CPU tensors."""
     if not s.is_cuda:
         return tri_bridge_plain(s, v, gamma_in, beta_in, w, b, gamma_out,
                                 beta_out, dropout_rate, seed)
-    return _TriBridge.apply(s, v, gamma_in, beta_in, w, b, gamma_out,
-                            beta_out, dropout_rate,
-                            philox.kernel_seed(dropout_rate, seed, s.device))
+    d = s.shape[-1]
+    dp = widths.padded_width(d)
+    s, v, params = pad_inputs(s, v, (gamma_in, beta_in, w, b, gamma_out,
+                                     beta_out), dp)
+    out = _TriBridge.apply(s, v, *params, dropout_rate,
+                           philox.kernel_seed(dropout_rate, seed, s.device),
+                           d)
+    return out if dp == d else out[..., :d]

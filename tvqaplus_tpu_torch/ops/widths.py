@@ -19,14 +19,24 @@ the attention at 256 (its warpgroup columns in two quarters); the
 attention's bf16 kernel at 64 runs its row passes and products on CUDA
 cores, rounding where the tensor-core kernels round.  Every bf16 weight
 gradient is the tensor-core pass of ``csrc/wgrad_tc.cuh``, whose width is
-an argument (the same kernel at 64, 128 and 256).  So the card trains at
-hsz 64, 128 and 256; other widths are refused by name (ROADMAP A10d).
+an argument (the same kernel at 64, 128 and 256).
+
+Every other width dv <= 256 that 4 divides runs in the next instantiation
+Dp (``padded_width``): the wrappers zero-pad the activations and the
+parameters to Dp (``pad_cols``; a [x; y; x*y] weight third by third),
+launch with the true width dv, which the kernels use for every
+LayerNorm's statistics and the Philox keys (csrc/philox.cuh), and slice
+the outputs back (the gradients through the pads' autograd).  So the card
+serves and trains at any such hsz; others are refused by name
+(``check_width``, ROADMAP A10d).
 
 The byte counts below repeat the layouts of the sources (their ``SMEM``
 constants and ``Layout`` / ``smem_floats`` functions); the tests hold every
 one at or below an H100 block's opt-in limit.
 """
 from __future__ import annotations
+
+import torch.nn.functional as F
 
 FORWARD_WIDTHS = (64, 128, 256)
 BACKWARD_WIDTHS = (64, 128, 256)
@@ -40,12 +50,54 @@ _KC, _NWARPS = 32, 8                   # the float32 GEMM's staged rows
 _MAX_LR, _MAX_LEN, _MAX_K = 64, 56, 9  # the kernels' largest shapes
 
 
+MAX_WIDTH = 256
+WIDTH_MULTIPLE = 4     # four adjacent columns share a Philox call
+# every true width a launch may name
+TRUE_WIDTHS = tuple(range(WIDTH_MULTIPLE, MAX_WIDTH + 1, WIDTH_MULTIPLE))
+
+
+def check_width(name, d):
+    """Raise unless the kernels take the true width ``d`` (in the
+    instantiation ``padded_width(d)``)."""
+    if not (WIDTH_MULTIPLE <= d <= MAX_WIDTH and d % WIDTH_MULTIPLE == 0):
+        raise ValueError(
+            f"{name}: the CUDA kernels take hidden widths that "
+            f"{WIDTH_MULTIPLE} divides up to {MAX_WIDTH}, each in the next "
+            f"of the instantiations 64, 128 and 256, not D = {d}; other "
+            f"widths are ROADMAP A10d")
+
+
+def padded_width(d):
+    """The instantiation the true width ``d`` runs in: the least of
+    ``FORWARD_WIDTHS`` at or above it."""
+    check_width("padded_width", d)
+    return min(w for w in FORWARD_WIDTHS if w >= d)
+
+
+def pad_cols(t, dp, parts=1):
+    """``t`` with its last dim, ``parts`` blocks of the true width, each
+    zero-padded to ``dp`` (differentiable: the gradient is sliced back)."""
+    if parts == 1:
+        return F.pad(t, (0, dp - t.shape[-1]))
+    dv = t.shape[-1] // parts
+    return F.pad(t.unflatten(-1, (parts, dv)), (0, dp - dv)).flatten(-2)
+
+
+def pad_weight(w, dp, parts=1):
+    """A (parts dv, dv) weight (in, out) zero-padded to (parts dp, dp):
+    each block of input rows padded apart, [W_a; 0; W_b; 0; ...]."""
+    return pad_cols(pad_cols(w, dp).transpose(0, 1), dp,
+                    parts).transpose(0, 1)
+
+
 def check_forward_width(name, d):
     """Raise unless a forward kernel is built for width ``d``."""
     if d not in FORWARD_WIDTHS:
         raise ValueError(
             f"{name}: the CUDA forward kernels are built for hidden widths "
-            f"64, 128 and 256, not D = {d}; other widths are ROADMAP A10d")
+            f"64, 128 and 256, not D = {d} (a width up to 256 that 4 "
+            f"divides runs padded to the next: padded_width); other widths "
+            f"are ROADMAP A10d")
 
 
 def check_backward_width(name, d):
@@ -54,16 +106,17 @@ def check_backward_width(name, d):
         raise ValueError(
             f"{name}: the backward kernels (attention, tri bridge, encoder) "
             f"and their weight-gradient passes are built for hidden widths "
-            f"64, 128 and 256, not D = {d}: training at this width on the "
-            f"card is ROADMAP A10d")
+            f"64, 128 and 256, not D = {d} (a width up to 256 that 4 "
+            f"divides runs padded to the next: padded_width); training at "
+            f"other widths on the card is ROADMAP A10d")
 
 
 def check_trainable(hsz, device):
     """Raise when a model of width ``hsz`` cannot train on ``device``: on
-    ``cuda`` every train step runs the backward kernels, which are built
-    for ``BACKWARD_WIDTHS`` only.  The CPU trains at any width."""
+    ``cuda`` every train step runs the backward kernels, which take the
+    widths ``check_width`` takes.  The CPU trains at any width."""
     if getattr(device, "type", device) == "cuda":
-        check_backward_width(f"training at hsz {hsz} on cuda", hsz)
+        check_width(f"training at hsz {hsz} on cuda", hsz)
 
 
 def instantiation(d):

@@ -30,7 +30,13 @@ does by hand:
   ``TP_MIN_PARAMS`` elements whose last axis, in the JAX layout, the model
   size divides (``sharded_parameters``).  Each model rank holds its
   columns of such a dense layer (``place_model``); the layer all-gathers
-  its output over the model group (models/layers.py ``dense``).
+  its output over the model group (models/layers.py ``dense``).  The
+  weights the kernels take whole (the attention's and the tri bridge's
+  3D x D projections, the encoders' pointwise convs: at hsz >= 256) keep
+  their column blocks as well, and each forward all-gathers each whole
+  weight once (``gather_weight``; models/stage.py): the work on it is
+  replicated on every model rank, which holds its whole gradient, so the
+  gather's backward takes this rank's block of it and sums nothing.
 
 Gradients (``all_reduce_grads``): the gather's backward is the local slice
 of the incoming gradient, which is the whole gradient on every ctx rank
@@ -409,10 +415,12 @@ def gather_ctx(mesh, x, dim):
 class Shard:
     """A dense layer's place on the model axis: ``size`` ranks of
     ``group`` each hold ``Dout / size`` output columns, this one block
-    ``index``."""
+    ``index``.  ``whole``: the layer's weight is used whole (a kernel's
+    weight; ``gather_weight``), not by columns (``dense``)."""
     group: Any
     size: int
     index: int
+    whole: bool = False
 
 
 def sharded_parameters(model, size):
@@ -434,30 +442,42 @@ def sharded_parameters(model, size):
     return out
 
 
-def _dense_layer(model, name):
-    """The ``nn.Linear`` holding the weight ``name`` when it runs through
-    models/layers.py ``dense`` (which splits its columns), else raise: the
-    port shards no other leaf, and never replicates one that JAX shards."""
+def _split_layer(model, name):
+    """(the module holding the weight ``name``, whether it is used whole):
+    an ``nn.Linear`` that runs through models/layers.py ``dense`` (which
+    splits its columns), or a weight the kernels take whole (the
+    attention's and the tri bridge's projections, the encoders' pointwise
+    convs, ``gather_weight``); else raise: the port shards no other leaf,
+    and never replicates one that JAX shards."""
     from tvqaplus_tpu_torch.models import layers
     path = name.rsplit(".", 1)[0]
     module = model.get_submodule(path)
     parent = model.get_submodule(path.rsplit(".", 1)[0]) if "." in path \
         else model
+    if type(parent) is torch.nn.Sequential:   # LinearWrapper's ``conv``
+        parent = model.get_submodule(path.rsplit(".", 2)[0])
     if type(parent) is layers.MLPBridge and parent.use_kernel:
         raise NotImplementedError(
             f"{name}: the MLP-bridge kernel (ops/mlp_bridge.py, B5) takes "
             f"whole weights; B5 at model > 1 is not ported (ROADMAP.md, B5 "
             f"at model > 1)")
-    if not (isinstance(module, torch.nn.Linear) and name.endswith(".weight")
-            and type(parent) in (layers.MLPBridge, layers.InputEmbedding,
-                                 layers.LinearWrapper,
-                                 layers.MultiHeadedAttention)):
-        raise NotImplementedError(
-            f"{name}: JAX's rule shards this leaf over the model axis, but "
-            f"the port splits only dense layers that run in plain PyTorch "
-            f"(MLP bridges, input embedding, linear wrappers, attention "
-            f"heads); see ROADMAP.md A9")
-    return module
+    if name.endswith(".weight"):
+        if isinstance(module, torch.nn.Linear) and type(parent) in (
+                layers.MLPBridge, layers.InputEmbedding,
+                layers.LinearWrapper, layers.MultiHeadedAttention):
+            return module, False
+        if isinstance(module, torch.nn.Linear) and type(parent) in (
+                layers.DownProjection, layers.TriMLPBridge):
+            return module, True
+        if isinstance(module, torch.nn.Conv1d) and path.endswith(
+                "pointwise_conv") and isinstance(
+                parent, layers.DepthwiseSeparableConv):
+            return module, True
+    raise NotImplementedError(
+        f"{name}: JAX's rule shards this leaf over the model axis, but the "
+        f"port splits only dense layers that run in plain PyTorch (MLP "
+        f"bridges, input embedding, linear wrappers, attention heads) and "
+        f"the kernels' weights; see ROADMAP.md A9")
 
 
 def place_model(mesh, model, optimizer=None):
@@ -472,14 +492,14 @@ def place_model(mesh, model, optimizer=None):
         return model
     if getattr(model, "mesh", None) is not None:
         raise ValueError("the model is already placed on another mesh")
-    shards = {}
+    shards, whole_layers = {}, []
     if mesh is not None and mesh.model_size > 1:
         if mesh.model_group is None:
             raise RuntimeError(f"a mesh of model = {mesh.model} needs a "
                                f"process group")
         named = dict(model.named_parameters())
         for name, dim in sharded_parameters(model, mesh.model_size).items():
-            layer = _dense_layer(model, name)
+            layer, whole = _split_layer(model, name)
             p = named[name]
             n = p.shape[dim] // mesh.model_size
             with torch.no_grad():
@@ -490,11 +510,37 @@ def place_model(mesh, model, optimizer=None):
                     if k in state:
                         state[k] = state[k].narrow(dim, mesh.m * n,
                                                    n).clone()
-            layer.shard = Shard(mesh.model_group, mesh.model_size, mesh.m)
+            layer.shard = Shard(mesh.model_group, mesh.model_size, mesh.m,
+                                whole)
             shards[name] = p
+            if whole:
+                whole_layers.append(layer)
     model.mesh = mesh
     model.shards = shards
+    model.whole_layers = whole_layers
     return model
+
+
+def gather_weight(layer):
+    """The whole weight of ``layer``: this rank's block of output columns
+    all-gathered over the model group when the model axis splits it (dim
+    0, out, of a Linear or Conv1d weight), the weight itself otherwise.
+    The backward is this rank's block of the whole gradient: the work on
+    the whole weight is the same on every model rank, so each already
+    holds the whole gradient, and a sum over the group would multiply it
+    by the group's size."""
+    shard = getattr(layer, "shard", None)
+    if shard is None:
+        return layer.weight
+    return _Gather.apply(layer.weight, shard.group, shard.size, shard.index,
+                         0)
+
+
+def whole_weight(layer):
+    """``layer``'s whole weight: the one its model's forward gathered
+    (``layer.whole``, models/stage.py), else ``gather_weight``."""
+    whole = getattr(layer, "whole", None)
+    return whole if whole is not None else gather_weight(layer)
 
 
 def copy_to_model(shard, x):
@@ -521,8 +567,10 @@ def check_whole(model):
     a file written from a model split over the model axis would hold one
     rank's columns (write it inside ``full_state``)."""
     for name, mod in model.named_modules():
-        if isinstance(mod, torch.nn.Linear) and tuple(mod.weight.shape) \
-                != (mod.out_features, mod.in_features):
+        if (isinstance(mod, torch.nn.Linear) and tuple(mod.weight.shape)
+                != (mod.out_features, mod.in_features)) or (
+                isinstance(mod, torch.nn.Conv1d)
+                and mod.weight.shape[0] != mod.out_channels):
             raise ValueError(f"{name}.weight is one rank's block "
                              f"{tuple(mod.weight.shape)} of the model axis; "
                              f"write the state inside full_state")
