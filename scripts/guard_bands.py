@@ -8,10 +8,16 @@ differ), and the inputs must be unchanged.  Needs one NVIDIA GPU.
 
     python3 scripts/guard_bands.py [--widths 64,128,256]
                                    [--dtypes float32,bfloat16] [--only NAME]
+                                   [--edges]
 
 It runs ``chip_smoke.py``'s ``train_kernel_cases`` at each width (the
 headline shapes, dropout 0.1), prints one JSON line a case and dtype, and
-exits 1 if any band, output or input is wrong.  A kernel's addressing
+exits 1 if any band, output or input is wrong.  ``--edges`` runs instead
+the bf16 backwards at D = 256 at the edges of their layouts (``EDGES``:
+the encoder at L 56 / k 9, L 5 / k 1 and 40 / k 5 over more tiles than
+SMs, reduce and full output; the attention at M 1, 65 and 200 with Lr 1,
+33 and 64), where a tile is ragged, a ring runs on into the next tile or
+p0 fills the cn tile.  A kernel's addressing
 depends only on its shapes and pointers, so a call captured in a CUDA graph
 writes where the eager call writes.
 """
@@ -93,6 +99,73 @@ def run(cs, case, dt, gen_seed):
             [o.detach() for o in outs] + [t.grad for t in leaves])
 
 
+# (family, shape): encoder (B, G, L, k, mode), attention (A, Lqa, Lr, raw)
+EDGES = [("encoder", (1, 7, 56, 9, "reduce")), ("encoder", (1, 7, 5, 1,
+                                                           "block")),
+         ("encoder", (2, 100, 40, 5, "reduce")),
+         ("encoder", (1, 7, 50, 7, "block")),
+         ("attention", (1, 1, 1, "none")), ("attention", (5, 13, 33,
+                                                          "target")),
+         ("attention", (5, 40, 64, "target"))]
+
+
+def edge_call(dev, family, shape):
+    """Forward + backward of one EDGES case at D = 256 in bf16, dropout
+    0.1, on inputs made from a seed: as ``run``."""
+    from tvqaplus_tpu_torch.models.attention import l2_normalize
+    from tvqaplus_tpu_torch.ops import encoder, qa_ctx_attention
+    gen = torch.Generator().manual_seed(25)
+    d, bf = 256, torch.bfloat16
+
+    def rnd(*s, scale=1.0):
+        return torch.randn(*s, generator=gen) * scale
+    if family == "encoder":
+        b, g, l, k, mode = shape
+        x = rnd(b, g, l, d).to(dev, bf).requires_grad_(True)
+        pe = rnd(l, d, scale=0.1).to(dev)
+        p = {}
+        for i in (0, 1):
+            p.update({f"ln{i}_s": 1 + rnd(d, scale=0.1),
+                      f"ln{i}_b": rnd(d, scale=0.1),
+                      f"dw{i}": rnd(k, d, scale=0.3),
+                      f"dwb{i}": rnd(d, scale=0.1),
+                      f"pw{i}": rnd(d, d, scale=d ** -0.5),
+                      f"pwb{i}": rnd(d, scale=0.1)})
+        p.update(lnf_s=1 + rnd(d, scale=0.1), lnf_b=rnd(d, scale=0.1))
+        p = {key: t.to(dev).requires_grad_(True) for key, t in p.items()}
+        if mode == "reduce":
+            mask = (torch.rand(b, g, l, generator=gen) > 0.3).float().to(dev)
+            out = encoder.encoder_reduce(x, pe, p, k, mask, 0.1, 12345)
+        else:
+            out = encoder.encoder_block(x, pe, p, k, None, 0.1, 12345)
+        ins, leaves = [x, pe] + list(p.values()), [x] + list(p.values())
+    else:
+        a, lqa, lr, raw = shape
+        ce = rnd(2, a, lqa, d).to(dev, bf)
+        qe = rnd(2, 3, lr, d).to(dev, bf)
+        ins = [l2_normalize(ce), ce, l2_normalize(qe), qe,
+               (torch.rand(2, a, lqa, generator=gen) > 0.25).float().to(dev),
+               (torch.rand(2, 3, lr, generator=gen) > 0.25).float().to(dev),
+               (1 + rnd(3 * d, scale=0.1)).to(dev),
+               rnd(3 * d, scale=0.1).to(dev),
+               rnd(3 * d, d, scale=(3 * d) ** -0.5).to(dev),
+               rnd(d, scale=0.1).to(dev)]
+        ins = [t.detach().requires_grad_(i not in (4, 5))
+               for i, t in enumerate(ins)]
+        out = qa_ctx_attention.qa_ctx_attention(
+            *ins, raw_mode=raw, targets=torch.tensor([0, a - 1], device=dev),
+            dropout_rate=0.1, seed=12345)
+        leaves = [t for t in ins if t.requires_grad]
+    outs = list(out) if isinstance(out, tuple) else [out]
+    before = [t.detach().clone() for t in ins]
+    grads = torch.autograd.grad(outs, leaves,
+                                [rnd(*o.shape).to(dev, o.dtype)
+                                 for o in outs])
+    torch.cuda.synchronize()
+    return ([t.detach() for t in ins], before,
+            [o.detach() for o in outs] + list(grads))
+
+
 def flat(a):
     for t in a:
         if isinstance(t, dict):
@@ -106,6 +179,7 @@ def main():
     p.add_argument("--widths", default="64,128,256")
     p.add_argument("--dtypes", default="float32,bfloat16")
     p.add_argument("--only", default="")
+    p.add_argument("--edges", action="store_true")
     opt = p.parse_args()
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
@@ -114,7 +188,20 @@ def main():
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     failed = 0
-    for d in (int(w) for w in opt.widths.split(",")):
+    for family, shape in EDGES if opt.edges else ():
+        _, _, want = edge_call(dev, family, shape)
+        with Bands() as bands:
+            ins, before, got = edge_call(dev, family, shape)
+        n_bufs, bad = bands.broken()
+        same_in = all(torch.equal(x, y) for x, y in zip(ins, before))
+        same_out = all(torch.equal(x, y) for x, y in zip(got, want))
+        ok = bad == 0 and same_in and same_out
+        failed += not ok
+        print(json.dumps({"edge": family, "shape": shape, "width": 256,
+                          "banded_buffers": n_bufs, "bands_broken": bad,
+                          "same_bits_as_unbanded": same_out,
+                          "inputs_unchanged": same_in, "ok": ok}), flush=True)
+    for d in (() if opt.edges else (int(w) for w in opt.widths.split(","))):
         for case in cs.train_kernel_cases(dev, d):
             if opt.only and opt.only not in case.name:
                 continue

@@ -55,7 +55,8 @@ def attn_args(dev, dt, b=2, a=5, li=4, lqa=40, lr=25, d=D):
     ce = randn(gen, b, a, lqa, d).to(dev, dt)
     qe = randn(gen, b, li, lr, d).to(dev, dt)
     c_mask = (torch.rand(b, a, lqa, generator=gen) > 0.25).float()
-    c_mask[0, 1] = 0                 # a fully masked answer
+    if a > 1:
+        c_mask[0, 1] = 0             # a fully masked answer
     q_mask = (torch.rand(b, li, lr, generator=gen) > 0.25).float()
     q_mask[1, 2] = 0                 # a frame with no regions
     params = [1 + randn(gen, 3 * d, scale=0.1), randn(gen, 3 * d, scale=0.1),
@@ -1663,3 +1664,231 @@ def test_encoders_with_heads_bypass_the_encoder_kernels(cuda, tmp_path,
     cls = 0 if heads else 1          # the cls encoder's reduce kernel
     assert (ran["encoder"], ran["encoder_bwd"]) == (2 * cls, cls)
     assert ran["encoder_block"] == 0
+
+
+# ------------------------------- the bf16 backwards at D = 256, redesigned
+# The encoder's rows (B, G, L, k): a persistent block over several tiles
+# (200 sequences of 40, more than the SMs), the merged input encoder's 50
+# and the kernel's 56 (21 sequences, and 7: ENC256_FEW), and short L where
+# tiles hold several sequences and N is not a multiple of them (7
+# sequences, 2 or 12 a tile), k 1 to 9.
+ENC256_FEW = (1, 7, 56, 9)
+ENC256_ROWS = [(2, 100, 40, 5), (1, 21, 50, 7), (1, 21, 56, 9), ENC256_FEW,
+               (1, 7, 25, 3), (1, 7, 5, 1)]
+# ENC256_FEW's bar.  There layer 1's vector gradients sum only 392 rows,
+# and a ReLU input that rounds to the other side of 0 in the kernel than
+# in the plain version moves them: at dropout 0.1 in the full-output modes
+# ln1_s, ln1_b and dwb1 read 8.4e-3 to 1.0007e-2 against the plain version
+# (ln1_s 1.0007e-2 in the design before this one too), every gradient of
+# the other rows at most 3.4e-3; a kernel that loses one row's gradient
+# reads 3.2e-2 or more in every gradient of this row
+# (scripts/encoder256_readings.py; PERF.md).
+ENC256_FEW_TOL = 2e-2
+
+
+def enc256_call(cuda, rows, mode, dropout, gen):
+    """Inputs, cotangent, kernel and plain version of the encoder backward
+    at D = 256 in bf16: ``mode`` "reduce", "zero mask" or "no mask"."""
+    b, g, l, k = rows
+    x, pe, p, mask = encoder_args(cuda, torch.bfloat16, gen, b=b, g=g, l=l,
+                                  k=k, d=256)
+    if mode == "reduce":
+        cot = encoder_cotangent(x, pe, p, k, mask, torch.bfloat16, gen,
+                                dropout)
+        fn_k, fn_p, m = encoder.encoder_reduce, encoder.encoder_reduce_plain, \
+            mask
+        counter = encoder.BWD_BY_WIDTH[256]
+    else:
+        m = stream_mask(g, l).to(cuda) if mode == "zero mask" else None
+        valid = torch.ones(x.shape[:3], device=cuda) if m is None \
+            else m.expand(x.shape[:3])
+        cot = randn(gen, *x.shape).to(cuda) * valid[..., None]
+        fn_k, fn_p = encoder.encoder_block, encoder.encoder_block_plain
+        counter = encoder.BLOCK_BWD_BY_WIDTH[256]
+    keys = encoder.PARAM_KEYS
+
+    def run(fn, c=cot, dtype=torch.bfloat16):
+        """The gradients of x and the parameters under cotangent ``c``,
+        with x in ``dtype``."""
+        xs = x.detach().to(dtype).requires_grad_(True)
+        ps = {key: t.detach().clone().requires_grad_(True)
+              for key, t in p.items()}
+        out = fn(xs, pe, ps, k, m, dropout, SEED)
+        return torch.autograd.grad(out, [xs] + [ps[key] for key in keys],
+                                   c.to(out.dtype))
+    run.cot = cot
+    return run, fn_k, fn_p, counter
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("mode", ["reduce", "zero mask", "no mask"])
+@pytest.mark.parametrize("rows", ENC256_ROWS)
+def test_encoder_backward_at_256_matches_plain(cuda, rows, mode, dropout):
+    """The bf16 encoder backward at D = 256 (pw through the ring, every
+    per-tile state on the SM) against autograd through the plain version at
+    ``encoder.GRAD_TOL`` (``ENC256_FEW`` at ``ENC256_FEW_TOL``), in both
+    modes, and twice for the same bits."""
+    gen = torch.Generator().manual_seed(21)
+    run, fn_k, fn_p, counter = enc256_call(cuda, rows, mode, dropout, gen)
+    tol = ENC256_FEW_TOL if rows == ENC256_FEW \
+        else encoder.GRAD_TOL[torch.bfloat16]
+    n0 = counter.launches
+    g_k, g_again, g_p = run(fn_k), run(fn_k), run(fn_p)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 2
+    for name, gk, ga, gp in zip(("x",) + encoder.PARAM_KEYS, g_k, g_again,
+                                g_p):
+        assert torch.equal(gk, ga), f"{name} differs between two runs"
+        checks.hold_grad(f"{mode} {rows} {name}", gk, gp, tol)
+
+
+# (A, Lqa): M = 200 (three tiles and 8 rows), 64 (one), 65 (one and a
+# row), 1
+ATT256_ROWS = [(5, 40), (2, 32), (5, 13), (1, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("raw_mode", ["none", "target"])
+@pytest.mark.parametrize("lr", [25, 50, 64])
+@pytest.mark.parametrize("a,lqa", ATT256_ROWS)
+def test_attention_backward_at_256_matches_plain(cuda, a, lqa, lr, raw_mode,
+                                                 dropout):
+    """The bf16 attention backward at D = 256 (g_yd once a tile, W through
+    the ring) against autograd through the plain version at
+    ``qa_ctx_attention.GRAD_TOL``, and twice for the same bits."""
+    dt, d, li = torch.bfloat16, 256, 3
+    gen = torch.Generator().manual_seed(22)
+    args = attn_args(cuda, dt, a=a, li=li, lqa=lqa, lr=lr, d=d)
+    targets = torch.tensor([min(2, a - 1), 0], device=cuda)
+    kw = dict(raw_mode=raw_mode, targets=targets, dropout_rate=dropout,
+              seed=SEED)
+    flip = checks.attention_flip_elements(*args, dropout_rate=dropout,
+                                          seed=SEED)
+    cot = [randn(gen, 2, a, li, lqa, d).to(cuda) * ~flip]
+    if raw_mode == "target":
+        c_t = args[4][torch.arange(2, device=cuda), targets]
+        cot.append(randn(gen, 2, li, lqa, lr).to(cuda)
+                   * c_t[:, None, :, None] * args[5][:, :, None, :])
+
+    def run(fn):
+        ins = leaves(args)
+        ins[4].requires_grad_(False)
+        ins[5].requires_grad_(False)
+        return grads_of(lambda *a_: fn(*a_, **kw), ins, cot)[1]
+    counter = qa_ctx_attention.BWD_BY_WIDTH[256]
+    n0 = counter.launches
+    g_k = run(qa_ctx_attention.qa_ctx_attention)
+    g_again = run(qa_ctx_attention.qa_ctx_attention)
+    g_p = run(qa_ctx_attention.qa_ctx_attention_plain)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 2
+    for i, gk, ga, gp in zip(ATT_GRAD_INPUTS, g_k, g_again, g_p):
+        assert torch.equal(gk, ga), f"grad {i} differs between two runs"
+        checks.grad_close(f"grad {i}", gk, gp,
+                          qa_ctx_attention.GRAD_TOL[dt])
+
+
+def replayed(fn):
+    """fn() eagerly and as a CUDA-graph replay (captured after a warm-up
+    on a side stream): both results, copied."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    eager = [t.clone() for t in fn()]
+    graph = torch.cuda.CUDAGraph()
+    # thread-local capture, as dispatch.py's StepGraphs captures a step
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return eager, [t.clone() for t in out]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["encoder reduce", "encoder block",
+                                    "attention"])
+def test_backwards_at_256_replay_as_eager(cuda, family):
+    """Each redesigned backward, with its forward, captured in a CUDA
+    graph replays to the eager call's bits (dropout 0.1: the seed a device
+    tensor, made before the capture)."""
+    gen = torch.Generator().manual_seed(23)
+    seed = torch.tensor(SEED, dtype=torch.int64, device=cuda)
+    if family == "attention":
+        args = attn_args(cuda, torch.bfloat16, a=5, li=3, lqa=40, lr=50,
+                         d=256)
+        ins = leaves(args)
+        ins[4].requires_grad_(False)
+        ins[5].requires_grad_(False)
+        targets = torch.tensor([2, 0], device=cuda)
+        cots = [torch.ones(2, 5, 3, 40, 256, device=cuda,
+                           dtype=torch.bfloat16),
+                torch.ones(2, 3, 40, 50, device=cuda)]
+
+        def forward():
+            return qa_ctx_attention.qa_ctx_attention(
+                *ins, raw_mode="target", targets=targets,
+                dropout_rate=P_DROP, seed=seed)
+        wrt = [t for t in ins if t.requires_grad]
+    else:
+        reduce = "reduce" in family
+        x, pe, p, mask = encoder_args(cuda, torch.bfloat16, gen, b=2, g=70,
+                                      l=40 if reduce else 50, k=5, d=256)
+        xs = x.detach().clone().requires_grad_(True)
+        ps = {key: t.detach().clone().requires_grad_(True)
+              for key, t in p.items()}
+        cots = [randn(gen, *((2, 70, 256) if reduce else x.shape)).to(
+            cuda, torch.bfloat16)]
+
+        def forward():
+            if reduce:
+                return encoder.encoder_reduce(xs, pe, ps, 5, mask, P_DROP,
+                                              seed)
+            return encoder.encoder_block(xs, pe, ps, 5, None, P_DROP, seed)
+        wrt = [xs] + list(ps.values())
+
+    def backward():
+        out = forward()
+        return torch.autograd.grad(
+            list(out) if isinstance(out, tuple) else [out], wrt, cots)
+    eager, replay = replayed(backward)
+    for i, (e, r) in enumerate(zip(eager, replay)):
+        assert torch.equal(e, r), f"{family} grad {i}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,k", [(50, 7), (9, 3)])
+def test_encoder_backward_at_256_keys_a_rank_s_rows_as_the_whole(cuda, l, k):
+    """Under a ctx-style group map (the QA groups, then one rank's frames
+    of two streams), the bf16 full-output backward at D = 256 gives each
+    of the rank's rows the gx the whole call gives the row at its global
+    group, bit for bit: a row's gx depends only on its sequence (the
+    products are row by row, the row sums in one order for every row, the
+    depthwise passes within the sequence), not on the tile or the tile row
+    it lands in (at L = 9 seven sequences share a tile, in other company
+    on the rank than in the whole call)."""
+    gen = torch.Generator().manual_seed(24)
+    num_a, whole, ctx = 3, 8, 2
+    g = num_a + 2 * whole
+    x, pe, p, _ = encoder_args(cuda, torch.bfloat16, gen, g=g, l=l, k=k,
+                               d=256)
+    zm = stream_mask(g, l).to(cuda)
+    cot = randn(gen, *x.shape).to(cuda, torch.bfloat16)
+    kw = dict(dropout_rate=P_DROP, seed=SEED)
+    xw = x.detach().clone().requires_grad_(True)
+    ref, = torch.autograd.grad(
+        encoder.encoder_block(xw, pe, p, k, zm, **kw), xw, cot)
+    li = whole // ctx
+    for c in range(ctx):
+        rows = torch.cat([torch.arange(num_a),
+                          num_a + c * li + torch.arange(li),
+                          num_a + whole + c * li + torch.arange(li)]).to(cuda)
+        xr = x[:, rows].contiguous().requires_grad_(True)
+        got, = torch.autograd.grad(
+            encoder.encoder_block(xr, pe, p, k, zm[rows], groups=(
+                rows.to(torch.int32), g), **kw), xr, cot[:, rows].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref[:, rows]), c

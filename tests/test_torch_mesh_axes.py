@@ -336,12 +336,12 @@ def test_ctx_ranks_drop_alike_where_the_work_is_replicated(tmp_path):
 
 
 # ------------------------------- ctx: the merged input encoder's masks
-def merged_encoder_calls(tmp_path, blind):
+def merged_encoder_calls(tmp_path, blind, **kw):
     """Two gloo ranks at (1, 2), merged input path, dropout 0.1, one K = 2
     dispatch: each rank's merged input-encoder calls (``probe_merged``),
-    with the group map or rank-blind."""
+    with the group map or rank-blind; ``kw`` edits the config."""
     cfg, sd, job = ctx_jobs(tmp_path, (1, 2), dropout=0.1,
-                            merge_input_streams=True)
+                            merge_input_streams=True, **kw)
     job.update(batches=job["batches"][:1], probe_merged=True,
                blind_map=blind)
     path = str(tmp_path / "job")
@@ -366,7 +366,9 @@ def whole_call(cfg, sd, num_a, calls):
                          + [u.narrow(dim, num_a + li, li) for u in t], dim)
     model = STAGE(ModelConfig.from_config(cfg))
     model.load_state_dict(sd)
-    drop = Dropout(parts[0]["rate"], torch.Generator(), parts[0]["seeds"])
+    gen = torch.Generator()
+    gen.set_state(parts[0]["generator"])
+    drop = Dropout(parts[0]["rate"], gen, parts[0]["seeds"])
     with torch.no_grad():
         out = model.input_encoder(cat("x"), drop=drop,
                                   zero_mask=cat("zero_mask"))
@@ -407,6 +409,76 @@ def test_a_rank_blind_map_repeats_the_frame_masks(tmp_path):
     assert torch.equal(got[:, :num_a], out[0]["seen"][0]["out"][:, :num_a])
     assert not torch.equal(got[:, num_a:num_a + li], ref[:, sub:sub + li])
     assert not torch.equal(got[:, num_a + li:], ref[:, vid:vid + li])
+
+
+def test_ctx_ranks_draw_the_plain_merged_chain_at_their_global_frames(
+        tmp_path):
+    """C7: as the check above with an input encoder the kernel does not
+    take (n_conv 1: the plain chain, its dropout drawn from the data row's
+    generator), float32: each rank's frame rows equal the single
+    process's at its global frames bit for bit, fed the same rows and the
+    generator's state at the call, and the QA rows are alike on both
+    ranks and the single process's."""
+    cfg, sd, num_a, out = merged_encoder_calls(
+        tmp_path, blind=False, input_encoder_n_conv=1)
+    assert cfg.input_encoder_n_conv == 1 and cfg.compute_dtype == "float32"
+    ref, li, spans = whole_call(cfg, sd, num_a, out)
+    for o, (sub, vid) in zip(out, spans):
+        got = o["seen"][0]["out"]
+        assert o["seen"][0]["rate"] == 0.1
+        assert torch.equal(got[:, :num_a], ref[:, :num_a])
+        assert torch.equal(got[:, num_a:num_a + li], ref[:, sub:sub + li])
+        assert torch.equal(got[:, num_a + li:], ref[:, vid:vid + li])
+    assert torch.equal(out[0]["seen"][0]["generator"],
+                       out[1]["seen"][0]["generator"])
+
+
+def test_a_rank_blind_plain_chain_repeats_the_frame_masks(tmp_path):
+    """C7's mutation: the plain chain without the group map draws each
+    rank's masks for its local groups, so the second rank's frame rows
+    are not the single process's at its global frames."""
+    cfg, sd, num_a, out = merged_encoder_calls(
+        tmp_path, blind=True, input_encoder_n_conv=1)
+    ref, li, (_, (sub, vid)) = whole_call(cfg, sd, num_a, out)
+    got = out[1]["seen"][0]["out"]
+    assert torch.equal(got[:, :num_a], out[0]["seen"][0]["out"][:, :num_a])
+    assert not torch.equal(got[:, num_a:num_a + li], ref[:, sub:sub + li])
+    assert not torch.equal(got[:, num_a + li:], ref[:, vid:vid + li])
+
+
+@pytest.mark.parametrize("heads", [0, 2])
+@pytest.mark.parametrize("n_conv", [1, 3])
+def test_the_plain_chain_draws_a_rank_s_groups_as_the_whole(heads, n_conv):
+    """``GroupDropout`` in the plain chain (conv and attention dropout):
+    an encoder block the kernel does not take, called with dropout 0.1 on
+    one rank's groups under its group map, equals bit for bit the call on
+    the whole group axis at those groups from the same generator state,
+    and leaves the generator where the whole call leaves it."""
+    from tvqaplus_tpu_torch.models.layers import EncoderBlock
+    rng = np.random.default_rng(n_conv + heads)
+    bsz, num_a, whole, length, d = 2, 3, 8, 6, 16
+    g = num_a + 2 * whole
+    block = EncoderBlock(d, n_conv, 5, heads, 0.1)
+    torch.manual_seed(n_conv)
+    x = torch.from_numpy(rng.standard_normal((bsz, g, length, d),
+                                             np.float32))
+    zm = torch.from_numpy((rng.random((g, length)) > 0.2).astype(np.float32))
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        ref = block(x, drop=Dropout(0.1, gen, []), zero_mask=zm)
+    after = gen.get_state()
+    li = whole // 2
+    for c in range(2):
+        rows = torch.cat([torch.arange(num_a),
+                          num_a + c * li + torch.arange(li),
+                          num_a + whole + c * li + torch.arange(li)])
+        gen = torch.Generator().manual_seed(7)
+        with torch.no_grad():
+            got = block(x[:, rows], drop=Dropout(0.1, gen, []),
+                        zero_mask=zm[rows],
+                        groups=(rows.to(torch.int32), g))
+        assert torch.equal(got, ref[:, rows]), c
+        assert torch.equal(gen.get_state(), after)
 
 
 @pytest.mark.parametrize("ctx", [2, 4])

@@ -79,25 +79,32 @@ def _probe(model):
 
 
 def _probe_merged(model, blind):
-    """A hook that records each merged input-encoder call (the one with a
-    zero mask): its input, output, zero mask, and the dropout rate and the
-    seeds its kernel sites draw from.  ``blind``: run the call without the
+    """Hooks that record each merged input-encoder call (the one with a
+    zero mask): its input, output, zero mask, the state of the generator
+    its plain dropout draws from, and the dropout rate and the seeds its
+    kernel sites draw from.  ``blind``: run the call without the
     group map, keyed by the local place of each group (the mutation the
     map repairs)."""
-    seen = []
+    seen, states = [], []
     if blind:
         model.merged_group_map = lambda *args: None
+
+    def pre_hook(mod, args, kwargs):
+        if kwargs.get("zero_mask") is not None:
+            states.append(kwargs["drop"].generator.get_state())
 
     def hook(mod, args, kwargs, out):
         if kwargs.get("zero_mask") is None:
             return
         drop = kwargs["drop"]
         seen.append({"x": args[0].detach().clone(),
+                     "generator": states[len(seen)],
                      "out": out.detach().clone(),
                      "zero_mask": kwargs["zero_mask"].clone(),
                      "rate": drop.rate,
                      "seeds": drop.seeds[drop.site - len(
                          mod.stacked_encoderBlocks):].clone()})
+    model.input_encoder.register_forward_pre_hook(pre_hook, with_kwargs=True)
     model.input_encoder.register_forward_hook(hook, with_kwargs=True)
     return seen
 

@@ -21,10 +21,10 @@
 //
 // Two designs.
 // * bfloat16 at D = 256 (the hsz-256 main paths): qa_ctx_bwd_tc_wide_kernel,
-//   the D = 128 tensor-core design at this width (W streamed, a
-//   warpgroup's 128 columns in two quarters of 64; the note at the kernel),
-//   then the gqn / gqe kernel and the weight gradient over the bf16 rows it
-//   writes.
+//   the D = 128 tensor-core design at this width (a warpgroup's 128
+//   columns in two quarters of 64, W streamed through a ring, g_yd once a
+//   tile; the note at the kernel), then the gqn / gqe kernel and the weight
+//   gradient over the bf16 rows it writes.
 // * float32 at D = 64 and 256, and bfloat16 at D = 64: CUDA cores for all
 //   but the bf16 weight gradient:
 //   - qa_ctx_bwd_wide_kernel: one block per (b, i), tiles of RT = 8 RPT
@@ -90,7 +90,8 @@ struct WideGrads {
   float* gce_part;
   T* yd;                               // (B*Li*M, 3D)
   T* gout;                             // (B*Li*M, D)
-  float* vec_part;                     // (B*Li, 7D), 6D when bf16
+  float* vec_part;                     // (B*Li, 7D), 6D when bf16; a
+                                       // slot a block at D = 256
   R* gs;                               // (B*Li*M, ld): g_s
   R* p;                                // (B*Li*M, ld): p
   R* ga;                               // (B*Li*M, D): g_att
@@ -438,11 +439,11 @@ constexpr size_t SMEM_LIMIT = 232448;
 
 // After the main kernel: gqn and gqe, the weight gradient over the yd and
 // g_out rows (tensor cores from bf16 rows, CUDA cores from float32 ones),
-// and the fixed-order slot sums.
+// and the fixed-order slot sums (vec_slots slots of parameter sums).
 template <typename T, typename R, int D>
 int launch_tail(const void* cn, WideGrads<T, R> g, void* gcn, void* gce,
                 float* gvec, float* wg_part, float* gw, int B, int A,
-                int Lqa, int Li, int Lr, int wg_chunks,
+                int Lqa, int Li, int Lr, int wg_chunks, int vec_slots,
                 cudaStream_t stream) {
   constexpr bool BF = sizeof(T) == 2;
   const int M = A * Lqa;
@@ -459,8 +460,8 @@ int launch_tail(const void* cn, WideGrads<T, R> g, void* gcn, void* gce,
     err = wgrad(g.yd, g.gout, wg_part, gw, rows, 3 * D, D, wg_chunks,
                 stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if ((err = sum_slots<float>(g.vec_part, gvec, 1, B * Li, (BF ? 6 : 7) * D,
-                              stream)) != cudaSuccess)
+  if ((err = sum_slots<float>(g.vec_part, gvec, 1, vec_slots,
+                              (BF ? 6 : 7) * D, stream)) != cudaSuccess)
     return static_cast<int>(err);
   if ((err = sum_slots<T>(g.gcn_part, static_cast<T*>(gcn), B, Li,
                           static_cast<long long>(M) * D, stream))
@@ -496,37 +497,58 @@ int launch(const void* cn, const void* ce, const void* qn, const void* qe,
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return launch_tail<T, float, D>(cn, g, gcn, gce, gvec, wg_part, gw, B, A,
-                                  Lqa, Li, Lr, wg_chunks, stream);
+                                  Lqa, Li, Lr, wg_chunks, B * Li, stream);
 }
 
 // ---- the bfloat16 instantiation at D = 256: tensor cores -------------------
 //
 // qa_ctx_bwd_tc_kernel's design (qa_ctx_attention_bwd.cu: one block per
 // (b, i), 64-row tiles, the two warpgroups split the columns, every product
-// a wgmma on bf16 operands with float32 sums, p0 waiting in shared memory)
-// at D = 256.  A warpgroup owns 128 columns and takes them as two quarters
-// of 64, one after the other, so that its registers hold what the D = 128
-// kernel's hold: att of a quarter (recomputed, K = LRP), g_yd of one group
-// and quarter, and gx2 of the quarter.  W (384 KB) streams through one slab
-// of the two warpgroups' 64 rows x 64 columns, 16 KB; g_yd of a (group,
-// quarter) runs twice, once for the LN backward's row sums and once for gx.
-// g_att goes where cn was (the scores are done with it), since g_out is
-// read again by the second pass.  Shared memory: 217 KB at LRP 64.
+// a wgmma on bf16 operands with float32 sums) at D = 256.  A warpgroup owns
+// 128 columns and takes them as two quarters of 64, one after the other.
+// What the design does about the card:
+// * g_yd = g_out W^T once a tile.  The LN backward's gx of the three groups
+//   enters the outputs only as gce = gx0 + gx2 att and g_att = gx1 + gx2
+//   ce, so pass A, which holds g_yd of a (group, quarter), keeps P = gxh0
+//   + gxh2 att and Q = gxh1 + gxh2 ce (gxh = g_yd mask gamma) beside the
+//   row sums s1 = sum gxh, s2 = sum gxh xh, and pass B needs no product:
+//   gce = istd (P - m1 (1 + att) - m2 (xh0 + xh2 att)), g_att = istd (Q -
+//   m1 (1 + ce) - m2 (xh1 + xh2 ce)), m = s / 3dv.  P and Q wait in the
+//   rows' own gce_part and gcn_part slots (each thread reads back what it
+//   wrote; gcn overwrites Q at the end of the tile).
+// * W (384 KB) streams through a ring of NST slabs (both warpgroups' 64
+//   rows of a (group, quarter) x 64 columns, 16 KB), one barrier a slab:
+//   three slots of its own and, from the scores to the end of pass A (the
+//   24 slabs of a tile), two more where qn was (qn is loaded again for
+//   gcn), so four slabs are in flight ahead of the tensor cores; the next
+//   tile's first three go out behind qn at the end of pass A.
+// * A persistent grid (one block an SM) walks items of one frame's tile
+//   (B Li ceil(M / 64) of them), so the last round of the grid is nearly
+//   full (at the headline 3,200 items over 132 SMs, against 800 frames in
+//   seven rounds, the last 6% full); the parameter sums run on in
+//   registers over a block's items and go to the block's slot at its end.
+// * p0 waits where cn was (the scores are done with it), g_att where g_out
+//   was (no product reads g_out after pass A).
+// Shared memory: 217 KB at LRP 64.
 template <int LRP>
 struct AttTcWide {
   static constexpr int D = 256;
-  static constexpr int TILE = Shapes<D>::TILE_BYTES;     // 64 x 256 bf16
+  static constexpr int NST = 5;            // slabs of the ring: 3 + 2 in qn
+  static constexpr int NOWN = 3;           // ... in its own room
+  static constexpr int SLAB = 2 * TILE_PANEL;             // 16 KB
+  static constexpr int PER_TILE = 2 * 3 * (D / 64);       // slabs a tile
+  static constexpr int TILE = Shapes<D>::TILE_BYTES;      // 64 x 256 bf16
   static constexpr int O_QN = 0;
   static constexpr int O_QE = O_QN + TILE;
-  static constexpr int O_CN = O_QE + TILE;                // cn, then g_att
-  static constexpr int O_GO = O_CN + TILE;                // g_out
+  static constexpr int O_CN = O_QE + TILE;                // cn, then p0
+  static constexpr int O_GO = O_CN + TILE;                // g_out, g_att
   static constexpr int O_CE = O_GO + TILE;
-  static constexpr int O_SLAB = O_CE + TILE;              // 2 x 64 rows of W
-  static constexpr int O_P0 = O_SLAB + 2 * TILE_PANEL;    // p0, a thread's own
-  static constexpr int O_EX = O_P0 + LRP / 2 * NTHREADS * 4;
+  static constexpr int O_RING = O_CE + TILE;
+  static constexpr int O_EX = O_RING + NOWN * SLAB;
   static constexpr int O_QM = O_EX + 2 * 2 * TM * 2 * 4;
   static constexpr int O_GB = O_QM + TM * 4;              // gamma, beta
   static constexpr int SMEM = O_GB + 6 * D * 4 + tc::ATOM_BYTES;
+  static_assert(LRP / 2 * NTHREADS * 4 <= TILE, "p0 where cn was");
 };
 
 using bf16 = __nv_bfloat16;
@@ -546,10 +568,10 @@ qa_ctx_bwd_tc_wide_kernel(const bf16* __restrict__ cn,
                           const bf16* __restrict__ mixed,
                           const float* __restrict__ graw,
                           const int* __restrict__ targets,
-                          WideGrads<bf16, bf16> out, int A, int Lqa, int Li,
-                          int Lr, float scale, Dropout drop) {
+                          WideGrads<bf16, bf16> out, int B, int A, int Lqa,
+                          int Li, int Lr, float scale, Dropout drop) {
   using S = AttTcWide<LRP>;
-  constexpr int D = S::D;
+  constexpr int D = S::D, NST = S::NST, AHEAD = NST - 1;
   constexpr int NVT = 6 * D;           // ggamma (3D), gbeta (3D)
   drop.load_seed();
   extern __shared__ uint8_t smem_raw[];
@@ -557,11 +579,11 @@ qa_ctx_bwd_tc_wide_kernel(const bf16* __restrict__ cn,
   uint8_t* qn_s = sm + S::O_QN;
   uint8_t* qe_s = sm + S::O_QE;
   uint8_t* cn_s = sm + S::O_CN;
-  uint8_t* ga_s = cn_s;                // g_att, once the scores are done
+  float* p0_s = reinterpret_cast<float*>(cn_s);   // once the scores are done
   uint8_t* go_s = sm + S::O_GO;
+  uint8_t* ga_s = go_s;                // g_att, once pass A is done
   uint8_t* ce_s = sm + S::O_CE;
-  uint8_t* slab_s = sm + S::O_SLAB;
-  float* p0_s = reinterpret_cast<float*>(sm + S::O_P0);
+  uint8_t* ring = sm + S::O_RING;
   float* ex_s = reinterpret_cast<float*>(sm + S::O_EX);  // [2][wg][row][2]
   float* qm_s = reinterpret_cast<float*>(sm + S::O_QM);
   float* gamma_s = reinterpret_cast<float*>(sm + S::O_GB);
@@ -569,41 +591,62 @@ qa_ctx_bwd_tc_wide_kernel(const bf16* __restrict__ cn,
 
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
   const int warp = t >> 5, lane = tid & 31;
-  const int i = blockIdx.x, b = blockIdx.y;
-  const int M = A * Lqa;
-  const int target = targets != nullptr ? targets[b] : -1;
-  const size_t blk = static_cast<size_t>(b) * Li + i;
-  const size_t fbase = blk * Lr;
+  const int M = A * Lqa, ntile = (M + TM - 1) / TM;
+  const int items = B * Li * ntile;
   for (int k = tid; k < 3 * D; k += NTHREADS) {
     gamma_s[k] = gamma[k];
     beta_s[k] = beta[k];
   }
-  tc_load_frame<D>(nullptr, qn_s, qe_s, qm_s, W, qn, qe, qmask, fbase, Lr);
 
-  const int rl = 16 * warp + (lane >> 2);
-  const int cl = 2 * (lane & 3);
-  auto ce_pair = [&](int h, int c) {
-    return tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(
-        ce_s + (c >> 6) * TILE_PANEL + tc::swz(rl + 8 * h, c & 63)));
-  };
-  // g_yd of group g on quarter u of the warpgroup's columns: acc = g_out
-  // W[g D + 128 wg + 64 u + n, :]^T, W's columns in four slabs of 64 (both
-  // warpgroups' rows); every thread calls it
-  auto gyd = [&](float (&acc)[32], int g, int u) {
-#pragma unroll 1
-    for (int kc = 0; kc < D / 64; ++kc) {
-      __syncthreads();                 // the slab's last readers are done
+  // ---- the ring: slab j (the block's item j / PER_TILE; quarter u, group
+  // g = 2, 0, 1, column block kc of W in that order) into slot (j %
+  // PER_TILE) % NST: slots 0 .. NOWN - 1 in the ring's room, the others
+  // where qn was.  Each consumed slab commits one group, the item's scores
+  // one more (its slab NOWN), so a slab's copies are waited for with the
+  // newer AHEAD - 1 groups in flight --------------------------------------
+  const int total = (items - static_cast<int>(blockIdx.x)
+                     + static_cast<int>(gridDim.x) - 1)
+                    / static_cast<int>(gridDim.x) * S::PER_TILE;
+  int used = 0;                        // slabs consumed
+  auto fetch_slab = [&](int j) {
+    if (j < total) {
+      const int s = j % S::PER_TILE, u = s / 12, g = (s / 4 + 2) % 3;
+      const int kc = s % 4;
+      const int k = s % NST;
+      uint8_t* slot = k < S::NOWN ? ring + k * S::SLAB
+                                  : qn_s + (k - S::NOWN) * S::SLAB;
 #pragma unroll
       for (int w2 = 0; w2 < 2; ++w2)
-        tc_load_rows<64>(slab_s + w2 * TILE_PANEL, TM,
+        tc_load_rows<64>(slot + w2 * TILE_PANEL, TM,
                          W + static_cast<size_t>(g * D + 128 * w2 + 64 * u)
                                  * D + 64 * kc, D, TM, tid, NTHREADS);
-      tc::cp_async_commit();
-      tc::cp_async_wait<0>();
+    }
+    tc::cp_async_commit();             // one group a slab
+  };
+#pragma unroll
+  for (int j = 0; j < S::NOWN; ++j) fetch_slab(j);
+  // g_yd of the next (quarter, group) on the warpgroup's quarter: acc =
+  // g_out W[rows of the slabs]^T over the next four slabs.  Each slab: its
+  // copies waited for, a barrier (the slab whole; the previous one's
+  // products done in both warpgroups, so its slot takes the slab AHEAD on),
+  // the products.  Every thread calls it.
+  auto gyd = [&](float (&acc)[32]) {
+#pragma unroll
+    for (int kc = 0; kc < D / 64; ++kc) {
+      tc::cp_async_wait<AHEAD - 1>();
       tc::fence_async_smem();
       __syncthreads();
+      const int sl = used % S::PER_TILE;
+      if (sl + AHEAD < S::PER_TILE)
+        fetch_slab(used + AHEAD);
+      else
+        tc::cp_async_commit();
+      const int k = sl % NST;
       const uint32_t go = tc::smem_u32(go_s) + kc * TILE_PANEL;
-      const uint32_t st = tc::smem_u32(slab_s) + wg * TILE_PANEL;
+      const uint32_t st = tc::smem_u32(k < S::NOWN
+                                           ? ring + k * S::SLAB
+                                           : qn_s + (k - S::NOWN) * S::SLAB)
+                          + wg * TILE_PANEL;
       tc::fence();
 #pragma unroll
       for (int s = 0; s < 4; ++s)
@@ -611,8 +654,16 @@ qa_ctx_bwd_tc_wide_kernel(const bf16* __restrict__ cn,
                              tc::make_desc(st + s * 32, 16), kc > 0 || s > 0);
       tc::commit();
       tc::wait_all();
+      ++used;
     }
     tc::fence_regs(acc);
+  };
+
+  const int rl = 16 * warp + (lane >> 2);
+  const int cl = 2 * (lane & 3);
+  auto ce_pair = [&](int h, int c) {
+    return tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(
+        ce_s + (c >> 6) * TILE_PANEL + tc::swz(rl + 8 * h, c & 63)));
   };
   // att of quarter u (64 columns) from p0 in shared memory
   auto att_of = [&](float (&att)[32], const float (&cm)[2], int u) {
@@ -629,9 +680,17 @@ qa_ctx_bwd_tc_wide_kernel(const bf16* __restrict__ cn,
     for (int u = 0; u < 2; ++u)
       vg[g][u][0] = vg[g][u][1] = vb[g][u][0] = vb[g][u][1] = 0.f;
 
-  for (int m0 = 0; m0 < M; m0 += TM) {
-    // ---- stage the tile: cn and ce rows, g_out = g_mixed * (mixed > 0) ---
-    __syncthreads();                   // the previous tile is consumed
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int bi = item / ntile, m0 = item % ntile * TM;
+    const int b = bi / Li, i = bi % Li;
+    const int target = targets != nullptr ? targets[b] : -1;
+    const size_t blk = bi, fbase = blk * Lr;
+    // ---- stage the item: the frame's qn, qe and q mask, the tile's cn and
+    // ce rows, g_out = g_mixed * (mixed > 0) -------------------------------
+    __syncthreads();                   // the previous item is consumed
+    tc_load_rows<D>(qn_s, TM, qn + fbase * D, D, Lr, tid, NTHREADS);
+    tc_load_rows<D>(qe_s, TM, qe + fbase * D, D, Lr, tid, NTHREADS);
+    if (tid < TM) qm_s[tid] = tid < Lr ? qmask[fbase + tid] : 0.f;
     const size_t rbase = static_cast<size_t>(b) * M + m0;
     tc_load_rows<D>(cn_s, TM, cn + rbase * D, D, min(TM, M - m0), tid,
                     NTHREADS);
@@ -659,7 +718,7 @@ qa_ctx_bwd_tc_wide_kernel(const bf16* __restrict__ cn,
       *reinterpret_cast<uint4*>(go_s + (ch >> 3) * TILE_PANEL
                                 + tc::swz_chunk(r, ch & 7)) = v;
     }
-    tc::cp_async_wait<0>();
+    tc::cp_async_wait<0>();            // (the ring's slabs in flight too)
     tc::fence_async_smem();
     __syncthreads();
 
@@ -693,8 +752,6 @@ qa_ctx_bwd_tc_wide_kernel(const bf16* __restrict__ cn,
       float sc[LRP / 2], p0[LRP / 2];
       tc_scores<LRP, D>(sc, tc::smem_u32(cn_s), tc::smem_u32(qn_s));
       gate = tc_softmax<LRP>(sc, p0, cm, qm_s, Lr, scale, lane);
-#pragma unroll
-      for (int k = 0; k < LRP / 2; ++k) p0_s[k * NTHREADS + tid] = p0[k];
       if (wg == 1) {                   // p rows out, for gqe = p^T g_att
 #pragma unroll
         for (int k = 0; k < LRP / 2; k += 2) {
@@ -706,6 +763,10 @@ qa_ctx_bwd_tc_wide_kernel(const bf16* __restrict__ cn,
                               p0[k + 1] * (c * qm_s[j + 1]));
         }
       }
+      __syncthreads();                 // both warpgroups are done with cn
+#pragma unroll
+      for (int k = 0; k < LRP / 2; ++k) p0_s[k * NTHREADS + tid] = p0[k];
+      fetch_slab(used + S::NOWN);           // ... and with qn: the tile's slab 3
     }
     // ---- LN statistics over [ce; att; ce * att] (not clipped) -----------
     float mean[2], istd[2];
@@ -734,18 +795,20 @@ qa_ctx_bwd_tc_wide_kernel(const bf16* __restrict__ cn,
                          + LN_EPS);
       }
     }
-    // ---- pass A: g_yd, the dropout replay, yd rows out, ggamma / gbeta,
-    // the LN backward's row sums ------------------------------------------
+    // ---- pass A: g_yd once, the dropout replay, yd rows out, ggamma /
+    // gbeta, the LN backward's row sums, P and Q into the rows' slots (the
+    // groups 2, 0, 1: gxh2 waits in registers for P and Q) ----------------
     float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      float att[32];
+      float att[32], gx2[32];
       att_of(att, cm, u);
       const int base = 128 * wg + 64 * u;
 #pragma unroll
-      for (int g = 0; g < 3; ++g) {
+      for (int n = 0; n < 3; ++n) {
+        const int g = (n + 2) % 3;
         float acc[32];
-        gyd(acc, g, u);
+        gyd(acc);
 #pragma unroll
         for (int qh = 0; qh < 2; ++qh) {
           float tg[8], tb[8];
@@ -761,7 +824,7 @@ qa_ctx_bwd_tc_wide_kernel(const bf16* __restrict__ cn,
             for (int h = 0; h < 2; ++h) {
               const float2 c2 = ce_pair(h, c);
               const uint32_t bits = kw[g][u][h][0] >> (4 * q);
-              float y[2];
+              float y[2], pq[2];
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
                 const int k = 4 * q + 2 * h + e;
@@ -778,11 +841,21 @@ qa_ctx_bwd_tc_wide_kernel(const bf16* __restrict__ cn,
                 const float gxh = gy * gam;
                 s1[h] += gxh;
                 s2[h] = fmaf(gxh, xh, s2[h]);
+                if (g == 2)
+                  gx2[k] = gxh;
+                else                   // P = gxh0 + gxh2 att, Q = gxh1 + gxh2 ce
+                  pq[e] = fmaf(gx2[k], g == 0 ? a : cv, gxh);
               }
-              if (live[h])
-                *reinterpret_cast<uint32_t*>(
-                    out.yd + (blk * M + m[h]) * (3 * D) + g * D + c) =
+              if (live[h]) {
+                const size_t r = blk * M + m[h];
+                *reinterpret_cast<uint32_t*>(out.yd + r * (3 * D) + g * D
+                                             + c) =
                     tc::pack_bf16(y[0], y[1]);
+                if (g != 2)
+                  *reinterpret_cast<float2*>(
+                      (g == 0 ? out.gce_part : out.gcn_part) + r * D + c) =
+                      make_float2(pq[0], pq[1]);
+              }
             }
           }
           // sums over the eight lanes that hold these columns' other rows
@@ -798,54 +871,53 @@ qa_ctx_bwd_tc_wide_kernel(const bf16* __restrict__ cn,
       }
     }
     tri_row_pair_sums(ex_s + 2 * TM * 2, s1, s2, wg, rl, lane);
-    // ---- pass B: g_yd again, the LN backward, gce rows out, g_att tile ---
+    // the ring is done with qn's room: qn again, for gcn, then the next
+    // tile's first slabs into the ring's own room
+    tc_load_rows<D>(qn_s, TM, qn + fbase * D, D, Lr, tid, NTHREADS);
+    tc::cp_async_commit();
+#pragma unroll
+    for (int j = 0; j < S::NOWN; ++j) fetch_slab(used + j);
+    // ---- pass B: the LN backward from P and Q, gce rows out, g_att tile --
     const float m1[2] = {s1[0] * drop.inv3, s1[1] * drop.inv3};
     const float m2[2] = {s2[0] * drop.inv3, s2[1] * drop.inv3};
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      float att[32], gx2[32];
+      float att[32];
       att_of(att, cm, u);
       const int base = 128 * wg + 64 * u;
 #pragma unroll
-      for (int n = 0; n < 3; ++n) {
-        const int g = (n + 2) % 3;     // groups 2, 0, 1
-        float acc[32];
-        gyd(acc, g, u);
-#pragma unroll
-        for (int pr = 0; pr < 16; ++pr) {
-          const int h = pr & 1, q = pr >> 1, c = base + 8 * q + cl;
-          const float2 c2 = ce_pair(h, c);
-          const float2 ga = *reinterpret_cast<const float2*>(
-              gamma_s + g * D + c);
-          const uint32_t bits = kw[g][u][h][0] >> (4 * q);
-          float o[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int k = 2 * pr + e;
-            const float cv = e ? c2.y : c2.x, a = att[k];
-            const float x = g == 0 ? cv : (g == 1 ? a : cv * a);
-            const float xh = (x - mean[h]) * istd[h];
-            const float km = !drop.on() ? 1.f
-                : ((bits >> e) & 1u ? drop.scale : 0.f);
-            const float gxh = acc[k] * km * (e ? ga.y : ga.x);
-            const float gx = istd[h] * (gxh - m1[h] - xh * m2[h]);
-            if (g == 2)
-              gx2[k] = gx;
-            else
-              o[e] = fmaf(gx2[k], g == 0 ? a : cv, gx);
-          }
-          if (g == 0 && live[h])
-            *reinterpret_cast<float2*>(out.gce_part + (blk * M + m[h]) * D
-                                       + c) = make_float2(o[0], o[1]);
-          if (g == 1)
-            *reinterpret_cast<uint32_t*>(ga_s + (c >> 6) * TILE_PANEL
-                                         + tc::swz(rl + 8 * h, c & 63)) =
-                tc::pack_bf16(o[0], o[1]);
+      for (int pr = 0; pr < 16; ++pr) {
+        const int h = pr & 1, c = base + 8 * (pr >> 1) + cl;
+        const size_t o = (blk * M + m[h]) * D + c;
+        const float2 c2 = ce_pair(h, c);
+        float2 P = make_float2(0.f, 0.f), Q = P;
+        if (live[h]) {
+          P = *reinterpret_cast<const float2*>(out.gce_part + o);
+          Q = *reinterpret_cast<const float2*>(out.gcn_part + o);
         }
+        float gce[2], gat[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float cv = e ? c2.y : c2.x, a = att[2 * pr + e];
+          const float xh0 = (cv - mean[h]) * istd[h];
+          const float xh1 = (a - mean[h]) * istd[h];
+          const float xh2 = (cv * a - mean[h]) * istd[h];
+          gce[e] = istd[h] * ((e ? P.y : P.x) - m1[h] * (1.f + a)
+                              - m2[h] * fmaf(xh2, a, xh0));
+          gat[e] = istd[h] * ((e ? Q.y : Q.x) - m1[h] * (1.f + cv)
+                              - m2[h] * fmaf(xh2, cv, xh1));
+        }
+        if (live[h])
+          *reinterpret_cast<float2*>(out.gce_part + o) =
+              make_float2(gce[0], gce[1]);
+        *reinterpret_cast<uint32_t*>(ga_s + (c >> 6) * TILE_PANEL
+                                     + tc::swz(rl + 8 * h, c & 63)) =
+            tc::pack_bf16(gat[0], gat[1]);
       }
     }
+    tc::cp_async_wait<S::NOWN>();      // qn (the next tile's slabs fly on)
     tc::fence_async_smem();
-    __syncthreads();                   // the g_att tile is whole
+    __syncthreads();                   // the g_att tile and qn are whole
     for (int c = tid; c < TM * (D / 8); c += NTHREADS) {  // its rows out
       const int r = c / (D / 8), ch = c % (D / 8);
       if (m0 + r < M)
@@ -933,7 +1005,9 @@ qa_ctx_bwd_tc_wide_kernel(const bf16* __restrict__ cn,
       }
     }
   }
+  tc::cp_async_wait<0>();
   __syncthreads();
+  // ---- the block's parameter-vector partials into its slot --------------
   // after the folds a lane holds, per group, quarter and column half qh,
   // the sum over its warp's rows of column 128 wg + 64 u + 8 (4 qh + 2 b4 +
   // b3) + 2 (lane % 4) + b2
@@ -954,7 +1028,7 @@ qa_ctx_bwd_tc_wide_kernel(const bf16* __restrict__ cn,
   }
   __syncthreads();
   for (int k = tid; k < NVT; k += NTHREADS)
-    out.vec_part[blk * NVT + k] =
+    out.vec_part[static_cast<size_t>(blockIdx.x) * NVT + k] =
         ((red[k] + red[NVT + k]) + red[2 * NVT + k]) + red[3 * NVT + k];
 }
 
@@ -972,9 +1046,11 @@ cudaError_t launch_tc_main(const void* cn, const void* ce, const void* qn,
   constexpr int smem = AttTcWide<LRP>::SMEM;
   cudaError_t err = allow_smem(qa_ctx_bwd_tc_wide_kernel<LRP>, smem);
   if (err != cudaSuccess) return err;
-  qa_ctx_bwd_tc_wide_kernel<LRP><<<dim3(Li, B), NTHREADS, smem, stream>>>(
+  const int items = B * Li * ((A * Lqa + TM - 1) / TM), sms = sm_count();
+  qa_ctx_bwd_tc_wide_kernel<LRP><<<items < sms ? items : sms, NTHREADS, smem,
+                                   stream>>>(
       h(cn), h(ce), h(qn), h(qe), cmask, qmask, gamma, beta, h(W), h(gmixed),
-      h(mixed), graw, targets, g, A, Lqa, Li, Lr, scale, drop);
+      h(mixed), graw, targets, g, B, A, Lqa, Li, Lr, scale, drop);
   return cudaGetLastError();
 }
 
@@ -997,8 +1073,10 @@ int launch_tc(const void* cn, const void* ce, const void* qn, const void* qe,
                            gmixed, mixed, graw, targets, g, B, A, Lqa, Li, Lr,
                            scale, drop, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int items = B * Li * ((A * Lqa + TM - 1) / TM), sms = sm_count();
   return launch_tail<bf16, bf16, 256>(cn, g, gcn, gce, gvec, wg_part, gw, B,
-                                      A, Lqa, Li, Lr, wg_chunks, stream);
+                                      A, Lqa, Li, Lr, wg_chunks,
+                                      items < sms ? items : sms, stream);
 }
 
 }  // namespace
@@ -1014,7 +1092,9 @@ int launch_tc(const void* cn, const void* ce, const void* qn, const void* qe,
 // gvec without gb and gw with 3D + 1 rows, the last gb.  Scratch (the
 // wrapper's): gcn_part, gce_part (B, Li, A*Lqa, D) float32; yd
 // (B*Li*A*Lqa, 3D) and gout (B*Li*A*Lqa, D) in the activation type;
-// vec_part (B*Li, 7D or 6D) and wg_part (wg_chunks, 3D (+ 1), D) float32;
+// vec_part (B*Li, 7D or 6D; when is_bf16 at D = 256 a slot for each block
+// of the persistent grid, min(B*Li*ceil(A*Lqa / 64), SMs), or more) and
+// wg_part (wg_chunks, 3D (+ 1), D) float32;
 // gs_rows, p_rows (B*Li*A*Lqa, round4(Lr)) and ga_rows (B*Li*A*Lqa, D)
 // float32, or when is_bf16 at D = 256 bf16 with gs_rows and p_rows 32
 // wide (Lr <= 32) or 64.  Lr <= 64; any other D is refused.

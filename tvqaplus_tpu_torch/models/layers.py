@@ -72,6 +72,31 @@ class Dropout:
         return self.rate, self.seeds[self.site - 1]
 
 
+class GroupDropout:
+    """``drop`` on a ctx rank's share of a group axis: ``groups`` is the
+    group map (gmap, g_glob) of the merged input encoder (ops/encoder.py),
+    ``batch`` the leading batch size.  Each call draws ``drop``'s mask for
+    all g_glob groups, as one process draws it, and keeps the rows of the
+    rank's groups, so every group takes the mask one process gives it at
+    its global place and the generator advances as one process's does.
+    ``x`` is laid out (batch, groups, ...) or (batch * groups, ...)."""
+
+    def __init__(self, drop, groups, batch):
+        self.drop = drop
+        self.gmap, self.g_glob = groups
+        self.batch = batch
+
+    def __call__(self, x):
+        rate = self.drop.rate
+        if rate == 0.0:
+            return x
+        g = self.gmap.numel()
+        rand = torch.rand((self.batch, self.g_glob, x.numel() // (
+            self.batch * g)), generator=self.drop.generator, device=x.device)
+        keep = (rand[:, self.gmap.long()] >= rate).reshape(x.shape)
+        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def apply_dropout(drop, x):
     """``drop(x)`` in a training forward, ``x`` in eval (drop is None)."""
     return x if drop is None else drop(x)
@@ -373,8 +398,11 @@ class EncoderBlock(nn.Module):
     sees the zeros that per-stream padding would give (the merged-stream
     contract, JAX layers.py:247-254); positions where it is 0 come out as
     garbage for the caller to slice away.  The kernel takes a (G, L) mask
-    on a 4-D input, or none.  ``groups``: the kernel's group map of the
-    merged input encoder under context parallelism (ops/encoder.py)."""
+    on a 4-D input, or none.  ``groups``: the group map of the merged
+    input encoder under context parallelism (ops/encoder.py): the kernel
+    keys its masks through it, the plain chain draws them through
+    ``GroupDropout``, so a rank's frames take one process's masks either
+    way."""
 
     def __init__(self, hsz, n_conv=2, kernel_size=7, num_heads=0,
                  dropout=0.1, dtype=torch.float32, use_kernel=False):
@@ -441,6 +469,8 @@ class EncoderBlock(nn.Module):
                                  reduce_mask.reshape(lead[0], -1, l),
                                  *kernel_dropout(drop))
             return out.reshape(lead + (d,))
+        if drop is not None and groups is not None:
+            drop = GroupDropout(drop, groups, lead[0])
         out = self.position_encoding(x)
         for i, (ln, conv) in enumerate(zip(self.layer_norm, self.conv)):
             t = ln(out)

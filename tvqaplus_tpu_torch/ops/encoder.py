@@ -139,11 +139,27 @@ TC_SUMS = (8 * 6 + 2 * 2 * 10) * 128 + 64 * 256
 
 
 def wide_tc_sums(d):
-    """The same for the tensor-core backward at D = 64 or 256
-    (csrc/encoder_bwd_tc_wide.cu ``EncTcW<D>::ACC + H``): the LN sums of 8
+    """The same for the tensor-core backward at D = 64
+    (csrc/encoder_bwd_tc_wide.cu ``EncTcW<64>::ACC + H``): the LN sums of 8
     warps, the taps' sums of each of 256 / D column-pass parts, and the h
-    stash of D / 4 floats a thread."""
+    stash of D / 4 floats a thread; 0 at D = 256, whose kernel keeps them
+    on the SM."""
+    if d == 256:
+        return 0
     return (8 * 6 + 256 // d * 2 * 10) * d + d // 4 * 256
+
+
+def wide_tc_launch(n, length, k, d, sms):
+    """What the bf16 backward at D = 64 or 256 (csrc/encoder_bwd_tc_wide.cu)
+    takes beside its inputs, for n sequences of ``length`` on ``sms``
+    multiprocessors: the packed pointwise matrices (2 at D = 64, [pw0; pw1];
+    4 at 256, [pw0; pw1; pw0^T; pw1^T]), the persistent grid (one block an
+    SM over tiles of 64 // length sequences) and the floats of a block's
+    ``vec_part`` row (its slot of parameter sums, then at D = 64 its
+    running sums and h stash)."""
+    blocks = min(-(-n // (64 // length)), sms)
+    nv = (2 * (4 + k) + 2) * d
+    return (4 if d == 256 else 2), blocks, nv + wide_tc_sums(d)
 
 
 class _StashConv(torch.autograd.Function):
@@ -384,12 +400,16 @@ def _backward(x, pe, packed, reduce_mask, zero_mask, g, k, dropout_rate,
         rows_out = [torch.empty(n * l, d, dtype=x.dtype, device=x.device)
                     for _ in range(4)]
         if tc:
-            # csrc/encoder_bwd_tc_wide.cu: [pw0; pw1] in bf16 as they lie;
-            # the blocks' running sums and h stashes behind their slots
-            pw = torch.stack(pws).to(torch.bfloat16)
-            blocks = min(-(-n // (64 // l)), sm_count(x.device))
+            # csrc/encoder_bwd_tc_wide.cu: [pw0; pw1] in bf16 as they lie,
+            # at D = 256 then [pw0^T; pw1^T] (its backward products stream
+            # them); at D = 64 the blocks' running sums and h stashes
+            # behind their slots
+            mats, blocks, row = wide_tc_launch(n, l, k, d,
+                                               sm_count(x.device))
+            pw = torch.stack((pws + [t.t() for t in pws])[:mats]).to(
+                torch.bfloat16)
             scratch = rows_out + [
-                torch.empty(blocks, nv + wide_tc_sums(d), **f32), None,
+                torch.empty(blocks, row, **f32), None,
                 torch.empty(chunks, d + 1, d, **f32)]
             kernel = (BLOCK_BWD_BY_WIDTH if full else BWD_BY_WIDTH)[d]
         else:

@@ -372,9 +372,8 @@ def _backward_wide(cn, ce, qn, qe, cm, qm, g32, b32, w32, g_mixed, graw, tg,
     tc = bf16 and d == 256
     if bf16 and (g_mixed.data_ptr() % 16 or mixed.data_ptr() % 16):
         raise ValueError("g_mixed/mixed must start on a 16-byte boundary")
-    rows, m = bsz * li * num_a * lqa, num_a * lqa
+    rows = bsz * li * num_a * lqa
     f32 = dict(dtype=torch.float32, device=dev)
-    act = dict(dtype=dt, device=dev)
     chunks = tc_wgrad_chunks(rows, 3 * d, d) if bf16 \
         else wgrad_chunks(rows, 3 * d, d=d)
     nv = (6 if bf16 else 7) * d
@@ -382,15 +381,8 @@ def _backward_wide(cn, ce, qn, qe, cm, qm, g32, b32, w32, g_mixed, graw, tg,
     gqn, gqe = torch.empty_like(qn), torch.empty_like(qe)
     gvec = torch.empty(nv, **f32)
     gw = torch.empty(3 * d + bf16, d, **f32)     # [gw; gb] in bf16
-    # the g_s, p and g_att rows for the gqn / gqe kernel
-    ld, rdt = ((32 if lr <= 32 else 64), act) if tc else ((lr + 3) & ~3, f32)
-    scratch = [torch.empty(bsz, li, m, d, **f32),
-               torch.empty(bsz, li, m, d, **f32),
-               torch.empty(rows, 3 * d, **act), torch.empty(rows, d, **act),
-               torch.empty(bsz * li, nv, **f32),
-               torch.empty(chunks, 3 * d + bf16, d, **f32),
-               torch.empty(rows, ld, **rdt), torch.empty(rows, ld, **rdt),
-               torch.empty(rows, d, **rdt)]
+    scratch = [torch.empty(shape, dtype=t, device=dev) for shape, t in
+               wide_backward_scratch(bsz, li, num_a * lqa, lr, d, dt, chunks)]
     wk = w32.to(dt) if tc \
         else as_f32((round_bf16(w32) if bf16 else w32).t())
     BWD_BY_WIDTH[d].launch(
@@ -405,6 +397,31 @@ def _backward_wide(cn, ce, qn, qe, cm, qm, g32, b32, w32, g_mixed, graw, tg,
     gb = gw[3 * d] if bf16 else gvec[6 * d:]
     return (gcn, gce, gqn, gqe, gvec[:3 * d], gvec[3 * d:6 * d], gw[:3 * d],
             gb)
+
+
+def wide_backward_scratch(bsz, li, m, lr, d, dt, chunks):
+    """(shape, dtype) of each scratch buffer of the backward at D = 64 or
+    256 (``csrc/qa_ctx_attention_bwd_wide.cu``'s C entry, in its order) for
+    bsz x li frames of m answer-word rows and lr regions: gcn_part and
+    gce_part (float32, each row's partials by frame; the bf16 kernel at 256
+    also keeps a tile's P and Q there between its passes), the yd and g_out
+    rows in ``dt``, vec_part (a slot of parameter sums a frame; the bf16
+    kernel at 256, persistent over the frames' 64-row tiles, a slot for
+    each of its blocks, at most one a tile), wg_part (``chunks`` slots),
+    then the g_s, p and g_att rows of the gqn / gqe kernel (bf16 from the tensor-core
+    kernel at 256, lr rounded up to its LRP of 32 or 64; else float32,
+    round4(lr))."""
+    bf16 = dt == torch.bfloat16
+    tc = bf16 and d == 256
+    rows, nv = bsz * li * m, (6 if bf16 else 7) * d
+    ld, rdt = ((32 if lr <= 32 else 64), dt) if tc \
+        else ((lr + 3) & ~3, torch.float32)
+    slots = bsz * li * (-(-m // 64) if tc else 1)
+    f32 = torch.float32
+    return [((bsz, li, m, d), f32), ((bsz, li, m, d), f32),
+            ((rows, 3 * d), dt), ((rows, d), dt), ((slots, nv), f32),
+            ((chunks, 3 * d + bf16, d), f32), ((rows, ld), rdt),
+            ((rows, ld), rdt), ((rows, d), rdt)]
 
 
 def qa_ctx_attention(cn, ce, qn, qe, c_mask, q_mask, gamma, beta, w, b,

@@ -48,6 +48,12 @@ _TM, _ROW, _ATOM = 64, 128, 1024       # wgmma rows, swizzled row, atom
 _TR = 2 * _TM                          # the encoder's resident tile rows
 _KC, _NWARPS = 32, 8                   # the float32 GEMM's staged rows
 _MAX_LR, _MAX_LEN, _MAX_K = 64, 56, 9  # the kernels' largest shapes
+# the rings of the bf16 backwards at D = 256: the encoder's pw stages of
+# ENC256_KP rows in its R1 tile (csrc/encoder_bwd_tc_wide.cu Enc256), the
+# attention's W slabs of 2 x 64 rows x 64 columns, ATT256_OWN of them in a
+# room of their own and the others where qn was
+# (qa_ctx_attention_bwd_wide.cu AttTcWide)
+ENC256_KP, ENC256_NST, ATT256_NST, ATT256_OWN = 32, 4, 5, 3
 
 
 MAX_WIDTH = 256
@@ -200,15 +206,21 @@ def bwd_smem_bytes(family, d, dtype="bfloat16", lr=_MAX_LR, length=_MAX_LEN,
         return (head + (5 if d == 256 else 6) * tile
                 + 4 * 2 * _TM * 2 * 4 + 8 * d * 4 + _ATOM)
     if dtype == "bfloat16" and family == "qa_ctx_attention" and d == 256:
-        # AttTcWide<LRP>: qn, qe, cn, g_out, ce; a slab of W's rows; p0;
-        # two exchange rounds; the q mask; gamma and beta
-        lrp = 32 if lr <= 32 else 64
-        return (5 * tile + 2 * tile_panel + lrp // 2 * 256 * 4
+        # AttTcWide<LRP>: qn, qe, cn (then p0), g_out (then g_att), ce; the
+        # ring of W's slabs; two exchange rounds; the q mask; gamma, beta
+        return (5 * tile + ATT256_OWN * 2 * tile_panel
                 + 2 * 2 * _TM * 2 * 4 + _TM * 4 + 6 * d * 4 + _ATOM)
-    if dtype == "bfloat16" and family == "encoder" and d != 128:
-        # EncTcW<D>: R1 (64 x D float32), the c / t and g_y tiles, pw's 32
-        # KB (stages or a slab at 256, resident at 64), v and m, two
-        # exchange rounds
+    if dtype == "bfloat16" and family == "encoder" and d == 256:
+        # Enc256: R1 (64 x D float32, rows padded by 8; the ring of pw's
+        # stages during the products) and H, the c / g_y and t tiles, the
+        # running depthwise and LN sums, v and m, two exchange rounds
+        assert ENC256_NST * _stage(d, ENC256_KP) <= _TM * d * 4
+        return (_TM * (d + 8) * 4 + _TM * d * 4 + 2 * tile
+                + 2 * (_MAX_K + 1) * d * 4 + 6 * d * 4 + 2 * _TM * 4
+                + 2 * 2 * _TM * 2 * 4 + _ATOM)
+    if dtype == "bfloat16" and family == "encoder" and d == 64:
+        # EncTcW<64>: R1 (64 x D float32), the c / t and g_y tiles, pw's 32
+        # KB (resident), v and m, two exchange rounds
         return (_TM * d * 4 + 2 * tile + 32768 + 2 * _TM * 4
                 + 2 * 2 * _TM * 2 * 4 + _ATOM)
     if d == 128 and dtype == "bfloat16":     # the tensor-core designs
