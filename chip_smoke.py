@@ -189,10 +189,14 @@ The kernels' other hidden widths (ops/widths.py):
              hsz 256 on the card against the CPU (phase train_vs_cpu's
              bars); K = 4 replays at hsz 256 equal to as many eager steps
              bit for bit (deterministic algorithms on), both paths; the
-             replayed train steps (K = 4) of hsz 128 and 256, both paths,
-             timed in turns with busy ms, idle share, launches a step and
-             QA/s, the hsz-256 traces holding the D = 256 forwards and
-             backwards and no kernel of D = 128.  After ``wide_serving``.
+             replayed train steps (K = 4) of hsz 128, 256, 64 and the
+             padded widths, both paths (``train_steps``: graphs that keep
+             their nodes), timed in turns, with QA/s, the graph's nodes a
+             step, and from a profiled window busy ms, the idle share
+             against that window's host ms and the trace's launches
+             (``train_step_rows``); the traces holding their width's
+             forwards and backwards and no kernel of D = 128.  After
+             ``wide_serving``.
 
 Then the ``kernels`` summary line, and last ``{"ok": true, "device": ...}``.
 Any failure exits non-zero without that line.
@@ -1053,16 +1057,20 @@ def phase_merged_main(dev, workdir, cfg, sd, pred_sep, cpu):
     return launches
 
 
-def profile_steps(step, n):
+def profile_steps(step, n, window=None):
     """Device busy time per step (the kernels' own times: one stream, no
     overlap; the profiler's annotation ranges such as the optimizer's are
     not kernels), launches per step, the kernels by device time and every
-    kernel's launches (by name), over ``n`` profiled steps."""
+    kernel's launches (by name), over ``n`` profiled steps; ``window``, a
+    list, also gets the profiled steps' host ms a step."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(n):
             step()
         torch.cuda.synchronize()
+        if window is not None:
+            window.append((time.perf_counter() - t0) * 1e3 / n)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
@@ -1285,21 +1293,20 @@ def phase_wide_serving(dev, workdir, cfg, sd):
 
 
 # the kernels a train step at a width other than 128 must show in its trace
-# (bf16): the backwards of csrc/*_bwd_wide.cu and encoder_bwd_tc_wide.cu
-# (all on the tensor cores but the attention's at D = 64) and their
-# tensor-core weight gradient (wgrad_tc.cuh, shared by every width: its
-# width is an argument, its column tile 64 at D = 64 and 128 above); and
-# the D = 128 kernels it must not show (forwards and backwards, both
-# instantiations)
+# (bf16): the backwards of csrc/*_bwd_wide.cu and encoder_bwd_tc_wide.cu,
+# all on the tensor cores (the attention's and its gq kernel at D = 64 and
+# the tri bridge's at 256 of their own design), and their tensor-core
+# weight gradient (wgrad_tc.cuh, shared by every width: its width is an
+# argument, its column tile 64 at D = 64 and 128 above); and the D = 128
+# kernels it must not show (forwards and backwards, both instantiations)
 def wide_bwd_trace(d):
-    tc = d == 256
-    rows = "__nv_bfloat16" if tc else "float"
-    return ("qa_ctx_bwd_tc_wide_kernel<" if tc
-            else f"qa_ctx_bwd_wide_kernel<__nv_bfloat16,{d},",
-            f"qa_ctx_gq_wide_kernel<__nv_bfloat16,{rows},{d}>",
-            f"tri_bridge_bwd_tc_wide_kernel<{d}>",
-            f"encoder_bwd_tc_wide_kernel<5,{d}>",
-            f"wgrad_tc_kernel<{64 if d == 64 else 128}>")
+    bf = "__nv_bfloat16"
+    att = (("qa_ctx_bwd_tc_wide_kernel<", f"qa_ctx_gq_wide_kernel<{bf},{bf},256>",
+            "tri_bridge_bwd_tc256_kernel") if d == 256 else
+           ("qa_ctx_bwd_tc64_kernel<", "qa_ctx_gq_tc64_kernel",
+            f"tri_bridge_bwd_tc_wide_kernel<{d}>"))
+    return att + (f"encoder_bwd_tc_wide_kernel<5,{d}>",
+                  f"wgrad_tc_kernel<{64 if d == 64 else 128}>")
 
 
 D128_TRACE = ("qa_ctx_fwd_tc_kernel<128,", "tri_bridge_fwd_tc_kernel<128>",
@@ -1326,8 +1333,7 @@ def check_wide_train_trace(step, names, merged, d):
         raise AssertionError(f"{step}: D = 128 kernels launched {at128}")
     return sorted({nm.replace("(anonymousnamespace)::", "")
                    .replace("void", "").split("(")[0]
-                   for nm in flat if "_wide_kernel" in nm
-                   or "wgrad_tc_kernel<" in nm})
+                   for nm in flat if any(w in nm for w in want)})
 
 
 def wide_train_cli(dev, workdir, hsz, merged, steps_per_dispatch):
@@ -1408,6 +1414,76 @@ def replays_equal_eager_train(cfg, dev, k):
     return out
 
 
+def keep_graph_nodes():
+    """Makes the CUDA graphs captured from here on keep their cudaGraph_t,
+    whose nodes ``graph_nodes`` counts; returns the call that undoes it."""
+    graph_cls = torch.cuda.CUDAGraph
+    torch.cuda.CUDAGraph = lambda: graph_cls(keep_graph=True)
+    return lambda: setattr(torch.cuda, "CUDAGraph", graph_cls)
+
+
+def train_steps(dev, workdir, hszs):
+    """The replayed train dispatch (K = 4) of four stacked headline batches
+    (bf16, dropout 0.1) at each width of ``hszs``, separate and merged
+    path: each a Trainer's, warmed up, captured in a graph that keeps its
+    nodes and replayed once (the graph instantiated).  Returns the steps by
+    name and, on the card, each graph's nodes a step."""
+    from tvqaplus_tpu_torch.train.loop import Trainer
+    steps, nodes = {}, {}
+    restore = keep_graph_nodes()
+    try:
+        for hsz in hszs:
+            for merged in (False, True):
+                cfg = train_config(workdir, bsz=B, hsz=hsz,
+                                   merge_input_streams=merged).finalize(dev)
+                name = (f"hsz{hsz}_{'merged' if merged else 'separate'}"
+                        "_graph_k4")
+                trainer = Trainer(cfg, dev)
+                four = stacked(train_batch(cfg, dev, B), DISPATCH_K)
+                steps[name] = lambda t=trainer, b=four: t.dispatch_train(b)
+                steps[name]()              # warm-up and capture
+                steps[name]()              # the graph instantiated
+                torch.cuda.synchronize()
+                if DEVICE == "cuda":
+                    nodes[name] = graph_nodes(trainer.graphs) / DISPATCH_K
+    finally:
+        restore()
+    return steps, nodes
+
+
+def train_step_rows(steps, nodes):
+    """A row for each of ``train_steps``' steps: host ms a step over
+    ``TRAIN_STEPS`` steps in turns (``timed_steps``), trained QA/s, the
+    loss; from a profiled window of two dispatches the device's busy ms,
+    the window's own host ms a step and the idle share against it, the
+    launches in the trace, the top kernels and every kernel's name
+    ("names"); the graph's nodes a step."""
+    k = DISPATCH_K
+    clock = timed_steps(steps, TRAIN_STEPS // k)
+    rows = {}
+    for name, step in steps.items():
+        step_ms, turns = clock[name][0] / k, [t / k for t in clock[name][1]]
+        loss = float(step()["loss"]) / k
+        if not math.isfinite(loss):
+            raise AssertionError(f"{name}: training loss {loss}")
+        window = []
+        busy_ms, per_step, top, names = profile_steps(step, 2, window)
+        if busy_ms is not None:
+            busy_ms, per_step = busy_ms / k, per_step / k
+        window_ms = window[0] / k
+        rows[name] = {
+            "hsz": int(name[3:name.index("_")]), "steps_per_dispatch": k,
+            "loss": loss, "step_ms": step_ms, "step_ms_turns": turns,
+            "qa_pairs_per_s": B / (step_ms / 1e3),
+            "device_busy_ms": busy_ms, "profiled_step_ms": window_ms,
+            "device_idle_share": None if busy_ms is None
+            else 1 - busy_ms / window_ms,
+            "launches_per_step": per_step,
+            "graph_nodes_per_step": nodes.get(name),
+            "top_kernels": top[:8], "names": names}
+    return rows
+
+
 def phase_wide_training(workdir):
     """Runs ``wide_training`` in a process of its own (``python3
     chip_smoke.py --wide-training WORKDIR``), its lines on this process's
@@ -1442,12 +1518,12 @@ def wide_training(dev, workdir):
     128; validation and a checkpoint); a float32 train step at hsz 256
     against the CPU (``phase_train_vs_cpu``'s bars); K = 4 replays equal to
     eager steps at hsz 256, both paths; and the replayed train steps (K =
-    4) of hsz 128, 256 and the padded widths ``PADDED_WIDTHS``, both paths,
-    timed in turns, each step's trace holding its instantiation's kernels
-    only (a padded width's counted under its own width: one replay's
-    launches).  Returns the launches of each width's CLI runs (a padded
-    width's replay) by counter key."""
-    from tvqaplus_tpu_torch.train.loop import Trainer
+    4) of hsz 128, 256, 64 and the padded widths ``PADDED_WIDTHS``, both
+    paths, timed in turns, each step's trace holding its instantiation's
+    kernels only (a padded width's counted under its own width: one
+    replay's launches), each graph's nodes counted (``graph_nodes``).
+    Returns the launches of each width's CLI runs (a padded width's
+    replay) by counter key."""
     t_phase = time.perf_counter()
     runs, launches = {}, {}
     for hsz in WIDE_TRAIN_HSZ:
@@ -1459,50 +1535,29 @@ def wide_training(dev, workdir):
                              if merged == k.startswith("encoder_block")})
     vs_cpu = phase_train_vs_cpu(dev, workdir, hsz=WIDE_HSZ)
     replay, padded = {}, {}
-    steps, names_of = {}, {}
-    for hsz in (D, WIDE_HSZ) + PADDED_WIDTHS:
-        for merged in (False, True):
-            cfg = train_config(workdir, bsz=B, hsz=hsz,
-                               merge_input_streams=merged).finalize(dev)
-            name = f"hsz{hsz}_{'merged' if merged else 'separate'}_graph_k4"
-            if hsz == WIDE_HSZ:
-                replay[name] = replays_equal_eager_train(cfg, dev,
-                                                         DISPATCH_K)
-            trainer = Trainer(cfg, dev)
-            four = stacked(train_batch(cfg, dev, B), DISPATCH_K)
-            steps[name] = lambda t=trainer, b=four: t.dispatch_train(b)
-            steps[name]()                  # warm-up and capture
-            torch.cuda.synchronize()
-            if hsz in PADDED_WIDTHS:       # one replay's launches
-                keys = MERGED_TRAIN if merged else SEPARATE_TRAIN
-                reset_counters()
-                steps[name]()
-                torch.cuda.synchronize()
-                got = read_counters(tuple(f"{k}@{hsz}" for k in keys))
-                padded[name] = {k: got[f"{k}@{hsz}"] for k in keys}
-                launches.update({f"{k}@{hsz}": got[f"{k}@{hsz}"]
-                                 for k in keys
-                                 if merged == k.startswith("encoder_block")})
-    clock = timed_steps(steps, TRAIN_STEPS // DISPATCH_K)
-    train = {}
+    for merged in (False, True):
+        cfg = train_config(workdir, bsz=B, hsz=WIDE_HSZ,
+                           merge_input_streams=merged).finalize(dev)
+        name = f"hsz{WIDE_HSZ}_{'merged' if merged else 'separate'}_graph_k4"
+        replay[name] = replays_equal_eager_train(cfg, dev, DISPATCH_K)
+    steps, nodes = train_steps(dev, workdir, (D, WIDE_HSZ, 64)
+                               + PADDED_WIDTHS)
     for name, step in steps.items():
         hsz = int(name[3:name.index("_")])
-        merged = "merged" in name
-        k = DISPATCH_K
-        step_ms, turns = clock[name][0] / k, [t / k for t in clock[name][1]]
-        loss = float(step()["loss"]) / k
-        if not math.isfinite(loss):
-            raise AssertionError(f"{name}: training loss {loss}")
-        busy_ms, per_step, top, names = profile_steps(step, 2)
-        if busy_ms is not None:
-            busy_ms, per_step = busy_ms / k, per_step / k
-        row = {"hsz": hsz, "steps_per_dispatch": k, "loss": loss,
-               "step_ms": step_ms, "step_ms_turns": turns,
-               "qa_pairs_per_s": B / (step_ms / 1e3),
-               "device_busy_ms": busy_ms,
-               "device_idle_share": None if busy_ms is None
-               else 1 - busy_ms / step_ms,
-               "launches_per_step": per_step, "top_kernels": top[:8]}
+        if hsz in PADDED_WIDTHS:       # one replay's launches
+            merged = "merged" in name
+            keys = MERGED_TRAIN if merged else SEPARATE_TRAIN
+            reset_counters()
+            step()
+            torch.cuda.synchronize()
+            got = read_counters(tuple(f"{k}@{hsz}" for k in keys))
+            padded[name] = {k: got[f"{k}@{hsz}"] for k in keys}
+            launches.update({f"{k}@{hsz}": got[f"{k}@{hsz}"] for k in keys
+                             if merged == k.startswith("encoder_block")})
+    train = train_step_rows(steps, nodes)
+    for name, row in train.items():
+        hsz, merged = row["hsz"], "merged" in name
+        names = row.pop("names")
         # an empty trace fails here as in every phase
         if padded_width(hsz) != D:
             row["wide_kernels"] = check_wide_train_trace(
@@ -1511,7 +1566,6 @@ def wide_training(dev, workdir):
             row["tc_forwards"] = check_tc_forwards(name, names, merged)
         if name in padded:
             row["launches_at_true_width"] = padded[name]
-        train[name] = row
     emit({"phase": "wide_training", "ok": True, "batch": B, "frames": LI,
           "compute_dtype": "bfloat16", "dropout": 0.1, "cli_runs": runs,
           "train_vs_cpu": vs_cpu, "replay_equals_eager": replay,
@@ -2985,9 +3039,7 @@ def mesh_off(dev, workdir, dp_launches, dp_per_step):
                         local_device_ids=[dev.index or 0], device=dev.type)
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     torch.use_deterministic_algorithms(True)
-    graph_cls = torch.cuda.CUDAGraph
-    # the trainers' graphs keep their cudaGraph_t, whose nodes are counted
-    torch.cuda.CUDAGraph = lambda: graph_cls(keep_graph=True)
+    restore = keep_graph_nodes()     # the trainers' graphs' nodes counted
     try:
         mesh = dp.make_mesh((1, 1, 1))
         if mesh.ctx_group is not None or mesh.model_group is not None:
@@ -3034,7 +3086,7 @@ def mesh_off(dev, workdir, dp_launches, dp_per_step):
             raise AssertionError("(1, 1, 1) vs no group: the serve pass's "
                                  "predictions differ")
     finally:
-        torch.cuda.CUDAGraph = graph_cls
+        restore()
         torch.use_deterministic_algorithms(False)
         dp.close()
     return {"bitwise_equal": True, "launches": launches,

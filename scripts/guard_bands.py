@@ -13,11 +13,14 @@ differ), and the inputs must be unchanged.  Needs one NVIDIA GPU.
 It runs ``chip_smoke.py``'s ``train_kernel_cases`` at each width (the
 headline shapes, dropout 0.1), prints one JSON line a case and dtype, and
 exits 1 if any band, output or input is wrong.  ``--edges`` runs instead
-the bf16 backwards at D = 256 at the edges of their layouts (``EDGES``:
-the encoder at L 56 / k 9, L 5 / k 1 and 40 / k 5 over more tiles than
-SMs, reduce and full output; the attention at M 1, 65 and 200 with Lr 1,
-33 and 64), where a tile is ragged, a ring runs on into the next tile or
-p0 fills the cn tile.  A kernel's addressing
+the bf16 backwards of their own designs at the edges of their layouts
+(``EDGES``: at D = 256 the encoder at L 56 / k 9, L 5 / k 1 and 40 / k 5
+over more tiles than SMs, reduce and full output, the attention at M 1,
+65 and 200 with Lr 1, 33 and 64, the tri bridge at 100 rows and at 20,655
+(more tiles than SMs, its ring run on into the next tile); the attention
+at D = 64 at M 1, 65 and 200 with Lr 1, 33 and 64), where a tile is
+ragged, a ring runs on into the next tile or p0 fills its room.  A kernel's
+addressing
 depends only on its shapes and pointers, so a call captured in a CUDA graph
 writes where the eager call writes.
 """
@@ -99,23 +102,29 @@ def run(cs, case, dt, gen_seed):
             [o.detach() for o in outs] + [t.grad for t in leaves])
 
 
-# (family, shape): encoder (B, G, L, k, mode), attention (A, Lqa, Lr, raw)
+# (family, shape): encoder (B, G, L, k, mode), attention at 256 and 64
+# (A, Lqa, Lr, raw), tri bridge at 256 (rows,)
 EDGES = [("encoder", (1, 7, 56, 9, "reduce")), ("encoder", (1, 7, 5, 1,
                                                            "block")),
          ("encoder", (2, 100, 40, 5, "reduce")),
          ("encoder", (1, 7, 50, 7, "block")),
          ("attention", (1, 1, 1, "none")), ("attention", (5, 13, 33,
                                                           "target")),
-         ("attention", (5, 40, 64, "target"))]
+         ("attention", (5, 40, 64, "target")),
+         ("tri", (100,)), ("tri", (20655,)),
+         ("attention64", (1, 1, 1, "none")),
+         ("attention64", (5, 13, 33, "full")),
+         ("attention64", (5, 40, 64, "target"))]
 
 
 def edge_call(dev, family, shape):
-    """Forward + backward of one EDGES case at D = 256 in bf16, dropout
-    0.1, on inputs made from a seed: as ``run``."""
+    """Forward + backward of one EDGES case in bf16 (D = 64 for
+    "attention64", else 256), dropout 0.1, on inputs made from a seed: as
+    ``run``."""
     from tvqaplus_tpu_torch.models.attention import l2_normalize
-    from tvqaplus_tpu_torch.ops import encoder, qa_ctx_attention
+    from tvqaplus_tpu_torch.ops import encoder, qa_ctx_attention, tri_bridge
     gen = torch.Generator().manual_seed(25)
-    d, bf = 256, torch.bfloat16
+    d, bf = (64 if family == "attention64" else 256), torch.bfloat16
 
     def rnd(*s, scale=1.0):
         return torch.randn(*s, generator=gen) * scale
@@ -139,6 +148,17 @@ def edge_call(dev, family, shape):
         else:
             out = encoder.encoder_block(x, pe, p, k, None, 0.1, 12345)
         ins, leaves = [x, pe] + list(p.values()), [x] + list(p.values())
+    elif family == "tri":
+        (rows,) = shape
+        ins = [rnd(rows, d).to(dev, bf), rnd(rows, d).to(dev, bf),
+               (1 + rnd(3 * d, scale=0.1)).to(dev),
+               rnd(3 * d, scale=0.1).to(dev),
+               rnd(3 * d, d, scale=(3 * d) ** -0.5).to(dev),
+               rnd(d, scale=0.1).to(dev), (1 + rnd(d, scale=0.1)).to(dev),
+               rnd(d, scale=0.1).to(dev)]
+        ins = [t.detach().requires_grad_(True) for t in ins]
+        out = tri_bridge.tri_bridge(*ins, 0.1, 12345)
+        leaves = ins
     else:
         a, lqa, lr, raw = shape
         ce = rnd(2, a, lqa, d).to(dev, bf)
@@ -197,7 +217,8 @@ def main():
         same_out = all(torch.equal(x, y) for x, y in zip(got, want))
         ok = bad == 0 and same_in and same_out
         failed += not ok
-        print(json.dumps({"edge": family, "shape": shape, "width": 256,
+        print(json.dumps({"edge": family, "shape": shape,
+                          "width": 64 if family == "attention64" else 256,
                           "banded_buffers": n_bufs, "bands_broken": bad,
                           "same_bits_as_unbanded": same_out,
                           "inputs_unchanged": same_in, "ok": ok}), flush=True)

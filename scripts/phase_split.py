@@ -1,28 +1,34 @@
 """Where a block's time goes in the bf16 backward kernels at D = 256
-(``csrc/qa_ctx_attention_bwd_wide.cu`` ``qa_ctx_bwd_tc_wide_kernel`` and
-``csrc/encoder_bwd_tc_wide.cu``'s ``Enc256`` kernel), phase by phase, from
+(``csrc/qa_ctx_attention_bwd_wide.cu`` ``qa_ctx_bwd_tc_wide_kernel``,
+``csrc/encoder_bwd_tc_wide.cu``'s ``Enc256`` kernel and
+``csrc/tri_bridge_bwd_wide.cu``'s kernel at 256), phase by phase, from
 ``clock64()`` stamps in a copy of the sources; and what the attention's
 g_yd products cost, from copies with parts of them taken out.
 
-    python3 scripts/phase_split.py [--width D] [--ablations]
+    python3 scripts/phase_split.py [--width D] [--ablations] [--families F,..]
 
 Run from a tree's root (its ``chip_smoke.py`` and package are imported);
 needs one NVIDIA GPU.  The sources in the tree carry no stamps: the script
-copies the two into ``build/phase_split/``, inserts ``TVQA_PHASE(i)`` at
+copies them into ``build/phase_split/``, inserts ``TVQA_PHASE(i)`` at
 the places ``STAMPS`` names (each anchor must occur once in its kernel,
 ``tests/test_torch_bwd256_layouts.py`` holds them to the sources) with a
 buffer of 32 cycle counters in front, and builds the copies beside the
 tree's libraries; thread 0 of every block adds the cycles since its last
-stamp to counter i.  For each backward case of ``train_kernel_cases`` at
-width D (default 256; dropout 0.1) it prints one JSON line: each kernel's
-device ms per call from ``torch.profiler`` (the tree's own build), then the
-stamped main kernel's cycles per phase and each phase's share.  Thread 0
-waits at the block's barriers, so a phase holds the block's critical path
-through it, waits included.
+stamp to counter i.  A source whose kernel is an older design is stamped
+by that design's entry (``VARIANTS``: the tri bridge's before its
+redesign, ``@g_yd twice``), so the script run from a parent tree's root splits
+the parent's kernel.  For each backward case of ``train_kernel_cases`` at
+width D (default 256; dropout 0.1) of the families named (default: the
+attention, the encoders and the tri bridge) it prints one JSON line: each
+kernel's device ms per call from ``torch.profiler`` (the tree's own
+build), then the stamped main kernel's cycles per phase and each phase's
+share.  Thread 0 waits at the block's barriers, so a phase holds the
+block's critical path through it, waits included.
 
 ``--ablations`` also builds one copy of the attention source for each of
 ``ABLATIONS`` (its g_yd loop with one part taken out: the results are wrong,
-only the time is read) and prints, for each attention case, the main
+only the time is read) and of the tri bridge source for each of
+``TRI_ABLATIONS``, and prints, for each case of those families, the main
 kernel's device ms under each copy beside the tree's own.
 """
 import ctypes
@@ -35,9 +41,18 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 ATT, ENC = "qa_ctx_attention_bwd_wide.cu", "encoder_bwd_tc_wide.cu"
-# the kernel a source's stamps go into: from this line to its closing "}"
+TRI = "tri_bridge_bwd_wide.cu"
+TRI_TWICE = TRI + "@g_yd twice"     # the tri bridge before its redesign
+SOURCE_OF = {"qa_ctx_attention": ATT, "encoder": ENC, "encoder_block": ENC,
+             "tri_bridge": TRI}
+# a source's designs, newest first: the first whose kernel start occurs in
+# the text is the one stamped
+VARIANTS = {ATT: (ATT,), ENC: (ENC,), TRI: (TRI, TRI_TWICE)}
+# the kernel a design's stamps go into: from this line to its closing "}"
 KERNEL_START = {ATT: "  using S = AttTcWide<LRP>;\n",
-                ENC: "  using S = Enc256;\n"}
+                ENC: "  using S = Enc256;\n",
+                TRI: "  using S = Tri256;\n",
+                TRI_TWICE: "  using S = TriBwdTc<D>;\n  constexpr int NF"}
 PHASES = {
     ATT: ("frame", "stage", "keep bits", "scores, softmax", "LN stats",
           "pass A rows", "pass B rows", "g_att, g_p, softmax bwd, gcn",
@@ -45,6 +60,12 @@ PHASES = {
     ENC: ("setup", "tile head", "LN fwd", "conv", "c pw", "g_y tile",
           "g_y pw^T", "conv bwd", "dw grad", "LN bwd", "t tile", "cotangent",
           "misc", "block sums"),
+    TRI: ("setup", "stage", "LN_in, yd", "y1 products", "y1 end, s and v",
+          "LN_out, g_y1", "g_yd products", "pass A rows", "row sums",
+          "pass B", "block sums"),
+    TRI_TWICE: ("setup", "stage", "LN_in, yd", "y1 products", "LN_out, g_y1",
+               "pass 1 g_yd products", "pass 1 rows", "row sums",
+               "pass 2 g_yd products", "pass 2 rows", "block sums"),
 }
 # (text before, text after, indent, phase): the stamp goes between the two
 # texts, whose join occurs once in the kernel; phase None is the clock's
@@ -92,6 +113,43 @@ STAMPS = {
         ("    }\n", "  }\n  // ---- the block's parameter-vector", 4, 12),
         ("  }\n", "}\n", 2, 13),
     ],
+    TRI: [
+        ("  drop.load_seed();\n", "", 2, None),
+        ("", "  int ti = 0;\n", 2, 0),
+        ("", "    // ---- the recompute: LN_in statistics, yd", 4, 1),
+        ("", "    open_s = ti;\n", 4, 2),
+        ("", "    tc::fence_async_smem();\n    __syncthreads();"
+         "                   // y1 is done", 4, 3),
+        ("", "    float m2[2], i2[2];\n", 4, 4),
+        ("", "    // ---- pass A: g_yd once", 4, 5),
+        ("        tc::fence_regs(ac);\n", "", 8, 6),
+        ("          vbi[g][u][qh] += tb[0];\n        }\n", "      }\n    }\n",
+         8, 7),
+        ("    tri_row_pair_sums(ex_s + 3 * 2 * TM * 2, t1, t2, wg, rl, lane);\n",
+         "", 4, 8),
+        ("    tile_rows_out<D>(gv + r0 * D, gv_s, rows, tid);\n", "  }\n", 4, 9),
+        ("        ((red[k] + red[NVT + k]) + red[2 * NVT + k]) + "
+         "red[3 * NVT + k];\n", "", 2, 10),
+    ],
+    TRI_TWICE: [
+        ("  drop.load_seed();\n", "", 2, None),
+        ("", "  const long long tiles = (R + TM - 1) / TM;\n", 2, 0),
+        ("", "    // ---- the recompute: LN_in statistics", 4, 1),
+        ("", "    float acc[D / 4], m2[2], i2[2];\n", 4, 2),
+        ("      tri_y1_mma<D>(acc, yd_s, sm, wg);\n", "", 4, 3),
+        ("", "    // ---- pass 1: g_yd a group", 4, 4),
+        ("      tri_gyd_mma<D>(acc, sm, W, g, wg);\n",
+         "      float tg[NF], tb[NF];\n", 6, 5),
+        ("      fold_cols<NF>(tb, vbi[g], lane);\n", "    }\n", 6, 6),
+        ("    tri_row_pair_sums(ex_s + 3 * 2 * TM * 2, t1, t2, wg, rl, lane);\n",
+         "", 4, 7),
+        ("      tri_gyd_mma<D>(acc, sm, W, g, wg);\n",
+         "#pragma unroll\n      for (int pr", 6, 8),
+        ("              tc::pack_bf16(o[0], o[1]);\n      }\n", "    }\n  }\n",
+         6, 9),
+        ("        ((red[k] + red[NVT + k]) + red[2 * NVT + k]) + "
+         "red[3 * NVT + k];\n", "", 2, 10),
+    ],
 }
 # The attention's g_yd loop with one part taken out, (old, new) edits of
 # its kernel: the tensor-core wait after each slab (one wait at the end of
@@ -115,6 +173,27 @@ ABLATIONS = {
          "        tc::mma_ss<64, 0, 0>(acc,")],
     "no W copies": [("    if (j < total) {\n", "    if (j < 0) {\n")],
 }
+# The tri bridge at D = 256 with one part taken out (its results wrong):
+# the yd rows written out, the P and Q scratch rows (pass A's stores, pass
+# B's loads), the dropout's keep bits (as if the dropout were off), W's
+# copies into the ring (each slot's barrier completed with no bytes).
+TRI_ABLATIONS = {
+    "no yd rows": [
+        ("    tile_rows_out<3 * D>(yd_rows + r0 * (3 * D), yd_s, rows, tid);\n",
+         "")],
+    "no PQ rows": [
+        ("              if (g != 2 && live[h])\n",
+         "              if (g != 2 && live[h] && R < 0)\n"),
+        ("      if (live[h]) {\n        P = ", "      if (live[h] && R < 0) {\n        P = ")],
+    "no keep bits": [
+        ("    tri_keep_bits<D>(drop, row, lane, half, kw);\n",
+         "    tri_keep_bits<D>(Dropout{}, row, lane, half, kw);\n")],
+    "no W copies": [
+        ("      tc::mbar_expect_tx(full + k, S::SLAB);\n", ""),
+        ("      tc::bulk_g2s(S::slot_ptr(sm, k), Wp + static_cast<size_t>(sl) "
+         "* (S::SLAB / 2),\n                   S::SLAB, full + k);\n",
+         "      tc::mbar_arrive(full + k);\n")],
+}
 DEFS = r"""
 #include <cuda_runtime.h>
 __device__ unsigned long long tvqa_phase_cycles[32];
@@ -137,10 +216,21 @@ extern "C" int tvqa_phase_read(unsigned long long* out) {
 """
 
 
+def variant(text, src):
+    """The design of ``src`` whose kernel ``text`` holds (a key of
+    ``KERNEL_START``)."""
+    for name in VARIANTS.get(src, (src,)):
+        if KERNEL_START[name] in text:
+            return name
+    raise ValueError(f"{src}: no known kernel design in the text")
+
+
 def kernel_span(text, src):
     """(start, end) of the kernel in ``text`` that ``src``'s edits go
-    into."""
-    i0 = text.index(KERNEL_START[src])
+    into (``src`` a source or one of its designs)."""
+    start = KERNEL_START[src] if src in KERNEL_START \
+        else KERNEL_START[variant(text, src)]
+    i0 = text.index(start)
     return i0, text.index("\n}\n", i0) + 3
 
 
@@ -157,13 +247,14 @@ def edit_kernel(text, src, edits):
 
 
 def stamped(text, src):
-    """``text`` with ``src``'s phase stamps inserted."""
+    """``text`` with the phase stamps of ``src``'s design in it inserted."""
+    name = variant(text, src)
     edits = []
-    for before, after, indent, phase in STAMPS[src]:
+    for before, after, indent, phase in STAMPS[name]:
         mark = "TVQA_PHASE_INIT" if phase is None else f"TVQA_PHASE({phase})"
         edits.append((before + after,
                       before + " " * indent + mark + "\n" + after))
-    return edit_kernel(text, src, edits)
+    return edit_kernel(text, name, edits)
 
 
 def build_copies(build, copies):
@@ -227,6 +318,8 @@ def main():
         return 1
     args = sys.argv[1:]
     d = int(args[args.index("--width") + 1]) if "--width" in args else 256
+    families = args[args.index("--families") + 1].split(",") \
+        if "--families" in args else list(SOURCE_OF)
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
     from tvqaplus_tpu_torch.ops import _build as build
@@ -234,8 +327,7 @@ def main():
     build.build_all()
     print(cs.phase_device(), flush=True)
     cases = [c for c in cs.train_kernel_cases(dev, d)
-             if c.key in ("qa_ctx_attention", "encoder", "encoder_block")
-             and "no mask" not in c.name]
+             if c.key in families and "no mask" not in c.name]
     calls = {}
     for case in cases:
         a, base_kw = case.args(torch.bfloat16)
@@ -243,22 +335,28 @@ def main():
         ins, leaves = cs._leaves(a, case.diff)
         outs = cs._outputs(case.kernel(*ins, **kw))
         cots = [torch.ones_like(o) for o in outs]
-        src = ATT if case.key == "qa_ctx_attention" else ENC
+        src = SOURCE_OF[case.key]
         calls[case.name] = (src, lambda o=outs, l=leaves, c=cots:
                             torch.autograd.grad(o, l, c, retain_graph=True))
     own = {name: device_ms(fn) for name, (_, fn) in calls.items()}
     texts = {}
-    for src in (ATT, ENC):
+    srcs = sorted({src for src, _ in calls.values()})
+    for src in srcs:
         with open(os.path.join(build.CSRC, src)) as f:
             texts[src] = f.read()
     copies = [(f"stamped {src[:-3]}", src, stamped(texts[src], src))
-              for src in (ATT, ENC)]
+              for src in srcs]
+    ablations = {}
     if "--ablations" in args:
-        copies += [(name, ATT, edit_kernel(texts[ATT], ATT, edits))
-                   for name, edits in ABLATIONS.items()]
+        for src, table in ((ATT, ABLATIONS), (TRI, TRI_ABLATIONS)):
+            if src in texts and variant(texts[src], src) == src:
+                for name, edits in table.items():
+                    ablations[name] = src
+                    copies.append((name, src,
+                                   edit_kernel(texts[src], src, edits)))
     libs = build_copies(build, copies)
     readers = {src: use_library(build, src, libs[f"stamped {src[:-3]}"])
-               .tvqa_phase_read for src in (ATT, ENC)}
+               .tvqa_phase_read for src in srcs}
     buf = (ctypes.c_ulonglong * 32)()
     for name, (src, fn) in calls.items():
         fn()
@@ -268,22 +366,22 @@ def main():
         torch.cuda.synchronize()
         if readers[src](buf) != 0:
             raise RuntimeError("reading the phase counters failed")
-        names = PHASES[src]
+        names = PHASES[variant(texts[src], src)]
         cycles = {names[i]: int(buf[i]) for i in range(len(names))}
         total = sum(cycles.values()) or 1
         print(json.dumps({
             "tree": os.getcwd(), "case": name, "width": d,
             "device_ms": own[name], "cycles": cycles,
             "share": {k: v / total for k, v in cycles.items()}}), flush=True)
-    if "--ablations" in args:
-        att = {name: fn for name, (src, fn) in calls.items() if src == ATT}
-        for variant in ABLATIONS:
-            use_library(build, ATT, libs[variant])
-            for name, fn in att.items():
-                print(json.dumps({
-                    "tree": os.getcwd(), "case": name, "width": d,
-                    "ablation": variant, "device_ms": device_ms(fn),
-                    "own_device_ms": own[name]}), flush=True)
+    for ablation, src in ablations.items():
+        use_library(build, src, libs[ablation])
+        for name, (case_src, fn) in calls.items():
+            if case_src != src:
+                continue
+            print(json.dumps({
+                "tree": os.getcwd(), "case": name, "width": d,
+                "ablation": ablation, "device_ms": device_ms(fn),
+                "own_device_ms": own[name]}), flush=True)
     return 0
 
 

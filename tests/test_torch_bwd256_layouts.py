@@ -134,7 +134,8 @@ def phase_split():
 
 
 @pytest.mark.parametrize("source", ["qa_ctx_attention_bwd_wide.cu",
-                                    "encoder_bwd_tc_wide.cu"])
+                                    "encoder_bwd_tc_wide.cu",
+                                    "tri_bridge_bwd_wide.cu"])
 def test_the_phase_stamps_go_into_a_copy_of_the_kernel(source):
     """The kernels carry no measurement code; each of phase_split's stamp
     anchors occurs once in its kernel, so the stamped copy has one stamp
@@ -143,6 +144,7 @@ def test_the_phase_stamps_go_into_a_copy_of_the_kernel(source):
     with open(os.path.join(CSRC, source)) as f:
         text = f.read()
     assert "TVQA_PHASE" not in text and "clock64" not in text
+    assert ps.variant(text, source) == source       # the newest design
     out = ps.stamped(text, source)
     i0, i1 = ps.kernel_span(out, source)
     marks = re.findall(r"TVQA_PHASE(?:_INIT|\((\d+)\))", out[i0:i1])

@@ -1892,3 +1892,100 @@ def test_encoder_backward_at_256_keys_a_rank_s_rows_as_the_whole(cuda, l, k):
                 rows.to(torch.int32), g), **kw), xr, cot[:, rows].contiguous())
         torch.cuda.synchronize()
         assert torch.equal(got, ref[:, rows]), c
+
+
+# rows of the tri bridge's backward at D = 256 / 200: 100, 43 x 3 = 129 and
+# 1 (neither 64 nor 128 divides them), 20,655 (324 tiles: blocks walk two
+# or three, so the ring runs across tiles) and the headline 160,000
+TRI256_ROWS = [(1, 1, 1, 100), (1, 1, 3, 43), (1, 1, 1, 1), (3, 5, 17, 81),
+               (16, 5, 50, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("d", [256, 200])
+@pytest.mark.parametrize("rows", TRI256_ROWS)
+def test_tri_bridge_backward_at_256_matches_plain(cuda, rows, d, dropout):
+    """The bf16 tri bridge backward at D = 256 (g_yd once a tile, W in
+    bf16 slabs through the copy engine's ring) and at 200 (padded into it)
+    against autograd through the plain version at ``GRAD_TOL``, twice for
+    the same bits, each launch on its true width's counter."""
+    dt = torch.bfloat16
+    gen = torch.Generator().manual_seed(25)
+    params = [1 + randn(gen, 3 * d, scale=0.1), randn(gen, 3 * d, scale=0.1),
+              randn(gen, 3 * d, d, scale=(3 * d) ** -0.5),
+              randn(gen, d, scale=0.1), 1 + randn(gen, d, scale=0.1),
+              randn(gen, d, scale=0.1)]
+    args = [randn(gen, *rows, d).to(cuda, dt),
+            randn(gen, *rows, d).to(cuda, dt)] + [t.to(cuda) for t in params]
+    flip = checks.tri_bridge_flip_rows(*args[:6], dropout, SEED)
+    cot = [randn(gen, *rows, d).to(cuda) * (~flip)[..., None]]
+    counter = width_counter(tri_bridge.BWD_BY_WIDTH, d)
+
+    def run(fn):
+        return grads_of(lambda *a: fn(*a, dropout, SEED), leaves(args),
+                        cot)[1]
+    n0 = counter.launches
+    g_k = run(tri_bridge.tri_bridge)
+    g_again = run(tri_bridge.tri_bridge)
+    g_p = run(tri_bridge.tri_bridge_plain)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 2
+    assert g_k[0].dtype == g_k[1].dtype == dt
+    for i, (gk, ga, gp) in enumerate(zip(g_k, g_again, g_p)):
+        assert torch.equal(gk, ga), f"grad {i} differs between two runs"
+        checks.hold_grad(f"D {d} grad {i}", gk, gp, tri_bridge.GRAD_TOL[dt])
+
+
+# (A, Lqa, Li, Lr, raw mode): M = 200 (three 64-row tiles and 8 rows) and
+# 39 on 3 frames at every Lr and mode; M = 200 on 40 frames (320 tiles:
+# blocks of two warpgroups walk more than one each) at the vid site's
+ATT64_CASES = [(a, lqa, 3, lr, mode) for a, lqa in ((5, 40), (3, 13))
+               for lr in (1, 25, 50, 64) for mode in ("none", "full",
+                                                     "target")] + [
+    (5, 40, 40, 25, "target")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("a,lqa,li,lr,raw_mode", ATT64_CASES)
+def test_attention_backward_at_64_matches_plain(cuda, a, lqa, li, lr,
+                                                raw_mode, dropout):
+    """The bf16 attention backward at D = 64 on the tensor cores (the
+    warpgroups on rows of their own, the gq kernel too) against autograd
+    through the plain version at ``qa_ctx_attention.GRAD_TOL``, and twice
+    for the same bits."""
+    dt, d = torch.bfloat16, 64
+    gen = torch.Generator().manual_seed(26)
+    args = attn_args(cuda, dt, a=a, li=li, lqa=lqa, lr=lr, d=d)
+    targets = torch.tensor([min(2, a - 1), 0], device=cuda)
+    kw = dict(raw_mode=raw_mode, targets=targets, dropout_rate=dropout,
+              seed=SEED)
+    flip = checks.attention_flip_elements(*args, dropout_rate=dropout,
+                                          seed=SEED)
+    cot = [randn(gen, 2, a, li, lqa, d).to(cuda) * ~flip]
+    if raw_mode == "target":
+        c_t = args[4][torch.arange(2, device=cuda), targets]
+        cot.append(randn(gen, 2, li, lqa, lr).to(cuda)
+                   * c_t[:, None, :, None] * args[5][:, :, None, :])
+    elif raw_mode == "full":
+        cot.append(randn(gen, 2, a, li, lqa, lr).to(cuda)
+                   * args[4][:, :, None, :, None]
+                   * args[5][:, None, :, None, :])
+
+    def run(fn):
+        ins = leaves(args)
+        ins[4].requires_grad_(False)
+        ins[5].requires_grad_(False)
+        return grads_of(lambda *a_: fn(*a_, **kw), ins, cot)[1]
+    counter = qa_ctx_attention.BWD_BY_WIDTH[64]
+    n0 = counter.launches
+    g_k = run(qa_ctx_attention.qa_ctx_attention)
+    g_again = run(qa_ctx_attention.qa_ctx_attention)
+    g_p = run(qa_ctx_attention.qa_ctx_attention_plain)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 2
+    for i, gk, ga, gp in zip(ATT_GRAD_INPUTS, g_k, g_again, g_p):
+        assert torch.equal(gk, ga), f"grad {i} differs between two runs"
+        checks.grad_close(f"grad {i}", gk, gp,
+                          qa_ctx_attention.GRAD_TOL[dt])

@@ -8,15 +8,12 @@
 // instantiations, grad_reduce.cuh's wgrad on CUDA cores for the float32
 // ones), which take D as an argument.
 //
-// The bf16 backwards are tensor-core kernels at D = 256 (all three) and at
-// D = 64 (the tri bridge's and the encoder's); the attention's bf16
-// backward at D = 64 and every float32 one run their row passes and their
-// products other than the weight gradient on CUDA cores, the bf16 one
-// rounding the products' operands where the TPU kernels' bf16 compute mode
-// rounds (rb below), so it computes what the tensor-core kernels compute,
-// in another order of float32 sums.  The weight gradient, the largest
-// product of each backward, is the tensor-core pass in every bf16
-// instantiation.
+// The bf16 backwards are tensor-core kernels at both widths, rounding the
+// products' operands where the TPU kernels' bf16 compute mode rounds; the
+// float32 ones (the exactness check) run their row passes and their
+// products other than the weight gradient on CUDA cores.  The weight
+// gradient, the largest product of each backward, is the tensor-core pass
+// in every bf16 instantiation.
 #pragma once
 
 #include "grad_reduce.cuh"
@@ -25,14 +22,6 @@
 #include "wgrad_tc.cuh"
 
 namespace tvqa {
-
-// x rounded to the nearest bf16 value when BF (the bf16 compute mode's
-// rounding of a product's operand), else x.
-template <bool BF>
-__device__ __forceinline__ float rb(float x) {
-  if constexpr (BF) return __bfloat162float(__float2bfloat16(x));
-  return x;
-}
 
 // Dropout multipliers (0 or scale) of the N elements e0 .. e0 + N - 1 (N a
 // multiple of 4 with e0 a multiple of 4, or N = 2 with e0 even).

@@ -852,22 +852,6 @@ qa_ctx_bwd_tc_kernel(const __nv_bfloat16* __restrict__ cn,
 constexpr int GQ_STAGE = 2 * TILE_PANEL + 2 * TILE_BYTES;   // g_s, p, ga, cn
 constexpr int GQ_SMEM = 2 * GQ_STAGE + tc::ATOM_BYTES;
 
-// cp.async `rows` rows of 8 `chunks` bf16 (row stride ld) into one panel of
-// TM rows; rows past `rows` are zeroed, columns past 8 `chunks` untouched.
-__device__ __forceinline__ void tc_load_panel(uint8_t* dst,
-                                              const __nv_bfloat16* src,
-                                              int ld, int rows, int chunks,
-                                              int t, int n) {
-  for (int c = t; c < TM * chunks; c += n) {
-    const int r = c / chunks, ch = c % chunks;
-    uint8_t* d = dst + tc::swz_chunk(r, ch);
-    if (r < rows)
-      tc::cp_async16(d, src + static_cast<size_t>(r) * ld + ch * 8);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
 __global__ void __launch_bounds__(NTHREADS, 2)
 qa_ctx_gq_tc_kernel(const __nv_bfloat16* __restrict__ gs,
                     const __nv_bfloat16* __restrict__ p,

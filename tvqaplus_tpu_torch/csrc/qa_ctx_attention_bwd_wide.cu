@@ -19,14 +19,17 @@
 // gqn), so the operations bind at D = 256 (~0.17 ms) and the bytes at D =
 // 64 (~16 us).
 //
-// Two designs.
+// Three designs.
 // * bfloat16 at D = 256 (the hsz-256 main paths): qa_ctx_bwd_tc_wide_kernel,
 //   the D = 128 tensor-core design at this width (a warpgroup's 128
 //   columns in two quarters of 64, W streamed through a ring, g_yd once a
 //   tile; the note at the kernel), then the gqn / gqe kernel and the weight
 //   gradient over the bf16 rows it writes.
-// * float32 at D = 64 and 256, and bfloat16 at D = 64: CUDA cores for all
-//   but the bf16 weight gradient:
+// * bfloat16 at D = 64 (the hsz-64 main paths): qa_ctx_bwd_tc64_kernel, the
+//   D = 128 tensor-core arithmetic with the two warpgroups on rows of their
+//   own (the note at the kernel), then qa_ctx_gq_tc64_kernel and the
+//   weight gradient over the bf16 rows it writes.
+// * float32 at D = 64 and 256 (the exactness check): CUDA cores for all:
 //   - qa_ctx_bwd_wide_kernel: one block per (b, i), tiles of RT = 8 RPT
 //     answer-word rows, a warp owning RPT rows; the frame's qn and qe in
 //     shared memory for the block's life (row stride D + 1: lanes that
@@ -35,18 +38,14 @@
 //     recompute), g_yd = g_out W^T staged from L2 32 rows at a time.  At D
 //     = 256 a tile is 16 rows, or 8 when the frame's Lr leaves too little
 //     shared memory for 16 (Lr > 50).  It writes g_s, p and g_att rows
-//     (float32) for the second kernel.  The bf16 instantiation rounds where
-//     the TPU kernel's bf16 compute mode rounds (pallas_attention.py:107-162,
-//     :323-379): cn, qn, qe, g_out (bf16 already), p before att and gqe, W
-//     (the wrapper hands W^T rounded), yd, g_att and g_s before their
-//     products.
-// Both then run qa_ctx_gq_wide_kernel (gqn and gqe of a (b, i) from those
-// rows, staged through shared memory 16 rows at a time; a thread owns one
-// column and up to 32 regions) and the weight gradient over the yd and
-// g_out rows (wgrad_tc.cuh and grad_reduce.cuh, shared with D = 128): on
-// the tensor cores from bf16 rows (its bias row is gb), on CUDA cores from
-// float32 ones.  Sums across blocks go through scratch slots and a
-// fixed-order second pass: the same bits from run to run, no atomics.
+//     (float32) for the second kernel.
+//   - qa_ctx_gq_wide_kernel (gqn and gqe of a (b, i) from those rows,
+//     staged through shared memory 16 rows at a time; a thread owns one
+//     column and up to 32 regions) and the weight gradient over the yd and
+//     g_out rows (grad_reduce.cuh, shared with D = 128).
+// The bf16 weight gradient is wgrad_tc.cuh's (its bias row is gb).  Sums
+// across blocks go through scratch slots and a fixed-order second pass:
+// the same bits from run to run, no atomics.
 #include "bwd_wide.cuh"
 #include "qa_ctx_attention.cuh"
 
@@ -98,26 +97,27 @@ struct WideGrads {
   int ld;
 };
 
-template <typename T, int D, int RPT>
+template <int D, int RPT>
 __global__ void __launch_bounds__(NTHREADS)
-qa_ctx_bwd_wide_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
-                       const T* __restrict__ qn, const T* __restrict__ qe,
+qa_ctx_bwd_wide_kernel(const float* __restrict__ cn,
+                       const float* __restrict__ ce,
+                       const float* __restrict__ qn,
+                       const float* __restrict__ qe,
                        const float* __restrict__ cmask,
                        const float* __restrict__ qmask,
                        const float* __restrict__ gamma,
                        const float* __restrict__ beta,
                        const float* __restrict__ Wt,
-                       const T* __restrict__ gmixed,
-                       const T* __restrict__ mixed,
+                       const float* __restrict__ gmixed,
+                       const float* __restrict__ mixed,
                        const float* __restrict__ graw,
                        const int* __restrict__ targets,
-                       WideGrads<T, float> out,
+                       WideGrads<float, float> out,
                        int A, int Lqa, int Li, int Lr, float scale,
                        Dropout drop) {
   constexpr int CPL = D / 32, VPL = D / 32, QS = D + 1;
   constexpr int RT = RPT * NWARPS;
-  constexpr bool BF = sizeof(T) == 2;
-  constexpr int NV = (BF ? 6 : 7) * D;
+  constexpr int NV = 7 * D;
   drop.load_seed();
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -147,8 +147,8 @@ qa_ctx_bwd_wide_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
   const size_t fbase = blk * Lr;
   for (int idx = tid; idx < Lr * D; idx += NTHREADS) {
     const int j = idx / D, d = idx % D;
-    qn_s[j * QS + d] = to_f(qn[fbase * D + idx]);
-    qe_s[j * QS + d] = to_f(qe[fbase * D + idx]);
+    qn_s[j * QS + d] = qn[fbase * D + idx];
+    qe_s[j * QS + d] = qe[fbase * D + idx];
   }
   for (int j = tid; j < Lr; j += NTHREADS) qm_s[j] = qmask[fbase + j];
 
@@ -169,12 +169,11 @@ qa_ctx_bwd_wide_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
       float c = 0.f, e = 0.f, go = 0.f;
       if (r < rows) {
         const size_t row = static_cast<size_t>(b) * M + m;
-        c = to_f(cn[row * D + d]);
-        e = to_f(ce[row * D + d]);
+        c = cn[row * D + d];
+        e = ce[row * D + d];
         const size_t mrow = mixed_row(b, m, i, A, Lqa, Li);
-        go = to_f(mixed[mrow * D + d]) > 0.f ? to_f(gmixed[mrow * D + d])
-                                             : 0.f;
-        out.gout[(blk * M + m) * D + d] = from_f<T>(go);
+        go = mixed[mrow * D + d] > 0.f ? gmixed[mrow * D + d] : 0.f;
+        out.gout[(blk * M + m) * D + d] = go;
       }
       cn_s[idx] = c;
       ce_s[idx] = e;
@@ -195,7 +194,7 @@ qa_ctx_bwd_wide_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
         if (j < Lr) {
           p_s[r * lrp + j] = sc.p0[h];
           gt_s[r * lrp + j] = sc.gate[h];
-          gs_s[r * lrp + j] = rb<BF>(sc.p0[h] * sc.sm[h]);
+          gs_s[r * lrp + j] = sc.p0[h] * sc.sm[h];
         }
       }
       __syncwarp();
@@ -248,8 +247,7 @@ qa_ctx_bwd_wide_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
           const int k = g * D + c0 + t;
           const float x = g == 0 ? cev[t] : (g == 1 ? av[t] : cev[t] * av[t]);
           xh[g][t] = (x - mean) * istd;
-          out.yd[yrow + k] = from_f<T>((xh[g][t] * gamma[k] + beta[k])
-                                       * km[t]);
+          out.yd[yrow + k] = (xh[g][t] * gamma[k] + beta[k]) * km[t];
           const float gy = acc3[g][jj][t] * km[t];
           vg[g][t] = fmaf(gy, xh[g][t], vg[g][t]);
           vb[g][t] += gy;
@@ -267,7 +265,7 @@ qa_ctx_bwd_wide_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
         for (int g = 0; g < 3; ++g)
           gx[g] = istd * (gxh[g][t] - m1 - xh[g][t] * m2);
         out.gce_part[(blk * M + m) * D + c0 + t] = gx[0] + gx[2] * av[t];
-        const float gat = rb<BF>(gx[1] + gx[2] * cev[t]);
+        const float gat = gx[1] + gx[2] * cev[t];
         ga_s[r * D + c0 + t] = gat;
         out.ga[(blk * M + m) * D + c0 + t] = gat;
       }
@@ -305,10 +303,9 @@ qa_ctx_bwd_wide_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
         if (j < Lr) {
           float gsv = p0[h] * (gp[h] - tot) * scale * gt_s[r * lrp + j];
           if (has_raw) gsv += graw_row[j];
-          gsv = rb<BF>(gsv);
           gs_s[r * lrp + j] = gsv;
           out.gs[srow + j] = gsv;
-          out.p[srow + j] = rb<BF>(p0[h] * sm[h]);
+          out.p[srow + j] = p0[h] * sm[h];
         }
       }
       __syncwarp();
@@ -338,7 +335,7 @@ qa_ctx_bwd_wide_kernel(const T* __restrict__ cn, const T* __restrict__ ce,
       red[warp * NV + g * D + c0 + t] = vg[g][t];
       red[warp * NV + 3 * D + g * D + c0 + t] = vb[g][t];
     }
-    if (!BF) red[warp * NV + 6 * D + c0 + t] = vgb[t];
+    red[warp * NV + 6 * D + c0 + t] = vgb[t];
   }
   __syncthreads();
   for (int k = tid; k < NV; k += NTHREADS) {
@@ -410,26 +407,24 @@ qa_ctx_gq_wide_kernel(const R* __restrict__ gs, const R* __restrict__ p,
   }
 }
 
-template <typename T, int D, int RPT>
+template <int D, int RPT>
 cudaError_t launch_main(const void* cn, const void* ce, const void* qn,
                         const void* qe, const float* cmask,
                         const float* qmask, const float* gamma,
                         const float* beta, const float* Wt,
                         const void* gmixed, const void* mixed,
                         const float* graw, const int* targets,
-                        WideGrads<T, float> g, int B, int A, int Lqa,
+                        WideGrads<float, float> g, int B, int A, int Lqa,
                         int Li, int Lr, float scale, Dropout drop,
                         cudaStream_t stream) {
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
   const size_t bytes = sizeof(float) * Layout<D, RPT>(Lr).total;
-  auto kern = qa_ctx_bwd_wide_kernel<T, D, RPT>;
+  auto kern = qa_ctx_bwd_wide_kernel<D, RPT>;
   cudaError_t err = allow_smem(kern, bytes);
   if (err != cudaSuccess) return err;
   kern<<<dim3(Li, B), NTHREADS, bytes, stream>>>(
-      static_cast<const T*>(cn), static_cast<const T*>(ce),
-      static_cast<const T*>(qn), static_cast<const T*>(qe), cmask, qmask,
-      gamma, beta, Wt, static_cast<const T*>(gmixed),
-      static_cast<const T*>(mixed), graw, targets, g, A, Lqa, Li, Lr, scale,
-      drop);
+      f(cn), f(ce), f(qn), f(qe), cmask, qmask, gamma, beta, Wt, f(gmixed),
+      f(mixed), graw, targets, g, A, Lqa, Li, Lr, scale, drop);
   return cudaGetLastError();
 }
 
@@ -437,22 +432,17 @@ cudaError_t launch_main(const void* cn, const void* ce, const void* qn,
 // H100's 232,448 bytes up to Lr = 50; past that the tiles take 8 rows.
 constexpr size_t SMEM_LIMIT = 232448;
 
-// After the main kernel: gqn and gqe, the weight gradient over the yd and
-// g_out rows (tensor cores from bf16 rows, CUDA cores from float32 ones),
-// and the fixed-order slot sums (vec_slots slots of parameter sums).
+// The weight gradient over the yd and g_out rows (tensor cores from bf16
+// rows, CUDA cores from float32 ones) and the fixed-order slot sums
+// (vec_slots slots of parameter sums, the frames' gcn and gce partials).
 template <typename T, typename R, int D>
-int launch_tail(const void* cn, WideGrads<T, R> g, void* gcn, void* gce,
-                float* gvec, float* wg_part, float* gw, int B, int A,
-                int Lqa, int Li, int Lr, int wg_chunks, int vec_slots,
-                cudaStream_t stream) {
+int launch_sums(WideGrads<T, R> g, void* gcn, void* gce, float* gvec,
+                float* wg_part, float* gw, int B, int A, int Lqa, int Li,
+                int wg_chunks, int vec_slots, cudaStream_t stream) {
   constexpr bool BF = sizeof(T) == 2;
   const int M = A * Lqa;
-  qa_ctx_gq_wide_kernel<T, R, D><<<dim3(Li, B), NTHREADS, 0, stream>>>(
-      g.gs, g.p, g.ga, static_cast<const T*>(cn), g.gqn, g.gqe, M, Li, Lr,
-      g.ld);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(B) * Li * M;
+  cudaError_t err;
   if constexpr (BF)       // [gw; gb] (the wrapper lays gb behind gw)
     err = wgrad_tc(g.yd, g.gout, wg_part, gw, rows, 3 * D, D, wg_chunks,
                    stream);
@@ -472,32 +462,49 @@ int launch_tail(const void* cn, WideGrads<T, R> g, void* gcn, void* gce,
                                        stream));
 }
 
-// The CUDA-core backward (float32 at D = 64 and 256, bf16 at D = 64).
-template <typename T, int D>
+// After the main kernel: gqn and gqe (CUDA cores), then launch_sums.
+template <typename T, typename R, int D>
+int launch_tail(const void* cn, WideGrads<T, R> g, void* gcn, void* gce,
+                float* gvec, float* wg_part, float* gw, int B, int A,
+                int Lqa, int Li, int Lr, int wg_chunks, int vec_slots,
+                cudaStream_t stream) {
+  const int M = A * Lqa;
+  qa_ctx_gq_wide_kernel<T, R, D><<<dim3(Li, B), NTHREADS, 0, stream>>>(
+      g.gs, g.p, g.ga, static_cast<const T*>(cn), g.gqn, g.gqe, M, Li, Lr,
+      g.ld);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_sums<T, R, D>(g, gcn, gce, gvec, wg_part, gw, B, A, Lqa, Li,
+                              wg_chunks, vec_slots, stream);
+}
+
+// The CUDA-core backward (float32 at D = 64 and 256).
+template <int D>
 int launch(const void* cn, const void* ce, const void* qn, const void* qe,
            const float* cmask, const float* qmask, const float* gamma,
            const float* beta, const float* Wt, const void* gmixed,
            const void* mixed, const float* graw, const int* targets,
-           WideGrads<T, float> g, void* gcn, void* gce, float* gvec,
+           WideGrads<float, float> g, void* gcn, void* gce, float* gvec,
            float* wg_part, float* gw, int B, int A, int Lqa, int Li, int Lr,
            float scale, Dropout drop, int wg_chunks, cudaStream_t stream) {
   cudaError_t err;
   if constexpr (D == 256) {
     err = sizeof(float) * Layout<D, 2>(Lr).total <= SMEM_LIMIT
-        ? launch_main<T, D, 2>(cn, ce, qn, qe, cmask, qmask, gamma, beta, Wt,
-                               gmixed, mixed, graw, targets, g, B, A, Lqa,
-                               Li, Lr, scale, drop, stream)
-        : launch_main<T, D, 1>(cn, ce, qn, qe, cmask, qmask, gamma, beta, Wt,
-                               gmixed, mixed, graw, targets, g, B, A, Lqa,
-                               Li, Lr, scale, drop, stream);
+        ? launch_main<D, 2>(cn, ce, qn, qe, cmask, qmask, gamma, beta, Wt,
+                            gmixed, mixed, graw, targets, g, B, A, Lqa, Li,
+                            Lr, scale, drop, stream)
+        : launch_main<D, 1>(cn, ce, qn, qe, cmask, qmask, gamma, beta, Wt,
+                            gmixed, mixed, graw, targets, g, B, A, Lqa, Li,
+                            Lr, scale, drop, stream);
   } else {
-    err = launch_main<T, D, 4>(cn, ce, qn, qe, cmask, qmask, gamma, beta, Wt,
-                               gmixed, mixed, graw, targets, g, B, A, Lqa,
-                               Li, Lr, scale, drop, stream);
+    err = launch_main<D, 4>(cn, ce, qn, qe, cmask, qmask, gamma, beta, Wt,
+                            gmixed, mixed, graw, targets, g, B, A, Lqa, Li,
+                            Lr, scale, drop, stream);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_tail<T, float, D>(cn, g, gcn, gce, gvec, wg_part, gw, B, A,
-                                  Lqa, Li, Lr, wg_chunks, B * Li, stream);
+  return launch_tail<float, float, D>(cn, g, gcn, gce, gvec, wg_part, gw, B,
+                                      A, Lqa, Li, Lr, wg_chunks, B * Li,
+                                      stream);
 }
 
 // ---- the bfloat16 instantiation at D = 256: tensor cores -------------------
@@ -1079,25 +1086,563 @@ int launch_tc(const void* cn, const void* ce, const void* qn, const void* qe,
                                       items < sms ? items : sms, stream);
 }
 
+// ---- the bfloat16 instantiation at D = 64: tensor cores --------------------
+//
+// qa_ctx_bwd_tc_kernel's arithmetic (qa_ctx_attention_bwd.cu: 64-row tiles,
+// every product a wgmma on bf16 operands with float32 sums, the same
+// rounding sites) at D = 64, where a warpgroup holds all three LN groups of
+// a 64-row tile in 96 accumulators (D = 128's count).  So the two
+// warpgroups split rows, not columns (a warpgroup's 32 columns would start
+// mid-way in a 128-byte swizzled row, where an MN-major operand cannot
+// start): each owns whole items (a frame's 64-row tile, B Li ceil(M / 64)
+// of them) and walks them apart from the other, warpgroup w of block b
+// taking items 2 b + w, 2 b + w + 2 G, ...  (a persistent grid), so every
+// row statistic is a quad sum in registers and no block barrier falls
+// between the start and the end.  W (3D x D bf16, 24 KB, read K-major as it
+// lies: g_yd = g_out W^T) sits in shared memory for the block's life; each
+// warpgroup stages its item's frame (qn, qe, q mask) and the tile's cn, ce
+// and g_out (then g_att) in a room of its own, with p0 one private slot a
+// thread.  It writes the g_s, p and g_att rows in bf16 for the tensor-core
+// gq kernel below and the yd and g_out rows for the weight gradient.
+template <int LRP>
+struct AttTc64 {
+  static constexpr int D = 64;
+  static constexpr int TILE = TILE_PANEL;                 // 64 x 64 bf16
+  static constexpr int O_W = 0;                           // W, 3D rows
+  static constexpr int W = 3 * D * tc::ROW_BYTES;
+  // a warpgroup's room: qn, qe, cn, ce, g_out (g_att), p0, q mask
+  static constexpr int R_QN = 0;
+  static constexpr int R_QE = R_QN + TILE;
+  static constexpr int R_CN = R_QE + TILE;
+  static constexpr int R_CE = R_CN + TILE;
+  static constexpr int R_GO = R_CE + TILE;
+  static constexpr int R_P0 = R_GO + TILE;
+  static constexpr int R_QM = R_P0 + LRP / 2 * 128 * 4;
+  static constexpr int ROOM = (R_QM + TM * 4 + 1023) / 1024 * 1024;
+  static constexpr int O_ROOM = O_W + W;                  // two rooms
+  static constexpr int O_GB = O_ROOM + 2 * ROOM;          // gamma, beta
+  static constexpr int SMEM = O_GB + 6 * D * 4 + tc::ATOM_BYTES;
+  static_assert(W % 1024 == 0, "rooms on atoms");
+  static_assert(8 * 6 * D * 4 <= 2 * ROOM, "block sums in the rooms");
+};
+
+template <int LRP>
+__global__ void __launch_bounds__(NTHREADS, 1)
+qa_ctx_bwd_tc64_kernel(const bf16* __restrict__ cn,
+                       const bf16* __restrict__ ce,
+                       const bf16* __restrict__ qn,
+                       const bf16* __restrict__ qe,
+                       const float* __restrict__ cmask,
+                       const float* __restrict__ qmask,
+                       const float* __restrict__ gamma,
+                       const float* __restrict__ beta,
+                       const bf16* __restrict__ W,
+                       const bf16* __restrict__ gmixed,
+                       const bf16* __restrict__ mixed,
+                       const float* __restrict__ graw,
+                       const int* __restrict__ targets,
+                       WideGrads<bf16, bf16> out, int B, int A, int Lqa,
+                       int Li, int Lr, float scale, Dropout drop) {
+  using S = AttTc64<LRP>;
+  constexpr int D = S::D;
+  constexpr int NVT = 6 * D;           // ggamma (3D), gbeta (3D)
+  drop.load_seed();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_smem(smem_raw);
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31;
+  uint8_t* w_s = sm + S::O_W;
+  uint8_t* room = sm + S::O_ROOM + wg * S::ROOM;
+  uint8_t* qn_s = room + S::R_QN;
+  uint8_t* qe_s = room + S::R_QE;
+  uint8_t* cn_s = room + S::R_CN;
+  uint8_t* ce_s = room + S::R_CE;
+  uint8_t* go_s = room + S::R_GO;      // g_out, then g_att
+  float* p0_s = reinterpret_cast<float*>(room + S::R_P0);
+  float* qm_s = reinterpret_cast<float*>(room + S::R_QM);
+  float* gamma_s = reinterpret_cast<float*>(sm + S::O_GB);
+  float* beta_s = gamma_s + 3 * D;
+  for (int k = tid; k < 3 * D; k += NTHREADS) {
+    gamma_s[k] = gamma[k];
+    beta_s[k] = beta[k];
+  }
+  tc_load_rows<D>(w_s, 3 * D, W, D, 3 * D, tid, NTHREADS);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  tc::fence_async_smem();
+  __syncthreads();
+
+  const int M = A * Lqa, ntile = (M + TM - 1) / TM;
+  const int items = B * Li * ntile;
+  const int rl = 16 * warp + (lane >> 2);
+  const int cl = 2 * (lane & 3);       // first column of the lane's pairs
+  auto ce_pair = [&](int h, int c) {
+    return tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(
+        ce_s + tc::swz(rl + 8 * h, c)));
+  };
+  auto wg_sync = [&]() { tc::bar_sync(1 + wg, 128); };
+  float vg[3][2], vb[3][2];
+#pragma unroll
+  for (int g = 0; g < 3; ++g) vg[g][0] = vg[g][1] = vb[g][0] = vb[g][1] = 0.f;
+
+  for (int item = 2 * blockIdx.x + wg; item < items; item += 2 * gridDim.x) {
+    const int bi = item / ntile, m0 = item % ntile * TM;
+    const int b = bi / Li, i = bi % Li;
+    const int target = targets != nullptr ? targets[b] : -1;
+    const size_t blk = bi, fbase = blk * Lr;
+    // ---- stage the item: the frame's qn, qe and q mask, the tile's cn and
+    // ce rows, g_out = g_mixed * (mixed > 0) -------------------------------
+    wg_sync();                         // the warpgroup's previous item is done
+    tc_load_rows<D>(qn_s, TM, qn + fbase * D, D, Lr, t, 128);
+    tc_load_rows<D>(qe_s, TM, qe + fbase * D, D, Lr, t, 128);
+    if (t < TM) qm_s[t] = t < Lr ? qmask[fbase + t] : 0.f;
+    const size_t rbase = static_cast<size_t>(b) * M + m0;
+    tc_load_rows<D>(cn_s, TM, cn + rbase * D, D, min(TM, M - m0), t, 128);
+    tc_load_rows<D>(ce_s, TM, ce + rbase * D, D, min(TM, M - m0), t, 128);
+    tc::cp_async_commit();
+    for (int c = t; c < TM * (D / 8); c += 128) {
+      const int r = c / (D / 8), ch = c % (D / 8), m = m0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (m < M) {
+        const size_t o = mixed_row(b, m, i, A, Lqa, Li) * D + ch * 8;
+        const uint4 mx = __ldg(reinterpret_cast<const uint4*>(mixed + o));
+        v = __ldg(reinterpret_cast<const uint4*>(gmixed + o));
+        const uint32_t mw[4] = {mx.x, mx.y, mx.z, mx.w};
+        uint32_t gw[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 mv = tc::unpack_bf16(mw[k]);
+          gw[k] &= (mv.x > 0.f ? 0x0000FFFFu : 0u)
+                   | (mv.y > 0.f ? 0xFFFF0000u : 0u);
+        }
+        v = make_uint4(gw[0], gw[1], gw[2], gw[3]);
+        *reinterpret_cast<uint4*>(out.gout + (blk * M + m) * D + ch * 8) = v;
+      }
+      *reinterpret_cast<uint4*>(go_s + tc::swz_chunk(r, ch)) = v;
+    }
+    tc::cp_async_wait<0>();
+    tc::fence_async_smem();
+    wg_sync();
+
+    int m[2];
+    bool live[2];
+    float cm[2];
+    size_t mrow[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = m0 + rl + 8 * h;
+      live[h] = m[h] < M;
+      cm[h] = live[h] ? cmask[static_cast<size_t>(b) * M + m[h]] : 0.f;
+      mrow[h] = mixed_row(b, live[h] ? m[h] : 0, i, A, Lqa, Li);
+    }
+    // the dropout's keep bits of the three groups, drawn first, while few
+    // registers are live
+    uint32_t kw[3][2][1];
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      kw[g][0][0] = kw[g][1][0] = ~0u;
+      if (drop.on())
+        tc_keep_bits<8, true>(
+            drop, drop.key3((lane & 1) ? mrow[1] : mrow[0], g, 0), lane,
+            kw[g]);
+    }
+    // ---- recompute: scores, softmax, att, LN statistics ------------------
+    uint32_t gate;
+    float att[32];
+    {
+      float sc[LRP / 2], p0[LRP / 2];
+      tc_scores<LRP, D>(sc, tc::smem_u32(cn_s), tc::smem_u32(qn_s));
+      gate = tc_softmax<LRP>(sc, p0, cm, qm_s, Lr, scale, lane);
+#pragma unroll
+      for (int k = 0; k < LRP / 2; ++k) p0_s[k * 128 + t] = p0[k];
+#pragma unroll
+      for (int k = 0; k < LRP / 2; k += 2) {   // p rows out, for gqe
+        const int h = (k / 2) % 2, j = acc_col(k, lane);
+        const float c = cm[h];
+        if (live[h])
+          *reinterpret_cast<uint32_t*>(out.p + (blk * M + m[h]) * LRP + j) =
+              tc::pack_bf16(p0[k] * (c * qm_s[j]),
+                            p0[k + 1] * (c * qm_s[j + 1]));
+      }
+      tc_att<LRP, 1>(att, p0, cm, qm_s, tc::smem_u32(qe_s), lane);
+    }
+    float mean[2], istd[2];
+    {
+      float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
+#pragma unroll
+      for (int pr = 0; pr < 16; ++pr) {
+        const int h = pr & 1, c = 8 * (pr >> 1) + cl;
+        const float2 c2 = ce_pair(h, c);
+        const float a0 = att[2 * pr], a1 = att[2 * pr + 1];
+        const float x0 = c2.x * a0, x1 = c2.y * a1;
+        sum[h] += (c2.x + c2.y) + (a0 + a1) + (x0 + x1);
+        sq[h] += fmaf(c2.x, c2.x, c2.y * c2.y) + fmaf(a0, a0, a1 * a1)
+                 + fmaf(x0, x0, x1 * x1);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mean[h] = quad_sum(sum[h]) * drop.inv3;
+        istd[h] = rsqrtf(quad_sum(sq[h]) * drop.inv3 - mean[h] * mean[h]
+                         + LN_EPS);
+      }
+    }
+    // ---- g_yd = g_out W^T, the three groups ------------------------------
+    float acc[3][32];
+    tc::fence();
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        tc::mma_ss<64, 0, 0>(
+            acc[g], tc::make_desc(tc::smem_u32(go_s) + ks * 32, 16),
+            tc::make_desc(tc::smem_u32(w_s) + g * D * tc::ROW_BYTES + ks * 32,
+                          16),
+            ks > 0);
+    tc::commit();
+    tc::wait_all();
+    // ---- pass A: dropout replay, yd rows out, ggamma / gbeta, LN sums ---
+    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+#pragma unroll
+      for (int qh = 0; qh < 2; ++qh) {
+        float tg[8], tb[8];
+#pragma unroll
+        for (int qq = 0; qq < 4; ++qq) {
+          const int q = 4 * qh + qq, c = 8 * q + cl;
+          const float2 ga = *reinterpret_cast<const float2*>(
+              gamma_s + g * D + c);
+          const float2 be = *reinterpret_cast<const float2*>(
+              beta_s + g * D + c);
+          tg[2 * qq] = tg[2 * qq + 1] = tb[2 * qq] = tb[2 * qq + 1] = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 c2 = ce_pair(h, c);
+            const uint32_t bits = kw[g][h][0] >> (4 * q);
+            float y[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int k = 4 * q + 2 * h + e;
+              const float cv = e ? c2.y : c2.x, a = att[k];
+              const float x = g == 0 ? cv : (g == 1 ? a : cv * a);
+              const float gam = e ? ga.y : ga.x, bet = e ? be.y : be.x;
+              const float xh = (x - mean[h]) * istd[h];
+              const float km = !drop.on() ? 1.f
+                  : ((bits >> e) & 1u ? drop.scale : 0.f);
+              y[e] = (xh * gam + bet) * km;
+              const float gy = acc[g][k] * km;
+              tg[2 * qq + e] = fmaf(gy, xh, tg[2 * qq + e]);
+              tb[2 * qq + e] += gy;
+              const float gxh = gy * gam;
+              acc[g][k] = gxh;
+              s1[h] += gxh;
+              s2[h] = fmaf(gxh, xh, s2[h]);
+            }
+            if (live[h])
+              *reinterpret_cast<uint32_t*>(
+                  out.yd + (blk * M + m[h]) * (3 * D) + g * D + c) =
+                  tc::pack_bf16(y[0], y[1]);
+          }
+        }
+        // sums over the eight lanes that hold these columns' other rows
+        fold<8>(tg, 16, lane);
+        fold<4>(tg, 8, lane);
+        fold<2>(tg, 4, lane);
+        fold<8>(tb, 16, lane);
+        fold<4>(tb, 8, lane);
+        fold<2>(tb, 4, lane);
+        vg[g][qh] += tg[0];
+        vb[g][qh] += tb[0];
+      }
+    }
+    wg_sync();                         // the products are done with g_out
+    // ---- pass B: LN backward, gce rows out, g_att tile (over g_out) ------
+    {
+      float m1[2], m2[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m1[h] = quad_sum(s1[h]) * drop.inv3;
+        m2[h] = quad_sum(s2[h]) * drop.inv3;
+      }
+#pragma unroll
+      for (int pr = 0; pr < 16; ++pr) {
+        const int h = pr & 1, c = 8 * (pr >> 1) + cl;
+        const float2 c2 = ce_pair(h, c);
+        float gce[2], gat[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = 2 * pr + e;
+          const float cv = e ? c2.y : c2.x, a = att[k];
+          const float xs[3] = {cv, a, cv * a};
+          float gx[3];
+#pragma unroll
+          for (int g = 0; g < 3; ++g) {
+            const float xh = (xs[g] - mean[h]) * istd[h];
+            gx[g] = istd[h] * (acc[g][k] - m1[h] - xh * m2[h]);
+          }
+          gce[e] = gx[0] + gx[2] * a;
+          gat[e] = gx[1] + gx[2] * cv;
+        }
+        if (live[h])
+          *reinterpret_cast<float2*>(out.gce_part + (blk * M + m[h]) * D + c)
+              = make_float2(gce[0], gce[1]);
+        *reinterpret_cast<uint32_t*>(go_s + tc::swz(rl + 8 * h, c)) =
+            tc::pack_bf16(gat[0], gat[1]);
+      }
+    }
+    tc::fence_async_smem();
+    wg_sync();                         // the g_att tile is whole
+    for (int c = t; c < TM * (D / 8); c += 128) {      // its rows out
+      const int r = c / (D / 8), ch = c % (D / 8);
+      if (m0 + r < M)
+        *reinterpret_cast<uint4*>(out.ga + (blk * M + m0 + r) * D + ch * 8) =
+            *reinterpret_cast<const uint4*>(go_s + tc::swz_chunk(r, ch));
+    }
+    // ---- g_p = g_att qe^T, softmax backward, g_s, gcn rows out ----------
+    {
+      float gs[LRP / 2];
+      tc::fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        tc::mma_ss<LRP, 0, 0>(gs,
+                              tc::make_desc(tc::smem_u32(go_s) + ks * 32, 16),
+                              tc::make_desc(tc::smem_u32(qe_s) + ks * 32, 16),
+                              ks > 0);
+      tc::commit();
+      tc::wait_all();
+      float p0[LRP / 2], tot[2] = {0.f, 0.f};
+#pragma unroll
+      for (int k = 0; k < LRP / 2; ++k) {
+        const int h = (k / 2) % 2;
+        p0[k] = p0_s[k * 128 + t];
+        gs[k] *= cm[h] * qm_s[acc_col(k, lane)];
+        tot[h] = fmaf(gs[k], p0[k], tot[h]);
+      }
+      tot[0] = quad_sum(tot[0]);
+      tot[1] = quad_sum(tot[1]);
+      const float* graw_row[2] = {nullptr, nullptr};   // the rows' g_raw
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (graw == nullptr || !live[h]) continue;
+        if (targets == nullptr)
+          graw_row[h] = graw + mrow[h] * Lr;
+        else if (m[h] / Lqa == target)
+          graw_row[h] = graw + (blk * Lqa + m[h] % Lqa) * Lr;
+      }
+#pragma unroll
+      for (int k = 0; k < LRP / 2; ++k) {
+        const int h = (k / 2) % 2, j = acc_col(k, lane);
+        float v = p0[k] * (gs[k] - tot[h]) * scale
+                  * ((gate >> k) & 1u ? 1.f : 0.f);
+        if (graw_row[h] != nullptr && j < Lr) v += graw_row[h][j];
+        gs[k] = v;
+      }
+#pragma unroll
+      for (int k = 0; k < LRP / 2; k += 2) {   // g_s rows out, for gqn
+        const int h = (k / 2) % 2;
+        if (live[h])
+          *reinterpret_cast<uint32_t*>(out.gs + (blk * M + m[h]) * LRP
+                                       + acc_col(k, lane)) =
+              tc::pack_bf16(gs[k], gs[k + 1]);
+      }
+      float gcn[32];
+      tc::fence();
+#pragma unroll
+      for (int ts = 0; ts < LRP / 16; ++ts) {
+        uint32_t a[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          a[r] = tc::pack_bf16(gs[8 * ts + 2 * r], gs[8 * ts + 2 * r + 1]);
+        tc::mma_rs<64, 1>(gcn, a,
+                          tc::make_desc(tc::smem_u32(qn_s)
+                                            + ts * 2 * tc::ATOM_BYTES,
+                                        TILE_PANEL), ts > 0);
+      }
+      tc::commit();
+      tc::wait_all();
+#pragma unroll
+      for (int pr = 0; pr < 16; ++pr) {
+        const int h = pr & 1, c = 8 * (pr >> 1) + cl;
+        if (live[h])
+          *reinterpret_cast<float2*>(out.gcn_part + (blk * M + m[h]) * D + c)
+              = make_float2(gcn[2 * pr], gcn[2 * pr + 1]);
+      }
+    }
+  }
+  __syncthreads();
+  // ---- the block's parameter-vector partials into its slot: after the
+  // folds a lane holds, per group and column half qh, the sum over its
+  // warp's rows of column 8 (4 qh + 2 b4 + b3) + 2 (lane % 4) + b2; the two
+  // warpgroups' warps summed in order ----------------------------------------
+  float* red = reinterpret_cast<float*>(sm + S::O_ROOM);   // [8 warps][NVT]
+  {
+    const int b4 = (lane >> 4) & 1, b3 = (lane >> 3) & 1, b2 = (lane >> 2) & 1;
+    const int wp = tid >> 5;
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int qh = 0; qh < 2; ++qh) {
+        const int c = 8 * (4 * qh + 2 * b4 + b3) + cl + b2;
+        red[wp * NVT + g * D + c] = vg[g][qh];
+        red[wp * NVT + 3 * D + g * D + c] = vb[g][qh];
+      }
+  }
+  __syncthreads();
+  for (int k = tid; k < NVT; k += NTHREADS) {
+    float acc_k = red[k];
+    for (int wp = 1; wp < NWARPS; ++wp) acc_k += red[wp * NVT + k];
+    out.vec_part[static_cast<size_t>(blockIdx.x) * NVT + k] = acc_k;
+  }
+}
+
+// gqn[j] = sum_m g_s[m, j] cn[m], gqe[j] = sum_m p[m, j] g_att[m] for one
+// (b, frame) at D = 64: the frame's M rows of g_s, p (LRP wide) and g_att as
+// the main kernel wrote them, and cn, through two stages of 64 rows; the
+// products' left operands read as they lie (rows = depth).  Warpgroup 0
+// takes gqn, warpgroup 1 gqe, each a 64 x 64 accumulator (all D columns):
+// the operands' addresses, not a branch, choose the product.
+constexpr int GQ64_STAGE = 4 * TILE_PANEL;       // g_s, p, g_att, cn
+constexpr int GQ64_SMEM = 2 * GQ64_STAGE + tc::ATOM_BYTES;
+
+__global__ void __launch_bounds__(NTHREADS, 2)
+qa_ctx_gq_tc64_kernel(const bf16* __restrict__ gs, const bf16* __restrict__ p,
+                      const bf16* __restrict__ ga, const bf16* __restrict__ cn,
+                      bf16* __restrict__ gqn, bf16* __restrict__ gqe, int M,
+                      int Li, int Lr, int lrp) {
+  constexpr int D = 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_smem(smem_raw);
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31;
+  const int i = blockIdx.x, b = blockIdx.y;
+  const size_t blk = static_cast<size_t>(b) * Li + i;
+  const int steps = (M + TM - 1) / TM;
+  float acc[32];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) acc[k] = 0.f;
+
+  auto load = [&](int step) {
+    uint8_t* st = sm + (step & 1) * GQ64_STAGE;
+    const int m0 = step * TM, rows = min(TM, M - m0);
+    const size_t r0 = blk * M + m0;
+    tc_load_panel(st, gs + r0 * lrp, lrp, rows, lrp / 8, tid, NTHREADS);
+    tc_load_panel(st + TILE_PANEL, p + r0 * lrp, lrp, rows, lrp / 8, tid,
+                  NTHREADS);
+    tc_load_rows<D>(st + 2 * TILE_PANEL, TM, ga + r0 * D, D, rows, tid,
+                    NTHREADS);
+    tc_load_rows<D>(st + 3 * TILE_PANEL, TM,
+                    cn + (static_cast<size_t>(b) * M + m0) * D, D, rows, tid,
+                    NTHREADS);
+    tc::cp_async_commit();
+  };
+  load(0);
+  for (int step = 0; step < steps; ++step) {
+    if (step + 1 < steps) {
+      load(step + 1);
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    tc::fence_async_smem();
+    __syncthreads();
+    // warpgroup 0: g_s^T cn; warpgroup 1: p^T g_att
+    const uint32_t st = tc::smem_u32(sm + (step & 1) * GQ64_STAGE);
+    const uint32_t a = st + wg * TILE_PANEL;
+    const uint32_t bm = st + (3 - wg) * TILE_PANEL;
+    tc::fence();
+#pragma unroll
+    for (int ks = 0; ks < TM / 16; ++ks) {
+      const int off = ks * 2 * tc::ATOM_BYTES;
+      tc::mma_ss<64, 1, 1>(acc, tc::make_desc(a + off, TILE_PANEL),
+                           tc::make_desc(bm + off, TILE_PANEL), 1);
+    }
+    tc::commit();
+    tc::wait_all();
+    __syncthreads();                   // the stage is free for step + 2
+  }
+  bf16* dst = wg ? gqe : gqn;
+  const int rl = 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int pr = 0; pr < 16; ++pr) {
+    const int j = rl + 8 * (pr & 1);
+    const int c = 8 * (pr >> 1) + 2 * (lane & 3);
+    if (j < Lr)
+      *reinterpret_cast<uint32_t*>(dst + (blk * Lr + j) * D + c) =
+          tc::pack_bf16(acc[2 * pr], acc[2 * pr + 1]);
+  }
+}
+
+template <int LRP>
+cudaError_t launch_tc64_main(const void* cn, const void* ce, const void* qn,
+                             const void* qe, const float* cmask,
+                             const float* qmask, const float* gamma,
+                             const float* beta, const void* W,
+                             const void* gmixed, const void* mixed,
+                             const float* graw, const int* targets,
+                             WideGrads<bf16, bf16> g, int blocks, int B,
+                             int A, int Lqa, int Li, int Lr, float scale,
+                             Dropout drop, cudaStream_t stream) {
+  auto h = [](const void* p) { return static_cast<const bf16*>(p); };
+  constexpr int smem = AttTc64<LRP>::SMEM;
+  cudaError_t err = allow_smem(qa_ctx_bwd_tc64_kernel<LRP>, smem);
+  if (err != cudaSuccess) return err;
+  qa_ctx_bwd_tc64_kernel<LRP><<<blocks, NTHREADS, smem, stream>>>(
+      h(cn), h(ce), h(qn), h(qe), cmask, qmask, gamma, beta, h(W), h(gmixed),
+      h(mixed), graw, targets, g, B, A, Lqa, Li, Lr, scale, drop);
+  return cudaGetLastError();
+}
+
+// The bf16 backward at D = 64: the tensor-core main kernel, the tensor-core
+// gqn / gqe kernel, then the weight gradient and the sums over the bf16 rows
+// they wrote.
+int launch_tc64(const void* cn, const void* ce, const void* qn,
+                const void* qe, const float* cmask, const float* qmask,
+                const float* gamma, const float* beta, const void* W,
+                const void* gmixed, const void* mixed, const float* graw,
+                const int* targets, WideGrads<bf16, bf16> g, void* gcn,
+                void* gce, float* gvec, float* wg_part, float* gw, int B,
+                int A, int Lqa, int Li, int Lr, float scale, Dropout drop,
+                int wg_chunks, cudaStream_t stream) {
+  g.ld = Lr <= 32 ? 32 : 64;
+  const int M = A * Lqa;
+  const int items = B * Li * ((M + TM - 1) / TM), sms = sm_count();
+  const int blocks = (items + 1) / 2 < sms ? (items + 1) / 2 : sms;
+  cudaError_t err = Lr <= 32
+      ? launch_tc64_main<32>(cn, ce, qn, qe, cmask, qmask, gamma, beta, W,
+                             gmixed, mixed, graw, targets, g, blocks, B, A,
+                             Lqa, Li, Lr, scale, drop, stream)
+      : launch_tc64_main<64>(cn, ce, qn, qe, cmask, qmask, gamma, beta, W,
+                             gmixed, mixed, graw, targets, g, blocks, B, A,
+                             Lqa, Li, Lr, scale, drop, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((err = allow_smem(qa_ctx_gq_tc64_kernel, GQ64_SMEM)) != cudaSuccess)
+    return static_cast<int>(err);
+  qa_ctx_gq_tc64_kernel<<<dim3(Li, B), NTHREADS, GQ64_SMEM, stream>>>(
+      g.gs, g.p, g.ga, static_cast<const bf16*>(cn), g.gqn, g.gqe, M, Li, Lr,
+      g.ld);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  return launch_sums<bf16, bf16, 64>(g, gcn, gce, gvec, wg_part, gw, B, A,
+                                     Lqa, Li, wg_chunks, blocks, stream);
+}
+
 }  // namespace
 
 // As qa_ctx_attention_bwd (qa_ctx_attention_bwd.cu) at width D = 64 or 256:
-// inputs as qa_ctx_attention_fwd, plus Wt = W^T (D, 3D) float32 (rounded to
-// bf16 values when is_bf16; when is_bf16 at D = 256, W itself, (3D, D)
-// bf16), g_mixed and the saved mixed (B, A, Li, Lqa, D) in the activation
-// type, and g_raw float32 or NULL ((B, A, Li, Lqa, Lr) when targets is
-// NULL, else (B, Li, Lqa, Lr) at targets[b]).  Outputs: gcn, gce (B, A,
-// Lqa, D) and gqn, gqe (B, Li, Lr, D) in the activation type; gvec =
-// [ggamma (3D); gbeta (3D); gb (D)] and gw (3D, D) float32, or when is_bf16
-// gvec without gb and gw with 3D + 1 rows, the last gb.  Scratch (the
-// wrapper's): gcn_part, gce_part (B, Li, A*Lqa, D) float32; yd
-// (B*Li*A*Lqa, 3D) and gout (B*Li*A*Lqa, D) in the activation type;
-// vec_part (B*Li, 7D or 6D; when is_bf16 at D = 256 a slot for each block
-// of the persistent grid, min(B*Li*ceil(A*Lqa / 64), SMs), or more) and
-// wg_part (wg_chunks, 3D (+ 1), D) float32;
-// gs_rows, p_rows (B*Li*A*Lqa, round4(Lr)) and ga_rows (B*Li*A*Lqa, D)
-// float32, or when is_bf16 at D = 256 bf16 with gs_rows and p_rows 32
-// wide (Lr <= 32) or 64.  Lr <= 64; any other D is refused.
+// inputs as qa_ctx_attention_fwd, plus Wt = W^T (D, 3D) float32 (when
+// is_bf16: W itself, (3D, D) bf16), g_mixed and the saved mixed (B, A, Li,
+// Lqa, D) in the activation type, and g_raw float32 or NULL ((B, A, Li,
+// Lqa, Lr) when targets is NULL, else (B, Li, Lqa, Lr) at targets[b]).
+// Outputs: gcn, gce (B, A, Lqa, D) and gqn, gqe (B, Li, Lr, D) in the
+// activation type; gvec = [ggamma (3D); gbeta (3D); gb (D)] and gw (3D, D)
+// float32, or when is_bf16 gvec without gb and gw with 3D + 1 rows, the
+// last gb.  Scratch (the wrapper's): gcn_part, gce_part (B, Li, A*Lqa, D)
+// float32; yd (B*Li*A*Lqa, 3D) and gout (B*Li*A*Lqa, D) in the activation
+// type; vec_part (B*Li, 7D, or when is_bf16 6D a slot for each block of
+// the persistent grid, at most B*Li*ceil(A*Lqa / 64)) and wg_part
+// (wg_chunks, 3D (+ 1), D) float32; gs_rows, p_rows (B*Li*A*Lqa,
+// round4(Lr)) and ga_rows (B*Li*A*Lqa, D) float32, or when is_bf16 bf16
+// with gs_rows and p_rows 32 wide (Lr <= 32) or 64.  Lr <= 64; any other D
+// is refused.
 // dv: the true width, 4 <= dv <= D with 4 | dv, of inputs zero-padded to D
 // (every LN's statistics and the Philox keys, philox.cuh).
 extern "C" int qa_ctx_attention_bwd_wide(
@@ -1119,34 +1664,28 @@ extern "C" int qa_ctx_attention_bwd_wide(
       entry_dropout(drop_seed, drop_threshold, drop_scale, dv);
   if (!width_ok(dv, d)) return static_cast<int>(cudaErrorInvalidValue);
   const int* tg = static_cast<const int*>(targets);
-#define TVQA_ATT_WIDE(T, DD)                                               \
+#define TVQA_ATT_WIDE(DD)                                                  \
   {                                                                        \
-    const WideGrads<T, float> g{                                           \
-        static_cast<T*>(gqn), static_cast<T*>(gqe), fm(gcn_part),          \
-        fm(gce_part), static_cast<T*>(yd), static_cast<T*>(gout),          \
+    const WideGrads<float, float> g{                                       \
+        fm(gqn), fm(gqe), fm(gcn_part), fm(gce_part), fm(yd), fm(gout),    \
         fm(vec_part), fm(gs_rows), fm(p_rows), fm(ga_rows), round4(Lr)};   \
-    return launch<T, DD>(cn, ce, qn, qe, f(cmask), f(qmask), f(gamma),     \
-                         f(beta), f(Wt), gmixed, mixed, f(graw), tg, g,    \
-                         gcn, gce, fm(gvec), fm(wg_part), fm(gw), B, A,    \
-                         Lqa, Li, Lr, scale, drop, wg_chunks, s);          \
+    return launch<DD>(cn, ce, qn, qe, f(cmask), f(qmask), f(gamma),        \
+                      f(beta), f(Wt), gmixed, mixed, f(graw), tg, g, gcn,  \
+                      gce, fm(gvec), fm(wg_part), fm(gw), B, A, Lqa, Li,   \
+                      Lr, scale, drop, wg_chunks, s);                      \
   }
-  if (d == 64) {
-    if (is_bf16) TVQA_ATT_WIDE(bf16, 64)
-    TVQA_ATT_WIDE(float, 64)
+  if (is_bf16 && (d == 64 || d == 256)) {
+    auto hm = [](void* p) { return static_cast<bf16*>(p); };
+    const WideGrads<bf16, bf16> g{
+        hm(gqn), hm(gqe), fm(gcn_part), fm(gce_part), hm(yd), hm(gout),
+        fm(vec_part), hm(gs_rows), hm(p_rows), hm(ga_rows), 0};
+    return (d == 64 ? launch_tc64 : launch_tc)(
+        cn, ce, qn, qe, f(cmask), f(qmask), f(gamma), f(beta), Wt, gmixed,
+        mixed, f(graw), tg, g, gcn, gce, fm(gvec), fm(wg_part), fm(gw), B, A,
+        Lqa, Li, Lr, scale, drop, wg_chunks, s);
   }
-  if (d == 256) {
-    if (is_bf16) {
-      auto hm = [](void* p) { return static_cast<bf16*>(p); };
-      const WideGrads<bf16, bf16> g{
-          hm(gqn), hm(gqe), fm(gcn_part), fm(gce_part), hm(yd), hm(gout),
-          fm(vec_part), hm(gs_rows), hm(p_rows), hm(ga_rows), 0};
-      return launch_tc(cn, ce, qn, qe, f(cmask), f(qmask), f(gamma),
-                       f(beta), Wt, gmixed, mixed, f(graw), tg, g, gcn, gce,
-                       fm(gvec), fm(wg_part), fm(gw), B, A, Lqa, Li, Lr,
-                       scale, drop, wg_chunks, s);
-    }
-    TVQA_ATT_WIDE(float, 256)
-  }
+  if (d == 64) TVQA_ATT_WIDE(64)
+  if (d == 256) TVQA_ATT_WIDE(256)
 #undef TVQA_ATT_WIDE
   return static_cast<int>(cudaErrorInvalidValue);
 }

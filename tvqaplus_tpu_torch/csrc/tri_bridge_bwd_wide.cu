@@ -15,31 +15,30 @@
 // gW): at 160,000 rows ~102 MB and ~16 GFLOP at D = 64 (bytes, ~31 us), ~410
 // MB and ~252 GFLOP at D = 256 (operations, ~255 us).
 //
-// Two instantiations.
-// * bfloat16 (what the main paths run): tri_bridge_bwd_tc_wide_kernel<D>,
-//   the D = 128 tensor-core design (tri_bridge_bwd.cu) at these widths: one
-//   resident block an SM walks 64-row tiles, the two warpgroups split the
-//   columns, every product a wgmma on bf16 operands with float32 sums,
-//   rounded where the TPU kernel's bf16 compute mode rounds (yd, W, g_y1;
+// Three kernels.
+// * bfloat16 at D = 64: tri_bridge_bwd_tc_wide_kernel<64>, the D = 128
+//   tensor-core design (tri_bridge_bwd.cu) at this width: one resident
+//   block an SM walks 64-row tiles, the two warpgroups split the columns,
+//   every product a wgmma on bf16 operands with float32 sums, rounded where
+//   the TPU kernel's bf16 compute mode rounds (yd, W, g_y1;
 //   pallas_tri_bridge.py:77-79, :157-162), the recompute on
-//   tri_bridge_tc.cuh.  D = 64: W and W^T resident (24 KB each, both read
-//   K-major: a warpgroup's 32 columns start inside a swizzled row, where an
-//   MN-major operand cannot start).  D = 256: W (384 KB) streams, through
-//   two stages of 32 rows for y1 = yd W (mma_streamed_w) and two slabs of
-//   its group's 256 rows x 64 columns for g_yd, which sit where yd was
-//   (yd is dead once y1 is in registers): 205 KB of shared memory.  g_yd
-//   of the three groups at once would take 3 D / 4 accumulators a thread
-//   (192 at D = 256), so each group's product runs twice, once for the
-//   LN_in backward's row sums and once for gx.  The yd and g_y1 rows go
-//   out in bf16 for the tensor-core weight gradient (wgrad_tc.cuh
-//   wgrad_tc, whose bias row is gb).
+//   tri_bridge_tc.cuh; W and W^T resident (24 KB each, both read K-major: a
+//   warpgroup's 32 columns start inside a swizzled row, where an MN-major
+//   operand cannot start); g_yd a group at a time, twice (once for the
+//   LN_in backward's row sums, once for gx).
+// * bfloat16 at D = 256: tri_bridge_bwd_tc256_kernel, the same tiles and
+//   rounding sites with W (384 KB) streamed (the note at the kernel): g_yd
+//   once a tile, its LN_in backward folded into two sums a column, W in
+//   bf16 slabs that the copy engine brings through a ring.
 // * float32: the exactness check, CUDA cores: one block per 32-row tile
 //   (16 at D = 256), each warp RPT rows, a lane D / 32 adjacent columns, so
 //   LN_out is a warp reduction in registers; both products stage their
 //   weight from L2 32 rows at a time (common.cuh gemm_staged); yd and g_y1
 //   rows in float32 for the CUDA-core weight gradient.
-// Sums across blocks go through scratch slots and a fixed-order second
-// pass: the same bits from run to run, no atomics.
+// The bf16 kernels write the yd and g_y1 rows in bf16 for the tensor-core
+// weight gradient (wgrad_tc.cuh wgrad_tc, whose bias row is gb).  Sums
+// across blocks go through scratch slots and a fixed-order second pass: the
+// same bits from run to run, no atomics.
 #include "bwd_wide.cuh"
 #include "tri_bridge_tc.cuh"
 
@@ -331,27 +330,20 @@ int launch(const float* s, const float* v, const float* gin,
 
 // ---- the bfloat16 instantiation: tensor cores ------------------------------
 
-// Shared-memory layout at width D (bytes from the 1024-aligned base).  D =
-// 64: W^T (3 panels of D rows: the K-major B of y1 = yd W) and W (one
-// panel of 3D rows: the K-major B of g_yd = g_y1 W^T), both resident.  D =
-// 256: two stages of KP rows of W for y1 (mma_streamed_w).  Then the s and
-// v tiles; yd (64 x 3D); g_y1 (64 x D), behind yd at D = 64 and over yd's
-// first third at D = 256, where yd is dead once y1 is in registers and the
-// two slabs of W that g_yd streams (D rows x 64 columns each) take the rest
-// of it; the exchange rounds [4][wg][row][2]; gin, bin, bias, gout.
+// Shared-memory layout at D = 64 (bytes from the 1024-aligned base): W^T
+// (3 panels of D rows: the K-major B of y1 = yd W) and W (one panel of 3D
+// rows: the K-major B of g_yd = g_y1 W^T), both resident; the s and v
+// tiles; yd (64 x 3D); g_y1 (64 x D) behind it; the exchange rounds
+// [4][wg][row][2]; gin, bin, bias, gout.
 template <int D>
 struct TriBwdTc {
-  static constexpr bool WIDE = D == 256;
-  static constexpr int KP = 32;                     // W rows a y1 stage
+  static_assert(D == 64, "the resident design");
   static constexpr int TILE = Shapes<D>::TILE_BYTES;
-  static constexpr int SLAB = D * tc::ROW_BYTES;    // D rows of 64 bf16
-  static constexpr int O_S = WIDE ? 2 * stream_stage_bytes<D, KP>()
-                                  : 2 * Shapes<D>::W_BYTES;
+  static constexpr int O_S = 2 * Shapes<D>::W_BYTES;
   static constexpr int O_V = O_S + TILE;
   static constexpr int O_YD = O_V + TILE;
-  static constexpr int O_G1 = WIDE ? O_YD : O_YD + 3 * TILE;
-  static constexpr int O_SLAB = O_YD + TILE;        // D = 256
-  static constexpr int O_EX = O_YD + 3 * TILE + (WIDE ? 0 : TILE);
+  static constexpr int O_G1 = O_YD + 3 * TILE;
+  static constexpr int O_EX = O_YD + 3 * TILE + TILE;
   static constexpr int O_PV = O_EX + 4 * 2 * TM * 2 * 4;
   static constexpr int SMEM = O_PV + 8 * D * 4 + tc::ATOM_BYTES;
 };
@@ -379,69 +371,31 @@ __device__ __forceinline__ int fold_col(int j, int half, int lane) {
 }
 
 // acc = g_y1 W[g D + n, :]^T on the warpgroup's D / 2 columns n of group g
-// (the g_y1 tile K-major).  D = 64: W resident, K-major; D = 256: W's
-// columns stream in four slabs of 64 (the group's D rows), two buffers,
-// one loading while the tensor cores take the other.  Every thread of the
-// block calls it.
+// (the g_y1 tile K-major, W resident, K-major).
 template <int D>
 __device__ __forceinline__ void tri_gyd_mma(float (&acc)[D / 4],
-                                            uint8_t* sm, const float* W,
-                                            int g, int wg) {
+                                            uint8_t* sm, int g, int wg) {
   using S = TriBwdTc<D>;
   const uint32_t g1 = tc::smem_u32(sm + S::O_G1);
-  if constexpr (!S::WIDE) {
-    const uint32_t w = tc::smem_u32(sm + Shapes<D>::W_BYTES);
-    tc::fence();
+  const uint32_t w = tc::smem_u32(sm + Shapes<D>::W_BYTES);
+  tc::fence();
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks)
-      tc::mma_ss<D / 2, 0, 0>(
-          acc, tc::make_desc(g1 + ks * 32, 16),
-          tc::make_desc(w + (g * D + D / 2 * wg) * tc::ROW_BYTES + ks * 32,
-                        16),
-          ks > 0);
-    tc::commit();
-    tc::wait_all();
-  } else {
-    uint8_t* slabs = sm + S::O_SLAB;
-    const float* wg_rows = W + static_cast<size_t>(g) * D * D;
-    __syncthreads();                   // the slabs' last readers are done
-    tc_store_rows_f32<64>(slabs, D, wg_rows, D, threadIdx.x, NTHREADS);
-    tc::fence_async_smem();
-    __syncthreads();
-#pragma unroll
-    for (int kc = 0; kc < D / 64; ++kc) {
-      const uint32_t st = tc::smem_u32(slabs + (kc & 1) * S::SLAB);
-      tc::fence();
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-        tc::mma_ss<D / 2, 0, 0>(
-            acc, tc::make_desc(g1 + kc * TILE_PANEL + s * 32, 16),
-            tc::make_desc(st + D / 2 * wg * tc::ROW_BYTES + s * 32, 16),
-            kc > 0 || s > 0);
-      tc::commit();
-      if (kc + 1 < D / 64) {
-        tc::wait<1>();                 // the other slab's products are done
-        __syncthreads();               // ... in both warpgroups
-        tc_store_rows_f32<64>(slabs + ((kc + 1) & 1) * S::SLAB, D,
-                              wg_rows + (kc + 1) * 64, D, threadIdx.x,
-                              NTHREADS);
-        tc::fence_async_smem();
-        __syncthreads();
-      }
-    }
-    tc::wait_all();
-  }
+  for (int ks = 0; ks < D / 16; ++ks)
+    tc::mma_ss<D / 2, 0, 0>(
+        acc, tc::make_desc(g1 + ks * 32, 16),
+        tc::make_desc(w + (g * D + D / 2 * wg) * tc::ROW_BYTES + ks * 32, 16),
+        ks > 0);
+  tc::commit();
+  tc::wait_all();
   tc::fence_regs(acc);
 }
 
-// The bf16 backward at D = 64 and 256: tri_bridge_bwd.cu's
-// tri_bridge_bwd_tc_kernel (one resident block an SM walks 64-row tiles,
-// the two warpgroups split the columns, the recompute on tri_bridge_tc.cuh)
-// with W resident at 64 and streamed at 256.  g_yd of the three groups
-// would take 3 D / 4 accumulators a thread (192 at D = 256), so it is taken
-// one group at a time, twice: first for the LN_in backward's row sums and
-// the parameter sums, then again for gx (group 2 first: gs = gx0 + gx2 v
-// and gv = gx1 + gx2 s are stored as groups 0 and 1 come).
+// The bf16 backward at D = 64: tri_bridge_bwd.cu's tri_bridge_bwd_tc_kernel
+// (one resident block an SM walks 64-row tiles, the two warpgroups split
+// the columns, the recompute on tri_bridge_tc.cuh) with W resident.  g_yd
+// is taken one group at a time, twice: first for the LN_in backward's row
+// sums and the parameter sums, then again for gx (group 2 first: gs = gx0 +
+// gx2 v and gv = gx1 + gx2 s are stored as groups 0 and 1 come).
 template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 tri_bridge_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ s,
@@ -489,11 +443,8 @@ tri_bridge_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ s,
     bias_s[tid] = bias[tid];
     gout_s[tid] = gout[tid];
   }
-  if constexpr (!S::WIDE) {            // W^T and W, rounded to bf16
-    tri_store_wt<D>(sm, W, tid);
-    tc_store_rows_f32<D>(sm + Shapes<D>::W_BYTES, 3 * D, W, D, tid,
-                         NTHREADS);
-  }
+  tri_store_wt<D>(sm, W, tid);          // W^T and W, rounded to bf16
+  tc_store_rows_f32<D>(sm + Shapes<D>::W_BYTES, 3 * D, W, D, tid, NTHREADS);
   float vgi[3][NC], vbi[3][NC], vgo[NC], vbo[NC];
 #pragma unroll
   for (int j = 0; j < NC; ++j) {
@@ -531,10 +482,7 @@ tri_bridge_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ s,
     tc::fence_async_smem();
     __syncthreads();                   // the yd tile is whole
     float acc[D / 4], m2[2], i2[2];
-    if constexpr (S::WIDE)
-      mma_streamed_w<D, 3 * D, S::KP>(acc, tc::smem_u32(yd_s), W, sm, wg);
-    else
-      tri_y1_mma<D>(acc, yd_s, sm, wg);
+    tri_y1_mma<D>(acc, yd_s, sm, wg);
     // (a block barrier: past it, yd's readers are done in both warpgroups)
     tri_ln_out_stats<D>(acc, bias_s, ex_s + 2 * TM * 2, m2, i2, wg, rl,
                         lane, drop.inv1);
@@ -592,7 +540,7 @@ tri_bridge_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ s,
     float t1[2] = {0.f, 0.f}, t2[2] = {0.f, 0.f};
 #pragma unroll
     for (int g = 0; g < 3; ++g) {
-      tri_gyd_mma<D>(acc, sm, W, g, wg);
+      tri_gyd_mma<D>(acc, sm, g, wg);
       float tg[NF], tb[NF];
 #pragma unroll
       for (int k = 0; k < NF; ++k) tg[k] = tb[k] = 0.f;
@@ -628,7 +576,7 @@ tri_bridge_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ s,
 #pragma unroll
     for (int n = 0; n < 3; ++n) {
       const int g = (n + 2) % 3;       // groups 2, 0, 1
-      tri_gyd_mma<D>(acc, sm, W, g, wg);
+      tri_gyd_mma<D>(acc, sm, g, wg);
 #pragma unroll
       for (int pr = 0; pr < D / 8; ++pr) {
         const int h = pr & 1, q = pr >> 1, c = half + 8 * q + cl;
@@ -679,15 +627,536 @@ tri_bridge_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ s,
         ((red[k] + red[NVT + k]) + red[2 * NVT + k]) + red[3 * NVT + k];
 }
 
-// The bf16 backward: the main kernel, the weight gradient over the bf16
-// rows it wrote and the fixed-order slot sums.
-template <int D>
-int launch_tc(const void* s, const void* v, const float* gin,
-              const float* bin, const float* W, const float* bias,
-              const float* gout, const void* g, void* gs, void* gv,
-              float* gvec, float* gw, void* yd, void* gy1, float* vec_part,
-              float* wg_part, long long R, int wg_chunks, Dropout drop,
-              cudaStream_t stream) {
+// ---- the bfloat16 instantiation at D = 256: W through a ring of slabs -----
+//
+// tri_bridge_bwd_tc_wide_kernel's tiles (one resident block an SM walks
+// 64-row tiles, the two warpgroups split the columns, the recompute on
+// tri_bridge_tc.cuh) with W (384 KB) streamed.  What the design does about
+// the card:
+// * g_yd once a tile.  gx of the three LN_in groups enters the outputs only
+//   as gs = gx0 + gx2 v and gv = gx1 + gx2 s, so pass A, which holds g_yd
+//   of one (quarter, group) at a time (a warpgroup's 128 columns in two
+//   quarters of 64, the groups 2, 0, 1), keeps P = gxh0 + gxh2 v and Q =
+//   gxh1 + gxh2 s (gxh = g_yd keep gin) beside the row sums s1 = sum gxh
+//   and s2 = sum gxh xh and the LN_in parameter sums, and pass B needs no
+//   product: gs = istd (P - m1 (1 + v) - m2 (xh0 + xh2 v)), gv = istd (Q -
+//   m1 (1 + s) - m2 (xh1 + xh2 s)), m = s / 3dv.  P and Q wait in float32
+//   scratch rows (each thread reads back what it wrote).
+// * W in bf16, as the products read it: tri_w256_pack_kernel rounds W once
+//   a call into 48 slabs of 16 KB, the 24 stages of 32 rows x 256 columns
+//   of y1 = yd W (read MN-major), then the 24 slabs of g_yd = g_y1 W^T, one
+//   a (quarter, group, column block): both warpgroups' 64 rows of W x 64
+//   columns (read K-major), each slab laid out as it lies in shared memory
+//   (the 128-byte swizzle).  Thread 0 hands a slab to the copy engine
+//   (cp.async.bulk), which completes on its slot's full barrier; each warp
+//   arrives on the slot's empty barrier once the products that read it are
+//   done, and thread 0 waits for that before it refills the slot.  So no
+//   block barrier a slab, and within a product the tensor cores are waited
+//   for one slab late.
+// * Eleven slots of 16 KB, seven in use at a time: three of their own; the
+//   s and v tiles' room during y1 (s and v are loaded again once y1 is
+//   done); yd's room past g_y1 during g_yd.  Up to six slabs are in flight,
+//   and the next tile's first three come in during this tile's last
+//   products.
+// Shared memory: 226,560 bytes.
+// Rows r < `rows` of a bf16 tile (C / 64 panels of 64 rows, the 128-byte
+// swizzle) out to row-major memory (row stride C), 16 bytes a thread at a
+// time, neighbouring threads on neighbouring chunks of a row; every thread
+// of the block.
+template <int C>
+__device__ __forceinline__ void tile_rows_out(__nv_bfloat16* dst,
+                                              const uint8_t* tile, int rows,
+                                              int tid) {
+  constexpr int CH = C / 8;
+  for (int c = tid; c < rows * CH; c += NTHREADS) {
+    const int r = c / CH, ch = c % CH;
+    *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * C + ch * 8) =
+        *reinterpret_cast<const uint4*>(tile + (ch >> 3) * TILE_PANEL
+                                        + tc::swz_chunk(r, ch & 7));
+  }
+}
+
+struct Tri256 {
+  static constexpr int D = 256;
+  static constexpr int SLAB = 2 * TILE_PANEL;          // 16 KB
+  static constexpr int PANEL = 32 * tc::ROW_BYTES;     // a y1 stage's panel
+  static constexpr int PER_TILE = 48;                  // slabs a tile
+  static constexpr int NY1 = 24;                       // ... of y1 = yd W
+  static constexpr int RING = 7;                       // slots in use
+  static constexpr int NSLOT = 11;                     // slots in all
+  static constexpr int AHEAD = 6;                      // slabs in flight
+  static constexpr int TILE = Shapes<D>::TILE_BYTES;   // 64 x 256 bf16
+  static constexpr int O_S = 0;                        // s, v (slots 3-6)
+  static constexpr int O_V = O_S + TILE;
+  static constexpr int O_X = O_V + TILE;               // yd; g_y1 (slots 7-10)
+  static constexpr int O_OWN = O_X + 3 * TILE;         // slots 0-2
+  static constexpr int O_BAR = O_OWN + 3 * SLAB;       // full, empty barriers
+  static constexpr int O_EX = O_BAR + 256;             // [4][wg][row][2]
+  static constexpr int O_PV = O_EX + 4 * 2 * TM * 2 * 4;   // gin bin bias gout
+  static constexpr int SMEM = O_PV + 8 * D * 4 + tc::ATOM_BYTES;
+  static_assert(2 * NSLOT * 8 <= O_EX - O_BAR, "barriers");
+  static_assert(4 * SLAB == 2 * TILE, "slots 3-6 fill s and v");
+  static_assert(NY1 * SLAB == 3 * D * D * 2 && PER_TILE == 2 * NY1,
+                "a tile's slabs: W in bf16 in each product's layout");
+  // the slot of a tile's slab s: y1's in slots 0-6, g_yd's in 7-10, 0-2
+  static __host__ __device__ constexpr int slot(int s) {
+    return s < NY1 ? s % RING : (7 + (s - NY1) % RING) % NSLOT;
+  }
+  static __device__ __forceinline__ uint8_t* slot_ptr(uint8_t* sm, int k) {
+    return k < 3 ? sm + O_OWN + k * SLAB
+                 : (k < 7 ? sm + O_S + (k - 3) * SLAB
+                          : sm + O_X + TILE + (k - 7) * SLAB);
+  }
+};
+
+// W (3D, D) float32 rounded to bf16 into the PER_TILE slabs a tile reads,
+// in order, each as it lies in shared memory: a thread a 16-byte chunk.  A
+// y1 stage sl holds rows 32 sl + r of W in four panels (columns 64 pn + j);
+// g_yd's slab i = 12 u + 4 n + kc (group g = 2, 0, 1 for n = 0, 1, 2)
+// holds, in panel w, rows 256 g + 128 w + 64 u + r (warpgroup w's) and
+// columns 64 kc + j.  Row r's chunk j / 8 lies at chunk (j / 8) ^ (r % 8).
+__global__ void __launch_bounds__(NTHREADS)
+tri_w256_pack_kernel(const float* __restrict__ W,
+                     __nv_bfloat16* __restrict__ Wp) {
+  constexpr int CHUNKS = Tri256::SLAB / 16;            // a slab's
+  const int c = blockIdx.x * NTHREADS + threadIdx.x;
+  if (c >= Tri256::PER_TILE * CHUNKS) return;
+  const int sl = c / CHUNKS, q = c % CHUNKS;
+  int row, r;
+  if (sl < Tri256::NY1) {
+    r = q / 8 % 32;
+    row = 32 * sl + r;
+  } else {
+    const int i = sl - Tri256::NY1, u = i / 12, g = (i / 4 % 3 + 2) % 3;
+    r = q / 8 % 64;
+    row = g * Tri256::D + 128 * (q / 512) + 64 * u + r;
+  }
+  const int pn = sl < Tri256::NY1 ? q / 256 : (sl - Tri256::NY1) % 4;
+  const float* src = W + static_cast<size_t>(row) * Tri256::D + 64 * pn
+                     + 8 * ((q % 8) ^ (r % 8));
+  uint4 out;
+  out.x = tc::pack_bf16(src[0], src[1]);
+  out.y = tc::pack_bf16(src[2], src[3]);
+  out.z = tc::pack_bf16(src[4], src[5]);
+  out.w = tc::pack_bf16(src[6], src[7]);
+  reinterpret_cast<uint4*>(Wp)[c] = out;
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+tri_bridge_bwd_tc256_kernel(const __nv_bfloat16* __restrict__ s,
+                            const __nv_bfloat16* __restrict__ v,
+                            const float* __restrict__ gin,
+                            const float* __restrict__ bin,
+                            const __nv_bfloat16* __restrict__ Wp,
+                            const float* __restrict__ bias,
+                            const float* __restrict__ gout,
+                            const __nv_bfloat16* __restrict__ gy,
+                            __nv_bfloat16* __restrict__ gs,
+                            __nv_bfloat16* __restrict__ gv,
+                            __nv_bfloat16* __restrict__ yd_rows,
+                            __nv_bfloat16* __restrict__ gy1_rows,
+                            float* __restrict__ pq_rows,
+                            float* __restrict__ vec_part, long long R,
+                            Dropout drop) {
+  using S = Tri256;
+  constexpr int D = S::D;
+  constexpr int NVT = 8 * D;   // ggin (3D), gbin (3D), ggout, gbout (D)
+  drop.load_seed();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_smem(smem_raw);
+  uint8_t* s_s = sm + S::O_S;
+  uint8_t* v_s = sm + S::O_V;
+  uint8_t* yd_s = sm + S::O_X;
+  uint8_t* g1_s = sm + S::O_X;         // once y1 is done
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + S::O_BAR);
+  uint64_t* empty = full + S::NSLOT;
+  float* ex_s = reinterpret_cast<float*>(sm + S::O_EX);
+  float* gin_s = reinterpret_cast<float*>(sm + S::O_PV);
+  float* bin_s = gin_s + 3 * D;
+  float* bias_s = bin_s + 3 * D;
+  float* gout_s = bias_s + D;
+
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31;
+  const int rl = 16 * warp + (lane >> 2);
+  const int cl = 2 * (lane & 3);
+  const int half = D / 2 * wg;
+  for (int k = tid; k < 3 * D; k += NTHREADS) {
+    gin_s[k] = gin[k];
+    bin_s[k] = bin[k];
+  }
+  if (tid < D) {                       // D <= NTHREADS
+    bias_s[tid] = bias[tid];
+    gout_s[tid] = gout[tid];
+  }
+  if (tid == 0) {
+    for (int k = 0; k < S::NSLOT; ++k) {
+      tc::mbar_init(full + k, 1);
+      tc::mbar_init(empty + k, NWARPS);
+    }
+    tc::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // ---- the ring.  The block's slab j is slab j % PER_TILE of its tile
+  // j / PER_TILE (the tile's ordinal in the block's walk); thread 0 hands
+  // slabs out in order while fewer than AHEAD are unreleased (by warp 0:
+  // a slot is used again six slabs later at the soonest, so the slab it
+  // waits for is one warp 0 has released) and the slot's room is open:
+  // slots 3-6 only to the tile whose s and v are dead (open_s), 7-10 only
+  // to the tile whose yd is dead (open_x) ------------------------------------
+  const long long tiles = (R + TM - 1) / TM;
+  const int total = static_cast<int>(
+      (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x) * S::PER_TILE;
+  int fetched = 0, released = 0, open_s = -1, open_x = -1;
+  uint32_t ephase = (1u << S::NSLOT) - 1u;   // thread 0: empty waits' parity
+  uint32_t fphase = 0u;                       // every thread: full waits'
+  auto pump = [&]() {
+    if (tid != 0) return;
+    while (fetched < total && fetched < released + S::AHEAD) {
+      const int ti = fetched / S::PER_TILE, sl = fetched % S::PER_TILE;
+      const int k = S::slot(sl);
+      if (k >= 3 && ti != (k < 7 ? open_s : open_x)) break;
+      tc::mbar_wait(empty + k, (ephase >> k) & 1u);
+      ephase ^= 1u << k;
+      tc::mbar_expect_tx(full + k, S::SLAB);
+      tc::bulk_g2s(S::slot_ptr(sm, k), Wp + static_cast<size_t>(sl) * (S::SLAB / 2),
+                   S::SLAB, full + k);
+      ++fetched;
+    }
+  };
+  auto take = [&](int k) {             // slot k's slab has landed
+    tc::mbar_wait(full + k, (fphase >> k) & 1u);
+    fphase ^= 1u << k;
+  };
+  auto give = [&](int k) {             // the warp's products read slot k
+    __syncwarp();
+    if (lane == 0) tc::mbar_arrive(empty + k);
+    if (tid == 0) ++released;
+    pump();
+    __syncwarp();
+  };
+  pump();
+
+  float vgi[3][2][2], vbi[3][2][2];    // [g][quarter][qh]
+  float vgo[D / 64], vbo[D / 64];      // [block of four chunks]
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      vgi[g][u][0] = vgi[g][u][1] = vbi[g][u][0] = vbi[g][u][1] = 0.f;
+#pragma unroll
+  for (int j = 0; j < D / 64; ++j) vgo[j] = vbo[j] = 0.f;
+
+  int ti = 0;
+  for (long long tile = blockIdx.x; tile < tiles;
+       tile += gridDim.x, ++ti) {
+    const long long r0 = tile * TM;
+    const int rows = static_cast<int>(min(static_cast<long long>(TM),
+                                          R - r0));
+    __syncthreads();                   // the previous tile is consumed
+    tc_load_rows<D>(s_s, TM, s + r0 * D, D, rows, tid, NTHREADS);
+    tc_load_rows<D>(v_s, TM, v + r0 * D, D, rows, tid, NTHREADS);
+    tc::cp_async_commit();
+    bool live[2];
+    long long row[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      live[h] = rl + 8 * h < rows;
+      row[h] = r0 + (live[h] ? rl + 8 * h : 0);
+    }
+    uint32_t kw[3][2][2];
+    tri_keep_bits<D>(drop, row, lane, half, kw);
+    tc::cp_async_wait<0>();
+    tc::fence_async_smem();
+    __syncthreads();
+    // ---- the recompute: LN_in statistics, yd (out as rows) --------------
+    float mean[2], istd[2];
+    tri_ln_in_stats<D>(s_s, v_s, ex_s, mean, istd, wg, rl, lane, drop.inv3);
+    tri_yd_tile<false, D>(s_s, v_s, yd_s, kw, drop, mean, istd, gin_s,
+                          bin_s, yd_rows, live, row, wg, rl, lane);
+    tc::fence_async_smem();
+    __syncthreads();                   // the yd tile is whole; s, v dead
+    open_s = ti;
+    pump();
+    tile_rows_out<3 * D>(yd_rows + r0 * (3 * D), yd_s, rows, tid);
+    // ---- y1 = yd W over the 24 stages of 32 rows ------------------------
+    float acc[D / 4];
+    {
+      const uint32_t a = tc::smem_u32(yd_s);
+#pragma unroll
+      for (int p = 0; p < S::NY1; ++p) {
+        const int k = S::slot(p);
+        take(k);
+        const uint32_t st = tc::smem_u32(S::slot_ptr(sm, k)) + 2 * wg * S::PANEL;
+        tc::fence();
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int ks = 2 * p + q;
+          tc::mma_ss<128, 0, 1>(
+              acc, tc::make_desc(a + (ks / 4) * TILE_PANEL + (ks % 4) * 32, 16),
+              tc::make_desc(st + q * 2 * tc::ATOM_BYTES, S::PANEL),
+              p > 0 || q > 0);
+        }
+        tc::commit();
+        if (p > 0) {
+          tc::wait<1>();
+          give(S::slot(p - 1));
+        }
+      }
+      tc::wait<0>();
+      give(S::slot(S::NY1 - 1));
+      tc::fence_regs(acc);
+    }
+    tc::fence_async_smem();
+    __syncthreads();                   // y1 is done: yd and the slots in s, v
+    open_s = -1;
+    open_x = ti;
+    pump();
+    tc_load_rows<D>(s_s, TM, s + r0 * D, D, rows, tid, NTHREADS);
+    tc_load_rows<D>(v_s, TM, v + r0 * D, D, rows, tid, NTHREADS);
+    tc::cp_async_commit();
+    // ---- LN_out and ReLU backward; g_y1 into its tile and out as rows ----
+    float m2[2], i2[2];
+    tri_ln_out_stats<D>(acc, bias_s, ex_s + 2 * TM * 2, m2, i2, wg, rl,
+                        lane, drop.inv1);
+    {
+      // the cotangent's bf16 pairs (row half pr % 2, columns half + 8 (pr /
+      // 2) + cl and the next); gxh2 = g gout is taken from them twice
+      uint32_t gp[D / 8];
+      float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+      for (int pr = 0; pr < D / 8; ++pr) {
+        const int h = pr & 1, c = half + 8 * (pr >> 1) + cl;
+        gp[pr] = live[h] ? __ldg(reinterpret_cast<const unsigned int*>(
+                               gy + row[h] * D + c))
+                         : 0u;
+      }
+#pragma unroll
+      for (int qb = 0; qb < D / 64; ++qb) {    // blocks of four chunks
+        float tg[8], tb[8];
+#pragma unroll
+        for (int qq = 0; qq < 4; ++qq) {
+          const int q = 4 * qb + qq, c = half + 8 * q + cl;
+          tg[2 * qq] = tg[2 * qq + 1] = tb[2 * qq] = tb[2 * qq + 1] = 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 g2 = tc::unpack_bf16(gp[2 * q + h]);
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i = 4 * q + 2 * h + e;
+              const float g = e ? g2.y : g2.x;
+              const float xh = (fmaxf(acc[i], 0.f) - m2[h]) * i2[h];
+              tg[2 * qq + e] = fmaf(g, xh, tg[2 * qq + e]);
+              tb[2 * qq + e] += g;
+              const float gxh = g * gout_s[c + e];
+              s1[h] += gxh;
+              s2[h] = fmaf(gxh, xh, s2[h]);
+            }
+          }
+        }
+        fold<8>(tg, 16, lane);
+        fold<4>(tg, 8, lane);
+        fold<2>(tg, 4, lane);
+        fold<8>(tb, 16, lane);
+        fold<4>(tb, 8, lane);
+        fold<2>(tb, 4, lane);
+        vgo[qb] += tg[0];
+        vbo[qb] += tb[0];
+      }
+      tri_row_pair_sums(ex_s + 2 * 2 * TM * 2, s1, s2, wg, rl, lane);
+#pragma unroll
+      for (int pr = 0; pr < D / 8; ++pr) {
+        const int h = pr & 1, c = half + 8 * (pr >> 1) + cl;
+        const float2 g2 = tc::unpack_bf16(gp[pr]);
+        float g1[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 2 * pr + e;
+          const float xh = (fmaxf(acc[i], 0.f) - m2[h]) * i2[h];
+          const float gxh = (e ? g2.y : g2.x) * gout_s[c + e];
+          const float g2v = i2[h] * (gxh - s1[h] * drop.inv1
+                                     - xh * s2[h] * drop.inv1);
+          g1[e] = acc[i] > 0.f ? g2v : 0.f;
+        }
+        *reinterpret_cast<uint32_t*>(g1_s + (c >> 6) * TILE_PANEL
+                                     + tc::swz(rl + 8 * h, c & 63)) =
+            tc::pack_bf16(g1[0], g1[1]);
+      }
+    }
+    tc::cp_async_wait<0>();            // s and v again
+    tc::fence_async_smem();
+    __syncthreads();                   // the g_y1 tile is whole; s, v too
+    tile_rows_out<D>(gy1_rows + r0 * D, g1_s, rows, tid);
+    // ---- pass A: g_yd once, a (quarter, group) at a time (groups 2, 0, 1:
+    // gxh2 waits in registers for P and Q); the dropout replay, ggin /
+    // gbin, the LN_in backward's row sums, P and Q into their rows ---------
+    float t1[2] = {0.f, 0.f}, t2[2] = {0.f, 0.f};
+    const uint32_t g1a = tc::smem_u32(g1_s);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int base = half + 64 * u;
+      float gx2[32];
+#pragma unroll
+      for (int n = 0; n < 3; ++n) {
+        const int g = (n + 2) % 3;
+        float ac[32];
+#pragma unroll
+        for (int kc = 0; kc < 4; ++kc) {
+          const int k = S::slot(S::NY1 + 12 * u + 4 * n + kc);
+          take(k);
+          const uint32_t st = tc::smem_u32(S::slot_ptr(sm, k)) + wg * TILE_PANEL;
+          tc::fence();
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            tc::mma_ss<64, 0, 0>(
+                ac, tc::make_desc(g1a + kc * TILE_PANEL + q * 32, 16),
+                tc::make_desc(st + q * 32, 16), kc > 0 || q > 0);
+          tc::commit();
+          if (kc > 0) {
+            tc::wait<1>();
+            give(S::slot(S::NY1 + 12 * u + 4 * n + kc - 1));
+          }
+        }
+        tc::wait<0>();
+        give(S::slot(S::NY1 + 12 * u + 4 * n + 3));
+        tc::fence_regs(ac);
+#pragma unroll
+        for (int qh = 0; qh < 2; ++qh) {
+          float tg[8], tb[8];
+#pragma unroll
+          for (int qq = 0; qq < 4; ++qq) {
+            const int q = 4 * qh + qq, c = base + 8 * q + cl;
+            const float2 gi = *reinterpret_cast<const float2*>(
+                gin_s + g * D + c);
+            tg[2 * qq] = tg[2 * qq + 1] = tb[2 * qq] = tb[2 * qq + 1] = 0.f;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float2 a = tri_pair(s_s, rl, h, c),
+                           b = tri_pair(v_s, rl, h, c);
+              const uint32_t bits = kw[g][h][u] >> (4 * q);
+              float pq[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int i = 4 * q + 2 * h + e;
+                const float sv = e ? a.y : a.x, vv = e ? b.y : b.x;
+                const float x = g == 0 ? sv : (g == 1 ? vv : sv * vv);
+                const float xh = (x - mean[h]) * istd[h];
+                const float km = !drop.on() ? 1.f
+                    : ((bits >> e) & 1u ? drop.scale : 0.f);
+                const float gyv = ac[i] * km;
+                tg[2 * qq + e] = fmaf(gyv, xh, tg[2 * qq + e]);
+                tb[2 * qq + e] += gyv;
+                const float gxh = gyv * (e ? gi.y : gi.x);
+                t1[h] += gxh;
+                t2[h] = fmaf(gxh, xh, t2[h]);
+                if (g == 2)
+                  gx2[i] = gxh;
+                else                   // P = gxh0 + gxh2 v, Q = gxh1 + gxh2 s
+                  pq[e] = fmaf(gx2[i], g == 0 ? vv : sv, gxh);
+              }
+              if (g != 2 && live[h])
+                *reinterpret_cast<float2*>(pq_rows + row[h] * (2 * D)
+                                           + (g == 0 ? 0 : D) + c) =
+                    make_float2(pq[0], pq[1]);
+            }
+          }
+          // sums over the eight lanes that hold these columns' other rows
+          fold<8>(tg, 16, lane);
+          fold<4>(tg, 8, lane);
+          fold<2>(tg, 4, lane);
+          fold<8>(tb, 16, lane);
+          fold<4>(tb, 8, lane);
+          fold<2>(tb, 4, lane);
+          vgi[g][u][qh] += tg[0];
+          vbi[g][u][qh] += tb[0];
+        }
+      }
+    }
+    tri_row_pair_sums(ex_s + 3 * 2 * TM * 2, t1, t2, wg, rl, lane);
+    // ---- pass B: gs and gv from P and Q into two tiles where g_y1 and
+    // slots 7 and 8 were (pass A is done with them), then out as rows ----
+    const float m1r[2] = {t1[0] * drop.inv3, t1[1] * drop.inv3};
+    const float m2r[2] = {t2[0] * drop.inv3, t2[1] * drop.inv3};
+    uint8_t* gs_s = sm + S::O_X;
+    uint8_t* gv_s = gs_s + S::TILE;
+#pragma unroll
+    for (int pr = 0; pr < D / 8; ++pr) {
+      const int h = pr & 1, c = half + 8 * (pr >> 1) + cl;
+      const float2 a = tri_pair(s_s, rl, h, c), b = tri_pair(v_s, rl, h, c);
+      float2 P = make_float2(0.f, 0.f), Q = P;
+      if (live[h]) {
+        P = *reinterpret_cast<const float2*>(pq_rows + row[h] * (2 * D) + c);
+        Q = *reinterpret_cast<const float2*>(pq_rows + row[h] * (2 * D) + D
+                                             + c);
+      }
+      float o[2][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float sv = e ? a.y : a.x, vv = e ? b.y : b.x;
+        const float xh0 = (sv - mean[h]) * istd[h];
+        const float xh1 = (vv - mean[h]) * istd[h];
+        const float xh2 = (sv * vv - mean[h]) * istd[h];
+        o[0][e] = istd[h] * ((e ? P.y : P.x) - m1r[h] * (1.f + vv)
+                             - m2r[h] * fmaf(xh2, vv, xh0));
+        o[1][e] = istd[h] * ((e ? Q.y : Q.x) - m1r[h] * (1.f + sv)
+                             - m2r[h] * fmaf(xh2, sv, xh1));
+      }
+      const int at = (c >> 6) * TILE_PANEL + tc::swz(rl + 8 * h, c & 63);
+      *reinterpret_cast<uint32_t*>(gs_s + at) = tc::pack_bf16(o[0][0],
+                                                               o[0][1]);
+      *reinterpret_cast<uint32_t*>(gv_s + at) = tc::pack_bf16(o[1][0],
+                                                               o[1][1]);
+    }
+    __syncthreads();                   // the gs and gv tiles are whole
+    tile_rows_out<D>(gs + r0 * D, gs_s, rows, tid);
+    tile_rows_out<D>(gv + r0 * D, gv_s, rows, tid);
+  }
+  // ---- the block's parameter-vector partials, warps summed in order -----
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(yd_s);        // [4 warps][NVT]
+  {
+    // after the folds a lane holds, per group, quarter and column half qh,
+    // the sum over its warp's rows of column half + 64 u + 8 (4 qh + 2 b4 +
+    // b3) + 2 (lane % 4) + b2
+    const int b4 = (lane >> 4) & 1, b3 = (lane >> 3) & 1, b2 = (lane >> 2) & 1;
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int qh = 0; qh < 2; ++qh) {
+          const int c = half + 64 * u + 8 * (4 * qh + 2 * b4 + b3) + cl + b2;
+          red[warp * NVT + g * D + c] = vgi[g][u][qh];
+          red[warp * NVT + 3 * D + g * D + c] = vbi[g][u][qh];
+        }
+  }
+  {
+    // ggout / gbout: block qb of four chunks, column half + 8 (4 qb + 2 b4
+    // + b3) + 2 (lane % 4) + b2
+    const int b4 = (lane >> 4) & 1, b3 = (lane >> 3) & 1, b2 = (lane >> 2) & 1;
+#pragma unroll
+    for (int qb = 0; qb < D / 64; ++qb) {
+      const int c = half + 8 * (4 * qb + 2 * b4 + b3) + cl + b2;
+      red[warp * NVT + 6 * D + c] = vgo[qb];
+      red[warp * NVT + 7 * D + c] = vbo[qb];
+    }
+  }
+  __syncthreads();
+  for (int k = tid; k < NVT; k += NTHREADS)
+    vec_part[static_cast<size_t>(blockIdx.x) * NVT + k] =
+        ((red[k] + red[NVT + k]) + red[2 * NVT + k]) + red[3 * NVT + k];
+}
+
+// The bf16 backward at D = 64: the main kernel, the weight gradient over the
+// bf16 rows it wrote and the fixed-order slot sums.
+int launch_tc64(const void* s, const void* v, const float* gin,
+                const float* bin, const float* W, const float* bias,
+                const float* gout, const void* g, void* gs, void* gv,
+                float* gvec, float* gw, void* yd, void* gy1, float* vec_part,
+                float* wg_part, long long R, int wg_chunks, Dropout drop,
+                cudaStream_t stream) {
+  constexpr int D = 64;
   using bf16 = __nv_bfloat16;
   auto h = [](const void* p) { return static_cast<const bf16*>(p); };
   auto hm = [](void* p) { return static_cast<bf16*>(p); };
@@ -709,43 +1178,86 @@ int launch_tc(const void* s, const void* v, const float* gin,
                                            stream));
 }
 
+// The bf16 backward at D = 256: W packed into bf16 slabs (in Wp), the
+// streamed kernel over them, then the weight gradient and the slot sums as
+// at 64.
+int launch_tc256(const void* s, const void* v, const float* gin,
+                 const float* bin, const float* W, const float* bias,
+                 const float* gout, const void* g, void* gs, void* gv,
+                 float* gvec, float* gw, void* yd, void* gy1, float* pq,
+                 void* Wp, float* vec_part, float* wg_part, long long R,
+                 int wg_chunks, Dropout drop, cudaStream_t stream) {
+  constexpr int D = 256;
+  using bf16 = __nv_bfloat16;
+  auto h = [](const void* p) { return static_cast<const bf16*>(p); };
+  auto hm = [](void* p) { return static_cast<bf16*>(p); };
+  constexpr int smem = Tri256::SMEM;
+  constexpr int chunks = Tri256::PER_TILE * Tri256::SLAB / 16;
+  tri_w256_pack_kernel<<<(chunks + NTHREADS - 1) / NTHREADS, NTHREADS, 0,
+                         stream>>>(W, hm(Wp));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((err = allow_smem(tri_bridge_bwd_tc256_kernel, smem)) != cudaSuccess)
+    return static_cast<int>(err);
+  const long long tiles = (R + TM - 1) / TM;
+  const int sms = sm_count();
+  const int blocks = static_cast<int>(tiles < sms ? tiles : sms);
+  tri_bridge_bwd_tc256_kernel<<<blocks, NTHREADS, smem, stream>>>(
+      h(s), h(v), gin, bin, h(Wp), bias, gout, h(g), hm(gs), hm(gv), hm(yd),
+      hm(gy1), pq, vec_part, R, drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  if ((err = wgrad_tc(h(yd), h(gy1), wg_part, gw, R, 3 * D, D,
+                      wg_chunks, stream)) != cudaSuccess)
+    return static_cast<int>(err);
+  return static_cast<int>(sum_slots<float>(vec_part, gvec, 1, blocks, 8 * D,
+                                           stream));
+}
+
 }  // namespace
 
 // As tri_bridge_bwd (tri_bridge_bwd.cu) at width D = 64 or 256: s, v, g,
 // gs, gv R rows of D, all bf16 (is_bf16) or all float32; gin/bin (3D), W
-// (3D, D), Wt = W^T (D, 3D), bias, gout (D) float32; when is_bf16 the
-// kernel rounds W to bf16 itself and Wt is unused (may be NULL).  Outputs,
-// float32: gvec = [ggin (3D); gbin (3D); gb (D); ggout (D); gbout (D)] and
-// gw (3D, D); when is_bf16 gvec has no gb and gw has 3D + 1 rows, the last
-// is gb.  Scratch (the wrapper's): yd (R, 3D) and gy1 (R, D) in the
+// (3D, D), Wt = W^T (D, 3D), bias, gout (D) float32; when is_bf16 Wt is
+// unused (may be NULL); the bf16 kernels round W to bf16, at D = 64 as they
+// load it, at D = 256 once a call into wp.
+// Outputs, float32: gvec = [ggin (3D); gbin (3D); gb (D); ggout (D); gbout
+// (D)] and gw (3D, D); when is_bf16 gvec has no gb and gw has 3D + 1 rows,
+// the last is gb.  Scratch (the wrapper's): yd (R, 3D) and gy1 (R, D) in the
 // activation type; float32 vec_part (ceil(R / RT), 9D) with RT = 16 at D =
 // 256, else 32, and wg_part (wg_chunks, 3D, D), or when is_bf16 vec_part
-// (min(ceil(R / 64), SMs), 8D) and wg_part (wg_chunks, 3D + 1, D).  Any
-// other D is refused.
+// (min(ceil(R / 64), SMs), 8D) and wg_part (wg_chunks, 3D + 1, D); pq, when
+// is_bf16 at D = 256, (R, 2D) float32 (P and Q of each row), and wp, 2 x 3D
+// x D bf16 (W in the layouts the two products read), else unused (may be
+// NULL).  Any other D is refused.
 // dv: the true width, 4 <= dv <= D with 4 | dv, of inputs zero-padded to D
 // (every LN's statistics and the Philox keys, philox.cuh).
 extern "C" int tri_bridge_bwd_wide(
     const void* s, const void* v, const void* gin, const void* bin,
     const void* W, const void* Wt, const void* bias, const void* gout,
     const void* g, void* gs, void* gv, void* gvec, void* gw, void* yd,
-    void* gy1, void* vec_part, void* wg_part, long long R, int wg_chunks,
-    int d, const unsigned long long* drop_seed, unsigned drop_threshold,
-    float drop_scale, int dv, int is_bf16, void* stream) {
+    void* gy1, void* vec_part, void* wg_part, void* pq, void* wp, long long R,
+    int wg_chunks, int d, const unsigned long long* drop_seed,
+    unsigned drop_threshold, float drop_scale, int dv, int is_bf16,
+    void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto fm = [](void* p) { return static_cast<float*>(p); };
   auto st = static_cast<cudaStream_t>(stream);
   const Dropout drop =
       entry_dropout(drop_seed, drop_threshold, drop_scale, dv);
   if (!width_ok(dv, d)) return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16 && d == 64)
+    return launch_tc64(s, v, f(gin), f(bin), f(W), f(bias), f(gout), g, gs,
+                       gv, fm(gvec), fm(gw), yd, gy1, fm(vec_part),
+                       fm(wg_part), R, wg_chunks, drop, st);
+  if (is_bf16 && d == 256)
+    return launch_tc256(s, v, f(gin), f(bin), f(W), f(bias), f(gout), g, gs,
+                        gv, fm(gvec), fm(gw), yd, gy1, fm(pq), wp,
+                        fm(vec_part), fm(wg_part), R, wg_chunks, drop, st);
 #define TVQA_TRI_WIDE(DD)                                                  \
-  return is_bf16                                                           \
-      ? launch_tc<DD>(s, v, f(gin), f(bin), f(W), f(bias), f(gout), g, gs, \
-                      gv, fm(gvec), fm(gw), yd, gy1, fm(vec_part),         \
-                      fm(wg_part), R, wg_chunks, drop, st)                 \
-      : launch<DD>(f(s), f(v), f(gin), f(bin), f(W), f(Wt), f(bias),       \
-                   f(gout), f(g), fm(gs), fm(gv), fm(gvec), fm(gw), fm(yd), \
-                   fm(gy1), fm(vec_part), fm(wg_part), R, wg_chunks, drop,  \
-                   st)
+  return launch<DD>(f(s), f(v), f(gin), f(bin), f(W), f(Wt), f(bias),      \
+                    f(gout), f(g), fm(gs), fm(gv), fm(gvec), fm(gw), fm(yd), \
+                    fm(gy1), fm(vec_part), fm(wg_part), R, wg_chunks, drop, \
+                    st)
   if (d == 64) TVQA_TRI_WIDE(64);
   if (d == 256) TVQA_TRI_WIDE(256);
 #undef TVQA_TRI_WIDE

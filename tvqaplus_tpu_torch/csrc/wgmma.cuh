@@ -110,6 +110,56 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// ---- transaction barriers and bulk copies (a ring of slabs fed by the
+// copy engine: one thread issues a slab's copy, which completes on the
+// slab's "full" barrier; every consumer warp arrives on its "empty" barrier
+// once its products have read it) -------------------------------------------
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(count)
+               : "memory");
+}
+// Make the initialised barriers visible to the copy engine.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// Arrive (the producer) and expect `bytes` more to land on the barrier.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_u32(bar)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+// Wait for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global to
+// shared memory by the copy engine, completing on `bar`.
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -249,6 +299,22 @@ __device__ __forceinline__ void tc_load_rows(uint8_t* dst, int R,
     const int r = c >> SH, ch = c & (CH - 1);
     uint8_t* d = dst + (ch >> 3) * (R * tc::ROW_BYTES)
                  + tc::swz_chunk(r, ch & 7);
+    if (r < rows)
+      tc::cp_async16(d, src + static_cast<size_t>(r) * ld + ch * 8);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// cp.async `rows` rows of 8 `chunks` bf16 (row stride ld) into one panel of
+// TM rows; rows past `rows` are zeroed, columns past 8 `chunks` untouched.
+__device__ __forceinline__ void tc_load_panel(uint8_t* dst,
+                                              const __nv_bfloat16* src,
+                                              int ld, int rows, int chunks,
+                                              int t, int n) {
+  for (int c = t; c < TM * chunks; c += n) {
+    const int r = c / chunks, ch = c % chunks;
+    uint8_t* d = dst + tc::swz_chunk(r, ch);
     if (r < rows)
       tc::cp_async16(d, src + static_cast<size_t>(r) * ld + ch * 8);
     else

@@ -42,7 +42,6 @@ from tvqaplus_tpu_torch.ops.plain import (
     Bf16Dot,
     as_f32,
     layer_norm,
-    round_bf16,
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -359,17 +358,15 @@ def qa_ctx_attention_backward(cn, ce, qn, qe, c_mask, q_mask, gamma, beta,
 def _backward_wide(cn, ce, qn, qe, cm, qm, g32, b32, w32, g_mixed, graw, tg,
                    mixed, scale, dropout_rate, seed, dv):
     """The backward at D = 64 or 256 (``csrc/qa_ctx_attention_bwd_wide.cu``):
-    the same outputs as at D = 128.  bf16 at D = 256: the tensor-core
-    kernel, which takes W in bf16 and hands its g_s, p and g_att rows on in
-    bf16; otherwise the CUDA-core kernel, which takes W^T (rounded to bf16,
-    the compute mode's operand, in bf16) and hands them on in float32.  The
-    yd and g_out rows of the weight gradient are in the activation type:
-    bf16 feeds the tensor-core pass."""
+    the same outputs as at D = 128.  bf16: the tensor-core kernels, which
+    take W in bf16 and hand their g_s, p and g_att rows on in bf16; float32:
+    the CUDA-core kernel, which takes W^T and hands them on in float32.
+    The yd and g_out rows of the weight gradient are in the activation
+    type: bf16 feeds the tensor-core pass."""
     bsz, num_a, lqa, d = cn.shape
     _, li, lr, _ = qn.shape
     dev, dt = cn.device, cn.dtype
     bf16 = dt == torch.bfloat16
-    tc = bf16 and d == 256
     if bf16 and (g_mixed.data_ptr() % 16 or mixed.data_ptr() % 16):
         raise ValueError("g_mixed/mixed must start on a 16-byte boundary")
     rows = bsz * li * num_a * lqa
@@ -383,8 +380,7 @@ def _backward_wide(cn, ce, qn, qe, cm, qm, g32, b32, w32, g_mixed, graw, tg,
     gw = torch.empty(3 * d + bf16, d, **f32)     # [gw; gb] in bf16
     scratch = [torch.empty(shape, dtype=t, device=dev) for shape, t in
                wide_backward_scratch(bsz, li, num_a * lqa, lr, d, dt, chunks)]
-    wk = w32.to(dt) if tc \
-        else as_f32((round_bf16(w32) if bf16 else w32).t())
+    wk = w32.to(dt) if bf16 else as_f32(w32.t())
     BWD_BY_WIDTH[d].launch(
         dev, ptr(cn), ptr(ce), ptr(qn), ptr(qe), ptr(cm), ptr(qm), ptr(g32),
         ptr(b32), ptr(wk), ptr(g_mixed), ptr(mixed),
@@ -406,17 +402,16 @@ def wide_backward_scratch(bsz, li, m, lr, d, dt, chunks):
     gce_part (float32, each row's partials by frame; the bf16 kernel at 256
     also keeps a tile's P and Q there between its passes), the yd and g_out
     rows in ``dt``, vec_part (a slot of parameter sums a frame; the bf16
-    kernel at 256, persistent over the frames' 64-row tiles, a slot for
-    each of its blocks, at most one a tile), wg_part (``chunks`` slots),
-    then the g_s, p and g_att rows of the gqn / gqe kernel (bf16 from the tensor-core
-    kernel at 256, lr rounded up to its LRP of 32 or 64; else float32,
-    round4(lr))."""
+    kernels, persistent over the frames' 64-row tiles, a slot for each of
+    their blocks, at most one a tile), wg_part (``chunks`` slots), then the
+    g_s, p and g_att rows of the gqn / gqe kernel (bf16 from the tensor-core
+    kernels, lr rounded up to their LRP of 32 or 64; float32 from the
+    CUDA-core one, round4(lr))."""
     bf16 = dt == torch.bfloat16
-    tc = bf16 and d == 256
     rows, nv = bsz * li * m, (6 if bf16 else 7) * d
-    ld, rdt = ((32 if lr <= 32 else 64), dt) if tc \
+    ld, rdt = ((32 if lr <= 32 else 64), dt) if bf16 \
         else ((lr + 3) & ~3, torch.float32)
-    slots = bsz * li * (-(-m // 64) if tc else 1)
+    slots = bsz * li * (-(-m // 64) if bf16 else 1)
     f32 = torch.float32
     return [((bsz, li, m, d), f32), ((bsz, li, m, d), f32),
             ((rows, 3 * d), dt), ((rows, d), dt), ((slots, nv), f32),

@@ -53,7 +53,7 @@ BWD_KERNEL = CudaKernel("tri_bridge_bwd.cu", "tri_bridge_bwd",
 # 256 csrc/tri_bridge_bwd_wide.cu's entry, which takes D (one count each)
 BWD_BY_WIDTH = {d: BWD_KERNEL if d == 128 else CudaKernel(
     "tri_bridge_bwd_wide.cu", "tri_bridge_bwd_wide",
-    [_P] * 17 + [_L, _I, _I] + _TAIL)
+    [_P] * 19 + [_L, _I, _I] + _TAIL)
     for d in widths.BACKWARD_WIDTHS}
 
 # Kernel vs plain version on the same inputs: float32 differs only in the
@@ -222,33 +222,34 @@ def tri_bridge_backward(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,
 def _backward_wide(s, v, gin, bin_, w32, b32, gout, g, gs, gv,
                    dropout_rate, seed, dv):
     """The backward at D = 64 or 256 (``csrc/tri_bridge_bwd_wide.cu``): the
-    same outputs as at D = 128.  bf16: the tensor-core kernel, which rounds
-    W to bf16 as it loads it; float32: the CUDA-core kernel, which also
+    same outputs as at D = 128.  bf16: the tensor-core kernels, which
+    round W to bf16 (at 256 once a call, into the slabs the kernel reads)
+    and at 256 keep each row's P and Q in a float32 scratch row
+    (``wide_backward_scratch``); float32: the CUDA-core kernel, which also
     takes W^T."""
     d = s.shape[-1]
     rows = s.numel() // d
     bf16 = s.dtype == torch.bfloat16
     f32 = dict(dtype=torch.float32, device=s.device)
-    act = dict(dtype=s.dtype, device=s.device)
     if bf16:
         check_aligned(g=g)
         chunks = tc_wgrad_chunks(rows, 3 * d, d)
-        blocks = min(-(-rows // 64), sm_count(s.device))
         wt = None
     else:
         chunks = wgrad_chunks(rows, 3 * d, d=d)
-        blocks = -(-rows // (16 if d == 256 else 32))
         wt = as_f32(w32.t())
     nv = (8 if bf16 else 9) * d
     gvec = torch.empty(nv, **f32)
     gw = torch.empty(3 * d + bf16, d, **f32)     # [gw; gb] in bf16
-    scratch = [torch.empty(rows, 3 * d, **act), torch.empty(rows, d, **act),
-               torch.empty(blocks, nv, **f32),
-               torch.empty(chunks, 3 * d + bf16, d, **f32)]
+    scratch = [None if spec is None
+               else torch.empty(spec[0], dtype=spec[1], device=s.device)
+               for spec in wide_backward_scratch(rows, d, s.dtype, chunks,
+                                                 sm_count(s.device))]
     BWD_BY_WIDTH[d].launch(s.device, ptr(s), ptr(v), ptr(gin), ptr(bin_),
                            ptr(w32), None if wt is None else ptr(wt),
                            ptr(b32), ptr(gout), ptr(g), ptr(gs), ptr(gv),
-                           ptr(gvec), ptr(gw), *(ptr(t) for t in scratch),
+                           ptr(gvec), ptr(gw),
+                           *(None if t is None else ptr(t) for t in scratch),
                            rows, chunks, d,
                            *philox.kernel_args(dropout_rate, seed), dv,
                            int(bf16), dv=dv)
@@ -257,6 +258,30 @@ def _backward_wide(s, v, gin, bin_, w32, b32, gout, g, gs, gv,
                 gw[3 * d], gvec[6 * d:7 * d], gvec[7 * d:])
     return (gs, gv, gvec[:3 * d], gvec[3 * d:6 * d], gw, gvec[6 * d:7 * d],
             gvec[7 * d:8 * d], gvec[8 * d:])
+
+
+def wide_backward_scratch(rows, d, dt, chunks, sms):
+    """(shape, dtype) of each scratch buffer of the backward at D = 64 or
+    256 (``csrc/tri_bridge_bwd_wide.cu``'s C entry, in its order) over
+    ``rows`` rows in the activation type ``dt``: the yd and g_y1 rows (in
+    ``dt``), vec_part (a slot of parameter sums a block: the bf16 kernels
+    walk 64-row tiles on at most ``sms`` blocks, the float32 one takes a
+    block a tile of 16 rows at 256, 32 at 64), wg_part (``chunks`` slots),
+    then for the bf16 kernel at 256 pq (each row's P and Q in float32) and
+    wp (W in bf16, twice: in the layout of each product that reads it),
+    else None and None."""
+    bf16 = dt == torch.bfloat16
+    if bf16:
+        blocks = min(-(-rows // 64), sms)
+    else:
+        blocks = -(-rows // (16 if d == 256 else 32))
+    nv = (8 if bf16 else 9) * d
+    f32 = torch.float32
+    out = [((rows, 3 * d), dt), ((rows, d), dt), ((blocks, nv), f32),
+           ((chunks, 3 * d + bf16, d), f32)]
+    if bf16 and d == 256:
+        return out + [((rows, 2 * d), f32), ((2, 3 * d, d), dt)]
+    return out + [None, None]
 
 
 def tri_bridge(s, v, gamma_in, beta_in, w, b, gamma_out, beta_out,

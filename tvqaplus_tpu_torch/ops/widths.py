@@ -12,14 +12,14 @@ it does not fit, so the weight streams through two stages ("streamed",
 The three backward families are built for the same widths: at D = 128 the
 tensor-core designs of ``csrc/*_bwd.cu`` (bf16) beside their CUDA-core
 float32 kernels, and at D = 64 and 256 ``csrc/*_bwd_wide.cu`` and
-``csrc/encoder_bwd_tc_wide.cu``.  In bf16 the tri bridge and the encoder
-run on the tensor cores at both widths (the weights resident at 64,
-streamed at 256; the encoder's 64-row tiles with the columns split) and
-the attention at 256 (its warpgroup columns in two quarters); the
-attention's bf16 kernel at 64 runs its row passes and products on CUDA
-cores, rounding where the tensor-core kernels round.  Every bf16 weight
-gradient is the tensor-core pass of ``csrc/wgrad_tc.cuh``, whose width is
-an argument (the same kernel at 64, 128 and 256).
+``csrc/encoder_bwd_tc_wide.cu``.  Every bf16 backward runs on the tensor
+cores: the tri bridge and the encoder at both widths (the weights resident
+at 64, streamed at 256; the encoder's 64-row tiles with the columns
+split; the tri bridge's W at 256 in bf16 slabs through a ring the copy
+engine feeds), the attention at 256 (its warpgroup columns in two
+quarters) and at 64 (the two warpgroups on rows of their own).  Every bf16
+weight gradient is the tensor-core pass of ``csrc/wgrad_tc.cuh``, whose
+width is an argument (the same kernel at 64, 128 and 256).
 
 Every other width dv <= 256 that 4 divides runs in the next instantiation
 Dp (``padded_width``): the wrappers zero-pad the activations and the
@@ -54,6 +54,11 @@ _MAX_LR, _MAX_LEN, _MAX_K = 64, 56, 9  # the kernels' largest shapes
 # room of their own and the others where qn was
 # (qa_ctx_attention_bwd_wide.cu AttTcWide)
 ENC256_KP, ENC256_NST, ATT256_NST, ATT256_OWN = 32, 4, 5, 3
+# the tri bridge's bf16 backward at D = 256 (csrc/tri_bridge_bwd_wide.cu
+# Tri256): slabs of 16 KB, TRI256_SLOTS slots in all, TRI256_RING of them in
+# use at a time (three of their own; s and v's room during y1, yd's past
+# g_y1 during g_yd), at most TRI256_AHEAD in flight
+TRI256_SLOTS, TRI256_RING, TRI256_AHEAD, TRI256_SLAB = 11, 7, 6, 16384
 
 
 MAX_WIDTH = 256
@@ -200,16 +205,25 @@ def bwd_smem_bytes(family, d, dtype="bfloat16", lr=_MAX_LR, length=_MAX_LEN,
         if d == 128:                         # tri_bridge_bwd_tc_kernel
             return (w_bytes + 2 * tile + 6 * tile_panel + tile
                     + 4 * 2 * _TM * 2 * 4 + 8 * d * 4 + _ATOM)
-        # TriBwdTc<D>: W and W^T, or two stages; s, v, yd (g_y1 behind it,
-        # or over it with the slabs at 256)
-        head = 2 * _stage(d, 32) if d == 256 else 2 * w_bytes
-        return (head + (5 if d == 256 else 6) * tile
-                + 4 * 2 * _TM * 2 * 4 + 8 * d * 4 + _ATOM)
+        if d == 256:    # Tri256: s, v, yd (g_y1), three own slots, the
+            # barriers, four exchange rounds, gin, bin, bias, gout
+            return (5 * tile + 3 * TRI256_SLAB + 256 + 4 * 2 * _TM * 2 * 4
+                    + 8 * d * 4 + _ATOM)
+        # TriBwdTc<64>: W and W^T; s, v, yd, g_y1 behind it
+        return (2 * w_bytes + 6 * tile + 4 * 2 * _TM * 2 * 4 + 8 * d * 4
+                + _ATOM)
     if dtype == "bfloat16" and family == "qa_ctx_attention" and d == 256:
         # AttTcWide<LRP>: qn, qe, cn (then p0), g_out (then g_att), ce; the
         # ring of W's slabs; two exchange rounds; the q mask; gamma, beta
         return (5 * tile + ATT256_OWN * 2 * tile_panel
                 + 2 * 2 * _TM * 2 * 4 + _TM * 4 + 6 * d * 4 + _ATOM)
+    if dtype == "bfloat16" and family == "qa_ctx_attention" and d == 64:
+        # AttTc64<LRP>: W (3D rows); a room a warpgroup: qn, qe, cn, ce,
+        # g_out (then g_att), p0 (LRP / 2 floats a thread), the q mask,
+        # rounded to an atom; gamma, beta
+        lrp = 32 if lr <= 32 else 64
+        room = -(-(5 * tile + lrp // 2 * 128 * 4 + _TM * 4) // _ATOM) * _ATOM
+        return 3 * d * _ROW + 2 * room + 6 * d * 4 + _ATOM
     if dtype == "bfloat16" and family == "encoder" and d == 256:
         # Enc256: R1 (64 x D float32, rows padded by 8; the ring of pw's
         # stages during the products) and H, the c / g_y and t tiles, the
