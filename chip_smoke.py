@@ -731,7 +731,10 @@ def phase_kernels(dev, d=D, rates=(0.0,), dnames=("float32", "bfloat16")):
             row["width"] = d
             row["instantiation"] = padded_width(d)
         for rate in rates[1:]:
+            # the forward a train step runs (phase kernel_width times it)
             row["max_abs_err_dropout"] = errs["bfloat16", rate]
+            kwd = {**kw, "dropout_rate": rate, "seed": DROP_SEED}
+            row["ms_dropout"] = time_ms(lambda: case.kernel(*a, **kwd))
         if "float32" in dnames:
             row["max_abs_err_f32"] = errs["float32", 0.0]
             for rate in rates[1:]:
@@ -1194,6 +1197,66 @@ def phase_serving(dev, cfg, sd):
               "top_kernels": top})
 
 
+def serve_models(hszs):
+    """(config, state dict) of the seeded STAGE of the headline config at
+    each width of ``hszs``."""
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    models = {}
+    for hsz in hszs:
+        hcfg = dataclasses.replace(headline_config(hsz=hsz)).finalize("cpu")
+        models[hsz] = (hcfg, STAGE(ModelConfig.from_config(
+            hcfg)).reset_parameters(torch.Generator().manual_seed(
+                SEED)).state_dict())
+    return models
+
+
+def serve_steps(dev, models):
+    """The replayed serve dispatch (K = 1, bf16) of the headline batch of
+    each width of ``models`` ({hsz: (config, state dict)}), separate and
+    merged path, warmed up and captured: {name: (step, runner, batch)}."""
+    from tvqaplus_tpu_torch.infer.predict import InferenceRunner
+    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    steps = {}
+    for hsz, (hcfg, hsd) in models.items():
+        batch = headline_batch(hcfg, dev)
+        for merged in (False, True):
+            name = f"hsz{hsz}_{'merged' if merged else 'separate'}_graph"
+            model = STAGE(dataclasses.replace(
+                ModelConfig.from_config(hcfg), compute_dtype="bfloat16",
+                merge_input_streams=merged))
+            model.load_state_dict(hsd)
+            runner = InferenceRunner(hcfg, model.to(dev), dev)
+
+            def step(runner=runner, batch=batch):
+                return runner.dispatch_infer(batch, True, LI)
+            step()                         # warm-up and capture
+            torch.cuda.synchronize()
+            steps[name] = (step, runner, batch)
+    return steps
+
+
+def serve_step_rows(steps):
+    """A row for each step of ``steps`` ({name: step}): host ms a step
+    over ``SERVING_STEPS`` steps in turns (``timed_steps``), QA/s, and from
+    ``PROFILE_STEPS`` profiled steps the device's busy ms, the idle share,
+    the launches in the trace, the top kernels and every kernel's name
+    ("names")."""
+    clock = timed_steps(steps, SERVING_STEPS)
+    rows = {}
+    for name, step in steps.items():
+        step_ms, turns = clock[name]
+        busy_ms, per_step, top, names = profile_steps(step, PROFILE_STEPS)
+        rows[name] = {
+            "hsz": int(name[3:name.index("_")]), "step_ms": step_ms,
+            "step_ms_turns": turns, "qa_pairs_per_s": B / (step_ms / 1e3),
+            "device_busy_ms": busy_ms,
+            "device_idle_share": None if busy_ms is None
+            else 1 - busy_ms / step_ms,
+            "launches_per_step": per_step, "top_kernels": top[:6],
+            "names": names}
+    return rows
+
+
 def phase_wide_serving(dev, workdir, cfg, sd):
     """STAGE served at hsz 256 (and 64) on the card: the inference entry
     point on the separate and the merged path, every forward kernel launched
@@ -1201,21 +1264,16 @@ def phase_wide_serving(dev, workdir, cfg, sd):
     card against the CPU forward (phase 5's bars); the replayed serve steps
     of hsz 128 (``cfg``, ``sd``: phase 5's), 256 and the padded widths
     ``PADDED_WIDTHS``, both paths, equal to their eager steps and timed in
-    turns, with the device's busy time; a padded width's trace holds its
-    instantiation's kernels, counted under its own width (one replay's
-    launches).  Returns the launches of each width's runs by counter
-    key."""
-    from tvqaplus_tpu_torch.infer.predict import InferenceRunner
-    from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
+    turns (``serve_step_rows``; ``scripts/train_step_turns.py --serve``
+    times the hsz-256 and -200 steps of a tree against another's), with the
+    device's busy time; a padded width's trace holds its instantiation's
+    kernels, counted under its own width (one replay's launches).  Returns
+    the launches of each width's runs by counter key."""
     t_phase = time.perf_counter()
-    runs, launches, models = {}, {}, {D: (cfg, sd)}
+    runs, launches = {}, {}
+    models = {D: (cfg, sd), **serve_models((WIDE_HSZ, 64))}
     for hsz in (WIDE_HSZ, 64):
         wcfg = headline_config(hsz=hsz)
-        model = STAGE(ModelConfig.from_config(
-            dataclasses.replace(wcfg).finalize("cpu"))).reset_parameters(
-            torch.Generator().manual_seed(SEED))
-        models[hsz] = (dataclasses.replace(wcfg).finalize("cpu"),
-                       model.state_dict())
         for merged in (False, True):
             keys = MERGED_FWD if merged else SEPARATE_FWD
             tag = f"hsz{hsz}_{'merged' if merged else 'separate'}"
@@ -1231,59 +1289,35 @@ def phase_wide_serving(dev, workdir, cfg, sd):
                          "wall_s": wall_s, "ts_answer": len(pred["ts_answer"]),
                          "raw_bbox_boxes": n_boxes(pred)}
             launches.update({f"{k}@{hsz}": got[f"{k}@{hsz}"] for k in keys})
-    for hsz in PADDED_WIDTHS:
-        pcfg = dataclasses.replace(headline_config(hsz=hsz)).finalize("cpu")
-        models[hsz] = (pcfg, STAGE(ModelConfig.from_config(
-            pcfg)).reset_parameters(torch.Generator().manual_seed(
-                SEED)).state_dict())
+    models.update(serve_models(PADDED_WIDTHS))
     wcfg, wsd = models[WIDE_HSZ]
     cpu = cpu_forwards(wcfg, wsd)
     vs_cpu = {name: headline_vs_cpu(cpu, wsd, dev, merged)
               for name, merged in (("separate", False), ("merged", True))}
-    steps, replay, padded = {}, {}, {}
-    for hsz in (D, WIDE_HSZ) + PADDED_WIDTHS:
-        hcfg, hsd = models[hsz]
-        batch = headline_batch(hcfg, dev)
-        for merged in (False, True):
-            name = f"hsz{hsz}_{'merged' if merged else 'separate'}_graph"
-            model = STAGE(dataclasses.replace(
-                ModelConfig.from_config(hcfg), compute_dtype="bfloat16",
-                merge_input_streams=merged))
-            model.load_state_dict(hsd)
-            runner = InferenceRunner(hcfg, model.to(dev), dev)
-            steps[name] = (lambda runner=runner, batch=batch:
-                           runner.dispatch_infer(batch, True, LI))
-            steps[name]()                  # warm-up and capture
-            torch.cuda.synchronize()
-            replay[name] = replay_equals_eager(runner, batch)
-            if hsz in PADDED_WIDTHS:       # one replay's launches
-                keys = MERGED_FWD if merged else SEPARATE_FWD
-                reset_counters()
-                steps[name]()
-                torch.cuda.synchronize()
-                got = read_counters(tuple(f"{k}@{hsz}" for k in keys))
-                padded[name] = {k: got[f"{k}@{hsz}"] for k in keys}
-                launches.update({f"{k}@{hsz}": got[f"{k}@{hsz}"]
-                                 for k in keys
-                                 if merged == k.startswith("encoder_block")})
-    clock = timed_steps(steps, SERVING_STEPS)
-    serve = {}
-    for name, step in steps.items():
-        step_ms, turns = clock[name]
-        busy_ms, per_step, top, names = profile_steps(step, PROFILE_STEPS)
+    replay, padded = {}, {}
+    steps = serve_steps(dev, {hsz: models[hsz]
+                              for hsz in (D, WIDE_HSZ) + PADDED_WIDTHS})
+    for name, (step, runner, batch) in steps.items():
+        replay[name] = replay_equals_eager(runner, batch)
         hsz = int(name[3:name.index("_")])
-        serve[name] = {
-            "hsz": hsz, "step_ms": step_ms, "step_ms_turns": turns,
-            "qa_pairs_per_s": B / (step_ms / 1e3),
-            "device_busy_ms": busy_ms,
-            "device_idle_share": None if busy_ms is None
-            else 1 - busy_ms / step_ms,
-            "launches_per_step": per_step,
-            "tc_forwards": check_tc_forwards(name, names, "merged" in name,
-                                             padded_width(hsz)),
-            "top_kernels": top[:6]}
+        if hsz in PADDED_WIDTHS:           # one replay's launches
+            merged = "merged" in name
+            keys = MERGED_FWD if merged else SEPARATE_FWD
+            reset_counters()
+            step()
+            torch.cuda.synchronize()
+            got = read_counters(tuple(f"{k}@{hsz}" for k in keys))
+            padded[name] = {k: got[f"{k}@{hsz}"] for k in keys}
+            launches.update({f"{k}@{hsz}": got[f"{k}@{hsz}"]
+                             for k in keys
+                             if merged == k.startswith("encoder_block")})
+    serve = serve_step_rows({name: s[0] for name, s in steps.items()})
+    for name, row in serve.items():
+        names = row.pop("names")
+        row["tc_forwards"] = check_tc_forwards(
+            name, names, "merged" in name, padded_width(row["hsz"]))
         if name in padded:
-            serve[name]["launches_at_true_width"] = padded[name]
+            row["launches_at_true_width"] = padded[name]
     emit({"phase": "wide_serving", "ok": True, "batch": B, "frames": LI,
           "compute_dtype": "bfloat16", "steps": SERVING_STEPS, "runs": runs,
           "headline_vs_cpu": vs_cpu, "replay_equals_eager": replay,

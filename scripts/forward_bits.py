@@ -10,7 +10,7 @@ NVIDIA GPU for ``save`` and ``save_backward``.
 ``save`` runs every forward kernel of ``chip_smoke.py``'s ``kernel_cases``
 at width WIDTH (default 128) in float32 and bfloat16, dropout 0 and 0.1,
 stores the outputs and prints each bf16 kernel's time (CUDA events, median
-of 30) as one JSON line.  ``save_backward`` does the same for every
+of 30), dropout 0 and 0.1, as one JSON line.  ``save_backward`` does the same for every
 backward kernel of ``train_kernel_cases`` at width WIDTH (default 128: the
 attention, tri bridge, encoder and MLP bridge backwards; another width, the
 first three): the gradients of
@@ -34,7 +34,7 @@ def save(path, d):
     _build.build_all(("qa_ctx_attention_fwd.cu", "tri_bridge_fwd.cu",
                       "encoder_fwd.cu", "mlp_bridge_fwd.cu"))
     dev = torch.device("cuda")
-    outs, times = {}, {}
+    outs, times, drop_times = {}, {}, {}
     # (a tree from before the widths takes no width: D = 128)
     for case in (cs.kernel_cases(dev, d) if d != 128
                  else cs.kernel_cases(dev)):
@@ -48,9 +48,11 @@ def save(path, d):
                     g.cpu() for g in got]
         a, kw = case.args(torch.bfloat16)
         times[case.name] = cs.time_ms(lambda: case.kernel(*a, **kw))
+        kwd = {**kw, "dropout_rate": cs.P_DROP, "seed": cs.DROP_SEED}
+        drop_times[case.name] = cs.time_ms(lambda: case.kernel(*a, **kwd))
     torch.save(outs, path)
-    print(json.dumps({"tree": os.getcwd(), "width": d, "bf16_ms": times}),
-          flush=True)
+    print(json.dumps({"tree": os.getcwd(), "width": d, "bf16_ms": times,
+                      "bf16_dropout_ms": drop_times}), flush=True)
     return 0
 
 

@@ -1,11 +1,14 @@
 """Where a block's time goes in the bf16 backward kernels at D = 256
 (``csrc/qa_ctx_attention_bwd_wide.cu`` ``qa_ctx_bwd_tc_wide_kernel``,
 ``csrc/encoder_bwd_tc_wide.cu``'s ``Enc256`` kernel and
-``csrc/tri_bridge_bwd_wide.cu``'s kernel at 256), phase by phase, from
-``clock64()`` stamps in a copy of the sources; and what the attention's
-g_yd products cost, from copies with parts of them taken out.
+``csrc/tri_bridge_bwd_wide.cu``'s kernel at 256), or with ``--forward`` in
+the bf16 forwards of the encoder and the attention at D = 256
+(``encoder_fwd_tc_wide_kernel``, ``qa_ctx_fwd_tc_wide_kernel``), phase by
+phase, from ``clock64()`` stamps in a copy of the sources; and what parts
+of them cost, from copies with those parts taken out.
 
     python3 scripts/phase_split.py [--width D] [--ablations] [--families F,..]
+    python3 scripts/phase_split.py --forward [--ablations] [--families F,..]
 
 Run from a tree's root (its ``chip_smoke.py`` and package are imported);
 needs one NVIDIA GPU.  The sources in the tree carry no stamps: the script
@@ -28,8 +31,11 @@ block's critical path through it, waits included.
 ``--ablations`` also builds one copy of the attention source for each of
 ``ABLATIONS`` (its g_yd loop with one part taken out: the results are wrong,
 only the time is read) and of the tri bridge source for each of
-``TRI_ABLATIONS``, and prints, for each case of those families, the main
-kernel's device ms under each copy beside the tree's own.
+``TRI_ABLATIONS`` (with ``--forward``: of each forward source for each of
+``FWD_ABLATIONS``), and prints, for each case of those families, the main
+kernel's device ms under each copy beside the tree's own.  ``--forward``
+takes the forward cases of ``kernel_cases`` at D = 256 (bf16), each at
+dropout 0 and 0.1.
 """
 import ctypes
 import json
@@ -45,14 +51,21 @@ TRI = "tri_bridge_bwd_wide.cu"
 TRI_TWICE = TRI + "@g_yd twice"     # the tri bridge before its redesign
 SOURCE_OF = {"qa_ctx_attention": ATT, "encoder": ENC, "encoder_block": ENC,
              "tri_bridge": TRI}
+ENC_FWD, ATT_FWD = "encoder_fwd.cu", "qa_ctx_attention_fwd.cu"
+FWD_SOURCE_OF = {"qa_ctx_attention": ATT_FWD, "encoder": ENC_FWD,
+                 "encoder_block": ENC_FWD}
 # a source's designs, newest first: the first whose kernel start occurs in
 # the text is the one stamped
 VARIANTS = {ATT: (ATT,), ENC: (ENC,), TRI: (TRI, TRI_TWICE)}
 # the kernel a design's stamps go into: from this line to its closing "}"
+# (the forwards' from the slab parameter, which only the D = 256 kernel
+# of each has)
 KERNEL_START = {ATT: "  using S = AttTcWide<LRP>;\n",
                 ENC: "  using S = Enc256;\n",
                 TRI: "  using S = Tri256;\n",
-                TRI_TWICE: "  using S = TriBwdTc<D>;\n  constexpr int NF"}
+                TRI_TWICE: "  using S = TriBwdTc<D>;\n  constexpr int NF",
+                ENC_FWD: " " * 27 + "const __nv_bfloat16* __restrict__ wp,\n",
+                ATT_FWD: " " * 26 + "const __nv_bfloat16* __restrict__ wp,\n"}
 PHASES = {
     ATT: ("frame", "stage", "keep bits", "scores, softmax", "LN stats",
           "pass A rows", "pass B rows", "g_att, g_p, softmax bwd, gcn",
@@ -66,6 +79,10 @@ PHASES = {
     TRI_TWICE: ("setup", "stage", "LN_in, yd", "y1 products", "LN_out, g_y1",
                "pass 1 g_yd products", "pass 1 rows", "row sums",
                "pass 2 g_yd products", "pass 2 rows", "block sums"),
+    ENC_FWD: ("setup", "tile head", "LN", "conv", "pw products", "residual",
+              "final LN, out", "end"),
+    ATT_FWD: ("setup", "frame, cn", "scores, softmax, p", "att product",
+              "LN, keep bits, yd", "projection", "out", "end"),
 }
 # (text before, text after, indent, phase): the stamp goes between the two
 # texts, whose join occurs once in the kernel; phase None is the clock's
@@ -150,6 +167,102 @@ STAMPS = {
         ("        ((red[k] + red[NVT + k]) + red[2 * NVT + k]) + "
          "red[3 * NVT + k];\n", "", 2, 10),
     ],
+}
+STAMPS.update({
+    ENC_FWD: [
+        ("  drop.load_seed();\n", "", 2, None),
+        ("", "  int parity = 0;\n", 2, 0),
+        ("    __syncthreads();                   // ... and v, m of every "
+         "row\n", "", 4, 1),
+        ("    __syncthreads();                   // R1 whole; the x tile "
+         "read\n", "", 4, 2),
+        ("        __syncthreads();               // R1 whole\n", "", 8, 2),
+        ("      __syncthreads();                 // the c tile whole; R1's "
+         "taps read\n", "", 6, 3),
+        ("      mma_ring_w<S::PER / 2>(acc, tc::smem_u32(cs), ring, wg, "
+         "lane);\n", "", 6, 4),
+        ("                                      + acc_col(j, lane)), 0.f);\n",
+         "", 6, 5),
+        ("    }\n", "  }\n  tc::cluster_sync();", 4, 6),
+        ("  tc::cluster_sync();                  // no CTA leaves while its "
+         "pair copies\n", "", 2, 7),
+    ],
+    ATT_FWD: [
+        ("  drop.load_seed();\n", "", 2, None),
+        ("", "  int loaded = -1;", 2, 0),
+        ("", "    // ---- scores of the warpgroup's regions", 4, 1),
+        ("    __syncthreads();                   // the p tile is whole\n", "",
+         4, 2),
+        ("", "    // ---- LayerNorm over [ce; att; ce * att]", 4, 3),
+        ("    __syncthreads();                   // the yd tile is whole\n",
+         "", 4, 4),
+        ("    mma_ring_w<S::PER>(acc, tc::smem_u32(yd_s), ring, wg, lane);\n",
+         "", 4, 5),
+        ("    }\n", "  }\n  tc::cluster_sync();", 4, 6),
+        ("  tc::cluster_sync();                  // no CTA leaves while its "
+         "pair copies\n", "", 2, 7),
+    ],
+})
+
+
+def _resident(nks, a_addr):
+    """A product of ``nks`` depth steps over ring slot 0 as it stands (W
+    "resident": no slab taken), the text that replaces a ring product."""
+    return (
+        "{\n"
+        "      const uint32_t st0 = tc::smem_u32(sm + S::O_RING)"
+        " + 2 * wg * SLAB_PANEL;\n"
+        "      tc::fence();\n"
+        "#pragma unroll\n"
+        f"      for (int ks = 0; ks < {nks}; ++ks)\n"
+        "        tc::mma_ss<128, 0, 1>(acc, tc::make_desc("
+        f"{a_addr} + (ks / 4) * TILE_PANEL + (ks % 4) * 32, 16),"
+        " tc::make_desc(st0 + (ks % 2) * 2 * tc::ATOM_BYTES, SLAB_PANEL),"
+        " ks > 0);\n"
+        "      tc::commit();\n      tc::wait<0>();\n"
+        "      tc::fence_regs(acc);\n    }\n")
+
+
+def _ring_only(ns):
+    """The slabs taken and given back with no product, the text that
+    replaces a ring product."""
+    return ("{\n"
+            f"      for (int p = 0; p < {ns}; ++p) {{\n"
+            "        ring.take();\n        ring.give(lane);\n      }\n"
+            "#pragma unroll\n      for (int j = 0; j < 64; ++j) acc[j] = 0.f;"
+            "\n    }\n")
+
+
+# The D = 256 forwards with one part taken out (their results wrong):
+# W resident (no slab copied or waited for: the ring's total is 0 and the
+# products read slot 0 as it stands), the ring with no product (the slabs
+# still come and go), the dropout's keep bits (as if the dropout were off).
+FWD_ABLATIONS = {
+    ENC_FWD: {
+        "W resident": [
+            ("            walk * S::PER);\n", "            0);\n"),
+            ("      mma_ring_w<S::PER / 2>(acc, tc::smem_u32(cs), ring, wg, "
+             "lane);\n", "      " + _resident(16, "tc::smem_u32(cs)"))],
+        "no products": [
+            ("      mma_ring_w<S::PER / 2>(acc, tc::smem_u32(cs), ring, wg, "
+             "lane);\n", "      " + _ring_only("S::PER / 2"))],
+        "no keep bits": [
+            ("    if (drop.on())\n      tc_keep_bits<16, true>(",
+             "    if (false)\n      tc_keep_bits<16, true>(")],
+    },
+    ATT_FWD: {
+        "W resident": [
+            ("            (u1 - u0) * S::PER);\n", "            0);\n"),
+            ("    mma_ring_w<S::PER>(acc, tc::smem_u32(yd_s), ring, wg, "
+             "lane);\n", "    " + _resident(48, "tc::smem_u32(yd_s)"))],
+        "no products": [
+            ("    mma_ring_w<S::PER>(acc, tc::smem_u32(yd_s), ring, wg, "
+             "lane);\n", "    " + _ring_only("S::PER"))],
+        "no keep bits": [
+            ("      if (DROP)                        // a call: no product "
+             "is in flight\n        tc_keep_bits<16, true>(",
+             "      if (false)\n        tc_keep_bits<16, true>(")],
+    },
 }
 # The attention's g_yd loop with one part taken out, (old, new) edits of
 # its kernel: the tensor-core wait after each slab (one wait at the end of
@@ -326,10 +439,22 @@ def main():
     dev = torch.device("cuda")
     build.build_all()
     print(cs.phase_device(), flush=True)
-    cases = [c for c in cs.train_kernel_cases(dev, d)
-             if c.key in families and "no mask" not in c.name]
+    forward = "--forward" in args
     calls = {}
-    for case in cases:
+    if forward:
+        families = [f for f in families if f in FWD_SOURCE_OF]
+        for case in cs.kernel_cases(dev, d):
+            if case.key not in families or "no mask" in case.name:
+                continue
+            a, kw = case.args(torch.bfloat16)
+            for rate in (0.0, cs.P_DROP):
+                kwr = {**kw, "dropout_rate": rate, "seed": cs.DROP_SEED}
+                calls[f"{case.name} dropout {rate}"] = (
+                    FWD_SOURCE_OF[case.key],
+                    lambda c=case, a=a, k=kwr: c.kernel(*a, **k))
+    for case in [] if forward else cs.train_kernel_cases(dev, d):
+        if case.key not in families or "no mask" in case.name:
+            continue
         a, base_kw = case.args(torch.bfloat16)
         kw = {**base_kw, **case.kw}
         ins, leaves = cs._leaves(a, case.diff)
@@ -348,9 +473,12 @@ def main():
               for src in srcs]
     ablations = {}
     if "--ablations" in args:
-        for src, table in ((ATT, ABLATIONS), (TRI, TRI_ABLATIONS)):
+        tables = [(ATT, ABLATIONS), (TRI, TRI_ABLATIONS)] if not forward \
+            else list(FWD_ABLATIONS.items())
+        for src, table in tables:
             if src in texts and variant(texts[src], src) == src:
                 for name, edits in table.items():
+                    name = f"{name} ({src[:-3]})" if forward else name
                     ablations[name] = src
                     copies.append((name, src,
                                    edit_kernel(texts[src], src, edits)))

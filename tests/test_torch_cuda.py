@@ -672,7 +672,7 @@ def test_backward_kernels_match_plain_at_other_widths(cuda, d, dtype, family,
 
 # ------------------------------------- the merged encoder's group map (C5)
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", (128, 96))
+@pytest.mark.parametrize("d", (128, 96, 256, 200))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_encoder_block_group_map_keys_frames_as_the_whole(cuda, d, dtype):
     """The full-output kernel with dropout on one ctx rank's groups (the
@@ -1989,3 +1989,152 @@ def test_attention_backward_at_64_matches_plain(cuda, a, lqa, li, lr,
         assert torch.equal(gk, ga), f"grad {i} differs between two runs"
         checks.grad_close(f"grad {i}", gk, gp,
                           qa_ctx_attention.GRAD_TOL[dt])
+
+
+# ----------------- the bf16 forwards at D = 256: W through a copy-engine ring
+# csrc/encoder_fwd.cu encoder_fwd_tc_wide_kernel and
+# csrc/qa_ctx_attention_fwd.cu qa_ctx_fwd_tc_wide_kernel: W rounded into
+# bf16 slabs once a call and brought by the copy engine through a ring
+# that a pair of CTAs shares (csrc/wgmma.cuh SlabRing).  Every length and
+# tap count in both modes, and every score width and raw mode; the counts
+# of sequences (69) and frames (9) are odd, so the last pair of tiles runs
+# one empty tile, and L = 1 leaves a 64-row tile partly filled.  Each call
+# twice: the same bits.  At the rows' existing bars.
+def twice(run):
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    again = again if isinstance(again, tuple) else (again,)
+    for u, v in zip(got, again):
+        assert torch.equal(u, v), "two calls gave different bits"
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (256, 200))
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("mode", ["reduce", "zero_mask", "none"])
+@pytest.mark.parametrize("l", [1, 40, 50, 56])
+@pytest.mark.parametrize("k", [1, 3, 5, 7, 9])
+def test_encoder_forward_at_256_matches_plain_twice(cuda, d, dropout, mode, l,
+                                                    k):
+    dt = torch.bfloat16
+    gen = torch.Generator().manual_seed(10 * l + k)
+    x, pe, p, mask = encoder_args(cuda, dt, gen, b=3, g=23, l=l, k=k, d=d)
+    kw = dict(dropout_rate=dropout, seed=SEED)
+    if mode == "reduce":
+        table, valid = encoder.FWD_BY_WIDTH, 1.0
+        want = encoder.encoder_reduce_plain(x, pe, p, k, mask, **kw)
+        def run():
+            return encoder.encoder_reduce(x, pe, p, k, mask, **kw)
+    else:
+        zm = stream_mask(x.shape[1], l).to(cuda) if mode == "zero_mask" \
+            else None
+        table, valid = encoder.BLOCK_BY_WIDTH, 1.0 if zm is None \
+            else zm[..., None]
+        want = encoder.encoder_block_plain(x, pe, p, k, zm, **kw)
+        def run():
+            return encoder.encoder_block(x, pe, p, k, zm, **kw)
+    counter = width_counter(table, d)
+    n0 = counter.launches
+    (got,) = twice(run)
+    assert counter.launches == n0 + 2
+    assert got.dtype == dt and torch.isfinite(got.float()).all()
+    close(got.float() * valid, want.float() * valid, encoder.TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (256, 200))
+@pytest.mark.parametrize("mode", ["reduce", "zero_mask"])
+def test_encoder_forward_at_256_walks_more_pairs_than_clusters(cuda, d,
+                                                               mode):
+    """4,000 sequences of 40 (the headline cls_encoder) or 1,680 of 50: a
+    cluster walks many pairs of tiles, its ring running on from tile to
+    tile."""
+    dt = torch.bfloat16
+    gen = torch.Generator().manual_seed(40)
+    b, g, l, k = (100, 40, 40, 5) if mode == "reduce" else (16, 105, 50, 7)
+    x, pe, p, mask = encoder_args(cuda, dt, gen, b=b, g=g, l=l, k=k, d=d)
+    kw = dict(dropout_rate=P_DROP, seed=SEED)
+    if mode == "reduce":
+        (got,) = twice(lambda: encoder.encoder_reduce(x, pe, p, k, mask,
+                                                      **kw))
+        want = encoder.encoder_reduce_plain(x, pe, p, k, mask, **kw)
+        close(got, want, encoder.TOL[dt])
+    else:
+        zm = stream_mask(g, l).to(cuda)
+        (got,) = twice(lambda: encoder.encoder_block(x, pe, p, k, zm, **kw))
+        want = encoder.encoder_block_plain(x, pe, p, k, zm, **kw)
+        close(got.float() * zm[..., None], want.float() * zm[..., None],
+              encoder.TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (256, 200))
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("raw_mode", ["none", "full", "target"])
+@pytest.mark.parametrize("lr", [1, 25, 50, 64])
+@pytest.mark.parametrize("a,lqa", [(5, 40), (3, 13)])
+def test_attention_forward_at_256_matches_plain_twice(cuda, d, dropout,
+                                                      raw_mode, lr, a, lqa):
+    dt = torch.bfloat16
+    args = attn_args(cuda, dt, b=3, a=a, li=3, lqa=lqa, lr=lr, d=d)
+    kw = dict(raw_mode=raw_mode, dropout_rate=dropout, seed=SEED,
+              targets=torch.tensor([2, 0, 1], device=cuda))
+    counter = width_counter(qa_ctx_attention.FWD_BY_WIDTH, d)
+    n0 = counter.launches
+    got = twice(lambda: qa_ctx_attention.qa_ctx_attention(*args, **kw))
+    want = qa_ctx_attention.qa_ctx_attention_plain(*args, **kw)
+    want = want if isinstance(want, tuple) else (want,)
+    assert counter.launches == n0 + 2
+    tol = qa_ctx_attention.TOL[dt]
+    assert got[0].dtype == dt and torch.isfinite(got[0].float()).all()
+    close(got[0], want[0], tol["mixed"])
+    if raw_mode != "none":
+        close(got[1], want[1], tol["raw"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", (256, 200))
+def test_attention_forward_at_256_walks_more_units_than_clusters(cuda, d):
+    """The headline's 16 x 50 frames of 200 rows: each cluster takes many
+    (frame pair, tile) units, the frames' qn / qe loaded once each."""
+    dt = torch.bfloat16
+    args = attn_args(cuda, dt, b=16, a=5, li=50, lqa=40, lr=25, d=d)
+    kw = dict(raw_mode="full", dropout_rate=P_DROP, seed=SEED)
+    got = twice(lambda: qa_ctx_attention.qa_ctx_attention(*args, **kw))
+    want = qa_ctx_attention.qa_ctx_attention_plain(*args, **kw)
+    tol = qa_ctx_attention.TOL[dt]
+    close(got[0], want[0], tol["mixed"])
+    close(got[1], want[1], tol["raw"])
+
+
+@pytest.mark.cuda
+def test_forwards_at_256_replay_in_a_cuda_graph(cuda):
+    """A CUDA graph captures the forwards at 256 (W's packing and the
+    cluster launches among its nodes, no copy from the host) and its
+    replay gives the eager bits."""
+    dt = torch.bfloat16
+    gen = torch.Generator().manual_seed(41)
+    x, pe, p, mask = encoder_args(cuda, dt, gen, b=3, g=23, l=40, k=5,
+                                  d=256)
+    args = attn_args(cuda, dt, b=3, a=5, li=3, lqa=40, lr=25, d=256)
+
+    def step():
+        mixed, raw = qa_ctx_attention.qa_ctx_attention(*args,
+                                                       raw_mode="full")
+        return (encoder.encoder_reduce(x, pe, p, 5, mask),
+                encoder.encoder_block(x, pe, p, 5, None), mixed, raw)
+    eager = step()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    for u, v in zip(out, eager):
+        assert torch.equal(u, v)

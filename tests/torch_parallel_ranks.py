@@ -2,8 +2,9 @@
 tests/test_torch_parallel_cli.py and tests/test_torch_mesh_axes.py.
 
 ``run_ranks(fn, world, path)`` starts ``world`` processes (spawn), joins
-them in a gloo process group over ``tcp://127.0.0.1`` on a free port
-(``init_distributed``, as an entry point under ``torchrun`` does) and runs
+them in a gloo process group (``init_distributed``, as an entry point does)
+through a ``file://`` store beside the job, which no other process can take
+from them as it could a port that was free when it was picked, and runs
 ``fn(rank, path)`` in each: ``path`` names a ``torch.save`` file with the
 job, and each rank writes what it saw beside it (``<path>.rank<r>``).
 This module imports the port and torch only, so a rank starts without
@@ -11,6 +12,7 @@ JAX."""
 import dataclasses
 import os
 import socket
+import uuid
 
 import torch
 import torch.multiprocessing as mp
@@ -27,15 +29,16 @@ def free_port():
 def run_ranks(fn, world, path):
     """``fn(rank, path)`` on ``world`` gloo ranks; returns each rank's
     result file, loaded."""
-    mp.start_processes(_entry, args=(fn, world, free_port(), path),
+    store = f"file://{path}.store-{uuid.uuid4().hex}"
+    mp.start_processes(_entry, args=(fn, world, store, path),
                        nprocs=world, join=True, start_method="spawn")
     return [torch.load(f"{path}.rank{r}", weights_only=False)
             for r in range(world)]
 
 
-def _entry(rank, fn, world, port, path):
+def _entry(rank, fn, world, store, path):
     torch.set_num_threads(1)
-    dp.init_distributed(f"127.0.0.1:{port}", world, rank, device="cpu")
+    dp.init_distributed(store, world, rank, device="cpu")
     try:
         torch.save(fn(rank, path), f"{path}.rank{rank}")
     finally:
@@ -215,10 +218,13 @@ def fit_rank(rank, path):
     best = trainer.fit(SyntheticTVQADataset(cfg, job["n_train"],
                                             mode="train"), valid)
     acc, loss, qid_corrects = trainer.validate(valid)
+    # the resumed trainer logs through the first one's logger: each
+    # TensorBoard writer opens an event file named by the second it opened
+    # in, so a second writer made the directory hold one event file or two
+    # by the clock alone
     resumed = Trainer(dataclasses.replace(cfg, resume=last), "cpu",
-                      mesh=mesh)
+                      mesh=mesh, logger=trainer.logger)
     trainer.logger.close()
-    resumed.logger.close()
     return {"best": best, "acc": acc, "loss": loss,
             "qid_corrects": qid_corrects,
             "history": dict(trainer.logger.history),

@@ -71,11 +71,16 @@
 //   split its columns (128 each: 64 accumulator and 64 residual registers a
 //   thread); a row's LayerNorm statistics are summed over both halves
 //   through shared memory; c goes to a bf16 tile (the product's A, all 256
-//   columns) and each pw streams from L2 through two stages of 64 rows,
-//   one loading while the tensor cores multiply the other (mma_streamed_w,
-//   wgmma.cuh).  195 KB of shared memory; 255 registers, a few bytes of
-//   spill.  pw is read from L2 once a tile, not once a block: the kernel
-//   is slower than its bound (PERF.md), which is a later PR's work.
+//   columns; its room holds the next tile's x in between).  pw0 and pw1
+//   are rounded to bf16 once a call, into 16 slabs of 32 rows laid out as
+//   in shared memory (w_slab_pack_kernel, wgmma.cuh), and come through the
+//   copy engine's ring of seven slots (SlabRing: full / empty barriers, no
+//   block barrier a slab; the next product's first slabs arrive during
+//   this one's last).  Two CTAs on neighbouring SMs (a
+//   cluster) take a pair of tiles and share every slab by multicast, so one
+//   pass of W (256 KB from L2) serves two tiles: at the reduce headline
+//   2,000 passes, 0.52 GB, where streaming pw in float32 once a tile read
+//   2.1 GB.  216,176 bytes of shared memory.
 // * float32: the exactness check, CUDA cores: one resident block per SM
 //   walks the sequences (grid-stride).  At D <= 128 both pointwise matrices
 //   and the sequence's h, t and c (3 x L x D) sit in shared memory, so
@@ -410,7 +415,7 @@ encoder_fwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// ---- the bfloat16 instantiation at D = 256: pw streamed --------------------
+// ---- the bfloat16 instantiation at D = 256: pw through a ring, in pairs --
 //
 // A warpgroup's 64 x 256 float32 accumulator would take 128 registers a
 // thread beside the residual's 128, and pw0 + pw1 (256 KB in bf16) do not
@@ -419,27 +424,40 @@ encoder_fwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
 // [128 wg, 128 wg + 128), the residual h (64 values a thread) stays in its
 // registers, and a row's LayerNorm sums both halves through shared memory
 // (tri_row_pair_sums).  c goes to a bf16 tile (the product's A, all 256
-// columns) and pw streams through two stages of 64 rows (mma_streamed_w,
-// wgmma.cuh), rounded to bf16 from the float32 parameters as each stage is
-// stored.
+// columns), whose room holds the next tile's x in between (its cp.async
+// starts once the last product has read c).  pw0 and pw1 come rounded to
+// bf16 once a call (the C entry's w_slab_pack_kernel: 16 slabs of 32 rows)
+// through the copy engine's ring (SlabRing, wgmma.cuh; seven slots, no
+// block barrier a slab).  Two CTAs on
+// neighbouring SMs form a cluster and walk pairs of tiles, tile 2 p + rank,
+// so one pass of W serves two tiles (two sequences at L 40 or 50): CTA 0
+// copies every slab into both (multicast), halving W's L2 reads.  A CTA
+// whose pair has no second tile runs an empty one (no rows), so that both
+// take the same slabs.
 
 constexpr int WD = 256;
 struct EncWide {
-  static constexpr int KP = 64;                       // pw rows a stage
+  static constexpr int NSLOT = 7;                     // ring slots
+  static constexpr int PER = 2 * WD / SLAB_ROWS;      // slabs a tile: 16
   static constexpr int O_R1 = 0;                      // 64 x 256 float32
-  static constexpr int O_X = O_R1 + TM * WD * 4;      // x tile (4 panels)
-  static constexpr int O_C = O_X + (WD / 64) * TILE_PANEL;   // c tile
-  static constexpr int O_ST = O_C + (WD / 64) * TILE_PANEL;  // pw stages
-  static constexpr int O_EX = O_ST + 2 * stream_stage_bytes<WD, KP>();
-  static constexpr int O_RV = O_EX + 2 * TM * 2 * 4;  // [wg][row][2] sums
+  static constexpr int O_C = O_R1 + TM * WD * 4;      // c tile; x tile
+  static constexpr int O_RING = O_C + (WD / 64) * TILE_PANEL;
+  static constexpr int O_BAR = O_RING + NSLOT * SLAB_BYTES;  // full, empty
+  static constexpr int O_EX = O_BAR + 2 * NSLOT * 8;  // [wg][row][2] sums
+  static constexpr int O_RV = O_EX + 2 * TM * 2 * 4;  // v, m twice
   static constexpr int SMEM = O_RV + 2 * 2 * TM * 4 + tc::ATOM_BYTES;
+  static_assert(O_RING % tc::ATOM_BYTES == 0, "slots on atoms");
+  static_assert(SMEM <= 232448, "shared memory of a block");
+  static_assert(WD == NTHREADS, "the conv: a column a thread");
 };
+using EncRing = SlabRing<EncWide::NSLOT, EncWide::PER, 2>;
 
 template <int K>
 __global__ void __launch_bounds__(NTHREADS, 1)
 encoder_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
                            const float* __restrict__ pe,
                            const float* __restrict__ packed,
+                           const __nv_bfloat16* __restrict__ wp,
                            const float* __restrict__ mask,
                            const float* __restrict__ zmask,
                            __nv_bfloat16* __restrict__ out, int N, int G,
@@ -450,8 +468,7 @@ encoder_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_smem(smem_raw);
   float* r1 = reinterpret_cast<float*>(sm + S::O_R1);
-  uint8_t* xs = sm + S::O_X;
-  uint8_t* cs = sm + S::O_C;
+  uint8_t* cs = sm + S::O_C;           // the x tile until conv 0
   float* ex = reinterpret_cast<float*>(sm + S::O_EX);
   const bool reduce = mask != nullptr;
   const TcParams<K, D> P{packed};
@@ -460,11 +477,20 @@ encoder_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
   const int rl = 16 * warp + (lane >> 2);
   const int cl = 128 * wg + 2 * (lane & 3);         // the thread's columns
   const int row[2] = {rl, rl + 8};
-  const int tiles = (N + nseq - 1) / nseq;
+  // the cluster walks pairs cid, cid + ncl, ..; this CTA tile 2 pair + rank
+  const int rank = static_cast<int>(tc::cluster_rank());
+  const int cid = static_cast<int>(tc::cluster_id());
+  const int ncl = static_cast<int>(tc::cluster_count());
+  const int tiles = (N + nseq - 1) / nseq, pairs = (tiles + 1) / 2;
+  const int walk = (pairs - cid + ncl - 1) / ncl;
+  EncRing ring;
+  ring.init(sm + S::O_RING, reinterpret_cast<uint64_t*>(sm + S::O_BAR), wp,
+            walk * S::PER);
+  // the sequences of tile `tile`: n0 and the count (0 past the last tile)
+  auto seqs = [&](int tile) { return max(0, min(nseq, N - tile * nseq)); };
   auto load_x = [&](int tile) {
-    const int n0 = tile * nseq;
-    tc_load_rows<D>(xs, TM, x + static_cast<size_t>(n0) * L * D, D,
-                    min(nseq, N - n0) * L, tid, NTHREADS);
+    tc_load_rows<D>(cs, TM, x + static_cast<size_t>(tile) * nseq * L * D, D,
+                    seqs(tile) * L, tid, NTHREADS);
   };
   // mean and 1 / std of the thread's rows over both warpgroups' columns
   // (one exchange: a block barrier)
@@ -488,12 +514,15 @@ encoder_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
     *reinterpret_cast<float2*>(r1 + r1_at<D>(row[pr & 1],
                                              8 * (pr >> 1) + cl)) = y;
   };
-  if (static_cast<int>(blockIdx.x) < tiles) load_x(blockIdx.x);
+  load_x(2 * cid + rank);
   tc::cp_async_commit();
+  tc::cluster_sync();                  // both CTAs' barriers are initialised
+  ring.refill();
 
   int parity = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int n0 = tile * nseq, rows = min(nseq, N - n0) * L;
+  for (int it = 0, pair = cid; it < walk; ++it, pair += ncl) {
+    const int tile = 2 * pair + rank;
+    const int n0 = tile * nseq, rows = seqs(tile) * L;
     const long long R0 = static_cast<long long>(n0) * L;
     bool valid[2];
     int lrow[2];
@@ -526,14 +555,12 @@ encoder_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
     float hv[64], mean[2], istd[2];
     enc_load_h0<D>(hv, [&](int h, int c) {
       return tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(
-          xs + (c >> 6) * TILE_PANEL + tc::swz(row[h], c & 63)));
+          cs + (c >> 6) * TILE_PANEL + tc::swz(row[h], c & 63)));
     }, pe, valid, lrow, cl);
     stats(hv, mean, istd);
     enc_ln_apply(hv, mean, istd, P.ln_s(0), P.ln_b(0), true, kw, drop, cl,
                  to_r1);
     __syncthreads();                   // R1 whole; the x tile read
-    if (tile + static_cast<int>(gridDim.x) < tiles) load_x(tile + gridDim.x);
-    tc::cp_async_commit();
 #pragma unroll 1
     for (int i = 0; i < 2; ++i) {
       if (i == 1) {
@@ -542,28 +569,22 @@ encoder_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
                      cl, to_r1);
         __syncthreads();               // R1 whole
       }
-      // c = depthwise_i(t v) rounded to bf16 into the c tile
-#pragma unroll
-      for (int pr = 0; pr < 32; ++pr) {
-        const int h = pr & 1, c = 8 * (pr >> 1) + cl;
-        const float2 a = enc_conv_pair<K, D>(r1, v_s, P.dw(i), P.dwb(i), row,
-                                             lrow, valid, L, h, c);
-        *reinterpret_cast<uint32_t*>(cs + (c >> 6) * TILE_PANEL
-                                     + tc::swz(row[h], c & 63)) =
-            tc::pack_bf16(a.x, a.y);
-      }
+      // c = depthwise_i(t v) rounded to bf16 into the c tile, a column a
+      // thread (D = NTHREADS)
+      enc_conv_column<K, D>(cs, r1, v_s, P.dw(i), P.dwb(i), tid, rows, L);
       tc::fence_async_smem();
       __syncthreads();                 // the c tile whole; R1's taps read
       float acc[64];
-      mma_streamed_w<D, D, S::KP>(acc, tc::smem_u32(cs), P.pw(i),
-                                  sm + S::O_ST, wg);
+      mma_ring_w<S::PER / 2>(acc, tc::smem_u32(cs), ring, wg, lane);
 #pragma unroll
       for (int j = 0; j < 64; ++j)
         hv[j] += fmaxf(acc[j] + __ldg(P.pwb(i) + 128 * wg
                                       + acc_col(j, lane)), 0.f);
     }
     // ---- the final LN, then the masked max or the bf16 rows ---------------
-    stats(hv, mean, istd);
+    stats(hv, mean, istd);             // its barrier: c is read
+    if (it + 1 < walk) load_x(2 * (pair + ncl) + rank);
+    tc::cp_async_commit();
     if (reduce) {
       enc_ln_apply(hv, mean, istd, P.lnf_s(), P.lnf_b(), false, kw, drop, cl,
                    to_r1);
@@ -588,40 +609,59 @@ encoder_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
                    });
     }
   }
+  tc::cluster_sync();                  // no CTA leaves while its pair copies
 }
 
 template <int D, int K>
 int launch_tc_k(const void* x, const float* pe, const float* packed,
-                const float* mask, const float* zmask, void* out, int N,
-                int G, int L, Dropout drop, cudaStream_t stream) {
+                const float* mask, const float* zmask, void* out, void* wp,
+                int N, int G, int L, Dropout drop, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  // one persistent block an SM over tiles of tile_rows rows
-  auto go = [&](auto kern, int smem, int tile_rows) {
-    cudaError_t err = allow_smem(kern, smem);
+  if constexpr (D == WD) {
+    // pw0, pw1 rounded into their slabs, then clusters of two CTAs over
+    // pairs of 64-row tiles, at most as many as the card holds at once
+    auto kern = encoder_fwd_tc_wide_kernel<K>;
+    static int most = 0;
+    cudaError_t err = allow_smem(kern, EncWide::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (most == 0) most = pair_clusters(kern, EncWide::SMEM);
+    if (most == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const int layer = (4 + K) * D + D * D, pw0 = (3 + K) * D;
+    w_slab_pack_kernel<D><<<dim3(D * D / 8 / NTHREADS, 2), NTHREADS, 0,
+                            stream>>>(packed + pw0, packed + layer + pw0, D,
+                                      static_cast<bf16*>(wp));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int nseq = TM / L, pairs = ((N + nseq - 1) / nseq + 1) / 2;
+    return static_cast<int>(launch_pairs(
+        kern, pairs < most ? pairs : most, EncWide::SMEM, stream,
+        static_cast<const bf16*>(x), pe, packed,
+        static_cast<const bf16*>(wp), mask, zmask, static_cast<bf16*>(out),
+        N, G, L, nseq, drop));
+  } else {
+    // one persistent block an SM over tiles of TR rows
+    auto kern = encoder_fwd_tc_kernel<D, K>;
+    cudaError_t err = allow_smem(kern, EncTc<D>::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     int dev = 0, sms = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    const int nseq = tile_rows / L, tiles = (N + nseq - 1) / nseq;
+    const int nseq = TR / L, tiles = (N + nseq - 1) / nseq;
     const int blocks = tiles < sms ? tiles : sms;
-    kern<<<blocks, NTHREADS, smem, stream>>>(
+    kern<<<blocks, NTHREADS, EncTc<D>::SMEM, stream>>>(
         static_cast<const bf16*>(x), pe, packed, mask, zmask,
         static_cast<bf16*>(out), N, G, L, nseq, drop);
     return static_cast<int>(cudaGetLastError());
-  };
-  if constexpr (D == WD)
-    return go(encoder_fwd_tc_wide_kernel<K>, EncWide::SMEM, TM);
-  else
-    return go(encoder_fwd_tc_kernel<D, K>, EncTc<D>::SMEM, TR);
+  }
 }
 
 template <int D>
 int launch_tc(const void* x, const float* pe, const float* packed,
-              const float* mask, const float* zmask, void* out, int N, int G,
-              int L, int k, Dropout drop, cudaStream_t stream) {
+              const float* mask, const float* zmask, void* out, void* wp,
+              int N, int G, int L, int k, Dropout drop, cudaStream_t stream) {
 #define TVQA_ENC_FWD_TC(KK)                                                  \
   case KK:                                                                   \
-    return launch_tc_k<D, KK>(x, pe, packed, mask, zmask, out, N, G, L,      \
+    return launch_tc_k<D, KK>(x, pe, packed, mask, zmask, out, wp, N, G, L,  \
                               drop, stream);
   switch (k) {
     TVQA_ENC_FWD_TC(1)
@@ -636,21 +676,24 @@ int launch_tc(const void* x, const float* pe, const float* packed,
 
 template <int D>
 int launch_width(const void* x, const float* pe, const float* packed,
-                 const float* mask, const float* zmask, void* out, int N,
-                 int G, int L, int k, Dropout drop, int is_bf16,
+                 const float* mask, const float* zmask, void* out, void* wp,
+                 int N, int G, int L, int k, Dropout drop, int is_bf16,
                  cudaStream_t st) {
   // the bf16 tile holds whole sequences: TR rows, TM at D = 256
   if (L > (D == WD ? TM : TR)) return static_cast<int>(cudaErrorInvalidValue);
+  if (is_bf16 && D == WD && wp == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16)
-    return launch_tc<D>(x, pe, packed, mask, zmask, out, N, G, L, k, drop,
-                        st);
+    return launch_tc<D>(x, pe, packed, mask, zmask, out, wp, N, G, L, k,
+                        drop, st);
   return launch_f32<D>(static_cast<const float*>(x), pe, packed, mask, zmask,
                        static_cast<float*>(out), N, G, L, k, drop, st);
 }
 
 int launch_any(const void* x, const void* pe, const void* packed,
-               const void* mask, const void* zmask, void* out, int N, int G,
-               int L, int k, int D, const unsigned long long* drop_seed,
+               const void* mask, const void* zmask, void* out, void* wp,
+               int N, int G, int L, int k, int D,
+               const unsigned long long* drop_seed,
                unsigned drop_threshold, float drop_scale, int dv,
                const int* gmap, int g_glob, int is_bf16, void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
@@ -662,14 +705,14 @@ int launch_any(const void* x, const void* pe, const void* packed,
     return static_cast<int>(cudaErrorInvalidValue);
   switch (D) {
     case 64:
-      return launch_width<64>(x, f(pe), f(packed), f(mask), f(zmask), out, N,
-                              G, L, k, drop, is_bf16, st);
+      return launch_width<64>(x, f(pe), f(packed), f(mask), f(zmask), out,
+                              wp, N, G, L, k, drop, is_bf16, st);
     case 128:
       return launch_width<128>(x, f(pe), f(packed), f(mask), f(zmask), out,
-                               N, G, L, k, drop, is_bf16, st);
+                               wp, N, G, L, k, drop, is_bf16, st);
     case 256:
       return launch_width<256>(x, f(pe), f(packed), f(mask), f(zmask), out,
-                               N, G, L, k, drop, is_bf16, st);
+                               wp, N, G, L, k, drop, is_bf16, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -679,6 +722,8 @@ int launch_any(const void* x, const void* pe, const void* packed,
 // x: N = B*G sequences of L x D (bf16 when is_bf16, else float32), D one of
 // 64, 128, 256; pe (L, D), packed parameters (ops/encoder.py PARAM_KEYS
 // order) and mask (N, L) float32 (16-byte aligned); out (N, D) in x's type.
+// wp: scratch for pw0 and pw1 in bf16 slabs (2 D D bf16, 16-byte aligned)
+// of the bf16 kernel at D = 256, NULL otherwise.
 // L <= 56, odd k <= 9.  Conv 0's dropout when drop_threshold > 0
 // (philox.cuh).  bf16 x is 16-byte aligned.
 // dv: the true width, 4 <= dv <= D with 4 | dv, of inputs zero-padded to D
@@ -686,13 +731,13 @@ int launch_any(const void* x, const void* pe, const void* packed,
 // group map of the full-output mode (Dropout::row_key; NULL / 1 for none).
 extern "C" int encoder_reduce_fwd(const void* x, const void* pe,
                                   const void* packed, const void* mask,
-                                  void* out, int N, int L, int k, int D,
-                                  const unsigned long long* drop_seed,
+                                  void* out, void* wp, int N, int L, int k,
+                                  int D, const unsigned long long* drop_seed,
                                   unsigned drop_threshold, float drop_scale,
                                   int dv, const int* gmap, int g_glob,
                                   int is_bf16, void* stream) {
   if (mask == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_any(x, pe, packed, mask, nullptr, out, N, 1, L, k, D,
+  return launch_any(x, pe, packed, mask, nullptr, out, wp, N, 1, L, k, D,
   drop_seed, drop_threshold, drop_scale, dv, gmap, g_glob,
   is_bf16, stream);
 }
@@ -702,13 +747,14 @@ extern "C" int encoder_reduce_fwd(const void* x, const void* pe,
 // else as encoder_reduce_fwd.
 extern "C" int encoder_block_fwd(const void* x, const void* pe,
                                  const void* packed, const void* zmask,
-                                 void* out, int N, int G, int L, int k, int D,
+                                 void* out, void* wp, int N, int G, int L,
+                                 int k, int D,
                                  const unsigned long long* drop_seed,
                                  unsigned drop_threshold, float drop_scale,
                                  int dv, const int* gmap, int g_glob,
                                  int is_bf16, void* stream) {
   if (G < 1 || N % G != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_any(x, pe, packed, nullptr, zmask, out, N, G, L, k, D,
+  return launch_any(x, pe, packed, nullptr, zmask, out, wp, N, G, L, k, D,
   drop_seed, drop_threshold, drop_scale, dv, gmap, g_glob,
   is_bf16, stream);
 }

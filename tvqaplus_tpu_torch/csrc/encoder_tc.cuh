@@ -192,6 +192,46 @@ __device__ __forceinline__ float2 enc_conv_pair(
   return a;
 }
 
+// The depthwise conv of one column `col` of a tile, the sums of
+// enc_conv_pair in the same order (a tap outside the sequence adds w 0,
+// which leaves the sum as it is), rounded to bf16 into the c tile at cs
+// (the product's A: D / 64 panels of TM rows): the taps stay in registers
+// and a window of the last K values of t v slides down each of the tile's
+// sequences (rows [s L, s L + L) below `rows`), so every value is read
+// once; rows past them get dwb.  A thread a column.
+template <int K, int D>
+__device__ __forceinline__ void enc_conv_column(
+    uint8_t* cs, const float* r1, const float* v_s,
+    const float* __restrict__ dw, const float* __restrict__ dwb, int col,
+    int rows, int L) {
+  constexpr int pad = K / 2;
+  float w[K], win[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) w[j] = __ldg(dw + j * D + col);
+  const float b = __ldg(dwb + col);
+  uint8_t* cp = cs + (col >> 6) * TILE_PANEL;
+  auto put = [&](int r, float a) {
+    *reinterpret_cast<__nv_bfloat16*>(cp + tc::swz(r, col & 63)) =
+        __float2bfloat16(a);
+  };
+  for (int s0 = 0; s0 < rows; s0 += L) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) win[j] = 0.f;
+    for (int i = 0; i < L + pad; ++i) {
+#pragma unroll
+      for (int j = 0; j + 1 < K; ++j) win[j] = win[j + 1];
+      win[K - 1] = i < L ? r1[r1_at<D>(s0 + i, col)] * v_s[s0 + i] : 0.f;
+      if (i >= pad) {
+        float a = b;
+#pragma unroll
+        for (int j = 0; j < K; ++j) a = fmaf(w[j], win[j], a);
+        put(s0 + i - pad, a);
+      }
+    }
+  }
+  for (int r = rows; r < TM; ++r) put(r, b);
+}
+
 // The sum of t[0 .. 8) over the eight lanes that hold the same columns'
 // other rows; entry j of lane l is column pair 8 (4 qb + j / 2) + 2 (l % 4)
 // + j % 2 of a block qb, and the lane keeps j = b2 + 2 b3 + 4 b4 (bN = bit

@@ -52,14 +52,18 @@
 //   Shared memory: 231,168 bytes at D = 128, 91,648 at 64.  M = 200 pads to
 //   four tiles (22% of the products idle; rows of several frames do not
 //   share a tile because the scores are per frame).
-// * bfloat16, D = 256 (qa_ctx_fwd_tc_wide_kernel<LRP>): W is 384 KB and a
-//   warpgroup's 64 x 256 att and projection accumulators would take 128
-//   registers a thread each, so the two warpgroups work on one tile and
-//   split its columns (128 each), the LayerNorm's row sums cross them
-//   through shared memory, and W streams from L2 through two stages of 32
-//   rows (mma_streamed_w, wgmma.cuh), once a tile.  Both warpgroups compute
-//   the tile's scores (K = 256, small beside the projection).  195 KB of
-//   shared memory; 255 registers with 536 bytes of spill.
+// * bfloat16, D = 256 (qa_ctx_fwd_tc_wide_kernel<LRP, DROP>): W is 384 KB
+//   and a warpgroup's 64 x 256 att and projection accumulators would take
+//   128 registers a thread each, so the two warpgroups work on one tile and
+//   split its columns (128 each); the scores are computed once (each
+//   warpgroup half the regions, the softmax's row max and sum crossing
+//   through shared memory, p in a bf16 tile); W is rounded to bf16 once a
+//   call into 24 slabs (w_slab_pack_kernel) that the copy engine brings
+//   through a ring of four slots (SlabRing, wgmma.cuh), a pair of CTAs (a
+//   cluster over two frames) sharing each slab by multicast: 0.61 GB of W
+//   from L2 at the headline shapes, where a pass of W a tile read 1.23 GB.
+//   231,744 bytes of shared memory; 255 registers, 12-88 bytes of spill.
+//   The serving instantiation (DROP false) holds no Philox code.
 // * float32 (qa_ctx_fwd_kernel<float, D>): the exactness check (1e-4
 //   bars).  CUDA cores, 32-row tiles (16 at D = 256, where the frame's qn
 //   and qe take 128 KB), each warp 4 (2) rows, W (196 KB in float32 at
@@ -418,32 +422,55 @@ qa_ctx_fwd_tc_kernel(const __nv_bfloat16* __restrict__ cn,
   }
 }
 
-// ---- the bfloat16 instantiation at D = 256: W streamed ---------------------
+// ---- the bfloat16 instantiation at D = 256: W through a ring, in pairs ----
 //
 // W (3D x D) is 384 KB in bf16, and a warpgroup's 64 x 256 att and
 // projection accumulators would take 128 registers a thread each.  So both
 // warpgroups work on one 64-row tile at a time and split its columns:
 // warpgroup wg owns columns [128 wg, 128 wg + 128) of att, of each LN group
-// and of the projection.  Both compute the tile's (small, K = 256) scores
-// and softmax; the LayerNorm's row sums cross the warpgroups through shared
-// memory (tri_row_pair_sums); the 64 x 3D LN output goes to one bf16 tile
-// (over the cn tile, which the scores have read), and W streams through two
-// stages of 32 rows (mma_streamed_w, wgmma.cuh).
+// and of the projection.  The scores are computed once: warpgroup wg takes
+// regions [LRP / 2 wg, LRP / 2 (wg + 1)), the softmax's row max and sum
+// cross the warpgroups through shared memory, and p (bf16) goes to a tile
+// from which both take p qe.  The LayerNorm's row sums cross the
+// warpgroups as well (tri_row_pair_sums); the 64 x 3D LN output goes to
+// one bf16 tile (over the cn tile, which the scores have read).  W comes
+// rounded to bf16 once a call (the C entry's w_slab_pack_kernel: 24 slabs
+// of 32 rows) through the copy engine's ring (SlabRing, wgmma.cuh: four
+// slots, no block barrier a slab).  (Taking the LN output to the
+// projection a third at a time, to give the ring seven slots, was slower
+// on the card.)  Two CTAs on neighbouring SMs form a cluster over a pair
+// of frames and take the same tile of each, so one pass of W serves two
+// tiles; CTA 0 copies every slab into both (multicast).  A persistent
+// grid: cluster c takes units [U c / n, U (c + 1) / n) of the U =
+// ceil(frames / 2) x tiles (frame pair, tile) units, a frame's tiles in a
+// row (its qn / qe loaded once); past the last frame a CTA runs empty
+// tiles, so that both take the same slabs.
 
 constexpr int WD = 256;
 struct AttnWide {
-  static constexpr int KP = 32;                       // W rows a stage
+  static constexpr int NSLOT = 4;                     // ring slots
+  static constexpr int PER = 3 * WD / SLAB_ROWS;      // slabs a tile: 24
   static constexpr int O_QN = 0;                      // 64 x 256 bf16
   static constexpr int O_QE = O_QN + Shapes<WD>::TILE_BYTES;
   static constexpr int O_YD = O_QE + Shapes<WD>::TILE_BYTES;  // 64 x 3D
-  static constexpr int O_ST = O_YD + 3 * (WD / 64) * TILE_PANEL;
-  static constexpr int O_QM = O_ST + 2 * stream_stage_bytes<WD, KP>();
-  static constexpr int O_BIAS = O_QM + TM * 4;
-  static constexpr int O_EX = O_BIAS + WD * 4;        // [wg][row][2] sums
-  static constexpr int SMEM = O_EX + 2 * TM * 2 * 4 + tc::ATOM_BYTES;
+  // inside the yd tile until its stores: cn (panels 0-3), the softmax's
+  // exchange (panel 10), p (panel 11)
+  static constexpr int O_SX = O_YD + 10 * TILE_PANEL;
+  static constexpr int O_P = O_YD + 11 * TILE_PANEL;
+  static constexpr int O_RING = O_YD + 3 * (WD / 64) * TILE_PANEL;
+  static constexpr int O_BAR = O_RING + NSLOT * SLAB_BYTES;  // full, empty
+  static constexpr int O_EX = O_BAR + 2 * NSLOT * 8;  // [wg][row][2] sums
+  static constexpr int O_QM = O_EX + 2 * TM * 2 * 4;
+  static constexpr int SMEM = O_QM + TM * 4 + tc::ATOM_BYTES;
+  static_assert(O_RING % tc::ATOM_BYTES == 0, "slots on atoms");
+  static_assert(SMEM <= 232448, "shared memory of a block");
 };
 
-template <int LRP>
+// DROP: the projection dropout is on (a train step); the serving
+// instantiation holds no Philox code, which the compiler schedules the
+// rest of the kernel around even when it does not run (it cost 30% on
+// the card at dropout 0).
+template <int LRP, bool DROP>
 __global__ void __launch_bounds__(NTHREADS, 1)
 qa_ctx_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ cn,
                           const __nv_bfloat16* __restrict__ ce,
@@ -453,13 +480,13 @@ qa_ctx_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ cn,
                           const float* __restrict__ qmask,
                           const float* __restrict__ gamma,
                           const float* __restrict__ beta,
-                          const __nv_bfloat16* __restrict__ W,
+                          const __nv_bfloat16* __restrict__ wp,
                           const float* __restrict__ bias,
                           const int* __restrict__ targets,
                           __nv_bfloat16* __restrict__ mixed,
-                          float* __restrict__ raw, int A, int Lqa, int Li,
-                          int Lr, float scale, Dropout drop) {
-  constexpr int D = WD;
+                          float* __restrict__ raw, int F, int A, int Lqa,
+                          int Li, int Lr, float scale, Dropout drop) {
+  constexpr int D = WD, NH = LRP / 2;  // a warpgroup's regions
   using S = AttnWide;
   drop.load_seed();
   extern __shared__ uint8_t smem_raw[];
@@ -467,32 +494,55 @@ qa_ctx_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ cn,
   uint8_t* qn_s = sm + S::O_QN;
   uint8_t* qe_s = sm + S::O_QE;
   uint8_t* yd_s = sm + S::O_YD;        // holds the tile's cn rows first
-  float* qm_s = reinterpret_cast<float*>(sm + S::O_QM);
-  float* bias_s = reinterpret_cast<float*>(sm + S::O_BIAS);
+  uint8_t* p_s = sm + S::O_P;
+  float* sx_s = reinterpret_cast<float*>(sm + S::O_SX);
   float* ex_s = reinterpret_cast<float*>(sm + S::O_EX);
+  float* qm_s = reinterpret_cast<float*>(sm + S::O_QM);
   const int tid = threadIdx.x, wg = tid >> 7;
   const int warp = (tid & 127) >> 5, lane = tid & 31;
   const int rl = 16 * warp + (lane >> 2);             // first of two rows
-  const int half = 128 * wg, cl = 2 * (lane & 3);
+  const int half = 128 * wg, cl = 2 * (lane & 3), r0 = NH * wg;
 
-  const int i = blockIdx.x, b = blockIdx.y;
-  const int M = A * Lqa;
-  const int target = targets != nullptr ? targets[b] : -1;
-  const size_t fbase = (static_cast<size_t>(b) * Li + i) * Lr;
-  for (int k = tid; k < D; k += NTHREADS) bias_s[k] = bias[k];
-  tc_load_frame<D>(nullptr, qn_s, qe_s, qm_s, W, qn, qe, qmask, fbase, Lr);
+  const int M = A * Lqa, T = (M + TM - 1) / TM;
+  const int rank = static_cast<int>(tc::cluster_rank());
+  const long long units = static_cast<long long>((F + 1) / 2) * T;
+  const long long cid = tc::cluster_id(), ncl = tc::cluster_count();
+  const int u0 = static_cast<int>(units * cid / ncl);
+  const int u1 = static_cast<int>(units * (cid + 1) / ncl);
+  SlabRing<S::NSLOT, S::PER, 2> ring;
+  ring.init(sm + S::O_RING, reinterpret_cast<uint64_t*>(sm + S::O_BAR), wp,
+            (u1 - u0) * S::PER);
+  tc::cluster_sync();                  // both CTAs' barriers are initialised
+  ring.refill();
 
-  for (int m0 = 0; m0 < M; m0 += TM) {
-    // ---- the tile's cn rows, then scores and softmax in registers -------
+  int loaded = -1;                     // the frame in qn_s / qe_s
+  for (int u = u0; u < u1; ++u) {
+    const int f = 2 * (u / T) + rank, m0 = (u % T) * TM;
+    const bool fok = f < F;            // else an empty tile
+    const int b = fok ? f / Li : 0, i = fok ? f % Li : 0;
+    const int Mf = fok ? M : 0;
+    const int target = targets != nullptr && fok ? targets[b] : -1;
+    const size_t fbase = (static_cast<size_t>(b) * Li + i) * Lr;
+    // ---- the frame's qn, qe (once), the tile's cn rows -----------------
     __syncthreads();                   // the previous tile's reads are done
+    if (f != loaded) {
+      tc_load_rows<D>(qn_s, TM, qn + fbase * D, D, fok ? Lr : 0, tid,
+                      NTHREADS);
+      tc_load_rows<D>(qe_s, TM, qe + fbase * D, D, fok ? Lr : 0, tid,
+                      NTHREADS);
+      if (tid < TM) qm_s[tid] = fok && tid < Lr ? qmask[fbase + tid] : 0.f;
+      loaded = f;
+    }
     tc_load_rows<D>(yd_s, TM, cn + (static_cast<size_t>(b) * M + m0) * D, D,
-                    min(TM, M - m0), tid, NTHREADS);
+                    max(0, min(TM, Mf - m0)), tid, NTHREADS);
     tc::cp_async_commit();
     tc::cp_async_wait<0>();
     tc::fence_async_smem();
     __syncthreads();
-    float s[LRP / 2], p0[LRP / 2];
-    tc_scores<LRP, D>(s, tc::smem_u32(yd_s), tc::smem_u32(qn_s));
+    // ---- scores of the warpgroup's regions, the softmax across both ------
+    float s[NH / 2], p0[NH / 2];
+    tc_scores<NH, D>(s, tc::smem_u32(yd_s),
+                     tc::smem_u32(qn_s) + r0 * tc::ROW_BYTES);
     int m[2];
     bool live[2];
     float cm[2];
@@ -500,12 +550,43 @@ qa_ctx_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ cn,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       m[h] = m0 + rl + 8 * h;
-      live[h] = m[h] < M;
+      live[h] = m[h] < Mf;
       cm[h] = live[h] ? cmask[static_cast<size_t>(b) * M + m[h]] : 0.f;
       mrow[h] = mixed_row(b, live[h] ? m[h] : 0, i, A, Lqa, Li);
     }
-    tc_softmax<LRP>(s, p0, cm, qm_s, Lr, scale, lane);
-    if (raw != nullptr && wg == 0) {   // both warpgroups hold the scores
+    // the arithmetic of tc_softmax, its row max and sum over both halves
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < NH / 2; ++k) {
+      const int h = (k / 2) % 2, j = r0 + acc_col(k, lane);
+      const bool v = j < Lr;
+      const float smv = v ? cm[h] * qm_s[j] : 0.f;
+      const float mk = s[k] - 1e10f * (1.f - smv);
+      s[k] = mk;
+      p0[k] = v ? fmaxf(mk * scale, SAFE_FLOOR) : -CUDART_INF_F;
+      mx[h] = fmaxf(mx[h], p0[k]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = quad_max(mx[h]);
+      if ((lane & 3) == 0) sx_s[(wg * TM + rl + 8 * h) * 2] = mx[h];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      mx[h] = fmaxf(sx_s[(rl + 8 * h) * 2], sx_s[(TM + rl + 8 * h) * 2]);
+#pragma unroll
+    for (int k = 0; k < NH / 2; ++k) {
+      const int h = (k / 2) % 2;
+      p0[k] = r0 + acc_col(k, lane) < Lr ? expf(p0[k] - mx[h]) : 0.f;
+      sum[h] += p0[k];
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] = quad_sum(sum[h]);
+      if ((lane & 3) == 0) sx_s[(wg * TM + rl + 8 * h) * 2 + 1] = sum[h];
+    }
+    if (raw != nullptr) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int a = m[h] / Lqa, w = m[h] % Lqa;
@@ -514,21 +595,47 @@ qa_ctx_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ cn,
             ? raw + mrow[h] * Lr
             : raw + ((static_cast<size_t>(b) * Li + i) * Lqa + w) * Lr;
 #pragma unroll
-        for (int k = h * 2; k < LRP / 2; k += 4)
+        for (int k = h * 2; k < NH / 2; k += 4)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int j = acc_col(k + e, lane);
+            const int j = r0 + acc_col(k + e, lane);
             if (j < Lr) rr[j] = s[k + e];
           }
       }
     }
+    __syncthreads();
+    // p = p0 / sum * mask rounded to bf16 into the p tile (K-major)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float inv = 1.f / (sx_s[(rl + 8 * h) * 2 + 1]
+                               + sx_s[(TM + rl + 8 * h) * 2 + 1]);
+#pragma unroll
+      for (int q = 0; q < NH / 8; ++q) {
+        const int k = 4 * q + 2 * h, j = r0 + acc_col(k, lane);
+        *reinterpret_cast<uint32_t*>(p_s + tc::swz(rl + 8 * h, j)) =
+            tc::pack_bf16((p0[k] * inv) * (cm[h] * qm_s[j]),
+                          (p0[k + 1] * inv) * (cm[h] * qm_s[j + 1]));
+      }
+    }
+    tc::fence_async_smem();
+    __syncthreads();                   // the p tile is whole
     float att[64];                     // the warpgroup's 128 columns
-    tc_att<LRP, 2>(att, p0, cm, qm_s,
-                   tc::smem_u32(qe_s) + 2 * wg * TILE_PANEL, lane);
+    {
+      const uint32_t pa = tc::smem_u32(p_s);
+      const uint32_t qa = tc::smem_u32(qe_s) + 2 * wg * TILE_PANEL;
+      tc::fence();
+#pragma unroll
+      for (int ts = 0; ts < LRP / 16; ++ts)
+        tc::mma_ss<128, 0, 1>(
+            att, tc::make_desc(pa + ts * 32, 16),
+            tc::make_desc(qa + ts * 2 * tc::ATOM_BYTES, TILE_PANEL), ts > 0);
+      tc::commit();
+      tc::wait_all();
+    }
 
     // ---- LayerNorm over [ce; att; ce * att], dropout, bf16 tile ---------
     uint32_t cev[32];
-    float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
+    float ls[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
 #pragma unroll
     for (int pr = 0; pr < 32; ++pr) {
       const int h = pr & 1, c = half + 8 * (pr >> 1) + cl;
@@ -539,24 +646,24 @@ qa_ctx_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ cn,
       const float2 c2 = tc::unpack_bf16(cev[pr]);
       const float a0 = att[2 * pr], a1 = att[2 * pr + 1];
       const float x0 = c2.x * a0, x1 = c2.y * a1;
-      sum[h] += (c2.x + c2.y) + (a0 + a1) + (x0 + x1);
+      ls[h] += (c2.x + c2.y) + (a0 + a1) + (x0 + x1);
       sq[h] += fmaf(c2.x, c2.x, c2.y * c2.y) + fmaf(a0, a0, a1 * a1)
                + fmaf(x0, x0, x1 * x1);
     }
     // both warpgroups' sums; its barrier also orders every warpgroup's
-    // score products (which read cn) before the yd stores below
-    tri_row_pair_sums(ex_s, sum, sq, wg, rl, lane);
+    // score and att products (which read cn and p) before the yd stores
+    tri_row_pair_sums(ex_s, ls, sq, wg, rl, lane);
     float mean[2], istd[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      mean[h] = sum[h] * drop.inv3;
+      mean[h] = ls[h] * drop.inv3;
       istd[h] = rsqrtf(sq[h] * drop.inv3 - mean[h] * mean[h] + LN_EPS);
     }
 #pragma unroll
     for (int g = 0; g < 3; ++g) {
       uint32_t kw[2][2] = {{~0u, ~0u}, {~0u, ~0u}};
-      if (drop.on())
-        tc_keep_bits<16, false>(
+      if (DROP)                        // a call: no product is in flight
+        tc_keep_bits<16, true>(
             drop, drop.key3((lane & 1) ? mrow[1] : mrow[0], g, half), lane,
             kw);
 #pragma unroll
@@ -572,7 +679,7 @@ qa_ctx_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ cn,
             beta + g * D + c));
         float y0 = (x0 - mean[h]) * istd[h] * ga.x + be.x;
         float y1 = (x1 - mean[h]) * istd[h] * ga.y + be.y;
-        if (drop.on()) {
+        if (DROP) {
           const uint32_t bits = kw[h][q >> 3] >> (4 * (q & 7));
           y0 *= (bits & 1u) ? drop.scale : 0.f;
           y1 *= (bits & 2u) ? drop.scale : 0.f;
@@ -584,43 +691,65 @@ qa_ctx_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ cn,
     }
     tc::fence_async_smem();
     __syncthreads();                   // the yd tile is whole
-    // ---- the projection: (64 x 3D) . W (3D x D), W streamed ---------------
+    // ---- the projection: (64 x 3D) . W (3D x D), W from the ring ----------
     float acc[64];
-    mma_streamed_w<D, 3 * D, S::KP>(acc, tc::smem_u32(yd_s), W, sm + S::O_ST,
-                                    wg);
+    mma_ring_w<S::PER>(acc, tc::smem_u32(yd_s), ring, wg, lane);
 #pragma unroll
     for (int pr = 0; pr < 32; ++pr) {
       const int h = pr & 1, c = half + 8 * (pr >> 1) + cl;
       if (!live[h]) continue;
-      const float2 bv = *reinterpret_cast<const float2*>(bias_s + c);
+      const float2 bv = __ldg(reinterpret_cast<const float2*>(bias + c));
       *reinterpret_cast<uint32_t*>(mixed + mrow[h] * D + c) =
           tc::pack_bf16(fmaxf(acc[2 * pr] + bv.x, 0.f),
                         fmaxf(acc[2 * pr + 1] + bv.y, 0.f));
     }
   }
+  tc::cluster_sync();                  // no CTA leaves while its pair copies
 }
 
 template <int D, int LRP>
 int launch_tc(const void* cn, const void* ce, const void* qn, const void* qe,
               const float* cmask, const float* qmask, const float* gamma,
               const float* beta, const void* W, const float* bias,
-              const int* targets, void* mixed, float* raw, int B, int A,
-              int Lqa, int Li, int Lr, float scale, Dropout drop,
+              const int* targets, void* mixed, float* raw, void* wp, int B,
+              int A, int Lqa, int Li, int Lr, float scale, Dropout drop,
               cudaStream_t stream) {
-  auto h = [](const void* p) { return static_cast<const __nv_bfloat16*>(p); };
-  auto go = [&](auto kern, int smem) {
-    cudaError_t err = allow_smem(kern, smem);
+  using bf16 = __nv_bfloat16;
+  auto h = [](const void* p) { return static_cast<const bf16*>(p); };
+  if constexpr (D == WD) {
+    // W rounded into its slabs, then clusters of two CTAs over (frame
+    // pair, tile) units, at most as many as the card holds at once
+    auto kern = drop.threshold != 0u ? qa_ctx_fwd_tc_wide_kernel<LRP, true>
+                                     : qa_ctx_fwd_tc_wide_kernel<LRP, false>;
+    static int most[2] = {0, 0};
+    int& n = most[drop.threshold != 0u];
+    cudaError_t err = allow_smem(kern, AttnWide::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<dim3(Li, B), NTHREADS, smem, stream>>>(
+    if (n == 0) n = pair_clusters(kern, AttnWide::SMEM);
+    if (n == 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+    w_slab_pack_kernel<D><<<dim3(3 * D * D / 8 / NTHREADS, 1), NTHREADS, 0,
+                            stream>>>(static_cast<const float*>(W), nullptr,
+                                      3 * D, static_cast<bf16*>(wp));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long units = static_cast<long long>((B * Li + 1) / 2)
+                            * ((A * Lqa + TM - 1) / TM);
+    const int clusters = units < n ? static_cast<int>(units) : n;
+    return static_cast<int>(launch_pairs(
+        kern, clusters, AttnWide::SMEM, stream, h(cn), h(ce), h(qn), h(qe),
+        cmask, qmask, gamma, beta, h(wp), bias, targets,
+        static_cast<bf16*>(mixed), raw, B * Li, A, Lqa, Li, Lr, scale,
+        drop));
+  } else {
+    auto kern = qa_ctx_fwd_tc_kernel<D, LRP>;
+    cudaError_t err = allow_smem(kern, AttnTc<D>::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<dim3(Li, B), NTHREADS, AttnTc<D>::SMEM, stream>>>(
         h(cn), h(ce), h(qn), h(qe), cmask, qmask, gamma, beta, h(W), bias,
-        targets, static_cast<__nv_bfloat16*>(mixed), raw, A, Lqa, Li, Lr,
-        scale, drop);
+        targets, static_cast<bf16*>(mixed), raw, A, Lqa, Li, Lr, scale,
+        drop);
     return static_cast<int>(cudaGetLastError());
-  };
-  if constexpr (D == WD)
-    return go(qa_ctx_fwd_tc_wide_kernel<LRP>, AttnWide::SMEM);
-  else
-    return go(qa_ctx_fwd_tc_kernel<D, LRP>, AttnTc<D>::SMEM);
+  }
 }
 
 template <int D>
@@ -628,15 +757,17 @@ int launch_width(const void* cn, const void* ce, const void* qn,
                  const void* qe, const float* cmask, const float* qmask,
                  const float* gamma, const float* beta, const void* W,
                  const float* bias, const int* targets, void* mixed,
-                 float* raw, int B, int A, int Lqa, int Li, int Lr,
+                 float* raw, void* wp, int B, int A, int Lqa, int Li, int Lr,
                  float scale, Dropout drop, int is_bf16, cudaStream_t s) {
+  if (is_bf16 && D == WD && wp == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16 && Lr <= 32)
     return launch_tc<D, 32>(cn, ce, qn, qe, cmask, qmask, gamma, beta, W,
-                            bias, targets, mixed, raw, B, A, Lqa, Li, Lr,
+                            bias, targets, mixed, raw, wp, B, A, Lqa, Li, Lr,
                             scale, drop, s);
   if (is_bf16)
     return launch_tc<D, 64>(cn, ce, qn, qe, cmask, qmask, gamma, beta, W,
-                            bias, targets, mixed, raw, B, A, Lqa, Li, Lr,
+                            bias, targets, mixed, raw, wp, B, A, Lqa, Li, Lr,
                             scale, drop, s);
   return launch<float, D>(cn, ce, qn, qe, cmask, qmask, gamma, beta,
                           static_cast<const float*>(W), bias, targets, mixed,
@@ -647,20 +778,23 @@ int launch_width(const void* cn, const void* ce, const void* qn,
 
 // cn, ce: (B, A, Lqa, D); qn, qe: (B, Li, Lr, D), all of one type (bf16
 // when is_bf16, else float32), D one of 64, 128, 256; masks, gamma/beta
-// (3D), bias (D) float32; W (3D, D) float32, or bfloat16 when is_bf16;
-// mixed (B, A, Li, Lqa, D) in the activation type; raw float32:
-// (B, A, Li, Lqa, Lr) when targets is NULL, else (B, Li, Lqa, Lr) at
-// targets[b] (int32, B); raw NULL writes none.  Lr <= 64.  Dropout on the
-// LN output when drop_threshold > 0 (philox.cuh).
+// (3D), bias (D) float32; W (3D, D) float32, or bfloat16 when is_bf16 at
+// D = 64 and 128; mixed (B, A, Li, Lqa, D) in the activation type; raw
+// float32: (B, A, Li, Lqa, Lr) when targets is NULL, else (B, Li, Lqa, Lr)
+// at targets[b] (int32, B); raw NULL writes none.  wp: scratch for W in
+// bf16 slabs (3 D D bf16, 16-byte aligned) of the bf16 kernel at D = 256,
+// NULL otherwise.  Lr <= 64.  Dropout on the LN output when
+// drop_threshold > 0 (philox.cuh).
 // dv: the true width, 4 <= dv <= D with 4 | dv, of inputs zero-padded to D
 // (every LN's statistics and the Philox keys, philox.cuh).
 extern "C" int qa_ctx_attention_fwd(
     const void* cn, const void* ce, const void* qn, const void* qe,
     const void* cmask, const void* qmask, const void* gamma,
     const void* beta, const void* W, const void* bias, const void* targets,
-    void* mixed, void* raw, int B, int A, int Lqa, int Li, int Lr, int D,
-    float scale, const unsigned long long* drop_seed, unsigned drop_threshold,
-    float drop_scale, int dv, int is_bf16, void* stream) {
+    void* mixed, void* raw, void* wp, int B, int A, int Lqa, int Li, int Lr,
+    int D, float scale, const unsigned long long* drop_seed,
+    unsigned drop_threshold, float drop_scale, int dv, int is_bf16,
+    void* stream) {
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto s = static_cast<cudaStream_t>(stream);
   const Dropout drop =
@@ -672,7 +806,7 @@ extern "C" int qa_ctx_attention_fwd(
   case DD:                                                                   \
     return launch_width<DD>(cn, ce, qn, qe, f(cmask), f(qmask), f(gamma),    \
                             f(beta), W, f(bias), tg, mixed,                  \
-                            static_cast<float*>(raw), B, A, Lqa, Li, Lr,     \
+                            static_cast<float*>(raw), wp, B, A, Lqa, Li, Lr, \
                             scale, drop, is_bf16, s);
   switch (D) {
     TVQA_ATTN_FWD(64)

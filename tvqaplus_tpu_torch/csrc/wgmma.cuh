@@ -32,6 +32,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <utility>
 
 #include "common.cuh"
 #include "philox.cuh"
@@ -160,6 +161,74 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
       : "memory");
 }
 
+// ---- a pair of CTAs (a thread-block cluster of two) sharing the ring's
+// slabs: one CTA's copy engine writes every slab into both CTAs' slots
+// (multicast), once the other CTA has signalled that its slot is free ----
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return r;
+}
+// Every thread of both CTAs.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// Arrive on the barrier at `bar`'s offset in CTA `cta` of the cluster.
+__device__ __forceinline__ void mbar_arrive_cta(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\nmapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n}\n" ::"r"(
+          smem_u32(bar)), "r"(cta)
+      : "memory");
+}
+// Whether the barrier's phase of parity `parity` is complete (no wait),
+// with the cluster's arrivals visible.
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0u;
+}
+// One try of mbar_wait (it may suspend the thread for a while).
+__device__ __forceinline__ bool mbar_try(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0u;
+}
+// bulk_g2s into the same offset of every CTA in `mask` (bit c: cluster CTA
+// c), completing on the barrier at `bar`'s offset in each.
+__device__ __forceinline__ void bulk_g2s_mcast(void* dst, const void* src,
+                                               uint32_t bytes, uint64_t* bar,
+                                               uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -174,6 +243,7 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
 #define TVQA_D16(d, o) TVQA_D8(d, o), TVQA_D8(d, o + 8)
 #define TVQA_D32(d, o) TVQA_D16(d, o), TVQA_D16(d, o + 16)
 #define TVQA_D64(d, o) TVQA_D32(d, o), TVQA_D32(d, o + 32)
+#define TVQA_L8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define TVQA_L16                                                       \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define TVQA_L32                                                       \
@@ -192,8 +262,16 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
 template <int N, int TA, int TB>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
                                        uint64_t b, int acc) {
-  static_assert(N == 32 || N == 64 || N == 128, "unsupported width");
-  if constexpr (N == 32) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128,
+                "unsupported width");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " TVQA_L8
+        ", %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : TVQA_D8(d, 0)
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+  } else if constexpr (N == 32) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " TVQA_L16
@@ -439,7 +517,8 @@ __device__ __forceinline__ uint32_t keep_word(uint64_t seed, uint64_t blk0,
 // caller's register pressure.  The backward draws at the start of a tile,
 // where little is live and a call is cheap; inlined into its 64-wide
 // instantiation the draw ran three times slower than in the 32-wide one.
-// The forward draws with the att accumulator live and inlines.
+// The forwards at D = 64 and 128 draw with the att accumulator live and
+// inline; the D = 256 forwards call (with no product in flight).
 __device__ __noinline__ uint32_t keep_word_call(uint64_t seed, uint64_t blk0,
                                                 uint32_t threshold) {
   return keep_word(seed, blk0, threshold);
@@ -471,13 +550,14 @@ __device__ __forceinline__ void tc_keep_bits(const Dropout& drop,
   }
 }
 
-// ---- W streamed through shared memory (the D = 256 forwards) --------------
+// ---- W streamed through shared memory (the D = 256 tri bridge forward) ----
 //
 // At D = 256 no forward keeps its weight resident (W is 3D x D = 384 KB in
-// bf16, the encoder's two pointwise matrices 256 KB), so the product reads
-// it through a ring of two stages of KP rows, one stage loading while the
-// tensor cores multiply the other.  A stage is KP rows x D bf16 as D / 64
-// panels of KP rows (128-byte swizzle), read MN-major.
+// bf16), so the product reads it through a ring of two stages of KP rows,
+// one stage loading while the tensor cores multiply the other.  A stage
+// is KP rows x D bf16 as D / 64 panels of KP rows (128-byte swizzle), read
+// MN-major.  (The encoder and attention forwards take W through the copy
+// engine's ring below.)
 
 template <int D, int KP>
 __host__ __device__ constexpr int stream_stage_bytes() { return KP * D * 2; }
@@ -541,6 +621,219 @@ __device__ __forceinline__ void mma_streamed_w(float (&acc)[64],
   }
   tc::wait_all();
   tc::fence_regs(acc);
+}
+
+// ---- W through a ring of slabs fed by the copy engine (the D = 256
+// encoder and attention forwards) -------------------------------------------
+//
+// W (K x 256) is rounded to bf16 once a call into K / 32 SLABS of 16 KB
+// (w_slab_pack_kernel), each 32 rows of W as it lies in shared memory: four
+// panels of 32 rows (columns 64 pn + j), read MN-major, the 128-byte
+// swizzle.  A block reads the same sequence of PER slabs (the W of its
+// products) once for every tile it takes; the ring brings them in order.
+
+constexpr int SLAB_ROWS = 32;
+constexpr int SLAB_BYTES = SLAB_ROWS * 256 * 2;       // 16 KB
+constexpr int SLAB_PANEL = SLAB_ROWS * tc::ROW_BYTES;  // 4 KB
+
+// Matrix blockIdx.y (W0, else W1; K x 256 float32, row-major) into its
+// K / 32 slabs at Wp + blockIdx.y K 256: a thread a 16-byte chunk.  Slab sl
+// holds rows 32 sl + r in panel pn = q / 256 (chunk q of the slab); row r's
+// chunk j / 8 lies at chunk (j / 8) ^ (r % 8).
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+w_slab_pack_kernel(const float* __restrict__ W0,
+                   const float* __restrict__ W1, int K,
+                   __nv_bfloat16* __restrict__ Wp) {
+  static_assert(D == 256, "slabs of 256 columns");
+  constexpr int CHUNKS = SLAB_BYTES / 16;
+  const int c = blockIdx.x * NTHREADS + threadIdx.x;
+  if (c >= K / SLAB_ROWS * CHUNKS) return;
+  const float* W = blockIdx.y == 0 ? W0 : W1;
+  const int sl = c / CHUNKS, q = c % CHUNKS, r = q / 8 % SLAB_ROWS;
+  const float* src = W + static_cast<size_t>(SLAB_ROWS * sl + r) * D
+                     + 64 * (q / 256) + 8 * ((q % 8) ^ (r % 8));
+  const float4 a = __ldg(reinterpret_cast<const float4*>(src));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(src) + 1);
+  reinterpret_cast<uint4*>(Wp + static_cast<size_t>(blockIdx.y) * K * D)[c] =
+      make_uint4(tc::pack_bf16(a.x, a.y), tc::pack_bf16(a.z, a.w),
+                 tc::pack_bf16(b.x, b.y), tc::pack_bf16(b.z, b.w));
+}
+
+// NSLOT slots of SLAB_BYTES with a full and an empty barrier each.  The
+// block's slab j (0 <= j < total) is slab j % PER of the packed W and lands
+// in slot j % NSLOT, for the (j / NSLOT)-th time: its full barrier's phase
+// of that parity, which thread 0 arms (expect_tx) and the copy engine
+// completes.  Each warp arrives on the slot's empty barrier once its
+// products have read the slab, and thread 0 refills the slot when all
+// eight have.  With CL = 2 (a cluster of two CTAs that walk the same slab
+// sequence) CTA 0's copy engine writes every slab into both CTAs' slots:
+// CTA 1's thread 0 arms its own full barrier once its warps have released
+// the slot and then arrives on CTA 0's empty barrier (a ninth arrival
+// there), so CTA 0 copies into a slot only when both CTAs' readers are
+// done and CTA 1 expects the bytes (it arms the first NSLOT slabs before
+// the cluster syncs).  Thread 0 hands slabs out (pump) whenever it can,
+// never waiting: once after the cluster syncs (refill), then from every
+// take (where warp 0 polls the slab's barrier, so that thread 0 is never
+// put to sleep on it, as mbarrier.try_wait may, while the slab may need
+// its own hand) and give; so no block barrier a slab, and the next
+// product's first slabs come in while this one's last are read.  (Also
+// refilling from the row passes between products ran no faster on the
+// card.)  All threads keep the counters alike.
+template <int NSLOT, int PER, int CL>
+struct SlabRing {
+  uint8_t* slots;
+  uint64_t* full;
+  uint64_t* empty;
+  const uint8_t* w;
+  int total, fetched, taken, given;
+  uint32_t rank;
+
+  // Thread 0 initialises the barriers (CTA 1 of a pair also arms the first
+  // slabs); the caller then syncs the cluster (CL = 2) or the block and
+  // calls refill().
+  __device__ __forceinline__ void init(uint8_t* slots_, uint64_t* bars,
+                                       const void* w_, int total_) {
+    slots = slots_;
+    full = bars;
+    empty = bars + NSLOT;
+    w = static_cast<const uint8_t*>(w_);
+    total = total_;
+    taken = given = 0;
+    rank = CL == 1 ? 0u : tc::cluster_rank();
+    fetched = rank == 0 ? 0 : min(NSLOT, total);
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < NSLOT; ++k) {
+        tc::mbar_init(full + k, 1);
+        tc::mbar_init(empty + k, NWARPS + (CL == 2 && rank == 0));
+      }
+      tc::mbar_fence_init();
+      for (int k = 0; k < fetched; ++k)
+        tc::mbar_expect_tx(full + k, SLAB_BYTES);
+    }
+  }
+  __device__ __forceinline__ void pump() {
+    if (threadIdx.x != 0) return;
+    while (fetched < total) {
+      const int k = fetched % NSLOT;
+      if (!tc::mbar_test(empty + k, ((fetched / NSLOT) & 1) ^ 1)) break;
+      tc::mbar_expect_tx(full + k, SLAB_BYTES);
+      const uint8_t* src = w + static_cast<size_t>(fetched % PER) * SLAB_BYTES;
+      if (CL == 1)
+        tc::bulk_g2s(slots + k * SLAB_BYTES, src, SLAB_BYTES, full + k);
+      else if (rank == 0)
+        tc::bulk_g2s_mcast(slots + k * SLAB_BYTES, src, SLAB_BYTES, full + k,
+                           (1 << CL) - 1);
+      else
+        tc::mbar_arrive_cta(empty + k, 0);  // CTA 0 may copy into the slot
+      ++fetched;
+    }
+  }
+  // pump from code that every thread of the block runs: the warp
+  // reconverges before it goes on, as a block barrier that may follow (an
+  // aligned one) requires.  (Without it, pumping between the products hung
+  // the pair at the first reuse of a slot.)
+  __device__ __forceinline__ void refill() {
+    pump();
+    __syncwarp();
+  }
+  // The shared address of the next slab, once it has landed.
+  __device__ __forceinline__ uint32_t take() {
+    const int k = taken % NSLOT;
+    const uint32_t parity = (taken / NSLOT) & 1;
+    if (threadIdx.x < 32) {            // warp 0 polls: thread 0 pumps
+      while (!tc::mbar_test(full + k, parity)) pump();
+    } else {
+      while (!tc::mbar_try(full + k, parity)) {
+      }
+    }
+    __syncwarp();
+    ++taken;
+    return tc::smem_u32(slots + k * SLAB_BYTES);
+  }
+  // The warp's products have read the oldest slab not given back.
+  __device__ __forceinline__ void give(int lane) {
+    const int k = given % NSLOT;
+    __syncwarp();
+    if (lane == 0) tc::mbar_arrive(empty + k);
+    ++given;
+    pump();
+    __syncwarp();
+  }
+};
+
+// acc (64 x 128, the warpgroup's columns [128 wg, 128 wg + 128)) = A W,
+// with A the 64 x 32 NS bf16 tile at shared address a_addr (K-major, panels
+// of TILE_PANEL) and W's next NS slabs from the ring.  Each warp gives a
+// slab back once the products that read it are done (one slab late, so
+// the tensor cores always have the next one queued).  The loop unrolls, so
+// that the products are not serialised behind a run-time loop.
+template <int NS, typename Ring>
+__device__ __forceinline__ void mma_ring_w(float (&acc)[64], uint32_t a_addr,
+                                           Ring& ring, int wg, int lane) {
+#pragma unroll
+  for (int p = 0; p < NS; ++p) {
+    const uint32_t st = ring.take() + 2 * wg * SLAB_PANEL;
+    tc::fence();
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int ks = 2 * p + q;
+      tc::mma_ss<128, 0, 1>(
+          acc, tc::make_desc(a_addr + (ks / 4) * TILE_PANEL + (ks % 4) * 32,
+                             16),
+          tc::make_desc(st + q * 2 * tc::ATOM_BYTES, SLAB_PANEL),
+          p > 0 || q > 0);
+    }
+    tc::commit();
+    if (p > 0) {
+      tc::wait<1>();
+      ring.give(lane);
+    }
+  }
+  tc::wait<0>();
+  ring.give(lane);
+  tc::fence_regs(acc);
+}
+
+// The most clusters of two CTAs of `kern` (NTHREADS threads, `smem` bytes
+// of dynamic shared memory) the card holds at once; 0 if the card does not
+// say.  The caller keeps it.
+template <typename Kern>
+inline int pair_clusters(Kern kern, int smem) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(2, 1, 1);
+  cfg.blockDim = dim3(NTHREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, kern, &cfg) == cudaSuccess ? n
+                                                                       : 0;
+}
+
+// Launch `kern` on `clusters` clusters of two CTAs (NTHREADS threads,
+// `smem` bytes of dynamic shared memory each) on `stream`.
+template <typename... P, typename... A>
+inline cudaError_t launch_pairs(void (*kern)(P...), int clusters, int smem,
+                                cudaStream_t stream, A&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(2 * clusters, 1, 1);
+  cfg.blockDim = dim3(NTHREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kern, std::forward<A>(args)...);
 }
 
 }  // namespace tvqa

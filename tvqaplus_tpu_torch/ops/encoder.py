@@ -74,8 +74,9 @@ _U32 = ctypes.c_uint
 _TAIL = [_P, _U32, _F, _I, _P, _I, _I, _P]
 # The forward entries take the width D; each width has its own launch count
 # (KERNEL and BLOCK_KERNEL count D = 128, the headline hsz).
-_REDUCE_ARGS = [_P] * 5 + [_I] * 4 + _TAIL
-_BLOCK_ARGS = [_P] * 5 + [_I] * 5 + _TAIL
+# (x, pe, packed, mask, out, the slab scratch wp: widths.slab_scratch)
+_REDUCE_ARGS = [_P] * 6 + [_I] * 4 + _TAIL
+_BLOCK_ARGS = [_P] * 6 + [_I] * 5 + _TAIL
 FWD_BY_WIDTH = {d: CudaKernel("encoder_fwd.cu", "encoder_reduce_fwd",
                               _REDUCE_ARGS) for d in widths.FORWARD_WIDTHS}
 BLOCK_BY_WIDTH = {d: CudaKernel("encoder_fwd.cu", "encoder_block_fwd",
@@ -330,8 +331,10 @@ class _EncoderReduce(torch.autograd.Function):
         packed32, pe32, m32 = _check(x, pe, packed, k, reduce_mask)
         bsz, g, l, d = x.shape
         out = torch.empty((bsz, g, d), dtype=x.dtype, device=x.device)
+        wp = _slabs(x)
         FWD_BY_WIDTH[d].launch(x.device, ptr(x), ptr(pe32), ptr(packed32),
-                               ptr(m32), ptr(out), bsz * g, l, k, d,
+                               ptr(m32), ptr(out), _opt_ptr(wp), bsz * g, l,
+                               k, d,
                                *philox.kernel_args(dropout_rate, seed),
                                *_width_args(dv, None),
                                int(x.dtype == torch.bfloat16), dv=dv)
@@ -345,6 +348,18 @@ class _EncoderReduce(torch.autograd.Function):
         gx, gpacked = encoder_reduce_backward(x, pe, packed, reduce_mask, g,
                                               *ctx.cfg)
         return gx, None, gpacked, None, None, None, None, None
+
+
+def _slabs(x):
+    """The forward's ``wp``: pw0 and pw1 in bf16 slabs (the bf16 kernel at
+    D = 256, ``widths.slab_scratch``), else None."""
+    if x.dtype != torch.bfloat16:
+        return None
+    return widths.slab_scratch("encoder", x.shape[-1], x.device)
+
+
+def _opt_ptr(t):
+    return None if t is None else ptr(t)
 
 
 def _width_args(dv, groups):
@@ -473,8 +488,9 @@ class _EncoderBlock(torch.autograd.Function):
                                      groups=groups)
         bsz, g, l, d = x.shape
         out = torch.empty_like(x)
+        wp = _slabs(x)
         BLOCK_BY_WIDTH[d].launch(x.device, ptr(x), ptr(pe32), ptr(packed32),
-                                 None if m32 is None else ptr(m32), ptr(out),
+                                 _opt_ptr(m32), ptr(out), _opt_ptr(wp),
                                  bsz * g, g, l, k, d,
                                  *philox.kernel_args(dropout_rate, seed),
                                  *_width_args(dv, groups),

@@ -48,9 +48,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U32 = ctypes.c_uint
 # The forward entry takes the width D; each width has its own launch count
 # (KERNEL counts D = 128, the headline hsz).
+# (cn, ce, qn, qe, the masks, gamma, beta, W, bias, targets, mixed, raw,
+# the slab scratch wp: widths.slab_scratch)
 FWD_BY_WIDTH = {d: CudaKernel("qa_ctx_attention_fwd.cu",
                               "qa_ctx_attention_fwd",
-                              [_P] * 13 + [_I] * 6
+                              [_P] * 14 + [_I] * 6
                               + [_F, _P, _U32, _F, _I, _I, _P])
                 for d in widths.FORWARD_WIDTHS}
 KERNEL = FWD_BY_WIDTH[128]
@@ -247,13 +249,19 @@ class _QaCtxAttention(torch.autograd.Function):
         elif raw_mode == "target":
             raw = torch.empty((bsz, li, lqa, lr), dtype=torch.float32,
                               device=dev)
-        if cn.dtype == torch.bfloat16:   # the tensor-core kernels' operand
-            w32 = w32.to(torch.bfloat16)
+        wp = None
+        if cn.dtype == torch.bfloat16:
+            # the tensor-core kernels' operand: W in bf16, which at D = 256
+            # the C entry rounds into its slabs
+            wp = widths.slab_scratch("qa_ctx_attention", d, dev)
+            if wp is None:
+                w32 = w32.to(torch.bfloat16)
         FWD_BY_WIDTH[d].launch(
             dev, ptr(cn), ptr(ce), ptr(qn), ptr(qe), ptr(cm), ptr(qm),
             ptr(g32), ptr(b32), ptr(w32), ptr(bias32),
             ptr(tg) if tg is not None else None, ptr(mixed),
             ptr(raw) if raw is not None else None,
+            ptr(wp) if wp is not None else None,
             bsz, num_a, lqa, li, lr, d, float(scale),
             *philox.kernel_args(dropout_rate, seed), dv,
             int(cn.dtype == torch.bfloat16), dv=dv)

@@ -6,8 +6,11 @@ The three forward families (``csrc/qa_ctx_attention_fwd.cu``,
 parameter and are built for 64, 128 and 256; one C entry per family takes D
 and refuses any other width.  At D = 64 and 128 each bf16 (tensor-core)
 kernel keeps its weight resident in shared memory ("resident"); at D = 256
-it does not fit, so the weight streams through two stages ("streamed",
-``csrc/wgmma.cuh`` ``mma_streamed_w``).
+it does not fit, so the weight streams ("streamed"): the tri bridge's
+through two stages (``csrc/wgmma.cuh`` ``mma_streamed_w``), the encoder's
+and the attention's rounded to bf16 once a call into slabs of 32 rows
+(``slab_scratch``) that the copy engine brings through a ring
+(``SlabRing``), shared by the two CTAs of a cluster.
 
 The three backward families are built for the same widths: at D = 128 the
 tensor-core designs of ``csrc/*_bwd.cu`` (bf16) beside their CUDA-core
@@ -59,6 +62,13 @@ ENC256_KP, ENC256_NST, ATT256_NST, ATT256_OWN = 32, 4, 5, 3
 # use at a time (three of their own; s and v's room during y1, yd's past
 # g_y1 during g_yd), at most TRI256_AHEAD in flight
 TRI256_SLOTS, TRI256_RING, TRI256_AHEAD, TRI256_SLAB = 11, 7, 6, 16384
+# the bf16 forwards of the encoder and the attention at D = 256
+# (csrc/encoder_fwd.cu EncWide, csrc/qa_ctx_attention_fwd.cu AttnWide): W in
+# slabs of SLAB_ROWS rows x 256 columns (SLAB_BYTES) through a ring of
+# ENC256_FWD_SLOTS / ATT256_FWD_SLOTS slots (csrc/wgmma.cuh SlabRing), a
+# cluster of CLUSTER CTAs sharing each slab
+SLAB_ROWS, SLAB_BYTES, CLUSTER = 32, 16384, 2
+ENC256_FWD_SLOTS, ATT256_FWD_SLOTS = 7, 4
 
 
 MAX_WIDTH = 256
@@ -148,9 +158,11 @@ def tc_smem_bytes(family, d):
     w_bytes = panels * 3 * d * _ROW
     if family == "qa_ctx_attention":
         yd = 3 * panels * tile_panel
-        if d == 256:      # AttnWide: qn, qe, yd, 2 stages of 32 rows, ...
-            return (2 * tile + yd + 2 * _stage(d, 32) + _TM * 4 + d * 4
-                    + 2 * _TM * 2 * 4 + _ATOM)
+        if d == 256:      # AttnWide: qn, qe, yd (cn, p and the softmax's
+            # sums first), the ring, its barriers, the LN sums, qm
+            slots = ATT256_FWD_SLOTS
+            return (2 * tile + yd + slots * SLAB_BYTES + 2 * slots * 8
+                    + 2 * _TM * 2 * 4 + _TM * 4 + _ATOM)
         return w_bytes + 2 * tile + 2 * yd + (_TM + d) * 4 + _ATOM
     if family == "tri_bridge":   # TriTc
         head = 2 * _stage(d, 32) if d == 256 else w_bytes
@@ -158,13 +170,29 @@ def tc_smem_bytes(family, d):
         return (head + bufs * 2 * tile + 3 * panels * tile_panel
                 + 2 * 2 * _TM * 2 * 4 + 9 * d * 4 + _ATOM)
     if family == "encoder":
-        if d == 256:      # EncWide: R1, x, c, 2 stages of 64 rows, ...
-            return (_TM * d * 4 + 2 * tile + 2 * _stage(d, 64)
-                    + 2 * _TM * 2 * 4 + 2 * 2 * _TM * 4 + _ATOM)
+        if d == 256:      # EncWide: R1, c (and x), the ring, its
+            # barriers, the row sums, v and m twice
+            slots = ENC256_FWD_SLOTS
+            return (_TM * d * 4 + tile + slots * SLAB_BYTES
+                    + 2 * slots * 8 + 2 * _TM * 2 * 4 + 2 * 2 * _TM * 4
+                    + _ATOM)
         pw = panels * d * _ROW                       # EncTc
         return (2 * pw + _TR * d * 4 + panels * _TR * _ROW
                 + 2 * 2 * _TR * 4 + _ATOM)
     raise ValueError(f"unknown kernel family {family!r}")
+
+
+def slab_scratch(family, d, device):
+    """The bf16 buffer a bf16 forward of ``family`` at width ``d`` rounds
+    its weight into once a call (its C entry's ``wp``): at D = 256 the
+    encoder's pw0 and pw1 (2 x 256 rows), the attention's W (768 rows), in
+    slabs of SLAB_ROWS rows; None where the kernel takes no slabs."""
+    import torch
+    check_forward_width(family, d)
+    rows = {"encoder": 2 * d, "qa_ctx_attention": 3 * d}.get(family)
+    if d != 256 or rows is None:
+        return None
+    return torch.empty(rows * d, dtype=torch.bfloat16, device=device)
 
 
 def f32_smem_bytes(family, d):

@@ -139,7 +139,8 @@ class Mesh:
 def init_distributed(coordinator_address, num_processes, process_id,
                      local_device_ids=None, device="cuda"):
     """Join a run of ``num_processes`` processes (JAX mesh.py:70-77):
-    ``init_process_group`` over ``tcp://coordinator_address`` (host:port)
+    ``init_process_group`` over ``tcp://coordinator_address`` (host:port;
+    an address with a scheme, such as a ``file://`` store, as it is)
     with NCCL for ``device`` ``cuda``, gloo for ``cpu``.  Returns this
     process's device: ``cuda:local_device_ids[0]``, else ``cuda:LOCAL_RANK``
     (0 when unset), or the CPU.  Idempotent: a second call returns the
@@ -166,7 +167,8 @@ def init_distributed(coordinator_address, num_processes, process_id,
     # device_id (NCCL): the communicator is made here, before any step
     # could be captured in a CUDA graph
     dist.init_process_group(
-        backend, init_method=f"tcp://{coordinator_address}",
+        backend, init_method=coordinator_address
+        if "://" in coordinator_address else f"tcp://{coordinator_address}",
         world_size=num_processes, rank=process_id,
         device_id=dev if dev_type == "cuda" else None)
     return dev
