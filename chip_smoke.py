@@ -35,7 +35,9 @@ toolkit.  Phases, each printing one JSON line:
              the encoder at the other hidden widths they are built for (D =
              64 and 256, ops/widths.py), at the headline shapes otherwise:
              against their plain versions in float32 and bfloat16, dropout 0
-             and 0.1, and timed as in 3; their launches are phase 9w's.
+             and 0.1, and timed as in 3; their launches are phase 9w's.  The
+             tri bridge's forward at dropout 0.1 (a train step's) is a row
+             of its own, its launches the train path's (phase 9t).
 4. kernels (training) - each forward kernel with dropout 0.1 (the vid
              attention site in raw mode "target") and each backward kernel
              at the headline training shapes, against the plain version
@@ -744,6 +746,21 @@ def phase_kernels(dev, d=D, rates=(0.0,), dnames=("float32", "bfloat16")):
         emit({"phase": "kernel" if d == D else "kernel_width", "ok": True,
               **{k: v for k, v in row.items() if k != "_key"}})
         rows.append(row)
+        if d != D and case.key == "tri_bridge" and len(rates) > 1:
+            # the dropout variant a train step at this width launches: a
+            # row of its own, its launches the train path's
+            kwd = {**kw, "dropout_rate": rates[1], "seed": DROP_SEED}
+            drow = {**{k: v for k, v in row.items()
+                       if not k.endswith("_dropout") and "f32" not in k},
+                    "name": f"{case.name[:-1]}, dropout {rates[1]}]",
+                    "max_abs_err": errs["bfloat16", rates[1]],
+                    "ms": row["ms_dropout"],
+                    "plain_ms": time_ms(lambda: case.plain(*a, **kwd)),
+                    "_train": True}
+            emit({"phase": "kernel_width", "ok": True,
+                  **{k: v for k, v in drow.items()
+                     if k not in ("_key", "_train")}})
+            rows.append(drow)
     return rows
 
 
@@ -1093,20 +1110,34 @@ def profile_steps(step, n, window=None):
                                             by_name.items()}
 
 
+def profiled_window(step, n):
+    """``profile_steps`` over ``n`` steps with the profiled window's own
+    host ms a step and the device's idle share against it: busy and host
+    time from one window (against the turns' step ms, another window, a
+    busy time longer than it read a share below 0).  Returns (busy ms,
+    launches, top kernels, names, window ms, idle share)."""
+    window = []
+    busy_ms, per_step, top, names = profile_steps(step, n, window)
+    idle = None if busy_ms is None else 1 - busy_ms / window[0]
+    return busy_ms, per_step, top, names, window[0], idle
+
+
 def check_tc_forwards(step, names, merged, d=D):
     """The bf16 step's trace shows the tensor-core forwards at width ``d``
     (the encoder's cls_encoder at k 5, on the merged path the input encoder
     at k 7 too, and the tri bridge) and no CUDA-core forward of the encoder
     or the tri bridge; returns the tensor-core forwards' names."""
     tc = sorted(nm for nm in names
-                if "encoder_fwd_tc_" in nm or "tri_bridge_fwd_tc_kernel" in nm)
+                if "encoder_fwd_tc_" in nm or "tri_bridge_fwd_tc" in nm)
     old = sorted(nm for nm in names if "encoder_fwd_kernel" in nm
                  or "tri_bridge_fwd_kernel" in nm)
-    # the instantiations <D, k>; D = 256 has its own kernel, <k>
+    # the instantiations <D, k>; D = 256 has its own kernels, the
+    # encoder's <k> and the tri bridge's <DROP>
     enc = "encoder_fwd_tc_wide_kernel<" if d == 256 \
         else f"encoder_fwd_tc_kernel<{d},"
-    want = [f"{enc}5>", f"tri_bridge_fwd_tc_kernel<{d}>"] + \
-        [f"{enc}7>"] * merged
+    tri = "tri_bridge_fwd_tc256_kernel<" if d == 256 \
+        else f"tri_bridge_fwd_tc_kernel<{d}>"
+    want = [f"{enc}5>", tri] + [f"{enc}7>"] * merged
     flat = [nm.replace(" ", "") for nm in tc]
     missing = [w for w in want if not any(w in nm for nm in flat)]
     if missing or old:
@@ -1178,8 +1209,8 @@ def phase_serving(dev, cfg, sd):
     for name in ("serving", "merged_serving", "serving_graph",
                  "merged_serving_graph"):
         step_ms, turns = clock[name]
-        busy_ms, launches, top, names = profile_steps(steps[name],
-                                                      PROFILE_STEPS)
+        busy_ms, launches, top, names, window_ms, idle = profiled_window(
+            steps[name], PROFILE_STEPS)
         merged = name.startswith("merged")
         tc_fwd = check_tc_forwards(name, names, merged)
         extra = out[name] if not name.endswith("_graph") else {
@@ -1191,8 +1222,7 @@ def phase_serving(dev, cfg, sd):
               "compute_dtype": "bfloat16", "steps": SERVING_STEPS,
               "qa_pairs_per_s": B / (step_ms / 1e3), "step_ms": step_ms,
               "step_ms_turns": turns, **extra, "device_busy_ms": busy_ms,
-              "device_idle_share": None if busy_ms is None
-              else 1 - busy_ms / step_ms,
+              "profiled_step_ms": window_ms, "device_idle_share": idle,
               "launches_per_step": launches, "tc_forwards": tc_fwd,
               "top_kernels": top})
 
@@ -1238,20 +1268,21 @@ def serve_steps(dev, models):
 def serve_step_rows(steps):
     """A row for each step of ``steps`` ({name: step}): host ms a step
     over ``SERVING_STEPS`` steps in turns (``timed_steps``), QA/s, and from
-    ``PROFILE_STEPS`` profiled steps the device's busy ms, the idle share,
+    ``PROFILE_STEPS`` profiled steps the device's busy ms, the window's own
+    host ms a step and the idle share against it (``profiled_window``),
     the launches in the trace, the top kernels and every kernel's name
     ("names")."""
     clock = timed_steps(steps, SERVING_STEPS)
     rows = {}
     for name, step in steps.items():
         step_ms, turns = clock[name]
-        busy_ms, per_step, top, names = profile_steps(step, PROFILE_STEPS)
+        busy_ms, per_step, top, names, window_ms, idle = profiled_window(
+            step, PROFILE_STEPS)
         rows[name] = {
             "hsz": int(name[3:name.index("_")]), "step_ms": step_ms,
             "step_ms_turns": turns, "qa_pairs_per_s": B / (step_ms / 1e3),
-            "device_busy_ms": busy_ms,
-            "device_idle_share": None if busy_ms is None
-            else 1 - busy_ms / step_ms,
+            "device_busy_ms": busy_ms, "profiled_step_ms": window_ms,
+            "device_idle_share": idle,
             "launches_per_step": per_step, "top_kernels": top[:6],
             "names": names}
     return rows
@@ -1328,8 +1359,9 @@ def phase_wide_serving(dev, workdir, cfg, sd):
 
 # the kernels a train step at a width other than 128 must show in its trace
 # (bf16): the backwards of csrc/*_bwd_wide.cu and encoder_bwd_tc_wide.cu,
-# all on the tensor cores (the attention's and its gq kernel at D = 64 and
-# the tri bridge's at 256 of their own design), and their tensor-core
+# all on the tensor cores (the attention's and its gq kernel and the
+# encoder's at D = 64 and the tri bridge's at 256 of their own design),
+# and their tensor-core
 # weight gradient (wgrad_tc.cuh, shared by every width: its width is an
 # argument, its column tile 64 at D = 64 and 128 above); and the D = 128
 # kernels it must not show (forwards and backwards, both instantiations)
@@ -1339,8 +1371,9 @@ def wide_bwd_trace(d):
             "tri_bridge_bwd_tc256_kernel") if d == 256 else
            ("qa_ctx_bwd_tc64_kernel<", "qa_ctx_gq_tc64_kernel",
             f"tri_bridge_bwd_tc_wide_kernel<{d}>"))
-    return att + (f"encoder_bwd_tc_wide_kernel<5,{d}>",
-                  f"wgrad_tc_kernel<{64 if d == 64 else 128}>")
+    enc = "encoder_bwd_tc64_kernel<5>" if d == 64 \
+        else f"encoder_bwd_tc_wide_kernel<5,{d}>"
+    return att + (enc, f"wgrad_tc_kernel<{64 if d == 64 else 128}>")
 
 
 D128_TRACE = ("qa_ctx_fwd_tc_kernel<128,", "tri_bridge_fwd_tc_kernel<128>",
@@ -3614,7 +3647,9 @@ def main():
     for row in train_rows:
         row["launches"] = train_launches[row.pop("_key")]
     for row in width_rows:       # the runs of phase wide_serving
-        row["launches"] = wide_launches[row.pop("_key")]
+        # (a dropout row: the CLI runs of phase wide_training)
+        row["launches"] = (wide_train_launches if row.pop("_train", False)
+                           else wide_launches)[row.pop("_key")]
     for row in width_train_rows:     # the CLI runs of phase wide_training
         row["launches"] = wide_train_launches[row.pop("_key")]
     emit({"kernels": rows + width_rows + train_rows + width_train_rows})

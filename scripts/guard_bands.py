@@ -16,10 +16,13 @@ exits 1 if any band, output or input is wrong.  ``--edges`` runs instead
 the bf16 backwards of their own designs at the edges of their layouts
 (``EDGES``: at D = 256 the encoder at L 56 / k 9, L 5 / k 1 and 40 / k 5
 over more tiles than SMs, reduce and full output, the attention at M 1,
-65 and 200 with Lr 1, 33 and 64, the tri bridge at 100 rows and at 20,655
-(more tiles than SMs, its ring run on into the next tile); the attention
-at D = 64 at M 1, 65 and 200 with Lr 1, 33 and 64), where a tile is
-ragged, a ring runs on into the next tile or p0 fills its room.  A kernel's
+65 and 200 with Lr 1, 33 and 64, the tri bridge at 1, 65, 100 and 129
+rows and at 20,655 (more tiles than SMs, its rings run on into the next
+tile; the forward's last pair of tiles ragged or half empty); at D = 64
+the attention at M 1, 65 and 200 with Lr 1, 33 and 64 and the encoder
+at L 56 / k 9, L 5 / k 1 (12 sequences a tile) and 40 / k 5 over more
+tiles than two a SM, reduce and full output), where a tile is ragged, a
+ring runs on into the next tile or p0 fills its room.  A kernel's
 addressing
 depends only on its shapes and pointers, so a call captured in a CUDA graph
 writes where the eager call writes.
@@ -111,7 +114,13 @@ EDGES = [("encoder", (1, 7, 56, 9, "reduce")), ("encoder", (1, 7, 5, 1,
          ("attention", (1, 1, 1, "none")), ("attention", (5, 13, 33,
                                                           "target")),
          ("attention", (5, 40, 64, "target")),
-         ("tri", (100,)), ("tri", (20655,)),
+         ("tri", (1,)), ("tri", (65,)), ("tri", (100,)), ("tri", (129,)),
+         ("tri", (20655,)),
+         ("encoder64", (1, 7, 56, 9, "reduce")),
+         ("encoder64", (2, 6, 5, 1, "block")),
+         ("encoder64", (2, 200, 40, 5, "reduce")),
+         ("encoder64", (2, 200, 40, 5, "block")),
+         ("encoder64", (1, 7, 50, 7, "block")),
          ("attention64", (1, 1, 1, "none")),
          ("attention64", (5, 13, 33, "full")),
          ("attention64", (5, 40, 64, "target"))]
@@ -119,12 +128,13 @@ EDGES = [("encoder", (1, 7, 56, 9, "reduce")), ("encoder", (1, 7, 5, 1,
 
 def edge_call(dev, family, shape):
     """Forward + backward of one EDGES case in bf16 (D = 64 for
-    "attention64", else 256), dropout 0.1, on inputs made from a seed: as
-    ``run``."""
+    "attention64" and "encoder64", else 256), dropout 0.1, on inputs made
+    from a seed: as ``run``."""
     from tvqaplus_tpu_torch.models.attention import l2_normalize
     from tvqaplus_tpu_torch.ops import encoder, qa_ctx_attention, tri_bridge
     gen = torch.Generator().manual_seed(25)
-    d, bf = (64 if family == "attention64" else 256), torch.bfloat16
+    d, bf = (64 if family.endswith("64") else 256), torch.bfloat16
+    family = family.replace("encoder64", "encoder")
 
     def rnd(*s, scale=1.0):
         return torch.randn(*s, generator=gen) * scale
@@ -218,7 +228,7 @@ def main():
         ok = bad == 0 and same_in and same_out
         failed += not ok
         print(json.dumps({"edge": family, "shape": shape,
-                          "width": 64 if family == "attention64" else 256,
+                          "width": 64 if family.endswith("64") else 256,
                           "banded_buffers": n_bufs, "bands_broken": bad,
                           "same_bits_as_unbanded": same_out,
                           "inputs_unchanged": same_in, "ok": ok}), flush=True)

@@ -1,11 +1,15 @@
 """Where a block's time goes in the bf16 backward kernels at D = 256
 (``csrc/qa_ctx_attention_bwd_wide.cu`` ``qa_ctx_bwd_tc_wide_kernel``,
 ``csrc/encoder_bwd_tc_wide.cu``'s ``Enc256`` kernel and
-``csrc/tri_bridge_bwd_wide.cu``'s kernel at 256), or with ``--forward`` in
-the bf16 forwards of the encoder and the attention at D = 256
-(``encoder_fwd_tc_wide_kernel``, ``qa_ctx_fwd_tc_wide_kernel``), phase by
-phase, from ``clock64()`` stamps in a copy of the sources; and what parts
-of them cost, from copies with those parts taken out.
+``csrc/tri_bridge_bwd_wide.cu``'s kernel at 256) and in the encoder's at
+D = 64 (``--width 64 --families encoder,encoder_block``: ``Enc64``, or a
+parent tree's ``EncTcW``), or with ``--forward`` in the bf16 forwards at
+D = 256 of the encoder, the attention and the tri bridge
+(``encoder_fwd_tc_wide_kernel``, ``qa_ctx_fwd_tc_wide_kernel``,
+``tri_bridge_fwd_tc256_kernel``, or a parent tree's
+``tri_bridge_fwd_tc_kernel<256>``), phase by phase, from ``clock64()``
+stamps in a copy of the sources; and what parts of them cost, from copies
+with those parts taken out.
 
     python3 scripts/phase_split.py [--width D] [--ablations] [--families F,..]
     python3 scripts/phase_split.py --forward [--ablations] [--families F,..]
@@ -49,14 +53,33 @@ from torch.profiler import ProfilerActivity, profile
 ATT, ENC = "qa_ctx_attention_bwd_wide.cu", "encoder_bwd_tc_wide.cu"
 TRI = "tri_bridge_bwd_wide.cu"
 TRI_TWICE = TRI + "@g_yd twice"     # the tri bridge before its redesign
+# the encoder's D = 64 kernel (a key of its own: the source holds the
+# D = 256 kernel too), and its design before the redesign
+ENC64 = ENC + "@64"
+ENC64_COLS = ENC + "@64 columns split"
 SOURCE_OF = {"qa_ctx_attention": ATT, "encoder": ENC, "encoder_block": ENC,
              "tri_bridge": TRI}
+SOURCE_OF_64 = {"encoder": ENC64, "encoder_block": ENC64}
 ENC_FWD, ATT_FWD = "encoder_fwd.cu", "qa_ctx_attention_fwd.cu"
+TRI_FWD = "tri_bridge_fwd.cu"
+TRI_FWD_STREAMED = TRI_FWD + "@W streamed"  # before its redesign
 FWD_SOURCE_OF = {"qa_ctx_attention": ATT_FWD, "encoder": ENC_FWD,
-                 "encoder_block": ENC_FWD}
+                 "encoder_block": ENC_FWD, "tri_bridge": TRI_FWD}
 # a source's designs, newest first: the first whose kernel start occurs in
 # the text is the one stamped
-VARIANTS = {ATT: (ATT,), ENC: (ENC,), TRI: (TRI, TRI_TWICE)}
+VARIANTS = {ATT: (ATT,), ENC: (ENC,), TRI: (TRI, TRI_TWICE),
+            ENC64: (ENC64, ENC64_COLS), TRI_FWD: (TRI_FWD, TRI_FWD_STREAMED)}
+
+
+def source_file(src):
+    """The file of a source key (``ENC64`` names a kernel of ``ENC``)."""
+    return src.split("@")[0]
+
+
+def tag(src):
+    """A source key as a build name."""
+    return source_file(src)[:-3] + src[len(source_file(src)):].replace(
+        "@", " ")
 # the kernel a design's stamps go into: from this line to its closing "}"
 # (the forwards' from the slab parameter, which only the D = 256 kernel
 # of each has)
@@ -65,7 +88,11 @@ KERNEL_START = {ATT: "  using S = AttTcWide<LRP>;\n",
                 TRI: "  using S = Tri256;\n",
                 TRI_TWICE: "  using S = TriBwdTc<D>;\n  constexpr int NF",
                 ENC_FWD: " " * 27 + "const __nv_bfloat16* __restrict__ wp,\n",
-                ATT_FWD: " " * 26 + "const __nv_bfloat16* __restrict__ wp,\n"}
+                ATT_FWD: " " * 26 + "const __nv_bfloat16* __restrict__ wp,\n",
+                ENC64: "  using S = Enc64;\n",
+                ENC64_COLS: "  using S = EncTcW<D>;\n",
+                TRI_FWD: "  using S = TriFwd256;\n",
+                TRI_FWD_STREAMED: "  using S = TriTc<D>;\n"}
 PHASES = {
     ATT: ("frame", "stage", "keep bits", "scores, softmax", "LN stats",
           "pass A rows", "pass B rows", "g_att, g_p, softmax bwd, gcn",
@@ -83,6 +110,19 @@ PHASES = {
               "final LN, out", "end"),
     ATT_FWD: ("setup", "frame, cn", "scores, softmax, p", "att product",
               "LN, keep bits, yd", "projection", "out", "end"),
+    ENC64_COLS: ("setup", "tile head", "LN fwd", "conv", "c tile barrier",
+                 "c pw", "g_y tile", "g_y pw^T", "t tile", "g_c to R1",
+                 "dw grad, L2 sums", "g_t", "LN bwd", "cotangent",
+                 "h stash (L2)", "gx out", "block sums"),
+    TRI_FWD_STREAMED: ("setup", "keep bits, s and v", "LN_in stats",
+                       "yd tile", "W stream, y1", "LN_out stats",
+                       "out rows"),
+    ENC64: ("setup", "tile head", "LN fwd", "conv", "c pw", "g_y pw^T",
+            "g_c to R1", "column pass: dw grad, g_t", "g_t read", "LN bwd",
+            "cotangent", "gx out", "block sums"),
+    TRI_FWD: ("setup", "keep bits", "s and v wait", "LN_in stats",
+              "first fragments", "slabs: products, fragments",
+              "LN_out stats", "out rows"),
 }
 # (text before, text after, indent, phase): the stamp goes between the two
 # texts, whose join occurs once in the kernel; phase None is the clock's
@@ -187,6 +227,88 @@ STAMPS.update({
         ("  tc::cluster_sync();                  // no CTA leaves while its "
          "pair copies\n", "", 2, 7),
     ],
+    ENC64_COLS: [
+        ("  drop.load_seed();\n", "", 2, None),
+        ("", "  int xround = 0;\n", 2, 0),
+        ("    __syncthreads();\n", "\n    // h0 = x + pe", 4, 1),
+        ("", "    };\n    // c = depthwise_i(t of R1", 6, 2),
+        ("", "    };\n    // y = c pw_i + pwb_i on", 6, 3),
+        ("      __syncthreads();                 // the c tile is whole\n", "",
+         6, 4),
+        ("      enc_fwd_mma<D>(acc, r2, pw + i * D * D, w_s, wg, i);\n", "",
+         6, 5),
+        ("", "      enc_bwd_mma<D>(acc, gy_s, pw + i * D * D, w_s, wg, i);\n",
+         6, 6),
+        ("      enc_bwd_mma<D>(acc, gy_s, pw + i * D * D, w_s, wg, i);\n", "",
+         6, 7),
+        ("            tc::pack_bf16(tt.x, tt.y);\n      }\n", "", 6, 8),
+        ("      __syncthreads();\n",
+         "      // column cd over the tile's sequences", 6, 9),
+        ("      dsum[MAX_K * D] += gdwb;\n", "", 6, 10),
+        ("        acc[2 * pr + 1] = a.y;\n      }\n",
+         "    };\n    // LayerNorm backward", 6, 11),
+        ("", "    };\n    auto from_r3 = [&]", 6, 12),
+        ("", "    ln_bwd([&](int pr) { return make_float2(hv[2 * pr], "
+         "hv[2 * pr + 1]); },\n           ga, P.lnf_s()", 4, 13),
+        ("      r3[pr * NTHREADS + tid] = make_float2(hv[2 * pr], "
+         "hv[2 * pr + 1]);\n", "    __syncthreads();                   "
+         "// R1's readers (the conv)", 4, 14),
+        ("      r3[pr * NTHREADS + tid] = make_float2(hv[2 * pr], "
+         "hv[2 * pr + 1]);\n", "    ln_to_r1(hv, P.ln_s(0)", 4, 14),
+        ("    }\n", "  }\n\n  // ---- the block's parameter-vector", 4, 15),
+        ("  }\n", "}\n", 2, 16),
+    ],
+    ENC64: [
+        ("  drop.load_seed();\n", "", 2, None),
+        ("", "  const int tiles = (N + nseq - 1) / nseq;\n", 2, 0),
+        ("    wg_sync();                         // v and m\n", "", 4, 1),
+        ("", "    };\n    // two threads a column: column cd", 6, 2),
+        ("", "    };\n    // y = c pw_i + pwb_i in acc (c the C tile", 6, 3),
+        ("", "    };\n    // g_y = g (y > 0) rounded to bf16 (A from "
+         "registers, rows out), then", 6, 4),
+        ("      tc::fence_regs(acc);\n", "    };\n    // acc (g_c) into R1",
+         6, 5),
+        ("      wg_sync();                       // g_c is whole\n", "", 6,
+         6),
+        ("      dsum[MAX_K * D] += gdwb;\n", "", 6, 7),
+        ("        acc[2 * pr + 1] = a.y;\n      }\n",
+         "    };\n    // LayerNorm backward", 6, 8),
+        ("", "    };\n    auto from_h = [&]", 6, 9),
+        ("", "    if (wlive) {\n      ln_bwd([&](int pr) { return "
+         "make_float2(hv[2 * pr], hv[2 * pr + 1]); },", 4, 10),
+        ("      }\n    }\n", "  }\n\n  // ---- the block's parameter-vector "
+         "partials, written once", 4, 11),
+        ("  }\n", "}\n", 2, 12),
+    ],
+    TRI_FWD: [
+        ("  if (DROP) drop.load_seed();\n", "", 2, None),
+        ("", "  for (int j = 0; j < passes; ++j) {\n", 2, 0),
+        ("", "    tc::cp_async_wait<0>();\n    tc::bar_sync(1 + wg, 128);"
+         "         // this tile's s and v\n", 4, 1),
+        ("    tc::bar_sync(1 + wg, 128);         // this tile's s and v\n",
+         "", 4, 2),
+        ("", "    // the A fragments of slab p", 4, 3),
+        ("    build(0, fa[0]);\n", "", 4, 4),
+        ("    tc::fence_regs(acc[1]);\n", "", 4, 5),
+        ("", "#pragma unroll\n    for (int hf = 0; hf < 2; ++hf)\n#pragma "
+         "unroll\n      for (int pr = 0; pr < 32; ++pr) {", 4, 6),
+        ("    tc::bar_sync(1 + wg, 128);         // the output tile is read\n",
+         "", 4, 7),
+    ],
+    TRI_FWD_STREAMED: [
+        ("  drop.load_seed();\n", "", 2, None),
+        ("", "  int buf = 0;\n", 2, 0),
+        ("    tc::fence_async_smem();            // W (first tile) is read "
+         "by wgmma\n    __syncthreads();\n", "", 4, 1),
+        ("    tri_ln_in_stats<D>(s_s, v_s, ex_s, mean, istd, wg, rl, lane, "
+         "drop.inv3);\n", "", 4, 2),
+        ("    __syncthreads();                   // the yd tile is whole\n",
+         "", 4, 3),
+        ("      mma_streamed_w<D, 3 * D, S::KP>(acc, tc::smem_u32(yd_s), W, "
+         "w_s, wg);\n", "", 6, 4),
+        ("                        lane, drop.inv1);\n", "", 4, 5),
+        ("            tc::pack_bf16(o[0], o[1]);\n    }\n", "  }\n}\n", 4, 6),
+    ],
     ATT_FWD: [
         ("  drop.load_seed();\n", "", 2, None),
         ("", "  int loaded = -1;", 2, 0),
@@ -263,6 +385,47 @@ FWD_ABLATIONS = {
              "is in flight\n        tc_keep_bits<16, true>(",
              "      if (false)\n        tc_keep_bits<16, true>(")],
     },
+}
+# The tri bridge forward at D = 256 before its redesign with W resident
+# (the product reads the first stage as it stands; no stage streamed):
+# the time of everything but W's stream.
+TRI_FWD_RESIDENT = (
+    "{\n"
+    "        const uint32_t st0 = tc::smem_u32(w_s)"
+    " + 2 * wg * (S::KP * tc::ROW_BYTES);\n"
+    "        tc::fence();\n"
+    "#pragma unroll\n"
+    "        for (int ks = 0; ks < 48; ++ks)\n"
+    "          tc::mma_ss<128, 0, 1>(acc, tc::make_desc(tc::smem_u32(yd_s)"
+    " + (ks / 4) * TILE_PANEL + (ks % 4) * 32, 16),"
+    " tc::make_desc(st0 + (ks % 2) * 2 * tc::ATOM_BYTES,"
+    " S::KP * tc::ROW_BYTES), ks > 0);\n"
+    "        tc::commit();\n        tc::wait<0>();\n"
+    "        tc::fence_regs(acc);\n      }\n")
+# The redesigned tri bridge forward at D = 256 with one part taken out
+# (its results wrong): W resident (no slab copied or waited for: the
+# products read slot 0 as it stands), no products (the slabs still come and
+# go), no keep bits (the dropout's draws).
+FWD_ABLATIONS[TRI_FWD] = {
+    "W resident": [
+        ("wp, passes * PER);\n", "wp, 0);\n"),
+        ("      const uint32_t st = ring.take();\n",
+         "      const uint32_t st = tc::smem_u32(sm + S::O_RING);\n"),
+        ("      tc::wait<0>();                   // slab p's products are "
+         "done\n      ring.give(lane);\n",
+         "      tc::wait<0>();\n")],
+    "no products": [
+        ("        for (int hf = 0; hf < 2; ++hf)\n          tc::mma_rs<128, 1>(",
+         "        for (int hf = 0; hf < 2 * 0; ++hf)\n"
+         "          tc::mma_rs<128, 1>(")],
+    "no keep bits": [
+        ("    if constexpr (DROP) {\n      long long row[2];",
+         "    if constexpr (false) {\n      long long row[2];")],
+}
+FWD_ABLATIONS[TRI_FWD_STREAMED] = {
+    "W resident": [
+        ("      mma_streamed_w<D, 3 * D, S::KP>(acc, tc::smem_u32(yd_s), W, "
+         "w_s, wg);\n", "      " + TRI_FWD_RESIDENT)],
 }
 # The attention's g_yd loop with one part taken out, (old, new) edits of
 # its kernel: the tensor-core wait after each slab (one wait at the end of
@@ -379,7 +542,7 @@ def build_copies(build, copies):
     for name, src, text in copies:
         path = os.path.join(out_dir, name.replace(" ", "_") + ".cu")
         with open(path, "w") as f:
-            f.write(DEFS + f'#line 1 "{src}"\n' + text)
+            f.write(DEFS + f'#line 1 "{source_file(src)}"\n' + text)
         lib = path[:-3] + ".so"
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", build.CSRC, "-o", lib,
                path]
@@ -401,7 +564,7 @@ def use_library(build, src, path):
     the library."""
     lib = ctypes.CDLL(path)
     for kernel in build.KERNELS:
-        if kernel.source == src:
+        if kernel.source == source_file(src):
             fn = getattr(lib, kernel.symbol)
             fn.argtypes, fn.restype = kernel.argtypes, ctypes.c_int
             kernel._fn = fn
@@ -446,6 +609,8 @@ def main():
         for case in cs.kernel_cases(dev, d):
             if case.key not in families or "no mask" in case.name:
                 continue
+            if case.key == "tri_bridge" and d != 256:
+                continue
             a, kw = case.args(torch.bfloat16)
             for rate in (0.0, cs.P_DROP):
                 kwr = {**kw, "dropout_rate": rate, "seed": cs.DROP_SEED}
@@ -460,30 +625,32 @@ def main():
         ins, leaves = cs._leaves(a, case.diff)
         outs = cs._outputs(case.kernel(*ins, **kw))
         cots = [torch.ones_like(o) for o in outs]
-        src = SOURCE_OF[case.key]
+        src = (SOURCE_OF_64 if d == 64 else {}).get(case.key,
+                                                    SOURCE_OF[case.key])
         calls[case.name] = (src, lambda o=outs, l=leaves, c=cots:
                             torch.autograd.grad(o, l, c, retain_graph=True))
     own = {name: device_ms(fn) for name, (_, fn) in calls.items()}
     texts = {}
     srcs = sorted({src for src, _ in calls.values()})
     for src in srcs:
-        with open(os.path.join(build.CSRC, src)) as f:
+        with open(os.path.join(build.CSRC, source_file(src))) as f:
             texts[src] = f.read()
-    copies = [(f"stamped {src[:-3]}", src, stamped(texts[src], src))
+    copies = [(f"stamped {tag(src)}", src, stamped(texts[src], src))
               for src in srcs]
     ablations = {}
     if "--ablations" in args:
-        tables = [(ATT, ABLATIONS), (TRI, TRI_ABLATIONS)] if not forward \
-            else list(FWD_ABLATIONS.items())
-        for src, table in tables:
-            if src in texts and variant(texts[src], src) == src:
-                for name, edits in table.items():
-                    name = f"{name} ({src[:-3]})" if forward else name
-                    ablations[name] = src
-                    copies.append((name, src,
-                                   edit_kernel(texts[src], src, edits)))
+        # by design: a table applies to the design the tree holds
+        tables = {ATT: ABLATIONS, TRI: TRI_ABLATIONS} if not forward \
+            else FWD_ABLATIONS
+        for src in srcs:
+            design = variant(texts[src], src)
+            for name, edits in tables.get(design, {}).items():
+                name = f"{name} ({tag(design)})" if forward else name
+                ablations[name] = src
+                copies.append((name, src,
+                               edit_kernel(texts[src], design, edits)))
     libs = build_copies(build, copies)
-    readers = {src: use_library(build, src, libs[f"stamped {src[:-3]}"])
+    readers = {src: use_library(build, src, libs[f"stamped {tag(src)}"])
                .tvqa_phase_read for src in srcs}
     buf = (ctypes.c_ulonglong * 32)()
     for name, (src, fn) in calls.items():

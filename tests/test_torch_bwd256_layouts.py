@@ -18,7 +18,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(encoder.__file__))), "csrc")
 # the device constants the layouts name (csrc/wgmma.cuh, common.cuh)
 ENV = {"TM": 64, "TILE_PANEL": 64 * 128, "ATOM_BYTES": 1024, "NWARPS": 8,
-       "NTHREADS": 256, "MAX_K": 9}
+       "NTHREADS": 256, "MAX_K": 9, "ROW_BYTES": 128}
 
 
 def struct_constants(source, name, **env):
@@ -85,17 +85,19 @@ def test_the_attention_layout_is_the_source_s_and_fits(lrp, lr):
 @pytest.mark.parametrize("n,length,k", [(4000, 40, 5), (1680, 50, 7),
                                         (7, 25, 3), (7, 5, 1), (200, 56, 9)])
 def test_the_encoder_wrapper_s_launch_at_256(n, length, k):
-    """At D = 256 the wrapper packs four matrices and gives each block only
-    its slot of parameter sums (nothing of a tile in L2); at D = 64 the
-    slot, then the running sums and h stash of ``EncTcW<64>``."""
+    """At D = 256 the wrapper gives each block only its slot of parameter
+    sums (nothing of a tile in L2); at D = 64 too (``Enc64`` keeps its
+    running sums and h stash on the SM), over half as many blocks: a
+    block's two warpgroups take tiles of their own."""
     sms = 132
     nv = (2 * (4 + k) + 2)
     tiles = -(-n // (64 // length))
     assert encoder.wide_tc_launch(n, length, k, 256, sms) == (
-        4, min(tiles, sms), nv * 256)
-    w64 = struct_constants("encoder_bwd_tc_wide.cu", "EncTcW", D=64)
+        min(tiles, sms), nv * 256)
+    w64 = struct_constants("encoder_bwd_tc_wide.cu", "Enc64")
+    assert w64["D"] == 64 and w64["NPART"] == 2
     assert encoder.wide_tc_launch(n, length, k, 64, sms) == (
-        2, min(tiles, sms), nv * 64 + w64["ACC"] + w64["H"])
+        min(-(-tiles // 2), sms), nv * 64)
 
 
 @pytest.mark.parametrize("lr", [1, 25, 32, 33, 50, 64])

@@ -237,7 +237,7 @@ def test_chip_smoke_reads_the_d64_backwards_from_a_trace():
              f"{ns}qa_ctx_bwd_tc64_kernel<64>(x)": 1,
              f"{ns}qa_ctx_gq_tc64_kernel(x)": 2,
              f"{ns}tri_bridge_bwd_tc_wide_kernel<64>(x)": 1,
-             f"{ns}encoder_bwd_tc_wide_kernel<5, 64>(x)": 1,
+             f"{ns}encoder_bwd_tc64_kernel<5>(x)": 1,
              "void tvqa::wgrad_tc_kernel<64>(x)": 4}
     got = chip_smoke.check_wide_train_trace("train", names, False, 64)
     assert "qa_ctx_gq_tc64_kernel" in got

@@ -2138,3 +2138,96 @@ def test_forwards_at_256_replay_in_a_cuda_graph(cuda):
     torch.cuda.synchronize()
     for u, v in zip(out, eager):
         assert torch.equal(u, v)
+
+
+# ------------- the D = 64 encoder backward and the D = 256 tri bridge
+# forward, redesigned: every k, L from 5 to 56 (12 sequences to 1 a tile),
+# the true widths and one padded into each
+ENC64_LENGTHS = (5, 40, 50, 56)
+ENC64_KS = (1, 3, 5, 7, 9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dv", (64, 60))
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("k", ENC64_KS)
+@pytest.mark.parametrize("length", ENC64_LENGTHS)
+@pytest.mark.parametrize("full", [False, True])
+def test_encoder_backward_at_64_matches_plain(cuda, full, length, k, dropout,
+                                              dv):
+    """The bf16 backward at D = 64 (csrc/encoder_bwd_tc_wide.cu ``Enc64``:
+    the warpgroups on tiles of their own), reduce mode and full output
+    with a zero mask: gradients against autograd through the plain version
+    (the same Philox mask) by relative L2, twice for the same bits, one
+    launch a call on the true width's counter.  80 sequences (4 to 80
+    tiles: each warpgroup takes one or more): the bar is a relative L2 over
+    the call, which a ReLU sign that the two sides' roundings set apart
+    moves by its whole sequence; at 12 sequences one such sequence (L 56,
+    k 9, no dropout) reads 0.0295, the plain version's own error against
+    float32 there 0.014."""
+    dt = torch.bfloat16
+    gen = torch.Generator().manual_seed(20 + length + k)
+    x, pe, p, mask = encoder_args(cuda, dt, gen, g=40, l=length, k=k, d=dv)
+    keys = encoder.PARAM_KEYS
+    if full:
+        zm = stream_mask(x.shape[1], length).to(cuda)
+        cot = [randn(gen, *x.shape).to(cuda)
+               * zm.expand(x.shape[:3])[..., None]]
+        fn_k, fn_p, m = encoder.encoder_block, encoder.encoder_block_plain, zm
+        counter = width_counter(encoder.BLOCK_BWD_BY_WIDTH, dv)
+    else:
+        cot = [encoder_cotangent(x, pe, p, k, mask, dt, gen, dropout)]
+        fn_k, fn_p, m = (encoder.encoder_reduce, encoder.encoder_reduce_plain,
+                         mask)
+        counter = width_counter(encoder.BWD_BY_WIDTH, dv)
+    args = [x] + [p[key] for key in keys]
+
+    def kernel(xa, *ps):
+        return fn_k(xa, pe, dict(zip(keys, ps)), k, m, dropout, SEED)
+
+    def plain(xa, *ps):
+        return fn_p(xa, pe, dict(zip(keys, ps)), k, m, dropout, SEED)
+
+    def run(fn):
+        return grads_of(fn, leaves(args), cot)[1]
+    n0 = counter.launches
+    g_k, g_again, g_p = run(kernel), run(kernel), run(plain)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 2
+    assert g_k[0].dtype == dt
+    for name, gk, ga, gp in zip(("x",) + keys, g_k, g_again, g_p):
+        assert torch.equal(gk, ga), f"{name} differs between two runs"
+        checks.hold_grad(f"D 64 (dv {dv}) {name}", gk, gp,
+                         encoder.GRAD_TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("d", (256, 200))
+@pytest.mark.parametrize("rows", (1, 65, 129, 20655, 160000))
+def test_tri_bridge_forward_at_256_matches_plain(cuda, rows, d, dropout):
+    """The bf16 forward at D = 256 (csrc/tri_bridge_fwd.cu ``TriFwd256``:
+    W in bf16 slabs through a ring, 128 rows a pass), a ragged last pair
+    of tiles (1, 65, 129 rows), the replayed headline's 20,655 and the
+    headline's 160,000, at the true width and padded from 200: against the
+    plain version, twice for the same bits, one launch a call."""
+    dt = torch.bfloat16
+    gen = torch.Generator().manual_seed(rows % 977 + d)
+    s = randn(gen, rows, d).to(cuda, dt)
+    v = randn(gen, rows, d).to(cuda, dt)
+    params = [1 + randn(gen, 3 * d, scale=0.1), randn(gen, 3 * d, scale=0.1),
+              randn(gen, 3 * d, d, scale=(3 * d) ** -0.5),
+              randn(gen, d, scale=0.1), 1 + randn(gen, d, scale=0.1),
+              randn(gen, d, scale=0.1)]
+    params = [t.to(cuda) for t in params]
+    kw = dict(dropout_rate=dropout, seed=SEED)
+    counter = width_counter(tri_bridge.FWD_BY_WIDTH, d)
+    n0 = counter.launches
+    got = tri_bridge.tri_bridge(s, v, *params, **kw)
+    again = tri_bridge.tri_bridge(s, v, *params, **kw)
+    want = tri_bridge.tri_bridge_plain(s, v, *params, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 2
+    assert got.shape == s.shape and got.dtype == dt
+    assert torch.equal(got, again)
+    close(got, want, tri_bridge.TOL[dt])

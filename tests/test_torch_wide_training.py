@@ -259,7 +259,7 @@ def test_chip_smoke_reads_the_wide_backwards_from_a_trace():
     ns = "void (anonymous namespace)::"
     bf = "__nv_bfloat16"
     names = {f"{ns}encoder_fwd_tc_wide_kernel<5>(x)": 1,
-             f"{ns}tri_bridge_fwd_tc_kernel<256>(x)": 1,
+             f"{ns}tri_bridge_fwd_tc256_kernel<true>(x)": 1,
              f"{ns}qa_ctx_bwd_tc_wide_kernel<64>(x)": 1,
              f"{ns}qa_ctx_bwd_tc_wide_kernel<32>(x)": 1,
              f"{ns}qa_ctx_gq_wide_kernel<{bf}, {bf}, 256>(x)": 2,

@@ -323,7 +323,7 @@ def test_chip_smoke_reads_each_widths_instantiation_from_a_trace():
              f"{ns}tri_bridge_fwd_tc_kernel<128>(x)": 1,
              f"{ns}encoder_fwd_tc_wide_kernel<5>(x)": 1,
              f"{ns}encoder_fwd_tc_wide_kernel<7>(x)": 1,
-             f"{ns}tri_bridge_fwd_tc_kernel<256>(x)": 1}
+             f"{ns}tri_bridge_fwd_tc256_kernel<false>(x)": 1}
     chip_smoke.check_tc_forwards("serve", names, False, 128)
     chip_smoke.check_tc_forwards("serve", names, True, 256)
     with pytest.raises(AssertionError, match="missing"):

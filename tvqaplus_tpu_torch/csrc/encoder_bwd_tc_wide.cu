@@ -17,11 +17,11 @@
 // recomputes, g_c and gpw), so the bytes bind at D = 64 (~6 us) and the
 // operations at 256 (~0.15 ms).
 //
-// Two designs: encoder_bwd_tc_wide_kernel at D = 64 (pw resident, the
-// running sums and the h stash in the block's scratch in L2) and
-// its overload without k at D = 256 (pw streamed through a ring, every
-// per-tile state on the SM, the depthwise passes column by column); the
-// notes at the kernels.
+// Two designs, every per-tile state on the SM in both:
+// encoder_bwd_tc64_kernel at D = 64 (pw resident, the two warpgroups on
+// tiles of their own) and encoder_bwd_tc_wide_kernel at D = 256 (pw
+// streamed through a ring, the warpgroups splitting a tile's columns, the
+// depthwise passes column by column); the notes at the kernels.
 #include "bwd_wide.cuh"
 #include "encoder_tc.cuh"
 
@@ -37,164 +37,131 @@ __host__ __device__ inline int vec_floats(int k) {
   return 2 * (4 + k) * D + 2 * D;
 }
 
-// ---- the bfloat16 instantiation at D = 64: tensor cores -------------------
-//
-// encoder_bwd.cu's encoder_bwd_tc_kernel at D = 64, with the forward's
-// column split (encoder_fwd_tc_wide_kernel): one resident block an SM
-// walks tiles of 64 rows holding 64 / L whole sequences; both warpgroups
-// take all 64 rows and warpgroup w owns columns [D / 2 w, D / 2 (w + 1)),
-// so a thread holds D / 4 values of two rows and a row's LayerNorm sums
-// cross the warpgroups through shared memory (tri_row_pair_sums).  g_y
-// pw^T runs over both warpgroups' columns, so its A, g_y, is a tile of its
-// own.  pw and pw^T of both layers stay resident, both read K-major (a
-// warpgroup's 32 columns start inside a swizzled row, where an MN-major
-// operand cannot start).  R1 (64 x D float32) holds the LN output, then
-// g_c; R2 the c tile, then t in bf16; the h stash and the running
-// parameter sums sit in the block's scratch in L2, as at D = 128.  66 KB of
-// shared memory.
-template <int D>
-struct EncTcW {
-  static constexpr int NV = D / 4;             // a thread's values
-  static constexpr int NPR = NV / 2;           // ... as pairs
-  static constexpr int NQ = NPR / 2;           // ... as 8-column blocks
-  static constexpr int NPART = NTHREADS / D;   // threads of a column pass
-  static constexpr int ACC_LN = NWARPS * 6 * D;   // [warp][ln0_s .. lnf_b][D]
-  // + [part][layer][tap 0 .. MAX_K, dwb][D]
-  static constexpr int ACC = ACC_LN + NPART * 2 * (MAX_K + 1) * D;
-  static constexpr int H = NV * NTHREADS;      // the h stash
-  static constexpr int O_R1 = 0;               // 64 x D float32
-  static constexpr int O_R2 = O_R1 + TM * D * 4;  // 64 x D bf16: c, then t
-  static constexpr int O_GY = O_R2 + TM * D * 2;  // 64 x D bf16: g_y
-  // pw0, pw1, pw0^T, pw1^T: 32 KB
-  static constexpr int O_W = O_GY + TM * D * 2;
-  static constexpr int W_ROOM = 32768;
-  static constexpr int O_RV = O_W + W_ROOM;    // v, m
-  static constexpr int O_EX = O_RV + 2 * TM * 4;  // [2][wg][row][2]
-  static constexpr int SMEM = O_EX + 2 * 2 * TM * 2 * 4 + tc::ATOM_BYTES;
-  static_assert(D == 64, "the width of this design");
-  static_assert(4 * 64 * tc::ROW_BYTES <= W_ROOM, "pw's room");
-};
-
 struct TcWideBufs {
   __nv_bfloat16 *c[2], *gy[2];         // (N*L, D): gpw's operands
-  float* vec_part;   // (gridDim.x, vec_floats); at D = 64 then
-                     // (gridDim.x, ACC) running sums, (gridDim.x, H) h
-                     // stashes
+  float* vec_part;                     // (gridDim.x, vec_floats)
 };
 
-// y = c pw_i on the warpgroup's D / 2 columns, c the R2 tile (complete
-// and fenced), pw_i^T resident at panel 2 + i of w_s, read K-major.  Every
-// thread calls it.
-template <int D>
-__device__ __forceinline__ void enc_fwd_mma(float (&acc)[D / 4],
-                                            const uint8_t* r2,
-                                            const __nv_bfloat16* pw_i,
-                                            uint8_t* w_s, int wg, int i) {
-  constexpr int PW = D * tc::ROW_BYTES;
-  tc::fence();
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-    tc::mma_ss<D / 2, 0, 0>(
-        acc, tc::make_desc(tc::smem_u32(r2) + ks * 32, 16),
-        tc::make_desc(tc::smem_u32(w_s) + (2 + i) * PW
-                          + D / 2 * wg * tc::ROW_BYTES + ks * 32, 16),
-        ks > 0);
-  tc::commit();
-  tc::wait_all();
-  tc::fence_regs(acc);
-}
+// ---- the bfloat16 instantiation at D = 64: tensor cores -------------------
+//
+// One resident block an SM; each of its two warpgroups walks 64-row tiles
+// of its own, 64 / L whole sequences each (warpgroup w of block b takes
+// tiles 2 b + w, 2 b + w + 2 G, ... over a grid of G blocks), at all 64
+// columns: a thread holds 32 values of two rows in the m64n64 accumulator
+// layout, so a row's LayerNorm sums are its own and its quad's (no
+// exchange between the warpgroups), and a warpgroup waits only on its own
+// named barrier (bar.sync 1 + w, 128): the SM has two tiles in flight, and
+// one warpgroup's barriers and tensor-core waits lie under the other's row
+// passes.  What the design does about the card:
+// * pw0 and pw1 stay resident in bf16 as they lie (16 KB): c pw reads them
+//   MN-major, g_y pw^T K-major with g_y from registers (its tile never
+//   exists).
+// * The depthwise conv and its backward run column by column: two threads
+//   a column (each half of every sequence's rows) slide a window of the K
+//   taps down it, so each value is read once (the row by row passes read
+//   it K times and ran a third of the kernel's time on the card); c goes
+//   to a bf16 tile (the product's A), g_t to a float32 tile beside g_c, the
+//   taps' weight gradients in the same pass.
+// * Every per-tile state stays on the SM: a warpgroup's R1 (64 x 64
+//   float32: the LN output t, the final LN's output and its cotangent,
+//   then g_c), G (g_t), C (the c tile, bf16), T (t in bf16, for the
+//   depthwise weight gradient), H (h1 in pass A, h0 in pass B, for the LN
+//   backwards), v and m; the LN parameter sums run in a slot of each warp, the depthwise
+//   sums in a slot of each column-pass thread, all in shared memory, and
+//   go out once a block.
+// * The row passes run over live rows only: a warp whose 16 rows all lie
+//   past the tile's sequences (rows L..63 at L <= 48) skips them; it only
+//   takes its part in the products and the barriers (rows are independent
+//   through every product, and no conv tap or max leaves a sequence).
+// * The masked max of the reduce mode takes two lanes a column, each over
+//   half the sequence's rows: one pass for the max and the count of its
+//   ties (the pair's combined by a shuffle), one for the gradient.
+// * pw is rounded to bf16 as each block loads it (from the packed
+//   float32 parameters): the wrapper casts nothing.
+// Shared memory: pw (16 KB), two warpgroup rooms of 65 KB, the sums (32
+// KB): 179 KB.
+struct Enc64 {
+  static constexpr int D = 64;
+  static constexpr int NV = D / 2;                  // a thread's values
+  static constexpr int PW = D * tc::ROW_BYTES;      // a resident pw
+  // a warpgroup's room: C and T (bf16 tiles), R1, G and H (float32), v
+  // and m
+  static constexpr int R_C = 0;
+  static constexpr int R_T = R_C + TM * D * 2;
+  static constexpr int R_R1 = R_T + TM * D * 2;
+  static constexpr int R_G = R_R1 + TM * D * 4;
+  static constexpr int R_H = R_G + TM * D * 4;
+  static constexpr int R_VM = R_H + TM * D * 4;
+  static constexpr int A = tc::ATOM_BYTES;
+  static constexpr int ROOM = (R_VM + 2 * TM * 4 + A - 1) / A * A;
+  static constexpr int O_PW = 0;
+  static constexpr int O_ROOM = O_PW + 2 * PW;
+  // the LN sums [warp][ln0_s, ln0_b, ln1_s, ln1_b, lnf_s, lnf_b][D], then
+  // the depthwise sums [wg][part][layer][tap 0 .. MAX_K - 1, dwb][D]
+  static constexpr int NPART = 128 / D;             // threads of a column
+  static constexpr int O_LN = O_ROOM + 2 * ROOM;
+  static constexpr int O_DW = O_LN + NWARPS * 6 * D * 4;
+  static constexpr int O_END = O_DW + 2 * NPART * 2 * (MAX_K + 1) * D * 4;
+  static constexpr int SMEM = O_END + tc::ATOM_BYTES;
+  static_assert(ROOM % tc::ATOM_BYTES == 0 && O_ROOM % tc::ATOM_BYTES == 0,
+                "C and T on 1024-byte boundaries");
+};
 
-// acc = g_y pw_i^T on the warpgroup's D / 2 columns, g_y the gy tile (its
-// writes fenced), pw_i resident at panel i of w_s, read K-major.  Every
-// thread calls it.
-template <int D>
-__device__ __forceinline__ void enc_bwd_mma(float (&acc)[D / 4],
-                                            const uint8_t* gy_s,
-                                            const __nv_bfloat16* pw_i,
-                                            uint8_t* w_s, int wg, int i) {
-  const int cb = D / 2 * wg;
-  constexpr int PW = D * tc::ROW_BYTES;
-  __syncthreads();                     // g_y is whole
-  tc::fence();
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-    tc::mma_ss<D / 2, 0, 0>(
-        acc, tc::make_desc(tc::smem_u32(gy_s) + ks * 32, 16),
-        tc::make_desc(tc::smem_u32(w_s) + i * PW + cb * tc::ROW_BYTES
-                          + ks * 32, 16),
-        ks > 0);
-  tc::commit();
-  tc::wait_all();
-  tc::fence_regs(acc);
-}
-
-template <int K, int D>
+template <int K>
 __global__ void __launch_bounds__(NTHREADS, 1)
-encoder_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
-                           const float* __restrict__ pe,
-                           const float* __restrict__ packed,
-                           const __nv_bfloat16* __restrict__ pw,
-                           const float* __restrict__ mask,
-                           const float* __restrict__ zmask,
-                           const __nv_bfloat16* __restrict__ gout,
-                           __nv_bfloat16* __restrict__ gx, TcWideBufs bufs,
-                           int N, int G, int L, int k, int nseq,
-                           Dropout drop) {
-  using S = EncTcW<D>;
-  constexpr int NV = S::NV, NPR = S::NPR, NQ = S::NQ, NSG = (NV + 31) / 32;
+encoder_bwd_tc64_kernel(const __nv_bfloat16* __restrict__ x,
+                        const float* __restrict__ pe,
+                        const float* __restrict__ packed,
+                        const __nv_bfloat16* __restrict__ pw,
+                        const float* __restrict__ mask,
+                        const float* __restrict__ zmask,
+                        const __nv_bfloat16* __restrict__ gout,
+                        __nv_bfloat16* __restrict__ gx, TcWideBufs bufs,
+                        int N, int G, int L, int nseq, Dropout drop) {
+  using S = Enc64;
+  constexpr int D = S::D, NV = S::NV, NPR = NV / 2, NQ = NPR / 2;
   constexpr int pad = K / 2;
-  constexpr int PW = D * tc::ROW_BYTES;   // a resident pw panel (D = 64)
   drop.load_seed();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_smem(smem_raw);
-  float* r1 = reinterpret_cast<float*>(sm + S::O_R1);
-  uint8_t* r2 = sm + S::O_R2;
-  uint8_t* gy_s = sm + S::O_GY;
-  uint8_t* w_s = sm + S::O_W;
-  float* v_s = reinterpret_cast<float*>(sm + S::O_RV);
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31, wid = tid >> 5;
+  const int cl = 2 * (lane & 3);
+  uint8_t* room = sm + S::O_ROOM + wg * S::ROOM;
+  uint8_t* c_s = room + S::R_C;
+  uint8_t* t_s = room + S::R_T;
+  float* r1 = reinterpret_cast<float*>(room + S::R_R1);
+  float* g_s = reinterpret_cast<float*>(room + S::R_G);
+  float2* hs = reinterpret_cast<float2*>(room + S::R_H);   // [pair][t]
+  float* v_s = reinterpret_cast<float*>(room + S::R_VM);
   float* m_s = v_s + TM;
-  float* ex_s = reinterpret_cast<float*>(sm + S::O_EX);
+  float* ln_sums = reinterpret_cast<float*>(sm + S::O_LN) + wid * 6 * D;
+  float* dw_sums = reinterpret_cast<float*>(sm + S::O_DW);
+  const uint32_t pw_s = tc::smem_u32(sm + S::O_PW);
   const bool reduce = mask != nullptr;
   const TcParams<K, D> P{packed};
-  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
-  const int warp = t >> 5, lane = tid & 31;
-  const int cb = D / 2 * wg;                         // the warpgroup's columns
-  const int cl = cb + 2 * (lane & 3);
   int row[2];                                        // the thread's rows
 #pragma unroll
   for (int h = 0; h < 2; ++h) row[h] = 16 * warp + (lane >> 2) + 8 * h;
-  const int NVF = vec_floats<D>(k);
-  float* sums = bufs.vec_part + static_cast<size_t>(gridDim.x) * NVF
-                + static_cast<size_t>(blockIdx.x) * S::ACC;
-  float* ln_sums = sums + (tid >> 5) * 6 * D;         // this warp's
-  float2* r3 = reinterpret_cast<float2*>(    // the h stash, [NPR][NTHREADS]
-      bufs.vec_part + static_cast<size_t>(gridDim.x) * (NVF + S::ACC)
-      + static_cast<size_t>(blockIdx.x) * S::H);
-  for (int idx = tid; idx < S::ACC; idx += NTHREADS) sums[idx] = 0.f;
-  {                          // pw_i, and pw_i^T at 2 + i, for good
-    for (int i = 0; i < 2; ++i)
-      tc_load_rows<D>(w_s + i * PW, D, pw + i * D * D, D, D, tid, NTHREADS);
-    tc::cp_async_commit();
-    for (int idx = tid; idx < 2 * D * D; idx += NTHREADS) {
-      const int i = idx / (D * D), kk = idx / D % D, n = idx % D;
-      *reinterpret_cast<__nv_bfloat16*>(w_s + (2 + i) * PW + tc::swz(n, kk))
-          = pw[idx];
-    }
-    tc::cp_async_wait<0>();
-    tc::fence_async_smem();            // read by wgmma after a barrier
+  auto wg_sync = [&]() { tc::bar_sync(1 + wg, 128); };
+  for (int i = 0; i < 2; ++i)         // pw_i rounded to bf16 as it lies
+    tc_store_rows_f32<D>(sm + S::O_PW + i * S::PW, D, P.pw(i), D, tid,
+                         NTHREADS);
+  {
+    float* sums = reinterpret_cast<float*>(sm + S::O_LN);
+    for (int idx = tid; idx < (S::O_DW - S::O_LN) / 4
+                              + 2 * S::NPART * 2 * (MAX_K + 1) * D;
+         idx += NTHREADS)
+      sums[idx] = 0.f;
   }
-  int xround = 0;
-  // full-row sums of both warpgroups' columns (two exchange buffers in turn)
-  auto row_sums = [&](float (&a)[2], float (&b)[2]) {
-    tri_row_pair_sums(ex_s + (xround & 1) * 2 * TM * 2, a, b, wg, row[0],
-                      lane);
-    ++xround;
-  };
+  tc::fence_async_smem();              // pw is read by wgmma
+  __syncthreads();
 
   const int tiles = (N + nseq - 1) / nseq;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  for (int tile = 2 * blockIdx.x + wg; tile < tiles; tile += 2 * gridDim.x) {
     const int n0 = tile * nseq, rows = min(nseq, N - n0) * L;
     const long long R0 = static_cast<long long>(n0) * L;
+    const bool wlive = 16 * warp < rows;     // a row of this warp is live
     bool valid[2];
     int lrow[2];
     long long grow[2];
@@ -204,28 +171,25 @@ encoder_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
       lrow[h] = row[h] % L;
       grow[h] = R0 + (valid[h] ? row[h] : 0);
     }
-    __syncthreads();                   // the previous tile is done
-    if (tid < TM) {
-      const bool ok = tid < rows;
-      const int n = n0 + tid / L, l = tid % L;
-      v_s[tid] = !ok ? 0.f
+    if (t < TM) {                      // (its readers end at a barrier)
+      const bool ok = t < rows;
+      const int n = n0 + t / L, l = t % L;
+      v_s[t] = !ok ? 0.f
           : (zmask != nullptr ? zmask[static_cast<size_t>(n % G) * L + l]
                               : 1.f);
-      m_s[tid] = ok && reduce ? mask[static_cast<size_t>(n) * L + l] : 0.f;
+      m_s[t] = ok && reduce ? mask[static_cast<size_t>(n) * L + l] : 0.f;
     }
     // conv 0's dropout: keep bits of the thread's values, drawn once
-    uint32_t kw[2][(NQ + 7) / 8];
-#pragma unroll
-    for (int w = 0; w < (NQ + 7) / 8; ++w) kw[0][w] = kw[1][w] = ~0u;
-    if (drop.on())
+    uint32_t kw[2][1] = {{~0u}, {~0u}};
+    if (drop.on() && wlive)
       tc_keep_bits<NQ, true>(drop,
-                             drop.row_key((lane & 1) ? grow[1] : grow[0]) + cb,
+                             drop.row_key((lane & 1) ? grow[1] : grow[0]),
                              lane, kw);
     auto keep = [&](int h, int q, int e) {
       return !drop.on() ? 1.f
-          : ((kw[h][q >> 3] >> (4 * (q & 7) + e)) & 1u ? drop.scale : 0.f);
+          : ((kw[h][0] >> (4 * q + e)) & 1u ? drop.scale : 0.f);
     };
-    __syncthreads();
+    wg_sync();                         // v and m
 
     // h0 = x + pe of the thread's values
     auto load_h0 = [&](float (&hv)[NV]) {
@@ -244,29 +208,24 @@ encoder_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
         hv[2 * pr + 1] = a.y;
       }
     };
-    // row statistics over both warpgroups' columns (fast variance, clipped)
-    auto stats = [&](const float (&hv)[NV], float (&mean)[2],
-                     float (&istd)[2]) {
-      mean[0] = mean[1] = istd[0] = istd[1] = 0.f;
+    // LN_i(hv) (times conv 0's dropout on layer 0; the final LN for lnf)
+    // into R1, and in bf16 into T when t2 (the depthwise weight gradient's
+    // t); its row statistics the thread's and its quad's (fast variance,
+    // clipped)
+    auto ln_to_r1 = [&](const float (&hv)[NV], const float* sc,
+                        const float* bi, bool drop0, bool t2) {
+      float mean[2] = {0.f, 0.f}, istd[2] = {0.f, 0.f};
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
         mean[(j >> 1) & 1] += hv[j];
         istd[(j >> 1) & 1] = fmaf(hv[j], hv[j], istd[(j >> 1) & 1]);
       }
-      row_sums(mean, istd);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        mean[h] *= drop.inv1;
-        istd[h] = rsqrtf(fmaxf(istd[h] * drop.inv1 - mean[h] * mean[h], 0.f)
-                         + LN_EPS);
+        mean[h] = quad_sum(mean[h]) * drop.inv1;
+        istd[h] = rsqrtf(fmaxf(quad_sum(istd[h]) * drop.inv1
+                               - mean[h] * mean[h], 0.f) + LN_EPS);
       }
-    };
-    // LN_i(hv) (times conv 0's dropout on layer 0; the final LN for i = 2)
-    // into R1
-    auto ln_to_r1 = [&](const float (&hv)[NV], const float* sc,
-                        const float* bi, bool drop0) {
-      float mean[2], istd[2];
-      stats(hv, mean, istd);
 #pragma unroll
       for (int pr = 0; pr < NPR; ++pr) {
         const int h = pr & 1, q = pr >> 1, c = 8 * q + cl;
@@ -279,93 +238,25 @@ encoder_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
         }
         *reinterpret_cast<float2*>(r1 + r1_at<D>(row[h], c)) =
             make_float2(y0, y1);
+        if (t2)
+          *reinterpret_cast<uint32_t*>(t_s + tc::swz(row[h], c)) =
+              tc::pack_bf16(y0, y1);
       }
     };
-    // c = depthwise_i(t of R1 times v) rounded to bf16: the A tile in R2,
-    // and out as rows when c_rows is not NULL
+    // two threads a column: column cd, the rows [lb, le) of every
+    // sequence
+    const int cd = t & (D - 1), hf = t / D;
+    const int lb = hf ? (L + 1) / 2 : 0, le = hf ? L : (L + 1) / 2;
+    // c = depthwise_i(t of R1 times v) + dwb rounded to bf16 into C (the
+    // product's A), and out as rows when c_rows is not NULL: a window of
+    // the K taps' t v slides down the column; rows past the sequences get
+    // dwb.  R1 must be whole.
     auto conv = [&](int i, __nv_bfloat16* c_rows) {
+      float w[K];
 #pragma unroll
-      for (int pr = 0; pr < NPR; ++pr) {
-        const int h = pr & 1, c = 8 * (pr >> 1) + cl;
-        const float2 a = enc_conv_pair<K, D>(r1, v_s, P.dw(i), P.dwb(i), row,
-                                             lrow, valid, L, h, c);
-        const uint32_t p = tc::pack_bf16(a.x, a.y);
-        *reinterpret_cast<uint32_t*>(r2 + (c >> 6) * TILE_PANEL
-                                     + tc::swz(row[h], c & 63)) = p;
-        if (c_rows != nullptr && valid[h])
-          *reinterpret_cast<uint32_t*>(c_rows + grow[h] * D + c) = p;
-      }
-    };
-    // y = c pw_i + pwb_i on the warpgroup's columns in acc, and its ReLU
-    // sign bits (bit j % 32 of sg[j / 32] for value j)
-    auto fwd = [&](int i, float (&acc)[NV], uint32_t (&sg)[NSG]) {
-      tc::fence_async_smem();
-      __syncthreads();                 // the c tile is whole
-      enc_fwd_mma<D>(acc, r2, pw + i * D * D, w_s, wg, i);
-#pragma unroll
-      for (int w = 0; w < NSG; ++w) sg[w] = 0u;
-#pragma unroll
-      for (int j = 0; j < NV; ++j) {
-        acc[j] += __ldg(P.pwb(i) + cb + acc_col(j, lane));
-        if (acc[j] > 0.f) sg[j >> 5] |= 1u << (j & 31);
-      }
-    };
-    // g_y = g (y > 0) rounded to bf16 (its tile, rows out), then acc = g_y
-    // pw_i^T on the warpgroup's columns, pw's columns in four slabs of 64
-    auto bwd = [&](int i, const float (&g)[NV], const uint32_t (&sg)[NSG],
-                   __nv_bfloat16* gy_rows, float (&acc)[NV]) {
-#pragma unroll
-      for (int pr = 0; pr < NPR; ++pr) {
-        const int h = pr & 1, c = 8 * (pr >> 1) + cl;
-        const uint32_t bits = sg[pr >> 4] >> (2 * (pr & 15));
-        const uint32_t f = tc::pack_bf16(bits & 1u ? g[2 * pr] : 0.f,
-                                         bits & 2u ? g[2 * pr + 1] : 0.f);
-        *reinterpret_cast<uint32_t*>(gy_s + (c >> 6) * TILE_PANEL
-                                     + tc::swz(row[h], c & 63)) = f;
-        if (valid[h])
-          *reinterpret_cast<uint32_t*>(gy_rows + grow[h] * D + c) = f;
-      }
-      tc::fence_async_smem();
-      enc_bwd_mma<D>(acc, gy_s, pw + i * D * D, w_s, wg, i);
-    };
-    // the LN output t of R1 in bf16 into R2 (the thread's values), for the
-    // depthwise weight gradient; R2's readers must be done
-    auto t_to_r2 = [&]() {
-      __syncthreads();
-#pragma unroll
-      for (int pr = 0; pr < NPR; ++pr) {
-        const int h = pr & 1, c = 8 * (pr >> 1) + cl;
-        const float2 tt = *reinterpret_cast<const float2*>(
-            r1 + r1_at<D>(row[h], c));
-        *reinterpret_cast<uint32_t*>(r2 + (c >> 6) * TILE_PANEL
-                                     + tc::swz(row[h], c & 63)) =
-            tc::pack_bf16(tt.x, tt.y);
-      }
-    };
-    // acc (g_c) into R1; after a barrier the depthwise weight gradients
-    // (column tid over the tile's rows, R1 and R2's bf16 t, into the
-    // running sums) and acc = g_t, the gradient of the conv input (times
-    // the dropout mask on layer 0)
-    auto conv_bwd = [&](int i, float (&acc)[NV]) {
-      __syncthreads();                 // R1's readers (the conv) are done
-#pragma unroll
-      for (int pr = 0; pr < NPR; ++pr) {
-        const int h = pr & 1, c = 8 * (pr >> 1) + cl;
-        *reinterpret_cast<float2*>(r1 + r1_at<D>(row[h], c)) =
-            make_float2(acc[2 * pr], acc[2 * pr + 1]);
-      }
-      __syncthreads();
-      // column cd over the tile's sequences, rows [lb, le) of each by part
-      const int cd = tid % D, part = tid / D;
-      const int lb = L * part / S::NPART, le = L * (part + 1) / S::NPART;
-      float gdw[K], gdwb = 0.f;
-#pragma unroll
-      for (int j = 0; j < K; ++j) gdw[j] = 0.f;
-      auto tv = [&](int r) {           // t v of tile row r, column cd
-        return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
-                   r2 + (cd >> 6) * TILE_PANEL + tc::swz(r, cd & 63)))
-               * v_s[r];
-      };
+      for (int j = 0; j < K; ++j) w[j] = __ldg(P.dw(i) + j * D + cd);
+      const float bias = __ldg(P.dwb(i) + cd);
+      auto tv = [&](int r) { return r1[r1_at<D>(r, cd)] * v_s[r]; };
       for (int base = 0; base < rows; base += L) {
         float win[K];                  // win[j] = t v of row l + j - pad
 #pragma unroll
@@ -377,36 +268,131 @@ encoder_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
           for (int j = 0; j + 1 < K; ++j) win[j] = win[j + 1];
           win[K - 1] = l + pad < L ? tv(base + l + pad) : 0.f;
-          const float gc = r1[r1_at<D>(base + l, cd)];
-          gdwb += gc;
+          float a = bias;
 #pragma unroll
-          for (int j = 0; j < K; ++j) gdw[j] = fmaf(win[j], gc, gdw[j]);
+          for (int j = 0; j < K; ++j) a = fmaf(w[j], win[j], a);
+          const __nv_bfloat16 cb = __float2bfloat16(a);
+          *reinterpret_cast<__nv_bfloat16*>(c_s + tc::swz(base + l, cd)) = cb;
+          if (c_rows != nullptr) c_rows[(R0 + base + l) * D + cd] = cb;
         }
       }
-      float* dsum = sums + S::ACC_LN + (part * 2 + i) * (MAX_K + 1) * D
-                    + cd;
+      if (hf == 0)
+        for (int r = rows; r < TM; ++r)
+          *reinterpret_cast<__nv_bfloat16*>(c_s + tc::swz(r, cd)) =
+              __float2bfloat16(bias);
+    };
+    // y = c pw_i + pwb_i in acc (c the C tile, complete and fenced), and
+    // its ReLU sign bits (bit j of sg for value j)
+    auto fwd = [&](int i, float (&acc)[NV], uint32_t& sg) {
+      tc::fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        tc::mma_ss<64, 0, 1>(
+            acc, tc::make_desc(tc::smem_u32(c_s) + ks * 32, 16),
+            tc::make_desc(pw_s + i * S::PW + ks * 2 * tc::ATOM_BYTES, S::PW),
+            ks > 0);
+      tc::commit();
+      tc::wait_all();
+      tc::fence_regs(acc);
+      sg = 0u;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        acc[j] += __ldg(P.pwb(i) + acc_col(j, lane));
+        if (acc[j] > 0.f) sg |= 1u << j;
+      }
+    };
+    // g_y = g (y > 0) rounded to bf16 (A from registers, rows out), then
+    // acc = g_y pw_i^T
+    auto bwd = [&](int i, const float (&g)[NV], uint32_t sg,
+                   __nv_bfloat16* gy_rows, float (&acc)[NV]) {
+      tc::fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        uint32_t f[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int pr = 4 * ks + u, h = pr & 1, c = 8 * (pr >> 1) + cl;
+          const uint32_t bits = sg >> (2 * pr);
+          f[u] = tc::pack_bf16(bits & 1u ? g[2 * pr] : 0.f,
+                               bits & 2u ? g[2 * pr + 1] : 0.f);
+          if (valid[h])
+            *reinterpret_cast<uint32_t*>(gy_rows + grow[h] * D + c) = f[u];
+        }
+        tc::mma_rs<64, 0>(
+            acc, f, tc::make_desc(pw_s + i * S::PW + ks * 32, 16), ks > 0);
+      }
+      tc::commit();
+      tc::wait_all();
+      tc::fence_regs(acc);
+    };
+    // acc (g_c) into R1; after a barrier the column pass: a window of the
+    // K taps' t v (T's bf16 t) and one of g_c slide down the column, giving
+    // the depthwise weight gradients (into the thread's running sums) and
+    // g_t = v sum_j dw[j] g_c[l - j + pad] into G; after a barrier acc =
+    // g_t (times the dropout mask on layer 0)
+    auto conv_bwd = [&](int i, float (&acc)[NV]) {
+      if (wlive) {
+#pragma unroll
+        for (int pr = 0; pr < NPR; ++pr) {
+          const int h = pr & 1, c = 8 * (pr >> 1) + cl;
+          *reinterpret_cast<float2*>(r1 + r1_at<D>(row[h], c)) =
+              make_float2(acc[2 * pr], acc[2 * pr + 1]);
+        }
+      }
+      wg_sync();                       // g_c is whole
+      float w[K], gdw[K], gdwb = 0.f;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        w[j] = __ldg(P.dw(i) + j * D + cd);
+        gdw[j] = 0.f;
+      }
+      auto tv = [&](int r) {           // t v of tile row r, column cd
+        return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+                   t_s + tc::swz(r, cd)))
+               * v_s[r];
+      };
+      auto gc = [&](int r) { return r1[r1_at<D>(r, cd)]; };
+      for (int base = 0; base < rows; base += L) {
+        float win[K], gq[K];           // rows l + j - pad: t v and g_c
+#pragma unroll
+        for (int j = 0; j + 1 < K; ++j) {
+          const int l = lb + j - pad;
+          const bool in = l >= 0 && l < L;
+          win[j + 1] = in ? tv(base + l) : 0.f;
+          gq[j + 1] = in ? gc(base + l) : 0.f;
+        }
+        for (int l = lb; l < le; ++l) {
+#pragma unroll
+          for (int j = 0; j + 1 < K; ++j) {
+            win[j] = win[j + 1];
+            gq[j] = gq[j + 1];
+          }
+          const bool in = l + pad < L;
+          win[K - 1] = in ? tv(base + l + pad) : 0.f;
+          gq[K - 1] = in ? gc(base + l + pad) : 0.f;
+          const float g = gq[pad];
+          gdwb += g;
+#pragma unroll
+          for (int j = 0; j < K; ++j) gdw[j] = fmaf(win[j], g, gdw[j]);
+          float a = 0.f;
+#pragma unroll
+          for (int j = 0; j < K; ++j) a = fmaf(w[j], gq[K - 1 - j], a);
+          g_s[r1_at<D>(base + l, cd)] = a * v_s[base + l];
+        }
+      }
+      float* dsum = dw_sums
+                    + ((wg * S::NPART + hf) * 2 + i) * (MAX_K + 1) * D + cd;
 #pragma unroll
       for (int j = 0; j < K; ++j) dsum[j * D] += gdw[j];
       dsum[MAX_K * D] += gdwb;
+      wg_sync();                       // g_t is whole
+      if (!wlive) return;
 #pragma unroll
       for (int pr = 0; pr < NPR; ++pr) {
         const int h = pr & 1, q = pr >> 1, c = 8 * q + cl;
         float2 a = make_float2(0.f, 0.f);
         if (valid[h]) {
-          const int base = row[h] - lrow[h];
-#pragma unroll
-          for (int j = 0; j < K; ++j) {
-            const int rr = lrow[h] - j + pad;
-            if (rr < 0 || rr >= L) continue;
-            const float2 gc = *reinterpret_cast<const float2*>(
-                r1 + r1_at<D>(base + rr, c));
-            const float2 w = ldg2(P.dw(i) + j * D + c);
-            a.x = fmaf(w.x, gc.x, a.x);
-            a.y = fmaf(w.y, gc.y, a.y);
-          }
-          const float vv = v_s[row[h]];
-          a.x *= vv;
-          a.y *= vv;
+          a = *reinterpret_cast<const float2*>(g_s + r1_at<D>(row[h], c));
           if (i == 0) {
             a.x *= keep(h, q, 0);
             a.y *= keep(h, q, 1);
@@ -430,12 +416,11 @@ encoder_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
         mean[pr & 1] += xv.x + xv.y;
         istd[pr & 1] = fmaf(xv.x, xv.x, fmaf(xv.y, xv.y, istd[pr & 1]));
       }
-      row_sums(mean, istd);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        mean[h] *= drop.inv1;
-        istd[h] = rsqrtf(fmaxf(istd[h] * drop.inv1 - mean[h] * mean[h], 0.f)
-                         + LN_EPS);
+        mean[h] = quad_sum(mean[h]) * drop.inv1;
+        istd[h] = rsqrtf(fmaxf(quad_sum(istd[h]) * drop.inv1
+                               - mean[h] * mean[h], 0.f) + LN_EPS);
       }
       float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
 #pragma unroll
@@ -463,15 +448,14 @@ encoder_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
             }
           }
         }
-        const int col = cb + fold8_col(qb, lane);
+        const int col = fold8_col(qb, lane);
         gacc[col] += fold8(ts, lane);
         gacc[D + col] += fold8(tb, lane);
       }
-      row_sums(s1, s2);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        s1[h] *= drop.inv1;
-        s2[h] *= drop.inv1;
+        s1[h] = quad_sum(s1[h]) * drop.inv1;
+        s2[h] = quad_sum(s2[h]) * drop.inv1;
       }
 #pragma unroll
       for (int pr = 0; pr < NPR; ++pr) {
@@ -485,67 +469,84 @@ encoder_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
         }
       }
     };
-    auto from_r3 = [&](int pr) { return r3[pr * NTHREADS + tid]; };
+    auto from_h = [&](int pr) { return hs[pr * 128 + t]; };
+    auto to_h = [&](const float (&hv)[NV]) {
+#pragma unroll
+      for (int pr = 0; pr < NPR; ++pr)
+        hs[pr * 128 + t] = make_float2(hv[2 * pr], hv[2 * pr + 1]);
+    };
 
     float hv[NV], acc[NV], ga[NV];
-    uint32_t sg[NSG];
+    uint32_t sg = 0u;
     // ---- pass A: layer 0 for h1, layer 1 with its stash -----------------
-    load_h0(hv);
-    ln_to_r1(hv, P.ln_s(0), P.ln_b(0), true);
-    __syncthreads();
+    if (wlive) {
+      load_h0(hv);
+      ln_to_r1(hv, P.ln_s(0), P.ln_b(0), true, false);
+    }
+    wg_sync();                         // R1 is whole
     conv(0, nullptr);
+    tc::fence_async_smem();
+    wg_sync();                         // C is whole; R1's taps are read
     fwd(0, acc, sg);
+    if (wlive) {
 #pragma unroll
-    for (int j = 0; j < NV; ++j) hv[j] += fmaxf(acc[j], 0.f);     // h1
-#pragma unroll
-    for (int pr = 0; pr < NPR; ++pr)
-      r3[pr * NTHREADS + tid] = make_float2(hv[2 * pr], hv[2 * pr + 1]);
-    __syncthreads();                   // R1's readers (the conv) are done
-    ln_to_r1(hv, P.ln_s(1), P.ln_b(1), false);
-    __syncthreads();
+      for (int j = 0; j < NV; ++j) hv[j] += fmaxf(acc[j], 0.f);   // h1
+      to_h(hv);
+      ln_to_r1(hv, P.ln_s(1), P.ln_b(1), false, true);
+    }
+    wg_sync();
     conv(1, bufs.c[1]);
+    tc::fence_async_smem();
+    wg_sync();
     fwd(1, acc, sg);
+    if (wlive) {
 #pragma unroll
-    for (int j = 0; j < NV; ++j) hv[j] += fmaxf(acc[j], 0.f);     // h2
-    t_to_r2();
+      for (int j = 0; j < NV; ++j) hv[j] += fmaxf(acc[j], 0.f);   // h2
+    }
     // ---- the output's cotangent (reduce mode: final LN and masked-max
     // backward), final-LN backward -------------------------------------
     if (reduce) {
-      ln_to_r1(hv, P.lnf_s(), P.lnf_b(), false);
-      __syncthreads();
-      for (int idx = tid; idx < rows / L * D; idx += NTHREADS) {
-        const int sq = idx / D, d = idx % D, base = sq * L;
-        float mx = -CUDART_INF_F;
-        for (int l = 0; l < L; ++l) {
+      if (wlive) ln_to_r1(hv, P.lnf_s(), P.lnf_b(), false, false);
+      wg_sync();
+      // two neighbouring lanes a column of a sequence, each over half its
+      // rows: the max and the count of its ties, then the pair's
+      for (int idx = t; idx < rows / L * 2 * D; idx += 128) {
+        const int sq = idx / (2 * D), d = idx % (2 * D) >> 1, base = sq * L;
+        const int lb = idx & 1 ? (L + 1) / 2 : 0;
+        const int le = idx & 1 ? L : (L + 1) / 2;
+        float mx = -CUDART_INF_F, cnt = 0.f;
+        for (int l = lb; l < le; ++l) {
           const float m = m_s[base + l];
-          mx = fmaxf(mx, r1[r1_at<D>(base + l, d)] * m + (m - 1.f) * 1e10f);
+          const float o = r1[r1_at<D>(base + l, d)] * m + (m - 1.f) * 1e10f;
+          cnt = o > mx ? 1.f : (o == mx ? cnt + 1.f : cnt);
+          mx = fmaxf(mx, o);
         }
-        float cnt = 0.f;
-        for (int l = 0; l < L; ++l) {
-          const float m = m_s[base + l];
-          cnt += (r1[r1_at<D>(base + l, d)] * m + (m - 1.f) * 1e10f) == mx
-                     ? 1.f : 0.f;
-        }
+        const float omx = __shfl_xor_sync(0xffffffffu, mx, 1);
+        const float ocnt = __shfl_xor_sync(0xffffffffu, cnt, 1);
+        cnt = mx > omx ? cnt : (mx < omx ? ocnt : cnt + ocnt);
+        mx = fmaxf(mx, omx);
         const float g = __bfloat162float(
             gout[static_cast<size_t>(n0 + sq) * D + d]);
-        for (int l = 0; l < L; ++l) {
+        for (int l = lb; l < le; ++l) {
           const float m = m_s[base + l];
           float& o = r1[r1_at<D>(base + l, d)];
           const bool eq = (o * m + (m - 1.f) * 1e10f) == mx;
           o = (eq ? g : 0.f) / cnt * m;
         }
       }
-      __syncthreads();
+      wg_sync();
+      if (wlive) {
 #pragma unroll
-      for (int pr = 0; pr < NPR; ++pr) {
-        const int h = pr & 1, c = 8 * (pr >> 1) + cl;
-        const float2 g2 = valid[h]
-            ? *reinterpret_cast<const float2*>(r1 + r1_at<D>(row[h], c))
-            : make_float2(0.f, 0.f);
-        ga[2 * pr] = g2.x;
-        ga[2 * pr + 1] = g2.y;
+        for (int pr = 0; pr < NPR; ++pr) {
+          const int h = pr & 1, c = 8 * (pr >> 1) + cl;
+          const float2 g2 = valid[h]
+              ? *reinterpret_cast<const float2*>(r1 + r1_at<D>(row[h], c))
+              : make_float2(0.f, 0.f);
+          ga[2 * pr] = g2.x;
+          ga[2 * pr + 1] = g2.y;
+        }
       }
-    } else {
+    } else if (wlive) {
 #pragma unroll
       for (int pr = 0; pr < NPR; ++pr) {
         const int h = pr & 1, c = 8 * (pr >> 1) + cl;
@@ -557,57 +558,71 @@ encoder_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ x,
         ga[2 * pr + 1] = g2.y;
       }
     }
-    ln_bwd([&](int pr) { return make_float2(hv[2 * pr], hv[2 * pr + 1]); },
-           ga, P.lnf_s(), ln_sums + 4 * D);
+    if (wlive) {
+      ln_bwd([&](int pr) { return make_float2(hv[2 * pr], hv[2 * pr + 1]); },
+             ga, P.lnf_s(), ln_sums + 4 * D);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) ga[j] = 0.f;
+    }
     // ---- layer 1 backward -----------------------------------------------
     bwd(1, ga, sg, bufs.gy[1], acc);
     conv_bwd(1, acc);
-    ln_bwd(from_r3, acc, P.ln_s(1), ln_sums + 2 * D);
+    if (wlive) {
+      ln_bwd(from_h, acc, P.ln_s(1), ln_sums + 2 * D);
 #pragma unroll
-    for (int j = 0; j < NV; ++j) ga[j] += acc[j];                 // g_h1
-    __syncthreads();                   // R1 (g_c1) and R2 (t1) are read
-    // ---- pass B: recompute layer 0 (dropout replayed), its backward -----
-    load_h0(hv);
-#pragma unroll
-    for (int pr = 0; pr < NPR; ++pr)
-      r3[pr * NTHREADS + tid] = make_float2(hv[2 * pr], hv[2 * pr + 1]);
-    ln_to_r1(hv, P.ln_s(0), P.ln_b(0), true);
-    __syncthreads();
+      for (int j = 0; j < NV; ++j) ga[j] += acc[j];               // g_h1
+    }
+    // ---- pass B: recompute layer 0 (dropout replayed), its backward
+    // (R1's and T's readers of layer 1 end at conv_bwd's last barrier) --
+    if (wlive) {
+      load_h0(hv);
+      to_h(hv);
+      ln_to_r1(hv, P.ln_s(0), P.ln_b(0), true, true);
+    }
+    wg_sync();
     conv(0, bufs.c[0]);
+    tc::fence_async_smem();
+    wg_sync();
     fwd(0, acc, sg);
-    t_to_r2();
     bwd(0, ga, sg, bufs.gy[0], acc);
     conv_bwd(0, acc);
-    ln_bwd(from_r3, acc, P.ln_s(0), ln_sums);
+    if (wlive) {
+      ln_bwd(from_h, acc, P.ln_s(0), ln_sums);
 #pragma unroll
-    for (int pr = 0; pr < NPR; ++pr) {  // d(x + pe)/dx = 1
-      const int h = pr & 1, c = 8 * (pr >> 1) + cl;
-      if (valid[h])
-        *reinterpret_cast<uint32_t*>(gx + grow[h] * D + c) = tc::pack_bf16(
-            acc[2 * pr] + ga[2 * pr], acc[2 * pr + 1] + ga[2 * pr + 1]);
+      for (int pr = 0; pr < NPR; ++pr) {  // d(x + pe)/dx = 1
+        const int h = pr & 1, c = 8 * (pr >> 1) + cl;
+        if (valid[h])
+          *reinterpret_cast<uint32_t*>(gx + grow[h] * D + c) =
+              tc::pack_bf16(acc[2 * pr] + ga[2 * pr],
+                            acc[2 * pr + 1] + ga[2 * pr + 1]);
+      }
     }
   }
 
-  // ---- the block's parameter-vector partials, summed in a fixed order --
+  // ---- the block's parameter-vector partials, written once: the warps'
+  // and the column parts' sums in a fixed order ------------------------
   __syncthreads();                     // every running sum is final
-  float* out = bufs.vec_part + static_cast<size_t>(blockIdx.x) * NVF;
+  const float* lns = reinterpret_cast<const float*>(sm + S::O_LN);
+  float* out = bufs.vec_part + static_cast<size_t>(blockIdx.x)
+                               * vec_floats<D>(K);
   for (int idx = tid; idx < 6 * D; idx += NTHREADS) {
     const int s = idx / D, d = idx % D;            // s: ln0_s .. lnf_b
     float acc_s = 0.f;
-    for (int wp = 0; wp < NWARPS; ++wp) acc_s += sums[(wp * 6 + s) * D + d];
-    const int off = s < 4 ? (s / 2) * (4 + k) * D + (s % 2) * D
-                          : 2 * (4 + k) * D + (s - 4) * D;
+    for (int wp = 0; wp < NWARPS; ++wp) acc_s += lns[(wp * 6 + s) * D + d];
+    const int off = s < 4 ? (s / 2) * (4 + K) * D + (s % 2) * D
+                          : 2 * (4 + K) * D + (s - 4) * D;
     out[off + d] = acc_s;
   }
-  for (int idx = tid; idx < 2 * (k + 2) * D; idx += NTHREADS) {
+  for (int idx = tid; idx < 2 * (K + 2) * D; idx += NTHREADS) {
     const int s = idx / D, d = idx % D;
-    const int i = s / (k + 2), j = s % (k + 2);    // j: taps, dwb, pwb
-    const int jj = j < k ? j : MAX_K;
+    const int i = s / (K + 2), j = s % (K + 2);    // j: taps, dwb, pwb
+    const int jj = j < K ? j : MAX_K;
     float acc_s = 0.f;
-    for (int p = 0; p < S::NPART; ++p)
-      acc_s += sums[S::ACC_LN + (p * 2 + i) * (MAX_K + 1) * D + jj * D + d];
-    out[i * (4 + k) * D + (2 + j) * D + d] =
-        j == k + 1 ? 0.f : acc_s;                  // pwb: wgrad_tc's
+    for (int p = 0; p < 2 * S::NPART; ++p)
+      acc_s += dw_sums[(p * 2 + i) * (MAX_K + 1) * D + jj * D + d];
+    out[i * (4 + K) * D + (2 + j) * D + d] =
+        j == K + 1 ? 0.f : acc_s;                  // pwb: wgrad_tc's
   }
 }
 
@@ -1269,7 +1284,9 @@ int launch_tc_wide(const void* x, const float* pe, const float* packed,
   using bf16 = __nv_bfloat16;
   const int sms = sm_count();
   const int nseq = TM / L, tiles = (N + nseq - 1) / nseq;
-  const int blocks = tiles < sms ? tiles : sms;
+  // D = 64: two warpgroups a block, each on tiles of its own
+  const int units = D == 64 ? (tiles + 1) / 2 : tiles;
+  const int blocks = units < sms ? units : sms;
   cudaError_t err;
   if constexpr (D == 256) {   // the overload without k
     void (*kern)(const bf16*, const float*, const float*, const bf16*,
@@ -1289,25 +1306,23 @@ int launch_tc_wide(const void* x, const float* pe, const float* packed,
         static_cast<const bf16*>(x), pe, packed,
         static_cast<const bf16*>(pw), mask, zmask, static_cast<const bf16*>(g),
         static_cast<bf16*>(gx), bufs, N, G, L, nseq, drop);
-  } else {
-    constexpr int smem = EncTcW<D>::SMEM;
+  } else {    // D = 64: a block's two warpgroups take tiles of their own
     void (*kern)(const bf16*, const float*, const float*, const bf16*,
                  const float*, const float*, const bf16*, bf16*, TcWideBufs,
-                 int, int, int, int, int, Dropout) =
-        encoder_bwd_tc_wide_kernel<1, D>;
+                 int, int, int, int, Dropout) = encoder_bwd_tc64_kernel<1>;
     switch (k) {
-      case 3: kern = encoder_bwd_tc_wide_kernel<3, D>; break;
-      case 5: kern = encoder_bwd_tc_wide_kernel<5, D>; break;
-      case 7: kern = encoder_bwd_tc_wide_kernel<7, D>; break;
-      case 9: kern = encoder_bwd_tc_wide_kernel<9, D>; break;
+      case 3: kern = encoder_bwd_tc64_kernel<3>; break;
+      case 5: kern = encoder_bwd_tc64_kernel<5>; break;
+      case 7: kern = encoder_bwd_tc64_kernel<7>; break;
+      case 9: kern = encoder_bwd_tc64_kernel<9>; break;
       default: break;
     }
-    if ((err = allow_smem(kern, smem)) != cudaSuccess)
+    if ((err = allow_smem(kern, Enc64::SMEM)) != cudaSuccess)
       return static_cast<int>(err);
-    kern<<<blocks, NTHREADS, smem, stream>>>(
+    kern<<<blocks, NTHREADS, Enc64::SMEM, stream>>>(
         static_cast<const bf16*>(x), pe, packed,
         static_cast<const bf16*>(pw), mask, zmask, static_cast<const bf16*>(g),
-        static_cast<bf16*>(gx), bufs, N, G, L, k, nseq, drop);
+        static_cast<bf16*>(gx), bufs, N, G, L, nseq, drop);
   }
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(N) * L;
@@ -1353,11 +1368,13 @@ int launch_entry(const void* x, const void* pe, const void* packed,
 }  // namespace
 
 // As encoder_reduce_bwd_wide (encoder_bwd_wide.cu) at D = 64 or 256 in
-// bf16, with the same arguments: x, g, gx bf16; pw is [pw0; pw1] (2, D, D)
-// bf16 as they lie at D = 64, [pw0; pw1; pw0^T; pw1^T] (4, D, D) at 256;
+// bf16, with the same arguments: x, g, gx bf16; pw is unused at D = 64
+// (may be NULL: the kernel rounds pw0 and pw1 from packed) and
+// [pw0; pw1; pw0^T; pw1^T] (4, D, D) bf16 at 256;
 // gpw (2, D + 1, D), each layer's gpwb as its last row (gvec's pwb entries
 // are 0); c0, c1, gy0, gy1 bf16; vec_part (min(ceil(N / (64 / L)), SMs),
-// 2 (4 + k) D + 2 D, + EncTcW<64>::ACC + EncTcW<64>::H at D = 64) float32;
+// 2 (4 + k) D + 2 D) float32 (at D = 64 min(ceil(tiles / 2), SMs) rows: a
+// block's two warpgroups take tiles of their own);
 // wg_part (wg_chunks, D + 1, D); work unused (may be NULL).  is_bf16 must
 // be set.
 // dv: the true width, 4 <= dv <= D with 4 | dv, of inputs zero-padded to D

@@ -12,8 +12,8 @@
 // rows, 128-byte swizzle).  W is resident at D = 128 as 2 panels of 3D rows
 // (read MN-major) and at D = 64 transposed, as 3 panels of D rows (read
 // K-major: a warpgroup's 32 columns are half a swizzled row, which an
-// MN-major operand cannot start at); at D = 256 it streams
-// (wgmma.cuh mma_streamed_w).
+// MN-major operand cannot start at).  (The forward at D = 256,
+// tri_bridge_fwd.cu, has a design of its own.)
 #pragma once
 
 #include "philox.cuh"

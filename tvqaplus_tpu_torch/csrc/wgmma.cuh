@@ -550,81 +550,8 @@ __device__ __forceinline__ void tc_keep_bits(const Dropout& drop,
   }
 }
 
-// ---- W streamed through shared memory (the D = 256 tri bridge forward) ----
-//
-// At D = 256 no forward keeps its weight resident (W is 3D x D = 384 KB in
-// bf16), so the product reads it through a ring of two stages of KP rows,
-// one stage loading while the tensor cores multiply the other.  A stage
-// is KP rows x D bf16 as D / 64 panels of KP rows (128-byte swizzle), read
-// MN-major.  (The encoder and attention forwards take W through the copy
-// engine's ring below.)
-
-template <int D, int KP>
-__host__ __device__ constexpr int stream_stage_bytes() { return KP * D * 2; }
-
-// Stage p of W (K x D row-major in device memory; float32 rounded to bf16
-// as it is stored, or bf16 copied by cp.async and waited for) into st;
-// every thread of the block.
-template <int D, int KP>
-__device__ __forceinline__ void stream_put(uint8_t* st, const float* W,
-                                           int p) {
-  tc_store_rows_f32<D>(st, KP, W + static_cast<size_t>(p) * KP * D, D,
-                       threadIdx.x, NTHREADS);
-}
-template <int D, int KP>
-__device__ __forceinline__ void stream_put(uint8_t* st,
-                                           const __nv_bfloat16* W, int p) {
-  tc_load_rows<D>(st, KP, W + static_cast<size_t>(p) * KP * D, D, KP,
-                  threadIdx.x, NTHREADS);
-  tc::cp_async_commit();
-  tc::cp_async_wait<0>();
-}
-
-// acc (64 x 128, the warpgroup's columns [128 wg, 128 wg + 128)) = A W,
-// with A the 64 x K bf16 tile at shared address a_addr (K-major, K / 64
-// panels of TILE_PANEL) and W (K x D) streamed through the two stages at
-// `stages` (1024-byte aligned).  Every thread of the block calls it: it
-// synchronises the block.  The loop over the K / KP stages unrolls, so that
-// the products are not serialised behind a run-time loop.
-template <int D, int K, int KP, typename TW>
-__device__ __forceinline__ void mma_streamed_w(float (&acc)[64],
-                                               uint32_t a_addr, const TW* W,
-                                               uint8_t* stages, int wg) {
-  constexpr int STAGE = stream_stage_bytes<D, KP>();
-  constexpr int PANEL = KP * tc::ROW_BYTES;
-  constexpr int NS = K / KP;
-  static_assert(K % KP == 0 && KP % 16 == 0 && D == 256, "stream shape");
-  stream_put<D, KP>(stages, W, 0);
-  tc::fence_async_smem();
-  __syncthreads();
-#pragma unroll
-  for (int p = 0; p < NS; ++p) {
-    const uint32_t st = tc::smem_u32(stages + (p & 1) * STAGE);
-    tc::fence();
-#pragma unroll
-    for (int s = 0; s < KP / 16; ++s) {
-      const int ks = p * (KP / 16) + s;
-      tc::mma_ss<128, 0, 1>(
-          acc, tc::make_desc(a_addr + (ks / 4) * TILE_PANEL + (ks % 4) * 32,
-                             16),
-          tc::make_desc(st + 2 * wg * PANEL + s * 2 * tc::ATOM_BYTES, PANEL),
-          p > 0 || s > 0);
-    }
-    tc::commit();
-    if (p + 1 < NS) {
-      tc::wait<1>();                   // the other stage's products are done
-      __syncthreads();                 // ... in both warpgroups
-      stream_put<D, KP>(stages + ((p + 1) & 1) * STAGE, W, p + 1);
-      tc::fence_async_smem();
-      __syncthreads();
-    }
-  }
-  tc::wait_all();
-  tc::fence_regs(acc);
-}
-
 // ---- W through a ring of slabs fed by the copy engine (the D = 256
-// encoder and attention forwards) -------------------------------------------
+// forwards) -----------------------------------------------------------------
 //
 // W (K x 256) is rounded to bf16 once a call into K / 32 SLABS of 16 KB
 // (w_slab_pack_kernel), each 32 rows of W as it lies in shared memory: four

@@ -139,28 +139,16 @@ TC_SUMS = (8 * 6 + 2 * 2 * 10) * 128 + 64 * 256
 
 
 
-def wide_tc_sums(d):
-    """The same for the tensor-core backward at D = 64
-    (csrc/encoder_bwd_tc_wide.cu ``EncTcW<64>::ACC + H``): the LN sums of 8
-    warps, the taps' sums of each of 256 / D column-pass parts, and the h
-    stash of D / 4 floats a thread; 0 at D = 256, whose kernel keeps them
-    on the SM."""
-    if d == 256:
-        return 0
-    return (8 * 6 + 256 // d * 2 * 10) * d + d // 4 * 256
-
-
 def wide_tc_launch(n, length, k, d, sms):
-    """What the bf16 backward at D = 64 or 256 (csrc/encoder_bwd_tc_wide.cu)
-    takes beside its inputs, for n sequences of ``length`` on ``sms``
-    multiprocessors: the packed pointwise matrices (2 at D = 64, [pw0; pw1];
-    4 at 256, [pw0; pw1; pw0^T; pw1^T]), the persistent grid (one block an
-    SM over tiles of 64 // length sequences) and the floats of a block's
-    ``vec_part`` row (its slot of parameter sums, then at D = 64 its
-    running sums and h stash)."""
-    blocks = min(-(-n // (64 // length)), sms)
-    nv = (2 * (4 + k) + 2) * d
-    return (4 if d == 256 else 2), blocks, nv + wide_tc_sums(d)
+    """The grid of the bf16 backward at D = 64 or 256
+    (csrc/encoder_bwd_tc_wide.cu) for n sequences of ``length`` on ``sms``
+    multiprocessors (one block an SM over tiles of 64 // length sequences;
+    at D = 64 a block's two warpgroups take tiles of their own) and the
+    floats of a block's ``vec_part`` row (its slot of parameter sums: both
+    kernels keep every running sum on the SM)."""
+    tiles = -(-n // (64 // length))
+    blocks = min(-(-tiles // 2) if d == 64 else tiles, sms)
+    return blocks, (2 * (4 + k) + 2) * d
 
 
 class _StashConv(torch.autograd.Function):
@@ -405,41 +393,41 @@ def _backward(x, pe, packed, reduce_mask, zero_mask, g, k, dropout_rate,
     nv = (2 * (4 + k) + 2) * d
     blocks = min(n, sm_count(x.device))
     gx = torch.empty_like(x)
-    gvec = torch.empty(nv, **f32)
     tc = x.dtype == torch.bfloat16     # the tensor-core kernel
-    if d != 128:
-        # the c and g_y rows of the weight gradient in x's type
-        chunks = tc_wgrad_chunks(n * l, d, d) if tc \
-            else wgrad_chunks(n * l, d, d=d)
-        gpw = torch.empty(2, d + tc, d, **f32)      # [gpw; gpwb] in bf16
-        rows_out = [torch.empty(n * l, d, dtype=x.dtype, device=x.device)
-                    for _ in range(4)]
-        if tc:
-            # csrc/encoder_bwd_tc_wide.cu: [pw0; pw1] in bf16 as they lie,
-            # at D = 256 then [pw0^T; pw1^T] (its backward products stream
-            # them); at D = 64 the blocks' running sums and h stashes
-            # behind their slots
-            mats, blocks, row = wide_tc_launch(n, l, k, d,
-                                               sm_count(x.device))
-            pw = torch.stack((pws + [t.t() for t in pws])[:mats]).to(
-                torch.bfloat16)
-            scratch = rows_out + [
-                torch.empty(blocks, row, **f32), None,
-                torch.empty(chunks, d + 1, d, **f32)]
-            kernel = (BLOCK_BWD_BY_WIDTH if full else BWD_BY_WIDTH)[d]
-        else:
-            # csrc/encoder_bwd_wide.cu: [pw0^T; pw1^T], and at D = 256 the
-            # per-block scratch of a sequence's seven L x D buffers
-            pw = torch.stack([t.t() for t in pws]).contiguous()
-            work = widths.encoder_bwd_work_floats(d, l)
-            scratch = rows_out + [
-                torch.empty(blocks, nv, **f32),
-                torch.empty(blocks, work, **f32) if work else None,
-                torch.empty(chunks, d, d, **f32)]
-            kernel = (F32_BLOCK_BWD_BY_WIDTH if full
-                      else F32_BWD_BY_WIDTH)[d]
+    if d != 128 and tc:
+        # csrc/encoder_bwd_tc_wide.cu: at D = 64 the kernel rounds pw0 and
+        # pw1 from packed as it loads them; at 256 [pw0; pw1; pw0^T;
+        # pw1^T] in bf16 (its backward products stream them); the c and
+        # g_y rows of the weight gradient in bf16
+        chunks = tc_wgrad_chunks(n * l, d, d)
+        blocks, row = wide_tc_launch(n, l, k, d, sm_count(x.device))
+        pw = None if d == 64 else torch.stack(
+            pws + [t.t() for t in pws]).to(torch.bfloat16)
+        gvec = torch.empty(nv, **f32)
+        gpw = torch.empty(2, d + 1, d, **f32)       # [gpw; gpwb] a layer
+        scratch = [torch.empty(n * l, d, dtype=x.dtype, device=x.device)
+                   for _ in range(4)] + [
+            torch.empty(blocks, row, **f32), None,
+            torch.empty(chunks, d + 1, d, **f32)]
+        kernel = (BLOCK_BWD_BY_WIDTH if full else BWD_BY_WIDTH)[d]
+        dims = (n, grp, l, k, d) if full else (n, l, k, d)
+    elif d != 128:
+        # csrc/encoder_bwd_wide.cu: [pw0^T; pw1^T], the c and g_y rows of
+        # the weight gradient, and at D = 256 the per-block scratch of a
+        # sequence's seven L x D buffers
+        gvec = torch.empty(nv, **f32)
+        chunks = wgrad_chunks(n * l, d, d=d)
+        gpw = torch.empty(2, d, d, **f32)
+        pw = torch.stack([t.t() for t in pws]).contiguous()
+        work = widths.encoder_bwd_work_floats(d, l)
+        scratch = [torch.empty(n * l, d, **f32) for _ in range(4)] + [
+            torch.empty(blocks, nv, **f32),
+            torch.empty(blocks, work, **f32) if work else None,
+            torch.empty(chunks, d, d, **f32)]
+        kernel = (F32_BLOCK_BWD_BY_WIDTH if full else F32_BWD_BY_WIDTH)[d]
         dims = (n, grp, l, k, d) if full else (n, l, k, d)
     elif tc:
+        gvec = torch.empty(nv, **f32)
         # [pw0; pw1] as they lie, and the c and g_y rows of the weight
         # gradient in bf16: the kernel rounds them before that product anyway
         pw = torch.stack(pws).to(torch.bfloat16)
@@ -451,6 +439,7 @@ def _backward(x, pe, packed, reduce_mask, zero_mask, g, k, dropout_rate,
             torch.empty(blocks, nv + TC_SUMS, **f32),
             torch.empty(chunks, d + 1, d, **f32)]
     else:
+        gvec = torch.empty(nv, **f32)
         pw = torch.stack([t.t() for t in pws]).contiguous()
         chunks = wgrad_chunks(n * l, d)
         gpw = torch.empty(2, d, d, **f32)
@@ -459,7 +448,8 @@ def _backward(x, pe, packed, reduce_mask, zero_mask, g, k, dropout_rate,
     if d == 128:
         kernel, dims = (BLOCK_BWD_KERNEL, (n, grp, l, k)) if full \
             else (BWD_KERNEL, (n, l, k))
-    kernel.launch(x.device, ptr(x), ptr(pe32), ptr(packed32), ptr(pw),
+    kernel.launch(x.device, ptr(x), ptr(pe32), ptr(packed32),
+                  None if pw is None else ptr(pw),
                   None if m32 is None else ptr(m32), ptr(g), ptr(gx),
                   ptr(gvec), ptr(gpw),
                   *(None if t is None else ptr(t) for t in scratch), *dims,

@@ -44,7 +44,7 @@ _U32, _L = ctypes.c_uint, ctypes.c_longlong
 # the dropout, the true width, the compute mode and the stream
 _TAIL = [_P, _U32, _F, _I, _I, _P]
 FWD_BY_WIDTH = {d: CudaKernel("tri_bridge_fwd.cu", "tri_bridge_fwd",
-                              [_P] * 9 + [_L, _I] + _TAIL)
+                              [_P] * 10 + [_L, _I] + _TAIL)
                 for d in widths.FORWARD_WIDTHS}
 KERNEL = FWD_BY_WIDTH[128]
 BWD_KERNEL = CudaKernel("tri_bridge_bwd.cu", "tri_bridge_bwd",
@@ -138,6 +138,14 @@ def _check(s, v, params, backward=False):
     return params
 
 
+def slab_scratch(s):
+    """The forward's ``wp``: W rounded to bf16 slabs once a call (the bf16
+    kernel at D = 256, ``widths.slab_scratch``), else None."""
+    if s.dtype != torch.bfloat16:
+        return None
+    return widths.slab_scratch("tri_bridge", s.shape[-1], s.device)
+
+
 class _TriBridge(torch.autograd.Function):
     """The forward and backward CUDA kernels as one differentiable op."""
 
@@ -147,8 +155,12 @@ class _TriBridge(torch.autograd.Function):
         params = _check(s, v, (gamma_in, beta_in, w, b, gamma_out, beta_out))
         out = torch.empty_like(s)
         d = s.shape[-1]
-        FWD_BY_WIDTH[d].launch(s.device, ptr(s), ptr(v),
-                               *(ptr(p) for p in params), ptr(out),
+        gin, bin_, w32, *rest = params
+        wp = slab_scratch(s)
+        FWD_BY_WIDTH[d].launch(s.device, ptr(s), ptr(v), ptr(gin),
+                               ptr(bin_), ptr(w32),
+                               None if wp is None else ptr(wp),
+                               *(ptr(p) for p in rest), ptr(out),
                                s.numel() // d, d,
                                *philox.kernel_args(dropout_rate, seed), dv,
                                int(s.dtype == torch.bfloat16), dv=dv)

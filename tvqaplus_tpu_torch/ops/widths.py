@@ -6,20 +6,21 @@ The three forward families (``csrc/qa_ctx_attention_fwd.cu``,
 parameter and are built for 64, 128 and 256; one C entry per family takes D
 and refuses any other width.  At D = 64 and 128 each bf16 (tensor-core)
 kernel keeps its weight resident in shared memory ("resident"); at D = 256
-it does not fit, so the weight streams ("streamed"): the tri bridge's
-through two stages (``csrc/wgmma.cuh`` ``mma_streamed_w``), the encoder's
-and the attention's rounded to bf16 once a call into slabs of 32 rows
-(``slab_scratch``) that the copy engine brings through a ring
-(``SlabRing``), shared by the two CTAs of a cluster.
+it does not fit, so the weight streams ("streamed"): rounded to bf16 once
+a call into slabs of 32 rows (``slab_scratch``) that the copy engine
+brings through a ring, the encoder's and the attention's shared by the
+two CTAs of a cluster (``SlabRing``), the tri bridge's by the block's two
+warpgroups, each on 64 rows of its own (``csrc/tri_bridge_fwd.cu``
+``TriRing``).
 
 The three backward families are built for the same widths: at D = 128 the
 tensor-core designs of ``csrc/*_bwd.cu`` (bf16) beside their CUDA-core
 float32 kernels, and at D = 64 and 256 ``csrc/*_bwd_wide.cu`` and
 ``csrc/encoder_bwd_tc_wide.cu``.  Every bf16 backward runs on the tensor
 cores: the tri bridge and the encoder at both widths (the weights resident
-at 64, streamed at 256; the encoder's 64-row tiles with the columns
-split; the tri bridge's W at 256 in bf16 slabs through a ring the copy
-engine feeds), the attention at 256 (its warpgroup columns in two
+at 64, streamed at 256; the encoder's warpgroups on 64-row tiles of their
+own at 64 and splitting a tile's columns at 256; the tri bridge's W at 256
+in bf16 slabs through a ring the copy engine feeds), the attention at 256 (its warpgroup columns in two
 quarters) and at 64 (the two warpgroups on rows of their own).  Every bf16
 weight gradient is the tensor-core pass of ``csrc/wgrad_tc.cuh``, whose
 width is an argument (the same kernel at 64, 128 and 256).
@@ -69,6 +70,10 @@ TRI256_SLOTS, TRI256_RING, TRI256_AHEAD, TRI256_SLAB = 11, 7, 6, 16384
 # cluster of CLUSTER CTAs sharing each slab
 SLAB_ROWS, SLAB_BYTES, CLUSTER = 32, 16384, 2
 ENC256_FWD_SLOTS, ATT256_FWD_SLOTS = 7, 4
+# the tri bridge's bf16 forward at D = 256 (csrc/tri_bridge_fwd.cu
+# TriFwd256): the same slabs through TRI256_FWD_SLOTS slots, which the
+# block's two warpgroups share (no cluster)
+TRI256_FWD_SLOTS = 5
 
 
 MAX_WIDTH = 256
@@ -164,10 +169,13 @@ def tc_smem_bytes(family, d):
             return (2 * tile + yd + slots * SLAB_BYTES + 2 * slots * 8
                     + 2 * _TM * 2 * 4 + _TM * 4 + _ATOM)
         return w_bytes + 2 * tile + 2 * yd + (_TM + d) * 4 + _ATOM
-    if family == "tri_bridge":   # TriTc
-        head = 2 * _stage(d, 32) if d == 256 else w_bytes
-        bufs = 1 if d == 256 else 2
-        return (head + bufs * 2 * tile + 3 * panels * tile_panel
+    if family == "tri_bridge":
+        if d == 256:      # TriFwd256: s and v of each warpgroup's rows, the
+            # ring, its barriers and count, gin, bin, bias, gout, bout
+            slots = TRI256_FWD_SLOTS
+            return (2 * 2 * tile + slots * SLAB_BYTES + 2 * slots * 8 + 16
+                    + 9 * d * 4 + _ATOM)
+        return (w_bytes + 2 * 2 * tile + 3 * panels * tile_panel  # TriTc
                 + 2 * 2 * _TM * 2 * 4 + 9 * d * 4 + _ATOM)
     if family == "encoder":
         if d == 256:      # EncWide: R1, c (and x), the ring, its
@@ -185,11 +193,13 @@ def tc_smem_bytes(family, d):
 def slab_scratch(family, d, device):
     """The bf16 buffer a bf16 forward of ``family`` at width ``d`` rounds
     its weight into once a call (its C entry's ``wp``): at D = 256 the
-    encoder's pw0 and pw1 (2 x 256 rows), the attention's W (768 rows), in
-    slabs of SLAB_ROWS rows; None where the kernel takes no slabs."""
+    encoder's pw0 and pw1 (2 x 256 rows), the attention's and the tri
+    bridge's W (768 rows), in slabs of SLAB_ROWS rows; None where the
+    kernel takes no slabs."""
     import torch
     check_forward_width(family, d)
-    rows = {"encoder": 2 * d, "qa_ctx_attention": 3 * d}.get(family)
+    rows = {"encoder": 2 * d, "qa_ctx_attention": 3 * d,
+            "tri_bridge": 3 * d}.get(family)
     if d != 256 or rows is None:
         return None
     return torch.empty(rows * d, dtype=torch.bfloat16, device=device)
@@ -261,10 +271,15 @@ def bwd_smem_bytes(family, d, dtype="bfloat16", lr=_MAX_LR, length=_MAX_LEN,
                 + 2 * (_MAX_K + 1) * d * 4 + 6 * d * 4 + 2 * _TM * 4
                 + 2 * 2 * _TM * 2 * 4 + _ATOM)
     if dtype == "bfloat16" and family == "encoder" and d == 64:
-        # EncTcW<64>: R1 (64 x D float32), the c / t and g_y tiles, pw's 32
-        # KB (resident), v and m, two exchange rounds
-        return (_TM * d * 4 + 2 * tile + 32768 + 2 * _TM * 4
-                + 2 * 2 * _TM * 2 * 4 + _ATOM)
+        # Enc64: pw0 and pw1 (resident); a room a warpgroup (the c and t
+        # tiles in bf16, R1, g_t and the h stash in float32, v and m;
+        # rounded to an atom); the LN sums of 8 warps, the depthwise sums
+        # of each warpgroup's two column-pass halves of both layers (9 taps
+        # and dwb)
+        room = -(-(2 * tile + 3 * _TM * d * 4 + 2 * _TM * 4) // _ATOM) \
+            * _ATOM
+        return (2 * d * _ROW + 2 * room + _NWARPS * 6 * d * 4
+                + 2 * 2 * 2 * (_MAX_K + 1) * d * 4 + _ATOM)
     if d == 128 and dtype == "bfloat16":     # the tensor-core designs
         if family == "qa_ctx_attention":     # qa_ctx_bwd_tc_kernel
             return (w_bytes + 5 * tile + 32 * 256 * 4 + 2 * 2 * _TM * 2 * 4
