@@ -37,7 +37,9 @@ toolkit.  Phases, each printing one JSON line:
              against their plain versions in float32 and bfloat16, dropout 0
              and 0.1, and timed as in 3; their launches are phase 9w's.  The
              tri bridge's forward at dropout 0.1 (a train step's) is a row
-             of its own, its launches the train path's (phase 9t).
+             of its own, its launches the train path's (phase 9t), and so
+             is the attention's at D = 64 (the persistent kernel's
+             instantiation with the Philox draws).
 4. kernels (training) - each forward kernel with dropout 0.1 (the vid
              attention site in raw mode "target") and each backward kernel
              at the headline training shapes, against the plain version
@@ -166,7 +168,13 @@ Data parallelism (``tvqaplus_tpu_torch/parallel/mesh.py``):
              for bit, the serve step's answers and spans identical and its
              grounding at 1e-4; one bf16 forward at FWD_TOL; each rank's
              eager step ms and the bytes its all-gathers received beside
-             the single process's.
+             the single process's.  The (1, 1, 2) case at hsz 256 also
+             records where its first-step gap to one process arises
+             (ROADMAP C8): every parameter's gradient before the clip and
+             every module's first output, in the forward's order, against
+             one process and against one process that takes the model
+             axis's column blocks (``c8_bisect``; a record, held to no
+             bar).
 
 The kernels' other hidden widths (ops/widths.py):
 4w. kernel_train_width - the backward kernels of the attention (vid raw
@@ -746,9 +754,12 @@ def phase_kernels(dev, d=D, rates=(0.0,), dnames=("float32", "bfloat16")):
         emit({"phase": "kernel" if d == D else "kernel_width", "ok": True,
               **{k: v for k, v in row.items() if k != "_key"}})
         rows.append(row)
-        if d != D and case.key == "tri_bridge" and len(rates) > 1:
-            # the dropout variant a train step at this width launches: a
-            # row of its own, its launches the train path's
+        if len(rates) > 1 and (d != D and case.key == "tri_bridge"
+                               or d == 64 and case.key == "qa_ctx_attention"):
+            # the dropout variant a train step at this width launches (the
+            # tri bridge's at every width but 128, the attention's
+            # persistent kernel at 64: an instantiation of its own), a row
+            # of its own, its launches the train path's
             kwd = {**kw, "dropout_rate": rates[1], "seed": DROP_SEED}
             drow = {**{k: v for k, v in row.items()
                        if not k.endswith("_dropout") and "f32" not in k},
@@ -1125,24 +1136,31 @@ def profiled_window(step, n):
 def check_tc_forwards(step, names, merged, d=D):
     """The bf16 step's trace shows the tensor-core forwards at width ``d``
     (the encoder's cls_encoder at k 5, on the merged path the input encoder
-    at k 7 too, and the tri bridge) and no CUDA-core forward of the encoder
-    or the tri bridge; returns the tensor-core forwards' names."""
+    at k 7 too, and the tri bridge; at D = 64 the attention's persistent
+    kernel) and no CUDA-core forward of the encoder or the tri bridge (at
+    D = 64 none of the attention's older design); returns the tensor-core
+    forwards' names."""
     tc = sorted(nm for nm in names
-                if "encoder_fwd_tc_" in nm or "tri_bridge_fwd_tc" in nm)
+                if "encoder_fwd_tc_" in nm or "tri_bridge_fwd_tc" in nm
+                or "qa_ctx_fwd_tc64_kernel" in nm)
     old = sorted(nm for nm in names if "encoder_fwd_kernel" in nm
-                 or "tri_bridge_fwd_kernel" in nm)
+                 or "tri_bridge_fwd_kernel" in nm
+                 or (d == 64 and "qa_ctx_fwd_tc_kernel<64" in
+                     nm.replace(" ", "")))
     # the instantiations <D, k>; D = 256 has its own kernels, the
     # encoder's <k> and the tri bridge's <DROP>
     enc = "encoder_fwd_tc_wide_kernel<" if d == 256 \
         else f"encoder_fwd_tc_kernel<{d},"
     tri = "tri_bridge_fwd_tc256_kernel<" if d == 256 \
         else f"tri_bridge_fwd_tc_kernel<{d}>"
-    want = [f"{enc}5>", tri] + [f"{enc}7>"] * merged
+    want = [f"{enc}5>", tri] + [f"{enc}7>"] * merged \
+        + ["qa_ctx_fwd_tc64_kernel<"] * (d == 64)
     flat = [nm.replace(" ", "") for nm in tc]
     missing = [w for w in want if not any(w in nm for nm in flat)]
     if missing or old:
         raise AssertionError(f"{step}: tensor-core forwards missing "
-                             f"{missing}, CUDA-core forwards launched {old}")
+                             f"{missing}, CUDA-core or older forwards "
+                             f"launched {old}")
     return [nm.replace("(anonymous namespace)::", "").replace("void ", "")
             .split("(")[0] for nm in tc]
 
@@ -1293,11 +1311,13 @@ def phase_wide_serving(dev, workdir, cfg, sd):
     point on the separate and the merged path, every forward kernel launched
     at that width and none at D = 128; the hsz-256 headline batch on the
     card against the CPU forward (phase 5's bars); the replayed serve steps
-    of hsz 128 (``cfg``, ``sd``: phase 5's), 256 and the padded widths
+    of hsz 128 (``cfg``, ``sd``: phase 5's), 256, 64 and the padded widths
     ``PADDED_WIDTHS``, both paths, equal to their eager steps and timed in
     turns (``serve_step_rows``; ``scripts/train_step_turns.py --serve``
     times the hsz-256 and -200 steps of a tree against another's), with the
-    device's busy time; a padded width's trace holds its instantiation's
+    device's busy time, each trace holding its width's tensor-core
+    forwards (``check_tc_forwards``: at 64 the attention's own kernel, not
+    the D = 128 design's); a padded width's trace holds its instantiation's
     kernels, counted under its own width (one replay's launches).  Returns
     the launches of each width's runs by counter key."""
     t_phase = time.perf_counter()
@@ -1327,7 +1347,7 @@ def phase_wide_serving(dev, workdir, cfg, sd):
               for name, merged in (("separate", False), ("merged", True))}
     replay, padded = {}, {}
     steps = serve_steps(dev, {hsz: models[hsz]
-                              for hsz in (D, WIDE_HSZ) + PADDED_WIDTHS})
+                              for hsz in (D, WIDE_HSZ, 64) + PADDED_WIDTHS})
     for name, (step, runner, batch) in steps.items():
         replay[name] = replay_equals_eager(runner, batch)
         hsz = int(name[3:name.index("_")])
@@ -1359,8 +1379,9 @@ def phase_wide_serving(dev, workdir, cfg, sd):
 
 # the kernels a train step at a width other than 128 must show in its trace
 # (bf16): the backwards of csrc/*_bwd_wide.cu and encoder_bwd_tc_wide.cu,
-# all on the tensor cores (the attention's and its gq kernel and the
-# encoder's at D = 64 and the tri bridge's at 256 of their own design),
+# all on the tensor cores (the attention's and its gq kernel, the
+# encoder's and the tri bridge's at D = 64 and the tri bridge's at 256 of
+# their own design),
 # and their tensor-core
 # weight gradient (wgrad_tc.cuh, shared by every width: its width is an
 # argument, its column tile 64 at D = 64 and 128 above); and the D = 128
@@ -1370,7 +1391,7 @@ def wide_bwd_trace(d):
     att = (("qa_ctx_bwd_tc_wide_kernel<", f"qa_ctx_gq_wide_kernel<{bf},{bf},256>",
             "tri_bridge_bwd_tc256_kernel") if d == 256 else
            ("qa_ctx_bwd_tc64_kernel<", "qa_ctx_gq_tc64_kernel",
-            f"tri_bridge_bwd_tc_wide_kernel<{d}>"))
+            "tri_bridge_bwd_tc64_kernel"))
     enc = "encoder_bwd_tc64_kernel<5>" if d == 64 \
         else f"encoder_bwd_tc_wide_kernel<5,{d}>"
     return att + (enc, f"wgrad_tc_kernel<{64 if d == 64 else 128}>")
@@ -2821,6 +2842,141 @@ MESH_GROUNDING_TOL = 1e-4
 # backward summed over the two model ranks would give 1.0
 MESH_WIDE_HSZ = 256
 MESH_WIDE_GRAD_REL_L2 = 1e-2
+# the bisect of that gap (ROADMAP C8): each module's first output is held
+# at a fixed stride of at most this many values; a layer "parts" from
+# another run above BISECT_PARTS relative L2
+BISECT_SAMPLES = 1 << 16
+BISECT_PARTS = 1e-5
+
+
+def first_step_record(trainer, train, mesh):
+    """One train step of ``trainer`` on ``train`` that also records, for
+    the bisect of the model axis's gap (ROADMAP C8), every module's first
+    output (float32, a fixed stride of at most BISECT_SAMPLES values) and
+    every parameter's gradient before the clip (a weight the model axis
+    splits gathered whole), each parameter placed at the innermost module
+    holding it that ran, in the forward's order.  Returns (metrics,
+    record)."""
+    from tvqaplus_tpu_torch.parallel import mesh as dp
+    from tvqaplus_tpu_torch.train import loop
+    model = trainer.model
+    calls, acts, hooks = {}, {}, []
+
+    def hook(name):
+        def record(mod, args, out):
+            if name in calls:
+                return
+            calls[name] = len(calls)
+            t = out if torch.is_tensor(out) else next(
+                (o for o in (out if isinstance(out, (tuple, list)) else ())
+                 if torch.is_tensor(o)), None)
+            if t is not None and t.is_floating_point():
+                flat = t.detach().float().reshape(-1)
+                acts[name] = flat[::max(1, flat.numel() // BISECT_SAMPLES)][
+                    :BISECT_SAMPLES].cpu()
+        return record
+    for name, mod in model.named_modules():
+        if name:
+            hooks.append(mod.register_forward_hook(hook(name)))
+    pre = {}
+    clip = loop.clip_grad_norm
+
+    def capture(params, *args, **kw):
+        pre.update({id(p): p.grad.detach().clone() for p in params
+                    if p.grad is not None})
+        return clip(params, *args, **kw)
+    loop.clip_grad_norm = capture
+    try:
+        metrics = trainer.train_step(train, True)
+    finally:
+        loop.clip_grad_norm = clip
+        for h in hooks:
+            h.remove()
+    dims = {name: dim for name, dim in dp.sharded_parameters(
+        _stage(trainer.cfg), 2).items() if name in model.shards}
+    grads, at = {}, {}
+    for k, (name, p) in enumerate(model.named_parameters()):
+        if id(p) not in pre:
+            continue
+        g = pre[id(p)]
+        grads[name] = (dp._gather_full(mesh, g, dims[name]) if name in dims
+                       else g).cpu()
+        owner = name.rsplit(".", 1)[0]
+        while owner not in calls and "." in owner:
+            owner = owner.rsplit(".", 1)[0]
+        at[name] = (calls.get(owner, len(calls)), k)
+    return metrics, {"grads": grads, "order": sorted(grads, key=at.get),
+                     "acts": acts, "act_order": sorted(acts, key=calls.get)}
+
+
+def halves_dense(model):
+    """``models/layers.py`` ``dense`` for the one process that takes the
+    model axis's order of float32 sums (the bisect of ROADMAP C8): each
+    dense layer the axis splits by columns takes its two column blocks as
+    two products (the two ranks' shapes), whose input gradients autograd
+    sums as the ranks' all-reduce does, before the whole bias."""
+    import torch.nn.functional as F
+    from tvqaplus_tpu_torch.models import layers
+    from tvqaplus_tpu_torch.parallel import mesh as dp
+    real = layers.dense
+    split = set()
+    for name in dp.sharded_parameters(model, 2):
+        layer, whole = dp._split_layer(model, name)
+        if not whole:
+            split.add(id(layer))
+
+    def dense(x, lin, dtype):
+        if id(lin) not in split:
+            return real(x, lin, dtype)
+        xx = x.to(dtype)
+        xx = xx.view_as(xx)           # one node takes both blocks' grads
+        w = lin.weight.to(dtype)
+        n = w.shape[0] // 2
+        h = torch.cat([F.linear(xx, w[:n].clone()),
+                       F.linear(xx, w[n:].clone())], -1)
+        return h + lin.bias.to(dtype)
+    return dense
+
+
+def rel_l2(got, want):
+    den = float(want.norm())
+    num = float((got - want).norm())
+    return num / den if den else (0.0 if num == 0.0 else math.inf)
+
+
+def bisect_report(ranks, single, halves):
+    """The bisect of ROADMAP C8: for each parameter (its gradient before
+    the clip) and each module output, in the forward's order, the relative
+    L2 gap of rank 0 against the single process, against the single
+    process that takes the ranks' order of sums (``halves``), and of rank
+    1 against rank 0; and for each comparison the first layer that parts
+    above BISECT_PARTS."""
+    r0, r1 = ranks[0]["wide"]["bisect"], ranks[1]["wide"]["bisect"]
+    pairs = {"rank0_vs_single": single, "rank0_vs_halves": halves}
+    out = {"params": [], "acts": [], "first_param_over": {},
+           "first_act_over": {}, "max_param": {}, "max_act": {}}
+    for name in r0["order"]:
+        row = {"name": name, "split": name in ranks[0]["wide"]["grads"],
+               "rank1_vs_rank0": rel_l2(r1["grads"][name], r0["grads"][name])}
+        for key, ref in pairs.items():
+            row[key] = rel_l2(r0["grads"][name], ref["grads"][name])
+        out["params"].append(row)
+    for name in r0["act_order"]:
+        row = {"name": name,
+               "rank1_vs_rank0": rel_l2(r1["acts"][name], r0["acts"][name])}
+        for key, ref in pairs.items():
+            row[key] = rel_l2(r0["acts"][name], ref["acts"][name])
+        out["acts"].append(row)
+    for key in (*pairs, "rank1_vs_rank0"):
+        for kind in ("param", "act"):
+            rows = out[kind + "s"]
+            first = next((r for r in rows if r[key] > BISECT_PARTS), None)
+            out[f"first_{kind}_over"][key] = first and {
+                "name": first["name"], "rel_l2": first[key],
+                "index": rows.index(first), "of": len(rows)}
+            out[f"max_{kind}"][key] = max((r[key] for r in rows),
+                                          default=0.0)
+    return out
 
 
 def _staged(name, real):
@@ -2882,13 +3038,17 @@ def gloo_on_cuda(dev):
     return staged, counter
 
 
-def mesh_steps(job, mesh, dev, counter=None, serve=True):
+def mesh_steps(job, mesh, dev, counter=None, serve=True, halves=False):
     """What phase mesh_axes compares, on ``mesh`` (None: the single
     process): three eager train steps' losses and grad norms, the eager
     train step's ms (and the bytes its all-gathers received, and of them
     the whole-weight gathers'), the serve step's outputs and ms (float32,
-    dropout 0), and the bf16 forward's outputs (``serve``: those two)."""
+    dropout 0), and the bf16 forward's outputs (``serve``: those two).
+    Without ``serve`` (the model axis's case) the first step is recorded
+    for the bisect (``first_step_record``); ``halves``: the single process
+    takes the model axis's order of sums (``halves_dense``)."""
     from tvqaplus_tpu_torch.infer.predict import InferenceRunner
+    from tvqaplus_tpu_torch.models import layers
     from tvqaplus_tpu_torch.models.stage import STAGE, ModelConfig
     from tvqaplus_tpu_torch.parallel import mesh as dp
     from tvqaplus_tpu_torch.train.loop import Trainer
@@ -2903,19 +3063,31 @@ def mesh_steps(job, mesh, dev, counter=None, serve=True):
     trainer = Trainer(cfg, dev, model=model_of(cfg), mesh=mesh)
     trainer.graphs = None                  # eager: gloo is not captured
     out = {"train": []}
-    for i in range(MESH_TRAIN_STEPS):
-        m = trainer.train_step(train, True)
-        out["train"].append((float(m["loss"]), float(m["grad_norm"])))
-        if i == 0 and not serve:
-            # the first step's gradients of the weights the model axis
-            # splits, whole (after the clip), to hold against one process
-            shards = trainer.model.shards
-            split = dp.sharded_parameters(model_of(cfg), 2)
-            out["grads"] = {
-                name: (dp._gather_full(mesh, p.grad) if name in shards
-                       else p.grad).cpu()
-                for name, p in trainer.model.named_parameters()
-                if name in split}
+    real_dense = layers.dense
+    if halves:
+        layers.dense = halves_dense(trainer.model)
+    try:
+        for i in range(MESH_TRAIN_STEPS):
+            if i == 0 and not serve:   # the model axis's case: bisected
+                m, out["bisect"] = first_step_record(trainer, train, mesh)
+            else:
+                m = trainer.train_step(train, True)
+            out["train"].append((float(m["loss"]), float(m["grad_norm"])))
+            if i == 0 and not serve:
+                # the first step's gradients of the weights the model axis
+                # splits, whole (after the clip), to hold against one
+                # process
+                shards = trainer.model.shards
+                split = dp.sharded_parameters(model_of(cfg), 2)
+                out["grads"] = {
+                    name: (dp._gather_full(mesh, p.grad) if name in shards
+                           else p.grad).cpu()
+                    for name, p in trainer.model.named_parameters()
+                    if name in split}
+    finally:
+        layers.dense = real_dense
+    if halves:
+        return out
     if counter is not None:
         weights = {"bytes": 0}
         gather = dp.gather_weight
@@ -3200,10 +3372,16 @@ def phase_mesh_axes(dev, workdir, smi, dp_launches, dp_per_step):
     try:
         single = mesh_steps(job, None, dev)
         single_wide = mesh_steps(job["wide"], None, dev, serve=False)
+        halves_wide = mesh_steps(job["wide"], None, dev, serve=False,
+                                 halves=True)
         merged = merged_frames_vs_single(
             job["merged"], [r["merged_call"] for r in ranks], dev)
     finally:
         torch.use_deterministic_algorithms(False)
+    # where the model axis's first-step gap arises (ROADMAP C8): a record,
+    # held to no bar
+    bisect = bisect_report(ranks, single_wide["bisect"],
+                           halves_wide["bisect"])
     report, failed = {}, []
     # the model axis at hsz MESH_WIDE_HSZ: losses at MESH_STEP_RTOL's bars;
     # grad norms at its after-update bar from the first step on, since the
@@ -3300,7 +3478,10 @@ def phase_mesh_axes(dev, workdir, smi, dp_launches, dp_per_step):
                               "single_losses": single_wide["train"],
                               "single_train_step_ms": single_wide["train_ms"],
                               "ranks": wide},
+          "c8_bisect": {k: bisect[k] for k in (
+              "first_param_over", "first_act_over", "max_param", "max_act")},
           "two_process_s": spawn_s, "wall_s": time.perf_counter() - t0})
+    return bisect
 
 
 # ------------------------------------------- noun masks, void vectors

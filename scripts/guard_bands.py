@@ -21,8 +21,11 @@ rows and at 20,655 (more tiles than SMs, its rings run on into the next
 tile; the forward's last pair of tiles ragged or half empty); at D = 64
 the attention at M 1, 65 and 200 with Lr 1, 33 and 64 and the encoder
 at L 56 / k 9, L 5 / k 1 (12 sequences a tile) and 40 / k 5 over more
-tiles than two a SM, reduce and full output), where a tile is ragged, a
-ring runs on into the next tile or p0 fills its room.  A kernel's
+tiles than two a SM, reduce and full output; the attention's forward
+also at M 200 on 50 frames, where a warpgroup's run of frames crosses
+(b, tile) units, and at M 7 on one frame; the tri bridge at 1, 39, 65,
+193 and 40,001 rows, more tiles than the 396 warpgroups), where a tile is
+ragged, a ring runs on into the next tile or p0 fills its room.  A kernel's
 addressing
 depends only on its shapes and pointers, so a call captured in a CUDA graph
 writes where the eager call writes.
@@ -106,7 +109,8 @@ def run(cs, case, dt, gen_seed):
 
 
 # (family, shape): encoder (B, G, L, k, mode), attention at 256 and 64
-# (A, Lqa, Lr, raw), tri bridge at 256 (rows,)
+# (A, Lqa, Lr, raw[, Li], 3 frames unless given), tri bridge at 256 and
+# 64 (rows,)
 EDGES = [("encoder", (1, 7, 56, 9, "reduce")), ("encoder", (1, 7, 5, 1,
                                                            "block")),
          ("encoder", (2, 100, 40, 5, "reduce")),
@@ -123,7 +127,11 @@ EDGES = [("encoder", (1, 7, 56, 9, "reduce")), ("encoder", (1, 7, 5, 1,
          ("encoder64", (1, 7, 50, 7, "block")),
          ("attention64", (1, 1, 1, "none")),
          ("attention64", (5, 13, 33, "full")),
-         ("attention64", (5, 40, 64, "target"))]
+         ("attention64", (5, 40, 64, "target")),
+         ("attention64", (5, 40, 25, "full", 50)),
+         ("attention64", (1, 7, 32, "target", 1)),
+         ("tri64", (1,)), ("tri64", (39,)), ("tri64", (65,)),
+         ("tri64", (193,)), ("tri64", (40001,))]
 
 
 def edge_call(dev, family, shape):
@@ -134,7 +142,7 @@ def edge_call(dev, family, shape):
     from tvqaplus_tpu_torch.ops import encoder, qa_ctx_attention, tri_bridge
     gen = torch.Generator().manual_seed(25)
     d, bf = (64 if family.endswith("64") else 256), torch.bfloat16
-    family = family.replace("encoder64", "encoder")
+    family = family[:-2] if family.endswith("64") else family
 
     def rnd(*s, scale=1.0):
         return torch.randn(*s, generator=gen) * scale
@@ -170,12 +178,12 @@ def edge_call(dev, family, shape):
         out = tri_bridge.tri_bridge(*ins, 0.1, 12345)
         leaves = ins
     else:
-        a, lqa, lr, raw = shape
+        a, lqa, lr, raw, li = shape + (3,) * (len(shape) == 4)
         ce = rnd(2, a, lqa, d).to(dev, bf)
-        qe = rnd(2, 3, lr, d).to(dev, bf)
+        qe = rnd(2, li, lr, d).to(dev, bf)
         ins = [l2_normalize(ce), ce, l2_normalize(qe), qe,
                (torch.rand(2, a, lqa, generator=gen) > 0.25).float().to(dev),
-               (torch.rand(2, 3, lr, generator=gen) > 0.25).float().to(dev),
+               (torch.rand(2, li, lr, generator=gen) > 0.25).float().to(dev),
                (1 + rnd(3 * d, scale=0.1)).to(dev),
                rnd(3 * d, scale=0.1).to(dev),
                rnd(3 * d, d, scale=(3 * d) ** -0.5).to(dev),

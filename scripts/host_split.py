@@ -3,12 +3,13 @@
 case of ``train_kernel_cases`` (dropout 0.1), split between the card and
 the host's parts.
 
-    python3 scripts/host_split.py [--forward]
+    python3 scripts/host_split.py [--forward] [--width D] [--families F,..]
 
 Run from a tree's root (its ``chip_smoke.py`` and package are imported);
 needs one NVIDIA GPU.  For each of ``CASES`` (the attention's vid and sub
-rows at D = 64 and 128, the tri bridge's at 256, the encoder's reduce and
-full-output rows at 64) it prints one JSON line:
+rows at D = 64 and 128, the tri bridge's at 64 and 256, the encoder's
+reduce and full-output rows at 64; ``--width`` and ``--families`` keep
+those of that width and families) it prints one JSON line:
 
 * ``row_ms``: the row as the table times it (CUDA events around the call,
   ``time_ms``: median of 30);
@@ -26,8 +27,8 @@ full-output rows at 64) it prints one JSON line:
   autograd engine, the wrappers).
 
 ``--forward`` splits the same way the forward call of each of
-``FWD_CASES`` (the tri bridge's rows at D = 256 and 200 in bf16) at
-dropout 0 and 0.1.
+``FWD_CASES`` (the attention's vid and sub rows at D = 64, the tri
+bridge's rows at D = 256 and 200, in bf16) at dropout 0 and 0.1.
 """
 import json
 import os
@@ -39,9 +40,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 CASES = ((64, "qa_ctx_attention"), (128, "qa_ctx_attention"),
-         (256, "tri_bridge"), (64, "encoder"), (64, "encoder_block"))
+         (64, "tri_bridge"), (256, "tri_bridge"), (64, "encoder"),
+         (64, "encoder_block"))
 # --forward: the forward rows of ``kernel_cases`` at each dropout rate
-FWD_CASES = ((256, "tri_bridge"), (200, "tri_bridge"))
+FWD_CASES = ((64, "qa_ctx_attention"), (256, "tri_bridge"),
+             (200, "tri_bridge"))
 CALLS = 10
 
 
@@ -85,7 +88,19 @@ def split(cs, call, entry):
             "top_ops": [[k, ms] for k, ms in ops[:8]]}
 
 
+def chosen(cases, args):
+    """The (width, family) pairs of ``cases`` that ``--width`` and
+    ``--families`` keep."""
+    width = int(args[args.index("--width") + 1]) if "--width" in args \
+        else None
+    families = args[args.index("--families") + 1].split(",") \
+        if "--families" in args else None
+    return [(d, f) for d, f in cases if width in (None, d)
+            and (families is None or f in families)]
+
+
 def main():
+    args = sys.argv[1:]
     sys.path.insert(0, os.getcwd())
     import chip_smoke as cs
     from tvqaplus_tpu_torch.ops import _build
@@ -99,8 +114,8 @@ def main():
         launch(self, *a, **kw)
         entry.append(time.perf_counter() - t0)
     _build.CudaKernel.launch = timed_launch
-    if "--forward" in sys.argv[1:]:
-        for d, family in FWD_CASES:
+    if "--forward" in args:
+        for d, family in chosen(FWD_CASES, args):
             for case in cs.kernel_cases(dev, d):
                 if case.key != family:
                     continue
@@ -113,7 +128,7 @@ def main():
                         flush=True)
         _build.CudaKernel.launch = launch
         return 0
-    for d, family in CASES:
+    for d, family in chosen(CASES, args):
         for case in cs.train_kernel_cases(dev, d):
             if case.key != family:
                 continue

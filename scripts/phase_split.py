@@ -1,13 +1,15 @@
 """Where a block's time goes in the bf16 backward kernels at D = 256
 (``csrc/qa_ctx_attention_bwd_wide.cu`` ``qa_ctx_bwd_tc_wide_kernel``,
 ``csrc/encoder_bwd_tc_wide.cu``'s ``Enc256`` kernel and
-``csrc/tri_bridge_bwd_wide.cu``'s kernel at 256) and in the encoder's at
-D = 64 (``--width 64 --families encoder,encoder_block``: ``Enc64``, or a
-parent tree's ``EncTcW``), or with ``--forward`` in the bf16 forwards at
-D = 256 of the encoder, the attention and the tri bridge
+``csrc/tri_bridge_bwd_wide.cu``'s kernel at 256) and in the encoder's and
+the tri bridge's at D = 64 (``--width 64 --families
+encoder,encoder_block,tri_bridge``: ``Enc64`` and ``Tri64``, or a parent
+tree's ``tri_bridge_bwd_tc_wide_kernel<64>``), or with ``--forward`` in the
+bf16 forwards at D = 256 of the encoder, the attention and the tri bridge
 (``encoder_fwd_tc_wide_kernel``, ``qa_ctx_fwd_tc_wide_kernel``,
-``tri_bridge_fwd_tc256_kernel``, or a parent tree's
-``tri_bridge_fwd_tc_kernel<256>``), phase by phase, from ``clock64()``
+``tri_bridge_fwd_tc256_kernel``) and, with ``--width 64``, in the
+attention's at D = 64 (``qa_ctx_fwd_tc64_kernel``, or a parent tree's
+``qa_ctx_fwd_tc_kernel<64, LRP>``), phase by phase, from ``clock64()``
 stamps in a copy of the sources; and what parts of them cost, from copies
 with those parts taken out.
 
@@ -22,9 +24,10 @@ the places ``STAMPS`` names (each anchor must occur once in its kernel,
 buffer of 32 cycle counters in front, and builds the copies beside the
 tree's libraries; thread 0 of every block adds the cycles since its last
 stamp to counter i.  A source whose kernel is an older design is stamped
-by that design's entry (``VARIANTS``: the tri bridge's before its
-redesign, ``@g_yd twice``), so the script run from a parent tree's root splits
-the parent's kernel.  For each backward case of ``train_kernel_cases`` at
+by that design's entry (``VARIANTS``: the D = 64 tri bridge backward and
+attention forward before their redesigns, ``@64 g_yd twice`` and ``@64
+resident``), so the script run from a parent tree's root splits the
+parent's kernel.  For each backward case of ``train_kernel_cases`` at
 width D (default 256; dropout 0.1) of the families named (default: the
 attention, the encoders and the tri bridge) it prints one JSON line: each
 kernel's device ms per call from ``torch.profiler`` (the tree's own
@@ -38,8 +41,8 @@ only the time is read) and of the tri bridge source for each of
 ``TRI_ABLATIONS`` (with ``--forward``: of each forward source for each of
 ``FWD_ABLATIONS``), and prints, for each case of those families, the main
 kernel's device ms under each copy beside the tree's own.  ``--forward``
-takes the forward cases of ``kernel_cases`` at D = 256 (bf16), each at
-dropout 0 and 0.1.
+takes the forward cases of ``kernel_cases`` at D = 256 (the attention's at
+D = 64 with ``--width 64``; bf16), each at dropout 0 and 0.1.
 """
 import ctypes
 import json
@@ -52,23 +55,30 @@ from torch.profiler import ProfilerActivity, profile
 
 ATT, ENC = "qa_ctx_attention_bwd_wide.cu", "encoder_bwd_tc_wide.cu"
 TRI = "tri_bridge_bwd_wide.cu"
-TRI_TWICE = TRI + "@g_yd twice"     # the tri bridge before its redesign
-# the encoder's D = 64 kernel (a key of its own: the source holds the
-# D = 256 kernel too), and its design before the redesign
+# the D = 64 kernels (keys of their own: each source holds the D = 256
+# kernel too): the encoder's, the tri bridge's and, before its redesign,
+# the tri bridge's that takes g_yd twice
 ENC64 = ENC + "@64"
-ENC64_COLS = ENC + "@64 columns split"
+TRI64 = TRI + "@64"
+TRI64_TWICE = TRI + "@64 g_yd twice"
 SOURCE_OF = {"qa_ctx_attention": ATT, "encoder": ENC, "encoder_block": ENC,
              "tri_bridge": TRI}
-SOURCE_OF_64 = {"encoder": ENC64, "encoder_block": ENC64}
+SOURCE_OF_64 = {"encoder": ENC64, "encoder_block": ENC64,
+                "tri_bridge": TRI64}
 ENC_FWD, ATT_FWD = "encoder_fwd.cu", "qa_ctx_attention_fwd.cu"
 TRI_FWD = "tri_bridge_fwd.cu"
-TRI_FWD_STREAMED = TRI_FWD + "@W streamed"  # before its redesign
+# the attention forward at D = 64, and before its redesign (the D = 128
+# kernel's instantiation, W loaded by every block)
+ATT_FWD64 = ATT_FWD + "@64"
+ATT_FWD64_RESIDENT = ATT_FWD + "@64 resident"
 FWD_SOURCE_OF = {"qa_ctx_attention": ATT_FWD, "encoder": ENC_FWD,
                  "encoder_block": ENC_FWD, "tri_bridge": TRI_FWD}
+FWD_SOURCE_OF_64 = {"qa_ctx_attention": ATT_FWD64}
 # a source's designs, newest first: the first whose kernel start occurs in
 # the text is the one stamped
-VARIANTS = {ATT: (ATT,), ENC: (ENC,), TRI: (TRI, TRI_TWICE),
-            ENC64: (ENC64, ENC64_COLS), TRI_FWD: (TRI_FWD, TRI_FWD_STREAMED)}
+VARIANTS = {ATT: (ATT,), ENC: (ENC,), TRI: (TRI,), ENC64: (ENC64,),
+            TRI64: (TRI64, TRI64_TWICE), TRI_FWD: (TRI_FWD,),
+            ATT_FWD64: (ATT_FWD64, ATT_FWD64_RESIDENT)}
 
 
 def source_file(src):
@@ -86,13 +96,15 @@ def tag(src):
 KERNEL_START = {ATT: "  using S = AttTcWide<LRP>;\n",
                 ENC: "  using S = Enc256;\n",
                 TRI: "  using S = Tri256;\n",
-                TRI_TWICE: "  using S = TriBwdTc<D>;\n  constexpr int NF",
+                TRI64: "  using S = Tri64;\n",
+                TRI64_TWICE: "  using S = TriBwdTc<D>;\n  constexpr int NF",
                 ENC_FWD: " " * 27 + "const __nv_bfloat16* __restrict__ wp,\n",
                 ATT_FWD: " " * 26 + "const __nv_bfloat16* __restrict__ wp,\n",
                 ENC64: "  using S = Enc64;\n",
-                ENC64_COLS: "  using S = EncTcW<D>;\n",
                 TRI_FWD: "  using S = TriFwd256;\n",
-                TRI_FWD_STREAMED: "  using S = TriTc<D>;\n"}
+                ATT_FWD64: "  using S = AttnTc64;\n",
+                ATT_FWD64_RESIDENT: "  constexpr int YD_BYTES = "
+                                    "AttnTc<D>::YD_BYTES;\n"}
 PHASES = {
     ATT: ("frame", "stage", "keep bits", "scores, softmax", "LN stats",
           "pass A rows", "pass B rows", "g_att, g_p, softmax bwd, gcn",
@@ -103,20 +115,24 @@ PHASES = {
     TRI: ("setup", "stage", "LN_in, yd", "y1 products", "y1 end, s and v",
           "LN_out, g_y1", "g_yd products", "pass A rows", "row sums",
           "pass B", "block sums"),
-    TRI_TWICE: ("setup", "stage", "LN_in, yd", "y1 products", "LN_out, g_y1",
-               "pass 1 g_yd products", "pass 1 rows", "row sums",
-               "pass 2 g_yd products", "pass 2 rows", "block sums"),
+    TRI64_TWICE: ("setup", "stage", "LN_in, yd", "y1 products",
+                  "LN_out, g_y1", "pass 1 g_yd products", "pass 1 rows",
+                  "row sums", "pass 2 g_yd products", "pass 2 rows",
+                  "block sums"),
+    ATT_FWD64_RESIDENT: ("W, frame", "out, cn rows", "scores, softmax, raw",
+                         "att product", "LN, keep bits, yd", "projection",
+                         "last out"),
     ENC_FWD: ("setup", "tile head", "LN", "conv", "pw products", "residual",
               "final LN, out", "end"),
     ATT_FWD: ("setup", "frame, cn", "scores, softmax, p", "att product",
               "LN, keep bits, yd", "projection", "out", "end"),
-    ENC64_COLS: ("setup", "tile head", "LN fwd", "conv", "c tile barrier",
-                 "c pw", "g_y tile", "g_y pw^T", "t tile", "g_c to R1",
-                 "dw grad, L2 sums", "g_t", "LN bwd", "cotangent",
-                 "h stash (L2)", "gx out", "block sums"),
-    TRI_FWD_STREAMED: ("setup", "keep bits, s and v", "LN_in stats",
-                       "yd tile", "W stream, y1", "LN_out stats",
-                       "out rows"),
+    TRI64: ("setup", "keep bits", "tile wait", "LN_in, yd tile",
+            "y1 products, yd rows", "LN_out, g_y1 tile",
+            "prefetch, g_y1 rows", "pass A (g_yd a group at a time)",
+            "pass B, gs and gv tiles", "gs, gv rows", "block sums"),
+    ATT_FWD64: ("setup", "frame wait, cn, ce", "keep bits, scores, softmax, "
+                "raw", "att product", "LN stats", "fragments, projection",
+                "out tile", "out rows"),
     ENC64: ("setup", "tile head", "LN fwd", "conv", "c pw", "g_y pw^T",
             "g_c to R1", "column pass: dw grad, g_t", "g_t read", "LN bwd",
             "cotangent", "gx out", "block sums"),
@@ -188,19 +204,19 @@ STAMPS = {
         ("        ((red[k] + red[NVT + k]) + red[2 * NVT + k]) + "
          "red[3 * NVT + k];\n", "", 2, 10),
     ],
-    TRI_TWICE: [
+    TRI64_TWICE: [
         ("  drop.load_seed();\n", "", 2, None),
         ("", "  const long long tiles = (R + TM - 1) / TM;\n", 2, 0),
         ("", "    // ---- the recompute: LN_in statistics", 4, 1),
         ("", "    float acc[D / 4], m2[2], i2[2];\n", 4, 2),
-        ("      tri_y1_mma<D>(acc, yd_s, sm, wg);\n", "", 4, 3),
+        ("    tri_y1_mma<D>(acc, yd_s, sm, wg);\n", "", 4, 3),
         ("", "    // ---- pass 1: g_yd a group", 4, 4),
-        ("      tri_gyd_mma<D>(acc, sm, W, g, wg);\n",
+        ("      tri_gyd_mma<D>(acc, sm, g, wg);\n",
          "      float tg[NF], tb[NF];\n", 6, 5),
         ("      fold_cols<NF>(tb, vbi[g], lane);\n", "    }\n", 6, 6),
         ("    tri_row_pair_sums(ex_s + 3 * 2 * TM * 2, t1, t2, wg, rl, lane);\n",
          "", 4, 7),
-        ("      tri_gyd_mma<D>(acc, sm, W, g, wg);\n",
+        ("      tri_gyd_mma<D>(acc, sm, g, wg);\n",
          "#pragma unroll\n      for (int pr", 6, 8),
         ("              tc::pack_bf16(o[0], o[1]);\n      }\n", "    }\n  }\n",
          6, 9),
@@ -226,37 +242,6 @@ STAMPS.update({
         ("    }\n", "  }\n  tc::cluster_sync();", 4, 6),
         ("  tc::cluster_sync();                  // no CTA leaves while its "
          "pair copies\n", "", 2, 7),
-    ],
-    ENC64_COLS: [
-        ("  drop.load_seed();\n", "", 2, None),
-        ("", "  int xround = 0;\n", 2, 0),
-        ("    __syncthreads();\n", "\n    // h0 = x + pe", 4, 1),
-        ("", "    };\n    // c = depthwise_i(t of R1", 6, 2),
-        ("", "    };\n    // y = c pw_i + pwb_i on", 6, 3),
-        ("      __syncthreads();                 // the c tile is whole\n", "",
-         6, 4),
-        ("      enc_fwd_mma<D>(acc, r2, pw + i * D * D, w_s, wg, i);\n", "",
-         6, 5),
-        ("", "      enc_bwd_mma<D>(acc, gy_s, pw + i * D * D, w_s, wg, i);\n",
-         6, 6),
-        ("      enc_bwd_mma<D>(acc, gy_s, pw + i * D * D, w_s, wg, i);\n", "",
-         6, 7),
-        ("            tc::pack_bf16(tt.x, tt.y);\n      }\n", "", 6, 8),
-        ("      __syncthreads();\n",
-         "      // column cd over the tile's sequences", 6, 9),
-        ("      dsum[MAX_K * D] += gdwb;\n", "", 6, 10),
-        ("        acc[2 * pr + 1] = a.y;\n      }\n",
-         "    };\n    // LayerNorm backward", 6, 11),
-        ("", "    };\n    auto from_r3 = [&]", 6, 12),
-        ("", "    ln_bwd([&](int pr) { return make_float2(hv[2 * pr], "
-         "hv[2 * pr + 1]); },\n           ga, P.lnf_s()", 4, 13),
-        ("      r3[pr * NTHREADS + tid] = make_float2(hv[2 * pr], "
-         "hv[2 * pr + 1]);\n", "    __syncthreads();                   "
-         "// R1's readers (the conv)", 4, 14),
-        ("      r3[pr * NTHREADS + tid] = make_float2(hv[2 * pr], "
-         "hv[2 * pr + 1]);\n", "    ln_to_r1(hv, P.ln_s(0)", 4, 14),
-        ("    }\n", "  }\n\n  // ---- the block's parameter-vector", 4, 15),
-        ("  }\n", "}\n", 2, 16),
     ],
     ENC64: [
         ("  drop.load_seed();\n", "", 2, None),
@@ -295,19 +280,60 @@ STAMPS.update({
         ("    tc::bar_sync(1 + wg, 128);         // the output tile is read\n",
          "", 4, 7),
     ],
-    TRI_FWD_STREAMED: [
+    TRI64: [
         ("  drop.load_seed();\n", "", 2, None),
-        ("", "  int buf = 0;\n", 2, 0),
-        ("    tc::fence_async_smem();            // W (first tile) is read "
-         "by wgmma\n    __syncthreads();\n", "", 4, 1),
-        ("    tri_ln_in_stats<D>(s_s, v_s, ex_s, mean, istd, wg, rl, lane, "
-         "drop.inv3);\n", "", 4, 2),
-        ("    __syncthreads();                   // the yd tile is whole\n",
+        ("", "  for (int j = 0; j < n; ++j) {\n    const long long r0", 2, 0),
+        ("", "    if (j > 0) {\n      tc::cp_async_wait<0>();", 4, 1),
+        ("", "    const uint8_t* s_s = half(j);\n", 4, 2),
+        ("    tc::bar_sync(1 + wg, 128);         // the yd tile is whole\n",
          "", 4, 3),
-        ("      mma_streamed_w<D, 3 * D, S::KP>(acc, tc::smem_u32(yd_s), W, "
-         "w_s, wg);\n", "", 6, 4),
-        ("                        lane, drop.inv1);\n", "", 4, 5),
-        ("            tc::pack_bf16(o[0], o[1]);\n    }\n", "  }\n}\n", 4, 6),
+        ("    tc::fence_regs(acc);\n",
+         "    // ---- LN_out and ReLU backward; g_y1 into its tile", 4, 4),
+        ("    tc::bar_sync(1 + wg, 128);         // the g_y1 tile is whole; "
+         "yd is read\n", "", 4, 5),
+        ("    tile_rows_out<D, 128>(gy1_rows + r0 * D, g1_s, rows, t);\n",
+         "", 4, 6),
+        ("", "    // ---- pass B: gs and gv through", 4, 7),
+        ("    tc::bar_sync(1 + wg, 128);         // the gs and gv tiles are "
+         "whole\n", "", 4, 8),
+        ("    tile_rows_out<D, 128>(gv + r0 * D, g1_s, rows, t);\n",
+         "  }\n", 4, 9),
+        ("    vec_part[static_cast<size_t>(blockIdx.x) * NVT + k] = acc_k;\n"
+         "  }\n", "}\n", 2, 10),
+    ],
+    ATT_FWD64: [
+        ("  if (DROP) drop.load_seed();\n", "", 2, None),
+        ("", "  int unit = -1, b = 0, m0 = 0, target = -1;\n", 2, 0),
+        ("", "    const float* qm_s = reinterpret_cast<const float*>(sl + "
+         "S::S_QM);\n", 4, 1),
+        ("", "    float att[D / 2];\n    tc_att<LRP, 1>", 4, 2),
+        ("    tc_att<LRP, 1>(att, s, cm, qm_s, tc::smem_u32(sl + S::S_QE), "
+         "lane);\n", "", 4, 3),
+        ("", "    // ---- the projection, yd from registers", 4, 4),
+        ("    tc::fence_regs(acc);\n",
+         "    // ---- bias, ReLU, out through the frame's qn slot", 4, 5),
+        ("    tc::bar_sync(1 + wg, 128);         // the output tile is whole\n",
+         "", 4, 6),
+        ("          *reinterpret_cast<const uint4*>(sl + tc::swz_chunk(r, "
+         "ch));\n    }\n", "  }\n}\n", 4, 7),
+    ],
+    ATT_FWD64_RESIDENT: [
+        ("  drop.load_seed();\n", "", 2, None),
+        ("  tc_load_frame<D>(w_s, qn_s, qe_s, qm_s, W, qn, qe, qmask, fbase, "
+         "Lr);\n", "", 2, 0),
+        ("    tc::bar_sync(1 + wg, 128);\n",
+         "    float s[LRP / 2], p0[LRP / 2];\n", 4, 1),
+        ("", "    float att[D / 2];\n", 4, 2),
+        ("    tc_att<LRP, D / 64>(att, p0, cm, qm_s, tc::smem_u32(qe_s), "
+         "lane);\n", "", 4, 3),
+        ("", "    // ---- the projection: (64 x 3D) . W (3D x D), W read "
+         "N-contiguous", 4, 4),
+        ("    tc::commit();\n    tc::wait_all();\n",
+         "#pragma unroll\n    for (int pr = 0; pr < D / 4; ++pr) {\n"
+         "      const int h = pr & 1, c = 8 * (pr >> 1) + 2 * (lane & 3);\n"
+         "      if (!live[h]) continue;\n      const float2 bv = "
+         "*reinterpret_cast", 4, 5),
+        ("    }\n  }\n", "}\n", 2, 6),
     ],
     ATT_FWD: [
         ("  drop.load_seed();\n", "", 2, None),
@@ -386,22 +412,6 @@ FWD_ABLATIONS = {
              "      if (false)\n        tc_keep_bits<16, true>(")],
     },
 }
-# The tri bridge forward at D = 256 before its redesign with W resident
-# (the product reads the first stage as it stands; no stage streamed):
-# the time of everything but W's stream.
-TRI_FWD_RESIDENT = (
-    "{\n"
-    "        const uint32_t st0 = tc::smem_u32(w_s)"
-    " + 2 * wg * (S::KP * tc::ROW_BYTES);\n"
-    "        tc::fence();\n"
-    "#pragma unroll\n"
-    "        for (int ks = 0; ks < 48; ++ks)\n"
-    "          tc::mma_ss<128, 0, 1>(acc, tc::make_desc(tc::smem_u32(yd_s)"
-    " + (ks / 4) * TILE_PANEL + (ks % 4) * 32, 16),"
-    " tc::make_desc(st0 + (ks % 2) * 2 * tc::ATOM_BYTES,"
-    " S::KP * tc::ROW_BYTES), ks > 0);\n"
-    "        tc::commit();\n        tc::wait<0>();\n"
-    "        tc::fence_regs(acc);\n      }\n")
 # The redesigned tri bridge forward at D = 256 with one part taken out
 # (its results wrong): W resident (no slab copied or waited for: the
 # products read slot 0 as it stands), no products (the slabs still come and
@@ -421,11 +431,6 @@ FWD_ABLATIONS[TRI_FWD] = {
     "no keep bits": [
         ("    if constexpr (DROP) {\n      long long row[2];",
          "    if constexpr (false) {\n      long long row[2];")],
-}
-FWD_ABLATIONS[TRI_FWD_STREAMED] = {
-    "W resident": [
-        ("      mma_streamed_w<D, 3 * D, S::KP>(acc, tc::smem_u32(yd_s), W, "
-         "w_s, wg);\n", "      " + TRI_FWD_RESIDENT)],
 }
 # The attention's g_yd loop with one part taken out, (old, new) edits of
 # its kernel: the tensor-core wait after each slab (one wait at the end of
@@ -504,8 +509,9 @@ def variant(text, src):
 def kernel_span(text, src):
     """(start, end) of the kernel in ``text`` that ``src``'s edits go
     into (``src`` a source or one of its designs)."""
-    start = KERNEL_START[src] if src in KERNEL_START \
-        else KERNEL_START[variant(text, src)]
+    start = KERNEL_START.get(src)
+    if start is None or start not in text:
+        start = KERNEL_START[variant(text, src)]
     i0 = text.index(start)
     return i0, text.index("\n}\n", i0) + 3
 
@@ -605,7 +611,8 @@ def main():
     forward = "--forward" in args
     calls = {}
     if forward:
-        families = [f for f in families if f in FWD_SOURCE_OF]
+        srcs = FWD_SOURCE_OF_64 if d == 64 else FWD_SOURCE_OF
+        families = [f for f in families if f in srcs]
         for case in cs.kernel_cases(dev, d):
             if case.key not in families or "no mask" in case.name:
                 continue
@@ -615,7 +622,7 @@ def main():
             for rate in (0.0, cs.P_DROP):
                 kwr = {**kw, "dropout_rate": rate, "seed": cs.DROP_SEED}
                 calls[f"{case.name} dropout {rate}"] = (
-                    FWD_SOURCE_OF[case.key],
+                    srcs[case.key],
                     lambda c=case, a=a, k=kwr: c.kernel(*a, **k))
     for case in [] if forward else cs.train_kernel_cases(dev, d):
         if case.key not in families or "no mask" in case.name:

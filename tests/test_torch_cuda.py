@@ -22,6 +22,7 @@ from tvqaplus_tpu_torch.ops import (
     mlp_bridge,
     qa_ctx_attention,
     tri_bridge,
+    widths,
 )
 from tvqaplus_tpu_torch.ops._build import width_counter
 
@@ -58,7 +59,8 @@ def attn_args(dev, dt, b=2, a=5, li=4, lqa=40, lr=25, d=D):
     if a > 1:
         c_mask[0, 1] = 0             # a fully masked answer
     q_mask = (torch.rand(b, li, lr, generator=gen) > 0.25).float()
-    q_mask[1, 2] = 0                 # a frame with no regions
+    if li > 2:
+        q_mask[1, 2] = 0             # a frame with no regions
     params = [1 + randn(gen, 3 * d, scale=0.1), randn(gen, 3 * d, scale=0.1),
               randn(gen, 3 * d, d, scale=(3 * d) ** -0.5),
               randn(gen, d, scale=0.1)]
@@ -2231,3 +2233,181 @@ def test_tri_bridge_forward_at_256_matches_plain(cuda, rows, d, dropout):
     assert got.shape == s.shape and got.dtype == dt
     assert torch.equal(got, again)
     close(got, want, tri_bridge.TOL[dt])
+
+
+# ------------- the D = 64 attention forward and tri bridge backward,
+# redesigned: the widths padded into 64 (60, 48, 32, 4) beside 64 itself
+W64_DVS = (64, 60, 48, 32, 4)
+# (Lr, raw mode, A, Lqa, Li): Lr 1 / 25 / 32 / 33 / 64 (both region tiles,
+# each side of 32), M = 200 (three tiles and 8 rows) and 7, 1 and 50
+# frames (one frame per unit, runs across units and frames)
+ATT64_FWD_CASES = [(lr, mode, a, lqa, 50 if lr in (25, 33) else 1)
+                   for lr in (1, 25, 32, 33, 64)
+                   for mode in ("none", "full", "target")
+                   for a, lqa in ((5, 40), (1, 7))]
+
+
+def att64_run(cuda, args, raw_mode, dropout, a):
+    kw = dict(raw_mode=raw_mode, dropout_rate=dropout, seed=SEED,
+              targets=torch.tensor([min(2, a - 1), 0], device=cuda))
+    got = qa_ctx_attention.qa_ctx_attention(*args, **kw)
+    return (got,) if raw_mode == "none" else got, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("lr,raw_mode,a,lqa,li", ATT64_FWD_CASES)
+def test_attention_forward_at_64_matches_plain(cuda, lr, raw_mode, a, lqa,
+                                               li, dropout):
+    """The bf16 forward at D = 64 (csrc/qa_ctx_attention_fwd.cu
+    ``AttnTc64``: persistent CTAs of three warpgroups on (b, tile, frame)
+    items) against the plain version at ``TOL``, twice for the same bits,
+    one launch a call on the width's counter."""
+    dt, d = torch.bfloat16, 64
+    args = attn_args(cuda, dt, a=a, li=li, lqa=lqa, lr=lr, d=d)
+    counter = width_counter(qa_ctx_attention.FWD_BY_WIDTH, d)
+    n0 = counter.launches
+    got, kw = att64_run(cuda, args, raw_mode, dropout, a)
+    again, _ = att64_run(cuda, args, raw_mode, dropout, a)
+    want = qa_ctx_attention.qa_ctx_attention_plain(*args, **kw)
+    want = (want,) if raw_mode == "none" else want
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 2
+    assert got[0].dtype == dt and torch.isfinite(got[0].float()).all()
+    for g, g2 in zip(got, again):
+        assert torch.equal(g, g2)
+    tol = qa_ctx_attention.TOL[dt]
+    close(got[0], want[0], tol["mixed"])
+    if raw_mode != "none":
+        close(got[1], want[1], tol["raw"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("dv", W64_DVS[1:])
+@pytest.mark.parametrize("lr,raw_mode,a,lqa,li", [(25, "full", 5, 40, 50),
+                                                  (64, "target", 1, 7, 1)])
+def test_attention_forward_at_64_padded_matches_plain(cuda, lr, raw_mode, a,
+                                                      lqa, li, dv, dropout):
+    """Widths padded into the D = 64 kernel against the unpadded plain
+    version, each launch on its true width's counter."""
+    dt = torch.bfloat16
+    args = attn_args(cuda, dt, a=a, li=li, lqa=lqa, lr=lr, d=dv)
+    counter = width_counter(qa_ctx_attention.FWD_BY_WIDTH, dv)
+    n0 = counter.launches
+    got, kw = att64_run(cuda, args, raw_mode, dropout, a)
+    again, _ = att64_run(cuda, args, raw_mode, dropout, a)
+    want = qa_ctx_attention.qa_ctx_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 2
+    assert got[0].shape[-1] == dv
+    for g, g2 in zip(got, again):
+        assert torch.equal(g, g2)
+    tol = qa_ctx_attention.TOL[dt]
+    close(got[0], want[0], tol["mixed"])
+    close(got[1], want[1], tol["raw"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dv", W64_DVS)
+def test_attention_forward_at_64_drops_philox_s_positions(cuda, dv):
+    """The LN output's dropped positions are exactly ``ops/philox.py``'s:
+    with W the identity (then its negative) on one LN group and the bias
+    zero, ``mixed`` is that group's ReLU (of its negative), so both are 0
+    exactly where the kernel dropped the value."""
+    from tvqaplus_tpu_torch.ops import philox
+    dt, a, lqa, li, lr = torch.bfloat16, 5, 40, 50, 25
+    args = attn_args(cuda, dt, a=a, li=li, lqa=lqa, lr=lr, d=dv)
+    b = args[0].shape[0]
+    keep = philox.width_multiplier((b, a, li, lqa, 3 * dv), SEED, P_DROP, dv,
+                                   3, cuda).reshape(b, a, li, lqa, 3, dv)
+    for g in range(3):
+        eye = torch.zeros(3 * dv, dv, device=cuda)
+        eye[g * dv:(g + 1) * dv] = torch.eye(dv, device=cuda)
+        zero = []
+        for w in (eye, -eye):
+            run = args[:8] + [w, torch.zeros(dv, device=cuda)]
+            got, _ = att64_run(cuda, run, "none", P_DROP, a)
+            zero.append(got[0] == 0)
+        torch.cuda.synchronize()
+        dropped = zero[0] & zero[1]
+        assert torch.equal(dropped, keep[..., g, :] == 0), g
+        assert 0.05 < dropped.float().mean() < 0.15
+
+
+TRI64_ROWS = (1, 39, 65, 160000)
+
+
+def tri64_case(cuda, rows, dv, seed):
+    gen = torch.Generator().manual_seed(seed)
+    params = [1 + randn(gen, 3 * dv, scale=0.1), randn(gen, 3 * dv, scale=0.1),
+              randn(gen, 3 * dv, dv, scale=(3 * dv) ** -0.5),
+              randn(gen, dv, scale=0.1), 1 + randn(gen, dv, scale=0.1),
+              randn(gen, dv, scale=0.1)]
+    args = [randn(gen, rows, dv).to(cuda, torch.bfloat16),
+            randn(gen, rows, dv).to(cuda, torch.bfloat16)] + [
+        t.to(cuda) for t in params]
+    return args, gen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("dv,rows", [(d, r) for d in (64, 60)
+                                     for r in TRI64_ROWS]
+                         + [(d, 65) for d in (48, 32, 4)])
+def test_tri_bridge_backward_at_64_matches_plain(cuda, rows, dv, dropout):
+    """The bf16 backward at D = 64 (csrc/tri_bridge_bwd_wide.cu ``Tri64``:
+    the warpgroups on tiles of their own, g_yd once a tile) and at the
+    widths padded into it, against autograd through the plain version at
+    ``GRAD_TOL``, twice for the same bits, one launch a call on the true
+    width's counter."""
+    dt = torch.bfloat16
+    args, gen = tri64_case(cuda, rows, dv, 40 + rows % 97 + dv)
+    flip = checks.tri_bridge_flip_rows(*args[:6], dropout, SEED)
+    cot = [randn(gen, rows, dv).to(cuda) * (~flip)[..., None]]
+    counter = width_counter(tri_bridge.BWD_BY_WIDTH, dv)
+
+    def run(fn):
+        return grads_of(lambda *a: fn(*a, dropout, SEED), leaves(args),
+                        cot)[1]
+    n0 = counter.launches
+    g_k = run(tri_bridge.tri_bridge)
+    g_again = run(tri_bridge.tri_bridge)
+    g_p = run(tri_bridge.tri_bridge_plain)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 2
+    assert g_k[0].dtype == g_k[1].dtype == dt
+    for i, (gk, ga, gp) in enumerate(zip(g_k, g_again, g_p)):
+        assert torch.equal(gk, ga), f"grad {i} differs between two runs"
+        checks.hold_grad(f"D 64 (dv {dv}) grad {i}", gk, gp,
+                         tri_bridge.GRAD_TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dv", W64_DVS)
+def test_tri_bridge_backward_at_64_drops_philox_s_positions(cuda, dv,
+                                                            monkeypatch):
+    """The yd rows the backward writes for the weight gradient are 0
+    exactly where ``ops/philox.py`` drops the LN output (the replay of
+    the forward's mask), in each group's true columns."""
+    from tvqaplus_tpu_torch.ops import philox
+    rows = 4097
+    args, gen = tri64_case(cuda, rows, dv, 70 + dv)
+    made, empty = [], torch.empty
+
+    def recorded(*a, **kw):
+        t = empty(*a, **kw)
+        made.append(t)
+        return t
+    s, v, params = tri_bridge.pad_inputs(args[0], args[1], args[2:], 64)
+    g = widths.pad_cols(randn(gen, rows, dv).to(cuda, torch.bfloat16), 64)
+    monkeypatch.setattr(torch, "empty", recorded)
+    tri_bridge.tri_bridge_backward(s, v, *params, g, P_DROP, SEED, dv)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    (yd,) = [t for t in made if t.shape == (rows, 3 * 64)
+             and t.dtype == torch.bfloat16]
+    keep = philox.width_multiplier((rows, 3 * dv), SEED, P_DROP, dv, 3, cuda)
+    got = yd.reshape(rows, 3, 64)[..., :dv] == 0
+    assert torch.equal(got, keep.reshape(rows, 3, dv) == 0)
+    assert 0.05 < got.float().mean() < 0.15

@@ -348,8 +348,9 @@ def test_the_attention_wrapper_hands_float32_w_and_the_scratch(
         monkeypatch, d, raw_mode):
     """At D = 256 (and 200, padded into it) the bf16 forward gets W in
     float32 (its C entry rounds it into the slabs, the wrapper casts
-    nothing) and the slab scratch; at 64 and 128 W in bf16 and no
-    scratch."""
+    nothing) and the slab scratch; at 64 W in float32 too (the kernel
+    rounds it as each CTA loads it) and no scratch; at 128 W in bf16 and
+    no scratch."""
     dp = widths.padded_width(d)
     calls = recording(monkeypatch, qa_ctx_attention,
                       qa_ctx_attention.FWD_BY_WIDTH[dp])
@@ -374,6 +375,9 @@ def test_the_attention_wrapper_hands_float32_w_and_the_scratch(
     if dp == 256:
         assert wk.dtype == torch.float32 and torch.equal(wk, args[6])
         assert wp.dtype == torch.bfloat16 and wp.numel() == 3 * 256 * 256
+    elif dp == 64:
+        assert wk.dtype == torch.float32 and torch.equal(wk, args[6])
+        assert wp is None
     else:
         assert wk.dtype == torch.bfloat16 and wp is None
     assert got[14:20] == (b, a, lqa, li, lr, dp)

@@ -32,10 +32,10 @@
 // run on 8 warps an SM (255 registers a thread), at a fraction of the
 // scheduler rate.
 //
-// Two instantiations, one block per (b, i) each, the frame's qn / qe tiles
-// resident in shared memory.
-// * bfloat16 (what the main paths run), D = 64 and 128
-//   (qa_ctx_fwd_tc_kernel<D, LRP>): every product
+// The instantiations:
+// * bfloat16 (what the main paths run), D = 128
+//   (qa_ctx_fwd_tc_kernel<D, LRP>), one block per (b, i), the frame's qn /
+//   qe tiles resident in shared memory: every product
 //   is a wgmma on bf16 operands with float32 sums (wgmma.cuh), rounding
 //   where the TPU kernel's bf16 compute mode rounds: p before p qe, the
 //   dropped LN output and W before the projection.  W (bf16, 96 KB at
@@ -49,9 +49,15 @@
 //   the Philox dropout (two lanes share each 4-wide draw through one
 //   shuffle) and the bf16 rounding run on the att accumulator; the 64 x 3D
 //   tile is stored swizzled (48 KB, over the cn tile) for the projection.
-//   Shared memory: 231,168 bytes at D = 128, 91,648 at 64.  M = 200 pads to
-//   four tiles (22% of the products idle; rows of several frames do not
-//   share a tile because the scores are per frame).
+//   Shared memory: 231,168 bytes.  M = 200 pads to four tiles (22% of the
+//   products idle; rows of several frames do not share a tile because the
+//   scores are per frame).
+// * bfloat16, D = 64 (qa_ctx_fwd_tc64_kernel<LRP, DROP>): persistent, three
+//   warpgroups a CTA, each on a run of frames of one (b, 64-row tile) with
+//   the tile's cn and ce kept and the next frame's qn / qe copied while
+//   this one computes, W loaded once a CTA, the LN output fed to the
+//   projection from registers (the note at the kernel).  180,224 bytes of
+//   shared memory.
 // * bfloat16, D = 256 (qa_ctx_fwd_tc_wide_kernel<LRP, DROP>): W is 384 KB
 //   and a warpgroup's 64 x 256 att and projection accumulators would take
 //   128 registers a thread each, so the two warpgroups work on one tile and
@@ -243,7 +249,7 @@ int launch(const void* cn, const void* ce, const void* qn, const void* qe,
 }
 
 
-// ---- the bfloat16 instantiation: tensor cores, D = 64 and 128 --------------
+// ---- the bfloat16 instantiation: tensor cores, D = 128 ---------------------
 
 template <int D>
 struct AttnTc {
@@ -418,6 +424,323 @@ qa_ctx_fwd_tc_kernel(const __nv_bfloat16* __restrict__ cn,
       *reinterpret_cast<uint32_t*>(mixed + mrow[h] * D + c) =
           tc::pack_bf16(fmaxf(acc[2 * pr] + bv.x, 0.f),
                         fmaxf(acc[2 * pr + 1] + bv.y, 0.f));
+    }
+  }
+}
+
+// ---- the bfloat16 instantiation at D = 64: persistent, frames in a loop --
+//
+// At D = 64 a frame's products are small (a 64-row tile: 0.8 MFLOP of
+// scores, att and projection) and the time is in the passes between them
+// (softmax, LayerNorm, the Philox draws) and in waiting for the data each
+// tile needs, so the design spends the SM's warps and bytes on those:
+// * Persistent: at most one CTA an SM, three warpgroups each, and W
+//   loaded once a CTA, not once a frame, rounded to bf16 (24 KB) as it is
+//   stored: the call launches no cast of W.
+// * A warpgroup's items are (b, 64-row tile of M, frame) in that order, a
+//   contiguous share of the B T Li items (T = ceil(M / 64)), so a
+//   warpgroup walks a run of frames of one (b, tile): the tile's cn rows
+//   (the scores' A operand) and ce rows stay in shared memory across the
+//   run, and only the frame's qn, qe and q mask
+//   (Lr <= 64 rows) come in for each item, through two slots: the next
+//   item's rows are copied (cp.async) while this one computes.  The shares
+//   differ by one item at most, 8 or 9 items at the headline's 3,200 on
+//   396 warpgroups.
+// * The warpgroups run apart: named barriers only (two an item), no block
+//   barrier after W is loaded.
+// * The LN output (yd, 64 x 3D) never leaves registers: the accumulator
+//   layout of att is the A fragment layout of wgmma, so each LN group's
+//   pairs are rounded to bf16 straight into the projection's A registers,
+//   a group at a time.
+// * The tail tile (8 live rows of M = 200) is an item like the others:
+//   warps whose 16 rows are all past M skip the raw scores and the output
+//   stores only (a value that feeds a product computed on a path that
+//   only some warps take makes the compiler serialize the products).
+// * mixed goes out through the frame's qn slot (read by then): 16 bytes a
+//   thread, whole 128-byte rows.  (The raw scores taken out the same way,
+//   a warp a row, ran 0.02 ms slower a call than from registers.)
+// * DROP false, the serving instantiation, holds no Philox code.
+struct AttnTc64 {
+  static constexpr int D = 64;
+  static constexpr int NWG = 3;                       // warpgroups a CTA
+  static constexpr int NT = 128 * NWG;                // threads a CTA
+  static constexpr int TILE = TILE_PANEL;             // 64 x 64 bf16
+  static constexpr int O_W = 0;                       // W (3D x D) bf16
+  static constexpr int O_BIAS = O_W + Shapes<D>::W_BYTES;   // D floats
+  static constexpr int O_ROOM = O_BIAS + tc::ATOM_BYTES;
+  // a warpgroup's room: its cn and ce tiles, then two slots of a frame's
+  // qn and qe (LRP <= 64 rows each) and q mask (64 floats)
+  static constexpr int R_CE = TILE;
+  static constexpr int R_SLOT = 2 * TILE;
+  static constexpr int S_QE = TILE;
+  static constexpr int S_QM = 2 * TILE;
+  static constexpr int SLOT = 2 * TILE + tc::ATOM_BYTES;
+  static constexpr int ROOM = R_SLOT + 2 * SLOT;
+  static constexpr int SMEM = O_ROOM + NWG * ROOM + tc::ATOM_BYTES;
+  static_assert(SMEM <= 232448, "shared memory of a block");
+};
+
+template <int LRP, bool DROP>
+__global__ void __launch_bounds__(AttnTc64::NT, 1)
+qa_ctx_fwd_tc64_kernel(const __nv_bfloat16* __restrict__ cn,
+                       const __nv_bfloat16* __restrict__ ce,
+                       const __nv_bfloat16* __restrict__ qn,
+                       const __nv_bfloat16* __restrict__ qe,
+                       const float* __restrict__ cmask,
+                       const float* __restrict__ qmask,
+                       const float* __restrict__ gamma,
+                       const float* __restrict__ beta,
+                       const float* __restrict__ W,
+                       const float* __restrict__ bias,
+                       const int* __restrict__ targets,
+                       __nv_bfloat16* __restrict__ mixed,
+                       float* __restrict__ raw, int B, int A, int Lqa,
+                       int Li, int Lr, float scale, Dropout drop) {
+  using S = AttnTc64;
+  constexpr int D = S::D;
+  if (DROP) drop.load_seed();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_smem(smem_raw);
+  float* bias_s = reinterpret_cast<float*>(sm + S::O_BIAS);
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31;
+  const int rl = 16 * warp + (lane >> 2), cl = 2 * (lane & 3);
+  uint8_t* cn_s = sm + S::O_ROOM + wg * S::ROOM;
+  const uint8_t* ce_s = cn_s + S::R_CE;
+  // the pair of ce at (row half h, column c) of the thread's rows
+  auto ce_pair = [&](int h, int c) {
+    return tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(
+        ce_s + tc::swz(rl + 8 * h, c)));
+  };
+  const uint32_t w_a = tc::smem_u32(sm + S::O_W);
+  const int M = A * Lqa, T = (M + TM - 1) / TM;
+  // item f = (b T + tile) Li + frame; the warpgroup's share [f0, f1)
+  const long long items = static_cast<long long>(B) * T * Li;
+  const long long nw = static_cast<long long>(gridDim.x) * S::NWG;
+  const long long wk = static_cast<long long>(blockIdx.x) * S::NWG + wg;
+  const int f0 = static_cast<int>(items * wk / nw);
+  const int f1 = static_cast<int>(items * (wk + 1) / nw);
+  auto slot = [&](int k) { return cn_s + S::R_SLOT + (k & 1) * S::SLOT; };
+  // item f's frame: qn and qe rows (past Lr zeroed), q mask, into slot k
+  auto load_frame = [&](int f, int k) {
+    const int b = f / (T * Li), i = f % Li;
+    const size_t fbase = (static_cast<size_t>(b) * Li + i) * Lr;
+    uint8_t* sl = slot(k);
+    tc_load_rows<D>(sl, LRP, qn + fbase * D, D, Lr, t, 128);
+    tc_load_rows<D>(sl + S::S_QE, LRP, qe + fbase * D, D, Lr, t, 128);
+    if (t < TM)
+      reinterpret_cast<float*>(sl + S::S_QM)[t] =
+          t < Lr ? qmask[fbase + t] : 0.f;
+  };
+  // item f's cn and ce rows (past M zeroed)
+  auto load_cn = [&](int f) {
+    const int b = f / (T * Li), m0 = (f / Li) % T * TM;
+    const size_t at = (static_cast<size_t>(b) * M + m0) * D;
+    tc_load_rows<D>(cn_s, TM, cn + at, D, min(TM, M - m0), t, 128);
+    tc_load_rows<D>(cn_s + S::R_CE, TM, ce + at, D, min(TM, M - m0), t, 128);
+  };
+  if (f0 < f1) {
+    load_cn(f0);
+    load_frame(f0, 0);
+  }
+  tc_store_rows_f32<D>(sm + S::O_W, 3 * D, W, D, tid, S::NT);
+  if (tid < D) bias_s[tid] = bias[tid];
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  tc::fence_async_smem();              // W (generic stores) and the copies
+  __syncthreads();
+
+  int unit = -1, b = 0, m0 = 0, target = -1;
+  bool wlive = false;                  // a row of the warp's 16 is below M
+  int m[2];
+  bool live[2];
+  float cm[2];
+  size_t mbase[2];                     // the rows' flat row of mixed at i = 0
+  for (int f = f0; f < f1; ++f) {
+    const int k = f - f0, u = f / Li, i = f % Li;
+    if (k > 0) {
+      tc::cp_async_wait<0>();
+      tc::fence_async_smem();
+      tc::bar_sync(1 + wg, 128);       // item f's frame; item f - 1 is done
+      if (u != unit) {                 // a new (b, tile): its cn, ce rows
+        load_cn(f);
+        tc::cp_async_commit();
+        tc::cp_async_wait<0>();
+        tc::fence_async_smem();
+        tc::bar_sync(1 + wg, 128);
+      }
+    }
+    if (f + 1 < f1) load_frame(f + 1, k + 1);
+    tc::cp_async_commit();
+    if (u != unit) {
+      unit = u;
+      b = u / T;
+      m0 = (u % T) * TM;
+      target = targets != nullptr ? targets[b] : -1;
+      wlive = m0 + 16 * warp < M;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m[h] = m0 + rl + 8 * h;
+        live[h] = m[h] < M;
+        cm[h] = live[h] ? cmask[static_cast<size_t>(b) * M + m[h]] : 0.f;
+        const int mm = live[h] ? m[h] : 0;
+        mbase[h] = (static_cast<size_t>(b) * A + mm / Lqa) * Li * Lqa
+                   + mm % Lqa;
+      }
+    }
+    uint8_t* sl = slot(k);
+    const float* qm_s = reinterpret_cast<const float*>(sl + S::S_QM);
+    size_t mrow[2];                    // flat row of mixed / the LN output
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      mrow[h] = mbase[h] + static_cast<size_t>(i) * Lqa;
+    // the keep bits of the three LN groups, drawn while little is live (at
+    // the LayerNorm, with att live, the draws spilled and ran slower)
+    uint32_t kw[3][2];
+    if constexpr (DROP) {
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        uint32_t k2[2][1];
+        tc_keep_bits<D / 8, false>(
+            drop, drop.key3((lane & 1) ? mrow[1] : mrow[0], g, 0), lane, k2);
+        kw[g][0] = k2[0][0];
+        kw[g][1] = k2[1][0];
+      }
+    }
+    // ---- scores, the masked scores (raw) out, the softmax in place (the
+    // arithmetic of tc_softmax, one array fewer, the exponential by the
+    // fast path: 7% of a call at Lr 50) -----------------------------------
+    float s[LRP / 2];
+    tc_scores<LRP, D>(s, tc::smem_u32(cn_s), tc::smem_u32(sl));
+#pragma unroll
+    for (int kk = 0; kk < LRP / 2; ++kk) {
+      const int h = (kk / 2) % 2, j = acc_col(kk, lane);
+      const float smv = j < Lr ? cm[h] * qm_s[j] : 0.f;
+      s[kk] = s[kk] - 1e10f * (1.f - smv);
+    }
+    if (raw != nullptr && wlive) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int a = m[h] / Lqa, w = m[h] % Lqa;
+        if (!live[h] || (targets != nullptr && a != target)) continue;
+        float* rr = targets == nullptr
+            ? raw + mrow[h] * Lr
+            : raw + ((static_cast<size_t>(b) * Li + i) * Lqa + w) * Lr;
+#pragma unroll
+        for (int kk = h * 2; kk < LRP / 2; kk += 4)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = acc_col(kk + e, lane);
+            if (j < Lr) rr[j] = s[kk + e];
+          }
+      }
+    }
+    {
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < LRP / 2; ++kk) {
+        const int h = (kk / 2) % 2;
+        s[kk] = acc_col(kk, lane) < Lr ? fmaxf(s[kk] * scale, SAFE_FLOOR)
+                                       : -CUDART_INF_F;
+        mx[h] = fmaxf(mx[h], s[kk]);
+      }
+      mx[0] = quad_max(mx[0]);
+      mx[1] = quad_max(mx[1]);
+#pragma unroll
+      for (int kk = 0; kk < LRP / 2; ++kk) {
+        const int h = (kk / 2) % 2;
+        s[kk] = acc_col(kk, lane) < Lr ? __expf(s[kk] - mx[h]) : 0.f;
+        sum[h] += s[kk];
+      }
+      const float inv[2] = {1.f / quad_sum(sum[0]), 1.f / quad_sum(sum[1])};
+#pragma unroll
+      for (int kk = 0; kk < LRP / 2; ++kk) s[kk] *= inv[(kk / 2) % 2];
+    }
+    float att[D / 2];
+    tc_att<LRP, 1>(att, s, cm, qm_s, tc::smem_u32(sl + S::S_QE), lane);
+
+    // ---- LayerNorm statistics over [ce; att; ce * att] -------------------
+    // value pair pr = 2 q + h: row half h, columns 8 q + cl and the next
+    float mean[2], istd[2];
+    {
+      float sum[2] = {0.f, 0.f}, sq[2] = {0.f, 0.f};
+#pragma unroll
+      for (int pr = 0; pr < D / 4; ++pr) {
+        const int h = pr & 1, c = 8 * (pr >> 1) + cl;
+        const float2 c2 = ce_pair(h, c);
+        const float a0 = att[2 * pr], a1 = att[2 * pr + 1];
+        const float x0 = c2.x * a0, x1 = c2.y * a1;
+        sum[h] += (c2.x + c2.y) + (a0 + a1) + (x0 + x1);
+        sq[h] += fmaf(c2.x, c2.x, c2.y * c2.y) + fmaf(a0, a0, a1 * a1)
+                 + fmaf(x0, x0, x1 * x1);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mean[h] = quad_sum(sum[h]) * drop.inv3;
+        istd[h] = rsqrtf(quad_sum(sq[h]) * drop.inv3 - mean[h] * mean[h]
+                         + LN_EPS);
+      }
+    }
+    // ---- the projection, yd from registers: group g's pairs rounded to
+    // bf16 are the A fragments of its four depth steps (step kk's register
+    // r holds pair 4 kk + r); a group's products are done before the next
+    // group's fragments take their registers (holding all three groups'
+    // spilled) ------------------------------------------------------------
+    float acc[D / 2];
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      uint32_t ya[4][4];
+#pragma unroll
+      for (int pr = 0; pr < D / 4; ++pr) {
+        const int h = pr & 1, q = pr >> 1, c = 8 * q + cl;
+        const float2 c2 = ce_pair(h, c);
+        const float a0 = att[2 * pr], a1 = att[2 * pr + 1];
+        const float x0 = g == 0 ? c2.x : (g == 1 ? a0 : c2.x * a0);
+        const float x1 = g == 0 ? c2.y : (g == 1 ? a1 : c2.y * a1);
+        const float2 ga = __ldg(reinterpret_cast<const float2*>(
+            gamma + g * D + c));
+        const float2 be = __ldg(reinterpret_cast<const float2*>(
+            beta + g * D + c));
+        float y0 = (x0 - mean[h]) * istd[h] * ga.x + be.x;
+        float y1 = (x1 - mean[h]) * istd[h] * ga.y + be.y;
+        if constexpr (DROP) {
+          const uint32_t bits = kw[g][h] >> (4 * q);
+          y0 *= (bits & 1u) ? drop.scale : 0.f;
+          y1 *= (bits & 2u) ? drop.scale : 0.f;
+        }
+        ya[pr >> 2][pr & 3] = tc::pack_bf16(y0, y1);
+      }
+      tc::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tc::mma_rs<D, 1>(
+            acc, ya[kk],
+            tc::make_desc(w_a + (4 * g + kk) * 2 * tc::ATOM_BYTES,
+                          Shapes<D>::W_PANEL),
+            g > 0 || kk > 0);
+      tc::commit();
+      tc::wait<0>();
+    }
+    tc::fence_regs(acc);
+    // ---- bias, ReLU, out through the frame's qn slot (read by now) -------
+    if (wlive) {
+#pragma unroll
+      for (int pr = 0; pr < D / 4; ++pr) {
+        const int h = pr & 1, c = 8 * (pr >> 1) + cl;
+        const float2 bv = *reinterpret_cast<const float2*>(bias_s + c);
+        *reinterpret_cast<uint32_t*>(sl + tc::swz(rl + 8 * h, c)) =
+            tc::pack_bf16(fmaxf(acc[2 * pr] + bv.x, 0.f),
+                          fmaxf(acc[2 * pr + 1] + bv.y, 0.f));
+      }
+    }
+    tc::bar_sync(1 + wg, 128);         // the output tile is whole
+    const int rows = min(TM, M - m0);
+    for (int q = t; q < rows * (D / 8); q += 128) {
+      const int r = q >> 3, ch = q & 7, mm = m0 + r;
+      const size_t row =
+          ((static_cast<size_t>(b) * A + mm / Lqa) * Li + i) * Lqa + mm % Lqa;
+      *reinterpret_cast<uint4*>(mixed + row * D + 8 * ch) =
+          *reinterpret_cast<const uint4*>(sl + tc::swz_chunk(r, ch));
     }
   }
 }
@@ -740,6 +1063,30 @@ int launch_tc(const void* cn, const void* ce, const void* qn, const void* qe,
         cmask, qmask, gamma, beta, h(wp), bias, targets,
         static_cast<bf16*>(mixed), raw, B * Li, A, Lqa, Li, Lr, scale,
         drop));
+  } else if constexpr (D == 64) {
+    // persistent: at most one CTA an SM over the B T Li (b, tile, frame)
+    // items, three warpgroups a CTA
+    using S = AttnTc64;
+    auto kern = drop.threshold != 0u ? qa_ctx_fwd_tc64_kernel<LRP, true>
+                                     : qa_ctx_fwd_tc64_kernel<LRP, false>;
+    cudaError_t err = allow_smem(kern, S::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    static int sms = 0;
+    if (sms == 0) {
+      int dev = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    const long long items = static_cast<long long>(B) * Li
+                            * ((A * Lqa + TM - 1) / TM);
+    const long long ctas = (items + S::NWG - 1) / S::NWG;
+    if (ctas == 0) return static_cast<int>(cudaSuccess);
+    kern<<<static_cast<int>(ctas < sms ? ctas : sms), S::NT, S::SMEM,
+           stream>>>(h(cn), h(ce), h(qn), h(qe), cmask, qmask, gamma, beta,
+                     static_cast<const float*>(W), bias, targets,
+                     static_cast<bf16*>(mixed), raw, B, A, Lqa, Li, Lr, scale,
+                     drop);
+    return static_cast<int>(cudaGetLastError());
   } else {
     auto kern = qa_ctx_fwd_tc_kernel<D, LRP>;
     cudaError_t err = allow_smem(kern, AttnTc<D>::SMEM);
@@ -779,7 +1126,7 @@ int launch_width(const void* cn, const void* ce, const void* qn,
 // cn, ce: (B, A, Lqa, D); qn, qe: (B, Li, Lr, D), all of one type (bf16
 // when is_bf16, else float32), D one of 64, 128, 256; masks, gamma/beta
 // (3D), bias (D) float32; W (3D, D) float32, or bfloat16 when is_bf16 at
-// D = 64 and 128; mixed (B, A, Li, Lqa, D) in the activation type; raw
+// D = 128; mixed (B, A, Li, Lqa, D) in the activation type; raw
 // float32: (B, A, Li, Lqa, Lr) when targets is NULL, else (B, Li, Lqa, Lr)
 // at targets[b] (int32, B); raw NULL writes none.  wp: scratch for W in
 // bf16 slabs (3 D D bf16, 16-byte aligned) of the bf16 kernel at D = 256,

@@ -16,16 +16,13 @@
 // MB and ~252 GFLOP at D = 256 (operations, ~255 us).
 //
 // Three kernels.
-// * bfloat16 at D = 64: tri_bridge_bwd_tc_wide_kernel<64>, the D = 128
-//   tensor-core design (tri_bridge_bwd.cu) at this width: one resident
-//   block an SM walks 64-row tiles, the two warpgroups split the columns,
-//   every product a wgmma on bf16 operands with float32 sums, rounded where
-//   the TPU kernel's bf16 compute mode rounds (yd, W, g_y1;
-//   pallas_tri_bridge.py:77-79, :157-162), the recompute on
-//   tri_bridge_tc.cuh; W and W^T resident (24 KB each, both read K-major: a
-//   warpgroup's 32 columns start inside a swizzled row, where an MN-major
-//   operand cannot start); g_yd a group at a time, twice (once for the
-//   LN_in backward's row sums, once for gx).
+// * bfloat16 at D = 64: tri_bridge_bwd_tc64_kernel: one resident block an
+//   SM, each of its three warpgroups on 64-row tiles of its own at all 64
+//   columns, every product a wgmma on bf16 operands with float32 sums,
+//   rounded where the TPU kernel's bf16 compute mode rounds (yd, W, g_y1;
+//   pallas_tri_bridge.py:77-79, :157-162); W resident once (24 KB, read
+//   MN-major by y1 and K-major by g_yd), g_yd once a tile, the next tile
+//   copied while this one computes (the note at the kernel).
 // * bfloat16 at D = 256: tri_bridge_bwd_tc256_kernel, the same tiles and
 //   rounding sites with W (384 KB) streamed (the note at the kernel): g_yd
 //   once a tile, its LN_in backward folded into two sums a column, W in
@@ -330,24 +327,6 @@ int launch(const float* s, const float* v, const float* gin,
 
 // ---- the bfloat16 instantiation: tensor cores ------------------------------
 
-// Shared-memory layout at D = 64 (bytes from the 1024-aligned base): W^T
-// (3 panels of D rows: the K-major B of y1 = yd W) and W (one panel of 3D
-// rows: the K-major B of g_yd = g_y1 W^T), both resident; the s and v
-// tiles; yd (64 x 3D); g_y1 (64 x D) behind it; the exchange rounds
-// [4][wg][row][2]; gin, bin, bias, gout.
-template <int D>
-struct TriBwdTc {
-  static_assert(D == 64, "the resident design");
-  static constexpr int TILE = Shapes<D>::TILE_BYTES;
-  static constexpr int O_S = 2 * Shapes<D>::W_BYTES;
-  static constexpr int O_V = O_S + TILE;
-  static constexpr int O_YD = O_V + TILE;
-  static constexpr int O_G1 = O_YD + 3 * TILE;
-  static constexpr int O_EX = O_YD + 3 * TILE + TILE;
-  static constexpr int O_PV = O_EX + 4 * 2 * TM * 2 * 4;
-  static constexpr int SMEM = O_PV + 8 * D * 4 + tc::ATOM_BYTES;
-};
-
 // Sums over the thread's two rows and the eight lanes that hold the
 // column's other rows of v[i] (column pair i / 2 of the thread's 8-column
 // blocks, element i % 2), added into acc: entry j of acc is v's entry
@@ -370,268 +349,431 @@ __device__ __forceinline__ int fold_col(int j, int half, int lane) {
   return half + 8 * (i >> 1) + 2 * (lane & 3) + (i & 1);
 }
 
-// acc = g_y1 W[g D + n, :]^T on the warpgroup's D / 2 columns n of group g
-// (the g_y1 tile K-major, W resident, K-major).
-template <int D>
-__device__ __forceinline__ void tri_gyd_mma(float (&acc)[D / 4],
-                                            uint8_t* sm, int g, int wg) {
-  using S = TriBwdTc<D>;
-  const uint32_t g1 = tc::smem_u32(sm + S::O_G1);
-  const uint32_t w = tc::smem_u32(sm + Shapes<D>::W_BYTES);
-  tc::fence();
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
-    tc::mma_ss<D / 2, 0, 0>(
-        acc, tc::make_desc(g1 + ks * 32, 16),
-        tc::make_desc(w + (g * D + D / 2 * wg) * tc::ROW_BYTES + ks * 32, 16),
-        ks > 0);
-  tc::commit();
-  tc::wait_all();
-  tc::fence_regs(acc);
+// Rows r < `rows` of a bf16 tile (C / 64 panels of 64 rows, the 128-byte
+// swizzle) out to row-major memory (row stride C), 16 bytes a thread at a
+// time, neighbouring threads on neighbouring chunks of a row; thread tid of
+// N (every thread of the block, or of a warpgroup).
+template <int C, int N = NTHREADS>
+__device__ __forceinline__ void tile_rows_out(__nv_bfloat16* dst,
+                                              const uint8_t* tile, int rows,
+                                              int tid) {
+  constexpr int CH = C / 8;
+  for (int c = tid; c < rows * CH; c += N) {
+    const int r = c / CH, ch = c % CH;
+    *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * C + ch * 8) =
+        *reinterpret_cast<const uint4*>(tile + (ch >> 3) * TILE_PANEL
+                                        + tc::swz_chunk(r, ch & 7));
+  }
 }
 
-// The bf16 backward at D = 64: tri_bridge_bwd.cu's tri_bridge_bwd_tc_kernel
-// (one resident block an SM walks 64-row tiles, the two warpgroups split
-// the columns, the recompute on tri_bridge_tc.cuh) with W resident.  g_yd
-// is taken one group at a time, twice: first for the LN_in backward's row
-// sums and the parameter sums, then again for gx (group 2 first: gs = gx0 +
-// gx2 v and gv = gx1 + gx2 s are stored as groups 0 and 1 come).
-template <int D>
-__global__ void __launch_bounds__(NTHREADS, 1)
-tri_bridge_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ s,
-                              const __nv_bfloat16* __restrict__ v,
-                              const float* __restrict__ gin,
-                              const float* __restrict__ bin,
-                              const float* __restrict__ W,
-                              const float* __restrict__ bias,
-                              const float* __restrict__ gout,
-                              const __nv_bfloat16* __restrict__ gy,
-                              __nv_bfloat16* __restrict__ gs,
-                              __nv_bfloat16* __restrict__ gv,
-                              __nv_bfloat16* __restrict__ yd_rows,
-                              __nv_bfloat16* __restrict__ gy1_rows,
-                              float* __restrict__ vec_part, long long R,
-                              Dropout drop) {
-  using S = TriBwdTc<D>;
-  constexpr int NF = D / 8;            // fold entries: column pairs x 2
-  constexpr int NC = NF / 8;           // a lane's columns after the folds
-  constexpr int KW = (D / 16 + 7) / 8; // keep words of a group and row
+// The bf16 backward at D = 64, the design (what bounds it: the header; per
+// 64-row tile ~5,000 instructions a thread of row passes, half of them the
+// Philox replay, against 3.1 MFLOP of products):
+// * Each of a block's three warpgroups walks 64-row tiles of its own (tiles
+//   w, w + n, .. of the 3 x blocks warpgroups), at all 64 columns: every
+//   product is a wgmma of N = 64 and every row sum a quad's shuffles, so
+//   no shared-memory exchange and no block barrier a tile (named
+//   barriers, four a tile).  Twelve warps an SM: with eight (two
+//   warpgroups) the Philox replay alone took 0.08 ms a call.
+// * W resident once, rounded to bf16 as 3D rows of D (24 KB): y1 = yd W
+//   reads it MN-major, g_yd = g_y1 W^T K-major (a group's 64 rows).
+// * g_yd once a tile (tri_bridge_bwd_tc256_kernel's fold), a group at a
+//   time (0, 1, 2): pass A keeps P = gxh0 + gxh2 v and Q = gxh1 + gxh2 s in
+//   registers (group 2 adds its term in place) beside the row sums s1 =
+//   sum gxh, s2 = sum gxh xh and the LN_in parameter sums, and gs = istd
+//   (P - m1 (1 + v) - m2 (xh0 + xh2 v)), gv = istd (Q - m1 (1 + s) - m2
+//   (xh1 + xh2 s)), m = s / 3dv.
+// * A warpgroup's room holds two halves of three tiles that take turns: a
+//   tile's s, v and cotangent rows in one, its yd in the other, into which
+//   the next tile's rows are copied (cp.async) as soon as yd is read.
+// * yd, g_y1, gs and gv go out through swizzled tiles, 16 bytes a thread,
+//   the yd rows while y1's products run; gs and gv through the cotangent
+//   and g_y1 tiles, read by then.
+// * Shared-memory reads are what the row passes wait on: the thread's s
+//   and v pairs are read once for LN_in and yd, the cotangent's once for
+//   LN_out and g_y1, the parameter vectors two columns a load (0.035 ms a
+//   call less than a read a use).  Keeping the s and v pairs through
+//   pass A as well spilled and ran slower.
+// * Parameter sums: folded over a warp's rows each tile, kept a warp's,
+//   summed over the block's twelve warps in a fixed order: no atomics.
+// Shared memory: 199,680 bytes.
+struct Tri64 {
+  static constexpr int D = 64;
+  static constexpr int NWG = 3;                       // warpgroups a block
+  static constexpr int NT = 128 * NWG;                // threads a block
+  static constexpr int TILE = TILE_PANEL;             // 64 x 64 bf16
+  static constexpr int O_W = 0;                       // W (3D x D) bf16
+  static constexpr int O_PV = O_W + Shapes<D>::W_BYTES;   // gin bin bias gout
+  static constexpr int O_ROOM = O_PV + 8 * D * 4;
+  // a warpgroup's room: two halves of three tiles (s, v and the cotangent
+  // of one tile, or yd of the other), then g_y1
+  static constexpr int HALF = 3 * TILE;
+  static constexpr int R_G1 = 2 * HALF;
+  static constexpr int ROOM = R_G1 + TILE;
+  static constexpr int SMEM = O_ROOM + NWG * ROOM + tc::ATOM_BYTES;
+  static_assert(O_ROOM % tc::ATOM_BYTES == 0, "tiles on atoms");
+  static_assert(SMEM <= 232448, "shared memory of a block");
+  static_assert(4 * NWG * 8 * D * 4 <= HALF, "the block sums in a half");
+};
+
+__global__ void __launch_bounds__(Tri64::NT, 1)
+tri_bridge_bwd_tc64_kernel(const __nv_bfloat16* __restrict__ s,
+                           const __nv_bfloat16* __restrict__ v,
+                           const float* __restrict__ gin,
+                           const float* __restrict__ bin,
+                           const float* __restrict__ W,
+                           const float* __restrict__ bias,
+                           const float* __restrict__ gout,
+                           const __nv_bfloat16* __restrict__ gy,
+                           __nv_bfloat16* __restrict__ gs,
+                           __nv_bfloat16* __restrict__ gv,
+                           __nv_bfloat16* __restrict__ yd_rows,
+                           __nv_bfloat16* __restrict__ gy1_rows,
+                           float* __restrict__ vec_part, long long R,
+                           Dropout drop) {
+  using S = Tri64;
+  constexpr int D = S::D;
   constexpr int NVT = 8 * D;   // ggin (3D), gbin (3D), ggout, gbout (D)
   drop.load_seed();
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align_smem(smem_raw);
-  uint8_t* s_s = sm + S::O_S;
-  uint8_t* v_s = sm + S::O_V;
-  uint8_t* yd_s = sm + S::O_YD;
-  uint8_t* g1_s = sm + S::O_G1;
-  float* ex_s = reinterpret_cast<float*>(sm + S::O_EX);
   float* gin_s = reinterpret_cast<float*>(sm + S::O_PV);
   float* bin_s = gin_s + 3 * D;
   float* bias_s = bin_s + 3 * D;
   float* gout_s = bias_s + D;
-
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
   const int warp = t >> 5, lane = tid & 31;
-  const int rl = 16 * warp + (lane >> 2);
-  const int cl = 2 * (lane & 3);
-  const int half = D / 2 * wg;
-  for (int k = tid; k < 3 * D; k += NTHREADS) {
+  const int rl = 16 * warp + (lane >> 2), cl = 2 * (lane & 3);
+  uint8_t* room = sm + S::O_ROOM + wg * S::ROOM;
+  uint8_t* g1_s = room + S::R_G1;
+  const uint32_t w_a = tc::smem_u32(sm + S::O_W);
+  // the warpgroup's tiles: w0, w0 + nw, ..; tile j's rows in half j % 2
+  const long long tiles = (R + TM - 1) / TM;
+  const long long nw = static_cast<long long>(S::NWG) * gridDim.x;
+  const long long w0 = static_cast<long long>(S::NWG) * blockIdx.x + wg;
+  const int n = w0 < tiles ? static_cast<int>((tiles - 1 - w0) / nw) + 1 : 0;
+  auto half = [&](int j) { return room + (j & 1) * S::HALF; };
+  auto rows_of = [&](long long tile) {
+    return static_cast<int>(min(static_cast<long long>(TM), R - tile * TM));
+  };
+  // the s, v and cotangent rows of the walk's tile j (rows past R zeroed)
+  auto load = [&](int j) {
+    const long long r0 = (w0 + j * nw) * TM;
+    const int rows = rows_of(w0 + j * nw);
+    uint8_t* h = half(j);
+    tc_load_rows<D>(h, TM, s + r0 * D, D, rows, t, 128);
+    tc_load_rows<D>(h + S::TILE, TM, v + r0 * D, D, rows, t, 128);
+    tc_load_rows<D>(h + 2 * S::TILE, TM, gy + r0 * D, D, rows, t, 128);
+  };
+  if (n > 0) load(0);
+  tc::cp_async_commit();
+  tc_store_rows_f32<D>(sm + S::O_W, 3 * D, W, D, tid, S::NT);
+  for (int k = tid; k < 3 * D; k += S::NT) {
     gin_s[k] = gin[k];
     bin_s[k] = bin[k];
   }
-  if (tid < D) {                       // D <= NTHREADS
+  if (tid < D) {
     bias_s[tid] = bias[tid];
     gout_s[tid] = gout[tid];
   }
-  tri_store_wt<D>(sm, W, tid);          // W^T and W, rounded to bf16
-  tc_store_rows_f32<D>(sm + Shapes<D>::W_BYTES, 3 * D, W, D, tid, NTHREADS);
-  float vgi[3][NC], vbi[3][NC], vgo[NC], vbo[NC];
+  // the parameter sums of the warp's rows: after the folds a lane holds
+  // columns fold_col<16>(j, 0, lane), j = 0, 1
+  float vgi[3][2], vbi[3][2], vgo[2], vbo[2];
 #pragma unroll
-  for (int j = 0; j < NC; ++j) {
+  for (int j = 0; j < 2; ++j) {
     vgo[j] = vbo[j] = 0.f;
 #pragma unroll
     for (int g = 0; g < 3; ++g) vgi[g][j] = vbi[g][j] = 0.f;
   }
+  tc::cp_async_wait<0>();
+  tc::fence_async_smem();
+  __syncthreads();                     // W, the parameters, the first tile
 
-  const long long tiles = (R + TM - 1) / TM;
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long r0 = tile * TM;
-    const int rows = static_cast<int>(min(static_cast<long long>(TM),
-                                          R - r0));
-    __syncthreads();                   // the previous tile is consumed
-    tc_load_rows<D>(s_s, TM, s + r0 * D, D, rows, tid, NTHREADS);
-    tc_load_rows<D>(v_s, TM, v + r0 * D, D, rows, tid, NTHREADS);
-    tc::cp_async_commit();
-    bool live[2];
-    long long row[2];
+  for (int j = 0; j < n; ++j) {
+    const long long r0 = (w0 + j * nw) * TM;
+    const int rows = rows_of(w0 + j * nw);
+    long long row[2];                  // the rows' keys (past R: row 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      row[h] = rl + 8 * h < rows ? r0 + rl + 8 * h : 0;
+    // ---- the keep bits of the three groups (while the rows land) --------
+    uint32_t kw[3][2];
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      uint32_t k2[2][1] = {{~0u}, {~0u}};
+      if (drop.on())
+        tc_keep_bits<D / 8, true>(
+            drop, drop.key3((lane & 1) ? row[1] : row[0], g, 0), lane, k2);
+      kw[g][0] = k2[0][0];
+      kw[g][1] = k2[1][0];
+    }
+    if (j > 0) {
+      tc::cp_async_wait<0>();
+      tc::fence_async_smem();
+      tc::bar_sync(1 + wg, 128);       // this tile's rows; the last is done
+    }
+    const uint8_t* s_s = half(j);
+    const uint8_t* v_s = s_s + S::TILE;
+    uint8_t* g_s = half(j) + 2 * S::TILE;
+    uint8_t* yd_s = half(j + 1);
+    // ---- LN_in statistics, yd (the thread's s and v pairs read once) ----
+    float mean[2] = {0.f, 0.f}, istd[2] = {0.f, 0.f};
+    uint32_t sp[D / 4], vp[D / 4];
+#pragma unroll
+    for (int pr = 0; pr < D / 4; ++pr) {
+      const int h = pr & 1, c = 8 * (pr >> 1) + cl;
+      sp[pr] = *reinterpret_cast<const uint32_t*>(s_s + tc::swz(rl + 8 * h, c));
+      vp[pr] = *reinterpret_cast<const uint32_t*>(v_s + tc::swz(rl + 8 * h, c));
+      const float2 a = tc::unpack_bf16(sp[pr]), b = tc::unpack_bf16(vp[pr]);
+      const float x0 = a.x * b.x, x1 = a.y * b.y;
+      mean[h] += (a.x + a.y) + (b.x + b.y) + (x0 + x1);
+      istd[h] += fmaf(a.x, a.x, a.y * a.y) + fmaf(b.x, b.x, b.y * b.y)
+                 + fmaf(x0, x0, x1 * x1);
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      live[h] = rl + 8 * h < rows;
-      row[h] = r0 + (live[h] ? rl + 8 * h : 0);
+      mean[h] = quad_sum(mean[h]) * drop.inv3;
+      istd[h] = rsqrtf(fmaxf(quad_sum(istd[h]) * drop.inv3
+                             - mean[h] * mean[h], 0.f) + LN_EPS);
     }
-    uint32_t kw[3][2][KW];
-    tri_keep_bits<D>(drop, row, lane, half, kw);
-    tc::cp_async_wait<0>();
-    tc::fence_async_smem();            // W (first tile) is read by wgmma
-    __syncthreads();
-    // ---- the recompute: LN_in statistics, yd (out as rows), y1 ---------
-    float mean[2], istd[2];
-    tri_ln_in_stats<D>(s_s, v_s, ex_s, mean, istd, wg, rl, lane, drop.inv3);
-    tri_yd_tile<true, D>(s_s, v_s, yd_s, kw, drop, mean, istd, gin_s, bin_s,
-                         yd_rows, live, row, wg, rl, lane);
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int pr = 0; pr < D / 4; ++pr) {
+        const int h = pr & 1, q = pr >> 1, c = 8 * q + cl;
+        const float2 a = tc::unpack_bf16(sp[pr]), b = tc::unpack_bf16(vp[pr]);
+        const float x0 = g == 0 ? a.x : (g == 1 ? b.x : a.x * b.x);
+        const float x1 = g == 0 ? a.y : (g == 1 ? b.y : a.y * b.y);
+        const uint32_t bits = kw[g][h] >> (4 * q);
+        const float k0 = !drop.on() ? 1.f : (bits & 1u ? drop.scale : 0.f);
+        const float k1 = !drop.on() ? 1.f : (bits & 2u ? drop.scale : 0.f);
+        const float2 gi = *reinterpret_cast<const float2*>(gin_s + g * D + c);
+        const float2 bi = *reinterpret_cast<const float2*>(bin_s + g * D + c);
+        *reinterpret_cast<uint32_t*>(yd_s + g * S::TILE
+                                     + tc::swz(rl + 8 * h, c)) =
+            tc::pack_bf16(((x0 - mean[h]) * istd[h] * gi.x + bi.x) * k0,
+                          ((x1 - mean[h]) * istd[h] * gi.y + bi.y) * k1);
+      }
     tc::fence_async_smem();
-    __syncthreads();                   // the yd tile is whole
-    float acc[D / 4], m2[2], i2[2];
-    tri_y1_mma<D>(acc, yd_s, sm, wg);
-    // (a block barrier: past it, yd's readers are done in both warpgroups)
-    tri_ln_out_stats<D>(acc, bias_s, ex_s + 2 * TM * 2, m2, i2, wg, rl,
-                        lane, drop.inv1);
-    // ---- LN_out and ReLU backward; g_y1 into its tile and out as rows ----
-    float gg[D / 4], s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+    tc::bar_sync(1 + wg, 128);         // the yd tile is whole
+    // ---- y1 = yd W (W MN-major), the yd rows out meanwhile --------------
+    float acc[D / 2];
     {
-      float tg[NF], tb[NF];
+      const uint32_t ya = tc::smem_u32(yd_s);
+      tc::fence();
 #pragma unroll
-      for (int k = 0; k < NF; ++k) tg[k] = tb[k] = 0.f;
+      for (int ks = 0; ks < 3 * D / 16; ++ks)
+        tc::mma_ss<D, 0, 1>(
+            acc, tc::make_desc(ya + (ks / 4) * S::TILE + (ks % 4) * 32, 16),
+            tc::make_desc(w_a + ks * 2 * tc::ATOM_BYTES,
+                          Shapes<D>::W_PANEL),
+            ks > 0);
+      tc::commit();
+    }
+    tile_rows_out<3 * D, 128>(yd_rows + r0 * (3 * D), yd_s, rows, t);
+    tc::wait<0>();
+    tc::fence_regs(acc);
+    // ---- LN_out and ReLU backward; g_y1 into its tile ---------------------
+    float m2[2] = {0.f, 0.f}, i2[2] = {0.f, 0.f};
 #pragma unroll
-      for (int pr = 0; pr < D / 8; ++pr) {
-        const int h = pr & 1, q = pr >> 1, c = half + 8 * q + cl;
-        const float2 g2 = live[h]
-            ? tc::unpack_bf16(__ldg(reinterpret_cast<const unsigned int*>(
-                  gy + row[h] * D + c)))
-            : make_float2(0.f, 0.f);
+    for (int pr = 0; pr < D / 4; ++pr) {
+      const int h = pr & 1;
+      const float2 bv = *reinterpret_cast<const float2*>(
+          bias_s + 8 * (pr >> 1) + cl);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        acc[2 * pr + e] += e ? bv.y : bv.x;                // y1
+        const float y2 = fmaxf(acc[2 * pr + e], 0.f);
+        m2[h] += y2;
+        i2[h] = fmaf(y2, y2, i2[h]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m2[h] = quad_sum(m2[h]) * drop.inv1;
+      i2[h] = rsqrtf(fmaxf(quad_sum(i2[h]) * drop.inv1 - m2[h] * m2[h],
+                           0.f) + LN_EPS);
+    }
+    {
+      // the cotangent's bf16 pairs, read once
+      uint32_t gp[D / 4];
+      float tg[D / 4], tb[D / 4], s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+      for (int pr = 0; pr < D / 4; ++pr) {
+        const int h = pr & 1, q = pr >> 1, c = 8 * q + cl;
+        gp[pr] = *reinterpret_cast<const uint32_t*>(g_s + tc::swz(rl + 8 * h,
+                                                                  c));
+        const float2 g2 = tc::unpack_bf16(gp[pr]);
+        const float2 go = *reinterpret_cast<const float2*>(gout_s + c);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 2 * pr + e, ti = 2 * q + e;
+          const float g = e ? g2.y : g2.x;
+          const float xh = (fmaxf(acc[i], 0.f) - m2[h]) * i2[h];
+          if (h == 0) {
+            tg[ti] = g * xh;
+            tb[ti] = g;
+          } else {
+            tg[ti] = fmaf(g, xh, tg[ti]);
+            tb[ti] += g;
+          }
+          const float gxh = g * (e ? go.y : go.x);
+          s1[h] += gxh;
+          s2[h] = fmaf(gxh, xh, s2[h]);
+        }
+      }
+      fold_cols<D / 4>(tg, vgo, lane);
+      fold_cols<D / 4>(tb, vbo, lane);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s1[h] = quad_sum(s1[h]) * drop.inv1;
+        s2[h] = quad_sum(s2[h]) * drop.inv1;
+      }
+#pragma unroll
+      for (int pr = 0; pr < D / 4; ++pr) {
+        const int h = pr & 1, c = 8 * (pr >> 1) + cl;
+        const float2 g2 = tc::unpack_bf16(gp[pr]);
+        const float2 go = *reinterpret_cast<const float2*>(gout_s + c);
+        float g1[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int i = 2 * pr + e;
-          const float g = e ? g2.y : g2.x;
           const float xh = (fmaxf(acc[i], 0.f) - m2[h]) * i2[h];
-          tg[2 * q + e] = fmaf(g, xh, tg[2 * q + e]);
-          tb[2 * q + e] += g;
-          gg[i] = g * gout_s[c + e];                         // gxh2
-          s1[h] += gg[i];
-          s2[h] = fmaf(gg[i], xh, s2[h]);
+          const float gxh = (e ? g2.y : g2.x) * (e ? go.y : go.x);
+          const float g2v = i2[h] * (gxh - s1[h] - xh * s2[h]);
+          g1[e] = acc[i] > 0.f ? g2v : 0.f;
         }
+        *reinterpret_cast<uint32_t*>(g1_s + tc::swz(rl + 8 * h, c)) =
+            tc::pack_bf16(g1[0], g1[1]);
       }
-      fold_cols<NF>(tg, vgo, lane);
-      fold_cols<NF>(tb, vbo, lane);
-    }
-    tri_row_pair_sums(ex_s + 2 * 2 * TM * 2, s1, s2, wg, rl, lane);
-#pragma unroll
-    for (int pr = 0; pr < D / 8; ++pr) {
-      const int h = pr & 1, c = half + 8 * (pr >> 1) + cl;
-      float g1[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int i = 2 * pr + e;
-        const float xh = (fmaxf(acc[i], 0.f) - m2[h]) * i2[h];
-        const float g2 = i2[h] * (gg[i] - s1[h] * drop.inv1
-                                  - xh * s2[h] * drop.inv1);
-        g1[e] = acc[i] > 0.f ? g2 : 0.f;
-      }
-      const uint32_t p = tc::pack_bf16(g1[0], g1[1]);
-      *reinterpret_cast<uint32_t*>(g1_s + (c >> 6) * TILE_PANEL
-                                   + tc::swz(rl + 8 * h, c & 63)) = p;
-      if (live[h])
-        *reinterpret_cast<uint32_t*>(gy1_rows + row[h] * D + c) = p;
     }
     tc::fence_async_smem();
-    __syncthreads();                   // the g_y1 tile is whole
-    // ---- pass 1: g_yd a group at a time, the dropout replay, ggin / gbin,
-    // the LN_in backward's row sums ----------------------------------------
+    tc::bar_sync(1 + wg, 128);         // the g_y1 tile is whole; yd is read
+    if (j + 1 < n) load(j + 1);        // into yd's half
+    tc::cp_async_commit();
+    tile_rows_out<D, 128>(gy1_rows + r0 * D, g1_s, rows, t);
+    // ---- pass A: g_yd = g_y1 W^T once, a group at a time (0, 1, 2); the
+    // dropout replay, ggin / gbin, the LN_in backward's row sums, P and Q ---
+    float P[D / 2], Q[D / 2];
     float t1[2] = {0.f, 0.f}, t2[2] = {0.f, 0.f};
 #pragma unroll
     for (int g = 0; g < 3; ++g) {
-      tri_gyd_mma<D>(acc, sm, g, wg);
-      float tg[NF], tb[NF];
+      float ac[D / 2];
+      {
+        const uint32_t ga = tc::smem_u32(g1_s);
+        tc::fence();
 #pragma unroll
-      for (int k = 0; k < NF; ++k) tg[k] = tb[k] = 0.f;
+        for (int ks = 0; ks < D / 16; ++ks)
+          tc::mma_ss<D, 0, 0>(
+              ac, tc::make_desc(ga + ks * 32, 16),
+              tc::make_desc(w_a + g * D * tc::ROW_BYTES + ks * 32, 16),
+              ks > 0);
+        tc::commit();
+        tc::wait<0>();
+        tc::fence_regs(ac);
+      }
+      float tg[D / 4], tb[D / 4];
 #pragma unroll
-      for (int pr = 0; pr < D / 8; ++pr) {
-        const int h = pr & 1, q = pr >> 1, c = half + 8 * q + cl;
-        const float2 a = tri_pair(s_s, rl, h, c),
-                     b = tri_pair(v_s, rl, h, c);
-        const uint32_t bits = KW == 1 ? kw[g][h][0] >> (4 * q)
-                                      : kw[g][h][q >> 3] >> (4 * (q & 7));
+      for (int pr = 0; pr < D / 4; ++pr) {
+        const int h = pr & 1, q = pr >> 1, c = 8 * q + cl;
+        const float2 a = tri_pair(s_s, rl, h, c), b = tri_pair(v_s, rl, h, c);
+        const float2 gi = *reinterpret_cast<const float2*>(gin_s + g * D + c);
+        const uint32_t bits = kw[g][h] >> (4 * q);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int i = 2 * pr + e;
+          const int i = 2 * pr + e, ti = 2 * q + e;
           const float sv = e ? a.y : a.x, vv = e ? b.y : b.x;
           const float x = g == 0 ? sv : (g == 1 ? vv : sv * vv);
           const float xh = (x - mean[h]) * istd[h];
           const float km = !drop.on() ? 1.f
               : ((bits >> e) & 1u ? drop.scale : 0.f);
-          const float gyv = acc[i] * km;
-          tg[2 * q + e] = fmaf(gyv, xh, tg[2 * q + e]);
-          tb[2 * q + e] += gyv;
-          const float gxh = gyv * gin_s[g * D + c + e];
+          const float gyv = ac[i] * km;
+          if (h == 0) {
+            tg[ti] = gyv * xh;
+            tb[ti] = gyv;
+          } else {
+            tg[ti] = fmaf(gyv, xh, tg[ti]);
+            tb[ti] += gyv;
+          }
+          const float gxh = gyv * (e ? gi.y : gi.x);
           t1[h] += gxh;
           t2[h] = fmaf(gxh, xh, t2[h]);
+          if (g == 0) {                // P = gxh0 + gxh2 v, Q = gxh1 + gxh2 s
+            P[i] = gxh;
+          } else if (g == 1) {
+            Q[i] = gxh;
+          } else {
+            P[i] = fmaf(gxh, vv, P[i]);
+            Q[i] = fmaf(gxh, sv, Q[i]);
+          }
         }
       }
-      fold_cols<NF>(tg, vgi[g], lane);
-      fold_cols<NF>(tb, vbi[g], lane);
+      fold_cols<D / 4>(tg, vgi[g], lane);
+      fold_cols<D / 4>(tb, vbi[g], lane);
     }
-    tri_row_pair_sums(ex_s + 3 * 2 * TM * 2, t1, t2, wg, rl, lane);
-    // ---- pass 2: gx of each group again; gs and gv out -------------------
-    float gx2[D / 4];
+    // ---- pass B: gs and gv through the cotangent and g_y1 tiles (read by
+    // now: LN_out, and the products every warp waited for), then out -------
 #pragma unroll
-    for (int n = 0; n < 3; ++n) {
-      const int g = (n + 2) % 3;       // groups 2, 0, 1
-      tri_gyd_mma<D>(acc, sm, g, wg);
+    for (int h = 0; h < 2; ++h) {
+      t1[h] = quad_sum(t1[h]) * drop.inv3;
+      t2[h] = quad_sum(t2[h]) * drop.inv3;
+    }
 #pragma unroll
-      for (int pr = 0; pr < D / 8; ++pr) {
-        const int h = pr & 1, q = pr >> 1, c = half + 8 * q + cl;
-        const float2 a = tri_pair(s_s, rl, h, c),
-                     b = tri_pair(v_s, rl, h, c);
-        const uint32_t bits = KW == 1 ? kw[g][h][0] >> (4 * q)
-                                      : kw[g][h][q >> 3] >> (4 * (q & 7));
-        float o[2];
+    for (int pr = 0; pr < D / 4; ++pr) {
+      const int h = pr & 1, c = 8 * (pr >> 1) + cl;
+      const float2 a = tri_pair(s_s, rl, h, c), b = tri_pair(v_s, rl, h, c);
+      float o[2][2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 2 * pr + e;
-          const float sv = e ? a.y : a.x, vv = e ? b.y : b.x;
-          const float x = g == 0 ? sv : (g == 1 ? vv : sv * vv);
-          const float xh = (x - mean[h]) * istd[h];
-          const float km = !drop.on() ? 1.f
-              : ((bits >> e) & 1u ? drop.scale : 0.f);
-          const float gxh = acc[i] * km * gin_s[g * D + c + e];
-          const float gx = istd[h] * (gxh - t1[h] * drop.inv3
-                                      - xh * t2[h] * drop.inv3);
-          if (g == 2)
-            gx2[i] = gx;
-          else
-            o[e] = fmaf(gx2[i], g == 0 ? vv : sv, gx);
-        }
-        if (g != 2 && live[h])
-          *reinterpret_cast<uint32_t*>((g == 0 ? gs : gv) + row[h] * D + c) =
-              tc::pack_bf16(o[0], o[1]);
+      for (int e = 0; e < 2; ++e) {
+        const int i = 2 * pr + e;
+        const float sv = e ? a.y : a.x, vv = e ? b.y : b.x;
+        const float xh0 = (sv - mean[h]) * istd[h];
+        const float xh1 = (vv - mean[h]) * istd[h];
+        const float xh2 = (sv * vv - mean[h]) * istd[h];
+        o[0][e] = istd[h] * (P[i] - t1[h] * (1.f + vv)
+                             - t2[h] * fmaf(xh2, vv, xh0));
+        o[1][e] = istd[h] * (Q[i] - t1[h] * (1.f + sv)
+                             - t2[h] * fmaf(xh2, sv, xh1));
       }
+      const int at = tc::swz(rl + 8 * h, c);
+      *reinterpret_cast<uint32_t*>(g_s + at) = tc::pack_bf16(o[0][0],
+                                                              o[0][1]);
+      *reinterpret_cast<uint32_t*>(g1_s + at) = tc::pack_bf16(o[1][0],
+                                                               o[1][1]);
     }
+    tc::bar_sync(1 + wg, 128);         // the gs and gv tiles are whole
+    tile_rows_out<D, 128>(gs + r0 * D, g_s, rows, t);
+    tile_rows_out<D, 128>(gv + r0 * D, g1_s, rows, t);
   }
   // ---- the block's parameter-vector partials, warps summed in order -----
   __syncthreads();
-  float* red = reinterpret_cast<float*>(yd_s);        // [4 warps][NVT]
+  float* red = reinterpret_cast<float*>(sm + S::O_ROOM);  // [warps][NVT]
+  const int wi = 4 * wg + warp;
 #pragma unroll
-  for (int j = 0; j < NC; ++j) {
-    const int c = fold_col<NF>(j, half, lane);
+  for (int j = 0; j < 2; ++j) {
+    const int c = fold_col<D / 4>(j, 0, lane);
 #pragma unroll
     for (int g = 0; g < 3; ++g) {
-      red[warp * NVT + g * D + c] = vgi[g][j];
-      red[warp * NVT + 3 * D + g * D + c] = vbi[g][j];
+      red[wi * NVT + g * D + c] = vgi[g][j];
+      red[wi * NVT + 3 * D + g * D + c] = vbi[g][j];
     }
-    red[warp * NVT + 6 * D + c] = vgo[j];
-    red[warp * NVT + 7 * D + c] = vbo[j];
+    red[wi * NVT + 6 * D + c] = vgo[j];
+    red[wi * NVT + 7 * D + c] = vbo[j];
   }
   __syncthreads();
-  for (int k = tid; k < NVT; k += NTHREADS)
-    vec_part[static_cast<size_t>(blockIdx.x) * NVT + k] =
-        ((red[k] + red[NVT + k]) + red[2 * NVT + k]) + red[3 * NVT + k];
+  for (int k = tid; k < NVT; k += S::NT) {
+    float acc_k = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4 * S::NWG; ++w) acc_k += red[w * NVT + k];
+    vec_part[static_cast<size_t>(blockIdx.x) * NVT + k] = acc_k;
+  }
 }
 
 // ---- the bfloat16 instantiation at D = 256: W through a ring of slabs -----
 //
-// tri_bridge_bwd_tc_wide_kernel's tiles (one resident block an SM walks
-// 64-row tiles, the two warpgroups split the columns, the recompute on
-// tri_bridge_tc.cuh) with W (384 KB) streamed.  What the design does about
+// One resident block an SM walks 64-row tiles, the two warpgroups split
+// the columns, the recompute on tri_bridge_tc.cuh, with W (384 KB)
+// streamed.  What the design does about
 // the card:
 // * g_yd once a tile.  gx of the three LN_in groups enters the outputs only
 //   as gs = gx0 + gx2 v and gv = gx1 + gx2 s, so pass A, which holds g_yd
@@ -659,23 +801,6 @@ tri_bridge_bwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ s,
 //   and the next tile's first three come in during this tile's last
 //   products.
 // Shared memory: 226,560 bytes.
-// Rows r < `rows` of a bf16 tile (C / 64 panels of 64 rows, the 128-byte
-// swizzle) out to row-major memory (row stride C), 16 bytes a thread at a
-// time, neighbouring threads on neighbouring chunks of a row; every thread
-// of the block.
-template <int C>
-__device__ __forceinline__ void tile_rows_out(__nv_bfloat16* dst,
-                                              const uint8_t* tile, int rows,
-                                              int tid) {
-  constexpr int CH = C / 8;
-  for (int c = tid; c < rows * CH; c += NTHREADS) {
-    const int r = c / CH, ch = c % CH;
-    *reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * C + ch * 8) =
-        *reinterpret_cast<const uint4*>(tile + (ch >> 3) * TILE_PANEL
-                                        + tc::swz_chunk(r, ch & 7));
-  }
-}
-
 struct Tri256 {
   static constexpr int D = 256;
   static constexpr int SLAB = 2 * TILE_PANEL;          // 16 KB
@@ -1160,13 +1285,14 @@ int launch_tc64(const void* s, const void* v, const float* gin,
   using bf16 = __nv_bfloat16;
   auto h = [](const void* p) { return static_cast<const bf16*>(p); };
   auto hm = [](void* p) { return static_cast<bf16*>(p); };
-  constexpr int smem = TriBwdTc<D>::SMEM;
-  cudaError_t err = allow_smem(tri_bridge_bwd_tc_wide_kernel<D>, smem);
+  constexpr int smem = Tri64::SMEM;
+  cudaError_t err = allow_smem(tri_bridge_bwd_tc64_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long tiles = (R + TM - 1) / TM;
+  // three warpgroups a block, a tile at a time each
+  const long long want = (R + Tri64::NWG * TM - 1) / (Tri64::NWG * TM);
   const int sms = sm_count();
-  const int blocks = static_cast<int>(tiles < sms ? tiles : sms);
-  tri_bridge_bwd_tc_wide_kernel<D><<<blocks, NTHREADS, smem, stream>>>(
+  const int blocks = static_cast<int>(want < sms ? want : sms);
+  tri_bridge_bwd_tc64_kernel<<<blocks, Tri64::NT, smem, stream>>>(
       h(s), h(v), gin, bin, W, bias, gout, h(g), hm(gs), hm(gv), hm(yd),
       hm(gy1), vec_part, R, drop);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);

@@ -517,8 +517,9 @@ __device__ __forceinline__ uint32_t keep_word(uint64_t seed, uint64_t blk0,
 // caller's register pressure.  The backward draws at the start of a tile,
 // where little is live and a call is cheap; inlined into its 64-wide
 // instantiation the draw ran three times slower than in the 32-wide one.
-// The forwards at D = 64 and 128 draw with the att accumulator live and
-// inline; the D = 256 forwards call (with no product in flight).
+// The forward at D = 128 draws with the att accumulator live and inline,
+// the one at D = 64 inline before its scores; the D = 256 forwards call
+// (with no product in flight).
 __device__ __noinline__ uint32_t keep_word_call(uint64_t seed, uint64_t blk0,
                                                 uint32_t threshold) {
   return keep_word(seed, blk0, threshold);

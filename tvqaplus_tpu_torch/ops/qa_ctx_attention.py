@@ -252,9 +252,10 @@ class _QaCtxAttention(torch.autograd.Function):
         wp = None
         if cn.dtype == torch.bfloat16:
             # the tensor-core kernels' operand: W in bf16, which at D = 256
-            # the C entry rounds into its slabs
+            # the C entry rounds into its slabs and at D = 64 the kernel as
+            # each CTA loads it
             wp = widths.slab_scratch("qa_ctx_attention", d, dev)
-            if wp is None:
+            if d == 128:
                 w32 = w32.to(torch.bfloat16)
         FWD_BY_WIDTH[d].launch(
             dev, ptr(cn), ptr(ce), ptr(qn), ptr(qe), ptr(cm), ptr(qm),

@@ -74,6 +74,13 @@ ENC256_FWD_SLOTS, ATT256_FWD_SLOTS = 7, 4
 # TriFwd256): the same slabs through TRI256_FWD_SLOTS slots, which the
 # block's two warpgroups share (no cluster)
 TRI256_FWD_SLOTS = 5
+# the attention's bf16 forward at D = 64 (csrc/qa_ctx_attention_fwd.cu
+# AttnTc64): persistent CTAs of this many warpgroups, each on (b, 64-row
+# tile, frame) items of its own
+ATT64_WARPGROUPS = 3
+# the tri bridge's bf16 backward at D = 64 (csrc/tri_bridge_bwd_wide.cu
+# Tri64): blocks of this many warpgroups, each on 64-row tiles of its own
+TRI64_WARPGROUPS = 3
 
 
 MAX_WIDTH = 256
@@ -163,6 +170,13 @@ def tc_smem_bytes(family, d):
     w_bytes = panels * 3 * d * _ROW
     if family == "qa_ctx_attention":
         yd = 3 * panels * tile_panel
+        if d == 64:       # AttnTc64: W, the bias (an atom), then a room
+            # for each of ATT64_WARPGROUPS warpgroups: its cn and ce tiles
+            # and two slots of a frame's qn, qe (64 rows each) and q mask
+            # (an atom)
+            slot = 2 * tile + _ATOM
+            return (w_bytes + _ATOM
+                    + ATT64_WARPGROUPS * (2 * tile + 2 * slot) + _ATOM)
         if d == 256:      # AttnWide: qn, qe, yd (cn, p and the softmax's
             # sums first), the ring, its barriers, the LN sums, qm
             slots = ATT256_FWD_SLOTS
@@ -247,9 +261,11 @@ def bwd_smem_bytes(family, d, dtype="bfloat16", lr=_MAX_LR, length=_MAX_LEN,
             # barriers, four exchange rounds, gin, bin, bias, gout
             return (5 * tile + 3 * TRI256_SLAB + 256 + 4 * 2 * _TM * 2 * 4
                     + 8 * d * 4 + _ATOM)
-        # TriBwdTc<64>: W and W^T; s, v, yd, g_y1 behind it
-        return (2 * w_bytes + 6 * tile + 4 * 2 * _TM * 2 * 4 + 8 * d * 4
-                + _ATOM)
+        # Tri64: W (bf16, once); gin, bin, bias, gout; a room for each of
+        # TRI64_WARPGROUPS warpgroups: two halves of three tiles (a tile's
+        # s, v and cotangent, the other tile's yd), g_y1
+        return (w_bytes + 8 * d * 4
+                + TRI64_WARPGROUPS * (2 * 3 * tile + tile) + _ATOM)
     if dtype == "bfloat16" and family == "qa_ctx_attention" and d == 256:
         # AttTcWide<LRP>: qn, qe, cn (then p0), g_out (then g_att), ce; the
         # ring of W's slabs; two exchange rounds; the q mask; gamma, beta
