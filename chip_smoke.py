@@ -190,7 +190,11 @@ The kernels' other hidden widths (ops/widths.py):
              the hsz-256 headline batch on the card against the CPU forward
              (phase 5's bars); the replayed serve steps of hsz 128 and 256,
              both paths, equal to their eager steps, timed in turns with
-             busy ms, idle share and launches.  Placed after
+             busy ms, idle share and launches; at hsz 64 the traces hold
+             the forwards of their own D = 64 designs
+             (``qa_ctx_fwd_tc64_kernel``, ``encoder_fwd_tc64_kernel``,
+             ``tri_bridge_fwd_tc64_kernel``) and none of the D = 128
+             designs' instantiations (``check_tc_forwards``).  Placed after
              ``mesh_axes``, before ``noun_void``.
 9t. wide_training - STAGE trained at hsz 256 and 64: the train CLI on
              synthetic data, separate and merged (four steps, validation, a
@@ -1133,27 +1137,36 @@ def profiled_window(step, n):
     return busy_ms, per_step, top, names, window[0], idle
 
 
+# the D = 128 designs' instantiations that the forwards at D = 64 replaced
+OLD_FWD64 = ("qa_ctx_fwd_tc_kernel<64", "encoder_fwd_tc_kernel<64,",
+             "tri_bridge_fwd_tc_kernel<64>")
+
+
 def check_tc_forwards(step, names, merged, d=D):
     """The bf16 step's trace shows the tensor-core forwards at width ``d``
     (the encoder's cls_encoder at k 5, on the merged path the input encoder
     at k 7 too, and the tri bridge; at D = 64 the attention's persistent
-    kernel) and no CUDA-core forward of the encoder or the tri bridge (at
-    D = 64 none of the attention's older design); returns the tensor-core
-    forwards' names."""
+    kernel and the encoder's and the tri bridge's of their own designs) and
+    no CUDA-core forward of the encoder or the tri bridge (at D = 64 none
+    of the D = 128 designs' instantiations, ``OLD_FWD64``); returns the
+    tensor-core forwards' names."""
     tc = sorted(nm for nm in names
-                if "encoder_fwd_tc_" in nm or "tri_bridge_fwd_tc" in nm
+                if "encoder_fwd_tc" in nm or "tri_bridge_fwd_tc" in nm
                 or "qa_ctx_fwd_tc64_kernel" in nm)
     old = sorted(nm for nm in names if "encoder_fwd_kernel" in nm
                  or "tri_bridge_fwd_kernel" in nm
-                 or (d == 64 and "qa_ctx_fwd_tc_kernel<64" in
-                     nm.replace(" ", "")))
-    # the instantiations <D, k>; D = 256 has its own kernels, the
-    # encoder's <k> and the tri bridge's <DROP>
-    enc = "encoder_fwd_tc_wide_kernel<" if d == 256 \
-        else f"encoder_fwd_tc_kernel<{d},"
-    tri = "tri_bridge_fwd_tc256_kernel<" if d == 256 \
-        else f"tri_bridge_fwd_tc_kernel<{d}>"
-    want = [f"{enc}5>", tri] + [f"{enc}7>"] * merged \
+                 or (d == 64 and any(o in nm.replace(" ", "")
+                                     for o in OLD_FWD64)))
+    # the instantiations: <D, k> at 128; D = 256 has its own kernels, the
+    # encoder's <k> and the tri bridge's <DROP>, and D = 64 its own, the
+    # encoder's <k, DROP> and the tri bridge's <DROP>
+    enc, tri = {256: ("encoder_fwd_tc_wide_kernel<{}>",
+                      "tri_bridge_fwd_tc256_kernel<"),
+                64: ("encoder_fwd_tc64_kernel<{},",
+                     "tri_bridge_fwd_tc64_kernel<")}.get(
+        d, (f"encoder_fwd_tc_kernel<{d},{{}}>",
+            f"tri_bridge_fwd_tc_kernel<{d}>"))
+    want = [enc.format(5), tri] + [enc.format(7)] * merged \
         + ["qa_ctx_fwd_tc64_kernel<"] * (d == 64)
     flat = [nm.replace(" ", "") for nm in tc]
     missing = [w for w in want if not any(w in nm for nm in flat)]
@@ -3626,7 +3639,7 @@ def phase_noun_void_train(dev, workdir, case, extra, fused):
 
 
 # ------------------------------------------------------------- pipeline
-PIPELINE_QAS = 1120        # 70 batches of 16, 7 QAs a clip
+PIPELINE_QAS = 560         # 35 batches of 16, 7 QAs a clip
 # (name, video_dedup, host cast, St buckets): the four layouts with the St
 # buckets, and the fixed St cap that the bucketed run must reproduce
 PIPELINE_RUNS = [("fixed_st", False, False, False),
@@ -3677,7 +3690,7 @@ def phase_pipeline(dev, workdir):
     """The serving CLI's path (``InferenceRunner.run``: the producer
     thread's collate, cast, pin and upload, replayed dispatches of
     ``eval_steps_per_dispatch`` batches, answers and spans) over a split of
-    1,120 QAs that share clips 7 to 1, at the headline widths in bf16, for
+    560 QAs that share clips 7 to 1, at the headline widths in bf16, for
     each layout of ``PIPELINE_RUNS``: wall s and QA/s of a first run (graph
     captures included) and a second (replays only), the device's busy time
     over a profiled third and its idle share against the second, graphs

@@ -25,8 +25,12 @@ tiles than two a SM, reduce and full output; the attention's forward
 also at M 200 on 50 frames, where a warpgroup's run of frames crosses
 (b, tile) units, and at M 7 on one frame; the tri bridge at 1, 39, 65,
 193 and 40,001 rows, more tiles than the 396 warpgroups), where a tile is
-ragged, a ring runs on into the next tile or p0 fills its room.  A kernel's
-addressing
+ragged, a ring runs on into the next tile or p0 fills its room; and the
+bf16 forwards alone at D = 64 (``encoder_fwd64``, ``tri_fwd64``): the
+encoder at L 1, 5, 40, 50 and 56 with every odd k <= 9, reduce and full
+output, on 1,002 sequences (a ragged last tile at every L but 1 and 50,
+more tiles than the 396 warpgroups at L >= 40), the tri bridge at 1, 39,
+65, 193 and 160,001 rows.  A kernel's addressing
 depends only on its shapes and pointers, so a call captured in a CUDA graph
 writes where the eager call writes.
 """
@@ -110,7 +114,7 @@ def run(cs, case, dt, gen_seed):
 
 # (family, shape): encoder (B, G, L, k, mode), attention at 256 and 64
 # (A, Lqa, Lr, raw[, Li], 3 frames unless given), tri bridge at 256 and
-# 64 (rows,)
+# 64 (rows,); the forwards alone at 64 (encoder_fwd64, tri_fwd64)
 EDGES = [("encoder", (1, 7, 56, 9, "reduce")), ("encoder", (1, 7, 5, 1,
                                                            "block")),
          ("encoder", (2, 100, 40, 5, "reduce")),
@@ -131,18 +135,24 @@ EDGES = [("encoder", (1, 7, 56, 9, "reduce")), ("encoder", (1, 7, 5, 1,
          ("attention64", (5, 40, 25, "full", 50)),
          ("attention64", (1, 7, 32, "target", 1)),
          ("tri64", (1,)), ("tri64", (39,)), ("tri64", (65,)),
-         ("tri64", (193,)), ("tri64", (40001,))]
+         ("tri64", (193,)), ("tri64", (40001,))] + [
+    ("encoder_fwd64", (2, 501, length, k, mode))
+    for length in (1, 5, 40, 50, 56) for k in (1, 3, 5, 7, 9)
+    for mode in ("reduce", "block")] + [
+    ("tri_fwd64", (rows,)) for rows in (1, 39, 65, 193, 160001)]
 
 
 def edge_call(dev, family, shape):
-    """Forward + backward of one EDGES case in bf16 (D = 64 for
-    "attention64" and "encoder64", else 256), dropout 0.1, on inputs made
-    from a seed: as ``run``."""
+    """Forward + backward of one EDGES case in bf16 (D = 64 for a family
+    that ends in 64, else 256), dropout 0.1, on inputs made from a seed: as
+    ``run``; the forward alone for "encoder_fwd64" and "tri_fwd64"."""
     from tvqaplus_tpu_torch.models.attention import l2_normalize
     from tvqaplus_tpu_torch.ops import encoder, qa_ctx_attention, tri_bridge
     gen = torch.Generator().manual_seed(25)
     d, bf = (64 if family.endswith("64") else 256), torch.bfloat16
     family = family[:-2] if family.endswith("64") else family
+    fwd_only = family.endswith("_fwd")
+    family = {"encoder_fwd": "encoder", "tri_fwd": "tri"}.get(family, family)
 
     def rnd(*s, scale=1.0):
         return torch.randn(*s, generator=gen) * scale
@@ -196,6 +206,10 @@ def edge_call(dev, family, shape):
         leaves = [t for t in ins if t.requires_grad]
     outs = list(out) if isinstance(out, tuple) else [out]
     before = [t.detach().clone() for t in ins]
+    if fwd_only:
+        torch.cuda.synchronize()
+        return ([t.detach() for t in ins], before,
+                [o.detach() for o in outs])
     grads = torch.autograd.grad(outs, leaves,
                                 [rnd(*o.shape).to(dev, o.dtype)
                                  for o in outs])

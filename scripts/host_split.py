@@ -27,7 +27,8 @@ those of that width and families) it prints one JSON line:
   autograd engine, the wrappers).
 
 ``--forward`` splits the same way the forward call of each of
-``FWD_CASES`` (the attention's vid and sub rows at D = 64, the tri
+``FWD_CASES`` (the attention's vid and sub rows at D = 64, the encoder's
+reduce and full-output rows and the tri bridge's row at D = 64, the tri
 bridge's rows at D = 256 and 200, in bf16) at dropout 0 and 0.1.
 """
 import json
@@ -43,8 +44,8 @@ CASES = ((64, "qa_ctx_attention"), (128, "qa_ctx_attention"),
          (64, "tri_bridge"), (256, "tri_bridge"), (64, "encoder"),
          (64, "encoder_block"))
 # --forward: the forward rows of ``kernel_cases`` at each dropout rate
-FWD_CASES = ((64, "qa_ctx_attention"), (256, "tri_bridge"),
-             (200, "tri_bridge"))
+FWD_CASES = ((64, "qa_ctx_attention"), (64, "encoder"), (64, "encoder_block"),
+             (64, "tri_bridge"), (256, "tri_bridge"), (200, "tri_bridge"))
 CALLS = 10
 
 
@@ -64,13 +65,17 @@ def split(cs, call, entry):
         for _ in range(CALLS):
             call()
         torch.cuda.synchronize()
-    kernels = {}
+    # a kernel's ms a call: the mean of the launches the trace holds times
+    # its launches a call (late in a long process a trace can miss some)
+    sums, counts = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             name = e.name.replace("(anonymous namespace)::", "") \
                 .replace("void ", "").split("(")[0][:60]
-            kernels[name] = kernels.get(name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3 / CALLS
+            sums[name] = sums.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+            counts[name] = counts.get(name, 0) + 1
+    kernels = {name: sums[name] / counts[name] * -(-counts[name] // CALLS)
+               for name in sums}
     device_ms = sum(kernels.values())
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         for _ in range(CALLS):

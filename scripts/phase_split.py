@@ -8,8 +8,10 @@ tree's ``tri_bridge_bwd_tc_wide_kernel<64>``), or with ``--forward`` in the
 bf16 forwards at D = 256 of the encoder, the attention and the tri bridge
 (``encoder_fwd_tc_wide_kernel``, ``qa_ctx_fwd_tc_wide_kernel``,
 ``tri_bridge_fwd_tc256_kernel``) and, with ``--width 64``, in the
-attention's at D = 64 (``qa_ctx_fwd_tc64_kernel``, or a parent tree's
-``qa_ctx_fwd_tc_kernel<64, LRP>``), phase by phase, from ``clock64()``
+attention's, the encoder's and the tri bridge's at D = 64
+(``qa_ctx_fwd_tc64_kernel``, ``encoder_fwd_tc64_kernel``,
+``tri_bridge_fwd_tc64_kernel``, or a parent tree's ``encoder_fwd_tc_kernel<64,
+K>`` and ``tri_bridge_fwd_tc_kernel<64>``), phase by phase, from ``clock64()``
 stamps in a copy of the sources; and what parts of them cost, from copies
 with those parts taken out.
 
@@ -24,10 +26,10 @@ the places ``STAMPS`` names (each anchor must occur once in its kernel,
 buffer of 32 cycle counters in front, and builds the copies beside the
 tree's libraries; thread 0 of every block adds the cycles since its last
 stamp to counter i.  A source whose kernel is an older design is stamped
-by that design's entry (``VARIANTS``: the D = 64 tri bridge backward and
-attention forward before their redesigns, ``@64 g_yd twice`` and ``@64
-resident``), so the script run from a parent tree's root splits the
-parent's kernel.  For each backward case of ``train_kernel_cases`` at
+by that design's entry (``VARIANTS``: the D = 64 encoder and tri bridge
+forwards before their redesigns, ``@64 shared tile``: the D = 128 kernels'
+instantiations at half width, whose warpgroups share each tile), so the
+script run from a parent tree's root splits the parent's kernel.  For each backward case of ``train_kernel_cases`` at
 width D (default 256; dropout 0.1) of the families named (default: the
 attention, the encoders and the tri bridge) it prints one JSON line: each
 kernel's device ms per call from ``torch.profiler`` (the tree's own
@@ -39,10 +41,13 @@ block's critical path through it, waits included.
 ``ABLATIONS`` (its g_yd loop with one part taken out: the results are wrong,
 only the time is read) and of the tri bridge source for each of
 ``TRI_ABLATIONS`` (with ``--forward``: of each forward source for each of
-``FWD_ABLATIONS``), and prints, for each case of those families, the main
-kernel's device ms under each copy beside the tree's own.  ``--forward``
-takes the forward cases of ``kernel_cases`` at D = 256 (the attention's at
-D = 64 with ``--width 64``; bf16), each at dropout 0 and 0.1.
+``FWD_ABLATIONS``; at ``--width 64`` those are the encoder's and the tri
+bridge's design variants, whose results stay right), and prints, for each
+case of those families, the main kernel's device ms under each copy beside
+the tree's own, measured just before and just after it.  ``--forward``
+takes the forward cases of ``kernel_cases`` at D = 256 (the attention's, the
+encoder's and the tri bridge's at D = 64 with ``--width 64``; bf16), each
+at dropout 0 and 0.1.
 """
 import ctypes
 import json
@@ -56,29 +61,34 @@ from torch.profiler import ProfilerActivity, profile
 ATT, ENC = "qa_ctx_attention_bwd_wide.cu", "encoder_bwd_tc_wide.cu"
 TRI = "tri_bridge_bwd_wide.cu"
 # the D = 64 kernels (keys of their own: each source holds the D = 256
-# kernel too): the encoder's, the tri bridge's and, before its redesign,
-# the tri bridge's that takes g_yd twice
+# kernel too): the encoder's and the tri bridge's
 ENC64 = ENC + "@64"
 TRI64 = TRI + "@64"
-TRI64_TWICE = TRI + "@64 g_yd twice"
 SOURCE_OF = {"qa_ctx_attention": ATT, "encoder": ENC, "encoder_block": ENC,
              "tri_bridge": TRI}
 SOURCE_OF_64 = {"encoder": ENC64, "encoder_block": ENC64,
                 "tri_bridge": TRI64}
 ENC_FWD, ATT_FWD = "encoder_fwd.cu", "qa_ctx_attention_fwd.cu"
 TRI_FWD = "tri_bridge_fwd.cu"
-# the attention forward at D = 64, and before its redesign (the D = 128
-# kernel's instantiation, W loaded by every block)
+# the forwards at D = 64: the attention's, the encoder's and the tri
+# bridge's, and the last two before their redesign (the D = 128 kernels'
+# instantiations at half width, the two warpgroups sharing each tile; the
+# D = 128 kernels keep those designs, so their stamps stay in the tree)
 ATT_FWD64 = ATT_FWD + "@64"
-ATT_FWD64_RESIDENT = ATT_FWD + "@64 resident"
+ENC_FWD64 = ENC_FWD + "@64"
+TRI_FWD64 = TRI_FWD + "@64"
+ENC_FWD64_SHARED = ENC_FWD + "@64 shared tile"
+TRI_FWD64_SHARED = TRI_FWD + "@64 shared tile"
 FWD_SOURCE_OF = {"qa_ctx_attention": ATT_FWD, "encoder": ENC_FWD,
                  "encoder_block": ENC_FWD, "tri_bridge": TRI_FWD}
-FWD_SOURCE_OF_64 = {"qa_ctx_attention": ATT_FWD64}
+FWD_SOURCE_OF_64 = {"qa_ctx_attention": ATT_FWD64, "encoder": ENC_FWD64,
+                    "encoder_block": ENC_FWD64, "tri_bridge": TRI_FWD64}
 # a source's designs, newest first: the first whose kernel start occurs in
 # the text is the one stamped
 VARIANTS = {ATT: (ATT,), ENC: (ENC,), TRI: (TRI,), ENC64: (ENC64,),
-            TRI64: (TRI64, TRI64_TWICE), TRI_FWD: (TRI_FWD,),
-            ATT_FWD64: (ATT_FWD64, ATT_FWD64_RESIDENT)}
+            TRI64: (TRI64,), TRI_FWD: (TRI_FWD,), ATT_FWD64: (ATT_FWD64,),
+            ENC_FWD64: (ENC_FWD64, ENC_FWD64_SHARED),
+            TRI_FWD64: (TRI_FWD64, TRI_FWD64_SHARED)}
 
 
 def source_file(src):
@@ -97,14 +107,15 @@ KERNEL_START = {ATT: "  using S = AttTcWide<LRP>;\n",
                 ENC: "  using S = Enc256;\n",
                 TRI: "  using S = Tri256;\n",
                 TRI64: "  using S = Tri64;\n",
-                TRI64_TWICE: "  using S = TriBwdTc<D>;\n  constexpr int NF",
                 ENC_FWD: " " * 27 + "const __nv_bfloat16* __restrict__ wp,\n",
                 ATT_FWD: " " * 26 + "const __nv_bfloat16* __restrict__ wp,\n",
                 ENC64: "  using S = Enc64;\n",
                 TRI_FWD: "  using S = TriFwd256;\n",
                 ATT_FWD64: "  using S = AttnTc64;\n",
-                ATT_FWD64_RESIDENT: "  constexpr int YD_BYTES = "
-                                    "AttnTc<D>::YD_BYTES;\n"}
+                ENC_FWD64: "  using S = EncFwd64;\n",
+                TRI_FWD64: "  using S = TriFwd64;\n",
+                ENC_FWD64_SHARED: "  using S = EncTc<D>;\n",
+                TRI_FWD64_SHARED: "  using S = TriTc<D>;\n"}
 PHASES = {
     ATT: ("frame", "stage", "keep bits", "scores, softmax", "LN stats",
           "pass A rows", "pass B rows", "g_att, g_p, softmax bwd, gcn",
@@ -115,13 +126,19 @@ PHASES = {
     TRI: ("setup", "stage", "LN_in, yd", "y1 products", "y1 end, s and v",
           "LN_out, g_y1", "g_yd products", "pass A rows", "row sums",
           "pass B", "block sums"),
-    TRI64_TWICE: ("setup", "stage", "LN_in, yd", "y1 products",
-                  "LN_out, g_y1", "pass 1 g_yd products", "pass 1 rows",
-                  "row sums", "pass 2 g_yd products", "pass 2 rows",
-                  "block sums"),
-    ATT_FWD64_RESIDENT: ("W, frame", "out, cn rows", "scores, softmax, raw",
-                         "att product", "LN, keep bits, yd", "projection",
-                         "last out"),
+    ENC_FWD64: ("setup", "tile head, keep bits", "h0, LN 0",
+                "prefetch, conv 0", "c pw 0, residual", "LN 1", "conv 1",
+                "c pw 1, residual", "final LN, max pieces or out tile",
+                "max or rows out"),
+    TRI_FWD64: ("setup", "prefetch, keep bits", "s and v wait",
+                "LN_in stats", "fragments, products", "LN_out",
+                "out tile, rows out"),
+    ENC_FWD64_SHARED: ("setup", "tile head: v, m, keep bits, x wait",
+                       "h0, LN 0", "conv, c pw", "LN 1", "residual",
+                       "final LN, max or out"),
+    TRI_FWD64_SHARED: ("setup", "prefetch, keep bits", "s and v wait",
+                       "LN_in stats", "yd tile", "y1 products",
+                       "LN_out stats", "out"),
     ENC_FWD: ("setup", "tile head", "LN", "conv", "pw products", "residual",
               "final LN, out", "end"),
     ATT_FWD: ("setup", "frame, cn", "scores, softmax, p", "att product",
@@ -201,25 +218,6 @@ STAMPS = {
         ("    tri_row_pair_sums(ex_s + 3 * 2 * TM * 2, t1, t2, wg, rl, lane);\n",
          "", 4, 8),
         ("    tile_rows_out<D>(gv + r0 * D, gv_s, rows, tid);\n", "  }\n", 4, 9),
-        ("        ((red[k] + red[NVT + k]) + red[2 * NVT + k]) + "
-         "red[3 * NVT + k];\n", "", 2, 10),
-    ],
-    TRI64_TWICE: [
-        ("  drop.load_seed();\n", "", 2, None),
-        ("", "  const long long tiles = (R + TM - 1) / TM;\n", 2, 0),
-        ("", "    // ---- the recompute: LN_in statistics", 4, 1),
-        ("", "    float acc[D / 4], m2[2], i2[2];\n", 4, 2),
-        ("    tri_y1_mma<D>(acc, yd_s, sm, wg);\n", "", 4, 3),
-        ("", "    // ---- pass 1: g_yd a group", 4, 4),
-        ("      tri_gyd_mma<D>(acc, sm, g, wg);\n",
-         "      float tg[NF], tb[NF];\n", 6, 5),
-        ("      fold_cols<NF>(tb, vbi[g], lane);\n", "    }\n", 6, 6),
-        ("    tri_row_pair_sums(ex_s + 3 * 2 * TM * 2, t1, t2, wg, rl, lane);\n",
-         "", 4, 7),
-        ("      tri_gyd_mma<D>(acc, sm, g, wg);\n",
-         "#pragma unroll\n      for (int pr", 6, 8),
-        ("              tc::pack_bf16(o[0], o[1]);\n      }\n", "    }\n  }\n",
-         6, 9),
         ("        ((red[k] + red[NVT + k]) + red[2 * NVT + k]) + "
          "red[3 * NVT + k];\n", "", 2, 10),
     ],
@@ -317,23 +315,64 @@ STAMPS.update({
         ("          *reinterpret_cast<const uint4*>(sl + tc::swz_chunk(r, "
          "ch));\n    }\n", "  }\n}\n", 4, 7),
     ],
-    ATT_FWD64_RESIDENT: [
+    ENC_FWD64: [
+        ("  if (DROP) drop.load_seed();\n", "", 2, None),
+        ("", "  int par = 0;\n", 2, 0),
+        ("", "    // ---- layer 0: h0 = x + pe, LN_0", 4, 1),
+        ("    wg_sync();                         // R1 is whole; X is read\n",
+         "", 4, 2),
+        ("    conv(0);\n    wg_sync();                         // C is whole; "
+         "R1's taps are read\n", "", 4, 3),
+        ("    layer(0);\n", "", 4, 4),
+        ("    wg_sync();                         // R1 is whole\n", "", 4, 5),
+        ("    conv(1);\n    wg_sync();                         // C is "
+         "whole\n", "", 4, 6),
+        ("    layer(1);\n", "", 4, 7),
+        ("      wg_sync();                       // H holds every piece\n",
+         "", 6, 8),
+        ("      wg_sync();                       // the output tile is "
+         "whole\n", "", 6, 8),
+        ("    }\n", "  }\n}\n", 4, 9),
+    ],
+    TRI_FWD64: [
+        ("  if (DROP) drop.load_seed();\n", "", 2, None),
+        ("", "  for (int j = 0; j < n; ++j) {\n", 2, 0),
+        ("", "    tc::cp_async_wait<1>();            // this tile's rows\n",
+         4, 1),
+        ("", "    uint8_t* s_s = room + (j & 1) * S::SLOT;\n", 4, 2),
+        ("", "    // yd's A fragments of group g", 4, 3),
+        ("    tc::fence_regs(acc);\n", "", 4, 4),
+        ("", "    // ---- out in bf16 through the warp's rows", 4, 5),
+        ("    __syncwarp();                      // the slot is read: it may "
+         "refill\n", "", 4, 6),
+    ],
+    ENC_FWD64_SHARED: [
         ("  drop.load_seed();\n", "", 2, None),
-        ("  tc_load_frame<D>(w_s, qn_s, qe_s, qm_s, W, qn, qe, qmask, fbase, "
-         "Lr);\n", "", 2, 0),
-        ("    tc::bar_sync(1 + wg, 128);\n",
-         "    float s[LRP / 2], p0[LRP / 2];\n", 4, 1),
-        ("", "    float att[D / 2];\n", 4, 2),
-        ("    tc_att<LRP, D / 64>(att, p0, cm, qm_s, tc::smem_u32(qe_s), "
-         "lane);\n", "", 4, 3),
-        ("", "    // ---- the projection: (64 x 3D) . W (3D x D), W read "
-         "N-contiguous", 4, 4),
-        ("    tc::commit();\n    tc::wait_all();\n",
-         "#pragma unroll\n    for (int pr = 0; pr < D / 4; ++pr) {\n"
-         "      const int h = pr & 1, c = 8 * (pr >> 1) + 2 * (lane & 3);\n"
-         "      if (!live[h]) continue;\n      const float2 bv = "
-         "*reinterpret_cast", 4, 5),
-        ("    }\n  }\n", "}\n", 2, 6),
+        ("", "  int parity = 0;\n", 2, 0),
+        ("    __syncthreads();                   // ... and v, m of every "
+         "row\n", "", 4, 1),
+        ("    __syncthreads();                   // R1 whole; the x tile "
+         "read\n", "", 4, 2),
+        ("      tc::wait_all();\n", "", 6, 3),
+        ("        __syncthreads();               // R1 whole\n", "", 8, 4),
+        ("        hv[j] += fmaxf(acc[j] + __ldg(P.pwb(i) + acc_col(j, lane)), "
+         "0.f);\n", "", 6, 5),
+        ("    }\n", "  }\n}\n", 4, 6),
+    ],
+    TRI_FWD64_SHARED: [
+        ("  drop.load_seed();\n", "", 2, None),
+        ("", "  int buf = 0;\n", 2, 0),
+        ("    tri_keep_bits<D>(drop, row, lane, half, kw);\n", "", 4, 1),
+        ("    __syncthreads();\n", "    const uint8_t* s_s = sm + S::O_SV",
+         4, 2),
+        ("    tri_ln_in_stats<D>(s_s, v_s, ex_s, mean, istd, wg, rl, lane, "
+         "drop.inv3);\n", "", 4, 3),
+        ("    __syncthreads();                   // the yd tile is whole\n",
+         "", 4, 4),
+        ("    tri_y1_mma<D>(acc, yd_s, w_s, wg);\n", "", 4, 5),
+        ("    tri_ln_out_stats<D>(acc, bias_s, ex_s + 2 * TM * 2, m2, i2, wg, "
+         "rl,\n                        lane, drop.inv1);\n", "", 4, 6),
+        ("    }\n", "  }\n}\n", 4, 7),
     ],
     ATT_FWD: [
         ("  drop.load_seed();\n", "", 2, None),
@@ -411,6 +450,117 @@ FWD_ABLATIONS = {
              "is in flight\n        tc_keep_bits<16, true>(",
              "      if (false)\n        tc_keep_bits<16, true>(")],
     },
+}
+# The D = 64 forwards with one design choice changed (their results
+# right, so each is a design measured against the tree's own): the
+# encoder's three warpgroups a block where it takes four, its conv two
+# threads a column a float a row (where four threads take a column pair a
+# float2 a row) and unrolled 4x, its max's fast path for a warp whose 16
+# rows are one sequence's, its keep bits inline; the tri bridge's four
+# warpgroups where it takes three, and its keep bits inline.  An edit's
+# old text that starts with WHOLE is made in the whole source (the
+# layouts lie outside the kernels).
+WHOLE = "@whole:"
+FWD_ABLATIONS[ENC_FWD64] = {
+    "three warpgroups": [
+        (WHOLE + "  static constexpr int NWG = 4;                       "
+         "// warpgroups a block\n  static constexpr int NT = 128 * NWG;",
+         "  static constexpr int NWG = 3;\n"
+         "  static constexpr int NT = 128 * NWG;")],
+    "conv two threads a column": [
+        ("  const int cp = lane;\n"
+         "  const int lb = warp * L / 4, le = (warp + 1) * L / 4;\n",
+         "  const int cd = t & (D - 1), hf = t / D;\n"
+         "  const int lb = hf ? (L + 1) / 2 : 0, le = hf ? L : (L + 1) / 2;\n"),
+        ("""      float2 w[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) w[j] = ldg2(P.dw(i) + j * D + 2 * cp);
+      const float2 bias = ldg2(P.dwb(i) + 2 * cp);
+      auto tv = [&](int r) {
+        const float2 a = *reinterpret_cast<const float2*>(
+            r1 + r1_at<D>(r, 2 * cp));
+        const float vv = v_s[r];
+        return make_float2(a.x * vv, a.y * vv);
+      };
+      for (int base = 0; base < rows; base += L) {
+        float2 win[K];                 // win[j] = t v of row l + j - pad
+#pragma unroll
+        for (int j = 0; j + 1 < K; ++j) {
+          const int l = lb + j - pad;
+          win[j + 1] = l >= 0 && l < L ? tv(base + l)
+                                       : make_float2(0.f, 0.f);
+        }
+        for (int l = lb; l < le; ++l) {
+#pragma unroll
+          for (int j = 0; j + 1 < K; ++j) win[j] = win[j + 1];
+          win[K - 1] = l + pad < L ? tv(base + l + pad)
+                                   : make_float2(0.f, 0.f);
+          float2 a = bias;
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            a.x = fmaf(w[j].x, win[j].x, a.x);
+            a.y = fmaf(w[j].y, win[j].y, a.y);
+          }
+          *reinterpret_cast<uint32_t*>(c_s + tc::swz(base + l, 2 * cp)) =
+              tc::pack_bf16(a.x, a.y);
+        }
+      }
+""", """      float w[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) w[j] = __ldg(P.dw(i) + j * D + cd);
+      const float bias = __ldg(P.dwb(i) + cd);
+      auto tv = [&](int r) { return r1[r1_at<D>(r, cd)] * v_s[r]; };
+      for (int base = 0; base < rows; base += L) {
+        float win[K];
+#pragma unroll
+        for (int j = 0; j + 1 < K; ++j) {
+          const int l = lb + j - pad;
+          win[j + 1] = l >= 0 && l < L ? tv(base + l) : 0.f;
+        }
+        for (int l = lb; l < le; ++l) {
+#pragma unroll
+          for (int j = 0; j + 1 < K; ++j) win[j] = win[j + 1];
+          win[K - 1] = l + pad < L ? tv(base + l + pad) : 0.f;
+          float a = bias;
+#pragma unroll
+          for (int j = 0; j < K; ++j) a = fmaf(w[j], win[j], a);
+          *reinterpret_cast<__nv_bfloat16*>(c_s + tc::swz(base + l, cd)) =
+              __float2bfloat16(a);
+        }
+      }
+""")],
+    "conv unrolled 4x": [
+        ("        for (int l = lb; l < le; ++l) {\n",
+         "#pragma unroll 4\n        for (int l = lb; l < le; ++l) {\n")],
+    "max fast path": [
+        ("        const bool join = 16 * warp + 8 <= last[0];\n",
+         "        const bool join = 16 * warp + 8 <= last[0];\n"
+         "        const bool whole = 16 * warp + 15 < rows\n"
+         "            && 16 * warp / L == (16 * warp + 15) / L;\n"),
+        ("#pragma unroll\n        for (int o = 1; o < 8; o <<= 1) {\n",
+         "#pragma unroll\n        for (int o = 1; o < 8 && !(16 * warp + 15 < "
+         "rows && 16 * warp / L == (16 * warp + 15) / L); o <<= 1) {\n"),
+        ("            if (join) val[j + e] = fmaxf(val[j + e], p);\n",
+         "            if (join && !whole) val[j + e] = fmaxf(val[j + e], p);\n"
+         "            if (whole) {\n"
+         "              float m = fmaxf(val[j + e], val[j + 2 + e]);\n"
+         "              m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));\n"
+         "              m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));\n"
+         "              val[j + e] = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, "
+         "16));\n            }\n")],
+    "keep bits inline": [
+        ("      tc_keep_bits<D / 8, true>(drop,",
+         "      tc_keep_bits<D / 8, false>(drop,")],
+}
+FWD_ABLATIONS[TRI_FWD64] = {
+    "four warpgroups": [
+        (WHOLE + "struct TriFwd64 {\n  static constexpr int D = 64;\n"
+         "  static constexpr int NWG = 3;",
+         "struct TriFwd64 {\n  static constexpr int D = 64;\n"
+         "  static constexpr int NWG = 4;")],
+    "keep bits inline": [
+        ("        tc_keep_bits<D / 8, true>(\n            drop, drop.key3(",
+         "        tc_keep_bits<D / 8, false>(\n            drop, drop.key3(")],
 }
 # The redesigned tri bridge forward at D = 256 with one part taken out
 # (its results wrong): W resident (no slab copied or waited for: the
@@ -517,8 +667,16 @@ def kernel_span(text, src):
 
 
 def edit_kernel(text, src, edits):
-    """``text`` with each (old, new) of ``edits`` made in ``src``'s kernel;
-    raises on an ``old`` that does not occur there exactly once."""
+    """``text`` with each (old, new) of ``edits`` made in ``src``'s kernel
+    (an ``old`` that starts with ``WHOLE``: in the whole text); raises on an
+    ``old`` that does not occur there exactly once."""
+    for old, new in edits:
+        if old.startswith(WHOLE):
+            if text.count(old[len(WHOLE):]) != 1:
+                raise ValueError(f"{src}: {text.count(old[len(WHOLE):])} "
+                                 f"places for {old!r}")
+            text = text.replace(old[len(WHOLE):], new)
+    edits = [(o, n) for o, n in edits if not o.startswith(WHOLE)]
     i0, i1 = kernel_span(text, src)
     body = text[i0:i1]
     for old, new in edits:
@@ -578,7 +736,11 @@ def use_library(build, src, path):
 
 
 def device_ms(fn, reps=10):
-    """{kernel name: device ms per call of ``fn``} from torch.profiler."""
+    """{kernel name: device ms per call of ``fn``} from torch.profiler: the
+    mean of the launches the trace holds times the launches a call.  Late in
+    a long process the trace can miss launches (the same build once read
+    k / 10 of its first reading over 10 calls), so the sum over ``reps``
+    calls is not the measure."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -587,10 +749,15 @@ def device_ms(fn, reps=10):
         torch.cuda.synchronize()
     times = {}
     for e in prof.key_averages():
-        if e.device_time_total > 0:
+        if e.device_time_total > 0 and e.count > 0:
             name = e.key.replace("(anonymous namespace)::", "").replace(
                 "void ", "").split("(")[0][:60]
-            times[name] = times.get(name, 0.0) + e.device_time_total / reps / 1e3
+            per_call = -(-e.count // reps)      # launches a call
+            if e.count % reps:
+                print(f"{name}: {e.count} launches in the trace of {reps} "
+                      "calls", file=sys.stderr, flush=True)
+            times[name] = (times.get(name, 0.0) + e.device_time_total
+                           / e.count * per_call / 1e3)
     return times
 
 
@@ -616,7 +783,7 @@ def main():
         for case in cs.kernel_cases(dev, d):
             if case.key not in families or "no mask" in case.name:
                 continue
-            if case.key == "tri_bridge" and d != 256:
+            if case.key == "tri_bridge" and d not in (64, 256):
                 continue
             a, kw = case.args(torch.bfloat16)
             for rate in (0.0, cs.P_DROP):
@@ -675,15 +842,21 @@ def main():
             "tree": os.getcwd(), "case": name, "width": d,
             "device_ms": own[name], "cycles": cycles,
             "share": {k: v / total for k, v in cycles.items()}}), flush=True)
+    # each copy in turns with the tree's own build (own, copy, own), so a
+    # drift of the card's clocks over the run shows in the own pair
     for ablation, src in ablations.items():
-        use_library(build, src, libs[ablation])
         for name, (case_src, fn) in calls.items():
             if case_src != src:
                 continue
+            turns = []
+            for path in (build.lib_path(source_file(src)), libs[ablation],
+                         build.lib_path(source_file(src))):
+                use_library(build, src, path)
+                turns.append(device_ms(fn))
             print(json.dumps({
                 "tree": os.getcwd(), "case": name, "width": d,
-                "ablation": ablation, "device_ms": device_ms(fn),
-                "own_device_ms": own[name]}), flush=True)
+                "ablation": ablation, "device_ms": turns[1],
+                "own_device_ms": [turns[0], turns[2]]}), flush=True)
     return 0
 
 

@@ -38,10 +38,12 @@ def kernel_times(fn):
         torch.cuda.synchronize()
     times = {}
     for e in prof.key_averages():
-        if e.device_time_total > 0:
+        if e.device_time_total > 0 and e.count > 0:
             name = e.key.replace("(anonymous namespace)::", "").replace(
                 "void ", "").split("(")[0][:60]
-            ms = e.device_time_total / REPS / 1e3
+            # the mean of the launches the trace holds times the launches a
+            # call (late in a long process a trace can miss some)
+            ms = e.device_time_total / e.count * -(-e.count // REPS) / 1e3
             times[name] = times.get(name, 0.0) + ms
     return times
 

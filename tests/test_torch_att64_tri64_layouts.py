@@ -8,8 +8,7 @@ that ``ops/widths.py`` computes for each layout is the source's (its
 ``static constexpr`` offsets evaluated here) and fits an H100 block; the
 attention's item schedule takes every (b, row of M, frame) once and the
 tri bridge's tile schedule every row once; the wrappers' arguments and the
-C entries' signatures; ``scripts/phase_split.py`` stamps both kernels and
-their parents' designs."""
+C entries' signatures; ``scripts/phase_split.py`` stamps both kernels."""
 import importlib.util
 import os
 import re
@@ -311,30 +310,17 @@ def test_the_phase_stamps_go_into_a_copy(key):
     assert re.sub(r"\n *TVQA_PHASE(?:_INIT|\(\d+\))", "", out) == text
 
 
-@pytest.mark.parametrize("key,parent", [("TRI64", "TRI64_TWICE"),
-                                        ("ATT_FWD64", "ATT_FWD64_RESIDENT")])
-def test_the_parents_designs_keep_their_stamps(key, parent):
-    """Run from the parent tree, the script stamps the parent's D = 64
-    kernels: their designs are the variants after the new ones, each with
-    its kernel start, phases and stamps."""
-    ps = phase_split()
-    src, old = getattr(ps, key), getattr(ps, parent)
-    assert ps.VARIANTS[src] == (src, old)
-    assert old in ps.KERNEL_START and old in ps.PHASES and old in ps.STAMPS
-    text = source(ps.source_file(src))
-    assert ps.variant(text, src) == src
-    if key == "TRI64":     # the attention's D = 128 kernel is the old one's
-        assert ps.KERNEL_START[old] not in text
-    marks = [p for *_, p in ps.STAMPS[old] if p is not None]
-    assert set(marks) == set(range(len(ps.PHASES[old])))
-
-
 def test_the_gone_designs_left_the_script():
-    """The stamps of designs no PR's parent holds any more are gone."""
+    """The stamps of designs no PR's parent holds any more are gone: the
+    D = 64 tri bridge backward that took g_yd twice and the attention
+    forward's D = 64 instantiation of the D = 128 design (each source
+    stamps its own design alone)."""
     ps = phase_split()
     names = set(ps.STAMPS) | set(ps.PHASES) | set(ps.KERNEL_START)
     assert not any("columns split" in n or "W streamed" in n for n in names)
-    assert ps.TRI + "@g_yd twice" not in names
+    assert not any("g_yd twice" in n or "resident" in n for n in names)
+    assert ps.VARIANTS[ps.TRI64] == (ps.TRI64,)
+    assert ps.VARIANTS[ps.ATT_FWD64] == (ps.ATT_FWD64,)
     assert ps.SOURCE_OF_64["tri_bridge"] == ps.TRI64
     assert ps.FWD_SOURCE_OF_64["qa_ctx_attention"] == ps.ATT_FWD64
 
@@ -349,5 +335,6 @@ def test_host_split_takes_the_new_rows():
     assert (64, "tri_bridge") in hs.CASES
     assert hs.chosen(hs.CASES, ["--width", "64", "--families",
                                 "tri_bridge"]) == [(64, "tri_bridge")]
-    assert hs.chosen(hs.FWD_CASES, ["--width", "64"]) == [
+    assert hs.chosen(hs.FWD_CASES, ["--width", "64", "--families",
+                                    "qa_ctx_attention"]) == [
         (64, "qa_ctx_attention")]

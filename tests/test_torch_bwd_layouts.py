@@ -229,11 +229,11 @@ def test_the_attention_wrapper_routes_d64(monkeypatch, dt):
 def test_chip_smoke_reads_the_d64_backwards_from_a_trace():
     """A train step at hsz 64 shows the attention's tensor-core backward
     and gq kernels (the CUDA-core bf16 ones are gone), the tri bridge's
-    backward and the attention's forward of their own D = 64 designs."""
+    backward and the forwards of their own D = 64 designs."""
     import chip_smoke
     ns = "void (anonymous namespace)::"
-    names = {f"{ns}encoder_fwd_tc_kernel<64, 5>(x)": 1,
-             f"{ns}tri_bridge_fwd_tc_kernel<64>(x)": 1,
+    names = {f"{ns}encoder_fwd_tc64_kernel<5, true>(x)": 1,
+             f"{ns}tri_bridge_fwd_tc64_kernel<true>(x)": 1,
              f"{ns}qa_ctx_fwd_tc64_kernel<32, true>(x)": 1,
              f"{ns}qa_ctx_fwd_tc64_kernel<64, true>(x)": 1,
              f"{ns}qa_ctx_bwd_tc64_kernel<32>(x)": 1,

@@ -2411,3 +2411,159 @@ def test_tri_bridge_backward_at_64_drops_philox_s_positions(cuda, dv,
     got = yd.reshape(rows, 3, 64)[..., :dv] == 0
     assert torch.equal(got, keep.reshape(rows, 3, dv) == 0)
     assert 0.05 < got.float().mean() < 0.15
+
+
+# -------------- the D = 64 encoder and tri bridge forwards, redesigned:
+# the widths padded into 64 (60, 32, 4) beside 64 itself
+ENC64_FWD_DVS = (64, 60, 32, 4)
+# L 1 (64 sequences a 64-row tile), 40 (the cls_encoder's: 1,000 tiles,
+# more than the 396 warpgroups), 50 (the merged input's) and 56 (the
+# longest the kernels take)
+ENC64_FWD_LENGTHS = (1, 40, 50, 56)
+
+
+def enc64_fwd_case(cuda, mode, k, length, dv, seed):
+    """(wrapper, plain version, its launch table, args) of one mode of the
+    bf16 encoder forward at width ``dv`` over 1,000 sequences: reduce
+    mode's mask holds an all-zero sequence, full mode's zero mask three
+    streams and a zero inside one."""
+    gen = torch.Generator().manual_seed(seed)
+    x, pe, p, mask = encoder_args(cuda, torch.bfloat16, gen, b=1, g=1000,
+                                  l=length, k=k, d=dv)
+    mask[0, 2, 0] = 1                # L = 1: a live sequence beside it
+    if mode == "reduce":
+        return (encoder.encoder_reduce, encoder.encoder_reduce_plain,
+                encoder.FWD_BY_WIDTH, (x, pe, p, k, mask))
+    zm = stream_mask(x.shape[1], length).to(cuda)
+    zm[5, length // 2] = 0
+    return (encoder.encoder_block, encoder.encoder_block_plain,
+            encoder.BLOCK_BY_WIDTH, (x, pe, p, k, zm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dv", ENC64_FWD_DVS)
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("length", ENC64_FWD_LENGTHS)
+@pytest.mark.parametrize("k", TC_KS)
+@pytest.mark.parametrize("mode", ["reduce", "block"])
+def test_encoder_forward_at_64_matches_plain(cuda, mode, k, length,
+                                             dropout, dv):
+    """The bf16 forward at D = 64 (csrc/encoder_fwd.cu ``EncFwd64``: three
+    warpgroups a block on 64-row tiles of their own, the masked max from
+    registers, full output through shared memory) and at the widths
+    padded into it, against the plain version at ``TOL``: an all-masked
+    sequence gives -1e10 in every channel, zero-mask rows are finite;
+    twice for the same bits, one launch a call on the true width's
+    counter."""
+    dt = torch.bfloat16
+    run, plain, table, args = enc64_fwd_case(cuda, mode, k, length, dv,
+                                             60 + k + length + dv)
+    kw = dict(dropout_rate=dropout, seed=SEED)
+    counter = width_counter(table, dv)
+    n0 = counter.launches
+    got = run(*args, **kw)
+    again = run(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 2
+    assert got.dtype == dt and got.shape == want.shape
+    assert got.shape[-1] == dv and torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
+    if mode == "reduce":
+        close(got, want, encoder.TOL[dt])
+        mask = args[-1]
+        assert (got[0, 1] == torch.tensor(-1e10, dtype=dt)).all()
+        live = mask.amax(-1) > 0
+        assert (got[live].float() > -1e9).all() and live.sum() > 10
+    else:
+        valid = args[-1][..., None]
+        close(got.float() * valid, want.float() * valid, encoder.TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dv", ENC64_FWD_DVS)
+@pytest.mark.parametrize("length,k", [(40, 5), (50, 7), (1, 1), (56, 9)])
+def test_encoder_forward_at_64_drops_philox_s_positions(cuda, length, k, dv):
+    """Conv 0's dropped positions are exactly ``ops/philox.py``'s: with
+    x + pe = 0, LN_0 giving 1 everywhere, the centre tap and pw0 copying
+    the dropped LN output into h, layer 1 adding 0 and the final LN
+    centring each row, an output is above 0 exactly where its LN_0 output
+    was kept (rows that keep or drop every value centre to 0).  Reduce
+    mode with every row live gives the full output's max over the rows."""
+    from tvqaplus_tpu_torch.ops import philox
+    shape = (2, 60, length, dv)
+    x = torch.zeros(shape, dtype=torch.bfloat16, device=cuda)
+    pe = torch.zeros(length, dv, device=cuda)
+    p = {}
+    for i in (0, 1):
+        dw = torch.zeros(k, dv)
+        dw[k // 2] = 1.0 - i
+        p.update({f"ln{i}_s": torch.zeros(dv),
+                  f"ln{i}_b": torch.full((dv,), 1.0 - i), f"dw{i}": dw,
+                  f"dwb{i}": torch.zeros(dv), f"pw{i}": torch.eye(dv),
+                  f"pwb{i}": torch.zeros(dv)})
+    p.update(lnf_s=torch.ones(dv), lnf_b=torch.zeros(dv))
+    p = {key: t.to(cuda) for key, t in p.items()}
+    got = encoder.encoder_block(x, pe, p, k, None, P_DROP, SEED)
+    red = encoder.encoder_reduce(x, pe, p, k, torch.ones(shape[:-1],
+                                                         device=cuda),
+                                 P_DROP, SEED)
+    torch.cuda.synchronize()
+    keep = philox.multiplier(shape, SEED, P_DROP, cuda) > 0
+    both = keep.any(-1) & ~keep.all(-1)
+    assert both.float().mean() > (0.2 if dv == 4 else 0.9)
+    assert torch.equal((got > 0)[both], keep[both])
+    assert torch.equal(red, got.amax(2))
+
+
+TRI64_FWD_ROWS = (1, 39, 65, 193, 160000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, P_DROP])
+@pytest.mark.parametrize("dv", (64, 60, 4))
+@pytest.mark.parametrize("rows", TRI64_FWD_ROWS)
+def test_tri_bridge_forward_at_64_matches_plain(cuda, rows, dv, dropout):
+    """The bf16 forward at D = 64 (csrc/tri_bridge_fwd.cu ``TriFwd64``:
+    three warpgroups a block on 64-row tiles of their own at all 64
+    columns, yd from registers) and at the widths padded into it, against
+    the plain version at ``TOL``, twice for the same bits, one launch a
+    call on the true width's counter."""
+    dt = torch.bfloat16
+    args, _ = tri64_case(cuda, rows, dv, 80 + rows % 97 + dv)
+    counter = width_counter(tri_bridge.FWD_BY_WIDTH, dv)
+    n0 = counter.launches
+    got = tri_bridge.tri_bridge(*args, dropout, SEED)
+    again = tri_bridge.tri_bridge(*args, dropout, SEED)
+    want = tri_bridge.tri_bridge_plain(*args, dropout, SEED)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 2
+    assert got.shape == args[0].shape and got.dtype == dt
+    assert torch.equal(got, again)
+    close(got, want, tri_bridge.TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [0, 1, 2])
+@pytest.mark.parametrize("dv", W64_DVS)
+def test_tri_bridge_forward_at_64_drops_philox_s_positions(cuda, dv, group):
+    """The dropped positions of the LN output are exactly ``ops/philox.py``'s
+    in each group's true columns: LN_in gives 1 everywhere (scale 0, bias
+    1), W copies group ``group`` of the dropped LN output to the outputs and
+    LN_out centres each row, so an output is above 0 exactly where its
+    input was kept (rows that keep or drop every value centre to 0)."""
+    from tvqaplus_tpu_torch.ops import philox
+    rows = 4097
+    args, _ = tri64_case(cuda, rows, dv, 90 + dv)
+    w = torch.zeros(3 * dv, dv, device=cuda)
+    w[group * dv:(group + 1) * dv] = torch.eye(dv, device=cuda)
+    params = [torch.zeros(3 * dv), torch.ones(3 * dv), w, torch.zeros(dv),
+              torch.ones(dv), torch.zeros(dv)]
+    params = [t.to(cuda) for t in params]
+    got = tri_bridge.tri_bridge(args[0], args[1], *params, P_DROP, SEED)
+    torch.cuda.synchronize()
+    keep = philox.width_multiplier((rows, 3 * dv), SEED, P_DROP, dv, 3,
+                                   cuda).reshape(rows, 3, dv)[:, group] > 0
+    both = keep.any(-1) & ~keep.all(-1)
+    assert both.float().mean() > (0.2 if dv == 4 else 0.9)
+    assert torch.equal((got > 0)[both], keep[both])

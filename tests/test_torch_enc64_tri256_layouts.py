@@ -96,11 +96,13 @@ def test_the_tri_forward_layout_at_256_is_the_source_s_and_fits():
 
 @pytest.mark.parametrize("d", [64, 128])
 def test_the_resident_tri_layouts_are_the_source_s(d):
-    """D = 64 and 128 keep W resident in ``TriTc`` (its D = 256 branch
-    gone to ``TriFwd256``): the bytes ``ops/widths.py`` gives are the
-    source's."""
-    s = struct_constants("tri_bridge_fwd.cu", "TriTc", D=d)
-    assert s["O_SV"] == 3 * d * d * 2                   # W in bf16
+    """D = 64 and 128 keep W resident, D = 128 in ``TriTc`` and D = 64 in
+    ``TriFwd64`` (the D = 256 branch gone to ``TriFwd256``): the bytes
+    ``ops/widths.py`` gives are the source's."""
+    name = "TriTc" if d == 128 else "TriFwd64"
+    s = struct_constants("tri_bridge_fwd.cu", name, D=d)
+    w_end = s["O_SV"] if d == 128 else s["O_PV"] - s["O_W"]
+    assert w_end == 3 * d * d * 2                       # W in bf16
     assert s["SMEM"] == widths.tc_smem_bytes("tri_bridge", d) \
         <= widths.SMEM_LIMIT
 

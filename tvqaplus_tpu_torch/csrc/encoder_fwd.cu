@@ -38,7 +38,7 @@
 // the exact bounds beside the times.
 //
 // Two instantiations.
-// * bfloat16 (what the main paths run), D = 64 and 128:
+// * bfloat16 (what the main paths run), D = 128:
 //   encoder_fwd_tc_kernel<D, k>, the backward's pass A (encoder_bwd.cu)
 //   without the backward, on the same device functions (encoder_tc.cuh).
 //   Both products are wgmma on bf16
@@ -60,9 +60,14 @@
 //   by cp.async while this one computes.  64-row tiles on one warpgroup at
 //   two blocks an SM (x read straight from L2) took 0.41 ms at L 40, k 5
 //   and 0.20 ms at L 50, k 7 against 0.26 and 0.18 ms here (PERF.md PR 6).
-//   At D = 128: 254-255 registers a thread, 0 bytes of spill (k 3..9);
-//   163 KB of shared memory.  At D = 64 the same design at half width:
-//   ~200 registers, 67 KB.
+//   254-255 registers a thread, 0 bytes of spill (k 3..9); 163 KB of shared
+//   memory.
+// * bfloat16, D = 64: encoder_fwd_tc64_kernel<k, DROP>, the same rounding
+//   sites and keys on a design of its own (the notes at the kernel): four
+//   warpgroups a block, each on 64-row tiles of its own with named barriers
+//   only, the conv by column into a bf16 tile, the masked max from
+//   registers, full output through shared memory; DROP false, the serving
+//   instantiation, holds no Philox code.
 // * bfloat16, D = 256: encoder_fwd_tc_wide_kernel<k>.  The D = 128 design
 //   does not fit: a warpgroup's 64 x 256 accumulator and residual would
 //   take 256 registers a thread, and pw0 + pw1 (256 KB in bf16) with a
@@ -256,6 +261,7 @@ constexpr int X_PANEL = TR * tc::ROW_BYTES;
 // tile's column pass still reads its own.
 template <int D>
 struct EncTc {
+  static_assert(D == 128, "D = 64 and 256 have designs of their own");
   static constexpr int PW_PANEL = D * tc::ROW_BYTES;  // panel of pw (D rows)
   static constexpr int PW_BYTES = (D / 64) * PW_PANEL;  // D x D bf16
   static constexpr int O_R1 = 2 * PW_BYTES;
@@ -411,6 +417,325 @@ encoder_fwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
                                                  + 8 * (pr >> 1) + cl) =
                         tc::pack_bf16(o.x, o.y);
                 });
+    }
+  }
+}
+
+// ---- the bfloat16 instantiation at D = 64: warpgroups on tiles of their own
+//
+// At half width a thread holds 32 values of h and 32 of the accumulator, so
+// the SM takes four warpgroups (512 threads at 128 registers; only K = 9
+// spills, 20-28 bytes; three at 168 registers took 0.092 ms a reduce call
+// against 0.082), and each walks 64-row tiles of its own (warpgroup w of
+// block b takes tiles 4 b + w, 4 b + w + 4 G, ... over a grid of G
+// blocks), 64 / L whole sequences each, at all 64 columns.  What the
+// design does about the card:
+// * No block barrier a tile: a row's LayerNorm sums are the thread's and
+//   its quad's, and everything a tile shares lies in the warpgroup's room,
+//   behind its named barrier (bar.sync 1 + w, 128), five a tile.  One
+//   warpgroup's barriers and tensor-core waits lie under the others' row
+//   passes.
+// * The depthwise conv runs column by column: four threads a pair of
+//   columns (warp w takes quarter w of every sequence's rows, lane l
+//   columns 2 l and 2 l + 1) slide a window of the K taps of t v (t from
+//   R1, float32, a float2 a row) down it, so each value is read once, and
+//   write c in bf16 into the C tile, the product's A.  The sums keep
+//   enc_conv_pair's order.  (Two threads a column, a float a row, as the
+//   backward at this width has it, took 0.100 ms a reduce call against
+//   0.093 with three warpgroups.)
+// * Rows past the tile's sequences cost little in the row passes: a warp
+//   whose 16 rows all lie past them (rows 48..63 at L 40) skips the loads,
+//   the LayerNorms, the residual and the max, and takes part only in the
+//   products and the barriers; the conv writes no c row past them (a
+//   product's row reads only its own row of C, and those rows are never
+//   stored).
+// * The masked max from registers: each thread's values in its two rows,
+//   a segmented suffix max over the warp's 16 rows by shuffles (a row takes
+//   a partner's only inside its own sequence), so the first row of each
+//   sequence's rows in the warp holds their max; it goes to H, and after
+//   the warpgroup's barrier a (sequence, column) takes the max of its at
+//   most four pieces.  No LN output tile and no 40-long chain of loads.
+// * Full output through the C tile (read by the last product by then),
+//   then whole 128-byte rows out, 16 bytes a thread.
+// * The next tile's x comes by cp.async into X as soon as this tile's h0
+//   is read, and its v and m into the other parity of their slots.
+// * DROP false (serving) holds no Philox code; DROP true draws conv 0's
+//   keep bits of the thread's values at the start of a tile.
+// pw0 and pw1 stay resident in bf16 (rounded as each block loads them,
+// read MN-major).  Shared memory: pw, then four rooms of 49 KB: 218,112
+// bytes.
+struct EncFwd64 {
+  static constexpr int D = 64;
+  static constexpr int NWG = 4;                       // warpgroups a block
+  static constexpr int NT = 128 * NWG;                // threads a block
+  static constexpr int PW = D * tc::ROW_BYTES;        // a resident pw
+  static constexpr int O_PW = 0;                      // pw0, pw1 in bf16
+  static constexpr int O_ROOM = O_PW + 2 * PW;
+  // a warpgroup's room: C (the c tile in bf16; the output rows' staging),
+  // X (the next tile's x), R1 (t, float32), H (the max's pieces, float32),
+  // v and m of both parities
+  static constexpr int R_C = 0;
+  static constexpr int R_X = R_C + TILE_PANEL;
+  static constexpr int R_R1 = R_X + TILE_PANEL;
+  static constexpr int R_H = R_R1 + TM * D * 4;
+  static constexpr int R_VM = R_H + TM * D * 4;
+  static constexpr int A = tc::ATOM_BYTES;
+  static constexpr int ROOM = (R_VM + 2 * 2 * TM * 4 + A - 1) / A * A;
+  static constexpr int SMEM = O_ROOM + NWG * ROOM + tc::ATOM_BYTES;
+  static_assert(ROOM % tc::ATOM_BYTES == 0 && O_ROOM % tc::ATOM_BYTES == 0,
+                "C and X on 1024-byte boundaries");
+  static_assert(SMEM <= 232448, "shared memory of a block");
+};
+
+template <int K, bool DROP>
+__global__ void __launch_bounds__(EncFwd64::NT, 1)
+encoder_fwd_tc64_kernel(const __nv_bfloat16* __restrict__ x,
+                        const float* __restrict__ pe,
+                        const float* __restrict__ packed,
+                        const float* __restrict__ mask,
+                        const float* __restrict__ zmask,
+                        __nv_bfloat16* __restrict__ out, int N, int G, int L,
+                        int nseq, Dropout drop) {
+  using S = EncFwd64;
+  constexpr int D = S::D, NV = D / 2, NPR = NV / 2;
+  constexpr int pad = K / 2;
+  if (DROP) drop.load_seed();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_smem(smem_raw);
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31, g8 = lane >> 2;
+  const int cl = 2 * (lane & 3);
+  uint8_t* room = sm + S::O_ROOM + wg * S::ROOM;
+  uint8_t* c_s = room + S::R_C;
+  uint8_t* x_s = room + S::R_X;
+  float* r1 = reinterpret_cast<float*>(room + S::R_R1);
+  float* h_s = reinterpret_cast<float*>(room + S::R_H);
+  float* vm = reinterpret_cast<float*>(room + S::R_VM);  // [parity][v, m]
+  const uint32_t pw_s = tc::smem_u32(sm + S::O_PW);
+  const bool reduce = mask != nullptr;
+  const TcParams<K, D> P{packed};
+  int row[2];                                        // the thread's rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h) row[h] = 16 * warp + g8 + 8 * h;
+  auto wg_sync = [&]() { tc::bar_sync(1 + wg, 128); };
+  // the warpgroup's tiles: w0, w0 + nw, ..
+  const int tiles = (N + nseq - 1) / nseq;
+  const int nw = S::NWG * gridDim.x, w0 = S::NWG * blockIdx.x + wg;
+  auto rows_of = [&](int tile) { return min(nseq, N - tile * nseq) * L; };
+  // the x rows of `tile` into X by cp.async (rows past its sequences
+  // zeroed), the v and m of its rows into parity `par`
+  auto load = [&](int tile, int par) {
+    const int rows = rows_of(tile);
+    tc_load_rows<D>(x_s, TM, x + static_cast<size_t>(tile) * nseq * L * D,
+                    D, rows, t, 128);
+    if (t < TM) {
+      const bool ok = t < rows;
+      const int n = tile * nseq + t / L, l = t % L;
+      float* v_s = vm + par * 2 * TM;
+      v_s[t] = !ok ? 0.f
+          : (zmask != nullptr ? zmask[static_cast<size_t>(n % G) * L + l]
+                              : 1.f);
+      v_s[TM + t] = ok && reduce ? mask[static_cast<size_t>(n) * L + l]
+                                 : 0.f;
+    }
+  };
+  for (int i = 0; i < 2; ++i)         // pw_i rounded to bf16 as it lies
+    tc_store_rows_f32<D>(sm + S::O_PW + i * S::PW, D, P.pw(i), D, tid,
+                         S::NT);
+  if (w0 < tiles) load(w0, 0);
+  tc::cp_async_commit();
+  tc::cp_async_wait<0>();
+  tc::fence_async_smem();              // pw is read by wgmma
+  __syncthreads();                     // pw; the first tile's x, v, m
+
+  // the conv's share: column pair cp (columns 2 cp, 2 cp + 1), the rows
+  // [lb, le) of every sequence (its quarter `warp`)
+  const int cp = lane;
+  const int lb = warp * L / 4, le = (warp + 1) * L / 4;
+  int par = 0;
+  for (int tile = w0; tile < tiles; tile += nw, par ^= 1) {
+    const int n0 = tile * nseq, rows = rows_of(tile);
+    const long long R0 = static_cast<long long>(n0) * L;
+    const bool wlive = 16 * warp < rows;     // a row of this warp is live
+    const float* v_s = vm + par * 2 * TM;
+    const float* m_s = v_s + TM;
+    bool valid[2];
+    int lrow[2];
+    long long grow[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      valid[h] = row[h] < rows;
+      lrow[h] = row[h] % L;
+      grow[h] = R0 + (valid[h] ? row[h] : 0);
+    }
+    // conv 0's dropout: keep bits of the thread's values, drawn once
+    uint32_t kw[2][1] = {{~0u}, {~0u}};
+    if (DROP && wlive)
+      tc_keep_bits<D / 8, true>(drop,
+                                drop.row_key((lane & 1) ? grow[1] : grow[0]),
+                                lane, kw);
+    auto to_r1 = [&](int pr, float2 y) {
+      *reinterpret_cast<float2*>(r1 + r1_at<D>(row[pr & 1],
+                                               8 * (pr >> 1) + cl)) = y;
+    };
+    // c = depthwise_i(t of R1 times v) + dwb rounded to bf16 into C: a
+    // window of the K taps' t v slides down the column pair (R1 whole)
+    auto conv = [&](int i) {
+      float2 w[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) w[j] = ldg2(P.dw(i) + j * D + 2 * cp);
+      const float2 bias = ldg2(P.dwb(i) + 2 * cp);
+      auto tv = [&](int r) {
+        const float2 a = *reinterpret_cast<const float2*>(
+            r1 + r1_at<D>(r, 2 * cp));
+        const float vv = v_s[r];
+        return make_float2(a.x * vv, a.y * vv);
+      };
+      for (int base = 0; base < rows; base += L) {
+        float2 win[K];                 // win[j] = t v of row l + j - pad
+#pragma unroll
+        for (int j = 0; j + 1 < K; ++j) {
+          const int l = lb + j - pad;
+          win[j + 1] = l >= 0 && l < L ? tv(base + l)
+                                       : make_float2(0.f, 0.f);
+        }
+        for (int l = lb; l < le; ++l) {
+#pragma unroll
+          for (int j = 0; j + 1 < K; ++j) win[j] = win[j + 1];
+          win[K - 1] = l + pad < L ? tv(base + l + pad)
+                                   : make_float2(0.f, 0.f);
+          float2 a = bias;
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            a.x = fmaf(w[j].x, win[j].x, a.x);
+            a.y = fmaf(w[j].y, win[j].y, a.y);
+          }
+          *reinterpret_cast<uint32_t*>(c_s + tc::swz(base + l, 2 * cp)) =
+              tc::pack_bf16(a.x, a.y);
+        }
+      }
+      tc::fence_async_smem();
+    };
+    // h += ReLU(c pw_i + pwb_i), c the C tile (whole); every warp takes
+    // part in the product
+    float hv[NV];
+    auto layer = [&](int i) {
+      float acc[NV];
+      tc::fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        tc::mma_ss<D, 0, 1>(
+            acc, tc::make_desc(tc::smem_u32(c_s) + ks * 32, 16),
+            tc::make_desc(pw_s + i * S::PW + ks * 2 * tc::ATOM_BYTES, S::PW),
+            ks > 0);
+      tc::commit();
+      tc::wait_all();
+      tc::fence_regs(acc);
+      if (!wlive) return;
+#pragma unroll
+      for (int pr = 0; pr < NPR; ++pr) {
+        const float2 b = ldg2(P.pwb(i) + 8 * (pr >> 1) + cl);
+        hv[2 * pr] += fmaxf(acc[2 * pr] + b.x, 0.f);
+        hv[2 * pr + 1] += fmaxf(acc[2 * pr + 1] + b.y, 0.f);
+      }
+    };
+
+    // ---- layer 0: h0 = x + pe, LN_0 (times the dropout) into R1 --------
+    if (wlive) {
+      enc_load_h0<D>(hv, [&](int h, int c) {
+        return tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(
+            x_s + tc::swz(row[h], c)));
+      }, pe, valid, lrow, cl);
+      enc_ln<D>(hv, P.ln_s(0), P.ln_b(0), DROP, kw, drop, cl, to_r1);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) hv[j] = 0.f;
+    }
+    wg_sync();                         // R1 is whole; X is read
+    if (tile + nw < tiles) load(tile + nw, par ^ 1);
+    tc::cp_async_commit();
+    conv(0);
+    wg_sync();                         // C is whole; R1's taps are read
+    layer(0);
+    // ---- layer 1 ---------------------------------------------------------
+    if (wlive) enc_ln<D>(hv, P.ln_s(1), P.ln_b(1), false, kw, drop, cl, to_r1);
+    wg_sync();                         // R1 is whole
+    conv(1);
+    wg_sync();                         // C is whole
+    layer(1);
+    // ---- the final LN, then the masked max or the bf16 rows -------------
+    if (reduce) {
+      if (wlive) {
+        // the masked values o m + (m - 1) 1e10 of the thread's two rows
+        const float mr[2] = {m_s[row[0]], m_s[row[1]]};
+        float val[NV];
+        enc_ln<D>(hv, P.lnf_s(), P.lnf_b(), false, kw, drop, cl,
+                  [&](int pr, float2 o) {
+                    const float m = mr[pr & 1];
+                    val[2 * pr] = o.x * m + (m - 1.f) * 1e10f;
+                    val[2 * pr + 1] = o.y * m + (m - 1.f) * 1e10f;
+                  });
+        // a row's max over the rows after it in its sequence and in the
+        // warp: first within each row half (lanes g8 + o), then half 0's
+        // rows take half 1's first row (16 warp + 8) when it is theirs
+        int last[2];                   // the last row of the row's sequence
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          last[h] = min(row[h] - lrow[h] + L, rows) - 1;
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) {
+#pragma unroll
+          for (int j = 0; j < NV; ++j) {
+            const int h = (j >> 1) & 1;
+            const float p = __shfl_down_sync(0xffffffffu, val[j], 4 * o);
+            if (g8 + o < 8 && row[h] + o <= last[h]) val[j] = fmaxf(val[j], p);
+          }
+        }
+        const bool join = 16 * warp + 8 <= last[0];
+#pragma unroll
+        for (int j = 0; j < NV; j += 4) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = __shfl_sync(0xffffffffu, val[j + 2 + e], lane & 3);
+            if (join) val[j + e] = fmaxf(val[j + e], p);
+          }
+        }
+        // the first row of a sequence's rows in the warp keeps their max
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (!valid[h] || (lrow[h] != 0 && (h == 1 || g8 != 0))) continue;
+#pragma unroll
+          for (int q = 0; q < NPR / 2; ++q)
+            *reinterpret_cast<float2*>(h_s + row[h] * D + 8 * q + cl) =
+                make_float2(val[4 * q + 2 * h], val[4 * q + 2 * h + 1]);
+        }
+      }
+      tc::cp_async_wait<0>();          // the next tile's x
+      wg_sync();                       // H holds every piece
+      // a sequence's pieces start at its first row and at each warp's
+      // first row after it
+      for (int idx = t; idx < rows / L * D; idx += 128) {
+        const int sq = idx / D, d = idx % D, first = sq * L;
+        float mx = h_s[first * D + d];
+        for (int r = (first / 16 + 1) * 16; r < first + L; r += 16)
+          mx = fmaxf(mx, h_s[r * D + d]);
+        out[static_cast<size_t>(n0 + sq) * D + d] = __float2bfloat16(mx);
+      }
+    } else {
+      if (wlive)
+        enc_ln<D>(hv, P.lnf_s(), P.lnf_b(), false, kw, drop, cl,
+                  [&](int pr, float2 o) {
+                    *reinterpret_cast<uint32_t*>(
+                        c_s + tc::swz(row[pr & 1], 8 * (pr >> 1) + cl)) =
+                        tc::pack_bf16(o.x, o.y);
+                  });
+      tc::cp_async_wait<0>();          // the next tile's x
+      wg_sync();                       // the output tile is whole
+      for (int q = t; q < rows * (D / 8); q += 128) {
+        const int r = q >> 3, ch = q & 7;
+        *reinterpret_cast<uint4*>(out + (R0 + r) * D + 8 * ch) =
+            *reinterpret_cast<const uint4*>(c_s + tc::swz_chunk(r, ch));
+      }
     }
   }
 }
@@ -638,6 +963,23 @@ int launch_tc_k(const void* x, const float* pe, const float* packed,
         static_cast<const bf16*>(x), pe, packed,
         static_cast<const bf16*>(wp), mask, zmask, static_cast<bf16*>(out),
         N, G, L, nseq, drop));
+  } else if constexpr (D == 64) {
+    // blocks of four warpgroups, each on 64-row tiles of its own; as many
+    // as the tiles need, one an SM at most
+    using S = EncFwd64;
+    auto kern = drop.threshold != 0u ? encoder_fwd_tc64_kernel<K, true>
+                                     : encoder_fwd_tc64_kernel<K, false>;
+    cudaError_t err = allow_smem(kern, S::SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int nseq = TM / L, tiles = (N + nseq - 1) / nseq;
+    const int want = (tiles + S::NWG - 1) / S::NWG;
+    kern<<<want < sms ? want : sms, S::NT, S::SMEM, stream>>>(
+        static_cast<const bf16*>(x), pe, packed, mask, zmask,
+        static_cast<bf16*>(out), N, G, L, nseq, drop);
+    return static_cast<int>(cudaGetLastError());
   } else {
     // one persistent block an SM over tiles of TR rows
     auto kern = encoder_fwd_tc_kernel<D, K>;
@@ -679,8 +1021,9 @@ int launch_width(const void* x, const float* pe, const float* packed,
                  const float* mask, const float* zmask, void* out, void* wp,
                  int N, int G, int L, int k, Dropout drop, int is_bf16,
                  cudaStream_t st) {
-  // the bf16 tile holds whole sequences: TR rows, TM at D = 256
-  if (L > (D == WD ? TM : TR)) return static_cast<int>(cudaErrorInvalidValue);
+  // the bf16 tile holds whole sequences: TR rows at D = 128, TM at 64 and
+  // 256
+  if (L > (D == 128 ? TR : TM)) return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16 && D == WD && wp == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (is_bf16)

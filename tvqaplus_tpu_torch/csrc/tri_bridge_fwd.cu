@@ -24,28 +24,30 @@
 // close behind at ~64 us).
 //
 // Two instantiations.
-// * bfloat16 (what the main paths run): at D = 64 and 128
+// * bfloat16 (what the main paths run): at D = 128
 //   tri_bridge_fwd_tc_kernel<D>, the backward's recompute
 //   (tri_bridge_bwd.cu) without the backward, on the same device
-//   functions (tri_bridge_tc.cuh); at D = 256 tri_bridge_fwd_tc256_kernel
-//   (the notes at the kernel).  The product is a wgmma on
+//   functions (tri_bridge_tc.cuh); at D = 64 and 256
+//   tri_bridge_fwd_tc64_kernel and tri_bridge_fwd_tc256_kernel, designs of
+//   their own (the notes at the kernels).  The product is a wgmma on
 //   bf16 operands with float32 sums, rounded where the TPU kernel's bf16
-//   compute mode rounds (yd and W, pallas_tri_bridge.py:77-79).  One
-//   persistent block an SM walks 64-row tiles; s and v arrive by cp.async
-//   into swizzled panels.  The two warpgroups share a tile and split its
-//   columns (D / 2 each): the LN_in statistics over the virtual concat and
-//   LN_out's row sums cross them through shared memory.  yd goes into a
-//   bf16 tile (the product's A), never to device memory; y1 = yd W stays
-//   in registers through bias, ReLU and LN_out, and the output is stored
-//   once in bf16.  Rows past R (a ragged last tile) are zero and masked.
+//   compute mode rounds (yd and W, pallas_tri_bridge.py:77-79).  At D =
+//   128 one persistent block an SM walks 64-row tiles; s and v arrive by
+//   cp.async into swizzled panels.  The two warpgroups share a tile and
+//   split its columns (D / 2 each): the LN_in statistics over the virtual
+//   concat and LN_out's row sums cross them through shared memory.  yd
+//   goes into a bf16 tile (the product's A), never to device memory; y1 =
+//   yd W stays in registers through bias, ReLU and LN_out, and the output
+//   is stored once in bf16.  Rows past R (a ragged last tile) are zero and
+//   masked, at every D.
 //   - D = 128: W resident (rounded to bf16 as each block loads it, 96 KB,
 //     read MN-major), so W is read once a block, not once a tile; s and v
 //     double-buffered, the next tile's rows loading while this one
 //     computes.  150 registers a thread, 0 bytes of spill; 215.5 KB of
 //     shared memory.
-//   - D = 64: the same at half width, W resident transposed (a warpgroup's
-//     32 columns start inside a swizzled row, where an MN-major operand
-//     cannot start, so W^T is read K-major); 158 registers, 85 KB.
+//   - D = 64: each of three warpgroups a block on 64-row tiles of its own
+//     at all 64 columns (no exchange, no barrier a tile), yd from
+//     registers, W resident (read MN-major), s and v read once.
 //   - D = 256: W (384 KB in bf16) cannot stay resident: rounded once a
 //     call into bf16 slabs, it comes through the copy engine's ring, and
 //     each of the two warpgroups takes 64 rows of its own at all 256
@@ -187,12 +189,12 @@ int launch_f32(const float* s, const float* v, const float* gin,
 
 // ---- the bfloat16 instantiation: tensor cores ------------------------------
 
-// Shared-memory layout at width D = 64 or 128: W resident; the s and v
+// Shared-memory layout at width D = 128: W resident; the s and v
 // tiles, double-buffered ([2 buffers][s, v]); yd (64 x 3D); [2][wg][row][2]
 // sums; gin, bin, bias, gout, bout.
 template <int D>
 struct TriTc {
-  static_assert(D == 64 || D == 128, "W resident");
+  static_assert(D == 128, "D = 64 and 256 have designs of their own");
   static constexpr int O_SV = Shapes<D>::W_BYTES;
   static constexpr int O_YD = O_SV + 2 * 2 * Shapes<D>::TILE_BYTES;
   static constexpr int O_EX = O_YD + 3 * (D / 64) * TILE_PANEL;
@@ -240,10 +242,7 @@ tri_bridge_fwd_tc_kernel(const __nv_bfloat16* __restrict__ s,
     gout_s[tid] = gout[tid];
     bout_s[tid] = bout[tid];
   }
-  if constexpr (D == 128)
-    tc_store_rows_f32<D>(w_s, Shapes<D>::W_ROWS, W, D, tid, NTHREADS);
-  else
-    tri_store_wt<D>(w_s, W, tid);
+  tc_store_rows_f32<D>(w_s, Shapes<D>::W_ROWS, W, D, tid, NTHREADS);
   const long long tiles = (R + TM - 1) / TM;
   // cp.async of the s and v rows of `tile` into buffer `buf` (rows past R
   // zeroed)
@@ -326,6 +325,281 @@ int launch_tc(const void* s, const void* v, const float* gin,
   tri_bridge_fwd_tc_kernel<D><<<blocks, NTHREADS, smem, stream>>>(
       h(s), h(v), gin, bin, W, bias, gout, bout, static_cast<bf16*>(out), R,
       drop);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the bfloat16 instantiation at D = 64: warpgroups on tiles of their own
+//
+// At D = 64 a thread's share of a 64-row tile at all 64 columns is 32
+// accumulator values and its 16 pairs of s and of v, so the SM takes three
+// warpgroups (384 threads at 168 registers), each walking 64-row tiles of
+// its own (warpgroup w of block b takes tiles 3 b + w, 3 b + w + 3 G, ...
+// over a grid of G blocks), as the backward at this width does.  What the
+// design does about the card:
+// * A warpgroup owns all 64 columns of its rows, so the product is a wgmma
+//   of N = 64 and LN_in's and LN_out's row sums are a quad's shuffles: no
+//   exchange between warpgroups and no barrier of any kind a tile.  Each
+//   warp copies, reads, stages and stores only its own 16 rows (its lanes
+//   meet at __syncwarp), so the warps of a warpgroup meet only in the
+//   products.
+// * s and v are read from shared memory once: the thread's 16 pairs of
+//   each, packed, give LN_in's statistics and then yd.
+// * yd never forms a tile: the product takes its A from registers (mma_rs),
+//   each group's four depth steps built while the group before runs (two
+//   groups' fragments in flight).  W stays resident in bf16 (24 KB, rounded
+//   as each block loads it, read MN-major).
+// * Two slots of s and v a warpgroup: the next tile's rows are copied
+//   (cp.async) into the other slot before this tile's product; the output
+//   goes in bf16 through this tile's s rows (read by then), then out as
+//   whole 128-byte rows.
+// * DROP false (serving) holds no Philox code; DROP true draws the keep
+//   bits of the thread's 3 x 32 values at the start of a tile, before any
+//   accumulator is live (philox.cuh key3).
+// Shared memory: W, the parameter vectors, three rooms of two slots:
+// 126,976 bytes.
+struct TriFwd64 {
+  static constexpr int D = 64;
+  static constexpr int NWG = 3;                       // warpgroups a block
+  static constexpr int NT = 128 * NWG;                // threads a block
+  static constexpr int TILE = TILE_PANEL;             // 64 x 64 bf16
+  static constexpr int O_W = 0;                       // W (3D x D) bf16
+  static constexpr int O_PV = O_W + 3 * D * tc::ROW_BYTES;  // gin .. bout
+  static constexpr int A = tc::ATOM_BYTES;
+  static constexpr int O_ROOM = (O_PV + 9 * D * 4 + A - 1) / A * A;
+  // a warpgroup's room: two slots of a tile's s and v
+  static constexpr int SLOT = 2 * TILE;
+  static constexpr int ROOM = 2 * SLOT;
+  static constexpr int SMEM = O_ROOM + NWG * ROOM + tc::ATOM_BYTES;
+  static_assert(SMEM <= 232448, "shared memory of a block");
+};
+
+template <bool DROP>
+__global__ void __launch_bounds__(TriFwd64::NT, 1)
+tri_bridge_fwd_tc64_kernel(const __nv_bfloat16* __restrict__ s,
+                           const __nv_bfloat16* __restrict__ v,
+                           const float* __restrict__ gin,
+                           const float* __restrict__ bin,
+                           const float* __restrict__ W,
+                           const float* __restrict__ bias,
+                           const float* __restrict__ gout,
+                           const float* __restrict__ bout,
+                           __nv_bfloat16* __restrict__ out, long long R,
+                           Dropout drop) {
+  using S = TriFwd64;
+  constexpr int D = S::D, NPR = D / 4;       // the thread's pairs a tile
+  if (DROP) drop.load_seed();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align_smem(smem_raw);
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
+  const int warp = t >> 5, lane = tid & 31;
+  const int rl = 16 * warp + (lane >> 2), cl = 2 * (lane & 3);
+  float* gin_s = reinterpret_cast<float*>(sm + S::O_PV);
+  float* bin_s = gin_s + 3 * D;
+  float* bias_s = bin_s + 3 * D;
+  float* gout_s = bias_s + D;
+  float* bout_s = gout_s + D;
+  uint8_t* room = sm + S::O_ROOM + wg * S::ROOM;
+  const uint32_t w_a = tc::smem_u32(sm + S::O_W);
+  // the warpgroup's tiles: w0, w0 + nw, ..; tile j's rows in slot j % 2
+  const long long tiles = (R + TM - 1) / TM;
+  const long long nw = static_cast<long long>(S::NWG) * gridDim.x;
+  const long long w0 = static_cast<long long>(S::NWG) * blockIdx.x + wg;
+  const int n = w0 < tiles ? static_cast<int>((tiles - 1 - w0) / nw) + 1 : 0;
+  auto rows_of = [&](long long tile) {
+    return static_cast<int>(min(static_cast<long long>(TM), R - tile * TM));
+  };
+  // the warp's 16 rows of s and v of the walk's tile j into slot j % 2 by
+  // cp.async (rows past R zeroed)
+  auto load = [&](int j) {
+    const long long r0 = (w0 + j * nw) * TM;
+    const int rows = rows_of(w0 + j * nw);
+    uint8_t* sl = room + (j & 1) * S::SLOT;
+    for (int c = lane; c < 2 * 16 * 8; c += 32) {
+      const int which = c >> 7, r = 16 * warp + ((c >> 3) & 15), ch = c & 7;
+      uint8_t* d = sl + which * S::TILE + tc::swz_chunk(r, ch);
+      if (r < rows)
+        tc::cp_async16(d, (which ? v : s) + (r0 + r) * D + ch * 8);
+      else
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  if (n > 0) load(0);
+  tc::cp_async_commit();
+  tc_store_rows_f32<D>(sm + S::O_W, 3 * D, W, D, tid, S::NT);
+  for (int k = tid; k < 3 * D; k += S::NT) {
+    gin_s[k] = gin[k];
+    bin_s[k] = bin[k];
+  }
+  if (tid < D) {
+    bias_s[tid] = bias[tid];
+    gout_s[tid] = gout[tid];
+    bout_s[tid] = bout[tid];
+  }
+  tc::fence_async_smem();              // W is read by wgmma
+  __syncthreads();                     // W, the parameters
+
+  for (int j = 0; j < n; ++j) {
+    const long long r0 = (w0 + j * nw) * TM;
+    const int rows = rows_of(w0 + j * nw);
+    if (j + 1 < n) load(j + 1);        // the other slot: read last tile
+    tc::cp_async_commit();
+    // the keep bits of the three groups (row[h]: the rows' keys, those
+    // past R keyed as row 0), while the rows land
+    uint32_t kw[3][2];
+    if constexpr (DROP) {
+      long long row[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        row[h] = rl + 8 * h < rows ? r0 + rl + 8 * h : 0;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        uint32_t k2[2][1];
+        tc_keep_bits<D / 8, true>(
+            drop, drop.key3((lane & 1) ? row[1] : row[0], g, 0), lane, k2);
+        kw[g][0] = k2[0][0];
+        kw[g][1] = k2[1][0];
+      }
+    }
+    tc::cp_async_wait<1>();            // this tile's rows
+    __syncwarp();
+    uint8_t* s_s = room + (j & 1) * S::SLOT;
+    const uint8_t* v_s = s_s + S::TILE;
+    // ---- LN_in statistics over [s; v; s * v], the pairs read once --------
+    uint32_t sp[NPR], vp[NPR];
+    float mean[2] = {0.f, 0.f}, istd[2] = {0.f, 0.f};
+#pragma unroll
+    for (int pr = 0; pr < NPR; ++pr) {
+      const int h = pr & 1, at = tc::swz(rl + 8 * h, 8 * (pr >> 1) + cl);
+      sp[pr] = *reinterpret_cast<const uint32_t*>(s_s + at);
+      vp[pr] = *reinterpret_cast<const uint32_t*>(v_s + at);
+      const float2 a = tc::unpack_bf16(sp[pr]), b = tc::unpack_bf16(vp[pr]);
+      const float x0 = a.x * b.x, x1 = a.y * b.y;
+      mean[h] += (a.x + a.y) + (b.x + b.y) + (x0 + x1);
+      istd[h] += fmaf(a.x, a.x, a.y * a.y) + fmaf(b.x, b.x, b.y * b.y)
+                 + fmaf(x0, x0, x1 * x1);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mean[h] = quad_sum(mean[h]) * drop.inv3;
+      istd[h] = rsqrtf(fmaxf(quad_sum(istd[h]) * drop.inv3
+                             - mean[h] * mean[h], 0.f) + LN_EPS);
+    }
+    // yd's A fragments of group g: depth step kk's four registers hold the
+    // pairs at (row, k), (row + 8, k), (row, k + 8), (row + 8, k + 8), k =
+    // 16 kk + 2 (lane % 4): the thread's pairs 4 kk .. 4 kk + 3
+    auto build = [&](int g, uint32_t (&f)[4][4]) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int pr = 4 * kk + u, h = u & 1, q = pr >> 1, c = 8 * q + cl;
+          const float2 a = tc::unpack_bf16(sp[pr]);
+          const float2 b = tc::unpack_bf16(vp[pr]);
+          const float x0 = g == 0 ? a.x : (g == 1 ? b.x : a.x * b.x);
+          const float x1 = g == 0 ? a.y : (g == 1 ? b.y : a.y * b.y);
+          const float2 gi = *reinterpret_cast<const float2*>(gin_s + g * D
+                                                             + c);
+          const float2 bi = *reinterpret_cast<const float2*>(bin_s + g * D
+                                                             + c);
+          float k0 = 1.f, k1 = 1.f;
+          if constexpr (DROP) {
+            const uint32_t bits = kw[g][h] >> (4 * q);
+            k0 = bits & 1u ? drop.scale : 0.f;
+            k1 = bits & 2u ? drop.scale : 0.f;
+          }
+          f[kk][u] = tc::pack_bf16(
+              ((x0 - mean[h]) * istd[h] * gi.x + bi.x) * k0,
+              ((x1 - mean[h]) * istd[h] * gi.y + bi.y) * k1);
+        }
+    };
+    float acc[D / 2];
+    auto issue = [&](int g, const uint32_t (&f)[4][4]) {
+      tc::fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tc::mma_rs<D, 1>(
+            acc, f[kk],
+            tc::make_desc(w_a + (4 * g + kk) * 2 * tc::ATOM_BYTES,
+                          Shapes<D>::W_PANEL),
+            g > 0 || kk > 0);
+      tc::commit();
+    };
+    // ---- y1 = yd W, a group's fragments built while the one before runs --
+    uint32_t fa[2][4][4];
+    build(0, fa[0]);
+    issue(0, fa[0]);
+    build(1, fa[1]);
+    issue(1, fa[1]);
+    tc::wait<1>();                     // group 0 is done: its registers free
+    build(2, fa[0]);
+    issue(2, fa[0]);
+    tc::wait<0>();
+    tc::fence_regs(acc);
+    // ---- bias, ReLU, LN_out (the row's sums a quad's) ----------------------
+    float m2[2] = {0.f, 0.f}, i2[2] = {0.f, 0.f};
+#pragma unroll
+    for (int pr = 0; pr < NPR; ++pr) {
+      const int h = pr & 1;
+      const float2 bv = *reinterpret_cast<const float2*>(
+          bias_s + 8 * (pr >> 1) + cl);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        acc[2 * pr + e] += e ? bv.y : bv.x;                // y1
+        const float y2 = fmaxf(acc[2 * pr + e], 0.f);
+        m2[h] += y2;
+        i2[h] = fmaf(y2, y2, i2[h]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m2[h] = quad_sum(m2[h]) * drop.inv1;
+      i2[h] = rsqrtf(fmaxf(quad_sum(i2[h]) * drop.inv1 - m2[h] * m2[h],
+                           0.f) + LN_EPS);
+    }
+    // ---- out in bf16 through the warp's rows of the s slot, then whole
+    // rows out (8 lanes a row) ----------------------------------------------
+#pragma unroll
+    for (int pr = 0; pr < NPR; ++pr) {
+      const int h = pr & 1, c = 8 * (pr >> 1) + cl;
+      const float2 go = *reinterpret_cast<const float2*>(gout_s + c);
+      const float2 bo = *reinterpret_cast<const float2*>(bout_s + c);
+      *reinterpret_cast<uint32_t*>(s_s + tc::swz(rl + 8 * h, c)) =
+          tc::pack_bf16(
+              (fmaxf(acc[2 * pr], 0.f) - m2[h]) * i2[h] * go.x + bo.x,
+              (fmaxf(acc[2 * pr + 1], 0.f) - m2[h]) * i2[h] * go.y + bo.y);
+    }
+    __syncwarp();
+    for (int q = lane; q < 16 * 8; q += 32) {
+      const int r = 16 * warp + (q >> 3), ch = q & 7;
+      if (r < rows)
+        *reinterpret_cast<uint4*>(out + (r0 + r) * D + 8 * ch) =
+            *reinterpret_cast<const uint4*>(s_s + tc::swz_chunk(r, ch));
+    }
+    __syncwarp();                      // the slot is read: it may refill
+  }
+}
+
+// The bf16 forward at D = 64: blocks of three warpgroups, as many as the
+// tiles need, one an SM at most.
+int launch_tc64(const void* s, const void* v, const float* gin,
+                const float* bin, const float* W, const float* bias,
+                const float* gout, const float* bout, void* out, long long R,
+                Dropout drop, cudaStream_t stream) {
+  using bf16 = __nv_bfloat16;
+  using S = TriFwd64;
+  auto h = [](const void* p) { return static_cast<const bf16*>(p); };
+  auto kern = drop.threshold != 0u ? tri_bridge_fwd_tc64_kernel<true>
+                                   : tri_bridge_fwd_tc64_kernel<false>;
+  cudaError_t err = allow_smem(kern, S::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long want = (R + S::NWG * TM - 1) / (S::NWG * TM);
+  const int blocks = static_cast<int>(want < sms ? want : sms);
+  kern<<<blocks, S::NT, S::SMEM, stream>>>(h(s), h(v), gin, bin, W, bias,
+                                           gout, bout,
+                                           static_cast<bf16*>(out), R, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -706,6 +980,9 @@ int launch_width(const void* s, const void* v, const float* gin,
     if constexpr (D == 256)
       return launch_tc256(s, v, gin, bin, W, wp, bias, gout, bout, out, R,
                           drop, st);
+    else if constexpr (D == 64)
+      return launch_tc64(s, v, gin, bin, W, bias, gout, bout, out, R, drop,
+                         st);
     else
       return launch_tc<D>(s, v, gin, bin, W, bias, gout, bout, out, R,
                           drop, st);

@@ -10,10 +10,9 @@
 // Row statistics cross the warpgroups through shared memory
 // (tri_row_pair_sums).  s and v arrive as bf16 tiles (D / 64 panels of 64
 // rows, 128-byte swizzle).  W is resident at D = 128 as 2 panels of 3D rows
-// (read MN-major) and at D = 64 transposed, as 3 panels of D rows (read
-// K-major: a warpgroup's 32 columns are half a swizzled row, which an
-// MN-major operand cannot start at).  (The forward at D = 256,
-// tri_bridge_fwd.cu, has a design of its own.)
+// (read MN-major).  (The forwards at D = 64 and 256, tri_bridge_fwd.cu,
+// have designs of their own; the backward at 256 takes the row passes
+// here.)
 #pragma once
 
 #include "philox.cuh"
@@ -108,8 +107,8 @@ __device__ __forceinline__ void tri_yd_tile(
       const uint32_t y = tc::pack_bf16(
           ((x0 - mean[h]) * istd[h] * gin_s[k] + bin_s[k]) * k0,
           ((x1 - mean[h]) * istd[h] * gin_s[k + 1] + bin_s[k + 1]) * k1);
-      // a warpgroup's columns start at panel wg D / 128 (mid-panel at
-      // D = 64), and a chunk of 8 never crosses a panel
+      // a warpgroup's columns start at panel wg D / 128, and a chunk of 8
+      // never crosses a panel
       *reinterpret_cast<uint32_t*>(yd_s + (g * (D / 64) + wg * (D / 128)
                                            + (q >> 3)) * TILE_PANEL
                                    + tc::swz(rl + 8 * h, c & 63)) = y;
@@ -118,51 +117,24 @@ __device__ __forceinline__ void tri_yd_tile(
     }
 }
 
-// W^T (D rows n x 3D columns k) rounded to bf16 into 3D / 64 panels of D
-// rows, the K-major B operand of tri_y1_mma at D = 64 (the forward and the
-// backward); every thread.
-template <int D>
-__device__ __forceinline__ void tri_store_wt(uint8_t* w_s, const float* W,
-                                             int tid) {
-  constexpr int CH = 3 * D / 8;                     // 16-byte chunks a row
-  for (int c = tid; c < D * CH; c += NTHREADS) {
-    const int n = c / CH, ch = c % CH;
-    float e[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      e[j] = __ldg(W + static_cast<size_t>(8 * ch + j) * D + n);
-    *reinterpret_cast<uint4*>(w_s + (ch >> 3) * (D * tc::ROW_BYTES)
-                              + tc::swz_chunk(n, ch & 7)) =
-        make_uint4(tc::pack_bf16(e[0], e[1]), tc::pack_bf16(e[2], e[3]),
-                   tc::pack_bf16(e[4], e[5]), tc::pack_bf16(e[6], e[7]));
-  }
-}
-
 // acc = yd W on the warpgroup's D / 2 columns (yd K-major from its tile;
-// W resident: MN-major at D = 128, transposed and K-major at D = 64).
+// W resident, read MN-major).
 template <int D = BWD_D>
 __device__ __forceinline__ void tri_y1_mma(float (&acc)[D / 4],
                                            const uint8_t* yd_s,
                                            const uint8_t* w_s, int wg) {
-  static_assert(D == 64 || D == 128, "W is resident at D = 64 and 128");
+  static_assert(D == 128, "W is resident at D = 128");
   tc::fence();
 #pragma unroll
   for (int ks = 0; ks < 3 * D / 16; ++ks) {
     const uint64_t a = tc::make_desc(tc::smem_u32(yd_s)
                                      + (ks / 4) * TILE_PANEL + (ks % 4) * 32,
                                      16);
-    if constexpr (D == 128)
-      tc::mma_ss<64, 0, 1>(
-          acc, a,
-          tc::make_desc(tc::smem_u32(w_s) + wg * W_PANEL
-                            + ks * 2 * tc::ATOM_BYTES, W_PANEL),
-          ks > 0);
-    else
-      tc::mma_ss<32, 0, 0>(
-          acc, a,
-          tc::make_desc(tc::smem_u32(w_s) + (ks / 4) * (D * tc::ROW_BYTES)
-                            + wg * 32 * tc::ROW_BYTES + (ks % 4) * 32, 16),
-          ks > 0);
+    tc::mma_ss<64, 0, 1>(
+        acc, a,
+        tc::make_desc(tc::smem_u32(w_s) + wg * W_PANEL
+                          + ks * 2 * tc::ATOM_BYTES, W_PANEL),
+        ks > 0);
   }
   tc::commit();
   tc::wait_all();

@@ -2,10 +2,12 @@
 width's instantiations hold in shared memory.
 
 The three forward families (``csrc/qa_ctx_attention_fwd.cu``,
-``csrc/tri_bridge_fwd.cu``, ``csrc/encoder_fwd.cu``) take D as a template
-parameter and are built for 64, 128 and 256; one C entry per family takes D
-and refuses any other width.  At D = 64 and 128 each bf16 (tensor-core)
-kernel keeps its weight resident in shared memory ("resident"); at D = 256
+``csrc/tri_bridge_fwd.cu``, ``csrc/encoder_fwd.cu``) are built for 64, 128
+and 256; one C entry per family takes D and refuses any other width.  At
+D = 64 each bf16 (tensor-core) kernel is a design of its own, blocks of
+three or four warpgroups each on 64-row tiles (or the attention's items)
+of its own.  At D = 64 and 128 each bf16 kernel keeps its weight resident in
+shared memory ("resident"); at D = 256
 it does not fit, so the weight streams ("streamed"): rounded to bf16 once
 a call into slabs of 32 rows (``slab_scratch``) that the copy engine
 brings through a ring, the encoder's and the attention's shared by the
@@ -81,6 +83,10 @@ ATT64_WARPGROUPS = 3
 # the tri bridge's bf16 backward at D = 64 (csrc/tri_bridge_bwd_wide.cu
 # Tri64): blocks of this many warpgroups, each on 64-row tiles of its own
 TRI64_WARPGROUPS = 3
+# the bf16 forwards of the encoder and the tri bridge at D = 64
+# (csrc/encoder_fwd.cu EncFwd64, csrc/tri_bridge_fwd.cu TriFwd64): blocks of
+# this many warpgroups, each on 64-row tiles of its own
+ENC64_FWD_WARPGROUPS, TRI64_FWD_WARPGROUPS = 4, 3
 
 
 MAX_WIDTH = 256
@@ -162,6 +168,11 @@ def _stage(d, kp):
     return kp * d * 2
 
 
+def _atoms(n):
+    """``n`` bytes rounded up to whole 1024-byte atoms."""
+    return -(-n // _ATOM) * _ATOM
+
+
 def tc_smem_bytes(family, d):
     """Dynamic shared memory of ``family``'s bf16 forward at width ``d``."""
     check_forward_width(family, d)
@@ -189,6 +200,10 @@ def tc_smem_bytes(family, d):
             slots = TRI256_FWD_SLOTS
             return (2 * 2 * tile + slots * SLAB_BYTES + 2 * slots * 8 + 16
                     + 9 * d * 4 + _ATOM)
+        if d == 64:       # TriFwd64: W; gin, bin, bias, gout, bout (to an
+            # atom); a room a warpgroup of two slots of a tile's s and v
+            return (_atoms(w_bytes + 9 * d * 4)
+                    + TRI64_FWD_WARPGROUPS * 2 * 2 * tile + _ATOM)
         return (w_bytes + 2 * 2 * tile + 3 * panels * tile_panel  # TriTc
                 + 2 * 2 * _TM * 2 * 4 + 9 * d * 4 + _ATOM)
     if family == "encoder":
@@ -198,8 +213,13 @@ def tc_smem_bytes(family, d):
             return (_TM * d * 4 + tile + slots * SLAB_BYTES
                     + 2 * slots * 8 + 2 * _TM * 2 * 4 + 2 * 2 * _TM * 4
                     + _ATOM)
-        pw = panels * d * _ROW                       # EncTc
-        return (2 * pw + _TR * d * 4 + panels * _TR * _ROW
+        pw = panels * d * _ROW
+        if d == 64:       # EncFwd64: pw0, pw1; a room a warpgroup: the c
+            # tile (the output's staging) and the x tile in bf16, R1 and H
+            # in float32, v and m twice (to an atom)
+            room = _atoms(2 * tile + 2 * _TM * d * 4 + 2 * 2 * _TM * 4)
+            return 2 * pw + ENC64_FWD_WARPGROUPS * room + _ATOM
+        return (2 * pw + _TR * d * 4 + panels * _TR * _ROW      # EncTc
                 + 2 * 2 * _TR * 4 + _ATOM)
     raise ValueError(f"unknown kernel family {family!r}")
 
